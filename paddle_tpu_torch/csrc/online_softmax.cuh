@@ -1,0 +1,108 @@
+// The page-streaming attention reduction shared by the port's decode
+// kernels: port of paddle_tpu/ops/pallas/_util.py's
+// online_softmax_page_update and clamped_page_index.
+//
+// The JAX package keeps these two helpers single-definition so that the
+// unfused paged-decode kernel and the fused decode-block kernel reduce
+// identically, op for op (their bit-parity contract). This header is the
+// port's one definition of the same two helpers: every CUDA kernel that
+// streams KV pages through an online softmax includes it.
+//
+// Layout contract (all pointers into shared memory, all f32 except K/V):
+//   q      [groups][hd]  the query heads of one KV head, already f32
+//   k, v   [bs][hd]      one page of one KV head, in the pool's type
+//   s      [groups][bs]  scratch; holds the page's probabilities on return
+//   m, l   [groups]      running max and running sum of the softmax
+//   alpha  [groups]      scratch (rescale factor of this page)
+//   acc    [groups][hd]  running, unnormalised output
+// Every thread of the block must call it (it synchronises the block).
+// The caller synchronises before it overwrites k or v afterwards.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <math_constants.h>
+
+namespace paddle_tpu_torch {
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Logical page ``pg`` of a sequence of ``seq_len`` tokens, clamped to its
+// last live page, so a fetch never reads a block-table entry past it
+// (entries there are padding or belong to nobody).
+__device__ __forceinline__ int clamped_page_index(int seq_len, int bs,
+                                                  int pg) {
+  int last = max(seq_len - 1, 0) / bs;
+  return min(pg, last);
+}
+
+// One KV page's online-softmax update (see the layout contract above).
+// Tokens at or after ``seq_len`` are masked out; callers only pass pages
+// that hold at least one live token.
+template <typename T>
+__device__ __forceinline__ void online_softmax_page_update(
+    const float* q, const T* k, const T* v, int pg, int bs, int seq_len,
+    float scale, int groups, int hd, float* s, float* m, float* l,
+    float* alpha, float* acc) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  // scores: one warp per (query head, token), lanes split head_dim
+  for (int idx = warp; idx < groups * bs; idx += nwarps) {
+    const int g = idx / bs;
+    const int t = idx - g * bs;
+    float dot = 0.f;
+    for (int d = lane; d < hd; d += 32)
+      dot += q[g * hd + d] * to_float(k[t * hd + d]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (lane == 0)
+      s[idx] = (pg * bs + t < seq_len) ? dot * scale : -CUDART_INF_F;
+  }
+  __syncthreads();
+
+  // running max / sum: one thread per query head
+  for (int g = tid; g < groups; g += blockDim.x) {
+    float* sg = s + g * bs;
+    const float m_prev = m[g];
+    float m_new = m_prev;
+    for (int t = 0; t < bs; ++t) m_new = fmaxf(m_new, sg[t]);
+    float sum = 0.f;
+    for (int t = 0; t < bs; ++t) {
+      const float p = (pg * bs + t < seq_len) ? expf(sg[t] - m_new) : 0.f;
+      sg[t] = p;
+      sum += p;
+    }
+    const float a = expf(m_prev - m_new);  // 0 on the first page (-inf)
+    l[g] = a * l[g] + sum;
+    alpha[g] = a;
+    m[g] = m_new;
+  }
+  __syncthreads();
+
+  // acc = alpha * acc + p @ v, one output element per thread
+  for (int i = tid; i < groups * hd; i += blockDim.x) {
+    const int g = i / hd;
+    const int d = i - g * hd;
+    const float* pg_row = s + g * bs;
+    float a = acc[i] * alpha[g];
+    for (int t = 0; t < bs; ++t) a += pg_row[t] * to_float(v[t * hd + d]);
+    acc[i] = a;
+  }
+}
+
+}  // namespace paddle_tpu_torch

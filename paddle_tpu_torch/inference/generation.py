@@ -1,0 +1,239 @@
+"""Autoregressive generation with a KV cache (port of
+``paddle_tpu/inference/generation.py``, serving side, unfused route).
+
+PyTorch runs eagerly, so what the JAX package wrote as jitted programs and
+``lax.scan`` loops are plain Python loops over the layers here. The
+caches are updated in place where the JAX package returned new arrays:
+``cached_forward`` writes the new tokens' K/V into the caches it is given,
+and ``_paged_decode_step`` writes the new token's K/V into the pools.
+
+Dense cache layout: [L, B, T_max, KV, hd]. Paged pools: [L, N, BS, KV, hd].
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import llama as _llama
+from ..ops import rms_norm, swiglu
+from ..ops.paged_attention import paged_attention_decode, write_to_pool
+from ..ops.rope import apply_rope, build_rope_cache
+
+__all__ = ["GenerationConfig", "init_cache", "cached_forward",
+           "sample_token", "generate"]
+
+
+@dataclass
+class GenerationConfig:
+    """Sampling and scheduling knobs of a request (the JAX package's
+    fields). ``priority``/``deadline_s`` are ServingEngine.submit()
+    defaults; lower priority = more urgent, ``deadline_s`` bounds queue
+    wait."""
+
+    max_new_tokens: int = 64
+    temperature: float = 1.0
+    top_k: int = 0            # 0 = disabled
+    top_p: float = 1.0        # 1.0 = disabled
+    eos_token_id: int = -1    # -1 = never stop early
+    greedy: bool = False
+    priority: int = 1
+    deadline_s: Optional[float] = None
+
+
+def _mm(h, w):
+    """``h @ w``. Quantized weight leaves (``{"qw8"|"qw4": ...}``) come
+    with the weight-quantization slice."""
+    if isinstance(w, dict):
+        raise NotImplementedError(
+            "quantized weights are not ported yet (weight-quantization "
+            "slice)")
+    return h @ w
+
+
+def _repeat_kv(x, n):
+    """[B, T, KV, hd] -> [B, T, KV*n, hd] (dense-cache GQA expansion)."""
+    if n == 1:
+        return x
+    b, t, kv, hd = x.shape
+    return x[:, :, :, None, :].expand(b, t, kv, n, hd).reshape(
+        b, t, kv * n, hd)
+
+
+def _layer(params, i):
+    """Layer ``i``'s weights as views into the stacked ``layers`` dict."""
+    return {k: w[i] for k, w in params["layers"].items()}
+
+
+def _head(params):
+    head = params.get("lm_head")
+    return params["embed_tokens"].T if head is None else head
+
+
+def init_cache(cfg: _llama.LlamaConfig, batch: int, max_len: int,
+               device=None):
+    device = resolve_device(device)
+    shape = (cfg.num_hidden_layers, batch, max_len,
+             cfg.num_key_value_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def _cached_layer(lp, x, sin, cos, cfg, kc, vc, pos):
+    """Decoder block over S new tokens at absolute position ``pos``.
+    kc/vc: [B, T, KV, hd], written in place at ``pos..pos+S-1``."""
+    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    b, s, _ = x.shape
+    T = kc.shape[1]
+    h = rms_norm(x, lp["input_norm"].to(x.dtype), cfg.rms_norm_eps)
+    q = _mm(h, lp["q_proj"]).reshape(b, s, H, hd)
+    k = _mm(h, lp["k_proj"]).reshape(b, s, KV, hd)
+    v = _mm(h, lp["v_proj"]).reshape(b, s, KV, hd)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    kc[:, pos:pos + s] = k.to(kc.dtype)
+    vc[:, pos:pos + s] = v.to(vc.dtype)
+
+    rep = H // KV
+    kk = _repeat_kv(kc, rep)    # [B, T, H, hd]
+    vv = _repeat_kv(vc, rep)
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), kk.float()) * scale
+    # causal over absolute positions: query i at pos+i sees keys <= pos+i
+    t_idx = torch.arange(T, device=x.device)[None, None, None, :]
+    q_idx = pos + torch.arange(s, device=x.device)[None, None, :, None]
+    scores = scores.masked_fill(t_idx > q_idx, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    attn = torch.einsum("bhst,bthd->bshd", probs, vv.float())
+    attn = attn.to(x.dtype).reshape(b, s, H * hd)
+    x = x + _mm(attn, lp["o_proj"])
+    h = rms_norm(x, lp["post_norm"].to(x.dtype), cfg.rms_norm_eps)
+    ff = swiglu(_mm(h, lp["gate_proj"]), _mm(h, lp["up_proj"]))
+    x = x + _mm(ff, lp["down_proj"])
+    return x, kc, vc
+
+
+def cached_forward(params: Dict, tokens, cfg: _llama.LlamaConfig,
+                   k_cache, v_cache, pos: int):
+    """Forward over S tokens starting at absolute position ``pos``.
+    Writes their K/V into the caches in place and returns (logits
+    [B, S, V], k_cache, v_cache)."""
+    s = tokens.shape[1]
+    T = k_cache.shape[2]
+    if pos < 0 or pos + s > T:
+        raise ValueError(f"tokens at {pos}..{pos + s - 1} do not fit a "
+                         f"cache of {T} positions")
+    x = params["embed_tokens"][tokens.long()]
+    sin_full, cos_full = build_rope_cache(T, cfg.head_dim,
+                                          base=cfg.rope_theta,
+                                          device=x.device)
+    sin, cos = sin_full[pos:pos + s], cos_full[pos:pos + s]
+    for i in range(cfg.num_hidden_layers):
+        x, _, _ = _cached_layer(_layer(params, i), x, sin, cos, cfg,
+                                k_cache[i], v_cache[i], pos)
+    x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.rms_norm_eps)
+    return x @ _head(params), k_cache, v_cache
+
+
+def _gumbel(shape, generator, device):
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
+def sample_token(logits, gen: GenerationConfig,
+                 generator: Optional[torch.Generator] = None):
+    """[B, V] -> [B] next tokens: greedy (``greedy`` or temperature 0;
+    the first maximum, as ``jnp.argmax``) or temperature sampling with
+    ``generator`` (Gumbel-max, the form of ``jax.random.categorical``;
+    the numbers differ from JAX's). Top-k/top-p come with a later
+    slice."""
+    logits = logits.float()
+    if gen.greedy or gen.temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    if gen.top_k > 0 or gen.top_p < 1.0:
+        raise NotImplementedError("top-k/top-p sampling is not ported yet")
+    logits = logits / max(gen.temperature, 1e-6)
+    return torch.argmax(
+        logits + _gumbel(logits.shape, generator, logits.device), dim=-1)
+
+
+def generate(params: Dict, input_ids, cfg: _llama.LlamaConfig,
+             gen: Optional[GenerationConfig] = None, seed: int = 0,
+             device=None) -> torch.Tensor:
+    """Dense-cache generation. input_ids [B, S_in] -> [B, S_in + N].
+
+    Prefill, then N-1 single-token steps over a dense [L, B, S_in+N, KV,
+    hd] cache: the same math as the JAX ``generate``, and the in-port
+    oracle the paged serving engine is held against. ``params`` must lie
+    on ``device``."""
+    gen = gen or GenerationConfig()
+    device = resolve_device(device)
+    ids = torch.as_tensor(np.asarray(input_ids), device=device).long()
+    B, S = ids.shape
+    N = gen.max_new_tokens
+    generator = torch.Generator(device=device).manual_seed(int(seed))
+    k_cache, v_cache = init_cache(cfg, B, S + N, device=device)
+    logits, _, _ = cached_forward(params, ids, cfg, k_cache, v_cache, 0)
+    tok = sample_token(logits[:, -1], gen, generator)
+    done = tok == gen.eos_token_id
+    out = [tok]
+    for i in range(N - 1):
+        logits, _, _ = cached_forward(params, tok[:, None], cfg, k_cache,
+                                      v_cache, S + i)
+        nxt = sample_token(logits[:, -1], gen, generator)
+        nxt = torch.where(done, gen.eos_token_id, nxt)
+        done = done | (nxt == gen.eos_token_id)
+        out.append(nxt)
+        tok = nxt
+    return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+
+
+def _paged_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
+                       seq_lens, rope=None):
+    """One decode token per sequence over paged pools.
+
+    tok: [B] current tokens; k_pools/v_pools: [L, N, BS, KV, hd];
+    block_tables: [B, MB] int32; seq_lens: [B] int32 lengths BEFORE the
+    current token (the new token is written at seq_lens, rope takes
+    position seq_lens, and attention runs over seq_lens+1 tokens).
+    ``rope``: a (sin, cos) table of ``cfg.max_position_embeddings`` rows
+    to reuse across steps; built here when None.
+    Returns (logits [B, V], k_pools, v_pools), pools updated in place.
+    """
+    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    B = tok.shape[0]
+    x = params["embed_tokens"][tok.long()]               # [B, D]
+    pos_ids = seq_lens[:, None]       # [B, 1] rope position per sequence
+    if rope is None:
+        rope = build_rope_cache(cfg.max_position_embeddings, hd,
+                                base=cfg.rope_theta, device=x.device)
+    sin, cos = rope
+    attn_lens = seq_lens + 1
+    for i in range(cfg.num_hidden_layers):
+        lp = _layer(params, i)
+        kp, vp = k_pools[i], v_pools[i]
+        h = rms_norm(x[:, None], lp["input_norm"].to(x.dtype),
+                     cfg.rms_norm_eps)[:, 0]
+        q = _mm(h, lp["q_proj"]).reshape(B, 1, H, hd)
+        k = _mm(h, lp["k_proj"]).reshape(B, 1, KV, hd)
+        v = _mm(h, lp["v_proj"]).reshape(B, 1, KV, hd)
+        q = apply_rope(q, sin, cos, position_ids=pos_ids)
+        k = apply_rope(k, sin, cos, position_ids=pos_ids)
+        write_to_pool(kp, vp, block_tables, seq_lens,
+                      k[:, 0].to(kp.dtype), v[:, 0].to(vp.dtype))
+        attn = paged_attention_decode(q[:, 0], kp, vp, block_tables,
+                                      attn_lens)
+        x = x + _mm(attn.reshape(B, H * hd).to(x.dtype), lp["o_proj"])
+        h = rms_norm(x[:, None], lp["post_norm"].to(x.dtype),
+                     cfg.rms_norm_eps)[:, 0]
+        ff = swiglu(_mm(h, lp["gate_proj"]), _mm(h, lp["up_proj"]))
+        x = x + _mm(ff, lp["down_proj"])
+    x = rms_norm(x[:, None], params["final_norm"].to(x.dtype),
+                 cfg.rms_norm_eps)[:, 0]
+    return x @ _head(params), k_pools, v_pools

@@ -1,0 +1,648 @@
+"""Continuous-batching serving engine over the paged KV cache (port of
+``paddle_tpu/inference/serving.py``: one device, unfused route).
+
+- a fixed-capacity SLOT TABLE: every decode step runs over all
+  ``capacity`` slots. Inactive slots are padded -- seq_len 0, block table
+  pointing at the reserved scratch page 0 -- so their K/V write lands on
+  a page no live sequence reads, and their attention output is zero.
+- BUCKETED CHUNKED PREFILL: a new request's prompt runs in chunks of at
+  most the largest bucket, padded to a bucket, interleaved with decode
+  steps. Each chunk gathers the request's pages into a dense
+  [L, 1, MB*BS, KV, hd] view, runs ``cached_forward`` (the math of
+  ``generate``'s prefill) and scatters the whole view back through the
+  request's table. Padded table entries are page 0, so the duplicate
+  writes of the in-place scatter (``index_put_``) all land on the scratch
+  page. (The JAX engine scatters through a separate WRITE table that
+  redirects prefix-cache pages to scratch; without a prefix cache the two
+  tables are equal, and the port adds it with the prefix cache.)
+- SLOT RECYCLING, priority/deadline admission and preemption with
+  bit-identical resume, as in the JAX package.
+
+Each step does admission, one prefill chunk and one decode step; the one
+host sync per decode step is the read of the sampled tokens, where the
+host detects EOS / length-done and recycles slots.
+
+On a CUDA device the decode step runs the port's two kernels, RMSNorm
+(Triton) and paged attention (CUDA C++); on the CPU their plain PyTorch
+versions. The JAX package's fused decode/prefill megakernels, tensor
+parallelism, prefix cache, host offload, int8 KV cache, weight
+quantization, observability and telemetry come with later slices: their
+constructor arguments accept only "off" here and raise otherwise.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.llama import params_to
+from ..ops.paged_attention import BlockManager
+from ..ops.rope import build_rope_cache
+from .admission import AdmissionQueue
+from .generation import (GenerationConfig, _gumbel, _paged_decode_step,
+                         cached_forward)
+
+__all__ = ["Request", "ServingEngine"]
+
+_SCRATCH_SEQ = -1      # BlockManager key owning the reserved page 0
+
+
+def _sample_slots(logits, generator, temps):
+    """[C, V] logits -> [C] int32 next tokens. ``temps[i] <= 0`` selects
+    greedy for that slot; otherwise temperature sampling (Gumbel-max
+    with ``generator``)."""
+    logits = logits.float()
+    greedy = torch.argmax(logits, dim=-1)
+    noisy = (logits / torch.clamp(temps, min=1e-6)[:, None]
+             + _gumbel(logits.shape, generator, logits.device))
+    sampled = torch.argmax(noisy, dim=-1)
+    return torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
+
+
+def _not_ported(arg: str, value, what: str):
+    raise NotImplementedError(
+        f"ServingEngine({arg}={value!r}): {what} is not ported yet; this "
+        "engine runs the unfused single-device route")
+
+
+@dataclass
+class Request:
+    """One serving request and its lifecycle record."""
+    req_id: int
+    prompt: np.ndarray                       # [S] int32
+    gen: GenerationConfig
+    submit_t: float = 0.0
+    priority: int = 1                        # class, LOWER = more urgent
+    deadline_s: Optional[float] = None       # admission SLO (vs submit)
+    tokens: List[int] = field(default_factory=list)   # generated ids
+    ttft: Optional[float] = None             # sec, first token - submit
+    admit_t: Optional[float] = None          # absolute, engine clock
+    first_token_t: Optional[float] = None    # absolute, engine clock
+    finish_t: Optional[float] = None
+    done: bool = False
+    expired: bool = False                    # deadline passed in queue
+    preemptions: int = 0
+    # (seq_len, last sampled token): set while a preempted request holds
+    # its KV pages but no slot; admission resumes decode from exactly
+    # these values, so the resumed run is bit-identical
+    resume: Optional[Tuple[int, int]] = None
+    # the request's live admission-queue entry, reused by preemption's
+    # requeue so the victim keeps its line position
+    qentry: Optional[object] = field(default=None, repr=False)
+
+
+class _Slot:
+    __slots__ = ("req", "phase", "seq_len", "prefill_pos")
+
+    def __init__(self):
+        self.req: Optional[Request] = None
+        self.phase = "idle"          # idle | prefill | decode
+        self.seq_len = 0             # tokens cached in the pools
+        self.prefill_pos = 0         # next prompt position to prefill
+
+
+class ServingEngine:
+    """Continuous-batching engine over a shared paged KV pool.
+
+    ``submit()`` enqueues a request; ``step()`` runs one scheduler
+    iteration (admit -> one prefill chunk -> one decode step over all
+    live slots); ``drain()`` steps until idle. ``metrics()`` reports
+    tokens/s, TTFT, decode-step time and slot utilization.
+
+    ``device``: ``None`` runs on CUDA (and raises without a card);
+    ``"cpu"`` runs the kernels' plain versions. ``params`` are moved to
+    the device if they are not there already.
+    """
+
+    def __init__(self, params: Dict, cfg, capacity: int = 4,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 max_seq_len: Optional[int] = None, cache_dtype=None,
+                 prefill_buckets=(32, 128), seed: int = 0,
+                 prefix_cache: bool = False, kv_offload=False,
+                 observability=False, fused_decode=None, mesh=None,
+                 fused_prefill=None, weight_quant=None,
+                 aging_s: Optional[float] = None, telemetry=False,
+                 clock=None, device=None):
+        if fused_decode not in (None, False):
+            _not_ported("fused_decode", fused_decode,
+                        "the fused decode route (decode_attn_block + "
+                        "decode_mlp_block, then decode_block_fused)")
+        if fused_prefill not in (None, False):
+            _not_ported("fused_prefill", fused_prefill,
+                        "the fused prefill route (prefill_attn_block)")
+        if mesh is not None:
+            _not_ported("mesh", mesh, "tensor-parallel serving")
+        if prefix_cache or kv_offload:
+            _not_ported("prefix_cache/kv_offload",
+                        prefix_cache or kv_offload,
+                        "the radix prefix cache and its host tier")
+        if weight_quant is not None:
+            _not_ported("weight_quant", weight_quant,
+                        "weight quantization")
+        if cache_dtype not in (None, "bfloat16", "float32",
+                               torch.bfloat16, torch.float32):
+            if cache_dtype in ("int8", torch.int8):
+                _not_ported("cache_dtype", cache_dtype,
+                            "the int8 KV cache")
+            raise ValueError(f"cache_dtype must be bfloat16|float32|int8,"
+                             f" got {cache_dtype!r}")
+        if observability or telemetry:
+            _not_ported("observability/telemetry",
+                        observability or telemetry,
+                        "the observability and telemetry harness")
+        self.device = resolve_device(device)
+        self._clock = clock if clock is not None else time.perf_counter
+        self.params = params_to(params, self.device)
+        self.cfg = cfg
+        self.capacity = int(capacity)
+        self.block_size = int(block_size)
+        self.max_seq_len = int(max_seq_len
+                               or cfg.max_position_embeddings)
+        if self.max_seq_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"max_seq_len {self.max_seq_len} exceeds the rope table "
+                f"bound max_position_embeddings "
+                f"= {cfg.max_position_embeddings}")
+        self.buckets = tuple(sorted({int(b) for b in prefill_buckets}))
+        if not self.buckets or self.buckets[0] < 1:
+            raise ValueError("prefill_buckets must be positive")
+        BS = self.block_size
+        # the chunk's dense view is MB*BS wide; the last chunk may pad
+        # past max_seq_len by up to a bucket, so the table gets the slack
+        self.max_blocks = -(-(self.max_seq_len + self.buckets[-1]) // BS)
+        if num_blocks is None:
+            num_blocks = self.capacity * (-(-self.max_seq_len // BS)) + 1
+        self.num_blocks = int(num_blocks)
+
+        L, KV, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                     cfg.head_dim)
+        shape = (L, self.num_blocks, BS, KV, hd)
+        # the pool type follows the model, as in the JAX package
+        self._k_pools = torch.zeros(shape, dtype=cfg.dtype,
+                                    device=self.device)
+        self._v_pools = torch.zeros(shape, dtype=cfg.dtype,
+                                    device=self.device)
+        self._rope = build_rope_cache(cfg.max_position_embeddings, hd,
+                                      base=cfg.rope_theta,
+                                      device=self.device)
+
+        self.mgr = BlockManager(self.num_blocks, BS)
+        # reserve physical page 0 as scratch: padded table entries (and
+        # inactive decode slots) point there
+        scratch = self.mgr.allocate(_SCRATCH_SEQ, 1)
+        if scratch != [0]:
+            raise RuntimeError("scratch must be page 0 (tables pad with 0)")
+
+        C, MB = self.capacity, self.max_blocks
+        self._slots = [_Slot() for _ in range(C)]
+        self._queue = AdmissionQueue(aging_s=aging_s, clock=self._clock)
+        # per-class queue-wait stats: cls -> [admitted, wait_ms_sum,
+        # wait_ms_max]; slo = [with-deadline seen, attained]
+        self._sched_cls: Dict[int, List[float]] = {}
+        self._slo = [0, 0]
+        self._requests: List[Request] = []
+        self._next_id = 0
+        self._slot_tables = np.zeros((C, MB), np.int32)
+        # decode inputs (host mirrors). Mid-prefill slots keep table 0 /
+        # seq 0 here: their decode write must hit scratch.
+        self._h_tok = np.zeros((C,), np.int32)
+        self._h_seq = np.zeros((C,), np.int32)
+        self._h_tables = np.zeros((C, MB), np.int32)
+        self._h_temps = np.zeros((C,), np.float32)
+        self._dirty = True
+        self._d_tok = self._d_seq = self._d_tables = self._d_temps = None
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            int(seed))
+        self.counters = {
+            "decode_steps": 0, "prefill_chunks": 0, "prefill_tokens": 0,
+            "prefill_pad_tokens": 0, "live_slot_steps": 0,
+            "tokens_generated": 0, "requests_submitted": 0,
+            "requests_completed": 0, "drain_truncations": 0,
+            "preemptions": 0, "requeues": 0, "deadline_expired": 0,
+        }
+        self._decode_ms = 0.0          # summed decode-step time
+        self._t_first = None
+        self._t_last = None
+        self.last_drain_truncated = False
+
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        """Host mirror -> device, as a copy (never aliasing the mirror,
+        which the scheduler goes on mutating)."""
+        return torch.from_numpy(np.array(x)).to(self.device)
+
+    # -- public API ---------------------------------------------------
+    def _alloc_tokens(self, req: Request) -> int:
+        """Token span the engine allocates KV pages for: prompt plus
+        generation."""
+        return int(req.prompt.size) + int(req.gen.max_new_tokens)
+
+    def submit(self, prompt, gen: Optional[GenerationConfig] = None,
+               priority: Optional[int] = None,
+               deadline_s: Optional[float] = None) -> Request:
+        """Enqueue one request. Admission happens inside ``step()``
+        when a slot and enough KV pages are free, ordered by priority
+        class (LOWER = more urgent; FIFO within a class, aging per
+        ``aging_s``). A request still queued past ``deadline_s`` is
+        rejected (``expired``), never admitted late. ``priority`` and
+        ``deadline_s`` default from ``gen``."""
+        gen = gen or GenerationConfig()
+        if gen.top_k > 0 or gen.top_p < 1.0:
+            raise NotImplementedError(
+                "ServingEngine: per-request top-k/top-p is not supported;"
+                " greedy and temperature sampling are")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        total = int(prompt.size) + int(gen.max_new_tokens)
+        if total > self.max_seq_len:
+            raise ValueError(
+                f"prompt+max_new_tokens = {total} exceeds engine "
+                f"max_seq_len = {self.max_seq_len}")
+        if priority is None:
+            priority = gen.priority
+        if deadline_s is None:
+            deadline_s = gen.deadline_s
+        req = Request(self._next_id, prompt, gen, submit_t=self._clock(),
+                      priority=int(priority), deadline_s=deadline_s)
+        need = -(-self._alloc_tokens(req) // self.block_size)
+        if need > self.num_blocks - 1:          # minus the scratch page
+            raise ValueError(
+                f"request needs {need} KV pages but the pool only has "
+                f"{self.num_blocks - 1}; raise num_blocks")
+        self._next_id += 1
+        req.qentry = self._queue.push(req, cls=req.priority,
+                                      submit_t=req.submit_t,
+                                      deadline_s=deadline_s)
+        self._requests.append(req)
+        self.counters["requests_submitted"] += 1
+        return req
+
+    def step(self) -> bool:
+        """One scheduler iteration: admit from the queue, run one
+        prefill chunk (if an admission is in flight), then one decode
+        step over all live slots. Returns True if any work ran,
+        deadline expiries included."""
+        if self._t_first is None:
+            self._t_first = self._clock()
+        expired = self._admit()
+        did = self._run_prefill()
+        did = self._run_decode() or did
+        if did:
+            self._t_last = self._clock()
+        return did or expired > 0
+
+    @property
+    def idle(self) -> bool:
+        return not self._queue and all(
+            s.phase == "idle" for s in self._slots)
+
+    def drain(self, max_steps: Optional[int] = None) -> int:
+        """Step until queue and slots are empty; returns the step count.
+        Hitting ``max_steps`` with work pending sets
+        ``last_drain_truncated``; a step that can run nothing while
+        requests wait raises."""
+        n = 0
+        self.last_drain_truncated = False
+        while not self.idle:
+            if not self.step():
+                if self.idle:
+                    break       # the last step only expired a request
+                raise RuntimeError(
+                    "engine starved: queued requests cannot be admitted "
+                    "(KV pool too small for the in-flight mix?)")
+            n += 1
+            if max_steps is not None and n >= max_steps:
+                if not self.idle:
+                    self.last_drain_truncated = True
+                    self.counters["drain_truncations"] += 1
+                break
+        return n
+
+    def metrics(self) -> Dict:
+        c = dict(self.counters)
+        wall = ((self._t_last - self._t_first)
+                if self._t_first is not None and self._t_last is not None
+                else 0.0)
+        c["wall_time_s"] = round(wall, 6)
+        c["tokens_per_sec"] = (round(c["tokens_generated"] / wall, 3)
+                               if wall > 0 else 0.0)
+        c["prefill_tokens_per_sec"] = (
+            round(c["prefill_tokens"] / wall, 3) if wall > 0 else 0.0)
+        ttfts = [r.ttft for r in self._requests if r.ttft is not None]
+        c["ttft_ms_mean"] = (round(float(np.mean(ttfts)) * 1e3, 3)
+                             if ttfts else None)
+        c["ttft_ms_max"] = (round(float(np.max(ttfts)) * 1e3, 3)
+                            if ttfts else None)
+        steps = c["decode_steps"]
+        # on CUDA: device time between events around the step, read at
+        # the step's own sync (host clock on the CPU)
+        c["decode_step_ms_mean"] = (round(self._decode_ms / steps, 3)
+                                    if steps else None)
+        c["slot_utilization"] = (
+            round(c["live_slot_steps"] / (steps * self.capacity), 4)
+            if steps else 0.0)
+        c["scheduler"] = self._scheduler_metrics()
+        return c
+
+    def _scheduler_metrics(self) -> Dict:
+        per = {str(cls): {
+                   "admitted": int(st[0]),
+                   "queue_wait_ms_mean": (round(st[1] / st[0], 3)
+                                          if st[0] else 0.0),
+                   "queue_wait_ms_max": round(st[2], 3)}
+               for cls, st in sorted(self._sched_cls.items())}
+        n, ok = self._slo
+        return {"per_class": per,
+                "slo_attainment": (round(ok / n, 4) if n else None),
+                "slo_seen": int(n), "slo_attained": int(ok),
+                "queue_depth": len(self._queue)}
+
+    # -- scheduling ---------------------------------------------------
+    def _temp_of(self, gen: GenerationConfig) -> float:
+        return 0.0 if (gen.greedy or gen.temperature == 0.0) \
+            else float(gen.temperature)
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def _admit(self) -> int:
+        """Admit from the queue until blocked; returns the number of
+        deadline expiries (scheduler progress the caller must count)."""
+        now = self._clock()
+        expired = self._queue.pop_expired(now)
+        for entry in expired:
+            self._expire(entry.item, now)
+        while self._queue:
+            entry = self._queue.best(now)
+            req = entry.item
+            # a slot first: idle, or a strictly lower-priority decode
+            # victim (preempted only once the page check passes)
+            slot_id = next((i for i, s in enumerate(self._slots)
+                            if s.phase == "idle"), None)
+            victim = None
+            if slot_id is None:
+                victim = self._preempt_candidate(req)
+                if victim is None:
+                    break
+            if req.resume is None and not self._acquire_pages(req):
+                # the line head is page-starved. Fresh requests may not
+                # overtake it, but a RESUME entry allocates nothing and
+                # holds pages whose release may be what the head waits
+                # for, so the best resume entry admits instead
+                entry = self._queue.best(
+                    now, pred=lambda e: e.item.resume is not None)
+                if entry is None:
+                    break
+                req = entry.item
+                if slot_id is None:
+                    victim = self._preempt_candidate(req)
+                    if victim is None:
+                        break
+            if slot_id is None:
+                slot_id = self._preempt(victim)
+            self._queue.remove(entry)
+            if req.resume is not None:
+                self._admit_resume(slot_id, req, now)
+                continue
+            slot = self._slots[slot_id]
+            table = self.mgr.allocate(req.req_id, self._alloc_tokens(req))
+            slot.req = req
+            slot.phase = "prefill"
+            slot.seq_len = 0
+            slot.prefill_pos = 0
+            self._slot_tables[slot_id] = 0
+            self._slot_tables[slot_id, :len(table)] = table
+            self._record_admit(req)
+        return len(expired)
+
+    def _acquire_pages(self, req: Request) -> bool:
+        """Page-availability check for a fresh admission (the JAX
+        engine's no-prefix-cache branch: a free-list check)."""
+        need = -(-self._alloc_tokens(req) // self.block_size)
+        return len(self.mgr.free) >= need
+
+    def _record_admit(self, req: Request):
+        """Queue-wait stats per priority class and SLO attainment, at a
+        request's first admission (a resume keeps the first)."""
+        if req.admit_t is not None:
+            return
+        req.admit_t = self._clock()
+        wait_ms = (req.admit_t - req.submit_t) * 1e3
+        st = self._sched_cls.setdefault(req.priority, [0, 0.0, 0.0])
+        st[0] += 1
+        st[1] += wait_ms
+        st[2] = max(st[2], wait_ms)
+        if req.deadline_s is not None:
+            self._slo[0] += 1
+            if wait_ms <= req.deadline_s * 1e3:
+                self._slo[1] += 1
+
+    def _expire(self, req: Request, now: float):
+        """Admission deadline passed while queued: reject, never admit
+        late."""
+        req.done = True
+        req.expired = True
+        req.finish_t = now
+        self.counters["deadline_expired"] += 1
+        if req.deadline_s is not None:
+            self._slo[0] += 1       # a deadline seen and MISSED
+        if req.req_id in self.mgr.tables:
+            self.mgr.release(req.req_id)
+
+    def _preempt_candidate(self, req: Request) -> Optional[int]:
+        """The decode slot a waiting ``req`` may evict: the strictly
+        lower-priority (HIGHER class) live decode slot, worst class
+        first, latest-admitted within a class. Raw classes compare:
+        aging promotes queue order, not the right to evict."""
+        cand = [(s.req.priority, s.req.admit_t or 0.0, i)
+                for i, s in enumerate(self._slots)
+                if s.phase == "decode"]
+        if not cand:
+            return None
+        cls, _, slot_id = max(cand)
+        return slot_id if cls > req.priority else None
+
+    def _preempt(self, slot_id: int) -> int:
+        """Evict a decode slot: its KV pages stay attached and its
+        decode carry (seq_len, last token) is saved on the request, which
+        re-enters the queue at its original position."""
+        slot = self._slots[slot_id]
+        req = slot.req
+        req.resume = (slot.seq_len, int(self._h_tok[slot_id]))
+        req.preemptions += 1
+        self.counters["preemptions"] += 1
+        self.counters["requeues"] += 1
+        self._queue.requeue(req.qentry)
+        self._clear_slot(slot_id)
+        return slot_id
+
+    def _admit_resume(self, slot_id: int, req: Request, now: float):
+        """Re-enter decode from the saved carry: the slot gets exactly
+        the values the vacated slot held."""
+        seq_len, tok = req.resume
+        req.resume = None
+        table = self.mgr.tables.get(req.req_id)
+        if not table:
+            raise RuntimeError(
+                f"resume of request {req.req_id} without attached KV "
+                "pages — preemption must retain the victim's pages")
+        slot = self._slots[slot_id]
+        slot.req = req
+        slot.phase = "decode"
+        slot.seq_len = seq_len
+        slot.prefill_pos = int(req.prompt.size)
+        self._slot_tables[slot_id] = 0
+        self._slot_tables[slot_id, :len(table)] = table
+        self._h_tok[slot_id] = tok
+        self._h_seq[slot_id] = seq_len
+        self._h_tables[slot_id] = self._slot_tables[slot_id]
+        self._h_temps[slot_id] = self._temp_of(req.gen)
+        self._dirty = True
+        self._record_admit(req)
+
+    def _prefill_chunk(self, toks, pos0, table, last_idx, temp):
+        """One prefill chunk (the JAX engine's ``_make_prefill_fn_ref``
+        program): gather the request's pages into a dense view, run
+        ``cached_forward`` over it, scatter the view back in place through
+        the table, and sample a token from row ``last_idx``."""
+        cfg = self.cfg
+        MB, BS = self.max_blocks, self.block_size
+        L, KV, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                     cfg.head_dim)
+        kc = self._k_pools[:, table].reshape(L, 1, MB * BS, KV, hd)
+        vc = self._v_pools[:, table].reshape(L, 1, MB * BS, KV, hd)
+        logits, kc, vc = cached_forward(self.params, toks, cfg, kc, vc,
+                                        pos0)
+        # padded table entries are all page 0: those duplicate writes
+        # land on the scratch page, which nothing reads
+        self._k_pools[:, table] = kc.reshape(L, MB, BS, KV, hd)
+        self._v_pools[:, table] = vc.reshape(L, MB, BS, KV, hd)
+        return _sample_slots(logits[:, last_idx], self._gen, temp)[0]
+
+    def _run_prefill(self) -> bool:
+        for slot_id, slot in enumerate(self._slots):
+            if slot.phase != "prefill":
+                continue
+            req = slot.req
+            S = req.prompt.size
+            pos0 = slot.prefill_pos
+            n = min(S - pos0, self.buckets[-1])
+            P = self._bucket_for(n)
+            toks = np.zeros((1, P), np.int64)
+            toks[0, :n] = req.prompt[pos0:pos0 + n]
+            temp = np.array([self._temp_of(req.gen)], np.float32)
+            tok = self._prefill_chunk(
+                self._upload(toks), pos0,
+                self._upload(self._slot_tables[slot_id].astype(np.int64)),
+                n - 1, self._upload(temp))
+            self.counters["prefill_chunks"] += 1
+            self.counters["prefill_tokens"] += n
+            self.counters["prefill_pad_tokens"] += P - n
+            slot.prefill_pos += n
+            if slot.prefill_pos == S:
+                first = int(tok)             # syncs on the final chunk
+                req.first_token_t = self._clock()
+                req.ttft = req.first_token_t - req.submit_t
+                req.tokens.append(first)
+                self.counters["tokens_generated"] += 1
+                slot.seq_len = S
+                self._on_prefill_complete(slot_id, first)
+            return True
+        return False
+
+    def _on_prefill_complete(self, slot_id: int, first: int):
+        """Prompt prefilled and first token sampled: move the slot to
+        decode, or finish on EOS / a one-token budget."""
+        slot = self._slots[slot_id]
+        req = slot.req
+        if (first == req.gen.eos_token_id
+                or req.gen.max_new_tokens <= 1):
+            self._finish(slot_id)
+        else:
+            slot.phase = "decode"
+            self._h_tok[slot_id] = first
+            self._h_seq[slot_id] = slot.seq_len
+            self._h_tables[slot_id] = self._slot_tables[slot_id]
+            self._h_temps[slot_id] = self._temp_of(req.gen)
+            self._dirty = True
+
+    def _decode(self):
+        """The decode program: one token for every slot, sampled, with
+        the device-side carry (tokens, lengths) advanced. Inactive slots
+        hold seq 0 and stay there; their write landed in scratch page 0."""
+        logits, _, _ = _paged_decode_step(
+            self.params, self._d_tok, self.cfg, self._k_pools,
+            self._v_pools, self._d_tables, self._d_seq, rope=self._rope)
+        self._d_tok = _sample_slots(logits, self._gen, self._d_temps)
+        self._d_seq = torch.where(self._d_seq > 0, self._d_seq + 1, 0)
+
+    def _run_decode(self) -> bool:
+        live = [i for i, s in enumerate(self._slots)
+                if s.phase == "decode"]
+        if not live:
+            return False
+        if self._dirty:
+            self._d_tok = self._upload(self._h_tok)
+            self._d_seq = self._upload(self._h_seq)
+            self._d_tables = self._upload(self._h_tables)
+            self._d_temps = self._upload(self._h_temps)
+            self._dirty = False
+        if self.device.type == "cuda":
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+            ev0.record()
+            self._decode()
+            ev1.record()
+            nxt = self._d_tok.cpu().numpy()    # the per-step host sync
+            self._decode_ms += ev0.elapsed_time(ev1)
+        else:
+            t0 = time.perf_counter()
+            self._decode()
+            nxt = self._d_tok.numpy()
+            self._decode_ms += (time.perf_counter() - t0) * 1e3
+        self.counters["decode_steps"] += 1
+        self.counters["live_slot_steps"] += len(live)
+        for i in live:
+            slot = self._slots[i]
+            req = slot.req
+            t = int(nxt[i])
+            req.tokens.append(t)
+            self.counters["tokens_generated"] += 1
+            slot.seq_len += 1
+            self._h_seq[i] = slot.seq_len
+            self._h_tok[i] = t
+            if (t == req.gen.eos_token_id
+                    or len(req.tokens) >= req.gen.max_new_tokens):
+                self._finish(i)
+        return True
+
+    def _finish(self, slot_id: int):
+        slot = self._slots[slot_id]
+        req = slot.req
+        req.done = True
+        req.finish_t = self._clock()
+        self.mgr.release(req.req_id)
+        self._clear_slot(slot_id)
+        self.counters["requests_completed"] += 1
+
+    def _clear_slot(self, slot_id: int):
+        """Vacate a slot WITHOUT touching the request's KV pages: the
+        finish path releases them first; preemption keeps them."""
+        slot = self._slots[slot_id]
+        slot.req = None
+        slot.phase = "idle"
+        slot.seq_len = 0
+        slot.prefill_pos = 0
+        self._slot_tables[slot_id] = 0
+        self._h_tok[slot_id] = 0
+        self._h_seq[slot_id] = 0
+        self._h_tables[slot_id] = 0
+        self._h_temps[slot_id] = 0.0
+        self._dirty = True          # vacated slot must not be written

@@ -1,0 +1,7 @@
+"""Models of the PyTorch/CUDA port (serving side of LLaMA)."""
+from . import llama  # noqa: F401
+from .llama import (LLAMA_7B, LLAMA_TINY, LlamaConfig,  # noqa: F401
+                    init_params, params_from_jax)
+
+__all__ = ["llama", "LlamaConfig", "LLAMA_7B", "LLAMA_TINY",
+           "init_params", "params_from_jax"]

@@ -1,0 +1,92 @@
+"""Build the port's CUDA C++ kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface, for Hopper only (``sm_90a``)::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -I csrc -o lib<name>.so csrc/<name>.cu
+
+The build runs at first use into ``paddle_tpu_torch/build/`` (listed in
+``.gitignore``), in a directory named by a hash of the flags and of every
+source under ``csrc/`` (headers included), so an edited kernel rebuilds
+and an unchanged one loads at once. ptxas's report (registers, shared
+memory, spills) is kept beside the library as ``lib<name>.log``. A failed
+build raises with nvcc's output. Nothing here runs at import: this
+module imports without nvcc, CUDA or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "library_path",
+           "load"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from ``$CUDA_HOME``, the ``PATH`` or ``/usr/local/cuda``."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, "
+        "/usr/local/cuda/bin): the port's CUDA kernels build on the "
+        "machine with the card")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library lives for the current sources."""
+    return BUILD_DIR / _digest() / f"lib{name}.so"
+
+
+def _compile(name: str, out: Path):
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n"
+            f"{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, out)                # atomic: readers never see a part
+
+
+def load(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s library, built first if needed; loaded once
+    per process."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        out = library_path(name)
+        if not out.exists():
+            _compile(name, out)
+        lib = _LIBS[name] = ctypes.CDLL(str(out))
+    return lib

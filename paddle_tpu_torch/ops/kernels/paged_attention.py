@@ -1,0 +1,134 @@
+"""Paged KV-cache decode attention: the CUDA kernel's wrapper and its
+plain PyTorch version.
+
+Replaces ``paddle_tpu/ops/pallas/paged_attention.py``'s
+``paged_attention_decode_pallas`` (launch ``paged_attention_decode``).
+The kernel is ``paddle_tpu_torch/csrc/paged_attention.cu``, CUDA C++ for
+``sm_90a``, built by :mod:`._build` at its first launch and bound with
+ctypes; that file's header says what bounds it on the H100 (memory: one
+read of the live K/V pages) and how its design follows from that.
+
+:func:`paged_attention_decode_ref` is the plain version, the counterpart
+of the JAX package's ``paged_attention_decode_xla``: it gathers each
+sequence's pages densely and runs masked softmax attention in f32. The
+CPU tests use it, and ``chip_smoke.py`` holds the kernel against it on
+the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["paged_attention_decode_ref", "paged_attention_decode_cuda"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens):
+    """q [B, H, hd]; pools [N, BS, KV, hd]; block_tables [B, MB];
+    seq_lens [B] (current token included) -> [B, H, hd] in q's type,
+    scale 1/sqrt(hd).
+    Positions at/after ``seq_len`` get score -1e30 (finite, so a slot of
+    length 0 softmaxes without NaN) and a slot of length 0 returns 0."""
+    B, H, hd = q.shape
+    N, BS, KV, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    tables = block_tables.long()
+    k = k_pool[tables].reshape(B, MB * BS, KV, hd)
+    v = v_pool[tables].reshape(B, MB * BS, KV, hd)
+    rep = H // KV
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    scores = torch.einsum("bhd,bthd->bht", q.float(), k.float()) * scale
+    T = MB * BS
+    mask = (torch.arange(T, device=q.device)[None, None, :]
+            < seq_lens[:, None, None])
+    scores = torch.where(mask, scores,
+                         torch.tensor(-1e30, dtype=torch.float32,
+                                      device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bht,bthd->bhd", probs, v.float())
+    out = torch.where(seq_lens[:, None, None] > 0, out, 0.0)
+    return out.to(q.dtype)
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        lib = _build.load("paged_attention")
+        fn = lib.paged_attention_decode
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        fn.error_string = lib.cuda_error_string
+        _fn = fn
+    return _fn
+
+
+def _check(q, k_pool, v_pool, block_tables, seq_lens):
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_attention_decode_cuda needs CUDA tensors, got {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    for name, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_tables", block_tables), ("seq_lens", seq_lens)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, H, hd = q.shape
+    N, BS, KV, hd2 = k_pool.shape
+    if v_pool.shape != k_pool.shape or hd2 != hd:
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
+    if H % KV:
+        raise ValueError(f"H={H} is not a multiple of KV={KV}")
+    if (hd * q.element_size()) % 16:
+        raise ValueError(f"head_dim {hd} rows are not a multiple of 16 "
+                         "bytes (the kernel's load width)")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or tuple(seq_lens.shape) != (B,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
+                         f"seq_lens {tuple(seq_lens.shape)} do not match B={B}")
+
+
+def paged_attention_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens):
+    """Launch the CUDA kernel (same contract as the plain version) on
+    PyTorch's current stream. Raises for anything the kernel does not
+    take, and if the launch is refused. Never falls back."""
+    _check(q, k_pool, v_pool, block_tables, seq_lens)
+    B, H, hd = q.shape
+    _, BS, KV, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    fn = _kernel()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        paged_attention_decode_cuda.launches += 1
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 block_tables.data_ptr(), seq_lens.data_ptr(),
+                 out.data_ptr(), B, H, KV, hd, BS, MB, 1.0 / math.sqrt(hd),
+                 _DTYPES[q.dtype], stream)
+    if err:
+        raise RuntimeError("paged_attention_decode launch failed: "
+                           + fn.error_string(err).decode())
+    return out
+
+
+paged_attention_decode_cuda.launches = 0

@@ -1,0 +1,172 @@
+"""Paged KV cache for serving (port of ``paddle_tpu/ops/paged_attention.py``).
+
+The KV cache lives in pools of fixed-size pages ``[N, BS, KV, hd]``; each
+sequence owns a list of page ids, its block table. :class:`BlockManager`
+hands pages out and takes them back on the host.
+
+``paged_attention_decode`` dispatches on where ``q`` lies: a CUDA tensor
+goes to the CUDA kernel (``kernels/paged_attention.py``), a CPU tensor to
+the plain version ``paged_attention_decode_ref``. There is no flag that
+selects the plain version on the card and no fallback: a kernel that
+fails raises.
+
+Unlike the JAX package, whose arrays are immutable, :func:`write_to_pool`
+updates the pools in place (``index_put_``) and returns them.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .kernels.paged_attention import (paged_attention_decode_cuda,
+                                      paged_attention_decode_ref)
+
+__all__ = ["paged_attention_decode", "paged_attention_decode_ref",
+           "write_to_pool", "BlockManager"]
+
+
+def paged_attention_decode(q, k_pool, v_pool, block_tables, seq_lens):
+    """Single-step decode attention over a paged cache.
+
+    q:            [B, H, hd]     query for the current position
+    k_pool/v_pool:[N, BS, KV, hd] physical block pools
+    block_tables: [B, MB] int32  physical block id per logical block
+    seq_lens:     [B]    int32   valid tokens per sequence (incl. current)
+    returns       [B, H, hd], scale 1/sqrt(hd)
+    """
+    if q.device.type == "cpu":
+        return paged_attention_decode_ref(q, k_pool, v_pool, block_tables,
+                                          seq_lens)
+    return paged_attention_decode_cuda(q, k_pool, v_pool, block_tables,
+                                       seq_lens)
+
+
+def write_to_pool(k_pool, v_pool, block_tables, seq_lens, k_new, v_new):
+    """Write one token's K/V per sequence into the paged pools, in place.
+
+    k_new/v_new: [B, KV, hd] for the token at position seq_lens[b]
+    (0-based position == current length before the append). Returns the
+    (updated) pools.
+    """
+    BS = k_pool.shape[1]
+    pos = seq_lens.long()
+    phys = block_tables.long().gather(1, (pos // BS)[:, None])[:, 0]
+    off = pos % BS
+    k_pool[phys, off] = k_new
+    v_pool[phys, off] = v_new
+    return k_pool, v_pool
+
+
+class BlockManager:
+    """Host-side physical block allocator with reference-counted pages
+    (the JAX package's, which is plain Python and numpy, without the
+    prefix cache's copy-on-write ``fork`` and ``reclaim`` hook).
+
+    ``allocate`` hands out pages at refcount 1, ``attach`` appends
+    already-populated shared pages to a table (incref), ``release``
+    decrefs every table entry and a page returns to the free list only
+    when its count hits 0."""
+
+    def __init__(self, num_blocks: int, block_size: int):
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.free = list(range(num_blocks - 1, -1, -1))
+        self.tables = {}            # seq_id -> list of physical block ids
+        self.refcount = np.zeros(num_blocks, np.int32)
+
+    def alloc_page(self) -> int:
+        """Pop one free page at refcount 1 (sole owner: the caller)."""
+        if not self.free:
+            raise RuntimeError("KV cache pool exhausted")
+        p = self.free.pop()
+        if self.refcount[p] != 0:
+            raise RuntimeError(
+                f"free list corrupt: page {p} has refcount "
+                f"{int(self.refcount[p])}")
+        self.refcount[p] = 1
+        return p
+
+    def incref(self, page: int):
+        if self.refcount[page] <= 0:
+            raise RuntimeError(
+                f"incref on unowned page {page}: sharing a freed page "
+                "would alias live KV data")
+        self.refcount[page] += 1
+
+    def decref(self, page: int) -> bool:
+        """Drop one reference; returns True when the page was freed.
+        Going below zero is a bookkeeping bug and raises."""
+        rc = int(self.refcount[page]) - 1
+        if rc < 0:
+            raise RuntimeError(f"refcount of page {page} went negative")
+        self.refcount[page] = rc
+        if rc == 0:
+            self.free.append(page)
+            return True
+        return False
+
+    def attach(self, seq_id: int, pages, owned: bool = False):
+        """Append already-populated pages to a sequence's table. Must run
+        before ``allocate`` fills the suffix."""
+        table = self.tables.setdefault(seq_id, [])
+        for p in pages:
+            if not owned:
+                self.incref(p)
+            table.append(p)
+        return table
+
+    def allocate(self, seq_id: int, num_tokens: int):
+        need = (num_tokens + self.block_size - 1) // self.block_size
+        table = self.tables.setdefault(seq_id, [])
+        while len(table) < need:
+            table.append(self.alloc_page())
+        return table
+
+    def release(self, seq_id: int):
+        for b in self.tables.pop(seq_id, []):
+            self.decref(b)
+
+    def check(self, raise_on_violation: bool = True):
+        """Structural invariant sweep: refcounts never negative, free
+        pages at refcount 0 and listed once, every page either free or
+        referenced, and no page referenced by more table entries than
+        its refcount. Returns the violations (empty = clean), or raises
+        when ``raise_on_violation``."""
+        problems = []
+        seen_free = set()
+        for p in self.free:
+            if not (0 <= p < self.num_blocks):
+                problems.append(f"free list holds invalid page {p}")
+                continue
+            if p in seen_free:
+                problems.append(f"page {p} appears twice in free list")
+            seen_free.add(p)
+            if int(self.refcount[p]) != 0:
+                problems.append(
+                    f"free page {p} has refcount "
+                    f"{int(self.refcount[p])} (must be 0)")
+        table_refs = np.zeros(self.num_blocks, np.int64)
+        for sid, table in self.tables.items():
+            for p in table:
+                if not (0 <= p < self.num_blocks):
+                    problems.append(
+                        f"table {sid} holds invalid page {p}")
+                    continue
+                table_refs[p] += 1
+        for p in range(self.num_blocks):
+            rc = int(self.refcount[p])
+            if rc < 0:
+                problems.append(f"page {p} refcount negative ({rc})")
+            if rc == 0 and p not in seen_free:
+                problems.append(
+                    f"page {p} leaked: refcount 0 but not in free list")
+            if rc > 0 and p in seen_free:
+                problems.append(
+                    f"page {p} in free list with refcount {rc}")
+            if rc < int(table_refs[p]):
+                problems.append(
+                    f"page {p} refcount {rc} < {int(table_refs[p])} "
+                    "table references (tables over-share the page)")
+        if problems and raise_on_violation:
+            raise RuntimeError(
+                "BlockManager.check failed:\n  " + "\n  ".join(problems))
+        return problems
