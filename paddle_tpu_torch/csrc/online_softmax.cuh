@@ -75,22 +75,32 @@ __device__ __forceinline__ void online_softmax_page_update(
   }
   __syncthreads();
 
-  // running max / sum: one thread per query head
-  for (int g = tid; g < groups; g += blockDim.x) {
+  // running max / sum: one warp per query head, lanes over the tokens,
+  // reduced across the warp in a fixed order
+  for (int g = warp; g < groups; g += nwarps) {
     float* sg = s + g * bs;
     const float m_prev = m[g];
-    float m_new = m_prev;
-    for (int t = 0; t < bs; ++t) m_new = fmaxf(m_new, sg[t]);
+    float mx = -CUDART_INF_F;
+    for (int t = lane; t < bs; t += 32) mx = fmaxf(mx, sg[t]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m_prev, mx);
     float sum = 0.f;
-    for (int t = 0; t < bs; ++t) {
+    for (int t = lane; t < bs; t += 32) {
       const float p = (pg * bs + t < seq_len) ? expf(sg[t] - m_new) : 0.f;
       sg[t] = p;
       sum += p;
     }
-    const float a = expf(m_prev - m_new);  // 0 on the first page (-inf)
-    l[g] = a * l[g] + sum;
-    alpha[g] = a;
-    m[g] = m_new;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      const float a = expf(m_prev - m_new);  // 0 on the first page (-inf)
+      l[g] = a * l[g] + sum;
+      alpha[g] = a;
+      m[g] = m_new;
+    }
   }
   __syncthreads();
 
@@ -100,6 +110,7 @@ __device__ __forceinline__ void online_softmax_page_update(
     const int d = i - g * hd;
     const float* pg_row = s + g * bs;
     float a = acc[i] * alpha[g];
+#pragma unroll 4
     for (int t = 0; t < bs; ++t) a += pg_row[t] * to_float(v[t * hd + d]);
     acc[i] = a;
   }

@@ -8,6 +8,12 @@ caches are updated in place where the JAX package returned new arrays:
 and ``_paged_decode_step`` writes the new token's K/V into the pools.
 
 Dense cache layout: [L, B, T_max, KV, hd]. Paged pools: [L, N, BS, KV, hd].
+
+Two paged decode steps share one signature: ``_paged_decode_step`` (the
+unfused route: RMSNorm, projections, RoPE, pool write, paged attention,
+o_proj, SwiGLU MLP, op by op) and ``_fused_decode_step`` (the JAX engine's
+default route: per layer one ``decode_attn_block``, the pool write, one
+``decode_mlp_block``, each resolved through the kernel registry).
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ from ..ops.rope import apply_rope, build_rope_cache
 
 __all__ = ["GenerationConfig", "init_cache", "cached_forward",
            "sample_token", "generate"]
+
+_FUSED_MODES = ("auto", "pallas", "ref", "block")
 
 
 @dataclass
@@ -237,3 +245,78 @@ def _paged_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
     x = rms_norm(x[:, None], params["final_norm"].to(x.dtype),
                  cfg.rms_norm_eps)[:, 0]
     return x @ _head(params), k_pools, v_pools
+
+
+def _fused_mode(fused_decode):
+    """Normalise a ``fused_decode`` knob to the JAX engine's values: None
+    and True -> "auto" (the JAX flag's default; the port has no flag),
+    False -> False, "auto"/"pallas"/"ref"/"block" as given. "pallas"
+    forces the hand-written CUDA kernels (the name is the JAX engine's,
+    so one keyword drives both engines)."""
+    if fused_decode is None or fused_decode is True:
+        return "auto"
+    if fused_decode is False:
+        return False
+    if fused_decode in _FUSED_MODES:
+        return fused_decode
+    raise ValueError(f"fused_decode must be bool|auto|pallas|ref|block, "
+                     f"got {fused_decode!r}")
+
+
+def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
+                       seq_lens, rope=None, mode="auto"):
+    """``_paged_decode_step`` through the fused decode-block kernels.
+
+    Per layer: one ``decode_attn_block`` (RMSNorm + QKV + RoPE + paged
+    attention with the new token + o_proj + residual), the new token's
+    pool write, one ``decode_mlp_block`` (RMSNorm + SwiGLU + residual).
+    Each op's variant (the hand-written CUDA kernel on CUDA tensors, the
+    unfused composition on the CPU, bit-identical to
+    ``_paged_decode_step``) comes from the kernel registry; ``mode``
+    forwards to
+    :func:`paddle_tpu_torch.ops.kernels.fused_decode_block.resolve_decode_step`.
+    Signature, carried state and in-place pool update match
+    ``_paged_decode_step``."""
+    from ..ops.kernels.fused_decode_block import (decode_meta,
+                                                  resolve_decode_step)
+    if isinstance(params["layers"]["q_proj"], dict):
+        raise NotImplementedError(
+            "quantized weights are not ported yet (weight-quantization "
+            "slice)")
+    B = tok.shape[0]
+    meta = decode_meta(cfg, B=B, BS=k_pools.shape[2],
+                       MB=block_tables.shape[1], pool_dtype=k_pools.dtype,
+                       quant=False, device=k_pools.device)
+    _, attn_fn, mlp_fn, _ = resolve_decode_step(meta, mode)
+    x = params["embed_tokens"][tok.long()]               # [B, D]
+    if rope is None:
+        rope = build_rope_cache(cfg.max_position_embeddings, cfg.head_dim,
+                                base=cfg.rope_theta, device=x.device)
+    sin, cos = rope
+    eps = cfg.rms_norm_eps
+    for i in range(cfg.num_hidden_layers):
+        lp = _layer(params, i)
+        kp, vp = k_pools[i], v_pools[i]
+        x, k_new, v_new = attn_fn(
+            x, lp["input_norm"].to(x.dtype), lp["q_proj"], lp["k_proj"],
+            lp["v_proj"], lp["o_proj"], sin, cos, kp, vp, block_tables,
+            seq_lens, None, eps)
+        write_to_pool(kp, vp, block_tables, seq_lens, k_new.to(kp.dtype),
+                      v_new.to(vp.dtype))
+        x = mlp_fn(x, lp["post_norm"].to(x.dtype), lp["gate_proj"],
+                   lp["up_proj"], lp["down_proj"], eps)
+    x = rms_norm(x[:, None], params["final_norm"].to(x.dtype), eps)[:, 0]
+    return x @ _head(params), k_pools, v_pools
+
+
+def _decode_variant_name(cfg, B, BS, MB, pool_dtype, fused,
+                         device="cuda"):
+    """The variant one decode step would run, as one string: "cuda_fused"
+    (the two hand-written kernels) or "unfused" (the composition)."""
+    if not fused:
+        return "unfused"
+    from ..ops.kernels.fused_decode_block import (decode_meta,
+                                                  resolve_decode_step)
+    meta = decode_meta(cfg, B=B, BS=BS, MB=MB, pool_dtype=pool_dtype,
+                       quant=False, device=device)
+    return resolve_decode_step(meta, fused)[3]["attn"]

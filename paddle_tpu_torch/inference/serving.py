@@ -1,5 +1,6 @@
 """Continuous-batching serving engine over the paged KV cache (port of
-``paddle_tpu/inference/serving.py``: one device, unfused route).
+``paddle_tpu/inference/serving.py``: one device; the fused and the
+unfused decode route, the unfused prefill chunk).
 
 - a fixed-capacity SLOT TABLE: every decode step runs over all
   ``capacity`` slots. Inactive slots are padded -- seq_len 0, block table
@@ -22,12 +23,18 @@ Each step does admission, one prefill chunk and one decode step; the one
 host sync per decode step is the read of the sampled tokens, where the
 host detects EOS / length-done and recycles slots.
 
-On a CUDA device the decode step runs the port's two kernels, RMSNorm
-(Triton) and paged attention (CUDA C++); on the CPU their plain PyTorch
-versions. The JAX package's fused decode/prefill megakernels, tensor
+The decode step follows ``fused_decode`` as in the JAX engine. The
+default ("auto", also None/True) runs ``_fused_decode_step``: per layer
+the ``decode_attn_block`` and ``decode_mlp_block`` CUDA kernels on CUDA
+(a predicate that refuses the shapes makes the constructor raise with
+its reason), the unfused composition on the CPU; ``decode_variant`` says
+which. "pallas" forces the CUDA kernels (and is
+refused on the CPU), "ref" the composition, False the unfused
+``_paged_decode_step`` (RMSNorm in Triton, paged attention in CUDA C++).
+The single-launch block kernel ("block"), the fused prefill, tensor
 parallelism, prefix cache, host offload, int8 KV cache, weight
 quantization, observability and telemetry come with later slices: their
-constructor arguments accept only "off" here and raise otherwise.
+constructor arguments raise here.
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ from ..models.llama import params_to
 from ..ops.paged_attention import BlockManager
 from ..ops.rope import build_rope_cache
 from .admission import AdmissionQueue
-from .generation import (GenerationConfig, _gumbel, _paged_decode_step,
+from .generation import (GenerationConfig, _fused_decode_step,
+                         _fused_mode, _gumbel, _paged_decode_step,
                          cached_forward)
 
 __all__ = ["Request", "ServingEngine"]
@@ -66,7 +74,7 @@ def _sample_slots(logits, generator, temps):
 def _not_ported(arg: str, value, what: str):
     raise NotImplementedError(
         f"ServingEngine({arg}={value!r}): {what} is not ported yet; this "
-        "engine runs the unfused single-device route")
+        "engine runs the single-device fused and unfused decode routes")
 
 
 @dataclass
@@ -115,7 +123,8 @@ class ServingEngine:
 
     ``device``: ``None`` runs on CUDA (and raises without a card);
     ``"cpu"`` runs the kernels' plain versions. ``params`` are moved to
-    the device if they are not there already.
+    the device if they are not there already. ``fused_decode`` picks the
+    decode route (module docstring); ``decode_variant`` reports it.
     """
 
     def __init__(self, params: Dict, cfg, capacity: int = 4,
@@ -127,10 +136,11 @@ class ServingEngine:
                  fused_prefill=None, weight_quant=None,
                  aging_s: Optional[float] = None, telemetry=False,
                  clock=None, device=None):
-        if fused_decode not in (None, False):
+        self._fused = _fused_mode(fused_decode)
+        if self._fused == "block":
             _not_ported("fused_decode", fused_decode,
-                        "the fused decode route (decode_attn_block + "
-                        "decode_mlp_block, then decode_block_fused)")
+                        "the single-launch decode_block_fused kernel "
+                        "(ROADMAP B5)")
         if fused_prefill not in (None, False):
             _not_ported("fused_prefill", fused_prefill,
                         "the fused prefill route (prefill_attn_block)")
@@ -155,6 +165,12 @@ class ServingEngine:
                         observability or telemetry,
                         "the observability and telemetry harness")
         self.device = resolve_device(device)
+        if self._fused == "pallas" and self.device.type != "cuda":
+            # a pin must never silently no-op: the CUDA kernels have no
+            # CPU form (the JAX engine's rule for unhonourable pins)
+            raise ValueError(
+                'fused_decode="pallas" forces the CUDA kernels, which do '
+                f"not run on {self.device}; use 'auto' or 'ref' there")
         self._clock = clock if clock is not None else time.perf_counter
         self.params = params_to(params, self.device)
         self.cfg = cfg
@@ -224,10 +240,16 @@ class ServingEngine:
             "requests_completed": 0, "drain_truncations": 0,
             "preemptions": 0, "requeues": 0, "deadline_expired": 0,
         }
+        # the decode variants, captured at the first decode step
+        self._decode_variant: Optional[Dict] = None
         self._decode_ms = 0.0          # summed decode-step time
         self._t_first = None
         self._t_last = None
         self.last_drain_truncated = False
+        if self._fused:
+            # on CUDA a kernel that refuses the shapes raises here, with
+            # the predicate's reason, rather than at the first decode step
+            self._resolve_variant()
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         """Host mirror -> device, as a copy (never aliasing the mirror,
@@ -345,8 +367,46 @@ class ServingEngine:
         c["slot_utilization"] = (
             round(c["live_slot_steps"] / (steps * self.capacity), 4)
             if steps else 0.0)
+        c["decode_variant"] = self.decode_variant
+        c["prefill_variant"] = self.prefill_variant
+        c["weight_quant_variant"] = self.weight_quant_variant
         c["scheduler"] = self._scheduler_metrics()
         return c
+
+    def _resolve_variant(self) -> Dict:
+        from ..ops.kernels.fused_decode_block import (decode_meta,
+                                                      resolve_decode_step)
+        meta = decode_meta(self.cfg, B=self.capacity, BS=self.block_size,
+                           MB=self.max_blocks,
+                           pool_dtype=self._k_pools.dtype, quant=False,
+                           device=self.device)
+        _, _, _, names = resolve_decode_step(meta, self._fused)
+        return {"mode": str(self._fused), **names}
+
+    @property
+    def decode_variant(self) -> Dict:
+        """Which decode-block implementation the decode step runs:
+        ``{"mode", "block": "composed", "attn", "mlp"}`` with attn/mlp
+        "cuda_fused" or "unfused". Captured at the first decode step;
+        before it, what dispatch would pick now."""
+        if not self._fused:
+            return {"mode": "unfused", "block": "composed",
+                    "attn": "unfused", "mlp": "unfused"}
+        if self._decode_variant is not None:
+            return dict(self._decode_variant)
+        return self._resolve_variant()
+
+    @property
+    def prefill_variant(self) -> Dict:
+        """The prefill chunk's implementation: always the unfused chunk
+        until the fused prefill (ROADMAP B6) is ported."""
+        return {"mode": "unfused", "attn": "unfused", "mlp": "unfused"}
+
+    @property
+    def weight_quant_variant(self) -> Dict:
+        """The weight-dtype class: plain fp weights only until the
+        weight-quantization slice."""
+        return {"mode": "off"}
 
     def _scheduler_metrics(self) -> Dict:
         per = {str(cls): {
@@ -577,9 +637,17 @@ class ServingEngine:
         """The decode program: one token for every slot, sampled, with
         the device-side carry (tokens, lengths) advanced. Inactive slots
         hold seq 0 and stay there; their write landed in scratch page 0."""
-        logits, _, _ = _paged_decode_step(
-            self.params, self._d_tok, self.cfg, self._k_pools,
-            self._v_pools, self._d_tables, self._d_seq, rope=self._rope)
+        if self._fused:
+            if self._decode_variant is None:
+                self._decode_variant = self._resolve_variant()
+            logits, _, _ = _fused_decode_step(
+                self.params, self._d_tok, self.cfg, self._k_pools,
+                self._v_pools, self._d_tables, self._d_seq, rope=self._rope,
+                mode=self._fused)
+        else:
+            logits, _, _ = _paged_decode_step(
+                self.params, self._d_tok, self.cfg, self._k_pools,
+                self._v_pools, self._d_tables, self._d_seq, rope=self._rope)
         self._d_tok = _sample_slots(logits, self._gen, self._d_temps)
         self._d_seq = torch.where(self._d_seq > 0, self._d_seq + 1, 0)
 

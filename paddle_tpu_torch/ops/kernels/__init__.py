@@ -4,24 +4,30 @@ Each module holds the kernel's wrapper, its plain PyTorch version and a
 note on what it replaces and what bounds it. A wrapper launches its
 kernel for CUDA tensors and raises for anything else; it counts its
 launches in a plain integer attribute, ``<wrapper>.launches``.
-:data:`KERNELS` maps each TPU launch name to its wrapper.
+:data:`WRAPPERS` maps each TPU launch name to its wrapper; the dispatch
+registry of ops with several variants is :mod:`.registry`'s ``KERNELS``.
 """
+from .fused_decode_block import (attn_block_ref,  # noqa: F401
+                                 decode_attn_block_cuda,
+                                 decode_mlp_block_cuda, mlp_block_ref)
 from .norms import rms_norm_fwd_triton, rms_norm_ref  # noqa: F401
 from .paged_attention import (paged_attention_decode_cuda,  # noqa: F401
                               paged_attention_decode_ref)
 
-KERNELS = {
+WRAPPERS = {
     "paged_attention_decode": paged_attention_decode_cuda,
     "rms_norm_fwd": rms_norm_fwd_triton,
+    "decode_attn_block": decode_attn_block_cuda,
+    "decode_mlp_block": decode_mlp_block_cuda,
 }
 
 
 def reset_launches():
     """Set every wrapper's launch count to 0."""
-    for fn in KERNELS.values():
+    for fn in WRAPPERS.values():
         fn.launches = 0
 
 
 def launches():
     """``{launch name: count}`` for every kernel."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

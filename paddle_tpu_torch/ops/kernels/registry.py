@@ -1,0 +1,140 @@
+"""Kernel registry: variant dispatch by shape class (port of
+``paddle_tpu/ops/pallas/registry.py``).
+
+An OP (e.g. ``decode_attn_block``) owns several VARIANTS (a hand-written
+CUDA kernel, a composition of the port's smaller kernels, ...), each with
+a ``supports`` predicate over a static meta dict (shapes, types, device).
+``dispatch`` returns the highest-priority supported variant, or raises
+with every variant's reason when none supports the meta. The decode
+step's ops register the hand-written kernel (CUDA tensors, a
+shared-memory need the card can meet, a supported head dim) and the
+priority-0 composition (CPU tensors only), so a refused kernel on the
+card raises rather than running the composition in its place.
+
+``force()`` pins an op to a named variant for a ``with`` block,
+bypassing ``supports``; pins stack and are per thread.
+
+The JAX package's ``declare_cache_key`` and ``forced_state`` key jitted
+programs that bake a dispatch choice in. PyTorch runs eagerly and
+dispatches per call, so the port has no such program cache yet; both
+come with the CUDA-graph capture of the decode step.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+__all__ = ["KernelVariant", "KernelRegistry", "KERNELS"]
+
+
+@dataclass
+class KernelVariant:
+    """One implementation of an op. ``supports(meta)`` returns True,
+    False, or a (bool, reason) pair; it must be pure in ``meta``."""
+    op: str
+    name: str
+    fn: Callable
+    priority: int = 0
+    supports: Optional[Callable[[Dict[str, Any]], Any]] = None
+
+    def check(self, meta: Dict[str, Any]):
+        """-> (supported: bool, reason: str)."""
+        if self.supports is None:
+            return True, "unconditional"
+        r = self.supports(dict(meta))
+        if isinstance(r, tuple):
+            ok, reason = r
+            return bool(ok), str(reason)
+        return bool(r), ("supported" if r else "unsupported")
+
+
+class KernelRegistry:
+    """op name -> priority-ordered variants. Registration is latest-wins
+    per (op, variant): a re-registration replaces, never duplicates."""
+
+    def __init__(self):
+        self._ops: Dict[str, List[KernelVariant]] = {}
+        self._forced = threading.local()
+
+    def register(self, op: str, name: str, fn: Callable, *,
+                 priority: int = 0, supports=None) -> KernelVariant:
+        var = KernelVariant(op=op, name=name, fn=fn, priority=priority,
+                            supports=supports)
+        lst = [v for v in self._ops.get(op, []) if v.name != name]
+        lst.append(var)
+        lst.sort(key=lambda v: -v.priority)
+        self._ops[op] = lst
+        return var
+
+    def variant(self, op: str, name: str) -> KernelVariant:
+        for v in self._ops.get(op, []):
+            if v.name == name:
+                return v
+        raise KeyError(f"kernel op {op!r} has no variant {name!r} "
+                       f"(registered: {[v.name for v in self._ops.get(op, [])]})")
+
+    def variants(self, op: str) -> List[KernelVariant]:
+        return list(self._ops.get(op, []))
+
+    def force(self, op: str, name: str):
+        """Context manager pinning ``op`` to variant ``name`` (bypasses
+        ``supports``: the caller asserts legality). Nested forces stack;
+        exit restores the previous pin."""
+        registry = self
+        registry.variant(op, name)       # fail fast on a typo'd name
+
+        class _Force:
+            def __enter__(self_f):
+                stack = getattr(registry._forced, "stack", None)
+                if stack is None:
+                    stack = registry._forced.stack = []
+                stack.append((op, name))
+                return registry
+
+            def __exit__(self_f, *exc):
+                registry._forced.stack.pop()
+                return False
+        return _Force()
+
+    def _forced_for(self, op: str) -> Optional[str]:
+        for o, n in reversed(getattr(self._forced, "stack", None) or []):
+            if o == op:
+                return n
+        return None
+
+    def dispatch(self, op: str, meta: Dict[str, Any]
+                 ) -> Tuple[str, Callable]:
+        """Highest-priority supported variant -> (name, fn). Raises if
+        the op is unknown or no variant supports ``meta``."""
+        forced = self._forced_for(op)
+        if forced is not None:
+            return forced, self.variant(op, forced).fn
+        cands = self._ops.get(op)
+        if not cands:
+            raise KeyError(f"no kernel variants registered for {op!r}")
+        for v in cands:
+            ok, _ = v.check(meta)
+            if ok:
+                return v.name, v.fn
+        raise RuntimeError(
+            f"no variant of {op!r} supports meta={meta!r}: "
+            + "; ".join(f"{v.name}: {v.check(meta)[1]}" for v in cands))
+
+    def explain(self, op: str, meta: Dict[str, Any]) -> List[Dict]:
+        """Per variant: name, priority, supported, reason, selected."""
+        sel = None
+        try:
+            sel, _ = self.dispatch(op, meta)
+        except (KeyError, RuntimeError):
+            pass
+        out = []
+        for v in self._ops.get(op, []):
+            ok, reason = v.check(meta)
+            out.append({"name": v.name, "priority": v.priority,
+                        "supported": ok, "reason": reason,
+                        "selected": v.name == sel})
+        return out
+
+
+KERNELS = KernelRegistry()

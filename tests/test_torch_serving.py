@@ -185,7 +185,7 @@ def test_submit_validation(params):
 
 
 @pytest.mark.parametrize("kw", [
-    {"fused_decode": "auto"}, {"fused_decode": True},
+    {"fused_decode": "block"},
     {"fused_prefill": "pallas"}, {"mesh": 2}, {"prefix_cache": True},
     {"weight_quant": "int8"}, {"cache_dtype": "int8"},
     {"observability": True}, {"telemetry": True}])
