@@ -5,36 +5,50 @@
 
 Run from the repository root on a machine with one NVIDIA H100. It builds
 the port's kernels from the sources in the checkout (one nvcc per CUDA
-C++ source, all started together; Triton's JIT for the Triton kernel)
-and prints one JSON line per phase; a phase that fails raises, so the
-script exits non-zero:
+C++ source, one after another; Triton's JIT for the Triton kernel) and
+prints one JSON line per phase; a phase that fails raises, so the script
+exits non-zero:
 
 1. GPU: the card's name and power limit, as ``nvidia-smi`` prints them.
-2. kernels: every kernel of both decode routes against its plain version
-   on the card, at the routes' shapes (LLaMA-7B widths, 8 slots), with
-   its time (L2 flushed before every launch), its plain version's time,
-   the time of one PyTorch library call computing the same function
-   where there is one, and its bound. The two fused decode-block kernels
-   run at KV=32 and KV=8, in f32 and bf16, with lengths 0/1/15/16/17/1151,
-   a ragged F for the MLP, 20 and 32 slots (more than one pass of 8 rows;
-   dispatch must pick the kernels there too), and two launches that must
-   agree bit for bit.
+2. kernels: every kernel of both routes against its plain version on the
+   card, at the routes' shapes (LLaMA-7B widths, 8 slots, chunks of 32
+   and 128 rows), with its time (L2 flushed before every launch), its
+   plain version's time, the time of one PyTorch library call computing
+   the same function where there is one, and its bound. The two fused
+   decode-block kernels run at KV=32 and KV=8, in f32 and bf16, with
+   lengths 0/1/15/16/17/1151, a ragged F for the MLP, 20 and 32 slots
+   (more than one pass of 8 rows; dispatch must pick the kernels there
+   too), and two launches that must agree bit for bit; decode_mlp_block
+   also at 32 and 128 rows (the prefill MLP). prefill_attn_block runs at
+   KV=32 and 8, f32 and bf16, P=32 and 128, permuted tables and (pos0,
+   n_valid) = (0, P), (0, 1), (0, P-3), (5, P-3), (16, P), (600, 21 at
+   P=32, 77 at P=128): the real rows against the plain version, every row
+   finite, two launches bit for bit; timed at P=128, bf16, pos0 0 and 512
+   beside its bound, its plain version, its four products alone
+   (``torch.matmul``) and SDPA over the same attention.
 3. parity: LLaMA-7B widths, 2 layers, f32: greedy tokens for 5 requests
-   through 2 slots from the engine on its default fused route and on the
-   unfused route, each against the port's dense ``generate``.
+   through 2 slots from the engine on its default route (fused prefill
+   and fused decode) and on the unfused route, each against the port's
+   dense ``generate``.
 4. serving (the main path): LLaMA-7B, 32 layers, bf16, random weights
    from a seeded ``torch.Generator`` on the card: 12 requests of 40-600
    prompt tokens and 64 new tokens each through 8 slots, on the default
-   route (``fused_decode`` "auto"). The launch counts are set to 0 just
-   before and read just after: decode_attn_block and decode_mlp_block
-   once per layer per decode step, paged attention never, RMSNorm once
-   per decode step (the final norm) and 2L+1 times per prefill chunk.
-5. profile of that engine: a window of decode steps with all 8 slots
-   live, timed, then traced with torch.profiler: device time per step by
-   kernel group and the card's busy share.
-6. serving and profile again on the unfused route (``fused_decode=False``,
-   same parameters and requests): paged attention once per layer per
-   decode step, RMSNorm 2L+1 times per decode step and per chunk.
+   route (``fused_decode`` and ``fused_prefill`` "auto"). The launch
+   counts are set to 0 just before and read just after:
+   prefill_attn_block once per layer per prefill chunk, decode_attn_block
+   once per layer per decode step, decode_mlp_block once per layer per
+   step and per chunk, paged attention never, RMSNorm once per decode
+   step and once per chunk (the final norms).
+5. profile of that engine: 8 requests of 384 prompt tokens; the first
+   two chunks of the first one (alone on the engine) traced with
+   torch.profiler (device time per chunk by kernel group), every later
+   chunk timed with CUDA events (ms per chunk by bucket); then a window
+   of decode steps with all 8 slots live, timed, then traced: device
+   time per step by kernel group and the card's busy share.
+6. serving and profile again on the unfused route (``fused_decode=False,
+   fused_prefill=False``, same parameters and requests): paged attention
+   once per layer per decode step, RMSNorm 2L+1 times per decode step and
+   per chunk, the prefill and decode-block kernels never.
 7. routes: the bf16 greedy ids of both routes and of dense bf16
    ``generate`` on the same requests, compared pairwise (common prefix
    lengths, and the top-2 logit gap of dense bf16 logits at each first
@@ -49,7 +63,6 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -59,7 +72,9 @@ PEAK_OPS_PER_S = {"float32": 67e12,  # f32 outside the tensor cores
 RMS_SOURCE = "paddle_tpu_torch/ops/kernels/norms.py"
 PAGED_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 FUSED_SOURCE = "paddle_tpu_torch/csrc/fused_decode_block.cu"
-CUDA_SOURCES = ("paged_attention", "fused_decode_block")
+PREFILL_SOURCE = "paddle_tpu_torch/csrc/fused_prefill_block.cu"
+CUDA_SOURCES = ("paged_attention", "fused_decode_block",
+                "fused_prefill_block")
 # LLaMA-7B widths and the serving phase's table geometry
 D7, H7, HD7, F7, B8, BS16, MB72 = 4096, 32, 128, 11008, 8, 16, 72
 
@@ -131,13 +146,13 @@ def bf16_close(got, want, rel=2.0 ** -6):
 
 
 def build_kernels():
-    """One nvcc per CUDA source, all started together, then Triton's
-    compile of the RMSNorm kernel on a first launch."""
+    """One nvcc per CUDA source, one after another, then Triton's compile
+    of the RMSNorm kernel on a first launch."""
     import torch
     from paddle_tpu_torch.ops.kernels import _build, norms
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
-        list(pool.map(_build.load, CUDA_SOURCES))
+    for name in CUDA_SOURCES:
+        _build.load(name)
     t_nvcc = time.perf_counter() - t0
     x = torch.ones(2, 64, device="cuda")
     norms.rms_norm_fwd_triton(x, torch.ones(64, device="cuda"))
@@ -429,11 +444,28 @@ def fused_attn_phase(gpu):
     return row
 
 
+def mlp_timing(fdb, args):
+    """decode_mlp_block's time at ``args`` (bf16) beside its bound, its
+    plain version's time and its three products alone."""
+    import torch
+    x, nw, wg, wu, wd = args
+    R, D = x.shape
+    F = wg.shape[1]
+    b_ms, b_by = bound((3 * D * F + 2 * R * D + D) * 2, 6 * R * D * F,
+                       "bfloat16")
+    h, ff = torch.randn_like(x), torch.randn(R, F, device="cuda").to(x.dtype)
+    return {"ms": cold_ms(lambda: fdb.decode_mlp_block_cuda(*args)),
+            "plain_ms": cold_ms(lambda: fdb.mlp_block_ref(*args)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "matmul_ms": cold_ms(lambda: (h @ wg, h @ wu, ff @ wd))}
+
+
 def fused_mlp_phase(gpu):
     """decode_mlp_block against mlp_block_ref on the card, at F=11008 and
     at an F no tile width divides (the last F tile masked), f32 and bf16,
-    8, 20 and 32 slots, tolerances as for the attention block (x_out at
-    1e-4 in f32); the bf16 32-slot case is timed."""
+    8, 20 and 32 slots and 32 and 128 rows (the prefill MLP's chunks),
+    tolerances as for the attention block (x_out at 1e-4 in f32); the bf16
+    cases of 32 and 128 rows are timed beside their bound."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -441,9 +473,12 @@ def fused_mlp_phase(gpu):
     cases, max_err, timed = [], 0.0, None
     # 11000 = 8 * 1375: no bf16 tile (16, 32, 64) divides it; 11012 = 4 *
     # 2753: no f32 tile (8, 16, 32) divides it
+    rows = {}
     for dt, F, B in ((torch.bfloat16, F7, B8), (torch.float32, F7, B8),
                      (torch.bfloat16, 11000, B8), (torch.float32, 11012, B8),
-                     (torch.bfloat16, F7, 32), (torch.float32, 11012, 20)):
+                     (torch.bfloat16, F7, 32), (torch.float32, 11012, 20),
+                     (torch.float32, F7, 32), (torch.bfloat16, F7, 128),
+                     (torch.float32, F7, 128)):
         def rn(*shape, std=1.0):
             return (torch.randn(*shape, generator=gen, device="cuda")
                     * std).to(dt)
@@ -462,8 +497,9 @@ def fused_mlp_phase(gpu):
                 "bitwise_repeatable": same, "dispatch": picked[1],
                 "smem_bytes": fdb.mlp_smem_bytes(D7, args[0].element_size()),
                 "ok": out["ok"] and same and picked[1] == "cuda_fused"}
-        if B == 32:
-            case["ms"] = cold_ms(lambda: fdb.decode_mlp_block_cuda(*args))
+        if dt == torch.bfloat16 and F == F7 and B in (32, 128):
+            rows[B] = mlp_timing(fdb, args)
+            case["ms"] = rows[B]["ms"]
         cases.append(case)
         if not case["ok"]:
             emit({"phase": "kernel", "kernel": "decode_mlp_block",
@@ -485,18 +521,162 @@ def fused_mlp_phase(gpu):
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
            "library": "none: no single PyTorch call computes the block",
            "matmul_ms": cold_ms(lambda: (h @ wg, h @ wu, ff @ wd)),
-           "ok": True}
+           "prefill_rows": rows, "ok": True}
     emit({"phase": "kernel", "kernel": "decode_mlp_block", "gpu": gpu,
-          "cases": cases})
+          "cases": cases, "prefill_rows": rows})
     return row
+
+
+def prefill_bytes(P, n, pos0, D, H, KV, hd, BS, item):
+    """Bytes one prefill_attn_block launch must move: the four weight
+    matrices and the norm weight, the real rows of x in and every row of
+    x_out, k_new and v_new out, the chunk's f32 rope rows, the history's
+    K and V rows (``pos0`` tokens) and its table entries."""
+    weights = (2 * D * H * hd + 2 * D * KV * hd + D) * item
+    acts = (n * D + P * D + 2 * P * KV * hd) * item + P * hd * 4
+    return (weights + acts + 2 * pos0 * KV * hd * item
+            + 4 * -(-pos0 // BS))
+
+
+def prefill_ops(n, pos0, D, H, KV, hd):
+    """Multiply-adds x 2 of the real rows: the four products, and q.k and
+    p.v over each row's history and its chunk prefix."""
+    attended = sum(pos0 + r + 1 for r in range(n))
+    return 2 * n * D * (H + 2 * KV) * hd + 2 * n * H * hd * D \
+        + 4 * H * hd * attended
+
+
+PREFILL_CASES = ((0, 0), (0, 1), (0, -3), (5, -3), (16, 0), (600, None))
+
+
+def prefill_attn_phase(gpu):
+    """prefill_attn_block against prefill_attn_block_ref (the dense
+    composition: the RMSNorm kernel, cuBLAS products, attention over the
+    gathered view) on the card, at LLaMA-7B widths with KV=32 and KV=8,
+    f32 (TF32 off) and bf16, chunks of 32 and 128 rows, a permuted table
+    of 72 pages, and the (pos0, n_valid) cases of PREFILL_CASES (n_valid
+    0 = P, negative = P minus it, None = 21 at P=32 and 77 at P=128).
+    The real rows of x_out (f32 1e-4), k_new and v_new (f32 1e-5) must
+    agree, bf16 to two ulps (bf16_close); every row of x_out must be
+    finite; two launches must give the same bits. Dispatch must pick the
+    kernel at every shape. Timed at P=128, bf16, KV=32, pos0 0 and 512."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import fused_prefill_block as fpb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    D, H, hd, BS, MB = D7, H7, HD7, BS16, MB72
+    sin, cos = build_rope_cache(MB * BS, hd, device="cuda")
+    cases, max_err, timed = [], 0.0, {}
+    for dt in (torch.bfloat16, torch.float32):
+        def rn(*shape, std=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * std).to(dt)
+        for KV in (H, 8):
+            perm = torch.randperm(MB, generator=gen, device="cuda") + 1
+            table = perm.to(torch.int32).contiguous()
+            weights = (
+                (1 + 0.1 * torch.randn(D, generator=gen,
+                                       device="cuda")).to(dt),
+                rn(D, H * hd, std=0.02), rn(D, KV * hd, std=0.02),
+                rn(D, KV * hd, std=0.02), rn(H * hd, D, std=0.02))
+            kp, vp = rn(MB + 1, BS, KV, hd), rn(MB + 1, BS, KV, hd)
+            for P in (32, 128):
+                meta = fpb.prefill_meta_dims(P, D, H, KV, hd, F7, BS, MB, dt,
+                                             dt, False)
+                picked = KERNELS.dispatch("prefill_attn_block", meta)[0]
+                for pos0, nv in PREFILL_CASES:
+                    n = ({32: 21, 128: 77}[P] if nv is None
+                         else P + nv if nv <= 0 else nv)
+                    args = (rn(P, D), *weights, sin[pos0:pos0 + P],
+                            cos[pos0:pos0 + P], kp, vp, table, pos0, n)
+                    got = fpb.prefill_attn_block_cuda(*args)
+                    again = fpb.prefill_attn_block_cuda(*args)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    want = fpb.prefill_attn_block_ref(*args)
+                    torch.cuda.synchronize()
+                    outs = {}
+                    for nm, g, w, tol in (("x_out", got[0], want[0], 1e-4),
+                                          ("k_new", got[1], want[1], 1e-5),
+                                          ("v_new", got[2], want[2], 1e-5)):
+                        outs[nm] = _check_case(nm, g[:n], w[:n], dt, tol)
+                        max_err = max(max_err, outs[nm]["max_abs_err"])
+                    finite = bool(torch.isfinite(got[0]).all())
+                    case = {"dtype": str(dt)[6:], "KV": KV, "P": P,
+                            "pos0": pos0, "n_valid": n, "outputs": outs,
+                            "pad_rows_finite": finite,
+                            "bitwise_repeatable": same, "dispatch": picked,
+                            "ok": same and finite and picked == "cuda_fused"
+                            and all(o["ok"] for o in outs.values())}
+                    cases.append(case)
+                    if not case["ok"]:
+                        emit({"phase": "kernel", "kernel":
+                              "prefill_attn_block", "gpu": gpu,
+                              "cases": cases})
+                        raise AssertionError(
+                            f"prefill_attn_block disagrees: {case}")
+            if dt == torch.bfloat16 and KV == H:
+                for pos0 in (0, 512):
+                    args = (rn(128, D), *weights, sin[pos0:pos0 + 128],
+                            cos[pos0:pos0 + 128], kp, vp, table, pos0, 128)
+                    timed[pos0] = prefill_timing(fpb, F, args)
+    row = {"name": "prefill_attn_block", "route": "cuda",
+           "source": PREFILL_SOURCE,
+           "replaces": "paddle_tpu/ops/pallas/fused_prefill_block.py:431",
+           "shape": {"P": 128, "n_valid": 128, "pos0": 512, "D": D, "H": H,
+                     "KV": H, "hd": hd, "BS": BS, "MB": MB},
+           "dtype": "bfloat16", "max_abs_err": max_err,
+           **{k: timed[512][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "matmul_ms",
+                                         "sdpa_ms")},
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes the block",
+           "at_pos0_0": timed[0], "ok": True}
+    emit({"phase": "kernel", "kernel": "prefill_attn_block", "gpu": gpu,
+          "cases": cases, "timed": timed})
+    return row
+
+
+def prefill_timing(fpb, F, args):
+    """prefill_attn_block's time at ``args`` (bf16, KV = H) beside its
+    bound, its plain version's time, its four products alone
+    (``torch.matmul``, the yardstick) and SDPA over its attention alone
+    (the history gathered densely beforehand, not timed; information)."""
+    import torch
+    x, nw, wq, wk, wv, wo, sin, cos, kp, vp, table, pos0, n = args
+    P, D = x.shape
+    _, BS, KV, hd = kp.shape
+    H = wq.shape[1] // hd
+    b_ms, b_by = bound(
+        prefill_bytes(P, n, pos0, D, H, KV, hd, BS, x.element_size()),
+        prefill_ops(n, pos0, D, H, KV, hd), "bfloat16")
+    h, a = torch.randn_like(x), torch.randn_like(x)
+    T = pos0 + P
+    q = torch.randn(1, H, P, hd, device="cuda").to(x.dtype)
+    kd = kp[table.long()].reshape(-1, KV, hd)[:T].transpose(0, 1)[None]
+    vd = vp[table.long()].reshape(-1, KV, hd)[:T].transpose(0, 1)[None]
+    mask = (torch.arange(T, device="cuda")[None, :]
+            <= pos0 + torch.arange(P, device="cuda")[:, None])
+    return {"pos0": pos0, "n_valid": n,
+            "ms": cold_ms(lambda: fpb.prefill_attn_block_cuda(*args)),
+            "plain_ms": cold_ms(lambda: fpb.prefill_attn_block_ref(*args)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "matmul_ms": cold_ms(lambda: (h @ wq, h @ wk, h @ wv, a @ wo)),
+            "sdpa_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+                q, kd, vd, attn_mask=mask))}
 
 
 def parity_phase(gpu):
     """Route parity, f32 at LLaMA-7B widths with 2 layers: the engine on
-    its default fused route (both CUDA decode-block kernels) and on the
-    unfused route (paged-attention and RMSNorm kernels), each against the
-    port's dense ``generate``. Tokens must be equal, or the first
-    divergence must sit on a near tie (top-2 logit gap < 1e-4)."""
+    its default route (the prefill and decode-block CUDA kernels) and on
+    the unfused route (paged-attention and RMSNorm kernels, the verbatim
+    prefill chunk), each against the port's dense ``generate``. Tokens
+    must be equal, or the first divergence must sit on a near tie (top-2
+    logit gap < 1e-4)."""
     import dataclasses
     import torch
     from paddle_tpu_torch.inference import (GenerationConfig,
@@ -521,7 +701,7 @@ def parity_phase(gpu):
     for route, fused in (("fused", None), ("unfused", False)):
         eng = ServingEngine(params, cfg, capacity=2, block_size=16,
                             max_seq_len=512, prefill_buckets=(32, 128),
-                            fused_decode=fused)
+                            fused_decode=fused, fused_prefill=fused)
         reqs = [eng.submit(p, GenerationConfig(max_new_tokens=N,
                                                greedy=True))
                 for p, (_, N) in zip(prompts, specs)]
@@ -541,6 +721,7 @@ def parity_phase(gpu):
                            top2_logit_gap=float(top2[0] - top2[1]))
             results.append(res)
         routes[route] = {"decode_variant": eng.decode_variant,
+                         "prefill_variant": eng.prefill_variant,
                          "requests": results,
                          "tokens": [r.tokens for r in reqs]}
     routes["fused_equals_unfused"] = (routes["fused"]["tokens"]
@@ -548,9 +729,7 @@ def parity_phase(gpu):
     emit({"phase": "parity", "gpu": gpu, "dtype": "float32", "layers": 2,
           **{k: ({kk: vv for kk, vv in v.items() if kk != "tokens"}
                  if isinstance(v, dict) else v) for k, v in routes.items()}})
-    v = routes["fused"]["decode_variant"]
-    if (v["attn"], v["mlp"]) != ("cuda_fused", "cuda_fused"):
-        raise AssertionError(f"parity engine is not on the CUDA kernels: {v}")
+    _check_default_route(routes["fused"], "parity engine")
     for route in ("fused", "unfused"):
         for res in routes[route]["requests"]:
             if not res["match"] and res["top2_logit_gap"] >= 1e-4:
@@ -558,13 +737,30 @@ def parity_phase(gpu):
                     f"{route} engine and generate diverge: {res}")
 
 
+DEFAULT_ROUTE = {
+    "decode_variant": {"mode": "auto", "block": "composed",
+                       "attn": "cuda_fused", "mlp": "cuda_fused"},
+    "prefill_variant": {"mode": "auto", "attn": "cuda_fused",
+                        "mlp": "cuda_fused"}}
+
+
+def _check_default_route(variants, what):
+    """The engine's default route must run the CUDA kernels for both the
+    prefill chunk and the decode step."""
+    got = {k: variants[k] for k in DEFAULT_ROUTE}
+    if got != DEFAULT_ROUTE:
+        raise AssertionError(f"{what} is not on the CUDA kernels: {got}")
+
+
 SERVE_REQUESTS, SERVE_NEW = 12, 64
 
 
 def serving_phase(gpu, params, fused):
-    """LLaMA-7B at full depth, bf16, 8 slots, 12 requests. The launch
-    counts are set to 0 just before the requests go in and read just
-    after the engine drains."""
+    """LLaMA-7B at full depth, bf16, 8 slots, 12 requests, on the default
+    route (``fused`` None: both knobs left at their default) or the
+    unfused one (``fused`` False: ``fused_decode=False,
+    fused_prefill=False``). The launch counts are set to 0 just before
+    the requests go in and read just after the engine drains."""
     import torch
     from paddle_tpu_torch.inference import GenerationConfig, ServingEngine
     from paddle_tpu_torch.models import LLAMA_7B
@@ -573,7 +769,7 @@ def serving_phase(gpu, params, fused):
     L = cfg.num_hidden_layers
     eng = ServingEngine(params, cfg, capacity=8, block_size=16,
                         max_seq_len=1024, prefill_buckets=(32, 128),
-                        fused_decode=fused)
+                        fused_decode=fused, fused_prefill=fused)
     rng = np.random.default_rng(0)
     lens = rng.integers(40, 601, SERVE_REQUESTS)
     gen = GenerationConfig(max_new_tokens=SERVE_NEW, greedy=True)
@@ -595,6 +791,7 @@ def serving_phase(gpu, params, fused):
           "model": "LLAMA_7B", "layers": L, "dtype": "bfloat16",
           "requests": len(reqs), "prompt_tokens": [int(n) for n in lens],
           "decode_variant": m["decode_variant"],
+          "prefill_variant": m["prefill_variant"],
           "wall_s": round(wall, 3),
           "tokens_per_sec": m["tokens_per_sec"],
           "prefill_tokens_per_sec": m["prefill_tokens_per_sec"],
@@ -613,15 +810,16 @@ def serving_phase(gpu, params, fused):
         if not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"request {r.req_id}: token out of range")
     if route == "fused":
-        v = m["decode_variant"]
-        want = {"decode_attn_block": L * steps, "decode_mlp_block": L * steps,
-                "paged_attention_decode": 0,
-                "rms_norm_fwd": steps + (2 * L + 1) * chunks}
-        if (v["attn"], v["mlp"]) != ("cuda_fused", "cuda_fused"):
-            raise AssertionError(f"main path is not on the CUDA kernels: {v}")
+        # the prefill MLP is decode_mlp_block over the chunk's rows; the
+        # final norm of every chunk and step is the RMSNorm kernel
+        want = {"prefill_attn_block": L * chunks,
+                "decode_attn_block": L * steps,
+                "decode_mlp_block": L * (steps + chunks),
+                "paged_attention_decode": 0, "rms_norm_fwd": steps + chunks}
+        _check_default_route(m, "main path")
     else:
-        want = {"decode_attn_block": 0, "decode_mlp_block": 0,
-                "paged_attention_decode": L * steps,
+        want = {"prefill_attn_block": 0, "decode_attn_block": 0,
+                "decode_mlp_block": 0, "paged_attention_decode": L * steps,
                 "rms_norm_fwd": (2 * L + 1) * (steps + chunks)}
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"{route} launches {counts} != {want} "
@@ -680,7 +878,7 @@ def routes_phase(gpu, params, prompts, routes):
 
 
 def _kernel_group(name):
-    for op in ("decode_attn_block", "decode_mlp_block",
+    for op in ("prefill_attn_block", "decode_attn_block", "decode_mlp_block",
                "paged_attention_decode"):
         if op in name:
             return op
@@ -692,15 +890,64 @@ def _kernel_group(name):
     return "other"
 
 
+def _device_groups(prof, per):
+    """Device activities (kernels, copies) of a torch.profiler run, per
+    ``per`` steps or chunks: ({name: (ms, count)}, {group: [ms, count]})."""
+    import torch
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / per,
+                               n + 1 / per)
+    groups = {}
+    for name, (ms, n) in kernels.items():
+        g = groups.setdefault(_kernel_group(name), [0.0, 0.0])
+        g[0] += ms
+        g[1] += n
+    return kernels, groups
+
+
+def _rounded(groups):
+    return {k: {"ms": round(v[0], 3), "launches": round(v[1], 2)}
+            for k, v in sorted(groups.items())}
+
+
+def _timed_chunks(eng):
+    """Wrap the engine's two chunk programs so that each chunk records
+    CUDA events around it: returns the list of (bucket, start, end) that
+    fills as chunks run, and a switch to pause recording."""
+    import torch
+    record = {"on": True, "events": []}
+    for attr in ("_prefill_chunk", "_prefill_chunk_fused"):
+        fn = getattr(eng, attr)
+
+        def timed(toks, *a, _fn=fn):
+            if not record["on"]:
+                return _fn(toks, *a)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _fn(toks, *a)
+            end.record()
+            record["events"].append((int(toks.shape[1]), start, end))
+            return out
+        setattr(eng, attr, timed)
+    return record
+
+
 def profile_phase(gpu, eng, route, steps=10, prompt=384):
-    """Where one decode step's time goes, after the serving phase (its
-    launches are not counted there): 8 fresh requests of ``prompt``
-    tokens (about the serving phase's median) fill every slot; then
-    ``steps`` steps that only decode are timed as they run, and ``steps``
-    more under torch.profiler. Device time is summed per kernel from the
-    profiled steps; busy share = device time / unprofiled step time. Each
-    kernel of the route is held against its byte bound at the profiled
-    lengths."""
+    """Where a prefill chunk's and a decode step's time go, after the
+    serving phase (its launches are not counted there): 8 fresh requests
+    of ``prompt`` tokens (about the serving phase's median) fill every
+    slot. The first request's first two chunks run alone (no slot decodes
+    yet) under torch.profiler: device time per chunk by kernel group.
+    Every later chunk is timed with CUDA events around it (ms per chunk
+    by bucket). Then ``steps`` steps that only decode are timed as they
+    run, and ``steps`` more under torch.profiler. Device time is summed
+    per kernel from the profiled steps; busy share = device time /
+    unprofiled step time. Each kernel of the route is held against its
+    byte bound at the profiled lengths."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import GenerationConfig
@@ -711,9 +958,46 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
     for _ in range(eng.capacity):
         eng.submit(rng.integers(0, eng.cfg.vocab_size, prompt)
                    .astype(np.int32), gen)
+    record = _timed_chunks(eng)
+    record["on"] = False
+    cfg = eng.cfg
+    traced = 2            # chunks at pos0 0 and P of the first request
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(traced):
+            eng.step()
+        torch.cuda.synchronize()
+    _, chunk_groups = _device_groups(prof, traced)
+    record["on"] = True
     while any(s.phase != "decode" for s in eng._slots):
         eng.step()
     eng.step()
+    torch.cuda.synchronize()
+    by_bucket = {}
+    for P, start, end in record["events"]:
+        by_bucket.setdefault(P, []).append(start.elapsed_time(end))
+    chunk_ms = {str(P): {"chunks": len(v), "ms_mean": float(np.mean(v)),
+                         "ms_max": float(np.max(v))}
+                for P, v in sorted(by_bucket.items())}
+    record["on"] = False
+    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    item = eng._k_pools.element_size()
+    prefill = {"chunks_traced": traced,
+               "per_chunk_by_group": _rounded(chunk_groups),
+               "device_ms_per_chunk": round(sum(
+                   v[0] for v in chunk_groups.values()), 3),
+               "chunk_ms_by_bucket": chunk_ms}
+    ms, n = chunk_groups.get("prefill_attn_block", [0.0, 0.0])
+    if n:
+        P = eng.buckets[-1]
+        nbytes = float(np.mean([prefill_bytes(
+            P, P, pos0, cfg.hidden_size, H, KV, hd, eng.block_size, item)
+            for pos0 in range(0, traced * P, P)]))
+        prefill["prefill_attn_block_per_launch"] = {
+            "bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
+            "us": ms / n * 1e3}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -731,23 +1015,9 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
             eng.step()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = {}                 # device activities only (kernels, copies)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / steps,
-                               n + 1 / steps)
+    kernels, groups = _device_groups(prof, steps)
     device_ms = sum(ms for ms, _ in kernels.values())
-    groups = {}
-    for name, (ms, n) in kernels.items():
-        g = groups.setdefault(_kernel_group(name), [0.0, 0.0])
-        g[0] += ms
-        g[1] += n
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    cfg = eng.cfg
-    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                 cfg.head_dim)
-    item = eng._k_pools.element_size()
     per_launch = {}
     byte_models = {
         # attention over cached tokens + the new one
@@ -770,6 +1040,7 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
         per_launch[op] = {"bytes": nbytes, "bound_us": bound_us, "us": us,
                           "x_bound": us / bound_us}
     emit({"phase": "profile", "route": route, "gpu": gpu,
+          "prefill": prefill,
           "decode_steps": steps, "live_slots": eng.capacity,
           "live_tokens_mean": float(np.mean([sum(ls) for ls in lens])),
           "step_ms": round(step_ms, 3),
@@ -778,9 +1049,7 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
           "device_busy_share": round(device_ms / step_ms, 4),
           "device_activities_per_step": round(
               sum(n for _, n in kernels.values()), 2),
-          "per_step_by_group": {k: {"ms": round(v[0], 3),
-                                    "launches": round(v[1], 2)}
-                                for k, v in sorted(groups.items())},
+          "per_step_by_group": _rounded(groups),
           "per_launch": per_launch,
           "top_kernels": [{"name": k[:120], "ms_per_step": round(ms, 4),
                            "launches_per_step": round(n, 2)}
@@ -799,7 +1068,7 @@ def main():
     gpu = gpu_line()
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
-            fused_mlp_phase(gpu)]
+            fused_mlp_phase(gpu), prefill_attn_phase(gpu)]
     parity_phase(gpu)
     params = init_params(LLAMA_7B, seed=0)
     fused_counts, eng, prompts, fused_tokens = serving_phase(gpu, params,

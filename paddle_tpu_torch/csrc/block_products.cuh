@@ -1,0 +1,364 @@
+// The block-wide building blocks of the port's fused layer kernels
+// (fused_decode_block.cu, fused_prefill_block.cu): the product tile
+// routine, the RMSNorm of a pass of rows, the RoPE rotation, the carve of
+// an attention item's scratch and the cooperative launch. One definition
+// keeps the kernels' rounding orders the same.
+//
+// A product runs 8 rows at a time (a pass): each thread streams 16-byte
+// weight vectors (neighbouring lanes on neighbouring columns, four loads
+// in flight before their FMAs) and multiplies each by the 8 rows of the left
+// operand, kept k-major ([k][8 rows]) so one 16-byte shared load serves a
+// vector; f32 sums in registers, reduced across lanes and warps in a
+// fixed order (no atomics, so two launches give identical bits). Rows
+// past the operand's end are zeros.
+//
+// Shared memory of a kernel built on these, sized by its Python wrapper
+// and passed in: ``region`` bytes for one pass of k-major rows [D][8] (or
+// a staged chunk of a product's operand, or the attention scratch of one
+// work item), then the per-warp partial sums [kWarps][kMaxLpr * V][8] f32
+// and two [kMaxLpr * V][8] f32 result tiles.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "online_softmax.cuh"
+
+namespace paddle_tpu_torch {
+namespace fused {
+
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRB = 8;          // rows summed per pass
+constexpr int kMaxLpr = 8;      // lanes per weight row, at most
+constexpr int kPagesPerStep = 4;   // KV pages an attention step streams
+
+template <typename T>
+struct Vec {
+  static constexpr int n = 16 / sizeof(T);   // elements per 16-byte load
+};
+
+__host__ __device__ inline int passes(int B) { return (B + kRB - 1) / kRB; }
+
+// f32 scratch of one attention item of ``rows`` query rows, at the start
+// of the region: q, acc [rows][hd]; scores [rows][pages per step * BS];
+// m, l, alpha [rows]; one more [hd] row (the decode kernel's new-token
+// k); padded to 16 bytes. The step's K and V pages (T) follow it.
+__device__ inline size_t attn_scratch_floats(int rows, int hd, int BS) {
+  size_t f = 2 * (size_t)rows * hd + (size_t)rows * kPagesPerStep * BS +
+             3 * (size_t)rows + (size_t)hd;
+  return (f + 3) / 4 * 4;
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& raw, float (&w)[Vec<T>::n]);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& raw, float (&w)[4]) {
+  w[0] = __uint_as_float(raw.x);
+  w[1] = __uint_as_float(raw.y);
+  w[2] = __uint_as_float(raw.z);
+  w[3] = __uint_as_float(raw.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& raw,
+                                                      float (&w)[8]) {
+  const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[2 * i] = __uint_as_float(u[i] << 16);
+    w[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// The 8 rows of one k of a k-major operand in shared memory, as f32.
+template <typename T>
+__device__ __forceinline__ void rows8(const T* p, float (&a)[kRB]);
+template <>
+__device__ __forceinline__ void rows8<float>(const float* p, float (&a)[kRB]) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0];
+  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+  a[0] = lo.x; a[1] = lo.y; a[2] = lo.z; a[3] = lo.w;
+  a[4] = hi.x; a[5] = hi.y; a[6] = hi.z; a[7] = hi.w;
+}
+template <>
+__device__ __forceinline__ void rows8<__nv_bfloat16>(const __nv_bfloat16* p,
+                                                     float (&a)[kRB]) {
+  unpack<__nv_bfloat16>(*reinterpret_cast<const uint4*>(p), a);
+}
+
+// Round to T and back: the value a T tensor would hold.
+template <typename T>
+__device__ __forceinline__ float round_t(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// Lanes per weight row for a phase of ``ncols`` output columns: the width
+// that gives the busiest block the fewest columns, the wider on a tie.
+__device__ __forceinline__ int pick_lpr(int ncols, int vec) {
+  int best = kMaxLpr, best_cost = 0x7fffffff;
+  for (int lpr = kMaxLpr; lpr >= 2; lpr >>= 1) {
+    const int tc = lpr * vec;
+    const int tiles = (ncols + tc - 1) / tc;
+    const int cost = ((tiles + (int)gridDim.x - 1) / (int)gridDim.x) * tc;
+    if (cost < best_cost) {
+      best_cost = cost;
+      best = lpr;
+    }
+  }
+  return best;
+}
+
+template <typename T>
+__device__ __forceinline__ void fma_rows(float (&acc)[kRB][Vec<T>::n],
+                                         const uint4& raw, const T* a_k) {
+  float w[Vec<T>::n], a[kRB];
+  unpack<T>(raw, w);
+  rows8<T>(a_k, a);
+#pragma unroll
+  for (int r = 0; r < kRB; ++r)
+#pragma unroll
+    for (int j = 0; j < Vec<T>::n; ++j) acc[r][j] = fmaf(a[r], w[j], acc[r][j]);
+}
+
+// acc[r][j] += sum over k < kn of a_t[k*8 + r] * W[k*ldw + col + j] for
+// this thread's column vector (col = col0 + (lane % lpr) * V) and its rows
+// k (its row slot, then every ``step`` rows). Columns >= ncols read
+// nothing (ncols is a multiple of V, so a vector is all in or all out).
+template <typename T>
+__device__ __forceinline__ void tile_accumulate(float (&acc)[kRB][Vec<T>::n],
+                                                const T* a_t,
+                                                const T* __restrict__ W,
+                                                size_t ldw, int kn, int col0,
+                                                int ncols, int lpr) {
+  constexpr int V = Vec<T>::n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rpw = 32 / lpr;
+  const int col = col0 + (lane % lpr) * V;
+  if (col >= ncols) return;
+  const int step = kWarps * rpw;
+  const T* wp = W + col;
+  int k = warp * rpw + lane / lpr;
+  for (; k + 3 * step < kn; k += 4 * step) {
+    uint4 raw[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      raw[u] = __ldg(reinterpret_cast<const uint4*>(
+          wp + (size_t)(k + u * step) * ldw));
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      fma_rows<T>(acc, raw[u], a_t + (size_t)(k + u * step) * kRB);
+  }
+  for (; k < kn; k += step)
+    fma_rows<T>(acc, __ldg(reinterpret_cast<const uint4*>(wp + (size_t)k * ldw)),
+                a_t + (size_t)k * kRB);
+}
+
+// Sum acc across the lanes of a column and across warps, in a fixed
+// order, into res_s[c * 8 + r] (f32). Synchronises the block.
+template <typename T>
+__device__ __forceinline__ void tile_reduce(float (&acc)[kRB][Vec<T>::n],
+                                            float* red_s, float* res_s,
+                                            int lpr) {
+  constexpr int V = Vec<T>::n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tc = lpr * V;
+  for (int off = lpr; off < 32; off <<= 1) {
+#pragma unroll
+    for (int r = 0; r < kRB; ++r)
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], off);
+  }
+  if (lane < lpr) {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+#pragma unroll
+      for (int r = 0; r < kRB; ++r)
+        red_s[((warp * tc) + lane * V + j) * kRB + r] = acc[r][j];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < tc * kRB; i += kThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red_s[w * tc * kRB + i];
+    res_s[i] = s;
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ __forceinline__ void zero(float (&acc)[kRB][Vec<T>::n]) {
+#pragma unroll
+  for (int r = 0; r < kRB; ++r)
+#pragma unroll
+    for (int j = 0; j < Vec<T>::n; ++j) acc[r][j] = 0.f;
+}
+
+// Sums of one pass (8 rows, ``nr`` of them real) of a k-major operand A_t
+// [K][8] in device memory times W[:, col0:+tile] into res_s, staging A_t
+// through a_s in chunks of kc_max rows of k (rows past nr staged as 0).
+template <typename T>
+__device__ void tile_sums_staged(const T* A_t, int K, T* a_s, int kc_max,
+                                 const T* __restrict__ W, size_t ldw,
+                                 int col0, int ncols, int nr, int lpr,
+                                 float* red_s, float* res_s) {
+  constexpr int V = Vec<T>::n;
+  float acc[kRB][V];
+  zero<T>(acc);
+  for (int k0 = 0; k0 < K; k0 += kc_max) {
+    const int kc = min(kc_max, K - k0);
+    const int nv = kc * kRB / V;
+    __syncthreads();   // the previous chunk's readers are done with a_s
+    const uint4* src = reinterpret_cast<const uint4*>(A_t + (size_t)k0 * kRB);
+    for (int i = threadIdx.x; i < nv; i += kThreads) {
+      uint4 v = src[i];
+      if (nr < kRB) {
+        T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if ((i * V + j) % kRB >= nr) e[j] = from_float<T>(0.f);
+      }
+      reinterpret_cast<uint4*>(a_s)[i] = v;
+    }
+    __syncthreads();
+    tile_accumulate<T>(acc, a_s, W + (size_t)k0 * ldw, ldw, kc, col0, ncols,
+                       lpr);
+  }
+  tile_reduce<T>(acc, red_s, res_s, lpr);
+}
+
+// h_t[k*8 + r] = T(T(x * rsqrt(mean(x^2) + eps)) * nw) for row b = 8p + r
+// of pass p, zeros for rows past B; f32 statistics: ops/kernels/norms.py's
+// rounding order. The 8 rows are read together (8 loads in flight a
+// thread) and reduced in one block-wide step. Synchronises the block.
+template <typename T>
+__device__ void rms_pass(const T* __restrict__ x, const T* __restrict__ nw,
+                         T* h_t, int p, int B, int D, float eps,
+                         float* red_s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nr = min(kRB, B - p * kRB);
+  const T* xp = x + (size_t)p * kRB * D;
+  __syncthreads();   // earlier readers of h_t and red_s are done
+  float ss[kRB];
+#pragma unroll
+  for (int r = 0; r < kRB; ++r) ss[r] = 0.f;
+  for (int k = threadIdx.x; k < D; k += kThreads) {
+#pragma unroll
+    for (int r = 0; r < kRB; ++r) {
+      if (r < nr) {
+        const float v = to_float(xp[(size_t)r * D + k]);
+        ss[r] = fmaf(v, v, ss[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRB; ++r) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ss[r] += __shfl_xor_sync(0xffffffffu, ss[r], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < kRB; ++r) red_s[warp * kRB + r] = ss[r];
+  }
+  __syncthreads();
+  float rstd[kRB];
+#pragma unroll
+  for (int r = 0; r < kRB; ++r) {
+    float tot = 0.f;
+    for (int w = 0; w < kWarps; ++w) tot += red_s[w * kRB + r];
+    rstd[r] = rsqrtf(tot / (float)D + eps);
+  }
+  for (int k = threadIdx.x; k < D; k += kThreads) {
+    const float w = to_float(nw[k]);
+    __align__(16) T hk[kRB];
+#pragma unroll
+    for (int r = 0; r < kRB; ++r) {
+      float h = 0.f;
+      if (r < nr) {
+        const float n =
+            round_t<T>(__fmul_rn(to_float(xp[(size_t)r * D + k]), rstd[r]));
+        h = __fmul_rn(n, w);
+      }
+      hk[r] = from_float<T>(h);
+    }
+#pragma unroll
+    for (int v = 0; v < kRB * (int)sizeof(T) / 16; ++v)
+      reinterpret_cast<uint4*>(h_t + (size_t)k * kRB)[v] =
+          reinterpret_cast<const uint4*>(hk)[v];
+  }
+  __syncthreads();
+}
+
+// Makes pass p's normalised rows the ones in h_t, unless they are already
+// (``*held`` names the pass h_t holds, -1 for none). Block-uniform.
+template <typename T>
+__device__ __forceinline__ void hold_pass(const T* x, const T* nw, T* h_t,
+                                          int p, int* held, int B, int D,
+                                          float eps, float* red_s) {
+  if (*held == p) return;
+  rms_pass<T>(x, nw, h_t, p, B, D, eps, red_s);
+  *held = p;
+}
+
+// The neox-halves rotation of element d of one head row, in f32, as
+// ops/rope.apply_rope computes it (no fused multiply-add).
+template <typename T>
+__device__ __forceinline__ float rope_at(const T* row, int d, int hd2,
+                                         const float* sn, const float* cs) {
+  const int j = d < hd2 ? d : d - hd2;
+  const float x1 = to_float(row[j]), x2 = to_float(row[j + hd2]);
+  return d < hd2 ? __fsub_rn(__fmul_rn(x1, cs[j]), __fmul_rn(x2, sn[j]))
+                 : __fadd_rn(__fmul_rn(x2, cs[j]), __fmul_rn(x1, sn[j]));
+}
+
+// One cooperative launch of ``kernel`` with every co-resident block. The
+// grid size of each (kernel, shared memory, device) is worked out once:
+// the serving loop launches these kernels once per layer.
+template <typename Args>
+cudaError_t launch_coop(void (*kernel)(const Args), const Args& args,
+                        size_t smem, cudaStream_t stream) {
+  struct Grid {
+    void (*kernel)(const Args);
+    size_t smem;
+    int dev, blocks;
+  };
+  static Grid known[16];
+  static int n_known = 0;
+  cudaError_t e;
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  int blocks = 0;
+  for (int i = 0; i < n_known; ++i)
+    if (known[i].kernel == kernel && known[i].smem == smem &&
+        known[i].dev == dev)
+      blocks = known[i].blocks;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    if ((e = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem)) != cudaSuccess)
+      return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+      return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks = sms * per_sm;
+    if (n_known < 16) known[n_known++] = Grid{kernel, smem, dev, blocks};
+  }
+  void* params[] = {const_cast<Args*>(&args)};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                  dim3(blocks), dim3(kThreads), params, smem,
+                                  stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace fused
+}  // namespace paddle_tpu_torch

@@ -1,15 +1,17 @@
-// The page-streaming attention reduction shared by the port's decode
+// The page-streaming attention reduction shared by the port's attention
 // kernels: port of paddle_tpu/ops/pallas/_util.py's
-// online_softmax_page_update and clamped_page_index.
+// online_softmax_page_update and clamped_page_index, and the prefill
+// kernel's fold of a chunk's own K/V under its causal mask.
 //
-// The JAX package keeps these two helpers single-definition so that the
+// The JAX package keeps these helpers single-definition so that the
 // unfused paged-decode kernel and the fused decode-block kernel reduce
 // identically, op for op (their bit-parity contract). This header is the
-// port's one definition of the same two helpers: every CUDA kernel that
-// streams KV pages through an online softmax includes it.
+// port's one definition of them: every CUDA kernel that streams KV pages
+// through an online softmax includes it, and the page update and the
+// chunk fold are one masked update with two masks.
 //
 // Layout contract (all pointers into shared memory, all f32 except K/V):
-//   q      [groups][hd]  the query heads of one KV head, already f32
+//   q      [groups][hd]  the query rows of one KV head, already f32
 //   k, v   [bs][hd]      one page of one KV head, in the pool's type
 //   s      [groups][bs]  scratch; holds the page's probabilities on return
 //   m, l   [groups]      running max and running sum of the softmax
@@ -47,20 +49,21 @@ __device__ __forceinline__ int clamped_page_index(int seq_len, int bs,
   return min(pg, last);
 }
 
-// One KV page's online-softmax update (see the layout contract above).
-// Tokens at or after ``seq_len`` are masked out; callers only pass pages
-// that hold at least one live token.
-template <typename T>
-__device__ __forceinline__ void online_softmax_page_update(
-    const float* q, const T* k, const T* v, int pg, int bs, int seq_len,
-    float scale, int groups, int hd, float* s, float* m, float* l,
-    float* alpha, float* acc) {
+// The online-softmax update of one staged tile of ``bs`` keys for
+// ``groups`` query rows (see the layout contract above); ``seen(g, t)``
+// says whether row g sees key t. A row that sees no key of the tile keeps
+// its state (alpha 1, nothing added), even before its first key.
+template <typename T, typename Seen>
+__device__ __forceinline__ void online_softmax_masked_update(
+    const float* q, const T* k, const T* v, int bs, Seen seen, float scale,
+    int groups, int hd, float* s, float* m, float* l, float* alpha,
+    float* acc) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
 
-  // scores: one warp per (query head, token), lanes split head_dim
+  // scores: one warp per (query row, token), lanes split head_dim
   for (int idx = warp; idx < groups * bs; idx += nwarps) {
     const int g = idx / bs;
     const int t = idx - g * bs;
@@ -70,12 +73,11 @@ __device__ __forceinline__ void online_softmax_page_update(
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    if (lane == 0)
-      s[idx] = (pg * bs + t < seq_len) ? dot * scale : -CUDART_INF_F;
+    if (lane == 0) s[idx] = seen(g, t) ? dot * scale : -CUDART_INF_F;
   }
   __syncthreads();
 
-  // running max / sum: one warp per query head, lanes over the tokens,
+  // running max / sum: one warp per query row, lanes over the tokens,
   // reduced across the warp in a fixed order
   for (int g = warp; g < groups; g += nwarps) {
     float* sg = s + g * bs;
@@ -88,7 +90,7 @@ __device__ __forceinline__ void online_softmax_page_update(
     const float m_new = fmaxf(m_prev, mx);
     float sum = 0.f;
     for (int t = lane; t < bs; t += 32) {
-      const float p = (pg * bs + t < seq_len) ? expf(sg[t] - m_new) : 0.f;
+      const float p = seen(g, t) ? expf(sg[t] - m_new) : 0.f;
       sg[t] = p;
       sum += p;
     }
@@ -96,7 +98,8 @@ __device__ __forceinline__ void online_softmax_page_update(
     for (int off = 16; off > 0; off >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, off);
     if (lane == 0) {
-      const float a = expf(m_prev - m_new);  // 0 on the first page (-inf)
+      // 0 on a row's first keys (m_prev -inf); 1 while it has seen none
+      const float a = m_new == -CUDART_INF_F ? 1.f : expf(m_prev - m_new);
       l[g] = a * l[g] + sum;
       alpha[g] = a;
       m[g] = m_new;
@@ -114,6 +117,37 @@ __device__ __forceinline__ void online_softmax_page_update(
     for (int t = 0; t < bs; ++t) a += pg_row[t] * to_float(v[t * hd + d]);
     acc[i] = a;
   }
+}
+
+// One KV page's online-softmax update (see the layout contract above).
+// Tokens at or after ``seq_len`` are masked out; callers only pass pages
+// that hold at least one live token.
+template <typename T>
+__device__ __forceinline__ void online_softmax_page_update(
+    const float* q, const T* k, const T* v, int pg, int bs, int seq_len,
+    float scale, int groups, int hd, float* s, float* m, float* l,
+    float* alpha, float* acc) {
+  online_softmax_masked_update<T>(
+      q, k, v, bs, [=](int, int t) { return pg * bs + t < seq_len; }, scale,
+      groups, hd, s, m, l, alpha, acc);
+}
+
+// One tile of a prefill chunk's own K/V folded into the online softmax
+// under the in-chunk causal mask (the prefill counterpart of the page
+// update; same layout contract, ``groups`` query rows). Query row g sits
+// at chunk position q0 + g % bq (rows are [heads][bq]); key t of the tile
+// is chunk position c0 + t and row g sees it iff c0 + t <= min(q0 + g %
+// bq, c_last). ``c_last`` is the last real row of the chunk: pad rows see
+// only real keys, so their state stays finite.
+template <typename T>
+__device__ __forceinline__ void online_softmax_chunk_update(
+    const float* q, const T* k, const T* v, int c0, int bs, int q0, int bq,
+    int c_last, float scale, int groups, int hd, float* s, float* m,
+    float* l, float* alpha, float* acc) {
+  online_softmax_masked_update<T>(
+      q, k, v, bs,
+      [=](int g, int t) { return c0 + t <= min(q0 + g % bq, c_last); },
+      scale, groups, hd, s, m, l, alpha, acc);
 }
 
 }  // namespace paddle_tpu_torch

@@ -14,6 +14,9 @@ unfused route: RMSNorm, projections, RoPE, pool write, paged attention,
 o_proj, SwiGLU MLP, op by op) and ``_fused_decode_step`` (the JAX engine's
 default route: per layer one ``decode_attn_block``, the pool write, one
 ``decode_mlp_block``, each resolved through the kernel registry).
+``_fused_prefill_forward`` is the JAX engine's default prefill chunk: per
+layer one ``prefill_attn_block``, the chunk's pool write, one
+``prefill_mlp_block``, straight over the pools.
 """
 from __future__ import annotations
 
@@ -27,13 +30,15 @@ import torch
 from ..device import resolve_device
 from ..models import llama as _llama
 from ..ops import rms_norm, swiglu
-from ..ops.paged_attention import paged_attention_decode, write_to_pool
+from ..ops.paged_attention import (paged_attention_decode,
+                                   write_chunk_to_pool, write_to_pool)
 from ..ops.rope import apply_rope, build_rope_cache
 
 __all__ = ["GenerationConfig", "init_cache", "cached_forward",
            "sample_token", "generate"]
 
 _FUSED_MODES = ("auto", "pallas", "ref", "block")
+_FUSED_PREFILL_MODES = ("auto", "pallas", "ref")
 
 
 @dataclass
@@ -320,3 +325,68 @@ def _decode_variant_name(cfg, B, BS, MB, pool_dtype, fused,
     meta = decode_meta(cfg, B=B, BS=BS, MB=MB, pool_dtype=pool_dtype,
                        quant=False, device=device)
     return resolve_decode_step(meta, fused)[3]["attn"]
+
+
+def _fused_prefill_mode(fused_prefill):
+    """Normalise a ``fused_prefill`` knob to the JAX engine's values: None
+    and True -> "auto" (the JAX flag's default; the port has no flag),
+    False -> False, "auto"/"pallas"/"ref" as given. "pallas" forces the
+    hand-written CUDA kernels."""
+    if fused_prefill is None or fused_prefill is True:
+        return "auto"
+    if fused_prefill is False:
+        return False
+    if fused_prefill in _FUSED_PREFILL_MODES:
+        return fused_prefill
+    raise ValueError(f"fused_prefill must be bool|auto|pallas|ref, got "
+                     f"{fused_prefill!r}")
+
+
+def _fused_prefill_forward(params, toks, cfg, k_pools, v_pools, table,
+                           wtable, pos0, n_valid, rope=None, mode="auto"):
+    """One request's prefill chunk through the fused prefill-block ops,
+    straight over the pools.
+
+    toks: [P] bucket-padded chunk tokens (``n_valid`` real, host int);
+    pools [L, N, BS, KV, hd]; table/wtable [MB] int32: the request's READ
+    and WRITE tables; pos0: host int, tokens already in the pools. Per
+    layer: one ``prefill_attn_block`` (RMSNorm + QKV + RoPE + attention
+    over the paged history and the chunk + o_proj + residual), the
+    chunk's own K/V written into the pools in place through the write
+    table (:func:`write_chunk_to_pool`, pad rows to scratch page 0), one
+    ``prefill_mlp_block``. Each op's variant comes from the kernel
+    registry; ``mode`` forwards to
+    :func:`paddle_tpu_torch.ops.kernels.fused_prefill_block.resolve_prefill_blocks`.
+    ``rope``: a (sin, cos) table of at least pos0 + P rows; built here with
+    MB*BS rows when None. Returns (logits [P, V], k_pools, v_pools).
+    Callers guard with ``prefill_fused_selected``: unless both ops resolve
+    to the CUDA kernels they run the verbatim unfused chunk."""
+    from ..ops.kernels.fused_prefill_block import (prefill_meta,
+                                                   resolve_prefill_blocks)
+    if isinstance(params["layers"]["q_proj"], dict):
+        raise NotImplementedError(
+            "quantized weights are not ported yet (weight-quantization "
+            "slice)")
+    P = toks.shape[0]
+    BS, MB = k_pools.shape[2], table.shape[0]
+    meta = prefill_meta(cfg, P, BS, MB, k_pools.dtype, quant=False,
+                        device=k_pools.device)
+    attn_fn, mlp_fn, _ = resolve_prefill_blocks(meta, mode)
+    x = params["embed_tokens"][toks.long()]              # [P, D]
+    if rope is None:
+        rope = build_rope_cache(MB * BS, cfg.head_dim, base=cfg.rope_theta,
+                                device=x.device)
+    sin, cos = rope[0][pos0:pos0 + P], rope[1][pos0:pos0 + P]
+    eps = cfg.rms_norm_eps
+    for i in range(cfg.num_hidden_layers):
+        lp = _layer(params, i)
+        kp, vp = k_pools[i], v_pools[i]
+        x, k_new, v_new = attn_fn(
+            x, lp["input_norm"].to(x.dtype), lp["q_proj"], lp["k_proj"],
+            lp["v_proj"], lp["o_proj"], sin, cos, kp, vp, table, pos0,
+            n_valid, None, eps)
+        write_chunk_to_pool(kp, vp, wtable, pos0, n_valid, k_new, v_new)
+        x = mlp_fn(x, lp["post_norm"].to(x.dtype), lp["gate_proj"],
+                   lp["up_proj"], lp["down_proj"], eps)
+    x = rms_norm(x[None], params["final_norm"].to(x.dtype), eps)[0]
+    return x @ _head(params), k_pools, v_pools

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over the paged KV cache (port of
 ``paddle_tpu/inference/serving.py``: one device; the fused and the
-unfused decode route, the unfused prefill chunk).
+unfused decode route, the fused and the unfused prefill chunk).
 
 - a fixed-capacity SLOT TABLE: every decode step runs over all
   ``capacity`` slots. Inactive slots are padded -- seq_len 0, block table
@@ -8,14 +8,18 @@ unfused decode route, the unfused prefill chunk).
   a page no live sequence reads, and their attention output is zero.
 - BUCKETED CHUNKED PREFILL: a new request's prompt runs in chunks of at
   most the largest bucket, padded to a bucket, interleaved with decode
-  steps. Each chunk gathers the request's pages into a dense
-  [L, 1, MB*BS, KV, hd] view, runs ``cached_forward`` (the math of
-  ``generate``'s prefill) and scatters the whole view back through the
-  request's table. Padded table entries are page 0, so the duplicate
-  writes of the in-place scatter (``index_put_``) all land on the scratch
-  page. (The JAX engine scatters through a separate WRITE table that
-  redirects prefix-cache pages to scratch; without a prefix cache the two
-  tables are equal, and the port adds it with the prefix cache.)
+  steps. The fused chunk (``_fused_prefill_forward``) runs per layer the
+  ``prefill_attn_block`` kernel over the request's pages, writes the
+  chunk's own K/V into the pools and runs the ``decode_mlp_block`` kernel
+  over its rows. The verbatim unfused chunk gathers the request's pages
+  into a dense [L, 1, MB*BS, KV, hd] view, runs ``cached_forward`` (the
+  math of ``generate``'s prefill) and scatters the whole view back through
+  the request's table. Padded table entries and pad rows go to page 0, so
+  the duplicate writes of the in-place scatters (``index_put_``) all land
+  on the scratch page. (The JAX engine writes through a separate WRITE
+  table that redirects prefix-cache pages to scratch; without a prefix
+  cache the two tables are equal, and the port adds it with the prefix
+  cache.)
 - SLOT RECYCLING, priority/deadline admission and preemption with
   bit-identical resume, as in the JAX package.
 
@@ -31,10 +35,16 @@ its reason), the unfused composition on the CPU; ``decode_variant`` says
 which. "pallas" forces the CUDA kernels (and is
 refused on the CPU), "ref" the composition, False the unfused
 ``_paged_decode_step`` (RMSNorm in Triton, paged attention in CUDA C++).
-The single-launch block kernel ("block"), the fused prefill, tensor
-parallelism, prefix cache, host offload, int8 KV cache, weight
-quantization, observability and telemetry come with later slices: their
-constructor arguments raise here.
+The prefill chunk follows ``fused_prefill`` the same way: the default
+("auto", also None/True) runs the fused chunk on CUDA (a refusing
+predicate makes the constructor raise) and the verbatim unfused chunk on
+the CPU, where dispatch picks the composition, as the JAX engine does
+off the TPU; "pallas" forces the fused chunk on the CUDA kernels (and is
+refused on the CPU); "ref" and False run the verbatim chunk everywhere;
+``prefill_variant`` says which. The single-launch block kernel
+("block"), tensor parallelism, prefix cache, host offload, int8 KV
+cache, weight quantization, observability and telemetry come with later
+slices: their constructor arguments raise here.
 """
 from __future__ import annotations
 
@@ -51,7 +61,8 @@ from ..ops.paged_attention import BlockManager
 from ..ops.rope import build_rope_cache
 from .admission import AdmissionQueue
 from .generation import (GenerationConfig, _fused_decode_step,
-                         _fused_mode, _gumbel, _paged_decode_step,
+                         _fused_mode, _fused_prefill_forward,
+                         _fused_prefill_mode, _gumbel, _paged_decode_step,
                          cached_forward)
 
 __all__ = ["Request", "ServingEngine"]
@@ -74,7 +85,7 @@ def _sample_slots(logits, generator, temps):
 def _not_ported(arg: str, value, what: str):
     raise NotImplementedError(
         f"ServingEngine({arg}={value!r}): {what} is not ported yet; this "
-        "engine runs the single-device fused and unfused decode routes")
+        "engine runs the single-device fused and unfused routes")
 
 
 @dataclass
@@ -123,8 +134,9 @@ class ServingEngine:
 
     ``device``: ``None`` runs on CUDA (and raises without a card);
     ``"cpu"`` runs the kernels' plain versions. ``params`` are moved to
-    the device if they are not there already. ``fused_decode`` picks the
-    decode route (module docstring); ``decode_variant`` reports it.
+    the device if they are not there already. ``fused_decode`` and
+    ``fused_prefill`` pick the decode and the prefill route (module
+    docstring); ``decode_variant`` and ``prefill_variant`` report them.
     """
 
     def __init__(self, params: Dict, cfg, capacity: int = 4,
@@ -141,9 +153,7 @@ class ServingEngine:
             _not_ported("fused_decode", fused_decode,
                         "the single-launch decode_block_fused kernel "
                         "(ROADMAP B5)")
-        if fused_prefill not in (None, False):
-            _not_ported("fused_prefill", fused_prefill,
-                        "the fused prefill route (prefill_attn_block)")
+        self._fused_prefill = _fused_prefill_mode(fused_prefill)
         if mesh is not None:
             _not_ported("mesh", mesh, "tensor-parallel serving")
         if prefix_cache or kv_offload:
@@ -165,12 +175,14 @@ class ServingEngine:
                         observability or telemetry,
                         "the observability and telemetry harness")
         self.device = resolve_device(device)
-        if self._fused == "pallas" and self.device.type != "cuda":
-            # a pin must never silently no-op: the CUDA kernels have no
-            # CPU form (the JAX engine's rule for unhonourable pins)
-            raise ValueError(
-                'fused_decode="pallas" forces the CUDA kernels, which do '
-                f"not run on {self.device}; use 'auto' or 'ref' there")
+        for knob, mode in (("fused_decode", self._fused),
+                           ("fused_prefill", self._fused_prefill)):
+            if mode == "pallas" and self.device.type != "cuda":
+                # a pin must never silently no-op: the CUDA kernels have no
+                # CPU form (the JAX engine's rule for unhonourable pins)
+                raise ValueError(
+                    f'{knob}="pallas" forces the CUDA kernels, which do '
+                    f"not run on {self.device}; use 'auto' or 'ref' there")
         self._clock = clock if clock is not None else time.perf_counter
         self.params = params_to(params, self.device)
         self.cfg = cfg
@@ -202,9 +214,12 @@ class ServingEngine:
                                     device=self.device)
         self._v_pools = torch.zeros(shape, dtype=cfg.dtype,
                                     device=self.device)
-        self._rope = build_rope_cache(cfg.max_position_embeddings, hd,
-                                      base=cfg.rope_theta,
-                                      device=self.device)
+        # decode reads rows < max_seq_len; a fused chunk slices rows
+        # pos0..pos0+P-1, which the last, bucket-padded chunk of a long
+        # prompt takes past max_position_embeddings (up to MB*BS)
+        self._rope = build_rope_cache(
+            max(self.max_blocks * BS, cfg.max_position_embeddings), hd,
+            base=cfg.rope_theta, device=self.device)
 
         self.mgr = BlockManager(self.num_blocks, BS)
         # reserve physical page 0 as scratch: padded table entries (and
@@ -240,8 +255,10 @@ class ServingEngine:
             "requests_completed": 0, "drain_truncations": 0,
             "preemptions": 0, "requeues": 0, "deadline_expired": 0,
         }
-        # the decode variants, captured at the first decode step
+        # the decode and prefill variants, captured at the first decode
+        # step and the first fused chunk
         self._decode_variant: Optional[Dict] = None
+        self._prefill_variant: Optional[Dict] = None
         self._decode_ms = 0.0          # summed decode-step time
         self._t_first = None
         self._t_last = None
@@ -250,6 +267,10 @@ class ServingEngine:
             # on CUDA a kernel that refuses the shapes raises here, with
             # the predicate's reason, rather than at the first decode step
             self._resolve_variant()
+        # which chunk each bucket runs; on CUDA "auto" raises here for a
+        # bucket whose prefill kernel refuses the shapes
+        self._fused_buckets = {P: self._prefill_fused_for(P)
+                               for P in self.buckets}
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         """Host mirror -> device, as a copy (never aliasing the mirror,
@@ -396,11 +417,39 @@ class ServingEngine:
             return dict(self._decode_variant)
         return self._resolve_variant()
 
+    def _prefill_meta(self, P: int) -> Dict:
+        from ..ops.kernels.fused_prefill_block import prefill_meta
+        return prefill_meta(self.cfg, P, self.block_size, self.max_blocks,
+                            self._k_pools.dtype, quant=False,
+                            device=self.device)
+
+    def _prefill_fused_for(self, P: int) -> bool:
+        """Whether bucket ``P`` runs the fused chunk: ALL-OR-NOTHING, both
+        prefill-block ops must resolve to the CUDA kernels; otherwise the
+        verbatim unfused chunk runs."""
+        if not self._fused_prefill:
+            return False
+        from ..ops.kernels import fused_prefill_block
+        return fused_prefill_block.prefill_fused_selected(
+            self._prefill_meta(P), self._fused_prefill)
+
+    def _resolve_prefill_variant(self, P: int) -> Dict:
+        from ..ops.kernels.fused_prefill_block import resolve_prefill_blocks
+        _, _, names = resolve_prefill_blocks(self._prefill_meta(P),
+                                             self._fused_prefill)
+        return {"mode": str(self._fused_prefill), **names}
+
     @property
     def prefill_variant(self) -> Dict:
-        """The prefill chunk's implementation: always the unfused chunk
-        until the fused prefill (ROADMAP B6) is ported."""
-        return {"mode": "unfused", "attn": "unfused", "mlp": "unfused"}
+        """Which prefill-chunk implementation the buckets run:
+        ``{"mode", "attn", "mlp"}`` with attn/mlp "cuda_fused" or
+        "unfused". Captured at the first fused chunk; before it, what
+        dispatch would pick now for the largest bucket."""
+        if not self._fused_prefill:
+            return {"mode": "unfused", "attn": "unfused", "mlp": "unfused"}
+        if self._prefill_variant is not None:
+            return dict(self._prefill_variant)
+        return self._resolve_prefill_variant(self.buckets[-1])
 
     @property
     def weight_quant_variant(self) -> Dict:
@@ -586,6 +635,19 @@ class ServingEngine:
         self._v_pools[:, table] = vc.reshape(L, MB, BS, KV, hd)
         return _sample_slots(logits[:, last_idx], self._gen, temp)[0]
 
+    def _prefill_chunk_fused(self, toks, pos0, table, n, temp):
+        """One prefill chunk through the fused prefill-block ops (the JAX
+        engine's ``_make_prefill_fn_fused`` program): straight over the
+        pools, only the chunk's own K/V written, a token sampled from row
+        ``n - 1``. ``table`` is int32 and serves as the write table too."""
+        if self._prefill_variant is None:
+            self._prefill_variant = self._resolve_prefill_variant(
+                toks.shape[1])
+        logits, _, _ = _fused_prefill_forward(
+            self.params, toks[0], self.cfg, self._k_pools, self._v_pools,
+            table, table, pos0, n, rope=self._rope, mode=self._fused_prefill)
+        return _sample_slots(logits[n - 1:n], self._gen, temp)[0]
+
     def _run_prefill(self) -> bool:
         for slot_id, slot in enumerate(self._slots):
             if slot.phase != "prefill":
@@ -597,11 +659,17 @@ class ServingEngine:
             P = self._bucket_for(n)
             toks = np.zeros((1, P), np.int64)
             toks[0, :n] = req.prompt[pos0:pos0 + n]
-            temp = np.array([self._temp_of(req.gen)], np.float32)
-            tok = self._prefill_chunk(
-                self._upload(toks), pos0,
-                self._upload(self._slot_tables[slot_id].astype(np.int64)),
-                n - 1, self._upload(temp))
+            temp = self._upload(np.array([self._temp_of(req.gen)],
+                                         np.float32))
+            if self._fused_buckets[P]:
+                tok = self._prefill_chunk_fused(
+                    self._upload(toks), pos0,
+                    self._upload(self._slot_tables[slot_id]), n, temp)
+            else:
+                tok = self._prefill_chunk(
+                    self._upload(toks), pos0,
+                    self._upload(self._slot_tables[slot_id].astype(
+                        np.int64)), n - 1, temp)
             self.counters["prefill_chunks"] += 1
             self.counters["prefill_tokens"] += n
             self.counters["prefill_pad_tokens"] += P - n

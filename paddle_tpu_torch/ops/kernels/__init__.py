@@ -10,6 +10,8 @@ registry of ops with several variants is :mod:`.registry`'s ``KERNELS``.
 from .fused_decode_block import (attn_block_ref,  # noqa: F401
                                  decode_attn_block_cuda,
                                  decode_mlp_block_cuda, mlp_block_ref)
+from .fused_prefill_block import (prefill_attn_block_cuda,  # noqa: F401
+                                  prefill_attn_block_ref)
 from .norms import rms_norm_fwd_triton, rms_norm_ref  # noqa: F401
 from .paged_attention import (paged_attention_decode_cuda,  # noqa: F401
                               paged_attention_decode_ref)
@@ -19,6 +21,7 @@ WRAPPERS = {
     "rms_norm_fwd": rms_norm_fwd_triton,
     "decode_attn_block": decode_attn_block_cuda,
     "decode_mlp_block": decode_mlp_block_cuda,
+    "prefill_attn_block": prefill_attn_block_cuda,
 }
 
 

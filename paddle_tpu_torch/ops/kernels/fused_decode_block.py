@@ -113,8 +113,8 @@ def mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
 
 
 # ---------------------------------------------------------------------------
-# shared-memory layout of the kernels (carved as the header of
-# csrc/fused_decode_block.cu describes; the sizes are defined here only)
+# shared-memory layout of the kernels (carved as csrc/block_products.cuh
+# describes; the sizes are defined here only, for the prefill kernel too)
 # ---------------------------------------------------------------------------
 _ROWS = 8            # rows (sequences) a product sums per pass
 _WARPS = 8           # warps a block (256 threads)
@@ -127,18 +127,19 @@ def _passes(B):
     return -(-B // _ROWS)
 
 
-def _layout(D, groups, hd, BS, item):
+def _layout(D, rows, hd, BS, item):
     """(region, total) bytes: the region holds one pass of normalised rows
-    [D][8] (or a staged chunk of a product's operand, or one attention
-    item's f32 scratch and K/V pages); then the per-warp partial sums and
-    two result tiles of the widest column tile."""
-    rows = _ROWS * D * item
+    [D][8] (or a staged chunk of a product's operand, or the f32 scratch
+    and K/V pages of one attention item of ``rows`` query rows, 0 for
+    none: ``attn_scratch_floats`` in csrc/block_products.cuh); then the
+    per-warp partial sums and two result tiles of the widest column
+    tile."""
     attn = 0
-    if groups:
+    if rows:
         sb = _PAGES_PER_STEP * BS
-        f = 2 * groups * hd + groups * sb + 3 * groups + hd
+        f = 2 * rows * hd + rows * sb + 3 * rows + hd
         attn = -(-f // 4) * 4 * 4 + 2 * sb * hd * item
-    region = -(-max(rows, attn) // 16) * 16
+    region = -(-max(_ROWS * D * item, attn) // 16) * 16
     tc = _MAX_LPR * (16 // item)
     return region, region + (_WARPS + 2) * tc * _ROWS * 4
 
@@ -159,10 +160,12 @@ def mlp_smem_bytes(D, itemsize) -> int:
 # ---------------------------------------------------------------------------
 # the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
-def _lib_fn(name, nptr, nint, nfloat):
+def _lib_fn(name, nptr, nint, nfloat, source="fused_decode_block"):
+    """The C launcher ``name`` of ``csrc/<source>.cu`` with its ctypes
+    argtypes: pointers, ints, floats, then the dtype code and the stream."""
     fn = _fns.get(name)
     if fn is None:
-        lib = _build.load("fused_decode_block")
+        lib = _build.load(source)
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
                        + [ctypes.c_float] * nfloat
@@ -376,17 +379,27 @@ def _smem_reason(need, limit):
     return True, f"fits shared memory ({need} of {limit} B)"
 
 
-def _supports_attn(meta):
+def _attn_refusal(meta):
+    """The reason an attention kernel (decode or prefill) refuses the
+    shapes of ``meta`` before its shared memory is counted, or None."""
     why = _refusal(meta)
     if why:
+        return why
+    if meta["H"] % meta["KV"]:
+        return "H not a multiple of KV"
+    if (meta["hd"] * meta["itemsize"]) % 16:
+        return f"head_dim {meta['hd']} rows not a multiple of 16 bytes"
+    return None
+
+
+def _supports_attn(meta):
+    why = _attn_refusal(meta)
+    if why:
         return False, why
-    H, KV, hd, it = meta["H"], meta["KV"], meta["hd"], meta["itemsize"]
-    if H % KV:
-        return False, "H not a multiple of KV"
-    if (hd * it) % 16:
-        return False, f"head_dim {hd} rows not a multiple of 16 bytes"
-    return _smem_reason(attn_smem_bytes(meta["D"], H, KV, hd, meta["BS"],
-                                        it), meta["smem_limit"])
+    return _smem_reason(attn_smem_bytes(meta["D"], meta["H"], meta["KV"],
+                                        meta["hd"], meta["BS"],
+                                        meta["itemsize"]),
+                        meta["smem_limit"])
 
 
 def _supports_mlp(meta):

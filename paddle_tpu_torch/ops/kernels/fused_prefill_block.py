@@ -1,0 +1,273 @@
+"""Fused prefill-block kernels: the prefill attention kernel's wrapper, the
+plain versions, the dispatch metas and predicates, and the resolvers (port
+of ``paddle_tpu/ops/pallas/fused_prefill_block.py``, fp weights and fp
+pools).
+
+- ``prefill_attn_block`` (:func:`prefill_attn_block_cuda`) replaces
+  ``fused_prefill_attn_pallas``: over one chunk of one request, RMSNorm +
+  QKV + RoPE + causal attention over the request's paged history and the
+  chunk's own K/V + o_proj + residual, in one launch. Its source is
+  ``paddle_tpu_torch/csrc/fused_prefill_block.cu`` (CUDA C++ for
+  ``sm_90a``, built by :mod:`._build` at the first launch and bound with
+  ctypes); that file's header says what bounds it on the H100 and how its
+  design follows from it.
+- ``prefill_mlp_block`` is the decode MLP kernel (``decode_mlp_block``,
+  :func:`.fused_decode_block.decode_mlp_block_cuda`) over the chunk's P
+  rows, registered again under the prefill op name, as the JAX package
+  registers its Pallas kernel. Its shared memory does not depend on the
+  row count, so its predicate is the decode one.
+
+:func:`prefill_attn_block_ref` and :func:`prefill_mlp_block_ref` are the
+plain versions and the registry's priority-0 ``"unfused"`` variants: op
+for op the JAX package's dense composition (gather the request's pages
+into a dense view, ``cached_forward``'s layer math, the chunk's K/V
+written into the view before attending). As for decode, the composition
+is the CPU's route only: on CUDA a predicate that refuses the kernel makes
+dispatch raise with its reason. The serving engine runs the fused chunk
+only when BOTH ops resolve to the kernels (:func:`prefill_fused_selected`)
+and the verbatim unfused chunk otherwise, as the JAX engine does.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import fused_decode_block as _fdb
+from .registry import KERNELS
+
+__all__ = ["prefill_attn_block_ref", "prefill_mlp_block_ref",
+           "prefill_attn_block_cuda", "prefill_meta", "prefill_meta_dims",
+           "prefill_attn_smem_bytes", "resolve_prefill_blocks",
+           "prefill_fused_selected"]
+
+#: query rows of one attention work item; the chunk width P must be a
+#: multiple of it (both serving buckets, 32 and 128, are)
+BQ = 16
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the dense composition, op for op
+# ---------------------------------------------------------------------------
+def prefill_attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
+                           table, pos0, n_valid, kv_scales=None, eps=1e-6,
+                           residual=True):
+    """The attention half of a prefill-chunk layer as the dense chunk runs
+    it.
+
+    x [P, D] (the first ``n_valid`` rows are the prompt); nw [D] at x's
+    type; wq [D, H*hd], wk/wv [D, KV*hd], wo [H*hd, D]; sin/cos: the
+    chunk's rope rows [P, hd/2] f32, row i for position pos0 + i; pools
+    [N, BS, KV, hd]; table [MB]: the request's READ table; pos0: tokens of
+    the request already in the pools. Gathers the request's pages into a
+    dense [MB*BS] view, writes the chunk's K/V into it at pos0 and runs
+    causal attention over it. Returns (x + o [P, D], or o alone when
+    ``residual`` is False; k_new, v_new [P, KV, hd]). Pays full pad work:
+    ``n_valid`` rides only for signature parity."""
+    from .. import rms_norm
+    from ..rope import apply_rope
+    if kv_scales is not None:
+        raise NotImplementedError(f"kv_scales: {_fdb._NOT_PORTED_QUANT}")
+    P, D = x.shape
+    _, BS, KV, hd = k_pool.shape
+    T = table.shape[0] * BS
+    H = wq.shape[1] // hd
+    if pos0 + P > T:
+        raise ValueError(f"chunk rows {pos0}..{pos0 + P - 1} do not fit the "
+                         f"table's {T} positions")
+    kc = k_pool[table.long()].reshape(T, KV, hd)
+    vc = v_pool[table.long()].reshape(T, KV, hd)
+    h = rms_norm(x[None], nw, eps)[0]
+    q = apply_rope((h @ wq).reshape(1, P, H, hd), sin, cos)
+    k = apply_rope((h @ wk).reshape(1, P, KV, hd), sin, cos)
+    v = (h @ wv).reshape(1, P, KV, hd)
+    k_new, v_new = k[0], v[0]
+    kc[pos0:pos0 + P] = k_new.to(kc.dtype)
+    vc[pos0:pos0 + P] = v_new.to(vc.dtype)
+    rep = H // KV
+    kk = kc.repeat_interleave(rep, dim=1).float()
+    vv = vc.repeat_interleave(rep, dim=1).float()
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("phd,thd->hpt", q[0].float(), kk) * scale
+    t_idx = torch.arange(T, device=x.device)[None, None, :]
+    q_idx = pos0 + torch.arange(P, device=x.device)[None, :, None]
+    scores = scores.masked_fill(t_idx > q_idx, float("-inf"))
+    attn = torch.einsum("hpt,thd->phd", torch.softmax(scores, dim=-1), vv)
+    o = attn.to(x.dtype).reshape(P, H * hd) @ wo
+    return (x + o if residual else o), k_new, v_new
+
+
+def prefill_mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
+    """The MLP half over the chunk's rows: the decode MLP composition
+    (row count is the only difference)."""
+    return _fdb.mlp_block_ref(x, nw, wg, wu, wd, eps=eps, residual=residual)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's wrapper
+# ---------------------------------------------------------------------------
+def prefill_attn_smem_bytes(D, H, KV, hd, BS, itemsize) -> int:
+    """Dynamic shared memory of one prefill_attn_block block: 8 normalised
+    rows of width D, or the attention scratch of one work item of
+    (H/KV) * BQ query rows, whichever is larger, plus the products'
+    reduction tiles (``fused_decode_block._layout``)."""
+    return _fdb._layout(D, H // KV * BQ, hd, BS, itemsize)[1]
+
+
+def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
+                            table, pos0, n_valid, kv_scales=None, eps=1e-6,
+                            residual=True):
+    """Launch the prefill_attn_block kernel (the contract of
+    :func:`prefill_attn_block_ref`, except that rows at or after
+    ``n_valid`` come back as zeros) on PyTorch's current stream. ``pos0``
+    and ``n_valid`` are host ints. Raises for anything the kernel does not
+    take, and if the launch is refused. Never falls back."""
+    name = "prefill_attn_block_cuda"
+    if kv_scales is not None:
+        raise NotImplementedError(
+            f"{name}: kv_scales: {_fdb._NOT_PORTED_QUANT}")
+    _fdb._check_common(name, x, {
+        "x": x, "nw": nw, "wq": wq, "wk": wk, "wv": wv, "wo": wo,
+        "sin": sin, "cos": cos, "k_pool": k_pool, "v_pool": v_pool,
+        "table": table},
+        {"sin": torch.float32, "cos": torch.float32, "table": torch.int32})
+    P, D = x.shape
+    N, BS, KV, hd = k_pool.shape
+    H = wq.shape[1] // hd if wq.dim() == 2 else 0
+    MB = table.shape[0] if table.dim() == 1 else 0
+    item = x.element_size()
+    if H < 1 or H % KV:
+        raise ValueError(f"{name}: H={H} is not a positive multiple of "
+                         f"KV={KV}")
+    if (hd * item) % 16 or (D * item) % 16:
+        raise ValueError(f"{name}: head_dim {hd} and hidden {D} rows must "
+                         "be multiples of 16 bytes (the load width)")
+    if P % BQ:
+        raise ValueError(f"{name}: chunk width P={P} is not a multiple of "
+                         f"the kernel's {BQ}-row query blocks")
+    for tname, t, shp in (("nw", nw, (D,)), ("wq", wq, (D, H * hd)),
+                          ("wk", wk, (D, KV * hd)), ("wv", wv, (D, KV * hd)),
+                          ("wo", wo, (H * hd, D)),
+                          ("v_pool", v_pool, k_pool.shape),
+                          ("sin", sin, (P, hd // 2)),
+                          ("cos", cos, (P, hd // 2)), ("table", table, (MB,))):
+        _fdb._shape(name, tname, t, shp)
+    pos0, n_valid = int(pos0), int(n_valid)
+    if not 1 <= n_valid <= P:
+        raise ValueError(f"{name}: n_valid={n_valid} outside 1..P={P}")
+    if pos0 < 0 or -(-pos0 // BS) > MB:
+        raise ValueError(f"{name}: pos0={pos0} needs more than the table's "
+                         f"{MB} pages of history")
+    region, smem = _fdb._layout(D, H // KV * BQ, hd, BS, item)
+    if smem > _fdb.SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
+                         f" over the card's {_fdb.SMEM_LIMIT}")
+    fn = _fdb._lib_fn("prefill_attn_block", 17, 13, 2,
+                      source="fused_prefill_block")
+    x_out = torch.empty_like(x)
+    k_new = torch.empty((P, KV, hd), dtype=x.dtype, device=x.device)
+    v_new = torch.empty_like(k_new)
+    # the kernel's workspaces (csrc/fused_prefill_block.cu): the q/k/v
+    # projections, the roped q rows, the attention rows k-major by pass
+    qkv_ws = torch.empty((P, (H + 2 * KV) * hd), dtype=x.dtype,
+                         device=x.device)
+    q_ws = torch.empty((P, H * hd), dtype=x.dtype, device=x.device)
+    attn_ws = torch.empty((_fdb._passes(P) * _fdb._ROWS, H * hd),
+                          dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        prefill_attn_block_cuda.launches += 1
+        err = fn(x.data_ptr(), nw.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+                 wv.data_ptr(), wo.data_ptr(), sin.data_ptr(),
+                 cos.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 table.data_ptr(), x_out.data_ptr(), k_new.data_ptr(),
+                 v_new.data_ptr(), qkv_ws.data_ptr(), q_ws.data_ptr(),
+                 attn_ws.data_ptr(), P, D, H, KV, hd, BS, MB, pos0, n_valid,
+                 BQ, int(bool(residual)), region, smem, float(eps),
+                 1.0 / math.sqrt(hd), _fdb._DTYPES[x.dtype], stream)
+    if err:
+        raise RuntimeError("prefill_attn_block launch failed: "
+                           + fn.error_string(err).decode())
+    return x_out, k_new, v_new
+
+
+prefill_attn_block_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dispatch metas and predicates
+# ---------------------------------------------------------------------------
+def prefill_meta_dims(P, D, H, KV, hd, F, BS, MB, dtype, pool_dtype, quant,
+                      weight_dtype=None, device="cuda") -> dict:
+    """Static dispatch metadata of one prefill chunk: the keys of
+    :func:`.fused_decode_block.decode_meta_dims` with the chunk width
+    ``P`` (bucket rows) in place of ``B``."""
+    meta = _fdb.decode_meta_dims(P, D, H, KV, hd, F, BS, MB, dtype,
+                                 pool_dtype, quant, weight_dtype=weight_dtype,
+                                 device=device)
+    meta["P"] = meta.pop("B")
+    return meta
+
+
+def prefill_meta(cfg, P, BS, MB, pool_dtype, quant, weight_dtype=None,
+                 device="cuda") -> dict:
+    """Static dispatch metadata of one prefill chunk of model ``cfg``."""
+    return prefill_meta_dims(P, cfg.hidden_size, cfg.num_attention_heads,
+                             cfg.num_key_value_heads, cfg.head_dim,
+                             cfg.intermediate_size, BS, MB, cfg.dtype,
+                             pool_dtype, quant, weight_dtype=weight_dtype,
+                             device=device)
+
+
+def _supports_prefill_attn(meta):
+    why = _fdb._attn_refusal(meta)
+    if why:
+        return False, why
+    if meta["P"] % BQ:
+        return False, (f"chunk width P={meta['P']} not a multiple of the "
+                       f"kernel's {BQ}-row query blocks")
+    return _fdb._smem_reason(
+        prefill_attn_smem_bytes(meta["D"], meta["H"], meta["KV"], meta["hd"],
+                                meta["BS"], meta["itemsize"]),
+        meta["smem_limit"])
+
+
+KERNELS.register("prefill_attn_block", "cuda_fused", prefill_attn_block_cuda,
+                 priority=10, supports=_supports_prefill_attn)
+KERNELS.register("prefill_attn_block", "unfused", prefill_attn_block_ref,
+                 priority=0, supports=_fdb._supports_composition)
+KERNELS.register("prefill_mlp_block", "cuda_fused",
+                 _fdb.decode_mlp_block_cuda, priority=10,
+                 supports=_fdb._supports_mlp)
+KERNELS.register("prefill_mlp_block", "unfused", prefill_mlp_block_ref,
+                 priority=0, supports=_fdb._supports_composition)
+
+
+def resolve_prefill_blocks(meta: dict, mode="auto"):
+    """The two prefill-chunk ops of one bucket. ``mode``: "auto"/True/None
+    dispatches through the registry (the CUDA kernels on CUDA, raising
+    with the predicate's reason if one refuses; the composition on the
+    CPU); "pallas" forces the hand-written kernels (the JAX engine's name
+    for the same knob); "ref" forces the composition. Returns (attn_fn,
+    mlp_fn, {"attn": name, "mlp": name})."""
+    if mode in ("auto", True, None):
+        a_name, a_fn = KERNELS.dispatch("prefill_attn_block", meta)
+        m_name, m_fn = KERNELS.dispatch("prefill_mlp_block", meta)
+    elif mode in ("pallas", "ref"):
+        a_name = m_name = "cuda_fused" if mode == "pallas" else "unfused"
+        a_fn = KERNELS.variant("prefill_attn_block", a_name).fn
+        m_fn = KERNELS.variant("prefill_mlp_block", m_name).fn
+    else:
+        raise ValueError(f"fused_prefill mode must be auto|pallas|ref, got "
+                         f"{mode!r}")
+    return a_fn, m_fn, {"attn": a_name, "mlp": m_name}
+
+
+def prefill_fused_selected(meta: dict, mode) -> bool:
+    """Whether a bucket runs the fused, pool-direct chunk: ALL-OR-NOTHING,
+    both ops must resolve to the CUDA kernels; otherwise the engine runs
+    the verbatim unfused chunk."""
+    if not mode or mode == "ref":
+        return False
+    _, _, names = resolve_prefill_blocks(meta, mode)
+    return names["attn"] == names["mlp"] == "cuda_fused"

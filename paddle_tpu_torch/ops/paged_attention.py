@@ -11,17 +11,19 @@ selects the plain version on the card and no fallback: a kernel that
 fails raises.
 
 Unlike the JAX package, whose arrays are immutable, :func:`write_to_pool`
-updates the pools in place (``index_put_``) and returns them.
+and :func:`write_chunk_to_pool` update the pools in place
+(``index_put_``) and return them.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .kernels.paged_attention import (paged_attention_decode_cuda,
                                       paged_attention_decode_ref)
 
 __all__ = ["paged_attention_decode", "paged_attention_decode_ref",
-           "write_to_pool", "BlockManager"]
+           "write_to_pool", "write_chunk_to_pool", "BlockManager"]
 
 
 def paged_attention_decode(q, k_pool, v_pool, block_tables, seq_lens):
@@ -53,6 +55,29 @@ def write_to_pool(k_pool, v_pool, block_tables, seq_lens, k_new, v_new):
     off = pos % BS
     k_pool[phys, off] = k_new
     v_pool[phys, off] = v_new
+    return k_pool, v_pool
+
+
+def write_chunk_to_pool(k_pool, v_pool, wtable, pos0, n_valid, k_new,
+                        v_new):
+    """Write one prefill chunk's K/V into the paged pools, in place.
+
+    k_new/v_new: [P, KV, hd] for positions pos0..pos0+P-1 of ONE request;
+    ``wtable`` [MB] is the request's WRITE table (a prefix cache redirects
+    its shared pages to scratch page 0 there). Rows at or after
+    ``n_valid`` (bucket padding) go to scratch page 0 too, so only the
+    chunk's own tokens land in the request's pages. Those duplicate writes
+    all hit page 0, which nothing reads, so which of them wins does not
+    matter. Returns the (updated) pools."""
+    P = k_new.shape[0]
+    BS = k_pool.shape[1]
+    rows = torch.arange(P, device=k_pool.device)
+    pos = pos0 + rows
+    logical = (pos // BS).clamp_max(wtable.shape[0] - 1)
+    page = torch.where(rows < n_valid, wtable.long()[logical], 0)
+    off = pos % BS
+    k_pool.index_put_((page, off), k_new.to(k_pool.dtype))
+    v_pool.index_put_((page, off), v_new.to(v_pool.dtype))
     return k_pool, v_pool
 
 

@@ -369,15 +369,18 @@ def test_engine_stream_matches_jax_on_default_route(params):
         "mlp": "unfused"}
 
 
+@pytest.mark.parametrize("fused_prefill", [None, False, "auto", "ref"])
 @pytest.mark.parametrize("fused", [False, "auto", "ref"])
-def test_metrics_variant_schema_matches_jax(params, fused):
+def test_metrics_variant_schema_matches_jax(params, fused, fused_prefill):
     """metrics() carries the JAX engine's decode_variant, prefill_variant
     and weight_quant_variant, same keys and values (variant names mapped
-    pallas_fused -> cuda_fused), before and after a decode step."""
+    pallas_fused -> cuda_fused), before and after a decode step, with the
+    same route arguments given to both engines."""
     jp, tp = params
     kw = dict(capacity=2, block_size=4, prefill_buckets=(8,),
-              max_seq_len=32, fused_decode=fused)
-    je = jinf.ServingEngine(jp, CFG, fused_prefill=False, **kw)
+              max_seq_len=32, fused_decode=fused,
+              fused_prefill=fused_prefill)
+    je = jinf.ServingEngine(jp, CFG, **kw)
     te = ServingEngine(tp, TCFG, device="cpu", **kw)
     keys = ("decode_variant", "prefill_variant", "weight_quant_variant")
     for _ in range(2):

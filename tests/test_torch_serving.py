@@ -186,7 +186,7 @@ def test_submit_validation(params):
 
 @pytest.mark.parametrize("kw", [
     {"fused_decode": "block"},
-    {"fused_prefill": "pallas"}, {"mesh": 2}, {"prefix_cache": True},
+    {"kv_offload": True}, {"mesh": 2}, {"prefix_cache": True},
     {"weight_quant": "int8"}, {"cache_dtype": "int8"},
     {"observability": True}, {"telemetry": True}])
 def test_routes_of_later_slices_raise(params, kw):
