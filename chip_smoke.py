@@ -5,9 +5,9 @@
 
 Run from the repository root on a machine with one NVIDIA H100. It builds
 the port's kernels from the sources in the checkout (one nvcc per CUDA
-C++ source, one after another; Triton's JIT for the Triton kernel) and
-prints one JSON line per phase; a phase that fails raises, so the script
-exits non-zero:
+C++ source, all started together; Triton's JIT for the Triton kernels)
+and prints one JSON line per phase; a phase that fails raises, so the
+script exits non-zero:
 
 1. GPU: the card's name and power limit, as ``nvidia-smi`` prints them.
 2. kernels: every kernel of both routes against its plain version on the
@@ -25,7 +25,10 @@ exits non-zero:
    P=32, 77 at P=128): the real rows against the plain version, every row
    finite, two launches bit for bit; timed at P=128, bf16, pos0 0 and 512
    beside its bound, its plain version, its four products alone
-   (``torch.matmul``) and SDPA over the same attention.
+   (``torch.matmul``) and SDPA over the same attention. rms_norm_fwd also
+   runs at the train phase's shape (x [2, 2048, 4096] bf16, the f32 norm
+   weight cast to bf16), alone and through ``RMSNorm``'s autograd, and is
+   timed there too.
 3. parity: LLaMA-7B widths, 2 layers, f32: greedy tokens for 5 requests
    through 2 slots from the engine on its default route (fused prefill
    and fused decode) and on the unfused route, each against the port's
@@ -54,10 +57,36 @@ exits non-zero:
    lengths, and the top-2 logit gap of dense bf16 logits at each first
    divergence). Informational: bf16 routes round at other places.
 
+8. flash: the three flash-attention kernels (fwd, dq, dkv) against
+   their plain versions, and autograd through them against autograd
+   through the plain ``_ref_attention``, at the training shape (b 2,
+   s 2048, h = kv 32, d 128, bf16, causal), GQA 4:1, f32, non-causal,
+   sq 256 / sk 1024, a ragged s of 1000 and s = 1; two launches bit for
+   bit; timed at the training shape beside their bounds, their plain
+   versions and SDPA (forward; backward).
+9. adamw: the fused AdamW Triton kernel against its plain version at the
+   training phase's flat size and a ragged size, f32 and bf16 moments,
+   with and without the bf16 shadow, grad_scale < 1, in place; timed at
+   the training size beside its bound, its plain version and
+   ``torch._fused_adamw_``.
+10. train parity: LLaMA at 7B widths, 2 layers, f32, b 2, s 256,
+   ``fused_train="ref"``: the loss and every gradient through the kernels
+   against the same with flash attention forced to its plain version;
+   then 3 ``Trainer`` steps each way (AdamW forced to its plain version
+   too): the loss trajectories and the parameters' updates.
+11. train (this slice's main path): bench.py's "1.07B-h4096" ladder rung
+   (vocab 32000, D 4096, F 11008, 32 heads, 4 layers, batch 2 x seq 2048,
+   bf16 weights, f32 norms, bf16 moments, remat, fused optimizer,
+   ``fused_train="ref"``): 1 warm-up and 6 timed steps on one batch, the
+   launch counts set to 0 just before the timed steps and read just
+   after (flash fwd 2L, dq and dkv L, fused_adamw 1, RMSNorm 4L + 1 a
+   step); step ms, tokens/s, MFU, peak memory, the loss per step; one
+   more step traced: device time by kernel group and the busy share.
+
 Then the ``kernels`` summary line (each kernel's launches from the
-serving phase of the route that runs it) and, last, ``{"ok": true,
-"device": {...}}``. Without CUDA it exits 1 and prints no result. It
-imports nothing of JAX or of ``paddle_tpu``.
+serving phase of the route that runs it, or from the train phase) and,
+last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
+prints no result. It imports nothing of JAX or of ``paddle_tpu``.
 """
 import json
 import subprocess
@@ -73,8 +102,10 @@ RMS_SOURCE = "paddle_tpu_torch/ops/kernels/norms.py"
 PAGED_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 FUSED_SOURCE = "paddle_tpu_torch/csrc/fused_decode_block.cu"
 PREFILL_SOURCE = "paddle_tpu_torch/csrc/fused_prefill_block.cu"
+FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+ADAMW_SOURCE = "paddle_tpu_torch/ops/kernels/fused_adamw.py"
 CUDA_SOURCES = ("paged_attention", "fused_decode_block",
-                "fused_prefill_block")
+                "fused_prefill_block", "flash_attention")
 # LLaMA-7B widths and the serving phase's table geometry
 D7, H7, HD7, F7, B8, BS16, MB72 = 4096, 32, 128, 11008, 8, 16, 72
 
@@ -133,29 +164,34 @@ def ulp_close(got, want, rel):
     return bool(((g - w).abs() <= tol).all())
 
 
-def bf16_close(got, want, rel=2.0 ** -6):
-    """|got - want| <= rel * (max(|got|, |want|) + rms(want)): two bf16
-    ulps (eps 2^-7) at the element's own magnitude, plus two at the
-    tensor's RMS for elements a residual add cancelled towards zero.
-    Returns (ok, the worst error in units of that scale)."""
+def bf16_close(got, want, rel=2.0 ** -6, floor=0.0):
+    """|got - want| <= rel * (max(|got|, |want|) + rms(want)) + floor: two
+    bf16 ulps (eps 2^-7) at the element's own magnitude, plus two at the
+    tensor's RMS for elements a residual add cancelled towards zero, plus
+    an absolute ``floor``. Returns (ok, the worst error in units of that
+    scale)."""
     g, w = got.float(), want.float()
     scale = (g.abs().maximum(w.abs())
              + w.pow(2).mean().sqrt()).clamp_min(1e-30)
-    worst = float(((g - w).abs() / scale).max())
+    worst = float((((g - w).abs() - floor).clamp_min(0) / scale).max())
     return worst <= rel, worst
 
 
 def build_kernels():
-    """One nvcc per CUDA source, one after another, then Triton's compile
-    of the RMSNorm kernel on a first launch."""
+    """One nvcc per CUDA source, all started together, then Triton's
+    compile of the RMSNorm and AdamW kernels on a first launch."""
     import torch
-    from paddle_tpu_torch.ops.kernels import _build, norms
+    from paddle_tpu_torch.ops.kernels import _build, fused_adamw, norms
     t0 = time.perf_counter()
+    _build.build(CUDA_SOURCES)
     for name in CUDA_SOURCES:
         _build.load(name)
     t_nvcc = time.perf_counter() - t0
     x = torch.ones(2, 64, device="cuda")
     norms.rms_norm_fwd_triton(x, torch.ones(64, device="cuda"))
+    z = torch.zeros(8, device="cuda")
+    fused_adamw.fused_adamw_triton(z, z.clone(), z.clone(), z.clone(), 1e-3, 1,
+                                   shadow_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     root = _build.CSRC.parent.parent
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
@@ -171,7 +207,8 @@ def build_kernels():
 def rms_phase(gpu):
     import torch
     import torch.nn.functional as F
-    from paddle_tpu_torch.ops.kernels.norms import (rms_norm_fwd_triton,
+    from paddle_tpu_torch.ops.kernels.norms import (RMSNorm, rms_bwd_ref,
+                                                    rms_norm_fwd_triton,
                                                     rms_norm_ref)
     gen = torch.Generator(device="cuda").manual_seed(0)
     D, eps = 4096, 1e-6
@@ -198,6 +235,73 @@ def rms_phase(gpu):
                 raise AssertionError(f"rms_norm_fwd disagrees: {cases[-1]}")
             if rows == 8 and dt == torch.bfloat16:
                 timed = (x, w)
+    # the train phase's shape: x [batch, seq, D] bf16, the f32 norm weight
+    # cast to x's type as the decoder layer casts it. Both versions round
+    # twice: the normalised row to bf16, then its product with w. Their f32
+    # sums run in another order, so the first rounding may flip by one ulp
+    # (the rare element near a tie; 16.8 M elements here); times |w| and
+    # rounded again, that is up to two ulps of the output. So: the
+    # normalised rows (w = 1) within one ulp, the kernel's output equal to
+    # its normalised rows times w (one rounding), and against the plain
+    # version two ulps. Then the same through RMSNorm's autograd (forward:
+    # the kernel; backward: the plain rms_bwd_ref that fused_train="ref"
+    # pins).
+    bf16 = torch.bfloat16
+    one_ulp = torch.finfo(bf16).eps
+    tb, ts = TRAIN_RUNG["batch"], TRAIN_RUNG["seq"]
+    xt = torch.randn(tb, ts, D, generator=gen, device="cuda").to(bf16)
+    w32 = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda"))
+    wt = w32.to(bf16)
+    ones = torch.ones(D, dtype=bf16, device="cuda")
+    got = rms_norm_fwd_triton(xt, wt, eps)
+    want = rms_norm_ref(xt, wt, eps)
+    norm_k = rms_norm_fwd_triton(xt, ones, eps)
+    norm_p = rms_norm_ref(xt, ones, eps)
+    xl, wl = xt.clone().requires_grad_(True), w32.clone().requires_grad_(True)
+    before = rms_norm_fwd_triton.launches
+    y = RMSNorm.apply(xl, wl.to(bf16), eps, "ref")
+    launched = rms_norm_fwd_triton.launches - before
+    g = torch.randn(tb, ts, D, generator=gen, device="cuda").to(bf16)
+    y.backward(g)
+    want_dx, want_dw = rms_bwd_ref(eps, (xt, wt), g)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    checks = {
+        "normalised_within_one_ulp": ulp_close(norm_k, norm_p, one_ulp),
+        "output_is_normalised_times_w": bool(torch.equal(got, norm_k * wt)),
+        "output_within_two_ulps": ulp_close(got, want, 2 * one_ulp),
+        "autograd_forward_is_the_kernel": bool(torch.equal(y.detach(), got))
+        and launched == 1,
+        "autograd_dx_is_rms_bwd_ref": bool(torch.equal(xl.grad, want_dx)),
+        "autograd_dw_through_the_cast": wl.grad.dtype == torch.float32
+        and bool(torch.equal(wl.grad, want_dw.float()))}
+    gf, wf = got.float(), want.float()
+    over = int(((gf - wf).abs() > one_ulp * gf.abs().maximum(wf.abs())
+                + 1e-6).sum())
+    ok = all(checks.values())
+    cases.append({"shape": [tb, ts, D], "dtype": "bfloat16",
+                  "weight": "float32 cast to bfloat16",
+                  "max_abs_err": err,
+                  "normalised_max_abs_err": float(
+                      (norm_k.float() - norm_p.float()).abs().max()),
+                  "elements_over_one_ulp": over,
+                  "tol": "normalised rows one bf16 ulp (rel 2^-7); output "
+                         "two (rel 2^-6)",
+                  "checks": checks, "ok": ok})
+    max_err = max(max_err, err)
+    if not ok:
+        raise AssertionError(f"rms_norm_fwd disagrees: {cases[-1]}")
+    del xl, wl, y, g, want_dx, want_dw, got, want, norm_k, norm_p, ones
+    item = xt.element_size()
+    tb_ms, tb_by = bound(2 * xt.numel() * item + D * item, 4 * xt.numel(),
+                         "bfloat16")
+    train = {"shape": [tb, ts, D], "dtype": "bfloat16",
+             "ms": cold_ms(lambda: rms_norm_fwd_triton(xt, wt, eps)),
+             "plain_ms": cold_ms(lambda: rms_norm_ref(xt, wt, eps)),
+             "bound_ms": tb_ms, "bound_by": tb_by,
+             "library_ms": (cold_ms(lambda: F.rms_norm(xt, (D,), wt, eps))
+                            if hasattr(F, "rms_norm") else None)}
+    del xt, wt, w32
     x, w = timed                              # the decode step's shape
     item = x.element_size()
     b_ms, b_by = bound(2 * x.numel() * item + D * item, 4 * x.numel(),
@@ -211,9 +315,10 @@ def rms_phase(gpu):
            "ms": cold_ms(lambda: rms_norm_fwd_triton(x, w, eps)),
            "plain_ms": cold_ms(lambda: rms_norm_ref(x, w, eps)),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-           "library": "torch.nn.functional.rms_norm", "ok": True}
+           "library": "torch.nn.functional.rms_norm", "train": train,
+           "ok": True}
     emit({"phase": "kernel", "kernel": "rms_norm_fwd", "gpu": gpu,
-          "cases": cases})
+          "cases": cases, "train": train})
     return row
 
 
@@ -884,6 +989,14 @@ def _kernel_group(name):
             return op
     if "rms_fwd" in name:
         return "rms_norm_fwd"
+    if "adamw_kernel" in name:
+        return "fused_adamw"
+    if "flash" in name:
+        for part, op in (("fwd_kernel", "flash_attention_fwd"),
+                         ("dkv_kernel", "flash_attention_bwd_dkv"),
+                         ("dq_kernel", "flash_attention_bwd_dq")):
+            if part in name:
+                return op
     if any(s in name.lower() for s in ("gemm", "gemv", "cutlass", "xmma",
                                        "nvjet", "cublas", "splitk")):
         return "matmul"
@@ -1057,6 +1170,533 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
     eng.drain()
 
 
+# ---------------------------------------------------------------------------
+# training: flash attention, fused AdamW, the train step
+# ---------------------------------------------------------------------------
+# bench.py's LLAMA_LADDER rung "1.07B-h4096": LLaMA-7B widths, 4 layers
+TRAIN_RUNG = {"label": "1.07B-h4096", "batch": 2, "seq": 2048,
+              "layers": 4, "moment_dtype": "bfloat16"}
+TRAIN_STEPS = 6
+FLASH_OPS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+FLASH_REPLACES = {
+    "flash_attention_fwd": "paddle_tpu/ops/pallas/flash_attention.py:270",
+    "flash_attention_bwd_dq": "paddle_tpu/ops/pallas/flash_attention.py:511",
+    "flash_attention_bwd_dkv":
+        "paddle_tpu/ops/pallas/flash_attention.py:590"}
+# (label, b, sq, sk, h, kvh, d, causal, dtype); the first is the training
+# shape, and the one timed
+FLASH_CASES = (
+    ("train", 2, 2048, 2048, 32, 32, 128, True, "bfloat16"),
+    ("gqa_4to1", 2, 2048, 2048, 32, 8, 128, True, "bfloat16"),
+    ("f32", 1, 1024, 1024, 32, 32, 128, True, "float32"),
+    ("non_causal", 2, 1024, 1024, 32, 32, 128, False, "bfloat16"),
+    ("sq256_sk1024", 2, 256, 1024, 32, 32, 128, True, "bfloat16"),
+    ("ragged_1000", 2, 1000, 1000, 32, 8, 128, True, "bfloat16"),
+    ("s1", 2, 1, 1, 32, 32, 128, True, "bfloat16"))
+
+
+def train_config(layers=TRAIN_RUNG["layers"], dtype=None, **kw):
+    """LLaMA at the 7B widths (bench.py's ladder cuts depth only)."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.models import LLAMA_7B
+    return dataclasses.replace(
+        LLAMA_7B, num_hidden_layers=layers, fused_train="ref",
+        max_position_embeddings=TRAIN_RUNG["seq"],
+        dtype=dtype or torch.bfloat16, **kw)
+
+
+def flat_size(cfg):
+    """The fused optimizer's flat length for ``cfg``'s parameters, padded
+    to the trainer's 131072 multiple."""
+    D, F, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_hidden_layers)
+    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    n = 2 * V * D + D + L * (2 * D + 2 * D * H * hd + 2 * D * KV * hd
+                             + 3 * D * F)
+    return n + (-n) % 131072
+
+
+def attn_pairs(sq, sk, causal):
+    """(query, key) pairs one head attends: all, or under the
+    bottom-right causal mask (row r sees keys 0..r + sk - sq)."""
+    if not causal:
+        return sq * sk
+    return sq * (sk - sq + 1) + sq * (sq - 1) // 2
+
+
+def flash_costs(b, sq, sk, h, kvh, d, causal, item):
+    """(bytes, operations) of each flash kernel: every input read once and
+    every output written once; 2 operations per multiply-add of the
+    products each pass computes over the attended pairs (forward: S, PV;
+    dq pass: S, dP, dQ; dkv pass: S, dP, dV, dK)."""
+    pairs = b * h * attn_pairs(sq, sk, causal)
+    qb, kb, st = b * sq * h * d * item, b * sk * kvh * d * item, b * h * sq * 4
+    return {"flash_attention_fwd": (2 * qb + 2 * kb + st, 4 * d * pairs),
+            "flash_attention_bwd_dq": (3 * qb + 2 * kb + 2 * st,
+                                       6 * d * pairs),
+            "flash_attention_bwd_dkv": (2 * qb + 4 * kb + 2 * st,
+                                        8 * d * pairs)}
+
+
+def _held(got, want, dt, f32_tol, bf16_norm=False, floor=0.0):
+    """f32: |got - want| <= f32_tol x max|want| + floor (the sums run in
+    another order); bf16: two ulps as :func:`bf16_close` (plus
+    ``floor``), or with ``bf16_norm`` |got - want|_2 <= 2^-6 |want|_2 +
+    floor sqrt(n) (against an f32 reference that does not round where the
+    kernel does). ``floor`` is an absolute slack for outputs that should
+    be 0 and hold rounding noise."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    if dt == torch.float32:
+        bnd = f32_tol * float(w.abs().max()) + floor
+        return {"max_abs_err": err, "tol": f"{f32_tol} x max|want| + "
+                f"{floor:.3g}", "ok": err <= bnd}
+    if bf16_norm:
+        nd, nw = float(diff.norm()), float(w.norm())
+        return {"max_abs_err": err, "rel_l2_err": nd / max(nw, 1e-30),
+                "tol": f"L2 <= 2^-6 x L2(want) + {floor:.3g} sqrt(n)",
+                "ok": nd <= 2 ** -6 * nw + floor * diff.numel() ** 0.5}
+    ok, worst = bf16_close(got, want, floor=floor)
+    return {"max_abs_err": err, "tol": "2^-6 x (max(|got|,|want|) + "
+            f"rms(want)) + {floor:.3g}, 2 bf16 ulps",
+            "worst_in_tol_units": worst / 2 ** -6, "ok": ok}
+
+
+def flash_phase(gpu):
+    """The three flash kernels on the cases of FLASH_CASES: each against
+    its plain version on the kernel's own inputs (f32: O and lse within
+    1e-5, grads 1e-4 of the tensor's largest magnitude; bf16 by
+    bf16_close), autograd through the kernels against autograd through
+    ``_ref_attention`` (f32 as before; bf16 within 2^-6 relative L2: the
+    kernels round P and dS to bf16 and take delta from the bf16 O, as the
+    JAX kernels do, where ``_ref_attention`` stays in f32), and two
+    launches bit for bit. The gradients' bounds add an absolute floor of
+    1e-5 x max|dO| x max|V|, the scale of dP and delta: with one key, dq
+    and dk are 0 and both sides return rounding noise. Timed at the
+    training shape."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.flash_attention import _ref_attention
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases, max_err, timed = [], dict.fromkeys(FLASH_OPS, 0.0), None
+    for label, b, sq, sk, h, kvh, d, causal, dtn in FLASH_CASES:
+        dt = getattr(torch, dtn)
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+        q, k, v, do = rn(b, sq, h, d), rn(b, sk, kvh, d), rn(b, sk, kvh, d), \
+            rn(b, sq, h, d)
+        runs = []
+        for _ in range(2):
+            o, lse = kfa.flash_fwd_cuda(q, k, v, causal)
+            delta = (o.float() * do.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            dq = kfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+            runs.append((o, lse, dq) + kfa.flash_bwd_dkv_cuda(
+                q, k, v, do, lse, delta, causal))
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        o, lse, dq, dk, dv = runs[0]
+        want_o, want_lse = kfa.flash_fwd_ref(q, k, v, causal)
+        want_dq = kfa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal)
+        want_dk, want_dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                 causal)
+        # the scale of dP and delta, whose difference is all dS holds
+        floor = 1e-5 * float(do.float().abs().max() * v.float().abs().max())
+        plain = {"o": _held(o, want_o, dt, 1e-5),
+                 "lse": _held(lse, want_lse, torch.float32, 1e-5),
+                 "dq": _held(dq, want_dq, dt, 1e-4, floor=floor),
+                 "dk": _held(dk, want_dk, dt, 1e-4, floor=floor),
+                 "dv": _held(dv, want_dv, dt, 1e-4, floor=floor)}
+        del runs, want_o, want_lse, want_dq, want_dk, want_dv
+        grads = []
+        for fn in (lambda *a: kfa.FlashAttention.apply(*a, causal, None),
+                   lambda *a: _ref_attention(*a, causal=causal)):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves)
+            out.backward(do)
+            grads.append([out.detach()] + [t.grad for t in leaves])
+        auto = {nm: _held(g, w, dt, 1e-5 if nm == "o" else 1e-4,
+                          bf16_norm=True, floor=0.0 if nm == "o" else floor)
+                for nm, g, w in zip(("o", "dq", "dk", "dv"), *grads)}
+        del grads
+        for op, keys in zip(FLASH_OPS, (("o", "lse"), ("dq",), ("dk", "dv"))):
+            for kk in keys:
+                max_err[op] = max(max_err[op], plain[kk]["max_abs_err"])
+        case = {"case": label, "b": b, "sq": sq, "sk": sk, "h": h,
+                "kvh": kvh, "d": d, "causal": causal, "dtype": dtn,
+                "vs_plain": plain, "autograd_vs_ref_attention": auto,
+                "bitwise_repeatable": same,
+                "ok": same and all(x["ok"] for x in plain.values())
+                and all(x["ok"] for x in auto.values())}
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "flash", "gpu": gpu, "cases": cases})
+            raise AssertionError(f"flash attention disagrees: {case}")
+        if timed is None:
+            timed = (label, b, sq, sk, h, kvh, d, causal, q, k, v, do)
+        del q, k, v, do, o, lse, dq, dk, dv, delta
+        torch.cuda.empty_cache()
+    label, b, sq, sk, h, kvh, d, causal, q, k, v, do = timed
+    o, lse = kfa.flash_fwd_cuda(q, k, v, causal)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, lse, delta, causal)
+    # SDPA ([b, h, s, d], is_causal: square, so top-left = bottom-right)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    sdpa = {"fwd_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal))}
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    sdpa["bwd_ms"] = cold_ms(lambda: torch.autograd.grad(
+        out, leaves, dot, retain_graph=True))
+    sdpa["fwd_bwd_ms"] = cold_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=causal), leaves,
+        dot))
+    costs = flash_costs(b, sq, sk, h, kvh, d, causal, q.element_size())
+    fns = {"flash_attention_fwd": (lambda: kfa.flash_fwd_cuda(q, k, v,
+                                                              causal),
+                                   lambda: kfa.flash_fwd_ref(q, k, v, causal),
+                                   sdpa["fwd_ms"]),
+           "flash_attention_bwd_dq": (lambda: kfa.flash_bwd_dq_cuda(*bwd),
+                                      lambda: kfa.flash_bwd_dq_ref(*bwd),
+                                      sdpa["bwd_ms"]),
+           "flash_attention_bwd_dkv": (lambda: kfa.flash_bwd_dkv_cuda(*bwd),
+                                       lambda: kfa.flash_bwd_dkv_ref(*bwd),
+                                       sdpa["bwd_ms"])}
+    rows = []
+    for op in FLASH_OPS:
+        kernel, plain_fn, lib = fns[op]
+        b_ms, b_by = bound(*costs[op], "bfloat16")
+        rows.append({
+            "name": op, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[op],
+            "shape": {"b": b, "sq": sq, "sk": sk, "h": h, "kvh": kvh, "d": d,
+                      "causal": causal},
+            "dtype": "bfloat16", "max_abs_err": max_err[op],
+            "ms": cold_ms(kernel), "plain_ms": cold_ms(plain_fn),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": costs[op][0], "operations": costs[op][1],
+            "library_ms": lib,
+            "library": ("torch.nn.functional.scaled_dot_product_attention"
+                        + (" forward" if op == "flash_attention_fwd" else
+                           " backward (dq, dk and dv in one call)")),
+            "ok": True})
+    emit({"phase": "flash", "gpu": gpu, "cases": cases, "sdpa": sdpa,
+          "timed": {r["name"]: {k: r[k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "library_ms")}
+                    for r in rows}})
+    return rows
+
+
+def _rel_ulps(got, want, chunk=1 << 26):
+    """Largest |got - want| / max(|got|, |want|) over the buffers, in f32,
+    a chunk at a time."""
+    import torch
+    worst = 0.0
+    for i in range(0, got.numel(), chunk):
+        g, w = got[i:i + chunk].float(), want[i:i + chunk].float()
+        r = (g - w).abs() / torch.maximum(g.abs(), w.abs()).clamp_min(1e-38)
+        worst = max(worst, float(r.max()))
+    return worst
+
+
+def adamw_phase(gpu, n_train):
+    """The fused AdamW kernel against its plain version (both update in
+    place), at the training phase's flat size ``n_train`` (its layout:
+    bf16 moments and shadow) and a ragged size (f32 and bf16 moments,
+    with and without the bf16 shadow), grad_scale < 1 and none. Every output within 2 ulps of its stored type
+    (relative error <= 2 eps); bit equality is reported. Timed at the
+    training layout (f32 master and grad, bf16 moments and shadow)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_adamw as kfw
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    kw = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, weight_decay=0.1)
+    cases, max_err = [], 0.0
+    for n, mdt, shadow, scale in ((n_train, bf16, bf16, 0.5),
+                                  (1_000_003, f32, bf16, 0.25),
+                                  (1_000_003, bf16, None, 0.5),
+                                  (1_000_003, f32, None, None)):
+        def state():
+            g = torch.Generator(device="cuda").manual_seed(n + 1)
+            return (torch.randn(n, generator=g, device="cuda"),
+                    torch.randn(n, generator=g, device="cuda") * 1e-2,
+                    (torch.randn(n, generator=g, device="cuda")
+                     * 1e-3).to(mdt),
+                    (torch.rand(n, generator=g, device="cuda")
+                     * 1e-4).to(mdt))
+        step = torch.tensor(3.0, device="cuda")
+        sc = None if scale is None else torch.tensor(scale, device="cuda")
+        a = state()
+        got = kfw.fused_adamw_triton(*a, 1e-4, step, grad_scale=sc,
+                                     shadow_dtype=shadow, **kw)
+        in_place = all(got[i] is a[j] for i, j in ((0, 0), (1, 2), (2, 3)))
+        b_ = state()
+        want = kfw.adamw_update_ref(*b_, 1e-4, step, grad_scale=sc,
+                                    shadow_dtype=shadow, **kw)
+        torch.cuda.synchronize()
+        outs = {}
+        for nm, g, w in zip(("param", "moment1", "moment2", "shadow"), got,
+                            want):
+            rel = _rel_ulps(g, w)
+            eps = torch.finfo(g.dtype).eps
+            outs[nm] = {"dtype": str(g.dtype)[6:], "max_rel_err": rel,
+                        "tol": f"2 ulps (rel {2 * eps:.3g})",
+                        "bitwise_equal": bool(torch.equal(g, w)),
+                        "ok": rel <= 2 * eps}
+            max_err = max(max_err, float((g.float() - w.float()).abs().max()))
+        case = {"n": n, "moment_dtype": str(mdt)[6:],
+                "shadow": None if shadow is None else str(shadow)[6:],
+                "grad_scale": scale, "in_place": in_place, "outputs": outs,
+                "ok": in_place and all(o["ok"] for o in outs.values())}
+        cases.append(case)
+        del a, b_, got, want
+        torch.cuda.empty_cache()
+        if not case["ok"]:
+            emit({"phase": "adamw", "gpu": gpu, "cases": cases})
+            raise AssertionError(f"fused_adamw disagrees: {case}")
+    n = n_train
+    p = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda") * 1e-2
+    m = torch.zeros(n, dtype=bf16, device="cuda")
+    v = torch.zeros(n, dtype=bf16, device="cuda")
+    step = torch.tensor(1.0, device="cuda")
+    sc = torch.tensor(0.5, device="cuda")
+    args = (p, g, m, v, 1e-4, step)
+    # f32 master r/w, f32 grad r, bf16 moments r/w, bf16 shadow w
+    b_ms, b_by = bound(22 * n, 16 * n, "float32")
+    row = {"name": "fused_adamw", "route": "triton", "source": ADAMW_SOURCE,
+           "replaces": "paddle_tpu/ops/pallas/fused_adamw.py:93",
+           "shape": {"n": n, "master": "float32", "grad": "float32",
+                     "moments": "bfloat16", "shadow": "bfloat16"},
+           "dtype": "float32", "max_abs_err": max_err,
+           "ms": cold_ms(lambda: kfw.fused_adamw_triton(
+               *args, grad_scale=sc, shadow_dtype=bf16, **kw)),
+           "plain_ms": cold_ms(lambda: kfw.adamw_update_ref(
+               *args, grad_scale=sc, shadow_dtype=bf16, **kw), iters=10),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": 22 * n,
+           "operations": 16 * n, "library_ms": None,
+           "library": "torch._fused_adamw_ on the same f32 master with f32 "
+                      "moments (its moments cannot be bf16)", "ok": True}
+    del m, v
+    torch.cuda.empty_cache()
+    if hasattr(torch, "_fused_adamw_"):
+        m32 = torch.zeros(n, device="cuda")
+        v32 = torch.zeros(n, device="cuda")
+        steps = [torch.tensor(1.0, device="cuda")]
+        row["library_ms"] = cold_ms(lambda: torch._fused_adamw_(
+            [p], [g], [m32], [v32], [], steps, lr=1e-4, beta1=0.9,
+            beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False,
+            maximize=False))
+        del m32, v32
+    emit({"phase": "adamw", "gpu": gpu, "cases": cases,
+          "timed": {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms")}})
+    del p, g
+    torch.cuda.empty_cache()
+    return row
+
+
+def _params_like(base):
+    """A fresh copy of a parameter tree."""
+    return {k: _params_like(v) if isinstance(v, dict) else v.clone()
+            for k, v in base.items()}
+
+
+def train_parity_phase(gpu):
+    """LLaMA at 7B widths, 2 layers, f32 (TF32 off), b 2, s 256,
+    fused_train="ref": the loss and every gradient through the kernels
+    against the same with flash attention forced to its plain version
+    (loss within 1e-5 relative; each gradient within 1e-4 of its largest
+    magnitude: 4096-term products summed in another order); then 3
+    Trainer steps each way, AdamW forced to its plain version too: losses
+    within 1e-5 relative, and each parameter's update within 1e-3 of the
+    plain update's L2 norm (an element whose gradient is ~0 may flip the
+    sign of its first Adam step, so no elementwise bound holds)."""
+    import torch
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.distributed.trainer import tree_leaves
+    from paddle_tpu_torch.models import init_params, llama
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config(layers=2, dtype=torch.float32)
+    base = init_params(cfg, seed=2)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                           device="cuda")
+    labels = torch.roll(toks, -1, -1)
+
+    def loss_and_grads():
+        params = _params_like(base)
+        leaves = [v.requires_grad_(True) for v in tree_leaves(params)]
+        loss = llama.loss_fn(params, toks, labels, cfg)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def trained():
+        tr = Trainer(lambda p, t, l: llama.loss_fn(p, t, l, cfg), lr=1e-4)
+        state = tr.init_state(_params_like(base))
+        losses = []
+        for _ in range(3):
+            state, m = tr.step(state, toks, labels)
+            losses.append(float(m["loss"]))
+        return losses, state.params, tr._fused
+
+    kernels.reset_launches()
+    loss_k, grads_k = loss_and_grads()
+    traj_k, params_k, fused = trained()
+    torch.cuda.synchronize()
+    ran = kernels.launches()
+    with KERNELS.force("flash_attention", "unfused"), \
+            KERNELS.force("fused_adamw", "unfused"):
+        kernels.reset_launches()
+        loss_p, grads_p = loss_and_grads()
+        traj_p, params_p, _ = trained()
+        torch.cuda.synchronize()
+        ran_plain = kernels.launches()
+    with torch.no_grad():
+        grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(grads_k, grads_p))
+        upd_err = max(float((pk - pp).norm()
+                            / (pp - b0).norm().clamp_min(1e-30))
+                      for pk, pp, b0 in zip(tree_leaves(params_k),
+                                            tree_leaves(params_p),
+                                            tree_leaves(base)))
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    traj_err = max(abs(a - b) / abs(b) for a, b in zip(traj_k, traj_p))
+    kernel_ops = FLASH_OPS + ("fused_adamw",)
+    res = {"phase": "train_parity", "gpu": gpu, "dtype": "float32",
+           "layers": 2, "batch": 2, "seq": 256, "fused_optimizer": fused,
+           "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+           "loss_rel_err": loss_err,
+           "grad_err_over_max": grad_err, "grads": len(grads_k),
+           "trajectory_kernels": traj_k, "trajectory_plain": traj_p,
+           "trajectory_rel_err": traj_err,
+           "update_err_over_norm": upd_err,
+           "launches_kernel_run": {k: ran[k] for k in kernel_ops},
+           "launches_plain_run": {k: ran_plain[k] for k in kernel_ops}}
+    res["ok"] = (loss_err <= 1e-5 and grad_err <= 1e-4 and traj_err <= 1e-5
+                 and upd_err <= 1e-3 and fused
+                 and all(ran[k] > 0 for k in kernel_ops)
+                 and not any(ran_plain[k] for k in kernel_ops))
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("train parity failed")
+    del base, grads_k, grads_p, params_k, params_p
+    torch.cuda.empty_cache()
+
+
+def train_phase(gpu):
+    """This slice's main path: the 1.07B-h4096 rung through
+    ``Trainer.step`` (see the module docstring). Returns the launch
+    counts of the timed steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.distributed.trainer import tree_leaves
+    from paddle_tpu_torch.models import init_params, llama
+    from paddle_tpu_torch.ops import kernels
+    cfg = train_config()
+    L, B, S = cfg.num_hidden_layers, TRAIN_RUNG["batch"], TRAIN_RUNG["seq"]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    tr = Trainer(lambda p, t, l: llama.loss_fn(p, t, l, cfg), lr=1e-4,
+                 moment_dtype=torch.bfloat16)
+    state = tr.init_state(params)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device="cuda")
+    labels = torch.roll(toks, -1, -1)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = tr.step(state, toks, labels)          # warm-up
+    losses = [float(m["loss"])]
+    warm_s = time.perf_counter() - t0
+    tr.reset_metrics()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(TRAIN_STEPS)]
+    step_losses = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for start, end in events:
+        start.record()
+        state, m = tr.step(state, toks, labels)
+        end.record()
+        step_losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    losses += [float(x) for x in step_losses]
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    wall_ms = wall * 1e3 / TRAIN_STEPS
+    tps = B * S / (wall_ms / 1e3)
+    flops_per_tok = 6 * n_params + 6 * L * S * cfg.hidden_size
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = tr.step(state, toks, labels)
+        torch.cuda.synchronize()
+    kern, groups = _device_groups(prof, 1)
+    device_ms = sum(ms for ms, _ in kern.values())
+    n = TRAIN_STEPS
+    want = {"flash_attention_fwd": 2 * L * n, "flash_attention_bwd_dq": L * n,
+            "flash_attention_bwd_dkv": L * n, "fused_adamw": n,
+            "rms_norm_fwd": (4 * L + 1) * n, "paged_attention_decode": 0,
+            "decode_attn_block": 0, "decode_mlp_block": 0,
+            "prefill_attn_block": 0}
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
+    res = {"phase": "train", "gpu": gpu, "rung": TRAIN_RUNG["label"],
+           "model": {"vocab": cfg.vocab_size, "D": cfg.hidden_size,
+                     "F": cfg.intermediate_size,
+                     "H": cfg.num_attention_heads,
+                     "KV": cfg.num_key_value_heads, "layers": L},
+           "params": n_params, "batch": B, "seq": S,
+           "dtype": "bfloat16 weights, float32 norms, bfloat16 moments",
+           "fused_train": cfg.fused_train, "remat": cfg.remat,
+           "fused_optimizer": tr._fused, "setup_s": round(setup_s, 3),
+           "warmup_s": round(warm_s, 3), "losses": losses,
+           "step_ms_events": [round(x, 3) for x in step_ms],
+           "step_ms_mean": round(float(np.mean(step_ms)), 3),
+           "wall_ms_per_step": round(wall_ms, 3),
+           "tokens_per_sec": round(tps, 1),
+           "mfu": round(tps * flops_per_tok / PEAK_OPS_PER_S["bfloat16"], 4),
+           "mfu_formula": "tokens/s x (6 N + 6 L S D) / 989e12 (bench.py)",
+           "peak_memory_gb": round(peak_gb, 3),
+           "launches": counts, "launches_per_step": {
+               k: counts[k] / n for k in want if counts[k]},
+           "profiled_step": {"device_ms": round(device_ms, 3),
+                             "busy_share": round(device_ms / wall_ms, 4),
+                             "by_group": _rounded(groups),
+                             "top_kernels": [
+                                 {"name": k[:120], "ms": round(ms, 3),
+                                  "launches": round(c, 2)}
+                                 for k, (ms, c) in top]}}
+    emit(res)
+    if tr._fused is not True:
+        raise AssertionError("the train phase is not on the fused optimizer")
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"train launches {counts} != {want}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train losses not finite and falling: {losses}")
+    del state, params, tr
+    torch.cuda.empty_cache()
+    return counts, res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1065,10 +1705,15 @@ def main():
         return 1
     import paddle_tpu_torch  # noqa: F401  (fails outside the repository)
     from paddle_tpu_torch.models import LLAMA_7B, init_params
+    t_start = time.perf_counter()
     gpu = gpu_line()
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
             fused_mlp_phase(gpu), prefill_attn_phase(gpu)]
+    train_rows = flash_phase(gpu) + [adamw_phase(gpu,
+                                                 flat_size(train_config()))]
+    train_parity_phase(gpu)
+    train_counts, _ = train_phase(gpu)
     parity_phase(gpu)
     params = init_params(LLAMA_7B, seed=0)
     fused_counts, eng, prompts, fused_tokens = serving_phase(gpu, params,
@@ -1087,10 +1732,17 @@ def main():
         counts = (unfused_counts if row["name"] == "paged_attention_decode"
                   else fused_counts)
         row["launches"] = counts[row["name"]]
+        if row["name"] == "rms_norm_fwd":
+            row["train_launches"] = train_counts["rms_norm_fwd"]
+    for row in train_rows:
+        # the training kernels' launches on the train phase's timed steps
+        row["launches"] = train_counts[row["name"]]
+    for row in rows + train_rows:
         row["gpu"] = gpu
         # ms and max_abs_err, also under their longer names
         row["kernel_ms"], row["max_err"] = row["ms"], row["max_abs_err"]
-    emit({"kernels": rows})
+    emit({"kernels": rows + train_rows,
+          "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

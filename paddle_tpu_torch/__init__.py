@@ -1,17 +1,19 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu, for one NVIDIA
 H100 (sm_90a).
 
-It serves LLaMA through the same data plane as ``paddle_tpu``'s unfused
-serving route -- model parameters, ops, paged KV cache and the
-continuous-batching ``ServingEngine`` -- with the TPU's Pallas kernels
-rewritten by hand for Hopper (``ops/kernels/``). It imports ``torch``,
+It serves LLaMA through the same data plane as ``paddle_tpu``'s serving
+routes -- model parameters, ops, paged KV cache and the
+continuous-batching ``ServingEngine`` -- and trains it on one device
+(``models.llama.loss_fn``, ``distributed.Trainer``), with the TPU's
+Pallas kernels rewritten by hand for Hopper (``ops/kernels/``). It imports ``torch``,
 never ``jax``, and nothing of ``paddle_tpu``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on the
 CPU every kernel is replaced by its plain PyTorch version. Kernels build
 (nvcc) or compile (Triton) at their first launch, never at import.
 """
-from . import device, inference, models, ops  # noqa: F401
+from . import device, distributed, inference, models, ops  # noqa: F401
 from .device import resolve_device  # noqa: F401
 
-__all__ = ["device", "inference", "models", "ops", "resolve_device"]
+__all__ = ["device", "distributed", "inference", "models", "ops",
+           "resolve_device"]

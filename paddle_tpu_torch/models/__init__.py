@@ -1,4 +1,4 @@
-"""Models of the PyTorch/CUDA port (serving side of LLaMA)."""
+"""Models of the PyTorch/CUDA port: LLaMA, for serving and training."""
 from . import llama  # noqa: F401
 from .llama import (LLAMA_7B, LLAMA_TINY, LlamaConfig,  # noqa: F401
                     init_params, params_from_jax)

@@ -1,4 +1,5 @@
-"""LLaMA parameters for serving (port of ``paddle_tpu/models/llama.py``).
+"""LLaMA: parameters, forward and training loss (port of
+``paddle_tpu/models/llama.py``'s functional core).
 
 The parameter dict keeps the JAX package's layout exactly, so a JAX tree
 converts by copy (:func:`params_from_jax`):
@@ -9,20 +10,37 @@ converts by copy (:func:`params_from_jax`):
   layer, as in the JAX package;
 - norm weights (``input_norm``, ``post_norm``, ``final_norm``) in f32.
 
-Only the serving side is here; ``forward``/``loss_fn`` come with training.
+:func:`forward_hidden`, :func:`forward` and :func:`loss_fn` are the
+training side: a Python loop over the stacked layers (the JAX package's
+``lax.scan``), each layer under ``torch.utils.checkpoint`` when
+``cfg.remat`` (``jax.checkpoint``), RMSNorm and flash attention through
+the port's kernels, the residual epilogue, SwiGLU and the lm-head + CE
+through the fused-train ops, which ``cfg.fused_train`` resolves (None or
+"auto": registry dispatch; "ref": the compositions; "pallas": the
+kernels). The serving engine keeps its own layer loop
+(``inference/generation.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..ops import rms_norm
+from ..ops.flash_attention import flash_attention
+from ..ops.fused_train import (fused_linear_ce, fused_swiglu,
+                               residual_rms_norm)
+from ..ops.kernels.registry import KERNELS
+from ..ops.rope import apply_rope, build_rope_cache
 
 __all__ = ["LlamaConfig", "LLAMA_7B", "LLAMA_TINY", "init_params",
-           "params_from_jax", "params_to"]
+           "params_from_jax", "params_to", "forward_hidden", "forward",
+           "loss_fn"]
 
 
 @dataclasses.dataclass
@@ -38,6 +56,10 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # the fused training kernels: None/"auto" dispatch, False/"ref" the
+    # compositions, "pallas" the kernels (the JAX package's knob)
+    fused_train: Any = None
 
     @property
     def head_dim(self):
@@ -122,3 +144,80 @@ def params_to(params: Dict, device) -> Dict:
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     return params.to(device)
+
+
+def _decoder_layer(lp, x, sin, cos, cfg: LlamaConfig):
+    """One decoder block on [B, S, D]; ``lp`` holds one layer's weights.
+    The f32 norm weights are cast to x's type inside the graph, so their
+    gradient comes back through the cast."""
+    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    h = rms_norm(x, lp["input_norm"].to(x.dtype), cfg.rms_norm_eps,
+                 mode=cfg.fused_train)
+    b, s, _ = h.shape
+    q = apply_rope((h @ lp["q_proj"]).reshape(b, s, H, hd), sin, cos)
+    kk = apply_rope((h @ lp["k_proj"]).reshape(b, s, KV, hd), sin, cos)
+    v = (h @ lp["v_proj"]).reshape(b, s, KV, hd)
+    attn = flash_attention(q, kk, v, causal=True).reshape(b, s, H * hd)
+    x, h = residual_rms_norm(attn @ lp["o_proj"], x,
+                             lp["post_norm"].to(x.dtype), cfg.rms_norm_eps,
+                             mode=cfg.fused_train)
+    ff = fused_swiglu(h @ lp["gate_proj"], h @ lp["up_proj"],
+                      mode=cfg.fused_train)
+    return x + ff @ lp["down_proj"]
+
+
+def _same_pins():
+    """``checkpoint``'s contexts for the forward and the recomputation: the
+    recomputation runs in the autograd engine's thread, so it re-enters
+    the forward's registry pins there and dispatches as the forward did
+    (the JAX package bakes the dispatch into the traced layer)."""
+    return contextlib.nullcontext(), KERNELS.pinned(KERNELS.pins())
+
+
+def forward_hidden(params: Dict, tokens, cfg: LlamaConfig,
+                   positions=None):
+    """Final-norm hidden states [B, S, D] for [B, S] int tokens;
+    ``positions`` [S] picks the rope rows (default 0..S-1)."""
+    tokens = torch.as_tensor(tokens, device=params["embed_tokens"].device)
+    x = params["embed_tokens"][tokens.long()]
+    sin, cos = build_rope_cache(tokens.shape[1], cfg.head_dim,
+                                base=cfg.rope_theta, device=x.device)
+    if positions is not None:
+        pos = torch.as_tensor(positions, device=x.device).long()
+        if pos.dim() != 1:
+            raise ValueError("positions must be [S]")
+        sin, cos = sin[pos], cos[pos]
+    # unbind: one view per layer, whose backward stacks the L gradients
+    # once (indexing the stack per layer would add L full-size zeros)
+    stacks = {k: w.unbind(0) for k, w in params["layers"].items()}
+    for i in range(cfg.num_hidden_layers):
+        lp = {k: w[i] for k, w in stacks.items()}
+        if cfg.remat:
+            x = checkpoint(_decoder_layer, lp, x, sin, cos, cfg,
+                           use_reentrant=False, preserve_rng_state=False,
+                           context_fn=_same_pins)
+        else:
+            x = _decoder_layer(lp, x, sin, cos, cfg)
+    return rms_norm(x, params["final_norm"].to(x.dtype), cfg.rms_norm_eps,
+                    mode=cfg.fused_train)
+
+
+def _head(params):
+    head = params.get("lm_head")
+    return head if head is not None else params["embed_tokens"].T
+
+
+def forward(params: Dict, tokens, cfg: LlamaConfig, positions=None):
+    """Logits [B, S, V] (hidden states @ lm head)."""
+    return forward_hidden(params, tokens, cfg, positions) @ _head(params)
+
+
+def loss_fn(params: Dict, tokens, labels, cfg: LlamaConfig):
+    """Next-token cross entropy in f32 through the chunked lm-head + CE:
+    [B, S, V] logits are never held whole. Negative labels are
+    ignored."""
+    hidden = forward_hidden(params, tokens, cfg)
+    labels = torch.as_tensor(labels, device=hidden.device)
+    return fused_linear_ce(hidden, _head(params), labels,
+                           mode=cfg.fused_train)

@@ -3,18 +3,23 @@
 ``rms_norm`` dispatches on where its input lies: a CUDA tensor goes to
 the Triton kernel (``kernels/norms.py``), a CPU tensor to the plain
 version ``rms_norm_ref``. There is no other switch and no fallback: a
-kernel that fails raises.
+kernel that fails raises. Where a gradient is needed it runs as
+``kernels.norms.RMSNorm``, whose backward ``mode`` (the fused-train knob)
+selects.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
-from .kernels.norms import rms_norm_fwd_triton, rms_norm_ref
+from .kernels.norms import RMSNorm, rms_norm_fwd_triton, rms_norm_ref
 
 __all__ = ["rms_norm", "rms_norm_ref", "swiglu"]
 
 
-def rms_norm(x, weight, epsilon=1e-6):
+def rms_norm(x, weight, epsilon=1e-6, mode=None):
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return RMSNorm.apply(x, weight, epsilon, mode)
     if x.device.type == "cpu":
         return rms_norm_ref(x, weight, epsilon)
     return rms_norm_fwd_triton(x, weight, epsilon)
@@ -22,3 +27,6 @@ def rms_norm(x, weight, epsilon=1e-6):
 
 def swiglu(a, b):
     return F.silu(a) * b
+
+
+from . import flash_attention, fused_train  # noqa: E402,F401

@@ -7,6 +7,9 @@ launches in a plain integer attribute, ``<wrapper>.launches``.
 :data:`WRAPPERS` maps each TPU launch name to its wrapper; the dispatch
 registry of ops with several variants is :mod:`.registry`'s ``KERNELS``.
 """
+from .flash_attention import (flash_bwd_dkv_cuda,  # noqa: F401
+                              flash_bwd_dq_cuda, flash_fwd_cuda)
+from .fused_adamw import fused_adamw_triton  # noqa: F401
 from .fused_decode_block import (attn_block_ref,  # noqa: F401
                                  decode_attn_block_cuda,
                                  decode_mlp_block_cuda, mlp_block_ref)
@@ -22,6 +25,10 @@ WRAPPERS = {
     "decode_attn_block": decode_attn_block_cuda,
     "decode_mlp_block": decode_mlp_block_cuda,
     "prefill_attn_block": prefill_attn_block_cuda,
+    "flash_attention_fwd": flash_fwd_cuda,
+    "flash_attention_bwd_dq": flash_bwd_dq_cuda,
+    "flash_attention_bwd_dkv": flash_bwd_dkv_cuda,
+    "fused_adamw": fused_adamw_triton,
 }
 
 

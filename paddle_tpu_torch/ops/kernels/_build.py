@@ -9,10 +9,11 @@ plain C interface, for Hopper only (``sm_90a``)::
 The build runs at first use into ``paddle_tpu_torch/build/`` (listed in
 ``.gitignore``), in a directory named by a hash of the flags and of every
 source under ``csrc/`` (headers included), so an edited kernel rebuilds
-and an unchanged one loads at once. ptxas's report (registers, shared
-memory, spills) is kept beside the library as ``lib<name>.log``. A failed
-build raises with nvcc's output. Nothing here runs at import: this
-module imports without nvcc, CUDA or a card.
+and an unchanged one loads at once; :func:`build` compiles several
+sources at once, one nvcc process each, all started together. ptxas's
+report (registers, shared memory, spills) is kept beside the library as
+``lib<name>.log``. A failed build raises with nvcc's output. Nothing here
+runs at import: this module imports without nvcc, CUDA or a card.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from pathlib import Path
 from typing import Dict
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "library_path",
-           "load"]
+           "build", "load"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -64,20 +65,38 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / _digest() / f"lib{name}.so"
 
 
-def _compile(name: str, out: Path):
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, out)                # atomic: readers never see a part
+def build(names):
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose library is
+    missing: one nvcc process per source, all started together, then wait
+    for all of them. Raises with nvcc's output of each source that
+    failed."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        log = out.with_name(f".{out.name}.{os.getpid()}.log")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        jobs.append((name, out, tmp, log, proc))
+    failed = []
+    for name, out, tmp, log, proc in jobs:
+        rc = proc.wait()
+        text = log.read_text()
+        log.unlink()
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for csrc/{name}.cu (exit {rc}):\n"
+                          f"{text}")
+            continue
+        out.with_suffix(".log").write_text(text)
+        os.replace(tmp, out)            # atomic: readers never see a part
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -87,6 +106,6 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         out = library_path(name)
         if not out.exists():
-            _compile(name, out)
+            build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(out))
     return lib

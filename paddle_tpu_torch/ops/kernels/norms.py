@@ -1,5 +1,5 @@
-"""RMSNorm forward: the Triton kernel's wrapper and its plain PyTorch
-version.
+"""RMSNorm: the forward Triton kernel's wrapper, its plain PyTorch version,
+and the differentiable op the training path runs.
 
 Replaces ``paddle_tpu/ops/pallas/norms.py``'s ``_rms_fwd_kernel``
 (launch ``rms_norm_fwd``, reached through ``rms_norm_pallas``): each row
@@ -16,6 +16,17 @@ for that here. Design: one program per row with ``BLOCK =
 next_pow2(D)``, so a 4096-wide row is one block held in registers, read
 once and written once.
 
+Training: :class:`RMSNorm` is the JAX package's ``rms_norm_pallas``
+custom_vjp. Its forward is the kernel on CUDA (the plain version on the
+CPU); its backward is the op ``"rms_norm_bwd"``, resolved through the
+fused-train mode when the forward runs: the JAX package resolves it at
+trace time, and the caller's thread holds the registry pins, which the
+autograd engine's thread does not see. :func:`rms_bwd_ref`
+(``_rms_bwd_ref``: f32 interior, ``dw`` summed over rows and cast to the
+weight's type) is its only variant until the fused-train slice ports the
+``rms_norm_bwd`` kernel, so mode "ref" pins it and "auto" raises on CUDA
+with that reason.
+
 Triton is imported when the kernel is first launched, never at import:
 the CPU tests import this module where Triton is absent.
 """
@@ -23,7 +34,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm_ref", "rms_norm_fwd_triton"]
+from .registry import KERNELS, dispatch_fused_variant
+
+__all__ = ["rms_norm_ref", "rms_norm_fwd_triton", "rms_bwd_ref",
+           "rms_bwd_meta", "RMSNorm"]
 
 _kernel = None
 tl = None          # triton.language, bound by _jit() at the first launch
@@ -87,3 +101,59 @@ def rms_norm_fwd_triton(x, weight, epsilon=1e-6):
 
 
 rms_norm_fwd_triton.launches = 0
+
+
+def rms_bwd_ref(epsilon, res, g):
+    """The JAX package's ``_rms_bwd_ref``: (dx in x's type, dw in the
+    weight's type) from the saved ``res = (x, weight)`` and the output's
+    cotangent ``g``, all in f32 inside."""
+    x, weight = res
+    xf, gf, wf = x.float(), g.float(), weight.float()
+    ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    inv = torch.rsqrt(ms + epsilon)
+    xhat = xf * inv
+    dw = torch.sum(gf * xhat, dim=tuple(range(x.dim() - 1))).to(
+        weight.dtype)
+    gw = gf * wf
+    dx = inv * (gw - xhat * torch.mean(gw * xhat, dim=-1, keepdim=True))
+    return dx.to(x.dtype), dw
+
+
+def rms_bwd_meta(rows, d, dtype, device) -> dict:
+    return {"rows": int(rows), "d": int(d), "dtype": str(dtype),
+            "device": torch.device(device).type}
+
+
+def _supports_plain(meta):
+    if meta["device"] != "cpu":
+        return False, ("rms_norm_bwd's CUDA kernel is not ported "
+                       "(fused-train slice); the composition runs on the "
+                       "CPU, or on the card when fused_train='ref' pins it")
+    return True, "composition on the CPU"
+
+
+KERNELS.register("rms_norm_bwd", "unfused", rms_bwd_ref, priority=0,
+                 supports=_supports_plain)
+
+
+class RMSNorm(torch.autograd.Function):
+    """RMSNorm with the JAX package's custom backward. ``mode`` (the
+    fused-train knob) picks the backward variant when the forward runs."""
+
+    @staticmethod
+    def forward(ctx, x, weight, epsilon, mode):
+        ctx.bwd = dispatch_fused_variant(
+            "rms_norm_bwd",
+            rms_bwd_meta(x.numel() // x.shape[-1], x.shape[-1], x.dtype,
+                         x.device), mode)
+        ctx.save_for_backward(x, weight)
+        ctx.epsilon = epsilon
+        if x.device.type == "cpu":
+            return rms_norm_ref(x, weight, epsilon)
+        return rms_norm_fwd_triton(x, weight, epsilon)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = ctx.bwd(ctx.epsilon, (x, weight), g)
+        return dx, dw, None, None

@@ -12,7 +12,10 @@ priority-0 composition (CPU tensors only), so a refused kernel on the
 card raises rather than running the composition in its place.
 
 ``force()`` pins an op to a named variant for a ``with`` block,
-bypassing ``supports``; pins stack and are per thread.
+bypassing ``supports``; pins stack and are per thread. ``pins()`` and
+``pinned()`` carry a thread's pins to another thread: the autograd engine
+runs a CUDA backward (and a checkpointed layer's recomputation) in a
+thread of its own.
 
 The JAX package's ``declare_cache_key`` and ``forced_state`` key jitted
 programs that bake a dispatch choice in. PyTorch runs eagerly and
@@ -21,11 +24,13 @@ come with the CUDA-graph capture of the decode step.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-__all__ = ["KernelVariant", "KernelRegistry", "KERNELS"]
+__all__ = ["KernelVariant", "KernelRegistry", "KERNELS", "fused_train_mode",
+           "dispatch_fused_variant"]
 
 
 @dataclass
@@ -97,6 +102,24 @@ class KernelRegistry:
                 return False
         return _Force()
 
+    def pins(self) -> Tuple[Tuple[str, str], ...]:
+        """This thread's (op, variant) pins, innermost last."""
+        return tuple(getattr(self._forced, "stack", None) or ())
+
+    @contextlib.contextmanager
+    def pinned(self, pins):
+        """Context manager that re-enters ``pins`` (from :meth:`pins`,
+        possibly of another thread) on this thread."""
+        stack = getattr(self._forced, "stack", None)
+        if stack is None:
+            stack = self._forced.stack = []
+        n = len(stack)
+        stack.extend(pins)
+        try:
+            yield self
+        finally:
+            del stack[n:]
+
     def _forced_for(self, op: str) -> Optional[str]:
         for o, n in reversed(getattr(self._forced, "stack", None) or []):
             if o == op:
@@ -138,3 +161,38 @@ class KernelRegistry:
 
 
 KERNELS = KernelRegistry()
+
+
+def fused_train_mode(mode=None) -> str:
+    """Normalise a fused-train mode knob to ``auto | pallas | ref`` (port
+    of ``paddle_tpu/ops/pallas/_util.py``'s ``fused_train_mode``).
+
+    ``None``/``True``/"auto" mean registry dispatch (the JAX package's
+    ``FLAGS_fused_train`` default; the port has no global flag);
+    ``False``/``0``/"ref" pin the unfused composition; "pallas"/"force"
+    pin the hand-written kernels."""
+    if mode in (False, 0, "ref"):
+        return "ref"
+    if mode in ("pallas", "force"):
+        return "pallas"
+    if mode in (True, 1, None, "auto"):
+        return "auto"
+    raise ValueError(
+        f"fused_train mode must be auto|pallas|ref, got {mode!r}")
+
+
+def dispatch_fused_variant(op: str, meta, mode=None):
+    """The one fused-training mode contract: ``op`` resolved to a callable
+    -- registry dispatch in "auto", the pinned ``"cuda_fused"`` kernel
+    variant for "pallas", the ``"unfused"`` composition for "ref". An op
+    whose kernels are not ported has no ``"cuda_fused"`` variant: a
+    "pallas" pin raises ``NotImplementedError`` naming it."""
+    mode = fused_train_mode(mode)
+    if mode == "auto":
+        return KERNELS.dispatch(op, meta)[1]
+    name = "cuda_fused" if mode == "pallas" else "unfused"
+    if name not in [v.name for v in KERNELS.variants(op)]:
+        raise NotImplementedError(
+            f"fused_train={mode!r} pins {op}'s CUDA kernels, which are not "
+            "ported (fused-train slice)")
+    return KERNELS.variant(op, name).fn
