@@ -69,25 +69,40 @@ script exits non-zero:
    with and without the bf16 shadow, grad_scale < 1, in place; timed at
    the training size beside its bound, its plain version and
    ``torch._fused_adamw_``.
-10. train parity: LLaMA at 7B widths, 2 layers, f32, b 2, s 256,
-   ``fused_train="ref"``: the loss and every gradient through the kernels
-   against the same with flash attention forced to its plain version;
-   then 3 ``Trainer`` steps each way (AdamW forced to its plain version
-   too): the loss trajectories and the parameters' updates.
-11. train (this slice's main path): bench.py's "1.07B-h4096" ladder rung
+10. fused-train kernels: rms_norm_bwd and residual_rms_norm_fwd at
+   [4096, 4096] and [4095, 4096] bf16 and [1024, 4096] f32, swiglu_fwd and
+   swiglu_bwd at [4096, 11008] and [4095, 11008] bf16, [7, 1001] bf16 and
+   [1024, 11008] f32, the three linear-CE kernels at T 4096, D 4096, V
+   32000 bf16 (the train step's), T 4095 / V 32003, the tied head (the
+   embedding seen transposed), every label ignored (dx and dh exactly 0)
+   and f32 (T 512, V 32003): each against its plain version, two launches
+   bit for bit; timed at the train step's shapes beside the bound, the
+   plain version and, for the CE, cuBLAS on the same products.
+11. train parity: LLaMA at 7B widths, 2 layers, f32, b 2, s 256, on the
+   "ref" route and on the default route (``fused_train=None``): each
+   route's loss and every gradient through its kernels against the same
+   route with every kernel replaced by its plain version; then 3
+   ``Trainer`` steps each way: the loss trajectories and the parameters'
+   updates; and the default route against the "ref" route.
+12. train (the main path): bench.py's "1.07B-h4096" ladder rung
    (vocab 32000, D 4096, F 11008, 32 heads, 4 layers, batch 2 x seq 2048,
-   bf16 weights, f32 norms, bf16 moments, remat, fused optimizer,
-   ``fused_train="ref"``): 1 warm-up and 6 timed steps on one batch, the
-   launch counts set to 0 just before the timed steps and read just
-   after (flash fwd 2L, dq and dkv L, fused_adamw 1, RMSNorm 4L + 1 a
-   step); step ms, tokens/s, MFU, peak memory, the loss per step; one
-   more step traced: device time by kernel group and the busy share.
+   bf16 weights, f32 norms, bf16 moments, remat, fused optimizer) on the
+   default route (``fused_train=None``): 1 warm-up and 6 timed steps on
+   one batch, the launch counts set to 0 just before the timed steps and
+   read just after (flash fwd 2L, dq and dkv L, fused_adamw 1, RMSNorm
+   2L + 1, residual + RMSNorm 2L, rms_norm_bwd 2L + 1, swiglu_fwd 2L,
+   swiglu_bwd L, each linear-CE kernel 1 a step); step ms, tokens/s, MFU,
+   peak memory, the loss per step; one more step traced: device time by
+   kernel group and the busy share. Then the same on the "ref" route
+   (RMSNorm 4L + 1 a step, the fused-train kernels never).
 
 Then the ``kernels`` summary line (each kernel's launches from the
-serving phase of the route that runs it, or from the train phase) and,
+serving phase of the route that runs it, or from the default route's
+train phase) and,
 last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
 prints no result. It imports nothing of JAX or of ``paddle_tpu``.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -105,7 +120,7 @@ PREFILL_SOURCE = "paddle_tpu_torch/csrc/fused_prefill_block.cu"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 ADAMW_SOURCE = "paddle_tpu_torch/ops/kernels/fused_adamw.py"
 CUDA_SOURCES = ("paged_attention", "fused_decode_block",
-                "fused_prefill_block", "flash_attention")
+                "fused_prefill_block", "flash_attention", "linear_ce")
 # LLaMA-7B widths and the serving phase's table geometry
 D7, H7, HD7, F7, B8, BS16, MB72 = 4096, 32, 128, 11008, 8, 16, 72
 
@@ -987,8 +1002,19 @@ def _kernel_group(name):
                "paged_attention_decode"):
         if op in name:
             return op
-    if "rms_fwd" in name:
-        return "rms_norm_fwd"
+    for part, op in (("res_rms_fwd", "residual_rms_norm_fwd"),
+                     ("rms_fwd", "rms_norm_fwd"),
+                     ("rms_bwd", "rms_norm_bwd"),
+                     ("sum_rows", "rms_norm_bwd"),
+                     ("swiglu_fwd", "swiglu_fwd"),
+                     ("swiglu_bwd", "swiglu_bwd"),
+                     ("ce_fwd", "linear_ce_fwd"),
+                     ("ce_dx_kernel", "linear_ce_bwd_dx"),
+                     ("ce_dh_kernel", "linear_ce_bwd_dh")):
+        if part in name:
+            return op
+    if "linear_ce::sum_cast" in name:
+        return None     # dx's and dh's second kernel: see _device_groups
     if "adamw_kernel" in name:
         return "fused_adamw"
     if "flash" in name:
@@ -1005,19 +1031,24 @@ def _kernel_group(name):
 
 def _device_groups(prof, per):
     """Device activities (kernels, copies) of a torch.profiler run, per
-    ``per`` steps or chunks: ({name: (ms, count)}, {group: [ms, count]})."""
+    ``per`` steps or chunks: ({name: (ms, count)}, {group: [ms, count]}).
+    Every device kernel a wrapper call launches counts in its op's group:
+    a second kernel whose name does not tell the op (linear_ce's sum/cast,
+    shared by dx and dh) joins the group of the activity before it, which
+    is the main kernel of the same call."""
     import torch
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / per,
-                               n + 1 / per)
-    groups = {}
-    for name, (ms, n) in kernels.items():
-        g = groups.setdefault(_kernel_group(name), [0.0, 0.0])
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    kernels, groups, prev = {}, {}, "other"
+    for e in events:
+        ms = e.time_range.elapsed_us() / 1e3 / per
+        k_ms, k_n = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (k_ms + ms, k_n + 1 / per)
+        prev = _kernel_group(e.name) or prev
+        g = groups.setdefault(prev, [0.0, 0.0])
         g[0] += ms
-        g[1] += n
+        g[1] += 1 / per
     return kernels, groups
 
 
@@ -1196,13 +1227,14 @@ FLASH_CASES = (
     ("s1", 2, 1, 1, 32, 32, 128, True, "bfloat16"))
 
 
-def train_config(layers=TRAIN_RUNG["layers"], dtype=None, **kw):
+def train_config(layers=TRAIN_RUNG["layers"], dtype=None, fused_train="ref",
+                 **kw):
     """LLaMA at the 7B widths (bench.py's ladder cuts depth only)."""
     import dataclasses
     import torch
     from paddle_tpu_torch.models import LLAMA_7B
     return dataclasses.replace(
-        LLAMA_7B, num_hidden_layers=layers, fused_train="ref",
+        LLAMA_7B, num_hidden_layers=layers, fused_train=fused_train,
         max_position_embeddings=TRAIN_RUNG["seq"],
         dtype=dtype or torch.bfloat16, **kw)
 
@@ -1505,107 +1537,439 @@ def adamw_phase(gpu, n_train):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the fused-train kernels: RMSNorm backward, residual + RMSNorm, SwiGLU,
+# linear CE
+# ---------------------------------------------------------------------------
+FT_TRITON_SOURCE = "paddle_tpu_torch/ops/kernels/fused_train.py"
+CE_SOURCE = "paddle_tpu_torch/csrc/linear_ce.cu"
+FT_REPLACES = {
+    "rms_norm_bwd": "paddle_tpu/ops/pallas/norms.py:148",
+    "residual_rms_norm_fwd": "paddle_tpu/ops/pallas/norms.py:248",
+    "swiglu_fwd": "paddle_tpu/ops/pallas/fused_train.py:516",
+    "swiglu_bwd": "paddle_tpu/ops/pallas/fused_train.py:530",
+    "linear_ce_fwd": "paddle_tpu/ops/pallas/fused_train.py:246",
+    "linear_ce_bwd_dx": "paddle_tpu/ops/pallas/fused_train.py:273",
+    "linear_ce_bwd_dh": "paddle_tpu/ops/pallas/fused_train.py:289"}
+FT_OPS = tuple(FT_REPLACES)
+# (label, T, V, dtype, head, labels); the first is the train step's shape
+# (batch 2 x seq 2048 tokens, D 4096) and the one timed
+CE_CASES = (("train", 4096, 32000, "bfloat16", "untied", "mixed"),
+            ("ragged_T4095_V32003", 4095, 32003, "bfloat16", "untied",
+             "mixed"),
+            ("tied_head", 4096, 32000, "bfloat16", "tied", "mixed"),
+            ("all_ignored", 1024, 32000, "bfloat16", "untied", "ignored"),
+            ("f32", 512, 32003, "float32", "untied", "mixed"))
+
+
+def _twice(fn):
+    """Two launches of ``fn`` on the same inputs: (outputs, bit-equal)."""
+    import torch
+    a, b = fn(), fn()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    torch.cuda.synchronize()
+    return a, all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def fused_train_phase(gpu):
+    """The seven fused-train kernels against their plain versions on the
+    card (f32: 1e-5 of the largest magnitude for values, 1e-4 for sums
+    over rows or the vocab; bf16: two ulps, ``bf16_close``), two launches
+    bit for bit, at the train step's shapes and edge cases (ragged rows
+    and elements; for the CE: T 4095 and V 32003, the tied head, every
+    label ignored, f32). Timed at the train step's shapes, L2 flushed,
+    beside the bound, the plain version and, for the CE (no single PyTorch
+    call computes it), cuBLAS's time for the same products."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_train as kft
+    from paddle_tpu_torch.ops.kernels import norms as kn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    eps = 1e-6
+    T, D, F = TRAIN_RUNG["batch"] * TRAIN_RUNG["seq"], D7, F7
+    cases = {op: [] for op in FT_OPS}
+    max_err = dict.fromkeys(FT_OPS, 0.0)
+
+    def rn(*shape, dt=bf16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    def record(op, case):
+        cases[op].append(case)
+        for o in case["outputs"].values():
+            max_err[op] = max(max_err[op], o["max_abs_err"])
+        if not case["ok"]:
+            emit({"phase": "fused_train_kernels", "gpu": gpu,
+                  "cases": cases})
+            raise AssertionError(f"{op} disagrees: {case}")
+
+    # -- the row and elementwise kernels -----------------------------------
+    for rows, dt in ((T, bf16), (T - 1, bf16), (1024, f32)):
+        x, g, delta = rn(rows, D, dt=dt), rn(rows, D, dt=dt), rn(rows, D,
+                                                                  dt=dt)
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dt)
+        got, same = _twice(lambda: kn.rms_norm_bwd_triton(x, w, g, eps))
+        want = kn.rms_bwd_ref(eps, (x, w), g)
+        outs = {"dx": _held(got[0], want[0], dt, 1e-5),
+                "dw": _held(got[1], want[1], dt, 1e-4)}
+        record("rms_norm_bwd", {
+            "rows": rows, "D": D, "dtype": str(dt)[6:], "outputs": outs,
+            "bitwise_repeatable": same,
+            "ok": same and all(o["ok"] for o in outs.values())})
+        got, same = _twice(lambda: kn.residual_rms_norm_fwd_triton(
+            delta, x, w, eps))
+        want = kn.residual_rms_norm_fwd_ref(delta, x, w, eps)
+        outs = {"y": _held(got[0], want[0], dt, 0.0),
+                "h": _held(got[1], want[1], dt, 1e-5)}
+        outs["y"]["bitwise_equal"] = bool(torch.equal(got[0], want[0]))
+        record("residual_rms_norm_fwd", {
+            "rows": rows, "D": D, "dtype": str(dt)[6:], "outputs": outs,
+            "bitwise_repeatable": same,
+            "ok": same and outs["y"]["bitwise_equal"]
+            and outs["h"]["ok"]})
+        del x, g, delta, got, want
+    for shape, dt in (((T, F), bf16), ((T - 1, F), bf16), ((7, 1001), bf16),
+                      ((1024, F), f32)):
+        g, u, d = rn(*shape, dt=dt, scale=2), rn(*shape, dt=dt), rn(
+            *shape, dt=dt)
+        got, same = _twice(lambda: kft.swiglu_fwd_triton(g, u))
+        outs = {"out": _held(got[0], kft.swiglu_fwd_ref(g, u), dt, 1e-5)}
+        record("swiglu_fwd", {"shape": list(shape), "dtype": str(dt)[6:],
+                              "outputs": outs, "bitwise_repeatable": same,
+                              "ok": same and outs["out"]["ok"]})
+        got, same = _twice(lambda: kft.swiglu_bwd_triton(g, u, d))
+        want = kft.swiglu_bwd_ref(g, u, d)
+        outs = {"dg": _held(got[0], want[0], dt, 1e-5),
+                "du": _held(got[1], want[1], dt, 1e-5)}
+        record("swiglu_bwd", {"shape": list(shape), "dtype": str(dt)[6:],
+                              "outputs": outs, "bitwise_repeatable": same,
+                              "ok": same and all(o["ok"]
+                                                 for o in outs.values())})
+        del g, u, d, got, want
+    torch.cuda.empty_cache()
+
+    # -- linear CE ----------------------------------------------------------
+    timed = None
+    for label, t, v, dtn, head_kind, lab_kind in CE_CASES:
+        dt = getattr(torch, dtn)
+        x = rn(t, D, dt=dt, scale=0.5)
+        if head_kind == "tied":
+            head = rn(v, D, dt=dt, scale=0.02).T     # the embedding, seen
+        else:                                        # transposed
+            head = rn(D, v, dt=dt, scale=0.02)
+        rng = np.random.default_rng(t + v)
+        lab = rng.integers(0, v, t)
+        if lab_kind == "ignored":
+            lab[:] = -100
+        else:
+            drop = rng.random(t) < 0.1
+            lab[drop] = np.where(rng.random(int(drop.sum())) < 0.5, -1, -100)
+        lab = torch.as_tensor(lab, device="cuda")
+        coef = torch.tensor([1.0 / max(int((lab >= 0).sum()), 1)],
+                            device="cuda")
+        (lse, pick), same_f = _twice(lambda: kft.linear_ce_fwd_cuda(
+            x, head, lab))
+        want_lse, want_pick = kft.ce_fwd_ref(x, head, lab)
+        outs = {"lse": _held(lse, want_lse, f32, 1e-5),
+                "pick": _held(pick, want_pick, f32, 1e-5)}
+        record("linear_ce_fwd", {
+            "case": label, "T": t, "D": D, "V": v, "dtype": dtn,
+            "head": head_kind, "outputs": outs, "bitwise_repeatable": same_f,
+            "ok": same_f and all(o["ok"] for o in outs.values())})
+        del want_lse, want_pick
+        # the backward passes take the plain forward's lse, as the plain
+        # versions do, so both sides see the same inputs
+        (dx,), same = _twice(lambda: kft.linear_ce_bwd_dx_cuda(
+            x, head, lab, lse, coef))
+        want = kft.ce_bwd_dx_ref(x, head, lab, lse, coef)
+        o = _held(dx, want, dt, 1e-4)
+        ok = same and o["ok"]
+        if lab_kind == "ignored":
+            o["all_zero"] = not bool(dx.any())
+            ok = ok and o["all_zero"]
+        record("linear_ce_bwd_dx", {
+            "case": label, "T": t, "D": D, "V": v, "dtype": dtn,
+            "head": head_kind, "outputs": {"dx": o},
+            "bitwise_repeatable": same, "ok": ok})
+        del dx, want
+        (dh,), same = _twice(lambda: kft.linear_ce_bwd_dh_cuda(
+            x, head, lab, lse, coef))
+        want = kft.ce_bwd_dh_ref(x, head, lab, lse, coef)
+        o = _held(dh, want, dt, 1e-4)
+        ok = same and o["ok"] and dh.stride() == head.stride()
+        o["layout_as_head"] = dh.stride() == head.stride()
+        if lab_kind == "ignored":
+            o["all_zero"] = not bool(dh.any())
+            ok = ok and o["all_zero"]
+        record("linear_ce_bwd_dh", {
+            "case": label, "T": t, "D": D, "V": v, "dtype": dtn,
+            "head": head_kind, "outputs": {"dh": o},
+            "bitwise_repeatable": same, "ok": ok})
+        del dh, want
+        if timed is None:
+            timed = (x, head, lab, lse, coef)
+        else:
+            del x, head, lab, lse, coef
+        torch.cuda.empty_cache()
+
+    # -- timing at the train step's shapes ----------------------------------
+    rows = []
+
+    def row(op, route, source, shape, dt, kernel, plain, nbytes, ops,
+            extra=None, peak="bfloat16"):
+        b_ms, b_by = bound(nbytes, ops, peak)
+        r = {"name": op, "route": route, "source": source,
+             "replaces": FT_REPLACES[op], "shape": shape, "dtype": dt,
+             "max_abs_err": max_err[op], "ms": cold_ms(kernel),
+             "plain_ms": cold_ms(plain, iters=10), "bound_ms": b_ms,
+             "bound_by": b_by, "bytes": nbytes, "operations": ops,
+             "library_ms": None, "ok": True}
+        r.update(extra or {})
+        rows.append(r)
+
+    x, g, delta = rn(T, D), rn(T, D), rn(T, D)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(bf16)
+    n = x.numel()
+    row("rms_norm_bwd", "triton", RMS_SOURCE, [T, D], "bfloat16",
+        lambda: kn.rms_norm_bwd_triton(x, w, g, eps),
+        lambda: kn.rms_bwd_ref(eps, (x, w), g), 3 * 2 * n + 4 * D, 12 * n,
+        {"library": "none (one wrapper call: the row kernel and the "
+                    "fixed-order dw sum)"}, "float32")
+    row("residual_rms_norm_fwd", "triton", RMS_SOURCE, [T, D], "bfloat16",
+        lambda: kn.residual_rms_norm_fwd_triton(delta, x, w, eps),
+        lambda: kn.residual_rms_norm_fwd_ref(delta, x, w, eps),
+        4 * 2 * n + 2 * D, 6 * n, {"library": "none"}, "float32")
+    del x, g, delta
+    g, u, d = rn(T, F, scale=2), rn(T, F), rn(T, F)
+    n = g.numel()
+    row("swiglu_fwd", "triton", FT_TRITON_SOURCE, [T, F], "bfloat16",
+        lambda: kft.swiglu_fwd_triton(g, u),
+        lambda: kft.swiglu_fwd_ref(g, u), 3 * 2 * n, 6 * n,
+        {"library": "none (F.silu(g) * u is two calls)"}, "float32")
+    row("swiglu_bwd", "triton", FT_TRITON_SOURCE, [T, F], "bfloat16",
+        lambda: kft.swiglu_bwd_triton(g, u, d),
+        lambda: kft.swiglu_bwd_ref(g, u, d), 5 * 2 * n, 10 * n,
+        {"library": "none"}, "float32")
+    del g, u, d
+    torch.cuda.empty_cache()
+    x, head, lab, lse, coef = timed
+    V = head.shape[1]
+    ce_ops = 2 * T * D * V
+    io = 2 * T * D + 2 * D * V + 8 * T
+    pb = (torch.randn(T, V, generator=gen, device="cuda") * 1e-4).to(bf16)
+    fwd_products = cold_ms(lambda: x @ head)
+    dx_products = cold_ms(lambda: (x @ head, pb @ head.T))
+    dh_products = cold_ms(lambda: (x @ head, x.T @ pb))
+    del pb
+    shape = {"T": T, "D": D, "V": V, "head": "untied"}
+    note = ("none: no single PyTorch call; products_ms is cuBLAS (bf16) "
+            "on the same products")
+    row("linear_ce_fwd", "cuda", CE_SOURCE, shape, "bfloat16",
+        lambda: kft.linear_ce_fwd_cuda(x, head, lab),
+        lambda: kft.ce_fwd_ref(x, head, lab), io + 8 * T, ce_ops,
+        {"library": note, "products_ms": fwd_products})
+    row("linear_ce_bwd_dx", "cuda", CE_SOURCE, shape, "bfloat16",
+        lambda: kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef),
+        lambda: kft.ce_bwd_dx_ref(x, head, lab, lse, coef),
+        io + 4 * T + 2 * T * D, 2 * ce_ops,
+        {"library": note, "products_ms": dx_products})
+    row("linear_ce_bwd_dh", "cuda", CE_SOURCE, shape, "bfloat16",
+        lambda: kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef),
+        lambda: kft.ce_bwd_dh_ref(x, head, lab, lse, coef),
+        io + 4 * T + 2 * D * V, 2 * ce_ops,
+        {"library": note, "products_ms": dh_products})
+    del x, head, lab, lse, coef, timed
+    torch.cuda.empty_cache()
+    emit({"phase": "fused_train_kernels", "gpu": gpu, "cases": cases,
+          "timed": {r["name"]: {k: r.get(k) for k in (
+              "ms", "plain_ms", "bound_ms", "bound_by", "products_ms")}
+              for r in rows}})
+    return rows
+
+
 def _params_like(base):
     """A fresh copy of a parameter tree."""
     return {k: _params_like(v) if isinstance(v, dict) else v.clone()
             for k, v in base.items()}
 
 
-def train_parity_phase(gpu):
-    """LLaMA at 7B widths, 2 layers, f32 (TF32 off), b 2, s 256,
-    fused_train="ref": the loss and every gradient through the kernels
-    against the same with flash attention forced to its plain version
-    (loss within 1e-5 relative; each gradient within 1e-4 of its largest
-    magnitude: 4096-term products summed in another order); then 3
-    Trainer steps each way, AdamW forced to its plain version too: losses
-    within 1e-5 relative, and each parameter's update within 1e-3 of the
-    plain update's L2 norm (an element whose gradient is ~0 may flip the
-    sign of its first Adam step, so no elementwise bound holds)."""
+@contextlib.contextmanager
+def plain_kernels(fused_train):
+    """The train step's kernels replaced by their plain versions on the
+    card: flash attention and AdamW
+    through their registry pins; for the default route also the seven
+    fused-train kernels (RMSNorm backward, residual + RMSNorm, SwiGLU,
+    linear CE), whose wrappers are swapped for their plain versions for
+    the ``with`` block (the Functions look them up at each call). The
+    RMSNorm forward stays the kernel on both sides."""
+    from paddle_tpu_torch.ops.kernels import fused_train as kft
+    from paddle_tpu_torch.ops.kernels import norms as kn
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    swaps = [] if fused_train == "ref" else [
+        (kn, "rms_norm_bwd_triton",
+         lambda x, w, g, eps: kn.rms_bwd_ref(eps, (x, w), g)),
+        (kn, "residual_rms_norm_fwd_triton", kn.residual_rms_norm_fwd_ref),
+        (kft, "swiglu_fwd_triton", kft.swiglu_fwd_ref),
+        (kft, "swiglu_bwd_triton", kft.swiglu_bwd_ref),
+        (kft, "linear_ce_fwd_cuda", kft.ce_fwd_ref),
+        (kft, "linear_ce_bwd_dx_cuda", kft.ce_bwd_dx_ref),
+        (kft, "linear_ce_bwd_dh_cuda", kft.ce_bwd_dh_ref)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        with KERNELS.force("flash_attention", "unfused"), \
+                KERNELS.force("fused_adamw", "unfused"):
+            yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _route_run(cfg, base, toks, labels):
+    """Loss and every gradient, then 3 Trainer steps, of ``cfg``'s route;
+    the kernels' launches over both."""
     import torch
     from paddle_tpu_torch.distributed import Trainer
     from paddle_tpu_torch.distributed.trainer import tree_leaves
-    from paddle_tpu_torch.models import init_params, llama
+    from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops import kernels
-    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    kernels.reset_launches()
+    params = _params_like(base)
+    leaves = [v.requires_grad_(True) for v in tree_leaves(params)]
+    loss = llama.loss_fn(params, toks, labels, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    tr = Trainer(lambda p, t, l: llama.loss_fn(p, t, l, cfg), lr=1e-4)
+    state = tr.init_state(_params_like(base))
+    losses = []
+    for _ in range(3):
+        state, m = tr.step(state, toks, labels)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    return {"loss": loss.detach(), "grads": grads, "trajectory": losses,
+            "params": state.params, "fused": tr._fused,
+            "launches": kernels.launches()}
+
+
+def _route_diff(a, b, base, floor=0.0):
+    """Loss (relative), gradients (of the largest magnitude), trajectory
+    (relative, past an absolute ``floor``) and updates (of the update's L2
+    norm) of run ``a`` against run ``b``."""
+    import torch
+    from paddle_tpu_torch.distributed.trainer import tree_leaves
+    with torch.no_grad():
+        grad = max(float((x - y).abs().max() / y.abs().max().clamp_min(
+            1e-30)) for x, y in zip(a["grads"], b["grads"]))
+        upd = max(float((pa - pb).norm() / (pb - b0).norm().clamp_min(1e-30))
+                  for pa, pb, b0 in zip(tree_leaves(a["params"]),
+                                        tree_leaves(b["params"]),
+                                        tree_leaves(base)))
+    return {"loss_rel_err": abs(float(a["loss"]) - float(b["loss"]))
+            / abs(float(b["loss"])),
+            "grad_err_over_max": grad,
+            "trajectory_rel_err": max(max(abs(x - y) - floor, 0.0) / abs(y)
+                                      for x, y in zip(a["trajectory"],
+                                                      b["trajectory"])),
+            "trajectory_floor": floor,
+            "update_err_over_norm": upd}
+
+
+def _diff_ok(d):
+    return (d["loss_rel_err"] <= 1e-5 and d["grad_err_over_max"] <= 1e-4
+            and d["trajectory_rel_err"] <= 1e-5
+            and d["update_err_over_norm"] <= 1e-3)
+
+
+def train_parity_phase(gpu):
+    """LLaMA at 7B widths, 2 layers, f32 (TF32 off), b 2, s 256, on both
+    routes: "ref" and the default (``fused_train=None``). Each
+    route's loss and every gradient through its kernels against the same
+    route with every kernel replaced by its plain version (loss within
+    1e-5 relative; each gradient within 1e-4 of its largest magnitude:
+    4096-term products summed in another order); then 3 Trainer steps each
+    way (losses within 1e-5 relative, and each parameter's update within
+    1e-3 of the plain update's L2 norm: an element whose gradient is ~0 may
+    flip the sign of its first Adam step, so no elementwise bound holds).
+    The default route's kernel run is held against the "ref" route's by
+    the same bounds. On the default route (and across routes) the
+    trajectory's bound has an absolute floor of a quarter of one f32 ulp
+    of the first step's loss: the loss is a mean of lse - pick, terms of
+    that size (~11 here, lse ~ ln V at the random start), and by the third
+    step it has fallen ~4e4 times below them, so a relative bound alone
+    would ask for 0.003 ulps of the terms (the seven kernels sum in
+    another order than their plain versions). The mean of 512 terms that
+    each differ by about an ulp in no common direction differs by about
+    ulp / sqrt(512) = 0.044 ulp; the third step's difference reads 0.055
+    ulp, and the floor is about five times that. The "ref" route's runs
+    share everything but flash attention and AdamW, and keep the bound
+    without a floor."""
+    import torch
+    from paddle_tpu_torch.models import init_params
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = train_config(layers=2, dtype=torch.float32)
-    base = init_params(cfg, seed=2)
+    cfg_ref = train_config(layers=2, dtype=torch.float32)
+    cfg_def = train_config(layers=2, dtype=torch.float32, fused_train=None)
+    base = init_params(cfg_ref, seed=2)
     rng = np.random.default_rng(3)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+    toks = torch.as_tensor(rng.integers(0, cfg_ref.vocab_size, (2, 256)),
                            device="cuda")
     labels = torch.roll(toks, -1, -1)
-
-    def loss_and_grads():
-        params = _params_like(base)
-        leaves = [v.requires_grad_(True) for v in tree_leaves(params)]
-        loss = llama.loss_fn(params, toks, labels, cfg)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
-
-    def trained():
-        tr = Trainer(lambda p, t, l: llama.loss_fn(p, t, l, cfg), lr=1e-4)
-        state = tr.init_state(_params_like(base))
-        losses = []
-        for _ in range(3):
-            state, m = tr.step(state, toks, labels)
-            losses.append(float(m["loss"]))
-        return losses, state.params, tr._fused
-
-    kernels.reset_launches()
-    loss_k, grads_k = loss_and_grads()
-    traj_k, params_k, fused = trained()
-    torch.cuda.synchronize()
-    ran = kernels.launches()
-    with KERNELS.force("flash_attention", "unfused"), \
-            KERNELS.force("fused_adamw", "unfused"):
-        kernels.reset_launches()
-        loss_p, grads_p = loss_and_grads()
-        traj_p, params_p, _ = trained()
-        torch.cuda.synchronize()
-        ran_plain = kernels.launches()
-    with torch.no_grad():
-        grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
-            1e-30)) for a, b in zip(grads_k, grads_p))
-        upd_err = max(float((pk - pp).norm()
-                            / (pp - b0).norm().clamp_min(1e-30))
-                      for pk, pp, b0 in zip(tree_leaves(params_k),
-                                            tree_leaves(params_p),
-                                            tree_leaves(base)))
-    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    traj_err = max(abs(a - b) / abs(b) for a, b in zip(traj_k, traj_p))
-    kernel_ops = FLASH_OPS + ("fused_adamw",)
+    route_ops = {"ref": FLASH_OPS + ("fused_adamw",),
+                 "default": FLASH_OPS + ("fused_adamw",) + FT_OPS}
     res = {"phase": "train_parity", "gpu": gpu, "dtype": "float32",
-           "layers": 2, "batch": 2, "seq": 256, "fused_optimizer": fused,
-           "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
-           "loss_rel_err": loss_err,
-           "grad_err_over_max": grad_err, "grads": len(grads_k),
-           "trajectory_kernels": traj_k, "trajectory_plain": traj_p,
-           "trajectory_rel_err": traj_err,
-           "update_err_over_norm": upd_err,
-           "launches_kernel_run": {k: ran[k] for k in kernel_ops},
-           "launches_plain_run": {k: ran_plain[k] for k in kernel_ops}}
-    res["ok"] = (loss_err <= 1e-5 and grad_err <= 1e-4 and traj_err <= 1e-5
-                 and upd_err <= 1e-3 and fused
-                 and all(ran[k] > 0 for k in kernel_ops)
-                 and not any(ran_plain[k] for k in kernel_ops))
+           "layers": 2, "batch": 2, "seq": 256, "routes": {}}
+    runs = {}
+    ok = True
+    floor = 0.0
+    for route, cfg in (("ref", cfg_ref), ("default", cfg_def)):
+        kern = _route_run(cfg, base, toks, labels)
+        with plain_kernels(cfg.fused_train):
+            plain = _route_run(cfg, base, toks, labels)
+        d = _route_diff(kern, plain, base, floor)
+        floor = 0.25 * float(np.spacing(np.float32(
+            plain["trajectory"][0])))
+        ops = route_ops[route]
+        r = dict(d, fused_train=cfg.fused_train,
+                 fused_optimizer=kern["fused"],
+                 loss_kernels=float(kern["loss"]),
+                 loss_plain=float(plain["loss"]), grads=len(kern["grads"]),
+                 trajectory_kernels=kern["trajectory"],
+                 trajectory_plain=plain["trajectory"],
+                 launches_kernel_run={k: kern["launches"][k] for k in ops},
+                 launches_plain_run={k: plain["launches"][k] for k in ops})
+        r["ok"] = (_diff_ok(d) and kern["fused"]
+                   and all(kern["launches"][k] > 0 for k in ops)
+                   and not any(plain["launches"][k] for k in ops))
+        ok = ok and r["ok"]
+        res["routes"][route] = r
+        runs[route] = kern
+        del plain
+        torch.cuda.empty_cache()
+    d = _route_diff(runs["default"], runs["ref"], base, floor)
+    res["default_vs_ref"] = dict(d, ok=_diff_ok(d))
+    res["ok"] = ok and res["default_vs_ref"]["ok"]
     emit(res)
     if not res["ok"]:
         raise AssertionError("train parity failed")
-    del base, grads_k, grads_p, params_k, params_p
+    del base, runs
     torch.cuda.empty_cache()
 
 
-def train_phase(gpu):
-    """This slice's main path: the 1.07B-h4096 rung through
-    ``Trainer.step`` (see the module docstring). Returns the launch
-    counts of the timed steps."""
+def train_phase(gpu, fused_train):
+    """The 1.07B-h4096 rung through ``Trainer.step`` on the route
+    ``fused_train`` picks (None: the default route, the main path; "ref"
+    beside it); see the module docstring. Returns the launch counts of
+    the timed steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.distributed import Trainer
     from paddle_tpu_torch.distributed.trainer import tree_leaves
     from paddle_tpu_torch.models import init_params, llama
     from paddle_tpu_torch.ops import kernels
-    cfg = train_config()
+    cfg = train_config(fused_train=fused_train)
     L, B, S = cfg.num_hidden_layers, TRAIN_RUNG["batch"], TRAIN_RUNG["seq"]
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
@@ -1653,11 +2017,21 @@ def train_phase(gpu):
     kern, groups = _device_groups(prof, 1)
     device_ms = sum(ms for ms, _ in kern.values())
     n = TRAIN_STEPS
-    want = {"flash_attention_fwd": 2 * L * n, "flash_attention_bwd_dq": L * n,
-            "flash_attention_bwd_dkv": L * n, "fused_adamw": n,
-            "rms_norm_fwd": (4 * L + 1) * n, "paged_attention_decode": 0,
-            "decode_attn_block": 0, "decode_mlp_block": 0,
-            "prefill_attn_block": 0}
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want.update({"flash_attention_fwd": 2 * L * n,
+                 "flash_attention_bwd_dq": L * n,
+                 "flash_attention_bwd_dkv": L * n, "fused_adamw": n})
+    if fused_train == "ref":
+        want["rms_norm_fwd"] = (4 * L + 1) * n
+    else:
+        # the post-attention norm moves into the residual kernel; remat
+        # runs each layer's forward twice
+        want.update({"rms_norm_fwd": (2 * L + 1) * n,
+                     "residual_rms_norm_fwd": 2 * L * n,
+                     "rms_norm_bwd": (2 * L + 1) * n,
+                     "swiglu_fwd": 2 * L * n, "swiglu_bwd": L * n,
+                     "linear_ce_fwd": n, "linear_ce_bwd_dx": n,
+                     "linear_ce_bwd_dh": n})
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
     res = {"phase": "train", "gpu": gpu, "rung": TRAIN_RUNG["label"],
            "model": {"vocab": cfg.vocab_size, "D": cfg.hidden_size,
@@ -1712,8 +2086,10 @@ def main():
             fused_mlp_phase(gpu), prefill_attn_phase(gpu)]
     train_rows = flash_phase(gpu) + [adamw_phase(gpu,
                                                  flat_size(train_config()))]
+    train_rows += fused_train_phase(gpu)
     train_parity_phase(gpu)
-    train_counts, _ = train_phase(gpu)
+    train_counts, _ = train_phase(gpu, None)
+    ref_counts, _ = train_phase(gpu, "ref")
     parity_phase(gpu)
     params = init_params(LLAMA_7B, seed=0)
     fused_counts, eng, prompts, fused_tokens = serving_phase(gpu, params,
@@ -1734,9 +2110,12 @@ def main():
         row["launches"] = counts[row["name"]]
         if row["name"] == "rms_norm_fwd":
             row["train_launches"] = train_counts["rms_norm_fwd"]
+            row["ref_train_launches"] = ref_counts["rms_norm_fwd"]
     for row in train_rows:
-        # the training kernels' launches on the train phase's timed steps
+        # the training kernels' launches on the default route's timed
+        # steps (the main path), and on the "ref" route's
         row["launches"] = train_counts[row["name"]]
+        row["ref_train_launches"] = ref_counts[row["name"]]
     for row in rows + train_rows:
         row["gpu"] = gpu
         # ms and max_abs_err, also under their longer names

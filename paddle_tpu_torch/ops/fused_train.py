@@ -14,19 +14,28 @@ Each op resolves through the fused-train mode contract
   (:func:`residual_rms_norm_ref`; the norm's backward follows the same
   mode).
 
-Their CUDA kernels (``linear_ce_*``, ``swiglu_*``,
-``residual_rms_norm_fwd``, with ``rms_norm_bwd``) are not ported yet: each
-op registers only its composition, for CPU metas. So on the card
-``fused_train="auto"`` raises with the reason "not ported (fused-train
-slice)", "pallas" raises everywhere, and "ref" runs the compositions on
-the card, as the JAX package's ``fused_train="ref"`` runs them on the TPU.
+Each op has two variants. ``"cuda_fused"`` is the JAX package's fused
+route through the hand-written kernels: :class:`.kernels.fused_train.LinearCE`
+(``linear_ce_fwd``, ``linear_ce_bwd_dx``, ``linear_ce_bwd_dh``),
+:class:`.kernels.fused_train.SwiGLU` (``swiglu_fwd``, ``swiglu_bwd``) and
+:class:`.kernels.norms.ResidualRMSNorm` (``residual_rms_norm_fwd``, with
+``rms_norm_bwd`` behind it). Its ``supports`` takes CUDA f32/bf16 metas
+within the kernels' limits and says why it refuses any other. ``"unfused"``
+is the composition, priority 0, for CPU metas. So "auto" runs the kernels
+on the card and the compositions on the CPU (as the JAX package runs its
+compositions in interpret mode); a CUDA meta the kernels refuse raises
+with their reason, the composition never standing in on the card;
+"pallas" pins the kernels (on the CPU their Functions run the plain
+versions) and "ref" the compositions, on either device.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .kernels.norms import rms_bwd_meta
+from .kernels.fused_train import LinearCE, SwiGLU
+from .kernels.norms import (ResidualRMSNorm, rms_bwd_meta, supports_cuda,
+                            supports_plain)
 from .kernels.registry import KERNELS, dispatch_fused_variant
 
 __all__ = ["linear_ce_ref", "swiglu_ref", "residual_rms_norm_ref",
@@ -62,24 +71,27 @@ def swiglu_meta(R, F_, dtype, device) -> dict:
             "device": torch.device(device).type}
 
 
-def _plain_only(kernels):
-    def supports(meta):
-        if meta["device"] != "cpu":
-            return False, (f"the {kernels} CUDA kernels are not ported "
-                           "(fused-train slice); fused_train='ref' runs the "
-                           "composition on the card")
-        return True, "composition on the CPU"
-    return supports
+def _residual_rms_norm_fused(delta, x, weight, epsilon=1e-6, mode=None):
+    return ResidualRMSNorm.apply(delta, x, weight, epsilon, mode)
 
 
+# linear_ce's shared memory is fixed (34 KB fwd, 103 KB dx, 106 KB dh, all
+# under the H100's 227 KB a block) and its loops take any D, T and V
+KERNELS.register("fused_linear_ce", "cuda_fused", LinearCE.apply,
+                 priority=10, supports=supports_cuda(
+                     "the linear_ce_fwd/bwd_dx/bwd_dh CUDA kernels"))
 KERNELS.register("fused_linear_ce", "unfused", linear_ce_ref, priority=0,
-                 supports=_plain_only("linear_ce_fwd/bwd_dx/bwd_dh"))
+                 supports=supports_plain)
+KERNELS.register("fused_swiglu", "cuda_fused", SwiGLU.apply, priority=10,
+                 supports=supports_cuda("the swiglu_fwd/bwd Triton kernels"))
 KERNELS.register("fused_swiglu", "unfused", swiglu_ref, priority=0,
-                 supports=_plain_only("swiglu_fwd/bwd"))
+                 supports=supports_plain)
+KERNELS.register("rms_norm_residual", "cuda_fused",
+                 _residual_rms_norm_fused, priority=10, supports=supports_cuda(
+                     "the residual_rms_norm_fwd and rms_norm_bwd Triton "
+                     "kernels", "d"))
 KERNELS.register("rms_norm_residual", "unfused", residual_rms_norm_ref,
-                 priority=0,
-                 supports=_plain_only("residual_rms_norm_fwd + "
-                                      "rms_norm_bwd"))
+                 priority=0, supports=supports_plain)
 
 
 def _rows(t):

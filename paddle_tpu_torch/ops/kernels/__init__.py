@@ -13,9 +13,13 @@ from .fused_adamw import fused_adamw_triton  # noqa: F401
 from .fused_decode_block import (attn_block_ref,  # noqa: F401
                                  decode_attn_block_cuda,
                                  decode_mlp_block_cuda, mlp_block_ref)
+from .fused_train import (linear_ce_bwd_dh_cuda,  # noqa: F401
+                          linear_ce_bwd_dx_cuda, linear_ce_fwd_cuda,
+                          swiglu_bwd_triton, swiglu_fwd_triton)
 from .fused_prefill_block import (prefill_attn_block_cuda,  # noqa: F401
                                   prefill_attn_block_ref)
-from .norms import rms_norm_fwd_triton, rms_norm_ref  # noqa: F401
+from .norms import (residual_rms_norm_fwd_triton,  # noqa: F401
+                    rms_norm_bwd_triton, rms_norm_fwd_triton, rms_norm_ref)
 from .paged_attention import (paged_attention_decode_cuda,  # noqa: F401
                               paged_attention_decode_ref)
 
@@ -29,6 +33,13 @@ WRAPPERS = {
     "flash_attention_bwd_dq": flash_bwd_dq_cuda,
     "flash_attention_bwd_dkv": flash_bwd_dkv_cuda,
     "fused_adamw": fused_adamw_triton,
+    "rms_norm_bwd": rms_norm_bwd_triton,
+    "residual_rms_norm_fwd": residual_rms_norm_fwd_triton,
+    "swiglu_fwd": swiglu_fwd_triton,
+    "swiglu_bwd": swiglu_bwd_triton,
+    "linear_ce_fwd": linear_ce_fwd_cuda,
+    "linear_ce_bwd_dx": linear_ce_bwd_dx_cuda,
+    "linear_ce_bwd_dh": linear_ce_bwd_dh_cuda,
 }
 
 

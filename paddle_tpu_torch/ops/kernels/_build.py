@@ -12,8 +12,12 @@ source under ``csrc/`` (headers included), so an edited kernel rebuilds
 and an unchanged one loads at once; :func:`build` compiles several
 sources at once, one nvcc process each, all started together. ptxas's
 report (registers, shared memory, spills) is kept beside the library as
-``lib<name>.log``. A failed build raises with nvcc's output. Nothing here
-runs at import: this module imports without nvcc, CUDA or a card.
+``lib<name>.log``. A failed build raises with nvcc's output.
+
+The Triton kernels are built by :func:`triton_jit` at their first launch.
+:data:`DTYPES` is the types every kernel takes, with the code the C
+launchers read. Nothing here runs at import: this module imports without
+nvcc, Triton, CUDA or a card.
 """
 from __future__ import annotations
 
@@ -25,14 +29,19 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "library_path",
-           "build", "load"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPES", "nvcc_path",
+           "library_path", "build", "load", "triton_jit"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the kernels' element types and the C launchers' ``dtype`` code of each
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -109,3 +118,18 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(out))
     return lib
+
+
+def triton_jit(namespace, name):
+    """``namespace[name]`` compiled by ``triton.jit``, once: cached in the
+    module's ``_kernels``. Binds the module's ``tl`` to ``triton.language``
+    first, which the kernels' bodies read. Pass the kernel module's
+    ``globals()``."""
+    cache = namespace["_kernels"]
+    fn = cache.get(name)
+    if fn is None:
+        import triton
+        import triton.language as tl
+        namespace["tl"] = tl
+        fn = cache[name] = triton.jit(namespace[name])
+    return fn

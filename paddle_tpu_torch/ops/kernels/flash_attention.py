@@ -45,7 +45,6 @@ __all__ = ["flash_fwd_ref", "flash_bwd_dq_ref", "flash_bwd_dkv_ref",
 
 #: the JAX kernel's DEFAULT_MASK_VALUE (-0.7 x float32 max)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}
 
 
@@ -154,7 +153,7 @@ def _kernel(name):
 
 def flash_unsupported(q, k, causal):
     """Why the kernels do not take these operands, or None."""
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _build.DTYPES:
         return f"dtype {q.dtype} (the kernels take float32 and bfloat16)"
     if q.dim() != 4 or k.dim() != 4:
         return "q, k and v must be [batch, seq, heads, head_dim]"
@@ -201,7 +200,7 @@ def _launch(name, wrapper, q, *ptrs, causal, scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         wrapper.launches += 1
         err = fn(q.data_ptr(), *(t.data_ptr() for t in ptrs), b, h, kvh, sq,
-                 sk, d, float(scale), int(bool(causal)), _DTYPES[q.dtype],
+                 sk, d, float(scale), int(bool(causal)), _build.DTYPES[q.dtype],
                  stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "

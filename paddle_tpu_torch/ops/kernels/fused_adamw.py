@@ -31,14 +31,15 @@ from __future__ import annotations
 
 import torch
 
+from ._build import DTYPES, triton_jit
 from .registry import KERNELS
 
 __all__ = ["adamw_update_ref", "fused_adamw_triton", "adamw_meta",
            "adamw_update", "bias_corrections", "BLOCK"]
 
 BLOCK = 1024
-_kernel = None
-tl = None          # triton.language, bound by _jit() at the first launch
+_kernels = {}
+tl = None          # triton.language, bound by triton_jit at the first launch
 
 
 def bias_corrections(step, beta1, beta2, grad_scale, device):
@@ -106,18 +107,6 @@ def _adamw_kernel(p_ptr, g_ptr, m_ptr, v_ptr, s_ptr, bc_ptr, n, lr, wd, b1,
         tl.store(s_ptr + offs, p_n.to(s_ptr.dtype.element_ty), mask=mask)
 
 
-def _jit():
-    global _kernel, tl
-    if _kernel is None:
-        import triton
-        import triton.language as tl
-        _kernel = triton.jit(_adamw_kernel)
-    return _kernel
-
-
-_FLOATS = (torch.float32, torch.bfloat16)
-
-
 def fused_adamw_triton(param, grad, moment1, moment2, lr, step, beta1=0.9,
                        beta2=0.999, epsilon=1e-8, weight_decay=0.01,
                        grad_scale=None, shadow_dtype=None):
@@ -136,20 +125,20 @@ def fused_adamw_triton(param, grad, moment1, moment2, lr, step, beta1=0.9,
     for name, t in (("grad", grad), ("moment1", moment1),
                     ("moment2", moment2)):
         if t.device != param.device or t.dim() != 1 or t.numel() != n \
-                or not t.is_contiguous() or t.dtype not in _FLOATS:
+                or not t.is_contiguous() or t.dtype not in DTYPES:
             raise ValueError(f"{name} must be a contiguous 1-D float32 or "
                              f"bfloat16 [{n}] on {param.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if param.dim() != 1 or not param.is_contiguous():
         raise ValueError("param must be a contiguous 1-D tensor")
-    if shadow_dtype is not None and shadow_dtype not in _FLOATS:
+    if shadow_dtype is not None and shadow_dtype not in DTYPES:
         raise TypeError(f"shadow_dtype must be float32 or bfloat16, got "
                         f"{shadow_dtype}")
     bc = bias_corrections(step, beta1, beta2, grad_scale, param.device)
     shadow = (torch.empty(n, dtype=shadow_dtype, device=param.device)
               if shadow_dtype is not None else None)
     if n:
-        kernel = _jit()
+        kernel = triton_jit(globals(), "_adamw_kernel")
         with torch.cuda.device(param.device):
             fused_adamw_triton.launches += 1
             kernel[(-(-n // BLOCK),)](

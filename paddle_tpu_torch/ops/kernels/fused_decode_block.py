@@ -55,7 +55,6 @@ __all__ = ["attn_block_ref", "mlp_block_ref", "decode_attn_block_cuda",
 #: dynamic shared memory one block of an H100 may use (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}
 
 _NOT_PORTED_QUANT = "not ported: int8 cache / weight-quant slice"
@@ -181,7 +180,7 @@ def _lib_fn(name, nptr, nint, nfloat, source="fused_decode_block"):
 def _check_common(name, x, tensors, dtype_of):
     if x.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {x.device}")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in _build.DTYPES:
         raise TypeError(f"{name}: x must be float32 or bfloat16, got "
                         f"{x.dtype}")
     for tname, t in tensors.items():
@@ -270,7 +269,7 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                  ws_t.data_ptr(), ws_f.data_ptr(), B, D, H, KV, hd, BS,
                  MB, sin.shape[0], int(bool(residual)), region, smem,
                  float(eps),
-                 1.0 / math.sqrt(hd), _DTYPES[x.dtype], stream)
+                 1.0 / math.sqrt(hd), _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_attn_block launch failed: "
                            + fn.error_string(err).decode())
@@ -309,7 +308,7 @@ def decode_mlp_block_cuda(x, nw, wg, wu, wd, eps=1e-6, residual=True):
         err = fn(x.data_ptr(), nw.data_ptr(), wg.data_ptr(), wu.data_ptr(),
                  wd.data_ptr(), out.data_ptr(), ff_ws.data_ptr(), B, D, F,
                  int(bool(residual)), region, smem, float(eps),
-                 _DTYPES[x.dtype], stream)
+                 _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_mlp_block launch failed: "
                            + fn.error_string(err).decode())

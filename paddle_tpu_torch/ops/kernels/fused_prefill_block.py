@@ -34,6 +34,7 @@ import math
 import torch
 
 from . import fused_decode_block as _fdb
+from ._build import DTYPES
 from .registry import KERNELS
 
 __all__ = ["prefill_attn_block_ref", "prefill_mlp_block_ref",
@@ -184,7 +185,7 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                  v_new.data_ptr(), qkv_ws.data_ptr(), q_ws.data_ptr(),
                  attn_ws.data_ptr(), P, D, H, KV, hd, BS, MB, pos0, n_valid,
                  BQ, int(bool(residual)), region, smem, float(eps),
-                 1.0 / math.sqrt(hd), _fdb._DTYPES[x.dtype], stream)
+                 1.0 / math.sqrt(hd), DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("prefill_attn_block launch failed: "
                            + fn.error_string(err).decode())

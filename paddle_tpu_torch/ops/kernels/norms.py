@@ -1,46 +1,70 @@
-"""RMSNorm: the forward Triton kernel's wrapper, its plain PyTorch version,
-and the differentiable op the training path runs.
+"""RMSNorm: the three Triton kernels' wrappers (forward, backward, and the
+residual add + forward), their plain PyTorch versions, and the
+differentiable ops the training path runs.
 
-Replaces ``paddle_tpu/ops/pallas/norms.py``'s ``_rms_fwd_kernel``
-(launch ``rms_norm_fwd``, reached through ``rms_norm_pallas``): each row
-of ``x [..., D]`` is scaled by the reciprocal root of its mean square,
-computed in f32, cast to x's type, then multiplied by the weight (already
-in x's type at every call site) -- the rounding order of
-:func:`rms_norm_ref`, so kernel and plain version agree to one ulp of
-x's type.
+Replaces three kernels of ``paddle_tpu/ops/pallas/norms.py``:
 
-What bounds it on the H100: memory, ``rows * D * itemsize * 2 + D *
-itemsize`` bytes. At decode shapes (8 x 4096) that is well under a
-microsecond of traffic, so the launch itself dominates; nothing is tuned
-for that here. Design: one program per row with ``BLOCK =
-next_pow2(D)``, so a 4096-wide row is one block held in registers, read
-once and written once.
+- ``_rms_fwd_kernel`` (launch ``rms_norm_fwd``, reached through
+  ``rms_norm_pallas``) by :func:`rms_norm_fwd_triton`: each row of ``x
+  [..., D]`` is scaled by the reciprocal root of its mean square,
+  computed in f32, cast to x's type, then multiplied by the weight
+  (already in x's type at every call site) -- the rounding order of
+  :func:`rms_norm_ref`, so kernel and plain version agree to one ulp of
+  x's type. Bound on the H100: memory, ``rows * D * itemsize * 2``
+  bytes. One program per row with ``BLOCK = next_pow2(D)``: a 4096-wide
+  row is one block held in registers, read once and written once.
+- ``_rms_bwd_kernel`` (launch ``rms_norm_bwd``, ``rms_norm_bwd_pallas``)
+  by :func:`rms_norm_bwd_triton`: ``dx`` per row and ``dw = sum over rows
+  of g * x_hat`` (f32, cast to the weight's type), op for op
+  :func:`rms_bwd_ref`. Bound: memory, x and g read and dx written once
+  (100.7 MB at [4096, 4096] bf16, 0.030 ms). The TPU carries dw through
+  a sequential grid in VMEM; Hopper's blocks run in no order, so each of
+  ``P <= 264`` programs (two per SM) walks rows ``pid, pid + P, ...``,
+  keeps its dw partial in registers and writes it to a ``[P, D]`` f32
+  buffer, and a second Triton kernel sums the partials in program order:
+  no atomics, relaunches are bit-identical. One wrapper call is those two
+  device kernels (one count in ``.launches``); the partials add 2 P D 4
+  bytes (8.7 MB at D = 4096).
+- ``_res_rms_fwd_kernel`` (launch ``residual_rms_norm_fwd``,
+  ``_res_rms_fwd_call``) by :func:`residual_rms_norm_fwd_triton`: ``y = x +
+  delta`` rounded in the model dtype first (the f32 sum cast back, as
+  PyTorch's own add rounds), then the forward norm of that rounded y --
+  the order of :func:`residual_rms_norm_fwd_ref`, so y is bit-equal and h
+  within the forward's bound. Bound: memory, delta and x read, y and h
+  written (134.2 MB at [4096, 4096] bf16, 0.040 ms). One program per row.
 
 Training: :class:`RMSNorm` is the JAX package's ``rms_norm_pallas``
-custom_vjp. Its forward is the kernel on CUDA (the plain version on the
-CPU); its backward is the op ``"rms_norm_bwd"``, resolved through the
-fused-train mode when the forward runs: the JAX package resolves it at
-trace time, and the caller's thread holds the registry pins, which the
-autograd engine's thread does not see. :func:`rms_bwd_ref`
-(``_rms_bwd_ref``: f32 interior, ``dw`` summed over rows and cast to the
-weight's type) is its only variant until the fused-train slice ports the
-``rms_norm_bwd`` kernel, so mode "ref" pins it and "auto" raises on CUDA
-with that reason.
+custom_vjp and :class:`ResidualRMSNorm` its ``_res_rms_vjp``. Their
+forwards are the kernels on CUDA (the plain versions on the CPU); their
+backward is the op ``"rms_norm_bwd"``, resolved through the fused-train
+mode when the forward runs: the JAX package resolves it at trace time,
+and the caller's thread holds the registry pins, which the autograd
+engine's thread does not see. ``"rms_norm_bwd"`` has two variants: the
+kernel (``"cuda_fused"``, CUDA f32/bf16 with ``D <= 16384``; pinned on
+the CPU it runs the plain version, as the Functions do) and the
+composition :func:`rms_bwd_ref` (``"unfused"``, CPU metas; mode "ref"
+pins it on the card). A CUDA meta the kernel refuses raises with its
+reason; the composition never stands in on the card.
 
-Triton is imported when the kernel is first launched, never at import:
+Triton is imported when a kernel is first launched, never at import:
 the CPU tests import this module where Triton is absent.
 """
 from __future__ import annotations
 
 import torch
 
+from ._build import DTYPES, triton_jit
 from .registry import KERNELS, dispatch_fused_variant
 
 __all__ = ["rms_norm_ref", "rms_norm_fwd_triton", "rms_bwd_ref",
-           "rms_bwd_meta", "RMSNorm"]
+           "rms_norm_bwd_triton", "residual_rms_norm_fwd_ref",
+           "residual_rms_norm_fwd_triton", "rms_bwd_meta", "RMSNorm",
+           "ResidualRMSNorm", "MAX_D"]
 
-_kernel = None
-tl = None          # triton.language, bound by _jit() at the first launch
+_kernels = {}
+tl = None          # triton.language, bound by triton_jit at the first launch
+MAX_D = 16384      # a row is one register-resident block
+_BWD_PROGRAMS = 264                  # dw partials: two programs per SM
 
 
 def rms_norm_ref(x, weight, epsilon=1e-6):
@@ -61,30 +85,86 @@ def _rms_fwd_kernel(x_ptr, w_ptr, y_ptr, D, eps, BLOCK: "tl.constexpr"):
     tl.store(y_ptr + row * D + cols, y * w, mask=mask)
 
 
-def _jit():
-    global _kernel, tl
-    if _kernel is None:
-        import triton
-        import triton.language as tl
-        _kernel = triton.jit(_rms_fwd_kernel)
-    return _kernel
+def _rms_bwd_kernel(x_ptr, w_ptr, g_ptr, dx_ptr, part_ptr, rows, D, eps,
+                    BLOCK: "tl.constexpr"):
+    pid = tl.program_id(0)
+    nprog = tl.num_programs(0)
+    cols = tl.arange(0, BLOCK)
+    mask = cols < D
+    wf = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+    dw = tl.zeros([BLOCK], tl.float32)
+    for r in range(pid, rows, nprog):
+        off = r.to(tl.int64) * D + cols
+        x = tl.load(x_ptr + off, mask=mask, other=0.0)
+        xf = x.to(tl.float32)
+        gf = tl.load(g_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        inv = tl.rsqrt(tl.sum(xf * xf, axis=0) / D + eps)
+        xhat = xf * inv
+        gw = gf * wf
+        dx = inv * (gw - xhat * (tl.sum(gw * xhat, axis=0) / D))
+        tl.store(dx_ptr + off, dx.to(x.dtype), mask=mask)
+        dw += gf * xhat
+    tl.store(part_ptr + pid.to(tl.int64) * D + cols, dw, mask=mask)
+
+
+def _sum_rows_kernel(part_ptr, out_ptr, n_rows, D, BLOCK: "tl.constexpr"):
+    """out[c] = sum of part[p, c] over p = 0, 1, ... in that order."""
+    cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    mask = cols < D
+    acc = tl.zeros([BLOCK], tl.float32)
+    for p in range(0, n_rows):
+        acc += tl.load(part_ptr + p * D + cols, mask=mask, other=0.0)
+    tl.store(out_ptr + cols, acc.to(out_ptr.dtype.element_ty), mask=mask)
+
+
+def _res_rms_fwd_kernel(d_ptr, x_ptr, w_ptr, y_ptr, h_ptr, D, eps,
+                        BLOCK: "tl.constexpr"):
+    row = tl.program_id(0).to(tl.int64)
+    cols = tl.arange(0, BLOCK)
+    mask = cols < D
+    x = tl.load(x_ptr + row * D + cols, mask=mask, other=0.0)
+    d = tl.load(d_ptr + row * D + cols, mask=mask, other=0.0)
+    y = (x.to(tl.float32) + d.to(tl.float32)).to(x.dtype)
+    tl.store(y_ptr + row * D + cols, y, mask=mask)
+    yf = y.to(tl.float32)
+    ms = tl.sum(yf * yf, axis=0) / D
+    hn = (yf * tl.rsqrt(ms + eps)).to(x.dtype)
+    w = tl.load(w_ptr + cols, mask=mask, other=0.0)
+    tl.store(h_ptr + row * D + cols, hn * w, mask=mask)
+
+
+def _check_rows(name, x, weight, *more, max_d=None):
+    """Raise unless ``x`` is a CUDA f32/bf16 tensor (with ``D <= max_d``
+    when given), ``weight`` is [D] of x's type, and ``more`` match x."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    D = x.shape[-1]
+    if max_d is not None and D > max_d:
+        raise ValueError(f"{name}: D={D} passes the kernel's {max_d}")
+    if weight.dtype != x.dtype or tuple(weight.shape) != (D,) \
+            or weight.device != x.device:
+        raise ValueError(f"weight must be [{D}] {x.dtype} on {x.device}, "
+                         f"got {tuple(weight.shape)} {weight.dtype} on "
+                         f"{weight.device}")
+    for t in more:
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name}: operand {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device} does not match x "
+                             f"{tuple(x.shape)} {x.dtype}")
+
+
+def _warps(block):
+    return 8 if block >= 2048 else 4
 
 
 def rms_norm_fwd_triton(x, weight, epsilon=1e-6):
     """Launch the Triton kernel over the rows of ``x``. CUDA tensors
     only; raises for anything the kernel does not take. Never falls
     back."""
-    if x.device.type != "cuda":
-        raise ValueError(f"rms_norm_fwd_triton needs a CUDA tensor, got "
-                         f"{x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    _check_rows("rms_norm_fwd_triton", x, weight)
     D = x.shape[-1]
-    if weight.dtype != x.dtype or tuple(weight.shape) != (D,) \
-            or weight.device != x.device:
-        raise ValueError(f"weight must be [{D}] {x.dtype} on {x.device}, "
-                         f"got {tuple(weight.shape)} {weight.dtype} on "
-                         f"{weight.device}")
     import triton
     x2 = x.reshape(-1, D).contiguous()
     w = weight.contiguous()
@@ -92,15 +172,71 @@ def rms_norm_fwd_triton(x, weight, epsilon=1e-6):
     rows = x2.shape[0]
     if rows:
         block = triton.next_power_of_2(D)
-        kernel = _jit()
+        kernel = triton_jit(globals(), "_rms_fwd_kernel")
         with torch.cuda.device(x.device):
             rms_norm_fwd_triton.launches += 1
             kernel[(rows,)](x2, w, y, D, float(epsilon), BLOCK=block,
-                            num_warps=8 if block >= 2048 else 4)
+                            num_warps=_warps(block))
     return y.reshape(x.shape)
 
 
-rms_norm_fwd_triton.launches = 0
+def rms_norm_bwd_triton(x, weight, g, epsilon=1e-6):
+    """Launch the backward kernels: ``(dx, dw)`` as :func:`rms_bwd_ref`
+    (dx in x's type, dw in the weight's). CUDA tensors only, ``weight``
+    in x's type; raises for anything else, never falls back."""
+    _check_rows("rms_norm_bwd_triton", x, weight, g, max_d=MAX_D)
+    import triton
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D).contiguous()
+    g2 = g.reshape(-1, D).contiguous()
+    rows = x2.shape[0]
+    dx = torch.empty_like(x2)
+    dw = torch.empty(D, dtype=weight.dtype, device=x.device)
+    block = triton.next_power_of_2(D)
+    nprog = max(1, min(rows, _BWD_PROGRAMS))
+    part = torch.empty(nprog, D, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rms_norm_bwd_triton.launches += 1
+        triton_jit(globals(), "_rms_bwd_kernel")[(nprog,)](
+            x2, weight.contiguous(), g2, dx, part, rows, D, float(epsilon),
+            BLOCK=block, num_warps=_warps(block))
+        triton_jit(globals(), "_sum_rows_kernel")[(triton.cdiv(D, 1024),)](
+            part, dw, nprog, D, BLOCK=1024, num_warps=4)
+    return dx.reshape(x.shape), dw
+
+
+def residual_rms_norm_fwd_ref(delta, x, weight, epsilon=1e-6):
+    """``(y, h)``: ``y = x + delta`` in x's type, ``h = rms_norm_ref(y)``
+    (the JAX kernel's order: the sum is rounded before its moment)."""
+    y = x + delta
+    return y, rms_norm_ref(y, weight, epsilon)
+
+
+def residual_rms_norm_fwd_triton(delta, x, weight, epsilon=1e-6):
+    """Launch the residual + RMSNorm kernel: ``(y, h)`` as
+    :func:`residual_rms_norm_fwd_ref`. CUDA tensors only; never falls
+    back."""
+    _check_rows("residual_rms_norm_fwd_triton", x, weight, delta,
+                max_d=MAX_D)
+    import triton
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D).contiguous()
+    d2 = delta.reshape(-1, D).contiguous()
+    y, h = torch.empty_like(x2), torch.empty_like(x2)
+    rows = x2.shape[0]
+    if rows:
+        block = triton.next_power_of_2(D)
+        with torch.cuda.device(x.device):
+            residual_rms_norm_fwd_triton.launches += 1
+            triton_jit(globals(), "_res_rms_fwd_kernel")[(rows,)](
+                d2, x2, weight.contiguous(), y, h, D, float(epsilon),
+                BLOCK=block, num_warps=_warps(block))
+    return y.reshape(x.shape), h.reshape(x.shape)
+
+
+for _w in (rms_norm_fwd_triton, rms_norm_bwd_triton,
+           residual_rms_norm_fwd_triton):
+    _w.launches = 0
 
 
 def rms_bwd_ref(epsilon, res, g):
@@ -124,16 +260,46 @@ def rms_bwd_meta(rows, d, dtype, device) -> dict:
             "device": torch.device(device).type}
 
 
-def _supports_plain(meta):
+def supports_cuda(what, width=None):
+    """``supports`` of a kernel variant: CUDA, f32/bf16 and, for a row
+    kernel, ``meta[width] <= MAX_D`` (a row is one block of registers)."""
+    def supports(meta):
+        if meta["device"] != "cuda":
+            return False, f"{what} take CUDA tensors"
+        if meta["dtype"] not in ("torch.float32", "torch.bfloat16"):
+            return False, (f"{what} take float32 and bfloat16, not "
+                           f"{meta['dtype']}")
+        if width is not None and meta[width] > MAX_D:
+            return False, (f"{what} hold a row in one block of registers: "
+                           f"{width}={meta[width]} passes {MAX_D}")
+        return True, what
+    return supports
+
+
+def supports_plain(meta):
+    """The compositions' ``supports``: CPU metas only (on the card the
+    kernel runs or the call raises; mode "ref" pins a composition)."""
     if meta["device"] != "cpu":
-        return False, ("rms_norm_bwd's CUDA kernel is not ported "
-                       "(fused-train slice); the composition runs on the "
-                       "CPU, or on the card when fused_train='ref' pins it")
+        return False, ("the composition is the CPU's route; on the card "
+                       "the kernel runs or the call raises "
+                       "(fused_train='ref' pins the composition)")
     return True, "composition on the CPU"
 
 
+def _rms_bwd_kernel_variant(epsilon, res, g):
+    """The kernel on CUDA tensors, its plain version on CPU ones (as the
+    Functions do)."""
+    x, weight = res
+    if x.device.type == "cpu":
+        return rms_bwd_ref(epsilon, res, g)
+    return rms_norm_bwd_triton(x, weight, g, epsilon)
+
+
+KERNELS.register("rms_norm_bwd", "cuda_fused", _rms_bwd_kernel_variant,
+                 priority=10, supports=supports_cuda(
+                     "the rms_norm_bwd Triton kernels", "d"))
 KERNELS.register("rms_norm_bwd", "unfused", rms_bwd_ref, priority=0,
-                 supports=_supports_plain)
+                 supports=supports_plain)
 
 
 class RMSNorm(torch.autograd.Function):
@@ -157,3 +323,32 @@ class RMSNorm(torch.autograd.Function):
         x, weight = ctx.saved_tensors
         dx, dw = ctx.bwd(ctx.epsilon, (x, weight), g)
         return dx, dw, None, None
+
+
+class ResidualRMSNorm(torch.autograd.Function):
+    """``(y, h) = (x + delta, rms_norm(x + delta))`` with the JAX package's
+    ``_res_rms_vjp``: the forward is the kernel on CUDA (the plain version
+    on the CPU); the backward runs ``"rms_norm_bwd"`` (resolved through
+    ``mode`` when the forward runs) on the saved sum y, then adds the
+    residual cotangent gy once: ``d_delta = dx = dn + gy``."""
+
+    @staticmethod
+    def forward(ctx, delta, x, weight, epsilon, mode):
+        ctx.bwd = dispatch_fused_variant(
+            "rms_norm_bwd",
+            rms_bwd_meta(x.numel() // x.shape[-1], x.shape[-1], x.dtype,
+                         x.device), mode)
+        if x.device.type == "cpu":
+            y, h = residual_rms_norm_fwd_ref(delta, x, weight, epsilon)
+        else:
+            y, h = residual_rms_norm_fwd_triton(delta, x, weight, epsilon)
+        ctx.save_for_backward(y, weight)
+        ctx.epsilon = epsilon
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        y, weight = ctx.saved_tensors
+        dn, dw = ctx.bwd(ctx.epsilon, (y, weight), gh)
+        ds = dn + gy
+        return ds, ds, dw, None, None

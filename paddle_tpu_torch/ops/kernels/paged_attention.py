@@ -25,7 +25,6 @@ from . import _build
 
 __all__ = ["paged_attention_decode_ref", "paged_attention_decode_cuda"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 
 
@@ -78,7 +77,7 @@ def _check(q, k_pool, v_pool, block_tables, seq_lens):
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_attention_decode_cuda needs CUDA tensors, got {q.device}")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _build.DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if t.dtype != q.dtype:
@@ -124,7 +123,7 @@ def paged_attention_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), seq_lens.data_ptr(),
                  out.data_ptr(), B, H, KV, hd, BS, MB, 1.0 / math.sqrt(hd),
-                 _DTYPES[q.dtype], stream)
+                 _build.DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError("paged_attention_decode launch failed: "
                            + fn.error_string(err).decode())

@@ -184,15 +184,9 @@ def fused_train_mode(mode=None) -> str:
 def dispatch_fused_variant(op: str, meta, mode=None):
     """The one fused-training mode contract: ``op`` resolved to a callable
     -- registry dispatch in "auto", the pinned ``"cuda_fused"`` kernel
-    variant for "pallas", the ``"unfused"`` composition for "ref". An op
-    whose kernels are not ported has no ``"cuda_fused"`` variant: a
-    "pallas" pin raises ``NotImplementedError`` naming it."""
+    variant for "pallas", the ``"unfused"`` composition for "ref"."""
     mode = fused_train_mode(mode)
     if mode == "auto":
         return KERNELS.dispatch(op, meta)[1]
-    name = "cuda_fused" if mode == "pallas" else "unfused"
-    if name not in [v.name for v in KERNELS.variants(op)]:
-        raise NotImplementedError(
-            f"fused_train={mode!r} pins {op}'s CUDA kernels, which are not "
-            "ported (fused-train slice)")
-    return KERNELS.variant(op, name).fn
+    return KERNELS.variant(
+        op, "cuda_fused" if mode == "pallas" else "unfused").fn

@@ -1,0 +1,368 @@
+"""PyTorch/CUDA port, the fused-train route on the CPU: each kernel's plain
+version against its JAX Pallas kernel (interpret mode), each
+``torch.autograd.Function`` against ``jax.value_and_grad`` of the JAX
+fused op, and LLaMA's loss and every gradient on the forced fused route
+against the JAX package's ``fused_train="pallas"`` (interpret).
+
+Inputs are made with numpy from a seed and handed to both packages. The
+JAX side runs with x64 off (its Pallas calls are ``no_x64``, which this
+jax cannot enter under x64).
+
+Tolerances, the JAX fused-train tests' own: f32 1e-5 (loss, dx, dh, h,
+the SwiGLU grads), 2e-5 for the residual norm's grads and the RMSNorm
+backward (two means deep), LLaMA's grads 5e-5 + 5e-4 relative. bf16: two
+ulps of the element (relative 2^-6) plus two ulps at 1e-3 of the
+tensor's largest magnitude, never bit equality: the two frameworks round
+bf16 at other places (``jax.nn.sigmoid`` and ``torch.sigmoid`` already
+differ in f32 ulps)."""
+import dataclasses
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from paddle_tpu.models import llama as jllama
+from paddle_tpu.ops.pallas import fused_train as jft
+from paddle_tpu.ops.pallas import norms as jnorms
+from paddle_tpu_torch.models import llama as tllama
+from paddle_tpu_torch.ops import fused_train as tft
+from paddle_tpu_torch.ops.kernels import fused_train as kft
+from paddle_tpu_torch.ops.kernels import norms as tnorms
+from paddle_tpu_torch.ops.kernels.registry import KERNELS
+
+pytestmark = pytest.mark.torch_port
+
+F32 = dict(atol=1e-5, rtol=1e-5)
+F32_RES = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=5e-5, rtol=5e-4)
+EPS = 1e-6
+
+
+@pytest.fixture(autouse=True)
+def no_x64():
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", prev)
+
+
+def _np(t):
+    return np.asarray(t.detach().float()) if isinstance(t, torch.Tensor) \
+        else np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _t(a, dtype=torch.float32, grad=False):
+    return torch.from_numpy(np.asarray(a, np.float32).copy()).to(
+        dtype).requires_grad_(grad)
+
+
+def _j(a, dtype=jnp.float32):
+    return jnp.asarray(np.asarray(a, np.float32)).astype(dtype)
+
+
+def _close(got, want, bf16=False, tol=F32):
+    g, w = _np(got), _np(want)
+    assert g.shape == w.shape
+    if not bf16:
+        np.testing.assert_allclose(g, w, **tol)
+        return
+    scale = np.maximum(np.abs(g), np.abs(w)) + 1e-3 * np.abs(w).max()
+    assert np.all(np.abs(g - w) <= 2.0 ** -6 * scale), \
+        float((np.abs(g - w) / scale).max())
+
+
+def _labels(rng, shape, v, ignore_frac=0.25):
+    """Valid ids mixed with both ignore conventions, -1 and -100."""
+    lab = rng.randint(0, v, shape)
+    drop = rng.rand(*shape) < ignore_frac
+    lab[drop] = np.where(rng.rand(int(drop.sum())) < 0.5, -1, -100)
+    return lab.astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# per launch: each plain version against its Pallas kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape,bf16", [((70, 48), False), ((2, 5, 64), False),
+                                        ((33, 64), True)])
+def test_rms_bwd_ref_matches_pallas_kernel(shape, bf16):
+    rng = np.random.RandomState(len(shape) + bf16)
+    x, g = rng.randn(*shape), rng.randn(*shape)
+    w = 1 + 0.1 * rng.randn(shape[-1])
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+    want = jnorms.rms_norm_bwd_pallas(_j(x, jd), _j(w, jd), _j(g, jd), EPS)
+    got = tnorms.rms_bwd_ref(EPS, (_t(x, td), _t(w, td)), _t(g, td))
+    for a, b in zip(got, want):
+        assert a.dtype == td
+        _close(a, b, bf16, F32_RES)
+
+
+@pytest.mark.parametrize("rows,d,bf16", [(37, 48, False), (16, 64, True)])
+def test_residual_rms_norm_fwd_ref_matches_pallas_kernel(rows, d, bf16):
+    rng = np.random.RandomState(rows)
+    x, delta = rng.randn(rows, d), rng.randn(rows, d)
+    w = 1 + 0.1 * rng.randn(d)
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+    wy, wh = jnorms._res_rms_fwd_call(_j(delta, jd), _j(x, jd), _j(w, jd),
+                                      EPS)
+    gy, gh = tnorms.residual_rms_norm_fwd_ref(_t(delta, td), _t(x, td),
+                                              _t(w, td), EPS)
+    # the sum is rounded once in both frameworks: bit-equal
+    np.testing.assert_array_equal(_np(gy), _np(wy))
+    _close(gh, wh, bf16)
+
+
+@pytest.mark.parametrize("rows,f,bf16", [(16, 256, False), (8, 70, False),
+                                         (16, 128, True)])
+def test_swiglu_refs_match_pallas_kernels(rows, f, bf16):
+    """Rows a multiple of the Pallas call's 8, F whole (70: ragged for
+    every tile the kernels would take)."""
+    rng = np.random.RandomState(f)
+    g, u, d = (rng.randn(rows, f) * 2 for _ in range(3))
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+    want = jft._swiglu_fwd_call(_j(g, jd), _j(u, jd), 8, f)
+    _close(kft.swiglu_fwd_ref(_t(g, td), _t(u, td)), want, bf16)
+    wdg, wdu = jft._swiglu_bwd_call(_j(g, jd), _j(u, jd), _j(d, jd), 8, f)
+    tdg, tdu = kft.swiglu_bwd_ref(_t(g, td), _t(u, td), _t(d, td))
+    assert tdg.dtype == tdu.dtype == td
+    _close(tdg, wdg, bf16)
+    _close(tdu, wdu, bf16)
+
+
+def _ce_inputs(seed, t, d, v, bf16=False, ignore_all=False):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(t, d) * 0.3
+    head = rng.randn(d, v) * 0.1
+    lab = np.full(t, -100, np.int64) if ignore_all else _labels(rng, (t,), v)
+    return x, head, lab
+
+
+def _pallas_ce(x, head, lab, jd, bt=8, bv=128):
+    """The JAX kernels on the padded problem, as ``linear_ce_pallas`` pads
+    it: (lse, pick, dx, dh) of the first T rows and V columns, with coef
+    0.37."""
+    t, v = x.shape[0], head.shape[1]
+    tp, vp = -(-t // bt) * bt, -(-v // bv) * bv
+    x2 = jnp.pad(_j(x, jd), ((0, tp - t), (0, 0)))
+    hp = jnp.pad(_j(head, jd), ((0, 0), (0, vp - v)))
+    lab2 = jnp.asarray(np.pad(lab, (0, tp - t), constant_values=-1),
+                       jnp.int32).reshape(tp, 1)
+    lse, pick = jft._ce_fwd_call(x2, hp, lab2, v, bt, bv)
+    coef = jnp.full((1, 1), 0.37, jnp.float32)
+    dx, dh = jft._ce_bwd_call(x2, hp, lab2, lse, coef, v, bt, bv)
+    return lse[:t, 0], pick[:t, 0], dx[:t], dh[:, :v]
+
+
+@pytest.mark.parametrize("t,d,v,bf16", [(37, 32, 131, False),
+                                        (19, 48, 33, False),
+                                        (26, 32, 97, True)])
+def test_ce_refs_match_pallas_kernels(t, d, v, bf16):
+    """T and V never a tile multiple; the backward refs take the JAX
+    forward's lse, so both sides see the same inputs."""
+    x, head, lab = _ce_inputs(t + v, t, d, v, bf16)
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+    lse, pick, dx, dh = _pallas_ce(x, head, lab, jd)
+    tx, th, tl_ = _t(x, td), _t(head, td), torch.from_numpy(lab)
+    glse, gpick = kft.ce_fwd_ref(tx, th, tl_)
+    _close(glse, lse)
+    _close(gpick, pick)
+    tlse = _t(np.asarray(lse))
+    coef = torch.tensor([0.37])
+    gdx = kft.ce_bwd_dx_ref(tx, th, tl_, tlse, coef)
+    gdh = kft.ce_bwd_dh_ref(tx, th, tl_, tlse, coef)
+    assert gdx.dtype == gdh.dtype == td
+    _close(gdx, dx, bf16)
+    _close(gdh, dh, bf16)
+
+
+# ---------------------------------------------------------------------------
+# per Function: against jax.value_and_grad of the JAX fused ops
+# ---------------------------------------------------------------------------
+def _jax_ce(x, head, lab, jd, lead=None):
+    jl = jnp.asarray(lab, jnp.int32)
+    jx = _j(x, jd)
+    if lead is not None:
+        jx, jl = jx.reshape(*lead, -1), jl.reshape(lead)
+    return jax.value_and_grad(
+        lambda a, h: jft.linear_ce_pallas(a, h, jl, block_t=8, block_v=128),
+        argnums=(0, 1))(jx, _j(head, jd))
+
+
+@pytest.mark.parametrize("case", ["ragged", "all_ignored", "leading",
+                                  "tied", "bf16"])
+def test_linear_ce_function_matches_jax(case):
+    t, d, v = (26, 32, 97) if case == "bf16" else (37, 32, 131)
+    x, head, lab = _ce_inputs(3, t, d, v, ignore_all=case == "all_ignored")
+    bf16 = case == "bf16"
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+    lead = (1, t) if case == "leading" else None
+    want, (wdx, wdh) = _jax_ce(x, head, lab, jd, lead)
+    tx = _t(x, td, grad=True)
+    hx = tx.reshape(*lead, d) if lead else tx
+    tlab = torch.from_numpy(lab).reshape(lead) if lead \
+        else torch.from_numpy(lab)
+    if case == "tied":
+        emb = _t(head.T, td, grad=True)          # [V, D], seen transposed
+        th = emb.T
+    else:
+        emb = th = _t(head, td, grad=True)
+    loss = kft.LinearCE.apply(hx, th, tlab)
+    loss.backward()
+    loss = loss.detach()
+    assert loss.dtype == torch.float32
+    dh = emb.grad.T if case == "tied" else emb.grad
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5,
+                               atol=1e-5)
+    _close(tx.grad, np.asarray(wdx, np.float32).reshape(t, d), bf16)
+    _close(dh, wdh, bf16)
+    if case == "all_ignored":
+        assert float(loss) == 0.0
+        assert not tx.grad.any() and not dh.any()
+
+
+@pytest.mark.parametrize("shape,bf16", [((2, 5, 70), False), ((16, 64), True)])
+def test_swiglu_function_matches_jax(shape, bf16):
+    rng = np.random.RandomState(7)
+    g, u, c = (rng.randn(*shape) * 2 for _ in range(3))
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+    f = shape[-1]
+    want, (wg, wu) = jax.value_and_grad(
+        lambda a, b: jnp.sum(jft.swiglu_pallas(a, b, block_f=f)
+                             .astype(jnp.float32) * _j(c)),
+        argnums=(0, 1))(_j(g, jd), _j(u, jd))
+    tg, tu = _t(g, td, grad=True), _t(u, td, grad=True)
+    out = kft.SwiGLU.apply(tg, tu)
+    _close(out, jft.swiglu_pallas(_j(g, jd), _j(u, jd), block_f=f), bf16)
+    (out.float() * _t(c)).sum().backward()
+    _close(tg.grad, wg, bf16)
+    _close(tu.grad, wu, bf16)
+
+
+@pytest.mark.parametrize("shape,bf16", [((2, 7, 48), False), ((24, 64), True)])
+def test_residual_rms_norm_function_matches_jax(shape, bf16):
+    """The JAX epilogue with its norm backward pinned to the Pallas
+    kernel ("pallas"); the port's with "pallas" too (on the CPU the
+    backward variant runs the plain version)."""
+    rng = np.random.RandomState(9)
+    delta, x, cy, ch = (rng.randn(*shape) for _ in range(4))
+    w = 1 + 0.1 * rng.randn(shape[-1])
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+
+    def jloss(a, b, c):
+        y, h = jnorms.residual_rms_norm_pallas(a, b, c, EPS, "pallas")
+        return jnp.sum(y.astype(jnp.float32) * _j(cy)
+                       + h.astype(jnp.float32) * _j(ch)), (y, h)
+    (_, (wy, wh)), wgrads = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(_j(delta, jd), _j(x, jd),
+                                                 _j(w, jd))
+    leaves = [_t(a, td, grad=True) for a in (delta, x, w)]
+    y, h = tnorms.ResidualRMSNorm.apply(*leaves, EPS, "pallas")
+    (y.float() * _t(cy) + h.float() * _t(ch)).sum().backward()
+    np.testing.assert_array_equal(_np(y), _np(wy))
+    _close(h, wh, bf16)
+    for a, b in zip(leaves, wgrads):
+        _close(a.grad, b, bf16, F32_RES)
+
+
+# ---------------------------------------------------------------------------
+# LLaMA on the forced fused route
+# ---------------------------------------------------------------------------
+def test_llama_loss_and_every_grad_on_the_fused_route_match_jax():
+    """LLAMA_TINY, f32: the port with fused_train="pallas" (every op's
+    "cuda_fused" variant; on the CPU the Functions run the plain versions)
+    against the JAX package's loss_fn with fused_train="pallas" in
+    interpret mode, the oracle of tests/test_fused_train.py; and "auto"
+    on the CPU is the composition route, bit for bit "ref"."""
+    jcfg = dataclasses.replace(jllama.LLAMA_TINY, dtype=jnp.float32,
+                               fused_train="pallas")
+    names = [f.name for f in dataclasses.fields(tllama.LlamaConfig)
+             if f.name not in ("dtype", "fused_train")]
+    tcfg = tllama.LlamaConfig(**{n: getattr(jcfg, n) for n in names},
+                              dtype=torch.float32, fused_train="pallas")
+    jp = jllama.init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
+    rng = np.random.RandomState(11)
+    toks = rng.randint(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
+    lab = _labels(rng, (2, 16), jcfg.vocab_size)
+    want, wgrads = jax.jit(jax.value_and_grad(
+        lambda p: jllama.loss_fn(p, jnp.asarray(toks),
+                                 jnp.asarray(lab, jnp.int32), jcfg)))(jp)
+    wleaves = jax.tree_util.tree_leaves(wgrads)
+
+    def grads(cfg):
+        tp = tllama.params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                    device="cpu")
+        leaves = [v.requires_grad_(True) for v in
+                  _leaves(tp)]
+        loss = tllama.loss_fn(tp, toks, lab, cfg)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    loss, got = grads(tcfg)
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5,
+                               atol=1e-5)
+    assert len(got) == len(wleaves)
+    for a, b in zip(got, wleaves):
+        np.testing.assert_allclose(_np(a), np.asarray(b), **GRAD_TOL)
+    la, ga = grads(dataclasses.replace(tcfg, fused_train=None))
+    lr, gr = grads(dataclasses.replace(tcfg, fused_train="ref"))
+    assert torch.equal(la, lr) and all(torch.equal(a, b)
+                                       for a, b in zip(ga, gr))
+
+
+def _leaves(tree):
+    from paddle_tpu_torch.distributed.trainer import tree_leaves
+    return tree_leaves(tree)
+
+
+def test_forced_variants_run_the_functions_on_the_cpu():
+    """Pinned on the CPU, each op's "cuda_fused" variant is its Function
+    (whose plain versions run for CPU tensors); nothing launches."""
+    from paddle_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    rng = np.random.RandomState(4)
+    h = _t(rng.randn(6, 16), grad=True)
+    head = _t(rng.randn(16, 40) * 0.1, grad=True)
+    lab = torch.tensor([1, -1, 3, 39, -100, 0])
+    loss = tft.fused_linear_ce(h, head, lab, mode="pallas")
+    assert type(loss.grad_fn).__name__ == "LinearCEBackward"
+    g = tft.fused_swiglu(h, h, mode="pallas")
+    assert type(g.grad_fn).__name__ == "SwiGLUBackward"
+    y, n = tft.residual_rms_norm(h, h, _t(np.ones(16)), mode="pallas")
+    assert type(n.grad_fn).__name__ == "ResidualRMSNormBackward"
+    (loss + g.sum() + y.sum() + n.sum()).backward()
+    with KERNELS.force("fused_swiglu", "cuda_fused"):
+        assert type(tft.fused_swiglu(h, h, mode=None).grad_fn).__name__ \
+            == "SwiGLUBackward"
+    assert not any(kernels.launches().values())
+
+
+def test_wrappers_refuse_cpu_tensors():
+    """The kernels' wrappers take CUDA tensors only: nothing falls back."""
+    x = torch.ones(4, 8)
+    w = torch.ones(8)
+    lab = torch.zeros(4, dtype=torch.int64)
+    for call in (lambda: kft.swiglu_fwd_triton(x, x),
+                 lambda: kft.swiglu_bwd_triton(x, x, x),
+                 lambda: kft.linear_ce_fwd_cuda(x, x.T.contiguous(), lab),
+                 lambda: tnorms.rms_norm_bwd_triton(x, w, x),
+                 lambda: tnorms.residual_rms_norm_fwd_triton(x, x, w)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def test_ce_splits_cover_every_vocab_tile():
+    for t, v, blocks in ((4096, 32000, 528), (4096, 32000, 264),
+                         (4095, 32003, 528), (37, 131, 528), (1, 1, 8)):
+        tps, splits = kft.ce_splits(t, v, blocks)
+        nvt = -(-v // kft.BV)
+        assert (splits - 1) * tps < nvt <= splits * tps
+        assert splits * -(-t // kft.BT) <= max(blocks, -(-t // kft.BT))
+    assert kft.ce_splits(4096, 32000, 528) == (32, 8)
+    assert kft.ce_splits(4096, 32000, 264) == (63, 4)

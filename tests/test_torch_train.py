@@ -362,18 +362,29 @@ def test_fused_train_mode_normalisation():
                                               "cuda")),
     ("rms_norm_bwd", tnorms.rms_bwd_meta(4096, 4096, torch.bfloat16,
                                          "cuda"))])
-def test_auto_on_cuda_raises_naming_unported_ops(op, meta):
-    """On a CUDA meta "auto" raises with the registry's reason (the
-    kernels are not ported; the composition never stands in on the
-    card), "pallas" raises everywhere, "ref" pins the composition."""
-    with pytest.raises(RuntimeError, match=r"not ported \(fused-train "
-                                           r"slice\)"):
-        dispatch_fused_variant(op, meta, None)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dispatch_fused_variant(op, dict(meta, device="cpu"), "pallas")
-    assert callable(dispatch_fused_variant(op, meta, "ref"))
-    assert callable(dispatch_fused_variant(op, dict(meta, device="cpu"),
-                                           "auto"))
+def test_auto_on_cuda_dispatches_the_kernels(op, meta):
+    """On a CUDA meta "auto" selects the hand-written kernels
+    ("cuda_fused"); a CUDA meta they refuse (f16; for the row kernels a D
+    past one register-resident block) raises with their reason, the
+    composition never standing in on the card; "pallas" pins the kernels
+    and "ref" the composition on either device; on a CPU meta "auto"
+    gives the composition."""
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    kernel = KERNELS.variant(op, "cuda_fused").fn
+    plain = KERNELS.variant(op, "unfused").fn
+    assert KERNELS.dispatch(op, meta)[0] == "cuda_fused"
+    assert dispatch_fused_variant(op, meta, None) is kernel
+    with pytest.raises(RuntimeError, match="float32 and bfloat16, not "
+                                           "torch.float16"):
+        dispatch_fused_variant(op, dict(meta, dtype="torch.float16"), None)
+    if "d" in meta:
+        with pytest.raises(RuntimeError, match="d=32768 passes 16384"):
+            dispatch_fused_variant(op, dict(meta, d=32768), "auto")
+    for m in (meta, dict(meta, device="cpu")):
+        assert dispatch_fused_variant(op, m, "pallas") is kernel
+        assert dispatch_fused_variant(op, m, "ref") is plain
+    assert dispatch_fused_variant(op, dict(meta, device="cpu"),
+                                  "auto") is plain
 
 
 def test_recomputation_keeps_the_forward_pins(monkeypatch):
