@@ -10,16 +10,22 @@ and prints one JSON line per phase; a phase that fails raises, so the
 script exits non-zero:
 
 1. GPU: the card's name and power limit, as ``nvidia-smi`` prints them.
-2. kernels: every kernel of both routes against its plain version on the
-   card, at the routes' shapes (LLaMA-7B widths, 8 slots, chunks of 32
-   and 128 rows), with its time (L2 flushed before every launch), its
-   plain version's time, the time of one PyTorch library call computing
-   the same function where there is one, and its bound. The two fused
-   decode-block kernels run at KV=32 and KV=8, in f32 and bf16, with
-   lengths 0/1/15/16/17/1151, a ragged F for the MLP, 20 and 32 slots
-   (more than one pass of 8 rows; dispatch must pick the kernels there
-   too), and two launches that must agree bit for bit; decode_mlp_block
-   also at 32 and 128 rows (the prefill MLP). prefill_attn_block runs at
+2. kernels: every kernel of the serving routes against its plain version
+   on the card, at the routes' shapes (LLaMA-7B widths, 8 slots, chunks
+   of 32 and 128 rows), with its time (L2 flushed before every launch),
+   its plain version's time, the time of one PyTorch library call
+   computing the same function where there is one, and its bound. The
+   three fused decode-block kernels (decode_attn_block, decode_mlp_block
+   and the single-launch decode_block_fused) run at KV=32 and KV=8, in
+   f32 and bf16, with lengths 0/1/15/16/17/1151, a ragged F for the MLP,
+   20 and 32 slots (more than one pass of 8 rows; dispatch must pick the
+   kernels there too), and two launches that must agree bit for bit;
+   decode_block_fused also against the two-stage kernels in f32, and
+   timed beside the two-stage pair on the same inputs; decode_mlp_block
+   also at 32 and 128 rows (the prefill MLP). layer_norm_fwd, which no
+   runtime route launches (as in the JAX package), at the JAX kernel
+   catalog's 24 x 128 and 4096 x 1024 f32 and at [4095, 1024] bf16,
+   timed at 4096 x 1024 beside F.layer_norm. prefill_attn_block runs at
    KV=32 and 8, f32 and bf16, P=32 and 128, permuted tables and (pos0,
    n_valid) = (0, P), (0, 1), (0, P-3), (5, P-3), (16, P), (600, 21 at
    P=32, 77 at P=128): the real rows against the plain version, every row
@@ -30,29 +36,34 @@ script exits non-zero:
    weight cast to bf16), alone and through ``RMSNorm``'s autograd, and is
    timed there too.
 3. parity: LLaMA-7B widths, 2 layers, f32: greedy tokens for 5 requests
-   through 2 slots from the engine on its default route (fused prefill
-   and fused decode) and on the unfused route, each against the port's
-   dense ``generate``.
+   through 2 slots from the engine on its default route (fused prefill,
+   the single-launch decode kernel), on the two-stage decode route
+   (``fused_decode="pallas"``) and on the unfused route, each against
+   the port's dense ``generate``.
 4. serving (the main path): LLaMA-7B, 32 layers, bf16, random weights
    from a seeded ``torch.Generator`` on the card: 12 requests of 40-600
    prompt tokens and 64 new tokens each through 8 slots, on the default
    route (``fused_decode`` and ``fused_prefill`` "auto"). The launch
    counts are set to 0 just before and read just after:
-   prefill_attn_block once per layer per prefill chunk, decode_attn_block
-   once per layer per decode step, decode_mlp_block once per layer per
-   step and per chunk, paged attention never, RMSNorm once per decode
-   step and once per chunk (the final norms).
+   prefill_attn_block once per layer per prefill chunk,
+   decode_block_fused once per layer per decode step, decode_attn_block
+   never, decode_mlp_block once per layer per chunk (the prefill MLP),
+   paged attention never, RMSNorm once per decode step and once per chunk
+   (the final norms).
 5. profile of that engine: 8 requests of 384 prompt tokens; the first
    two chunks of the first one (alone on the engine) traced with
    torch.profiler (device time per chunk by kernel group), every later
    chunk timed with CUDA events (ms per chunk by bucket); then a window
    of decode steps with all 8 slots live, timed, then traced: device
    time per step by kernel group and the card's busy share.
-6. serving and profile again on the unfused route (``fused_decode=False,
-   fused_prefill=False``, same parameters and requests): paged attention
-   once per layer per decode step, RMSNorm 2L+1 times per decode step and
-   per chunk, the prefill and decode-block kernels never.
-7. routes: the bf16 greedy ids of both routes and of dense bf16
+6. serving and profile again on the two-stage decode route
+   (``fused_decode="pallas"``, same parameters and requests):
+   decode_attn_block once per layer per decode step, decode_mlp_block
+   once per layer per step and per chunk, decode_block_fused never; and
+   on the unfused route (``fused_decode=False, fused_prefill=False``):
+   paged attention once per layer per decode step, RMSNorm 2L+1 times per
+   decode step and per chunk, the prefill and decode-block kernels never.
+7. routes: the bf16 greedy ids of the three routes and of dense bf16
    ``generate`` on the same requests, compared pairwise (common prefix
    lengths, and the top-2 logit gap of dense bf16 logits at each first
    divergence). Informational: bf16 routes round at other places.
@@ -96,9 +107,9 @@ script exits non-zero:
    kernel group and the busy share. Then the same on the "ref" route
    (RMSNorm 4L + 1 a step, the fused-train kernels never).
 
-Then the ``kernels`` summary line (each kernel's launches from the
-serving phase of the route that runs it, or from the default route's
-train phase) and,
+Then the ``kernels`` summary line, 18 rows (each kernel's launches from
+the serving phase of the route that runs it, from the default route's
+train phase, or, for layer_norm_fwd, from its own phase) and,
 last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
 prints no result. It imports nothing of JAX or of ``paddle_tpu``.
 """
@@ -213,10 +224,20 @@ def build_kernels():
           "nvcc_s": round(t_nvcc, 3),
           "libraries": {n: str(_build.library_path(n).relative_to(root))
                         for n in CUDA_SOURCES},
-          "ptxas": {n: [ln.strip() for ln in _build.library_path(n)
-                        .with_suffix(".log").read_text().splitlines()
-                        if "registers" in ln or "spill" in ln]
+          "ptxas": {n: _ptxas(_build.library_path(n).with_suffix(".log"))
                     for n in CUDA_SOURCES}})
+
+
+def _ptxas(log):
+    """ptxas's registers and spills of each kernel in a build log, under
+    the kernel's (mangled) name."""
+    out, fn = {}, None
+    for ln in log.read_text().splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif fn and ("registers" in ln or "spill" in ln):
+            out.setdefault(fn, []).append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def rms_phase(gpu):
@@ -647,6 +668,183 @@ def fused_mlp_phase(gpu):
     return row
 
 
+def block_bytes(lens, D, H, KV, hd, F, BS, item):
+    """Bytes one decode_block_fused launch must move: decode_attn_block's
+    (every attention weight, the live K/V rows, x in, x_out, k_new and
+    v_new out, rope rows, lengths and table entries) plus the three MLP
+    weight matrices and the post-norm weight. The f32 residual between
+    the halves is the kernel's own traffic, not the function's."""
+    return attn_bytes(lens, D, H, KV, hd, BS, item) + (3 * D * F + D) * item
+
+
+def block_inputs(gen, dt, KV, F, rope, B):
+    """decode_block_fused's arguments: fused_attn_inputs' with the
+    post-norm and MLP weights at ``F`` spliced in after wo."""
+    import torch
+    a = fused_attn_inputs(gen, dt, KV, rope, B)
+    pw = (1 + 0.1 * torch.randn(D7, generator=gen, device="cuda")).to(dt)
+    wg, wu = (torch.randn(D7, F, generator=gen, device="cuda") * 0.02
+              ).to(dt), (torch.randn(D7, F, generator=gen, device="cuda")
+                         * 0.02).to(dt)
+    wd = (torch.randn(F, D7, generator=gen, device="cuda") * 0.02).to(dt)
+    return (*a[:6], pw, wg, wu, wd, *a[6:])
+
+
+def block_phase(gpu):
+    """decode_block_fused against decode_block_ref (its plain version: the
+    attention through the RMSNorm and paged-attention kernels, cuBLAS
+    products, the JAX block kernel's f32 residual) on the card, over the
+    two-stage kernels' cases: KV=32 and 8, f32 and bf16, lengths
+    0/1/15/16/17/1151 and random, F=11008 and an F no tile width divides
+    (11000 bf16, 11012 f32), 8, 20 and 32 slots. Bounds as the two-stage
+    kernels' (x_out f32 atol=rtol=1e-4, k_new/v_new 1e-5; bf16 two ulps,
+    bf16_close); two launches bit for bit; dispatch must pick the kernel.
+    In f32 also against decode_block_composed on the card (the
+    decode_attn_block and decode_mlp_block kernels): f32 rounds nowhere
+    between the halves, so the two routes differ by summation order only
+    (1e-4). Timed at B 8, 7B widths, bf16, beside its bound, its plain
+    version and the two-stage pair on the same inputs."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rope = build_rope_cache(4096, HD7, device="cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases, max_err, timed = [], 0.0, None
+    for dt, KV, B, F in ((bf16, 32, B8, F7), (f32, 32, B8, F7),
+                         (bf16, 8, B8, F7), (f32, 8, B8, F7),
+                         (bf16, 32, 32, F7), (f32, 8, 20, F7),
+                         (bf16, 32, B8, 11000), (f32, 8, B8, 11012)):
+        args = block_inputs(gen, dt, KV, F, rope, B)
+        meta = fdb.decode_meta_dims(B, D7, H7, KV, HD7, F, BS16, MB72, dt,
+                                    dt, False)
+        picked = KERNELS.dispatch("decode_block_fused", meta)[0]
+        got = fdb.decode_block_fused_cuda(*args)
+        again = fdb.decode_block_fused_cuda(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        outs = {}
+        want = fdb.decode_block_ref(*args)    # writes the new token's K/V
+        if dt == f32:
+            composed = fdb.decode_block_composed(*args)
+            torch.cuda.synchronize()
+            outs["x_out_vs_composed"] = _check_case(
+                "x_out", got[0], composed[0], dt, 1e-4)
+        torch.cuda.synchronize()
+        for nm, g, w, tol in (("x_out", got[0], want[0], 1e-4),
+                              ("k_new", got[1], want[1], 1e-5),
+                              ("v_new", got[2], want[2], 1e-5)):
+            outs[nm] = _check_case(nm, g, w, dt, tol)
+        max_err = max([max_err] + [outs[k]["max_abs_err"]
+                                   for k in ("x_out", "k_new", "v_new")])
+        case = {"dtype": str(dt)[6:], "KV": KV, "B": B, "F": F,
+                "seq_lens": args[15].tolist(), "outputs": outs,
+                "bitwise_repeatable": same, "dispatch": picked,
+                "smem_bytes": fdb.block_smem_bytes(
+                    D7, H7, KV, HD7, BS16, args[0].element_size()),
+                "ok": same and picked == "cuda_block"
+                and all(o["ok"] for o in outs.values())}
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "kernel", "kernel": "decode_block_fused",
+                  "gpu": gpu, "cases": cases})
+            raise AssertionError(f"decode_block_fused disagrees: {case}")
+        if dt == bf16 and KV == H7 and B == B8 and F == F7:
+            timed = args
+    (x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos, kp, vp, tables,
+     lens) = timed
+    lens = lens.tolist()
+    b_ms, b_by = bound(block_bytes(lens, D7, H7, H7, HD7, F7, BS16, 2),
+                       attn_ops(lens, D7, H7, H7, HD7) + 6 * B8 * D7 * F7,
+                       "bfloat16")
+    attn_args = (x, nw, wq, wk, wv, wo, sin, cos, kp, vp, tables, timed[15])
+
+    def two_stage():
+        xo, _, _ = fdb.decode_attn_block_cuda(*attn_args)
+        return fdb.decode_mlp_block_cuda(xo, pw, wg, wu, wd)
+    row = {"name": "decode_block_fused", "route": "cuda",
+           "source": FUSED_SOURCE,
+           "replaces": "paddle_tpu/ops/pallas/fused_decode_block.py:1021",
+           "shape": {"B": B8, "D": D7, "H": H7, "KV": H7, "hd": HD7,
+                     "F": F7, "BS": BS16, "MB": MB72, "seq_lens": lens},
+           "dtype": "bfloat16", "max_abs_err": max_err,
+           "ms": cold_ms(lambda: fdb.decode_block_fused_cuda(*timed)),
+           "plain_ms": cold_ms(lambda: fdb.decode_block_ref(*timed)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "library": "none: no single PyTorch call computes the layer",
+           "two_stage_ms": cold_ms(two_stage), "ok": True}
+    emit({"phase": "kernel", "kernel": "decode_block_fused", "gpu": gpu,
+          "cases": cases, "ms": row["ms"], "two_stage_ms": row["two_stage_ms"],
+          "bound_ms": b_ms})
+    return row
+
+
+LN_CASES = (((24, 128), "float32"), ((4096, 1024), "float32"),
+            ((4095, 1024), "bfloat16"))
+
+
+def layer_norm_phase(gpu):
+    """layer_norm_fwd against layer_norm_ref on the card at the JAX kernel
+    catalog's two shapes (24 x 128 and 4096 x 1024 f32) and a ragged bf16
+    one: f32 atol=rtol=1e-5 (sums in another order; the kernel may fuse
+    the weight multiply and the bias add), bf16 by bf16_close; two
+    launches bit for bit. No runtime route launches it (as in the JAX
+    package), so its launches are this phase's. Timed at 4096 x 1024 f32
+    beside its bound, its plain version and F.layer_norm."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels.norms import (layer_norm_fwd_triton,
+                                                    layer_norm_ref)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    eps = 1e-5
+    cases, max_err, timed = [], 0.0, None
+    layer_norm_fwd_triton.launches = 0
+    for shape, dname in LN_CASES:
+        dt = getattr(torch, dname)
+        D = shape[-1]
+        x = (torch.randn(*shape, generator=gen, device="cuda") * 2
+             + 0.5).to(dt)
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dt)
+        b = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(dt)
+        got = layer_norm_fwd_triton(x, w, b, eps)
+        again = layer_norm_fwd_triton(x, w, b, eps)
+        want = layer_norm_ref(x, w, b, eps)
+        torch.cuda.synchronize()
+        case = {"shape": list(shape), **_check_case("y", got, want, dt, 1e-5),
+                "bitwise_repeatable": bool(torch.equal(got, again))}
+        case["dtype"] = dname
+        case["ok"] = case["ok"] and case["bitwise_repeatable"]
+        cases.append(case)
+        max_err = max(max_err, case["max_abs_err"])
+        if not case["ok"]:
+            emit({"phase": "kernel", "kernel": "layer_norm_fwd", "gpu": gpu,
+                  "cases": cases})
+            raise AssertionError(f"layer_norm_fwd disagrees: {case}")
+        if shape == (4096, 1024):
+            timed = (x, w, b)
+    launches = layer_norm_fwd_triton.launches
+    x, w, b = timed
+    n = x.numel()
+    b_ms, b_by = bound((2 * n + 2 * x.shape[1]) * 4, 8 * n, "float32")
+    row = {"name": "layer_norm_fwd", "route": "triton", "source": RMS_SOURCE,
+           "replaces": "paddle_tpu/ops/pallas/norms.py:347",
+           "shape": list(x.shape), "dtype": "float32",
+           "max_abs_err": max_err,
+           "ms": cold_ms(lambda: layer_norm_fwd_triton(x, w, b, eps)),
+           "plain_ms": cold_ms(lambda: layer_norm_ref(x, w, b, eps)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cold_ms(lambda: F.layer_norm(x, (x.shape[1],), w, b,
+                                                      eps)),
+           "library": "torch.nn.functional.layer_norm",
+           "launches": launches, "ok": True}
+    emit({"phase": "kernel", "kernel": "layer_norm_fwd", "gpu": gpu,
+          "cases": cases, "launches": launches})
+    return row
+
+
 def prefill_bytes(P, n, pos0, D, H, KV, hd, BS, item):
     """Bytes one prefill_attn_block launch must move: the four weight
     matrices and the norm weight, the real rows of x in and every row of
@@ -790,13 +988,21 @@ def prefill_timing(fpb, F, args):
                 q, kd, vd, attn_mask=mask))}
 
 
+# the serving routes: the engine's knobs for each
+ROUTES = {"default": {"fused_decode": None, "fused_prefill": None},
+          "two_stage": {"fused_decode": "pallas", "fused_prefill": None},
+          "unfused": {"fused_decode": False, "fused_prefill": False}}
+
+
 def parity_phase(gpu):
     """Route parity, f32 at LLaMA-7B widths with 2 layers: the engine on
-    its default route (the prefill and decode-block CUDA kernels) and on
-    the unfused route (paged-attention and RMSNorm kernels, the verbatim
-    prefill chunk), each against the port's dense ``generate``. Tokens
-    must be equal, or the first divergence must sit on a near tie (top-2
-    logit gap < 1e-4)."""
+    its default route (the prefill kernel, decode_mlp_block as the prefill
+    MLP, the single-launch decode_block_fused kernel), on the two-stage
+    decode route (``fused_decode="pallas"``: decode_attn_block and
+    decode_mlp_block) and on the unfused route (paged-attention and
+    RMSNorm kernels, the verbatim prefill chunk), each against the port's
+    dense ``generate``. Tokens must be equal, or the first divergence must
+    sit on a near tie (top-2 logit gap < 1e-4)."""
     import dataclasses
     import torch
     from paddle_tpu_torch.inference import (GenerationConfig,
@@ -818,10 +1024,10 @@ def parity_phase(gpu):
                       )[0, S:].tolist()
              for p, (S, N) in zip(prompts, specs)]
     routes = {}
-    for route, fused in (("fused", None), ("unfused", False)):
+    for route, knobs in ROUTES.items():
         eng = ServingEngine(params, cfg, capacity=2, block_size=16,
                             max_seq_len=512, prefill_buckets=(32, 128),
-                            fused_decode=fused, fused_prefill=fused)
+                            **knobs)
         reqs = [eng.submit(p, GenerationConfig(max_new_tokens=N,
                                                greedy=True))
                 for p, (_, N) in zip(prompts, specs)]
@@ -844,13 +1050,18 @@ def parity_phase(gpu):
                          "prefill_variant": eng.prefill_variant,
                          "requests": results,
                          "tokens": [r.tokens for r in reqs]}
-    routes["fused_equals_unfused"] = (routes["fused"]["tokens"]
-                                      == routes["unfused"]["tokens"])
+    for route in ("two_stage", "unfused"):
+        routes[f"default_equals_{route}"] = (routes["default"]["tokens"]
+                                             == routes[route]["tokens"])
     emit({"phase": "parity", "gpu": gpu, "dtype": "float32", "layers": 2,
           **{k: ({kk: vv for kk, vv in v.items() if kk != "tokens"}
                  if isinstance(v, dict) else v) for k, v in routes.items()}})
-    _check_default_route(routes["fused"], "parity engine")
-    for route in ("fused", "unfused"):
+    _check_default_route(routes["default"], "parity engine")
+    if routes["two_stage"]["decode_variant"]["attn"] != "cuda_fused":
+        raise AssertionError("the two-stage parity engine is not on the "
+                             "decode_attn_block kernel: "
+                             f"{routes['two_stage']['decode_variant']}")
+    for route in ROUTES:
         for res in routes[route]["requests"]:
             if not res["match"] and res["top2_logit_gap"] >= 1e-4:
                 raise AssertionError(
@@ -858,15 +1069,15 @@ def parity_phase(gpu):
 
 
 DEFAULT_ROUTE = {
-    "decode_variant": {"mode": "auto", "block": "composed",
-                       "attn": "cuda_fused", "mlp": "cuda_fused"},
+    "decode_variant": {"mode": "auto", "block": "cuda_block",
+                       "attn": "cuda_block", "mlp": "cuda_block"},
     "prefill_variant": {"mode": "auto", "attn": "cuda_fused",
                         "mlp": "cuda_fused"}}
 
 
 def _check_default_route(variants, what):
     """The engine's default route must run the CUDA kernels for both the
-    prefill chunk and the decode step."""
+    prefill chunk and the decode step (the single-launch kernel)."""
     got = {k: variants[k] for k in DEFAULT_ROUTE}
     if got != DEFAULT_ROUTE:
         raise AssertionError(f"{what} is not on the CUDA kernels: {got}")
@@ -875,10 +1086,11 @@ def _check_default_route(variants, what):
 SERVE_REQUESTS, SERVE_NEW = 12, 64
 
 
-def serving_phase(gpu, params, fused):
-    """LLaMA-7B at full depth, bf16, 8 slots, 12 requests, on the default
-    route (``fused`` None: both knobs left at their default) or the
-    unfused one (``fused`` False: ``fused_decode=False,
+def serving_phase(gpu, params, route):
+    """LLaMA-7B at full depth, bf16, 8 slots, 12 requests, on one of
+    ``ROUTES``: the default (both knobs left at their default: the
+    single-launch decode kernel), the two-stage decode route
+    (``fused_decode="pallas"``) or the unfused one (``fused_decode=False,
     fused_prefill=False``). The launch counts are set to 0 just before
     the requests go in and read just after the engine drains."""
     import torch
@@ -889,7 +1101,7 @@ def serving_phase(gpu, params, fused):
     L = cfg.num_hidden_layers
     eng = ServingEngine(params, cfg, capacity=8, block_size=16,
                         max_seq_len=1024, prefill_buckets=(32, 128),
-                        fused_decode=fused, fused_prefill=fused)
+                        **ROUTES[route])
     rng = np.random.default_rng(0)
     lens = rng.integers(40, 601, SERVE_REQUESTS)
     gen = GenerationConfig(max_new_tokens=SERVE_NEW, greedy=True)
@@ -906,7 +1118,6 @@ def serving_phase(gpu, params, fused):
     counts = kernels.launches()
     m = eng.metrics()
     steps, chunks = m["decode_steps"], m["prefill_chunks"]
-    route = "fused" if fused is None else "unfused"
     emit({"phase": "serving", "route": route, "gpu": gpu,
           "model": "LLAMA_7B", "layers": L, "dtype": "bfloat16",
           "requests": len(reqs), "prompt_tokens": [int(n) for n in lens],
@@ -920,6 +1131,7 @@ def serving_phase(gpu, params, fused):
           "decode_step_ms_mean": m["decode_step_ms_mean"],
           "decode_steps": steps, "prefill_chunks": chunks,
           "slot_utilization": m["slot_utilization"],
+          "roofline": m["roofline"],
           "launches": counts,
           "peak_memory_gb": round(torch.cuda.max_memory_allocated()
                                   / 2 ** 30, 3)})
@@ -929,17 +1141,23 @@ def serving_phase(gpu, params, fused):
                                  f"{len(r.tokens)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"request {r.req_id}: token out of range")
-    if route == "fused":
-        # the prefill MLP is decode_mlp_block over the chunk's rows; the
-        # final norm of every chunk and step is the RMSNorm kernel
+    # the prefill MLP is decode_mlp_block over the chunk's rows; the final
+    # norm of every chunk and step is the RMSNorm kernel
+    if route == "default":
         want = {"prefill_attn_block": L * chunks,
+                "decode_block_fused": L * steps, "decode_attn_block": 0,
+                "decode_mlp_block": L * chunks,
+                "paged_attention_decode": 0, "rms_norm_fwd": steps + chunks}
+        _check_default_route(m, "main path")
+    elif route == "two_stage":
+        want = {"prefill_attn_block": L * chunks, "decode_block_fused": 0,
                 "decode_attn_block": L * steps,
                 "decode_mlp_block": L * (steps + chunks),
                 "paged_attention_decode": 0, "rms_norm_fwd": steps + chunks}
-        _check_default_route(m, "main path")
     else:
-        want = {"prefill_attn_block": 0, "decode_attn_block": 0,
-                "decode_mlp_block": 0, "paged_attention_decode": L * steps,
+        want = {"prefill_attn_block": 0, "decode_block_fused": 0,
+                "decode_attn_block": 0, "decode_mlp_block": 0,
+                "paged_attention_decode": L * steps,
                 "rms_norm_fwd": (2 * L + 1) * (steps + chunks)}
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"{route} launches {counts} != {want} "
@@ -948,7 +1166,7 @@ def serving_phase(gpu, params, fused):
 
 
 def routes_phase(gpu, params, prompts, routes):
-    """The bf16 greedy ids of the two engine routes and of dense bf16
+    """The bf16 greedy ids of the three engine routes and of dense bf16
     ``generate`` on the serving phase's requests, compared pairwise: the
     common prefix of each request and, at each first divergence, the
     top-2 gap of dense bf16 logits on the common prefix (with the top
@@ -976,8 +1194,8 @@ def routes_phase(gpu, params, prompts, routes):
         return float(top2[0] - top2[1]), float(top2[0])
 
     pairs = {}
-    for a, b in (("fused", "unfused"), ("unfused", "dense"),
-                 ("fused", "dense")):
+    for a, b in (("default", "two_stage"), ("two_stage", "unfused"),
+                 ("unfused", "dense"), ("default", "dense")):
         rows = []
         for p, ta, tb in zip(prompts, routes[a], routes[b]):
             j = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
@@ -999,10 +1217,11 @@ def routes_phase(gpu, params, prompts, routes):
 
 def _kernel_group(name):
     for op in ("prefill_attn_block", "decode_attn_block", "decode_mlp_block",
-               "paged_attention_decode"):
+               "decode_block_fused", "paged_attention_decode"):
         if op in name:
             return op
     for part, op in (("res_rms_fwd", "residual_rms_norm_fwd"),
+                     ("ln_fwd", "layer_norm_fwd"),
                      ("rms_fwd", "rms_norm_fwd"),
                      ("rms_bwd", "rms_norm_bwd"),
                      ("sum_rows", "rms_norm_bwd"),
@@ -1173,6 +1392,9 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
         "decode_mlp_block": lambda ls: (
             3 * cfg.hidden_size * cfg.intermediate_size
             + (2 * eng.capacity + 1) * cfg.hidden_size) * item,
+        "decode_block_fused": lambda ls: block_bytes(
+            ls + [0] * (eng.capacity - len(ls)), cfg.hidden_size, H, KV, hd,
+            cfg.intermediate_size, eng.block_size, item),
     }
     for op, model in byte_models.items():
         ms, n = groups.get(op, [0.0, 0.0])
@@ -2083,7 +2305,8 @@ def main():
     gpu = gpu_line()
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
-            fused_mlp_phase(gpu), prefill_attn_phase(gpu)]
+            fused_mlp_phase(gpu), block_phase(gpu), prefill_attn_phase(gpu)]
+    ln_row = layer_norm_phase(gpu)
     train_rows = flash_phase(gpu) + [adamw_phase(gpu,
                                                  flat_size(train_config()))]
     train_rows += fused_train_phase(gpu)
@@ -2092,25 +2315,29 @@ def main():
     ref_counts, _ = train_phase(gpu, "ref")
     parity_phase(gpu)
     params = init_params(LLAMA_7B, seed=0)
-    fused_counts, eng, prompts, fused_tokens = serving_phase(gpu, params,
-                                                             None)
-    profile_phase(gpu, eng, "fused")
-    del eng
-    unfused_counts, eng, _, unfused_tokens = serving_phase(gpu, params,
-                                                           False)
-    profile_phase(gpu, eng, "unfused")
-    del eng
-    routes_phase(gpu, params, prompts,
-                 {"fused": fused_tokens, "unfused": unfused_tokens})
+    counts, tokens = {}, {}
+    prompts = None
+    for route in ROUTES:
+        counts[route], eng, prompts, tokens[route] = serving_phase(
+            gpu, params, route)
+        profile_phase(gpu, eng, route)
+        del eng
+    routes_phase(gpu, params, prompts, tokens)
+    # each kernel's launches on the serving phase of the route that runs
+    # it: paged attention on the unfused route, decode_attn_block on the
+    # two-stage route, the rest (RMSNorm runs on every route) on the
+    # default route, the main path
+    home = {"paged_attention_decode": "unfused",
+            "decode_attn_block": "two_stage"}
     for row in rows:
-        # each kernel's launches on the serving phase of the route that
-        # runs it (RMSNorm runs on both; the main path's count is kept)
-        counts = (unfused_counts if row["name"] == "paged_attention_decode"
-                  else fused_counts)
-        row["launches"] = counts[row["name"]]
+        row["launches"] = counts[home.get(row["name"], "default")][
+            row["name"]]
+        if row["name"] == "decode_mlp_block":
+            row["two_stage_launches"] = counts["two_stage"][row["name"]]
         if row["name"] == "rms_norm_fwd":
             row["train_launches"] = train_counts["rms_norm_fwd"]
             row["ref_train_launches"] = ref_counts["rms_norm_fwd"]
+    rows.append(ln_row)
     for row in train_rows:
         # the training kernels' launches on the default route's timed
         # steps (the main path), and on the "ref" route's

@@ -232,15 +232,18 @@ __device__ void tile_sums_staged(const T* A_t, int K, T* a_s, int kc_max,
 
 // h_t[k*8 + r] = T(T(x * rsqrt(mean(x^2) + eps)) * nw) for row b = 8p + r
 // of pass p, zeros for rows past B; f32 statistics: ops/kernels/norms.py's
-// rounding order. The 8 rows are read together (8 loads in flight a
-// thread) and reduced in one block-wide step. Synchronises the block.
-template <typename T>
-__device__ void rms_pass(const T* __restrict__ x, const T* __restrict__ nw,
+// rounding order. x is in T, or f32 (the single-launch block kernel's
+// residual, written by other blocks of the same launch: so x is not read
+// through the read-only cache). The 8 rows are read together (8 loads in
+// flight a thread) and reduced in one block-wide step. Synchronises the
+// block.
+template <typename T, typename In>
+__device__ void rms_pass(const In* x, const T* __restrict__ nw,
                          T* h_t, int p, int B, int D, float eps,
                          float* red_s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nr = min(kRB, B - p * kRB);
-  const T* xp = x + (size_t)p * kRB * D;
+  const In* xp = x + (size_t)p * kRB * D;
   __syncthreads();   // earlier readers of h_t and red_s are done
   float ss[kRB];
 #pragma unroll
@@ -295,12 +298,12 @@ __device__ void rms_pass(const T* __restrict__ x, const T* __restrict__ nw,
 
 // Makes pass p's normalised rows the ones in h_t, unless they are already
 // (``*held`` names the pass h_t holds, -1 for none). Block-uniform.
-template <typename T>
-__device__ __forceinline__ void hold_pass(const T* x, const T* nw, T* h_t,
+template <typename T, typename In>
+__device__ __forceinline__ void hold_pass(const In* x, const T* nw, T* h_t,
                                           int p, int* held, int B, int D,
                                           float eps, float* red_s) {
   if (*held == p) return;
-  rms_pass<T>(x, nw, h_t, p, B, D, eps, red_s);
+  rms_pass<T, In>(x, nw, h_t, p, B, D, eps, red_s);
   *held = p;
 }
 

@@ -1,5 +1,6 @@
 // Fused decode-block kernels for Hopper (sm_90a): one launch for the
-// attention half of a LLaMA decoder layer, one for its MLP half.
+// attention half of a LLaMA decoder layer, one for its MLP half, and one
+// for the whole layer.
 //
 // decode_attn_block replaces paddle_tpu/ops/pallas/fused_decode_block.py's
 // fused_attn_block_pallas (body _attn_block_kernel, launch
@@ -13,10 +14,21 @@
 // decode_mlp_block replaces fused_mlp_block_pallas (body _mlp_block_kernel,
 // launch "decode_mlp_block"):
 //   x [B, D], nw [D], wg/wu [D, F], wd [F, D] -> x + down(silu(g) * u).
-// T is float or __nv_bfloat16. Both follow the rounding order of the plain
-// versions (ops/kernels/fused_decode_block.py): RMSNorm in f32, cast to T
-// before the weight multiply; every product lands in T; RoPE in f32 on the
-// T projection; silu(g)*u in T; the residual add in T.
+// decode_block_fused replaces fused_decode_block_pallas (body
+// _block_fused_kernel, launch "decode_block_fused"): both halves in one
+// launch, (x, nw, wq, wk, wv, wo, pw, wg, wu, wd, ...) -> (x_out, k_new,
+// v_new), the attention-to-MLP residual kept in f32.
+// T is float or __nv_bfloat16. The two-stage kernels follow the rounding
+// order of their plain versions (ops/kernels/fused_decode_block.py:
+// attn_block_ref, mlp_block_ref): RMSNorm in f32, cast to T before the
+// weight multiply; every product lands in T; RoPE in f32 on the T
+// projection; silu(g)*u in T; the residual add in T. The single-launch
+// kernel follows decode_block_ref, the JAX kernel's rounding points: the
+// attention half as above up to the T attention rows; then o_proj summed
+// and kept in f32, resid = f32(x) + o (f32), the post-norm read from that
+// f32 row, gate and up f32 sums cast to T, silu(g)*u in T, down summed in
+// f32 over all of F, x_out = T(resid + down). So it is a roundoff-level
+// variant of the two-stage route, not a bit-identical one.
 //
 // What bounds them on the H100: memory. At B=8 a layer reads 134 MB
 // (attention, 7B bf16) and 270 MB (MLP) of weights for ~2 flops a byte,
@@ -38,6 +50,16 @@
 //   MLP:       RMSNorm | gate/up by F tiles (a ragged last tile is
 //              masked), silu(g)*u -> workspace (T) | grid sync | down by
 //              output column tiles over all of F, + x.
+//   block:     the attention phases, o_proj + x into an f32 residual
+//              workspace [B, D] | grid sync | the MLP phases over the
+//              RMSNorm of that f32 row, down + the f32 residual -> T.
+// The three kernels run the same phase bodies (the __device__ functions
+// below). On the TPU the block kernel's residual lives in VMEM for the
+// whole launch; here blocks split the columns, so it crosses blocks
+// through device memory (128 KB at B=8, which stays in the 50 MB L2). What
+// the single launch saves against decode_attn_block + decode_mlp_block is
+// one launch and one drain of the grid per layer, not bytes: both routes
+// read every weight once.
 // Every product is block_products.cuh's tile routine over passes of 8
 // rows. Only one pass of normalised rows is resident, so shared memory
 // does not grow with B; a block normalises pass p again for each of its
@@ -45,11 +67,13 @@
 // atomics touch any sum, so two launches give identical bits. The tile
 // width is picked per phase from the grid so the busiest block has the
 // fewest columns. Not done yet (later work): tensor-core products,
-// cp.async/TMA pipelining of the weight stream.
+// cp.async/TMA pipelining of the weight stream, and a multi-layer form
+// over thread-block clusters.
 //
 // Shared memory, sized by the wrapper (ops/kernels/fused_decode_block.py,
 // the one definition of the sizes) and passed in, is carved as
-// block_products.cuh describes.
+// block_products.cuh describes; the block kernel's is the attention
+// kernel's layout, the larger of its two halves.
 #include "block_products.cuh"
 
 namespace paddle_tpu_torch {
@@ -75,168 +99,189 @@ struct AttnArgs {
   size_t region;
 };
 
+struct MlpArgs {
+  const void* x;       // T; the f32 residual in the block kernel
+  const void *nw, *wg, *wu, *wd;
+  void *out, *ff_ws;   // T: [P][F][8]
+  int B, D, F, residual;
+  float eps;
+  size_t region;
+};
+
+// The single-launch kernel: the attention half writes resid (f32 [B][D])
+// in place of x_out; the MLP half reads it as its x (mlp.x == resid) and
+// writes x_out (mlp.out).
+struct BlockArgs {
+  AttnArgs attn;
+  MlpArgs mlp;
+  float* resid;
+};
+
+// 1. q/k/v products by column tiles of the three matrices, rows in T,
+// over the RMSNorm of each pass of rows (k-major in shared memory)
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-decode_attn_block_kernel(const AttnArgs a) {
+__device__ void attn_qkv_phase(const AttnArgs& a, unsigned char* smem) {
   constexpr int V = Vec<T>::n;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int B = a.B, D = a.D, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
+  const int B = a.B, D = a.D, H = a.H, KV = a.KV, hd = a.hd;
   const int tid = threadIdx.x;
-  const int groups = H / KV, hd2 = hd / 2, NS = splits(a.MB);
   const int nq = H * hd, nkv = KV * hd, ncols = nq + 2 * nkv;
   T* region = reinterpret_cast<T*>(smem);
   float* red_s = reinterpret_cast<float*>(smem + a.region);
   float* res_s = red_s + kWarps * kMaxLpr * V * kRB;
   T* qkv = static_cast<T*>(a.qkv_ws);
-  T* attn_t = static_cast<T*>(a.attn_ws);
-  cg::grid_group grid = cg::this_grid();
-
-  // 1. q/k/v products by column tiles of the three matrices, rows in T,
-  // over the RMSNorm of each pass of rows (k-major in shared memory)
-  {
-    const int lpr = pick_lpr(ncols, V), tc = lpr * V;
-    const int tq = (nq + tc - 1) / tc, tk = (nkv + tc - 1) / tc;
-    int held = -1;
-    for (int t = blockIdx.x; t < tq + 2 * tk; t += gridDim.x) {
-      const T* W;
-      int col0, n, base;
-      if (t < tq) {
-        W = static_cast<const T*>(a.wq); col0 = t * tc; n = nq; base = 0;
-      } else if (t < tq + tk) {
-        W = static_cast<const T*>(a.wk); col0 = (t - tq) * tc; n = nkv;
-        base = nq;
-      } else {
-        W = static_cast<const T*>(a.wv); col0 = (t - tq - tk) * tc; n = nkv;
-        base = nq + nkv;
-      }
-      for (int p = 0; p < passes(B); ++p) {
-        hold_pass<T>(static_cast<const T*>(a.x), static_cast<const T*>(a.nw),
-                     region, p, &held, B, D, a.eps, red_s);
-        float acc[kRB][V];
-        zero<T>(acc);
-        tile_accumulate<T>(acc, region, W, n, D, col0, n, lpr);
-        tile_reduce<T>(acc, red_s, res_s, lpr);
-        for (int i = tid; i < tc * kRB; i += kThreads) {
-          const int c = col0 + i / kRB, b = p * kRB + i % kRB;
-          if (b < B && c < n)
-            qkv[(size_t)b * ncols + base + c] = from_float<T>(res_s[i]);
-        }
-        __syncthreads();
-      }
+  const int lpr = pick_lpr(ncols, V), tc = lpr * V;
+  const int tq = (nq + tc - 1) / tc, tk = (nkv + tc - 1) / tc;
+  int held = -1;
+  for (int t = blockIdx.x; t < tq + 2 * tk; t += gridDim.x) {
+    const T* W;
+    int col0, n, base;
+    if (t < tq) {
+      W = static_cast<const T*>(a.wq); col0 = t * tc; n = nq; base = 0;
+    } else if (t < tq + tk) {
+      W = static_cast<const T*>(a.wk); col0 = (t - tq) * tc; n = nkv;
+      base = nq;
+    } else {
+      W = static_cast<const T*>(a.wv); col0 = (t - tq - tk) * tc; n = nkv;
+      base = nq + nkv;
     }
-  }
-  grid.sync();
-
-  // 2. attention over 8-page chunks of each (sequence, KV head), 4 pages
-  // a step; chunk 0 also makes the new token's k/v and score
-  {
-    const int SB = kPagesPerStep * BS;   // tokens a step
-    float* q_s = reinterpret_cast<float*>(smem);   // [groups][hd]
-    float* acc = q_s + groups * hd;                 // [groups][hd]
-    float* s = acc + groups * hd;                   // [groups][SB]
-    float* m = s + groups * SB;                     // [groups]
-    float* l = m + groups;
-    float* alpha = l + groups;
-    float* kn_s = alpha + groups;                   // [hd]
-    T* k_s = reinterpret_cast<T*>(q_s + attn_scratch_floats(groups, hd, BS));
-    T* v_s = k_s + SB * hd;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int row_vecs = hd / V;
-    for (int item = blockIdx.x; item < NS * B * KV; item += gridDim.x) {
-      const int kvh = item % KV, b = (item / KV) % B, sp = item / (KV * B);
-      const int seq_len = a.seq_lens[b];
-      const int n_pages = min((seq_len + BS - 1) / BS, a.MB);   // 0 if 0
-      const int p0 = sp * kSplitPages;
-      const int p1 = min(p0 + kSplitPages, n_pages);
-      if (sp > 0 && p0 >= n_pages) continue;   // block-uniform
-      const int pos = min(max(seq_len, 0), a.rope_rows - 1);
-      const float* sn = a.sin + (size_t)pos * hd2;
-      const float* cs = a.cos + (size_t)pos * hd2;
-      const T* row = qkv + (size_t)b * ncols;
-      const T* qr = row + (size_t)kvh * groups * hd;
-      for (int i = tid; i < groups * hd; i += kThreads) {
-        const int g = i / hd, d = i - g * hd;
-        q_s[i] = round_t<T>(rope_at<T>(qr + g * hd, d, hd2, sn, cs));
-        acc[i] = 0.f;
-      }
-      for (int g = tid; g < groups; g += kThreads) {
-        m[g] = -CUDART_INF_F;
-        l[g] = 0.f;
-      }
-      if (sp == 0) {
-        const T* kr = row + nq + (size_t)kvh * hd;
-        const T* vr = row + nq + nkv + (size_t)kvh * hd;
-        const size_t kv_off = ((size_t)b * KV + kvh) * hd;
-        for (int d = tid; d < hd; d += kThreads) {
-          const T kt = from_float<T>(rope_at<T>(kr, d, hd2, sn, cs));
-          static_cast<T*>(a.k_new)[kv_off + d] = kt;
-          static_cast<T*>(a.v_new)[kv_off + d] = vr[d];
-          kn_s[d] = to_float(kt);   // the pool holds T: T -> pool -> f32
-        }
-        __syncthreads();
-        for (int g = warp; g < groups; g += kWarps) {
-          float dot = 0.f;
-          for (int d = lane; d < hd; d += 32) dot += q_s[g * hd + d] * kn_s[d];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          if (lane == 0) a.s_new[b * H + kvh * groups + g] = dot * a.scale;
-        }
-      }
-      const int* table = a.tables + (size_t)b * a.MB;
-      for (int pg = p0; pg < p1; pg += kPagesPerStep) {
-        __syncthreads();
-        // pages past the chunk's last live page are clamped to it and
-        // masked by seq_len (the chunk's page count is a multiple of the
-        // step except where the sequence ends)
-        // four K and four V vectors in flight per thread before any store
-        const int nvec = SB * row_vecs;
-        for (int i0 = tid; i0 < nvec; i0 += 4 * kThreads) {
-          uint4 kk[4], vv[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int i = i0 + u * kThreads;
-            if (i < nvec) {
-              const int t = i / row_vecs, c = i - t * row_vecs;
-              const size_t page =
-                  (size_t)table[clamped_page_index(seq_len, BS, pg + t / BS)];
-              const size_t off =
-                  ((page * BS + t % BS) * KV + kvh) * hd + (size_t)c * V;
-              kk[u] = *reinterpret_cast<const uint4*>(
-                  static_cast<const T*>(a.k_pool) + off);
-              vv[u] = *reinterpret_cast<const uint4*>(
-                  static_cast<const T*>(a.v_pool) + off);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int i = i0 + u * kThreads;
-            if (i < nvec) {
-              reinterpret_cast<uint4*>(k_s)[i] = kk[u];
-              reinterpret_cast<uint4*>(v_s)[i] = vv[u];
-            }
-          }
-        }
-        __syncthreads();
-        online_softmax_page_update<T>(q_s, k_s, v_s, pg / kPagesPerStep, SB,
-                                      seq_len, a.scale, groups, hd, s, m, l,
-                                      alpha, acc);
+    for (int p = 0; p < passes(B); ++p) {
+      hold_pass<T>(static_cast<const T*>(a.x), static_cast<const T*>(a.nw),
+                   region, p, &held, B, D, a.eps, red_s);
+      float acc[kRB][V];
+      zero<T>(acc);
+      tile_accumulate<T>(acc, region, W, n, D, col0, n, lpr);
+      tile_reduce<T>(acc, red_s, res_s, lpr);
+      for (int i = tid; i < tc * kRB; i += kThreads) {
+        const int c = col0 + i / kRB, b = p * kRB + i % kRB;
+        if (b < B && c < n)
+          qkv[(size_t)b * ncols + base + c] = from_float<T>(res_s[i]);
       }
       __syncthreads();
-      const size_t pidx = (((size_t)b * KV + kvh) * NS + sp) * groups;
-      for (int i = tid; i < groups * hd; i += kThreads)
-        a.part_acc[pidx * hd + i] = acc[i];
-      for (int g = tid; g < groups; g += kThreads) {
-        a.part_m[pidx + g] = m[g];
-        a.part_l[pidx + g] = l[g];
-      }
-      __syncthreads();   // the next item reuses the scratch
     }
   }
-  grid.sync();
+}
 
-  // 3. per (sequence, KV head): the chunks' partials and the new token
-  // (always unmasked, so l > 0) combined in chunk order
+// 2. attention over 8-page chunks of each (sequence, KV head), 4 pages a
+// step; chunk 0 also makes the new token's k/v and score
+template <typename T>
+__device__ void attn_pages_phase(const AttnArgs& a, unsigned char* smem) {
+  constexpr int V = Vec<T>::n;
+  const int B = a.B, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
+  const int tid = threadIdx.x;
+  const int groups = H / KV, hd2 = hd / 2, NS = splits(a.MB);
+  const int nq = H * hd, nkv = KV * hd, ncols = nq + 2 * nkv;
+  const T* qkv = static_cast<const T*>(a.qkv_ws);
+  const int SB = kPagesPerStep * BS;   // tokens a step
+  float* q_s = reinterpret_cast<float*>(smem);   // [groups][hd]
+  float* acc = q_s + groups * hd;                 // [groups][hd]
+  float* s = acc + groups * hd;                   // [groups][SB]
+  float* m = s + groups * SB;                     // [groups]
+  float* l = m + groups;
+  float* alpha = l + groups;
+  float* kn_s = alpha + groups;                   // [hd]
+  T* k_s = reinterpret_cast<T*>(q_s + attn_scratch_floats(groups, hd, BS));
+  T* v_s = k_s + SB * hd;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int row_vecs = hd / V;
+  for (int item = blockIdx.x; item < NS * B * KV; item += gridDim.x) {
+    const int kvh = item % KV, b = (item / KV) % B, sp = item / (KV * B);
+    const int seq_len = a.seq_lens[b];
+    const int n_pages = min((seq_len + BS - 1) / BS, a.MB);   // 0 if 0
+    const int p0 = sp * kSplitPages;
+    const int p1 = min(p0 + kSplitPages, n_pages);
+    if (sp > 0 && p0 >= n_pages) continue;   // block-uniform
+    const int pos = min(max(seq_len, 0), a.rope_rows - 1);
+    const float* sn = a.sin + (size_t)pos * hd2;
+    const float* cs = a.cos + (size_t)pos * hd2;
+    const T* row = qkv + (size_t)b * ncols;
+    const T* qr = row + (size_t)kvh * groups * hd;
+    for (int i = tid; i < groups * hd; i += kThreads) {
+      const int g = i / hd, d = i - g * hd;
+      q_s[i] = round_t<T>(rope_at<T>(qr + g * hd, d, hd2, sn, cs));
+      acc[i] = 0.f;
+    }
+    for (int g = tid; g < groups; g += kThreads) {
+      m[g] = -CUDART_INF_F;
+      l[g] = 0.f;
+    }
+    if (sp == 0) {
+      const T* kr = row + nq + (size_t)kvh * hd;
+      const T* vr = row + nq + nkv + (size_t)kvh * hd;
+      const size_t kv_off = ((size_t)b * KV + kvh) * hd;
+      for (int d = tid; d < hd; d += kThreads) {
+        const T kt = from_float<T>(rope_at<T>(kr, d, hd2, sn, cs));
+        static_cast<T*>(a.k_new)[kv_off + d] = kt;
+        static_cast<T*>(a.v_new)[kv_off + d] = vr[d];
+        kn_s[d] = to_float(kt);   // the pool holds T: T -> pool -> f32
+      }
+      __syncthreads();
+      for (int g = warp; g < groups; g += kWarps) {
+        float dot = 0.f;
+        for (int d = lane; d < hd; d += 32) dot += q_s[g * hd + d] * kn_s[d];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (lane == 0) a.s_new[b * H + kvh * groups + g] = dot * a.scale;
+      }
+    }
+    const int* table = a.tables + (size_t)b * a.MB;
+    for (int pg = p0; pg < p1; pg += kPagesPerStep) {
+      __syncthreads();
+      // pages past the chunk's last live page are clamped to it and
+      // masked by seq_len (the chunk's page count is a multiple of the
+      // step except where the sequence ends)
+      // four K and four V vectors in flight per thread before any store
+      const int nvec = SB * row_vecs;
+      for (int i0 = tid; i0 < nvec; i0 += 4 * kThreads) {
+        uint4 kk[4], vv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * kThreads;
+          if (i < nvec) {
+            const int t = i / row_vecs, c = i - t * row_vecs;
+            const size_t page =
+                (size_t)table[clamped_page_index(seq_len, BS, pg + t / BS)];
+            const size_t off =
+                ((page * BS + t % BS) * KV + kvh) * hd + (size_t)c * V;
+            kk[u] = *reinterpret_cast<const uint4*>(
+                static_cast<const T*>(a.k_pool) + off);
+            vv[u] = *reinterpret_cast<const uint4*>(
+                static_cast<const T*>(a.v_pool) + off);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * kThreads;
+          if (i < nvec) {
+            reinterpret_cast<uint4*>(k_s)[i] = kk[u];
+            reinterpret_cast<uint4*>(v_s)[i] = vv[u];
+          }
+        }
+      }
+      __syncthreads();
+      online_softmax_page_update<T>(q_s, k_s, v_s, pg / kPagesPerStep, SB,
+                                    seq_len, a.scale, groups, hd, s, m, l,
+                                    alpha, acc);
+    }
+    __syncthreads();
+    const size_t pidx = (((size_t)b * KV + kvh) * NS + sp) * groups;
+    for (int i = tid; i < groups * hd; i += kThreads)
+      a.part_acc[pidx * hd + i] = acc[i];
+    for (int g = tid; g < groups; g += kThreads) {
+      a.part_m[pidx + g] = m[g];
+      a.part_l[pidx + g] = l[g];
+    }
+    __syncthreads();   // the next item reuses the scratch
+  }
+}
+
+// 3. per (sequence, KV head): the chunks' partials and the new token
+// (always unmasked, so l > 0) combined in chunk order
+template <typename T>
+__device__ void attn_combine_phase(const AttnArgs& a) {
+  const int B = a.B, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
+  const int groups = H / KV, NS = splits(a.MB), nq = H * hd;
+  T* attn_t = static_cast<T*>(a.attn_ws);
   for (int item = blockIdx.x; item < B * KV; item += gridDim.x) {
     const int b = item / KV, kvh = item - b * KV;
     const int seq_len = a.seq_lens[b];
@@ -244,7 +289,7 @@ decode_attn_block_kernel(const AttnArgs a) {
     const int ns = (n_pages + kSplitPages - 1) / kSplitPages;
     const size_t pbase = ((size_t)b * KV + kvh) * NS;
     const T* vnew = static_cast<const T*>(a.v_new) + ((size_t)b * KV + kvh) * hd;
-    for (int i = tid; i < groups * hd; i += kThreads) {
+    for (int i = threadIdx.x; i < groups * hd; i += kThreads) {
       const int g = i / hd, d = i - g * hd;
       const float snew = a.s_new[b * H + kvh * groups + g];
       float mx = snew;
@@ -263,47 +308,54 @@ decode_attn_block_kernel(const AttnArgs a) {
           from_float<T>(o / l);
     }
   }
-  grid.sync();
+}
 
-  // 4. o_proj by column tiles of D, then the residual add in T
-  {
-    const int lpr = pick_lpr(D, V), tc = lpr * V;
-    const int kc_max = min(nq, (int)(a.region / (sizeof(T) * kRB)));
-    const T* x = static_cast<const T*>(a.x);
-    T* xo = static_cast<T*>(a.x_out);
-    const int tiles = (D + tc - 1) / tc;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      for (int p = 0; p < passes(B); ++p) {
-        tile_sums_staged<T>(attn_t + (size_t)p * nq * kRB, nq, region, kc_max,
-                            static_cast<const T*>(a.wo), D, t * tc, D,
-                            min(kRB, B - p * kRB), lpr, red_s, res_s);
-        for (int i = tid; i < tc * kRB; i += kThreads) {
-          const int c = t * tc + i / kRB, b = p * kRB + i % kRB;
-          if (b < B && c < D) {
-            const size_t o = (size_t)b * D + c;
+// 4. o_proj by column tiles of D. The two-stage kernel rounds o to T and
+// adds x in T (x_out); the block kernel keeps o in f32 and writes
+// resid = f32(x) + o.
+template <typename T, bool kF32Resid>
+__device__ void o_proj_phase(const AttnArgs& a, unsigned char* smem,
+                             float* resid) {
+  constexpr int V = Vec<T>::n;
+  const int B = a.B, D = a.D, nq = a.H * a.hd;
+  const int tid = threadIdx.x;
+  T* region = reinterpret_cast<T*>(smem);
+  float* red_s = reinterpret_cast<float*>(smem + a.region);
+  float* res_s = red_s + kWarps * kMaxLpr * V * kRB;
+  const T* attn_t = static_cast<const T*>(a.attn_ws);
+  const int lpr = pick_lpr(D, V), tc = lpr * V;
+  const int kc_max = min(nq, (int)(a.region / (sizeof(T) * kRB)));
+  const T* x = static_cast<const T*>(a.x);
+  T* xo = static_cast<T*>(a.x_out);
+  const int tiles = (D + tc - 1) / tc;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int p = 0; p < passes(B); ++p) {
+      tile_sums_staged<T>(attn_t + (size_t)p * nq * kRB, nq, region, kc_max,
+                          static_cast<const T*>(a.wo), D, t * tc, D,
+                          min(kRB, B - p * kRB), lpr, red_s, res_s);
+      for (int i = tid; i < tc * kRB; i += kThreads) {
+        const int c = t * tc + i / kRB, b = p * kRB + i % kRB;
+        if (b < B && c < D) {
+          const size_t o = (size_t)b * D + c;
+          if constexpr (kF32Resid) {
+            resid[o] = to_float(x[o]) + res_s[i];
+          } else {
             const float d = round_t<T>(res_s[i]);
             xo[o] = from_float<T>(a.residual ? to_float(x[o]) + d : d);
           }
         }
-        __syncthreads();
       }
+      __syncthreads();
     }
   }
 }
 
-struct MlpArgs {
-  const void *x, *nw, *wg, *wu, *wd;
-  void *out, *ff_ws;   // T: [P][F][8]
-  int B, D, F, residual;
-  float eps;
-  size_t region;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-decode_mlp_block_kernel(const MlpArgs a) {
+// MLP 1. gate and up by F tiles (the last one masked) over the RMSNorm of
+// each pass of rows of x (In: T, or the block kernel's f32 residual;
+// k-major in shared memory), silu(g)*u in T
+template <typename T, typename In>
+__device__ void mlp_up_phase(const MlpArgs& a, unsigned char* smem) {
   constexpr int V = Vec<T>::n;
-  extern __shared__ __align__(16) unsigned char smem[];
   const int B = a.B, D = a.D, F = a.F;
   const int tid = threadIdx.x;
   T* region = reinterpret_cast<T*>(smem);
@@ -311,68 +363,151 @@ decode_mlp_block_kernel(const MlpArgs a) {
   float* res_g = red_s + kWarps * kMaxLpr * V * kRB;
   float* res_u = res_g + kMaxLpr * V * kRB;
   T* ff_t = static_cast<T*>(a.ff_ws);
-  const T* x = static_cast<const T*>(a.x);
-  cg::grid_group grid = cg::this_grid();
-
-  // 1. gate and up by F tiles (the last one masked) over the RMSNorm of
-  // each pass of rows (k-major in shared memory), silu(g)*u in T
-  {
-    const int lpr = pick_lpr(F, V), tc = lpr * V;
-    const int tiles = (F + tc - 1) / tc;
-    int held = -1;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int col0 = t * tc;
-      for (int p = 0; p < passes(B); ++p) {
-        hold_pass<T>(x, static_cast<const T*>(a.nw), region, p, &held, B, D,
-                     a.eps, red_s);
-        const T* h = region;
-        float acc[kRB][V];
-        zero<T>(acc);
-        tile_accumulate<T>(acc, h, static_cast<const T*>(a.wg), F, D, col0, F,
-                           lpr);
-        tile_reduce<T>(acc, red_s, res_g, lpr);
-        zero<T>(acc);
-        tile_accumulate<T>(acc, h, static_cast<const T*>(a.wu), F, D, col0, F,
-                           lpr);
-        tile_reduce<T>(acc, red_s, res_u, lpr);
-        for (int i = tid; i < tc * kRB; i += kThreads) {
-          const int c = col0 + i / kRB, b = p * kRB + i % kRB;
-          if (b < B && c < F) {
-            const float g = round_t<T>(res_g[i]), u = round_t<T>(res_u[i]);
-            const float sg = round_t<T>(g / (1.f + expf(-g)));
-            ff_t[((size_t)p * F + c) * kRB + i % kRB] =
-                from_float<T>(__fmul_rn(sg, u));
-          }
+  const In* x = static_cast<const In*>(a.x);
+  const int lpr = pick_lpr(F, V), tc = lpr * V;
+  const int tiles = (F + tc - 1) / tc;
+  int held = -1;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int col0 = t * tc;
+    for (int p = 0; p < passes(B); ++p) {
+      hold_pass<T, In>(x, static_cast<const T*>(a.nw), region, p, &held, B,
+                       D, a.eps, red_s);
+      const T* h = region;
+      float acc[kRB][V];
+      zero<T>(acc);
+      tile_accumulate<T>(acc, h, static_cast<const T*>(a.wg), F, D, col0, F,
+                         lpr);
+      tile_reduce<T>(acc, red_s, res_g, lpr);
+      zero<T>(acc);
+      tile_accumulate<T>(acc, h, static_cast<const T*>(a.wu), F, D, col0, F,
+                         lpr);
+      tile_reduce<T>(acc, red_s, res_u, lpr);
+      for (int i = tid; i < tc * kRB; i += kThreads) {
+        const int c = col0 + i / kRB, b = p * kRB + i % kRB;
+        if (b < B && c < F) {
+          const float g = round_t<T>(res_g[i]), u = round_t<T>(res_u[i]);
+          const float sg = round_t<T>(g / (1.f + expf(-g)));
+          ff_t[((size_t)p * F + c) * kRB + i % kRB] =
+              from_float<T>(__fmul_rn(sg, u));
         }
-        __syncthreads();
       }
+      __syncthreads();
     }
   }
-  grid.sync();
+}
 
-  // 2. down by column tiles of D over all of F, then the residual add
-  {
-    const int lpr = pick_lpr(D, V), tc = lpr * V;
-    const int kc_max = min(F, (int)(a.region / (sizeof(T) * kRB)));
-    T* out = static_cast<T*>(a.out);
-    const int tiles = (D + tc - 1) / tc;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      for (int p = 0; p < passes(B); ++p) {
-        tile_sums_staged<T>(ff_t + (size_t)p * F * kRB, F, region, kc_max,
-                            static_cast<const T*>(a.wd), D, t * tc, D,
-                            min(kRB, B - p * kRB), lpr, red_s, res_g);
-        for (int i = tid; i < tc * kRB; i += kThreads) {
-          const int c = t * tc + i / kRB, b = p * kRB + i % kRB;
-          if (b < B && c < D) {
-            const size_t o = (size_t)b * D + c;
+// MLP 2. down by column tiles of D over all of F, then the residual: the
+// two-stage kernel rounds down to T and adds x in T; the block kernel adds
+// the f32 sum to its f32 residual (x) and rounds once.
+template <typename T, bool kF32Resid>
+__device__ void mlp_down_phase(const MlpArgs& a, unsigned char* smem) {
+  constexpr int V = Vec<T>::n;
+  const int B = a.B, D = a.D, F = a.F;
+  const int tid = threadIdx.x;
+  T* region = reinterpret_cast<T*>(smem);
+  float* red_s = reinterpret_cast<float*>(smem + a.region);
+  float* res_g = red_s + kWarps * kMaxLpr * V * kRB;
+  const T* ff_t = static_cast<const T*>(a.ff_ws);
+  const int lpr = pick_lpr(D, V), tc = lpr * V;
+  const int kc_max = min(F, (int)(a.region / (sizeof(T) * kRB)));
+  T* out = static_cast<T*>(a.out);
+  const int tiles = (D + tc - 1) / tc;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int p = 0; p < passes(B); ++p) {
+      tile_sums_staged<T>(ff_t + (size_t)p * F * kRB, F, region, kc_max,
+                          static_cast<const T*>(a.wd), D, t * tc, D,
+                          min(kRB, B - p * kRB), lpr, red_s, res_g);
+      for (int i = tid; i < tc * kRB; i += kThreads) {
+        const int c = t * tc + i / kRB, b = p * kRB + i % kRB;
+        if (b < B && c < D) {
+          const size_t o = (size_t)b * D + c;
+          if constexpr (kF32Resid) {
+            out[o] = from_float<T>(static_cast<const float*>(a.x)[o] +
+                                   res_g[i]);
+          } else {
             const float d = round_t<T>(res_g[i]);
-            out[o] = from_float<T>(a.residual ? to_float(x[o]) + d : d);
+            const float xv = to_float(static_cast<const T*>(a.x)[o]);
+            out[o] = from_float<T>(a.residual ? xv + d : d);
           }
         }
-        __syncthreads();
       }
+      __syncthreads();
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+decode_attn_block_kernel(const AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  attn_qkv_phase<T>(a, smem);
+  grid.sync();
+  attn_pages_phase<T>(a, smem);
+  grid.sync();
+  attn_combine_phase<T>(a);
+  grid.sync();
+  o_proj_phase<T, false>(a, smem, nullptr);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+decode_mlp_block_kernel(const MlpArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  mlp_up_phase<T, T>(a, smem);
+  grid.sync();
+  mlp_down_phase<T, false>(a, smem);
+}
+
+// One block an SM: under __launch_bounds__(kThreads, 2) (128 registers)
+// the merged phases spill 288 B a thread and the gate/up phase slows by
+// ~18% (NVIDIA H100, bf16, 7B widths); with one block an SM nothing
+// spills (234 registers) and each phase runs at the two-stage kernels'
+// pace. The grid is sized from this kernel's own occupancy.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+decode_block_fused_kernel(const BlockArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  attn_qkv_phase<T>(a.attn, smem);
+  grid.sync();
+  attn_pages_phase<T>(a.attn, smem);
+  grid.sync();
+  attn_combine_phase<T>(a.attn);
+  grid.sync();
+  o_proj_phase<T, true>(a.attn, smem, a.resid);
+  grid.sync();
+  mlp_up_phase<T, float>(a.mlp, smem);
+  grid.sync();
+  mlp_down_phase<T, true>(a.mlp, smem);
+}
+
+// The attention half's arguments, the workspaces carved from ws_t (T):
+// qkv [B][(H+2KV)*hd], then the attention rows [P][H*hd][8] at an offset
+// rounded up to 8 elements; and from ws_f (f32): part_m, part_l
+// [B*H*splits] each, part_acc [B*H*splits*hd], s_new [B*H].
+inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
+                          const void* wk, const void* wv, const void* wo,
+                          const void* sin, const void* cos,
+                          const void* k_pool, const void* v_pool,
+                          const void* tables, const void* seq_lens,
+                          void* x_out, void* k_new, void* v_new, void* ws_t,
+                          void* ws_f, int B, int D, int H, int KV, int hd,
+                          int BS, int MB, int rope_rows, int residual,
+                          int region, float eps, float scale, int item) {
+  const size_t n_qkv = ((size_t)B * (H + 2 * KV) * hd + 7) / 8 * 8;
+  const size_t n_part = (size_t)B * H * splits(MB);
+  float* f = static_cast<float*>(ws_f);
+  return AttnArgs{x, nw, wq, wk, wv, wo,
+                  static_cast<const float*>(sin),
+                  static_cast<const float*>(cos), k_pool, v_pool,
+                  static_cast<const int*>(tables),
+                  static_cast<const int*>(seq_lens), x_out, k_new, v_new,
+                  ws_t, static_cast<char*>(ws_t) + n_qkv * item, f,
+                  f + n_part, f + 2 * n_part, f + 2 * n_part + n_part * hd,
+                  B, D, H, KV, hd, BS, MB, rope_rows, residual, eps, scale,
+                  (size_t)region};
 }
 
 }  // namespace fused
@@ -384,9 +519,7 @@ decode_mlp_block_kernel(const MlpArgs a) {
 // float32, 1 = bfloat16; region and smem: the shared-memory layout's
 // bytes (file header). The launchers return the launch's cudaError_t.
 
-// ws_t (T): qkv [B][(H+2KV)*hd], then attention rows [P][H*hd][8] at an
-// offset rounded up to 8 elements; ws_f (f32): part_m, part_l
-// [B*H*splits] each, part_acc [B*H*splits*hd], s_new [B*H].
+// ws_t and ws_f as attn_args carves them.
 extern "C" int decode_attn_block(
     const void* x, const void* nw, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* sin, const void* cos,
@@ -398,18 +531,10 @@ extern "C" int decode_attn_block(
   using namespace paddle_tpu_torch::fused;
   if (B == 0) return cudaSuccess;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  const int item = dtype == 1 ? 2 : 4;
-  const size_t n_qkv = ((size_t)B * (H + 2 * KV) * hd + 7) / 8 * 8;
-  const size_t n_part = (size_t)B * H * splits(MB);
-  float* f = static_cast<float*>(ws_f);
-  AttnArgs a{x, nw, wq, wk, wv, wo,
-             static_cast<const float*>(sin), static_cast<const float*>(cos),
-             k_pool, v_pool, static_cast<const int*>(tables),
-             static_cast<const int*>(seq_lens), x_out, k_new, v_new, ws_t,
-             static_cast<char*>(ws_t) + n_qkv * item, f, f + n_part,
-             f + 2 * n_part, f + 2 * n_part + n_part * hd,
-             B, D, H, KV, hd, BS, MB, rope_rows, residual, eps, scale,
-             (size_t)region};
+  const AttnArgs a = attn_args(
+      x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool, tables, seq_lens,
+      x_out, k_new, v_new, ws_t, ws_f, B, D, H, KV, hd, BS, MB, rope_rows,
+      residual, region, eps, scale, dtype == 1 ? 2 : 4);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch_coop(decode_attn_block_kernel<__nv_bfloat16>, a, smem, s);
@@ -431,6 +556,41 @@ extern "C" int decode_mlp_block(const void* x, const void* nw, const void* wg,
   if (dtype == 1)
     return launch_coop(decode_mlp_block_kernel<__nv_bfloat16>, a, smem, s);
   return launch_coop(decode_mlp_block_kernel<float>, a, smem, s);
+}
+
+// ws_t (T): attn_args' qkv and attention rows, then ff [P][F][8] at an
+// offset rounded up to 8 elements; ws_f (f32): attn_args' partials and
+// scores, then resid [B][D] at an offset rounded up to 4 floats.
+extern "C" int decode_block_fused(
+    const void* x, const void* nw, const void* wq, const void* wk,
+    const void* wv, const void* wo, const void* pw, const void* wg,
+    const void* wu, const void* wd, const void* sin, const void* cos,
+    const void* k_pool, const void* v_pool, const void* tables,
+    const void* seq_lens, void* x_out, void* k_new, void* v_new, void* ws_t,
+    void* ws_f, int B, int D, int H, int KV, int hd, int F, int BS, int MB,
+    int rope_rows, int region, int smem, float eps, float scale, int dtype,
+    void* stream) {
+  using namespace paddle_tpu_torch::fused;
+  if (B == 0) return cudaSuccess;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const int item = dtype == 1 ? 2 : 4;
+  const AttnArgs attn = attn_args(
+      x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool, tables, seq_lens,
+      nullptr, k_new, v_new, ws_t, ws_f, B, D, H, KV, hd, BS, MB, rope_rows,
+      1, region, eps, scale, item);
+  const size_t n_qkv = ((size_t)B * (H + 2 * KV) * hd + 7) / 8 * 8;
+  const size_t n_t = n_qkv + (size_t)passes(B) * kRB * H * hd;
+  const size_t n_part = (size_t)B * H * splits(MB);
+  const size_t n_f = (2 * n_part + n_part * hd + (size_t)B * H + 3) / 4 * 4;
+  float* resid = static_cast<float*>(ws_f) + n_f;
+  const MlpArgs mlp{resid, pw, wg, wu, wd, x_out,
+                    static_cast<char*>(ws_t) + n_t * item, B, D, F, 1, eps,
+                    (size_t)region};
+  const BlockArgs a{attn, mlp, resid};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_coop(decode_block_fused_kernel<__nv_bfloat16>, a, smem, s);
+  return launch_coop(decode_block_fused_kernel<float>, a, smem, s);
 }
 
 extern "C" const char* cuda_error_string(int err) {

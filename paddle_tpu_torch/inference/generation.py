@@ -12,8 +12,9 @@ Dense cache layout: [L, B, T_max, KV, hd]. Paged pools: [L, N, BS, KV, hd].
 Two paged decode steps share one signature: ``_paged_decode_step`` (the
 unfused route: RMSNorm, projections, RoPE, pool write, paged attention,
 o_proj, SwiGLU MLP, op by op) and ``_fused_decode_step`` (the JAX engine's
-default route: per layer one ``decode_attn_block``, the pool write, one
-``decode_mlp_block``, each resolved through the kernel registry).
+default route: per layer one ``decode_block_fused``, or one
+``decode_attn_block`` and one ``decode_mlp_block``, with the pool write
+after the attention, each resolved through the kernel registry).
 ``_fused_prefill_forward`` is the JAX engine's default prefill chunk: per
 layer one ``prefill_attn_block``, the chunk's pool write, one
 ``prefill_mlp_block``, straight over the pools.
@@ -272,13 +273,14 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
                        seq_lens, rope=None, mode="auto"):
     """``_paged_decode_step`` through the fused decode-block kernels.
 
-    Per layer: one ``decode_attn_block`` (RMSNorm + QKV + RoPE + paged
-    attention with the new token + o_proj + residual), the new token's
-    pool write, one ``decode_mlp_block`` (RMSNorm + SwiGLU + residual).
-    Each op's variant (the hand-written CUDA kernel on CUDA tensors, the
-    unfused composition on the CPU, bit-identical to
-    ``_paged_decode_step``) comes from the kernel registry; ``mode``
-    forwards to
+    Per layer either one ``decode_block_fused`` launch (the whole layer:
+    RMSNorm + QKV + RoPE + paged attention with the new token + o_proj +
+    residual + RMSNorm + SwiGLU + residual), then the new token's pool
+    write; or the two-stage route: one ``decode_attn_block``, the pool
+    write, one ``decode_mlp_block``. Which one, and each op's variant
+    (the hand-written CUDA kernels on CUDA tensors, the unfused
+    composition on the CPU, bit-identical to ``_paged_decode_step``),
+    comes from the kernel registry; ``mode`` forwards to
     :func:`paddle_tpu_torch.ops.kernels.fused_decode_block.resolve_decode_step`.
     Signature, carried state and in-place pool update match
     ``_paged_decode_step``."""
@@ -292,7 +294,7 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
     meta = decode_meta(cfg, B=B, BS=k_pools.shape[2],
                        MB=block_tables.shape[1], pool_dtype=k_pools.dtype,
                        quant=False, device=k_pools.device)
-    _, attn_fn, mlp_fn, _ = resolve_decode_step(meta, mode)
+    block_fn, attn_fn, mlp_fn, _ = resolve_decode_step(meta, mode)
     x = params["embed_tokens"][tok.long()]               # [B, D]
     if rope is None:
         rope = build_rope_cache(cfg.max_position_embeddings, cfg.head_dim,
@@ -302,29 +304,43 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
     for i in range(cfg.num_hidden_layers):
         lp = _layer(params, i)
         kp, vp = k_pools[i], v_pools[i]
-        x, k_new, v_new = attn_fn(
-            x, lp["input_norm"].to(x.dtype), lp["q_proj"], lp["k_proj"],
-            lp["v_proj"], lp["o_proj"], sin, cos, kp, vp, block_tables,
-            seq_lens, None, eps)
+        if block_fn is not None:
+            # one launch per layer; the pool write stays with the caller
+            # (the MLP half reads no pool state, so writing after it is
+            # the same math as between the stages)
+            x, k_new, v_new = block_fn(
+                x, lp["input_norm"].to(x.dtype), lp["q_proj"],
+                lp["k_proj"], lp["v_proj"], lp["o_proj"],
+                lp["post_norm"].to(x.dtype), lp["gate_proj"],
+                lp["up_proj"], lp["down_proj"], sin, cos, kp, vp,
+                block_tables, seq_lens, None, eps)
+        else:
+            x, k_new, v_new = attn_fn(
+                x, lp["input_norm"].to(x.dtype), lp["q_proj"],
+                lp["k_proj"], lp["v_proj"], lp["o_proj"], sin, cos, kp,
+                vp, block_tables, seq_lens, None, eps)
         write_to_pool(kp, vp, block_tables, seq_lens, k_new.to(kp.dtype),
                       v_new.to(vp.dtype))
-        x = mlp_fn(x, lp["post_norm"].to(x.dtype), lp["gate_proj"],
-                   lp["up_proj"], lp["down_proj"], eps)
+        if block_fn is None:
+            x = mlp_fn(x, lp["post_norm"].to(x.dtype), lp["gate_proj"],
+                       lp["up_proj"], lp["down_proj"], eps)
     x = rms_norm(x[:, None], params["final_norm"].to(x.dtype), eps)[:, 0]
     return x @ _head(params), k_pools, v_pools
 
 
 def _decode_variant_name(cfg, B, BS, MB, pool_dtype, fused,
                          device="cuda"):
-    """The variant one decode step would run, as one string: "cuda_fused"
-    (the two hand-written kernels) or "unfused" (the composition)."""
+    """The variant one decode step would run, as one string: "cuda_block"
+    (the single-launch kernel), "cuda_fused" (the two hand-written
+    kernels) or "unfused" (the composition)."""
     if not fused:
         return "unfused"
     from ..ops.kernels.fused_decode_block import (decode_meta,
                                                   resolve_decode_step)
     meta = decode_meta(cfg, B=B, BS=BS, MB=MB, pool_dtype=pool_dtype,
                        quant=False, device=device)
-    return resolve_decode_step(meta, fused)[3]["attn"]
+    block_fn, _, _, names = resolve_decode_step(meta, fused)
+    return names["block"] if block_fn is not None else names["attn"]
 
 
 def _fused_prefill_mode(fused_prefill):

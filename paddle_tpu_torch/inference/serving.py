@@ -28,23 +28,34 @@ host sync per decode step is the read of the sampled tokens, where the
 host detects EOS / length-done and recycles slots.
 
 The decode step follows ``fused_decode`` as in the JAX engine. The
-default ("auto", also None/True) runs ``_fused_decode_step``: per layer
-the ``decode_attn_block`` and ``decode_mlp_block`` CUDA kernels on CUDA
-(a predicate that refuses the shapes makes the constructor raise with
-its reason), the unfused composition on the CPU; ``decode_variant`` says
-which. "pallas" forces the CUDA kernels (and is
-refused on the CPU), "ref" the composition, False the unfused
-``_paged_decode_step`` (RMSNorm in Triton, paged attention in CUDA C++).
+default ("auto", also None/True) runs ``_fused_decode_step`` through the
+registry: on CUDA per layer the single-launch ``decode_block_fused``
+kernel where its predicate takes the shapes (at LLaMA-7B it does, where
+the TPU's refuses), else the ``decode_attn_block`` and
+``decode_mlp_block`` kernels (a two-stage predicate that refuses makes the
+constructor raise with its reason); on the CPU the unfused composition;
+``decode_variant`` says which. "block" forces the single-launch kernel
+and "pallas" the two-stage kernels (both refused on the CPU), "ref" the
+composition, False the unfused ``_paged_decode_step`` (RMSNorm in Triton,
+paged attention in CUDA C++).
 The prefill chunk follows ``fused_prefill`` the same way: the default
 ("auto", also None/True) runs the fused chunk on CUDA (a refusing
 predicate makes the constructor raise) and the verbatim unfused chunk on
 the CPU, where dispatch picks the composition, as the JAX engine does
 off the TPU; "pallas" forces the fused chunk on the CUDA kernels (and is
 refused on the CPU); "ref" and False run the verbatim chunk everywhere;
-``prefill_variant`` says which. The single-launch block kernel
-("block"), tensor parallelism, prefix cache, host offload, int8 KV
-cache, weight quantization, observability and telemetry come with later
-slices: their constructor arguments raise here.
+``prefill_variant`` says which. Tensor parallelism, prefix cache, host
+offload, int8 KV cache, weight quantization, observability and telemetry
+come with later slices: their constructor arguments raise here.
+
+``metrics()`` has the JAX engine's keys (observability off, one device)
+plus ``decode_step_ms_mean``. The port runs eagerly, so its
+``decode_traces`` and ``prefill_traces`` count how often a step's route is
+resolved and its kernels built (1 for the decode step, at most 1 per
+prefill bucket); the calibration and offload counters and the spill and
+restore bytes stay 0 until the int8 cache and the host tier are ported.
+``roofline`` models each decode route's bytes a step against the H100's
+memory rate (``observability/roofline.py``).
 """
 from __future__ import annotations
 
@@ -113,6 +124,12 @@ class Request:
     # requeue so the victim keeps its line position
     qentry: Optional[object] = field(default=None, repr=False)
 
+    @property
+    def output_ids(self) -> np.ndarray:
+        """The prompt followed by the generated ids, int32."""
+        return np.concatenate([np.asarray(self.prompt, np.int32),
+                               np.asarray(self.tokens, np.int32)])
+
 
 class _Slot:
     __slots__ = ("req", "phase", "seq_len", "prefill_pos")
@@ -149,10 +166,6 @@ class ServingEngine:
                  aging_s: Optional[float] = None, telemetry=False,
                  clock=None, device=None):
         self._fused = _fused_mode(fused_decode)
-        if self._fused == "block":
-            _not_ported("fused_decode", fused_decode,
-                        "the single-launch decode_block_fused kernel "
-                        "(ROADMAP B5)")
         self._fused_prefill = _fused_prefill_mode(fused_prefill)
         if mesh is not None:
             _not_ported("mesh", mesh, "tensor-parallel serving")
@@ -177,11 +190,11 @@ class ServingEngine:
         self.device = resolve_device(device)
         for knob, mode in (("fused_decode", self._fused),
                            ("fused_prefill", self._fused_prefill)):
-            if mode == "pallas" and self.device.type != "cuda":
+            if mode in ("pallas", "block") and self.device.type != "cuda":
                 # a pin must never silently no-op: the CUDA kernels have no
                 # CPU form (the JAX engine's rule for unhonourable pins)
                 raise ValueError(
-                    f'{knob}="pallas" forces the CUDA kernels, which do '
+                    f'{knob}="{mode}" forces the CUDA kernels, which do '
                     f"not run on {self.device}; use 'auto' or 'ref' there")
         self._clock = clock if clock is not None else time.perf_counter
         self.params = params_to(params, self.device)
@@ -221,7 +234,7 @@ class ServingEngine:
             max(self.max_blocks * BS, cfg.max_position_embeddings), hd,
             base=cfg.rope_theta, device=self.device)
 
-        self.mgr = BlockManager(self.num_blocks, BS)
+        self.mgr = BlockManager(self.num_blocks, BS, self.max_blocks)
         # reserve physical page 0 as scratch: padded table entries (and
         # inactive decode slots) point there
         scratch = self.mgr.allocate(_SCRATCH_SEQ, 1)
@@ -248,12 +261,18 @@ class ServingEngine:
         self._d_tok = self._d_seq = self._d_tables = self._d_temps = None
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(seed))
+        # the JAX engine's counters; *_traces count route resolutions
+        # (module docstring), the offload ones stay 0 without a host tier
         self.counters = {
-            "decode_steps": 0, "prefill_chunks": 0, "prefill_tokens": 0,
+            "decode_traces": 0, "prefill_traces": {},
+            "calibration_traces": 0, "decode_steps": 0,
+            "prefill_chunks": 0, "prefill_tokens": 0,
             "prefill_pad_tokens": 0, "live_slot_steps": 0,
             "tokens_generated": 0, "requests_submitted": 0,
             "requests_completed": 0, "drain_truncations": 0,
             "preemptions": 0, "requeues": 0, "deadline_expired": 0,
+            "offload_traces": 0, "kv_spill_bytes": 0,
+            "kv_restore_bytes": 0,
         }
         # the decode and prefill variants, captured at the first decode
         # step and the first fused chunk
@@ -262,6 +281,7 @@ class ServingEngine:
         self._decode_ms = 0.0          # summed decode-step time
         self._t_first = None
         self._t_last = None
+        self._metrics_reset_t = None   # TTFTs from before this are warmup
         self.last_drain_truncated = False
         if self._fused:
             # on CUDA a kernel that refuses the shapes raises here, with
@@ -343,6 +363,39 @@ class ServingEngine:
         return not self._queue and all(
             s.phase == "idle" for s in self._slots)
 
+    @property
+    def queue_depth(self) -> int:
+        """Requests submitted but not yet admitted."""
+        return len(self._queue)
+
+    @property
+    def live_slots(self) -> int:
+        return sum(1 for s in self._slots if s.phase != "idle")
+
+    def scheduler_snapshot(self) -> Dict:
+        """Host-side scheduler state: queue depth, the first 16 queued
+        requests, slot phases, per-slot seq_len, free pages (the JAX
+        engine's, without its prefix-cache entry)."""
+        return {
+            "queue_depth": len(self._queue),
+            "queued": [{"req_id": e.item.req_id,
+                        "prompt_tokens": int(e.item.prompt.size),
+                        "priority": e.item.priority,
+                        "requeues": e.requeues,
+                        "need_pages":
+                            -(-self._alloc_tokens(e.item)
+                              // self.block_size)}
+                       for e in list(self._queue)[:16]],
+            "slots": [{"slot": i, "phase": s.phase,
+                       "req_id": s.req.req_id if s.req else None,
+                       "seq_len": s.seq_len,
+                       "prefill_pos": s.prefill_pos}
+                      for i, s in enumerate(self._slots)],
+            "pages_free": len(self.mgr.free),
+            "num_blocks": self.num_blocks,
+            "capacity": self.capacity,
+        }
+
     def drain(self, max_steps: Optional[int] = None) -> int:
         """Step until queue and slots are empty; returns the step count.
         Hitting ``max_steps`` with work pending sets
@@ -366,7 +419,8 @@ class ServingEngine:
         return n
 
     def metrics(self) -> Dict:
-        c = dict(self.counters)
+        c = {k: (dict(v) if isinstance(v, dict) else v)
+             for k, v in self.counters.items()}
         wall = ((self._t_last - self._t_first)
                 if self._t_first is not None and self._t_last is not None
                 else 0.0)
@@ -375,7 +429,11 @@ class ServingEngine:
                                if wall > 0 else 0.0)
         c["prefill_tokens_per_sec"] = (
             round(c["prefill_tokens"] / wall, 3) if wall > 0 else 0.0)
-        ttfts = [r.ttft for r in self._requests if r.ttft is not None]
+        # TTFTs from before the last reset_metrics() belong to the warmup
+        cut = self._metrics_reset_t
+        ttfts = [r.ttft for r in self._requests
+                 if r.ttft is not None
+                 and (cut is None or (r.first_token_t or 0.0) >= cut)]
         c["ttft_ms_mean"] = (round(float(np.mean(ttfts)) * 1e3, 3)
                              if ttfts else None)
         c["ttft_ms_max"] = (round(float(np.max(ttfts)) * 1e3, 3)
@@ -391,8 +449,63 @@ class ServingEngine:
         c["decode_variant"] = self.decode_variant
         c["prefill_variant"] = self.prefill_variant
         c["weight_quant_variant"] = self.weight_quant_variant
+        c["roofline"] = self._roofline_metrics(c["decode_step_ms_mean"])
         c["scheduler"] = self._scheduler_metrics()
         return c
+
+    def reset_metrics(self):
+        """Zero the throughput counters and timers (e.g. after a warm-up
+        pass), as the JAX engine does. The trace counters are cumulative
+        and stay; TTFTs of requests that got their first token before
+        this call leave the mean."""
+        for k in ("decode_steps", "prefill_chunks", "prefill_tokens",
+                  "prefill_pad_tokens",
+                  "live_slot_steps", "tokens_generated",
+                  "requests_submitted", "requests_completed",
+                  "drain_truncations", "preemptions", "requeues",
+                  "deadline_expired", "kv_spill_bytes",
+                  "kv_restore_bytes"):
+            self.counters[k] = 0
+        self._sched_cls = {}
+        self._slo = [0, 0]
+        self._decode_ms = 0.0
+        self._t_first = self._t_last = None
+        self._metrics_reset_t = self._clock()
+        self._requests = [r for r in self._requests if not r.done]
+
+    def _active_arm(self) -> str:
+        """The roofline arm the decode step runs: the single-launch
+        kernel, the two-stage kernels, or the composition."""
+        v = self.decode_variant
+        if v["block"] == "cuda_block":
+            return "cuda_block"
+        return "cuda_fused" if v["attn"] == "cuda_fused" else "unfused"
+
+    def _roofline_metrics(self, step_ms) -> Dict:
+        """Each decode route's modeled bytes a step (per layer times the
+        layers, plus the lm-head read) and the least step time at the
+        H100's memory rate; for the active route on the card, the share
+        of that rate the measured mean step time achieves (None on the
+        CPU, whose clock says nothing of the card)."""
+        from ..observability.roofline import (decode_roofline,
+                                              decode_step_bytes)
+        cfg = self.cfg
+        act = self._k_pools.element_size()
+        L = cfg.num_hidden_layers
+        per_layer = decode_step_bytes(
+            self.capacity, cfg.hidden_size, cfg.num_attention_heads,
+            cfg.num_key_value_heads, cfg.head_dim, cfg.intermediate_size,
+            self.block_size, self.max_blocks, act_itemsize=act,
+            weight_itemsize=act, pool_itemsize=act)
+        head = cfg.vocab_size * cfg.hidden_size * act
+        step_bytes = {k: int(v * L + head) for k, v in per_layer.items()}
+        active = self._active_arm()
+        measured = ({active: step_ms * 1e3}
+                    if step_ms and self.device.type == "cuda" else {})
+        r = decode_roofline(step_bytes, measured_us=measured)
+        r["active"] = active
+        r["layers"] = L
+        return r
 
     def _resolve_variant(self) -> Dict:
         from ..ops.kernels.fused_decode_block import (decode_meta,
@@ -407,7 +520,8 @@ class ServingEngine:
     @property
     def decode_variant(self) -> Dict:
         """Which decode-block implementation the decode step runs:
-        ``{"mode", "block": "composed", "attn", "mlp"}`` with attn/mlp
+        ``{"mode", "block", "attn", "mlp"}``: every name "cuda_block" for
+        the single-launch kernel, else block "composed" and attn/mlp
         "cuda_fused" or "unfused". Captured at the first decode step;
         before it, what dispatch would pick now."""
         if not self._fused:
@@ -661,6 +775,9 @@ class ServingEngine:
             toks[0, :n] = req.prompt[pos0:pos0 + n]
             temp = self._upload(np.array([self._temp_of(req.gen)],
                                          np.float32))
+            traces = self.counters["prefill_traces"]
+            if P not in traces:
+                traces[P] = 1        # the bucket's chunk resolved once
             if self._fused_buckets[P]:
                 tok = self._prefill_chunk_fused(
                     self._upload(toks), pos0,
@@ -705,9 +822,12 @@ class ServingEngine:
         """The decode program: one token for every slot, sampled, with
         the device-side carry (tokens, lengths) advanced. Inactive slots
         hold seq 0 and stay there; their write landed in scratch page 0."""
+        if self._decode_variant is None:
+            # the step's route resolved (and its kernels built) once: the
+            # port's count of the JAX engine's decode traces
+            self._decode_variant = self.decode_variant
+            self.counters["decode_traces"] += 1
         if self._fused:
-            if self._decode_variant is None:
-                self._decode_variant = self._resolve_variant()
             logits, _, _ = _fused_decode_step(
                 self.params, self._d_tok, self.cfg, self._k_pools,
                 self._v_pools, self._d_tables, self._d_seq, rope=self._rope,

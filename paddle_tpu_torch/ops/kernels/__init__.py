@@ -12,13 +12,15 @@ from .flash_attention import (flash_bwd_dkv_cuda,  # noqa: F401
 from .fused_adamw import fused_adamw_triton  # noqa: F401
 from .fused_decode_block import (attn_block_ref,  # noqa: F401
                                  decode_attn_block_cuda,
+                                 decode_block_fused_cuda, decode_block_ref,
                                  decode_mlp_block_cuda, mlp_block_ref)
 from .fused_train import (linear_ce_bwd_dh_cuda,  # noqa: F401
                           linear_ce_bwd_dx_cuda, linear_ce_fwd_cuda,
                           swiglu_bwd_triton, swiglu_fwd_triton)
 from .fused_prefill_block import (prefill_attn_block_cuda,  # noqa: F401
                                   prefill_attn_block_ref)
-from .norms import (residual_rms_norm_fwd_triton,  # noqa: F401
+from .norms import (layer_norm_fwd_triton,  # noqa: F401
+                    layer_norm_ref, residual_rms_norm_fwd_triton,
                     rms_norm_bwd_triton, rms_norm_fwd_triton, rms_norm_ref)
 from .paged_attention import (paged_attention_decode_cuda,  # noqa: F401
                               paged_attention_decode_ref)
@@ -26,8 +28,10 @@ from .paged_attention import (paged_attention_decode_cuda,  # noqa: F401
 WRAPPERS = {
     "paged_attention_decode": paged_attention_decode_cuda,
     "rms_norm_fwd": rms_norm_fwd_triton,
+    "layer_norm_fwd": layer_norm_fwd_triton,
     "decode_attn_block": decode_attn_block_cuda,
     "decode_mlp_block": decode_mlp_block_cuda,
+    "decode_block_fused": decode_block_fused_cuda,
     "prefill_attn_block": prefill_attn_block_cuda,
     "flash_attention_fwd": flash_fwd_cuda,
     "flash_attention_bwd_dq": flash_bwd_dq_cuda,

@@ -1,7 +1,7 @@
-"""Fused decode-block kernels: the two CUDA kernels' wrappers, their
+"""Fused decode-block kernels: the three CUDA kernels' wrappers, their
 plain versions, the dispatch metas and predicates, and the resolvers
-(port of ``paddle_tpu/ops/pallas/fused_decode_block.py``, two-stage route,
-fp weights and fp pools).
+(port of ``paddle_tpu/ops/pallas/fused_decode_block.py``, fp weights and
+fp pools).
 
 - ``decode_attn_block`` (:func:`decode_attn_block_cuda`) replaces
   ``fused_attn_block_pallas``: RMSNorm + QKV + RoPE + paged attention with
@@ -9,33 +9,49 @@ fp weights and fp pools).
 - ``decode_mlp_block`` (:func:`decode_mlp_block_cuda`) replaces
   ``fused_mlp_block_pallas``: RMSNorm + gate/up + SwiGLU + down +
   residual, in one launch.
+- ``decode_block_fused`` (:func:`decode_block_fused_cuda`) replaces
+  ``fused_decode_block_pallas``: both halves, one whole decoder layer, in
+  one launch, the attention-to-MLP residual kept in f32.
 
-Both kernels are ``paddle_tpu_torch/csrc/fused_decode_block.cu`` (CUDA C++
+The kernels are ``paddle_tpu_torch/csrc/fused_decode_block.cu`` (CUDA C++
 for ``sm_90a``, built by :mod:`._build` at the first launch and bound with
 ctypes); that file's header says what bounds them on the H100 and how
 their design follows from it.
 
 :func:`attn_block_ref` and :func:`mlp_block_ref` are the plain versions
-and the registry's priority-0 ``"unfused"`` variants: op for op the
-building blocks of ``inference.generation._paged_decode_step``, so a
-decode step that dispatches them is bit-identical to the unfused step.
-They run the port's RMSNorm and paged-attention kernels on CUDA tensors
-and those kernels' plain versions on the CPU.
+of the two-stage kernels and the registry's priority-0 ``"unfused"``
+variants: op for op the building blocks of
+``inference.generation._paged_decode_step``, so a decode step that
+dispatches them is bit-identical to the unfused step. They run the port's
+RMSNorm and paged-attention kernels on CUDA tensors and those kernels'
+plain versions on the CPU. :func:`decode_block_ref` is the single-launch
+kernel's plain version, written for that kernel's rounding points (the
+JAX ``_block_fused_kernel``'s), which differ from the two-stage route's:
+a roundoff-level variant of it, as in the JAX package.
+:func:`decode_block_composed` is ``decode_block_fused``'s priority-0
+variant: the exact two-stage sequence, each stage dispatched through the
+registry (the two CUDA kernels on the card, the compositions on the CPU).
 
 Dispatch differs from the TPU's on purpose. The TPU predicates refuse a
 block whose weights do not fit the VMEM budget, which rejects the
-attention kernel at LLaMA-7B bf16. The CUDA kernels stream their weights
-from device memory, so what they need is shared memory for one pass of 8
-normalised rows and the attention scratch (:func:`attn_smem_bytes`,
-:func:`mlp_smem_bytes`: the one definition of the kernels' layout sizes,
-passed to them at launch) under the card's 227 KB a block. That need
-grows with the hidden width, not with the batch: at LLaMA-7B both
-kernels are selected for any number of slots.
+attention kernel and the single-launch kernel at LLaMA-7B bf16. The CUDA
+kernels stream their weights from device memory, so what they need is
+shared memory for one pass of 8 normalised rows and the attention scratch
+(:func:`attn_smem_bytes`, :func:`mlp_smem_bytes`,
+:func:`block_smem_bytes`: the one definition of the kernels' layout
+sizes, passed to them at launch) under the card's 227 KB a block. That
+need grows with the hidden width, not with the batch: at LLaMA-7B all
+three kernels are selected for any number of slots. So "auto" on the
+card takes the single-launch kernel where the TPU takes the two-stage
+route, and the serving engine's default decode step is
+``decode_block_fused``.
 
-The composition is the CPU's route only. On CUDA tensors a predicate that
-refuses the kernel makes dispatch raise with its reason: the decode step
-never gives way to the composition on the card unless the caller asks
-for it (``mode="ref"``, or a ``KERNELS.force`` pin).
+The compositions are the CPU's route only. On CUDA tensors a predicate
+that refuses a two-stage kernel makes dispatch raise with its reason:
+the decode step never gives way to the composition on the card unless
+the caller asks for it (``mode="ref"``, or a ``KERNELS.force`` pin).
+Where the single-launch kernel refuses, "auto" takes the two-stage
+kernels, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -47,9 +63,11 @@ import torch
 from . import _build
 from .registry import KERNELS
 
-__all__ = ["attn_block_ref", "mlp_block_ref", "decode_attn_block_cuda",
-           "decode_mlp_block_cuda", "decode_meta", "decode_meta_dims",
-           "attn_smem_bytes", "mlp_smem_bytes", "SMEM_LIMIT",
+__all__ = ["attn_block_ref", "mlp_block_ref", "decode_block_ref",
+           "decode_block_composed", "decode_attn_block_cuda",
+           "decode_mlp_block_cuda", "decode_block_fused_cuda",
+           "decode_meta", "decode_meta_dims", "attn_smem_bytes",
+           "mlp_smem_bytes", "block_smem_bytes", "SMEM_LIMIT",
            "resolve_decode_blocks", "resolve_decode_step"]
 
 #: dynamic shared memory one block of an H100 may use (232,448 bytes)
@@ -63,24 +81,15 @@ _NOT_PORTED_QUANT = "not ported: int8 cache / weight-quant slice"
 # ---------------------------------------------------------------------------
 # plain versions: the unfused composition, op for op
 # ---------------------------------------------------------------------------
-def attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
-                   block_tables, seq_lens, kv_scales=None, eps=1e-6,
-                   residual=True):
-    """The attention half of a decode block as the unfused step runs it.
-
-    x [B, D]; nw [D] at x's type; wq [D, H*hd], wk/wv [D, KV*hd],
-    wo [H*hd, D]; sin/cos: full rope tables [T, hd/2] f32; pools
-    [N, BS, KV, hd]; block_tables [B, MB]; seq_lens [B]: tokens already in
-    the pool (the new token goes at position seq_lens). Returns (x + o
-    [B, D], or o alone when ``residual`` is False; k_new, v_new
-    [B, KV, hd]). Like the JAX version it writes the new token's K/V into
-    the pools before attending (in place here); the caller then makes the
-    same write, so the pools end equal either way."""
+def _attention(x, nw, wq, wk, wv, sin, cos, k_pool, v_pool, block_tables,
+               seq_lens, eps):
+    """The attention of a decode block as the unfused step runs it, up to
+    the attention rows: (attn [B, H*hd] in x's type, k_new, v_new
+    [B, KV, hd]). Writes the new token's K/V into the pools first (in
+    place), as the JAX version does."""
     from .. import rms_norm
     from ..paged_attention import paged_attention_decode, write_to_pool
     from ..rope import apply_rope
-    if kv_scales is not None:
-        raise NotImplementedError(f"kv_scales: {_NOT_PORTED_QUANT}")
     B, D = x.shape
     _, _, KV, hd = k_pool.shape
     H = wq.shape[1] // hd
@@ -96,7 +105,27 @@ def attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                   k_new.to(k_pool.dtype), v_new.to(v_pool.dtype))
     attn = paged_attention_decode(q[:, 0], k_pool, v_pool, block_tables,
                                   seq_lens + 1)
-    o = attn.reshape(B, H * hd).to(x.dtype) @ wo
+    return attn.reshape(B, H * hd).to(x.dtype), k_new, v_new
+
+
+def attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
+                   block_tables, seq_lens, kv_scales=None, eps=1e-6,
+                   residual=True):
+    """The attention half of a decode block as the unfused step runs it.
+
+    x [B, D]; nw [D] at x's type; wq [D, H*hd], wk/wv [D, KV*hd],
+    wo [H*hd, D]; sin/cos: full rope tables [T, hd/2] f32; pools
+    [N, BS, KV, hd]; block_tables [B, MB]; seq_lens [B]: tokens already in
+    the pool (the new token goes at position seq_lens). Returns (x + o
+    [B, D], or o alone when ``residual`` is False; k_new, v_new
+    [B, KV, hd]). Like the JAX version it writes the new token's K/V into
+    the pools before attending (in place here); the caller then makes the
+    same write, so the pools end equal either way."""
+    if kv_scales is not None:
+        raise NotImplementedError(f"kv_scales: {_NOT_PORTED_QUANT}")
+    attn, k_new, v_new = _attention(x, nw, wq, wk, wv, sin, cos, k_pool,
+                                    v_pool, block_tables, seq_lens, eps)
+    o = attn @ wo
     return (x + o if residual else o), k_new, v_new
 
 
@@ -109,6 +138,55 @@ def mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
     h = rms_norm(x[:, None], nw, eps)[:, 0]
     o = swiglu(h @ wg, h @ wu) @ wd
     return x + o if residual else o
+
+
+def decode_block_ref(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
+                     k_pool, v_pool, block_tables, seq_lens, kv_scales=None,
+                     eps=1e-6):
+    """One whole decoder layer at the single-launch kernel's rounding
+    points (the JAX ``_block_fused_kernel``'s): the attention as
+    :func:`attn_block_ref` runs it up to the attention rows in x's type
+    T; ``o = attn @ wo`` summed and kept in f32; ``resid = f32(x) + o``
+    (f32); the post-norm of that f32 row cast to T, times ``pw``; gate and
+    up f32 products cast to T; ``silu(g) * u`` in T; down summed in f32;
+    ``x_out = T(resid + down)``. Returns (x_out [B, D], k_new, v_new
+    [B, KV, hd]); writes the new token's K/V into the pools first, as
+    :func:`attn_block_ref` does."""
+    import torch.nn.functional as F
+    if kv_scales is not None:
+        raise NotImplementedError(f"kv_scales: {_NOT_PORTED_QUANT}")
+    dt = x.dtype
+    attn, k_new, v_new = _attention(x, nw, wq, wk, wv, sin, cos, k_pool,
+                                    v_pool, block_tables, seq_lens, eps)
+    resid = x.float() + attn.float() @ wo.float()
+    ms = torch.mean(torch.square(resid), dim=-1, keepdim=True)
+    h = (resid * torch.rsqrt(ms + eps)).to(dt) * pw
+    g = (h.float() @ wg.float()).to(dt)
+    u = (h.float() @ wu.float()).to(dt)
+    down = (F.silu(g) * u).float() @ wd.float()
+    return (resid + down).to(dt), k_new, v_new
+
+
+def decode_block_composed(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
+                          k_pool, v_pool, block_tables, seq_lens,
+                          kv_scales=None, eps=1e-6):
+    """``decode_block_fused``'s priority-0 variant: the exact two-stage
+    sequence, each stage dispatched through the registry (on the card the
+    two CUDA kernels, on the CPU the compositions), so it is the two-stage
+    route it stands in for, bit for bit. The MLP stage reads no pool
+    state, so running it before the caller's pool write is the same math
+    as the interleaved two-stage order."""
+    B, D = x.shape
+    _, BS, KV, hd = k_pool.shape
+    meta = decode_meta_dims(B, D, wq.shape[1] // hd, KV, hd, wg.shape[1],
+                            BS, block_tables.shape[1], x.dtype,
+                            k_pool.dtype, kv_scales is not None,
+                            device=x.device)
+    attn_fn, mlp_fn, _ = resolve_decode_blocks(meta, "auto")
+    xo, k_new, v_new = attn_fn(x, nw, wq, wk, wv, wo, sin, cos, k_pool,
+                               v_pool, block_tables, seq_lens, kv_scales,
+                               eps)
+    return mlp_fn(xo, pw, wg, wu, wd, eps), k_new, v_new
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +232,15 @@ def mlp_smem_bytes(D, itemsize) -> int:
     """Dynamic shared memory of one decode_mlp_block block: 8 normalised
     rows of width D plus the reduction tiles. Independent of B."""
     return _layout(D, 0, 0, 0, itemsize)[1]
+
+
+def block_smem_bytes(D, H, KV, hd, BS, itemsize) -> int:
+    """Dynamic shared memory of one decode_block_fused block: the larger
+    of its two halves' layouts, which is the attention half's (its region
+    holds 8 normalised rows or an attention item's scratch). Independent
+    of B; 86,016 B at LLaMA-7B bf16."""
+    return max(attn_smem_bytes(D, H, KV, hd, BS, itemsize),
+               mlp_smem_bytes(D, itemsize))
 
 
 # ---------------------------------------------------------------------------
@@ -315,8 +402,88 @@ def decode_mlp_block_cuda(x, nw, wg, wu, wd, eps=1e-6, residual=True):
     return out
 
 
+def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
+                            k_pool, v_pool, block_tables, seq_lens,
+                            kv_scales=None, eps=1e-6):
+    """Launch the decode_block_fused kernel (the contract of
+    :func:`decode_block_ref`, minus its pool write) on PyTorch's current
+    stream: one whole decoder layer, ``(x_out, k_new, v_new)``. Raises for
+    anything the kernel does not take, and if the launch is refused.
+    Never falls back."""
+    name = "decode_block_fused_cuda"
+    if kv_scales is not None:
+        raise NotImplementedError(f"{name}: kv_scales: {_NOT_PORTED_QUANT}")
+    _check_common(name, x, {
+        "x": x, "nw": nw, "wq": wq, "wk": wk, "wv": wv, "wo": wo, "pw": pw,
+        "wg": wg, "wu": wu, "wd": wd, "sin": sin, "cos": cos,
+        "k_pool": k_pool, "v_pool": v_pool, "block_tables": block_tables,
+        "seq_lens": seq_lens},
+        {"sin": torch.float32, "cos": torch.float32,
+         "block_tables": torch.int32, "seq_lens": torch.int32})
+    B, D = x.shape
+    N, BS, KV, hd = k_pool.shape
+    H = wq.shape[1] // hd if wq.dim() == 2 else 0
+    F = wg.shape[1] if wg.dim() == 2 else 0
+    MB = block_tables.shape[1] if block_tables.dim() == 2 else 0
+    item = x.element_size()
+    if H < 1 or H % KV:
+        raise ValueError(f"{name}: H={H} is not a positive multiple of "
+                         f"KV={KV}")
+    if F < 1 or (hd * item) % 16 or (D * item) % 16 or (F * item) % 16:
+        raise ValueError(f"{name}: head_dim {hd}, hidden {D} and "
+                         f"intermediate {F} rows must be multiples of 16 "
+                         "bytes (the load width)")
+    for tname, t, shp in (("nw", nw, (D,)), ("wq", wq, (D, H * hd)),
+                          ("wk", wk, (D, KV * hd)), ("wv", wv, (D, KV * hd)),
+                          ("wo", wo, (H * hd, D)), ("pw", pw, (D,)),
+                          ("wg", wg, (D, F)), ("wu", wu, (D, F)),
+                          ("wd", wd, (F, D)),
+                          ("v_pool", v_pool, k_pool.shape),
+                          ("cos", cos, sin.shape),
+                          ("block_tables", block_tables, (B, MB)),
+                          ("seq_lens", seq_lens, (B,))):
+        _shape(name, tname, t, shp)
+    if sin.dim() != 2 or sin.shape[1] != hd // 2:
+        raise ValueError(f"{name}: rope tables must be [T, {hd // 2}], got "
+                         f"{tuple(sin.shape)}")
+    region, smem = _layout(D, H // KV, hd, BS, item)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
+                         f" over the card's {SMEM_LIMIT}")
+    fn = _lib_fn("decode_block_fused", 21, 11, 2)
+    x_out = torch.empty_like(x)
+    k_new = torch.empty((B, KV, hd), dtype=x.dtype, device=x.device)
+    v_new = torch.empty_like(k_new)
+    # the workspaces (layout in csrc/fused_decode_block.cu): the q/k/v
+    # rows, the k-major attention rows and silu(g)*u rows in x's type; the
+    # f32 attention partials and new-token scores, then the f32 residual
+    n_qkv = -(-B * (H + 2 * KV) * hd // 8) * 8
+    ws_t = torch.empty(n_qkv + _passes(B) * _ROWS * (H * hd + F),
+                       dtype=x.dtype, device=x.device)
+    n_part = B * H * -(-MB // _SPLIT_PAGES)
+    n_f = -(-(n_part * (2 + hd) + B * H) // 4) * 4
+    ws_f = torch.empty(n_f + B * D, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        decode_block_fused_cuda.launches += 1
+        err = fn(x.data_ptr(), nw.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+                 wv.data_ptr(), wo.data_ptr(), pw.data_ptr(), wg.data_ptr(),
+                 wu.data_ptr(), wd.data_ptr(), sin.data_ptr(),
+                 cos.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 block_tables.data_ptr(), seq_lens.data_ptr(),
+                 x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                 ws_t.data_ptr(), ws_f.data_ptr(), B, D, H, KV, hd, F, BS,
+                 MB, sin.shape[0], region, smem, float(eps),
+                 1.0 / math.sqrt(hd), _build.DTYPES[x.dtype], stream)
+    if err:
+        raise RuntimeError("decode_block_fused launch failed: "
+                           + fn.error_string(err).decode())
+    return x_out, k_new, v_new
+
+
 decode_attn_block_cuda.launches = 0
 decode_mlp_block_cuda.launches = 0
+decode_block_fused_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -412,6 +579,34 @@ def _supports_mlp(meta):
                         meta["smem_limit"])
 
 
+def _supports_block(meta):
+    """The single-launch kernel's predicate, for Hopper. The TPU's
+    (``_supports_block`` of the JAX package) is a VMEM envelope that both
+    weight window sets must fit together, so it refuses bf16 at LLaMA-7B.
+    Here the weights stream from device memory: what the kernel needs is
+    the shared memory of the larger of its two halves' layouts
+    (:func:`block_smem_bytes`) for one block, under the card's limit, so
+    that every SM holds the one block of the cooperative grid the kernel
+    is built for (``__launch_bounds__(256, 1)``: its merged phases spill
+    at two blocks an SM; the launch sizes the grid from this kernel's
+    occupancy). It carries
+    over the reference's refusals: a head_dim that is not a multiple of
+    8, H not a multiple of KV, the rows the loads cannot align, and
+    quantized pools or weights (not ported)."""
+    why = _attn_refusal(meta)
+    if why:
+        return False, why
+    if meta["hd"] % 8:
+        return False, f"head_dim {meta['hd']} not a multiple of 8"
+    if (meta["F"] * meta["itemsize"]) % 16:
+        return False, (f"intermediate {meta['F']} rows not a multiple of "
+                       "16 bytes")
+    return _smem_reason(block_smem_bytes(meta["D"], meta["H"], meta["KV"],
+                                         meta["hd"], meta["BS"],
+                                         meta["itemsize"]),
+                        meta["smem_limit"])
+
+
 def _supports_composition(meta):
     if meta["device"] == "cuda":
         return False, ("the composition is the CPU's route: on CUDA the "
@@ -427,6 +622,13 @@ KERNELS.register("decode_mlp_block", "cuda_fused", decode_mlp_block_cuda,
                  priority=10, supports=_supports_mlp)
 KERNELS.register("decode_mlp_block", "unfused", mlp_block_ref, priority=0,
                  supports=_supports_composition)
+# the single-launch op sits above the two-stage route: priority 10 is the
+# kernel, priority 0 runs the exact two-stage sequence (on the card the
+# two kernels), so it takes any meta
+KERNELS.register("decode_block_fused", "cuda_block", decode_block_fused_cuda,
+                 priority=10, supports=_supports_block)
+KERNELS.register("decode_block_fused", "composed", decode_block_composed,
+                 priority=0)
 
 
 def resolve_decode_blocks(meta: dict, mode="auto"):
@@ -455,12 +657,23 @@ def resolve_decode_blocks(meta: dict, mode="auto"):
 
 def resolve_decode_step(meta: dict, mode="auto"):
     """One decode step's kernels: ``(block_fn, attn_fn, mlp_fn,
-    variants)``. The single-launch ``decode_block_fused`` kernel is not
-    ported, so ``block_fn`` is always None, mode "block" raises, and
-    ``variants`` is ``{"block": "composed", "attn": ..., "mlp": ...}``."""
+    variants)`` (port of the JAX package's). Mode "block" forces the
+    single-launch kernel; "auto"/True/None dispatch ``decode_block_fused``
+    through the registry after the two stages (a refusing two-stage
+    kernel on CUDA raises first, as there) and take the single-launch
+    kernel when it wins. Then ``block_fn`` is the whole-layer function,
+    the stage functions are None and every name is ``"cuda_block"``.
+    Otherwise ``block_fn`` is None, the stages come from
+    :func:`resolve_decode_blocks` and ``variants`` is ``{"block":
+    "composed", "attn": ..., "mlp": ...}``."""
+    block = {"block": "cuda_block", "attn": "cuda_block",
+             "mlp": "cuda_block"}
     if mode == "block":
-        raise NotImplementedError(
-            "fused_decode='block': the single-launch decode_block_fused "
-            "kernel is not ported yet (ROADMAP B5)")
+        return (KERNELS.variant("decode_block_fused", "cuda_block").fn,
+                None, None, block)
     a_fn, m_fn, names = resolve_decode_blocks(meta, mode)
+    if mode in ("auto", True, None):
+        b_name, b_fn = KERNELS.dispatch("decode_block_fused", meta)
+        if b_name == "cuda_block":
+            return b_fn, None, None, block
     return None, a_fn, m_fn, {"block": "composed", **names}

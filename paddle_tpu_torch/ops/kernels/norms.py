@@ -1,8 +1,9 @@
-"""RMSNorm: the three Triton kernels' wrappers (forward, backward, and the
-residual add + forward), their plain PyTorch versions, and the
-differentiable ops the training path runs.
+"""RMSNorm and LayerNorm: the four Triton kernels' wrappers (RMSNorm's
+forward, backward, and residual add + forward; LayerNorm's forward),
+their plain PyTorch versions, and the differentiable ops the training
+path runs.
 
-Replaces three kernels of ``paddle_tpu/ops/pallas/norms.py``:
+Replaces four kernels of ``paddle_tpu/ops/pallas/norms.py``:
 
 - ``_rms_fwd_kernel`` (launch ``rms_norm_fwd``, reached through
   ``rms_norm_pallas``) by :func:`rms_norm_fwd_triton`: each row of ``x
@@ -32,6 +33,17 @@ Replaces three kernels of ``paddle_tpu/ops/pallas/norms.py``:
   the order of :func:`residual_rms_norm_fwd_ref`, so y is bit-equal and h
   within the forward's bound. Bound: memory, delta and x read, y and h
   written (134.2 MB at [4096, 4096] bf16, 0.040 ms). One program per row.
+- ``_ln_fwd_kernel`` (launch ``layer_norm_fwd``, ``layer_norm_pallas``) by
+  :func:`layer_norm_fwd_triton`: per row an f32 interior, the mean, the
+  variance as the mean of squared deviations, ``rsqrt(var + eps)``, the
+  normalised row rounded to x's type, then ``* w`` and ``+ b`` each
+  rounded in that type -- :func:`layer_norm_ref`'s order. Bound: memory,
+  x read and y written once (33.6 MB at [4096, 1024] f32, 0.010 ms). A
+  program holds ``ROWS`` whole rows in registers (several rows for a
+  narrow D), the rows past the end masked, where the TPU kernel pads them
+  to its row block. No runtime route of the JAX package launches it
+  (``ops.layer_norm`` is its plain version there and here); only its
+  kernel catalog does, at 24 x 128 and 4096 x 1024 f32.
 
 Training: :class:`RMSNorm` is the JAX package's ``rms_norm_pallas``
 custom_vjp and :class:`ResidualRMSNorm` its ``_res_rms_vjp``. Their
@@ -58,7 +70,8 @@ from .registry import KERNELS, dispatch_fused_variant
 
 __all__ = ["rms_norm_ref", "rms_norm_fwd_triton", "rms_bwd_ref",
            "rms_norm_bwd_triton", "residual_rms_norm_fwd_ref",
-           "residual_rms_norm_fwd_triton", "rms_bwd_meta", "RMSNorm",
+           "residual_rms_norm_fwd_triton", "layer_norm_ref",
+           "layer_norm_fwd_triton", "rms_bwd_meta", "RMSNorm",
            "ResidualRMSNorm", "MAX_D"]
 
 _kernels = {}
@@ -131,6 +144,40 @@ def _res_rms_fwd_kernel(d_ptr, x_ptr, w_ptr, y_ptr, h_ptr, D, eps,
     hn = (yf * tl.rsqrt(ms + eps)).to(x.dtype)
     w = tl.load(w_ptr + cols, mask=mask, other=0.0)
     tl.store(h_ptr + row * D + cols, hn * w, mask=mask)
+
+
+def layer_norm_ref(x, weight, bias, epsilon=1e-5):
+    """The JAX package's ``ops.layer_norm_ref``: an f32 interior, the
+    normalised row cast to x's type, then ``* weight`` and ``+ bias``
+    (either may be None)."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, correction=0, keepdim=True)
+    out = ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def _ln_fwd_kernel(x_ptr, w_ptr, b_ptr, y_ptr, rows, D, eps,
+                   ROWS: "tl.constexpr", BLOCK: "tl.constexpr"):
+    r = tl.program_id(0).to(tl.int64) * ROWS + tl.arange(0, ROWS)
+    cols = tl.arange(0, BLOCK)
+    mask = (r < rows)[:, None] & (cols < D)[None, :]
+    off = r[:, None] * D + cols[None, :]
+    x = tl.load(x_ptr + off, mask=mask, other=0.0)
+    xf = x.to(tl.float32)
+    mean = tl.sum(xf, axis=1) / D
+    diff = tl.where(mask, xf - mean[:, None], 0.0)
+    var = tl.sum(diff * diff, axis=1) / D
+    xhat = (diff * tl.rsqrt(var + eps)[:, None]).to(x.dtype)
+    w = tl.load(w_ptr + cols, mask=cols < D, other=0.0).to(tl.float32)
+    b = tl.load(b_ptr + cols, mask=cols < D, other=0.0).to(tl.float32)
+    y = (xhat.to(tl.float32) * w[None, :]).to(x.dtype)
+    y = (y.to(tl.float32) + b[None, :]).to(x.dtype)
+    tl.store(y_ptr + off, y, mask=mask)
 
 
 def _check_rows(name, x, weight, *more, max_d=None):
@@ -234,8 +281,33 @@ def residual_rms_norm_fwd_triton(delta, x, weight, epsilon=1e-6):
     return y.reshape(x.shape), h.reshape(x.shape)
 
 
+def layer_norm_fwd_triton(x, weight, bias, epsilon=1e-5):
+    """Launch the LayerNorm kernel over the rows of ``x``: the contract of
+    :func:`layer_norm_ref` with ``weight`` and ``bias`` [D] in x's type.
+    CUDA tensors only; raises for anything the kernel does not take.
+    Never falls back."""
+    name = "layer_norm_fwd_triton"
+    _check_rows(name, x, weight, max_d=MAX_D)
+    _check_rows(name, x, bias)
+    import triton
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D).contiguous()
+    y = torch.empty_like(x2)
+    rows = x2.shape[0]
+    if rows:
+        block = triton.next_power_of_2(D)
+        per = max(1, min(16, 4096 // block))     # rows a program holds
+        with torch.cuda.device(x.device):
+            layer_norm_fwd_triton.launches += 1
+            triton_jit(globals(), "_ln_fwd_kernel")[(triton.cdiv(rows, per),)](
+                x2, weight.contiguous(), bias.contiguous(), y, rows, D,
+                float(epsilon), ROWS=per, BLOCK=block,
+                num_warps=_warps(block * per))
+    return y.reshape(x.shape)
+
+
 for _w in (rms_norm_fwd_triton, rms_norm_bwd_triton,
-           residual_rms_norm_fwd_triton):
+           residual_rms_norm_fwd_triton, layer_norm_fwd_triton):
     _w.launches = 0
 
 

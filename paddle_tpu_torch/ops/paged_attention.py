@@ -89,11 +89,14 @@ class BlockManager:
     ``allocate`` hands out pages at refcount 1, ``attach`` appends
     already-populated shared pages to a table (incref), ``release``
     decrefs every table entry and a page returns to the free list only
-    when its count hits 0."""
+    when its count hits 0. ``max_blocks_per_seq`` is the width of a
+    block table (the reference's constructor)."""
 
-    def __init__(self, num_blocks: int, block_size: int):
+    def __init__(self, num_blocks: int, block_size: int,
+                 max_blocks_per_seq: int):
         self.num_blocks = num_blocks
         self.block_size = block_size
+        self.max_blocks_per_seq = max_blocks_per_seq
         self.free = list(range(num_blocks - 1, -1, -1))
         self.tables = {}            # seq_id -> list of physical block ids
         self.refcount = np.zeros(num_blocks, np.int32)

@@ -203,8 +203,10 @@ def test_cpu_dispatch_picks_unfused_with_reason():
     assert b_fn is None and a_fn is fdb.attn_block_ref
     assert names == {"block": "composed", "attn": "unfused",
                      "mlp": "unfused"}
-    with pytest.raises(NotImplementedError, match="B5"):
-        fdb.resolve_decode_step(meta, "block")
+    b_fn, a_fn, m_fn, names = fdb.resolve_decode_step(meta, "block")
+    assert b_fn is fdb.decode_block_fused_cuda and a_fn is m_fn is None
+    assert names == {"block": "cuda_block", "attn": "cuda_block",
+                     "mlp": "cuda_block"}
 
 
 def _cuda_meta(B=8, D=4096, H=32, KV=32, hd=128, F=11008,
@@ -294,7 +296,9 @@ def test_fused_mode_matches_jax():
             == jgen._decode_variant_name(CFG, 2, 4, 4, jnp.float32, False,
                                          fused) == "unfused"
     assert tgen._decode_variant_name(TCFG, 8, 16, 72, torch.float32, "auto",
-                                     device="cuda") == "cuda_fused"
+                                     device="cuda") == "cuda_block"
+    assert tgen._decode_variant_name(TCFG, 8, 16, 72, torch.float32,
+                                     "pallas", device="cuda") == "cuda_fused"
 
 
 def test_fused_step_bit_identical_to_unfused_and_close_to_jax(params):
@@ -398,7 +402,7 @@ def test_unhonourable_routes_raise(params):
     kw = dict(capacity=2, block_size=4, max_seq_len=32)
     with pytest.raises(ValueError, match="pallas"):
         ServingEngine(tp, TCFG, device="cpu", fused_decode="pallas", **kw)
-    with pytest.raises(NotImplementedError, match="decode_block_fused"):
+    with pytest.raises(ValueError, match="block"):
         ServingEngine(tp, TCFG, device="cpu", fused_decode="block", **kw)
     with pytest.raises(ValueError, match="fused_decode"):
         ServingEngine(tp, TCFG, device="cpu", fused_decode="bogus", **kw)

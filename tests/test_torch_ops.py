@@ -120,7 +120,7 @@ def test_write_to_pool_matches_jax():
 def test_block_manager_matches_jax():
     """The same allocate/attach/release sequence leaves both managers in
     the same state, and both checks agree."""
-    mgrs = [jpa.BlockManager(12, 4, 5), tpa.BlockManager(12, 4)]
+    mgrs = [jpa.BlockManager(12, 4, 5), tpa.BlockManager(12, 4, 5)]
     for m in mgrs:
         m.allocate(-1, 1)
         m.allocate(0, 9)

@@ -185,7 +185,7 @@ def test_submit_validation(params):
 
 
 @pytest.mark.parametrize("kw", [
-    {"fused_decode": "block"},
+    {"cache_dtype": torch.int8},
     {"kv_offload": True}, {"mesh": 2}, {"prefix_cache": True},
     {"weight_quant": "int8"}, {"cache_dtype": "int8"},
     {"observability": True}, {"telemetry": True}])
