@@ -35,11 +35,25 @@ script exits non-zero:
    runs at the train phase's shape (x [2, 2048, 4096] bf16, the f32 norm
    weight cast to bf16), alone and through ``RMSNorm``'s autograd, and is
    timed there too.
+   The same four block kernels with int8 and int4 weights (the PTQ
+   harness's leaves, made on the card; int4 down_proj packed along its
+   output axis, the rest along the contraction axis): against their
+   epilogue-order plain versions (``attn_block_wq_ref``,
+   ``mlp_block_wq_ref``, ``decode_block_ref``,
+   ``prefill_attn_block_wq_ref``), f32 and bf16, KV 32 and 8, 8 to 128
+   rows, the ragged F, the prefill (pos0, n_valid) cases; in f32 also
+   against dequantize-then-matmul; two launches bit for bit; timed at
+   B 8 / P 128 in bf16 beside the bound (integer weights and f32
+   scales), the plain version, the fp kernel on the same activations,
+   the quantized two-stage pair (for the block kernel) and
+   ``torch._weight_int8pack_mm`` over the int8 products.
 3. parity: LLaMA-7B widths, 2 layers, f32: greedy tokens for 5 requests
    through 2 slots from the engine on its default route (fused prefill,
    the single-launch decode kernel), on the two-stage decode route
    (``fused_decode="pallas"``) and on the unfused route, each against
-   the port's dense ``generate``.
+   the port's dense ``generate``; then the same over an int8 and an
+   int4 tree quantized on the card (one layer's leaves byte-equal to the
+   CPU's quantization of the same layer).
 4. serving (the main path): LLaMA-7B, 32 layers, bf16, random weights
    from a seeded ``torch.Generator`` on the card: 12 requests of 40-600
    prompt tokens and 64 new tokens each through 8 slots, on the default
@@ -67,6 +81,12 @@ script exits non-zero:
    ``generate`` on the same requests, compared pairwise (common prefix
    lengths, and the top-2 logit gap of dense bf16 logits at each first
    divergence). Informational: bf16 routes round at other places.
+7b. weight-quantized serving (this slice's main path): the serving phase
+   with ``weight_quant="int8"`` and ``"int4"`` on the default route and
+   int8 on the two-stage route (the engine quantizes the bf16 tree on the
+   card, timed): the fp routes' launch counts, every launch of the four
+   block kernels in the quantized class (``launches_by_weight``), no
+   dequantize-then-matmul call; the profile on int8's default route.
 
 8. flash: the three flash-attention kernels (fwd, dq, dkv) against
    their plain versions, and autograd through them against autograd
@@ -107,7 +127,9 @@ script exits non-zero:
    kernel group and the busy share. Then the same on the "ref" route
    (RMSNorm 4L + 1 a step, the fused-train kernels never).
 
-Then the ``kernels`` summary line, 18 rows (each kernel's launches from
+Then the ``kernels`` summary line, 18 rows and the 8 quantized rows
+(``decode_attn_block[int8]`` ... ``prefill_attn_block[int4]``, launches
+from the quantized serving routes) (each kernel's launches from
 the serving phase of the route that runs it, from the default route's
 train phase, or, for layer_norm_fwd, from its own phase) and,
 last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
@@ -988,13 +1010,436 @@ def prefill_timing(fpb, F, args):
                 q, kd, vd, attn_mask=mask))}
 
 
+# ---------------------------------------------------------------------------
+# quantized weights: decode_attn_block, decode_mlp_block,
+# decode_block_fused and prefill_attn_block with int8 and int4 weights.
+# Each is held against its epilogue-order plain version at the fp phases'
+# tolerances: f32 at atol=rtol=1e-4 (x_out) and 1e-5 (k_new, v_new); bf16
+# at two bf16 ulps (bf16_close), since both sum the same exact products
+# (integer weights are exact in f32) in f32 in other orders and round at
+# the same points. In f32 each is also held against dequantize-then-matmul
+# at 1e-4: the two differ by the rounding of q * s to f32.
+# ---------------------------------------------------------------------------
+WQ_BITS = {8: "int8", 4: "int4"}
+
+
+def wq_leaves(ws, bits, down=None):
+    """The fp weights ``ws`` as quantized leaves, made on the card by the
+    port's PTQ harness (``down``, down_proj, packs its output axis)."""
+    from paddle_tpu_torch.quantization import quantize_leaf
+    return [quantize_leaf(w, bits, pack_axis=1 if w is down else 0)
+            for w in ws]
+
+
+def wq_bytes(shapes, bits, item):
+    """(quantized bytes, fp bytes) of weights of logical ``shapes``: the
+    integers (a byte, or half of one, an element) and the f32 scale row
+    [out] of each, against the same weights in the model type."""
+    n = sum(k * m for k, m in shapes)
+    return (n * bits // 8 + 4 * sum(m for _, m in shapes), n * item)
+
+
+def _library_products(x, leaves, rows):
+    """``torch._weight_int8pack_mm`` over a block's int8 products on the
+    same rows (the yardstick: a library call for the quantized products
+    alone), or None where the card's PyTorch build has no CUDA kernel for
+    it or the class is int4."""
+    import torch
+    if "qw8" not in leaves[0]:
+        return None, "no PyTorch call takes int4 weights in this layout"
+    try:
+        args = [(torch.randn(rows, lf["qw8"].shape[0], device="cuda")
+                 .to(x.dtype), lf["qw8"].t().contiguous(),
+                 lf["scale"].to(x.dtype)) for lf in leaves]
+        for a in args:
+            torch._weight_int8pack_mm(*a)
+        torch.cuda.synchronize()
+        return (cold_ms(lambda: [torch._weight_int8pack_mm(*a)
+                                 for a in args]),
+                "torch._weight_int8pack_mm over the products")
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"torch._weight_int8pack_mm: {str(e)[:100]}"
+
+
+def quant_attn_phase(gpu, bits):
+    """decode_attn_block with int8/int4 weights against attn_block_wq_ref
+    (its epilogue-order plain version) on the card at KV=32 and 8, f32
+    and bf16, 8 and 20 slots, the fp phase's lengths; in f32 also against
+    attn_block_ref (dequantize-then-matmul), at the fp tolerances; two
+    launches bit for bit; dispatch must pick the kernel. Timed at B 8,
+    bf16, KV=32 beside its bound (integer weights and scales), its plain
+    version and the fp kernel on the same activations."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    wd = WQ_BITS[bits]
+    gen = torch.Generator(device="cuda").manual_seed(30 + bits)
+    rope = build_rope_cache(4096, HD7, device="cuda")
+    cases, max_err, timed = [], 0.0, None
+    for dt, KV, B in ((torch.bfloat16, 32, B8), (torch.float32, 32, B8),
+                      (torch.bfloat16, 8, B8), (torch.float32, 8, 20)):
+        fp = fused_attn_inputs(gen, dt, KV, rope, B)
+        args = (*fp[:2], *wq_leaves(fp[2:6], bits), *fp[6:])
+        meta = fdb.decode_meta_dims(B, D7, H7, KV, HD7, F7, BS16, MB72, dt,
+                                    dt, False, weight_dtype=wd)
+        picked = KERNELS.dispatch("decode_attn_block", meta)[0]
+        got = fdb.decode_attn_block_cuda(*args)
+        again = fdb.decode_attn_block_cuda(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        want = fdb.attn_block_wq_ref(*args)
+        outs = {}
+        for nm, g, w, tol in (("x_out", got[0], want[0], 1e-4),
+                              ("k_new", got[1], want[1], 1e-5),
+                              ("v_new", got[2], want[2], 1e-5)):
+            outs[nm] = _check_case(nm, g, w, dt, tol)
+            max_err = max(max_err, outs[nm]["max_abs_err"])
+        if dt == torch.float32:
+            comp = fdb.attn_block_ref(*args)
+            outs["x_out_vs_dequant"] = _check_case("x_out", got[0], comp[0],
+                                                   dt, 1e-4)
+        torch.cuda.synchronize()
+        case = {"dtype": str(dt)[6:], "KV": KV, "B": B, "outputs": outs,
+                "bitwise_repeatable": same, "dispatch": picked,
+                "ok": same and picked == "cuda_fused"
+                and all(o["ok"] for o in outs.values())}
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "kernel", "kernel": f"decode_attn_block[{wd}]",
+                  "gpu": gpu, "cases": cases})
+            raise AssertionError(f"decode_attn_block[{wd}] disagrees: {case}")
+        if dt == torch.bfloat16 and KV == H7 and B == B8:
+            timed, timed_fp = args, fp
+    lens = timed[11].tolist()
+    qb, fb = wq_bytes([(D7, H7 * HD7), (D7, H7 * HD7), (D7, H7 * HD7),
+                       (H7 * HD7, D7)], bits, 2)
+    b_ms, b_by = bound(attn_bytes(lens, D7, H7, H7, HD7, BS16, 2) - fb + qb,
+                       attn_ops(lens, D7, H7, H7, HD7), "bfloat16")
+    lib_ms, lib = _library_products(timed[0], timed[2:6], B8)
+    row = {"name": f"decode_attn_block[{wd}]", "route": "cuda",
+           "source": FUSED_SOURCE,
+           "replaces": "paddle_tpu/ops/pallas/fused_decode_block.py:436",
+           "weights": wd,
+           "shape": {"B": B8, "D": D7, "H": H7, "KV": H7, "hd": HD7,
+                     "BS": BS16, "MB": MB72, "seq_lens": lens},
+           "dtype": "bfloat16", "max_abs_err": max_err,
+           "ms": cold_ms(lambda: fdb.decode_attn_block_cuda(*timed)),
+           "plain_ms": cold_ms(lambda: fdb.attn_block_wq_ref(*timed)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "fp_kernel_ms": cold_ms(
+               lambda: fdb.decode_attn_block_cuda(*timed_fp)),
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes the block",
+           "library_products_ms": lib_ms, "library_products": lib,
+           "ok": True}
+    emit({"phase": "kernel", "kernel": row["name"], "gpu": gpu,
+          "cases": cases, **{k: row[k] for k in (
+              "ms", "plain_ms", "bound_ms", "fp_kernel_ms",
+              "library_products_ms")}})
+    return row
+
+
+def quant_mlp_phase(gpu, bits):
+    """decode_mlp_block with int8/int4 weights (gate/up packed along D,
+    down along its output D) against mlp_block_wq_ref, f32 and bf16, F
+    11008 and the fp phase's ragged F (11000 bf16, 11012 f32: served, the
+    classes' loads divide those rows), 8, 20, 32 and 128 rows; in f32
+    also against mlp_block_ref (dequantize-then-matmul). Timed in bf16 at
+    8, 32 and 128 rows."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    wd = WQ_BITS[bits]
+    gen = torch.Generator(device="cuda").manual_seed(40 + bits)
+    cases, max_err, rows = [], 0.0, {}
+    for dt, F, B in ((torch.bfloat16, F7, B8), (torch.float32, F7, B8),
+                     (torch.bfloat16, 11000, B8), (torch.float32, 11012, 20),
+                     (torch.bfloat16, F7, 32), (torch.bfloat16, F7, 128),
+                     (torch.float32, F7, 128)):
+        def rn(*shape, std=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * std).to(dt)
+        fp = (rn(B, D7), (1 + 0.1 * torch.randn(
+            D7, generator=gen, device="cuda")).to(dt),
+            rn(D7, F, std=0.02), rn(D7, F, std=0.02), rn(F, D7, std=0.02))
+        args = (*fp[:2], *wq_leaves(fp[2:], bits, down=fp[4]))
+        meta = fdb.decode_meta_dims(B, D7, H7, H7, HD7, F, BS16, MB72, dt,
+                                    dt, False, weight_dtype=wd)
+        picked = KERNELS.dispatch("decode_mlp_block", meta)[0]
+        got = fdb.decode_mlp_block_cuda(*args)
+        again = fdb.decode_mlp_block_cuda(*args)
+        want = fdb.mlp_block_wq_ref(*args)
+        torch.cuda.synchronize()
+        outs = {"x_out": _check_case("x_out", got, want, dt, 1e-4)}
+        if dt == torch.float32:
+            outs["x_out_vs_dequant"] = _check_case(
+                "x_out", got, fdb.mlp_block_ref(*args), dt, 1e-4)
+        max_err = max(max_err, outs["x_out"]["max_abs_err"])
+        same = torch.equal(got, again)
+        case = {"dtype": str(dt)[6:], "F": F, "B": B, "outputs": outs,
+                "bitwise_repeatable": same, "dispatch": picked,
+                "ok": same and picked == "cuda_fused"
+                and all(o["ok"] for o in outs.values())}
+        if dt == torch.bfloat16 and F == F7:
+            qb, fb = wq_bytes([(D7, F), (D7, F), (F, D7)], bits, 2)
+            b_ms, b_by = bound(qb + (2 * B * D7 + D7) * 2, 6 * B * D7 * F,
+                               "bfloat16")
+            rows[B] = {
+                "ms": cold_ms(lambda: fdb.decode_mlp_block_cuda(*args)),
+                "plain_ms": cold_ms(lambda: fdb.mlp_block_wq_ref(*args)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "fp_kernel_ms": cold_ms(
+                    lambda: fdb.decode_mlp_block_cuda(*fp))}
+            rows[B]["library_products_ms"], rows[B]["library_products"] = \
+                _library_products(fp[0], args[2:], B)
+            case["ms"] = rows[B]["ms"]
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "kernel", "kernel": f"decode_mlp_block[{wd}]",
+                  "gpu": gpu, "cases": cases})
+            raise AssertionError(f"decode_mlp_block[{wd}] disagrees: {case}")
+    row = {"name": f"decode_mlp_block[{wd}]", "route": "cuda",
+           "source": FUSED_SOURCE,
+           "replaces": "paddle_tpu/ops/pallas/fused_decode_block.py:645",
+           "weights": wd, "shape": {"B": B8, "D": D7, "F": F7},
+           "dtype": "bfloat16", "max_abs_err": max_err, **rows[B8],
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes the block",
+           "prefill_rows": {k: v for k, v in rows.items() if k != B8},
+           "ok": True}
+    emit({"phase": "kernel", "kernel": row["name"], "gpu": gpu,
+          "cases": cases, "rows": rows})
+    return row
+
+
+def quant_block_phase(gpu, bits):
+    """decode_block_fused with int8/int4 weights against decode_block_ref
+    (the JAX block kernel's rounding points, scales in the epilogue) at
+    KV=32 and 8, f32 and bf16, 8 and 20 slots, F 11008 and 11000; in f32
+    also against the dequantize composition (attn_block_ref then
+    mlp_block_ref); two launches bit for bit; dispatch must pick it.
+    Timed at B 8, bf16, beside its bound, its plain version, the fp
+    kernel on the same activations and the quantized two-stage pair."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    wd = WQ_BITS[bits]
+    gen = torch.Generator(device="cuda").manual_seed(50 + bits)
+    rope = build_rope_cache(4096, HD7, device="cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases, max_err, timed = [], 0.0, None
+    for dt, KV, B, F in ((bf16, 32, B8, F7), (f32, 32, B8, F7),
+                         (bf16, 8, B8, F7), (f32, 8, 20, F7),
+                         (bf16, 32, B8, 11000)):
+        fp = block_inputs(gen, dt, KV, F, rope, B)
+        args = (*fp[:2], *wq_leaves(fp[2:6], bits), fp[6],
+                *wq_leaves(fp[7:10], bits, down=fp[9]), *fp[10:])
+        meta = fdb.decode_meta_dims(B, D7, H7, KV, HD7, F, BS16, MB72, dt,
+                                    dt, False, weight_dtype=wd)
+        picked = KERNELS.dispatch("decode_block_fused", meta)[0]
+        got = fdb.decode_block_fused_cuda(*args)
+        again = fdb.decode_block_fused_cuda(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        want = fdb.decode_block_ref(*args)
+        outs = {}
+        for nm, g, w, tol in (("x_out", got[0], want[0], 1e-4),
+                              ("k_new", got[1], want[1], 1e-5),
+                              ("v_new", got[2], want[2], 1e-5)):
+            outs[nm] = _check_case(nm, g, w, dt, tol)
+        max_err = max([max_err] + [o["max_abs_err"] for o in outs.values()])
+        if dt == f32:
+            xo, _, _ = fdb.attn_block_ref(*args[:6], *args[10:])
+            comp = fdb.mlp_block_ref(xo, *args[6:10])
+            outs["x_out_vs_dequant"] = _check_case("x_out", got[0], comp,
+                                                   dt, 1e-4)
+        torch.cuda.synchronize()
+        case = {"dtype": str(dt)[6:], "KV": KV, "B": B, "F": F,
+                "outputs": outs, "bitwise_repeatable": same,
+                "dispatch": picked,
+                "ok": same and picked == "cuda_block"
+                and all(o["ok"] for o in outs.values())}
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "kernel", "kernel": f"decode_block_fused[{wd}]",
+                  "gpu": gpu, "cases": cases})
+            raise AssertionError(f"decode_block_fused[{wd}] disagrees: {case}")
+        if dt == bf16 and KV == H7 and B == B8 and F == F7:
+            timed, timed_fp = args, fp
+    lens = timed[15].tolist()
+    qb, fb = wq_bytes([(D7, H7 * HD7)] * 3 + [(H7 * HD7, D7), (D7, F7),
+                                              (D7, F7), (F7, D7)], bits, 2)
+    b_ms, b_by = bound(
+        block_bytes(lens, D7, H7, H7, HD7, F7, BS16, 2) - fb + qb,
+        attn_ops(lens, D7, H7, H7, HD7) + 6 * B8 * D7 * F7, "bfloat16")
+
+    def two_stage():
+        xo, _, _ = fdb.decode_attn_block_cuda(*timed[:6], *timed[10:])
+        return fdb.decode_mlp_block_cuda(xo, *timed[6:10])
+    row = {"name": f"decode_block_fused[{wd}]", "route": "cuda",
+           "source": FUSED_SOURCE,
+           "replaces": "paddle_tpu/ops/pallas/fused_decode_block.py:1021",
+           "weights": wd,
+           "shape": {"B": B8, "D": D7, "H": H7, "KV": H7, "hd": HD7,
+                     "F": F7, "BS": BS16, "MB": MB72, "seq_lens": lens},
+           "dtype": "bfloat16", "max_abs_err": max_err,
+           "ms": cold_ms(lambda: fdb.decode_block_fused_cuda(*timed)),
+           "plain_ms": cold_ms(lambda: fdb.decode_block_ref(*timed)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "fp_kernel_ms": cold_ms(
+               lambda: fdb.decode_block_fused_cuda(*timed_fp)),
+           "two_stage_ms": cold_ms(two_stage), "library_ms": None,
+           "library": "none: no single PyTorch call computes the layer",
+           "ok": True}
+    emit({"phase": "kernel", "kernel": row["name"], "gpu": gpu,
+          "cases": cases, **{k: row[k] for k in (
+              "ms", "plain_ms", "bound_ms", "fp_kernel_ms",
+              "two_stage_ms")}})
+    return row
+
+
+def quant_prefill_phase(gpu, bits):
+    """prefill_attn_block with int8/int4 weights against
+    prefill_attn_block_wq_ref at KV=32 and 8, f32 and bf16, P=32 and 128,
+    (pos0, n_valid) = (0, P), (5, P-3) and (600, 21/77); in f32 also
+    against prefill_attn_block_ref (dequantize-then-matmul); the real rows
+    at the fp tolerances, every row finite, two launches bit for bit.
+    Timed at P=128, bf16, KV=32, pos0 512, beside its bound, its plain
+    version and the fp kernel on the same activations."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_prefill_block as fpb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    wd = WQ_BITS[bits]
+    gen = torch.Generator(device="cuda").manual_seed(60 + bits)
+    D, H, hd, BS, MB = D7, H7, HD7, BS16, MB72
+    sin, cos = build_rope_cache(MB * BS, hd, device="cuda")
+    cases, max_err, timed = [], 0.0, None
+    for dt in (torch.bfloat16, torch.float32):
+        def rn(*shape, std=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * std).to(dt)
+        for KV in (H, 8):
+            table = (torch.randperm(MB, generator=gen, device="cuda") + 1
+                     ).to(torch.int32)
+            fpw = ((1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+                    ).to(dt), rn(D, H * hd, std=0.02),
+                   rn(D, KV * hd, std=0.02), rn(D, KV * hd, std=0.02),
+                   rn(H * hd, D, std=0.02))
+            weights = (fpw[0], *wq_leaves(fpw[1:], bits))
+            kp, vp = rn(MB + 1, BS, KV, hd), rn(MB + 1, BS, KV, hd)
+            for P in (32, 128):
+                meta = fpb.prefill_meta_dims(P, D, H, KV, hd, F7, BS, MB, dt,
+                                             dt, False, weight_dtype=wd)
+                picked = KERNELS.dispatch("prefill_attn_block", meta)[0]
+                for pos0, n in ((0, P), (5, P - 3),
+                                (600, {32: 21, 128: 77}[P])):
+                    args = (rn(P, D), *weights, sin[pos0:pos0 + P],
+                            cos[pos0:pos0 + P], kp, vp, table, pos0, n)
+                    got = fpb.prefill_attn_block_cuda(*args)
+                    again = fpb.prefill_attn_block_cuda(*args)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    want = fpb.prefill_attn_block_wq_ref(*args)
+                    outs = {}
+                    for nm, g, w, tol in (("x_out", got[0], want[0], 1e-4),
+                                          ("k_new", got[1], want[1], 1e-5),
+                                          ("v_new", got[2], want[2], 1e-5)):
+                        outs[nm] = _check_case(nm, g[:n], w[:n], dt, tol)
+                        max_err = max(max_err, outs[nm]["max_abs_err"])
+                    if dt == torch.float32:
+                        comp = fpb.prefill_attn_block_ref(*args)
+                        outs["x_out_vs_dequant"] = _check_case(
+                            "x_out", got[0][:n], comp[0][:n], dt, 1e-4)
+                    torch.cuda.synchronize()
+                    finite = bool(torch.isfinite(got[0]).all())
+                    case = {"dtype": str(dt)[6:], "KV": KV, "P": P,
+                            "pos0": pos0, "n_valid": n, "outputs": outs,
+                            "pad_rows_finite": finite,
+                            "bitwise_repeatable": same, "dispatch": picked,
+                            "ok": same and finite and picked == "cuda_fused"
+                            and all(o["ok"] for o in outs.values())}
+                    cases.append(case)
+                    if not case["ok"]:
+                        emit({"phase": "kernel",
+                              "kernel": f"prefill_attn_block[{wd}]",
+                              "gpu": gpu, "cases": cases})
+                        raise AssertionError(
+                            f"prefill_attn_block[{wd}] disagrees: {case}")
+            if dt == torch.bfloat16 and KV == H:
+                pos0 = 512
+                x = rn(128, D)
+                timed = (x, *weights, sin[pos0:pos0 + 128],
+                         cos[pos0:pos0 + 128], kp, vp, table, pos0, 128)
+                timed_fp = (x, *fpw, *timed[6:])
+    qb, fb = wq_bytes([(D, H * hd)] * 3 + [(H * hd, D)], bits, 2)
+    b_ms, b_by = bound(
+        prefill_bytes(128, 128, 512, D, H, H, hd, BS, 2) - fb + qb,
+        prefill_ops(128, 512, D, H, H, hd), "bfloat16")
+    row = {"name": f"prefill_attn_block[{wd}]", "route": "cuda",
+           "source": PREFILL_SOURCE,
+           "replaces": "paddle_tpu/ops/pallas/fused_prefill_block.py:431",
+           "weights": wd,
+           "shape": {"P": 128, "n_valid": 128, "pos0": 512, "D": D, "H": H,
+                     "KV": H, "hd": hd, "BS": BS, "MB": MB},
+           "dtype": "bfloat16", "max_abs_err": max_err,
+           "ms": cold_ms(lambda: fpb.prefill_attn_block_cuda(*timed)),
+           "plain_ms": cold_ms(lambda: fpb.prefill_attn_block_wq_ref(*timed)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "fp_kernel_ms": cold_ms(
+               lambda: fpb.prefill_attn_block_cuda(*timed_fp)),
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes the block",
+           "ok": True}
+    emit({"phase": "kernel", "kernel": row["name"], "gpu": gpu,
+          "cases": cases, **{k: row[k] for k in (
+              "ms", "plain_ms", "bound_ms", "fp_kernel_ms")}})
+    return row
+
+
+def quant_kernel_phases(gpu):
+    """The four quantized-weight kernels, int8 then int4."""
+    rows = []
+    for bits in WQ_BITS:
+        rows += [quant_attn_phase(gpu, bits), quant_mlp_phase(gpu, bits),
+                 quant_block_phase(gpu, bits),
+                 quant_prefill_phase(gpu, bits)]
+    return rows
+
+
 # the serving routes: the engine's knobs for each
 ROUTES = {"default": {"fused_decode": None, "fused_prefill": None},
           "two_stage": {"fused_decode": "pallas", "fused_prefill": None},
           "unfused": {"fused_decode": False, "fused_prefill": False}}
+# the weight-quantized routes (this slice's main path: int8 and int4 on the
+# default route, int8 on the two-stage route)
+QUANT_ROUTES = {"int8_default": dict(ROUTES["default"], weight_quant="int8"),
+                "int4_default": dict(ROUTES["default"], weight_quant="int4"),
+                "int8_two_stage": dict(ROUTES["two_stage"],
+                                       weight_quant="int8")}
+ALL_ROUTES = {**ROUTES, **QUANT_ROUTES}
 
 
-def parity_phase(gpu):
+@contextlib.contextmanager
+def counted_dequantize():
+    """Counts the calls of the dequantize-then-matmul building block
+    (``quantization.quanters.dequantize_weight``) inside the block."""
+    from paddle_tpu_torch.quantization import quanters
+    orig, calls = quanters.dequantize_weight, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return orig(*a, **kw)
+    quanters.dequantize_weight = counted
+    try:
+        yield calls
+    finally:
+        quanters.dequantize_weight = orig
+
+
+def parity_phase(gpu, wq=None):
     """Route parity, f32 at LLaMA-7B widths with 2 layers: the engine on
     its default route (the prefill kernel, decode_mlp_block as the prefill
     MLP, the single-launch decode_block_fused kernel), on the two-stage
@@ -1002,7 +1447,12 @@ def parity_phase(gpu):
     decode_mlp_block) and on the unfused route (paged-attention and
     RMSNorm kernels, the verbatim prefill chunk), each against the port's
     dense ``generate``. Tokens must be equal, or the first divergence must
-    sit on a near tie (top-2 logit gap < 1e-4)."""
+    sit on a near tie (top-2 logit gap < 1e-4). With ``wq`` ("int8",
+    "int4") the tree is quantized on the card first, and every engine and
+    ``generate`` serve that one tree (the fused routes through the
+    kernels' quantized bodies, the unfused routes and ``generate``
+    dequantize-then-matmul); one layer's quantized leaves must equal, byte
+    for byte, the same layer quantized on the CPU."""
     import dataclasses
     import torch
     from paddle_tpu_torch.inference import (GenerationConfig,
@@ -1010,11 +1460,23 @@ def parity_phase(gpu):
     from paddle_tpu_torch.inference.generation import (cached_forward,
                                                        init_cache)
     from paddle_tpu_torch.models import LLAMA_7B, init_params
+    from paddle_tpu_torch.quantization import WQ_KEYS, quantize_weights
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(LLAMA_7B, num_hidden_layers=2,
                               dtype=torch.float32)
     params = init_params(cfg, seed=1)
+    card_vs_cpu = None
+    if wq:
+        bits = {"int8": 8, "int4": 4}[wq]
+        fp = params
+        params = quantize_weights(fp, bits=bits)
+        cpu = quantize_weights({"layers": {k: fp["layers"][k][1:].cpu()
+                                           for k in WQ_KEYS}}, bits=bits)
+        card_vs_cpu = all(
+            torch.equal(params["layers"][k][part][1:].cpu(), t)
+            for k in WQ_KEYS for part, t in cpu["layers"][k].items())
+        del fp, cpu
     specs = [(5, 6), (40, 4), (300, 5), (17, 3), (129, 5)]
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, S).astype(np.int32)
@@ -1054,8 +1516,12 @@ def parity_phase(gpu):
         routes[f"default_equals_{route}"] = (routes["default"]["tokens"]
                                              == routes[route]["tokens"])
     emit({"phase": "parity", "gpu": gpu, "dtype": "float32", "layers": 2,
+          "weight_quant": wq, "quantized_on_card_equals_cpu": card_vs_cpu,
           **{k: ({kk: vv for kk, vv in v.items() if kk != "tokens"}
                  if isinstance(v, dict) else v) for k, v in routes.items()}})
+    if card_vs_cpu is False:
+        raise AssertionError(f"{wq}: the card's quantized leaves differ "
+                             "from the CPU's")
     _check_default_route(routes["default"], "parity engine")
     if routes["two_stage"]["decode_variant"]["attn"] != "cuda_fused":
         raise AssertionError("the two-stage parity engine is not on the "
@@ -1088,20 +1554,30 @@ SERVE_REQUESTS, SERVE_NEW = 12, 64
 
 def serving_phase(gpu, params, route):
     """LLaMA-7B at full depth, bf16, 8 slots, 12 requests, on one of
-    ``ROUTES``: the default (both knobs left at their default: the
+    ``ALL_ROUTES``: the default (both knobs left at their default: the
     single-launch decode kernel), the two-stage decode route
     (``fused_decode="pallas"``) or the unfused one (``fused_decode=False,
-    fused_prefill=False``). The launch counts are set to 0 just before
-    the requests go in and read just after the engine drains."""
+    fused_prefill=False``), on fp weights; or the default and two-stage
+    routes with ``weight_quant="int8"|"int4"`` (the engine quantizes the
+    fp tree on the card in its constructor, timed). The launch counts
+    are set to 0 just before the requests go in and read just after the
+    engine drains; on a quantized route every launch of the four block
+    kernels must be in the quantized class and no dequantize-then-matmul
+    may run."""
     import torch
     from paddle_tpu_torch.inference import GenerationConfig, ServingEngine
     from paddle_tpu_torch.models import LLAMA_7B
     from paddle_tpu_torch.ops import kernels
     cfg = LLAMA_7B
     L = cfg.num_hidden_layers
+    wq = ALL_ROUTES[route].get("weight_quant")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     eng = ServingEngine(params, cfg, capacity=8, block_size=16,
                         max_seq_len=1024, prefill_buckets=(32, 128),
-                        **ROUTES[route])
+                        **ALL_ROUTES[route])
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     lens = rng.integers(40, 601, SERVE_REQUESTS)
     gen = GenerationConfig(max_new_tokens=SERVE_NEW, greedy=True)
@@ -1111,18 +1587,24 @@ def serving_phase(gpu, params, route):
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in lens]
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, gen) for p in prompts]
-    eng.drain()
-    torch.cuda.synchronize()
+    with counted_dequantize() as dequant_calls:
+        reqs = [eng.submit(p, gen) for p in prompts]
+        eng.drain()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launches()
+    by_weight = kernels.launches_by_weight()
     m = eng.metrics()
     steps, chunks = m["decode_steps"], m["prefill_chunks"]
     emit({"phase": "serving", "route": route, "gpu": gpu,
           "model": "LLAMA_7B", "layers": L, "dtype": "bfloat16",
+          "weight_quant": wq, "construct_s": round(construct_s, 3),
           "requests": len(reqs), "prompt_tokens": [int(n) for n in lens],
           "decode_variant": m["decode_variant"],
           "prefill_variant": m["prefill_variant"],
+          "weight_quant_variant": m["weight_quant_variant"],
+          "dequantize_calls": dequant_calls[0],
+          "launches_by_weight": by_weight,
           "wall_s": round(wall, 3),
           "tokens_per_sec": m["tokens_per_sec"],
           "prefill_tokens_per_sec": m["prefill_tokens_per_sec"],
@@ -1143,13 +1625,28 @@ def serving_phase(gpu, params, route):
             raise AssertionError(f"request {r.req_id}: token out of range")
     # the prefill MLP is decode_mlp_block over the chunk's rows; the final
     # norm of every chunk and step is the RMSNorm kernel
-    if route == "default":
+    base = route.split("_", 1)[1] if wq else route
+    if wq:
+        if dequant_calls[0]:
+            raise AssertionError(f"{route}: {dequant_calls[0]} dequantize-"
+                                 "then-matmul products ran")
+        for op, by in by_weight.items():
+            if by[wq] != counts[op]:
+                raise AssertionError(f"{route}: {op} launched {by} (all "
+                                     f"{counts[op]} must be {wq})")
+        want_wq = {"mode": wq, "weight_dtype": wq,
+                   **{k: m["decode_variant"][k]
+                      for k in ("block", "attn", "mlp")}}
+        if m["weight_quant_variant"] != want_wq:
+            raise AssertionError(f"{route}: weight_quant_variant "
+                                 f"{m['weight_quant_variant']}")
+    if base == "default":
         want = {"prefill_attn_block": L * chunks,
                 "decode_block_fused": L * steps, "decode_attn_block": 0,
                 "decode_mlp_block": L * chunks,
                 "paged_attention_decode": 0, "rms_norm_fwd": steps + chunks}
         _check_default_route(m, "main path")
-    elif route == "two_stage":
+    elif base == "two_stage":
         want = {"prefill_attn_block": L * chunks, "decode_block_fused": 0,
                 "decode_attn_block": L * steps,
                 "decode_mlp_block": L * (steps + chunks),
@@ -1162,7 +1659,8 @@ def serving_phase(gpu, params, route):
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"{route} launches {counts} != {want} "
                              f"({steps} decode steps, {chunks} chunks)")
-    return counts, eng, prompts, [r.tokens for r in reqs]
+    return dict(counts, by_weight=by_weight), eng, prompts, [r.tokens
+                                                             for r in reqs]
 
 
 def routes_phase(gpu, params, prompts, routes):
@@ -1347,6 +1845,18 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
     H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                  cfg.head_dim)
     item = eng._k_pools.element_size()
+    D, F = cfg.hidden_size, cfg.intermediate_size
+    attn_w = [(D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D)]
+    mlp_w = [(D, F), (D, F), (F, D)]
+    wbits = {"int8": 8, "int4": 4}.get(eng.weight_quant_variant["mode"])
+
+    def wadj(shapes):
+        """Bytes a quantized route's weights (and scales) differ by from
+        the fp weights the byte models count."""
+        if not wbits:
+            return 0
+        q, f = wq_bytes(shapes, wbits, item)
+        return q - f
     prefill = {"chunks_traced": traced,
                "per_chunk_by_group": _rounded(chunk_groups),
                "device_ms_per_chunk": round(sum(
@@ -1357,7 +1867,7 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
         P = eng.buckets[-1]
         nbytes = float(np.mean([prefill_bytes(
             P, P, pos0, cfg.hidden_size, H, KV, hd, eng.block_size, item)
-            for pos0 in range(0, traced * P, P)]))
+            for pos0 in range(0, traced * P, P)])) + wadj(attn_w)
         prefill["prefill_attn_block_per_launch"] = {
             "bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
             "us": ms / n * 1e3}
@@ -1388,13 +1898,15 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
             [n + 1 for n in ls], H, KV, hd, eng.block_size, item),
         "decode_attn_block": lambda ls: attn_bytes(
             ls + [0] * (eng.capacity - len(ls)), cfg.hidden_size, H, KV, hd,
-            eng.block_size, item),
+            eng.block_size, item) + wadj(attn_w),
         "decode_mlp_block": lambda ls: (
             3 * cfg.hidden_size * cfg.intermediate_size
-            + (2 * eng.capacity + 1) * cfg.hidden_size) * item,
+            + (2 * eng.capacity + 1) * cfg.hidden_size) * item
+        + wadj(mlp_w),
         "decode_block_fused": lambda ls: block_bytes(
             ls + [0] * (eng.capacity - len(ls)), cfg.hidden_size, H, KV, hd,
-            cfg.intermediate_size, eng.block_size, item),
+            cfg.intermediate_size, eng.block_size, item)
+        + wadj(attn_w + mlp_w),
     }
     for op, model in byte_models.items():
         ms, n = groups.get(op, [0.0, 0.0])
@@ -2306,6 +2818,7 @@ def main():
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
             fused_mlp_phase(gpu), block_phase(gpu), prefill_attn_phase(gpu)]
+    quant_rows = quant_kernel_phases(gpu)
     ln_row = layer_norm_phase(gpu)
     train_rows = flash_phase(gpu) + [adamw_phase(gpu,
                                                  flat_size(train_config()))]
@@ -2313,7 +2826,8 @@ def main():
     train_parity_phase(gpu)
     train_counts, _ = train_phase(gpu, None)
     ref_counts, _ = train_phase(gpu, "ref")
-    parity_phase(gpu)
+    for wq in (None, "int8", "int4"):
+        parity_phase(gpu, wq)
     params = init_params(LLAMA_7B, seed=0)
     counts, tokens = {}, {}
     prompts = None
@@ -2323,6 +2837,14 @@ def main():
         profile_phase(gpu, eng, route)
         del eng
     routes_phase(gpu, params, prompts, tokens)
+    # this slice's main path: the weight-quantized routes (a profile of the
+    # int8 default route's decode step)
+    for route in QUANT_ROUTES:
+        counts[route], eng, _, _ = serving_phase(gpu, params, route)
+        if route == "int8_default":
+            profile_phase(gpu, eng, route)
+        del eng
+        torch.cuda.empty_cache()
     # each kernel's launches on the serving phase of the route that runs
     # it: paged attention on the unfused route, decode_attn_block on the
     # two-stage route, the rest (RMSNorm runs on every route) on the
@@ -2337,6 +2859,20 @@ def main():
         if row["name"] == "rms_norm_fwd":
             row["train_launches"] = train_counts["rms_norm_fwd"]
             row["ref_train_launches"] = ref_counts["rms_norm_fwd"]
+    # the quantized kernels' launches on the quantized routes: the
+    # two-stage attention kernel on int8's two-stage route (no int4
+    # two-stage route is driven), the rest on each class's default route
+    for row in quant_rows:
+        name, wd = row["name"].split("[")[0], row["weights"]
+        route = (f"{wd}_two_stage" if name == "decode_attn_block"
+                 else f"{wd}_default")
+        row["launches"] = (counts[route]["by_weight"][name][wd]
+                           if route in counts else 0)
+        row["launches_route"] = route if route in counts else None
+        if name == "decode_mlp_block" and f"{wd}_two_stage" in counts:
+            row["two_stage_launches"] = counts[f"{wd}_two_stage"][
+                "by_weight"][name][wd]
+    rows += quant_rows
     rows.append(ln_row)
     for row in train_rows:
         # the training kernels' launches on the default route's timed

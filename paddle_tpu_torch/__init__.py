@@ -12,8 +12,9 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``; on the
 CPU every kernel is replaced by its plain PyTorch version. Kernels build
 (nvcc) or compile (Triton) at their first launch, never at import.
 """
-from . import device, distributed, inference, models, ops  # noqa: F401
+from . import (device, distributed, inference, models, ops,  # noqa: F401
+               quantization)
 from .device import resolve_device  # noqa: F401
 
 __all__ = ["device", "distributed", "inference", "models", "ops",
-           "resolve_device"]
+           "quantization", "resolve_device"]

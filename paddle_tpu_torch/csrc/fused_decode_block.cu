@@ -18,6 +18,32 @@
 // _block_fused_kernel, launch "decode_block_fused"): both halves in one
 // launch, (x, nw, wq, wk, wv, wo, pw, wg, wu, wd, ...) -> (x_out, k_new,
 // v_new), the attention-to-MLP residual kept in f32.
+// Each weight may be T, int8 or packed int4, with an f32 scale per output
+// column (the PTQ harness's leaves, paddle_tpu_torch/quantization/ptq.py);
+// the launchers take the scale pointers and the weight bits (0, 8, 4).
+// The quantized bodies replace the same JAX kernels' wq_bits bodies
+// (paddle_tpu/ops/pallas/fused_decode_block.py, _kernel_weight and the
+// epilogue scales of each kernel). Decisions:
+//   - the kernels stream the integer weights and convert them to f32 in
+//     registers (block_products.cuh's weight classes); the scale multiplies
+//     each reduced f32 sum in the epilogue, before the cast to T where the
+//     fp kernels cast (q/k/v before RoPE, g/u before SwiGLU, o and down
+//     before the residual add; the block kernel adds o * s and down * s to
+//     its f32 residual). So they follow dot(h, q) * s, the JAX order, and
+//     differ from dequantize-then-matmul (which rounds q * s to T first) by
+//     roundoff only;
+//   - int8 loads are 8 bytes in bf16 (4 in f32): a thread keeps the fp
+//     kernels' 8 output columns and accumulators;
+//   - int4 q/k/v/o/gate/up are packed along the contraction axis ([K/2][N]):
+//     each packed row multiplies two rows of the k-major operand, k' and
+//     k' + K/2, both halves resident (the normalised pass) or staged chunk
+//     by chunk (o_proj); int4 down is packed along its output axis
+//     ([F][D/2]): the down phase tiles D/2 packed columns and each thread
+//     writes two column ranges, with a scale, a residual and a store each;
+//   - the load width of every class divides a row of a width the fp kernels
+//     take (rows a multiple of 16 bytes in T), so the predicates add only
+//     int4's even pack axes; shared memory holds activations only and does
+//     not change with the class.
 // T is float or __nv_bfloat16. The two-stage kernels follow the rounding
 // order of their plain versions (ops/kernels/fused_decode_block.py:
 // attn_block_ref, mlp_block_ref): RMSNorm in f32, cast to T before the
@@ -86,7 +112,8 @@ __host__ __device__ inline int splits(int MB) {
 }
 
 struct AttnArgs {
-  const void *x, *nw, *wq, *wk, *wv, *wo;
+  const void *x, *nw, *wq, *wk, *wv, *wo;   // weights: T, int8 or int4
+  const float *sq, *sk, *sv, *so;           // f32 [out] scales, or null
   const float *sin, *cos;
   const void *k_pool, *v_pool;
   const int *tables, *seq_lens;
@@ -102,6 +129,7 @@ struct AttnArgs {
 struct MlpArgs {
   const void* x;       // T; the f32 residual in the block kernel
   const void *nw, *wg, *wu, *wd;
+  const float *sg, *su, *sd;   // f32 [out] scales, or null
   void *out, *ff_ws;   // T: [P][F][8]
   int B, D, F, residual;
   float eps;
@@ -117,14 +145,24 @@ struct BlockArgs {
   float* resid;
 };
 
+// The scaled f32 sum of output column c: the weight's scale multiplies
+// it in the epilogue (WQ != 0), before any rounding.
+template <int WQ>
+__device__ __forceinline__ float scaled(float v, const float* s, int c) {
+  if constexpr (WQ != 0) return v * s[c];
+  return v;
+}
+
 // 1. q/k/v products by column tiles of the three matrices, rows in T,
 // over the RMSNorm of each pass of rows (k-major in shared memory)
-template <typename T>
+template <typename T, int WQ>
 __device__ void attn_qkv_phase(const AttnArgs& a, unsigned char* smem) {
   constexpr int V = Vec<T>::n;
+  constexpr int WC = wclass(WQ, false);
   const int B = a.B, D = a.D, H = a.H, KV = a.KV, hd = a.hd;
   const int tid = threadIdx.x;
   const int nq = H * hd, nkv = KV * hd, ncols = nq + 2 * nkv;
+  const int kn = WC == kWInt4K ? D / 2 : D;   // stored weight rows
   T* region = reinterpret_cast<T*>(smem);
   float* red_s = reinterpret_cast<float*>(smem + a.region);
   float* res_s = red_s + kWarps * kMaxLpr * V * kRB;
@@ -133,15 +171,15 @@ __device__ void attn_qkv_phase(const AttnArgs& a, unsigned char* smem) {
   const int tq = (nq + tc - 1) / tc, tk = (nkv + tc - 1) / tc;
   int held = -1;
   for (int t = blockIdx.x; t < tq + 2 * tk; t += gridDim.x) {
-    const T* W;
+    const void* W;
+    const float* S;
     int col0, n, base;
     if (t < tq) {
-      W = static_cast<const T*>(a.wq); col0 = t * tc; n = nq; base = 0;
+      W = a.wq; S = a.sq; col0 = t * tc; n = nq; base = 0;
     } else if (t < tq + tk) {
-      W = static_cast<const T*>(a.wk); col0 = (t - tq) * tc; n = nkv;
-      base = nq;
+      W = a.wk; S = a.sk; col0 = (t - tq) * tc; n = nkv; base = nq;
     } else {
-      W = static_cast<const T*>(a.wv); col0 = (t - tq - tk) * tc; n = nkv;
+      W = a.wv; S = a.sv; col0 = (t - tq - tk) * tc; n = nkv;
       base = nq + nkv;
     }
     for (int p = 0; p < passes(B); ++p) {
@@ -149,12 +187,14 @@ __device__ void attn_qkv_phase(const AttnArgs& a, unsigned char* smem) {
                    region, p, &held, B, D, a.eps, red_s);
       float acc[kRB][V];
       zero<T>(acc);
-      tile_accumulate<T>(acc, region, W, n, D, col0, n, lpr);
+      tile_accumulate<T, WC>(acc, region, region + (size_t)kn * kRB, W,
+                             row_bytes<T, WC>(n), kn, col0, n, lpr);
       tile_reduce<T>(acc, red_s, res_s, lpr);
       for (int i = tid; i < tc * kRB; i += kThreads) {
         const int c = col0 + i / kRB, b = p * kRB + i % kRB;
         if (b < B && c < n)
-          qkv[(size_t)b * ncols + base + c] = from_float<T>(res_s[i]);
+          qkv[(size_t)b * ncols + base + c] =
+              from_float<T>(scaled<WQ>(res_s[i], S, c));
       }
       __syncthreads();
     }
@@ -312,11 +352,12 @@ __device__ void attn_combine_phase(const AttnArgs& a) {
 
 // 4. o_proj by column tiles of D. The two-stage kernel rounds o to T and
 // adds x in T (x_out); the block kernel keeps o in f32 and writes
-// resid = f32(x) + o.
-template <typename T, bool kF32Resid>
+// resid = f32(x) + o. A quantized o is the scaled f32 sum.
+template <typename T, int WQ, bool kF32Resid>
 __device__ void o_proj_phase(const AttnArgs& a, unsigned char* smem,
                              float* resid) {
   constexpr int V = Vec<T>::n;
+  constexpr int WC = wclass(WQ, false);
   const int B = a.B, D = a.D, nq = a.H * a.hd;
   const int tid = threadIdx.x;
   T* region = reinterpret_cast<T*>(smem);
@@ -330,17 +371,18 @@ __device__ void o_proj_phase(const AttnArgs& a, unsigned char* smem,
   const int tiles = (D + tc - 1) / tc;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     for (int p = 0; p < passes(B); ++p) {
-      tile_sums_staged<T>(attn_t + (size_t)p * nq * kRB, nq, region, kc_max,
-                          static_cast<const T*>(a.wo), D, t * tc, D,
-                          min(kRB, B - p * kRB), lpr, red_s, res_s);
+      tile_sums_staged<T, WC>(attn_t + (size_t)p * nq * kRB, nq, region,
+                              kc_max, a.wo, row_bytes<T, WC>(D), t * tc, D,
+                              min(kRB, B - p * kRB), lpr, red_s, res_s);
       for (int i = tid; i < tc * kRB; i += kThreads) {
         const int c = t * tc + i / kRB, b = p * kRB + i % kRB;
         if (b < B && c < D) {
           const size_t o = (size_t)b * D + c;
+          const float v = scaled<WQ>(res_s[i], a.so, c);
           if constexpr (kF32Resid) {
-            resid[o] = to_float(x[o]) + res_s[i];
+            resid[o] = to_float(x[o]) + v;
           } else {
-            const float d = round_t<T>(res_s[i]);
+            const float d = round_t<T>(v);
             xo[o] = from_float<T>(a.residual ? to_float(x[o]) + d : d);
           }
         }
@@ -352,11 +394,14 @@ __device__ void o_proj_phase(const AttnArgs& a, unsigned char* smem,
 
 // MLP 1. gate and up by F tiles (the last one masked) over the RMSNorm of
 // each pass of rows of x (In: T, or the block kernel's f32 residual;
-// k-major in shared memory), silu(g)*u in T
-template <typename T, typename In>
+// k-major in shared memory), each scaled sum cast to T, silu(g)*u in T
+template <typename T, typename In, int WQ>
 __device__ void mlp_up_phase(const MlpArgs& a, unsigned char* smem) {
   constexpr int V = Vec<T>::n;
+  constexpr int WC = wclass(WQ, false);
   const int B = a.B, D = a.D, F = a.F;
+  const int kn = WC == kWInt4K ? D / 2 : D;   // stored weight rows
+  const size_t ldb = row_bytes<T, WC>(F);
   const int tid = threadIdx.x;
   T* region = reinterpret_cast<T*>(smem);
   float* red_s = reinterpret_cast<float*>(smem + a.region);
@@ -373,19 +418,19 @@ __device__ void mlp_up_phase(const MlpArgs& a, unsigned char* smem) {
       hold_pass<T, In>(x, static_cast<const T*>(a.nw), region, p, &held, B,
                        D, a.eps, red_s);
       const T* h = region;
+      const T* h_hi = h + (size_t)kn * kRB;
       float acc[kRB][V];
       zero<T>(acc);
-      tile_accumulate<T>(acc, h, static_cast<const T*>(a.wg), F, D, col0, F,
-                         lpr);
+      tile_accumulate<T, WC>(acc, h, h_hi, a.wg, ldb, kn, col0, F, lpr);
       tile_reduce<T>(acc, red_s, res_g, lpr);
       zero<T>(acc);
-      tile_accumulate<T>(acc, h, static_cast<const T*>(a.wu), F, D, col0, F,
-                         lpr);
+      tile_accumulate<T, WC>(acc, h, h_hi, a.wu, ldb, kn, col0, F, lpr);
       tile_reduce<T>(acc, red_s, res_u, lpr);
       for (int i = tid; i < tc * kRB; i += kThreads) {
         const int c = col0 + i / kRB, b = p * kRB + i % kRB;
         if (b < B && c < F) {
-          const float g = round_t<T>(res_g[i]), u = round_t<T>(res_u[i]);
+          const float g = round_t<T>(scaled<WQ>(res_g[i], a.sg, c));
+          const float u = round_t<T>(scaled<WQ>(res_u[i], a.su, c));
           const float sg = round_t<T>(g / (1.f + expf(-g)));
           ff_t[((size_t)p * F + c) * kRB + i % kRB] =
               from_float<T>(__fmul_rn(sg, u));
@@ -398,34 +443,40 @@ __device__ void mlp_up_phase(const MlpArgs& a, unsigned char* smem) {
 
 // MLP 2. down by column tiles of D over all of F, then the residual: the
 // two-stage kernel rounds down to T and adds x in T; the block kernel adds
-// the f32 sum to its f32 residual (x) and rounds once.
-template <typename T, bool kF32Resid>
+// the f32 sum to its f32 residual (x) and rounds once. int4 down is packed
+// along D: the tiles run over D/2 packed columns, each result lands on its
+// column through out_col.
+template <typename T, int WQ, bool kF32Resid>
 __device__ void mlp_down_phase(const MlpArgs& a, unsigned char* smem) {
   constexpr int V = Vec<T>::n;
+  constexpr int WC = wclass(WQ, true);
   const int B = a.B, D = a.D, F = a.F;
+  const int nst = WC == kWInt4N ? D / 2 : D;   // stored columns
   const int tid = threadIdx.x;
   T* region = reinterpret_cast<T*>(smem);
   float* red_s = reinterpret_cast<float*>(smem + a.region);
   float* res_g = red_s + kWarps * kMaxLpr * V * kRB;
   const T* ff_t = static_cast<const T*>(a.ff_ws);
-  const int lpr = pick_lpr(D, V), tc = lpr * V;
+  const int lpr = pick_lpr(nst, Wt<T, WC>::cols);
+  const int tcs = lpr * Wt<T, WC>::cols, nres = lpr * V;   // stored, results
   const int kc_max = min(F, (int)(a.region / (sizeof(T) * kRB)));
   T* out = static_cast<T*>(a.out);
-  const int tiles = (D + tc - 1) / tc;
+  const int tiles = (nst + tcs - 1) / tcs;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     for (int p = 0; p < passes(B); ++p) {
-      tile_sums_staged<T>(ff_t + (size_t)p * F * kRB, F, region, kc_max,
-                          static_cast<const T*>(a.wd), D, t * tc, D,
-                          min(kRB, B - p * kRB), lpr, red_s, res_g);
-      for (int i = tid; i < tc * kRB; i += kThreads) {
-        const int c = t * tc + i / kRB, b = p * kRB + i % kRB;
-        if (b < B && c < D) {
+      tile_sums_staged<T, WC>(ff_t + (size_t)p * F * kRB, F, region, kc_max,
+                              a.wd, row_bytes<T, WC>(D), t * tcs, nst,
+                              min(kRB, B - p * kRB), lpr, red_s, res_g);
+      for (int i = tid; i < nres * kRB; i += kThreads) {
+        const int c = out_col<T, WC>(t * tcs, i / kRB, nst, D / 2);
+        const int b = p * kRB + i % kRB;
+        if (b < B && c >= 0) {
           const size_t o = (size_t)b * D + c;
+          const float v = scaled<WQ>(res_g[i], a.sd, c);
           if constexpr (kF32Resid) {
-            out[o] = from_float<T>(static_cast<const float*>(a.x)[o] +
-                                   res_g[i]);
+            out[o] = from_float<T>(static_cast<const float*>(a.x)[o] + v);
           } else {
-            const float d = round_t<T>(res_g[i]);
+            const float d = round_t<T>(v);
             const float xv = to_float(static_cast<const T*>(a.x)[o]);
             out[o] = from_float<T>(a.residual ? xv + d : d);
           }
@@ -436,28 +487,28 @@ __device__ void mlp_down_phase(const MlpArgs& a, unsigned char* smem) {
   }
 }
 
-template <typename T>
+template <typename T, int WQ>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_attn_block_kernel(const AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  attn_qkv_phase<T>(a, smem);
+  attn_qkv_phase<T, WQ>(a, smem);
   grid.sync();
   attn_pages_phase<T>(a, smem);
   grid.sync();
   attn_combine_phase<T>(a);
   grid.sync();
-  o_proj_phase<T, false>(a, smem, nullptr);
+  o_proj_phase<T, WQ, false>(a, smem, nullptr);
 }
 
-template <typename T>
+template <typename T, int WQ>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_mlp_block_kernel(const MlpArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  mlp_up_phase<T, T>(a, smem);
+  mlp_up_phase<T, T, WQ>(a, smem);
   grid.sync();
-  mlp_down_phase<T, false>(a, smem);
+  mlp_down_phase<T, WQ, false>(a, smem);
 }
 
 // One block an SM: under __launch_bounds__(kThreads, 2) (128 registers)
@@ -465,23 +516,27 @@ decode_mlp_block_kernel(const MlpArgs a) {
 // ~18% (NVIDIA H100, bf16, 7B widths); with one block an SM nothing
 // spills (234 registers) and each phase runs at the two-stage kernels'
 // pace. The grid is sized from this kernel's own occupancy.
-template <typename T>
+template <typename T, int WQ>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_block_fused_kernel(const BlockArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  attn_qkv_phase<T>(a.attn, smem);
+  attn_qkv_phase<T, WQ>(a.attn, smem);
   grid.sync();
   attn_pages_phase<T>(a.attn, smem);
   grid.sync();
   attn_combine_phase<T>(a.attn);
   grid.sync();
-  o_proj_phase<T, true>(a.attn, smem, a.resid);
+  o_proj_phase<T, WQ, true>(a.attn, smem, a.resid);
   grid.sync();
-  mlp_up_phase<T, float>(a.mlp, smem);
+  mlp_up_phase<T, float, WQ>(a.mlp, smem);
   grid.sync();
-  mlp_down_phase<T, true>(a.mlp, smem);
+  mlp_down_phase<T, WQ, true>(a.mlp, smem);
 }
+
+PADDLE_TPU_PICK_KERNEL(attn_kernel, decode_attn_block_kernel, AttnArgs)
+PADDLE_TPU_PICK_KERNEL(mlp_kernel, decode_mlp_block_kernel, MlpArgs)
+PADDLE_TPU_PICK_KERNEL(block_kernel, decode_block_fused_kernel, BlockArgs)
 
 // The attention half's arguments, the workspaces carved from ws_t (T):
 // qkv [B][(H+2KV)*hd], then the attention rows [P][H*hd][8] at an offset
@@ -489,7 +544,8 @@ decode_block_fused_kernel(const BlockArgs a) {
 // [B*H*splits] each, part_acc [B*H*splits*hd], s_new [B*H].
 inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
                           const void* wk, const void* wv, const void* wo,
-                          const void* sin, const void* cos,
+                          const void* sq, const void* sk, const void* sv,
+                          const void* so, const void* sin, const void* cos,
                           const void* k_pool, const void* v_pool,
                           const void* tables, const void* seq_lens,
                           void* x_out, void* k_new, void* v_new, void* ws_t,
@@ -500,6 +556,8 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
   const size_t n_part = (size_t)B * H * splits(MB);
   float* f = static_cast<float*>(ws_f);
   return AttnArgs{x, nw, wq, wk, wv, wo,
+                  static_cast<const float*>(sq), static_cast<const float*>(sk),
+                  static_cast<const float*>(sv), static_cast<const float*>(so),
                   static_cast<const float*>(sin),
                   static_cast<const float*>(cos), k_pool, v_pool,
                   static_cast<const int*>(tables),
@@ -516,46 +574,50 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
 // C interface, bound with ctypes (paddle_tpu_torch/ops/kernels/
 // fused_decode_block.py checks shapes, types, contiguity and alignment,
 // sizes shared memory and allocates the workspaces first). dtype: 0 =
-// float32, 1 = bfloat16; region and smem: the shared-memory layout's
-// bytes (file header). The launchers return the launch's cudaError_t.
+// float32, 1 = bfloat16; wbits: the weights' class, 0 = T, 8 = int8, 4 =
+// packed int4 (down_proj along its output axis, the rest along their
+// contraction axis), with the f32 scale pointers s* (null for 0); region
+// and smem: the shared-memory layout's bytes (file header). The launchers
+// return the launch's cudaError_t; a (dtype, wbits) pair they do not take
+// is cudaErrorInvalidValue.
 
 // ws_t and ws_f as attn_args carves them.
 extern "C" int decode_attn_block(
     const void* x, const void* nw, const void* wq, const void* wk,
-    const void* wv, const void* wo, const void* sin, const void* cos,
+    const void* wv, const void* wo, const void* sq, const void* sk,
+    const void* sv, const void* so, const void* sin, const void* cos,
     const void* k_pool, const void* v_pool, const void* tables,
     const void* seq_lens, void* x_out, void* k_new, void* v_new, void* ws_t,
     void* ws_f, int B, int D, int H, int KV, int hd, int BS, int MB,
-    int rope_rows, int residual, int region, int smem, float eps,
+    int rope_rows, int residual, int region, int smem, int wbits, float eps,
     float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
+  const auto kernel = attn_kernel(dtype, wbits);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   const AttnArgs a = attn_args(
-      x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool, tables, seq_lens,
-      x_out, k_new, v_new, ws_t, ws_f, B, D, H, KV, hd, BS, MB, rope_rows,
-      residual, region, eps, scale, dtype == 1 ? 2 : 4);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_coop(decode_attn_block_kernel<__nv_bfloat16>, a, smem, s);
-  return launch_coop(decode_attn_block_kernel<float>, a, smem, s);
+      x, nw, wq, wk, wv, wo, sq, sk, sv, so, sin, cos, k_pool, v_pool,
+      tables, seq_lens, x_out, k_new, v_new, ws_t, ws_f, B, D, H, KV, hd, BS,
+      MB, rope_rows, residual, region, eps, scale, dtype == 1 ? 2 : 4);
+  return launch_coop(kernel, a, smem, static_cast<cudaStream_t>(stream));
 }
 
 // ff_ws (T): [P][F][8].
 extern "C" int decode_mlp_block(const void* x, const void* nw, const void* wg,
-                                const void* wu, const void* wd, void* out,
+                                const void* wu, const void* wd, const void* sg,
+                                const void* su, const void* sd, void* out,
                                 void* ff_ws, int B, int D, int F,
                                 int residual, int region, int smem,
-                                float eps, int dtype, void* stream) {
+                                int wbits, float eps, int dtype,
+                                void* stream) {
   using namespace paddle_tpu_torch::fused;
+  const auto kernel = mlp_kernel(dtype, wbits);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  MlpArgs a{x, nw, wg, wu, wd, out, ff_ws, B, D, F, residual, eps,
-            (size_t)region};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_coop(decode_mlp_block_kernel<__nv_bfloat16>, a, smem, s);
-  return launch_coop(decode_mlp_block_kernel<float>, a, smem, s);
+  MlpArgs a{x, nw, wg, wu, wd, static_cast<const float*>(sg),
+            static_cast<const float*>(su), static_cast<const float*>(sd),
+            out, ff_ws, B, D, F, residual, eps, (size_t)region};
+  return launch_coop(kernel, a, smem, static_cast<cudaStream_t>(stream));
 }
 
 // ws_t (T): attn_args' qkv and attention rows, then ff [P][F][8] at an
@@ -564,33 +626,35 @@ extern "C" int decode_mlp_block(const void* x, const void* nw, const void* wg,
 extern "C" int decode_block_fused(
     const void* x, const void* nw, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* pw, const void* wg,
-    const void* wu, const void* wd, const void* sin, const void* cos,
-    const void* k_pool, const void* v_pool, const void* tables,
-    const void* seq_lens, void* x_out, void* k_new, void* v_new, void* ws_t,
-    void* ws_f, int B, int D, int H, int KV, int hd, int F, int BS, int MB,
-    int rope_rows, int region, int smem, float eps, float scale, int dtype,
+    const void* wu, const void* wd, const void* sq, const void* sk,
+    const void* sv, const void* so, const void* sg, const void* su,
+    const void* sd, const void* sin, const void* cos, const void* k_pool,
+    const void* v_pool, const void* tables, const void* seq_lens,
+    void* x_out, void* k_new, void* v_new, void* ws_t, void* ws_f, int B,
+    int D, int H, int KV, int hd, int F, int BS, int MB, int rope_rows,
+    int region, int smem, int wbits, float eps, float scale, int dtype,
     void* stream) {
   using namespace paddle_tpu_torch::fused;
+  const auto kernel = block_kernel(dtype, wbits);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   const int item = dtype == 1 ? 2 : 4;
   const AttnArgs attn = attn_args(
-      x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool, tables, seq_lens,
-      nullptr, k_new, v_new, ws_t, ws_f, B, D, H, KV, hd, BS, MB, rope_rows,
-      1, region, eps, scale, item);
+      x, nw, wq, wk, wv, wo, sq, sk, sv, so, sin, cos, k_pool, v_pool,
+      tables, seq_lens, nullptr, k_new, v_new, ws_t, ws_f, B, D, H, KV, hd,
+      BS, MB, rope_rows, 1, region, eps, scale, item);
   const size_t n_qkv = ((size_t)B * (H + 2 * KV) * hd + 7) / 8 * 8;
   const size_t n_t = n_qkv + (size_t)passes(B) * kRB * H * hd;
   const size_t n_part = (size_t)B * H * splits(MB);
   const size_t n_f = (2 * n_part + n_part * hd + (size_t)B * H + 3) / 4 * 4;
   float* resid = static_cast<float*>(ws_f) + n_f;
-  const MlpArgs mlp{resid, pw, wg, wu, wd, x_out,
+  const MlpArgs mlp{resid, pw, wg, wu, wd, static_cast<const float*>(sg),
+                    static_cast<const float*>(su),
+                    static_cast<const float*>(sd), x_out,
                     static_cast<char*>(ws_t) + n_t * item, B, D, F, 1, eps,
                     (size_t)region};
   const BlockArgs a{attn, mlp, resid};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_coop(decode_block_fused_kernel<__nv_bfloat16>, a, smem, s);
-  return launch_coop(decode_block_fused_kernel<float>, a, smem, s);
+  return launch_coop(kernel, a, smem, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cuda_error_string(int err) {

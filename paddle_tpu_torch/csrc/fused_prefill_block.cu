@@ -16,8 +16,15 @@
 // chunk's own rows c <= r. Rows at or after n_valid skip all compute and
 // are written as zeros (x_out, k_new, v_new): a pad row's output is left
 // open by the contract, and zeros keep every row finite at every depth.
+// The weights may be T, int8 or int4 packed along the contraction axis,
+// with an f32 scale per output column (the JAX kernel's wq_bits body): the
+// kernel streams the integers and multiplies each reduced f32 sum by its
+// column's scale before the cast to T (q/k/v before RoPE, o before the
+// residual add), as fused_decode_block.cu's phases do (its header lists
+// the decisions; block_products.cuh's weight classes do the loads).
 // T is float or __nv_bfloat16. The rounding order is the plain version's
-// (ops/kernels/fused_prefill_block.py: prefill_attn_block_ref): RMSNorm in
+// (ops/kernels/fused_prefill_block.py: prefill_attn_block_wq_ref, which is
+// prefill_attn_block_ref on plain weights up to summation order): RMSNorm in
 // f32, cast to T before the weight multiply; every projection lands in T;
 // RoPE in f32 on the T value, then T; the chunk's K/V are T before the
 // chunk attends to them; the attention output is T before o_proj; the
@@ -58,7 +65,8 @@ namespace paddle_tpu_torch {
 namespace fused {
 
 struct PrefillArgs {
-  const void *x, *nw, *wq, *wk, *wv, *wo;
+  const void *x, *nw, *wq, *wk, *wv, *wo;   // weights: T, int8 or int4
+  const float *sq, *sk, *sv, *so;           // f32 [out] scales, or null
   const float *sin, *cos;
   const void *k_pool, *v_pool;
   const int* table;
@@ -70,10 +78,17 @@ struct PrefillArgs {
   size_t region;
 };
 
-template <typename T>
+template <int WQ>
+__device__ __forceinline__ float scaled(float v, const float* s, int c) {
+  if constexpr (WQ != 0) return v * s[c];
+  return v;
+}
+
+template <typename T, int WQ>
 __global__ void __launch_bounds__(kThreads, 2)
 prefill_attn_block_kernel(const PrefillArgs a) {
   constexpr int V = Vec<T>::n;
+  constexpr int WC = wclass(WQ, false);
   extern __shared__ __align__(16) unsigned char smem[];
   const int P = a.P, D = a.D, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
   const int nv = a.n_valid, pos0 = a.pos0, bq = a.bq;
@@ -96,16 +111,17 @@ prefill_attn_block_kernel(const PrefillArgs a) {
     const int lpr = pick_lpr(ncols, V), tc = lpr * V;
     const int tq = (nq + tc - 1) / tc, tk = (nkv + tc - 1) / tc;
     int held = -1;
+    const int kn = WC == kWInt4K ? D / 2 : D;   // stored weight rows
     for (int t = blockIdx.x; t < tq + 2 * tk; t += gridDim.x) {
-      const T* W;
+      const void* W;
+      const float* S;
       int col0, n, base;
       if (t < tq) {
-        W = static_cast<const T*>(a.wq); col0 = t * tc; n = nq; base = 0;
+        W = a.wq; S = a.sq; col0 = t * tc; n = nq; base = 0;
       } else if (t < tq + tk) {
-        W = static_cast<const T*>(a.wk); col0 = (t - tq) * tc; n = nkv;
-        base = nq;
+        W = a.wk; S = a.sk; col0 = (t - tq) * tc; n = nkv; base = nq;
       } else {
-        W = static_cast<const T*>(a.wv); col0 = (t - tq - tk) * tc; n = nkv;
+        W = a.wv; S = a.sv; col0 = (t - tq - tk) * tc; n = nkv;
         base = nq + nkv;
       }
       for (int p = 0; p < passes(nv); ++p) {
@@ -113,12 +129,14 @@ prefill_attn_block_kernel(const PrefillArgs a) {
                      region, p, &held, nv, D, a.eps, red_s);
         float acc[kRB][V];
         zero<T>(acc);
-        tile_accumulate<T>(acc, region, W, n, D, col0, n, lpr);
+        tile_accumulate<T, WC>(acc, region, region + (size_t)kn * kRB, W,
+                               row_bytes<T, WC>(n), kn, col0, n, lpr);
         tile_reduce<T>(acc, red_s, res_s, lpr);
         for (int i = tid; i < tc * kRB; i += kThreads) {
           const int c = col0 + i / kRB, r = p * kRB + i % kRB;
           if (r < nv && c < n)
-            qkv[(size_t)r * ncols + base + c] = from_float<T>(res_s[i]);
+            qkv[(size_t)r * ncols + base + c] =
+                from_float<T>(scaled<WQ>(res_s[i], S, c));
         }
         __syncthreads();
       }
@@ -266,14 +284,15 @@ prefill_attn_block_kernel(const PrefillArgs a) {
     const int tiles = (D + tc - 1) / tc;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       for (int p = 0; p < passes(nv); ++p) {
-        tile_sums_staged<T>(attn_t + (size_t)p * nq * kRB, nq, region, kc_max,
-                            static_cast<const T*>(a.wo), D, t * tc, D,
-                            min(kRB, nv - p * kRB), lpr, red_s, res_s);
+        tile_sums_staged<T, WC>(attn_t + (size_t)p * nq * kRB, nq, region,
+                                kc_max, a.wo, row_bytes<T, WC>(D), t * tc,
+                                D, min(kRB, nv - p * kRB), lpr, red_s,
+                                res_s);
         for (int i = tid; i < tc * kRB; i += kThreads) {
           const int c = t * tc + i / kRB, r = p * kRB + i % kRB;
           if (r < nv && c < D) {
             const size_t o = (size_t)r * D + c;
-            const float d = round_t<T>(res_s[i]);
+            const float d = round_t<T>(scaled<WQ>(res_s[i], a.so, c));
             xo[o] = from_float<T>(a.residual ? to_float(x[o]) + d : d);
           }
         }
@@ -283,35 +302,42 @@ prefill_attn_block_kernel(const PrefillArgs a) {
   }
 }
 
+PADDLE_TPU_PICK_KERNEL(prefill_kernel, prefill_attn_block_kernel,
+                       PrefillArgs)
+
 }  // namespace fused
 }  // namespace paddle_tpu_torch
 
 // C interface, bound with ctypes (paddle_tpu_torch/ops/kernels/
 // fused_prefill_block.py checks shapes, types, contiguity, alignment and
 // the chunk geometry, sizes shared memory and allocates the outputs and
-// workspaces first). dtype: 0 = float32, 1 = bfloat16; region and smem:
-// the shared-memory layout's bytes; bq: query rows a work item takes (P
-// is a multiple of it). Returns the launch's cudaError_t.
+// workspaces first). dtype: 0 = float32, 1 = bfloat16; wbits: the
+// weights' class, 0 = T, 8 = int8, 4 = int4 packed along the contraction
+// axis, with the f32 scale pointers s* (null for 0); region and smem: the
+// shared-memory layout's bytes; bq: query rows a work item takes (P is a
+// multiple of it). Returns the launch's cudaError_t; a (dtype, wbits) pair
+// it does not take is cudaErrorInvalidValue.
 extern "C" int prefill_attn_block(
     const void* x, const void* nw, const void* wq, const void* wk,
-    const void* wv, const void* wo, const void* sin, const void* cos,
+    const void* wv, const void* wo, const void* sq, const void* sk,
+    const void* sv, const void* so, const void* sin, const void* cos,
     const void* k_pool, const void* v_pool, const void* table, void* x_out,
     void* k_new, void* v_new, void* qkv_ws, void* q_ws, void* attn_ws, int P,
     int D, int H, int KV, int hd, int BS, int MB, int pos0, int n_valid,
-    int bq, int residual, int region, int smem, float eps, float scale,
-    int dtype, void* stream) {
+    int bq, int residual, int region, int smem, int wbits, float eps,
+    float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const auto kernel = prefill_kernel(dtype, wbits);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   if (n_valid < 1 || n_valid > P || bq < 1 || P % bq) return cudaErrorInvalidValue;
   PrefillArgs a{x, nw, wq, wk, wv, wo,
+                static_cast<const float*>(sq), static_cast<const float*>(sk),
+                static_cast<const float*>(sv), static_cast<const float*>(so),
                 static_cast<const float*>(sin), static_cast<const float*>(cos),
                 k_pool, v_pool, static_cast<const int*>(table), x_out, k_new,
                 v_new, qkv_ws, q_ws, attn_ws, P, D, H, KV, hd, BS, MB, pos0,
                 n_valid, bq, residual, eps, scale, (size_t)region};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_coop(prefill_attn_block_kernel<__nv_bfloat16>, a, smem, s);
-  return launch_coop(prefill_attn_block_kernel<float>, a, smem, s);
+  return launch_coop(kernel, a, smem, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cuda_error_string(int err) {

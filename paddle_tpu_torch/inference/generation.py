@@ -18,6 +18,11 @@ after the attention, each resolved through the kernel registry).
 ``_fused_prefill_forward`` is the JAX engine's default prefill chunk: per
 layer one ``prefill_attn_block``, the chunk's pool write, one
 ``prefill_mlp_block``, straight over the pools.
+
+Every function takes a weight-quantized tree (:mod:`..quantization`) as
+well as a plain one: the unfused products (``_mm``) dequantize each leaf
+first, and the fused steps hand the leaves to the kernels, which stream
+the integers and scale in their epilogue.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ from ..ops import rms_norm, swiglu
 from ..ops.paged_attention import (paged_attention_decode,
                                    write_chunk_to_pool, write_to_pool)
 from ..ops.rope import apply_rope, build_rope_cache
+from ..quantization.ptq import weight_quant_mode
+from ..quantization.quanters import maybe_dequantize
 
 __all__ = ["GenerationConfig", "init_cache", "cached_forward",
            "sample_token", "generate"]
@@ -60,13 +67,16 @@ class GenerationConfig:
 
 
 def _mm(h, w):
-    """``h @ w``. Quantized weight leaves (``{"qw8"|"qw4": ...}``) come
-    with the weight-quantization slice."""
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "quantized weights are not ported yet (weight-quantization "
-            "slice)")
-    return h @ w
+    """``h @ w``, where ``w`` may be a quantized leaf (``{"qw8"|"qw4": q,
+    "scale": s}``): dequantize-then-matmul in h's type, the one product of
+    every unfused site, as in the JAX package."""
+    return h @ maybe_dequantize(w, h.dtype)
+
+
+def _wq_mode(params):
+    """The weight-quant mode a tree carries (None/"int8"/"int4"), read off
+    its structure: the dispatch metas' ``weight_dtype``."""
+    return weight_quant_mode(params)
 
 
 def _repeat_kv(x, n):
@@ -79,8 +89,10 @@ def _repeat_kv(x, n):
 
 
 def _layer(params, i):
-    """Layer ``i``'s weights as views into the stacked ``layers`` dict."""
-    return {k: w[i] for k, w in params["layers"].items()}
+    """Layer ``i``'s weights as views into the stacked ``layers`` dict (a
+    quantized leaf's integers and scales alike)."""
+    return {k: ({n: t[i] for n, t in w.items()} if isinstance(w, dict)
+                else w[i]) for k, w in params["layers"].items()}
 
 
 def _head(params):
@@ -286,14 +298,11 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
     ``_paged_decode_step``."""
     from ..ops.kernels.fused_decode_block import (decode_meta,
                                                   resolve_decode_step)
-    if isinstance(params["layers"]["q_proj"], dict):
-        raise NotImplementedError(
-            "quantized weights are not ported yet (weight-quantization "
-            "slice)")
     B = tok.shape[0]
     meta = decode_meta(cfg, B=B, BS=k_pools.shape[2],
                        MB=block_tables.shape[1], pool_dtype=k_pools.dtype,
-                       quant=False, device=k_pools.device)
+                       quant=False, weight_dtype=_wq_mode(params),
+                       device=k_pools.device)
     block_fn, attn_fn, mlp_fn, _ = resolve_decode_step(meta, mode)
     x = params["embed_tokens"][tok.long()]               # [B, D]
     if rope is None:
@@ -329,7 +338,7 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
 
 
 def _decode_variant_name(cfg, B, BS, MB, pool_dtype, fused,
-                         device="cuda"):
+                         device="cuda", wq=None):
     """The variant one decode step would run, as one string: "cuda_block"
     (the single-launch kernel), "cuda_fused" (the two hand-written
     kernels) or "unfused" (the composition)."""
@@ -338,7 +347,7 @@ def _decode_variant_name(cfg, B, BS, MB, pool_dtype, fused,
     from ..ops.kernels.fused_decode_block import (decode_meta,
                                                   resolve_decode_step)
     meta = decode_meta(cfg, B=B, BS=BS, MB=MB, pool_dtype=pool_dtype,
-                       quant=False, device=device)
+                       quant=False, weight_dtype=wq, device=device)
     block_fn, _, _, names = resolve_decode_step(meta, fused)
     return names["block"] if block_fn is not None else names["attn"]
 
@@ -379,14 +388,10 @@ def _fused_prefill_forward(params, toks, cfg, k_pools, v_pools, table,
     to the CUDA kernels they run the verbatim unfused chunk."""
     from ..ops.kernels.fused_prefill_block import (prefill_meta,
                                                    resolve_prefill_blocks)
-    if isinstance(params["layers"]["q_proj"], dict):
-        raise NotImplementedError(
-            "quantized weights are not ported yet (weight-quantization "
-            "slice)")
     P = toks.shape[0]
     BS, MB = k_pools.shape[2], table.shape[0]
     meta = prefill_meta(cfg, P, BS, MB, k_pools.dtype, quant=False,
-                        device=k_pools.device)
+                        weight_dtype=_wq_mode(params), device=k_pools.device)
     attn_fn, mlp_fn, _ = resolve_prefill_blocks(meta, mode)
     x = params["embed_tokens"][toks.long()]              # [P, D]
     if rope is None:

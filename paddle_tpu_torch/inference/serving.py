@@ -44,9 +44,14 @@ predicate makes the constructor raise) and the verbatim unfused chunk on
 the CPU, where dispatch picks the composition, as the JAX engine does
 off the TPU; "pallas" forces the fused chunk on the CUDA kernels (and is
 refused on the CPU); "ref" and False run the verbatim chunk everywhere;
-``prefill_variant`` says which. Tensor parallelism, prefix cache, host
-offload, int8 KV cache, weight quantization, observability and telemetry
-come with later slices: their constructor arguments raise here.
+``prefill_variant`` says which. ``weight_quant`` ("int8"/"int4", or a
+tree the PTQ harness already quantized) serves int8/int4 weights as the
+JAX engine does: a plain tree is quantized once in the constructor, on
+the engine's device; the fused routes run the kernels' quantized-weight
+bodies, the unfused routes dequantize before each product;
+``weight_quant_variant`` reports it. Tensor parallelism, prefix cache,
+host offload, int8 KV cache, observability and telemetry come with later
+slices: their constructor arguments raise here.
 
 ``metrics()`` has the JAX engine's keys (observability off, one device)
 plus ``decode_step_ms_mean``. The port runs eagerly, so its
@@ -70,6 +75,7 @@ from ..device import resolve_device
 from ..models.llama import params_to
 from ..ops.paged_attention import BlockManager
 from ..ops.rope import build_rope_cache
+from ..quantization.ptq import ensure_quantized
 from .admission import AdmissionQueue
 from .generation import (GenerationConfig, _fused_decode_step,
                          _fused_mode, _fused_prefill_forward,
@@ -173,9 +179,6 @@ class ServingEngine:
             _not_ported("prefix_cache/kv_offload",
                         prefix_cache or kv_offload,
                         "the radix prefix cache and its host tier")
-        if weight_quant is not None:
-            _not_ported("weight_quant", weight_quant,
-                        "weight quantization")
         if cache_dtype not in (None, "bfloat16", "float32",
                                torch.bfloat16, torch.float32):
             if cache_dtype in ("int8", torch.int8):
@@ -197,7 +200,12 @@ class ServingEngine:
                     f'{knob}="{mode}" forces the CUDA kernels, which do '
                     f"not run on {self.device}; use 'auto' or 'ref' there")
         self._clock = clock if clock is not None else time.perf_counter
-        self.params = params_to(params, self.device)
+        # weight quantization (quantization/ptq.py): "int8"/"int4"
+        # quantizes a plain tree once, on the engine's device; a quantized
+        # tree rides as-is and None adopts its mode; a requested mode that
+        # differs from the tree's raises
+        self.params, self._wq = ensure_quantized(
+            params_to(params, self.device), weight_quant)
         self.cfg = cfg
         self.capacity = int(capacity)
         self.block_size = int(block_size)
@@ -491,12 +499,13 @@ class ServingEngine:
                                               decode_step_bytes)
         cfg = self.cfg
         act = self._k_pools.element_size()
+        wbytes = {"int8": 1.0, "int4": 0.5}.get(self._wq or "", float(act))
         L = cfg.num_hidden_layers
         per_layer = decode_step_bytes(
             self.capacity, cfg.hidden_size, cfg.num_attention_heads,
             cfg.num_key_value_heads, cfg.head_dim, cfg.intermediate_size,
             self.block_size, self.max_blocks, act_itemsize=act,
-            weight_itemsize=act, pool_itemsize=act)
+            weight_itemsize=wbytes, pool_itemsize=act)
         head = cfg.vocab_size * cfg.hidden_size * act
         step_bytes = {k: int(v * L + head) for k, v in per_layer.items()}
         active = self._active_arm()
@@ -513,7 +522,7 @@ class ServingEngine:
         meta = decode_meta(self.cfg, B=self.capacity, BS=self.block_size,
                            MB=self.max_blocks,
                            pool_dtype=self._k_pools.dtype, quant=False,
-                           device=self.device)
+                           weight_dtype=self._wq, device=self.device)
         _, _, _, names = resolve_decode_step(meta, self._fused)
         return {"mode": str(self._fused), **names}
 
@@ -535,7 +544,7 @@ class ServingEngine:
         from ..ops.kernels.fused_prefill_block import prefill_meta
         return prefill_meta(self.cfg, P, self.block_size, self.max_blocks,
                             self._k_pools.dtype, quant=False,
-                            device=self.device)
+                            weight_dtype=self._wq, device=self.device)
 
     def _prefill_fused_for(self, P: int) -> bool:
         """Whether bucket ``P`` runs the fused chunk: ALL-OR-NOTHING, both
@@ -567,9 +576,15 @@ class ServingEngine:
 
     @property
     def weight_quant_variant(self) -> Dict:
-        """The weight-dtype class: plain fp weights only until the
-        weight-quantization slice."""
-        return {"mode": "off"}
+        """The weight class the decode step serves: ``{"mode": "off"}``
+        for plain weights, else ``{"mode": "int8"|"int4", "weight_dtype":
+        ..., "block": ..., "attn": ..., "mlp": ...}`` with the decode
+        variants (:attr:`decode_variant`) that serve the quantized tree."""
+        if not self._wq:
+            return {"mode": "off"}
+        v = self.decode_variant
+        return {"mode": self._wq, "weight_dtype": self._wq,
+                "block": v["block"], "attn": v["attn"], "mlp": v["mlp"]}
 
     def _scheduler_metrics(self) -> Dict:
         per = {str(cls): {

@@ -50,7 +50,12 @@ def decode_step_bytes(B: int, D: int, H: int, KV: int, hd: int, F: int,
     - ``unfused`` (the composition): every weight once plus ~10 (B, D)
       activation round trips and the (B, F) gate/up/SwiGLU tensors.
 
-    Rope rows, tables and the kernels' small workspaces are ignored."""
+    ``weight_itemsize`` is the bytes a weight element: the model type's,
+    1 for int8 weights, 0.5 for packed int4. The quantized weights' f32
+    scale rows (``(2H + 2KV) * hd + 2F + D`` floats a layer: 170 KB at
+    LLaMA-7B, 0.17% of its int4 weights) are not counted, as in the JAX
+    model. Rope rows, tables and the kernels' small workspaces are
+    ignored."""
     Hhd, KVhd = H * hd, KV * hd
     w_attn = (D * Hhd + 2 * D * KVhd + Hhd * D) * weight_itemsize
     w_mlp = 3 * D * F * weight_itemsize

@@ -6,19 +6,24 @@ kernel for CUDA tensors and raises for anything else; it counts its
 launches in a plain integer attribute, ``<wrapper>.launches``.
 :data:`WRAPPERS` maps each TPU launch name to its wrapper; the dispatch
 registry of ops with several variants is :mod:`.registry`'s ``KERNELS``.
+The four decode and prefill block wrappers, whose kernels take fp, int8
+or int4 weights, also count their launches by weight class
+(``<wrapper>.launches_by_weight``).
 """
 from .flash_attention import (flash_bwd_dkv_cuda,  # noqa: F401
                               flash_bwd_dq_cuda, flash_fwd_cuda)
 from .fused_adamw import fused_adamw_triton  # noqa: F401
 from .fused_decode_block import (attn_block_ref,  # noqa: F401
-                                 decode_attn_block_cuda,
+                                 attn_block_wq_ref, decode_attn_block_cuda,
                                  decode_block_fused_cuda, decode_block_ref,
-                                 decode_mlp_block_cuda, mlp_block_ref)
+                                 decode_mlp_block_cuda, mlp_block_ref,
+                                 mlp_block_wq_ref)
 from .fused_train import (linear_ce_bwd_dh_cuda,  # noqa: F401
                           linear_ce_bwd_dx_cuda, linear_ce_fwd_cuda,
                           swiglu_bwd_triton, swiglu_fwd_triton)
 from .fused_prefill_block import (prefill_attn_block_cuda,  # noqa: F401
-                                  prefill_attn_block_ref)
+                                  prefill_attn_block_ref,
+                                  prefill_attn_block_wq_ref)
 from .norms import (layer_norm_fwd_triton,  # noqa: F401
                     layer_norm_ref, residual_rms_norm_fwd_triton,
                     rms_norm_bwd_triton, rms_norm_fwd_triton, rms_norm_ref)
@@ -48,11 +53,23 @@ WRAPPERS = {
 
 
 def reset_launches():
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch counts to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+        by = getattr(fn, "launches_by_weight", None)
+        if by is not None:
+            for k in by:
+                by[k] = 0
 
 
 def launches():
     """``{launch name: count}`` for every kernel."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def launches_by_weight():
+    """``{launch name: {"fp"|"int8"|"int4": count}}`` for the kernels that
+    take quantized weights."""
+    return {name: dict(fn.launches_by_weight)
+            for name, fn in WRAPPERS.items()
+            if hasattr(fn, "launches_by_weight")}

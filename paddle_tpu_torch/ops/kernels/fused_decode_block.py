@@ -1,7 +1,7 @@
 """Fused decode-block kernels: the three CUDA kernels' wrappers, their
 plain versions, the dispatch metas and predicates, and the resolvers
-(port of ``paddle_tpu/ops/pallas/fused_decode_block.py``, fp weights and
-fp pools).
+(port of ``paddle_tpu/ops/pallas/fused_decode_block.py``: fp, int8 and
+int4 weights; fp pools).
 
 - ``decode_attn_block`` (:func:`decode_attn_block_cuda`) replaces
   ``fused_attn_block_pallas``: RMSNorm + QKV + RoPE + paged attention with
@@ -18,16 +18,27 @@ for ``sm_90a``, built by :mod:`._build` at the first launch and bound with
 ctypes); that file's header says what bounds them on the H100 and how
 their design follows from it.
 
-:func:`attn_block_ref` and :func:`mlp_block_ref` are the plain versions
-of the two-stage kernels and the registry's priority-0 ``"unfused"``
-variants: op for op the building blocks of
-``inference.generation._paged_decode_step``, so a decode step that
+Each weight may be a plain tensor or a quantized leaf of the PTQ harness
+(``{"qw8"|"qw4": q, "scale": s}``, :mod:`paddle_tpu_torch.quantization`).
+The kernels stream the integer weights, convert them in registers and
+apply the per-output-channel f32 scale in the product's epilogue, as the
+JAX kernels do: ``dot(h, q) * s``, then the cast to the model type where
+the fp kernel casts.
+
+:func:`attn_block_ref` and :func:`mlp_block_ref` are the registry's
+priority-0 ``"unfused"`` variants: op for op the building blocks of
+``inference.generation._paged_decode_step`` (quantized leaves through
+``maybe_dequantize``, dequantize-then-matmul), so a decode step that
 dispatches them is bit-identical to the unfused step. They run the port's
 RMSNorm and paged-attention kernels on CUDA tensors and those kernels'
-plain versions on the CPU. :func:`decode_block_ref` is the single-launch
-kernel's plain version, written for that kernel's rounding points (the
-JAX ``_block_fused_kernel``'s), which differ from the two-stage route's:
-a roundoff-level variant of it, as in the JAX package.
+plain versions on the CPU. :func:`attn_block_wq_ref` and
+:func:`mlp_block_wq_ref` are the two-stage kernels' plain versions in the
+kernels' epilogue order, which differs from dequantize-then-matmul by
+roundoff (``q * s`` is never rounded to the model type); on plain weights
+they are the compositions up to summation order. :func:`decode_block_ref`
+is the single-launch kernel's plain version, written for that kernel's
+rounding points (the JAX ``_block_fused_kernel``'s), which differ from the
+two-stage route's: a roundoff-level variant of it, as in the JAX package.
 :func:`decode_block_composed` is ``decode_block_fused``'s priority-0
 variant: the exact two-stage sequence, each stage dispatched through the
 registry (the two CUDA kernels on the card, the compositions on the CPU).
@@ -40,18 +51,20 @@ shared memory for one pass of 8 normalised rows and the attention scratch
 (:func:`attn_smem_bytes`, :func:`mlp_smem_bytes`,
 :func:`block_smem_bytes`: the one definition of the kernels' layout
 sizes, passed to them at launch) under the card's 227 KB a block. That
-need grows with the hidden width, not with the batch: at LLaMA-7B all
-three kernels are selected for any number of slots. So "auto" on the
-card takes the single-launch kernel where the TPU takes the two-stage
-route, and the serving engine's default decode step is
+need grows with the hidden width, not with the batch or the weight type
+(shared memory holds activations, never weights): at LLaMA-7B all three
+kernels are selected for any number of slots and every weight class. So
+"auto" on the card takes the single-launch kernel where the TPU takes the
+two-stage route, and the serving engine's default decode step is
 ``decode_block_fused``.
 
 The compositions are the CPU's route only. On CUDA tensors a predicate
 that refuses a two-stage kernel makes dispatch raise with its reason:
-the decode step never gives way to the composition on the card unless
-the caller asks for it (``mode="ref"``, or a ``KERNELS.force`` pin).
-Where the single-launch kernel refuses, "auto" takes the two-stage
-kernels, as the JAX package does.
+the decode step never gives way to the composition (nor, for a quantized
+tree, to dequantize-then-matmul) on the card unless the caller asks for
+it (``mode="ref"``, or a ``KERNELS.force`` pin). Where the single-launch
+kernel refuses, "auto" takes the two-stage kernels, as the JAX package
+does.
 """
 from __future__ import annotations
 
@@ -60,44 +73,115 @@ import math
 
 import torch
 
+from ...quantization.quanters import maybe_dequantize, unpack_int4
 from . import _build
 from .registry import KERNELS
 
-__all__ = ["attn_block_ref", "mlp_block_ref", "decode_block_ref",
-           "decode_block_composed", "decode_attn_block_cuda",
-           "decode_mlp_block_cuda", "decode_block_fused_cuda",
-           "decode_meta", "decode_meta_dims", "attn_smem_bytes",
-           "mlp_smem_bytes", "block_smem_bytes", "SMEM_LIMIT",
-           "resolve_decode_blocks", "resolve_decode_step"]
+__all__ = ["attn_block_ref", "mlp_block_ref", "attn_block_wq_ref",
+           "mlp_block_wq_ref", "decode_block_ref", "decode_block_composed",
+           "decode_attn_block_cuda", "decode_mlp_block_cuda",
+           "decode_block_fused_cuda", "decode_meta", "decode_meta_dims",
+           "attn_smem_bytes", "mlp_smem_bytes", "block_smem_bytes",
+           "SMEM_LIMIT", "weight_dtype_of", "resolve_decode_blocks",
+           "resolve_decode_step"]
 
 #: dynamic shared memory one block of an H100 may use (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
 
 _fns = {}
 
-_NOT_PORTED_QUANT = "not ported: int8 cache / weight-quant slice"
+_NOT_PORTED_QUANT = "not ported: int8 cache slice (int8 KV pools)"
 
 
 # ---------------------------------------------------------------------------
-# plain versions: the unfused composition, op for op
+# weight quantization: plain tensors or the PTQ harness's leaves
+# ---------------------------------------------------------------------------
+def _wq_parts(w):
+    """A weight leaf -> (weights, scale, bits, pack_axis): a plain tensor is
+    ``(w, None, 0, 0)``; a quantized leaf ``{"qw8"|"qw4": q, "scale": s}``
+    its integer tensor, f32 scale [out], 8 or 4, and for int4 the axis it
+    is packed along: 1 (the output axis) when the byte count is half the
+    scale length, else 0 (the contraction axis)."""
+    if isinstance(w, dict):
+        scale = w["scale"]
+        if "qw4" in w:
+            qw = w["qw4"]
+            return qw, scale, 4, (1 if qw.shape[-1] * 2 == scale.shape[-1]
+                                  else 0)
+        return w["qw8"], scale, 8, 0
+    return w, None, 0, 0
+
+
+def weight_dtype_of(*ws):
+    """The weight class of a block's leaves: "int8", "int4" or None for
+    plain tensors. A block's weights share one class (the kernels stream
+    them all in one form)."""
+    bits = {_wq_parts(w)[2] for w in ws}
+    if len(bits) != 1:
+        raise ValueError(
+            "all block weights must share one weight-quant mode, got "
+            f"bit widths {sorted(bits)}")
+    return {8: "int8", 4: "int4"}.get(bits.pop())
+
+
+def _wq_even_reason(meta, dims):
+    """int4 packing pairs the two halves of the pack axis, so every packed
+    dimension must be even. ``dims``: (name, value) pairs."""
+    if meta.get("weight_dtype") != "int4":
+        return None
+    for name, v in dims:
+        if v % 2:
+            return (f"packed-int4 weights need an even {name} "
+                    f"(got {v}): packing pairs the axis halves")
+    return None
+
+
+def _f32mm(h, w):
+    """``h @ w`` summed in f32, in the kernels' epilogue order: a quantized
+    leaf's integers (exact in the model type) in the f32 product, then
+    times the per-output-channel f32 scale. f32 result."""
+    if not isinstance(w, dict):
+        return h.float() @ w.float()
+    q, s, bits, axis = _wq_parts(w)
+    if bits == 4:
+        q = unpack_int4(q, axis)
+    return (h.float() @ q.float()) * s.float()
+
+
+def _epi_mm(h, w):
+    """A product landing in h's type as the kernels round it: plain
+    weights ``h @ w``; quantized leaves :func:`_f32mm` cast once."""
+    if not isinstance(w, dict):
+        return h @ w
+    return _f32mm(h, w).to(h.dtype)
+
+
+def _deq_mm(h, w):
+    """Dequantize-then-matmul: the unfused step's product."""
+    return h @ maybe_dequantize(w, h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the unfused composition, op for op, and the kernels'
+# epilogue order
 # ---------------------------------------------------------------------------
 def _attention(x, nw, wq, wk, wv, sin, cos, k_pool, v_pool, block_tables,
-               seq_lens, eps):
-    """The attention of a decode block as the unfused step runs it, up to
-    the attention rows: (attn [B, H*hd] in x's type, k_new, v_new
-    [B, KV, hd]). Writes the new token's K/V into the pools first (in
-    place), as the JAX version does."""
+               seq_lens, eps, mm):
+    """The attention of a decode block up to the attention rows: (attn
+    [B, H*hd] in x's type, k_new, v_new [B, KV, hd]), with the q/k/v
+    products of ``mm``. Writes the new token's K/V into the pools first
+    (in place), as the JAX version does."""
     from .. import rms_norm
     from ..paged_attention import paged_attention_decode, write_to_pool
     from ..rope import apply_rope
     B, D = x.shape
     _, _, KV, hd = k_pool.shape
-    H = wq.shape[1] // hd
+    H = _wq_parts(wq)[0].shape[1] // hd
     pos_ids = seq_lens[:, None]
     h = rms_norm(x[:, None], nw, eps)[:, 0]
-    q = (h @ wq).reshape(B, 1, H, hd)
-    k = (h @ wk).reshape(B, 1, KV, hd)
-    v = (h @ wv).reshape(B, 1, KV, hd)
+    q = mm(h, wq).reshape(B, 1, H, hd)
+    k = mm(h, wk).reshape(B, 1, KV, hd)
+    v = mm(h, wv).reshape(B, 1, KV, hd)
     q = apply_rope(q, sin, cos, position_ids=pos_ids)
     k = apply_rope(k, sin, cos, position_ids=pos_ids)
     k_new, v_new = k[:, 0], v[:, 0]
@@ -114,7 +198,8 @@ def attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     """The attention half of a decode block as the unfused step runs it.
 
     x [B, D]; nw [D] at x's type; wq [D, H*hd], wk/wv [D, KV*hd],
-    wo [H*hd, D]; sin/cos: full rope tables [T, hd/2] f32; pools
+    wo [H*hd, D] (tensors or quantized leaves, dequantized to x's type
+    before their product); sin/cos: full rope tables [T, hd/2] f32; pools
     [N, BS, KV, hd]; block_tables [B, MB]; seq_lens [B]: tokens already in
     the pool (the new token goes at position seq_lens). Returns (x + o
     [B, D], or o alone when ``residual`` is False; k_new, v_new
@@ -124,19 +209,51 @@ def attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if kv_scales is not None:
         raise NotImplementedError(f"kv_scales: {_NOT_PORTED_QUANT}")
     attn, k_new, v_new = _attention(x, nw, wq, wk, wv, sin, cos, k_pool,
-                                    v_pool, block_tables, seq_lens, eps)
-    o = attn @ wo
+                                    v_pool, block_tables, seq_lens, eps,
+                                    _deq_mm)
+    o = _deq_mm(attn, wo)
     return (x + o if residual else o), k_new, v_new
 
 
 def mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
     """The MLP half of a decode block as the unfused step runs it:
-    x [B, D], nw [D] at x's type, wg/wu [D, F], wd [F, D] ->
+    x [B, D], nw [D] at x's type, wg/wu [D, F], wd [F, D] (tensors or
+    quantized leaves, dequantized first) ->
     x + down(silu(h @ wg) * (h @ wu)), or the product alone when
     ``residual`` is False."""
     from .. import rms_norm, swiglu
     h = rms_norm(x[:, None], nw, eps)[:, 0]
-    o = swiglu(h @ wg, h @ wu) @ wd
+    o = _deq_mm(swiglu(_deq_mm(h, wg), _deq_mm(h, wu)), wd)
+    return x + o if residual else o
+
+
+def attn_block_wq_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
+                      block_tables, seq_lens, kv_scales=None, eps=1e-6,
+                      residual=True):
+    """:func:`attn_block_ref`'s contract in decode_attn_block's epilogue
+    order (the JAX ``_attn_block_kernel``'s): each q/k/v product ``dot(h,
+    q) * s`` in f32, cast to x's type before RoPE; ``o = dot(attn, q) *
+    s`` cast to x's type, then the residual add. The kernel's plain
+    version for quantized weights."""
+    if kv_scales is not None:
+        raise NotImplementedError(f"kv_scales: {_NOT_PORTED_QUANT}")
+    attn, k_new, v_new = _attention(x, nw, wq, wk, wv, sin, cos, k_pool,
+                                    v_pool, block_tables, seq_lens, eps,
+                                    _epi_mm)
+    o = _f32mm(attn, wo).to(x.dtype)
+    return (x + o if residual else o), k_new, v_new
+
+
+def mlp_block_wq_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
+    """:func:`mlp_block_ref`'s contract in decode_mlp_block's epilogue
+    order (the JAX ``_mlp_block_kernel``'s): g and u as ``dot(h, q) * s``
+    cast to x's type, SwiGLU in x's type, ``down = dot(ff, q) * s`` over
+    all of F cast to x's type, then the residual add."""
+    from .. import rms_norm, swiglu
+    dt = x.dtype
+    h = rms_norm(x[:, None], nw, eps)[:, 0]
+    ff = swiglu(_f32mm(h, wg).to(dt), _f32mm(h, wu).to(dt))
+    o = _f32mm(ff, wd).to(dt)
     return x + o if residual else o
 
 
@@ -145,11 +262,12 @@ def decode_block_ref(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
                      eps=1e-6):
     """One whole decoder layer at the single-launch kernel's rounding
     points (the JAX ``_block_fused_kernel``'s): the attention as
-    :func:`attn_block_ref` runs it up to the attention rows in x's type
-    T; ``o = attn @ wo`` summed and kept in f32; ``resid = f32(x) + o``
-    (f32); the post-norm of that f32 row cast to T, times ``pw``; gate and
-    up f32 products cast to T; ``silu(g) * u`` in T; down summed in f32;
-    ``x_out = T(resid + down)``. Returns (x_out [B, D], k_new, v_new
+    :func:`attn_block_wq_ref` runs it up to the attention rows in x's
+    type T; ``o = attn @ wo`` summed and kept in f32; ``resid = f32(x) +
+    o`` (f32); the post-norm of that f32 row cast to T, times ``pw``; gate
+    and up f32 products cast to T; ``silu(g) * u`` in T; down summed in
+    f32; ``x_out = T(resid + down)``. A quantized leaf's scale multiplies
+    its f32 product (the epilogue). Returns (x_out [B, D], k_new, v_new
     [B, KV, hd]); writes the new token's K/V into the pools first, as
     :func:`attn_block_ref` does."""
     import torch.nn.functional as F
@@ -157,13 +275,14 @@ def decode_block_ref(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
         raise NotImplementedError(f"kv_scales: {_NOT_PORTED_QUANT}")
     dt = x.dtype
     attn, k_new, v_new = _attention(x, nw, wq, wk, wv, sin, cos, k_pool,
-                                    v_pool, block_tables, seq_lens, eps)
-    resid = x.float() + attn.float() @ wo.float()
+                                    v_pool, block_tables, seq_lens, eps,
+                                    _epi_mm)
+    resid = x.float() + _f32mm(attn, wo)
     ms = torch.mean(torch.square(resid), dim=-1, keepdim=True)
     h = (resid * torch.rsqrt(ms + eps)).to(dt) * pw
-    g = (h.float() @ wg.float()).to(dt)
-    u = (h.float() @ wu.float()).to(dt)
-    down = (F.silu(g) * u).float() @ wd.float()
+    g = _f32mm(h, wg).to(dt)
+    u = _f32mm(h, wu).to(dt)
+    down = _f32mm(F.silu(g) * u, wd)
     return (resid + down).to(dt), k_new, v_new
 
 
@@ -178,9 +297,13 @@ def decode_block_composed(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     as the interleaved two-stage order."""
     B, D = x.shape
     _, BS, KV, hd = k_pool.shape
-    meta = decode_meta_dims(B, D, wq.shape[1] // hd, KV, hd, wg.shape[1],
-                            BS, block_tables.shape[1], x.dtype,
-                            k_pool.dtype, kv_scales is not None,
+    # q_proj's and gate's output axes are never packed
+    meta = decode_meta_dims(B, D, _wq_parts(wq)[0].shape[1] // hd, KV, hd,
+                            _wq_parts(wg)[0].shape[1], BS,
+                            block_tables.shape[1], x.dtype, k_pool.dtype,
+                            kv_scales is not None,
+                            weight_dtype=weight_dtype_of(
+                                wq, wk, wv, wo, wg, wu, wd),
                             device=x.device)
     attn_fn, mlp_fn, _ = resolve_decode_blocks(meta, "auto")
     xo, k_new, v_new = attn_fn(x, nw, wq, wk, wv, wo, sin, cos, k_pool,
@@ -264,6 +387,18 @@ def _lib_fn(name, nptr, nint, nfloat, source="fused_decode_block"):
     return fn
 
 
+def _check_tensor(name, tname, t, x, want):
+    if t.dtype != want:
+        raise TypeError(f"{name}: {tname} is {t.dtype}, needs {want}")
+    if t.device != x.device:
+        raise ValueError(f"{name}: {tname} is on {t.device}, x on "
+                         f"{x.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {tname} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {tname} is not 16-byte aligned")
+
+
 def _check_common(name, x, tensors, dtype_of):
     if x.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {x.device}")
@@ -271,16 +406,7 @@ def _check_common(name, x, tensors, dtype_of):
         raise TypeError(f"{name}: x must be float32 or bfloat16, got "
                         f"{x.dtype}")
     for tname, t in tensors.items():
-        want = dtype_of.get(tname, x.dtype)
-        if t.dtype != want:
-            raise TypeError(f"{name}: {tname} is {t.dtype}, needs {want}")
-        if t.device != x.device:
-            raise ValueError(f"{name}: {tname} is on {t.device}, x on "
-                             f"{x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {tname} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {tname} is not 16-byte aligned")
+        _check_tensor(name, tname, t, x, dtype_of.get(tname, x.dtype))
 
 
 def _shape(name, tname, t, shape):
@@ -289,25 +415,89 @@ def _shape(name, tname, t, shape):
                          f"needs {tuple(shape)}")
 
 
+def _weights(name, x, leaves):
+    """Check a block's weight leaves for a kernel and split them.
+    ``leaves``: weight name -> (leaf, (in, out)), the leaf's logical
+    shape; ``down_proj`` ("wd") is the one int4 leaf packed along its
+    output axis, every other along its contraction axis. -> (bits,
+    {name: tensor}, {name: scale or None}): the stored integers (or the
+    plain tensors) and the f32 scales [out]."""
+    bits = {_wq_parts(leaf)[2] for leaf, _ in leaves.values()}
+    if len(bits) != 1:
+        raise ValueError(f"{name}: the block's weights mix weight-quant "
+                         f"modes (bit widths {sorted(bits)})")
+    bits = bits.pop()
+    ws, scales = {}, {}
+    for wname, (leaf, (k, n)) in leaves.items():
+        q, s, _, axis = _wq_parts(leaf)
+        stored = (k, n)
+        if bits == 4:
+            want_axis = 1 if wname == "wd" else 0
+            if axis != want_axis:
+                raise ValueError(
+                    f"{name}: int4 {wname} is packed along axis {axis}; "
+                    f"the kernel reads it packed along axis {want_axis}")
+            if (k, n)[want_axis] % 2:
+                raise ValueError(f"{name}: packed-int4 {wname} needs an "
+                                 f"even axis {want_axis}, got {(k, n)}")
+            stored = (k, n // 2) if want_axis else (k // 2, n)
+        _check_tensor(name, wname, q, x, torch.int8 if bits else x.dtype)
+        _shape(name, wname, q, stored)
+        if bits:
+            _check_tensor(name, f"{wname} scale", s, x, torch.float32)
+            _shape(name, f"{wname} scale", s, (n,))
+        ws[wname], scales[wname] = q, s
+    return bits, ws, scales
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _count(fn, bits):
+    """One launch of ``fn``'s kernel, in weight class ``bits``."""
+    fn.launches += 1
+    fn.launches_by_weight[{0: "fp", 8: "int8", 4: "int4"}[bits]] += 1
+
+
+def _attn_leaves(x, wq, wk, wv, wo, KV, hd):
+    """(H, the attention weights' leaves with their logical shapes)."""
+    D = x.shape[1]
+    wq_t = _wq_parts(wq)[0]
+    H = wq_t.shape[1] // hd if wq_t.dim() == 2 else 0
+    return H, {"wq": (wq, (D, H * hd)), "wk": (wk, (D, KV * hd)),
+               "wv": (wv, (D, KV * hd)), "wo": (wo, (H * hd, D))}
+
+
+def _mlp_leaves(x, wg, wu, wd):
+    """(F, the MLP weights' leaves with their logical shapes)."""
+    D = x.shape[1]
+    wg_t = _wq_parts(wg)[0]
+    F = wg_t.shape[1] if wg_t.dim() == 2 else 0
+    return F, {"wg": (wg, (D, F)), "wu": (wu, (D, F)), "wd": (wd, (F, D))}
+
+
 def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                            block_tables, seq_lens, kv_scales=None, eps=1e-6,
                            residual=True):
     """Launch the decode_attn_block kernel (the contract of
-    :func:`attn_block_ref`, minus its pool write) on PyTorch's current
-    stream. Raises for anything the kernel does not take, and if the
-    launch is refused. Never falls back."""
+    :func:`attn_block_wq_ref`, minus its pool write) on PyTorch's current
+    stream. Weights are tensors of x's type or quantized leaves (int8, or
+    int4 packed along the contraction axis). Raises for anything the
+    kernel does not take, and if the launch is refused. Never falls
+    back."""
     name = "decode_attn_block_cuda"
     if kv_scales is not None:
         raise NotImplementedError(f"{name}: kv_scales: {_NOT_PORTED_QUANT}")
     _check_common(name, x, {
-        "x": x, "nw": nw, "wq": wq, "wk": wk, "wv": wv, "wo": wo,
-        "sin": sin, "cos": cos, "k_pool": k_pool, "v_pool": v_pool,
-        "block_tables": block_tables, "seq_lens": seq_lens},
+        "x": x, "nw": nw, "sin": sin, "cos": cos, "k_pool": k_pool,
+        "v_pool": v_pool, "block_tables": block_tables,
+        "seq_lens": seq_lens},
         {"sin": torch.float32, "cos": torch.float32,
          "block_tables": torch.int32, "seq_lens": torch.int32})
     B, D = x.shape
     N, BS, KV, hd = k_pool.shape
-    H = wq.shape[1] // hd if wq.dim() == 2 else 0
+    H, leaves = _attn_leaves(x, wq, wk, wv, wo, KV, hd)
     MB = block_tables.shape[1] if block_tables.dim() == 2 else 0
     item = x.element_size()
     if H < 1 or H % KV:
@@ -316,9 +506,8 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if (hd * item) % 16 or (D * item) % 16:
         raise ValueError(f"{name}: head_dim {hd} and hidden {D} rows must "
                          "be multiples of 16 bytes (the load width)")
-    for tname, t, shp in (("nw", nw, (D,)), ("wq", wq, (D, H * hd)),
-                          ("wk", wk, (D, KV * hd)), ("wv", wv, (D, KV * hd)),
-                          ("wo", wo, (H * hd, D)),
+    bits, w, sc = _weights(name, x, leaves)
+    for tname, t, shp in (("nw", nw, (D,)),
                           ("v_pool", v_pool, k_pool.shape),
                           ("cos", cos, sin.shape),
                           ("block_tables", block_tables, (B, MB)),
@@ -331,7 +520,7 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    fn = _lib_fn("decode_attn_block", 17, 11, 2)
+    fn = _lib_fn("decode_attn_block", 21, 12, 2)
     x_out = torch.empty_like(x)
     k_new = torch.empty((B, KV, hd), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
@@ -347,16 +536,17 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                        device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        decode_attn_block_cuda.launches += 1
-        err = fn(x.data_ptr(), nw.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-                 wv.data_ptr(), wo.data_ptr(), sin.data_ptr(),
-                 cos.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 block_tables.data_ptr(), seq_lens.data_ptr(),
-                 x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                 ws_t.data_ptr(), ws_f.data_ptr(), B, D, H, KV, hd, BS,
-                 MB, sin.shape[0], int(bool(residual)), region, smem,
-                 float(eps),
-                 1.0 / math.sqrt(hd), _build.DTYPES[x.dtype], stream)
+        _count(decode_attn_block_cuda, bits)
+        err = fn(x.data_ptr(), nw.data_ptr(), *(w[k].data_ptr() for k in
+                                                 ("wq", "wk", "wv", "wo")),
+                 *(_ptr(sc[k]) for k in ("wq", "wk", "wv", "wo")),
+                 sin.data_ptr(), cos.data_ptr(), k_pool.data_ptr(),
+                 v_pool.data_ptr(), block_tables.data_ptr(),
+                 seq_lens.data_ptr(), x_out.data_ptr(), k_new.data_ptr(),
+                 v_new.data_ptr(), ws_t.data_ptr(), ws_f.data_ptr(), B, D, H,
+                 KV, hd, BS, MB, sin.shape[0], int(bool(residual)), region,
+                 smem, bits, float(eps), 1.0 / math.sqrt(hd),
+                 _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_attn_block launch failed: "
                            + fn.error_string(err).decode())
@@ -365,36 +555,38 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
 
 def decode_mlp_block_cuda(x, nw, wg, wu, wd, eps=1e-6, residual=True):
     """Launch the decode_mlp_block kernel (the contract of
-    :func:`mlp_block_ref`) on PyTorch's current stream. Raises for
-    anything the kernel does not take, and if the launch is refused.
-    Never falls back."""
+    :func:`mlp_block_wq_ref`) on PyTorch's current stream. Weights are
+    tensors of x's type or quantized leaves (int8, or int4: gate/up
+    packed along the contraction axis, down along its output axis).
+    Raises for anything the kernel does not take, and if the launch is
+    refused. Never falls back."""
     name = "decode_mlp_block_cuda"
-    _check_common(name, x, {"x": x, "nw": nw, "wg": wg, "wu": wu, "wd": wd},
-                  {})
+    _check_common(name, x, {"x": x, "nw": nw}, {})
     B, D = x.shape
-    F = wg.shape[1] if wg.dim() == 2 else 0
+    F, leaves = _mlp_leaves(x, wg, wu, wd)
     item = x.element_size()
     if F < 1 or (F * item) % 16 or (D * item) % 16:
         raise ValueError(f"{name}: hidden {D} and intermediate {F} rows "
                          "must be multiples of 16 bytes (the load width)")
-    for tname, t, shp in (("nw", nw, (D,)), ("wg", wg, (D, F)),
-                          ("wu", wu, (D, F)), ("wd", wd, (F, D))):
-        _shape(name, tname, t, shp)
+    bits, w, sc = _weights(name, x, leaves)
+    _shape(name, "nw", nw, (D,))
     region, smem = _layout(D, 0, 0, 0, item)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    fn = _lib_fn("decode_mlp_block", 7, 6, 1)
+    fn = _lib_fn("decode_mlp_block", 10, 7, 1)
     out = torch.empty_like(x)
     # silu(g)*u, k-major rows ([pass][F][8], csrc/fused_decode_block.cu)
     ff_ws = torch.empty(_passes(B) * _ROWS * F, dtype=x.dtype,
                         device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        decode_mlp_block_cuda.launches += 1
-        err = fn(x.data_ptr(), nw.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-                 wd.data_ptr(), out.data_ptr(), ff_ws.data_ptr(), B, D, F,
-                 int(bool(residual)), region, smem, float(eps),
+        _count(decode_mlp_block_cuda, bits)
+        err = fn(x.data_ptr(), nw.data_ptr(),
+                 *(w[k].data_ptr() for k in ("wg", "wu", "wd")),
+                 *(_ptr(sc[k]) for k in ("wg", "wu", "wd")),
+                 out.data_ptr(), ff_ws.data_ptr(), B, D, F,
+                 int(bool(residual)), region, smem, bits, float(eps),
                  _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_mlp_block launch failed: "
@@ -407,23 +599,23 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
                             kv_scales=None, eps=1e-6):
     """Launch the decode_block_fused kernel (the contract of
     :func:`decode_block_ref`, minus its pool write) on PyTorch's current
-    stream: one whole decoder layer, ``(x_out, k_new, v_new)``. Raises for
-    anything the kernel does not take, and if the launch is refused.
-    Never falls back."""
+    stream: one whole decoder layer, ``(x_out, k_new, v_new)``. Weights as
+    the two-stage kernels take them. Raises for anything the kernel does
+    not take, and if the launch is refused. Never falls back."""
     name = "decode_block_fused_cuda"
     if kv_scales is not None:
         raise NotImplementedError(f"{name}: kv_scales: {_NOT_PORTED_QUANT}")
     _check_common(name, x, {
-        "x": x, "nw": nw, "wq": wq, "wk": wk, "wv": wv, "wo": wo, "pw": pw,
-        "wg": wg, "wu": wu, "wd": wd, "sin": sin, "cos": cos,
+        "x": x, "nw": nw, "pw": pw, "sin": sin, "cos": cos,
         "k_pool": k_pool, "v_pool": v_pool, "block_tables": block_tables,
         "seq_lens": seq_lens},
         {"sin": torch.float32, "cos": torch.float32,
          "block_tables": torch.int32, "seq_lens": torch.int32})
     B, D = x.shape
     N, BS, KV, hd = k_pool.shape
-    H = wq.shape[1] // hd if wq.dim() == 2 else 0
-    F = wg.shape[1] if wg.dim() == 2 else 0
+    H, leaves = _attn_leaves(x, wq, wk, wv, wo, KV, hd)
+    F, mlp = _mlp_leaves(x, wg, wu, wd)
+    leaves.update(mlp)
     MB = block_tables.shape[1] if block_tables.dim() == 2 else 0
     item = x.element_size()
     if H < 1 or H % KV:
@@ -433,11 +625,8 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
         raise ValueError(f"{name}: head_dim {hd}, hidden {D} and "
                          f"intermediate {F} rows must be multiples of 16 "
                          "bytes (the load width)")
-    for tname, t, shp in (("nw", nw, (D,)), ("wq", wq, (D, H * hd)),
-                          ("wk", wk, (D, KV * hd)), ("wv", wv, (D, KV * hd)),
-                          ("wo", wo, (H * hd, D)), ("pw", pw, (D,)),
-                          ("wg", wg, (D, F)), ("wu", wu, (D, F)),
-                          ("wd", wd, (F, D)),
+    bits, w, sc = _weights(name, x, leaves)
+    for tname, t, shp in (("nw", nw, (D,)), ("pw", pw, (D,)),
                           ("v_pool", v_pool, k_pool.shape),
                           ("cos", cos, sin.shape),
                           ("block_tables", block_tables, (B, MB)),
@@ -450,7 +639,7 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    fn = _lib_fn("decode_block_fused", 21, 11, 2)
+    fn = _lib_fn("decode_block_fused", 28, 12, 2)
     x_out = torch.empty_like(x)
     k_new = torch.empty((B, KV, hd), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
@@ -463,17 +652,19 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     n_part = B * H * -(-MB // _SPLIT_PAGES)
     n_f = -(-(n_part * (2 + hd) + B * H) // 4) * 4
     ws_f = torch.empty(n_f + B * D, dtype=torch.float32, device=x.device)
+    order = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        decode_block_fused_cuda.launches += 1
-        err = fn(x.data_ptr(), nw.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-                 wv.data_ptr(), wo.data_ptr(), pw.data_ptr(), wg.data_ptr(),
-                 wu.data_ptr(), wd.data_ptr(), sin.data_ptr(),
+        _count(decode_block_fused_cuda, bits)
+        err = fn(x.data_ptr(), nw.data_ptr(),
+                 *(w[k].data_ptr() for k in order[:4]), pw.data_ptr(),
+                 *(w[k].data_ptr() for k in order[4:]),
+                 *(_ptr(sc[k]) for k in order), sin.data_ptr(),
                  cos.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), seq_lens.data_ptr(),
                  x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                  ws_t.data_ptr(), ws_f.data_ptr(), B, D, H, KV, hd, F, BS,
-                 MB, sin.shape[0], region, smem, float(eps),
+                 MB, sin.shape[0], region, smem, bits, float(eps),
                  1.0 / math.sqrt(hd), _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_block_fused launch failed: "
@@ -481,9 +672,11 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     return x_out, k_new, v_new
 
 
-decode_attn_block_cuda.launches = 0
-decode_mlp_block_cuda.launches = 0
-decode_block_fused_cuda.launches = 0
+for _w in (decode_attn_block_cuda, decode_mlp_block_cuda,
+           decode_block_fused_cuda):
+    _w.launches = 0
+    # the same launches by weight class
+    _w.launches_by_weight = {"fp": 0, "int8": 0, "int4": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -522,14 +715,21 @@ def decode_meta(cfg, B, BS, MB, pool_dtype, quant, weight_dtype=None,
                             device=device)
 
 
-def _refusal(meta):
-    """The reason both kernels refuse ``meta``, or None."""
+def _refusal(meta, wq_dims=()):
+    """The reason every kernel refuses ``meta``, or None. ``wq_dims``: the
+    dimensions int4 packs along, (name, value) pairs."""
     if meta["device"] != "cuda":
         return "plain composition on the CPU"
-    if meta["quant"] or meta["weight_dtype"] in ("int8", "int4"):
+    if meta["quant"]:
         return _NOT_PORTED_QUANT
     if meta["dtype"] not in ("float32", "bfloat16"):
         return f"dtype {meta['dtype']} is not float32/bfloat16"
+    if meta["weight_dtype"] not in (meta["dtype"], "int8", "int4"):
+        return (f"weight dtype {meta['weight_dtype']} is neither the model "
+                f"dtype nor int8/int4")
+    why = _wq_even_reason(meta, wq_dims)
+    if why:
+        return why
     if meta["pool_dtype"] != meta["dtype"]:
         return (f"pool dtype {meta['pool_dtype']} differs from the model "
                 f"dtype {meta['dtype']}")
@@ -538,17 +738,25 @@ def _refusal(meta):
     return None
 
 
-def _smem_reason(need, limit):
+def _smem_reason(need, limit, meta):
     if need > limit:
         return False, (f"needs {need} B of shared memory a block > the "
                        f"card's {limit}")
-    return True, f"fits shared memory ({need} of {limit} B)"
+    wd = meta["weight_dtype"]
+    return True, (f"fits shared memory ({need} of {limit} B)"
+                  + (f", {wd} weights scaled in the epilogue"
+                     if wd in ("int8", "int4") else ""))
+
+
+def _attn_dims(meta):
+    return (("hidden_size", meta["D"]),
+            ("H*head_dim", meta["H"] * meta["hd"]))
 
 
 def _attn_refusal(meta):
     """The reason an attention kernel (decode or prefill) refuses the
     shapes of ``meta`` before its shared memory is counted, or None."""
-    why = _refusal(meta)
+    why = _refusal(meta, _attn_dims(meta))
     if why:
         return why
     if meta["H"] % meta["KV"]:
@@ -565,18 +773,18 @@ def _supports_attn(meta):
     return _smem_reason(attn_smem_bytes(meta["D"], meta["H"], meta["KV"],
                                         meta["hd"], meta["BS"],
                                         meta["itemsize"]),
-                        meta["smem_limit"])
+                        meta["smem_limit"], meta)
 
 
 def _supports_mlp(meta):
-    why = _refusal(meta)
+    why = _refusal(meta, (("hidden_size", meta["D"]),))
     if why:
         return False, why
     if (meta["F"] * meta["itemsize"]) % 16:
         return False, f"intermediate {meta['F']} rows not a multiple of 16 " \
                       "bytes"
     return _smem_reason(mlp_smem_bytes(meta["D"], meta["itemsize"]),
-                        meta["smem_limit"])
+                        meta["smem_limit"], meta)
 
 
 def _supports_block(meta):
@@ -589,10 +797,9 @@ def _supports_block(meta):
     that every SM holds the one block of the cooperative grid the kernel
     is built for (``__launch_bounds__(256, 1)``: its merged phases spill
     at two blocks an SM; the launch sizes the grid from this kernel's
-    occupancy). It carries
-    over the reference's refusals: a head_dim that is not a multiple of
-    8, H not a multiple of KV, the rows the loads cannot align, and
-    quantized pools or weights (not ported)."""
+    occupancy). It carries over the reference's refusals: a head_dim that
+    is not a multiple of 8, H not a multiple of KV, the rows the loads
+    cannot align, odd int4 pack axes, and quantized pools (not ported)."""
     why = _attn_refusal(meta)
     if why:
         return False, why
@@ -604,13 +811,16 @@ def _supports_block(meta):
     return _smem_reason(block_smem_bytes(meta["D"], meta["H"], meta["KV"],
                                          meta["hd"], meta["BS"],
                                          meta["itemsize"]),
-                        meta["smem_limit"])
+                        meta["smem_limit"], meta)
 
 
 def _supports_composition(meta):
     if meta["device"] == "cuda":
         return False, ("the composition is the CPU's route: on CUDA the "
                        "hand-written kernel must take the shapes")
+    if meta["weight_dtype"] in ("int8", "int4"):
+        return True, (f"plain composition on the CPU ({meta['weight_dtype']}"
+                      " weights dequantized before each product)")
     return True, "plain composition on the CPU"
 
 

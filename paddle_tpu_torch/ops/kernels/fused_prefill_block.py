@@ -1,7 +1,7 @@
 """Fused prefill-block kernels: the prefill attention kernel's wrapper, the
 plain versions, the dispatch metas and predicates, and the resolvers (port
-of ``paddle_tpu/ops/pallas/fused_prefill_block.py``, fp weights and fp
-pools).
+of ``paddle_tpu/ops/pallas/fused_prefill_block.py``: fp, int8 and int4
+weights; fp pools).
 
 - ``prefill_attn_block`` (:func:`prefill_attn_block_cuda`) replaces
   ``fused_prefill_attn_pallas``: over one chunk of one request, RMSNorm +
@@ -18,10 +18,14 @@ pools).
   row count, so its predicate is the decode one.
 
 :func:`prefill_attn_block_ref` and :func:`prefill_mlp_block_ref` are the
-plain versions and the registry's priority-0 ``"unfused"`` variants: op
-for op the JAX package's dense composition (gather the request's pages
-into a dense view, ``cached_forward``'s layer math, the chunk's K/V
-written into the view before attending). As for decode, the composition
+registry's priority-0 ``"unfused"`` variants: op for op the JAX package's
+dense composition (gather the request's pages into a dense view,
+``cached_forward``'s layer math with quantized leaves dequantized before
+each product, the chunk's K/V written into the view before attending).
+:func:`prefill_attn_block_wq_ref` is the kernel's plain version in its
+epilogue order for quantized weights (``dot(h, q) * s``, then the cast),
+as :func:`.fused_decode_block.attn_block_wq_ref` is for decode. As for
+decode, the composition
 is the CPU's route only: on CUDA a predicate that refuses the kernel makes
 dispatch raise with its reason. The serving engine runs the fused chunk
 only when BOTH ops resolve to the kernels (:func:`prefill_fused_selected`)
@@ -37,7 +41,8 @@ from . import fused_decode_block as _fdb
 from ._build import DTYPES
 from .registry import KERNELS
 
-__all__ = ["prefill_attn_block_ref", "prefill_mlp_block_ref",
+__all__ = ["prefill_attn_block_ref", "prefill_attn_block_wq_ref",
+           "prefill_mlp_block_ref",
            "prefill_attn_block_cuda", "prefill_meta", "prefill_meta_dims",
            "prefill_attn_smem_bytes", "resolve_prefill_blocks",
            "prefill_fused_selected"]
@@ -50,38 +55,25 @@ BQ = 16
 # ---------------------------------------------------------------------------
 # plain versions: the dense composition, op for op
 # ---------------------------------------------------------------------------
-def prefill_attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
-                           table, pos0, n_valid, kv_scales=None, eps=1e-6,
-                           residual=True):
-    """The attention half of a prefill-chunk layer as the dense chunk runs
-    it.
-
-    x [P, D] (the first ``n_valid`` rows are the prompt); nw [D] at x's
-    type; wq [D, H*hd], wk/wv [D, KV*hd], wo [H*hd, D]; sin/cos: the
-    chunk's rope rows [P, hd/2] f32, row i for position pos0 + i; pools
-    [N, BS, KV, hd]; table [MB]: the request's READ table; pos0: tokens of
-    the request already in the pools. Gathers the request's pages into a
-    dense [MB*BS] view, writes the chunk's K/V into it at pos0 and runs
-    causal attention over it. Returns (x + o [P, D], or o alone when
-    ``residual`` is False; k_new, v_new [P, KV, hd]). Pays full pad work:
-    ``n_valid`` rides only for signature parity."""
+def _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool, table,
+                  pos0, eps, residual, mm, omm):
+    """The dense chunk's attention half with the q/k/v products of ``mm``
+    and the o_proj of ``omm`` (both landing in x's type)."""
     from .. import rms_norm
     from ..rope import apply_rope
-    if kv_scales is not None:
-        raise NotImplementedError(f"kv_scales: {_fdb._NOT_PORTED_QUANT}")
     P, D = x.shape
     _, BS, KV, hd = k_pool.shape
     T = table.shape[0] * BS
-    H = wq.shape[1] // hd
+    H = _fdb._wq_parts(wq)[0].shape[1] // hd
     if pos0 + P > T:
         raise ValueError(f"chunk rows {pos0}..{pos0 + P - 1} do not fit the "
                          f"table's {T} positions")
     kc = k_pool[table.long()].reshape(T, KV, hd)
     vc = v_pool[table.long()].reshape(T, KV, hd)
     h = rms_norm(x[None], nw, eps)[0]
-    q = apply_rope((h @ wq).reshape(1, P, H, hd), sin, cos)
-    k = apply_rope((h @ wk).reshape(1, P, KV, hd), sin, cos)
-    v = (h @ wv).reshape(1, P, KV, hd)
+    q = apply_rope(mm(h, wq).reshape(1, P, H, hd), sin, cos)
+    k = apply_rope(mm(h, wk).reshape(1, P, KV, hd), sin, cos)
+    v = mm(h, wv).reshape(1, P, KV, hd)
     k_new, v_new = k[0], v[0]
     kc[pos0:pos0 + P] = k_new.to(kc.dtype)
     vc[pos0:pos0 + P] = v_new.to(vc.dtype)
@@ -94,13 +86,51 @@ def prefill_attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     q_idx = pos0 + torch.arange(P, device=x.device)[None, :, None]
     scores = scores.masked_fill(t_idx > q_idx, float("-inf"))
     attn = torch.einsum("hpt,thd->phd", torch.softmax(scores, dim=-1), vv)
-    o = attn.to(x.dtype).reshape(P, H * hd) @ wo
+    o = omm(attn.to(x.dtype).reshape(P, H * hd), wo)
     return (x + o if residual else o), k_new, v_new
+
+
+def prefill_attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
+                           table, pos0, n_valid, kv_scales=None, eps=1e-6,
+                           residual=True):
+    """The attention half of a prefill-chunk layer as the dense chunk runs
+    it.
+
+    x [P, D] (the first ``n_valid`` rows are the prompt); nw [D] at x's
+    type; wq [D, H*hd], wk/wv [D, KV*hd], wo [H*hd, D] (tensors or
+    quantized leaves, dequantized to x's type before their product);
+    sin/cos: the chunk's rope rows [P, hd/2] f32, row i for position
+    pos0 + i; pools [N, BS, KV, hd]; table [MB]: the request's READ table;
+    pos0: tokens of the request already in the pools. Gathers the
+    request's pages into a dense [MB*BS] view, writes the chunk's K/V into
+    it at pos0 and runs causal attention over it. Returns (x + o [P, D],
+    or o alone when ``residual`` is False; k_new, v_new [P, KV, hd]). Pays
+    full pad work: ``n_valid`` rides only for signature parity."""
+    if kv_scales is not None:
+        raise NotImplementedError(f"kv_scales: {_fdb._NOT_PORTED_QUANT}")
+    return _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
+                         table, pos0, eps, residual, _fdb._deq_mm,
+                         _fdb._deq_mm)
+
+
+def prefill_attn_block_wq_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool,
+                              v_pool, table, pos0, n_valid, kv_scales=None,
+                              eps=1e-6, residual=True):
+    """:func:`prefill_attn_block_ref`'s contract in prefill_attn_block's
+    epilogue order (the JAX ``_prefill_attn_kernel``'s): each product
+    ``dot(h, q) * s`` in f32, then cast to x's type (q/k/v before RoPE,
+    o before the residual add). The kernel's plain version for quantized
+    weights."""
+    if kv_scales is not None:
+        raise NotImplementedError(f"kv_scales: {_fdb._NOT_PORTED_QUANT}")
+    return _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
+                         table, pos0, eps, residual, _fdb._epi_mm,
+                         lambda a, w: _fdb._f32mm(a, w).to(x.dtype))
 
 
 def prefill_mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
     """The MLP half over the chunk's rows: the decode MLP composition
-    (row count is the only difference)."""
+    (row count is the only difference; quantized leaves dequantized)."""
     return _fdb.mlp_block_ref(x, nw, wg, wu, wd, eps=eps, residual=residual)
 
 
@@ -119,22 +149,23 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                             table, pos0, n_valid, kv_scales=None, eps=1e-6,
                             residual=True):
     """Launch the prefill_attn_block kernel (the contract of
-    :func:`prefill_attn_block_ref`, except that rows at or after
-    ``n_valid`` come back as zeros) on PyTorch's current stream. ``pos0``
-    and ``n_valid`` are host ints. Raises for anything the kernel does not
-    take, and if the launch is refused. Never falls back."""
+    :func:`prefill_attn_block_wq_ref`, except that rows at or after
+    ``n_valid`` come back as zeros) on PyTorch's current stream. Weights
+    are tensors of x's type or quantized leaves (int8, or int4 packed
+    along the contraction axis). ``pos0`` and ``n_valid`` are host ints.
+    Raises for anything the kernel does not take, and if the launch is
+    refused. Never falls back."""
     name = "prefill_attn_block_cuda"
     if kv_scales is not None:
         raise NotImplementedError(
             f"{name}: kv_scales: {_fdb._NOT_PORTED_QUANT}")
     _fdb._check_common(name, x, {
-        "x": x, "nw": nw, "wq": wq, "wk": wk, "wv": wv, "wo": wo,
-        "sin": sin, "cos": cos, "k_pool": k_pool, "v_pool": v_pool,
-        "table": table},
+        "x": x, "nw": nw, "sin": sin, "cos": cos, "k_pool": k_pool,
+        "v_pool": v_pool, "table": table},
         {"sin": torch.float32, "cos": torch.float32, "table": torch.int32})
     P, D = x.shape
     N, BS, KV, hd = k_pool.shape
-    H = wq.shape[1] // hd if wq.dim() == 2 else 0
+    H, leaves = _fdb._attn_leaves(x, wq, wk, wv, wo, KV, hd)
     MB = table.shape[0] if table.dim() == 1 else 0
     item = x.element_size()
     if H < 1 or H % KV:
@@ -146,9 +177,8 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if P % BQ:
         raise ValueError(f"{name}: chunk width P={P} is not a multiple of "
                          f"the kernel's {BQ}-row query blocks")
-    for tname, t, shp in (("nw", nw, (D,)), ("wq", wq, (D, H * hd)),
-                          ("wk", wk, (D, KV * hd)), ("wv", wv, (D, KV * hd)),
-                          ("wo", wo, (H * hd, D)),
+    bits, w, sc = _fdb._weights(name, x, leaves)
+    for tname, t, shp in (("nw", nw, (D,)),
                           ("v_pool", v_pool, k_pool.shape),
                           ("sin", sin, (P, hd // 2)),
                           ("cos", cos, (P, hd // 2)), ("table", table, (MB,))):
@@ -163,7 +193,7 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if smem > _fdb.SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {_fdb.SMEM_LIMIT}")
-    fn = _fdb._lib_fn("prefill_attn_block", 17, 13, 2,
+    fn = _fdb._lib_fn("prefill_attn_block", 21, 14, 2,
                       source="fused_prefill_block")
     x_out = torch.empty_like(x)
     k_new = torch.empty((P, KV, hd), dtype=x.dtype, device=x.device)
@@ -175,16 +205,18 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     q_ws = torch.empty((P, H * hd), dtype=x.dtype, device=x.device)
     attn_ws = torch.empty((_fdb._passes(P) * _fdb._ROWS, H * hd),
                           dtype=x.dtype, device=x.device)
+    order = ("wq", "wk", "wv", "wo")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        prefill_attn_block_cuda.launches += 1
-        err = fn(x.data_ptr(), nw.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-                 wv.data_ptr(), wo.data_ptr(), sin.data_ptr(),
+        _fdb._count(prefill_attn_block_cuda, bits)
+        err = fn(x.data_ptr(), nw.data_ptr(),
+                 *(w[k].data_ptr() for k in order),
+                 *(_fdb._ptr(sc[k]) for k in order), sin.data_ptr(),
                  cos.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  table.data_ptr(), x_out.data_ptr(), k_new.data_ptr(),
                  v_new.data_ptr(), qkv_ws.data_ptr(), q_ws.data_ptr(),
                  attn_ws.data_ptr(), P, D, H, KV, hd, BS, MB, pos0, n_valid,
-                 BQ, int(bool(residual)), region, smem, float(eps),
+                 BQ, int(bool(residual)), region, smem, bits, float(eps),
                  1.0 / math.sqrt(hd), DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("prefill_attn_block launch failed: "
@@ -193,6 +225,9 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
 
 
 prefill_attn_block_cuda.launches = 0
+# the same launches by weight class
+prefill_attn_block_cuda.launches_by_weight = {"fp": 0, "int8": 0,
+                                              "int4": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +265,7 @@ def _supports_prefill_attn(meta):
     return _fdb._smem_reason(
         prefill_attn_smem_bytes(meta["D"], meta["H"], meta["KV"], meta["hd"],
                                 meta["BS"], meta["itemsize"]),
-        meta["smem_limit"])
+        meta["smem_limit"], meta)
 
 
 KERNELS.register("prefill_attn_block", "cuda_fused", prefill_attn_block_cuda,

@@ -249,9 +249,9 @@ def test_supports_block_accepts_7b(KV):
 
 
 @pytest.mark.parametrize("case,reason", [
-    (dict(quant=True), "int8 cache / weight-quant"),
-    (dict(weight_dtype="int8"), "int8 cache / weight-quant"),
-    (dict(weight_dtype="int4"), "int8 cache / weight-quant"),
+    (dict(quant=True), "int8 cache"),
+    (dict(weight_dtype="int8", quant=True), "int8 cache"),
+    (dict(weight_dtype="int4", D=4095), "even hidden_size"),
     (dict(H=6, KV=4, D=768), "H not a multiple of KV"),
     (dict(D=8192, dtype=torch.float32), "shared memory"),
     (dict(hd=12, H=8, KV=8, dtype=torch.float32), "not a multiple of 8"),

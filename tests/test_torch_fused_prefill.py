@@ -209,8 +209,8 @@ def test_predicates_select_cuda_kernels_at_7b(KV):
 
 
 @pytest.mark.parametrize("case,reason", [
-    (dict(quant=True), "int8 cache / weight-quant"),
-    (dict(weight_dtype="int4"), "int8 cache / weight-quant"),
+    (dict(quant=True), "int8 cache"),
+    (dict(weight_dtype="int4", D=4095), "even hidden_size"),
     (dict(dtype=torch.float16), "dtype float16"),
     (dict(pool_dtype=torch.float32), "pool dtype"),
     (dict(H=6, KV=4, D=768), "H not a multiple of KV"),
@@ -218,7 +218,11 @@ def test_predicates_select_cuda_kernels_at_7b(KV):
     (dict(D=4100), "hidden 4100"),
     (dict(P=24), "P=24"),
     (dict(D=8192, KV=8, dtype=torch.float32), "shared memory"),
-])
+], ids=["case0-int8 cache / weight-quant",
+        "case1-int8 cache / weight-quant", "case2-dtype float16",
+        "case3-pool dtype", "case4-H not a multiple of KV",
+        "case5-head_dim 4", "case6-hidden 4100", "case7-P=24",
+        "case8-shared memory"])
 def test_predicates_refuse_with_reason(case, reason):
     """On CUDA a refusal raises with its reason, from dispatch and from
     the resolver; only "ref" (or a force pin) runs the composition."""

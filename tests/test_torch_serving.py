@@ -187,7 +187,7 @@ def test_submit_validation(params):
 @pytest.mark.parametrize("kw", [
     {"cache_dtype": torch.int8},
     {"kv_offload": True}, {"mesh": 2}, {"prefix_cache": True},
-    {"weight_quant": "int8"}, {"cache_dtype": "int8"},
+    {"cache_dtype": "int8"},
     {"observability": True}, {"telemetry": True}])
 def test_routes_of_later_slices_raise(params, kw):
     _, tp = params
