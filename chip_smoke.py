@@ -47,13 +47,29 @@ script exits non-zero:
    scales), the plain version, the fp kernel on the same activations,
    the quantized two-stage pair (for the block kernel) and
    ``torch._weight_int8pack_mm`` over the int8 products.
+   The three kernels that read the KV pools (decode_attn_block,
+   decode_block_fused, prefill_attn_block) over int8 pools with f32
+   per-head scales (the int8 KV cache; pools made by the port's
+   ``quantize_pools`` on the card), in fp, int8 and int4 weights: against
+   their kernel-order plain versions with ``kv_scales`` at the fp phases'
+   tolerances (a decode row whose new-token codes differ between kernel
+   and plain version by a roundoff across a rounding boundary is held
+   with KV8_FLIP_ATOL more, and counted), bf16 and (fp weights) f32, KV 32
+   and 8; two launches bit for bit; dispatch on the int8-pool meta; timed
+   at B 8 / P 128 in bf16 beside the bound (int8 pages and their scales)
+   the plain version and the fp-pool kernel on the same activations
+   (the codes dequantized to bf16).
 3. parity: LLaMA-7B widths, 2 layers, f32: greedy tokens for 5 requests
    through 2 slots from the engine on its default route (fused prefill,
    the single-launch decode kernel), on the two-stage decode route
    (``fused_decode="pallas"``) and on the unfused route, each against
    the port's dense ``generate``; then the same over an int8 and an
    int4 tree quantized on the card (one layer's leaves byte-equal to the
-   CPU's quantization of the same layer).
+   CPU's quantization of the same layer). Then the three routes with
+   ``cache_dtype="int8"``: equal greedy ids and scales, and the int8
+   codes each request wrote differing between a kernel route and the
+   unfused route by one step at most, in at most KV8_PARITY_FLIPS of
+   them; every int8-pool kernel launch in the int8 pool class.
 4. serving (the main path): LLaMA-7B, 32 layers, bf16, random weights
    from a seeded ``torch.Generator`` on the card: 12 requests of 40-600
    prompt tokens and 64 new tokens each through 8 slots, on the default
@@ -87,6 +103,17 @@ script exits non-zero:
    card, timed): the fp routes' launch counts, every launch of the four
    block kernels in the quantized class (``launches_by_weight``), no
    dequantize-then-matmul call; the profile on int8's default route.
+7c. the int8 KV cache (this slice's main path): the serving phase with
+   ``cache_dtype="int8"`` on the default, two-stage and unfused routes
+   and with int8 weights on the default route (``kv8_default``,
+   ``kv8_two_stage``, ``kv8_unfused``, ``int8_kv8_default``): the fp
+   routes' launch counts plus the calibration's dense forward (its
+   RMSNorm launches and, over int8 weights, its dequantize-then-matmul
+   products, counted apart) and no paged-attention launch on the unfused
+   route (its attention over int8 pools is the dequantizing composition,
+   as in the JAX package); every launch of the three kernels that read
+   the pools in the int8 pool class (``launches_by_pool``); the pools'
+   bytes and the calibration's seconds; the profile on kv8_default.
 
 8. flash: the three flash-attention kernels (fwd, dq, dkv) against
    their plain versions, and autograd through them against autograd
@@ -127,9 +154,11 @@ script exits non-zero:
    kernel group and the busy share. Then the same on the "ref" route
    (RMSNorm 4L + 1 a step, the fused-train kernels never).
 
-Then the ``kernels`` summary line, 18 rows and the 8 quantized rows
+Then the ``kernels`` summary line, 18 rows, the 8 quantized rows
 (``decode_attn_block[int8]`` ... ``prefill_attn_block[int4]``, launches
-from the quantized serving routes) (each kernel's launches from
+from the quantized serving routes) and the 9 int8-pool rows
+(``decode_attn_block[kv8]`` ... ``prefill_attn_block[int4,kv8]``,
+launches from the int8-cache routes) (each kernel's launches from
 the serving phase of the route that runs it, from the default route's
 train phase, or, for layer_norm_fwd, from its own phase) and,
 last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
@@ -465,19 +494,22 @@ def paged_phase(gpu):
     return row
 
 
-def attn_bytes(lens, D, H, KV, hd, BS, item):
+def attn_bytes(lens, D, H, KV, hd, BS, item, pool_item=None):
     """Bytes one decode_attn_block launch must move: the four weight
     matrices and the norm weight, the live K and V rows (``lens`` tokens
-    already in the pool per sequence), x in and out, k_new and v_new out,
-    one f32 rope row pair per sequence, the lengths and the live table
-    entries."""
+    already in the pool per sequence, ``pool_item`` bytes an element: the
+    model's, or 1 for int8 pools, which add their two f32 [KV] scale
+    rows), x in and out, k_new and v_new out, one f32 rope row pair per
+    sequence, the lengths and the live table entries."""
     B = len(lens)
     n_tok = int(sum(int(n) for n in lens))
     n_pages = sum(-(-int(n) // BS) for n in lens)
     weights = (2 * D * H * hd + 2 * D * KV * hd + D) * item
     acts = (2 * B * D + 2 * B * KV * hd) * item + B * hd * 4
-    return (weights + n_tok * KV * hd * 2 * item + acts + 4 * B
-            + 4 * n_pages)
+    pools = n_tok * KV * hd * 2 * (pool_item or item)
+    if pool_item and pool_item != item:
+        pools += 2 * KV * 4
+    return weights + pools + acts + 4 * B + 4 * n_pages
 
 
 def attn_ops(lens, D, H, KV, hd):
@@ -690,13 +722,14 @@ def fused_mlp_phase(gpu):
     return row
 
 
-def block_bytes(lens, D, H, KV, hd, F, BS, item):
+def block_bytes(lens, D, H, KV, hd, F, BS, item, pool_item=None):
     """Bytes one decode_block_fused launch must move: decode_attn_block's
     (every attention weight, the live K/V rows, x in, x_out, k_new and
     v_new out, rope rows, lengths and table entries) plus the three MLP
     weight matrices and the post-norm weight. The f32 residual between
     the halves is the kernel's own traffic, not the function's."""
-    return attn_bytes(lens, D, H, KV, hd, BS, item) + (3 * D * F + D) * item
+    return (attn_bytes(lens, D, H, KV, hd, BS, item, pool_item)
+            + (3 * D * F + D) * item)
 
 
 def block_inputs(gen, dt, KV, F, rope, B):
@@ -867,15 +900,18 @@ def layer_norm_phase(gpu):
     return row
 
 
-def prefill_bytes(P, n, pos0, D, H, KV, hd, BS, item):
+def prefill_bytes(P, n, pos0, D, H, KV, hd, BS, item, pool_item=None):
     """Bytes one prefill_attn_block launch must move: the four weight
     matrices and the norm weight, the real rows of x in and every row of
     x_out, k_new and v_new out, the chunk's f32 rope rows, the history's
-    K and V rows (``pos0`` tokens) and its table entries."""
+    K and V rows (``pos0`` tokens, ``pool_item`` bytes an element; int8
+    pools add their two f32 [KV] scale rows) and its table entries."""
     weights = (2 * D * H * hd + 2 * D * KV * hd + D) * item
     acts = (n * D + P * D + 2 * P * KV * hd) * item + P * hd * 4
-    return (weights + acts + 2 * pos0 * KV * hd * item
-            + 4 * -(-pos0 // BS))
+    hist = 2 * pos0 * KV * hd * (pool_item or item)
+    if pool_item and pool_item != item:
+        hist += 2 * KV * 4
+    return weights + acts + hist + 4 * -(-pos0 // BS)
 
 
 def prefill_ops(n, pos0, D, H, KV, hd):
@@ -1409,6 +1445,302 @@ def quant_kernel_phases(gpu):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the int8-pool bodies (the int8 KV cache): decode_attn_block,
+# decode_block_fused and prefill_attn_block over int8 pools with f32
+# per-head scales, in fp, int8 and int4 weights, each against its
+# kernel-order plain version (attn_block_wq_ref, decode_block_ref,
+# prefill_attn_block_wq_ref with kv_scales) at the fp-pool phases'
+# tolerances, and timed beside the fp-pool kernel on the same activations
+# (pools holding the int8 codes dequantized to the model type).
+# ---------------------------------------------------------------------------
+KV8_WEIGHTS = (0, 8, 4)
+# extra absolute error allowed on a decode row whose new-token K or V
+# codes differ between the kernel and the plain version: their k_new/v_new
+# differ by product roundoff, which now and then straddles a rounding
+# boundary of round(x / s); one code step of that one token (s ~ absmax /
+# 127) moves the row's attention output by up to ~s
+KV8_FLIP_ATOL = 5e-3
+
+
+def kv8_pools(kp, vp):
+    """int8 pools and their f32 [KV] scales made from fp pools by the
+    port's ``quantize_pools`` (on the card), and the fp pools they stand
+    for (the codes dequantized to the pools' type): the same activations
+    for the fp-pool kernel."""
+    from paddle_tpu_torch.ops.paged_attention import quantize_pools
+    kq, vq, ks, vs = quantize_pools(kp, vp)
+
+    def deq(q, sc):
+        return (q.float() * sc[None, None, :, None]).to(kp.dtype)
+    return kq, vq, (ks, vs), deq(kq, ks), deq(vq, vs)
+
+
+def _code_flips(got, want, sc):
+    """Rows of a new-token K or V [rows, KV, hd] whose int8 codes under the
+    scales ``sc`` differ between two computations, and how many codes
+    differ."""
+    import torch
+
+    def codes(t):
+        return torch.clamp(torch.round(t.float() / sc[None, :, None]),
+                           -127, 127)
+    d = codes(got) != codes(want)
+    return d.flatten(1).any(1), int(d.sum())
+
+
+def _kv8_decode_outputs(got, want, dt, scales):
+    """A decode kernel's (x_out, k_new, v_new) over int8 pools against its
+    plain version's: k_new and v_new at the fp phases' tolerances; x_out
+    at the fp phases' tolerances on every row whose new-token codes agree,
+    and with KV8_FLIP_ATOL more on a row whose codes differ. Returns (the
+    outputs' records, rows with a differing code, codes that differ)."""
+    import torch
+    fk, nk = _code_flips(got[1], want[1], scales[0])
+    fv, nv = _code_flips(got[2], want[2], scales[1])
+    flipped = fk | fv
+    outs = {"k_new": _check_case("k_new", got[1], want[1], dt, 1e-5),
+            "v_new": _check_case("v_new", got[2], want[2], dt, 1e-5)}
+    keep = ~flipped
+    outs["x_out"] = _check_case("x_out", got[0][keep], want[0][keep], dt,
+                                1e-4)
+    if bool(flipped.any()):
+        g, w = got[0][flipped].float(), want[0][flipped].float()
+        if dt == torch.float32:
+            ok = bool(torch.allclose(g, w, atol=1e-4 + KV8_FLIP_ATOL,
+                                     rtol=1e-4))
+        else:
+            ok = bf16_close(g, w, floor=KV8_FLIP_ATOL)[0]
+        outs["x_out_rows_with_a_code_flip"] = {
+            "max_abs_err": float((g - w).abs().max()),
+            "tol": f"the x_out tolerance + {KV8_FLIP_ATOL} absolute",
+            "ok": ok}
+    return outs, int(flipped.sum()), nk + nv
+
+
+def kv8_decode_phase(gpu, op):
+    """``op`` ("decode_attn_block" or "decode_block_fused") over int8
+    pools in fp, int8 and int4 weights: bf16 at KV=32 and 8 slots and, for
+    fp weights, f32 at KV=32 (8 slots) and KV=8 (20 slots, GQA, three
+    passes), int8 and int4 also bf16 at KV=8; the fp phases' lengths
+    (0/1/15/16/17/1151 and random). Each case: two launches bit for bit,
+    dispatch picks the kernel on the int8-pool meta, and the outputs hold
+    the kernel-order plain version (_kv8_decode_outputs). Timed at B 8,
+    bf16, KV=32 beside its bound (int8 pages and their scales, the
+    weights in their class), its plain version and the fp-pool kernel on
+    the same activations."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    attn = op == "decode_attn_block"
+    wrapper = fdb.decode_attn_block_cuda if attn \
+        else fdb.decode_block_fused_cuda
+    plain = fdb.attn_block_wq_ref if attn else fdb.decode_block_ref
+    variant = "cuda_fused" if attn else "cuda_block"
+    ip = 8 if attn else 12            # k_pool's place in the arguments
+    gen = torch.Generator(device="cuda").manual_seed(80 + attn)
+    rope = build_rope_cache(4096, HD7, device="cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for bits in KV8_WEIGHTS:
+        wd = WQ_BITS.get(bits)
+        name = f"{op}[{wd + ',' if wd else ''}kv8]"
+        specs = (((bf16, 32, B8), (f32, 32, B8), (f32, 8, 20)) if not bits
+                 else ((bf16, 32, B8), (bf16, 8, B8)))
+        cases, max_err, timed = [], 0.0, None
+        for dt, KV, B in specs:
+            base = (fused_attn_inputs(gen, dt, KV, rope, B) if attn
+                    else block_inputs(gen, dt, KV, F7, rope, B))
+            if bits and attn:
+                base = (*base[:2], *wq_leaves(base[2:6], bits), *base[6:])
+            elif bits:
+                base = (*base[:2], *wq_leaves(base[2:6], bits), base[6],
+                        *wq_leaves(base[7:10], bits, down=base[9]),
+                        *base[10:])
+            kq, vq, scales, kd, vd = kv8_pools(base[ip], base[ip + 1])
+            args = (*base[:ip], kq, vq, *base[ip + 2:])
+            fp_args = (*base[:ip], kd, vd, *base[ip + 2:])
+            meta = fdb.decode_meta_dims(B, D7, H7, KV, HD7, F7, BS16, MB72,
+                                        dt, torch.int8, True,
+                                        weight_dtype=wd)
+            picked = KERNELS.dispatch(op, meta)[0]
+            got = wrapper(*args, kv_scales=scales)
+            again = wrapper(*args, kv_scales=scales)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = plain(*args, kv_scales=scales)  # writes the new codes
+            torch.cuda.synchronize()
+            outs, flip_rows, flip_codes = _kv8_decode_outputs(got, want, dt,
+                                                              scales)
+            max_err = max([max_err] + [o["max_abs_err"]
+                                       for o in outs.values()])
+            case = {"dtype": str(dt)[6:], "KV": KV, "B": B,
+                    "seq_lens": args[ip + 3].tolist(), "outputs": outs,
+                    "rows_with_a_code_flip": flip_rows,
+                    "codes_flipped": flip_codes,
+                    "bitwise_repeatable": same, "dispatch": picked,
+                    "ok": same and picked == variant
+                    and all(o["ok"] for o in outs.values())}
+            cases.append(case)
+            if not case["ok"]:
+                emit({"phase": "kernel", "kernel": name, "gpu": gpu,
+                      "cases": cases})
+                raise AssertionError(f"{name} disagrees: {case}")
+            if dt == bf16 and KV == H7 and B == B8:
+                timed, timed_fp, tsc = args, fp_args, scales
+        lens = timed[ip + 3].tolist()
+        shapes = [(D7, H7 * HD7)] * 3 + [(H7 * HD7, D7)]
+        if attn:
+            nbytes = attn_bytes(lens, D7, H7, H7, HD7, BS16, 2, 1)
+            ops = attn_ops(lens, D7, H7, H7, HD7)
+        else:
+            shapes += [(D7, F7), (D7, F7), (F7, D7)]
+            nbytes = block_bytes(lens, D7, H7, H7, HD7, F7, BS16, 2, 1)
+            ops = attn_ops(lens, D7, H7, H7, HD7) + 6 * B8 * D7 * F7
+        if bits:
+            qb, fb = wq_bytes(shapes, bits, 2)
+            nbytes += qb - fb
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        row = {"name": name, "route": "cuda", "source": FUSED_SOURCE,
+               "replaces": "paddle_tpu/ops/pallas/fused_decode_block.py:"
+                           + ("436" if attn else "1021"),
+               "weights": wd or "bfloat16", "pools": "int8",
+               "shape": {"B": B8, "D": D7, "H": H7, "KV": H7, "hd": HD7,
+                         **({} if attn else {"F": F7}), "BS": BS16,
+                         "MB": MB72, "seq_lens": lens},
+               "dtype": "bfloat16", "max_abs_err": max_err,
+               "ms": cold_ms(lambda: wrapper(*timed, kv_scales=tsc)),
+               "plain_ms": cold_ms(lambda: plain(*timed, kv_scales=tsc)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "fp_pool_kernel_ms": cold_ms(lambda: wrapper(*timed_fp)),
+               "library_ms": None,
+               "library": "none: no single PyTorch call computes the "
+                          + ("block" if attn else "layer"),
+               "ok": True}
+        emit({"phase": "kernel", "kernel": name, "gpu": gpu,
+              "cases": cases, **{k: row[k] for k in (
+                  "ms", "plain_ms", "bound_ms", "fp_pool_kernel_ms")}})
+        rows.append(row)
+    return rows
+
+
+def kv8_prefill_phase(gpu):
+    """prefill_attn_block over int8 history pages in fp, int8 and int4
+    weights against prefill_attn_block_wq_ref (history dequantized in f32,
+    the chunk's K/V at the model type): bf16, KV=32, P=128 with (pos0,
+    n_valid) = (0, 128), (5, 125), (600, 77); for fp weights also f32,
+    KV=8, P=32 with (5, 29) and (600, 21); the real rows at the fp
+    tolerances (the kernel quantizes nothing, so no code can flip), every
+    row finite, two launches bit for bit, dispatch on the int8-pool meta.
+    Timed at P=128, bf16, KV=32, pos0 512 beside its bound, its plain
+    version and the fp-pool kernel on the same activations."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_prefill_block as fpb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    D, H, hd, BS, MB = D7, H7, HD7, BS16, MB72
+    sin, cos = build_rope_cache(MB * BS, hd, device="cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for bits in KV8_WEIGHTS:
+        wd = WQ_BITS.get(bits)
+        name = f"prefill_attn_block[{wd + ',' if wd else ''}kv8]"
+        specs = [(bf16, H, 128, ((0, 128), (5, 125), (600, 77)))]
+        if not bits:
+            specs.append((f32, 8, 32, ((5, 29), (600, 21))))
+        cases, max_err, timed = [], 0.0, None
+        for dt, KV, P, spans in specs:
+            def rn(*shape, std=1.0):
+                return (torch.randn(*shape, generator=gen, device="cuda")
+                        * std).to(dt)
+            table = (torch.randperm(MB, generator=gen, device="cuda") + 1
+                     ).to(torch.int32)
+            fpw = ((1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+                    ).to(dt), rn(D, H * hd, std=0.02),
+                   rn(D, KV * hd, std=0.02), rn(D, KV * hd, std=0.02),
+                   rn(H * hd, D, std=0.02))
+            weights = (fpw[0], *wq_leaves(fpw[1:], bits)) if bits else fpw
+            kq, vq, scales, kd, vd = kv8_pools(rn(MB + 1, BS, KV, hd),
+                                               rn(MB + 1, BS, KV, hd))
+            meta = fpb.prefill_meta_dims(P, D, H, KV, hd, F7, BS, MB, dt,
+                                         torch.int8, True, weight_dtype=wd)
+            picked = KERNELS.dispatch("prefill_attn_block", meta)[0]
+            for pos0, n in spans:
+                args = (rn(P, D), *weights, sin[pos0:pos0 + P],
+                        cos[pos0:pos0 + P], kq, vq, table, pos0, n)
+                got = fpb.prefill_attn_block_cuda(*args, kv_scales=scales)
+                again = fpb.prefill_attn_block_cuda(*args, kv_scales=scales)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                want = fpb.prefill_attn_block_wq_ref(*args, kv_scales=scales)
+                outs = {}
+                for nm, g, w, tol in (("x_out", got[0], want[0], 1e-4),
+                                      ("k_new", got[1], want[1], 1e-5),
+                                      ("v_new", got[2], want[2], 1e-5)):
+                    outs[nm] = _check_case(nm, g[:n], w[:n], dt, tol)
+                    max_err = max(max_err, outs[nm]["max_abs_err"])
+                torch.cuda.synchronize()
+                finite = bool(torch.isfinite(got[0]).all())
+                case = {"dtype": str(dt)[6:], "KV": KV, "P": P,
+                        "pos0": pos0, "n_valid": n, "outputs": outs,
+                        "pad_rows_finite": finite,
+                        "bitwise_repeatable": same, "dispatch": picked,
+                        "ok": same and finite and picked == "cuda_fused"
+                        and all(o["ok"] for o in outs.values())}
+                cases.append(case)
+                if not case["ok"]:
+                    emit({"phase": "kernel", "kernel": name, "gpu": gpu,
+                          "cases": cases})
+                    raise AssertionError(f"{name} disagrees: {case}")
+            if dt == bf16:
+                pos0 = 512
+                x = rn(128, D)
+                timed = (x, *weights, sin[pos0:pos0 + 128],
+                         cos[pos0:pos0 + 128], kq, vq, table, pos0, 128)
+                timed_fp = (*timed[:8], kd, vd, *timed[10:])
+                tsc = scales
+        nbytes = prefill_bytes(128, 128, 512, D, H, H, hd, BS, 2, 1)
+        if bits:
+            qb, fb = wq_bytes([(D, H * hd)] * 3 + [(H * hd, D)], bits, 2)
+            nbytes += qb - fb
+        b_ms, b_by = bound(nbytes, prefill_ops(128, 512, D, H, H, hd),
+                           "bfloat16")
+        row = {"name": name, "route": "cuda", "source": PREFILL_SOURCE,
+               "replaces": "paddle_tpu/ops/pallas/fused_prefill_block.py:431",
+               "weights": wd or "bfloat16", "pools": "int8",
+               "shape": {"P": 128, "n_valid": 128, "pos0": 512, "D": D,
+                         "H": H, "KV": H, "hd": hd, "BS": BS, "MB": MB},
+               "dtype": "bfloat16", "max_abs_err": max_err,
+               "ms": cold_ms(lambda: fpb.prefill_attn_block_cuda(
+                   *timed, kv_scales=tsc)),
+               "plain_ms": cold_ms(lambda: fpb.prefill_attn_block_wq_ref(
+                   *timed, kv_scales=tsc)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "fp_pool_kernel_ms": cold_ms(
+                   lambda: fpb.prefill_attn_block_cuda(*timed_fp)),
+               "library_ms": None,
+               "library": "none: no single PyTorch call computes the block",
+               "ok": True}
+        emit({"phase": "kernel", "kernel": name, "gpu": gpu,
+              "cases": cases, **{k: row[k] for k in (
+                  "ms", "plain_ms", "bound_ms", "fp_pool_kernel_ms")}})
+        rows.append(row)
+    return rows
+
+
+def kv8_kernel_phases(gpu):
+    """The three int8-pool bodies, each in fp, int8 and int4 weights."""
+    return (kv8_decode_phase(gpu, "decode_attn_block")
+            + kv8_decode_phase(gpu, "decode_block_fused")
+            + kv8_prefill_phase(gpu))
+
+
 # the serving routes: the engine's knobs for each
 ROUTES = {"default": {"fused_decode": None, "fused_prefill": None},
           "two_stage": {"fused_decode": "pallas", "fused_prefill": None},
@@ -1419,7 +1751,27 @@ QUANT_ROUTES = {"int8_default": dict(ROUTES["default"], weight_quant="int8"),
                 "int4_default": dict(ROUTES["default"], weight_quant="int4"),
                 "int8_two_stage": dict(ROUTES["two_stage"],
                                        weight_quant="int8")}
-ALL_ROUTES = {**ROUTES, **QUANT_ROUTES}
+# the int8 KV cache (this slice's main path): the three routes over int8
+# pools, and int8 weights on int8 pools on the default route
+KV8_ROUTES = {f"kv8_{r}": dict(ROUTES[r], cache_dtype="int8")
+              for r in ROUTES}
+KV8_ROUTES["int8_kv8_default"] = dict(KV8_ROUTES["kv8_default"],
+                                      weight_quant="int8")
+ALL_ROUTES = {**ROUTES, **QUANT_ROUTES, **KV8_ROUTES}
+# the pool codes that may differ between two routes over int8 pools, as a
+# share of the codes written: a kernel's new-token K/V differ from the
+# composition's by product roundoff, which now and then crosses a rounding
+# boundary of round(x / s), and the next layer and later tokens inherit
+# that one-code step as an input difference of ~s / 127 relative
+KV8_PARITY_FLIPS = 0.01
+
+
+def _route_base(route):
+    """The decode/prefill route under a route's weight and pool classes:
+    "default", "two_stage" or "unfused"."""
+    for prefix in ("int8_", "int4_", "kv8_"):
+        route = route.removeprefix(prefix)
+    return route
 
 
 @contextlib.contextmanager
@@ -1534,6 +1886,113 @@ def parity_phase(gpu, wq=None):
                     f"{route} engine and generate diverge: {res}")
 
 
+def _snapshot_written_codes(eng):
+    """As each request of ``eng`` finishes, a copy of the K and V codes it
+    wrote ([L, positions, KV, hd]: its prompt and every generated token
+    but the last), read from its pages before they are released; a later
+    request may reuse the pages, and a verbatim chunk's pad rows land past
+    the written positions. Returns the dict {req_id: (k, v)} it fills."""
+    import torch
+    codes, finish = {}, eng._finish
+
+    def snapshot_then_finish(slot_id):
+        req = eng._slots[slot_id].req
+        n = int(req.prompt.size) + len(req.tokens) - 1
+        pages = torch.tensor(eng.mgr.tables[req.req_id], device=eng.device)
+        L, _, _, KV, hd = eng._k_pools.shape
+        codes[req.req_id] = tuple(
+            pool[:, pages].reshape(L, -1, KV, hd)[:, :n].clone()
+            for pool in (eng._k_pools, eng._v_pools))
+        finish(slot_id)
+    eng._finish = snapshot_then_finish
+    return codes
+
+
+def kv8_parity_phase(gpu):
+    """Route parity over int8 pools, f32 at LLaMA-7B widths with 2 layers:
+    the engine with ``cache_dtype="int8"`` on its default route (the fused
+    chunk and the single-launch decode kernel, their int8-pool bodies), on
+    the two-stage route and on the unfused route (the verbatim chunk
+    dequantizing its dense view, the dequantizing paged-attention
+    composition). The three engines calibrate from the same first prompt
+    through the same dense forward, so their scales must be equal; their
+    greedy ids for 5 requests through 2 slots must be equal; the pool
+    codes each request wrote (its prompt and every generated token but
+    the last, read from its pages as it finishes) on each kernel route
+    against the unfused route's may differ by one code step only, in at
+    most KV8_PARITY_FLIPS of them; every launch of the three int8-pool
+    kernels must be in the int8 pool class."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.inference import GenerationConfig, ServingEngine
+    from paddle_tpu_torch.models import LLAMA_7B, init_params
+    from paddle_tpu_torch.ops import kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(LLAMA_7B, num_hidden_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, seed=1)
+    specs = [(5, 6), (40, 4), (300, 5), (17, 3), (129, 5)]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, S).astype(np.int32)
+               for S, _ in specs]
+    L, KV, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    written = sum(S + N - 1 for S, N in specs) * L * KV * hd * 2
+    routes, engines, written_codes = {}, {}, {}
+    for r in ROUTES:
+        kernels.reset_launches()
+        eng = ServingEngine(params, cfg, capacity=2, block_size=16,
+                            max_seq_len=512, prefill_buckets=(32, 128),
+                            **KV8_ROUTES[f"kv8_{r}"])
+        written_codes[r] = _snapshot_written_codes(eng)
+        reqs = [eng.submit(p, GenerationConfig(max_new_tokens=N,
+                                               greedy=True))
+                for p, (_, N) in zip(prompts, specs)]
+        eng.drain()
+        torch.cuda.synchronize()
+        by_pool = kernels.launches_by_pool()
+        routes[r] = {"decode_variant": eng.decode_variant,
+                     "prefill_variant": eng.prefill_variant,
+                     "launches_by_pool": by_pool,
+                     "tokens": [q.tokens for q in reqs]}
+        engines[r] = eng
+        if any(by["fp"] for by in by_pool.values()):
+            raise AssertionError(f"kv8 parity, {r}: fp-pool launches "
+                                 f"{by_pool}")
+    ref = engines["unfused"]
+    res = {}
+    for r in ("default", "two_stage"):
+        e = engines[r]
+        steps = [(a.int() - b.int()).abs()
+                 for rid, pair in written_codes[r].items()
+                 for a, b in zip(pair, written_codes["unfused"][rid])]
+        res[r] = {
+            "tokens_equal_unfused": routes[r]["tokens"]
+            == routes["unfused"]["tokens"],
+            "scales_equal_unfused": all(torch.equal(a, b) for a, b in
+                                        zip(e._kv_scales, ref._kv_scales)),
+            "codes_compared": sum(d.numel() for d in steps),
+            "codes_differing": sum(int((d > 0).sum()) for d in steps),
+            "largest_code_step": max(int(d.max()) for d in steps)}
+    emit({"phase": "kv8_parity", "gpu": gpu, "dtype": "float32",
+          "layers": L, "codes_written": written,
+          "flip_bound": KV8_PARITY_FLIPS,
+          **{r: {k: v for k, v in routes[r].items() if k != "tokens"}
+             for r in routes}, **{f"{r}_vs_unfused": v
+                                  for r, v in res.items()}})
+    _check_default_route(routes["default"], "kv8 parity engine")
+    if routes["two_stage"]["decode_variant"]["attn"] != "cuda_fused":
+        raise AssertionError("the kv8 two-stage parity engine is not on the "
+                             "decode_attn_block kernel")
+    for r, v in res.items():
+        if not (v["tokens_equal_unfused"] and v["scales_equal_unfused"]
+                and v["codes_compared"] == written
+                and v["largest_code_step"] <= 1
+                and v["codes_differing"] <= KV8_PARITY_FLIPS * written):
+            raise AssertionError(f"kv8 parity, {r} against unfused: {v}")
+
+
 DEFAULT_ROUTE = {
     "decode_variant": {"mode": "auto", "block": "cuda_block",
                        "attn": "cuda_block", "mlp": "cuda_block"},
@@ -1563,7 +2022,12 @@ def serving_phase(gpu, params, route):
     are set to 0 just before the requests go in and read just after the
     engine drains; on a quantized route every launch of the four block
     kernels must be in the quantized class and no dequantize-then-matmul
-    may run."""
+    may run. On an int8-cache route (``cache_dtype="int8"``) every launch
+    of the three kernels that read the pools must be in the int8 pool
+    class, the unfused route's attention is the dequantizing composition
+    (no paged-attention launch), and the pools' bytes and the calibration's
+    seconds (the first admission's dense forward, CUDA-synchronised) are
+    printed; on the other routes every such launch is in the fp class."""
     import torch
     from paddle_tpu_torch.inference import GenerationConfig, ServingEngine
     from paddle_tpu_torch.models import LLAMA_7B
@@ -1571,6 +2035,7 @@ def serving_phase(gpu, params, route):
     cfg = LLAMA_7B
     L = cfg.num_hidden_layers
     wq = ALL_ROUTES[route].get("weight_quant")
+    kv8 = ALL_ROUTES[route].get("cache_dtype") == "int8"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = ServingEngine(params, cfg, capacity=8, block_size=16,
@@ -1587,24 +2052,47 @@ def serving_phase(gpu, params, route):
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in lens]
     t0 = time.perf_counter()
+    # the int8 cache's calibration (a dense forward at the first admission:
+    # its RMSNorm launches, and over a quantized tree its dequantize-then-
+    # matmul products, as in the JAX engine) is timed and counted apart
+    calib_s, calib_dequant = [], [0]
     with counted_dequantize() as dequant_calls:
+        calibrate = eng._calibrate
+
+        def timed_calibrate(prompt):
+            before = dequant_calls[0]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            calibrate(prompt)
+            torch.cuda.synchronize()
+            calib_s.append(time.perf_counter() - t)
+            calib_dequant[0] += dequant_calls[0] - before
+        eng._calibrate = timed_calibrate
         reqs = [eng.submit(p, gen) for p in prompts]
         eng.drain()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    serve_dequant = dequant_calls[0] - calib_dequant[0]
     counts = kernels.launches()
     by_weight = kernels.launches_by_weight()
+    by_pool = kernels.launches_by_pool()
     m = eng.metrics()
     steps, chunks = m["decode_steps"], m["prefill_chunks"]
     emit({"phase": "serving", "route": route, "gpu": gpu,
           "model": "LLAMA_7B", "layers": L, "dtype": "bfloat16",
-          "weight_quant": wq, "construct_s": round(construct_s, 3),
+          "weight_quant": wq, "cache_dtype": "int8" if kv8 else None,
+          "pool_bytes": 2 * eng._k_pools.numel()
+          * eng._k_pools.element_size(),
+          "calibration_s": [round(t, 4) for t in calib_s],
+          "calibration_traces": m["calibration_traces"],
+          "construct_s": round(construct_s, 3),
           "requests": len(reqs), "prompt_tokens": [int(n) for n in lens],
           "decode_variant": m["decode_variant"],
           "prefill_variant": m["prefill_variant"],
           "weight_quant_variant": m["weight_quant_variant"],
-          "dequantize_calls": dequant_calls[0],
-          "launches_by_weight": by_weight,
+          "dequantize_calls": serve_dequant,
+          "calibration_dequantize_calls": calib_dequant[0],
+          "launches_by_weight": by_weight, "launches_by_pool": by_pool,
           "wall_s": round(wall, 3),
           "tokens_per_sec": m["tokens_per_sec"],
           "prefill_tokens_per_sec": m["prefill_tokens_per_sec"],
@@ -1625,10 +2113,18 @@ def serving_phase(gpu, params, route):
             raise AssertionError(f"request {r.req_id}: token out of range")
     # the prefill MLP is decode_mlp_block over the chunk's rows; the final
     # norm of every chunk and step is the RMSNorm kernel
-    base = route.split("_", 1)[1] if wq else route
+    base = _route_base(route)
+    pool_class = "int8" if kv8 else "fp"
+    for op, by in by_pool.items():
+        if by[pool_class] != counts[op]:
+            raise AssertionError(f"{route}: {op} launched {by} (all "
+                                 f"{counts[op]} must be {pool_class})")
+    if kv8 != (len(calib_s) == 1 == m["calibration_traces"]):
+        raise AssertionError(f"{route}: {len(calib_s)} calibrations, "
+                             f"{m['calibration_traces']} counted")
     if wq:
-        if dequant_calls[0]:
-            raise AssertionError(f"{route}: {dequant_calls[0]} dequantize-"
+        if serve_dequant:
+            raise AssertionError(f"{route}: {serve_dequant} dequantize-"
                                  "then-matmul products ran")
         for op, by in by_weight.items():
             if by[wq] != counts[op]:
@@ -1652,15 +2148,19 @@ def serving_phase(gpu, params, route):
                 "decode_mlp_block": L * (steps + chunks),
                 "paged_attention_decode": 0, "rms_norm_fwd": steps + chunks}
     else:
+        # over int8 pools the attention is the dequantizing composition, as
+        # in the JAX package
         want = {"prefill_attn_block": 0, "decode_block_fused": 0,
                 "decode_attn_block": 0, "decode_mlp_block": 0,
-                "paged_attention_decode": L * steps,
+                "paged_attention_decode": 0 if kv8 else L * steps,
                 "rms_norm_fwd": (2 * L + 1) * (steps + chunks)}
+    want["rms_norm_fwd"] += (2 * L + 1) * len(calib_s)
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"{route} launches {counts} != {want} "
-                             f"({steps} decode steps, {chunks} chunks)")
-    return dict(counts, by_weight=by_weight), eng, prompts, [r.tokens
-                                                             for r in reqs]
+                             f"({steps} decode steps, {chunks} chunks, "
+                             f"{len(calib_s)} calibrations)")
+    return (dict(counts, by_weight=by_weight, by_pool=by_pool), eng, prompts,
+            [r.tokens for r in reqs])
 
 
 def routes_phase(gpu, params, prompts, routes):
@@ -1844,7 +2344,8 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
     record["on"] = False
     H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                  cfg.head_dim)
-    item = eng._k_pools.element_size()
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+    pool_item = eng._k_pools.element_size()
     D, F = cfg.hidden_size, cfg.intermediate_size
     attn_w = [(D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D)]
     mlp_w = [(D, F), (D, F), (F, D)]
@@ -1866,8 +2367,8 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
     if n:
         P = eng.buckets[-1]
         nbytes = float(np.mean([prefill_bytes(
-            P, P, pos0, cfg.hidden_size, H, KV, hd, eng.block_size, item)
-            for pos0 in range(0, traced * P, P)])) + wadj(attn_w)
+            P, P, pos0, cfg.hidden_size, H, KV, hd, eng.block_size, item,
+            pool_item) for pos0 in range(0, traced * P, P)])) + wadj(attn_w)
         prefill["prefill_attn_block_per_launch"] = {
             "bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
             "us": ms / n * 1e3}
@@ -1898,14 +2399,14 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
             [n + 1 for n in ls], H, KV, hd, eng.block_size, item),
         "decode_attn_block": lambda ls: attn_bytes(
             ls + [0] * (eng.capacity - len(ls)), cfg.hidden_size, H, KV, hd,
-            eng.block_size, item) + wadj(attn_w),
+            eng.block_size, item, pool_item) + wadj(attn_w),
         "decode_mlp_block": lambda ls: (
             3 * cfg.hidden_size * cfg.intermediate_size
             + (2 * eng.capacity + 1) * cfg.hidden_size) * item
         + wadj(mlp_w),
         "decode_block_fused": lambda ls: block_bytes(
             ls + [0] * (eng.capacity - len(ls)), cfg.hidden_size, H, KV, hd,
-            cfg.intermediate_size, eng.block_size, item)
+            cfg.intermediate_size, eng.block_size, item, pool_item)
         + wadj(attn_w + mlp_w),
     }
     for op, model in byte_models.items():
@@ -2819,6 +3320,7 @@ def main():
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
             fused_mlp_phase(gpu), block_phase(gpu), prefill_attn_phase(gpu)]
     quant_rows = quant_kernel_phases(gpu)
+    kv8_rows = kv8_kernel_phases(gpu)
     ln_row = layer_norm_phase(gpu)
     train_rows = flash_phase(gpu) + [adamw_phase(gpu,
                                                  flat_size(train_config()))]
@@ -2828,6 +3330,7 @@ def main():
     ref_counts, _ = train_phase(gpu, "ref")
     for wq in (None, "int8", "int4"):
         parity_phase(gpu, wq)
+    kv8_parity_phase(gpu)
     params = init_params(LLAMA_7B, seed=0)
     counts, tokens = {}, {}
     prompts = None
@@ -2842,6 +3345,14 @@ def main():
     for route in QUANT_ROUTES:
         counts[route], eng, _, _ = serving_phase(gpu, params, route)
         if route == "int8_default":
+            profile_phase(gpu, eng, route)
+        del eng
+        torch.cuda.empty_cache()
+    # this slice's main path: the int8 KV cache on the three routes and
+    # under int8 weights (a profile of the kv8 default route's decode step)
+    for route in KV8_ROUTES:
+        counts[route], eng, _, _ = serving_phase(gpu, params, route)
+        if route == "kv8_default":
             profile_phase(gpu, eng, route)
         del eng
         torch.cuda.empty_cache()
@@ -2873,6 +3384,23 @@ def main():
             row["two_stage_launches"] = counts[f"{wd}_two_stage"][
                 "by_weight"][name][wd]
     rows += quant_rows
+    # the int8-pool bodies' launches on the int8-cache routes: the
+    # two-stage attention kernel with fp weights on kv8_two_stage, the
+    # single-launch and prefill kernels on kv8_default (fp weights) and
+    # int8_kv8_default; no int4-weight kv8 route, nor an int8-weight
+    # two-stage one, is driven
+    for row in kv8_rows:
+        name, wd = row["name"].split("[")[0], row["weights"]
+        route = {"bfloat16": "kv8_two_stage" if name == "decode_attn_block"
+                 else "kv8_default"}.get(wd)
+        if wd == "int8" and name != "decode_attn_block":
+            route = "int8_kv8_default"
+        row["launches"] = counts[route]["by_pool"][name]["int8"] \
+            if route else 0
+        row["launches_route"] = route
+        if name == "decode_attn_block" and wd == "bfloat16":
+            row["default_route_launches"] = counts["kv8_default"][name]
+    rows += kv8_rows
     rows.append(ln_row)
     for row in train_rows:
         # the training kernels' launches on the default route's timed

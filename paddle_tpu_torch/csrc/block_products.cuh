@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "online_softmax.cuh"
 
 namespace paddle_tpu_torch {
@@ -66,10 +68,16 @@ struct Vec {
 
 __host__ __device__ inline int passes(int B) { return (B + kRB - 1) / kRB; }
 
+// The KV pools' element type: the model's T, or int8 for the int8 cache.
+template <typename T, bool KQ>
+using PoolT = typename std::conditional<KQ, int8_t, T>::type;
+
 // f32 scratch of one attention item of ``rows`` query rows, at the start
 // of the region: q, acc [rows][hd]; scores [rows][pages per step * BS];
 // m, l, alpha [rows]; one more [hd] row (the decode kernel's new-token
-// k); padded to 16 bytes. The step's K and V pages (T) follow it.
+// k); padded to 16 bytes. The step's K and V pages follow it, in the
+// pools' type (the prefill kernel stages its chunk's own K/V, in T, in
+// the same place).
 __device__ inline size_t attn_scratch_floats(int rows, int hd, int BS) {
   size_t f = 2 * (size_t)rows * hd + (size_t)rows * kPagesPerStep * BS +
              3 * (size_t)rows + (size_t)hd;
@@ -487,6 +495,33 @@ using KernelFn = void (*)(const Args);
       if (wbits == 0) return kernel<float, 0>;                        \
       if (wbits == 8) return kernel<float, 8>;                        \
       if (wbits == 4) return kernel<float, 4>;                        \
+    }                                                                 \
+    return nullptr;                                                   \
+  }
+
+// The same for a kernel that reads the KV pools, by (dtype, weight bits,
+// pool bits: 0 for T, 8 for int8).
+#define PADDLE_TPU_PICK_KV_KERNEL(pick, kernel, Args)                 \
+  inline KernelFn<Args> pick(int dtype, int wbits, int kvbits) {      \
+    if (kvbits != 0 && kvbits != 8) return nullptr;                   \
+    const bool kq = kvbits == 8;                                      \
+    if (dtype == 1) {                                                 \
+      if (wbits == 0)                                                 \
+        return kq ? &kernel<__nv_bfloat16, 0, true>                   \
+                  : &kernel<__nv_bfloat16, 0, false>;                 \
+      if (wbits == 8)                                                 \
+        return kq ? &kernel<__nv_bfloat16, 8, true>                   \
+                  : &kernel<__nv_bfloat16, 8, false>;                 \
+      if (wbits == 4)                                                 \
+        return kq ? &kernel<__nv_bfloat16, 4, true>                   \
+                  : &kernel<__nv_bfloat16, 4, false>;                 \
+    } else if (dtype == 0) {                                          \
+      if (wbits == 0)                                                 \
+        return kq ? &kernel<float, 0, true> : &kernel<float, 0, false>; \
+      if (wbits == 8)                                                 \
+        return kq ? &kernel<float, 8, true> : &kernel<float, 8, false>; \
+      if (wbits == 4)                                                 \
+        return kq ? &kernel<float, 4, true> : &kernel<float, 4, false>; \
     }                                                                 \
     return nullptr;                                                   \
   }

@@ -44,6 +44,21 @@
 //     take (rows a multiple of 16 bytes in T), so the predicates add only
 //     int4's even pack axes; shared memory holds activations only and does
 //     not change with the class.
+// The pools may be int8 with static per-head f32 scales k_scale/v_scale
+// [KV] (the int8 KV cache; the launchers' kvbits 8). Those bodies replace
+// the same JAX kernels' quant bodies (_attn_block_kernel and
+// _block_fused_kernel with quant=True). Decisions:
+//   - a page is staged in shared memory in the pool's type, with 16-byte
+//     loads of 16 int8 codes (not Vec<T>::n elements), so the staged pages
+//     take half (bf16) or a quarter (f32) of the fp pools' shared memory;
+//   - each code is dequantized, float(q) * s, before its product
+//     (online_softmax.cuh's kv_float), as the JAX kernels do; factoring the
+//     scale out of the dot product would change the rounding;
+//   - the new token's k (its score) and v (its P.V term) are
+//     clip(round(x / s), -127, 127) * s in f32 (kv_round_trip, IEEE
+//     division and half-to-even rounding; the build uses no fast math):
+//     the values the unfused step reads back from the pool. k_new/v_new
+//     stay raw, in T, for the caller's quantizing pool write.
 // T is float or __nv_bfloat16. The two-stage kernels follow the rounding
 // order of their plain versions (ops/kernels/fused_decode_block.py:
 // attn_block_ref, mlp_block_ref): RMSNorm in f32, cast to T before the
@@ -115,7 +130,8 @@ struct AttnArgs {
   const void *x, *nw, *wq, *wk, *wv, *wo;   // weights: T, int8 or int4
   const float *sq, *sk, *sv, *so;           // f32 [out] scales, or null
   const float *sin, *cos;
-  const void *k_pool, *v_pool;
+  const void *k_pool, *v_pool;        // T, or int8 (KQ)
+  const float *k_scale, *v_scale;     // f32 [KV] (int8 pools), or null
   const int *tables, *seq_lens;
   void *x_out, *k_new, *v_new;
   void *qkv_ws, *attn_ws;             // T: [B][(H+2KV)*hd], [P][H*hd][8]
@@ -202,10 +218,12 @@ __device__ void attn_qkv_phase(const AttnArgs& a, unsigned char* smem) {
 }
 
 // 2. attention over 8-page chunks of each (sequence, KV head), 4 pages a
-// step; chunk 0 also makes the new token's k/v and score
-template <typename T>
+// step; chunk 0 also makes the new token's k/v and score. KQ: int8 pools,
+// staged as int8 and dequantized per element in the page update.
+template <typename T, bool KQ>
 __device__ void attn_pages_phase(const AttnArgs& a, unsigned char* smem) {
-  constexpr int V = Vec<T>::n;
+  using P = PoolT<T, KQ>;
+  constexpr int PV = 16 / sizeof(P);   // pool elements a 16-byte load
   const int B = a.B, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
   const int tid = threadIdx.x;
   const int groups = H / KV, hd2 = hd / 2, NS = splits(a.MB);
@@ -219,12 +237,14 @@ __device__ void attn_pages_phase(const AttnArgs& a, unsigned char* smem) {
   float* l = m + groups;
   float* alpha = l + groups;
   float* kn_s = alpha + groups;                   // [hd]
-  T* k_s = reinterpret_cast<T*>(q_s + attn_scratch_floats(groups, hd, BS));
-  T* v_s = k_s + SB * hd;
+  P* k_s = reinterpret_cast<P*>(q_s + attn_scratch_floats(groups, hd, BS));
+  P* v_s = k_s + SB * hd;
   const int lane = tid & 31, warp = tid >> 5;
-  const int row_vecs = hd / V;
+  const int row_vecs = hd / PV;
   for (int item = blockIdx.x; item < NS * B * KV; item += gridDim.x) {
     const int kvh = item % KV, b = (item / KV) % B, sp = item / (KV * B);
+    const float ks = KQ ? a.k_scale[kvh] : 1.f;
+    const float vs = KQ ? a.v_scale[kvh] : 1.f;
     const int seq_len = a.seq_lens[b];
     const int n_pages = min((seq_len + BS - 1) / BS, a.MB);   // 0 if 0
     const int p0 = sp * kSplitPages;
@@ -252,7 +272,8 @@ __device__ void attn_pages_phase(const AttnArgs& a, unsigned char* smem) {
         const T kt = from_float<T>(rope_at<T>(kr, d, hd2, sn, cs));
         static_cast<T*>(a.k_new)[kv_off + d] = kt;
         static_cast<T*>(a.v_new)[kv_off + d] = vr[d];
-        kn_s[d] = to_float(kt);   // the pool holds T: T -> pool -> f32
+        // the value the pool gives back: T itself, or its int8 round trip
+        kn_s[d] = KQ ? kv_round_trip(to_float(kt), ks) : to_float(kt);
       }
       __syncthreads();
       for (int g = warp; g < groups; g += kWarps) {
@@ -282,11 +303,11 @@ __device__ void attn_pages_phase(const AttnArgs& a, unsigned char* smem) {
             const size_t page =
                 (size_t)table[clamped_page_index(seq_len, BS, pg + t / BS)];
             const size_t off =
-                ((page * BS + t % BS) * KV + kvh) * hd + (size_t)c * V;
+                ((page * BS + t % BS) * KV + kvh) * hd + (size_t)c * PV;
             kk[u] = *reinterpret_cast<const uint4*>(
-                static_cast<const T*>(a.k_pool) + off);
+                static_cast<const P*>(a.k_pool) + off);
             vv[u] = *reinterpret_cast<const uint4*>(
-                static_cast<const T*>(a.v_pool) + off);
+                static_cast<const P*>(a.v_pool) + off);
           }
         }
 #pragma unroll
@@ -299,9 +320,9 @@ __device__ void attn_pages_phase(const AttnArgs& a, unsigned char* smem) {
         }
       }
       __syncthreads();
-      online_softmax_page_update<T>(q_s, k_s, v_s, pg / kPagesPerStep, SB,
+      online_softmax_page_update<P>(q_s, k_s, v_s, pg / kPagesPerStep, SB,
                                     seq_len, a.scale, groups, hd, s, m, l,
-                                    alpha, acc);
+                                    alpha, acc, ks, vs);
     }
     __syncthreads();
     const size_t pidx = (((size_t)b * KV + kvh) * NS + sp) * groups;
@@ -316,8 +337,9 @@ __device__ void attn_pages_phase(const AttnArgs& a, unsigned char* smem) {
 }
 
 // 3. per (sequence, KV head): the chunks' partials and the new token
-// (always unmasked, so l > 0) combined in chunk order
-template <typename T>
+// (always unmasked, so l > 0) combined in chunk order; KQ: the new token's
+// v as the int8 pool gives it back
+template <typename T, bool KQ>
 __device__ void attn_combine_phase(const AttnArgs& a) {
   const int B = a.B, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
   const int groups = H / KV, NS = splits(a.MB), nq = H * hd;
@@ -329,6 +351,7 @@ __device__ void attn_combine_phase(const AttnArgs& a) {
     const int ns = (n_pages + kSplitPages - 1) / kSplitPages;
     const size_t pbase = ((size_t)b * KV + kvh) * NS;
     const T* vnew = static_cast<const T*>(a.v_new) + ((size_t)b * KV + kvh) * hd;
+    const float vs = KQ ? a.v_scale[kvh] : 1.f;
     for (int i = threadIdx.x; i < groups * hd; i += kThreads) {
       const int g = i / hd, d = i - g * hd;
       const float snew = a.s_new[b * H + kvh * groups + g];
@@ -336,7 +359,9 @@ __device__ void attn_combine_phase(const AttnArgs& a) {
       for (int sp = 0; sp < ns; ++sp)
         mx = fmaxf(mx, a.part_m[(pbase + sp) * groups + g]);
       const float pn = expf(snew - mx);
-      float l = pn, o = pn * to_float(vnew[d]);
+      const float vn = KQ ? kv_round_trip(to_float(vnew[d]), vs)
+                          : to_float(vnew[d]);
+      float l = pn, o = pn * vn;
       for (int sp = 0; sp < ns; ++sp) {
         const size_t pi = (pbase + sp) * groups + g;
         const float w = expf(a.part_m[pi] - mx);
@@ -487,16 +512,16 @@ __device__ void mlp_down_phase(const MlpArgs& a, unsigned char* smem) {
   }
 }
 
-template <typename T, int WQ>
+template <typename T, int WQ, bool KQ>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_attn_block_kernel(const AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   attn_qkv_phase<T, WQ>(a, smem);
   grid.sync();
-  attn_pages_phase<T>(a, smem);
+  attn_pages_phase<T, KQ>(a, smem);
   grid.sync();
-  attn_combine_phase<T>(a);
+  attn_combine_phase<T, KQ>(a);
   grid.sync();
   o_proj_phase<T, WQ, false>(a, smem, nullptr);
 }
@@ -516,16 +541,16 @@ decode_mlp_block_kernel(const MlpArgs a) {
 // ~18% (NVIDIA H100, bf16, 7B widths); with one block an SM nothing
 // spills (234 registers) and each phase runs at the two-stage kernels'
 // pace. The grid is sized from this kernel's own occupancy.
-template <typename T, int WQ>
+template <typename T, int WQ, bool KQ>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_block_fused_kernel(const BlockArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   attn_qkv_phase<T, WQ>(a.attn, smem);
   grid.sync();
-  attn_pages_phase<T>(a.attn, smem);
+  attn_pages_phase<T, KQ>(a.attn, smem);
   grid.sync();
-  attn_combine_phase<T>(a.attn);
+  attn_combine_phase<T, KQ>(a.attn);
   grid.sync();
   o_proj_phase<T, WQ, true>(a.attn, smem, a.resid);
   grid.sync();
@@ -534,9 +559,9 @@ decode_block_fused_kernel(const BlockArgs a) {
   mlp_down_phase<T, WQ, true>(a.mlp, smem);
 }
 
-PADDLE_TPU_PICK_KERNEL(attn_kernel, decode_attn_block_kernel, AttnArgs)
+PADDLE_TPU_PICK_KV_KERNEL(attn_kernel, decode_attn_block_kernel, AttnArgs)
 PADDLE_TPU_PICK_KERNEL(mlp_kernel, decode_mlp_block_kernel, MlpArgs)
-PADDLE_TPU_PICK_KERNEL(block_kernel, decode_block_fused_kernel, BlockArgs)
+PADDLE_TPU_PICK_KV_KERNEL(block_kernel, decode_block_fused_kernel, BlockArgs)
 
 // The attention half's arguments, the workspaces carved from ws_t (T):
 // qkv [B][(H+2KV)*hd], then the attention rows [P][H*hd][8] at an offset
@@ -547,6 +572,7 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
                           const void* sq, const void* sk, const void* sv,
                           const void* so, const void* sin, const void* cos,
                           const void* k_pool, const void* v_pool,
+                          const void* k_scale, const void* v_scale,
                           const void* tables, const void* seq_lens,
                           void* x_out, void* k_new, void* v_new, void* ws_t,
                           void* ws_f, int B, int D, int H, int KV, int hd,
@@ -560,6 +586,8 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
                   static_cast<const float*>(sv), static_cast<const float*>(so),
                   static_cast<const float*>(sin),
                   static_cast<const float*>(cos), k_pool, v_pool,
+                  static_cast<const float*>(k_scale),
+                  static_cast<const float*>(v_scale),
                   static_cast<const int*>(tables),
                   static_cast<const int*>(seq_lens), x_out, k_new, v_new,
                   ws_t, static_cast<char*>(ws_t) + n_qkv * item, f,
@@ -576,29 +604,33 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
 // sizes shared memory and allocates the workspaces first). dtype: 0 =
 // float32, 1 = bfloat16; wbits: the weights' class, 0 = T, 8 = int8, 4 =
 // packed int4 (down_proj along its output axis, the rest along their
-// contraction axis), with the f32 scale pointers s* (null for 0); region
-// and smem: the shared-memory layout's bytes (file header). The launchers
-// return the launch's cudaError_t; a (dtype, wbits) pair they do not take
-// is cudaErrorInvalidValue.
+// contraction axis), with the f32 scale pointers s* (null for 0); kvbits:
+// the pools' class, 0 = T, 8 = int8 with the f32 [KV] scale pointers
+// k_scale/v_scale (null for 0); region and smem: the shared-memory
+// layout's bytes (file header). The launchers return the launch's
+// cudaError_t; a (dtype, wbits, kvbits) they do not take is
+// cudaErrorInvalidValue.
 
 // ws_t and ws_f as attn_args carves them.
 extern "C" int decode_attn_block(
     const void* x, const void* nw, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* sq, const void* sk,
     const void* sv, const void* so, const void* sin, const void* cos,
-    const void* k_pool, const void* v_pool, const void* tables,
-    const void* seq_lens, void* x_out, void* k_new, void* v_new, void* ws_t,
-    void* ws_f, int B, int D, int H, int KV, int hd, int BS, int MB,
-    int rope_rows, int residual, int region, int smem, int wbits, float eps,
+    const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* tables, const void* seq_lens,
+    void* x_out, void* k_new, void* v_new, void* ws_t, void* ws_f, int B,
+    int D, int H, int KV, int hd, int BS, int MB, int rope_rows,
+    int residual, int region, int smem, int wbits, int kvbits, float eps,
     float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
-  const auto kernel = attn_kernel(dtype, wbits);
+  const auto kernel = attn_kernel(dtype, wbits, kvbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const AttnArgs a = attn_args(
       x, nw, wq, wk, wv, wo, sq, sk, sv, so, sin, cos, k_pool, v_pool,
-      tables, seq_lens, x_out, k_new, v_new, ws_t, ws_f, B, D, H, KV, hd, BS,
-      MB, rope_rows, residual, region, eps, scale, dtype == 1 ? 2 : 4);
+      k_scale, v_scale, tables, seq_lens, x_out, k_new, v_new, ws_t, ws_f, B,
+      D, H, KV, hd, BS, MB, rope_rows, residual, region, eps, scale,
+      dtype == 1 ? 2 : 4);
   return launch_coop(kernel, a, smem, static_cast<cudaStream_t>(stream));
 }
 
@@ -629,20 +661,20 @@ extern "C" int decode_block_fused(
     const void* wu, const void* wd, const void* sq, const void* sk,
     const void* sv, const void* so, const void* sg, const void* su,
     const void* sd, const void* sin, const void* cos, const void* k_pool,
-    const void* v_pool, const void* tables, const void* seq_lens,
-    void* x_out, void* k_new, void* v_new, void* ws_t, void* ws_f, int B,
-    int D, int H, int KV, int hd, int F, int BS, int MB, int rope_rows,
-    int region, int smem, int wbits, float eps, float scale, int dtype,
-    void* stream) {
+    const void* v_pool, const void* k_scale, const void* v_scale,
+    const void* tables, const void* seq_lens, void* x_out, void* k_new,
+    void* v_new, void* ws_t, void* ws_f, int B, int D, int H, int KV, int hd,
+    int F, int BS, int MB, int rope_rows, int region, int smem, int wbits,
+    int kvbits, float eps, float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
-  const auto kernel = block_kernel(dtype, wbits);
+  const auto kernel = block_kernel(dtype, wbits, kvbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const int item = dtype == 1 ? 2 : 4;
   const AttnArgs attn = attn_args(
       x, nw, wq, wk, wv, wo, sq, sk, sv, so, sin, cos, k_pool, v_pool,
-      tables, seq_lens, nullptr, k_new, v_new, ws_t, ws_f, B, D, H, KV, hd,
-      BS, MB, rope_rows, 1, region, eps, scale, item);
+      k_scale, v_scale, tables, seq_lens, nullptr, k_new, v_new, ws_t, ws_f,
+      B, D, H, KV, hd, BS, MB, rope_rows, 1, region, eps, scale, item);
   const size_t n_qkv = ((size_t)B * (H + 2 * KV) * hd + 7) / 8 * 8;
   const size_t n_t = n_qkv + (size_t)passes(B) * kRB * H * hd;
   const size_t n_part = (size_t)B * H * splits(MB);

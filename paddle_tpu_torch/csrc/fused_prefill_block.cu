@@ -22,6 +22,15 @@
 // column's scale before the cast to T (q/k/v before RoPE, o before the
 // residual add), as fused_decode_block.cu's phases do (its header lists
 // the decisions; block_products.cuh's weight classes do the loads).
+// The pools may be int8 with static per-head f32 scales k_scale/v_scale
+// [KV] (the int8 KV cache, kvbits 8; the JAX kernel's quant body): the
+// history pages are staged in shared memory as int8 (16 codes a 16-byte
+// load) and each code is dequantized in f32, float(q) * s, before its
+// product (online_softmax.cuh's kv_float); the dequantized history stays
+// f32, as in the JAX kernel (its composition casts it to the model type
+// first). The chunk's own K/V are not quantized inside the kernel: they
+// are staged in T, as for fp pools, and only the caller's pool write
+// quantizes them.
 // T is float or __nv_bfloat16. The rounding order is the plain version's
 // (ops/kernels/fused_prefill_block.py: prefill_attn_block_wq_ref, which is
 // prefill_attn_block_ref on plain weights up to summation order): RMSNorm in
@@ -68,7 +77,8 @@ struct PrefillArgs {
   const void *x, *nw, *wq, *wk, *wv, *wo;   // weights: T, int8 or int4
   const float *sq, *sk, *sv, *so;           // f32 [out] scales, or null
   const float *sin, *cos;
-  const void *k_pool, *v_pool;
+  const void *k_pool, *v_pool;           // T, or int8 (KQ)
+  const float *k_scale, *v_scale;        // f32 [KV] (int8 pools), or null
   const int* table;
   void *x_out, *k_new, *v_new;
   void *qkv_ws, *q_ws, *attn_ws;   // T: [P][(H+2KV)*hd], [P][H*hd],
@@ -84,10 +94,12 @@ __device__ __forceinline__ float scaled(float v, const float* s, int c) {
   return v;
 }
 
-template <typename T, int WQ>
+template <typename T, int WQ, bool KQ>
 __global__ void __launch_bounds__(kThreads, 2)
 prefill_attn_block_kernel(const PrefillArgs a) {
+  using Pt = PoolT<T, KQ>;                 // the pools' type
   constexpr int V = Vec<T>::n;
+  constexpr int PV = 16 / sizeof(Pt);      // pool elements a 16-byte load
   constexpr int WC = wclass(WQ, false);
   extern __shared__ __align__(16) unsigned char smem[];
   const int P = a.P, D = a.D, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
@@ -187,14 +199,22 @@ prefill_attn_block_kernel(const PrefillArgs a) {
     float* m = s + R * SB;                          // [R]
     float* l = m + R;
     float* alpha = l + R;
+    // the staged tile: the chunk's own K/V in T, or a step of history
+    // pages in the pools' type, in the same place
     T* k_s = reinterpret_cast<T*>(q_s + attn_scratch_floats(R, hd, BS));
     T* v_s = k_s + SB * hd;
+    Pt* kh_s = reinterpret_cast<Pt*>(k_s);
+    Pt* vh_s = kh_s + SB * hd;
     const int row_vecs = hd / V;
     const int nvec = SB * row_vecs;
+    const int hrow_vecs = hd / PV;
+    const int hvec = SB * hrow_vecs;
     const int n_hist = (pos0 + BS - 1) / BS;       // pages before pos0
     const int nqb = (nv + bq - 1) / bq;            // blocks with a real row
     for (int item = blockIdx.x; item < nqb * KV; item += gridDim.x) {
       const int kvh = item % KV, q0 = (item / KV) * bq;
+      const float ks = KQ ? a.k_scale[kvh] : 1.f;
+      const float vs = KQ ? a.v_scale[kvh] : 1.f;
       for (int i = tid; i < R * hd; i += kThreads) {
         const int g = i / hd, d = i - g * hd;
         const int r = q0 + g % bq, h = kvh * groups + g / bq;
@@ -209,36 +229,36 @@ prefill_attn_block_kernel(const PrefillArgs a) {
       // last history page clamped to it and masked by seq_len = pos0
       for (int pg = 0; pg < n_hist; pg += kPagesPerStep) {
         __syncthreads();
-        for (int i0 = tid; i0 < nvec; i0 += 4 * kThreads) {
+        for (int i0 = tid; i0 < hvec; i0 += 4 * kThreads) {
           uint4 kk[4], vv[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int i = i0 + u * kThreads;
-            if (i < nvec) {
-              const int t = i / row_vecs, c = i - t * row_vecs;
+            if (i < hvec) {
+              const int t = i / hrow_vecs, c = i - t * hrow_vecs;
               const size_t page =
                   (size_t)a.table[clamped_page_index(pos0, BS, pg + t / BS)];
               const size_t off =
-                  ((page * BS + t % BS) * KV + kvh) * hd + (size_t)c * V;
+                  ((page * BS + t % BS) * KV + kvh) * hd + (size_t)c * PV;
               kk[u] = *reinterpret_cast<const uint4*>(
-                  static_cast<const T*>(a.k_pool) + off);
+                  static_cast<const Pt*>(a.k_pool) + off);
               vv[u] = *reinterpret_cast<const uint4*>(
-                  static_cast<const T*>(a.v_pool) + off);
+                  static_cast<const Pt*>(a.v_pool) + off);
             }
           }
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int i = i0 + u * kThreads;
-            if (i < nvec) {
-              reinterpret_cast<uint4*>(k_s)[i] = kk[u];
-              reinterpret_cast<uint4*>(v_s)[i] = vv[u];
+            if (i < hvec) {
+              reinterpret_cast<uint4*>(kh_s)[i] = kk[u];
+              reinterpret_cast<uint4*>(vh_s)[i] = vv[u];
             }
           }
         }
         __syncthreads();
-        online_softmax_page_update<T>(q_s, k_s, v_s, pg / kPagesPerStep, SB,
-                                      pos0, a.scale, R, hd, s, m, l, alpha,
-                                      acc);
+        online_softmax_page_update<Pt>(q_s, kh_s, vh_s, pg / kPagesPerStep,
+                                       SB, pos0, a.scale, R, hd, s, m, l,
+                                       alpha, acc, ks, vs);
       }
       // the chunk's own rows c < min(q0 + bq, n_valid), SB keys a tile;
       // keys past n_valid are staged as zeros (and masked)
@@ -302,8 +322,8 @@ prefill_attn_block_kernel(const PrefillArgs a) {
   }
 }
 
-PADDLE_TPU_PICK_KERNEL(prefill_kernel, prefill_attn_block_kernel,
-                       PrefillArgs)
+PADDLE_TPU_PICK_KV_KERNEL(prefill_kernel, prefill_attn_block_kernel,
+                          PrefillArgs)
 
 }  // namespace fused
 }  // namespace paddle_tpu_torch
@@ -313,28 +333,33 @@ PADDLE_TPU_PICK_KERNEL(prefill_kernel, prefill_attn_block_kernel,
 // the chunk geometry, sizes shared memory and allocates the outputs and
 // workspaces first). dtype: 0 = float32, 1 = bfloat16; wbits: the
 // weights' class, 0 = T, 8 = int8, 4 = int4 packed along the contraction
-// axis, with the f32 scale pointers s* (null for 0); region and smem: the
-// shared-memory layout's bytes; bq: query rows a work item takes (P is a
-// multiple of it). Returns the launch's cudaError_t; a (dtype, wbits) pair
-// it does not take is cudaErrorInvalidValue.
+// axis, with the f32 scale pointers s* (null for 0); kvbits: the pools'
+// class, 0 = T, 8 = int8 with the f32 [KV] scale pointers k_scale/v_scale
+// (null for 0); region and smem: the shared-memory layout's bytes; bq:
+// query rows a work item takes (P is a multiple of it). Returns the
+// launch's cudaError_t; a (dtype, wbits, kvbits) it does not take is
+// cudaErrorInvalidValue.
 extern "C" int prefill_attn_block(
     const void* x, const void* nw, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* sq, const void* sk,
     const void* sv, const void* so, const void* sin, const void* cos,
-    const void* k_pool, const void* v_pool, const void* table, void* x_out,
-    void* k_new, void* v_new, void* qkv_ws, void* q_ws, void* attn_ws, int P,
-    int D, int H, int KV, int hd, int BS, int MB, int pos0, int n_valid,
-    int bq, int residual, int region, int smem, int wbits, float eps,
+    const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* table, void* x_out, void* k_new,
+    void* v_new, void* qkv_ws, void* q_ws, void* attn_ws, int P, int D, int H,
+    int KV, int hd, int BS, int MB, int pos0, int n_valid, int bq,
+    int residual, int region, int smem, int wbits, int kvbits, float eps,
     float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
-  const auto kernel = prefill_kernel(dtype, wbits);
+  const auto kernel = prefill_kernel(dtype, wbits, kvbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   if (n_valid < 1 || n_valid > P || bq < 1 || P % bq) return cudaErrorInvalidValue;
   PrefillArgs a{x, nw, wq, wk, wv, wo,
                 static_cast<const float*>(sq), static_cast<const float*>(sk),
                 static_cast<const float*>(sv), static_cast<const float*>(so),
                 static_cast<const float*>(sin), static_cast<const float*>(cos),
-                k_pool, v_pool, static_cast<const int*>(table), x_out, k_new,
+                k_pool, v_pool, static_cast<const float*>(k_scale),
+                static_cast<const float*>(v_scale),
+                static_cast<const int*>(table), x_out, k_new,
                 v_new, qkv_ws, q_ws, attn_ws, P, D, H, KV, hd, BS, MB, pos0,
                 n_valid, bq, residual, eps, scale, (size_t)region};
   return launch_coop(kernel, a, smem, static_cast<cudaStream_t>(stream));

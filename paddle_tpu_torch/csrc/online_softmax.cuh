@@ -12,7 +12,11 @@
 //
 // Layout contract (all pointers into shared memory, all f32 except K/V):
 //   q      [groups][hd]  the query rows of one KV head, already f32
-//   k, v   [bs][hd]      one page of one KV head, in the pool's type
+//   k, v   [bs][hd]      one page of one KV head, in the pool's type: the
+//                        model's (f32, bf16), or int8 with the head's f32
+//                        scales ks, vs (the int8 KV cache: each element is
+//                        dequantized, float(q) * s, before its product, as
+//                        the JAX kernels' quant bodies do)
 //   s      [groups][bs]  scratch; holds the page's probabilities on return
 //   m, l   [groups]      running max and running sum of the softmax
 //   alpha  [groups]      scratch (rescale factor of this page)
@@ -23,6 +27,7 @@
 
 #include <cuda_bf16.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace paddle_tpu_torch {
 
@@ -40,6 +45,28 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// One element of a staged K or V tile as f32: the model's types read as
+// they are (the scale is not touched); an int8 pool's code times its
+// head's scale, rounded on its own (the JAX kernels' k * scale, before any
+// product).
+__device__ __forceinline__ float kv_float(float x, float) { return x; }
+__device__ __forceinline__ float kv_float(__nv_bfloat16 x, float) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float kv_float(int8_t x, float s) {
+  return __fmul_rn(static_cast<float>(x), s);
+}
+
+// x as an int8 pool stores it and reads it back: clip(round(x / s), -127,
+// 127) * s in f32, with IEEE division and half-to-even rounding (the
+// quantizer of the port's pool writes, torch.round, and of the JAX
+// kernels, jnp.round). The attention kernels fold the new token in
+// through it, so they see what the unfused step reads from the pool.
+__device__ __forceinline__ float kv_round_trip(float x, float s) {
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f);
+  return __fmul_rn(q, s);
+}
+
 // Logical page ``pg`` of a sequence of ``seq_len`` tokens, clamped to its
 // last live page, so a fetch never reads a block-table entry past it
 // (entries there are padding or belong to nobody).
@@ -52,12 +79,13 @@ __device__ __forceinline__ int clamped_page_index(int seq_len, int bs,
 // The online-softmax update of one staged tile of ``bs`` keys for
 // ``groups`` query rows (see the layout contract above); ``seen(g, t)``
 // says whether row g sees key t. A row that sees no key of the tile keeps
-// its state (alpha 1, nothing added), even before its first key.
+// its state (alpha 1, nothing added), even before its first key. ``ks``
+// and ``vs`` scale an int8 tile (kv_float) and are not read otherwise.
 template <typename T, typename Seen>
 __device__ __forceinline__ void online_softmax_masked_update(
     const float* q, const T* k, const T* v, int bs, Seen seen, float scale,
     int groups, int hd, float* s, float* m, float* l, float* alpha,
-    float* acc) {
+    float* acc, float ks, float vs) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -69,7 +97,7 @@ __device__ __forceinline__ void online_softmax_masked_update(
     const int t = idx - g * bs;
     float dot = 0.f;
     for (int d = lane; d < hd; d += 32)
-      dot += q[g * hd + d] * to_float(k[t * hd + d]);
+      dot += q[g * hd + d] * kv_float(k[t * hd + d], ks);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -114,22 +142,24 @@ __device__ __forceinline__ void online_softmax_masked_update(
     const float* pg_row = s + g * bs;
     float a = acc[i] * alpha[g];
 #pragma unroll 4
-    for (int t = 0; t < bs; ++t) a += pg_row[t] * to_float(v[t * hd + d]);
+    for (int t = 0; t < bs; ++t)
+      a += pg_row[t] * kv_float(v[t * hd + d], vs);
     acc[i] = a;
   }
 }
 
 // One KV page's online-softmax update (see the layout contract above).
 // Tokens at or after ``seq_len`` are masked out; callers only pass pages
-// that hold at least one live token.
+// that hold at least one live token. T is the pool's type; an int8 page
+// is dequantized with its head's scales ``ks`` and ``vs``.
 template <typename T>
 __device__ __forceinline__ void online_softmax_page_update(
     const float* q, const T* k, const T* v, int pg, int bs, int seq_len,
     float scale, int groups, int hd, float* s, float* m, float* l,
-    float* alpha, float* acc) {
+    float* alpha, float* acc, float ks = 1.f, float vs = 1.f) {
   online_softmax_masked_update<T>(
       q, k, v, bs, [=](int, int t) { return pg * bs + t < seq_len; }, scale,
-      groups, hd, s, m, l, alpha, acc);
+      groups, hd, s, m, l, alpha, acc, ks, vs);
 }
 
 // One tile of a prefill chunk's own K/V folded into the online softmax
@@ -147,7 +177,7 @@ __device__ __forceinline__ void online_softmax_chunk_update(
   online_softmax_masked_update<T>(
       q, k, v, bs,
       [=](int g, int t) { return c0 + t <= min(q0 + g % bq, c_last); },
-      scale, groups, hd, s, m, l, alpha, acc);
+      scale, groups, hd, s, m, l, alpha, acc, 1.f, 1.f);
 }
 
 }  // namespace paddle_tpu_torch

@@ -23,6 +23,14 @@ Every function takes a weight-quantized tree (:mod:`..quantization`) as
 well as a plain one: the unfused products (``_mm``) dequantize each leaf
 first, and the fused steps hand the leaves to the kernels, which stream
 the integers and scale in their epilogue.
+
+The paged steps and the fused chunk also take int8 pools with their
+static per-layer, per-head scales, ``kv_scales = (k_scale [L, KV],
+v_scale [L, KV])`` (the int8 KV cache): the pool writes quantize
+(``write_to_pool_quant``, ``write_chunk_to_pool_quant``), the unfused
+step's attention dequantizes after the gather
+(``paged_attention_decode_quant``) and the kernels read int8 pages, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -37,7 +45,10 @@ from ..device import resolve_device
 from ..models import llama as _llama
 from ..ops import rms_norm, swiglu
 from ..ops.paged_attention import (paged_attention_decode,
-                                   write_chunk_to_pool, write_to_pool)
+                                   paged_attention_decode_quant,
+                                   write_chunk_to_pool,
+                                   write_chunk_to_pool_quant, write_to_pool,
+                                   write_to_pool_quant)
 from ..ops.rope import apply_rope, build_rope_cache
 from ..quantization.ptq import weight_quant_mode
 from ..quantization.quanters import maybe_dequantize
@@ -219,8 +230,13 @@ def generate(params: Dict, input_ids, cfg: _llama.LlamaConfig,
     return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
 
 
+def _layer_scales(kv_scales, i):
+    """Layer ``i``'s (k_scale [KV], v_scale [KV]), or None for fp pools."""
+    return None if kv_scales is None else (kv_scales[0][i], kv_scales[1][i])
+
+
 def _paged_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
-                       seq_lens, rope=None):
+                       seq_lens, rope=None, kv_scales=None):
     """One decode token per sequence over paged pools.
 
     tok: [B] current tokens; k_pools/v_pools: [L, N, BS, KV, hd];
@@ -228,7 +244,9 @@ def _paged_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
     current token (the new token is written at seq_lens, rope takes
     position seq_lens, and attention runs over seq_lens+1 tokens).
     ``rope``: a (sin, cos) table of ``cfg.max_position_embeddings`` rows
-    to reuse across steps; built here when None.
+    to reuse across steps; built here when None. ``kv_scales``: (k_scale
+    [L, KV], v_scale [L, KV]) f32 when the pools are int8 (the int8 KV
+    cache: quantizing write, attention dequantized in f32).
     Returns (logits [B, V], k_pools, v_pools), pools updated in place.
     """
     H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -251,10 +269,18 @@ def _paged_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
         v = _mm(h, lp["v_proj"]).reshape(B, 1, KV, hd)
         q = apply_rope(q, sin, cos, position_ids=pos_ids)
         k = apply_rope(k, sin, cos, position_ids=pos_ids)
-        write_to_pool(kp, vp, block_tables, seq_lens,
-                      k[:, 0].to(kp.dtype), v[:, 0].to(vp.dtype))
-        attn = paged_attention_decode(q[:, 0], kp, vp, block_tables,
-                                      attn_lens)
+        scales = _layer_scales(kv_scales, i)
+        if scales is None:
+            write_to_pool(kp, vp, block_tables, seq_lens,
+                          k[:, 0].to(kp.dtype), v[:, 0].to(vp.dtype))
+            attn = paged_attention_decode(q[:, 0], kp, vp, block_tables,
+                                          attn_lens)
+        else:
+            write_to_pool_quant(kp, vp, block_tables, seq_lens, k[:, 0],
+                                v[:, 0], *scales)
+            attn = paged_attention_decode_quant(q[:, 0], kp, vp,
+                                                block_tables, attn_lens,
+                                                *scales)
         x = x + _mm(attn.reshape(B, H * hd).to(x.dtype), lp["o_proj"])
         h = rms_norm(x[:, None], lp["post_norm"].to(x.dtype),
                      cfg.rms_norm_eps)[:, 0]
@@ -282,7 +308,7 @@ def _fused_mode(fused_decode):
 
 
 def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
-                       seq_lens, rope=None, mode="auto"):
+                       seq_lens, rope=None, mode="auto", kv_scales=None):
     """``_paged_decode_step`` through the fused decode-block kernels.
 
     Per layer either one ``decode_block_fused`` launch (the whole layer:
@@ -294,15 +320,15 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
     composition on the CPU, bit-identical to ``_paged_decode_step``),
     comes from the kernel registry; ``mode`` forwards to
     :func:`paddle_tpu_torch.ops.kernels.fused_decode_block.resolve_decode_step`.
-    Signature, carried state and in-place pool update match
-    ``_paged_decode_step``."""
+    Signature, carried state (``kv_scales`` included) and in-place pool
+    update match ``_paged_decode_step``."""
     from ..ops.kernels.fused_decode_block import (decode_meta,
                                                   resolve_decode_step)
     B = tok.shape[0]
     meta = decode_meta(cfg, B=B, BS=k_pools.shape[2],
                        MB=block_tables.shape[1], pool_dtype=k_pools.dtype,
-                       quant=False, weight_dtype=_wq_mode(params),
-                       device=k_pools.device)
+                       quant=kv_scales is not None,
+                       weight_dtype=_wq_mode(params), device=k_pools.device)
     block_fn, attn_fn, mlp_fn, _ = resolve_decode_step(meta, mode)
     x = params["embed_tokens"][tok.long()]               # [B, D]
     if rope is None:
@@ -313,6 +339,7 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
     for i in range(cfg.num_hidden_layers):
         lp = _layer(params, i)
         kp, vp = k_pools[i], v_pools[i]
+        scales = _layer_scales(kv_scales, i)
         if block_fn is not None:
             # one launch per layer; the pool write stays with the caller
             # (the MLP half reads no pool state, so writing after it is
@@ -322,14 +349,18 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
                 lp["k_proj"], lp["v_proj"], lp["o_proj"],
                 lp["post_norm"].to(x.dtype), lp["gate_proj"],
                 lp["up_proj"], lp["down_proj"], sin, cos, kp, vp,
-                block_tables, seq_lens, None, eps)
+                block_tables, seq_lens, scales, eps)
         else:
             x, k_new, v_new = attn_fn(
                 x, lp["input_norm"].to(x.dtype), lp["q_proj"],
                 lp["k_proj"], lp["v_proj"], lp["o_proj"], sin, cos, kp,
-                vp, block_tables, seq_lens, None, eps)
-        write_to_pool(kp, vp, block_tables, seq_lens, k_new.to(kp.dtype),
-                      v_new.to(vp.dtype))
+                vp, block_tables, seq_lens, scales, eps)
+        if scales is None:
+            write_to_pool(kp, vp, block_tables, seq_lens,
+                          k_new.to(kp.dtype), v_new.to(vp.dtype))
+        else:
+            write_to_pool_quant(kp, vp, block_tables, seq_lens, k_new,
+                                v_new, *scales)
         if block_fn is None:
             x = mlp_fn(x, lp["post_norm"].to(x.dtype), lp["gate_proj"],
                        lp["up_proj"], lp["down_proj"], eps)
@@ -338,16 +369,17 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
 
 
 def _decode_variant_name(cfg, B, BS, MB, pool_dtype, fused,
-                         device="cuda", wq=None):
+                         device="cuda", wq=None, quant=False):
     """The variant one decode step would run, as one string: "cuda_block"
     (the single-launch kernel), "cuda_fused" (the two hand-written
-    kernels) or "unfused" (the composition)."""
+    kernels) or "unfused" (the composition). ``quant``: int8 pools with
+    scales (the int8 KV cache)."""
     if not fused:
         return "unfused"
     from ..ops.kernels.fused_decode_block import (decode_meta,
                                                   resolve_decode_step)
     meta = decode_meta(cfg, B=B, BS=BS, MB=MB, pool_dtype=pool_dtype,
-                       quant=False, weight_dtype=wq, device=device)
+                       quant=quant, weight_dtype=wq, device=device)
     block_fn, _, _, names = resolve_decode_step(meta, fused)
     return names["block"] if block_fn is not None else names["attn"]
 
@@ -368,7 +400,8 @@ def _fused_prefill_mode(fused_prefill):
 
 
 def _fused_prefill_forward(params, toks, cfg, k_pools, v_pools, table,
-                           wtable, pos0, n_valid, rope=None, mode="auto"):
+                           wtable, pos0, n_valid, rope=None, mode="auto",
+                           kv_scales=None):
     """One request's prefill chunk through the fused prefill-block ops,
     straight over the pools.
 
@@ -378,8 +411,9 @@ def _fused_prefill_forward(params, toks, cfg, k_pools, v_pools, table,
     layer: one ``prefill_attn_block`` (RMSNorm + QKV + RoPE + attention
     over the paged history and the chunk + o_proj + residual), the
     chunk's own K/V written into the pools in place through the write
-    table (:func:`write_chunk_to_pool`, pad rows to scratch page 0), one
-    ``prefill_mlp_block``. Each op's variant comes from the kernel
+    table (:func:`write_chunk_to_pool`, pad rows to scratch page 0; over
+    int8 pools with ``kv_scales`` the quantizing
+    :func:`write_chunk_to_pool_quant`), one ``prefill_mlp_block``. Each op's variant comes from the kernel
     registry; ``mode`` forwards to
     :func:`paddle_tpu_torch.ops.kernels.fused_prefill_block.resolve_prefill_blocks`.
     ``rope``: a (sin, cos) table of at least pos0 + P rows; built here with
@@ -390,7 +424,8 @@ def _fused_prefill_forward(params, toks, cfg, k_pools, v_pools, table,
                                                    resolve_prefill_blocks)
     P = toks.shape[0]
     BS, MB = k_pools.shape[2], table.shape[0]
-    meta = prefill_meta(cfg, P, BS, MB, k_pools.dtype, quant=False,
+    meta = prefill_meta(cfg, P, BS, MB, k_pools.dtype,
+                        quant=kv_scales is not None,
                         weight_dtype=_wq_mode(params), device=k_pools.device)
     attn_fn, mlp_fn, _ = resolve_prefill_blocks(meta, mode)
     x = params["embed_tokens"][toks.long()]              # [P, D]
@@ -402,11 +437,16 @@ def _fused_prefill_forward(params, toks, cfg, k_pools, v_pools, table,
     for i in range(cfg.num_hidden_layers):
         lp = _layer(params, i)
         kp, vp = k_pools[i], v_pools[i]
+        scales = _layer_scales(kv_scales, i)
         x, k_new, v_new = attn_fn(
             x, lp["input_norm"].to(x.dtype), lp["q_proj"], lp["k_proj"],
             lp["v_proj"], lp["o_proj"], sin, cos, kp, vp, table, pos0,
-            n_valid, None, eps)
-        write_chunk_to_pool(kp, vp, wtable, pos0, n_valid, k_new, v_new)
+            n_valid, scales, eps)
+        if scales is None:
+            write_chunk_to_pool(kp, vp, wtable, pos0, n_valid, k_new, v_new)
+        else:
+            write_chunk_to_pool_quant(kp, vp, wtable, pos0, n_valid, k_new,
+                                      v_new, *scales)
         x = mlp_fn(x, lp["post_norm"].to(x.dtype), lp["gate_proj"],
                    lp["up_proj"], lp["down_proj"], eps)
     x = rms_norm(x[None], params["final_norm"].to(x.dtype), eps)[0]

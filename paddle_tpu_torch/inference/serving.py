@@ -1,6 +1,7 @@
 """Continuous-batching serving engine over the paged KV cache (port of
 ``paddle_tpu/inference/serving.py``: one device; the fused and the
-unfused decode route, the fused and the unfused prefill chunk).
+unfused decode route, the fused and the unfused prefill chunk; fp or
+int8 pools).
 
 - a fixed-capacity SLOT TABLE: every decode step runs over all
   ``capacity`` slots. Inactive slots are padded -- seq_len 0, block table
@@ -22,6 +23,15 @@ unfused decode route, the fused and the unfused prefill chunk).
   cache.)
 - SLOT RECYCLING, priority/deadline admission and preemption with
   bit-identical resume, as in the JAX package.
+- INT8 CACHE (``cache_dtype="int8"``): the pools store int8 with static
+  per-layer, per-head f32 scales, calibrated once, in ``_admit``, from
+  the first admitted prompt before its first chunk (padded with token 0
+  to its bucket, as the JAX engine pads it: the absmax covers the pad
+  rows too). The fused chunk and the decode kernels read int8 pages and
+  the pool writes quantize; the verbatim chunk dequantizes its dense view
+  to the model type and quantizes it back on the way out (exact for the
+  positions it did not write); the unfused decode step dequantizes after
+  its gather. Pool bytes halve against bf16.
 
 Each step does admission, one prefill chunk and one decode step; the one
 host sync per decode step is the read of the sampled tokens, where the
@@ -49,18 +59,20 @@ tree the PTQ harness already quantized) serves int8/int4 weights as the
 JAX engine does: a plain tree is quantized once in the constructor, on
 the engine's device; the fused routes run the kernels' quantized-weight
 bodies, the unfused routes dequantize before each product;
-``weight_quant_variant`` reports it. Tensor parallelism, prefix cache,
-host offload, int8 KV cache, observability and telemetry come with later
-slices: their constructor arguments raise here.
+``weight_quant_variant`` reports it. It composes with the int8 cache.
+Tensor parallelism, prefix cache, host offload, observability and
+telemetry come with later slices: their constructor arguments raise
+here.
 
 ``metrics()`` has the JAX engine's keys (observability off, one device)
 plus ``decode_step_ms_mean``. The port runs eagerly, so its
 ``decode_traces`` and ``prefill_traces`` count how often a step's route is
 resolved and its kernels built (1 for the decode step, at most 1 per
-prefill bucket); the calibration and offload counters and the spill and
-restore bytes stay 0 until the int8 cache and the host tier are ported.
-``roofline`` models each decode route's bytes a step against the H100's
-memory rate (``observability/roofline.py``).
+prefill bucket), and ``calibration_traces`` counts the int8 cache's
+calibrations (one an engine); the offload counters and the spill and
+restore bytes stay 0 until the host tier is ported. ``roofline`` models
+each decode route's bytes a step against the H100's memory rate
+(``observability/roofline.py``), with 1-byte pools for the int8 cache.
 """
 from __future__ import annotations
 
@@ -73,14 +85,14 @@ import torch
 
 from ..device import resolve_device
 from ..models.llama import params_to
-from ..ops.paged_attention import BlockManager
+from ..ops.paged_attention import BlockManager, dequant_cache, quant_cache
 from ..ops.rope import build_rope_cache
 from ..quantization.ptq import ensure_quantized
 from .admission import AdmissionQueue
 from .generation import (GenerationConfig, _fused_decode_step,
                          _fused_mode, _fused_prefill_forward,
                          _fused_prefill_mode, _gumbel, _paged_decode_step,
-                         cached_forward)
+                         cached_forward, init_cache)
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -179,11 +191,12 @@ class ServingEngine:
             _not_ported("prefix_cache/kv_offload",
                         prefix_cache or kv_offload,
                         "the radix prefix cache and its host tier")
-        if cache_dtype not in (None, "bfloat16", "float32",
-                               torch.bfloat16, torch.float32):
-            if cache_dtype in ("int8", torch.int8):
-                _not_ported("cache_dtype", cache_dtype,
-                            "the int8 KV cache")
+        if cache_dtype in ("int8", torch.int8):
+            self._quant = True
+        elif cache_dtype in (None, "bfloat16", "float32", torch.bfloat16,
+                             torch.float32):
+            self._quant = False
+        else:
             raise ValueError(f"cache_dtype must be bfloat16|float32|int8,"
                              f" got {cache_dtype!r}")
         if observability or telemetry:
@@ -230,11 +243,15 @@ class ServingEngine:
         L, KV, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                      cfg.head_dim)
         shape = (L, self.num_blocks, BS, KV, hd)
-        # the pool type follows the model, as in the JAX package
-        self._k_pools = torch.zeros(shape, dtype=cfg.dtype,
+        # the pool type follows the model unless the cache is int8, as in
+        # the JAX package
+        pool_dtype = torch.int8 if self._quant else cfg.dtype
+        self._k_pools = torch.zeros(shape, dtype=pool_dtype,
                                     device=self.device)
-        self._v_pools = torch.zeros(shape, dtype=cfg.dtype,
+        self._v_pools = torch.zeros(shape, dtype=pool_dtype,
                                     device=self.device)
+        # (k_scale [L, KV], v_scale [L, KV]) f32 once calibrated
+        self._kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         # decode reads rows < max_seq_len; a fused chunk slices rows
         # pos0..pos0+P-1, which the last, bucket-padded chunk of a long
         # prompt takes past max_position_embeddings (up to MB*BS)
@@ -269,8 +286,9 @@ class ServingEngine:
         self._d_tok = self._d_seq = self._d_tables = self._d_temps = None
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(seed))
-        # the JAX engine's counters; *_traces count route resolutions
-        # (module docstring), the offload ones stay 0 without a host tier
+        # the JAX engine's counters; *_traces count route resolutions and
+        # calibrations (module docstring), the offload ones stay 0 without
+        # a host tier
         self.counters = {
             "decode_traces": 0, "prefill_traces": {},
             "calibration_traces": 0, "decode_steps": 0,
@@ -498,14 +516,15 @@ class ServingEngine:
         from ..observability.roofline import (decode_roofline,
                                               decode_step_bytes)
         cfg = self.cfg
-        act = self._k_pools.element_size()
+        act = torch.empty((), dtype=cfg.dtype).element_size()
+        pool = self._k_pools.element_size()
         wbytes = {"int8": 1.0, "int4": 0.5}.get(self._wq or "", float(act))
         L = cfg.num_hidden_layers
         per_layer = decode_step_bytes(
             self.capacity, cfg.hidden_size, cfg.num_attention_heads,
             cfg.num_key_value_heads, cfg.head_dim, cfg.intermediate_size,
             self.block_size, self.max_blocks, act_itemsize=act,
-            weight_itemsize=wbytes, pool_itemsize=act)
+            weight_itemsize=wbytes, pool_itemsize=pool)
         head = cfg.vocab_size * cfg.hidden_size * act
         step_bytes = {k: int(v * L + head) for k, v in per_layer.items()}
         active = self._active_arm()
@@ -521,7 +540,7 @@ class ServingEngine:
                                                       resolve_decode_step)
         meta = decode_meta(self.cfg, B=self.capacity, BS=self.block_size,
                            MB=self.max_blocks,
-                           pool_dtype=self._k_pools.dtype, quant=False,
+                           pool_dtype=self._k_pools.dtype, quant=self._quant,
                            weight_dtype=self._wq, device=self.device)
         _, _, _, names = resolve_decode_step(meta, self._fused)
         return {"mode": str(self._fused), **names}
@@ -543,7 +562,7 @@ class ServingEngine:
     def _prefill_meta(self, P: int) -> Dict:
         from ..ops.kernels.fused_prefill_block import prefill_meta
         return prefill_meta(self.cfg, P, self.block_size, self.max_blocks,
-                            self._k_pools.dtype, quant=False,
+                            self._k_pools.dtype, quant=self._quant,
                             weight_dtype=self._wq, device=self.device)
 
     def _prefill_fused_for(self, P: int) -> bool:
@@ -650,6 +669,10 @@ class ServingEngine:
                 self._admit_resume(slot_id, req, now)
                 continue
             slot = self._slots[slot_id]
+            if self._quant and self._kv_scales is None:
+                # the static scales come from the first admitted prompt,
+                # before any chunk or decode step reads the pools
+                self._calibrate(req.prompt)
             table = self.mgr.allocate(req.req_id, self._alloc_tokens(req))
             slot.req = req
             slot.phase = "prefill"
@@ -749,15 +772,24 @@ class ServingEngine:
         """One prefill chunk (the JAX engine's ``_make_prefill_fn_ref``
         program): gather the request's pages into a dense view, run
         ``cached_forward`` over it, scatter the view back in place through
-        the table, and sample a token from row ``last_idx``."""
+        the table, and sample a token from row ``last_idx``. Over int8
+        pools the view is dequantized to the model type first and
+        quantized back before the scatter."""
         cfg = self.cfg
         MB, BS = self.max_blocks, self.block_size
         L, KV, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                      cfg.head_dim)
+        scales = self._kv_scales
         kc = self._k_pools[:, table].reshape(L, 1, MB * BS, KV, hd)
         vc = self._v_pools[:, table].reshape(L, 1, MB * BS, KV, hd)
+        if scales is not None:
+            kc = dequant_cache(kc, scales[0]).to(cfg.dtype)
+            vc = dequant_cache(vc, scales[1]).to(cfg.dtype)
         logits, kc, vc = cached_forward(self.params, toks, cfg, kc, vc,
                                         pos0)
+        if scales is not None:
+            kc = quant_cache(kc, scales[0])
+            vc = quant_cache(vc, scales[1])
         # padded table entries are all page 0: those duplicate writes
         # land on the scratch page, which nothing reads
         self._k_pools[:, table] = kc.reshape(L, MB, BS, KV, hd)
@@ -774,7 +806,8 @@ class ServingEngine:
                 toks.shape[1])
         logits, _, _ = _fused_prefill_forward(
             self.params, toks[0], self.cfg, self._k_pools, self._v_pools,
-            table, table, pos0, n, rope=self._rope, mode=self._fused_prefill)
+            table, table, pos0, n, rope=self._rope, mode=self._fused_prefill,
+            kv_scales=self._kv_scales)
         return _sample_slots(logits[n - 1:n], self._gen, temp)[0]
 
     def _run_prefill(self) -> bool:
@@ -846,11 +879,12 @@ class ServingEngine:
             logits, _, _ = _fused_decode_step(
                 self.params, self._d_tok, self.cfg, self._k_pools,
                 self._v_pools, self._d_tables, self._d_seq, rope=self._rope,
-                mode=self._fused)
+                mode=self._fused, kv_scales=self._kv_scales)
         else:
             logits, _, _ = _paged_decode_step(
                 self.params, self._d_tok, self.cfg, self._k_pools,
-                self._v_pools, self._d_tables, self._d_seq, rope=self._rope)
+                self._v_pools, self._d_tables, self._d_seq, rope=self._rope,
+                kv_scales=self._kv_scales)
         self._d_tok = _sample_slots(logits, self._gen, self._d_temps)
         self._d_seq = torch.where(self._d_seq > 0, self._d_seq + 1, 0)
 
@@ -893,6 +927,27 @@ class ServingEngine:
                     or len(req.tokens) >= req.gen.max_new_tokens):
                 self._finish(i)
         return True
+
+    def _calibrate(self, prompt: np.ndarray):
+        """The int8 cache's static scales, from one prompt (the JAX
+        engine's ``_calibrate``): its first tokens, at most the largest
+        bucket, padded with token 0 to their bucket, through a dense
+        ``cached_forward`` at the model type; per layer and KV head,
+        ``max(absmax / 127, 1e-8)`` of the K and of the V rows written
+        there, pad rows included."""
+        cfg = self.cfg
+        self.counters["calibration_traces"] += 1
+        P = self._bucket_for(min(int(prompt.size), self.buckets[-1]))
+        n = min(int(prompt.size), P)
+        toks = np.zeros((1, P), np.int64)
+        toks[0, :n] = prompt[:n]
+        kc, vc = init_cache(cfg, 1, P, device=self.device)
+        _, kc, vc = cached_forward(self.params, self._upload(toks), cfg, kc,
+                                   vc, 0)
+        div = torch.tensor(127.0, device=self.device)
+        self._kv_scales = tuple(
+            torch.clamp_min(torch.amax(c.float().abs(), dim=(1, 2, 4)) / div,
+                            1e-8) for c in (kc, vc))
 
     def _finish(self, slot_id: int):
         slot = self._slots[slot_id]

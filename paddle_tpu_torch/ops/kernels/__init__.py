@@ -8,7 +8,9 @@ launches in a plain integer attribute, ``<wrapper>.launches``.
 registry of ops with several variants is :mod:`.registry`'s ``KERNELS``.
 The four decode and prefill block wrappers, whose kernels take fp, int8
 or int4 weights, also count their launches by weight class
-(``<wrapper>.launches_by_weight``).
+(``<wrapper>.launches_by_weight``), and the three of them that read the
+KV pools, which may be int8 (the int8 cache), by pool class
+(``<wrapper>.launches_by_pool``).
 """
 from .flash_attention import (flash_bwd_dkv_cuda,  # noqa: F401
                               flash_bwd_dq_cuda, flash_fwd_cuda)
@@ -56,10 +58,11 @@ def reset_launches():
     """Set every wrapper's launch counts to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
-        by = getattr(fn, "launches_by_weight", None)
-        if by is not None:
-            for k in by:
-                by[k] = 0
+        for attr in ("launches_by_weight", "launches_by_pool"):
+            by = getattr(fn, attr, None)
+            if by is not None:
+                for k in by:
+                    by[k] = 0
 
 
 def launches():
@@ -73,3 +76,11 @@ def launches_by_weight():
     return {name: dict(fn.launches_by_weight)
             for name, fn in WRAPPERS.items()
             if hasattr(fn, "launches_by_weight")}
+
+
+def launches_by_pool():
+    """``{launch name: {"fp"|"int8": count}}`` for the kernels that read
+    the KV pools."""
+    return {name: dict(fn.launches_by_pool)
+            for name, fn in WRAPPERS.items()
+            if hasattr(fn, "launches_by_pool")}

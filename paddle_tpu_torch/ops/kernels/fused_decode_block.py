@@ -1,7 +1,7 @@
 """Fused decode-block kernels: the three CUDA kernels' wrappers, their
 plain versions, the dispatch metas and predicates, and the resolvers
 (port of ``paddle_tpu/ops/pallas/fused_decode_block.py``: fp, int8 and
-int4 weights; fp pools).
+int4 weights; fp and int8 pools).
 
 - ``decode_attn_block`` (:func:`decode_attn_block_cuda`) replaces
   ``fused_attn_block_pallas``: RMSNorm + QKV + RoPE + paged attention with
@@ -24,6 +24,15 @@ The kernels stream the integer weights, convert them in registers and
 apply the per-output-channel f32 scale in the product's epilogue, as the
 JAX kernels do: ``dot(h, q) * s``, then the cast to the model type where
 the fp kernel casts.
+
+The pools may be int8 with static per-head f32 scales (the int8 KV cache:
+``kv_scales = (k_scale [KV], v_scale [KV])``, the JAX kernels' ``quant``
+bodies). The attention kernels then stage int8 pages and dequantize each
+element in f32 (``q * s``) before its product, and they fold the new
+token in as ``clip(round(x / s), -127, 127) * s`` in f32: the value the
+unfused step reads back from the pool. ``k_new``/``v_new`` stay raw, at
+the model type, for the caller's quantizing pool write
+(``write_to_pool_quant``).
 
 :func:`attn_block_ref` and :func:`mlp_block_ref` are the registry's
 priority-0 ``"unfused"`` variants: op for op the building blocks of
@@ -89,8 +98,6 @@ __all__ = ["attn_block_ref", "mlp_block_ref", "attn_block_wq_ref",
 SMEM_LIMIT = 227 * 1024
 
 _fns = {}
-
-_NOT_PORTED_QUANT = "not ported: int8 cache slice (int8 KV pools)"
 
 
 # ---------------------------------------------------------------------------
@@ -166,13 +173,19 @@ def _deq_mm(h, w):
 # epilogue order
 # ---------------------------------------------------------------------------
 def _attention(x, nw, wq, wk, wv, sin, cos, k_pool, v_pool, block_tables,
-               seq_lens, eps, mm):
+               seq_lens, kv_scales, eps, mm):
     """The attention of a decode block up to the attention rows: (attn
     [B, H*hd] in x's type, k_new, v_new [B, KV, hd]), with the q/k/v
     products of ``mm``. Writes the new token's K/V into the pools first
-    (in place), as the JAX version does."""
+    (in place), as the JAX version does; int8 pools (``kv_scales``) through
+    the quantizing write and the dequantizing attention. That is also the
+    kernels' order over int8 pools: pages dequantized to f32 (never to x's
+    type), the new token quantized and dequantized in f32 (the pool
+    round trip) before its score and its P.V term."""
     from .. import rms_norm
-    from ..paged_attention import paged_attention_decode, write_to_pool
+    from ..paged_attention import (paged_attention_decode,
+                                   paged_attention_decode_quant,
+                                   write_to_pool, write_to_pool_quant)
     from ..rope import apply_rope
     B, D = x.shape
     _, _, KV, hd = k_pool.shape
@@ -185,10 +198,18 @@ def _attention(x, nw, wq, wk, wv, sin, cos, k_pool, v_pool, block_tables,
     q = apply_rope(q, sin, cos, position_ids=pos_ids)
     k = apply_rope(k, sin, cos, position_ids=pos_ids)
     k_new, v_new = k[:, 0], v[:, 0]
-    write_to_pool(k_pool, v_pool, block_tables, seq_lens,
-                  k_new.to(k_pool.dtype), v_new.to(v_pool.dtype))
-    attn = paged_attention_decode(q[:, 0], k_pool, v_pool, block_tables,
-                                  seq_lens + 1)
+    if kv_scales is None:
+        write_to_pool(k_pool, v_pool, block_tables, seq_lens,
+                      k_new.to(k_pool.dtype), v_new.to(v_pool.dtype))
+        attn = paged_attention_decode(q[:, 0], k_pool, v_pool, block_tables,
+                                      seq_lens + 1)
+    else:
+        ks, vs = kv_scales
+        write_to_pool_quant(k_pool, v_pool, block_tables, seq_lens, k_new,
+                            v_new, ks, vs)
+        attn = paged_attention_decode_quant(q[:, 0], k_pool, v_pool,
+                                            block_tables, seq_lens + 1, ks,
+                                            vs)
     return attn.reshape(B, H * hd).to(x.dtype), k_new, v_new
 
 
@@ -205,12 +226,12 @@ def attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     [B, D], or o alone when ``residual`` is False; k_new, v_new
     [B, KV, hd]). Like the JAX version it writes the new token's K/V into
     the pools before attending (in place here); the caller then makes the
-    same write, so the pools end equal either way."""
-    if kv_scales is not None:
-        raise NotImplementedError(f"kv_scales: {_NOT_PORTED_QUANT}")
+    same write, so the pools end equal either way. ``kv_scales``:
+    (k_scale, v_scale) [KV] f32 for int8 pools (the JAX composition's
+    ``write_to_pool_quant`` and ``paged_attention_decode_quant``)."""
     attn, k_new, v_new = _attention(x, nw, wq, wk, wv, sin, cos, k_pool,
-                                    v_pool, block_tables, seq_lens, eps,
-                                    _deq_mm)
+                                    v_pool, block_tables, seq_lens,
+                                    kv_scales, eps, _deq_mm)
     o = _deq_mm(attn, wo)
     return (x + o if residual else o), k_new, v_new
 
@@ -234,12 +255,10 @@ def attn_block_wq_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     order (the JAX ``_attn_block_kernel``'s): each q/k/v product ``dot(h,
     q) * s`` in f32, cast to x's type before RoPE; ``o = dot(attn, q) *
     s`` cast to x's type, then the residual add. The kernel's plain
-    version for quantized weights."""
-    if kv_scales is not None:
-        raise NotImplementedError(f"kv_scales: {_NOT_PORTED_QUANT}")
+    version for quantized weights and int8 pools (:func:`_attention`)."""
     attn, k_new, v_new = _attention(x, nw, wq, wk, wv, sin, cos, k_pool,
-                                    v_pool, block_tables, seq_lens, eps,
-                                    _epi_mm)
+                                    v_pool, block_tables, seq_lens,
+                                    kv_scales, eps, _epi_mm)
     o = _f32mm(attn, wo).to(x.dtype)
     return (x + o if residual else o), k_new, v_new
 
@@ -269,14 +288,13 @@ def decode_block_ref(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     f32; ``x_out = T(resid + down)``. A quantized leaf's scale multiplies
     its f32 product (the epilogue). Returns (x_out [B, D], k_new, v_new
     [B, KV, hd]); writes the new token's K/V into the pools first, as
-    :func:`attn_block_ref` does."""
+    :func:`attn_block_ref` does (int8 pools as :func:`_attention` reads
+    them)."""
     import torch.nn.functional as F
-    if kv_scales is not None:
-        raise NotImplementedError(f"kv_scales: {_NOT_PORTED_QUANT}")
     dt = x.dtype
     attn, k_new, v_new = _attention(x, nw, wq, wk, wv, sin, cos, k_pool,
-                                    v_pool, block_tables, seq_lens, eps,
-                                    _epi_mm)
+                                    v_pool, block_tables, seq_lens,
+                                    kv_scales, eps, _epi_mm)
     resid = x.float() + _f32mm(attn, wo)
     ms = torch.mean(torch.square(resid), dim=-1, keepdim=True)
     h = (resid * torch.rsqrt(ms + eps)).to(dt) * pw
@@ -327,28 +345,30 @@ def _passes(B):
     return -(-B // _ROWS)
 
 
-def _layout(D, rows, hd, BS, item):
+def _layout(D, rows, hd, BS, item, pool_item=None):
     """(region, total) bytes: the region holds one pass of normalised rows
     [D][8] (or a staged chunk of a product's operand, or the f32 scratch
     and K/V pages of one attention item of ``rows`` query rows, 0 for
-    none: ``attn_scratch_floats`` in csrc/block_products.cuh); then the
-    per-warp partial sums and two result tiles of the widest column
-    tile."""
+    none: ``attn_scratch_floats`` in csrc/block_products.cuh, the pages
+    staged in the pool's type of ``pool_item`` bytes, x's by default);
+    then the per-warp partial sums and two result tiles of the widest
+    column tile."""
     attn = 0
     if rows:
         sb = _PAGES_PER_STEP * BS
         f = 2 * rows * hd + rows * sb + 3 * rows + hd
-        attn = -(-f // 4) * 4 * 4 + 2 * sb * hd * item
+        attn = -(-f // 4) * 4 * 4 + 2 * sb * hd * (pool_item or item)
     region = -(-max(_ROWS * D * item, attn) // 16) * 16
     tc = _MAX_LPR * (16 // item)
     return region, region + (_WARPS + 2) * tc * _ROWS * 4
 
 
-def attn_smem_bytes(D, H, KV, hd, BS, itemsize) -> int:
+def attn_smem_bytes(D, H, KV, hd, BS, itemsize, pool_itemsize=None) -> int:
     """Dynamic shared memory of one decode_attn_block block: 8 normalised
-    rows of width D, or the attention scratch of one work item, whichever
-    is larger, plus the products' reduction tiles. Independent of B."""
-    return _layout(D, H // KV, hd, BS, itemsize)[1]
+    rows of width D, or the attention scratch of one work item (its pages
+    in the pool's type, x's by default), whichever is larger, plus the
+    products' reduction tiles. Independent of B."""
+    return _layout(D, H // KV, hd, BS, itemsize, pool_itemsize)[1]
 
 
 def mlp_smem_bytes(D, itemsize) -> int:
@@ -357,12 +377,12 @@ def mlp_smem_bytes(D, itemsize) -> int:
     return _layout(D, 0, 0, 0, itemsize)[1]
 
 
-def block_smem_bytes(D, H, KV, hd, BS, itemsize) -> int:
+def block_smem_bytes(D, H, KV, hd, BS, itemsize, pool_itemsize=None) -> int:
     """Dynamic shared memory of one decode_block_fused block: the larger
     of its two halves' layouts, which is the attention half's (its region
     holds 8 normalised rows or an attention item's scratch). Independent
-    of B; 86,016 B at LLaMA-7B bf16."""
-    return max(attn_smem_bytes(D, H, KV, hd, BS, itemsize),
+    of B; 86,016 B at LLaMA-7B bf16, fp or int8 pools."""
+    return max(attn_smem_bytes(D, H, KV, hd, BS, itemsize, pool_itemsize),
                mlp_smem_bytes(D, itemsize))
 
 
@@ -454,10 +474,37 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _count(fn, bits):
-    """One launch of ``fn``'s kernel, in weight class ``bits``."""
+def _pools(name, x, k_pool, kv_scales):
+    """Check an attention kernel's pools against its ``kv_scales``: pools
+    of x's type without scales, or int8 pools with (k_scale, v_scale), f32
+    [KV] each. -> (the pools' dtype, their bits for the launcher: 0 for
+    x's type, 8 for int8; k_scale, v_scale or None)."""
+    int8 = k_pool.dtype == torch.int8
+    if kv_scales is None:
+        if int8:
+            raise ValueError(f"{name}: int8 pools need kv_scales (the int8 "
+                             "cache's per-head scales)")
+        return x.dtype, 0, None, None
+    if not int8:
+        raise ValueError(f"{name}: kv_scales (the int8 cache) need int8 "
+                         f"pools, got {k_pool.dtype}")
+    ks, vs = kv_scales
+    for tname, t in (("k_scale", ks), ("v_scale", vs)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
+                or t.device != x.device or not t.is_contiguous():
+            raise TypeError(f"{name}: {tname} must be a contiguous f32 "
+                            f"tensor on {x.device}")
+        _shape(name, tname, t, (k_pool.shape[2],))
+    return torch.int8, 8, ks, vs
+
+
+def _count(fn, bits, kv_bits=None):
+    """One launch of ``fn``'s kernel, in weight class ``bits`` and, for
+    the kernels that read the pools, pool class ``kv_bits``."""
     fn.launches += 1
     fn.launches_by_weight[{0: "fp", 8: "int8", 4: "int4"}[bits]] += 1
+    if kv_bits is not None:
+        fn.launches_by_pool[{0: "fp", 8: "int8"}[kv_bits]] += 1
 
 
 def _attn_leaves(x, wq, wk, wv, wo, KV, hd):
@@ -483,18 +530,18 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     """Launch the decode_attn_block kernel (the contract of
     :func:`attn_block_wq_ref`, minus its pool write) on PyTorch's current
     stream. Weights are tensors of x's type or quantized leaves (int8, or
-    int4 packed along the contraction axis). Raises for anything the
-    kernel does not take, and if the launch is refused. Never falls
-    back."""
+    int4 packed along the contraction axis); pools of x's type, or int8
+    with ``kv_scales``. Raises for anything the kernel does not take, and
+    if the launch is refused. Never falls back."""
     name = "decode_attn_block_cuda"
-    if kv_scales is not None:
-        raise NotImplementedError(f"{name}: kv_scales: {_NOT_PORTED_QUANT}")
+    pool_dt, kv_bits, ks, vs = _pools(name, x, k_pool, kv_scales)
     _check_common(name, x, {
         "x": x, "nw": nw, "sin": sin, "cos": cos, "k_pool": k_pool,
         "v_pool": v_pool, "block_tables": block_tables,
         "seq_lens": seq_lens},
-        {"sin": torch.float32, "cos": torch.float32,
-         "block_tables": torch.int32, "seq_lens": torch.int32})
+        {"sin": torch.float32, "cos": torch.float32, "k_pool": pool_dt,
+         "v_pool": pool_dt, "block_tables": torch.int32,
+         "seq_lens": torch.int32})
     B, D = x.shape
     N, BS, KV, hd = k_pool.shape
     H, leaves = _attn_leaves(x, wq, wk, wv, wo, KV, hd)
@@ -503,9 +550,10 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if H < 1 or H % KV:
         raise ValueError(f"{name}: H={H} is not a positive multiple of "
                          f"KV={KV}")
-    if (hd * item) % 16 or (D * item) % 16:
+    if (hd * item) % 16 or (D * item) % 16 or hd % 16 and kv_bits:
         raise ValueError(f"{name}: head_dim {hd} and hidden {D} rows must "
-                         "be multiples of 16 bytes (the load width)")
+                         "be multiples of 16 bytes (the load width), in "
+                         "x's type and in the pools'")
     bits, w, sc = _weights(name, x, leaves)
     for tname, t, shp in (("nw", nw, (D,)),
                           ("v_pool", v_pool, k_pool.shape),
@@ -516,11 +564,11 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if sin.dim() != 2 or sin.shape[1] != hd // 2:
         raise ValueError(f"{name}: rope tables must be [T, {hd // 2}], got "
                          f"{tuple(sin.shape)}")
-    region, smem = _layout(D, H // KV, hd, BS, item)
+    region, smem = _layout(D, H // KV, hd, BS, item, k_pool.element_size())
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    fn = _lib_fn("decode_attn_block", 21, 12, 2)
+    fn = _lib_fn("decode_attn_block", 23, 13, 2)
     x_out = torch.empty_like(x)
     k_new = torch.empty((B, KV, hd), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
@@ -536,16 +584,17 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                        device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _count(decode_attn_block_cuda, bits)
+        _count(decode_attn_block_cuda, bits, kv_bits)
         err = fn(x.data_ptr(), nw.data_ptr(), *(w[k].data_ptr() for k in
                                                  ("wq", "wk", "wv", "wo")),
                  *(_ptr(sc[k]) for k in ("wq", "wk", "wv", "wo")),
                  sin.data_ptr(), cos.data_ptr(), k_pool.data_ptr(),
-                 v_pool.data_ptr(), block_tables.data_ptr(),
-                 seq_lens.data_ptr(), x_out.data_ptr(), k_new.data_ptr(),
-                 v_new.data_ptr(), ws_t.data_ptr(), ws_f.data_ptr(), B, D, H,
-                 KV, hd, BS, MB, sin.shape[0], int(bool(residual)), region,
-                 smem, bits, float(eps), 1.0 / math.sqrt(hd),
+                 v_pool.data_ptr(), _ptr(ks), _ptr(vs),
+                 block_tables.data_ptr(), seq_lens.data_ptr(),
+                 x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                 ws_t.data_ptr(), ws_f.data_ptr(), B, D, H, KV, hd, BS, MB,
+                 sin.shape[0], int(bool(residual)), region, smem, bits,
+                 kv_bits, float(eps), 1.0 / math.sqrt(hd),
                  _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_attn_block launch failed: "
@@ -599,18 +648,19 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
                             kv_scales=None, eps=1e-6):
     """Launch the decode_block_fused kernel (the contract of
     :func:`decode_block_ref`, minus its pool write) on PyTorch's current
-    stream: one whole decoder layer, ``(x_out, k_new, v_new)``. Weights as
-    the two-stage kernels take them. Raises for anything the kernel does
-    not take, and if the launch is refused. Never falls back."""
+    stream: one whole decoder layer, ``(x_out, k_new, v_new)``. Weights
+    and pools as the two-stage kernels take them. Raises for anything the
+    kernel does not take, and if the launch is refused. Never falls
+    back."""
     name = "decode_block_fused_cuda"
-    if kv_scales is not None:
-        raise NotImplementedError(f"{name}: kv_scales: {_NOT_PORTED_QUANT}")
+    pool_dt, kv_bits, ks, vs = _pools(name, x, k_pool, kv_scales)
     _check_common(name, x, {
         "x": x, "nw": nw, "pw": pw, "sin": sin, "cos": cos,
         "k_pool": k_pool, "v_pool": v_pool, "block_tables": block_tables,
         "seq_lens": seq_lens},
-        {"sin": torch.float32, "cos": torch.float32,
-         "block_tables": torch.int32, "seq_lens": torch.int32})
+        {"sin": torch.float32, "cos": torch.float32, "k_pool": pool_dt,
+         "v_pool": pool_dt, "block_tables": torch.int32,
+         "seq_lens": torch.int32})
     B, D = x.shape
     N, BS, KV, hd = k_pool.shape
     H, leaves = _attn_leaves(x, wq, wk, wv, wo, KV, hd)
@@ -621,10 +671,12 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     if H < 1 or H % KV:
         raise ValueError(f"{name}: H={H} is not a positive multiple of "
                          f"KV={KV}")
-    if F < 1 or (hd * item) % 16 or (D * item) % 16 or (F * item) % 16:
+    if F < 1 or (hd * item) % 16 or (D * item) % 16 or (F * item) % 16 \
+            or hd % 16 and kv_bits:
         raise ValueError(f"{name}: head_dim {hd}, hidden {D} and "
                          f"intermediate {F} rows must be multiples of 16 "
-                         "bytes (the load width)")
+                         "bytes (the load width), in x's type and in the "
+                         "pools'")
     bits, w, sc = _weights(name, x, leaves)
     for tname, t, shp in (("nw", nw, (D,)), ("pw", pw, (D,)),
                           ("v_pool", v_pool, k_pool.shape),
@@ -635,11 +687,11 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     if sin.dim() != 2 or sin.shape[1] != hd // 2:
         raise ValueError(f"{name}: rope tables must be [T, {hd // 2}], got "
                          f"{tuple(sin.shape)}")
-    region, smem = _layout(D, H // KV, hd, BS, item)
+    region, smem = _layout(D, H // KV, hd, BS, item, k_pool.element_size())
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    fn = _lib_fn("decode_block_fused", 28, 12, 2)
+    fn = _lib_fn("decode_block_fused", 30, 13, 2)
     x_out = torch.empty_like(x)
     k_new = torch.empty((B, KV, hd), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
@@ -655,17 +707,18 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     order = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _count(decode_block_fused_cuda, bits)
+        _count(decode_block_fused_cuda, bits, kv_bits)
         err = fn(x.data_ptr(), nw.data_ptr(),
                  *(w[k].data_ptr() for k in order[:4]), pw.data_ptr(),
                  *(w[k].data_ptr() for k in order[4:]),
                  *(_ptr(sc[k]) for k in order), sin.data_ptr(),
                  cos.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 block_tables.data_ptr(), seq_lens.data_ptr(),
-                 x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                 ws_t.data_ptr(), ws_f.data_ptr(), B, D, H, KV, hd, F, BS,
-                 MB, sin.shape[0], region, smem, bits, float(eps),
-                 1.0 / math.sqrt(hd), _build.DTYPES[x.dtype], stream)
+                 _ptr(ks), _ptr(vs), block_tables.data_ptr(),
+                 seq_lens.data_ptr(), x_out.data_ptr(), k_new.data_ptr(),
+                 v_new.data_ptr(), ws_t.data_ptr(), ws_f.data_ptr(), B, D, H,
+                 KV, hd, F, BS, MB, sin.shape[0], region, smem, bits,
+                 kv_bits, float(eps), 1.0 / math.sqrt(hd),
+                 _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_block_fused launch failed: "
                            + fn.error_string(err).decode())
@@ -677,6 +730,9 @@ for _w in (decode_attn_block_cuda, decode_mlp_block_cuda,
     _w.launches = 0
     # the same launches by weight class
     _w.launches_by_weight = {"fp": 0, "int8": 0, "int4": 0}
+for _w in (decode_attn_block_cuda, decode_block_fused_cuda):
+    # and, for the kernels that read the pools, by pool class
+    _w.launches_by_pool = {"fp": 0, "int8": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -697,7 +753,9 @@ def decode_meta_dims(B, D, H, KV, hd, F, BS, MB, dtype, pool_dtype, quant,
         "hd": int(hd), "F": int(F), "BS": int(BS), "MB": int(MB),
         "dtype": _dtype_name(dtype),
         "itemsize": torch.empty((), dtype=dtype).element_size(),
-        "pool_dtype": _dtype_name(pool_dtype), "quant": bool(quant),
+        "pool_dtype": _dtype_name(pool_dtype),
+        "pool_itemsize": torch.empty((), dtype=pool_dtype).element_size(),
+        "quant": bool(quant),
         "weight_dtype": str(weight_dtype) if weight_dtype
         else _dtype_name(dtype),
         "device": torch.device(device).type,
@@ -720,8 +778,6 @@ def _refusal(meta, wq_dims=()):
     dimensions int4 packs along, (name, value) pairs."""
     if meta["device"] != "cuda":
         return "plain composition on the CPU"
-    if meta["quant"]:
-        return _NOT_PORTED_QUANT
     if meta["dtype"] not in ("float32", "bfloat16"):
         return f"dtype {meta['dtype']} is not float32/bfloat16"
     if meta["weight_dtype"] not in (meta["dtype"], "int8", "int4"):
@@ -730,7 +786,13 @@ def _refusal(meta, wq_dims=()):
     why = _wq_even_reason(meta, wq_dims)
     if why:
         return why
-    if meta["pool_dtype"] != meta["dtype"]:
+    if meta["quant"]:
+        if meta["pool_dtype"] != "int8":
+            return (f"quant (the int8 cache's scales) needs int8 pools, got "
+                    f"pool dtype {meta['pool_dtype']}")
+    elif meta["pool_dtype"] == "int8":
+        return "int8 pools without quant (the int8 cache's scales)"
+    elif meta["pool_dtype"] != meta["dtype"]:
         return (f"pool dtype {meta['pool_dtype']} differs from the model "
                 f"dtype {meta['dtype']}")
     if (meta["D"] * meta["itemsize"]) % 16:
@@ -745,7 +807,9 @@ def _smem_reason(need, limit, meta):
     wd = meta["weight_dtype"]
     return True, (f"fits shared memory ({need} of {limit} B)"
                   + (f", {wd} weights scaled in the epilogue"
-                     if wd in ("int8", "int4") else ""))
+                     if wd in ("int8", "int4") else "")
+                  + (", int8 pools dequantized per head"
+                     if meta["quant"] else ""))
 
 
 def _attn_dims(meta):
@@ -761,8 +825,10 @@ def _attn_refusal(meta):
         return why
     if meta["H"] % meta["KV"]:
         return "H not a multiple of KV"
-    if (meta["hd"] * meta["itemsize"]) % 16:
-        return f"head_dim {meta['hd']} rows not a multiple of 16 bytes"
+    for item in (meta["itemsize"], meta["pool_itemsize"]):
+        if (meta["hd"] * item) % 16:
+            return (f"head_dim {meta['hd']} rows not a multiple of 16 bytes"
+                    f" ({item}-byte elements)")
     return None
 
 
@@ -772,7 +838,8 @@ def _supports_attn(meta):
         return False, why
     return _smem_reason(attn_smem_bytes(meta["D"], meta["H"], meta["KV"],
                                         meta["hd"], meta["BS"],
-                                        meta["itemsize"]),
+                                        meta["itemsize"],
+                                        meta["pool_itemsize"]),
                         meta["smem_limit"], meta)
 
 
@@ -799,7 +866,8 @@ def _supports_block(meta):
     at two blocks an SM; the launch sizes the grid from this kernel's
     occupancy). It carries over the reference's refusals: a head_dim that
     is not a multiple of 8, H not a multiple of KV, the rows the loads
-    cannot align, odd int4 pack axes, and quantized pools (not ported)."""
+    cannot align and odd int4 pack axes; int8 pools need their scales
+    (``quant``)."""
     why = _attn_refusal(meta)
     if why:
         return False, why
@@ -810,7 +878,8 @@ def _supports_block(meta):
                        "16 bytes")
     return _smem_reason(block_smem_bytes(meta["D"], meta["H"], meta["KV"],
                                          meta["hd"], meta["BS"],
-                                         meta["itemsize"]),
+                                         meta["itemsize"],
+                                         meta["pool_itemsize"]),
                         meta["smem_limit"], meta)
 
 

@@ -1,7 +1,7 @@
 """Fused prefill-block kernels: the prefill attention kernel's wrapper, the
 plain versions, the dispatch metas and predicates, and the resolvers (port
 of ``paddle_tpu/ops/pallas/fused_prefill_block.py``: fp, int8 and int4
-weights; fp pools).
+weights; fp and int8 pools).
 
 - ``prefill_attn_block`` (:func:`prefill_attn_block_cuda`) replaces
   ``fused_prefill_attn_pallas``: over one chunk of one request, RMSNorm +
@@ -24,8 +24,14 @@ dense composition (gather the request's pages into a dense view,
 each product, the chunk's K/V written into the view before attending).
 :func:`prefill_attn_block_wq_ref` is the kernel's plain version in its
 epilogue order for quantized weights (``dot(h, q) * s``, then the cast),
-as :func:`.fused_decode_block.attn_block_wq_ref` is for decode. As for
-decode, the composition
+as :func:`.fused_decode_block.attn_block_wq_ref` is for decode.
+
+Over int8 pools (``kv_scales``) the two differ by more than roundoff in
+bf16, each true to its JAX counterpart: the JAX composition dequantizes
+the history and casts it to the model type before attending, while the
+JAX kernel (and this port's) keeps the dequantized history in f32. In
+both the chunk's own K/V stay at the model type; only the caller's pool
+write quantizes them. As for decode, the composition
 is the CPU's route only: on CUDA a predicate that refuses the kernel makes
 dispatch raise with its reason. The serving engine runs the fused chunk
 only when BOTH ops resolve to the kernels (:func:`prefill_fused_selected`)
@@ -56,9 +62,12 @@ BQ = 16
 # plain versions: the dense composition, op for op
 # ---------------------------------------------------------------------------
 def _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool, table,
-                  pos0, eps, residual, mm, omm):
+                  pos0, kv_scales, eps, residual, mm, omm, hist_dtype):
     """The dense chunk's attention half with the q/k/v products of ``mm``
-    and the o_proj of ``omm`` (both landing in x's type)."""
+    and the o_proj of ``omm`` (both landing in x's type). Over int8 pools
+    (``kv_scales``) the gathered history is dequantized in f32 and held
+    in ``hist_dtype`` (x's type in the JAX composition, f32 in the
+    kernel); the chunk's K/V go into that view at x's type."""
     from .. import rms_norm
     from ..rope import apply_rope
     P, D = x.shape
@@ -70,6 +79,10 @@ def _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool, table,
                          f"table's {T} positions")
     kc = k_pool[table.long()].reshape(T, KV, hd)
     vc = v_pool[table.long()].reshape(T, KV, hd)
+    if kv_scales is not None:
+        ks, vs = kv_scales
+        kc = (kc.float() * ks[None, :, None]).to(hist_dtype)
+        vc = (vc.float() * vs[None, :, None]).to(hist_dtype)
     h = rms_norm(x[None], nw, eps)[0]
     q = apply_rope(mm(h, wq).reshape(1, P, H, hd), sin, cos)
     k = apply_rope(mm(h, wk).reshape(1, P, KV, hd), sin, cos)
@@ -101,16 +114,16 @@ def prefill_attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     quantized leaves, dequantized to x's type before their product);
     sin/cos: the chunk's rope rows [P, hd/2] f32, row i for position
     pos0 + i; pools [N, BS, KV, hd]; table [MB]: the request's READ table;
-    pos0: tokens of the request already in the pools. Gathers the
+    pos0: tokens of the request already in the pools; ``kv_scales``:
+    (k_scale, v_scale) [KV] f32 for int8 pools, whose gathered history is
+    dequantized and cast to x's type (the JAX composition). Gathers the
     request's pages into a dense [MB*BS] view, writes the chunk's K/V into
     it at pos0 and runs causal attention over it. Returns (x + o [P, D],
     or o alone when ``residual`` is False; k_new, v_new [P, KV, hd]). Pays
     full pad work: ``n_valid`` rides only for signature parity."""
-    if kv_scales is not None:
-        raise NotImplementedError(f"kv_scales: {_fdb._NOT_PORTED_QUANT}")
     return _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
-                         table, pos0, eps, residual, _fdb._deq_mm,
-                         _fdb._deq_mm)
+                         table, pos0, kv_scales, eps, residual, _fdb._deq_mm,
+                         _fdb._deq_mm, x.dtype)
 
 
 def prefill_attn_block_wq_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool,
@@ -119,13 +132,14 @@ def prefill_attn_block_wq_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool,
     """:func:`prefill_attn_block_ref`'s contract in prefill_attn_block's
     epilogue order (the JAX ``_prefill_attn_kernel``'s): each product
     ``dot(h, q) * s`` in f32, then cast to x's type (q/k/v before RoPE,
-    o before the residual add). The kernel's plain version for quantized
-    weights."""
-    if kv_scales is not None:
-        raise NotImplementedError(f"kv_scales: {_fdb._NOT_PORTED_QUANT}")
+    o before the residual add). Over int8 pools the history is
+    dequantized to f32 and stays f32 (the JAX kernel's order); the chunk's
+    own K/V stay at x's type. The kernel's plain version for quantized
+    weights and int8 pools."""
     return _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
-                         table, pos0, eps, residual, _fdb._epi_mm,
-                         lambda a, w: _fdb._f32mm(a, w).to(x.dtype))
+                         table, pos0, kv_scales, eps, residual, _fdb._epi_mm,
+                         lambda a, w: _fdb._f32mm(a, w).to(x.dtype),
+                         torch.float32)
 
 
 def prefill_mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
@@ -137,12 +151,16 @@ def prefill_mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
 # ---------------------------------------------------------------------------
 # the CUDA kernel's wrapper
 # ---------------------------------------------------------------------------
-def prefill_attn_smem_bytes(D, H, KV, hd, BS, itemsize) -> int:
+def prefill_attn_smem_bytes(D, H, KV, hd, BS, itemsize,
+                            pool_itemsize=None) -> int:
     """Dynamic shared memory of one prefill_attn_block block: 8 normalised
     rows of width D, or the attention scratch of one work item of
     (H/KV) * BQ query rows, whichever is larger, plus the products'
-    reduction tiles (``fused_decode_block._layout``)."""
-    return _fdb._layout(D, H // KV * BQ, hd, BS, itemsize)[1]
+    reduction tiles (``fused_decode_block._layout``). The staged tiles
+    hold history pages in the pool's type and the chunk's own K/V in x's
+    type, one after the other, so they take the wider of the two."""
+    return _fdb._layout(D, H // KV * BQ, hd, BS, itemsize,
+                        max(itemsize, pool_itemsize or itemsize))[1]
 
 
 def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
@@ -152,17 +170,17 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     :func:`prefill_attn_block_wq_ref`, except that rows at or after
     ``n_valid`` come back as zeros) on PyTorch's current stream. Weights
     are tensors of x's type or quantized leaves (int8, or int4 packed
-    along the contraction axis). ``pos0`` and ``n_valid`` are host ints.
-    Raises for anything the kernel does not take, and if the launch is
-    refused. Never falls back."""
+    along the contraction axis); pools of x's type, or int8 with
+    ``kv_scales``. ``pos0`` and ``n_valid`` are host ints. Raises for
+    anything the kernel does not take, and if the launch is refused.
+    Never falls back."""
     name = "prefill_attn_block_cuda"
-    if kv_scales is not None:
-        raise NotImplementedError(
-            f"{name}: kv_scales: {_fdb._NOT_PORTED_QUANT}")
+    pool_dt, kv_bits, ks, vs = _fdb._pools(name, x, k_pool, kv_scales)
     _fdb._check_common(name, x, {
         "x": x, "nw": nw, "sin": sin, "cos": cos, "k_pool": k_pool,
         "v_pool": v_pool, "table": table},
-        {"sin": torch.float32, "cos": torch.float32, "table": torch.int32})
+        {"sin": torch.float32, "cos": torch.float32, "k_pool": pool_dt,
+         "v_pool": pool_dt, "table": torch.int32})
     P, D = x.shape
     N, BS, KV, hd = k_pool.shape
     H, leaves = _fdb._attn_leaves(x, wq, wk, wv, wo, KV, hd)
@@ -171,9 +189,10 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if H < 1 or H % KV:
         raise ValueError(f"{name}: H={H} is not a positive multiple of "
                          f"KV={KV}")
-    if (hd * item) % 16 or (D * item) % 16:
+    if (hd * item) % 16 or (D * item) % 16 or hd % 16 and kv_bits:
         raise ValueError(f"{name}: head_dim {hd} and hidden {D} rows must "
-                         "be multiples of 16 bytes (the load width)")
+                         "be multiples of 16 bytes (the load width), in "
+                         "x's type and in the pools'")
     if P % BQ:
         raise ValueError(f"{name}: chunk width P={P} is not a multiple of "
                          f"the kernel's {BQ}-row query blocks")
@@ -193,7 +212,7 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if smem > _fdb.SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {_fdb.SMEM_LIMIT}")
-    fn = _fdb._lib_fn("prefill_attn_block", 21, 14, 2,
+    fn = _fdb._lib_fn("prefill_attn_block", 23, 15, 2,
                       source="fused_prefill_block")
     x_out = torch.empty_like(x)
     k_new = torch.empty((P, KV, hd), dtype=x.dtype, device=x.device)
@@ -208,16 +227,17 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     order = ("wq", "wk", "wv", "wo")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _fdb._count(prefill_attn_block_cuda, bits)
+        _fdb._count(prefill_attn_block_cuda, bits, kv_bits)
         err = fn(x.data_ptr(), nw.data_ptr(),
                  *(w[k].data_ptr() for k in order),
                  *(_fdb._ptr(sc[k]) for k in order), sin.data_ptr(),
                  cos.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 table.data_ptr(), x_out.data_ptr(), k_new.data_ptr(),
-                 v_new.data_ptr(), qkv_ws.data_ptr(), q_ws.data_ptr(),
-                 attn_ws.data_ptr(), P, D, H, KV, hd, BS, MB, pos0, n_valid,
-                 BQ, int(bool(residual)), region, smem, bits, float(eps),
-                 1.0 / math.sqrt(hd), DTYPES[x.dtype], stream)
+                 _fdb._ptr(ks), _fdb._ptr(vs), table.data_ptr(),
+                 x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                 qkv_ws.data_ptr(), q_ws.data_ptr(), attn_ws.data_ptr(), P,
+                 D, H, KV, hd, BS, MB, pos0, n_valid, BQ,
+                 int(bool(residual)), region, smem, bits, kv_bits,
+                 float(eps), 1.0 / math.sqrt(hd), DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("prefill_attn_block launch failed: "
                            + fn.error_string(err).decode())
@@ -228,6 +248,8 @@ prefill_attn_block_cuda.launches = 0
 # the same launches by weight class
 prefill_attn_block_cuda.launches_by_weight = {"fp": 0, "int8": 0,
                                               "int4": 0}
+# and by pool class
+prefill_attn_block_cuda.launches_by_pool = {"fp": 0, "int8": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +286,8 @@ def _supports_prefill_attn(meta):
                        f"kernel's {BQ}-row query blocks")
     return _fdb._smem_reason(
         prefill_attn_smem_bytes(meta["D"], meta["H"], meta["KV"], meta["hd"],
-                                meta["BS"], meta["itemsize"]),
+                                meta["BS"], meta["itemsize"],
+                                meta["pool_itemsize"]),
         meta["smem_limit"], meta)
 
 

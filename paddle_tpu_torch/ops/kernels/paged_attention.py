@@ -12,7 +12,11 @@ read of the live K/V pages) and how its design follows from that.
 of the JAX package's ``paged_attention_decode_xla``: it gathers each
 sequence's pages densely and runs masked softmax attention in f32. The
 CPU tests use it, and ``chip_smoke.py`` holds the kernel against it on
-the card.
+the card. With ``k_scale``/``v_scale`` it reads int8 pools, dequantized
+right after the gather; that is the int8 cache's decode attention on every
+device (``ops.paged_attention.paged_attention_decode_quant``), as in the
+JAX package, whose Pallas kernel takes no scales. The CUDA kernel takes fp
+pools only.
 """
 from __future__ import annotations
 
@@ -28,12 +32,16 @@ __all__ = ["paged_attention_decode_ref", "paged_attention_decode_cuda"]
 _fn = None
 
 
-def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens):
+def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens,
+                               k_scale=None, v_scale=None):
     """q [B, H, hd]; pools [N, BS, KV, hd]; block_tables [B, MB];
     seq_lens [B] (current token included) -> [B, H, hd] in q's type,
     scale 1/sqrt(hd).
     Positions at/after ``seq_len`` get score -1e30 (finite, so a slot of
-    length 0 softmaxes without NaN) and a slot of length 0 returns 0."""
+    length 0 softmaxes without NaN) and a slot of length 0 returns 0.
+    ``k_scale``/``v_scale`` [KV] f32: int8 pools, dequantized per head in
+    f32 right after the gather, so the rest of the math is the fp pools'
+    (the JAX ``paged_attention_decode_xla``)."""
     B, H, hd = q.shape
     N, BS, KV, _ = k_pool.shape
     MB = block_tables.shape[1]
@@ -41,6 +49,10 @@ def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens):
     tables = block_tables.long()
     k = k_pool[tables].reshape(B, MB * BS, KV, hd)
     v = v_pool[tables].reshape(B, MB * BS, KV, hd)
+    if k_scale is not None:
+        k = k.float() * k_scale[None, None, :, None]
+    if v_scale is not None:
+        v = v.float() * v_scale[None, None, :, None]
     rep = H // KV
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
@@ -74,6 +86,12 @@ def _kernel():
 
 
 def _check(q, k_pool, v_pool, block_tables, seq_lens):
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype == torch.int8:
+            raise TypeError(
+                f"{name} is int8: the kernel takes fp pools; int8 pools "
+                "go through paged_attention_decode_quant, a composition "
+                "on every device, as in the JAX package (XLA)")
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_attention_decode_cuda needs CUDA tensors, got {q.device}")

@@ -10,9 +10,20 @@ the plain version ``paged_attention_decode_ref``. There is no flag that
 selects the plain version on the card and no fallback: a kernel that
 fails raises.
 
-Unlike the JAX package, whose arrays are immutable, :func:`write_to_pool`
-and :func:`write_chunk_to_pool` update the pools in place
-(``index_put_``) and return them.
+The int8 KV cache (static per-head scales, the serving engine's
+``cache_dtype="int8"``): :func:`quantize_pools`, :func:`quant_cache`,
+:func:`dequant_cache`, the quantizing pool writes and
+:func:`paged_attention_decode_quant`. That last one is the plain
+composition on the CPU and on the card alike, as in the JAX package,
+whose ``paged_attention_decode_quant`` is an XLA gather and einsum on
+every backend (its Pallas paged-attention kernel takes no scales). Every
+quantizer is ``clip(round(x / s), -127, 127)`` in f32 with ``torch.round``
+(half to even, as ``jnp.round``) and ``s`` a tensor: PyTorch's CUDA
+division by a Python scalar multiplies by its reciprocal, which can round
+differently.
+
+Unlike the JAX package, whose arrays are immutable, the pool writes
+update the pools in place (``index_put_``) and return them.
 """
 from __future__ import annotations
 
@@ -23,7 +34,10 @@ from .kernels.paged_attention import (paged_attention_decode_cuda,
                                       paged_attention_decode_ref)
 
 __all__ = ["paged_attention_decode", "paged_attention_decode_ref",
-           "write_to_pool", "write_chunk_to_pool", "BlockManager"]
+           "paged_attention_decode_quant", "write_to_pool",
+           "write_chunk_to_pool", "write_to_pool_quant",
+           "write_chunk_to_pool_quant", "quantize_pools", "quant_cache",
+           "dequant_cache", "BlockManager"]
 
 
 def paged_attention_decode(q, k_pool, v_pool, block_tables, seq_lens):
@@ -79,6 +93,75 @@ def write_chunk_to_pool(k_pool, v_pool, wtable, pos0, n_valid, k_new,
     k_pool.index_put_((page, off), k_new.to(k_pool.dtype))
     v_pool.index_put_((page, off), v_new.to(v_pool.dtype))
     return k_pool, v_pool
+
+
+# -- int8 cache quantization (static per-head scales) -----------------------
+def _quant(x, s):
+    """``clip(round(x / s), -127, 127)`` as int8, in f32; ``s`` an f32
+    tensor broadcast against ``x`` (a bf16 ``x`` is promoted to f32 by the
+    division itself: one launch fewer per call on the decode step's
+    pool write)."""
+    return torch.div(x, s).round_().clamp_(-127, 127).to(torch.int8)
+
+
+def quantize_pools(k_pool, v_pool):
+    """bf16/f32 pools [N, BS, KV, hd] -> (int8 pools, k_scale [KV],
+    v_scale [KV]) with symmetric per-head absmax scales (unwritten slots
+    are zero, so the whole pool's absmax is safe)."""
+    def one(p):
+        amax = torch.amax(p.float().abs(), dim=(0, 1, 3))
+        scale = torch.clamp_min(amax / torch.tensor(127.0,
+                                                    device=amax.device),
+                                1e-8)                           # [KV]
+        return _quant(p, scale[None, None, :, None]), scale
+    kq, ks = one(k_pool)
+    vq, vs = one(v_pool)
+    return kq, vq, ks, vs
+
+
+def dequant_cache(x, scale):
+    """int8 dense cache view [L, B, T, KV, hd] -> f32, with per-layer,
+    per-head scales [L, KV] (the serving engine's verbatim prefill chunk
+    reads quantized pages into its dense view through this)."""
+    return x.float() * scale[:, None, None, :, None]
+
+
+def quant_cache(x, scale):
+    """Inverse of :func:`dequant_cache`: fp dense view -> int8 with the
+    same static scales. round(q * s / s) == q, so positions that were only
+    dequantized, not rewritten, quantize back to their own codes."""
+    return _quant(x, scale[:, None, None, :, None])
+
+
+def write_to_pool_quant(k_pool, v_pool, block_tables, seq_lens, k_new,
+                        v_new, k_scale, v_scale):
+    """:func:`write_to_pool` for int8 pools: the new token's K/V [B, KV,
+    hd] quantize with the static per-head scales [KV] on the way in."""
+    return write_to_pool(k_pool, v_pool, block_tables, seq_lens,
+                         _quant(k_new, k_scale[None, :, None]),
+                         _quant(v_new, v_scale[None, :, None]))
+
+
+def write_chunk_to_pool_quant(k_pool, v_pool, wtable, pos0, n_valid, k_new,
+                              v_new, k_scale, v_scale):
+    """:func:`write_chunk_to_pool` for int8 pools: the chunk's K/V [P, KV,
+    hd] quantize with the static per-head scales [KV] on the way in (the
+    formula of :func:`quant_cache`, so re-quantizing untouched positions
+    stays exact)."""
+    return write_chunk_to_pool(k_pool, v_pool, wtable, pos0, n_valid,
+                               _quant(k_new, k_scale[None, :, None]),
+                               _quant(v_new, v_scale[None, :, None]))
+
+
+def paged_attention_decode_quant(q, k_pool, v_pool, block_tables, seq_lens,
+                                 k_scale, v_scale):
+    """Decode attention over int8 pools: gather the int8 pages, dequantize
+    per head in f32, then the same attention math as the fp pools'
+    (:func:`paged_attention_decode_ref`). A composition on every device,
+    as in the JAX package (module docstring)."""
+    return paged_attention_decode_ref(q, k_pool, v_pool, block_tables,
+                                      seq_lens, k_scale=k_scale,
+                                      v_scale=v_scale)
 
 
 class BlockManager:

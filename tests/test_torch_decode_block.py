@@ -272,7 +272,9 @@ def test_block_wrapper_raises_on_cpu_and_quant():
     args = _port(_block_case(np.random.RandomState(0), 1))
     with pytest.raises(ValueError, match="CUDA"):
         fdb.decode_block_fused_cuda(*args)
-    with pytest.raises(NotImplementedError, match="int8 cache"):
+    # scales without int8 pools (the int8 cache) are refused before the
+    # device is looked at
+    with pytest.raises(ValueError, match="int8 cache"):
         fdb.decode_block_fused_cuda(*args, kv_scales=(None, None))
     assert fdb.decode_block_fused_cuda.launches == 0
 
