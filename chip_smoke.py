@@ -59,6 +59,15 @@ script exits non-zero:
    at B 8 / P 128 in bf16 beside the bound (int8 pages and their scales)
    the plain version and the fp-pool kernel on the same activations
    (the codes dequantized to bf16).
+   The residual=False bodies of decode_attn_block, decode_mlp_block and
+   prefill_attn_block (the tensor-parallel "psum" placement's partial
+   products) at one shard's shapes: H = KV = 32, 16 and 8 heads and F =
+   11008, 5504 and 2752 columns against D 4096 (tp 1, 2, 4), fp and int8
+   pools, int8 weights at full width, bf16 and f32, against their plain
+   versions with ``residual=False`` at the fp and kv8 phases' tolerances;
+   two launches bit for bit; the residual body on the same inputs equal,
+   bit for bit, to x plus the partial output; timed beside the bound at
+   the shard's shapes, the plain version and the residual body.
 3. parity: LLaMA-7B widths, 2 layers, f32: greedy tokens for 5 requests
    through 2 slots from the engine on its default route (fused prefill,
    the single-launch decode kernel), on the two-stage decode route
@@ -114,6 +123,23 @@ script exits non-zero:
    as in the JAX package); every launch of the three kernels that read
    the pools in the int8 pool class (``launches_by_pool``); the pools'
    bytes and the calibration's seconds; the profile on kv8_default.
+7d. tensor-parallel parity (f32, 2 layers, 7B widths, shards colocated
+   on the card): greedy ids of the tp=1 "psum" mesh and the meshless
+   two-stage route equal, with logits bit for bit; tp=1 "gather" and
+   tp=2 "gather" against the meshless unfused route, tp=2 "psum" against
+   the two-stage route: ids equal (or parting on a near tie), the largest
+   |logit| difference printed.
+7e. tensor-parallel serving (this slice's main path): the serving
+   phase's requests on ``ServingEngine(mesh=ServingMesh.make(tp,
+   collective=..., devices=["cuda:0"] * tp))``: tp=1 "psum" (the
+   two-stage kernels with residual=False and the fused chunk), tp=2
+   "psum", tp=2 "gather" and tp=2 "psum" over int8 pools. On the psum
+   routes decode_attn_block and decode_mlp_block launch tp x L times a
+   step, all in the "partial" residual class
+   (``launches_by_residual``), decode_block_fused never; the gather route
+   runs the composition (paged attention tp x L a step). Two shards on
+   one card share its memory rate: no scaling is measured. The profile
+   on tp2_psum.
 
 8. flash: the three flash-attention kernels (fwd, dq, dkv) against
    their plain versions, and autograd through them against autograd
@@ -158,13 +184,18 @@ Then the ``kernels`` summary line, 18 rows, the 8 quantized rows
 (``decode_attn_block[int8]`` ... ``prefill_attn_block[int4]``, launches
 from the quantized serving routes) and the 9 int8-pool rows
 (``decode_attn_block[kv8]`` ... ``prefill_attn_block[int4,kv8]``,
-launches from the int8-cache routes) (each kernel's launches from
+launches from the int8-cache routes), the 11 residual=False rows
+(``decode_attn_block[partial,tp2]`` ... ``prefill_attn_block[partial,
+tp2,kv8]``, launches in the "partial" class from the tensor-parallel
+routes: 0 for tp 4, for int8 weights and for prefill_attn_block, which
+no route runs) (each kernel's launches from
 the serving phase of the route that runs it, from the default route's
 train phase, or, for layer_norm_fwd, from its own phase) and,
 last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
 prints no result. It imports nothing of JAX or of ``paddle_tpu``.
 """
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -519,9 +550,11 @@ def attn_ops(lens, D, H, KV, hd):
         + 4 * H * hd * attended
 
 
-def fused_attn_inputs(gen, dt, KV, rope, B=B8):
+def fused_attn_inputs(gen, dt, KV, rope, B=B8, H=H7):
+    """decode_attn_block's arguments at LLaMA-7B widths, ``H`` query heads
+    (one shard's under tensor parallelism) and ``KV`` KV heads."""
     import torch
-    D, H, hd, BS, MB = D7, H7, HD7, BS16, MB72
+    D, hd, BS, MB = D7, HD7, BS16, MB72
     full = MB * BS
     rand = torch.randint(2, full, (B - 6,), generator=gen, device="cuda")
     seq = torch.tensor([0, 1, BS - 1, BS, BS + 1, full - 1], device="cuda")
@@ -2342,11 +2375,13 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
                          "ms_max": float(np.max(v))}
                 for P, v in sorted(by_bucket.items())}
     record["on"] = False
-    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                 cfg.head_dim)
+    # one shard's widths under a mesh: the kernels' launches are a shard's
+    tp = 1 if eng._mesh is None else eng._mesh.tp
+    H, KV, hd = (cfg.num_attention_heads // tp,
+                 cfg.num_key_value_heads // tp, cfg.head_dim)
     item = torch.empty((), dtype=cfg.dtype).element_size()
-    pool_item = eng._k_pools.element_size()
-    D, F = cfg.hidden_size, cfg.intermediate_size
+    pool_item = torch.empty((), dtype=eng._pool_dtype).element_size()
+    D, F = cfg.hidden_size, cfg.intermediate_size // tp
     attn_w = [(D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D)]
     mlp_w = [(D, F), (D, F), (F, D)]
     wbits = {"int8": 8, "int4": 4}.get(eng.weight_quant_variant["mode"])
@@ -2401,12 +2436,12 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
             ls + [0] * (eng.capacity - len(ls)), cfg.hidden_size, H, KV, hd,
             eng.block_size, item, pool_item) + wadj(attn_w),
         "decode_mlp_block": lambda ls: (
-            3 * cfg.hidden_size * cfg.intermediate_size
+            3 * cfg.hidden_size * F
             + (2 * eng.capacity + 1) * cfg.hidden_size) * item
         + wadj(mlp_w),
         "decode_block_fused": lambda ls: block_bytes(
             ls + [0] * (eng.capacity - len(ls)), cfg.hidden_size, H, KV, hd,
-            cfg.intermediate_size, eng.block_size, item, pool_item)
+            F, eng.block_size, item, pool_item)
         + wadj(attn_w + mlp_w),
     }
     for op, model in byte_models.items():
@@ -2434,6 +2469,589 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
                            "launches_per_step": round(n, 2)}
                           for k, (ms, n) in top]})
     eng.drain()
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: the residual=False bodies of decode_attn_block,
+# decode_mlp_block and prefill_attn_block (the "psum" placement's partial
+# products) at one shard's shapes, and ServingEngine(mesh=...) with its
+# shards colocated on the one card
+# ---------------------------------------------------------------------------
+TP_REPLACES = {
+    "decode_attn_block": "paddle_tpu/ops/pallas/fused_decode_block.py:436",
+    "decode_mlp_block": "paddle_tpu/ops/pallas/fused_decode_block.py:645",
+    "prefill_attn_block": "paddle_tpu/ops/pallas/fused_prefill_block.py:431"}
+# (tp, int8 pools, weight bits, dtype): H = KV = 32 / tp query heads of a
+# shard against the full D; tp 1 is the tp=1 mesh's shard (full width)
+TP_ATTN_CASES = ((1, False, 0, "bfloat16"), (2, False, 0, "bfloat16"),
+                 (4, False, 0, "bfloat16"), (2, True, 0, "bfloat16"),
+                 (4, True, 0, "bfloat16"), (1, False, 8, "bfloat16"),
+                 (2, False, 0, "float32"), (4, True, 0, "float32"))
+# (tp, dtype): F = 11008 / tp columns of a shard (2752: no tile divides)
+TP_MLP_CASES = ((1, "bfloat16"), (2, "bfloat16"), (4, "bfloat16"),
+                (2, "float32"), (4, "float32"))
+# (tp, int8 pools, dtype, P, (pos0, n_valid) spans); the first span of a
+# bf16 case is timed
+TP_PREFILL_CASES = ((2, False, "bfloat16", 128, ((512, 128), (5, 125),
+                                                 (600, 77))),
+                    (2, True, "bfloat16", 128, ((512, 128), (600, 77))),
+                    (4, False, "float32", 32, ((5, 29), (16, 32))))
+
+
+def _tp_row(name, op, tp, kv8, wd, shape, max_err, timing):
+    """A kernels-line row of a residual=False body."""
+    return {"name": name, "route": "cuda",
+            "source": PREFILL_SOURCE if op == "prefill_attn_block"
+            else FUSED_SOURCE,
+            "replaces": TP_REPLACES[op], "residual": False, "tp": tp,
+            "weights": wd or "bfloat16",
+            "pools": "int8" if kv8 else "bfloat16",
+            "shape": shape, "dtype": "bfloat16", "max_abs_err": max_err,
+            **timing, "library_ms": None,
+            "library": "none: no single PyTorch call computes the block",
+            "ok": True}
+
+
+def _tp_name(op, tp, kv8=False, wd=None):
+    return (f"{op}[partial,tp{tp}" + (",kv8" if kv8 else "")
+            + (f",{wd}" if wd else "") + "]")
+
+
+def _adds_up(full, part, x, n=None):
+    """The residual body's x_out is x plus the residual=False body's
+    output, rounded once: x_out = T(f32(x) + f32(o)), bit for bit (both
+    bodies round o to T the same way). ``n``: the real rows."""
+    import torch
+    n = full.shape[0] if n is None else n
+    return bool(torch.equal(full[:n],
+                            (x.float() + part.float()).to(x.dtype)[:n]))
+
+
+def tp_attn_phase(gpu):
+    """decode_attn_block's residual=False body against its plain version
+    (``attn_block_ref`` for fp weights and pools, ``attn_block_wq_ref``
+    with int8 pools or weights) at one shard's shapes (TP_ATTN_CASES:
+    H = KV = 32, 16, 8 heads against D 4096, B 8, the fp phases'
+    lengths), at the fp and kv8 phases' tolerances; two launches bit for
+    bit; the residual body on the same inputs equal to x plus this one's
+    output, and its k_new/v_new equal; dispatch on the per-shard meta
+    (tp in it) picks the kernel. Each bf16 case is timed beside its bound
+    at the shard's shapes, its plain version and the residual body."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(100)
+    rope = build_rope_cache(4096, HD7, device="cuda")
+    rows, cases = [], []
+    for tp, kv8, bits, dtn in TP_ATTN_CASES:
+        dt, H, wd = getattr(torch, dtn), H7 // tp, WQ_BITS.get(bits)
+        name = _tp_name("decode_attn_block", tp, kv8, wd)
+        base = fused_attn_inputs(gen, dt, H, rope, H=H)
+        if bits:
+            base = (*base[:2], *wq_leaves(base[2:6], bits), *base[6:])
+        kw = {}
+        plain = fdb.attn_block_wq_ref if kv8 or bits else fdb.attn_block_ref
+        if kv8:
+            kq, vq, kw["kv_scales"], _, _ = kv8_pools(base[8], base[9])
+            base = (*base[:8], kq, vq, *base[10:])
+        meta = fdb.decode_meta_dims(B8, D7, H, H, HD7, F7 // tp, BS16, MB72,
+                                    dt, base[8].dtype, kv8, tp=tp,
+                                    weight_dtype=wd)
+        picked = KERNELS.dispatch("decode_attn_block", meta)[0]
+        got = fdb.decode_attn_block_cuda(*base, **kw, residual=False)
+        again = fdb.decode_attn_block_cuda(*base, **kw, residual=False)
+        full = fdb.decode_attn_block_cuda(*base, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        adds = (_adds_up(full[0], got[0], base[0])
+                and torch.equal(full[1], got[1])
+                and torch.equal(full[2], got[2]))
+        want = plain(*base, **kw, residual=False)  # writes the new token
+        torch.cuda.synchronize()
+        flips = None
+        if kv8:
+            outs, flip_rows, flip_codes = _kv8_decode_outputs(
+                got, want, dt, kw["kv_scales"])
+            flips = {"rows": flip_rows, "codes": flip_codes}
+        else:
+            outs = {nm: _check_case(nm, g, w, dt, tol)
+                    for nm, g, w, tol in (("x_out", got[0], want[0], 1e-4),
+                                          ("k_new", got[1], want[1], 1e-5),
+                                          ("v_new", got[2], want[2], 1e-5))}
+        case = {"kernel": name, "dtype": dtn, "H": H, "KV": H,
+                "outputs": outs, "code_flips": flips,
+                "bitwise_repeatable": same, "equals_residual_body": adds,
+                "dispatch": picked,
+                "ok": same and adds and picked == "cuda_fused"
+                and all(o["ok"] for o in outs.values())}
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "kernel", "kernel": "decode_attn_block[partial]",
+                  "gpu": gpu, "cases": cases})
+            raise AssertionError(f"{name} disagrees: {case}")
+        if dtn != "bfloat16":
+            continue
+        lens = base[11].tolist()
+        nbytes = attn_bytes(lens, D7, H, H, HD7, BS16, 2, 1 if kv8 else None)
+        if bits:
+            qb, fb = wq_bytes([(D7, H * HD7)] * 3 + [(H * HD7, D7)], bits, 2)
+            nbytes += qb - fb
+        b_ms, b_by = bound(nbytes, attn_ops(lens, D7, H, H, HD7), "bfloat16")
+        rows.append(_tp_row(
+            name, "decode_attn_block", tp, kv8, wd,
+            {"B": B8, "D": D7, "H": H, "KV": H, "hd": HD7, "BS": BS16,
+             "MB": MB72, "seq_lens": lens},
+            max(o["max_abs_err"] for o in outs.values()),
+            {"ms": cold_ms(lambda: fdb.decode_attn_block_cuda(
+                *base, **kw, residual=False)),
+             "plain_ms": cold_ms(lambda: plain(*base, **kw, residual=False)),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "full_residual_ms": cold_ms(
+                 lambda: fdb.decode_attn_block_cuda(*base, **kw))}))
+    emit({"phase": "kernel", "kernel": "decode_attn_block[partial]",
+          "gpu": gpu, "cases": cases,
+          "timed": {r["name"]: {k: r[k] for k in (
+              "ms", "plain_ms", "bound_ms", "full_residual_ms")}
+              for r in rows}})
+    return rows
+
+
+def tp_mlp_phase(gpu):
+    """decode_mlp_block's residual=False body against ``mlp_block_ref``
+    (residual=False) at one shard's columns (TP_MLP_CASES: F = 11008,
+    5504, 2752 against D 4096, 8 rows; no tile width divides 2752) at the
+    fp phase's tolerances; two launches bit for bit; the residual body
+    equal to x plus this one's output; dispatch on the per-shard meta. The
+    bf16 cases timed beside their bound, plain version and residual
+    body."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(101)
+    rows, cases = [], []
+    for tp, dtn in TP_MLP_CASES:
+        dt, F = getattr(torch, dtn), F7 // tp
+        name = _tp_name("decode_mlp_block", tp)
+
+        def rn(*shape, std=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * std).to(dt)
+        args = (rn(B8, D7), (1 + 0.1 * torch.randn(
+            D7, generator=gen, device="cuda")).to(dt),
+            rn(D7, F, std=0.02), rn(D7, F, std=0.02), rn(F, D7, std=0.02))
+        meta = fdb.decode_meta_dims(B8, D7, H7 // tp, H7 // tp, HD7, F, BS16,
+                                    MB72, dt, dt, False, tp=tp)
+        picked = KERNELS.dispatch("decode_mlp_block", meta)[0]
+        got = fdb.decode_mlp_block_cuda(*args, residual=False)
+        again = fdb.decode_mlp_block_cuda(*args, residual=False)
+        full = fdb.decode_mlp_block_cuda(*args)
+        want = fdb.mlp_block_ref(*args, residual=False)
+        torch.cuda.synchronize()
+        same, adds = torch.equal(got, again), _adds_up(full, got, args[0])
+        out = _check_case("x_out", got, want, dt, 1e-4)
+        case = {"kernel": name, "dtype": dtn, "F": F, "output": out,
+                "bitwise_repeatable": same, "equals_residual_body": adds,
+                "dispatch": picked,
+                "ok": out["ok"] and same and adds and picked == "cuda_fused"}
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "kernel", "kernel": "decode_mlp_block[partial]",
+                  "gpu": gpu, "cases": cases})
+            raise AssertionError(f"{name} disagrees: {case}")
+        if dtn != "bfloat16":
+            continue
+        b_ms, b_by = bound((3 * D7 * F + 2 * B8 * D7 + D7) * 2,
+                           6 * B8 * D7 * F, "bfloat16")
+        rows.append(_tp_row(
+            name, "decode_mlp_block", tp, False, None,
+            {"B": B8, "D": D7, "F": F}, out["max_abs_err"],
+            {"ms": cold_ms(lambda: fdb.decode_mlp_block_cuda(
+                *args, residual=False)),
+             "plain_ms": cold_ms(lambda: fdb.mlp_block_ref(
+                 *args, residual=False)),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "full_residual_ms": cold_ms(
+                 lambda: fdb.decode_mlp_block_cuda(*args))}))
+    emit({"phase": "kernel", "kernel": "decode_mlp_block[partial]",
+          "gpu": gpu, "cases": cases,
+          "timed": {r["name"]: {k: r[k] for k in (
+              "ms", "plain_ms", "bound_ms", "full_residual_ms")}
+              for r in rows}})
+    return rows
+
+
+def tp_prefill_phase(gpu):
+    """prefill_attn_block's residual=False body (no runtime route of the
+    JAX package launches it: its tp=1 mesh runs the residual body, tp > 1
+    the verbatim chunk) against ``prefill_attn_block_ref`` (fp pools) or
+    ``prefill_attn_block_wq_ref`` (int8 pools), residual=False, at one
+    shard's heads (TP_PREFILL_CASES: H = KV = 16 and 8, P 128 and 32, a
+    permuted table, history up to 600 tokens): the real rows at the fp
+    phase's tolerances, every row finite, two launches bit for bit, the
+    residual body's real rows equal to x plus this one's, dispatch on the
+    per-shard meta. Timed at P=128, pos0 512, bf16 beside its bound, its
+    plain version and the residual body."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_prefill_block as fpb
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(102)
+    D, hd, BS, MB = D7, HD7, BS16, MB72
+    sin, cos = build_rope_cache(MB * BS, hd, device="cuda")
+    rows, cases = [], []
+    for tp, kv8, dtn, P, spans in TP_PREFILL_CASES:
+        dt, H = getattr(torch, dtn), H7 // tp
+        name = _tp_name("prefill_attn_block", tp, kv8)
+
+        def rn(*shape, std=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * std).to(dt)
+        table = (torch.randperm(MB, generator=gen, device="cuda") + 1
+                 ).to(torch.int32)
+        weights = ((1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+                    ).to(dt), rn(D, H * hd, std=0.02),
+                   rn(D, H * hd, std=0.02), rn(D, H * hd, std=0.02),
+                   rn(H * hd, D, std=0.02))
+        kp, vp = rn(MB + 1, BS, H, hd), rn(MB + 1, BS, H, hd)
+        kw, plain = {}, fpb.prefill_attn_block_ref
+        if kv8:
+            kp, vp, kw["kv_scales"], _, _ = kv8_pools(kp, vp)
+            plain = fpb.prefill_attn_block_wq_ref
+        meta = fpb.prefill_meta_dims(P, D, H, H, hd, F7 // tp, BS, MB, dt,
+                                     kp.dtype, kv8)
+        picked = KERNELS.dispatch("prefill_attn_block", meta)[0]
+        max_err, timed = 0.0, None
+        for pos0, n in spans:
+            args = (rn(P, D), *weights, sin[pos0:pos0 + P],
+                    cos[pos0:pos0 + P], kp, vp, table, pos0, n)
+            got = fpb.prefill_attn_block_cuda(*args, **kw, residual=False)
+            again = fpb.prefill_attn_block_cuda(*args, **kw, residual=False)
+            full = fpb.prefill_attn_block_cuda(*args, **kw)
+            want = plain(*args, **kw, residual=False)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            adds = (_adds_up(full[0], got[0], args[0], n)
+                    and all(torch.equal(a[:n], b[:n])
+                            for a, b in zip(full[1:], got[1:])))
+            outs = {}
+            for nm, g, w, tol in (("x_out", got[0], want[0], 1e-4),
+                                  ("k_new", got[1], want[1], 1e-5),
+                                  ("v_new", got[2], want[2], 1e-5)):
+                outs[nm] = _check_case(nm, g[:n], w[:n], dt, tol)
+                max_err = max(max_err, outs[nm]["max_abs_err"])
+            finite = bool(torch.isfinite(got[0]).all())
+            case = {"kernel": name, "dtype": dtn, "H": H, "KV": H, "P": P,
+                    "pos0": pos0, "n_valid": n, "outputs": outs,
+                    "pad_rows_finite": finite, "bitwise_repeatable": same,
+                    "equals_residual_body": adds, "dispatch": picked,
+                    "ok": same and adds and finite
+                    and picked == "cuda_fused"
+                    and all(o["ok"] for o in outs.values())}
+            cases.append(case)
+            if not case["ok"]:
+                emit({"phase": "kernel", "kernel":
+                      "prefill_attn_block[partial]", "gpu": gpu,
+                      "cases": cases})
+                raise AssertionError(f"{name} disagrees: {case}")
+            if timed is None:
+                timed = args
+        if dtn != "bfloat16":
+            continue
+        x, pos0, n = timed[0], timed[11], timed[12]
+        b_ms, b_by = bound(
+            prefill_bytes(P, n, pos0, D, H, H, hd, BS, 2, 1 if kv8 else None),
+            prefill_ops(n, pos0, D, H, H, hd), "bfloat16")
+        rows.append(_tp_row(
+            name, "prefill_attn_block", tp, kv8, None,
+            {"P": P, "n_valid": n, "pos0": pos0, "D": D, "H": H, "KV": H,
+             "hd": hd, "BS": BS, "MB": MB}, max_err,
+            {"ms": cold_ms(lambda: fpb.prefill_attn_block_cuda(
+                *timed, **kw, residual=False)),
+             "plain_ms": cold_ms(lambda: plain(*timed, **kw,
+                                               residual=False)),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "full_residual_ms": cold_ms(
+                 lambda: fpb.prefill_attn_block_cuda(*timed, **kw))}))
+    emit({"phase": "kernel", "kernel": "prefill_attn_block[partial]",
+          "gpu": gpu, "cases": cases,
+          "timed": {r["name"]: {k: r[k] for k in (
+              "ms", "plain_ms", "bound_ms", "full_residual_ms")}
+              for r in rows}})
+    return rows
+
+
+def tp_kernel_phases(gpu):
+    """The three residual=False bodies at one shard's shapes."""
+    return tp_attn_phase(gpu) + tp_mlp_phase(gpu) + tp_prefill_phase(gpu)
+
+
+# the tensor-parallel serving routes: (tp, placement, cache_dtype), the
+# shards colocated on cuda:0, both knobs at their default
+TP_ROUTES = {"tp1_psum": (1, "psum", None), "tp2_psum": (2, "psum", None),
+             "tp2_gather": (2, "gather", None),
+             "tp2_psum_kv8": (2, "psum", "int8")}
+
+
+def tp_serving_phase(gpu, params, route):
+    """LLaMA-7B at full depth and width, bf16, the serving phase's 12
+    requests, on ``ServingEngine(mesh=ServingMesh.make(tp, collective=...,
+    devices=["cuda:0"] * tp))``: two shards on one card share its memory
+    rate, so the numbers measure the per-shard kernels, the psum and the
+    doubled launches, not tensor-parallel scaling. The launch counts are
+    set to 0 just before the requests go in and read just after the
+    engine drains. On the psum routes decode_attn_block and
+    decode_mlp_block launch tp x L times a decode step, every decode
+    launch in the "partial" residual class, decode_block_fused never; the
+    tp=1 mesh runs the fused chunk (prefill_attn_block and the prefill
+    MLP in the "full" class once per layer per chunk), tp=2 the verbatim
+    chunk (RMSNorm 2L+1 a chunk). The gather route runs the composition:
+    paged attention tp x L times a step, RMSNorm 2L+1 a step and a chunk,
+    no block kernel. Over int8 pools every pool read is in the int8 class
+    and the calibration (the placement's dense forward) adds 2L+1
+    RMSNorm launches."""
+    import torch
+    from paddle_tpu_torch.inference import (GenerationConfig, ServingEngine,
+                                            ServingMesh)
+    from paddle_tpu_torch.models import LLAMA_7B
+    from paddle_tpu_torch.ops import kernels
+    cfg = LLAMA_7B
+    L = cfg.num_hidden_layers
+    tp, coll, cache = TP_ROUTES[route]
+    mesh = ServingMesh.make(tp, collective=coll, devices=["cuda:0"] * tp)
+    # earlier phases' engines may sit in reference cycles (their timing
+    # wrappers): free them, so the peak is this engine's
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(params, cfg, capacity=8, block_size=16,
+                        max_seq_len=1024, prefill_buckets=(32, 128),
+                        mesh=mesh, cache_dtype=cache)
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lens = rng.integers(40, 601, SERVE_REQUESTS)
+    gen = GenerationConfig(max_new_tokens=SERVE_NEW, greedy=True)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, gen) for p in prompts]
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    by_res = kernels.launches_by_residual()
+    by_pool = kernels.launches_by_pool()
+    m = eng.metrics()
+    steps, chunks = m["decode_steps"], m["prefill_chunks"]
+    calib = m["calibration_traces"]
+    emit({"phase": "serving", "route": route, "gpu": gpu,
+          "model": "LLAMA_7B", "layers": L, "dtype": "bfloat16",
+          "mesh": m["mesh"], "devices": [str(d) for d in mesh.devices],
+          "cache_dtype": cache, "construct_s": round(construct_s, 3),
+          "pool_bytes": sum(2 * p.numel() * p.element_size()
+                            for p in eng._k_pools),
+          "requests": len(reqs), "prompt_tokens": [int(n) for n in lens],
+          "decode_variant": m["decode_variant"],
+          "prefill_variant": m["prefill_variant"],
+          "launches_by_residual": by_res, "launches_by_pool": by_pool,
+          "wall_s": round(wall, 3), "tokens_per_sec": m["tokens_per_sec"],
+          "prefill_tokens_per_sec": m["prefill_tokens_per_sec"],
+          "ttft_ms_mean": m["ttft_ms_mean"], "ttft_ms_max": m["ttft_ms_max"],
+          "decode_step_ms_mean": m["decode_step_ms_mean"],
+          "decode_steps": steps, "prefill_chunks": chunks,
+          "calibration_traces": calib, "roofline": m["roofline"],
+          "launches": counts,
+          "peak_memory_gb": round(torch.cuda.max_memory_allocated()
+                                  / 2 ** 30, 3)})
+    for r in reqs:
+        if not (r.done and len(r.tokens) == SERVE_NEW
+                and all(0 <= t < cfg.vocab_size for t in r.tokens)):
+            raise AssertionError(f"{route}: request {r.req_id} unfinished "
+                                 f"or out of range: {r.tokens}")
+    if m["mesh"] != {"axis": "tp", "tp": tp, "collective": coll}:
+        raise AssertionError(f"{route}: mesh {m['mesh']}")
+    if (calib == 1) != (cache == "int8"):
+        raise AssertionError(f"{route}: {calib} calibrations")
+    norms = (2 * L + 1) * calib
+    pool_class = "int8" if cache else "fp"
+    for op, by in by_pool.items():
+        if by[pool_class] != counts[op]:
+            raise AssertionError(f"{route}: {op} launched {by} (all "
+                                 f"{counts[op]} must be {pool_class})")
+    if coll == "psum":
+        fused = tp == 1
+        want = {"decode_attn_block": tp * L * steps,
+                "decode_mlp_block": tp * L * steps
+                + (L * chunks if fused else 0),
+                "decode_block_fused": 0, "paged_attention_decode": 0,
+                "prefill_attn_block": L * chunks if fused else 0,
+                "rms_norm_fwd": steps + norms
+                + (chunks if fused else (2 * L + 1) * chunks)}
+        want_res = {"decode_attn_block": {"full": 0,
+                                          "partial": tp * L * steps},
+                    "decode_mlp_block": {"full": L * chunks if fused else 0,
+                                         "partial": tp * L * steps},
+                    "prefill_attn_block": {"full": L * chunks if fused
+                                           else 0, "partial": 0}}
+        if by_res != want_res:
+            raise AssertionError(f"{route}: launches by residual {by_res} "
+                                 f"!= {want_res}")
+        want_var = {"mode": "auto", "block": "composed",
+                    "attn": "cuda_fused", "mlp": "cuda_fused"}
+    else:
+        want = {"decode_attn_block": 0, "decode_mlp_block": 0,
+                "decode_block_fused": 0, "prefill_attn_block": 0,
+                "paged_attention_decode": tp * L * steps,
+                "rms_norm_fwd": (2 * L + 1) * (steps + chunks) + norms}
+        want_var = {"mode": "auto", "block": "composed", "attn": "unfused",
+                    "mlp": "unfused"}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"{route} launches {counts} != {want} "
+                             f"({steps} decode steps, {chunks} chunks)")
+    if m["decode_variant"] != want_var:
+        raise AssertionError(f"{route}: decode_variant "
+                             f"{m['decode_variant']}")
+    want_pre = ("cuda_fused" if coll == "psum" and tp == 1 else "unfused")
+    if m["prefill_variant"]["attn"] != want_pre:
+        raise AssertionError(f"{route}: prefill_variant "
+                             f"{m['prefill_variant']}")
+    return dict(counts, by_residual=by_res), eng
+
+
+@contextlib.contextmanager
+def recorded_logits():
+    """Every logits tensor the serving engine samples from (decode steps
+    and prefill chunks, in order), copied, while the block runs."""
+    from paddle_tpu_torch.inference import serving
+    orig, seen = serving._sample_slots, []
+
+    def record(logits, *a):
+        seen.append(logits.detach().clone())
+        return orig(logits, *a)
+    serving._sample_slots = record
+    try:
+        yield seen
+    finally:
+        serving._sample_slots = orig
+
+
+def tp_parity_phase(gpu):
+    """Tensor-parallel parity, f32 at LLaMA-7B widths with 2 layers, the
+    parity phase's 5 requests through 2 slots, shards colocated on the
+    card. Greedy ids must be equal between: the tp=1 "psum" mesh and the
+    meshless two-stage route (``fused_decode="pallas"``: the same kernels
+    with the residual in the kernel; the same fused chunk), whose logits
+    must also be equal bit for bit (in f32 ``x + T(o)`` is the kernel's
+    own residual add); the tp=1 "gather" mesh and the meshless unfused
+    route, logits bit-equal too; tp=2 "gather" and the meshless unfused
+    route. tp=2 "psum" against the meshless two-stage route may part on a
+    near tie only (top-2 logit gap < 1e-4, as in the parity phase). The
+    largest |logit| difference of each pair is printed."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.inference import (GenerationConfig,
+                                            ServingEngine, ServingMesh)
+    from paddle_tpu_torch.inference.generation import (cached_forward,
+                                                       init_cache)
+    from paddle_tpu_torch.models import LLAMA_7B, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(LLAMA_7B, num_hidden_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, seed=1)
+    specs = [(5, 6), (40, 4), (300, 5), (17, 3), (129, 5)]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, S).astype(np.int32)
+               for S, _ in specs]
+
+    def mk(tp, coll):
+        return ServingMesh.make(tp, collective=coll,
+                                devices=["cuda:0"] * tp)
+    engines = {"meshless_two_stage": {"fused_decode": "pallas"},
+               "meshless_unfused": {"fused_decode": False,
+                                    "fused_prefill": False},
+               "tp1_psum": {"mesh": mk(1, "psum")},
+               "tp1_gather": {"mesh": mk(1, "gather")},
+               "tp2_psum": {"mesh": mk(2, "psum")},
+               "tp2_gather": {"mesh": mk(2, "gather")}}
+    runs = {}
+    for name, knobs in engines.items():
+        eng = ServingEngine(params, cfg, capacity=2, block_size=16,
+                            max_seq_len=512, prefill_buckets=(32, 128),
+                            **knobs)
+        with recorded_logits() as logits:
+            reqs = [eng.submit(p, GenerationConfig(max_new_tokens=N,
+                                                   greedy=True))
+                    for p, (_, N) in zip(prompts, specs)]
+            eng.drain()
+            torch.cuda.synchronize()
+        runs[name] = {"tokens": [r.tokens for r in reqs], "logits": logits,
+                      "decode_variant": eng.decode_variant,
+                      "prefill_variant": eng.prefill_variant}
+        del eng
+
+    def gap_at(prompt, prefix):
+        ids = torch.tensor([[int(t) for t in prompt] + list(prefix)],
+                           device="cuda")
+        kc, vc = init_cache(cfg, 1, ids.shape[1])
+        out, _, _ = cached_forward(params, ids, cfg, kc, vc, 0)
+        top2 = torch.topk(out[0, -1].float(), 2).values
+        return float(top2[0] - top2[1])
+
+    pairs = {}
+    for a, b in (("tp1_psum", "meshless_two_stage"),
+                 ("tp1_gather", "meshless_unfused"),
+                 ("tp2_gather", "meshless_unfused"),
+                 ("tp2_psum", "meshless_two_stage")):
+        ta, tb = runs[a]["tokens"], runs[b]["tokens"]
+        parted = []
+        for p, x, y in zip(prompts, ta, tb):
+            if x != y:
+                j = next(i for i, (u, v) in enumerate(zip(x, y)) if u != v)
+                parted.append({"step": j, "top2_gap": gap_at(p, x[:j])})
+        la, lb = runs[a]["logits"], runs[b]["logits"]
+        aligned = len(la) == len(lb) and not parted
+        pairs[f"{a}_vs_{b}"] = {
+            "ids_equal": ta == tb, "parted": parted,
+            "logits_bit_equal": aligned and all(
+                torch.equal(u, v) for u, v in zip(la, lb)),
+            "max_abs_logit_diff": max(float((u - v).abs().max())
+                                      for u, v in zip(la, lb))
+            if aligned else None}
+    emit({"phase": "tp_parity", "gpu": gpu, "dtype": "float32", "layers": 2,
+          "variants": {k: {"decode": v["decode_variant"],
+                           "prefill": v["prefill_variant"]}
+                       for k, v in runs.items()}, **pairs})
+    # only the tp=2 psum route sums its o_proj/down partials in another
+    # order than one device does: a near tie may part its ids there. The
+    # gather placement keeps the single-device op sequence, so its ids
+    # are equal, and at tp=1 its logits too, as are tp=1 psum's
+    for pair, res in pairs.items():
+        if pair.startswith("tp2_psum"):
+            if any(p["top2_gap"] >= 1e-4 for p in res["parted"]):
+                raise AssertionError(f"{pair}: ids part off a near tie: "
+                                     f"{res}")
+        elif not res["ids_equal"]:
+            raise AssertionError(f"{pair}: ids differ: {res}")
+    for pair in ("tp1_psum_vs_meshless_two_stage",
+                 "tp1_gather_vs_meshless_unfused"):
+        if not pairs[pair]["logits_bit_equal"]:
+            raise AssertionError(f"{pair}: logits differ: {pairs[pair]}")
+    for name in ("tp1_psum", "tp2_psum"):
+        if runs[name]["decode_variant"]["attn"] != "cuda_fused":
+            raise AssertionError(f"{name} is not on the kernels: "
+                                 f"{runs[name]['decode_variant']}")
+    del params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3321,6 +3939,7 @@ def main():
             fused_mlp_phase(gpu), block_phase(gpu), prefill_attn_phase(gpu)]
     quant_rows = quant_kernel_phases(gpu)
     kv8_rows = kv8_kernel_phases(gpu)
+    tp_rows = tp_kernel_phases(gpu)
     ln_row = layer_norm_phase(gpu)
     train_rows = flash_phase(gpu) + [adamw_phase(gpu,
                                                  flat_size(train_config()))]
@@ -3331,6 +3950,7 @@ def main():
     for wq in (None, "int8", "int4"):
         parity_phase(gpu, wq)
     kv8_parity_phase(gpu)
+    tp_parity_phase(gpu)
     params = init_params(LLAMA_7B, seed=0)
     counts, tokens = {}, {}
     prompts = None
@@ -3353,6 +3973,14 @@ def main():
     for route in KV8_ROUTES:
         counts[route], eng, _, _ = serving_phase(gpu, params, route)
         if route == "kv8_default":
+            profile_phase(gpu, eng, route)
+        del eng
+        torch.cuda.empty_cache()
+    # this slice's main path: tensor-parallel serving, shards colocated on
+    # the card (a profile of each psum route's decode step)
+    for route in TP_ROUTES:
+        counts[route], eng = tp_serving_phase(gpu, params, route)
+        if TP_ROUTES[route][1] == "psum":
             profile_phase(gpu, eng, route)
         del eng
         torch.cuda.empty_cache()
@@ -3401,6 +4029,20 @@ def main():
         if name == "decode_attn_block" and wd == "bfloat16":
             row["default_route_launches"] = counts["kv8_default"][name]
     rows += kv8_rows
+    # the residual=False bodies' launches on the tensor-parallel routes:
+    # the tp=1 and tp=2 psum routes (tp2_psum_kv8 for the int8-pool body);
+    # no tp=4 route or quantized mesh route is driven, and no route of the
+    # JAX package launches prefill_attn_block's residual=False body
+    for row in tp_rows:
+        op = row["name"].split("[")[0]
+        route = {(1, "bfloat16"): "tp1_psum", (2, "bfloat16"): "tp2_psum",
+                 (2, "int8"): "tp2_psum_kv8"}.get((row["tp"], row["pools"]))
+        if row["weights"] != "bfloat16" or op == "prefill_attn_block":
+            route = None
+        row["launches"] = (counts[route]["by_residual"][op]["partial"]
+                           if route else 0)
+        row["launches_route"] = route
+    rows += tp_rows
     rows.append(ln_row)
     for row in train_rows:
         # the training kernels' launches on the default route's timed

@@ -120,35 +120,40 @@ def init_cache(cfg: _llama.LlamaConfig, batch: int, max_len: int,
             torch.zeros(shape, dtype=cfg.dtype, device=device))
 
 
-def _cached_layer(lp, x, sin, cos, cfg, kc, vc, pos):
-    """Decoder block over S new tokens at absolute position ``pos``.
-    kc/vc: [B, T, KV, hd], written in place at ``pos..pos+S-1``."""
-    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                 cfg.head_dim)
-    b, s, _ = x.shape
-    T = kc.shape[1]
-    h = rms_norm(x, lp["input_norm"].to(x.dtype), cfg.rms_norm_eps)
-    q = _mm(h, lp["q_proj"]).reshape(b, s, H, hd)
-    k = _mm(h, lp["k_proj"]).reshape(b, s, KV, hd)
-    v = _mm(h, lp["v_proj"]).reshape(b, s, KV, hd)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
+def _chunk_attention(h, lp, sin, cos, kc, vc, pos):
+    """One layer's attention rows for S new tokens at absolute position
+    ``pos``, from the normalised rows h [B, S, D]: the q/k/v products
+    (their H and KV heads read off the products: a tensor-parallel
+    shard's own), RoPE, the tokens' K/V written into the dense cache
+    kc/vc [B, T, KV, hd] in place at ``pos..pos+S-1``, then causal
+    attention over absolute positions in f32: [B, S, H, hd]."""
+    b, s, _ = h.shape
+    T, hd = kc.shape[1], kc.shape[3]
+    q = apply_rope(_mm(h, lp["q_proj"]).reshape(b, s, -1, hd), sin, cos)
+    k = apply_rope(_mm(h, lp["k_proj"]).reshape(b, s, -1, hd), sin, cos)
+    v = _mm(h, lp["v_proj"]).reshape(b, s, -1, hd)
     kc[:, pos:pos + s] = k.to(kc.dtype)
     vc[:, pos:pos + s] = v.to(vc.dtype)
-
-    rep = H // KV
+    rep = q.shape[2] // k.shape[2]
     kk = _repeat_kv(kc, rep)    # [B, T, H, hd]
     vv = _repeat_kv(vc, rep)
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), kk.float()) * scale
-    # causal over absolute positions: query i at pos+i sees keys <= pos+i
-    t_idx = torch.arange(T, device=x.device)[None, None, None, :]
-    q_idx = pos + torch.arange(s, device=x.device)[None, None, :, None]
+    # query i at pos+i sees keys <= pos+i
+    t_idx = torch.arange(T, device=h.device)[None, None, None, :]
+    q_idx = pos + torch.arange(s, device=h.device)[None, None, :, None]
     scores = scores.masked_fill(t_idx > q_idx, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
-    attn = torch.einsum("bhst,bthd->bshd", probs, vv.float())
-    attn = attn.to(x.dtype).reshape(b, s, H * hd)
-    x = x + _mm(attn, lp["o_proj"])
+    return torch.einsum("bhst,bthd->bshd", probs, vv.float())
+
+
+def _cached_layer(lp, x, sin, cos, cfg, kc, vc, pos):
+    """Decoder block over S new tokens at absolute position ``pos``.
+    kc/vc: [B, T, KV, hd], written in place at ``pos..pos+S-1``."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["input_norm"].to(x.dtype), cfg.rms_norm_eps)
+    attn = _chunk_attention(h, lp, sin, cos, kc, vc, pos)
+    x = x + _mm(attn.to(x.dtype).reshape(b, s, -1), lp["o_proj"])
     h = rms_norm(x, lp["post_norm"].to(x.dtype), cfg.rms_norm_eps)
     ff = swiglu(_mm(h, lp["gate_proj"]), _mm(h, lp["up_proj"]))
     x = x + _mm(ff, lp["down_proj"])
@@ -235,6 +240,42 @@ def _layer_scales(kv_scales, i):
     return None if kv_scales is None else (kv_scales[0][i], kv_scales[1][i])
 
 
+def _write_new_token(kp, vp, block_tables, seq_lens, k_new, v_new, scales):
+    """The new token's K/V [B, KV, hd] into one layer's pools at
+    ``seq_lens``, in place: cast to the pools' type, or over int8 pools
+    quantized with the layer's (k_scale, v_scale)."""
+    if scales is None:
+        write_to_pool(kp, vp, block_tables, seq_lens, k_new.to(kp.dtype),
+                      v_new.to(vp.dtype))
+    else:
+        write_to_pool_quant(kp, vp, block_tables, seq_lens, k_new, v_new,
+                            *scales)
+
+
+def _decode_attention(h, lp, sin, cos, kp, vp, block_tables, seq_lens,
+                      attn_lens, scales):
+    """One layer's attention rows of the unfused decode step, from the
+    normalised rows h [B, D]: the q/k/v products (their H and KV heads
+    read off the products: a tensor-parallel shard's own), RoPE at
+    ``seq_lens``, the new token's pool write, paged attention over
+    ``attn_lens`` (seq_lens + 1) tokens, dequantizing over int8 pools
+    (``scales``). Returns [B, H, hd]."""
+    B, hd = h.shape[0], kp.shape[3]
+    pos_ids = seq_lens[:, None]       # [B, 1] rope position per sequence
+    q = apply_rope(_mm(h, lp["q_proj"]).reshape(B, 1, -1, hd), sin, cos,
+                   position_ids=pos_ids)
+    k = apply_rope(_mm(h, lp["k_proj"]).reshape(B, 1, -1, hd), sin, cos,
+                   position_ids=pos_ids)
+    v = _mm(h, lp["v_proj"]).reshape(B, 1, -1, hd)
+    _write_new_token(kp, vp, block_tables, seq_lens, k[:, 0], v[:, 0],
+                     scales)
+    if scales is None:
+        return paged_attention_decode(q[:, 0], kp, vp, block_tables,
+                                      attn_lens)
+    return paged_attention_decode_quant(q[:, 0], kp, vp, block_tables,
+                                        attn_lens, *scales)
+
+
 def _paged_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
                        seq_lens, rope=None, kv_scales=None):
     """One decode token per sequence over paged pools.
@@ -249,39 +290,21 @@ def _paged_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
     cache: quantizing write, attention dequantized in f32).
     Returns (logits [B, V], k_pools, v_pools), pools updated in place.
     """
-    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                 cfg.head_dim)
     B = tok.shape[0]
     x = params["embed_tokens"][tok.long()]               # [B, D]
-    pos_ids = seq_lens[:, None]       # [B, 1] rope position per sequence
     if rope is None:
-        rope = build_rope_cache(cfg.max_position_embeddings, hd,
+        rope = build_rope_cache(cfg.max_position_embeddings, cfg.head_dim,
                                 base=cfg.rope_theta, device=x.device)
     sin, cos = rope
     attn_lens = seq_lens + 1
     for i in range(cfg.num_hidden_layers):
         lp = _layer(params, i)
-        kp, vp = k_pools[i], v_pools[i]
         h = rms_norm(x[:, None], lp["input_norm"].to(x.dtype),
                      cfg.rms_norm_eps)[:, 0]
-        q = _mm(h, lp["q_proj"]).reshape(B, 1, H, hd)
-        k = _mm(h, lp["k_proj"]).reshape(B, 1, KV, hd)
-        v = _mm(h, lp["v_proj"]).reshape(B, 1, KV, hd)
-        q = apply_rope(q, sin, cos, position_ids=pos_ids)
-        k = apply_rope(k, sin, cos, position_ids=pos_ids)
-        scales = _layer_scales(kv_scales, i)
-        if scales is None:
-            write_to_pool(kp, vp, block_tables, seq_lens,
-                          k[:, 0].to(kp.dtype), v[:, 0].to(vp.dtype))
-            attn = paged_attention_decode(q[:, 0], kp, vp, block_tables,
-                                          attn_lens)
-        else:
-            write_to_pool_quant(kp, vp, block_tables, seq_lens, k[:, 0],
-                                v[:, 0], *scales)
-            attn = paged_attention_decode_quant(q[:, 0], kp, vp,
-                                                block_tables, attn_lens,
-                                                *scales)
-        x = x + _mm(attn.reshape(B, H * hd).to(x.dtype), lp["o_proj"])
+        attn = _decode_attention(h, lp, sin, cos, k_pools[i], v_pools[i],
+                                 block_tables, seq_lens, attn_lens,
+                                 _layer_scales(kv_scales, i))
+        x = x + _mm(attn.reshape(B, -1).to(x.dtype), lp["o_proj"])
         h = rms_norm(x[:, None], lp["post_norm"].to(x.dtype),
                      cfg.rms_norm_eps)[:, 0]
         ff = swiglu(_mm(h, lp["gate_proj"]), _mm(h, lp["up_proj"]))
@@ -355,12 +378,8 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
                 x, lp["input_norm"].to(x.dtype), lp["q_proj"],
                 lp["k_proj"], lp["v_proj"], lp["o_proj"], sin, cos, kp,
                 vp, block_tables, seq_lens, scales, eps)
-        if scales is None:
-            write_to_pool(kp, vp, block_tables, seq_lens,
-                          k_new.to(kp.dtype), v_new.to(vp.dtype))
-        else:
-            write_to_pool_quant(kp, vp, block_tables, seq_lens, k_new,
-                                v_new, *scales)
+        _write_new_token(kp, vp, block_tables, seq_lens, k_new, v_new,
+                         scales)
         if block_fn is None:
             x = mlp_fn(x, lp["post_norm"].to(x.dtype), lp["gate_proj"],
                        lp["up_proj"], lp["down_proj"], eps)

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the paged KV cache (port of
-``paddle_tpu/inference/serving.py``: one device; the fused and the
-unfused decode route, the fused and the unfused prefill chunk; fp or
-int8 pools).
+``paddle_tpu/inference/serving.py``: one device or a tensor-parallel
+mesh; the fused and the unfused decode route, the fused and the unfused
+prefill chunk; fp or int8 pools).
 
 - a fixed-capacity SLOT TABLE: every decode step runs over all
   ``capacity`` slots. Inactive slots are padded -- seq_len 0, block table
@@ -13,11 +13,12 @@ int8 pools).
   ``prefill_attn_block`` kernel over the request's pages, writes the
   chunk's own K/V into the pools and runs the ``decode_mlp_block`` kernel
   over its rows. The verbatim unfused chunk gathers the request's pages
-  into a dense [L, 1, MB*BS, KV, hd] view, runs ``cached_forward`` (the
-  math of ``generate``'s prefill) and scatters the whole view back through
-  the request's table. Padded table entries and pad rows go to page 0, so
-  the duplicate writes of the in-place scatters (``index_put_``) all land
-  on the scratch page. (The JAX engine writes through a separate WRITE
+  into a dense [L, 1, MB*BS, KV, hd] view, runs ``cached_forward``'s math
+  (that of ``generate``'s prefill, as ``_tp_cached_forward`` over one
+  "gather" shard: the same op sequence) and scatters the whole view back
+  through the request's table. Padded table entries and pad rows go to
+  page 0, so the duplicate writes of the in-place scatters
+  (``index_put_``) all land on the scratch page. (The JAX engine writes through a separate WRITE
   table that redirects prefix-cache pages to scratch; without a prefix
   cache the two tables are equal, and the port adds it with the prefix
   cache.)
@@ -32,6 +33,20 @@ int8 pools).
   to the model type and quantizes it back on the way out (exact for the
   positions it did not write); the unfused decode step dequantizes after
   its gather. Pool bytes halve against bf16.
+- TENSOR PARALLELISM (``mesh=ServingMesh(...)`` or an int tp,
+  ``inference/tp.py``): the weights, the pools' KV heads and the
+  per-slot attention split over the mesh's shards, one process driving
+  every shard on its device (devices may repeat: colocated shards). The
+  page tables stay global. The "psum" placement's decode step runs
+  ``decode_attn_block`` and ``decode_mlp_block`` per shard with
+  ``residual=False`` and sums the parts; "gather" runs the single-device
+  composition on gathered heads and columns. The prefill chunk is the
+  verbatim one over each shard's dense local view (a tp=1 "psum" mesh
+  keeps the fused chunk, as in the JAX engine); an int8 cache calibrates
+  through the placement's own prefill forward, each shard over its own
+  KV heads. ``weight_quant`` with tp > 1, ``fused_decode="block"`` under
+  any mesh and "pallas" under "gather" are refused with the JAX engine's
+  reasons; ``metrics()["mesh"]`` describes the mesh.
 
 Each step does admission, one prefill chunk and one decode step; the one
 host sync per decode step is the read of the sampled tokens, where the
@@ -60,9 +75,8 @@ JAX engine does: a plain tree is quantized once in the constructor, on
 the engine's device; the fused routes run the kernels' quantized-weight
 bodies, the unfused routes dequantize before each product;
 ``weight_quant_variant`` reports it. It composes with the int8 cache.
-Tensor parallelism, prefix cache, host offload, observability and
-telemetry come with later slices: their constructor arguments raise
-here.
+The prefix cache, host offload, observability and telemetry come with
+later slices: their constructor arguments raise here.
 
 ``metrics()`` has the JAX engine's keys (observability off, one device)
 plus ``decode_step_ms_mean``. The port runs eagerly, so its
@@ -87,12 +101,14 @@ from ..device import resolve_device
 from ..models.llama import params_to
 from ..ops.paged_attention import BlockManager, dequant_cache, quant_cache
 from ..ops.rope import build_rope_cache
-from ..quantization.ptq import ensure_quantized
+from ..quantization.ptq import (ensure_quantized, normalize_weight_quant,
+                                weight_quant_mode)
 from .admission import AdmissionQueue
 from .generation import (GenerationConfig, _fused_decode_step,
                          _fused_mode, _fused_prefill_forward,
-                         _fused_prefill_mode, _gumbel, _paged_decode_step,
-                         cached_forward, init_cache)
+                         _fused_prefill_mode, _gumbel, _paged_decode_step)
+from .tp import (ServingMesh, _tp_cached_forward, _tp_decode_step,
+                 normalize_mesh)
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -172,6 +188,10 @@ class ServingEngine:
     the device if they are not there already. ``fused_decode`` and
     ``fused_prefill`` pick the decode and the prefill route (module
     docstring); ``decode_variant`` and ``prefill_variant`` report them.
+    ``mesh``: a :class:`~.tp.ServingMesh` (or an int tp over the visible
+    cards); the engine's ``device`` is then shard 0's (a ``device`` that
+    differs raises), ``params`` is the list of per-shard trees and the
+    pools are per-shard lists.
     """
 
     def __init__(self, params: Dict, cfg, capacity: int = 4,
@@ -185,8 +205,15 @@ class ServingEngine:
                  clock=None, device=None):
         self._fused = _fused_mode(fused_decode)
         self._fused_prefill = _fused_prefill_mode(fused_prefill)
-        if mesh is not None:
-            _not_ported("mesh", mesh, "tensor-parallel serving")
+        self._mesh = normalize_mesh(mesh)
+        # the fused chunk keeps running on a tp=1 "psum" mesh; tp > 1 and
+        # the "gather" placement run the verbatim chunk, as in the JAX
+        # engine (its contract, and no fused tensor-parallel prefill)
+        self._prefill_mesh_ok = self._mesh is None or (
+            self._mesh.tp == 1 and self._mesh.collective != "gather")
+        if self._mesh is not None:
+            self._check_mesh(cfg, normalize_weight_quant(weight_quant)
+                             or weight_quant_mode(params))
         if prefix_cache or kv_offload:
             _not_ported("prefix_cache/kv_offload",
                         prefix_cache or kv_offload,
@@ -203,7 +230,14 @@ class ServingEngine:
             _not_ported("observability/telemetry",
                         observability or telemetry,
                         "the observability and telemetry harness")
-        self.device = resolve_device(device)
+        if self._mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = self._mesh.devices[0]
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(
+                    f"ServingEngine(device={device!r}) is not the mesh's "
+                    f"shard 0 device {self.device}")
         for knob, mode in (("fused_decode", self._fused),
                            ("fused_prefill", self._fused_prefill)):
             if mode in ("pallas", "block") and self.device.type != "cuda":
@@ -219,6 +253,9 @@ class ServingEngine:
         # differs from the tree's raises
         self.params, self._wq = ensure_quantized(
             params_to(params, self.device), weight_quant)
+        if self._mesh is not None:
+            self.params = self._mesh.shard(
+                self.params, self._mesh.param_specs(cfg, self.params))
         self.cfg = cfg
         self.capacity = int(capacity)
         self.block_size = int(block_size)
@@ -242,16 +279,27 @@ class ServingEngine:
 
         L, KV, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                      cfg.head_dim)
-        shape = (L, self.num_blocks, BS, KV, hd)
         # the pool type follows the model unless the cache is int8, as in
         # the JAX package
-        pool_dtype = torch.int8 if self._quant else cfg.dtype
-        self._k_pools = torch.zeros(shape, dtype=pool_dtype,
-                                    device=self.device)
-        self._v_pools = torch.zeros(shape, dtype=pool_dtype,
-                                    device=self.device)
-        # (k_scale [L, KV], v_scale [L, KV]) f32 once calibrated
+        self._pool_dtype = torch.int8 if self._quant else cfg.dtype
+        if self._mesh is None:
+            shape = (L, self.num_blocks, BS, KV, hd)
+            self._k_pools = torch.zeros(shape, dtype=self._pool_dtype,
+                                        device=self.device)
+            self._v_pools = torch.zeros(shape, dtype=self._pool_dtype,
+                                        device=self.device)
+        else:
+            # one pool pair a shard, over its KV heads; page indices are
+            # global, so the BlockManager below is the meshless one
+            shape = (L, self.num_blocks, BS, KV // self._mesh.tp, hd)
+            self._k_pools, self._v_pools = (
+                [torch.zeros(shape, dtype=self._pool_dtype, device=d)
+                 for d in self._mesh.devices] for _ in range(2))
+        # (k_scale [L, KV], v_scale [L, KV]) f32 once calibrated, and each
+        # shard's [L, KV_loc] slices on its device (one shard meshless)
         self._kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._shard_scales: Optional[List[Tuple[torch.Tensor,
+                                                torch.Tensor]]] = None
         # decode reads rows < max_seq_len; a fused chunk slices rows
         # pos0..pos0+P-1, which the last, bucket-padded chunk of a long
         # prompt takes past max_position_embeddings (up to MB*BS)
@@ -317,6 +365,41 @@ class ServingEngine:
         # bucket whose prefill kernel refuses the shapes
         self._fused_buckets = {P: self._prefill_fused_for(P)
                                for P in self.buckets}
+
+    def _check_mesh(self, cfg, wq):
+        """The JAX engine's refusals under a mesh, with its reasons: a
+        quantized tree over tp > 1, a model the mesh cannot split, the
+        "pallas" decode pin under "gather", the "block" pin under any mesh
+        and the "pallas" prefill pin where the chunk cannot be fused."""
+        sm = self._mesh
+        if wq and sm.tp > 1:
+            raise ValueError(
+                f"ServingEngine(weight_quant={wq!r}) cannot shard"
+                f" over tp={sm.tp} > 1: packed-int4 rows and "
+                "per-channel scale trees need per-shard packing specs "
+                "(named headroom) — run quantized serving single-device"
+                " or on tp=1 groups")
+        ok, reason = sm.supports(cfg)
+        if not ok:
+            raise ValueError(f"ServingEngine(mesh=...): {reason}")
+        if sm.collective == "gather" and self._fused == "pallas":
+            # the gather placement runs the exact composition by contract
+            raise ValueError(
+                'fused_decode="pallas" cannot be honored under '
+                'collective="gather" — that placement runs the '
+                "exact unfused composition (its bit-parity "
+                'contract); use collective="psum" or drop the pin')
+        if self._fused == "block":
+            raise ValueError(
+                'fused_decode="block" is single-device: the '
+                "single-launch decode-block kernel runs outside "
+                "shard_map — drop the mesh or the pin")
+        if self._fused_prefill == "pallas" and not self._prefill_mesh_ok:
+            raise ValueError(
+                'fused_prefill="pallas" cannot be honored on this mesh'
+                " — tensor-parallel (tp > 1) and gather-placement "
+                "prefill run the unfused chunk by contract; use "
+                'collective="psum" with tp=1 or drop the pin')
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         """Host mirror -> device, as a copy (never aliasing the mirror,
@@ -477,6 +560,8 @@ class ServingEngine:
         c["weight_quant_variant"] = self.weight_quant_variant
         c["roofline"] = self._roofline_metrics(c["decode_step_ms_mean"])
         c["scheduler"] = self._scheduler_metrics()
+        if self._mesh is not None:
+            c["mesh"] = self._mesh.describe()
         return c
 
     def reset_metrics(self):
@@ -509,20 +594,23 @@ class ServingEngine:
 
     def _roofline_metrics(self, step_ms) -> Dict:
         """Each decode route's modeled bytes a step (per layer times the
-        layers, plus the lm-head read) and the least step time at the
-        H100's memory rate; for the active route on the card, the share
-        of that rate the measured mean step time achieves (None on the
-        CPU, whose clock says nothing of the card)."""
+        layers, plus the lm-head read; one shard's dims under a mesh, as
+        in the JAX engine) and the least step time at the H100's memory
+        rate; for the active route on the card, the share of that rate
+        the measured mean step time achieves (None on the CPU, whose clock
+        says nothing of the card)."""
         from ..observability.roofline import (decode_roofline,
                                               decode_step_bytes)
         cfg = self.cfg
+        tp = 1 if self._mesh is None else self._mesh.tp
         act = torch.empty((), dtype=cfg.dtype).element_size()
-        pool = self._k_pools.element_size()
+        pool = torch.empty((), dtype=self._pool_dtype).element_size()
         wbytes = {"int8": 1.0, "int4": 0.5}.get(self._wq or "", float(act))
         L = cfg.num_hidden_layers
         per_layer = decode_step_bytes(
-            self.capacity, cfg.hidden_size, cfg.num_attention_heads,
-            cfg.num_key_value_heads, cfg.head_dim, cfg.intermediate_size,
+            self.capacity, cfg.hidden_size, cfg.num_attention_heads // tp,
+            cfg.num_key_value_heads // tp, cfg.head_dim,
+            cfg.intermediate_size // tp,
             self.block_size, self.max_blocks, act_itemsize=act,
             weight_itemsize=wbytes, pool_itemsize=pool)
         head = cfg.vocab_size * cfg.hidden_size * act
@@ -537,13 +625,33 @@ class ServingEngine:
 
     def _resolve_variant(self) -> Dict:
         from ..ops.kernels.fused_decode_block import (decode_meta,
+                                                      decode_meta_dims,
+                                                      resolve_decode_blocks,
                                                       resolve_decode_step)
-        meta = decode_meta(self.cfg, B=self.capacity, BS=self.block_size,
-                           MB=self.max_blocks,
-                           pool_dtype=self._k_pools.dtype, quant=self._quant,
-                           weight_dtype=self._wq, device=self.device)
-        _, _, _, names = resolve_decode_step(meta, self._fused)
-        return {"mode": str(self._fused), **names}
+        sm, cfg = self._mesh, self.cfg
+        if sm is None:
+            meta = decode_meta(cfg, B=self.capacity, BS=self.block_size,
+                               MB=self.max_blocks, pool_dtype=self._pool_dtype,
+                               quant=self._quant, weight_dtype=self._wq,
+                               device=self.device)
+            _, _, _, names = resolve_decode_step(meta, self._fused)
+            return {"mode": str(self._fused), **names}
+        if sm.collective == "gather":
+            # its contract is the single-device op sequence: always the
+            # composition, whatever the knob says
+            return {"mode": str(self._fused), "block": "composed",
+                    "attn": "unfused", "mlp": "unfused"}
+        # the per-shard shape class with tp in the meta, as
+        # _tp_decode_step dispatches it: the two stages, per shard
+        tp = sm.tp
+        meta = decode_meta_dims(
+            self.capacity, cfg.hidden_size, cfg.num_attention_heads // tp,
+            cfg.num_key_value_heads // tp, cfg.head_dim,
+            cfg.intermediate_size // tp, self.block_size, self.max_blocks,
+            cfg.dtype, self._pool_dtype, self._quant, tp=tp,
+            weight_dtype=self._wq, device=self.device)
+        _, _, names = resolve_decode_blocks(meta, self._fused)
+        return {"mode": str(self._fused), "block": "composed", **names}
 
     @property
     def decode_variant(self) -> Dict:
@@ -562,14 +670,14 @@ class ServingEngine:
     def _prefill_meta(self, P: int) -> Dict:
         from ..ops.kernels.fused_prefill_block import prefill_meta
         return prefill_meta(self.cfg, P, self.block_size, self.max_blocks,
-                            self._k_pools.dtype, quant=self._quant,
+                            self._pool_dtype, quant=self._quant,
                             weight_dtype=self._wq, device=self.device)
 
     def _prefill_fused_for(self, P: int) -> bool:
         """Whether bucket ``P`` runs the fused chunk: ALL-OR-NOTHING, both
         prefill-block ops must resolve to the CUDA kernels; otherwise the
-        verbatim unfused chunk runs."""
-        if not self._fused_prefill:
+        verbatim unfused chunk runs. Never on a tp > 1 or "gather" mesh."""
+        if not self._fused_prefill or not self._prefill_mesh_ok:
             return False
         from ..ops.kernels import fused_prefill_block
         return fused_prefill_block.prefill_fused_selected(
@@ -587,7 +695,7 @@ class ServingEngine:
         ``{"mode", "attn", "mlp"}`` with attn/mlp "cuda_fused" or
         "unfused". Captured at the first fused chunk; before it, what
         dispatch would pick now for the largest bucket."""
-        if not self._fused_prefill:
+        if not self._fused_prefill or not self._prefill_mesh_ok:
             return {"mode": "unfused", "attn": "unfused", "mlp": "unfused"}
         if self._prefill_variant is not None:
             return dict(self._prefill_variant)
@@ -768,32 +876,55 @@ class ServingEngine:
         self._dirty = True
         self._record_admit(req)
 
+    def _dense_view(self, pool, table, scale):
+        """A request's pages of one pool [L, N, BS, KV, hd] (a shard's,
+        under a mesh) as a dense [L, 1, MB*BS, KV, hd] view at the model
+        type: int8 pages dequantized with their [L, KV] ``scale``."""
+        L, _, BS, KV, hd = pool.shape
+        view = pool[:, table].reshape(L, 1, self.max_blocks * BS, KV, hd)
+        return (view if scale is None
+                else dequant_cache(view, scale).to(self.cfg.dtype))
+
+    def _scatter_view(self, pool, table, view, scale):
+        """``view`` back into ``pool`` through the table, in place (int8
+        pools: quantized with ``scale`` first). Padded table entries are
+        all page 0: those duplicate writes land on the scratch page, which
+        nothing reads."""
+        L, _, BS, KV, hd = pool.shape
+        if scale is not None:
+            view = quant_cache(view, scale)
+        pool[:, table] = view.reshape(L, self.max_blocks, BS, KV, hd)
+
+    def _shards(self):
+        """(mesh, per-shard params, k pools, v pools): the engine's mesh,
+        or, meshless, its one device as a one-shard "gather" mesh, whose
+        op sequence is ``cached_forward``'s (equal bit for bit)."""
+        if self._mesh is not None:
+            return self._mesh, self.params, self._k_pools, self._v_pools
+        return (ServingMesh((self.device,), collective="gather"),
+                [self.params], [self._k_pools], [self._v_pools])
+
     def _prefill_chunk(self, toks, pos0, table, last_idx, temp):
         """One prefill chunk (the JAX engine's ``_make_prefill_fn_ref``
-        program): gather the request's pages into a dense view, run
-        ``cached_forward`` over it, scatter the view back in place through
-        the table, and sample a token from row ``last_idx``. Over int8
-        pools the view is dequantized to the model type first and
-        quantized back before the scatter."""
-        cfg = self.cfg
-        MB, BS = self.max_blocks, self.block_size
-        L, KV, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
-                     cfg.head_dim)
-        scales = self._kv_scales
-        kc = self._k_pools[:, table].reshape(L, 1, MB * BS, KV, hd)
-        vc = self._v_pools[:, table].reshape(L, 1, MB * BS, KV, hd)
-        if scales is not None:
-            kc = dequant_cache(kc, scales[0]).to(cfg.dtype)
-            vc = dequant_cache(vc, scales[1]).to(cfg.dtype)
-        logits, kc, vc = cached_forward(self.params, toks, cfg, kc, vc,
-                                        pos0)
-        if scales is not None:
-            kc = quant_cache(kc, scales[0])
-            vc = quant_cache(vc, scales[1])
-        # padded table entries are all page 0: those duplicate writes
-        # land on the scratch page, which nothing reads
-        self._k_pools[:, table] = kc.reshape(L, MB, BS, KV, hd)
-        self._v_pools[:, table] = vc.reshape(L, MB, BS, KV, hd)
+        program, and under a mesh ``_make_prefill_fn_tp``): each shard
+        gathers the request's pages of its KV heads into a dense view
+        (page indices are global; int8 pools dequantized to the model type
+        with the shard's scales), ``_tp_cached_forward`` runs the
+        placement over the views, each view is scattered back in place
+        through the table (int8: quantized back first), and a token is
+        sampled from row ``last_idx``."""
+        sm, shards, k_pools, v_pools = self._shards()
+        tables = sm.replicate(table)
+        scales = self._shard_scales or [(None, None)] * sm.tp
+        kcs = [self._dense_view(p, t, sc[0])
+               for p, t, sc in zip(k_pools, tables, scales)]
+        vcs = [self._dense_view(p, t, sc[1])
+               for p, t, sc in zip(v_pools, tables, scales)]
+        logits, _, _ = _tp_cached_forward(shards, toks, self.cfg, kcs, vcs,
+                                          pos0, sm)
+        for i, (t, sc) in enumerate(zip(tables, scales)):
+            self._scatter_view(k_pools[i], t, kcs[i], sc[0])
+            self._scatter_view(v_pools[i], t, vcs[i], sc[1])
         return _sample_slots(logits[:, last_idx], self._gen, temp)[0]
 
     def _prefill_chunk_fused(self, toks, pos0, table, n, temp):
@@ -804,9 +935,10 @@ class ServingEngine:
         if self._prefill_variant is None:
             self._prefill_variant = self._resolve_prefill_variant(
                 toks.shape[1])
+        _, shards, kps, vps = self._shards()    # one shard (tp=1)
         logits, _, _ = _fused_prefill_forward(
-            self.params, toks[0], self.cfg, self._k_pools, self._v_pools,
-            table, table, pos0, n, rope=self._rope, mode=self._fused_prefill,
+            shards[0], toks[0], self.cfg, kps[0], vps[0], table, table,
+            pos0, n, rope=self._rope, mode=self._fused_prefill,
             kv_scales=self._kv_scales)
         return _sample_slots(logits[n - 1:n], self._gen, temp)[0]
 
@@ -875,7 +1007,13 @@ class ServingEngine:
             # port's count of the JAX engine's decode traces
             self._decode_variant = self.decode_variant
             self.counters["decode_traces"] += 1
-        if self._fused:
+        if self._mesh is not None:
+            logits, _, _ = _tp_decode_step(
+                self.params, self._d_tok, self.cfg, self._k_pools,
+                self._v_pools, self._d_tables, self._d_seq, self._mesh,
+                rope=self._rope, kv_scales=self._shard_scales,
+                fused=self._fused)
+        elif self._fused:
             logits, _, _ = _fused_decode_step(
                 self.params, self._d_tok, self.cfg, self._k_pools,
                 self._v_pools, self._d_tables, self._d_seq, rope=self._rope,
@@ -932,22 +1070,35 @@ class ServingEngine:
         """The int8 cache's static scales, from one prompt (the JAX
         engine's ``_calibrate``): its first tokens, at most the largest
         bucket, padded with token 0 to their bucket, through a dense
-        ``cached_forward`` at the model type; per layer and KV head,
+        forward at the model type (the placement's ``_tp_cached_forward``;
+        meshless ``cached_forward``'s op sequence); per layer and KV head,
         ``max(absmax / 127, 1e-8)`` of the K and of the V rows written
-        there, pad rows included."""
+        there, pad rows included. Each shard takes the absmax over its own
+        KV heads, and the shards' scales concatenate to [L, KV] (under
+        "gather" the meshless op sequence, so the meshless engine's
+        scales)."""
         cfg = self.cfg
         self.counters["calibration_traces"] += 1
         P = self._bucket_for(min(int(prompt.size), self.buckets[-1]))
         n = min(int(prompt.size), P)
         toks = np.zeros((1, P), np.int64)
         toks[0, :n] = prompt[:n]
-        kc, vc = init_cache(cfg, 1, P, device=self.device)
-        _, kc, vc = cached_forward(self.params, self._upload(toks), cfg, kc,
-                                   vc, 0)
-        div = torch.tensor(127.0, device=self.device)
+        toks = self._upload(toks)
+        sm, shards, k_pools, _ = self._shards()
+        shape = (cfg.num_hidden_layers, 1, P) + tuple(k_pools[0].shape[3:])
+        kcs, vcs = ([torch.zeros(shape, dtype=cfg.dtype, device=d)
+                     for d in sm.devices] for _ in range(2))
+        _tp_cached_forward(shards, toks, cfg, kcs, vcs, 0, sm)
+
+        def scale(c):
+            div = torch.tensor(127.0, device=c.device)
+            return torch.clamp_min(
+                torch.amax(c.float().abs(), dim=(1, 2, 4)) / div, 1e-8)
+        self._shard_scales = [(scale(kc), scale(vc))
+                              for kc, vc in zip(kcs, vcs)]
         self._kv_scales = tuple(
-            torch.clamp_min(torch.amax(c.float().abs(), dim=(1, 2, 4)) / div,
-                            1e-8) for c in (kc, vc))
+            torch.cat([sc[j].to(self.device) for sc in self._shard_scales],
+                      dim=1) for j in (0, 1))
 
     def _finish(self, slot_id: int):
         slot = self._slots[slot_id]

@@ -39,8 +39,8 @@ from ..ops.kernels.registry import KERNELS
 from ..ops.rope import apply_rope, build_rope_cache
 
 __all__ = ["LlamaConfig", "LLAMA_7B", "LLAMA_TINY", "init_params",
-           "params_from_jax", "params_to", "forward_hidden", "forward",
-           "loss_fn"]
+           "params_from_jax", "params_to", "tp_param_specs",
+           "forward_hidden", "forward", "loss_fn"]
 
 
 @dataclasses.dataclass
@@ -144,6 +144,44 @@ def params_to(params: Dict, device) -> Dict:
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     return params.to(device)
+
+
+def tp_param_specs(cfg: LlamaConfig, axis: str = "tp",
+                   collective: str = "psum", params=None) -> Dict:
+    """Serving tensor parallelism over a 1-D mesh (port of the JAX
+    package's ``tp_param_specs``): for each leaf of the stacked tree, the
+    tensor dim the mesh axis ``axis`` splits, or None for a leaf every
+    shard holds whole (the JAX package's PartitionSpecs, read as dims).
+
+    q/k/v/gate/up split their output columns (dim 2 of ``[L, D, N]``,
+    head-major, so a contiguous column range is a contiguous head range);
+    under ``collective="psum"`` o_proj/down_proj split their rows (dim 1:
+    each shard's partial product is summed, one psum a sub-block), under
+    ``"gather"`` they stay whole (the shards' heads and SwiGLU columns
+    are gathered before them). Embedding, norms and lm_head stay whole.
+    ``params``: the tree, when it may carry quantized leaves (``{"qw8"|
+    "qw4": q, "scale": s}``): their specs mirror the dict, the integers
+    keep the base weight's dim and the per-output-channel scale [L, N]
+    splits dim 1 with the output columns, or stays whole for the row-split
+    o/down projections."""
+    col, row = 2, (1 if collective == "psum" else None)
+    specs = {
+        "embed_tokens": None,
+        "layers": {"input_norm": None, "q_proj": col, "k_proj": col,
+                   "v_proj": col, "o_proj": row, "post_norm": None,
+                   "gate_proj": col, "up_proj": col, "down_proj": row},
+        "final_norm": None,
+    }
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = None
+    if params is not None:
+        for k, w in params.get("layers", {}).items():
+            if isinstance(w, dict):
+                base = specs["layers"][k]
+                qk = "qw8" if "qw8" in w else "qw4"
+                specs["layers"][k] = {qk: base,
+                                      "scale": 1 if base == col else None}
+    return specs
 
 
 def _decoder_layer(lp, x, sin, cos, cfg: LlamaConfig):

@@ -10,7 +10,13 @@ The four decode and prefill block wrappers, whose kernels take fp, int8
 or int4 weights, also count their launches by weight class
 (``<wrapper>.launches_by_weight``), and the three of them that read the
 KV pools, which may be int8 (the int8 cache), by pool class
-(``<wrapper>.launches_by_pool``).
+(``<wrapper>.launches_by_pool``). The three with a ``residual`` flag
+(decode_attn_block, decode_mlp_block, prefill_attn_block) count by
+residual class too (``<wrapper>.launches_by_residual``): "full" for
+``x + product``, "partial" for the product alone, which a
+tensor-parallel shard's step launches (``inference/tp.py``). Only a
+launch counts: a wrapper given CPU tensors raises before it, and the CPU
+routes run the plain versions, which count nothing.
 """
 from .flash_attention import (flash_bwd_dkv_cuda,  # noqa: F401
                               flash_bwd_dq_cuda, flash_fwd_cuda)
@@ -58,7 +64,8 @@ def reset_launches():
     """Set every wrapper's launch counts to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
-        for attr in ("launches_by_weight", "launches_by_pool"):
+        for attr in ("launches_by_weight", "launches_by_pool",
+                     "launches_by_residual"):
             by = getattr(fn, attr, None)
             if by is not None:
                 for k in by:
@@ -84,3 +91,11 @@ def launches_by_pool():
     return {name: dict(fn.launches_by_pool)
             for name, fn in WRAPPERS.items()
             if hasattr(fn, "launches_by_pool")}
+
+
+def launches_by_residual():
+    """``{launch name: {"full"|"partial": count}}`` for the kernels with a
+    ``residual`` flag."""
+    return {name: dict(fn.launches_by_residual)
+            for name, fn in WRAPPERS.items()
+            if hasattr(fn, "launches_by_residual")}

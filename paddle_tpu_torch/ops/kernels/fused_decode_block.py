@@ -498,13 +498,18 @@ def _pools(name, x, k_pool, kv_scales):
     return torch.int8, 8, ks, vs
 
 
-def _count(fn, bits, kv_bits=None):
-    """One launch of ``fn``'s kernel, in weight class ``bits`` and, for
-    the kernels that read the pools, pool class ``kv_bits``."""
+def _count(fn, bits, kv_bits=None, residual=None):
+    """One launch of ``fn``'s kernel, in weight class ``bits``; for the
+    kernels that read the pools, in pool class ``kv_bits``; for the
+    kernels with a ``residual`` flag, in residual class "full" (x + the
+    product) or "partial" (the product alone: a tensor-parallel shard's
+    part)."""
     fn.launches += 1
     fn.launches_by_weight[{0: "fp", 8: "int8", 4: "int4"}[bits]] += 1
     if kv_bits is not None:
         fn.launches_by_pool[{0: "fp", 8: "int8"}[kv_bits]] += 1
+    if residual is not None:
+        fn.launches_by_residual["full" if residual else "partial"] += 1
 
 
 def _attn_leaves(x, wq, wk, wv, wo, KV, hd):
@@ -584,7 +589,7 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                        device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _count(decode_attn_block_cuda, bits, kv_bits)
+        _count(decode_attn_block_cuda, bits, kv_bits, residual)
         err = fn(x.data_ptr(), nw.data_ptr(), *(w[k].data_ptr() for k in
                                                  ("wq", "wk", "wv", "wo")),
                  *(_ptr(sc[k]) for k in ("wq", "wk", "wv", "wo")),
@@ -630,7 +635,7 @@ def decode_mlp_block_cuda(x, nw, wg, wu, wd, eps=1e-6, residual=True):
                         device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _count(decode_mlp_block_cuda, bits)
+        _count(decode_mlp_block_cuda, bits, residual=residual)
         err = fn(x.data_ptr(), nw.data_ptr(),
                  *(w[k].data_ptr() for k in ("wg", "wu", "wd")),
                  *(_ptr(sc[k]) for k in ("wg", "wu", "wd")),
@@ -733,6 +738,9 @@ for _w in (decode_attn_block_cuda, decode_mlp_block_cuda,
 for _w in (decode_attn_block_cuda, decode_block_fused_cuda):
     # and, for the kernels that read the pools, by pool class
     _w.launches_by_pool = {"fp": 0, "int8": 0}
+for _w in (decode_attn_block_cuda, decode_mlp_block_cuda):
+    # and, for the two-stage kernels, by residual class
+    _w.launches_by_residual = {"full": 0, "partial": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -743,12 +751,19 @@ def _dtype_name(dtype) -> str:
 
 
 def decode_meta_dims(B, D, H, KV, hd, F, BS, MB, dtype, pool_dtype, quant,
-                     weight_dtype=None, device="cuda") -> dict:
+                     tp=1, weight_dtype=None, device="cuda") -> dict:
     """Static dispatch metadata from raw dims: the one builder of
     everything the ``supports`` predicates read. ``device`` (a device
     type) takes the place of the JAX package's ``interpret``, and the
-    card's shared-memory limit the place of its two VMEM budgets."""
+    card's shared-memory limit the place of its two VMEM budgets. ``tp``:
+    the tensor-parallel degree. The tensor-parallel step passes the
+    per-shard dims (H, KV, F of one shard) and its ``tp``, so a shard of
+    a tp=N mesh is a shape class apart from a tp=1 model of the same
+    local dims; the single-launch kernel refuses tp != 1. The port keys
+    no program cache on the meta (it dispatches per call), so the meta is
+    all ``tp`` feeds."""
     return {
+        "tp": int(tp),
         "B": int(B), "D": int(D), "H": int(H), "KV": int(KV),
         "hd": int(hd), "F": int(F), "BS": int(BS), "MB": int(MB),
         "dtype": _dtype_name(dtype),
@@ -763,14 +778,14 @@ def decode_meta_dims(B, D, H, KV, hd, F, BS, MB, dtype, pool_dtype, quant,
     }
 
 
-def decode_meta(cfg, B, BS, MB, pool_dtype, quant, weight_dtype=None,
+def decode_meta(cfg, B, BS, MB, pool_dtype, quant, tp=1, weight_dtype=None,
                 device="cuda") -> dict:
     """Static dispatch metadata for one decode step of model ``cfg``."""
     return decode_meta_dims(B, cfg.hidden_size, cfg.num_attention_heads,
                             cfg.num_key_value_heads, cfg.head_dim,
                             cfg.intermediate_size, BS, MB, cfg.dtype,
-                            pool_dtype, quant, weight_dtype=weight_dtype,
-                            device=device)
+                            pool_dtype, quant, tp=tp,
+                            weight_dtype=weight_dtype, device=device)
 
 
 def _refusal(meta, wq_dims=()):
@@ -867,10 +882,14 @@ def _supports_block(meta):
     occupancy). It carries over the reference's refusals: a head_dim that
     is not a multiple of 8, H not a multiple of KV, the rows the loads
     cannot align and odd int4 pack axes; int8 pools need their scales
-    (``quant``)."""
+    (``quant``); a tensor-parallel shard (tp != 1) runs the two-stage
+    kernels, with the reference's reason."""
     why = _attn_refusal(meta)
     if why:
         return False, why
+    if meta.get("tp", 1) != 1:
+        return False, ("tensor-parallel decode runs the per-stage "
+                       "kernels inside shard_map")
     if meta["hd"] % 8:
         return False, f"head_dim {meta['hd']} not a multiple of 8"
     if (meta["F"] * meta["itemsize"]) % 16:

@@ -227,7 +227,7 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     order = ("wq", "wk", "wv", "wo")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _fdb._count(prefill_attn_block_cuda, bits, kv_bits)
+        _fdb._count(prefill_attn_block_cuda, bits, kv_bits, residual)
         err = fn(x.data_ptr(), nw.data_ptr(),
                  *(w[k].data_ptr() for k in order),
                  *(_fdb._ptr(sc[k]) for k in order), sin.data_ptr(),
@@ -250,6 +250,8 @@ prefill_attn_block_cuda.launches_by_weight = {"fp": 0, "int8": 0,
                                               "int4": 0}
 # and by pool class
 prefill_attn_block_cuda.launches_by_pool = {"fp": 0, "int8": 0}
+# and by residual class
+prefill_attn_block_cuda.launches_by_residual = {"full": 0, "partial": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ from paddle_tpu.inference.admission import AdmissionQueue as JQueue
 from paddle_tpu.models import llama as jllama
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.inference import (AdmissionQueue, GenerationConfig,
-                                        ServingEngine, generate)
+                                        ServingEngine, ServingMesh, generate)
 from paddle_tpu_torch.models import llama as tllama
 
 pytestmark = pytest.mark.torch_port
@@ -192,12 +192,22 @@ def test_submit_validation(params):
 def test_routes_of_later_slices_raise(params, kw):
     """The arguments of slices still to come raise "not ported". The int8
     KV cache (both spellings) has been ported since: it builds int8 pools
-    and no scales until its first admission calibrates them."""
+    and no scales until its first admission calibrates them. So has
+    tensor-parallel serving: an int tp takes the visible CUDA cards (with
+    none, it raises), a mesh of CPU devices serves."""
     _, tp = params
     if "cache_dtype" in kw:
         eng = ServingEngine(tp, TCFG, device="cpu", **ENGINE, **kw)
         assert eng._k_pools.dtype == eng._v_pools.dtype == torch.int8
         assert eng._kv_scales is None
+        return
+    if "mesh" in kw:
+        if not torch.cuda.is_available():
+            with pytest.raises(ValueError, match="only 0 device"):
+                ServingEngine(tp, TCFG, device="cpu", **ENGINE, **kw)
+        eng = ServingEngine(tp, TCFG, mesh=ServingMesh.make(
+            2, devices=["cpu"] * 2), **ENGINE)
+        assert eng.metrics()["mesh"]["tp"] == 2
         return
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(tp, TCFG, device="cpu", **ENGINE, **kw)
