@@ -14,7 +14,12 @@ script exits non-zero:
    on the card, at the routes' shapes (LLaMA-7B widths, 8 slots, chunks
    of 32 and 128 rows), with its time (L2 flushed before every launch),
    its plain version's time, the time of one PyTorch library call
-   computing the same function where there is one, and its bound. The
+   computing the same function where there is one, and its bound: the
+   kernel catalog's model of the launch (``paddle_tpu_torch.analysis.
+   kernel_rules.bound``: the plan captured while the launch runs once,
+   each input byte read once and each output byte written once, the
+   pools at the case's live lengths, and the operations its data needs,
+   over 3.35 TB/s and 989 TFLOP/s bf16 or 67 f32). The
    three fused decode-block kernels (decode_attn_block, decode_mlp_block
    and the single-launch decode_block_fused) run at KV=32 and KV=8, in
    f32 and bf16, with lengths 0/1/15/16/17/1151, a ragged F for the MLP,
@@ -168,6 +173,14 @@ script exits non-zero:
    route with every kernel replaced by its plain version; then 3
    ``Trainer`` steps each way: the loss trajectories and the parameters'
    updates; and the default route against the "ref" route.
+2b. demo: the kernel-geometry gate's regression specimen,
+   decode_mlp_block's kernel under the floor-divided plan of the JAX
+   package's ``demo_prefix_mlp_block`` (B 2, D 32, F 96, 64-column tiles,
+   bf16): against its plain version (the MLP over the first 64
+   intermediate columns) at decode_mlp_block's bf16 tolerance, two
+   launches bit for bit, more than ten times that tolerance away from the
+   full MLP, and its captured plan audited: exactly three GRID_FLOOR_DROP
+   findings, on wg, wu and wd. Timed beside its bound and plain version.
 12. train (the main path): bench.py's "1.07B-h4096" ladder rung
    (vocab 32000, D 4096, F 11008, 32 heads, 4 layers, batch 2 x seq 2048,
    bf16 weights, f32 norms, bf16 moments, remat, fused optimizer) on the
@@ -180,7 +193,16 @@ script exits non-zero:
    kernel group and the busy share. Then the same on the "ref" route
    (RMSNorm 4L + 1 a step, the fused-train kernels never).
 
-Then the ``kernels`` summary line, 18 rows, the 8 quantized rows
+13. audit: the plans of every launch of the default serving route's
+   phase and of the default train route's phase, captured while they
+   ran, audited by the kernel-geometry gate (0 findings), and the whole
+   catalog too; each cooperative kernel's grid (the launcher's occupancy
+   query on the card) equal to the catalog's assumption (132 SMs times
+   its blocks an SM), and ptxas's static shared memory of every device
+   kernel at most its launch's declared figure.
+
+Then the ``kernels`` summary line, 18 rows, the specimen's row
+(``demo_prefix_mlp_block``, launches from its own phase), the 8 quantized rows
 (``decode_attn_block[int8]`` ... ``prefill_attn_block[int4]``, launches
 from the quantized serving routes) and the 9 int8-pool rows
 (``decode_attn_block[kv8]`` ... ``prefill_attn_block[int4,kv8]``,
@@ -203,9 +225,6 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {"float32": 67e12,  # f32 outside the tensor cores
-                  "bfloat16": 989e12}
 RMS_SOURCE = "paddle_tpu_torch/ops/kernels/norms.py"
 PAGED_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 FUSED_SOURCE = "paddle_tpu_torch/csrc/fused_decode_block.cu"
@@ -255,11 +274,25 @@ def cold_ms(fn, iters=30, warmup=3):
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def bound(nbytes, ops, dtype_name):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
-    return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+def bound(launch, seq_lens=None):
+    """``(ms, "bytes" | "operations", bytes, operations)``: the least time
+    the card could take for the launch ``launch()`` makes, from the kernel
+    catalog's model (``paddle_tpu_torch.analysis.kernel_rules.bound``): its
+    plan is captured while it runs once, then each input byte is read once
+    and each output byte written once (the pools' live tokens at
+    ``seq_lens``, the tokens in the pools of each sequence), and the
+    operations this launch's data needs, over 3.35 TB/s and the working
+    type's peak."""
+    import torch
+    from paddle_tpu_torch.analysis.kernel_rules import bound as model
+    from paddle_tpu_torch.ops.kernels._launch import capture_kernel_launches
+    with capture_kernel_launches() as specs:
+        launch()
+    torch.cuda.synchronize()
+    if len(specs) != 1:
+        raise AssertionError(f"bound: {len(specs)} launches captured, "
+                             f"expected one: {[s.name for s in specs]}")
+    return model(specs[0], seq_lens)
 
 
 def ulp_close(got, want, rel):
@@ -311,8 +344,8 @@ def build_kernels():
 
 
 def _ptxas(log):
-    """ptxas's registers and spills of each kernel in a build log, under
-    the kernel's (mangled) name."""
+    """ptxas's registers, static shared memory and spills of each kernel in
+    a build log, under the kernel's (mangled) name."""
     out, fn = {}, None
     for ln in log.read_text().splitlines():
         if "Compiling entry function" in ln:
@@ -320,6 +353,15 @@ def _ptxas(log):
         elif fn and ("registers" in ln or "spill" in ln):
             out.setdefault(fn, []).append(ln.split(":", 1)[-1].strip())
     return out
+
+
+def _static_smem(lines):
+    """The static shared-memory bytes in ptxas's lines of one kernel."""
+    for ln in lines:
+        for part in ln.split(","):
+            if part.strip().endswith("bytes smem"):
+                return int(part.split()[0])
+    return 0
 
 
 def rms_phase(gpu):
@@ -410,9 +452,7 @@ def rms_phase(gpu):
     if not ok:
         raise AssertionError(f"rms_norm_fwd disagrees: {cases[-1]}")
     del xl, wl, y, g, want_dx, want_dw, got, want, norm_k, norm_p, ones
-    item = xt.element_size()
-    tb_ms, tb_by = bound(2 * xt.numel() * item + D * item, 4 * xt.numel(),
-                         "bfloat16")
+    tb_ms, tb_by = bound(lambda: rms_norm_fwd_triton(xt, wt, eps))[:2]
     train = {"shape": [tb, ts, D], "dtype": "bfloat16",
              "ms": cold_ms(lambda: rms_norm_fwd_triton(xt, wt, eps)),
              "plain_ms": cold_ms(lambda: rms_norm_ref(xt, wt, eps)),
@@ -421,9 +461,7 @@ def rms_phase(gpu):
                             if hasattr(F, "rms_norm") else None)}
     del xt, wt, w32
     x, w = timed                              # the decode step's shape
-    item = x.element_size()
-    b_ms, b_by = bound(2 * x.numel() * item + D * item, 4 * x.numel(),
-                       "bfloat16")
+    b_ms, b_by = bound(lambda: rms_norm_fwd_triton(x, w, eps))[:2]
     lib = (cold_ms(lambda: F.rms_norm(x, (D,), w, eps))
            if hasattr(F, "rms_norm") else None)
     row = {"name": "rms_norm_fwd", "route": "triton", "source": RMS_SOURCE,
@@ -453,16 +491,6 @@ def paged_inputs(gen, dt, B, H, KV, hd, BS, MB):
     k = torch.randn(N, BS, KV, hd, generator=gen, device="cuda").to(dt)
     v = torch.randn(N, BS, KV, hd, generator=gen, device="cuda").to(dt)
     return q, k, v, tables, seq_lens
-
-
-def paged_bytes(lens, H, KV, hd, BS, item):
-    """Bytes one paged-attention launch must move: the live K and V rows
-    of every sequence (``lens`` tokens each), q in and out, the lengths
-    and the live table entries."""
-    n_tok = int(sum(int(n) for n in lens))
-    n_pages = sum(-(-int(n) // BS) for n in lens)
-    return (n_tok * KV * hd * 2 * item + 2 * len(lens) * H * hd * item
-            + 4 * len(lens) + 4 * n_pages)
 
 
 def paged_phase(gpu):
@@ -496,8 +524,8 @@ def paged_phase(gpu):
             timed = args
     q, k, v, tables, seq_lens = timed
     lens = seq_lens.long()
-    nbytes = paged_bytes(lens, H, k.shape[2], hd, BS, q.element_size())
-    b_ms, b_by = bound(nbytes, 4 * H * hd * int(lens.sum()), "bfloat16")
+    b_ms, b_by = bound(lambda: paged_attention_decode_cuda(*timed),
+                       lens.tolist())[:2]
     # yardstick: SDPA over K/V gathered densely beforehand (the gather is
     # not timed), the padding masked out
     T = MB * BS
@@ -523,31 +551,6 @@ def paged_phase(gpu):
     emit({"phase": "kernel", "kernel": "paged_attention_decode",
           "gpu": gpu, "cases": cases})
     return row
-
-
-def attn_bytes(lens, D, H, KV, hd, BS, item, pool_item=None):
-    """Bytes one decode_attn_block launch must move: the four weight
-    matrices and the norm weight, the live K and V rows (``lens`` tokens
-    already in the pool per sequence, ``pool_item`` bytes an element: the
-    model's, or 1 for int8 pools, which add their two f32 [KV] scale
-    rows), x in and out, k_new and v_new out, one f32 rope row pair per
-    sequence, the lengths and the live table entries."""
-    B = len(lens)
-    n_tok = int(sum(int(n) for n in lens))
-    n_pages = sum(-(-int(n) // BS) for n in lens)
-    weights = (2 * D * H * hd + 2 * D * KV * hd + D) * item
-    acts = (2 * B * D + 2 * B * KV * hd) * item + B * hd * 4
-    pools = n_tok * KV * hd * 2 * (pool_item or item)
-    if pool_item and pool_item != item:
-        pools += 2 * KV * 4
-    return weights + pools + acts + 4 * B + 4 * n_pages
-
-
-def attn_ops(lens, D, H, KV, hd):
-    B = len(lens)
-    attended = sum(int(n) + 1 for n in lens)
-    return 2 * B * D * (H + 2 * KV) * hd + 2 * B * H * hd * D \
-        + 4 * H * hd * attended
 
 
 def fused_attn_inputs(gen, dt, KV, rope, B=B8, H=H7):
@@ -652,8 +655,7 @@ def fused_attn_phase(gpu):
             timed = args
     x, nw, wq, wk, wv, wo = timed[:6]
     lens = timed[11].tolist()
-    b_ms, b_by = bound(attn_bytes(lens, D7, H7, H7, HD7, BS16, 2),
-                       attn_ops(lens, D7, H7, H7, HD7), "bfloat16")
+    b_ms, b_by = bound(lambda: fdb.decode_attn_block_cuda(*timed), lens)[:2]
     h, a = torch.randn_like(x), torch.randn_like(x)
     row = {"name": "decode_attn_block", "route": "cuda",
            "source": FUSED_SOURCE,
@@ -679,8 +681,7 @@ def mlp_timing(fdb, args):
     x, nw, wg, wu, wd = args
     R, D = x.shape
     F = wg.shape[1]
-    b_ms, b_by = bound((3 * D * F + 2 * R * D + D) * 2, 6 * R * D * F,
-                       "bfloat16")
+    b_ms, b_by = bound(lambda: fdb.decode_mlp_block_cuda(*args))[:2]
     h, ff = torch.randn_like(x), torch.randn(R, F, device="cuda").to(x.dtype)
     return {"ms": cold_ms(lambda: fdb.decode_mlp_block_cuda(*args)),
             "plain_ms": cold_ms(lambda: fdb.mlp_block_ref(*args)),
@@ -736,8 +737,7 @@ def fused_mlp_phase(gpu):
         if dt == torch.bfloat16 and F == F7 and B == B8:
             timed = args
     x, nw, wg, wu, wd = timed
-    b_ms, b_by = bound((3 * D7 * F7 + 2 * B8 * D7 + D7) * 2,
-                       6 * B8 * D7 * F7, "bfloat16")
+    b_ms, b_by = bound(lambda: fdb.decode_mlp_block_cuda(*timed))[:2]
     h, ff = torch.randn_like(x), torch.randn(B8, F7, device="cuda").to(x.dtype)
     row = {"name": "decode_mlp_block", "route": "cuda",
            "source": FUSED_SOURCE,
@@ -753,16 +753,6 @@ def fused_mlp_phase(gpu):
     emit({"phase": "kernel", "kernel": "decode_mlp_block", "gpu": gpu,
           "cases": cases, "prefill_rows": rows})
     return row
-
-
-def block_bytes(lens, D, H, KV, hd, F, BS, item, pool_item=None):
-    """Bytes one decode_block_fused launch must move: decode_attn_block's
-    (every attention weight, the live K/V rows, x in, x_out, k_new and
-    v_new out, rope rows, lengths and table entries) plus the three MLP
-    weight matrices and the post-norm weight. The f32 residual between
-    the halves is the kernel's own traffic, not the function's."""
-    return (attn_bytes(lens, D, H, KV, hd, BS, item, pool_item)
-            + (3 * D * F + D) * item)
 
 
 def block_inputs(gen, dt, KV, F, rope, B):
@@ -845,9 +835,7 @@ def block_phase(gpu):
     (x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos, kp, vp, tables,
      lens) = timed
     lens = lens.tolist()
-    b_ms, b_by = bound(block_bytes(lens, D7, H7, H7, HD7, F7, BS16, 2),
-                       attn_ops(lens, D7, H7, H7, HD7) + 6 * B8 * D7 * F7,
-                       "bfloat16")
+    b_ms, b_by = bound(lambda: fdb.decode_block_fused_cuda(*timed), lens)[:2]
     attn_args = (x, nw, wq, wk, wv, wo, sin, cos, kp, vp, tables, timed[15])
 
     def two_stage():
@@ -915,8 +903,7 @@ def layer_norm_phase(gpu):
             timed = (x, w, b)
     launches = layer_norm_fwd_triton.launches
     x, w, b = timed
-    n = x.numel()
-    b_ms, b_by = bound((2 * n + 2 * x.shape[1]) * 4, 8 * n, "float32")
+    b_ms, b_by = bound(lambda: layer_norm_fwd_triton(x, w, b, eps))[:2]
     row = {"name": "layer_norm_fwd", "route": "triton", "source": RMS_SOURCE,
            "replaces": "paddle_tpu/ops/pallas/norms.py:347",
            "shape": list(x.shape), "dtype": "float32",
@@ -931,28 +918,6 @@ def layer_norm_phase(gpu):
     emit({"phase": "kernel", "kernel": "layer_norm_fwd", "gpu": gpu,
           "cases": cases, "launches": launches})
     return row
-
-
-def prefill_bytes(P, n, pos0, D, H, KV, hd, BS, item, pool_item=None):
-    """Bytes one prefill_attn_block launch must move: the four weight
-    matrices and the norm weight, the real rows of x in and every row of
-    x_out, k_new and v_new out, the chunk's f32 rope rows, the history's
-    K and V rows (``pos0`` tokens, ``pool_item`` bytes an element; int8
-    pools add their two f32 [KV] scale rows) and its table entries."""
-    weights = (2 * D * H * hd + 2 * D * KV * hd + D) * item
-    acts = (n * D + P * D + 2 * P * KV * hd) * item + P * hd * 4
-    hist = 2 * pos0 * KV * hd * (pool_item or item)
-    if pool_item and pool_item != item:
-        hist += 2 * KV * 4
-    return weights + acts + hist + 4 * -(-pos0 // BS)
-
-
-def prefill_ops(n, pos0, D, H, KV, hd):
-    """Multiply-adds x 2 of the real rows: the four products, and q.k and
-    p.v over each row's history and its chunk prefix."""
-    attended = sum(pos0 + r + 1 for r in range(n))
-    return 2 * n * D * (H + 2 * KV) * hd + 2 * n * H * hd * D \
-        + 4 * H * hd * attended
 
 
 PREFILL_CASES = ((0, 0), (0, 1), (0, -3), (5, -3), (16, 0), (600, None))
@@ -1060,9 +1025,7 @@ def prefill_timing(fpb, F, args):
     P, D = x.shape
     _, BS, KV, hd = kp.shape
     H = wq.shape[1] // hd
-    b_ms, b_by = bound(
-        prefill_bytes(P, n, pos0, D, H, KV, hd, BS, x.element_size()),
-        prefill_ops(n, pos0, D, H, KV, hd), "bfloat16")
+    b_ms, b_by = bound(lambda: fpb.prefill_attn_block_cuda(*args))[:2]
     h, a = torch.randn_like(x), torch.randn_like(x)
     T = pos0 + P
     q = torch.randn(1, H, P, hd, device="cuda").to(x.dtype)
@@ -1098,14 +1061,6 @@ def wq_leaves(ws, bits, down=None):
     from paddle_tpu_torch.quantization import quantize_leaf
     return [quantize_leaf(w, bits, pack_axis=1 if w is down else 0)
             for w in ws]
-
-
-def wq_bytes(shapes, bits, item):
-    """(quantized bytes, fp bytes) of weights of logical ``shapes``: the
-    integers (a byte, or half of one, an element) and the f32 scale row
-    [out] of each, against the same weights in the model type."""
-    n = sum(k * m for k, m in shapes)
-    return (n * bits // 8 + 4 * sum(m for _, m in shapes), n * item)
 
 
 def _library_products(x, leaves, rows):
@@ -1181,10 +1136,7 @@ def quant_attn_phase(gpu, bits):
         if dt == torch.bfloat16 and KV == H7 and B == B8:
             timed, timed_fp = args, fp
     lens = timed[11].tolist()
-    qb, fb = wq_bytes([(D7, H7 * HD7), (D7, H7 * HD7), (D7, H7 * HD7),
-                       (H7 * HD7, D7)], bits, 2)
-    b_ms, b_by = bound(attn_bytes(lens, D7, H7, H7, HD7, BS16, 2) - fb + qb,
-                       attn_ops(lens, D7, H7, H7, HD7), "bfloat16")
+    b_ms, b_by = bound(lambda: fdb.decode_attn_block_cuda(*timed), lens)[:2]
     lib_ms, lib = _library_products(timed[0], timed[2:6], B8)
     row = {"name": f"decode_attn_block[{wd}]", "route": "cuda",
            "source": FUSED_SOURCE,
@@ -1251,9 +1203,8 @@ def quant_mlp_phase(gpu, bits):
                 "ok": same and picked == "cuda_fused"
                 and all(o["ok"] for o in outs.values())}
         if dt == torch.bfloat16 and F == F7:
-            qb, fb = wq_bytes([(D7, F), (D7, F), (F, D7)], bits, 2)
-            b_ms, b_by = bound(qb + (2 * B * D7 + D7) * 2, 6 * B * D7 * F,
-                               "bfloat16")
+            b_ms, b_by = bound(
+                lambda: fdb.decode_mlp_block_cuda(*args))[:2]
             rows[B] = {
                 "ms": cold_ms(lambda: fdb.decode_mlp_block_cuda(*args)),
                 "plain_ms": cold_ms(lambda: fdb.mlp_block_wq_ref(*args)),
@@ -1338,11 +1289,8 @@ def quant_block_phase(gpu, bits):
         if dt == bf16 and KV == H7 and B == B8 and F == F7:
             timed, timed_fp = args, fp
     lens = timed[15].tolist()
-    qb, fb = wq_bytes([(D7, H7 * HD7)] * 3 + [(H7 * HD7, D7), (D7, F7),
-                                              (D7, F7), (F7, D7)], bits, 2)
-    b_ms, b_by = bound(
-        block_bytes(lens, D7, H7, H7, HD7, F7, BS16, 2) - fb + qb,
-        attn_ops(lens, D7, H7, H7, HD7) + 6 * B8 * D7 * F7, "bfloat16")
+    b_ms, b_by = bound(lambda: fdb.decode_block_fused_cuda(*timed),
+                       lens)[:2]
 
     def two_stage():
         xo, _, _ = fdb.decode_attn_block_cuda(*timed[:6], *timed[10:])
@@ -1443,10 +1391,7 @@ def quant_prefill_phase(gpu, bits):
                 timed = (x, *weights, sin[pos0:pos0 + 128],
                          cos[pos0:pos0 + 128], kp, vp, table, pos0, 128)
                 timed_fp = (x, *fpw, *timed[6:])
-    qb, fb = wq_bytes([(D, H * hd)] * 3 + [(H * hd, D)], bits, 2)
-    b_ms, b_by = bound(
-        prefill_bytes(128, 128, 512, D, H, H, hd, BS, 2) - fb + qb,
-        prefill_ops(128, 512, D, H, H, hd), "bfloat16")
+    b_ms, b_by = bound(lambda: fpb.prefill_attn_block_cuda(*timed))[:2]
     row = {"name": f"prefill_attn_block[{wd}]", "route": "cuda",
            "source": PREFILL_SOURCE,
            "replaces": "paddle_tpu/ops/pallas/fused_prefill_block.py:431",
@@ -1625,18 +1570,7 @@ def kv8_decode_phase(gpu, op):
             if dt == bf16 and KV == H7 and B == B8:
                 timed, timed_fp, tsc = args, fp_args, scales
         lens = timed[ip + 3].tolist()
-        shapes = [(D7, H7 * HD7)] * 3 + [(H7 * HD7, D7)]
-        if attn:
-            nbytes = attn_bytes(lens, D7, H7, H7, HD7, BS16, 2, 1)
-            ops = attn_ops(lens, D7, H7, H7, HD7)
-        else:
-            shapes += [(D7, F7), (D7, F7), (F7, D7)]
-            nbytes = block_bytes(lens, D7, H7, H7, HD7, F7, BS16, 2, 1)
-            ops = attn_ops(lens, D7, H7, H7, HD7) + 6 * B8 * D7 * F7
-        if bits:
-            qb, fb = wq_bytes(shapes, bits, 2)
-            nbytes += qb - fb
-        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        b_ms, b_by = bound(lambda: wrapper(*timed, kv_scales=tsc), lens)[:2]
         row = {"name": name, "route": "cuda", "source": FUSED_SOURCE,
                "replaces": "paddle_tpu/ops/pallas/fused_decode_block.py:"
                            + ("436" if attn else "1021"),
@@ -1738,12 +1672,8 @@ def kv8_prefill_phase(gpu):
                          cos[pos0:pos0 + 128], kq, vq, table, pos0, 128)
                 timed_fp = (*timed[:8], kd, vd, *timed[10:])
                 tsc = scales
-        nbytes = prefill_bytes(128, 128, 512, D, H, H, hd, BS, 2, 1)
-        if bits:
-            qb, fb = wq_bytes([(D, H * hd)] * 3 + [(H * hd, D)], bits, 2)
-            nbytes += qb - fb
-        b_ms, b_by = bound(nbytes, prefill_ops(128, 512, D, H, H, hd),
-                           "bfloat16")
+        b_ms, b_by = bound(lambda: fpb.prefill_attn_block_cuda(
+            *timed, kv_scales=tsc))[:2]
         row = {"name": name, "route": "cuda", "source": PREFILL_SOURCE,
                "replaces": "paddle_tpu/ops/pallas/fused_prefill_block.py:431",
                "weights": wd or "bfloat16", "pools": "int8",
@@ -2344,7 +2274,10 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
     byte bound at the profiled lengths."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.analysis.kernel_rules import (HBM_BYTES_PER_S,
+                                                        modeled_launch_bytes)
     from paddle_tpu_torch.inference import GenerationConfig
+    from paddle_tpu_torch.ops.kernels._launch import capture_kernel_launches
     rng = np.random.default_rng(2)
     chunks = -(-prompt // eng.buckets[-1])
     gen = GenerationConfig(
@@ -2354,11 +2287,11 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
                    .astype(np.int32), gen)
     record = _timed_chunks(eng)
     record["on"] = False
-    cfg = eng.cfg
     traced = 2            # chunks at pos0 0 and P of the first request
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            capture_kernel_launches() as chunk_specs:
         for _ in range(traced):
             eng.step()
         torch.cuda.synchronize()
@@ -2375,24 +2308,6 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
                          "ms_max": float(np.max(v))}
                 for P, v in sorted(by_bucket.items())}
     record["on"] = False
-    # one shard's widths under a mesh: the kernels' launches are a shard's
-    tp = 1 if eng._mesh is None else eng._mesh.tp
-    H, KV, hd = (cfg.num_attention_heads // tp,
-                 cfg.num_key_value_heads // tp, cfg.head_dim)
-    item = torch.empty((), dtype=cfg.dtype).element_size()
-    pool_item = torch.empty((), dtype=eng._pool_dtype).element_size()
-    D, F = cfg.hidden_size, cfg.intermediate_size // tp
-    attn_w = [(D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D)]
-    mlp_w = [(D, F), (D, F), (F, D)]
-    wbits = {"int8": 8, "int4": 4}.get(eng.weight_quant_variant["mode"])
-
-    def wadj(shapes):
-        """Bytes a quantized route's weights (and scales) differ by from
-        the fp weights the byte models count."""
-        if not wbits:
-            return 0
-        q, f = wq_bytes(shapes, wbits, item)
-        return q - f
     prefill = {"chunks_traced": traced,
                "per_chunk_by_group": _rounded(chunk_groups),
                "device_ms_per_chunk": round(sum(
@@ -2400,10 +2315,11 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
                "chunk_ms_by_bucket": chunk_ms}
     ms, n = chunk_groups.get("prefill_attn_block", [0.0, 0.0])
     if n:
-        P = eng.buckets[-1]
-        nbytes = float(np.mean([prefill_bytes(
-            P, P, pos0, cfg.hidden_size, H, KV, hd, eng.block_size, item,
-            pool_item) for pos0 in range(0, traced * P, P)])) + wadj(attn_w)
+        # the catalog's byte model of each traced launch (a shard's under
+        # a mesh), at its own history length
+        nbytes = float(np.mean([
+            modeled_launch_bytes(sp)["total_bytes"] for sp in chunk_specs
+            if sp.name == "prefill_attn_block"]))
         prefill["prefill_attn_block_per_launch"] = {
             "bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
             "us": ms / n * 1e3}
@@ -2413,42 +2329,41 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
-    # tokens already in the pool for each slot at each profiled step
-    lens = []
+    # tokens already in the pool for each slot at each profiled step, and
+    # the plans of the step's launches
+    lens, step_specs = [], []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             lens.append([s.seq_len for s in eng._slots
                          if s.phase == "decode"])
-            eng.step()
+            with capture_kernel_launches() as specs:
+                eng.step()
+            step_specs.append(specs)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels, groups = _device_groups(prof, steps)
     device_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
     per_launch = {}
-    byte_models = {
-        # attention over cached tokens + the new one
-        "paged_attention_decode": lambda ls: paged_bytes(
-            [n + 1 for n in ls], H, KV, hd, eng.block_size, item),
-        "decode_attn_block": lambda ls: attn_bytes(
-            ls + [0] * (eng.capacity - len(ls)), cfg.hidden_size, H, KV, hd,
-            eng.block_size, item, pool_item) + wadj(attn_w),
-        "decode_mlp_block": lambda ls: (
-            3 * cfg.hidden_size * F
-            + (2 * eng.capacity + 1) * cfg.hidden_size) * item
-        + wadj(mlp_w),
-        "decode_block_fused": lambda ls: block_bytes(
-            ls + [0] * (eng.capacity - len(ls)), cfg.hidden_size, H, KV, hd,
-            F, eng.block_size, item, pool_item)
-        + wadj(attn_w + mlp_w),
-    }
-    for op, model in byte_models.items():
+    launch_bytes = {}
+    for ls, specs in zip(lens, step_specs):
+        for sp in specs:
+            rows = next((op.shape[0] for op in sp.inputs
+                         if op.paged == "pages"), len(ls))
+            # the pools' live tokens of each row: the cached ones (paged
+            # attention also reads the new one, written first); idle
+            # slots 0
+            live = [n + (sp.name == "paged_attention_decode") for n in ls]
+            live += [0] * (rows - len(live))
+            launch_bytes.setdefault(sp.name, []).append(
+                modeled_launch_bytes(sp, live)["total_bytes"])
+    for op, sizes in launch_bytes.items():
         ms, n = groups.get(op, [0.0, 0.0])
         if not n:
             continue
-        nbytes = float(np.mean([model(ls) for ls in lens]))
+        nbytes = float(np.mean(sizes))
         us = ms / n * 1e3
         bound_us = nbytes / HBM_BYTES_PER_S * 1e6
         per_launch[op] = {"bytes": nbytes, "bound_us": bound_us, "us": us,
@@ -2595,11 +2510,8 @@ def tp_attn_phase(gpu):
         if dtn != "bfloat16":
             continue
         lens = base[11].tolist()
-        nbytes = attn_bytes(lens, D7, H, H, HD7, BS16, 2, 1 if kv8 else None)
-        if bits:
-            qb, fb = wq_bytes([(D7, H * HD7)] * 3 + [(H * HD7, D7)], bits, 2)
-            nbytes += qb - fb
-        b_ms, b_by = bound(nbytes, attn_ops(lens, D7, H, H, HD7), "bfloat16")
+        b_ms, b_by = bound(lambda: fdb.decode_attn_block_cuda(
+            *base, **kw, residual=False), lens)[:2]
         rows.append(_tp_row(
             name, "decode_attn_block", tp, kv8, wd,
             {"B": B8, "D": D7, "H": H, "KV": H, "hd": HD7, "BS": BS16,
@@ -2664,8 +2576,8 @@ def tp_mlp_phase(gpu):
             raise AssertionError(f"{name} disagrees: {case}")
         if dtn != "bfloat16":
             continue
-        b_ms, b_by = bound((3 * D7 * F + 2 * B8 * D7 + D7) * 2,
-                           6 * B8 * D7 * F, "bfloat16")
+        b_ms, b_by = bound(lambda: fdb.decode_mlp_block_cuda(
+            *args, residual=False))[:2]
         rows.append(_tp_row(
             name, "decode_mlp_block", tp, False, None,
             {"B": B8, "D": D7, "F": F}, out["max_abs_err"],
@@ -2764,9 +2676,8 @@ def tp_prefill_phase(gpu):
         if dtn != "bfloat16":
             continue
         x, pos0, n = timed[0], timed[11], timed[12]
-        b_ms, b_by = bound(
-            prefill_bytes(P, n, pos0, D, H, H, hd, BS, 2, 1 if kv8 else None),
-            prefill_ops(n, pos0, D, H, H, hd), "bfloat16")
+        b_ms, b_by = bound(lambda: fpb.prefill_attn_block_cuda(
+            *timed, **kw, residual=False))[:2]
         rows.append(_tp_row(
             name, "prefill_attn_block", tp, kv8, None,
             {"P": P, "n_valid": n, "pos0": pos0, "D": D, "H": H, "KV": H,
@@ -3104,28 +3015,6 @@ def flat_size(cfg):
     return n + (-n) % 131072
 
 
-def attn_pairs(sq, sk, causal):
-    """(query, key) pairs one head attends: all, or under the
-    bottom-right causal mask (row r sees keys 0..r + sk - sq)."""
-    if not causal:
-        return sq * sk
-    return sq * (sk - sq + 1) + sq * (sq - 1) // 2
-
-
-def flash_costs(b, sq, sk, h, kvh, d, causal, item):
-    """(bytes, operations) of each flash kernel: every input read once and
-    every output written once; 2 operations per multiply-add of the
-    products each pass computes over the attended pairs (forward: S, PV;
-    dq pass: S, dP, dQ; dkv pass: S, dP, dV, dK)."""
-    pairs = b * h * attn_pairs(sq, sk, causal)
-    qb, kb, st = b * sq * h * d * item, b * sk * kvh * d * item, b * h * sq * 4
-    return {"flash_attention_fwd": (2 * qb + 2 * kb + st, 4 * d * pairs),
-            "flash_attention_bwd_dq": (3 * qb + 2 * kb + 2 * st,
-                                       6 * d * pairs),
-            "flash_attention_bwd_dkv": (2 * qb + 4 * kb + 2 * st,
-                                        8 * d * pairs)}
-
-
 def _held(got, want, dt, f32_tol, bf16_norm=False, floor=0.0):
     """f32: |got - want| <= f32_tol x max|want| + floor (the sums run in
     another order); bf16: two ulps as :func:`bf16_close` (plus
@@ -3245,7 +3134,6 @@ def flash_phase(gpu):
     sdpa["fwd_bwd_ms"] = cold_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(*leaves, is_causal=causal), leaves,
         dot))
-    costs = flash_costs(b, sq, sk, h, kvh, d, causal, q.element_size())
     fns = {"flash_attention_fwd": (lambda: kfa.flash_fwd_cuda(q, k, v,
                                                               causal),
                                    lambda: kfa.flash_fwd_ref(q, k, v, causal),
@@ -3259,7 +3147,7 @@ def flash_phase(gpu):
     rows = []
     for op in FLASH_OPS:
         kernel, plain_fn, lib = fns[op]
-        b_ms, b_by = bound(*costs[op], "bfloat16")
+        b_ms, b_by, nbytes, ops = bound(kernel)
         rows.append({
             "name": op, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[op],
@@ -3268,7 +3156,7 @@ def flash_phase(gpu):
             "dtype": "bfloat16", "max_abs_err": max_err[op],
             "ms": cold_ms(kernel), "plain_ms": cold_ms(plain_fn),
             "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": costs[op][0], "operations": costs[op][1],
+            "bytes": nbytes, "operations": ops,
             "library_ms": lib,
             "library": ("torch.nn.functional.scaled_dot_product_attention"
                         + (" forward" if op == "flash_attention_fwd" else
@@ -3357,7 +3245,8 @@ def adamw_phase(gpu, n_train):
     sc = torch.tensor(0.5, device="cuda")
     args = (p, g, m, v, 1e-4, step)
     # f32 master r/w, f32 grad r, bf16 moments r/w, bf16 shadow w
-    b_ms, b_by = bound(22 * n, 16 * n, "float32")
+    b_ms, b_by = bound(lambda: kfw.fused_adamw_triton(
+        *args, grad_scale=sc, shadow_dtype=bf16, **kw))[:2]
     row = {"name": "fused_adamw", "route": "triton", "source": ADAMW_SOURCE,
            "replaces": "paddle_tpu/ops/pallas/fused_adamw.py:93",
            "shape": {"n": n, "master": "float32", "grad": "float32",
@@ -3571,9 +3460,8 @@ def fused_train_phase(gpu):
     # -- timing at the train step's shapes ----------------------------------
     rows = []
 
-    def row(op, route, source, shape, dt, kernel, plain, nbytes, ops,
-            extra=None, peak="bfloat16"):
-        b_ms, b_by = bound(nbytes, ops, peak)
+    def row(op, route, source, shape, dt, kernel, plain, extra=None):
+        b_ms, b_by, nbytes, ops = bound(kernel)
         r = {"name": op, "route": route, "source": source,
              "replaces": FT_REPLACES[op], "shape": shape, "dtype": dt,
              "max_abs_err": max_err[op], "ms": cold_ms(kernel),
@@ -3588,30 +3476,27 @@ def fused_train_phase(gpu):
     n = x.numel()
     row("rms_norm_bwd", "triton", RMS_SOURCE, [T, D], "bfloat16",
         lambda: kn.rms_norm_bwd_triton(x, w, g, eps),
-        lambda: kn.rms_bwd_ref(eps, (x, w), g), 3 * 2 * n + 4 * D, 12 * n,
+        lambda: kn.rms_bwd_ref(eps, (x, w), g),
         {"library": "none (one wrapper call: the row kernel and the "
-                    "fixed-order dw sum)"}, "float32")
+                    "fixed-order dw sum)"})
     row("residual_rms_norm_fwd", "triton", RMS_SOURCE, [T, D], "bfloat16",
         lambda: kn.residual_rms_norm_fwd_triton(delta, x, w, eps),
         lambda: kn.residual_rms_norm_fwd_ref(delta, x, w, eps),
-        4 * 2 * n + 2 * D, 6 * n, {"library": "none"}, "float32")
+        {"library": "none"})
     del x, g, delta
     g, u, d = rn(T, F, scale=2), rn(T, F), rn(T, F)
     n = g.numel()
     row("swiglu_fwd", "triton", FT_TRITON_SOURCE, [T, F], "bfloat16",
         lambda: kft.swiglu_fwd_triton(g, u),
-        lambda: kft.swiglu_fwd_ref(g, u), 3 * 2 * n, 6 * n,
-        {"library": "none (F.silu(g) * u is two calls)"}, "float32")
+        lambda: kft.swiglu_fwd_ref(g, u),
+        {"library": "none (F.silu(g) * u is two calls)"})
     row("swiglu_bwd", "triton", FT_TRITON_SOURCE, [T, F], "bfloat16",
         lambda: kft.swiglu_bwd_triton(g, u, d),
-        lambda: kft.swiglu_bwd_ref(g, u, d), 5 * 2 * n, 10 * n,
-        {"library": "none"}, "float32")
+        lambda: kft.swiglu_bwd_ref(g, u, d), {"library": "none"})
     del g, u, d
     torch.cuda.empty_cache()
     x, head, lab, lse, coef = timed
     V = head.shape[1]
-    ce_ops = 2 * T * D * V
-    io = 2 * T * D + 2 * D * V + 8 * T
     pb = (torch.randn(T, V, generator=gen, device="cuda") * 1e-4).to(bf16)
     fwd_products = cold_ms(lambda: x @ head)
     dx_products = cold_ms(lambda: (x @ head, pb @ head.T))
@@ -3622,17 +3507,15 @@ def fused_train_phase(gpu):
             "on the same products")
     row("linear_ce_fwd", "cuda", CE_SOURCE, shape, "bfloat16",
         lambda: kft.linear_ce_fwd_cuda(x, head, lab),
-        lambda: kft.ce_fwd_ref(x, head, lab), io + 8 * T, ce_ops,
+        lambda: kft.ce_fwd_ref(x, head, lab),
         {"library": note, "products_ms": fwd_products})
     row("linear_ce_bwd_dx", "cuda", CE_SOURCE, shape, "bfloat16",
         lambda: kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef),
         lambda: kft.ce_bwd_dx_ref(x, head, lab, lse, coef),
-        io + 4 * T + 2 * T * D, 2 * ce_ops,
         {"library": note, "products_ms": dx_products})
     row("linear_ce_bwd_dh", "cuda", CE_SOURCE, shape, "bfloat16",
         lambda: kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef),
         lambda: kft.ce_bwd_dh_ref(x, head, lab, lse, coef),
-        io + 4 * T + 2 * D * V, 2 * ce_ops,
         {"library": note, "products_ms": dh_products})
     del x, head, lab, lse, coef, timed
     torch.cuda.empty_cache()
@@ -3818,6 +3701,7 @@ def train_phase(gpu, fused_train):
     the timed steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.analysis.kernel_rules import PEAK_OPS_PER_S
     from paddle_tpu_torch.distributed import Trainer
     from paddle_tpu_torch.distributed.trainer import tree_leaves
     from paddle_tpu_torch.models import init_params, llama
@@ -3900,7 +3784,8 @@ def train_phase(gpu, fused_train):
            "step_ms_mean": round(float(np.mean(step_ms)), 3),
            "wall_ms_per_step": round(wall_ms, 3),
            "tokens_per_sec": round(tps, 1),
-           "mfu": round(tps * flops_per_tok / PEAK_OPS_PER_S["bfloat16"], 4),
+           "mfu": round(tps * flops_per_tok / PEAK_OPS_PER_S["bfloat16"],
+                        4),
            "mfu_formula": "tokens/s x (6 N + 6 L S D) / 989e12 (bench.py)",
            "peak_memory_gb": round(peak_gb, 3),
            "launches": counts, "launches_per_step": {
@@ -3924,6 +3809,182 @@ def train_phase(gpu, fused_train):
     return counts, res
 
 
+# ---------------------------------------------------------------------------
+# the kernel-geometry gate on the card: the plans the serving and training
+# paths really launch, audited; the cooperative grids and the static shared
+# memory the card and ptxas report against the plans; and the gate's
+# regression specimen, launched
+# ---------------------------------------------------------------------------
+# each device kernel of a library (a substring of its mangled name) -> the
+# launch it belongs to
+PTXAS_KERNELS = {
+    "paged_attention": {"paged_attention_decode_kernel":
+                        "paged_attention_decode"},
+    "fused_decode_block": {"decode_attn_block_kernel": "decode_attn_block",
+                           "decode_mlp_block_kernel": "decode_mlp_block",
+                           "decode_block_fused_kernel": "decode_block_fused"},
+    "fused_prefill_block": {"prefill_attn_block_kernel":
+                            "prefill_attn_block"},
+    "flash_attention": {"dkv_kernel": "flash_attention_bwd_dkv",
+                        "dq_kernel": "flash_attention_bwd_dq",
+                        "fwd_kernel": "flash_attention_fwd"},
+    "linear_ce": {"ce_fwd_kernel": "linear_ce_fwd",
+                  "ce_fwd_combine": "linear_ce_fwd",
+                  "ce_dx_kernel": "linear_ce_bwd_dx",
+                  "ce_dh_kernel": "linear_ce_bwd_dh",
+                  "sum_cast": ("linear_ce_bwd_dx", "linear_ce_bwd_dh")},
+}
+DEMO_REPLACES = "paddle_tpu/analysis/kernel_catalog.py:864"
+
+
+def audit_phase(gpu, stream_specs):
+    """The gate over the launches the card made: ``stream_specs`` maps a
+    path ("serving_default", "train_default") to the plans captured while
+    it ran and its launch counts; every kernel the counts saw launch must
+    have a captured plan, every distinct plan is audited (0 findings), so
+    is the whole catalog (the CPU gate, here too). Each cooperative plan's
+    grid, which the wrapper took from the launcher's occupancy query on
+    the card, must equal the catalog's assumption (132 SMs times the blocks
+    an SM holds), and ptxas's static shared memory of every device kernel
+    must be at most its launch's declared figure."""
+    from paddle_tpu_torch.analysis.kernel_catalog import (audit_kernels,
+                                                          audit_specs,
+                                                          kernel_cases,
+                                                          capture_case)
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels.fused_decode_block import assumed_grid
+    t0 = time.perf_counter()
+    paths, grids = {}, {}
+    for path, (specs, counts) in stream_specs.items():
+        distinct = list({id(sp): sp for sp in specs}.values())
+        launched = sorted(k for k, n in counts.items()
+                          if isinstance(n, int) and n)
+        rep = audit_specs(distinct, f"{path}@card", launched)
+        paths[path] = {"launches": len(specs), "distinct_plans":
+                       len(distinct), "kernels": rep.meta["kernels"],
+                       "findings": [f.to_dict() for f in rep.findings]}
+        if rep.findings or not distinct:
+            emit({"phase": "audit", "gpu": gpu, "paths": paths})
+            raise AssertionError(f"the gate found {len(rep.findings)} "
+                                 f"finding(s) in {path}'s plans")
+        for sp in distinct:
+            if sp.cooperative:
+                want = assumed_grid(sp.name, sp.dyn_smem)
+                grids[(path, sp.name, sp.dyn_smem, sp.grid[0])] = {
+                    "path": path, "kernel": sp.name, "smem": sp.dyn_smem,
+                    "card": sp.grid[0], "assumed": want,
+                    "ok": sp.grid[0] == want}
+    grids = list(grids.values())
+    catalog = audit_kernels()
+    n_catalog = sum(len(r.findings) for r in catalog)
+    declared = {}
+    for case in kernel_cases():
+        specs, err = capture_case(case)
+        if err is not None:
+            raise AssertionError(f"{case.name} failed to capture: {err}")
+        for sp in specs:
+            declared[sp.name] = max(declared.get(sp.name, 0), sp.static_smem)
+    smem = []
+    for lib, kernels in PTXAS_KERNELS.items():
+        report = _ptxas(_build.library_path(lib).with_suffix(".log"))
+        for fn, lines in report.items():
+            launch = next((v for k, v in kernels.items() if k in fn), None)
+            if launch is None:
+                raise AssertionError(f"ptxas kernel {fn} of lib{lib} belongs "
+                                     "to no launch of the catalog")
+            for name in (launch if isinstance(launch, tuple) else (launch,)):
+                got = _static_smem(lines)
+                smem.append({"kernel": fn[:90], "launch": name,
+                             "ptxas_static": got,
+                             "declared": declared[name],
+                             "ok": got <= declared[name]})
+    ok = (all(g["ok"] for g in grids) and all(m["ok"] for m in smem)
+          and n_catalog == 0)
+    res = {"phase": "audit", "gpu": gpu, "paths": paths,
+           "cooperative_grids": grids, "catalog_cases": len(catalog),
+           "catalog_findings": n_catalog, "static_smem": smem, "ok": ok,
+           "seconds": round(time.perf_counter() - t0, 3)}
+    emit(res)
+    if not ok:
+        raise AssertionError("audit phase: a grid, a static shared-memory "
+                             "figure or the catalog disagrees")
+    return res
+
+
+def demo_phase(gpu):
+    """The gate's regression specimen on the card: decode_mlp_block's
+    kernel under the floor-divided plan (``demo_prefix_mlp_block_cuda``) at
+    the JAX specimen's geometry (B 2, D 32, F 96, tile 64) in bf16. It
+    must hold its plain version (the MLP over the first 64 intermediate
+    columns) at decode_mlp_block's bf16 tolerance (bf16_close), relaunch
+    bit for bit, differ from the full MLP by more than ten times that
+    tolerance (the dropped columns are real), and its captured plan must
+    give exactly the three GRID_FLOOR_DROP findings on wg, wu and wd.
+    Timed beside its bound and its plain version; the launches are this
+    phase's (no path runs it)."""
+    import torch
+    from paddle_tpu_torch.analysis.kernel_catalog import (DEMO_SHAPE,
+                                                          audit_specs)
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    from paddle_tpu_torch.ops.kernels._launch import capture_kernel_launches
+    B, D, F = (DEMO_SHAPE[k] for k in ("B", "D", "F"))
+    tile = fdb.DEMO_TILE
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bf16 = torch.bfloat16
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * std).to(bf16)
+    x = rn(B, D)
+    nw = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(bf16)
+    args = (x, nw, rn(D, F, std=0.3), rn(D, F, std=0.3), rn(F, D, std=0.3))
+    wrapper = fdb.demo_prefix_mlp_block_cuda
+    wrapper.launches = 0
+    with capture_kernel_launches() as specs:
+        got = wrapper(*args)
+    again = wrapper(*args)
+    want = fdb.demo_prefix_mlp_block_ref(*args)
+    full = fdb.mlp_block_ref(*args)
+    torch.cuda.synchronize()
+    launches = wrapper.launches
+    held, worst = bf16_close(got, want)
+    _, worst_full = bf16_close(got, full)
+    rep = audit_specs(specs, "demo_prefix_mlp_block@card",
+                      ("demo_prefix_mlp_block",))
+    sites = sorted(f.site.split("/")[1] for f in rep.findings)
+    codes = {f.code for f in rep.findings}
+    case = {"shape": {"B": B, "D": D, "F": F, "tile": tile},
+            "dtype": "bfloat16", "plan": specs[0].plan,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "worst_in_tol_units": worst / 2 ** -6,
+            "vs_full_max_abs": float((got.float() - full.float()).abs()
+                                     .max()),
+            "vs_full_in_tol_units": worst_full / 2 ** -6,
+            "bitwise_repeatable": bool(torch.equal(got, again)),
+            "findings": [(f.code, f.site,
+                          f.detail.get("first_missing_element"))
+                         for f in rep.findings]}
+    case["ok"] = (held and case["bitwise_repeatable"]
+                  and worst_full > 10 * 2 ** -6
+                  and codes == {"GRID_FLOOR_DROP"}
+                  and sites == ["wd", "wg", "wu"])
+    emit({"phase": "demo", "gpu": gpu, "case": case})
+    if not case["ok"]:
+        raise AssertionError(f"demo_prefix_mlp_block: {case}")
+    b_ms, b_by = bound(lambda: wrapper(*args))[:2]
+    return {"name": "demo_prefix_mlp_block", "route": "cuda",
+            "source": FUSED_SOURCE, "replaces": DEMO_REPLACES,
+            "shape": case["shape"], "dtype": "bfloat16",
+            "max_abs_err": case["max_abs_err"],
+            "ms": cold_ms(lambda: wrapper(*args)),
+            "plain_ms": cold_ms(lambda: fdb.demo_prefix_mlp_block_ref(
+                *args)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": "none: no single PyTorch call computes the block",
+            "launches": launches, "launches_route": "demo phase",
+            "ok": True}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3932,6 +3993,7 @@ def main():
         return 1
     import paddle_tpu_torch  # noqa: F401  (fails outside the repository)
     from paddle_tpu_torch.models import LLAMA_7B, init_params
+    from paddle_tpu_torch.ops.kernels._launch import capture_kernel_launches
     t_start = time.perf_counter()
     gpu = gpu_line()
     build_kernels()
@@ -3941,11 +4003,16 @@ def main():
     kv8_rows = kv8_kernel_phases(gpu)
     tp_rows = tp_kernel_phases(gpu)
     ln_row = layer_norm_phase(gpu)
+    demo_row = demo_phase(gpu)
     train_rows = flash_phase(gpu) + [adamw_phase(gpu,
                                                  flat_size(train_config()))]
     train_rows += fused_train_phase(gpu)
     train_parity_phase(gpu)
-    train_counts, _ = train_phase(gpu, None)
+    # the plans of the default train route's launches (the gate audits
+    # them after the serving phases); the backward's run on autograd's
+    # device thread
+    with capture_kernel_launches(all_threads=True) as train_specs:
+        train_counts, _ = train_phase(gpu, None)
     ref_counts, _ = train_phase(gpu, "ref")
     for wq in (None, "int8", "int4"):
         parity_phase(gpu, wq)
@@ -3955,11 +4022,17 @@ def main():
     counts, tokens = {}, {}
     prompts = None
     for route in ROUTES:
-        counts[route], eng, prompts, tokens[route] = serving_phase(
-            gpu, params, route)
+        with capture_kernel_launches() as specs:
+            counts[route], eng, prompts, tokens[route] = serving_phase(
+                gpu, params, route)
+        if route == "default":
+            serving_specs = specs
         profile_phase(gpu, eng, route)
         del eng
     routes_phase(gpu, params, prompts, tokens)
+    audit_phase(gpu, {"serving_default": (serving_specs, counts["default"]),
+                      "train_default": (train_specs, train_counts)})
+    del serving_specs, train_specs
     # this slice's main path: the weight-quantized routes (a profile of the
     # int8 default route's decode step)
     for route in QUANT_ROUTES:
@@ -4043,7 +4116,7 @@ def main():
                            if route else 0)
         row["launches_route"] = route
     rows += tp_rows
-    rows.append(ln_row)
+    rows += [ln_row, demo_row]
     for row in train_rows:
         # the training kernels' launches on the default route's timed
         # steps (the main path), and on the "ref" route's

@@ -1,0 +1,696 @@
+"""The kernel catalog of the port's geometry gate (port of
+``paddle_tpu/analysis/kernel_catalog.py``).
+
+Every launch the port ships, captured at two shape classes: ``tiny`` (the
+shapes the CPU tests run; the JAX catalog's tiny cases, where the port's
+kernels take them) and ``flagship``: the LLaMA-7B serving shapes (D 4096,
+H = KV = 32, hd 128, F 11008, 8 slots, 16-token pages, 72 of them a
+sequence, 128-row prefill chunks at position 512) and the "1.07B-h4096"
+training rung (batch 2 x 2048 tokens at 7B widths, vocab 32000) of
+``PERF.md`` section 4, in the weight (int8, int4), pool (int8) and
+tensor-parallel shard (``residual=False``) classes where the launch has
+them. Capturing calls each wrapper over meta tensors under
+:class:`~paddle_tpu_torch.ops.kernels._launch.capture_kernel_launches`:
+no card, no compute, nothing counted; a flagship grid is the H100's (132
+SMs times the kernel's blocks an SM).
+
+Each case declares the launch names it must capture; one that stops
+capturing a declared kernel is a ``COVERAGE_GAP`` finding, so the gate
+cannot shrink silently. :data:`ALL_KERNEL_NAMES` (the 18 launches, the
+JAX set) is the union of those declarations.
+
+:data:`FLOP_FORMULAS` copies the JAX package's per-launch FLOP model,
+read off the port's spec (:func:`modeled_flops`, the full-table model,
+equal to the JAX catalog's at the cases the two share);
+:func:`needed_flops` counts what one launch's data needs (causal pairs,
+live lengths), the operations half of :func:`.kernel_rules.bound`.
+
+:func:`build_demo_kernel_regression` audits the deliberate regression
+specimen (``demo_prefix_mlp_block``: decode_mlp_block's kernel under a
+floor-divided tile count that drops the last intermediate columns), never
+part of the default catalog.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+from .auditor import AuditReport
+from .kernel_rules import check_launch
+from .rules import Finding
+
+__all__ = ["KernelCase", "kernel_cases", "capture_case", "audit_case",
+           "audit_kernels", "build_demo_kernel_regression",
+           "ALL_KERNEL_NAMES", "KERNEL_CASE_NAMES", "FLOP_FORMULAS",
+           "modeled_flops", "needed_flops", "flop_formula_findings",
+           "DEMO_SHAPE"]
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCase:
+    """One audited (kernel family, shape class): ``build()`` returns a
+    function that calls the family's wrappers over meta tensors;
+    ``kernels`` declares the launch names calling it must capture."""
+    op: str
+    case: str
+    kernels: Tuple[str, ...]
+    build: Callable[[], Callable[[], object]]
+
+    @property
+    def name(self) -> str:
+        return f"{self.op}@{self.case}"
+
+
+def _meta(shape, dtype="bfloat16"):
+    import torch
+    return torch.empty(tuple(shape), dtype=getattr(torch, dtype),
+                       device="meta")
+
+
+def _wq(shape, wq, pack_axis=0):
+    """A weight of logical ``shape``: a plain meta tensor (``wq`` None),
+    or a quantized leaf of the PTQ harness (int8; int4 packed along
+    ``pack_axis``) with its f32 scale over the last axis."""
+    if wq is None:
+        return None
+    qshape = list(shape)
+    if wq == "int4":
+        qshape[pack_axis] //= 2
+    return {"qw4" if wq == "int4" else "qw8": _meta(qshape, "int8"),
+            "scale": _meta((shape[-1],), "float32")}
+
+
+# -- per-family builders ------------------------------------------------
+
+
+def _rms_case(rows, d, dtype, residual=False):
+    def build():
+        from ..ops.kernels import norms
+
+        def fn():
+            x, w = _meta((rows, d), dtype), _meta((d,), dtype)
+            if residual:
+                norms.residual_rms_norm_fwd_triton(x, x, w)
+            else:
+                norms.rms_norm_fwd_triton(x, w)
+            norms.rms_norm_bwd_triton(x, w, x)
+        return fn
+    return build
+
+
+def _layer_norm_case(rows, d, dtype):
+    def build():
+        from ..ops.kernels import norms
+
+        def fn():
+            w = _meta((d,), dtype)
+            norms.layer_norm_fwd_triton(_meta((rows, d), dtype), w, w)
+        return fn
+    return build
+
+
+def _adamw_case(n, grad_dt, m_dt, shadow):
+    def build():
+        import torch
+
+        from ..ops.kernels import fused_adamw
+
+        def fn():
+            fused_adamw.fused_adamw_triton(
+                _meta((n,), "float32"), _meta((n,), grad_dt),
+                _meta((n,), m_dt), _meta((n,), m_dt), 1e-3, 2,
+                shadow_dtype=getattr(torch, shadow) if shadow else None)
+        return fn
+    return build
+
+
+def _paged_case(B, H, KV, hd, BS, N, MB, dtype):
+    def build():
+        from ..ops.kernels import paged_attention
+
+        def fn():
+            pool = _meta((N, BS, KV, hd), dtype)
+            paged_attention.paged_attention_decode_cuda(
+                _meta((B, H, hd), dtype), pool, pool,
+                _meta((B, MB), "int32"), _meta((B,), "int32"))
+        return fn
+    return build
+
+
+def _flash_case(B, S, H, KVH, hd, dtype, causal=True):
+    def build():
+        from ..ops.kernels import flash_attention as fa
+
+        def fn():
+            q, k = _meta((B, S, H, hd), dtype), _meta((B, S, KVH, hd), dtype)
+            st = _meta((B, H, S), "float32")
+            fa.flash_fwd_cuda(q, k, k, causal)
+            fa.flash_bwd_dq_cuda(q, k, k, q, st, st, causal)
+            fa.flash_bwd_dkv_cuda(q, k, k, q, st, st, causal)
+        return fn
+    return build
+
+
+def _pools(N, BS, KV, hd, dtype, quant):
+    pool = _meta((N, BS, KV, hd), "int8" if quant else dtype)
+    scales = ((_meta((KV,), "float32"), _meta((KV,), "float32"))
+              if quant else None)
+    return pool, scales
+
+
+def _attn_weights(D, H, KV, hd, dtype, wq):
+    shapes = ((D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D))
+    return [_wq(s, wq) or _meta(s, dtype) for s in shapes]
+
+
+def _mlp_weights(D, F, dtype, wq):
+    return [_wq((D, F), wq) or _meta((D, F), dtype),
+            _wq((D, F), wq) or _meta((D, F), dtype),
+            _wq((F, D), wq, pack_axis=1) or _meta((F, D), dtype)]
+
+
+def _attn_block_case(B, D, H, KV, hd, BS, N, MB, dtype, quant=False,
+                     wq=None, residual=True):
+    def build():
+        from ..ops.kernels import fused_decode_block as fdb
+
+        def fn():
+            pool, scales = _pools(N, BS, KV, hd, dtype, quant)
+            rope = _meta((MB * BS + 1, hd // 2), "float32")
+            fdb.decode_attn_block_cuda(
+                _meta((B, D), dtype), _meta((D,), dtype),
+                *_attn_weights(D, H, KV, hd, dtype, wq), rope, rope, pool,
+                pool, _meta((B, MB), "int32"), _meta((B,), "int32"),
+                kv_scales=scales, residual=residual)
+        return fn
+    return build
+
+
+def _mlp_block_case(B, D, F, dtype, wq=None, residual=True):
+    def build():
+        from ..ops.kernels import fused_decode_block as fdb
+
+        def fn():
+            fdb.decode_mlp_block_cuda(
+                _meta((B, D), dtype), _meta((D,), dtype),
+                *_mlp_weights(D, F, dtype, wq), residual=residual)
+        return fn
+    return build
+
+
+def _block_case(B, D, H, KV, hd, F, BS, N, MB, dtype, quant=False, wq=None):
+    def build():
+        from ..ops.kernels import fused_decode_block as fdb
+
+        def fn():
+            pool, scales = _pools(N, BS, KV, hd, dtype, quant)
+            rope = _meta((MB * BS + 1, hd // 2), "float32")
+            nw = _meta((D,), dtype)
+            fdb.decode_block_fused_cuda(
+                _meta((B, D), dtype), nw,
+                *_attn_weights(D, H, KV, hd, dtype, wq), nw,
+                *_mlp_weights(D, F, dtype, wq), rope, rope, pool, pool,
+                _meta((B, MB), "int32"), _meta((B,), "int32"),
+                kv_scales=scales)
+        return fn
+    return build
+
+
+def _prefill_case(P, D, H, KV, hd, BS, N, MB, dtype, pos0, quant=False,
+                  wq=None, residual=True):
+    def build():
+        from ..ops.kernels import fused_prefill_block as fpb
+
+        def fn():
+            pool, scales = _pools(N, BS, KV, hd, dtype, quant)
+            rope = _meta((P, hd // 2), "float32")
+            fpb.prefill_attn_block_cuda(
+                _meta((P, D), dtype), _meta((D,), dtype),
+                *_attn_weights(D, H, KV, hd, dtype, wq), rope, rope, pool,
+                pool, _meta((MB,), "int32"), pos0, P, kv_scales=scales,
+                residual=residual)
+        return fn
+    return build
+
+
+def _linear_ce_case(T, D, V, dtype):
+    def build():
+        from ..ops.kernels import fused_train as ft
+
+        def fn():
+            x, head = _meta((T, D), dtype), _meta((D, V), dtype)
+            labels = _meta((T,), "int64")
+            lse, coef = _meta((T,), "float32"), _meta((), "float32")
+            ft.linear_ce_fwd_cuda(x, head, labels)
+            ft.linear_ce_bwd_dx_cuda(x, head, labels, lse, coef)
+            ft.linear_ce_bwd_dh_cuda(x, head, labels, lse, coef)
+        return fn
+    return build
+
+
+def _swiglu_case(R, F, dtype):
+    def build():
+        from ..ops.kernels import fused_train as ft
+
+        def fn():
+            g = _meta((R, F), dtype)
+            ft.swiglu_fwd_triton(g, g)
+            ft.swiglu_bwd_triton(g, g, g)
+        return fn
+    return build
+
+
+_CE_KERNELS = ("linear_ce_fwd", "linear_ce_bwd_dx", "linear_ce_bwd_dh")
+_FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
+# the flagship shapes: LLaMA-7B serving (PERF.md section 4) and the
+# training rung "1.07B-h4096" (batch 2 x 2048 tokens)
+_D, _H, _HD, _F, _B, _BS, _MB = 4096, 32, 128, 11008, 8, 16, 72
+_N = _B * _MB + 1
+_P, _POS0 = 128, 512
+_T, _V = 2 * 2048, 32000
+_NPARAM = 1_071_775_744
+
+
+def kernel_cases() -> List[KernelCase]:
+    """The default gate set: every launch at its tiny and flagship shape
+    classes (building is import-cheap; capturing happens in
+    :func:`capture_case`)."""
+    C = KernelCase
+    bf, f32 = "bfloat16", "float32"
+    attn7 = (_B, _D, _H, _H, _HD, _BS, _N, _MB, bf)
+    pre7 = (_P, _D, _H, _H, _HD, _BS, _N, _MB, bf, _POS0)
+    block7 = (_B, _D, _H, _H, _HD, _F, _BS, _N, _MB, bf)
+    return [
+        C("rms_norm", "tiny", ("rms_norm_fwd", "rms_norm_bwd"),
+          _rms_case(24, 128, f32)),
+        C("rms_norm", "flagship_train", ("rms_norm_fwd", "rms_norm_bwd"),
+          _rms_case(_T, _D, bf)),
+        C("rms_norm", "flagship_serving", ("rms_norm_fwd", "rms_norm_bwd"),
+          _rms_case(_B, _D, bf)),
+        C("rms_norm_residual", "tiny",
+          ("residual_rms_norm_fwd", "rms_norm_bwd"),
+          _rms_case(24, 128, f32, residual=True)),
+        C("rms_norm_residual", "flagship_train",
+          ("residual_rms_norm_fwd", "rms_norm_bwd"),
+          _rms_case(_T, _D, bf, residual=True)),
+        C("layer_norm", "tiny", ("layer_norm_fwd",),
+          _layer_norm_case(24, 128, f32)),
+        C("layer_norm", "flagship_train", ("layer_norm_fwd",),
+          _layer_norm_case(4096, 1024, f32)),
+        C("fused_adamw", "tiny", ("fused_adamw",),
+          _adamw_case(1024, f32, f32, None)),
+        C("fused_adamw", "flagship_train", ("fused_adamw",),
+          _adamw_case(_NPARAM, f32, bf, bf)),
+        C("paged_attention", "tiny", ("paged_attention_decode",),
+          _paged_case(2, 4, 2, 16, 8, 8, 4, f32)),
+        C("paged_attention", "flagship_serving",
+          ("paged_attention_decode",),
+          _paged_case(_B, _H, _H, _HD, _BS, _N, _MB, bf)),
+        C("flash_attention", "tiny", _FLASH_KERNELS,
+          _flash_case(1, 128, 4, 2, 64, f32)),
+        C("flash_attention", "flagship_train", _FLASH_KERNELS,
+          _flash_case(2, 2048, _H, _H, _HD, bf)),
+        C("decode_attn_block", "tiny", ("decode_attn_block",),
+          _attn_block_case(2, 32, 2, 2, 16, 8, 8, 4, f32)),
+        C("decode_attn_block", "tiny_int8_weights", ("decode_attn_block",),
+          _attn_block_case(2, 32, 2, 2, 16, 8, 8, 4, f32, wq="int8")),
+        C("decode_attn_block", "flagship_serving", ("decode_attn_block",),
+          _attn_block_case(*attn7)),
+        C("decode_attn_block", "flagship_serving_int8",
+          ("decode_attn_block",), _attn_block_case(*attn7, quant=True)),
+        C("decode_attn_block", "flagship_serving_int8_weights",
+          ("decode_attn_block",), _attn_block_case(*attn7, wq="int8")),
+        C("decode_attn_block", "flagship_serving_int4_weights",
+          ("decode_attn_block",), _attn_block_case(*attn7, wq="int4")),
+        C("decode_attn_block", "flagship_serving_tp2_partial",
+          ("decode_attn_block",),
+          _attn_block_case(_B, _D, 16, 16, _HD, _BS, _N, _MB, bf,
+                           residual=False)),
+        C("decode_block_fused", "tiny", ("decode_block_fused",),
+          _block_case(2, 32, 2, 2, 16, 64, 8, 8, 4, f32)),
+        C("decode_block_fused", "flagship_serving", ("decode_block_fused",),
+          _block_case(*block7)),
+        C("decode_block_fused", "flagship_serving_int8",
+          ("decode_block_fused",), _block_case(*block7, quant=True)),
+        C("decode_block_fused", "flagship_serving_int8_weights",
+          ("decode_block_fused",), _block_case(*block7, wq="int8")),
+        C("decode_block_fused", "flagship_serving_int4_weights",
+          ("decode_block_fused",), _block_case(*block7, wq="int4")),
+        C("decode_mlp_block", "tiny", ("decode_mlp_block",),
+          _mlp_block_case(2, 32, 64, f32)),
+        C("decode_mlp_block", "tiny_int4_weights", ("decode_mlp_block",),
+          _mlp_block_case(2, 32, 64, f32, wq="int4")),
+        C("decode_mlp_block", "flagship_serving", ("decode_mlp_block",),
+          _mlp_block_case(_B, _D, _F, bf)),
+        C("decode_mlp_block", "flagship_serving_int8_weights",
+          ("decode_mlp_block",), _mlp_block_case(_B, _D, _F, bf, wq="int8")),
+        C("decode_mlp_block", "flagship_serving_int4_weights",
+          ("decode_mlp_block",), _mlp_block_case(_B, _D, _F, bf, wq="int4")),
+        C("decode_mlp_block", "flagship_serving_tp2_partial",
+          ("decode_mlp_block",),
+          _mlp_block_case(_B, _D, _F // 2, bf, residual=False)),
+        C("prefill_attn_block", "tiny", ("prefill_attn_block",),
+          _prefill_case(16, 32, 4, 2, 16, 8, 9, 6, f32, 10)),
+        C("prefill_attn_block", "flagship_serving", ("prefill_attn_block",),
+          _prefill_case(*pre7)),
+        C("prefill_attn_block", "flagship_serving_int8",
+          ("prefill_attn_block",), _prefill_case(*pre7, quant=True)),
+        C("prefill_attn_block", "flagship_serving_int8_weights",
+          ("prefill_attn_block",), _prefill_case(*pre7, wq="int8")),
+        C("prefill_attn_block", "flagship_serving_int4_weights",
+          ("prefill_attn_block",), _prefill_case(*pre7, wq="int4")),
+        # the prefill MLP runs the decode MLP kernel at chunk rows
+        C("prefill_mlp_block", "flagship_serving", ("decode_mlp_block",),
+          _mlp_block_case(_P, _D, _F, bf)),
+        C("fused_linear_ce", "tiny", _CE_KERNELS,
+          _linear_ce_case(24, 64, 128, f32)),
+        C("fused_linear_ce", "flagship_train", _CE_KERNELS,
+          _linear_ce_case(_T, _D, _V, bf)),
+        C("fused_swiglu", "tiny", ("swiglu_fwd", "swiglu_bwd"),
+          _swiglu_case(16, 64, f32)),
+        C("fused_swiglu", "flagship_train", ("swiglu_fwd", "swiglu_bwd"),
+          _swiglu_case(_T, _F, bf)),
+    ]
+
+
+KERNEL_CASE_NAMES: Tuple[str, ...] = tuple(c.name for c in kernel_cases())
+
+#: every audited launch name: the 18 launches of the JAX package
+ALL_KERNEL_NAMES = frozenset(k for c in kernel_cases() for k in c.kernels)
+
+
+# -- modeled FLOPs --------------------------------------------------------
+# The JAX package's per-launch formulas (a [m,k]x[k,n] product is 2mkn;
+# elementwise work at its documented constants), read off the port's
+# spec. With ``needed`` False they are the JAX model: full block tables,
+# no causal halving. With ``needed`` True they count what the launch's
+# data needs: the live lengths of the pools (``live``, tokens a sequence
+# already holds; by default the launch's own), the real rows of a prefill
+# chunk and the pairs under the causal mask.
+
+
+def _prod(shape) -> int:
+    out = 1
+    for s in shape:
+        out *= int(s)
+    return out
+
+
+def _dims(spec, *names):
+    return [spec.operand(n).shape for n in names]
+
+
+def _table(spec):
+    """(sequences, table width MB, page size BS)."""
+    table = next(op for op in spec.inputs if op.paged == "pages")
+    pool = next(op for op in spec.inputs if op.paged == "tokens")
+    rows = table.shape[0] if len(table.shape) == 2 else 1
+    return rows, table.shape[-1], pool.shape[1]
+
+
+def _flops_rms_fwd(spec, needed, live):
+    return 4.0 * _prod(spec.operand("x").shape)
+
+
+def _flops_rms_bwd(spec, needed, live):
+    return 10.0 * _prod(spec.operand("x").shape)
+
+
+def _flops_res_rms_fwd(spec, needed, live):
+    return 5.0 * _prod(spec.operand("x").shape)
+
+
+def _flops_layer_norm_fwd(spec, needed, live):
+    return 6.0 * _prod(spec.operand("x").shape)
+
+
+def _flops_adamw(spec, needed, live):
+    return 12.0 * _prod(spec.operand("param").shape)
+
+
+def _attended(spec, needed, live, new_token):
+    """Key positions a head attends over all sequences: the full tables,
+    or the live tokens (plus the new one in a decode block)."""
+    rows, MB, BS = _table(spec)
+    if not needed:
+        return rows * MB * BS
+    from .kernel_rules import _live
+    return sum(n + new_token for n in _live(spec, live))
+
+
+def _flops_paged_decode(spec, needed, live):
+    _, H, hd = spec.operand("q").shape
+    return 4.0 * H * hd * _attended(spec, needed, live, 0)
+
+
+def _attn_products(B, D, Hhd, KVhd):
+    return B * (4.0 * D + 2.0 * D * Hhd + 4.0 * D * KVhd + 2.0 * Hhd * D)
+
+
+def _flops_decode_attn_block(spec, needed, live):
+    (B, D), (_, Hhd), (_, KVhd) = _dims(spec, "x", "wq", "wk")
+    return (_attn_products(B, D, Hhd, KVhd)
+            + 4.0 * Hhd * _attended(spec, needed, live, 1))
+
+
+def _mlp_flops(B, D, F):
+    return B * (4.0 * D + 6.0 * D * F + 4.0 * F)
+
+
+def _flops_decode_mlp_block(spec, needed, live):
+    (B, D), (_, F) = _dims(spec, "x", "wg")
+    return _mlp_flops(B, D, F)
+
+
+def _flops_demo_mlp(spec, needed, live):
+    (B, D), = _dims(spec, "x")
+    return _mlp_flops(B, D, spec.plan["down_k"])
+
+
+def _flops_decode_block_fused(spec, needed, live):
+    (B, D), (_, Hhd), (_, KVhd), (_, F) = _dims(spec, "x", "wq", "wk", "wg")
+    return (_attn_products(B, D, Hhd, KVhd) + 4.0 * B * D
+            + 4.0 * Hhd * _attended(spec, needed, live, 1)
+            + B * (6.0 * D * F + 4.0 * F))
+
+
+def _flops_prefill_attn_block(spec, needed, live):
+    (P, D), (_, Hhd), (_, KVhd) = _dims(spec, "x", "wq", "wk")
+    if not needed:
+        _, MB, BS = _table(spec)
+        return _attn_products(P, D, Hhd, KVhd) + 4.0 * P * Hhd * MB * BS
+    n, pos0 = spec.params["n_valid"], spec.params["pos0"]
+    attended = sum(pos0 + r + 1 for r in range(n))
+    return _attn_products(n, D, Hhd, KVhd) + 4.0 * Hhd * attended
+
+
+def _flash_pairs(spec, needed):
+    b, sq, h, d = spec.operand("q").shape
+    sk = spec.operand("k").shape[1]
+    if needed and spec.params["causal"]:
+        pairs = sq * (sk - sq + 1) + sq * (sq - 1) // 2
+    else:
+        pairs = sq * sk
+    return float(b * h * pairs * d)
+
+
+def _flops_flash_fwd(spec, needed, live):
+    return 4.0 * _flash_pairs(spec, needed)
+
+
+def _flops_flash_bwd_dq(spec, needed, live):
+    return 6.0 * _flash_pairs(spec, needed)
+
+
+def _flops_flash_bwd_dkv(spec, needed, live):
+    return 8.0 * _flash_pairs(spec, needed)
+
+
+def _flops_ce_fwd(spec, needed, live):
+    (T, D), (_, V) = _dims(spec, "x", "head")
+    return 2.0 * T * D * V + 3.0 * T * V
+
+
+def _flops_ce_bwd(spec, needed, live):
+    (T, D), (_, V) = _dims(spec, "x", "head")
+    return 4.0 * T * D * V
+
+
+def _flops_swiglu_fwd(spec, needed, live):
+    return 5.0 * _prod(spec.operand("gate").shape)
+
+
+def _flops_swiglu_bwd(spec, needed, live):
+    return 10.0 * _prod(spec.operand("gate").shape)
+
+
+#: launch name -> FLOP formula ``(spec, needed, live)``; every member of
+#: ALL_KERNEL_NAMES has one (:func:`flop_formula_findings`), and so has
+#: the gate's regression specimen
+FLOP_FORMULAS: Dict[str, Callable] = {
+    "rms_norm_fwd": _flops_rms_fwd,
+    "rms_norm_bwd": _flops_rms_bwd,
+    "residual_rms_norm_fwd": _flops_res_rms_fwd,
+    "layer_norm_fwd": _flops_layer_norm_fwd,
+    "fused_adamw": _flops_adamw,
+    "paged_attention_decode": _flops_paged_decode,
+    "decode_attn_block": _flops_decode_attn_block,
+    "decode_mlp_block": _flops_decode_mlp_block,
+    "decode_block_fused": _flops_decode_block_fused,
+    "prefill_attn_block": _flops_prefill_attn_block,
+    "flash_attention_fwd": _flops_flash_fwd,
+    "flash_attention_bwd_dq": _flops_flash_bwd_dq,
+    "flash_attention_bwd_dkv": _flops_flash_bwd_dkv,
+    "linear_ce_fwd": _flops_ce_fwd,
+    "linear_ce_bwd_dx": _flops_ce_bwd,
+    "linear_ce_bwd_dh": _flops_ce_bwd,
+    "swiglu_fwd": _flops_swiglu_fwd,
+    "swiglu_bwd": _flops_swiglu_bwd,
+    "demo_prefix_mlp_block": _flops_demo_mlp,
+}
+
+
+def modeled_flops(spec) -> Optional[float]:
+    """The JAX package's modeled FLOPs of one launch (full tables, no
+    causal halving), or None when the launch has no formula (a
+    FLOP_FORMULA_GAP finding, not a silent zero)."""
+    fn = FLOP_FORMULAS.get(spec.name)
+    return None if fn is None else float(fn(spec, False, None))
+
+
+def needed_flops(spec, seq_lens=None) -> float:
+    """The operations one launch's data needs: the live lengths
+    (``seq_lens``, tokens in the pools of each sequence; by default the
+    launch's own, else the full tables), the real rows of a prefill chunk,
+    the pairs under the causal mask."""
+    return float(FLOP_FORMULAS[spec.name](spec, True, seq_lens))
+
+
+def flop_formula_findings() -> List[Finding]:
+    """A finding for each audited launch without a FLOP formula: it would
+    fall out of every bound silently."""
+    return [Finding(
+        rule="kernel_auditor", code="FLOP_FORMULA_GAP", severity="error",
+        program="flop_formulas", site=name,
+        message=(f"audited kernel {name!r} has no FLOP formula in "
+                 "kernel_catalog.FLOP_FORMULAS: its bound would have no "
+                 "operations; register one beside its cases"),
+        detail={"kernel": name, "registered": sorted(FLOP_FORMULAS)})
+        for name in sorted(ALL_KERNEL_NAMES - set(FLOP_FORMULAS))]
+
+
+# -- capture and audit ----------------------------------------------------
+
+
+def capture_case(case: KernelCase):
+    """Run one case under launch capture. Returns (specs, error)."""
+    from ..ops.kernels._launch import capture_kernel_launches
+    try:
+        fn = case.build()
+        with capture_kernel_launches() as specs:
+            fn()
+        return specs, None
+    except Exception as e:  # noqa: BLE001 - a broken capture is a finding
+        return [], e
+
+
+def audit_specs(specs, program, declared=()) -> AuditReport:
+    """Every rule over captured ``specs``; a declared launch name the
+    capture lacks is a COVERAGE_GAP finding."""
+    report = AuditReport(program=program, rules_run=["kernel_geometry"])
+    captured = {s.name for s in specs}
+    for missing in sorted(set(declared) - captured):
+        report.findings.append(Finding(
+            rule="kernel_auditor", code="COVERAGE_GAP", severity="error",
+            program=program, site=missing,
+            message=(f"case declares kernel {missing!r} but the capture "
+                     f"recorded only {sorted(captured)}: a launch stopped "
+                     "passing _launch.begin (or the case no longer "
+                     "reaches it)"),
+            detail={"declared": sorted(declared),
+                    "captured": sorted(captured)}))
+    seen = set()
+    for spec in specs:
+        if id(spec) in seen:     # a cached plan recorded twice
+            continue
+        seen.add(id(spec))
+        report.findings.extend(check_launch(spec, program=program))
+    report.meta["kernels"] = sorted(captured)
+    report.meta["launches"] = len(specs)
+    return report
+
+
+def audit_case(case: KernelCase) -> AuditReport:
+    """Capture one case and run every rule; a capture that fails, or a
+    declared launch it does not record, is itself a finding."""
+    specs, err = capture_case(case)
+    if err is not None:
+        report = AuditReport(program=case.name,
+                             rules_run=["kernel_geometry"])
+        report.findings.append(Finding(
+            rule="kernel_auditor", code="TRACE_ERROR", severity="error",
+            program=case.name, site=type(err).__name__,
+            message=(f"kernel case failed to capture: "
+                     f"{type(err).__name__}: {err}"),
+            detail={"exception": type(err).__name__}))
+        report.meta["trace_error"] = str(err)
+        return report
+    return audit_specs(specs, case.name, case.kernels)
+
+
+def audit_kernels(names: Optional[List[str]] = None) -> List[AuditReport]:
+    """Audit the catalog (every case, or the ``op`` / ``op@case``
+    subset), plus the FLOP-formula coverage. A name the catalog does not
+    know raises ValueError instead of gating nothing."""
+    cases = kernel_cases()
+    formulas = True
+    if names is not None:
+        wanted = set(names)
+        known = ({c.name for c in cases} | {c.op for c in cases}
+                 | {"flop_formulas"})
+        unknown = wanted - known
+        if unknown:
+            raise ValueError(f"unknown kernel case(s): {sorted(unknown)}; "
+                             f"known: {sorted(known)}")
+        cases = [c for c in cases if c.name in wanted or c.op in wanted]
+        formulas = "flop_formulas" in wanted
+    reports = [audit_case(c) for c in cases]
+    if formulas:
+        rep = AuditReport(program="flop_formulas",
+                          rules_run=["flop_formulas"])
+        rep.findings.extend(flop_formula_findings())
+        rep.meta["registered"] = sorted(FLOP_FORMULAS)
+        reports.append(rep)
+    return reports
+
+
+# -- the regression specimen ----------------------------------------------
+
+#: the specimen's shape: the JAX demo's (B 2, D 32, F 96; its tile,
+#: ``fused_decode_block.DEMO_TILE``, is 64), in bf16 (the port's f32
+#: column tiles are at most 32 wide, and 32 divides 96)
+DEMO_SHAPE = {"B": 2, "D": 32, "F": 96, "dtype": "bfloat16"}
+
+
+def capture_demo():
+    """The specimen's spec, captured over meta tensors."""
+    from ..ops.kernels import fused_decode_block as fdb
+    from ..ops.kernels._launch import capture_kernel_launches
+    B, D, F, dt = (DEMO_SHAPE[k] for k in ("B", "D", "F", "dtype"))
+    with capture_kernel_launches() as specs:
+        fdb.demo_prefix_mlp_block_cuda(
+            _meta((B, D), dt), _meta((D,), dt), _meta((D, F), dt),
+            _meta((D, F), dt), _meta((F, D), dt))
+    return specs
+
+
+def build_demo_kernel_regression() -> AuditReport:
+    """The audit of the PRE-FIX non-divisor MLP launch: decode_mlp_block's
+    kernel with its gate/up tiles counted ``F // tile`` (floor) and its
+    down phase over the columns those tiles wrote, so the last ``F %
+    tile`` = 32 intermediate columns never reach the down projection. The
+    gate must report GRID_FLOOR_DROP on wg, wu and wd (the CLI's
+    ``--demo-regression`` exits 2)."""
+    return audit_specs(capture_demo(), "demo_prefix_mlp_block@tiny",
+                       ("demo_prefix_mlp_block",))

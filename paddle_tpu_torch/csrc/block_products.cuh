@@ -126,20 +126,14 @@ __device__ __forceinline__ float round_t(float x) {
   return to_float(from_float<T>(x));
 }
 
-// Lanes per weight row for a phase of ``ncols`` output columns: the width
-// that gives the busiest block the fewest columns, the wider on a tie.
-__device__ __forceinline__ int pick_lpr(int ncols, int vec) {
-  int best = kMaxLpr, best_cost = 0x7fffffff;
-  for (int lpr = kMaxLpr; lpr >= 2; lpr >>= 1) {
-    const int tc = lpr * vec;
-    const int tiles = (ncols + tc - 1) / tc;
-    const int cost = ((tiles + (int)gridDim.x - 1) / (int)gridDim.x) * tc;
-    if (cost < best_cost) {
-      best_cost = cost;
-      best = lpr;
-    }
-  }
-  return best;
+// A phase's tile plan (lanes per weight row, so a column tile of lpr * V
+// outputs, and the number of tiles) is chosen by the kernel's Python
+// wrapper from the launch's grid and passed in its arguments
+// (ops/kernels/fused_decode_block.py: pick_lpr, the one definition), so the
+// plan the kernel runs is the plan the kernel-geometry gate audits. A plan
+// the kernels can run: lanes per row 2, 4 or 8 (kMaxLpr), tile counts >= 0.
+inline bool plan_ok(int lpr, int tiles) {
+  return (lpr == 2 || lpr == 4 || lpr == kMaxLpr) && tiles >= 0;
 }
 
 // Weight classes: see the file header.
@@ -526,12 +520,16 @@ using KernelFn = void (*)(const Args);
     return nullptr;                                                   \
   }
 
-// One cooperative launch of ``kernel`` with every co-resident block. The
-// grid size of each (kernel, shared memory, device) is worked out once:
-// the serving loop launches these kernels once per layer.
+// The cooperative grid of ``kernel`` at ``smem`` bytes of dynamic shared
+// memory a block: every co-resident block (SMs x blocks an SM, from the
+// occupancy calculator), worked out once per (kernel, shared memory,
+// device): the serving loop launches these kernels once per layer. Raises
+// the kernel's dynamic shared-memory limit to ``smem`` on the way, never
+// lowers it: a kernel run at a small size after a large one (the gate's
+// regression specimen, D 32, after the MLP at D 4096) keeps the limit of
+// the large one, which its cached grid was worked out under.
 template <typename Args>
-cudaError_t launch_coop(void (*kernel)(const Args), const Args& args,
-                        size_t smem, cudaStream_t stream) {
+cudaError_t coop_blocks(void (*kernel)(const Args), size_t smem, int* out) {
   struct Grid {
     void (*kernel)(const Args);
     size_t smem;
@@ -542,27 +540,54 @@ cudaError_t launch_coop(void (*kernel)(const Args), const Args& args,
   cudaError_t e;
   int dev = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  int blocks = 0;
   for (int i = 0; i < n_known; ++i)
     if (known[i].kernel == kernel && known[i].smem == smem &&
-        known[i].dev == dev)
-      blocks = known[i].blocks;
-  if (blocks == 0) {
-    int sms = 0, per_sm = 0;
-    if ((e = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)smem)) != cudaSuccess)
-      return e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-      return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    blocks = sms * per_sm;
-    if (n_known < 64) known[n_known++] = Grid{kernel, smem, dev, blocks};
-  }
+        known[i].dev == dev) {
+      *out = known[i].blocks;
+      return cudaSuccess;
+    }
+  int sms = 0, per_sm = 0;
+  cudaFuncAttributes fa;
+  if ((e = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) return e;
+  if ((int)smem > fa.maxDynamicSharedSizeBytes &&
+      (e = cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem)) != cudaSuccess)
+    return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *out = sms * per_sm;
+  if (n_known < 64) known[n_known++] = Grid{kernel, smem, dev, *out};
+  return cudaSuccess;
+}
+
+// The exported grid query of a launcher: the blocks of its cooperative
+// grid, or minus the cudaError_t (a kernel it does not take: minus
+// cudaErrorInvalidValue).
+template <typename Args>
+int coop_grid_or_error(void (*kernel)(const Args), int smem) {
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t e = coop_blocks(kernel, (size_t)smem, &blocks);
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
+// One cooperative launch of ``kernel`` over ``grid`` blocks: the grid its
+// wrapper planned the tiles for, which must be every co-resident block
+// (coop_blocks). A grid that differs is refused (cudaErrorInvalidValue),
+// never launched.
+template <typename Args>
+cudaError_t launch_coop(void (*kernel)(const Args), const Args& args,
+                        size_t smem, int grid, cudaStream_t stream) {
+  int blocks = 0;
+  cudaError_t e = coop_blocks(kernel, smem, &blocks);
+  if (e != cudaSuccess) return e;
+  if (grid != blocks) return cudaErrorInvalidValue;
   void* params[] = {const_cast<Args*>(&args)};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                   dim3(blocks), dim3(kThreads), params, smem,

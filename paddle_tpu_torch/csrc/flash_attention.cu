@@ -553,13 +553,16 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 // C interface, bound with ctypes (paddle_tpu_torch/ops/kernels/
 // flash_attention.py checks devices, types, shapes and contiguity first).
-// dtype: 0 = float32, 1 = bfloat16. Each returns its launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; block and smem: the wrapper's plan, the
+// kernels' kB-row tiles and the kernel's shared memory, or the launch is
+// refused (cudaErrorInvalidValue). Each returns its launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int b,
                                    int h, int kvh, int sq, int sk, int d,
-                                   float scale, int causal, int dtype,
-                                   void* stream) {
+                                   int block, int smem, float scale,
+                                   int causal, int dtype, void* stream) {
   using namespace paddle_tpu_torch::flash;
+  if (block != kB || (size_t)smem != fwd_smem(d)) return cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
@@ -575,9 +578,11 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dq, int b, int h, int kvh,
-                                      int sq, int sk, int d, float scale,
-                                      int causal, int dtype, void* stream) {
+                                      int sq, int sk, int d, int block,
+                                      int smem, float scale, int causal,
+                                      int dtype, void* stream) {
   using namespace paddle_tpu_torch::flash;
+  if (block != kB || (size_t)smem != dq_smem(d)) return cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
@@ -594,9 +599,10 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int b, int h,
                                        int kvh, int sq, int sk, int d,
-                                       float scale, int causal, int dtype,
-                                       void* stream) {
+                                       int block, int smem, float scale,
+                                       int causal, int dtype, void* stream) {
   using namespace paddle_tpu_torch::flash;
+  if (block != kB || (size_t)smem != dkv_smem(d)) return cudaErrorInvalidValue;
   if (b == 0 || sk == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)

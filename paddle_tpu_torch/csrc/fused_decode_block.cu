@@ -107,9 +107,10 @@
 // tiles when B > 8, reading x from L2 rather than holding every pass. No
 // atomics touch any sum, so two launches give identical bits. The tile
 // width is picked per phase from the grid so the busiest block has the
-// fewest columns. Not done yet (later work): tensor-core products,
-// cp.async/TMA pipelining of the weight stream, and a multi-layer form
-// over thread-block clusters.
+// fewest columns: the wrapper's plan (tile widths and counts, and the
+// grid), passed in the arguments. Not done yet (later work): tensor-core
+// products, cp.async/TMA pipelining of the weight stream, and a
+// multi-layer form over thread-block clusters.
 //
 // Shared memory, sized by the wrapper (ops/kernels/fused_decode_block.py,
 // the one definition of the sizes) and passed in, is carved as
@@ -140,6 +141,10 @@ struct AttnArgs {
   int B, D, H, KV, hd, BS, MB, rope_rows, residual;
   float eps, scale;
   size_t region;
+  // the tile plan (the wrapper's): lanes per weight row and tile counts of
+  // the q/k/v phase (q_tiles of wq, kv_tiles each of wk and wv) and of
+  // o_proj
+  int qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles;
 };
 
 struct MlpArgs {
@@ -150,6 +155,12 @@ struct MlpArgs {
   int B, D, F, residual;
   float eps;
   size_t region;
+  // the tile plan (the wrapper's): lanes per weight row and tile counts of
+  // the gate/up phase (over F) and of the down phase (over D's stored
+  // columns), and the down phase's contraction depth down_k <= F: the
+  // first down_k columns of silu(g)*u and rows of wd (F for the MLP; the
+  // kernel-geometry gate's regression specimen runs a shorter one)
+  int up_lpr, up_tiles, down_lpr, down_tiles, down_k;
 };
 
 // The single-launch kernel: the attention half writes resid (f32 [B][D])
@@ -183,8 +194,8 @@ __device__ void attn_qkv_phase(const AttnArgs& a, unsigned char* smem) {
   float* red_s = reinterpret_cast<float*>(smem + a.region);
   float* res_s = red_s + kWarps * kMaxLpr * V * kRB;
   T* qkv = static_cast<T*>(a.qkv_ws);
-  const int lpr = pick_lpr(ncols, V), tc = lpr * V;
-  const int tq = (nq + tc - 1) / tc, tk = (nkv + tc - 1) / tc;
+  const int lpr = a.qkv_lpr, tc = lpr * V;
+  const int tq = a.q_tiles, tk = a.kv_tiles;
   int held = -1;
   for (int t = blockIdx.x; t < tq + 2 * tk; t += gridDim.x) {
     const void* W;
@@ -389,11 +400,11 @@ __device__ void o_proj_phase(const AttnArgs& a, unsigned char* smem,
   float* red_s = reinterpret_cast<float*>(smem + a.region);
   float* res_s = red_s + kWarps * kMaxLpr * V * kRB;
   const T* attn_t = static_cast<const T*>(a.attn_ws);
-  const int lpr = pick_lpr(D, V), tc = lpr * V;
+  const int lpr = a.o_lpr, tc = lpr * V;
   const int kc_max = min(nq, (int)(a.region / (sizeof(T) * kRB)));
   const T* x = static_cast<const T*>(a.x);
   T* xo = static_cast<T*>(a.x_out);
-  const int tiles = (D + tc - 1) / tc;
+  const int tiles = a.o_tiles;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     for (int p = 0; p < passes(B); ++p) {
       tile_sums_staged<T, WC>(attn_t + (size_t)p * nq * kRB, nq, region,
@@ -434,8 +445,8 @@ __device__ void mlp_up_phase(const MlpArgs& a, unsigned char* smem) {
   float* res_u = res_g + kMaxLpr * V * kRB;
   T* ff_t = static_cast<T*>(a.ff_ws);
   const In* x = static_cast<const In*>(a.x);
-  const int lpr = pick_lpr(F, V), tc = lpr * V;
-  const int tiles = (F + tc - 1) / tc;
+  const int lpr = a.up_lpr, tc = lpr * V;
+  const int tiles = a.up_tiles;
   int held = -1;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int col0 = t * tc;
@@ -466,7 +477,8 @@ __device__ void mlp_up_phase(const MlpArgs& a, unsigned char* smem) {
   }
 }
 
-// MLP 2. down by column tiles of D over all of F, then the residual: the
+// MLP 2. down by column tiles of D over the first down_k columns of F (all
+// of them but in the gate's regression specimen), then the residual: the
 // two-stage kernel rounds down to T and adds x in T; the block kernel adds
 // the f32 sum to its f32 residual (x) and rounds once. int4 down is packed
 // along D: the tiles run over D/2 packed columns, each result lands on its
@@ -482,14 +494,15 @@ __device__ void mlp_down_phase(const MlpArgs& a, unsigned char* smem) {
   float* red_s = reinterpret_cast<float*>(smem + a.region);
   float* res_g = red_s + kWarps * kMaxLpr * V * kRB;
   const T* ff_t = static_cast<const T*>(a.ff_ws);
-  const int lpr = pick_lpr(nst, Wt<T, WC>::cols);
+  const int lpr = a.down_lpr;
   const int tcs = lpr * Wt<T, WC>::cols, nres = lpr * V;   // stored, results
-  const int kc_max = min(F, (int)(a.region / (sizeof(T) * kRB)));
+  const int K = a.down_k;
+  const int kc_max = min(K, (int)(a.region / (sizeof(T) * kRB)));
   T* out = static_cast<T*>(a.out);
-  const int tiles = (nst + tcs - 1) / tcs;
+  const int tiles = a.down_tiles;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     for (int p = 0; p < passes(B); ++p) {
-      tile_sums_staged<T, WC>(ff_t + (size_t)p * F * kRB, F, region, kc_max,
+      tile_sums_staged<T, WC>(ff_t + (size_t)p * F * kRB, K, region, kc_max,
                               a.wd, row_bytes<T, WC>(D), t * tcs, nst,
                               min(kRB, B - p * kRB), lpr, red_s, res_g);
       for (int i = tid; i < nres * kRB; i += kThreads) {
@@ -577,7 +590,8 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
                           void* x_out, void* k_new, void* v_new, void* ws_t,
                           void* ws_f, int B, int D, int H, int KV, int hd,
                           int BS, int MB, int rope_rows, int residual,
-                          int region, float eps, float scale, int item) {
+                          int region, float eps, float scale, int item,
+                          const int* plan) {
   const size_t n_qkv = ((size_t)B * (H + 2 * KV) * hd + 7) / 8 * 8;
   const size_t n_part = (size_t)B * H * splits(MB);
   float* f = static_cast<float*>(ws_f);
@@ -593,7 +607,8 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
                   ws_t, static_cast<char*>(ws_t) + n_qkv * item, f,
                   f + n_part, f + 2 * n_part, f + 2 * n_part + n_part * hd,
                   B, D, H, KV, hd, BS, MB, rope_rows, residual, eps, scale,
-                  (size_t)region};
+                  (size_t)region, plan[0], plan[1], plan[2], plan[3],
+                  plan[4]};
 }
 
 }  // namespace fused
@@ -609,7 +624,23 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
 // k_scale/v_scale (null for 0); region and smem: the shared-memory
 // layout's bytes (file header). The launchers return the launch's
 // cudaError_t; a (dtype, wbits, kvbits) they do not take is
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue. grid and the tile plan (lanes per weight row and
+// tile count of each phase) are the wrapper's: the grid must be the
+// kernel's cooperative grid (decode_coop_grid), else the launch is refused
+// (cudaErrorInvalidValue), as is a plan the kernels cannot run.
+
+// The cooperative grid of kernel ``which`` (0 decode_attn_block, 1
+// decode_mlp_block, 2 decode_block_fused) for (dtype, wbits, kvbits) at
+// ``smem`` bytes of dynamic shared memory a block; minus the cudaError_t
+// on failure.
+extern "C" int decode_coop_grid(int which, int dtype, int wbits, int kvbits,
+                                int smem) {
+  using namespace paddle_tpu_torch::fused;
+  if (which == 0) return coop_grid_or_error(attn_kernel(dtype, wbits, kvbits), smem);
+  if (which == 1) return coop_grid_or_error(mlp_kernel(dtype, wbits), smem);
+  if (which == 2) return coop_grid_or_error(block_kernel(dtype, wbits, kvbits), smem);
+  return -(int)cudaErrorInvalidValue;
+}
 
 // ws_t and ws_f as attn_args carves them.
 extern "C" int decode_attn_block(
@@ -620,18 +651,23 @@ extern "C" int decode_attn_block(
     const void* v_scale, const void* tables, const void* seq_lens,
     void* x_out, void* k_new, void* v_new, void* ws_t, void* ws_f, int B,
     int D, int H, int KV, int hd, int BS, int MB, int rope_rows,
-    int residual, int region, int smem, int wbits, int kvbits, float eps,
-    float scale, int dtype, void* stream) {
+    int residual, int region, int smem, int wbits, int kvbits, int grid,
+    int qkv_lpr, int q_tiles, int kv_tiles, int o_lpr, int o_tiles,
+    float eps, float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
   const auto kernel = attn_kernel(dtype, wbits, kvbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
+  if (!plan_ok(qkv_lpr, q_tiles) || !plan_ok(qkv_lpr, kv_tiles) ||
+      !plan_ok(o_lpr, o_tiles))
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
+  const int plan[5] = {qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles};
   const AttnArgs a = attn_args(
       x, nw, wq, wk, wv, wo, sq, sk, sv, so, sin, cos, k_pool, v_pool,
       k_scale, v_scale, tables, seq_lens, x_out, k_new, v_new, ws_t, ws_f, B,
       D, H, KV, hd, BS, MB, rope_rows, residual, region, eps, scale,
-      dtype == 1 ? 2 : 4);
-  return launch_coop(kernel, a, smem, static_cast<cudaStream_t>(stream));
+      dtype == 1 ? 2 : 4, plan);
+  return launch_coop(kernel, a, smem, grid, static_cast<cudaStream_t>(stream));
 }
 
 // ff_ws (T): [P][F][8].
@@ -640,16 +676,22 @@ extern "C" int decode_mlp_block(const void* x, const void* nw, const void* wg,
                                 const void* su, const void* sd, void* out,
                                 void* ff_ws, int B, int D, int F,
                                 int residual, int region, int smem,
-                                int wbits, float eps, int dtype,
+                                int wbits, int grid, int up_lpr,
+                                int up_tiles, int down_lpr, int down_tiles,
+                                int down_k, float eps, int dtype,
                                 void* stream) {
   using namespace paddle_tpu_torch::fused;
   const auto kernel = mlp_kernel(dtype, wbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
+  if (!plan_ok(up_lpr, up_tiles) || !plan_ok(down_lpr, down_tiles) ||
+      down_k < 0 || down_k > F)
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   MlpArgs a{x, nw, wg, wu, wd, static_cast<const float*>(sg),
             static_cast<const float*>(su), static_cast<const float*>(sd),
-            out, ff_ws, B, D, F, residual, eps, (size_t)region};
-  return launch_coop(kernel, a, smem, static_cast<cudaStream_t>(stream));
+            out, ff_ws, B, D, F, residual, eps, (size_t)region, up_lpr,
+            up_tiles, down_lpr, down_tiles, down_k};
+  return launch_coop(kernel, a, smem, grid, static_cast<cudaStream_t>(stream));
 }
 
 // ws_t (T): attn_args' qkv and attention rows, then ff [P][F][8] at an
@@ -665,16 +707,23 @@ extern "C" int decode_block_fused(
     const void* tables, const void* seq_lens, void* x_out, void* k_new,
     void* v_new, void* ws_t, void* ws_f, int B, int D, int H, int KV, int hd,
     int F, int BS, int MB, int rope_rows, int region, int smem, int wbits,
-    int kvbits, float eps, float scale, int dtype, void* stream) {
+    int kvbits, int grid, int qkv_lpr, int q_tiles, int kv_tiles, int o_lpr,
+    int o_tiles, int up_lpr, int up_tiles, int down_lpr, int down_tiles,
+    float eps, float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
   const auto kernel = block_kernel(dtype, wbits, kvbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
+  if (!plan_ok(qkv_lpr, q_tiles) || !plan_ok(qkv_lpr, kv_tiles) ||
+      !plan_ok(o_lpr, o_tiles) || !plan_ok(up_lpr, up_tiles) ||
+      !plan_ok(down_lpr, down_tiles))
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const int item = dtype == 1 ? 2 : 4;
+  const int plan[5] = {qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles};
   const AttnArgs attn = attn_args(
       x, nw, wq, wk, wv, wo, sq, sk, sv, so, sin, cos, k_pool, v_pool,
       k_scale, v_scale, tables, seq_lens, nullptr, k_new, v_new, ws_t, ws_f,
-      B, D, H, KV, hd, BS, MB, rope_rows, 1, region, eps, scale, item);
+      B, D, H, KV, hd, BS, MB, rope_rows, 1, region, eps, scale, item, plan);
   const size_t n_qkv = ((size_t)B * (H + 2 * KV) * hd + 7) / 8 * 8;
   const size_t n_t = n_qkv + (size_t)passes(B) * kRB * H * hd;
   const size_t n_part = (size_t)B * H * splits(MB);
@@ -684,9 +733,10 @@ extern "C" int decode_block_fused(
                     static_cast<const float*>(su),
                     static_cast<const float*>(sd), x_out,
                     static_cast<char*>(ws_t) + n_t * item, B, D, F, 1, eps,
-                    (size_t)region};
+                    (size_t)region, up_lpr, up_tiles, down_lpr, down_tiles,
+                    F};
   const BlockArgs a{attn, mlp, resid};
-  return launch_coop(kernel, a, smem, static_cast<cudaStream_t>(stream));
+  return launch_coop(kernel, a, smem, grid, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cuda_error_string(int err) {

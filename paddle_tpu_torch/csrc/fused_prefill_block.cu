@@ -86,6 +86,10 @@ struct PrefillArgs {
   int P, D, H, KV, hd, BS, MB, pos0, n_valid, bq, residual;
   float eps, scale;
   size_t region;
+  // the tile plan (the wrapper's): lanes per weight row and tile counts of
+  // the q/k/v phase (q_tiles of wq, kv_tiles each of wk and wv) and of
+  // o_proj
+  int qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles;
 };
 
 template <int WQ>
@@ -120,8 +124,8 @@ prefill_attn_block_kernel(const PrefillArgs a) {
   // 1. q/k/v products of the real rows by column tiles of the three
   // matrices, over the RMSNorm of each pass of rows
   {
-    const int lpr = pick_lpr(ncols, V), tc = lpr * V;
-    const int tq = (nq + tc - 1) / tc, tk = (nkv + tc - 1) / tc;
+    const int lpr = a.qkv_lpr, tc = lpr * V;
+    const int tq = a.q_tiles, tk = a.kv_tiles;
     int held = -1;
     const int kn = WC == kWInt4K ? D / 2 : D;   // stored weight rows
     for (int t = blockIdx.x; t < tq + 2 * tk; t += gridDim.x) {
@@ -297,11 +301,11 @@ prefill_attn_block_kernel(const PrefillArgs a) {
 
   // 4. o_proj of the real rows by column tiles of D, then the residual add
   {
-    const int lpr = pick_lpr(D, V), tc = lpr * V;
+    const int lpr = a.o_lpr, tc = lpr * V;
     const int kc_max = min(nq, (int)(a.region / (sizeof(T) * kRB)));
     const T* x = static_cast<const T*>(a.x);
     T* xo = static_cast<T*>(a.x_out);
-    const int tiles = (D + tc - 1) / tc;
+    const int tiles = a.o_tiles;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       for (int p = 0; p < passes(nv); ++p) {
         tile_sums_staged<T, WC>(attn_t + (size_t)p * nq * kRB, nq, region,
@@ -336,9 +340,21 @@ PADDLE_TPU_PICK_KV_KERNEL(prefill_kernel, prefill_attn_block_kernel,
 // axis, with the f32 scale pointers s* (null for 0); kvbits: the pools'
 // class, 0 = T, 8 = int8 with the f32 [KV] scale pointers k_scale/v_scale
 // (null for 0); region and smem: the shared-memory layout's bytes; bq:
-// query rows a work item takes (P is a multiple of it). Returns the
-// launch's cudaError_t; a (dtype, wbits, kvbits) it does not take is
-// cudaErrorInvalidValue.
+// query rows a work item takes (P is a multiple of it); grid and the tile
+// plan: the wrapper's, as for fused_decode_block.cu's launchers (a grid
+// other than the kernel's cooperative grid, prefill_coop_grid, or a plan
+// the kernel cannot run is refused). Returns the launch's cudaError_t; a
+// (dtype, wbits, kvbits) it does not take is cudaErrorInvalidValue.
+
+// The cooperative grid of the kernel for (dtype, wbits, kvbits) at
+// ``smem`` bytes of dynamic shared memory a block; minus the cudaError_t
+// on failure.
+extern "C" int prefill_coop_grid(int dtype, int wbits, int kvbits,
+                                 int smem) {
+  using namespace paddle_tpu_torch::fused;
+  return coop_grid_or_error(prefill_kernel(dtype, wbits, kvbits), smem);
+}
+
 extern "C" int prefill_attn_block(
     const void* x, const void* nw, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* sq, const void* sk,
@@ -347,12 +363,16 @@ extern "C" int prefill_attn_block(
     const void* v_scale, const void* table, void* x_out, void* k_new,
     void* v_new, void* qkv_ws, void* q_ws, void* attn_ws, int P, int D, int H,
     int KV, int hd, int BS, int MB, int pos0, int n_valid, int bq,
-    int residual, int region, int smem, int wbits, int kvbits, float eps,
-    float scale, int dtype, void* stream) {
+    int residual, int region, int smem, int wbits, int kvbits, int grid,
+    int qkv_lpr, int q_tiles, int kv_tiles, int o_lpr, int o_tiles,
+    float eps, float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
   const auto kernel = prefill_kernel(dtype, wbits, kvbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   if (n_valid < 1 || n_valid > P || bq < 1 || P % bq) return cudaErrorInvalidValue;
+  if (!plan_ok(qkv_lpr, q_tiles) || !plan_ok(qkv_lpr, kv_tiles) ||
+      !plan_ok(o_lpr, o_tiles))
+    return cudaErrorInvalidValue;
   PrefillArgs a{x, nw, wq, wk, wv, wo,
                 static_cast<const float*>(sq), static_cast<const float*>(sk),
                 static_cast<const float*>(sv), static_cast<const float*>(so),
@@ -361,8 +381,9 @@ extern "C" int prefill_attn_block(
                 static_cast<const float*>(v_scale),
                 static_cast<const int*>(table), x_out, k_new,
                 v_new, qkv_ws, q_ws, attn_ws, P, D, H, KV, hd, BS, MB, pos0,
-                n_valid, bq, residual, eps, scale, (size_t)region};
-  return launch_coop(kernel, a, smem, static_cast<cudaStream_t>(stream));
+                n_valid, bq, residual, eps, scale, (size_t)region, qkv_lpr,
+                q_tiles, kv_tiles, o_lpr, o_tiles};
+  return launch_coop(kernel, a, smem, grid, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -1007,8 +1007,18 @@ inline int route(const void* x, const void* head, long long sd, long long sv,
 
 using namespace paddle_tpu_torch::linear_ce;
 
-// dtype: 0 float32, 1 bfloat16; T, D and V >= 1. Each returns cudaError_t
-// as int (0: both of its kernels were launched).
+// dtype: 0 float32, 1 bfloat16; T, D and V >= 1. bt, bv, splits and smem
+// are the wrapper's plan: the logit tile (kBT x kBV), the number of vocab
+// splits tiles_per_split makes, and the dynamic shared memory of the main
+// kernel; a plan other than the kernels' is refused
+// (cudaErrorInvalidValue). Each returns cudaError_t as int (0: both of its
+// kernels were launched).
+inline bool plan_ok(int V, int tiles_per_split, int bt, int bv, int splits) {
+  const int nvt = (V + kBV - 1) / kBV;
+  return bt == kBT && bv == kBV && tiles_per_split >= 1 &&
+         splits == (nvt + tiles_per_split - 1) / tiles_per_split;
+}
+
 #define LINEAR_CE_ROUTE(fn, ...)                        \
   switch (route(x, head, sd, sv, D, V, dtype)) {        \
     case 0:                                             \
@@ -1022,7 +1032,9 @@ using namespace paddle_tpu_torch::linear_ce;
 extern "C" int linear_ce_fwd(const void* x, const void* head, long long sd,
                              long long sv, const void* labels, void* lse,
                              void* pick, void* part, int Tn, int D, int V,
-                             int tiles_per_split, int dtype, void* stream) {
+                             int tiles_per_split, int bt, int bv, int splits,
+                             int dtype, void* stream) {
+  if (!plan_ok(V, tiles_per_split, bt, bv, splits)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto lab = static_cast<const long long*>(labels);
   auto l = static_cast<float*>(lse), p = static_cast<float*>(pick),
@@ -1035,7 +1047,11 @@ extern "C" int linear_ce_bwd_dx(const void* x, const void* head, long long sd,
                                 long long sv, const void* labels,
                                 const void* lse, const void* coef, void* dx,
                                 void* part, int Tn, int D, int V,
-                                int tiles_per_split, int dtype, void* stream) {
+                                int tiles_per_split, int bt, int bv,
+                                int splits, int smem, int dtype,
+                                void* stream) {
+  if (!plan_ok(V, tiles_per_split, bt, bv, splits) || smem != kDxSmem)
+    return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto lab = static_cast<const long long*>(labels);
   auto l = static_cast<const float*>(lse), c = static_cast<const float*>(coef);
@@ -1048,7 +1064,9 @@ extern "C" int linear_ce_bwd_dh(const void* x, const void* head, long long sd,
                                 long long sv, const void* labels,
                                 const void* lse, const void* coef, void* dh,
                                 long long so_d, long long so_v, void* accum,
-                                int Tn, int D, int V, int dtype, void* stream) {
+                                int Tn, int D, int V, int bv, int smem,
+                                int dtype, void* stream) {
+  if (bv != kBV || smem != kDhSmem) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto lab = static_cast<const long long*>(labels);
   auto l = static_cast<const float*>(lse), c = static_cast<const float*>(coef);

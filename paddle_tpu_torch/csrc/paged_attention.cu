@@ -108,12 +108,16 @@ paged_attention_decode_kernel(const T* __restrict__ q,
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* block_tables, const void* seq_lens, void* out,
-                   int B, int H, int KV, int hd, int BS, int MB, float scale,
-                   cudaStream_t stream) {
+                   int B, int H, int KV, int hd, int BS, int MB, int grid_x,
+                   int grid_y, int smem_in, float scale, cudaStream_t stream) {
   const int groups = H / KV;
   const size_t smem = 2 * (size_t)BS * hd * sizeof(T) +
                       (2 * (size_t)groups * hd + (size_t)groups * BS +
                        3 * (size_t)groups) * sizeof(float);
+  // the wrapper's plan must be this kernel's: one block per (KV head,
+  // sequence), this shared memory
+  if (grid_x != KV || grid_y != B || (size_t)smem_in != smem)
+    return cudaErrorInvalidValue;
   auto kernel = paged_attention_decode_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -132,22 +136,26 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 
 // C interface, bound with ctypes (paddle_tpu_torch/ops/kernels/
 // paged_attention.py checks shapes, types and contiguity first).
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; grid_x, grid_y and smem: the wrapper's
+// plan, (KV, B) and the kernel's shared memory, or the launch is refused
+// (cudaErrorInvalidValue). Returns the launch's cudaError_t.
 extern "C" int paged_attention_decode(const void* q, const void* k_pool,
                                       const void* v_pool,
                                       const void* block_tables,
                                       const void* seq_lens, void* out, int B,
                                       int H, int KV, int hd, int BS, int MB,
+                                      int grid_x, int grid_y, int smem,
                                       float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
   if (B == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, block_tables, seq_lens,
-                                 out, B, H, KV, hd, BS, MB, scale, s);
+                                 out, B, H, KV, hd, BS, MB, grid_x, grid_y,
+                                 smem, scale, s);
   if (dtype == 0)
     return launch<float>(q, k_pool, v_pool, block_tables, seq_lens, out, B,
-                         H, KV, hd, BS, MB, scale, s);
+                         H, KV, hd, BS, MB, grid_x, grid_y, smem, scale, s);
   return cudaErrorInvalidValue;
 }
 

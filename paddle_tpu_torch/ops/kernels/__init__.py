@@ -17,6 +17,16 @@ residual class too (``<wrapper>.launches_by_residual``): "full" for
 tensor-parallel shard's step launches (``inference/tp.py``). Only a
 launch counts: a wrapper given CPU tensors raises before it, and the CPU
 routes run the plain versions, which count nothing.
+
+Every wrapper builds its launch's plan, a ``_launch.KernelLaunchSpec``, and
+passes it to ``_launch.begin`` right before the launch; under
+``_launch.capture_kernel_launches`` the specs are recorded (and over meta
+tensors nothing is launched or counted), which the kernel-geometry gate
+(:mod:`paddle_tpu_torch.analysis`) audits. :data:`DEMO_WRAPPERS` holds the
+gate's regression specimen, ``demo_prefix_mlp_block``: decode_mlp_block's
+kernel under a floor-divided plan that drops the last intermediate
+columns. It is no part of :data:`WRAPPERS` and no route or dispatch
+reaches it.
 """
 from .flash_attention import (flash_bwd_dkv_cuda,  # noqa: F401
                               flash_bwd_dq_cuda, flash_fwd_cuda)
@@ -24,7 +34,9 @@ from .fused_adamw import fused_adamw_triton  # noqa: F401
 from .fused_decode_block import (attn_block_ref,  # noqa: F401
                                  attn_block_wq_ref, decode_attn_block_cuda,
                                  decode_block_fused_cuda, decode_block_ref,
-                                 decode_mlp_block_cuda, mlp_block_ref,
+                                 decode_mlp_block_cuda,
+                                 demo_prefix_mlp_block_cuda,
+                                 demo_prefix_mlp_block_ref, mlp_block_ref,
                                  mlp_block_wq_ref)
 from .fused_train import (linear_ce_bwd_dh_cuda,  # noqa: F401
                           linear_ce_bwd_dx_cuda, linear_ce_fwd_cuda,
@@ -59,10 +71,13 @@ WRAPPERS = {
     "linear_ce_bwd_dh": linear_ce_bwd_dh_cuda,
 }
 
+#: the kernel-geometry gate's regression specimen (not a runtime kernel)
+DEMO_WRAPPERS = {"demo_prefix_mlp_block": demo_prefix_mlp_block_cuda}
+
 
 def reset_launches():
-    """Set every wrapper's launch counts to 0."""
-    for fn in WRAPPERS.values():
+    """Set every wrapper's launch counts to 0 (the specimen's too)."""
+    for fn in list(WRAPPERS.values()) + list(DEMO_WRAPPERS.values()):
         fn.launches = 0
         for attr in ("launches_by_weight", "launches_by_pool",
                      "launches_by_residual"):

@@ -14,9 +14,13 @@ sources at once, one nvcc process each, all started together. ptxas's
 report (registers, shared memory, spills) is kept beside the library as
 ``lib<name>.log``. A failed build raises with nvcc's output.
 
-The Triton kernels are built by :func:`triton_jit` at their first launch.
-:data:`DTYPES` is the types every kernel takes, with the code the C
-launchers read. Nothing here runs at import: this module imports without
+A C launcher is bound by :func:`c_fn` from its argument types, the codes
+of :data:`CTYPES` in order; the wrappers record the same codes in their
+launch specs (``_launch.KernelLaunchSpec.calls``), which the gate's
+``ARG_MISMATCH`` rule holds against the ``extern "C"`` declaration in the
+source. The Triton kernels are built by :func:`triton_jit` at their first
+launch. :data:`DTYPES` is the types every kernel takes, with the code the
+C launchers read. Nothing here runs at import: this module imports without
 nvcc, Triton, CUDA or a card.
 """
 from __future__ import annotations
@@ -31,8 +35,9 @@ from typing import Dict
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPES", "nvcc_path",
-           "library_path", "build", "load", "triton_jit"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPES", "CTYPES",
+           "nvcc_path", "library_path", "build", "load", "c_fn", "c_codes",
+           "triton_jit"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -43,7 +48,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: the kernels' element types and the C launchers' ``dtype`` code of each
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: a C launcher's argument types: pointer, int, long long, float
+CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+          "f": ctypes.c_float}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[tuple, object] = {}
 
 
 def nvcc_path() -> str:
@@ -118,6 +128,30 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(out))
     return lib
+
+
+def c_codes(nptr, nint, nfloat):
+    """The argument codes of a launcher taking ``nptr`` pointers, ``nint``
+    ints and ``nfloat`` floats, then the dtype code and the stream."""
+    return ("p",) * nptr + ("i",) * nint + ("f",) * nfloat + ("i", "p")
+
+
+def c_fn(source, name, codes):
+    """The C launcher ``name`` of ``csrc/<source>.cu``, bound once with the
+    ctypes argument types of ``codes`` (:data:`CTYPES`) and an int return
+    (a cudaError_t); ``.error_string(err)`` is the library's
+    ``cuda_error_string``."""
+    fn = _FNS.get((source, name, codes))
+    if fn is None:
+        lib = load(source)
+        fn = getattr(lib, name)
+        fn.argtypes = [CTYPES[c] for c in codes]
+        fn.restype = ctypes.c_int
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        fn.error_string = lib.cuda_error_string
+        _FNS[(source, name, codes)] = fn
+    return fn
 
 
 def triton_jit(namespace, name):

@@ -31,12 +31,13 @@ so no plain version can hold the kernel).
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 import math
 
+import numpy as np
 import torch
 
-from . import _build
+from . import _build, _launch
 
 __all__ = ["flash_fwd_ref", "flash_bwd_dq_ref", "flash_bwd_dkv_ref",
            "flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda",
@@ -45,7 +46,6 @@ __all__ = ["flash_fwd_ref", "flash_bwd_dq_ref", "flash_bwd_dkv_ref",
 
 #: the JAX kernel's DEFAULT_MASK_VALUE (-0.7 x float32 max)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-_fns = {}
 
 
 def _scale(q, scale):
@@ -133,22 +133,127 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False, scale=None):
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
-def _kernel(name):
-    fn = _fns.get(name)
-    if fn is None:
-        lib = _build.load("flash_attention")
-        fn = getattr(lib, name)
-        n_ptr = {"flash_attention_fwd": 5, "flash_attention_bwd_dq": 7,
-                 "flash_attention_bwd_dkv": 8}[name]
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        fn.error_string = lib.cuda_error_string
-        _fns[name] = fn
-    return fn
+#: rows of a query tile and of a key tile (``kB`` in csrc/flash_attention.cu;
+#: the launchers refuse another)
+BLOCK = 64
+_THREADS = 256
+_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+_N_PTR = {"flash_attention_fwd": 5, "flash_attention_bwd_dq": 7,
+          "flash_attention_bwd_dkv": 8}
+
+
+def flash_smem(name, d) -> int:
+    """Dynamic shared memory of one block of kernel ``name``: its f32 tiles
+    of ``BLOCK`` rows (row stride d + 1) and the score tiles (stride
+    BLOCK + 1) (``fwd_smem``/``dq_smem``/``dkv_smem`` in the source, which
+    the launchers hold this figure to)."""
+    tile, ldp = BLOCK * (d + 1), BLOCK * (BLOCK + 1)
+    return 4 * {"flash_attention_fwd": 3 * tile + ldp,
+                "flash_attention_bwd_dq": 4 * tile + ldp + 2 * BLOCK,
+                "flash_attention_bwd_dkv": 4 * tile + 2 * ldp
+                + 2 * BLOCK}[name]
+
+
+def _key_tiles(q0, sk, off, causal):
+    """Key tiles a query tile starting at row ``q0`` sees (``key_tiles``
+    in the source); ``q0`` may be a numpy array."""
+    last = sk - 1
+    if causal:
+        last = np.minimum(last, q0 + BLOCK - 1 + off)
+    return np.where(np.asarray(last) < 0, 0, np.asarray(last) // BLOCK + 1)
+
+
+@functools.lru_cache(maxsize=128)
+def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal):
+    """The launch spec of one flash kernel. Forward and dq: one block per
+    (query tile, batch x head), grid (sq / BLOCK, b * h), reading the
+    tile's rows of q (and do, lse, delta) and every key tile it sees
+    (under the causal mask, those up to its diagonal), writing its rows of
+    o and lse (or dq). dkv: one block per (key tile, batch x KV head),
+    grid (sk / BLOCK, b * kvh), reading the tile's rows of k and v and, for
+    each query head of the group, every query tile that sees it, writing
+    its rows of dk and dv."""
+    nqt, nkt = -(-sq // BLOCK), -(-sk // BLOCK)
+    off, rep_ = sk - sq, h // kvh
+    op = _launch.KernelOperand
+    q_, k_, v_ = (op("q", (b, sq, h, d), dt), op("k", (b, sk, kvh, d), dt),
+                  op("v", (b, sk, kvh, d), dt))
+    stat = lambda n: op(n, (b, h, sq), "float32")   # noqa: E731
+    tile = (1, BLOCK, 1, d)
+    A = _launch.Access
+    if name == "flash_attention_bwd_dkv":
+        grid = (nkt, b * kvh)
+        ins = (q_, k_, v_, op("do", (b, sq, h, d), dt), stat("lse"),
+               stat("delta"))
+        outs = (op("dk", (b, sk, kvh, d), dt), op("dv", (b, sk, kvh, d), dt))
+
+        def own(i):
+            return (i // nkt // kvh, i % nkt, i // nkt % kvh, 0)
+
+        def seen_q(i):
+            # item: (tile kt, batch x KV head, group member g, query tile)
+            qt, rest = i % nqt, i // nqt
+            g, rest = rest % rep_, rest // rep_
+            kt, bk = rest % nkt, rest // nkt
+            first = (np.maximum(kt * BLOCK - off, 0) // BLOCK if causal
+                     else 0)
+            return (bk // kvh, np.maximum(qt, first), bk % kvh * rep_ + g, 0)
+
+        def seen_stat(i):
+            bb, qt, hh, _ = seen_q(i)
+            return (bb, hh, qt)
+        n_seen = nkt * b * kvh * rep_ * nqt
+        phases = (_launch.KernelPhase(
+            "keys", nkt * b * kvh, (A("k", tile, own), A("v", tile, own)),
+            (A("dk", tile, own), A("dv", tile, own))),
+            _launch.KernelPhase(
+                "queries", n_seen,
+                (A("q", tile, seen_q), A("do", tile, seen_q),
+                 A("lse", (1, 1, BLOCK), seen_stat),
+                 A("delta", (1, 1, BLOCK), seen_stat))))
+    else:
+        grid = (nqt, b * h)
+        dq = name == "flash_attention_bwd_dq"
+        ins = (q_, k_, v_)
+        if dq:
+            ins += (op("do", (b, sq, h, d), dt), stat("lse"), stat("delta"))
+            outs = (op("dq", (b, sq, h, d), dt),)
+        else:
+            outs = (op("o", (b, sq, h, d), dt), stat("lse_out"))
+
+        def own(i):
+            return (i // nqt // h, i % nqt, i // nqt % h, 0)
+
+        def own_stat(i):
+            return (i // nqt // h, i // nqt % h, i % nqt)
+
+        def seen_k(i):
+            # item: (query tile, batch x head, key tile)
+            kt, rest = i % nkt, i // nkt
+            qt, bh = rest % nqt, rest // nqt
+            last = _key_tiles(qt * BLOCK, sk, off, causal) - 1
+            return (bh // h, np.minimum(kt, np.maximum(last, 0)),
+                    bh % h // rep_, 0)
+        reads = [A("q", tile, own)]
+        if dq:
+            reads += [A("do", tile, own), A("lse", (1, 1, BLOCK), own_stat),
+                      A("delta", (1, 1, BLOCK), own_stat)]
+            writes = (A("dq", tile, own),)
+        else:
+            writes = (A("o", tile, own),
+                      A("lse_out", (1, 1, BLOCK), own_stat))
+        phases = (_launch.KernelPhase("queries", nqt * b * h, tuple(reads),
+                                      writes),
+                  _launch.KernelPhase("keys", nqt * b * h * nkt,
+                                      (A("k", tile, seen_k),
+                                       A("v", tile, seen_k))))
+    smem = flash_smem(name, d)
+    codes = ("p",) * _N_PTR[name] + ("i",) * 8 + ("f", "i", "i", "p")
+    return _launch.KernelLaunchSpec(
+        name, "cuda", _SOURCE, grid, _THREADS, ins, outs, phases,
+        ((name, codes),), dt, dyn_smem=smem,
+        params={"causal": bool(causal)},
+        plan={"block": BLOCK, "smem": smem})
 
 
 def flash_unsupported(q, k, causal):
@@ -175,8 +280,7 @@ def _check(name, q, k, v, causal, *more):
     why = flash_unsupported(q, k, causal)
     if why is not None:
         raise ValueError(f"{name}: {why}")
-    if q.device.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {q.device}")
+    _launch.check_device(name, q.device)
     for t in (k, v) + more:
         if t.device != q.device:
             raise ValueError(f"{name}: operands on {t.device} and "
@@ -192,16 +296,20 @@ def _check(name, q, k, v, causal, *more):
                          f"{v.dtype} do not match")
 
 
-def _launch(name, wrapper, q, *ptrs, causal, scale):
+def _run(name, wrapper, q, *ptrs, causal, scale):
     b, sq, h, d = q.shape
     kvh, sk = ptrs[0].shape[2], ptrs[0].shape[1]      # ptrs[0] is k
-    fn = _kernel(name)
+    spec = flash_spec(name, b, sq, sk, h, kvh, d,
+                      _launch.dtype_name(q.dtype), bool(causal))
+    if not _launch.begin(spec, q.device):
+        return
+    fn = _build.c_fn("flash_attention", *spec.calls[0])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         wrapper.launches += 1
         err = fn(q.data_ptr(), *(t.data_ptr() for t in ptrs), b, h, kvh, sq,
-                 sk, d, float(scale), int(bool(causal)), _build.DTYPES[q.dtype],
-                 stream)
+                 sk, d, spec.plan["block"], spec.plan["smem"], float(scale),
+                 int(bool(causal)), _build.DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + fn.error_string(err).decode())
@@ -214,7 +322,7 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None):
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
                       dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", flash_fwd_cuda, q, k, v, o, lse,
+    _run("flash_attention_fwd", flash_fwd_cuda, q, k, v, o, lse,
             causal=causal, scale=_scale(q, scale))
     return o, lse
 
@@ -235,7 +343,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None):
     _check("flash_attention_bwd_dq", q, k, v, causal, do, lse, delta)
     _check_stats("flash_attention_bwd_dq", q, do, lse, delta)
     dq = torch.empty_like(q)
-    _launch("flash_attention_bwd_dq", flash_bwd_dq_cuda, q, k, v, do, lse,
+    _run("flash_attention_bwd_dq", flash_bwd_dq_cuda, q, k, v, do, lse,
             delta, dq, causal=causal, scale=_scale(q, scale))
     return dq
 
@@ -246,7 +354,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None):
     _check("flash_attention_bwd_dkv", q, k, v, causal, do, lse, delta)
     _check_stats("flash_attention_bwd_dkv", q, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_attention_bwd_dkv", flash_bwd_dkv_cuda, q, k, v, do, lse,
+    _run("flash_attention_bwd_dkv", flash_bwd_dkv_cuda, q, k, v, do, lse,
             delta, dk, dv, causal=causal, scale=_scale(q, scale))
     return dk, dv
 

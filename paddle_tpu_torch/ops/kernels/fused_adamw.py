@@ -29,15 +29,19 @@ Triton is imported when the kernel is first launched, never at import.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ._build import DTYPES, triton_jit
+from . import _launch
+from ._build import DTYPES
 from .registry import KERNELS
 
 __all__ = ["adamw_update_ref", "fused_adamw_triton", "adamw_meta",
            "adamw_update", "bias_corrections", "BLOCK"]
 
 BLOCK = 1024
+_SOURCE = "paddle_tpu_torch/ops/kernels/fused_adamw.py"
 _kernels = {}
 tl = None          # triton.language, bound by triton_jit at the first launch
 
@@ -116,9 +120,7 @@ def fused_adamw_triton(param, grad, moment1, moment2, lr, step, beta1=0.9,
     the moments f32 or bf16. Raises for anything else; never falls
     back."""
     n = param.numel()
-    if param.device.type != "cuda":
-        raise ValueError(f"fused_adamw_triton needs CUDA tensors, got "
-                         f"{param.device}")
+    _launch.check_device("fused_adamw_triton", param.device)
     if param.dtype != torch.float32:
         raise TypeError(f"param (the master) must be float32, got "
                         f"{param.dtype}")
@@ -138,16 +140,19 @@ def fused_adamw_triton(param, grad, moment1, moment2, lr, step, beta1=0.9,
     shadow = (torch.empty(n, dtype=shadow_dtype, device=param.device)
               if shadow_dtype is not None else None)
     if n:
-        kernel = triton_jit(globals(), "_adamw_kernel")
-        with torch.cuda.device(param.device):
-            fused_adamw_triton.launches += 1
-            kernel[(-(-n // BLOCK),)](
-                param, grad, moment1, moment2,
-                shadow if shadow is not None else param, bc, n, float(lr),
-                float(weight_decay), float(beta1), float(1 - beta1),
-                float(beta2), float(1 - beta2), float(epsilon),
-                BLOCK=BLOCK, SHADOW=shadow is not None, num_warps=4,
-                enable_fp_fusion=False)
+        spec = adamw_spec(n, *(_launch.dtype_name(t.dtype) for t in
+                               (grad, moment1, moment2)),
+                          None if shadow is None
+                          else _launch.dtype_name(shadow_dtype))
+        if _launch.begin(spec, param.device):
+            with torch.cuda.device(param.device):
+                fused_adamw_triton.launches += 1
+                _launch.triton_run(globals(), spec, [(
+                    param, grad, moment1, moment2,
+                    shadow if shadow is not None else param, bc, n,
+                    float(lr), float(weight_decay), float(beta1),
+                    float(1 - beta1), float(beta2), float(1 - beta2),
+                    float(epsilon))], enable_fp_fusion=False)
     out = [param, moment1, moment2]
     if shadow is not None:
         out.append(shadow)
@@ -155,6 +160,31 @@ def fused_adamw_triton(param, grad, moment1, moment2, lr, step, beta1=0.9,
 
 
 fused_adamw_triton.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def adamw_spec(n, grad_dt, m_dt, v_dt, shadow_dt):
+    """One program per ``BLOCK`` elements of the flat buffers: reads the
+    f32 master, the grad and the moments, writes the master and the
+    moments back (in place) and the shadow, each tile once."""
+    op = _launch.KernelOperand
+    ins = (op("param", (n,), "float32"), op("grad", (n,), grad_dt),
+           op("moment1", (n,), m_dt), op("moment2", (n,), v_dt),
+           op("bias_corrections", (3,), "float32"))
+    outs = [op("param_out", (n,), "float32"), op("moment1_out", (n,), m_dt),
+            op("moment2_out", (n,), v_dt)]
+    if shadow_dt is not None:
+        outs.append(op("shadow", (n,), shadow_dt))
+    progs = -(-n // BLOCK)
+    phase = _launch.KernelPhase(
+        "elements", progs,
+        tuple(_launch.flat_access(o, BLOCK) for o in ins[:4])
+        + (_launch.whole(ins[4]),),
+        tuple(_launch.flat_access(o, BLOCK) for o in outs))
+    return _launch.triton_spec(
+        "fused_adamw", _SOURCE, "float32", (phase,), ins, outs,
+        (("_adamw_kernel", 14, (progs,),
+          {"BLOCK": BLOCK, "SHADOW": shadow_dt is not None}, 4),))
 
 
 def adamw_meta(n, dtype, moment_dtype, shadow, device) -> dict:

@@ -77,13 +77,13 @@ does.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 import math
 
 import torch
 
 from ...quantization.quanters import maybe_dequantize, unpack_int4
-from . import _build
+from . import _build, _launch
 from .registry import KERNELS
 
 __all__ = ["attn_block_ref", "mlp_block_ref", "attn_block_wq_ref",
@@ -92,12 +92,12 @@ __all__ = ["attn_block_ref", "mlp_block_ref", "attn_block_wq_ref",
            "decode_block_fused_cuda", "decode_meta", "decode_meta_dims",
            "attn_smem_bytes", "mlp_smem_bytes", "block_smem_bytes",
            "SMEM_LIMIT", "weight_dtype_of", "resolve_decode_blocks",
-           "resolve_decode_step"]
+           "resolve_decode_step", "demo_prefix_mlp_block_cuda",
+           "demo_prefix_mlp_block_ref", "DEMO_TILE", "pick_lpr",
+           "assumed_grid", "attn_spec", "mlp_spec", "block_spec"]
 
 #: dynamic shared memory one block of an H100 may use (232,448 bytes)
-SMEM_LIMIT = 227 * 1024
-
-_fns = {}
+SMEM_LIMIT = _launch.SMEM_BLOCK
 
 
 # ---------------------------------------------------------------------------
@@ -387,24 +387,319 @@ def block_smem_bytes(D, H, KV, hd, BS, itemsize, pool_itemsize=None) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the launch plans: tile widths and counts, the cooperative grid, the spec
+# ---------------------------------------------------------------------------
+_SOURCE = "paddle_tpu_torch/csrc/fused_decode_block.cu"
+#: blocks an SM each cooperative kernel is built for (its __launch_bounds__)
+BOUNDS = {"decode_attn_block": 2, "decode_mlp_block": 2,
+          "decode_block_fused": 1, "prefill_attn_block": 2}
+#: the launchers' ctypes argument codes (pointers, ints, floats, then the
+#: dtype code and the stream)
+CALLS = {"decode_attn_block": _build.c_codes(23, 19, 2),
+         "decode_mlp_block": _build.c_codes(10, 13, 1),
+         "decode_block_fused": _build.c_codes(30, 23, 2)}
+_GRID_QUERY = {"decode_attn_block": 0, "decode_mlp_block": 1,
+               "decode_block_fused": 2}
+_GRIDS = {}
+
+
+def pick_lpr(ncols, vec, grid):
+    """Lanes per weight row for a phase of ``ncols`` stored output columns
+    of ``vec`` columns a lane, on ``grid`` blocks: the width (8, 4 or 2
+    lanes, so a column tile of ``lanes * vec``) that gives the busiest
+    block the fewest columns, the wider on a tie. The one definition of
+    the tile choice of csrc/fused_decode_block.cu's and
+    csrc/fused_prefill_block.cu's product phases."""
+    best, best_cost = _MAX_LPR, None
+    lpr = _MAX_LPR
+    while lpr >= 2:
+        tc = lpr * vec
+        cost = -(-(-(-ncols // tc)) // grid) * tc
+        if best_cost is None or cost < best_cost:
+            best, best_cost = lpr, cost
+        lpr //= 2
+    return best
+
+
+def assumed_grid(name, smem, bounds=None):
+    """The cooperative grid a kernel gets on an H100: 132 SMs times the
+    blocks an SM holds, its ``__launch_bounds__`` blocks or fewer where
+    ``smem`` bytes a block (plus the card's 1 KB each) do not fit 228 KB.
+    The plan of a capture over meta tensors; on the card the launcher's own
+    occupancy query gives the grid (:func:`coop_grid`)."""
+    per_sm = min(BOUNDS[name] if bounds is None else bounds,
+                 _launch.SMEM_SM // (smem + _launch.SMEM_RESERVED))
+    return _launch.H100_SMS * max(per_sm, 0)
+
+
+def coop_grid(name, device, dtype, bits, kv_bits, smem, query=None):
+    """The cooperative grid of kernel ``name`` for these arguments: on the
+    meta device the H100's (:func:`assumed_grid`); on a card the launcher's
+    occupancy query (``decode_coop_grid`` in the source), asked once per
+    (kernel, types, shared memory, device) and cached, so a launch pays
+    nothing for it."""
+    if device.type == "meta":
+        return assumed_grid(name, smem)
+    key = (name, device.index, dtype, bits, kv_bits, smem)
+    grid = _GRIDS.get(key)
+    if grid is None:
+        with torch.cuda.device(device):
+            if query is None:
+                fn = _build.c_fn("fused_decode_block", "decode_coop_grid",
+                                 ("i",) * 5)
+                grid = fn(_GRID_QUERY[name], _build.DTYPES[dtype], bits,
+                          kv_bits, smem)
+            else:
+                grid = query(_build.DTYPES[dtype], bits, kv_bits, smem)
+        if grid <= 0:
+            raise RuntimeError(f"{name}: no cooperative grid at {smem} B of "
+                               f"shared memory (cudaError {-grid})")
+        _GRIDS[key] = grid
+    return grid
+
+
+def _stored(k, n, bits, out_packed=False):
+    """(shape, dtype name) of a weight of logical shape [k, n] as the
+    kernel reads it: T (dtype None), int8, or int4 packed two to a byte
+    along k (or along n)."""
+    if bits == 4:
+        return ((k, n // 2) if out_packed else (k // 2, n)), "int8"
+    return (k, n), "int8" if bits == 8 else None
+
+
+def _op(name, shape, dtype, paged=None):
+    return _launch.KernelOperand(name, tuple(int(s) for s in shape), dtype,
+                                 paged)
+
+
+def _const(nd):
+    return lambda i: (0,) * nd
+
+
+def _col(i):
+    return (0, i)
+
+
+def _vec(i):
+    return (i,)
+
+
+def attn_plan(nq, nkv, D, vec, grid):
+    """The tile plan of an attention block's two product phases: lanes per
+    row and tile counts of q/k/v (``q_tiles`` of wq, ``kv_tiles`` each of
+    wk and wv) and of o_proj."""
+    lpr = pick_lpr(nq + 2 * nkv, vec, grid)
+    tc = lpr * vec
+    o_lpr = pick_lpr(D, vec, grid)
+    return {"qkv_lpr": lpr, "q_tiles": -(-nq // tc),
+            "kv_tiles": -(-nkv // tc), "o_lpr": o_lpr,
+            "o_tiles": -(-D // (o_lpr * vec))}
+
+
+def mlp_plan(D, F, vec, bits, grid, floor_tile=None):
+    """The tile plan of an MLP block's two phases: lanes per row and tile
+    counts of gate/up (over F) and of down (over D's stored columns, half
+    of them for int4 down_proj), and down's contraction depth ``down_k``.
+    ``floor_tile``: the gate's regression specimen's plan, gate/up tiles
+    of that many columns counted by floor division (``F // tile``) and a
+    down phase over the ``(F // tile) * tile`` columns they wrote."""
+    nst = D // 2 if bits == 4 else D
+    dcols = vec // 2 if bits == 4 else vec
+    if floor_tile is None:
+        up_lpr = pick_lpr(F, vec, grid)
+        up_tiles = -(-F // (up_lpr * vec))
+        down_k = F
+    else:
+        up_lpr = floor_tile // vec
+        up_tiles = F // floor_tile
+        down_k = up_tiles * floor_tile
+    down_lpr = pick_lpr(nst, dcols, grid)
+    return {"up_lpr": up_lpr, "up_tiles": up_tiles, "down_lpr": down_lpr,
+            "down_tiles": -(-nst // (down_lpr * dcols)), "down_k": down_k}
+
+
+def _attn_parts(B, D, H, KV, hd, BS, MB, N, rope_rows, dt, bits, kv_bits,
+                plan, x_out):
+    """Operands and phases of the attention half (decode_attn_block, and
+    the single-launch kernel's first four phases). ``x_out``: whether
+    o_proj writes x_out (the single-launch kernel keeps its residual in
+    a workspace)."""
+    nq, nkv = H * hd, KV * hd
+    vec = 16 // _ITEM[dt]
+    pool_dt = "int8" if kv_bits else dt
+    ins = [_op("x", (B, D), dt), _op("nw", (D,), dt)]
+    for name, (k, n) in (("wq", (D, nq)), ("wk", (D, nkv)), ("wv", (D, nkv)),
+                         ("wo", (nq, D))):
+        shape, wdt = _stored(k, n, bits)
+        ins.append(_op(name, shape, wdt or dt))
+    if bits:
+        ins += [_op("sq", (nq,), "float32"), _op("sk", (nkv,), "float32"),
+                _op("sv", (nkv,), "float32"), _op("so", (D,), "float32")]
+    ins += [_op("sin", (rope_rows, hd // 2), "float32", "rows"),
+            _op("cos", (rope_rows, hd // 2), "float32", "rows"),
+            _op("k_pool", (N, BS, KV, hd), pool_dt, "tokens"),
+            _op("v_pool", (N, BS, KV, hd), pool_dt, "tokens")]
+    if kv_bits:
+        ins += [_op("k_scale", (KV,), "float32"),
+                _op("v_scale", (KV,), "float32")]
+    ins += [_op("block_tables", (B, MB), "int32", "pages"),
+            _op("seq_lens", (B,), "int32")]
+    outs = [_op("k_new", (B, KV, hd), dt), _op("v_new", (B, KV, hd), dt)]
+    kn = D // 2 if bits == 4 else D
+    kn_o = nq // 2 if bits == 4 else nq
+    tc, tq, tk = plan["qkv_lpr"] * vec, plan["q_tiles"], plan["kv_tiles"]
+    otc = plan["o_lpr"] * vec
+    A = _launch.Access
+    qkv_reads = [_launch.whole(ins[0]), _launch.whole(ins[1]),
+                 A("wq", (kn, tc), _col, 0, tq),
+                 A("wk", (kn, tc), _col, tq, tk),
+                 A("wv", (kn, tc), _col, tq + tk, tk)]
+    if bits:
+        qkv_reads += [A("sq", (tc,), _vec, 0, tq),
+                      A("sk", (tc,), _vec, tq, tk),
+                      A("sv", (tc,), _vec, tq + tk, tk)]
+    ns = -(-MB // _SPLIT_PAGES)
+
+    def new_kv(i):
+        return (i // KV, i % KV, 0)
+    page_reads = [A("seq_lens", (B,), _const(1), 0, 1)]
+    if kv_bits:
+        page_reads += [A("k_scale", (KV,), _const(1), 0, 1),
+                       A("v_scale", (KV,), _const(1), 0, 1)]
+    o_reads = [A("wo", (kn_o, otc), _col)]
+    if bits:
+        o_reads.append(A("so", (otc,), _vec))
+    o_writes = ()
+    if x_out:
+        outs.insert(0, _op("x_out", (B, D), dt))
+        o_writes = (A("x_out", (B, otc), _col),)
+    phases = [
+        _launch.KernelPhase("qkv", tq + 2 * tk, tuple(qkv_reads)),
+        _launch.KernelPhase(
+            "pages", ns * B * KV, tuple(page_reads),
+            (A("k_new", (1, 1, hd), new_kv, 0, B * KV),
+             A("v_new", (1, 1, hd), new_kv, 0, B * KV))),
+        _launch.KernelPhase("combine", B * KV),
+        _launch.KernelPhase("o_proj", plan["o_tiles"], tuple(o_reads),
+                            o_writes)]
+    return ins, outs, phases
+
+
+def _mlp_parts(B, D, F, dt, bits, plan, x_name, norm_name):
+    """Operands and phases of the MLP half (decode_mlp_block, and the
+    single-launch kernel's last two phases; ``x_name`` None: its rows are
+    the single-launch kernel's f32 residual workspace). int4 down_proj
+    writes each output row in two column ranges, [0, D/2) and [D/2, D): the
+    spec sees the output (and its scale) as [B, 2, D/2]."""
+    vec = 16 // _ITEM[dt]
+    ins = []
+    if x_name:
+        ins.append(_op(x_name, (B, D), dt))
+    ins.append(_op(norm_name, (D,), dt))
+    for name, (k, n), out_packed in (("wg", (D, F), False),
+                                     ("wu", (D, F), False),
+                                     ("wd", (F, D), True)):
+        shape, wdt = _stored(k, n, bits, out_packed)
+        ins.append(_op(name, shape, wdt or dt))
+    half = bits == 4
+    if bits:
+        ins += [_op("sg", (F,), "float32"), _op("su", (F,), "float32"),
+                _op("sd", (2, D // 2) if half else (D,), "float32")]
+    outs = [_op("x_out", (B, 2, D // 2) if half else (B, D), dt)]
+    kn = D // 2 if half else D
+    tc = plan["up_lpr"] * vec
+    tcs = plan["down_lpr"] * (vec // 2 if half else vec)
+    A = _launch.Access
+    up_reads = [_launch.whole(op) for op in ins[:1 + bool(x_name)]]
+    up_reads += [A("wg", (kn, tc), _col), A("wu", (kn, tc), _col)]
+    if bits:
+        up_reads += [A("sg", (tc,), _vec), A("su", (tc,), _vec)]
+    down_reads = [A("wd", (plan["down_k"], tcs), _col)]
+    if half:
+        down_writes = (A("x_out", (B, 1, tcs), lambda i: (0, 0, i)),
+                       A("x_out", (B, 1, tcs), lambda i: (0, 1, i)))
+        if bits:
+            down_reads += [A("sd", (1, tcs), lambda i: (0, i)),
+                           A("sd", (1, tcs), lambda i: (1, i))]
+    else:
+        down_writes = (A("x_out", (B, tcs), _col),)
+        if bits:
+            down_reads.append(A("sd", (tcs,), _vec))
+    phases = [_launch.KernelPhase("gate_up", plan["up_tiles"],
+                                  tuple(up_reads)),
+              _launch.KernelPhase("down", plan["down_tiles"],
+                                  tuple(down_reads), down_writes)]
+    return ins, outs, phases
+
+
+_ITEM = {"float32": 4, "bfloat16": 2}
+
+
+@functools.lru_cache(maxsize=512)
+def attn_spec(B, D, H, KV, hd, BS, MB, N, rope_rows, dt, bits, kv_bits,
+              residual, grid, smem):
+    """The launch spec of decode_attn_block (cached by its arguments: the
+    decode step builds it once per shape)."""
+    plan = attn_plan(H * hd, KV * hd, D, 16 // _ITEM[dt], grid)
+    ins, outs, phases = _attn_parts(B, D, H, KV, hd, BS, MB, N, rope_rows,
+                                    dt, bits, kv_bits, plan, True)
+    return _launch.KernelLaunchSpec(
+        "decode_attn_block", "cuda", _SOURCE, (grid,), _THREADS,
+        tuple(ins), tuple(outs), tuple(phases),
+        (("decode_attn_block", CALLS["decode_attn_block"]),), dt,
+        blocks_per_sm=BOUNDS["decode_attn_block"], cooperative=True,
+        dyn_smem=smem, params={"residual": bool(residual), "wbits": bits,
+                               "kvbits": kv_bits}, plan=plan)
+
+
+@functools.lru_cache(maxsize=512)
+def mlp_spec(B, D, F, dt, bits, residual, grid, smem, floor_tile=None):
+    """The launch spec of decode_mlp_block (``floor_tile``: of the gate's
+    regression specimen, :func:`demo_prefix_mlp_block_cuda`)."""
+    plan = mlp_plan(D, F, 16 // _ITEM[dt], bits, grid, floor_tile)
+    ins, outs, phases = _mlp_parts(B, D, F, dt, bits, plan, "x", "nw")
+    name = ("decode_mlp_block" if floor_tile is None
+            else "demo_prefix_mlp_block")
+    return _launch.KernelLaunchSpec(
+        name, "cuda", _SOURCE, (grid,), _THREADS, tuple(ins), tuple(outs),
+        tuple(phases), (("decode_mlp_block", CALLS["decode_mlp_block"]),),
+        dt, blocks_per_sm=BOUNDS["decode_mlp_block"], cooperative=True,
+        dyn_smem=smem, params={"residual": bool(residual), "wbits": bits},
+        plan=plan)
+
+
+@functools.lru_cache(maxsize=512)
+def block_spec(B, D, H, KV, hd, F, BS, MB, N, rope_rows, dt, bits, kv_bits,
+               grid, smem):
+    """The launch spec of decode_block_fused: the attention half's phases
+    (o_proj into the f32 residual workspace), then the MLP half's (gate/up
+    over the post-norm of that residual, down into x_out)."""
+    vec = 16 // _ITEM[dt]
+    plan = attn_plan(H * hd, KV * hd, D, vec, grid)
+    plan.update(mlp_plan(D, F, vec, bits, grid))
+    ins, outs, phases = _attn_parts(B, D, H, KV, hd, BS, MB, N, rope_rows,
+                                    dt, bits, kv_bits, plan, False)
+    m_ins, m_outs, m_phases = _mlp_parts(B, D, F, dt, bits, plan, None, "pw")
+    # the MLP weights follow wo (and their scales so's), as the launcher
+    # takes them
+    at = [op.name for op in ins].index("wo") + 1
+    scales = [op for op in m_ins if op.name in ("sg", "su", "sd")]
+    ins[at:at] = [op for op in m_ins if op not in scales]
+    if bits:
+        at = [op.name for op in ins].index("so") + 1
+        ins[at:at] = scales
+    return _launch.KernelLaunchSpec(
+        "decode_block_fused", "cuda", _SOURCE, (grid,), _THREADS,
+        tuple(ins), tuple(m_outs + outs), tuple(phases + m_phases),
+        (("decode_block_fused", CALLS["decode_block_fused"]),), dt,
+        blocks_per_sm=BOUNDS["decode_block_fused"], cooperative=True,
+        dyn_smem=smem, params={"wbits": bits, "kvbits": kv_bits}, plan=plan)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
-def _lib_fn(name, nptr, nint, nfloat, source="fused_decode_block"):
-    """The C launcher ``name`` of ``csrc/<source>.cu`` with its ctypes
-    argtypes: pointers, ints, floats, then the dtype code and the stream."""
-    fn = _fns.get(name)
-    if fn is None:
-        lib = _build.load(source)
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
-                       + [ctypes.c_float] * nfloat
-                       + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        fn.error_string = lib.cuda_error_string
-        _fns[name] = fn
-    return fn
+_THREADS = 256
 
 
 def _check_tensor(name, tname, t, x, want):
@@ -420,8 +715,7 @@ def _check_tensor(name, tname, t, x, want):
 
 
 def _check_common(name, x, tensors, dtype_of):
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {x.device}")
+    _launch.check_device(name, x.device)
     if x.dtype not in _build.DTYPES:
         raise TypeError(f"{name}: x must be float32 or bfloat16, got "
                         f"{x.dtype}")
@@ -573,7 +867,11 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    fn = _lib_fn("decode_attn_block", 23, 13, 2)
+    grid = coop_grid("decode_attn_block", x.device, x.dtype, bits, kv_bits,
+                     smem)
+    spec = attn_spec(B, D, H, KV, hd, BS, MB, N, sin.shape[0],
+                     _launch.dtype_name(x.dtype), bits, kv_bits,
+                     bool(residual), grid, smem)
     x_out = torch.empty_like(x)
     k_new = torch.empty((B, KV, hd), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
@@ -587,6 +885,10 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     n_part = B * H * -(-MB // _SPLIT_PAGES)
     ws_f = torch.empty(n_part * (2 + hd) + B * H, dtype=torch.float32,
                        device=x.device)
+    if not _launch.begin(spec, x.device):
+        return x_out, k_new, v_new
+    fn = _build.c_fn("fused_decode_block", *spec.calls[0])
+    pl = spec.plan
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _count(decode_attn_block_cuda, bits, kv_bits, residual)
@@ -599,7 +901,8 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                  x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                  ws_t.data_ptr(), ws_f.data_ptr(), B, D, H, KV, hd, BS, MB,
                  sin.shape[0], int(bool(residual)), region, smem, bits,
-                 kv_bits, float(eps), 1.0 / math.sqrt(hd),
+                 kv_bits, grid, pl["qkv_lpr"], pl["q_tiles"], pl["kv_tiles"],
+                 pl["o_lpr"], pl["o_tiles"], float(eps), 1.0 / math.sqrt(hd),
                  _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_attn_block launch failed: "
@@ -614,7 +917,14 @@ def decode_mlp_block_cuda(x, nw, wg, wu, wd, eps=1e-6, residual=True):
     packed along the contraction axis, down along its output axis).
     Raises for anything the kernel does not take, and if the launch is
     refused. Never falls back."""
-    name = "decode_mlp_block_cuda"
+    return _mlp_launch("decode_mlp_block_cuda", decode_mlp_block_cuda, x, nw,
+                       wg, wu, wd, eps, residual, None)
+
+
+def _mlp_launch(name, wrapper, x, nw, wg, wu, wd, eps, residual,
+                floor_tile):
+    """decode_mlp_block's kernel under its plan (``floor_tile`` None) or
+    under the gate's regression specimen's floor-divided one."""
     _check_common(name, x, {"x": x, "nw": nw}, {})
     B, D = x.shape
     F, leaves = _mlp_leaves(x, wg, wu, wd)
@@ -628,24 +938,73 @@ def decode_mlp_block_cuda(x, nw, wg, wu, wd, eps=1e-6, residual=True):
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    fn = _lib_fn("decode_mlp_block", 10, 7, 1)
+    grid = coop_grid("decode_mlp_block", x.device, x.dtype, bits, 0, smem)
+    spec = mlp_spec(B, D, F, _launch.dtype_name(x.dtype), bits,
+                    bool(residual), grid, smem, floor_tile)
     out = torch.empty_like(x)
     # silu(g)*u, k-major rows ([pass][F][8], csrc/fused_decode_block.cu)
     ff_ws = torch.empty(_passes(B) * _ROWS * F, dtype=x.dtype,
                         device=x.device)
+    if not _launch.begin(spec, x.device):
+        return out
+    fn = _build.c_fn("fused_decode_block", *spec.calls[0])
+    pl = spec.plan
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _count(decode_mlp_block_cuda, bits, residual=residual)
+        if floor_tile is None:
+            _count(wrapper, bits, residual=residual)
+        else:
+            wrapper.launches += 1
         err = fn(x.data_ptr(), nw.data_ptr(),
                  *(w[k].data_ptr() for k in ("wg", "wu", "wd")),
                  *(_ptr(sc[k]) for k in ("wg", "wu", "wd")),
                  out.data_ptr(), ff_ws.data_ptr(), B, D, F,
-                 int(bool(residual)), region, smem, bits, float(eps),
+                 int(bool(residual)), region, smem, bits, grid,
+                 pl["up_lpr"], pl["up_tiles"], pl["down_lpr"],
+                 pl["down_tiles"], pl["down_k"], float(eps),
                  _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_mlp_block launch failed: "
                            + fn.error_string(err).decode())
     return out
+
+
+#: the column tile of the gate's regression specimen (bf16: 8 lanes of 8)
+DEMO_TILE = 64
+
+
+def demo_prefix_mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6):
+    """The plain version of :func:`demo_prefix_mlp_block_cuda`: the MLP
+    block over the first ``(F // DEMO_TILE) * DEMO_TILE`` intermediate
+    columns (:func:`mlp_block_ref` with wg, wu cut to those columns and wd
+    to those rows)."""
+    k = (wg.shape[1] // DEMO_TILE) * DEMO_TILE
+    return mlp_block_ref(x, nw, wg[:, :k], wu[:, :k], wd[:k], eps)
+
+
+def demo_prefix_mlp_block_cuda(x, nw, wg, wu, wd, eps=1e-6):
+    """The kernel-geometry gate's regression specimen on the card: the
+    decode_mlp_block kernel run under the PRE-FIX plan of the JAX
+    package's ``demo_prefix_mlp_block`` (``paddle_tpu/analysis/
+    kernel_catalog.py``), its tile count floor-divided: gate/up run
+    ``F // DEMO_TILE`` column tiles and down contracts over the columns
+    they wrote, so when DEMO_TILE does not divide F the last ``F %
+    DEMO_TILE`` columns of wg and wu and rows of wd are never read, and the
+    result is ``x + down(silu(g) * u)`` over the first columns only
+    (:func:`demo_prefix_mlp_block_ref`). No workspace it does not write is
+    read, so it is deterministic. bf16 only (8 lanes of 8 columns make the
+    64-column tile; the f32 tiles are at most 32 wide), plain weights
+    only. Counts its launches in ``.launches``; no runtime route or
+    dispatch reaches it."""
+    if x.dtype != torch.bfloat16 or wg.shape[1] < DEMO_TILE:
+        raise ValueError(f"demo_prefix_mlp_block_cuda takes bf16 and F >= "
+                         f"{DEMO_TILE}, got {x.dtype} and F={wg.shape[1]}")
+    return _mlp_launch("demo_prefix_mlp_block_cuda",
+                       demo_prefix_mlp_block_cuda, x, nw, wg, wu, wd, eps,
+                       True, DEMO_TILE)
+
+
+demo_prefix_mlp_block_cuda.launches = 0
 
 
 def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
@@ -696,7 +1055,10 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    fn = _lib_fn("decode_block_fused", 30, 13, 2)
+    grid = coop_grid("decode_block_fused", x.device, x.dtype, bits, kv_bits,
+                     smem)
+    spec = block_spec(B, D, H, KV, hd, F, BS, MB, N, sin.shape[0],
+                      _launch.dtype_name(x.dtype), bits, kv_bits, grid, smem)
     x_out = torch.empty_like(x)
     k_new = torch.empty((B, KV, hd), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
@@ -710,6 +1072,10 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     n_f = -(-(n_part * (2 + hd) + B * H) // 4) * 4
     ws_f = torch.empty(n_f + B * D, dtype=torch.float32, device=x.device)
     order = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+    if not _launch.begin(spec, x.device):
+        return x_out, k_new, v_new
+    fn = _build.c_fn("fused_decode_block", *spec.calls[0])
+    pl = spec.plan
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _count(decode_block_fused_cuda, bits, kv_bits)
@@ -722,7 +1088,10 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
                  seq_lens.data_ptr(), x_out.data_ptr(), k_new.data_ptr(),
                  v_new.data_ptr(), ws_t.data_ptr(), ws_f.data_ptr(), B, D, H,
                  KV, hd, F, BS, MB, sin.shape[0], region, smem, bits,
-                 kv_bits, float(eps), 1.0 / math.sqrt(hd),
+                 kv_bits, grid, pl["qkv_lpr"], pl["q_tiles"], pl["kv_tiles"],
+                 pl["o_lpr"], pl["o_tiles"], pl["up_lpr"], pl["up_tiles"],
+                 pl["down_lpr"], pl["down_tiles"], float(eps),
+                 1.0 / math.sqrt(hd),
                  _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_block_fused launch failed: "
@@ -746,10 +1115,6 @@ for _w in (decode_attn_block_cuda, decode_mlp_block_cuda):
 # ---------------------------------------------------------------------------
 # dispatch metas and predicates
 # ---------------------------------------------------------------------------
-def _dtype_name(dtype) -> str:
-    return str(dtype).replace("torch.", "")
-
-
 def decode_meta_dims(B, D, H, KV, hd, F, BS, MB, dtype, pool_dtype, quant,
                      tp=1, weight_dtype=None, device="cuda") -> dict:
     """Static dispatch metadata from raw dims: the one builder of
@@ -766,13 +1131,13 @@ def decode_meta_dims(B, D, H, KV, hd, F, BS, MB, dtype, pool_dtype, quant,
         "tp": int(tp),
         "B": int(B), "D": int(D), "H": int(H), "KV": int(KV),
         "hd": int(hd), "F": int(F), "BS": int(BS), "MB": int(MB),
-        "dtype": _dtype_name(dtype),
+        "dtype": _launch.dtype_name(dtype),
         "itemsize": torch.empty((), dtype=dtype).element_size(),
-        "pool_dtype": _dtype_name(pool_dtype),
+        "pool_dtype": _launch.dtype_name(pool_dtype),
         "pool_itemsize": torch.empty((), dtype=pool_dtype).element_size(),
         "quant": bool(quant),
         "weight_dtype": str(weight_dtype) if weight_dtype
-        else _dtype_name(dtype),
+        else _launch.dtype_name(dtype),
         "device": torch.device(device).type,
         "smem_limit": SMEM_LIMIT,
     }

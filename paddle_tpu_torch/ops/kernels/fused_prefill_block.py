@@ -39,10 +39,12 @@ and the verbatim unfused chunk otherwise, as the JAX engine does.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from . import _build, _launch
 from . import fused_decode_block as _fdb
 from ._build import DTYPES
 from .registry import KERNELS
@@ -149,6 +151,90 @@ def prefill_mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
 
 
 # ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+_SOURCE = "paddle_tpu_torch/csrc/fused_prefill_block.cu"
+#: the launcher's ctypes argument codes
+CALL = ("prefill_attn_block", _build.c_codes(23, 21, 2))
+
+
+def _grid_query(dtype, bits, kv_bits, smem):
+    fn = _build.c_fn("fused_prefill_block", "prefill_coop_grid", ("i",) * 4)
+    return fn(dtype, bits, kv_bits, smem)
+
+
+@functools.lru_cache(maxsize=512)
+def prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits, residual,
+                 pos0, n_valid, grid, smem):
+    """The launch spec of prefill_attn_block: the q/k/v products of the
+    real rows by column tiles, the RoPE pass that writes k_new and v_new
+    whole, the attention items (query block, KV head) over the paged
+    history of ``pos0`` tokens, and o_proj by column tiles into x_out."""
+    nq, nkv = H * hd, KV * hd
+    vec = 16 // _fdb._ITEM[dt]
+    plan = _fdb.attn_plan(nq, nkv, D, vec, grid)
+    op = _fdb._op
+    pool_dt = "int8" if kv_bits else dt
+    ins = [op("x", (P, D), dt), op("nw", (D,), dt)]
+    for name, (k, n) in (("wq", (D, nq)), ("wk", (D, nkv)), ("wv", (D, nkv)),
+                         ("wo", (nq, D))):
+        shape, wdt = _fdb._stored(k, n, bits)
+        ins.append(op(name, shape, wdt or dt))
+    if bits:
+        ins += [op("sq", (nq,), "float32"), op("sk", (nkv,), "float32"),
+                op("sv", (nkv,), "float32"), op("so", (D,), "float32")]
+    ins += [op("sin", (P, hd // 2), "float32"),
+            op("cos", (P, hd // 2), "float32"),
+            op("k_pool", (N, BS, KV, hd), pool_dt, "tokens"),
+            op("v_pool", (N, BS, KV, hd), pool_dt, "tokens")]
+    if kv_bits:
+        ins += [op("k_scale", (KV,), "float32"),
+                op("v_scale", (KV,), "float32")]
+    ins.append(op("table", (MB,), "int32", "pages"))
+    outs = [op("x_out", (P, D), dt), op("k_new", (P, KV, hd), dt),
+            op("v_new", (P, KV, hd), dt)]
+    kn = D // 2 if bits == 4 else D
+    kn_o = nq // 2 if bits == 4 else nq
+    tc, tq, tk = plan["qkv_lpr"] * vec, plan["q_tiles"], plan["kv_tiles"]
+    otc = plan["o_lpr"] * vec
+    A, whole = _launch.Access, _launch.whole
+    qkv_reads = [whole(ins[0]), whole(ins[1]),
+                 A("wq", (kn, tc), _fdb._col, 0, tq),
+                 A("wk", (kn, tc), _fdb._col, tq, tk),
+                 A("wv", (kn, tc), _fdb._col, tq + tk, tk)]
+    if bits:
+        qkv_reads += [A("sq", (tc,), _fdb._vec, 0, tq),
+                      A("sk", (tc,), _fdb._vec, tq, tk),
+                      A("sv", (tc,), _fdb._vec, tq + tk, tk)]
+    names = [o.name for o in ins]
+    rope_reads = (whole(ins[names.index("sin")]),
+                  whole(ins[names.index("cos")]))
+    attn_reads = ()
+    if kv_bits:
+        attn_reads = (whole(ins[names.index("k_scale")]),
+                      whole(ins[names.index("v_scale")]))
+    o_reads = [A("wo", (kn_o, otc), _fdb._col)]
+    if bits:
+        o_reads.append(A("so", (otc,), _fdb._vec))
+    phases = (
+        _launch.KernelPhase("qkv", tq + 2 * tk, tuple(qkv_reads)),
+        _launch.KernelPhase("rope", 1, rope_reads,
+                            (whole(outs[1]), whole(outs[2]))),
+        _launch.KernelPhase("attention", -(-n_valid // BQ) * KV,
+                            attn_reads),
+        _launch.KernelPhase("o_proj", plan["o_tiles"], tuple(o_reads),
+                            (A("x_out", (P, otc), _fdb._col),)))
+    return _launch.KernelLaunchSpec(
+        "prefill_attn_block", "cuda", _SOURCE, (grid,), _fdb._THREADS,
+        tuple(ins), tuple(outs), phases, (CALL,), dt,
+        blocks_per_sm=_fdb.BOUNDS["prefill_attn_block"],
+        cooperative=True, dyn_smem=smem,
+        params={"residual": bool(residual), "wbits": bits,
+                "kvbits": kv_bits, "pos0": pos0, "n_valid": n_valid,
+                "live": (pos0,)}, plan=plan)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel's wrapper
 # ---------------------------------------------------------------------------
 def prefill_attn_smem_bytes(D, H, KV, hd, BS, itemsize,
@@ -212,8 +298,11 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if smem > _fdb.SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {_fdb.SMEM_LIMIT}")
-    fn = _fdb._lib_fn("prefill_attn_block", 23, 15, 2,
-                      source="fused_prefill_block")
+    grid = _fdb.coop_grid("prefill_attn_block", x.device, x.dtype, bits,
+                          kv_bits, smem, query=_grid_query)
+    spec = prefill_spec(P, D, H, KV, hd, BS, MB, N,
+                        _launch.dtype_name(x.dtype), bits, kv_bits,
+                        bool(residual), pos0, n_valid, grid, smem)
     x_out = torch.empty_like(x)
     k_new = torch.empty((P, KV, hd), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
@@ -225,6 +314,10 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     attn_ws = torch.empty((_fdb._passes(P) * _fdb._ROWS, H * hd),
                           dtype=x.dtype, device=x.device)
     order = ("wq", "wk", "wv", "wo")
+    if not _launch.begin(spec, x.device):
+        return x_out, k_new, v_new
+    fn = _build.c_fn("fused_prefill_block", *spec.calls[0])
+    pl = spec.plan
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _fdb._count(prefill_attn_block_cuda, bits, kv_bits, residual)
@@ -236,8 +329,10 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                  x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                  qkv_ws.data_ptr(), q_ws.data_ptr(), attn_ws.data_ptr(), P,
                  D, H, KV, hd, BS, MB, pos0, n_valid, BQ,
-                 int(bool(residual)), region, smem, bits, kv_bits,
-                 float(eps), 1.0 / math.sqrt(hd), DTYPES[x.dtype], stream)
+                 int(bool(residual)), region, smem, bits, kv_bits, grid,
+                 pl["qkv_lpr"], pl["q_tiles"], pl["kv_tiles"], pl["o_lpr"],
+                 pl["o_tiles"], float(eps), 1.0 / math.sqrt(hd),
+                 DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("prefill_attn_block launch failed: "
                            + fn.error_string(err).decode())

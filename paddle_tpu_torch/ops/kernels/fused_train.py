@@ -43,12 +43,12 @@ never at import.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
-from . import _build
-from ._build import DTYPES, triton_jit
+from . import _build, _launch
+from ._build import DTYPES
 
 __all__ = ["swiglu_fwd_ref", "swiglu_bwd_ref", "swiglu_fwd_triton",
            "swiglu_bwd_triton", "SwiGLU", "ce_fwd_ref", "ce_bwd_dx_ref",
@@ -56,9 +56,25 @@ __all__ = ["swiglu_fwd_ref", "swiglu_bwd_ref", "swiglu_fwd_triton",
            "linear_ce_bwd_dh_cuda", "LinearCE", "ce_splits", "BT", "BV"]
 
 BLOCK = 1024
-#: the linear-CE kernels' logit tile (``kBT`` x ``kBV`` in linear_ce.cu)
+#: the linear-CE kernels' logit tile (``kBT`` x ``kBV`` in linear_ce.cu;
+#: the launchers refuse another)
 BT, BV = 64, 128
-_SMS = 132
+_SMS = _launch.H100_SMS
+_TRITON_SOURCE = "paddle_tpu_torch/ops/kernels/fused_train.py"
+_CE_SOURCE = "paddle_tpu_torch/csrc/linear_ce.cu"
+_CE_THREADS = 256
+#: shared memory of the CE kernels (linear_ce.cu): the forward's static
+#: tile (kFwdSmem), the dx and dh kernels' dynamic ones (kDxSmem, kDhSmem,
+#: which their launchers hold these figures to)
+CE_FWD_SMEM, CE_DX_SMEM, CE_DH_SMEM = 33792, 105216, 108032
+#: the launchers' ctypes argument codes
+CE_CALLS = {
+    "linear_ce_fwd": ("p", "p", "l", "l") + ("p",) * 4 + ("i",) * 7
+    + ("i", "p"),
+    "linear_ce_bwd_dx": ("p", "p", "l", "l") + ("p",) * 5 + ("i",) * 8
+    + ("i", "p"),
+    "linear_ce_bwd_dh": ("p", "p", "l", "l") + ("p",) * 4 + ("l", "l", "p")
+    + ("i",) * 5 + ("i", "p")}
 _kernels = {}
 tl = None          # triton.language, bound by triton_jit at the first launch
 
@@ -108,8 +124,7 @@ def _swiglu_bwd_kernel(g_ptr, u_ptr, d_ptr, dg_ptr, du_ptr, n,
 
 
 def _check_elementwise(name, first, *more):
-    if first.device.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {first.device}")
+    _launch.check_device(name, first.device)
     for t in (first,) + more:
         if t.dtype not in DTYPES:
             raise TypeError(f"{name} takes float32 and bfloat16, got "
@@ -120,6 +135,28 @@ def _check_elementwise(name, first, *more):
                              f"{first.device} do not match")
 
 
+@functools.lru_cache(maxsize=128)
+def swiglu_spec(name, n, dt):
+    """One program per ``BLOCK`` elements of the flattened tensors: the
+    forward reads g and u and writes the product; the backward reads g, u
+    and the incoming gradient and writes dg and du."""
+    op = _launch.KernelOperand
+    names = (("gate", "up"), ("out",)) if name == "swiglu_fwd" \
+        else (("gate", "up", "d"), ("dgate", "dup"))
+    ins = tuple(op(k, (n,), dt) for k in names[0])
+    outs = tuple(op(k, (n,), dt) for k in names[1])
+    progs = -(-n // BLOCK)
+    phase = _launch.KernelPhase(
+        "elements", progs,
+        tuple(_launch.flat_access(o, BLOCK) for o in ins),
+        tuple(_launch.flat_access(o, BLOCK) for o in outs))
+    fn = "_swiglu_fwd_kernel" if name == "swiglu_fwd" \
+        else "_swiglu_bwd_kernel"
+    return _launch.triton_spec(
+        name, _TRITON_SOURCE, dt, (phase,), ins, outs,
+        ((fn, len(ins) + len(outs) + 1, (progs,), {"BLOCK": BLOCK}, 4),))
+
+
 def swiglu_fwd_triton(gate, up):
     """Launch ``swiglu_fwd``: :func:`swiglu_fwd_ref` on CUDA tensors of one
     shape. Raises for anything else; never falls back."""
@@ -128,10 +165,11 @@ def swiglu_fwd_triton(gate, up):
     out = torch.empty_like(g)
     n = g.numel()
     if n:
-        with torch.cuda.device(g.device):
-            swiglu_fwd_triton.launches += 1
-            triton_jit(globals(), "_swiglu_fwd_kernel")[(-(-n // BLOCK),)](
-                g, u, out, n, BLOCK=BLOCK, num_warps=4)
+        spec = swiglu_spec("swiglu_fwd", n, _launch.dtype_name(g.dtype))
+        if _launch.begin(spec, g.device):
+            with torch.cuda.device(g.device):
+                swiglu_fwd_triton.launches += 1
+                _launch.triton_run(globals(), spec, [(g, u, out, n)])
     return out
 
 
@@ -142,10 +180,11 @@ def swiglu_bwd_triton(gate, up, d):
     dg, du = torch.empty_like(g), torch.empty_like(u)
     n = g.numel()
     if n:
-        with torch.cuda.device(g.device):
-            swiglu_bwd_triton.launches += 1
-            triton_jit(globals(), "_swiglu_bwd_kernel")[(-(-n // BLOCK),)](
-                g, u, dd, dg, du, n, BLOCK=BLOCK, num_warps=4)
+        spec = swiglu_spec("swiglu_bwd", n, _launch.dtype_name(g.dtype))
+        if _launch.begin(spec, g.device):
+            with torch.cuda.device(g.device):
+                swiglu_bwd_triton.launches += 1
+                _launch.triton_run(globals(), spec, [(g, u, dd, dg, du, n)])
     return dg, du
 
 
@@ -208,26 +247,6 @@ def ce_bwd_dh_ref(x2, head, labels, lse, coef):
     return (x2.float().T @ _ce_p(x2, head, labels, lse, coef)).to(head.dtype)
 
 
-def _ce_fn(name):
-    fn = _kernels.get(name)
-    if fn is None:
-        lib = _build.load("linear_ce")
-        fn = getattr(lib, name)
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = {
-            "linear_ce_fwd": [p, p, ll, ll, p, p, p, p, i, i, i, i, i, p],
-            "linear_ce_bwd_dx": [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i,
-                                 p],
-            "linear_ce_bwd_dh": [p, p, ll, ll, p, p, p, p, ll, ll, p, i, i,
-                                 i, i, p]}[name]
-        fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        fn.error_string = lib.cuda_error_string
-        _kernels[name] = fn
-    return fn
-
-
 def ce_splits(T, V, blocks):
     """``(tiles_per_split, splits)``: the vocab tiles cut into ``splits``
     runs so that at most ``blocks`` blocks of 64 tokens run (whole waves
@@ -239,9 +258,66 @@ def ce_splits(T, V, blocks):
     return tps, -(-nvt // tps)
 
 
+@functools.lru_cache(maxsize=64)
+def ce_spec(name, T, D, V, dt, head_dt, splits):
+    """The launch spec of one linear-CE wrapper call: its main kernel
+    (forward and dx: one block of 256 threads per (64-token tile, vocab
+    split), reading the tile's rows of x and labels and the split's
+    columns of the head; dh: one block per 128-column vocab tile, reading
+    all of x) and its second kernel (the forward's combine of the split
+    partials into lse and pick, one thread a token; dx's and dh's
+    fixed-order cast of the f32 accumulators into the output)."""
+    op = _launch.KernelOperand
+    A, whole = _launch.Access, _launch.whole
+    nt, nvt = -(-T // BT), -(-V // BV)
+    x, head = op("x", (T, D), dt), op("head", (D, V), head_dt)
+    labels = op("labels", (T,), "int64")
+    stats = (op("lse", (T,), "float32"), op("coef", (1,), "float32"))
+    if name == "linear_ce_bwd_dh":
+        ins = (x, head, labels) + stats
+        outs = (op("dh", (D, V), head_dt),)
+        grid, smem = (nvt,), CE_DH_SMEM
+        main = _launch.KernelPhase(
+            "vocab_tiles", nvt,
+            (A("head", (D, BV), lambda i: (0, i)), whole(x), whole(labels),
+             whole(stats[0]), whole(stats[1])))
+        plan = {"bv": BV, "smem": smem}
+    else:
+        tps = -(-nvt // splits)
+        grid = (nt, splits)
+        reads = (A("x", (BT, D), lambda i: (i % nt, 0)),
+                 A("labels", (BT,), lambda i: (i % nt,)),
+                 A("head", (D, tps * BV), lambda i: (0, i // nt)))
+        if name == "linear_ce_fwd":
+            ins = (x, head, labels)
+            outs = (op("lse_out", (T,), "float32"),
+                    op("pick", (T,), "float32"))
+            smem = 0
+        else:
+            ins = (x, head, labels) + stats
+            outs = (op("dx", (T, D), dt),)
+            reads += (A("lse", (BT,), lambda i: (i % nt,)),
+                      whole(stats[1]))
+            smem = CE_DX_SMEM
+        main = _launch.KernelPhase("token_tiles", nt * splits, reads)
+        plan = {"bt": BT, "bv": BV, "tiles_per_split": tps,
+                "splits": splits, "smem": smem}
+    if name == "linear_ce_fwd":
+        n_comb = -(-T // _CE_THREADS)
+        second = _launch.KernelPhase(
+            "combine", n_comb, (),
+            tuple(A(o.name, (_CE_THREADS,), lambda i: (i,)) for o in outs))
+    else:
+        second = _launch.KernelPhase("cast", 1, (), (whole(outs[0]),))
+    return _launch.KernelLaunchSpec(
+        name, "cuda", _CE_SOURCE, grid, _CE_THREADS, ins, outs,
+        (main, second), ((name, CE_CALLS[name]),), dt, blocks_per_sm=2,
+        dyn_smem=smem, static_smem=CE_FWD_SMEM if name == "linear_ce_fwd"
+        else 0, plan=plan)
+
+
 def _check_ce(name, x2, head, labels, *stats):
-    if x2.device.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {x2.device}")
+    _launch.check_device(name, x2.device)
     if x2.dtype not in DTYPES:
         raise TypeError(f"{name} takes float32 and bfloat16, got {x2.dtype}")
     if x2.dim() != 2 or head.dim() != 2 or head.shape[0] != x2.shape[1]:
@@ -268,8 +344,10 @@ def _check_ce(name, x2, head, labels, *stats):
                              "float32 on x's device")
 
 
-def _run(name, wrapper, x2, *args):
-    fn = _ce_fn(name)
+def _run(name, wrapper, x2, spec, *args):
+    if not _launch.begin(spec, x2.device):
+        return
+    fn = _build.c_fn("linear_ce", *spec.calls[0])
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         wrapper.launches += 1
@@ -291,12 +369,14 @@ def linear_ce_fwd_cuda(x2, head, labels):
     T, D = x2.shape
     V = head.shape[1]
     tps, splits = ce_splits(T, V, 4 * _SMS)
+    spec = ce_spec("linear_ce_fwd", T, D, V, _launch.dtype_name(x2.dtype),
+                   _launch.dtype_name(head.dtype), splits)
     lse = torch.empty(T, dtype=torch.float32, device=x2.device)
     pick = torch.empty_like(lse)
     part = torch.empty(3, splits, T, dtype=torch.float32, device=x2.device)
-    _run("linear_ce_fwd", linear_ce_fwd_cuda, x2, x2.data_ptr(),
+    _run("linear_ce_fwd", linear_ce_fwd_cuda, x2, spec, x2.data_ptr(),
          *_head_args(head), labels.data_ptr(), lse.data_ptr(),
-         pick.data_ptr(), part.data_ptr(), T, D, V, tps)
+         pick.data_ptr(), part.data_ptr(), T, D, V, tps, BT, BV, splits)
     return lse, pick
 
 
@@ -307,11 +387,15 @@ def linear_ce_bwd_dx_cuda(x2, head, labels, lse, coef):
     T, D = x2.shape
     V = head.shape[1]
     tps, splits = ce_splits(T, V, 2 * _SMS)
+    spec = ce_spec("linear_ce_bwd_dx", T, D, V,
+                   _launch.dtype_name(x2.dtype),
+                   _launch.dtype_name(head.dtype), splits)
     dx = torch.empty_like(x2)
     part = torch.empty(splits, T, D, dtype=torch.float32, device=x2.device)
-    _run("linear_ce_bwd_dx", linear_ce_bwd_dx_cuda, x2, x2.data_ptr(),
+    _run("linear_ce_bwd_dx", linear_ce_bwd_dx_cuda, x2, spec, x2.data_ptr(),
          *_head_args(head), labels.data_ptr(), lse.data_ptr(),
-         coef.data_ptr(), dx.data_ptr(), part.data_ptr(), T, D, V, tps)
+         coef.data_ptr(), dx.data_ptr(), part.data_ptr(), T, D, V, tps, BT,
+         BV, splits, CE_DX_SMEM)
     return dx
 
 
@@ -327,10 +411,13 @@ def linear_ce_bwd_dh_cuda(x2, head, labels, lse, coef):
     else:
         dh = torch.empty(D, V, dtype=head.dtype, device=head.device)
     accum = torch.empty(D, V, dtype=torch.float32, device=x2.device)
-    _run("linear_ce_bwd_dh", linear_ce_bwd_dh_cuda, x2, x2.data_ptr(),
+    spec = ce_spec("linear_ce_bwd_dh", T, D, V,
+                   _launch.dtype_name(x2.dtype),
+                   _launch.dtype_name(head.dtype), 1)
+    _run("linear_ce_bwd_dh", linear_ce_bwd_dh_cuda, x2, spec, x2.data_ptr(),
          *_head_args(head), labels.data_ptr(), lse.data_ptr(),
          coef.data_ptr(), dh.data_ptr(), dh.stride(0), dh.stride(1),
-         accum.data_ptr(), T, D, V)
+         accum.data_ptr(), T, D, V, BV, CE_DH_SMEM)
     return dh
 
 

@@ -63,9 +63,12 @@ the CPU tests import this module where Triton is absent.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ._build import DTYPES, triton_jit
+from . import _launch
+from ._build import DTYPES
 from .registry import KERNELS, dispatch_fused_variant
 
 __all__ = ["rms_norm_ref", "rms_norm_fwd_triton", "rms_bwd_ref",
@@ -78,6 +81,8 @@ _kernels = {}
 tl = None          # triton.language, bound by triton_jit at the first launch
 MAX_D = 16384      # a row is one register-resident block
 _BWD_PROGRAMS = 264                  # dw partials: two programs per SM
+_SOURCE = "paddle_tpu_torch/ops/kernels/norms.py"
+_SUM_BLOCK = 1024                    # columns a dw-sum program adds
 
 
 def rms_norm_ref(x, weight, epsilon=1e-6):
@@ -183,8 +188,7 @@ def _ln_fwd_kernel(x_ptr, w_ptr, b_ptr, y_ptr, rows, D, eps,
 def _check_rows(name, x, weight, *more, max_d=None):
     """Raise unless ``x`` is a CUDA f32/bf16 tensor (with ``D <= max_d``
     when given), ``weight`` is [D] of x's type, and ``more`` match x."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
+    _launch.check_device(name, x.device)
     if x.dtype not in DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     D = x.shape[-1]
@@ -206,24 +210,105 @@ def _warps(block):
     return 8 if block >= 2048 else 4
 
 
+def _pow2(n):
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _op(name, shape, dt):
+    return _launch.KernelOperand(name, tuple(shape), dt)
+
+
+@functools.lru_cache(maxsize=256)
+def rms_fwd_spec(rows, D, dt):
+    """One program per row, ``BLOCK = next_pow2(D)`` columns."""
+    x, w, y = _op("x", (rows, D), dt), _op("w", (D,), dt), \
+        _op("y", (rows, D), dt)
+    block = _pow2(D)
+    phase = _launch.KernelPhase("rows", rows, (_launch.rows_access(x),
+                                               _launch.whole(w)),
+                                (_launch.rows_access(y),))
+    return _launch.triton_spec(
+        "rms_norm_fwd", _SOURCE, dt, (phase,), (x, w), (y,),
+        (("_rms_fwd_kernel", 5, (rows,), {"BLOCK": block}, _warps(block)),))
+
+
+@functools.lru_cache(maxsize=256)
+def rms_bwd_spec(rows, D, dt):
+    """The row kernel (``min(rows, 264)`` programs striding over the rows,
+    each keeping an f32 partial of dw) and the fixed-order sum of the
+    partials (one program per 1024 columns)."""
+    x, w, g = (_op("x", (rows, D), dt), _op("w", (D,), dt),
+               _op("g", (rows, D), dt))
+    dx, dw = _op("dx", (rows, D), dt), _op("dw", (D,), dt)
+    block = _pow2(D)
+    nprog = max(1, min(rows, _BWD_PROGRAMS))
+    phases = (
+        _launch.KernelPhase("rows", rows, (_launch.rows_access(x),
+                                           _launch.rows_access(g),
+                                           _launch.whole(w)),
+                            (_launch.rows_access(dx),)),
+        _launch.KernelPhase("dw", -(-D // _SUM_BLOCK), (),
+                            (_launch.flat_access(dw, _SUM_BLOCK),)))
+    return _launch.triton_spec(
+        "rms_norm_bwd", _SOURCE, dt, phases, (x, w, g), (dx, dw),
+        (("_rms_bwd_kernel", 8, (nprog,), {"BLOCK": block}, _warps(block)),
+         ("_sum_rows_kernel", 4, (-(-D // _SUM_BLOCK),),
+          {"BLOCK": _SUM_BLOCK}, 4)))
+
+
+@functools.lru_cache(maxsize=256)
+def res_rms_fwd_spec(rows, D, dt):
+    """One program per row: ``y = x + delta`` and its RMSNorm ``h``."""
+    d, x, w = (_op("delta", (rows, D), dt), _op("x", (rows, D), dt),
+               _op("w", (D,), dt))
+    y, h = _op("y", (rows, D), dt), _op("h", (rows, D), dt)
+    block = _pow2(D)
+    phase = _launch.KernelPhase(
+        "rows", rows, (_launch.rows_access(d), _launch.rows_access(x),
+                       _launch.whole(w)),
+        (_launch.rows_access(y), _launch.rows_access(h)))
+    return _launch.triton_spec(
+        "residual_rms_norm_fwd", _SOURCE, dt, (phase,), (d, x, w), (y, h),
+        (("_res_rms_fwd_kernel", 7, (rows,), {"BLOCK": block},
+          _warps(block)),))
+
+
+@functools.lru_cache(maxsize=256)
+def ln_fwd_spec(rows, D, dt):
+    """One program per ``ROWS`` whole rows (several for a narrow D)."""
+    x, w, b = (_op("x", (rows, D), dt), _op("w", (D,), dt),
+               _op("b", (D,), dt))
+    y = _op("y", (rows, D), dt)
+    block = _pow2(D)
+    per = max(1, min(16, 4096 // block))     # rows a program holds
+    progs = -(-rows // per)
+    phase = _launch.KernelPhase(
+        "rows", progs, (_launch.rows_access(x, per), _launch.whole(w),
+                        _launch.whole(b)),
+        (_launch.rows_access(y, per),))
+    return _launch.triton_spec(
+        "layer_norm_fwd", _SOURCE, dt, (phase,), (x, w, b), (y,),
+        (("_ln_fwd_kernel", 7, (progs,), {"ROWS": per, "BLOCK": block},
+          _warps(block * per)),))
+
+
 def rms_norm_fwd_triton(x, weight, epsilon=1e-6):
     """Launch the Triton kernel over the rows of ``x``. CUDA tensors
     only; raises for anything the kernel does not take. Never falls
     back."""
     _check_rows("rms_norm_fwd_triton", x, weight)
     D = x.shape[-1]
-    import triton
     x2 = x.reshape(-1, D).contiguous()
     w = weight.contiguous()
     y = torch.empty_like(x2)
     rows = x2.shape[0]
     if rows:
-        block = triton.next_power_of_2(D)
-        kernel = triton_jit(globals(), "_rms_fwd_kernel")
-        with torch.cuda.device(x.device):
-            rms_norm_fwd_triton.launches += 1
-            kernel[(rows,)](x2, w, y, D, float(epsilon), BLOCK=block,
-                            num_warps=_warps(block))
+        spec = rms_fwd_spec(rows, D, _launch.dtype_name(x.dtype))
+        if _launch.begin(spec, x.device):
+            with torch.cuda.device(x.device):
+                rms_norm_fwd_triton.launches += 1
+                _launch.triton_run(globals(), spec,
+                                   [(x2, w, y, D, float(epsilon))])
     return y.reshape(x.shape)
 
 
@@ -232,23 +317,21 @@ def rms_norm_bwd_triton(x, weight, g, epsilon=1e-6):
     (dx in x's type, dw in the weight's). CUDA tensors only, ``weight``
     in x's type; raises for anything else, never falls back."""
     _check_rows("rms_norm_bwd_triton", x, weight, g, max_d=MAX_D)
-    import triton
     D = x.shape[-1]
     x2 = x.reshape(-1, D).contiguous()
     g2 = g.reshape(-1, D).contiguous()
     rows = x2.shape[0]
     dx = torch.empty_like(x2)
     dw = torch.empty(D, dtype=weight.dtype, device=x.device)
-    block = triton.next_power_of_2(D)
-    nprog = max(1, min(rows, _BWD_PROGRAMS))
+    spec = rms_bwd_spec(rows, D, _launch.dtype_name(x.dtype))
+    nprog = spec.plan["launches"][0][0][0]
     part = torch.empty(nprog, D, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rms_norm_bwd_triton.launches += 1
-        triton_jit(globals(), "_rms_bwd_kernel")[(nprog,)](
-            x2, weight.contiguous(), g2, dx, part, rows, D, float(epsilon),
-            BLOCK=block, num_warps=_warps(block))
-        triton_jit(globals(), "_sum_rows_kernel")[(triton.cdiv(D, 1024),)](
-            part, dw, nprog, D, BLOCK=1024, num_warps=4)
+    if _launch.begin(spec, x.device):
+        with torch.cuda.device(x.device):
+            rms_norm_bwd_triton.launches += 1
+            _launch.triton_run(globals(), spec, [
+                (x2, weight.contiguous(), g2, dx, part, rows, D,
+                 float(epsilon)), (part, dw, nprog, D)])
     return dx.reshape(x.shape), dw
 
 
@@ -265,19 +348,18 @@ def residual_rms_norm_fwd_triton(delta, x, weight, epsilon=1e-6):
     back."""
     _check_rows("residual_rms_norm_fwd_triton", x, weight, delta,
                 max_d=MAX_D)
-    import triton
     D = x.shape[-1]
     x2 = x.reshape(-1, D).contiguous()
     d2 = delta.reshape(-1, D).contiguous()
     y, h = torch.empty_like(x2), torch.empty_like(x2)
     rows = x2.shape[0]
     if rows:
-        block = triton.next_power_of_2(D)
-        with torch.cuda.device(x.device):
-            residual_rms_norm_fwd_triton.launches += 1
-            triton_jit(globals(), "_res_rms_fwd_kernel")[(rows,)](
-                d2, x2, weight.contiguous(), y, h, D, float(epsilon),
-                BLOCK=block, num_warps=_warps(block))
+        spec = res_rms_fwd_spec(rows, D, _launch.dtype_name(x.dtype))
+        if _launch.begin(spec, x.device):
+            with torch.cuda.device(x.device):
+                residual_rms_norm_fwd_triton.launches += 1
+                _launch.triton_run(globals(), spec, [
+                    (d2, x2, weight.contiguous(), y, h, D, float(epsilon))])
     return y.reshape(x.shape), h.reshape(x.shape)
 
 
@@ -289,20 +371,18 @@ def layer_norm_fwd_triton(x, weight, bias, epsilon=1e-5):
     name = "layer_norm_fwd_triton"
     _check_rows(name, x, weight, max_d=MAX_D)
     _check_rows(name, x, bias)
-    import triton
     D = x.shape[-1]
     x2 = x.reshape(-1, D).contiguous()
     y = torch.empty_like(x2)
     rows = x2.shape[0]
     if rows:
-        block = triton.next_power_of_2(D)
-        per = max(1, min(16, 4096 // block))     # rows a program holds
-        with torch.cuda.device(x.device):
-            layer_norm_fwd_triton.launches += 1
-            triton_jit(globals(), "_ln_fwd_kernel")[(triton.cdiv(rows, per),)](
-                x2, weight.contiguous(), bias.contiguous(), y, rows, D,
-                float(epsilon), ROWS=per, BLOCK=block,
-                num_warps=_warps(block * per))
+        spec = ln_fwd_spec(rows, D, _launch.dtype_name(x.dtype))
+        if _launch.begin(spec, x.device):
+            with torch.cuda.device(x.device):
+                layer_norm_fwd_triton.launches += 1
+                _launch.triton_run(globals(), spec, [
+                    (x2, weight.contiguous(), bias.contiguous(), y, rows, D,
+                     float(epsilon))])
     return y.reshape(x.shape)
 
 

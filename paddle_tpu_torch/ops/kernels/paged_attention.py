@@ -20,16 +20,21 @@ pools only.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 import math
 
 import torch
 
-from . import _build
+from . import _build, _launch
 
-__all__ = ["paged_attention_decode_ref", "paged_attention_decode_cuda"]
+__all__ = ["paged_attention_decode_ref", "paged_attention_decode_cuda",
+           "paged_spec"]
 
-_fn = None
+_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+_THREADS = 128
+#: the launcher's ctypes argument codes: q, pools, tables, lengths, out;
+#: B, H, KV, hd, BS, MB and the plan's grid_x, grid_y, smem; the scale
+CALL = ("paged_attention_decode", ("p",) * 6 + ("i",) * 9 + ("f", "i", "p"))
 
 
 def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens,
@@ -70,19 +75,35 @@ def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens,
     return out.to(q.dtype)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = _build.load("paged_attention")
-        fn = lib.paged_attention_decode
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        fn.error_string = lib.cuda_error_string
-        _fn = fn
-    return _fn
+@functools.lru_cache(maxsize=256)
+def paged_spec(B, H, KV, hd, BS, MB, N, dt):
+    """The launch spec: one block of 128 threads per (KV head, sequence),
+    grid (KV, B), reading the head group's q rows, the sequence's live
+    pages (paged) and writing its output rows; shared memory: two pages of
+    K/V in the pools' type and the f32 softmax state of the group."""
+    groups = H // KV
+    item = 4 if dt == "float32" else 2
+    smem = 2 * BS * hd * item + (2 * groups * hd + groups * BS
+                                 + 3 * groups) * 4
+    op = _launch.KernelOperand
+    ins = (op("q", (B, H, hd), dt),
+           op("k_pool", (N, BS, KV, hd), dt, "tokens"),
+           op("v_pool", (N, BS, KV, hd), dt, "tokens"),
+           op("block_tables", (B, MB), "int32", "pages"),
+           op("seq_lens", (B,), "int32"))
+    outs = (op("out", (B, H, hd), dt),)
+
+    def head_rows(i):
+        return (i // KV, i % KV, 0)
+    A = _launch.Access
+    phase = _launch.KernelPhase(
+        "heads", KV * B,
+        (A("q", (1, groups, hd), head_rows), _launch.whole(ins[4])),
+        (A("out", (1, groups, hd), head_rows),))
+    return _launch.KernelLaunchSpec(
+        "paged_attention_decode", "cuda", _SOURCE, (KV, B), _THREADS, ins,
+        outs, (phase,), (CALL,), dt, dyn_smem=smem,
+        plan={"grid": (KV, B), "smem": smem})
 
 
 def _check(q, k_pool, v_pool, block_tables, seq_lens):
@@ -92,9 +113,7 @@ def _check(q, k_pool, v_pool, block_tables, seq_lens):
                 f"{name} is int8: the kernel takes fp pools; int8 pools "
                 "go through paged_attention_decode_quant, a composition "
                 "on every device, as in the JAX package (XLA)")
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"paged_attention_decode_cuda needs CUDA tensors, got {q.device}")
+    _launch.check_device("paged_attention_decode_cuda", q.device)
     if q.dtype not in _build.DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
@@ -131,17 +150,22 @@ def paged_attention_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens):
     take, and if the launch is refused. Never falls back."""
     _check(q, k_pool, v_pool, block_tables, seq_lens)
     B, H, hd = q.shape
-    _, BS, KV, _ = k_pool.shape
+    N, BS, KV, _ = k_pool.shape
     MB = block_tables.shape[1]
-    fn = _kernel()
+    spec = paged_spec(B, H, KV, hd, BS, MB, N,
+                      _launch.dtype_name(q.dtype))
     out = torch.empty_like(q)
+    if not _launch.begin(spec, q.device):
+        return out
+    fn = _build.c_fn("paged_attention", *spec.calls[0])
+    (gx, gy), smem = spec.plan["grid"], spec.plan["smem"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         paged_attention_decode_cuda.launches += 1
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), seq_lens.data_ptr(),
-                 out.data_ptr(), B, H, KV, hd, BS, MB, 1.0 / math.sqrt(hd),
-                 _build.DTYPES[q.dtype], stream)
+                 out.data_ptr(), B, H, KV, hd, BS, MB, gx, gy, smem,
+                 1.0 / math.sqrt(hd), _build.DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError("paged_attention_decode launch failed: "
                            + fn.error_string(err).decode())

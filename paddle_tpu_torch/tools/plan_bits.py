@@ -1,0 +1,252 @@
+#!/usr/bin/env python3
+"""Bit-for-bit check of the port's kernels across two trees on one GPU.
+
+    python3 paddle_tpu_torch/tools/plan_bits.py --root DIR --out FILE.pt
+    python3 paddle_tpu_torch/tools/plan_bits.py --compare A.pt B.pt
+
+The first form imports ``paddle_tpu_torch`` from the tree at ``DIR`` (so
+the same script drives a checkout of another commit), builds its kernels,
+runs every CUDA kernel (and the Triton ones) on inputs made from a fixed
+seed at the shapes of ``chip_smoke.py``'s kernel phases (LLaMA-7B widths,
+8 slots, a 128-row prefill chunk at position 512; fp, int8 and int4
+weights, int8 pools, a tensor-parallel shard's ``residual=False`` bodies;
+flash attention, the linear CE and the norms at smaller training shapes)
+and saves every output on the host. The second form compares two such
+files case by case: the number of elements that differ in their bits.
+Two trees whose kernels run the same tiles in the same order give 0
+everywhere. One JSON object per line; ``--compare`` exits 1 if any case
+differs or is missing. It imports nothing of JAX or of ``paddle_tpu``.
+"""
+import argparse
+import json
+import sys
+import time
+
+
+def _cases(torch, k):
+    """(name, thunk) of every kernel call, inputs made from one seed."""
+    from paddle_tpu_torch.quantization import quantize_leaf
+    fdb, fpb = k.fused_decode_block, k.fused_prefill_block
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    bf, f32 = torch.bfloat16, torch.float32
+    D, H, hd, F, B, BS, MB = 4096, 32, 128, 11008, 8, 16, 72
+
+    def rn(*shape, dt=bf, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * std).to(dt)
+
+    def lens(B, full):
+        rand = torch.randint(2, full, (B - 6,), generator=gen, device="cuda")
+        fix = torch.tensor([0, 1, BS - 1, BS, BS + 1, full - 1],
+                           device="cuda")
+        return torch.cat([fix, rand]).to(torch.int32)
+
+    def decode_args(dt, KV, Hq=H):
+        N = B * MB + 1
+        perm = torch.randperm(N - 1, generator=gen, device="cuda") + 1
+        tables = perm[:B * MB].reshape(B, MB).to(torch.int32).contiguous()
+        rope = rn(MB * BS + 1, hd // 2, dt=f32), rn(MB * BS + 1, hd // 2,
+                                                    dt=f32)
+        return [rn(B, D, dt=dt), (1 + 0.1 * rn(D, dt=f32)).to(dt),
+                rn(D, Hq * hd, dt=dt, std=0.02), rn(D, KV * hd, dt=dt,
+                                                    std=0.02),
+                rn(D, KV * hd, dt=dt, std=0.02),
+                rn(Hq * hd, D, dt=dt, std=0.02), *rope,
+                rn(N, BS, KV, hd, dt=dt), rn(N, BS, KV, hd, dt=dt), tables,
+                lens(B, MB * BS)]
+
+    def kv8(kp, vp):
+        ks = (kp.float().abs().amax(dim=(0, 1, 3)) / 127).clamp_min(1e-8)
+        vs = (vp.float().abs().amax(dim=(0, 1, 3)) / 127).clamp_min(1e-8)
+
+        def q(t, s):
+            return torch.round(t.float() / s[None, None, :, None]).clamp(
+                -127, 127).to(torch.int8)
+        return q(kp, ks), q(vp, vs), (ks, vs)
+
+    def wq(ws, bits, down=None):
+        return [quantize_leaf(w, bits, pack_axis=1 if w is down else 0)
+                for w in ws]
+
+    def mlp_w(dt, F, D=D):
+        return [rn(D, F, dt=dt, std=0.02), rn(D, F, dt=dt, std=0.02),
+                rn(F, D, dt=dt, std=0.02)]
+
+    out = []
+    for dt, KV in ((bf, 32), (f32, 8)):
+        a = decode_args(dt, KV)
+        out.append((f"decode_attn_block[{dt},{KV}]",
+                    lambda a=a: fdb.decode_attn_block_cuda(*a)))
+        m = mlp_w(dt, F)
+        pw = (1 + 0.1 * rn(D, dt=f32)).to(dt)
+        out.append((f"decode_block_fused[{dt},{KV}]",
+                    lambda a=a, m=m, pw=pw: fdb.decode_block_fused_cuda(
+                        *a[:6], pw, *m, *a[6:])))
+        out.append((f"decode_mlp_block[{dt}]",
+                    lambda a=a, m=m: fdb.decode_mlp_block_cuda(a[0], a[1],
+                                                               *m)))
+    a = decode_args(bf, 32)
+    m = mlp_w(bf, F)
+    x128 = rn(128, D)
+    out.append(("decode_mlp_block[128 rows]",
+                lambda: fdb.decode_mlp_block_cuda(x128, a[1], *m)))
+    for bits in (8, 4):
+        qa = wq(a[2:6], bits)
+        qm = wq(m, bits, down=m[2])
+        out.append((f"decode_attn_block[int{bits}]",
+                    lambda qa=qa: fdb.decode_attn_block_cuda(
+                        a[0], a[1], *qa, *a[6:])))
+        out.append((f"decode_mlp_block[int{bits}]",
+                    lambda qm=qm: fdb.decode_mlp_block_cuda(a[0], a[1],
+                                                            *qm)))
+        out.append((f"decode_block_fused[int{bits}]",
+                    lambda qa=qa, qm=qm: fdb.decode_block_fused_cuda(
+                        a[0], a[1], *qa, a[1], *qm, *a[6:])))
+    kq, vq, sc = kv8(a[8], a[9])
+    out.append(("decode_attn_block[kv8]", lambda: fdb.decode_attn_block_cuda(
+        *a[:8], kq, vq, *a[10:], kv_scales=sc)))
+    out.append(("decode_block_fused[kv8]",
+                lambda: fdb.decode_block_fused_cuda(
+                    *a[:6], a[1], *m, *a[6:8], kq, vq, *a[10:],
+                    kv_scales=sc)))
+    a16 = decode_args(bf, 16, Hq=16)
+    out.append(("decode_attn_block[partial,tp2]",
+                lambda: fdb.decode_attn_block_cuda(*a16, residual=False)))
+    m2 = mlp_w(bf, F // 4)
+    out.append(("decode_mlp_block[partial,tp4]",
+                lambda: fdb.decode_mlp_block_cuda(a[0], a[1], *m2,
+                                                  residual=False)))
+    # prefill: a 128-row chunk at position 512 and a 32-row one at 5
+    for dt, P, pos0, nv, bits in ((bf, 128, 512, 128, 0),
+                                  (f32, 32, 5, 29, 0), (bf, 128, 512, 128, 4)):
+        KV, N = 32, MB + 1
+        table = (torch.randperm(N - 1, generator=gen, device="cuda")[:MB]
+                 + 1).to(torch.int32)
+        ws = [rn(D, H * hd, dt=dt, std=0.02), rn(D, KV * hd, dt=dt,
+                                                 std=0.02),
+              rn(D, KV * hd, dt=dt, std=0.02), rn(H * hd, D, dt=dt,
+                                                  std=0.02)]
+        if bits:
+            ws = wq(ws, bits)
+        args = (rn(P, D, dt=dt), (1 + 0.1 * rn(D, dt=f32)).to(dt), *ws,
+                rn(P, hd // 2, dt=f32), rn(P, hd // 2, dt=f32),
+                rn(N, BS, KV, hd, dt=dt), rn(N, BS, KV, hd, dt=dt), table,
+                pos0, nv)
+        out.append((f"prefill_attn_block[{dt},{P},{pos0},w{bits}]",
+                    lambda args=args: fpb.prefill_attn_block_cuda(*args)))
+    pa = decode_args(bf, 32)
+    q = rn(B, H, hd)
+    out.append(("paged_attention_decode",
+                lambda: k.paged_attention.paged_attention_decode_cuda(
+                    q, pa[8], pa[9], pa[10], pa[11] + 1)))
+    # training kernels at smaller shapes
+    fa = k.flash_attention
+    qf, kf, vf = rn(1, 1024, 8, 128), rn(1, 1024, 8, 128), rn(1, 1024, 8,
+                                                             128)
+    o, lse = fa.flash_fwd_cuda(qf, kf, vf, True)
+    do = rn(1, 1024, 8, 128)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    out.append(("flash_attention_fwd", lambda: fa.flash_fwd_cuda(
+        qf, kf, vf, True)))
+    out.append(("flash_attention_bwd_dq", lambda: fa.flash_bwd_dq_cuda(
+        qf, kf, vf, do, lse, delta, True)))
+    out.append(("flash_attention_bwd_dkv", lambda: fa.flash_bwd_dkv_cuda(
+        qf, kf, vf, do, lse, delta, True)))
+    ft = k.fused_train
+    for dt, T, Dc, V in ((bf, 1024, 1024, 8000), (f32, 256, 512, 1003)):
+        x2, head = rn(T, Dc, dt=dt), rn(Dc, V, dt=dt, std=0.02)
+        labels = torch.randint(0, V, (T,), generator=gen,
+                               device="cuda").to(torch.int64)
+        lse_ce, _ = ft.linear_ce_fwd_cuda(x2, head, labels)
+        coef = torch.full((), 1.0 / T, device="cuda")
+        out.append((f"linear_ce_fwd[{dt}]",
+                    lambda x2=x2, h=head, lb=labels: ft.linear_ce_fwd_cuda(
+                        x2, h, lb)))
+        out.append((f"linear_ce_bwd_dx[{dt}]",
+                    lambda x2=x2, h=head, lb=labels, ls=lse_ce, c=coef:
+                    ft.linear_ce_bwd_dx_cuda(x2, h, lb, ls, c)))
+        out.append((f"linear_ce_bwd_dh[{dt}]",
+                    lambda x2=x2, h=head, lb=labels, ls=lse_ce, c=coef:
+                    ft.linear_ce_bwd_dh_cuda(x2, h, lb, ls, c)))
+    nm = k.norms
+    xr, wr = rn(4095, 4096), (1 + 0.1 * rn(4096, dt=f32)).to(bf)
+    out += [("rms_norm_fwd", lambda: nm.rms_norm_fwd_triton(xr, wr)),
+            ("rms_norm_bwd", lambda: nm.rms_norm_bwd_triton(xr, wr, xr)),
+            ("residual_rms_norm_fwd",
+             lambda: nm.residual_rms_norm_fwd_triton(xr, xr, wr)),
+            ("layer_norm_fwd", lambda: nm.layer_norm_fwd_triton(
+                xr.float()[:, :1024].contiguous(), wr.float()[:1024],
+                wr.float()[:1024]))]
+    g, u = rn(1000, 1001), rn(1000, 1001)
+    out += [("swiglu_fwd", lambda: ft.swiglu_fwd_triton(g, u)),
+            ("swiglu_bwd", lambda: ft.swiglu_bwd_triton(g, u, g))]
+    n = 1_000_003
+    pm, gm = rn(n, dt=f32), rn(n, dt=f32)
+
+    def adamw():
+        p, m1, m2 = pm.clone(), torch.zeros(n, dtype=bf, device="cuda"), \
+            torch.zeros(n, dtype=bf, device="cuda")
+        return k.fused_adamw.fused_adamw_triton(p, gm, m1, m2, 1e-3, 1,
+                                                shadow_dtype=bf)
+    out.append(("fused_adamw", adamw))
+    return out
+
+
+def run(root, path):
+    sys.path.insert(0, root)
+    import torch
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.ops import kernels as k
+    from paddle_tpu_torch.ops.kernels import _build
+    t0 = time.perf_counter()
+    _build.build(("paged_attention", "fused_decode_block",
+                  "fused_prefill_block", "flash_attention", "linear_ce"))
+    built = time.perf_counter() - t0
+    res = {}
+    for name, fn in _cases(torch, k):
+        got = fn()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        res[name] = [t.detach().cpu() for t in got]
+    torch.save(res, path)
+    print(json.dumps({"root": root, "package": paddle_tpu_torch.__file__,
+                      "cases": len(res), "build_s": round(built, 1),
+                      "seconds": round(time.perf_counter() - t0, 1)}),
+          flush=True)
+
+
+def compare(a, b):
+    import torch
+    ra, rb = torch.load(a), torch.load(b)
+    bad = 0
+    for name in sorted(set(ra) | set(rb)):
+        if name not in ra or name not in rb:
+            print(json.dumps({"case": name, "missing": True}))
+            bad += 1
+            continue
+        diff = sum(int((x.view(torch.uint8) != y.view(torch.uint8)).sum())
+                   if x.shape == y.shape and x.dtype == y.dtype else -1
+                   for x, y in zip(ra[name], rb[name]))
+        bad += diff != 0
+        print(json.dumps({"case": name, "differing_bytes": diff,
+                          "elements": sum(x.numel() for x in ra[name])}))
+    print(json.dumps({"cases": len(set(ra) | set(rb)), "differ": bad,
+                      "ok": bad == 0}))
+    return 1 if bad else 0
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=".")
+    ap.add_argument("--out")
+    ap.add_argument("--compare", nargs=2)
+    args = ap.parse_args()
+    if args.compare:
+        return compare(*args.compare)
+    run(args.root, args.out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
