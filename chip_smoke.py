@@ -153,6 +153,38 @@ script exits non-zero:
    sq 256 / sk 1024, a ragged s of 1000 and s = 1; two launches bit for
    bit; timed at the training shape beside their bounds, their plain
    versions and SDPA (forward; backward).
+8b. flash bodies: every optional body of the three flash kernels against
+   its plain version, two launches bit for bit: an additive f32 bias
+   [b, h], [1, h] and [b, 1] with its gradient (the dq pass's dbias body),
+   segment ids with a padding id (-1), dropout 0.1 over GQA 4:1, segments
+   and dropout, causal sq 1024 > sk 512 (O exactly 0 on the rows that see
+   no key; lse compared on the others), at the training shape, and three
+   small ragged cases (f32 and bf16, every body at once, sq > sk, sq <
+   sk). Each body class timed at the training shape beside the same
+   kernel without it on the same inputs, its bound, its plain version and
+   SDPA with a float (bias) or boolean (segments) mask.
+8c. keep mask: the dropout keep mask read out of the forward kernel
+   (q = 0, V = I: O = keep / (128 (1 - rate))) and the dkv kernel (dO = I,
+   GQA 4:1: dV counts the group's kept heads), equal to the torch
+   ``dropout_keep`` bit for bit.
+8d. varlen path (this slice's main path): ``nn.functional.
+   flash_attn_unpadded`` over 4096 packed tokens of 8 seeded documents
+   (64-1024 tokens each) at LLaMA-7B's attention widths (h = kv 32, d 128,
+   bf16, causal, dropout 0.1), forward and backward;
+   ``flash_attn_varlen_qkvpacked`` on the same packing at h 32 over kv 8;
+   ``scaled_dot_product_attention`` with is_causal, sq 1024 > sk 512.
+   Each against the same call on the plain route (``KERNELS.force(
+   "flash_attention", "unfused")``, one generator seed so one keep mask)
+   at the flash phase's bf16 tolerance; 1 launch of each flash kernel a
+   call (counted by body class), each timed on both routes.
+8e. bias path (this slice's main path): ``incubate.nn.functional.
+   fused_multi_head_attention`` at BERT-base widths (hidden 768, 12 heads
+   of 64, batch 8 x 512, post-LN, dropout 0.1 on attention and the
+   out-projection), with an additive padding mask [8, 1, 1, 512] from
+   seeded lengths 128-512 and with a learned relative-position bias
+   [1, 12, 512, 512] f32 that requires grad (the dbias body); forward and
+   backward, f32 against the plain route (one generator seed), bf16 for
+   the times.
 9. adamw: the fused AdamW Triton kernel against its plain version at the
    training phase's flat size and a ragged size, f32 and bf16 moments,
    with and without the bf16 shadow, grad_scale < 1, in place; timed at
@@ -210,7 +242,10 @@ launches from the int8-cache routes), the 11 residual=False rows
 (``decode_attn_block[partial,tp2]`` ... ``prefill_attn_block[partial,
 tp2,kv8]``, launches in the "partial" class from the tensor-parallel
 routes: 0 for tp 4, for int8 weights and for prefill_attn_block, which
-no route runs) (each kernel's launches from
+no route runs), the 16 flash body rows (``flash_attention_fwd[bias]``
+... ``flash_attention_bwd_dkv[causal_sq_gt_sk]``, ``flash_attention_bwd_
+dq[dbias]``; launches from the varlen and bias path phases in the body
+classes that hold the row's flags) (each kernel's launches from
 the serving phase of the route that runs it, from the default route's
 train phase, or, for layer_norm_fwd, from its own phase) and,
 last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
@@ -274,15 +309,16 @@ def cold_ms(fn, iters=30, warmup=3):
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def bound(launch, seq_lens=None):
+def bound(launch, seq_lens=None, segments=None):
     """``(ms, "bytes" | "operations", bytes, operations)``: the least time
     the card could take for the launch ``launch()`` makes, from the kernel
     catalog's model (``paddle_tpu_torch.analysis.kernel_rules.bound``): its
     plan is captured while it runs once, then each input byte is read once
     and each output byte written once (the pools' live tokens at
     ``seq_lens``, the tokens in the pools of each sequence), and the
-    operations this launch's data needs, over 3.35 TB/s and the working
-    type's peak."""
+    operations this launch's data needs (a flash launch's pairs of one
+    segment at ``segments``, its seg_q and seg_k), over 3.35 TB/s and the
+    working type's peak."""
     import torch
     from paddle_tpu_torch.analysis.kernel_rules import bound as model
     from paddle_tpu_torch.ops.kernels._launch import capture_kernel_launches
@@ -292,7 +328,7 @@ def bound(launch, seq_lens=None):
     if len(specs) != 1:
         raise AssertionError(f"bound: {len(specs)} launches captured, "
                              f"expected one: {[s.name for s in specs]}")
-    return model(specs[0], seq_lens)
+    return model(specs[0], seq_lens, segments)
 
 
 def ulp_close(got, want, rel):
@@ -3169,6 +3205,582 @@ def flash_phase(gpu):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the flash kernels' optional bodies, and the attention functionals' paths
+# ---------------------------------------------------------------------------
+# (label, b, sq, sk, h, kvh, d, causal, dtype, bias extents ("bh", "1h",
+# "b1" or None), segment ids, dropout rate, dbias); the first seven at the
+# training shape, the last three small and ragged
+FLASH_BODY_CASES = (
+    ("bias_bh", 2, 2048, 2048, 32, 32, 128, True, "bfloat16", "bh", False,
+     0.0, True),
+    ("bias_1h", 2, 2048, 2048, 32, 32, 128, True, "bfloat16", "1h", False,
+     0.0, True),
+    ("bias_b1", 2, 2048, 2048, 32, 32, 128, True, "bfloat16", "b1", False,
+     0.0, True),
+    ("seg", 2, 2048, 2048, 32, 32, 128, True, "bfloat16", None, True, 0.0,
+     False),
+    ("dropout_gqa", 2, 2048, 2048, 32, 8, 128, True, "bfloat16", None,
+     False, 0.1, False),
+    ("seg_dropout", 2, 2048, 2048, 32, 32, 128, True, "bfloat16", None,
+     True, 0.1, False),
+    ("causal_sq1024_sk512", 2, 1024, 512, 32, 32, 128, True, "bfloat16",
+     None, False, 0.0, False),
+    ("small_all_f32", 2, 200, 200, 4, 2, 64, True, "float32", "1h", True,
+     0.2, True),
+    ("small_sq_gt_sk_f32", 1, 300, 130, 4, 2, 64, True, "float32", "bh",
+     True, 0.1, True),
+    ("small_full_bf16", 2, 100, 170, 4, 1, 64, False, "bfloat16", "b1",
+     True, 0.3, True))
+FLASH_DROPOUT_SEED = 0xDEADBEEF
+# the timed body classes: (class, the case whose inputs time it, the
+# kernels it has); the library call of each (SDPA with a float or boolean
+# mask) where one PyTorch call computes the same function
+# where each body sits in the JAX kernels (paddle_tpu/ops/pallas/
+# flash_attention.py)
+FLASH_BODY_SITES = {
+    "bias": ":153 (fwd), :344 (dq), :423 (dkv); _bias_index :201",
+    "dbias": ":360-373 (_bwd_dq_kernel's has_dbias)",
+    "seg": "_mask :60-83", "dropout": "_dropout_keep :85-111; :166, :355, "
+    ":434", "seg,dropout": "_mask :60-83; _dropout_keep :85-111",
+    "causal_sq_gt_sk": "off = sk - sq :244, :465"}
+FLASH_BODY_ROWS = (("bias", "bias_bh", FLASH_OPS),
+                   ("dbias", "bias_bh", ("flash_attention_bwd_dq",)),
+                   ("seg", "seg", FLASH_OPS),
+                   ("dropout", "dropout_gqa", FLASH_OPS),
+                   ("seg,dropout", "seg_dropout", FLASH_OPS),
+                   ("causal_sq_gt_sk", "causal_sq1024_sk512", FLASH_OPS))
+
+
+def _segments(gen, b, s, docs=6, pad=100):
+    """[b, s] int32 ids: ``docs`` seeded documents a row, the last ``pad``
+    positions padding (id -1, which padding keys share)."""
+    import torch
+    ids = []
+    for _ in range(b):
+        cuts = torch.sort(torch.randint(1, s - pad, (docs - 1,),
+                                        generator=gen, device="cuda"))[0]
+        row = torch.searchsorted(cuts, torch.arange(s, device="cuda"),
+                                 right=True).to(torch.int32)
+        row[s - pad:] = -1
+        ids.append(row)
+    return torch.stack(ids).contiguous()
+
+
+def _body_inputs(gen, case):
+    import torch
+    label, b, sq, sk, h, kvh, d, causal, dtn, bias, seg, rate, dbias = case
+    dt = getattr(torch, dtn)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+    q, k, v, do = rn(b, sq, h, d), rn(b, sk, kvh, d), rn(b, sk, kvh, d), \
+        rn(b, sq, h, d)
+    kw = {"seed": FLASH_DROPOUT_SEED, "rate": rate}
+    if bias is not None:
+        ext = {"bh": (b, h), "1h": (1, h), "b1": (b, 1)}[bias]
+        kw["bias"] = 0.5 * torch.randn(*ext, sq, sk, generator=gen,
+                                       device="cuda")
+    if seg:
+        kw["seg_q"] = _segments(gen, b, sq, pad=min(100, sq // 4))
+        kw["seg_k"] = kw["seg_q"] if sq == sk else _segments(
+            gen, b, sk, pad=min(100, sk // 4))
+    return q, k, v, do, kw
+
+
+def _body_run(kfa, q, k, v, do, causal, kw, dbias):
+    """One launch of each kernel with the case's bodies: (o, lse, dq,
+    dk, dv, dbias or None), and delta."""
+    import torch
+    o, lse = kfa.flash_fwd_cuda(q, k, v, causal, None, **kw)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = kfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, None, **kw,
+                               bias_grad=dbias)
+    dq, db = dq if dbias else (dq, None)
+    dk, dv = kfa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, None,
+                                    **kw)
+    torch.cuda.synchronize()
+    return (o, lse, dq, dk, dv, db), delta
+
+
+def flash_bodies_phase(gpu):
+    """Every optional body of the three flash kernels against its plain
+    version (FLASH_BODY_CASES; the tolerances of :func:`flash_phase`;
+    lse on the rows that see a key, O exactly 0 on the rows that see none,
+    dbias as f32 at 1e-4), two launches bit for bit; then each body class of
+    FLASH_BODY_ROWS timed at the training shape beside the same kernel
+    without the flag on the same inputs, its bound, its plain version and
+    the library call. Returns the rows (launches filled in by main)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases, max_err, kept = [], {}, {}
+    for case in FLASH_BODY_CASES:
+        label, b, sq, sk, h, kvh, d, causal, dtn, bias, seg, rate, dbias = \
+            case
+        dt = getattr(torch, dtn)
+        q, k, v, do, kw = _body_inputs(gen, case)
+        (run1, delta), (run2, _) = (_body_run(kfa, q, k, v, do, causal, kw,
+                                              dbias) for _ in range(2))
+        same = all(x is None or torch.equal(x, y) for x, y in zip(run1,
+                                                                  run2))
+        o, lse, dq, dk, dv, db = run1
+        del run2
+        want_o, want_lse = kfa.flash_fwd_ref(q, k, v, causal, None, **kw)
+        seen = want_lse > kfa.MASK_VALUE / 2         # rows that see a key
+        unseen_ok = bool((lse[~seen] <= kfa.MASK_VALUE / 2).all()) and \
+            bool((o.transpose(1, 2)[~seen] == 0).all())
+        want_dq = kfa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal,
+                                       None, **kw, bias_grad=dbias)
+        want_dq, want_db = want_dq if dbias else (want_dq, None)
+        want_dk, want_dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                 causal, None, **kw)
+        floor = 1e-5 * float(do.float().abs().max() * v.float().abs().max())
+        plain = {"o": _held(o, want_o, dt, 1e-5),
+                 "lse_seen_rows": _held(lse[seen], want_lse[seen],
+                                        torch.float32, 1e-5),
+                 "dq": _held(dq, want_dq, dt, 1e-4, floor=floor),
+                 "dk": _held(dk, want_dk, dt, 1e-4, floor=floor),
+                 "dv": _held(dv, want_dv, dt, 1e-4, floor=floor)}
+        if dbias:
+            plain["dbias"] = _held(db, want_db, torch.float32, 1e-4,
+                                   floor=floor)
+        ok = same and unseen_ok and all(x["ok"] for x in plain.values())
+        cases.append({"case": label, "b": b, "sq": sq, "sk": sk, "h": h,
+                      "kvh": kvh, "d": d, "causal": causal, "dtype": dtn,
+                      "bias": bias, "segments": seg, "dropout": rate,
+                      "dbias": dbias, "rows_seeing_no_key":
+                      int((~seen).sum()), "no_key_rows_zero": unseen_ok,
+                      "vs_plain": plain, "bitwise_repeatable": same,
+                      "ok": ok})
+        if not ok:
+            emit({"phase": "flash_bodies", "gpu": gpu, "cases": cases})
+            raise AssertionError(f"flash body disagrees: {cases[-1]}")
+        for op, keys in zip(FLASH_OPS, (("o", "lse_seen_rows"),
+                                        ("dq", "dbias"), ("dk", "dv"))):
+            for kk in keys:
+                if kk in plain:
+                    max_err[(label, op)] = max(max_err.get((label, op), 0.0),
+                                               plain[kk]["max_abs_err"])
+        if label in {r[1] for r in FLASH_BODY_ROWS}:
+            kept[label] = (case, q, k, v, do, kw, o, lse, delta)
+        del run1, want_o, want_lse, want_dq, want_dk, want_dv, want_db
+        torch.cuda.empty_cache()
+    rows = []
+    for cls, label, ops in FLASH_BODY_ROWS:
+        case, q, k, v, do, kw, o, lse, delta = kept[label]
+        b, sq, sk, h, kvh, d, causal = case[1:8]
+        want = set(cls.split(","))
+        bias_grad = cls == "dbias"
+        args = (q, k, v, do, lse, delta, causal, None)
+        lib, lib_name = _body_library(cls, q, k, v, do, kw, causal)
+        # the same kernel without the flags, on the same inputs (a causal
+        # sq > sk launch has no flag-less form: the shape is the body)
+        bare = {"seed": 0, "rate": 0.0}
+        fns = {"flash_attention_fwd": (
+            lambda kw=kw: kfa.flash_fwd_cuda(q, k, v, causal, None, **kw),
+            lambda: kfa.flash_fwd_ref(q, k, v, causal, None, **kw),
+            lib[0]),
+            "flash_attention_bwd_dq": (
+            lambda kw=kw: kfa.flash_bwd_dq_cuda(
+                *args, **kw, bias_grad=bias_grad and "bias" in kw),
+            lambda: kfa.flash_bwd_dq_ref(*args, **kw, bias_grad=bias_grad),
+            lib[1]),
+            "flash_attention_bwd_dkv": (
+            lambda kw=kw: kfa.flash_bwd_dkv_cuda(*args, **kw),
+            lambda: kfa.flash_bwd_dkv_ref(*args, **kw), lib[1])}
+        for op in ops:
+            kernel, plain_fn, lib_ms = fns[op]
+            b_ms, b_by, nbytes, ops_n = bound(kernel, segments=(
+                (kw["seg_q"], kw["seg_k"]) if "seg_q" in kw else None))
+            ms = cold_ms(kernel)
+            flagless = (None if cls == "causal_sq_gt_sk"
+                        else cold_ms(lambda: kernel(bare)))
+            errs = [e for (lb, o_), e in max_err.items() if o_ == op
+                    and want <= _case_flags(FLASH_BODY_CASES, lb)]
+            rows.append({
+                "name": f"{op}[{cls}]", "route": "cuda",
+                "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[op],
+                "replaces_body": FLASH_BODY_SITES[cls],
+                "body": cls, "shape": {"b": b, "sq": sq, "sk": sk, "h": h,
+                                       "kvh": kvh, "d": d, "causal": causal,
+                                       "bias": case[9]},
+                "dtype": case[8], "max_abs_err": max(errs),
+                "ms": ms, "flagless_ms": flagless,
+                "flag_cost": ms / flagless if flagless else None,
+                "plain_ms": cold_ms(plain_fn, iters=3, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "operations": ops_n, "library_ms": lib_ms,
+                "library": lib_name, "ok": True})
+            torch.cuda.empty_cache()
+    del kept
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_bodies", "gpu": gpu, "cases": cases,
+          "timed": {r["name"]: {kk: r[kk] for kk in (
+              "ms", "flagless_ms", "flag_cost", "plain_ms", "bound_ms",
+              "library_ms")} for r in rows}})
+    return rows
+
+
+def _case_flags(cases, label):
+    """The body flags a case of FLASH_BODY_CASES runs."""
+    case = next(c for c in cases if c[0] == label)
+    _, b, sq, sk, h, kvh, d, causal, dtn, bias, seg, rate, dbias = case
+    return ({"bias"} if bias else set()) | ({"dbias"} if dbias else set()) \
+        | ({"seg"} if seg else set()) | ({"dropout"} if rate else set()) \
+        | ({"causal_sq_gt_sk"} if causal and sq > sk else set())
+
+
+def _body_library(cls, q, k, v, do, kw, causal):
+    """((forward ms, backward ms), name) of the one PyTorch call that
+    computes a body class's function where there is one: SDPA with a float
+    mask (the bias plus the causal mask's -inf, in q's type, which rounds
+    the bias) for bias and dbias (whose backward also returns the mask's
+    gradient), with a boolean mask (causal and same segment; no row fully
+    masked: padding keys share the padding id) for segments. None for
+    dropout (no torch call draws this keep mask) and for causal sq > sk
+    (its rows that see no key are NaN in SDPA, 0 here)."""
+    import torch
+    import torch.nn.functional as F
+    if cls not in ("bias", "dbias", "seg"):
+        why = ("dropout: no PyTorch call draws the kernels' keep mask"
+               if "dropout" in cls else "causal sq > sk: SDPA's rows that "
+               "see no key are NaN, the kernels' 0")
+        return (None, None), "none (" + why + ")"
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    sq, sk = q.shape[1], k.shape[1]
+    tri = torch.ones(sq, sk, dtype=torch.bool, device="cuda").tril(sk - sq)
+    if cls == "seg":
+        mask = tri & (kw["seg_q"][:, None, :, None]
+                      == kw["seg_k"][:, None, None, :])
+        name = "boolean attn_mask (causal and same segment)"
+    else:
+        mask = torch.where(tri, kw["bias"], -torch.inf).to(q.dtype)
+        name = f"float attn_mask (bias + causal, {q.dtype})"
+        mask.requires_grad_(cls == "dbias")
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    grads = leaves + ([mask] if cls == "dbias" else [])
+    fwd = cold_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask.detach()))
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    bwd = cold_ms(lambda: torch.autograd.grad(out, grads, dot,
+                                              retain_graph=True))
+    return ((fwd, bwd), "torch.nn.functional.scaled_dot_product_attention "
+            + name + ": forward; backward " + (
+                "(dq, dk, dv and the mask's gradient)" if cls == "dbias"
+                else "(dq, dk and dv in one call)"))
+
+
+def flash_keep_readout_phase(gpu):
+    """The keep mask read out of the forward and dkv kernels (f32, b 2,
+    h 4 over kv 1, sq = sk = d = 128, dropout 0.1, seed 0xDEADBEEF). With
+    q = 0 every score is 0, so P is uniform (1 / 128) over the keys; with
+    V = I the forward's O[r, c] is keep(r, c) inv / 128 exactly. With
+    dO = I the dkv kernel's dV[k, c] is inv P times the number of query
+    heads of the group whose keep(c, k) holds (the query head rebuilt from
+    the K/V head's grid). Both against the torch ``dropout_keep``, bit for
+    bit."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    b, h, kvh, n, rate = 2, 4, 1, 128, 0.1
+    eye = torch.eye(n, device="cuda")
+    q = torch.zeros(b, n, h, n, device="cuda")
+    k = torch.randn(b, n, kvh, n, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    v = eye[None, :, None, :].expand(b, n, kvh, n).contiguous()
+    kw = {"seed": FLASH_DROPOUT_SEED, "rate": rate}
+    o, lse = kfa.flash_fwd_cuda(q, k, v, False, None, **kw)
+    qbh = torch.arange(b * h, device="cuda").reshape(b, h, 1, 1)
+    pos = torch.arange(n, device="cuda")
+    keep = kfa.dropout_keep(FLASH_DROPOUT_SEED, qbh, pos[:, None],
+                            pos[None, :], rate)              # [b, h, r, c]
+    inv = kfa.dropout_inv(rate)
+    want_o = torch.where(keep, inv / n, 0.0).transpose(1, 2)
+    fwd_equal = bool(torch.equal(o, want_o))
+    do = eye[None, :, None, :].expand(b, n, h, n).contiguous()
+    delta = (o * do).sum(-1).transpose(1, 2).contiguous()
+    _, dv = kfa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, False, None,
+                                   **kw)
+    p = torch.exp(-lse[0, 0, 0])          # the kernels' P = 1 / 128
+    count = torch.round(dv[:, :, 0, :] / (inv * p))        # [b, key, c]
+    want_count = keep.sum(1).transpose(1, 2).float()       # [b, key, c]
+    dkv_equal = bool(torch.equal(count, want_count))
+    res = {"phase": "flash_keep_readout", "gpu": gpu, "b": b, "h": h,
+           "kvh": kvh, "n": n, "rate": rate, "seed": FLASH_DROPOUT_SEED,
+           "kept_share": float(keep.float().mean()),
+           "fwd_keep_equal": fwd_equal, "dkv_keep_count_equal": dkv_equal,
+           "ok": fwd_equal and dkv_equal}
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"keep mask read out of the kernels: {res}")
+
+
+# the varlen path: 8 documents of 64-1024 tokens packed into 4096, at
+# LLaMA-7B's attention widths
+VARLEN = {"tokens": 4096, "docs": 8, "min": 64, "max": 1024, "h": 32,
+          "d": 128, "dropout": 0.1, "sdpa": (2, 1024, 512)}
+# the bias path: BERT-base's attention block (hidden 768, 12 heads of 64),
+# batch 8 x 512, post-LN, padding lengths 128-512
+BERT = {"b": 8, "s": 512, "hidden": 768, "heads": 12, "min": 128,
+        "dropout": 0.1}
+
+
+def _doc_lengths(seed=11):
+    """VARLEN's seeded document lengths, each in [min, max], summing to
+    the tokens."""
+    rng = np.random.RandomState(seed)
+    lens = np.full(VARLEN["docs"], VARLEN["min"])
+    rest = VARLEN["tokens"] - int(lens.sum())
+    while rest:
+        i = rng.randint(VARLEN["docs"])
+        add = min(rest, int(rng.randint(1, 257)), VARLEN["max"] - lens[i])
+        lens[i] += add
+        rest -= add
+    return lens
+
+
+def _grad_run(fn, arrays, grad_idx, dout, seed):
+    """fn(*leaves, generator) and the gradients of sum(out * dout) for
+    ``grad_idx``, with a fresh CUDA generator seeded ``seed``."""
+    import torch
+    leaves = [a.detach().requires_grad_(i in grad_idx)
+              for i, a in enumerate(arrays)]
+    out = fn(*leaves, torch.Generator(device="cuda").manual_seed(seed))
+    out.backward(dout)
+    return [out.detach()] + [leaves[i].grad for i in grad_idx]
+
+
+def _routes_held(got, want, names, dt, floor):
+    """The kernel route against the plain route: f32 as :func:`_held` (O
+    1e-5, gradients 1e-4 of the largest magnitude), bf16 within 2^-6
+    relative L2 (flash_phase's autograd check)."""
+    return {nm: _held(g, w, dt, 1e-5 if nm == "o" else 1e-4,
+                      bf16_norm=True, floor=0.0 if nm == "o" else floor)
+            for nm, g, w in zip(names, got, want)}
+
+
+def varlen_path_phase(gpu):
+    """The packed varlen path at full width (VARLEN): ``nn.functional.
+    flash_attn_unpadded`` over one packed batch of 4096 tokens (h = kv 32,
+    d 128, bf16, causal, dropout 0.1), forward and backward; then
+    ``flash_attn_varlen_qkvpacked`` on the same packing at h 32 over kv 8;
+    then ``scaled_dot_product_attention`` with is_causal and sq 1024 > sk
+    512 (b 2, dropout 0.1). Each against the same call under
+    ``KERNELS.force("flash_attention", "unfused")`` with the same generator
+    seed, so the same keep mask (sq > sk: on the rows that see a key; the
+    kernels' other rows are 0, the plain route's the mean of V). The
+    launch counts are set to 0 just before the kernel-route calls and read
+    just after (1 fwd, 1 dq, 1 dkv a call, by body class); each call timed
+    forward + backward on both routes, beside its launches' bounds (the
+    pairs of one document). Returns the counts by body."""
+    import torch
+    from paddle_tpu_torch.analysis.kernel_rules import bound as model
+    from paddle_tpu_torch.nn import functional as NF
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.flash_attention import \
+        segment_ids_from_cu_seqlens
+    from paddle_tpu_torch.ops.kernels._launch import capture_kernel_launches
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    lens = _doc_lengths()
+    cu = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]),
+                         dtype=torch.int32, device="cuda")
+    T, H, D, rate = VARLEN["tokens"], VARLEN["h"], VARLEN["d"], \
+        VARLEN["dropout"]
+    b2, sq, sk = VARLEN["sdpa"]
+    bf = torch.bfloat16
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+    calls = {
+        "flash_attn_unpadded": (
+            lambda q, k, v, g: NF.flash_attn_unpadded(
+                q, k, v, cu, cu, dropout=rate, causal=True,
+                generator=g)[0],
+            [rn(T, H, D), rn(T, H, D), rn(T, H, D)], (0, 1, 2),
+            rn(T, H, D)),
+        "flash_attn_varlen_qkvpacked_gqa4": (
+            lambda p, g: NF.flash_attn_varlen_qkvpacked(
+                p, cu, cu, dropout=rate, causal=True, generator=g)[0],
+            [rn(T, 4 + 2, H // 4, D)], (0,), rn(T, H, D)),
+        # dO 0 on the rows that see no key: the plain route gives them
+        # the mean of V, whose gradient the kernels do not have
+        f"sdpa_causal_sq{sq}_sk{sk}": (
+            lambda q, k, v, g: NF.scaled_dot_product_attention(
+                q, k, v, dropout_p=rate, is_causal=True, generator=g),
+            [rn(b2, sq, H, D), rn(b2, sk, H, D), rn(b2, sk, H, D)],
+            (0, 1, 2), torch.cat([torch.zeros(b2, sq - sk, H, D, dtype=bf,
+                                              device="cuda"),
+                                  rn(b2, sk, H, D)], 1))}
+    kernels.reset_launches()
+    got = {nm: _grad_run(fn, arrays, gi, dout, 7)
+           for nm, (fn, arrays, gi, dout) in calls.items()}
+    torch.cuda.synchronize()
+    counts = kernels.launches_by_body()
+    totals = kernels.launches()
+    res = {"phase": "varlen_path", "gpu": gpu, "doc_lengths":
+           lens.tolist(), "launches_by_body": counts, "calls": {}}
+    ok = all(totals[op] == len(calls) for op in FLASH_OPS)
+    for nm, (fn, arrays, gi, dout) in calls.items():
+        with KERNELS.force("flash_attention", "unfused"):
+            want = _grad_run(fn, arrays, gi, dout, 7)
+        g = got[nm]
+        names = ["o"] + [f"d{i}" for i in gi]
+        if nm.startswith("sdpa"):
+            # rows 0..sq-sk-1 see no key: O = 0 from the kernels, compared
+            # apart
+            top = g[0][:, :sq - sk].float().abs().max() == 0 and \
+                g[1][:, :sq - sk].float().abs().max() == 0
+            g, want = ([g[0][:, sq - sk:]] + g[1:],
+                       [want[0][:, sq - sk:]] + want[1:])
+        floor = 1e-5 * float(dout.float().abs().max()
+                             * arrays[-1].float().abs().max())
+        held = _routes_held(g, want, names, bf, floor)
+        call_ok = all(x["ok"] for x in held.values()) and all(
+            bool(torch.isfinite(x).all()) for x in g)
+        if nm.startswith("sdpa"):
+            call_ok = call_ok and bool(top)
+        res["calls"][nm] = {"vs_unfused": held, "ok": call_ok}
+        ok = ok and call_ok
+        del want, g
+        torch.cuda.empty_cache()
+    ids = segment_ids_from_cu_seqlens(cu, T)[None]
+    for nm, (fn, arrays, gi, dout) in calls.items():
+        def step(fn=fn, arrays=arrays, gi=gi, dout=dout):
+            _grad_run(fn, arrays, gi, dout, 7)
+        # the least time of the call's three launches: the pairs of one
+        # document under the causal mask (no segments in the SDPA call)
+        with capture_kernel_launches(all_threads=True) as specs:
+            step()
+        torch.cuda.synchronize()
+        segs = None if nm.startswith("sdpa") else (ids, ids)
+        res["calls"][nm]["bound_ms"] = {
+            sp.name: model(sp, segments=segs)[0] for sp in specs}
+        res["calls"][nm]["fwd_bwd_ms"] = cold_ms(step, iters=10)
+        with KERNELS.force("flash_attention", "unfused"):
+            res["calls"][nm]["unfused_fwd_bwd_ms"] = cold_ms(step, iters=3,
+                                                             warmup=1)
+        torch.cuda.empty_cache()
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        raise AssertionError(f"varlen path: {res}")
+    return counts
+
+
+def _bert_inputs(gen, dt):
+    import torch
+    b, s, hid, nh = BERT["b"], BERT["s"], BERT["hidden"], BERT["heads"]
+    hd = hid // nh
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * std).to(dt)
+    lens = torch.randint(BERT["min"], s + 1, (b,), generator=gen,
+                         device="cuda")
+    pad = torch.where(torch.arange(s, device="cuda")[None] < lens[:, None],
+                      0.0, -1e4).reshape(b, 1, 1, s)
+    arrays = {"x": rn(b, s, hid), "qkv_weight": rn(3, nh, hd, hid,
+                                                   std=0.02),
+              "linear_weight": rn(hid, hid, std=0.02),
+              "qkv_bias": rn(3, nh, hd, std=0.02),
+              "linear_bias": rn(hid, std=0.02),
+              "ln_scale": (1 + 0.1 * rn(hid, std=1.0)).to(dt),
+              "ln_bias": rn(hid, std=0.1)}
+    learned = 0.5 * torch.randn(1, nh, s, s, generator=gen, device="cuda")
+    return arrays, pad, learned, rn(b, s, hid), lens
+
+
+def bias_path_phase(gpu):
+    """The bias path at full width (BERT): ``incubate.nn.functional.
+    fused_multi_head_attention`` (hidden 768, 12 heads of 64, batch 8 x
+    512, post-LN, training, attention and out-projection dropout 0.1) with
+    an additive padding mask [8, 1, 1, 512] from seeded lengths 128-512,
+    then with a learned relative-position bias [1, 12, 512, 512] f32 that
+    requires grad (the dbias body); forward and backward. f32 against the
+    same call under ``KERNELS.force("flash_attention", "unfused")`` (one
+    generator seed: the same attention keep mask and out-projection
+    dropout mask), bf16 for the times. Counts set to 0 before the
+    kernel-route calls (f32 and bf16, both masks) and read after. Returns
+    the counts by body."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels.registry import KERNELS
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    names = ["x", "qkv_weight", "linear_weight", "qkv_bias", "linear_bias",
+             "ln_scale", "ln_bias", "attn_mask"]
+    runs = {}
+    for dtn in ("float32", "bfloat16"):
+        dt = getattr(torch, dtn)
+        arrays, pad, learned, dout, lens = _bert_inputs(gen, dt)
+        for kind, mask in (("padding", pad), ("learned", learned)):
+            def fn(*vals):
+                a = dict(zip(names, vals[:-1]))
+                return IF.fused_multi_head_attention(
+                    a.pop("x"), a.pop("qkv_weight"), a.pop("linear_weight"),
+                    dropout_rate=BERT["dropout"],
+                    attn_dropout_rate=BERT["dropout"], training=True,
+                    generator=vals[-1], **a)
+            gi = (0, 1, 2) + ((7,) if kind == "learned" else ())
+            runs[(dtn, kind)] = (fn, [arrays[n] for n in names[:-1]]
+                                 + [mask], gi, dout)
+    kernels.reset_launches()
+    got = {key: _grad_run(*run, 21) for key, run in runs.items()}
+    torch.cuda.synchronize()
+    counts = kernels.launches_by_body()
+    totals = kernels.launches()
+    ok = all(totals[op] == len(runs) for op in FLASH_OPS)
+    res = {"phase": "bias_path", "gpu": gpu, "padding_lengths":
+           lens.tolist(), "launches_by_body": counts, "runs": {}}
+    for key, (fn, arrays, gi, dout) in runs.items():
+        g = got[key]
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in g)
+        entry = {"finite": finite}
+        if key[0] == "float32":
+            with KERNELS.force("flash_attention", "unfused"):
+                want = _grad_run(fn, arrays, gi, dout, 21)
+            held = {nm: _held(x, w, torch.float32,
+                              1e-5 if nm == "out" else 1e-4)
+                    for nm, x, w in zip(["out"] + [names[i] for i in gi],
+                                        g, want)}
+            entry["vs_unfused"] = held
+            finite = finite and all(x["ok"] for x in held.values())
+            del want
+        entry["ok"] = finite
+        ok = ok and finite
+        res["runs"]["/".join(key)] = entry
+    for key, (fn, arrays, gi, dout) in runs.items():
+        if key[0] != "bfloat16":
+            continue
+
+        def step(fn=fn, arrays=arrays, gi=gi, dout=dout):
+            _grad_run(fn, arrays, gi, dout, 21)
+        res["runs"]["/".join(key)]["fwd_bwd_ms"] = cold_ms(step, iters=10)
+        with KERNELS.force("flash_attention", "unfused"):
+            res["runs"]["/".join(key)]["unfused_fwd_bwd_ms"] = cold_ms(
+                step, iters=3, warmup=1)
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        raise AssertionError(f"bias path: {res}")
+    return counts
+
+
+def body_launches(counts, cls):
+    """Launches of each flash kernel on the path phases in the body
+    classes that hold every flag of ``cls``."""
+    want = set(cls.split(","))
+    out = dict.fromkeys(FLASH_OPS, 0)
+    for c in counts:
+        for op, by in c.items():
+            for k, n in by.items():
+                if want <= set(k.split(",")):
+                    out[op] += n
+    return out
+
+
 def _rel_ulps(got, want, chunk=1 << 26):
     """Largest |got - want| / max(|got|, |want|) over the buffers, in f32,
     a chunk at a time."""
@@ -4006,6 +4618,11 @@ def main():
     demo_row = demo_phase(gpu)
     train_rows = flash_phase(gpu) + [adamw_phase(gpu,
                                                  flat_size(train_config()))]
+    # this slice: the flash kernels' optional bodies, and the attention
+    # functionals' paths that run them (the main path of this slice)
+    body_rows = flash_bodies_phase(gpu)
+    flash_keep_readout_phase(gpu)
+    path_counts = [varlen_path_phase(gpu), bias_path_phase(gpu)]
     train_rows += fused_train_phase(gpu)
     train_parity_phase(gpu)
     # the plans of the default train route's launches (the gate audits
@@ -4122,11 +4739,17 @@ def main():
         # steps (the main path), and on the "ref" route's
         row["launches"] = train_counts[row["name"]]
         row["ref_train_launches"] = ref_counts[row["name"]]
-    for row in rows + train_rows:
+    for row in body_rows:
+        # each body class's launches on the varlen and bias path phases, in
+        # the classes that hold all of its flags
+        op = row["name"].split("[")[0]
+        row["launches"] = body_launches(path_counts, row["body"])[op]
+        row["launches_route"] = "varlen and bias path phases"
+    for row in rows + train_rows + body_rows:
         row["gpu"] = gpu
         # ms and max_abs_err, also under their longer names
         row["kernel_ms"], row["max_err"] = row["ms"], row["max_abs_err"]
-    emit({"kernels": rows + train_rows,
+    emit({"kernels": rows + train_rows + body_rows,
           "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

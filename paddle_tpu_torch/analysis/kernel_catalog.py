@@ -23,7 +23,8 @@ JAX set) is the union of those declarations.
 read off the port's spec (:func:`modeled_flops`, the full-table model,
 equal to the JAX catalog's at the cases the two share);
 :func:`needed_flops` counts what one launch's data needs (causal pairs,
-live lengths), the operations half of :func:`.kernel_rules.bound`.
+pairs of one segment, live lengths), the operations half of
+:func:`.kernel_rules.bound`.
 
 :func:`build_demo_kernel_regression` audits the deliberate regression
 specimen (``demo_prefix_mlp_block``: decode_mlp_block's kernel under a
@@ -34,6 +35,9 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 from .auditor import AuditReport
 from .kernel_rules import check_launch
@@ -137,16 +141,29 @@ def _paged_case(B, H, KV, hd, BS, N, MB, dtype):
     return build
 
 
-def _flash_case(B, S, H, KVH, hd, dtype, causal=True):
+def _flash_case(B, S, H, KVH, hd, dtype, causal=True, sk=None, bias=None,
+                seg=False, dbias=False, dropout=False):
+    """The three flash launches; ``bias``: its (batch, head) extents (a
+    [bias_b, bias_h, S, sk] f32 bias), ``dbias`` its gradient body,
+    ``seg`` segment ids, ``dropout`` a rate of 0.1."""
+    sk = S if sk is None else sk
+
     def build():
         from ..ops.kernels import flash_attention as fa
 
         def fn():
-            q, k = _meta((B, S, H, hd), dtype), _meta((B, S, KVH, hd), dtype)
+            q, k = _meta((B, S, H, hd), dtype), _meta((B, sk, KVH, hd), dtype)
             st = _meta((B, H, S), "float32")
-            fa.flash_fwd_cuda(q, k, k, causal)
-            fa.flash_bwd_dq_cuda(q, k, k, q, st, st, causal)
-            fa.flash_bwd_dkv_cuda(q, k, k, q, st, st, causal)
+            kw = {"rate": 0.1 if dropout else 0.0, "seed": 7}
+            if bias is not None:
+                kw["bias"] = _meta((*bias, S, sk), "float32")
+            if seg:
+                kw["seg_q"] = _meta((B, S), "int32")
+                kw["seg_k"] = _meta((B, sk), "int32")
+            fa.flash_fwd_cuda(q, k, k, causal, **kw)
+            fa.flash_bwd_dq_cuda(q, k, k, q, st, st, causal, **kw,
+                                 bias_grad=dbias)
+            fa.flash_bwd_dkv_cuda(q, k, k, q, st, st, causal, **kw)
         return fn
     return build
 
@@ -309,8 +326,28 @@ def kernel_cases() -> List[KernelCase]:
           _paged_case(_B, _H, _H, _HD, _BS, _N, _MB, bf)),
         C("flash_attention", "tiny", _FLASH_KERNELS,
           _flash_case(1, 128, 4, 2, 64, f32)),
+        C("flash_attention", "tiny_bias_seg", _FLASH_KERNELS,
+          _flash_case(1, 128, 4, 2, 64, f32, bias=(1, 1), seg=True,
+                      dbias=True)),
+        C("flash_attention", "tiny_dropout_gqa", _FLASH_KERNELS,
+          _flash_case(1, 128, 4, 1, 64, f32, dropout=True)),
+        C("flash_attention", "tiny_causal_sq_gt_sk", _FLASH_KERNELS,
+          _flash_case(1, 128, 4, 2, 64, f32, sk=64)),
         C("flash_attention", "flagship_train", _FLASH_KERNELS,
           _flash_case(2, 2048, _H, _H, _HD, bf)),
+        # the packed varlen path: 4096 tokens of 8 documents, LLaMA-7B's
+        # attention widths, causal within each segment, dropout 0.1
+        C("flash_attention", "flagship_varlen", _FLASH_KERNELS,
+          _flash_case(1, 4096, _H, _H, _HD, bf, seg=True, dropout=True)),
+        # BERT-base attention (8 x 512 tokens, 12 heads of 64): the padding
+        # mask broadcast over heads, and a learned relative-position bias
+        # with its gradient, both with dropout 0.1
+        C("flash_attention", "flagship_bias_mask", _FLASH_KERNELS,
+          _flash_case(8, 512, 12, 12, 64, bf, causal=False, bias=(8, 1),
+                      dropout=True)),
+        C("flash_attention", "flagship_bias_learned", _FLASH_KERNELS,
+          _flash_case(8, 512, 12, 12, 64, bf, causal=False, bias=(1, 12),
+                      dbias=True, dropout=True)),
         C("decode_attn_block", "tiny", ("decode_attn_block",),
           _attn_block_case(2, 32, 2, 2, 16, 8, 8, 4, f32)),
         C("decode_attn_block", "tiny_int8_weights", ("decode_attn_block",),
@@ -485,26 +522,38 @@ def _flops_prefill_attn_block(spec, needed, live):
     return _attn_products(n, D, Hhd, KVhd) + 4.0 * Hhd * attended
 
 
-def _flash_pairs(spec, needed):
+def _flash_pairs(spec, needed, segments=None):
+    """(query, key) pairs the launch's function needs, times b h d: every
+    pair, or (``needed``) those under the causal mask and, given the
+    launch's ``segments`` (seg_q [b, sq], seg_k [b, sk]), of one id."""
     b, sq, h, d = spec.operand("q").shape
     sk = spec.operand("k").shape[1]
+    if needed and segments is not None:
+        seg_q, seg_k = (np.asarray(torch.as_tensor(t).cpu())
+                        for t in segments)
+        seen = seg_q[:, :, None] == seg_k[:, None, :]
+        if spec.params["causal"]:
+            seen &= np.tri(sq, sk, sk - sq, dtype=bool)
+        return float(h * int(seen.sum()) * d)
     if needed and spec.params["causal"]:
-        pairs = sq * (sk - sq + 1) + sq * (sq - 1) // 2
+        # row r sees keys up to r + sk - sq (none above the diagonal when
+        # sq > sk)
+        pairs = int(np.clip(np.arange(sq) + sk - sq + 1, 0, sk).sum())
     else:
         pairs = sq * sk
     return float(b * h * pairs * d)
 
 
 def _flops_flash_fwd(spec, needed, live):
-    return 4.0 * _flash_pairs(spec, needed)
+    return 4.0 * _flash_pairs(spec, needed, live)
 
 
 def _flops_flash_bwd_dq(spec, needed, live):
-    return 6.0 * _flash_pairs(spec, needed)
+    return 6.0 * _flash_pairs(spec, needed, live)
 
 
 def _flops_flash_bwd_dkv(spec, needed, live):
-    return 8.0 * _flash_pairs(spec, needed)
+    return 8.0 * _flash_pairs(spec, needed, live)
 
 
 def _flops_ce_fwd(spec, needed, live):
@@ -525,7 +574,9 @@ def _flops_swiglu_bwd(spec, needed, live):
     return 10.0 * _prod(spec.operand("gate").shape)
 
 
-#: launch name -> FLOP formula ``(spec, needed, live)``; every member of
+#: launch name -> FLOP formula ``(spec, needed, live)`` (``live``: the
+#: data that decides the work, the tokens of each sequence for a paged
+#: launch, the segment ids for flash); every member of
 #: ALL_KERNEL_NAMES has one (:func:`flop_formula_findings`), and so has
 #: the gate's regression specimen
 FLOP_FORMULAS: Dict[str, Callable] = {
@@ -559,12 +610,17 @@ def modeled_flops(spec) -> Optional[float]:
     return None if fn is None else float(fn(spec, False, None))
 
 
-def needed_flops(spec, seq_lens=None) -> float:
+def needed_flops(spec, seq_lens=None, segments=None) -> float:
     """The operations one launch's data needs: the live lengths
     (``seq_lens``, tokens in the pools of each sequence; by default the
     launch's own, else the full tables), the real rows of a prefill chunk,
-    the pairs under the causal mask."""
-    return float(FLOP_FORMULAS[spec.name](spec, True, seq_lens))
+    the pairs under the causal mask and, for flash (``segments``: the
+    launch's seg_q and seg_k ids), of one segment."""
+    if segments is not None and seq_lens is not None:
+        raise ValueError("needed_flops: seq_lens (paged launches) and "
+                         "segments (flash) do not go together")
+    live = segments if segments is not None else seq_lens
+    return float(FLOP_FORMULAS[spec.name](spec, True, live))
 
 
 def flop_formula_findings() -> List[Finding]:

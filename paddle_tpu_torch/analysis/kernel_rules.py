@@ -15,7 +15,9 @@ this card, what the JAX rules prove for a Pallas grid:
   through the block tables (the KV pools, the tables, the rope rows at
   each sequence's length: ``KernelOperand.paged``) read live pages only,
   by design, and are exempt, as the JAX rule exempts scalar-prefetch
-  launches.
+  launches. An input read only where a mask lets a query see it
+  (``KernelOperand.masked``: flash attention's bias under the causal
+  mask) must have every tile the mask lets some query see read.
 - ``OOB_BLOCK``: a tile that starts outside its array (or a map whose
   arity is not the array's). A partial last tile is legal: the kernels
   guard every column and row against the extent.
@@ -60,7 +62,8 @@ from ..ops.kernels import _launch
 from .rules import Finding
 
 __all__ = ["KERNEL_RULE_CODES", "check_launch", "modeled_launch_bytes",
-           "bound", "c_launchers", "HBM_BYTES_PER_S", "PEAK_OPS_PER_S"]
+           "bound", "c_launchers", "launchers_in", "HBM_BYTES_PER_S",
+           "PEAK_OPS_PER_S"]
 
 KERNEL_RULE_CODES = ("GRID_FLOOR_DROP", "OOB_BLOCK", "WRITE_RACE",
                      "SMEM_OVERCOMMIT", "ARG_MISMATCH")
@@ -227,6 +230,31 @@ def _coverage(spec, program, op, entries, verb) -> Optional[Finding]:
          "non-divisor block_f class)"), detail)
 
 
+def _seen_coverage(spec, program, op, entries) -> Optional[Finding]:
+    """GRID_FLOOR_DROP for a masked input unless every tile its mask lets
+    some query see (``op.masked``) is read, by reads of that tile shape."""
+    tile = tuple(op.masked.tile)
+    grid = _tile_grid(op.shape, tile)
+    every = np.indices(grid).reshape(len(grid), -1).T
+    need = every[np.asarray(op.masked.seen(every), dtype=bool)]
+    read = _groups(entries).get(tile, np.zeros((0, len(tile)), np.int64))
+    miss = need[~np.isin(np.ravel_multi_index(tuple(need.T), grid),
+                         _linear(op.shape, tile, read))]
+    if not len(miss):
+        return None
+    first = [int(v) for v in miss[0]]
+    start = [f * t for f, t in zip(first, tile)]
+    return _finding(
+        program, "GRID_FLOOR_DROP", f"{spec.name}/{op.name}",
+        (f"{spec.name} {op.name}: {len(miss)} tile(s) that the mask lets "
+         f"a query see are never read (first at element {start} of "
+         f"{list(op.shape)}): the plan drops work the function needs"),
+        {"kernel": spec.name, "operand": op.name, "missing_tiles":
+         len(miss), "required_tiles": len(need), "first_missing": first,
+         "tile": list(tile), "first_missing_element": start,
+         "shape": list(op.shape), "grid": list(spec.grid)})
+
+
 def _race(spec, program, op, entries) -> Optional[Finding]:
     groups = _groups(entries)
     if len(groups) == 1:
@@ -295,14 +323,18 @@ def _code(param: str) -> str:
     return "?"
 
 
-@functools.lru_cache(maxsize=None)
-def c_launchers(source: str) -> Dict[str, tuple]:
-    """``{launcher: argument codes}`` of every ``extern "C" int``
-    function in ``source`` (a path in the repository), read from its
-    text."""
-    text = re.sub(r"//[^\n]*", "", (_REPO / source).read_text())
+def launchers_in(text: str) -> Dict[str, tuple]:
+    """``{launcher: argument codes}`` of every ``extern "C" int`` function
+    declared in the CUDA source ``text``."""
+    text = re.sub(r"//[^\n]*", "", text)
     return {name: tuple(_code(p) for p in params.split(",") if p.strip())
             for name, params in _EXTERN.findall(text)}
+
+
+@functools.lru_cache(maxsize=None)
+def c_launchers(source: str) -> Dict[str, tuple]:
+    """:func:`launchers_in` of ``source`` (a path in the repository)."""
+    return launchers_in((_REPO / source).read_text())
 
 
 def _triton_params(source, name):
@@ -379,7 +411,8 @@ def check_launch(spec, program: str = None) -> List[Finding]:
         out.extend(_oob(spec, program, op, "reads", entries))
         if op.paged or _malformed(op, entries):
             continue
-        f = _coverage(spec, program, op, entries, "read")
+        f = (_seen_coverage(spec, program, op, entries) if op.masked
+             else _coverage(spec, program, op, entries, "read"))
         if f is not None:
             out.append(f)
     out.extend(_smem(spec, program))
@@ -461,15 +494,16 @@ def modeled_launch_bytes(spec, seq_lens: Optional[Sequence[int]] = None
             "written_bytes": written, "operands": detail}
 
 
-def bound(spec, seq_lens: Optional[Sequence[int]] = None):
+def bound(spec, seq_lens: Optional[Sequence[int]] = None, segments=None):
     """``(ms, "bytes" | "operations", bytes, operations)``: the least time
     an H100 could take for the launch, the larger of its bytes
     (:func:`modeled_launch_bytes`) over 3.35 TB/s and the operations this
     launch's data needs (:func:`.kernel_catalog.needed_flops`: causal
-    pairs, live lengths) over the working type's peak."""
+    pairs, pairs of one segment given a flash launch's ``segments`` (its
+    seg_q and seg_k), live lengths) over the working type's peak."""
     from .kernel_catalog import needed_flops
     nbytes = modeled_launch_bytes(spec, seq_lens)["total_bytes"]
-    ops = needed_flops(spec, seq_lens)
+    ops = needed_flops(spec, seq_lens, segments)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[spec.dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops

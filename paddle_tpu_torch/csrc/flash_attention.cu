@@ -6,8 +6,28 @@
 //   flash_attention_bwd_dq   _bwd_dq_kernel   (launch in _bwd_impl)
 //   flash_attention_bwd_dkv  _bwd_dkv_kernel  (launch in _bwd_impl)
 // with causal masking (bottom-right: query row r sees key c iff
-// r + sk - sq >= c) and grouped-query attention (h query heads over kvh
-// K/V heads, h % kvh == 0, the K/V head indexed, never repeated).
+// r + sk - sq >= c; with sq > sk the top rows see no key and give O = 0)
+// and grouped-query attention (h query heads over kvh K/V heads,
+// h % kvh == 0, the K/V head indexed, never repeated).
+//
+// The JAX kernels' optional bodies are runtime flags (struct Extras),
+// compiled as a second instance of each kernel (kX = true) so that the
+// flag-less instance is the same code as without them:
+//   - an additive f32 bias [b|1, h|1, sq, sk] on the scaled scores
+//     (s = dot * scale + bias, JAX _fwd_kernel), broadcast over a batch or
+//     head axis of size 1;
+//   - dbias (dq pass only): P (dP - delta), before the scale, written for
+//     every (query row, key) of [b*h, sq, sk] f32, zeros for the key tiles
+//     past the causal diagonal, so the whole array is written;
+//   - segment ids seg_q [b, sq], seg_k [b, sk] (int32): a query sees only
+//     keys of its own segment (JAX _mask); a row left with no key gives 0;
+//   - in-kernel dropout: the keep mask is JAX _dropout_keep's hash of
+//     (seed, query head b*h + hi, absolute query row, absolute key), so
+//     the three kernels and any tiling draw the same mask. The forward
+//     multiplies the kept P by inv = 1 / (1 - rate) (rounded to f32 on
+//     the host) before P V while l sums the undropped P; the dq pass drops
+//     dP; the dkv pass takes the dropped f32 P for dV and the dropped dP
+//     for dK; dS = P (dP - delta) always takes the undropped P.
 //
 //   q, o, dq    [b, sq, h, d]     f32 or bf16 (the public layout, read by
 //   k, v, dk, dv [b, sk, kvh, d]  stride; no transposed copy)
@@ -107,6 +127,56 @@ __device__ __forceinline__ bool sees(int r, int c, int sq, int sk, int off,
   return r < sq && c < sk && (!causal || r + off >= c);
 }
 
+// The optional bodies of one launch (all off: null pointers, rate 0).
+struct Extras {
+  const float* bias;   // [bias_b * bias_h, sq, sk] f32, or null
+  int bias_b, bias_h;  // the bias's batch and head extents (1 = broadcast)
+  const int* seg_q;    // [b, sq] segment ids, or null (then seg_k too)
+  const int* seg_k;    // [b, sk]
+  float* dbias;        // dq pass: [b*h, sq, sk] f32, or null
+  uint32_t seed;       // dropout: the hash's seed, the rate and 1/(1-rate)
+  float rate, inv;
+};
+
+// The bias plane of query head (bi, hi), or null.
+__device__ __forceinline__ const float* bias_plane(const Extras& x, int bi,
+                                                   int hi, int sq, int sk) {
+  if (x.bias == nullptr) return nullptr;
+  const int plane =
+      (x.bias_b == 1 ? 0 : bi) * x.bias_h + (x.bias_h == 1 ? 0 : hi);
+  return x.bias + (size_t)plane * sq * sk;
+}
+
+// JAX _dropout_keep: a murmur3 finalizer of the absolute coordinates;
+// the top 24 bits as a uniform in [0, 1), kept where u >= rate.
+__device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t qbh,
+                                             uint32_t qpos, uint32_t kpos,
+                                             float rate) {
+  uint32_t x = qpos * 0x9E3779B1u ^ kpos * 0x85EBCA77u ^
+               (seed + qbh * 0xC2B2AE3Du);
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  const float u = (float)(int)(x >> 8) * (1.0f / 16777216.0f);
+  return u >= rate;
+}
+
+// The thread's segment ids: rows ty*4 + i of a query tile at q0 and keys
+// tx + 16 j of a key tile at k0 (0 past the ends, where nothing is seen).
+__device__ __forceinline__ void load_segs(const Extras& x, int bi, int q0,
+                                          int k0, int sq, int sk, int ty,
+                                          int tx, int (&sgq)[4],
+                                          int (&sgk)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty * 4 + i, c = k0 + tx + 16 * i;
+    sgq[i] = r < sq ? x.seg_q[(size_t)bi * sq + r] : 0;
+    sgk[i] = c < sk ? x.seg_k[(size_t)bi * sk + c] : 0;
+  }
+}
+
 // Index of the last key tile a query tile starting at q0 sees, plus one.
 __device__ __forceinline__ int key_tiles(int q0, int sk, int off,
                                          int causal) {
@@ -153,12 +223,12 @@ __device__ __forceinline__ float row_sum16(float x) {
 // ---------------------------------------------------------------------------
 // forward: O and lse
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kX>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ o,
            float* __restrict__ lse, int h, int kvh, int sq, int sk, int d,
-           float scale, int causal) {
+           float scale, int causal, const Extras x) {
   const int q0 = blockIdx.x * kB;
   const int bh = blockIdx.y;
   const int bi = bh / h, hi = bh - bi * h;
@@ -188,6 +258,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
+  const float* bp = kX ? bias_plane(x, bi, hi, sq, sk) : nullptr;
   const int nkt = key_tiles(q0, sk, off, causal);
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * kB;
@@ -197,6 +268,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     float s[4][4];
     tile_dots(q_s, k_s, ld, d, ty, tx, s);
+    int sgq[4], sgk[4];
+    if (kX && x.seg_q) load_segs(x, bi, q0, k0, sq, sk, ty, tx, sgq, sgk);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = q0 + ty * 4 + i;
@@ -204,8 +277,16 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mc = kMaskValue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        ok[j] = sees(r, k0 + tx + 16 * j, sq, sk, off, causal);
-        s[i][j] = ok[j] ? s[i][j] * scale : kMaskValue;
+        const int c = k0 + tx + 16 * j;
+        ok[j] = sees(r, c, sq, sk, off, causal);
+        if (kX) {
+          if (x.seg_q) ok[j] = ok[j] && sgq[i] == sgk[j];
+          float sc = __fmul_rn(s[i][j], scale);
+          if (bp && ok[j]) sc = __fadd_rn(sc, bp[(size_t)r * sk + c]);
+          s[i][j] = ok[j] ? sc : kMaskValue;
+        } else {
+          s[i][j] = ok[j] ? s[i][j] * scale : kMaskValue;
+        }
         mc = fmaxf(mc, s[i][j]);
       }
       const float mn = fmaxf(m[i], row_max16(mc));
@@ -215,7 +296,12 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = ok[j] ? expf(s[i][j] - mn) : 0.f;
         ps += p;
-        p_s[(ty * 4 + i) * kLdP + tx + 16 * j] = round_to<T>(p);
+        float pd = p;   // P V takes the dropped P; l the undropped one
+        if (kX && x.rate > 0.f)
+          pd = dropout_keep(x.seed, bh, r, k0 + tx + 16 * j, x.rate)
+                   ? __fmul_rn(p, x.inv)
+                   : 0.f;
+        p_s[(ty * 4 + i) * kLdP + tx + 16 * j] = round_to<T>(pd);
       }
       l[i] = alpha * l[i] + row_sum16(ps);
       m[i] = mn;
@@ -258,23 +344,49 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // The thread's probabilities and dS of one (query tile, key tile) pair,
 // from the staged Q, dO, K, V tiles and the query rows' lse and delta:
 // P = exp(S * scale - lse) where seen (else 0), dS = P (dP - delta) scale.
-template <typename T>
+// With the extras (kX): S * scale + bias, the segment mask, dP dropped,
+// ``dsb`` = P (dP - delta) before the scale (dbias), and P returned
+// dropped (the dkv pass's dV takes it); dS keeps the undropped P. ``bp``
+// is the query head's bias plane (or null), ``qbh`` its b*h index.
+template <typename T, bool kX>
 __device__ __forceinline__ void probs_and_ds(
     const float* q_s, const float* do_s, const float* k_s,
     const float* v_s, const float* lse_s, const float* dl_s, int ld, int d,
     int q0, int k0, int sq, int sk, int off, int causal, float scale,
-    int ty, int tx, float (&p)[4][4], float (&ds)[4][4]) {
+    int ty, int tx, const Extras& x, const float* bp, int bi, uint32_t qbh,
+    float (&p)[4][4], float (&ds)[4][4], float (&dsb)[4][4]) {
   float dp[4][4];
   tile_dots(q_s, k_s, ld, d, ty, tx, p);
   tile_dots(do_s, v_s, ld, d, ty, tx, dp);
+  int sgq[4], sgk[4];
+  if (kX && x.seg_q) load_segs(x, bi, q0, k0, sq, sk, ty, tx, sgq, sgk);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int rl = ty * 4 + i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const bool ok = sees(q0 + rl, k0 + tx + 16 * j, sq, sk, off, causal);
-      p[i][j] = ok ? expf(p[i][j] * scale - lse_s[rl]) : 0.f;
-      ds[i][j] = p[i][j] * (dp[i][j] - dl_s[rl]) * scale;
+      const int r = q0 + rl, c = k0 + tx + 16 * j;
+      bool ok = sees(r, c, sq, sk, off, causal);
+      if (!kX) {
+        p[i][j] = ok ? expf(p[i][j] * scale - lse_s[rl]) : 0.f;
+        ds[i][j] = p[i][j] * (dp[i][j] - dl_s[rl]) * scale;
+        continue;
+      }
+      if (x.seg_q) ok = ok && sgq[i] == sgk[j];
+      float s = __fmul_rn(p[i][j], scale);
+      if (bp && ok) s = __fadd_rn(s, bp[(size_t)r * sk + c]);
+      // a select, never a 0/1 multiply: lse may be -inf for a row that
+      // sees no key, and exp(+inf) * 0 is NaN
+      const float pr = ok ? expf(s - lse_s[rl]) : 0.f;
+      float dpv = dp[i][j], pd = pr;
+      if (x.rate > 0.f) {
+        const bool kp = dropout_keep(x.seed, qbh, r, c, x.rate);
+        dpv = kp ? __fmul_rn(dpv, x.inv) : 0.f;
+        pd = kp ? __fmul_rn(pr, x.inv) : 0.f;
+      }
+      dsb[i][j] = pr * (dpv - dl_s[rl]);
+      ds[i][j] = dsb[i][j] * scale;
+      p[i][j] = pd;
     }
   }
 }
@@ -282,13 +394,13 @@ __device__ __forceinline__ void probs_and_ds(
 // ---------------------------------------------------------------------------
 // backward, dq pass
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kX>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           T* __restrict__ dq, int h, int kvh, int sq, int sk, int d,
-          float scale, int causal) {
+          float scale, int causal, const Extras x) {
   const int q0 = blockIdx.x * kB;
   const int bh = blockIdx.y;
   const int bi = bh / h, hi = bh - bi * h;
@@ -321,16 +433,41 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
 
+  const float* bp = kX ? bias_plane(x, bi, hi, sq, sk) : nullptr;
+  // dbias: the rows of this query tile in [b*h, sq, sk]
+  float* db = kX && x.dbias ? x.dbias + (size_t)bh * sq * sk : nullptr;
   const int nkt = key_tiles(q0, sk, off, causal);
-  for (int kt = 0; kt < nkt; ++kt) {
+  // with dbias every key tile is visited: past the diagonal, to write 0
+  const int nvisit = db ? (sk + kB - 1) / kB : nkt;
+  for (int kt = 0; kt < nvisit; ++kt) {
     const int k0 = kt * kB;
+    if (kX && kt >= nkt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = q0 + ty * 4 + i, c = k0 + tx + 16 * j;
+          if (r < sq && c < sk) db[(size_t)r * sk + c] = 0.f;
+        }
+      continue;
+    }
     __syncthreads();
     load_tile(k_s, ld, kb, krs, k0, sk, d);
     load_tile(v_s, ld, vb, krs, k0, sk, d);
     __syncthreads();
-    float p[4][4], ds[4][4];
-    probs_and_ds<T>(q_s, do_s, k_s, v_s, lse_s, dl_s, ld, d, q0, k0, sq, sk,
-                    off, causal, scale, ty, tx, p, ds);
+    float p[4][4], ds[4][4], dsb[4][4];
+    probs_and_ds<T, kX>(q_s, do_s, k_s, v_s, lse_s, dl_s, ld, d, q0, k0, sq,
+                        sk, off, causal, scale, ty, tx, x, bp, bi, bh, p,
+                        ds, dsb);
+    if (db) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = q0 + ty * 4 + i, c = k0 + tx + 16 * j;
+          if (r < sq && c < sk) db[(size_t)r * sk + c] = dsb[i][j];
+        }
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -370,13 +507,13 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // backward, dkv pass
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kX>
 __global__ void __launch_bounds__(kThreads)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            T* __restrict__ dk, T* __restrict__ dv, int h, int kvh, int sq,
-           int sk, int d, float scale, int causal) {
+           int sk, int d, float scale, int causal, const Extras x) {
   const int k0 = blockIdx.x * kB;
   const int bkv = blockIdx.y;
   const int bi = bkv / kvh, kvi = bkv - bi * kvh;
@@ -415,6 +552,7 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int hq = kvi * groups + g;
     const size_t bh = (size_t)bi * h + hq;
     const size_t qhead = ((size_t)bi * sq * h + hq) * d;
+    const float* bp = kX ? bias_plane(x, bi, hq, sq, sk) : nullptr;
     for (int qt = first; qt < nqt; ++qt) {
       const int q0 = qt * kB;
       __syncthreads();  // the previous pair's readers are done (k/v set)
@@ -423,9 +561,11 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_stat(lse_s, lse + bh * sq, q0, sq);
       load_stat(dl_s, delta + bh * sq, q0, sq);
       __syncthreads();
-      float p[4][4], ds[4][4];
-      probs_and_ds<T>(q_s, do_s, k_s, v_s, lse_s, dl_s, ld, d, q0, k0, sq,
-                      sk, off, causal, scale, ty, tx, p, ds);
+      // p comes back dropped (dV's), ds from the undropped P (dK's)
+      float p[4][4], ds[4][4], dsb[4][4];
+      probs_and_ds<T, kX>(q_s, do_s, k_s, v_s, lse_s, dl_s, ld, d, q0, k0,
+                          sq, sk, off, causal, scale, ty, tx, x, bp, bi,
+                          (uint32_t)bh, p, ds, dsb);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -497,55 +637,78 @@ cudaError_t allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T>
+// Whether a launch takes the kernel instance with the optional bodies.
+inline bool any_extra(const Extras& x) {
+  return x.bias || x.seg_q || x.dbias || x.rate > 0.f;
+}
+
+template <typename T, bool kX>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int b, int h, int kvh, int sq, int sk,
-                       int d, float scale, int causal, cudaStream_t stream) {
+                       int d, float scale, int causal, const Extras& x,
+                       cudaStream_t stream) {
   const size_t smem = fwd_smem(d);
-  cudaError_t e = allow_smem(fwd_kernel<T>, smem);
+  cudaError_t e = allow_smem(fwd_kernel<T, kX>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((sq + kB - 1) / kB, b * h);
-  fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<T, kX><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      h, kvh, sq, sk, d, scale, causal);
+      h, kvh, sq, sk, d, scale, causal, x);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kX>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int b, int h, int kvh, int sq, int sk, int d,
-                      float scale, int causal, cudaStream_t stream) {
+                      float scale, int causal, const Extras& x,
+                      cudaStream_t stream) {
   const size_t smem = dq_smem(d);
-  cudaError_t e = allow_smem(dq_kernel<T>, smem);
+  cudaError_t e = allow_smem(dq_kernel<T, kX>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((sq + kB - 1) / kB, b * h);
-  dq_kernel<T><<<grid, kThreads, smem, stream>>>(
+  dq_kernel<T, kX><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), h, kvh, sq, sk, d, scale, causal);
+      static_cast<T*>(dq), h, kvh, sq, sk, d, scale, causal, x);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kX>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int b, int h, int kvh, int sq,
                        int sk, int d, float scale, int causal,
-                       cudaStream_t stream) {
+                       const Extras& x, cudaStream_t stream) {
   const size_t smem = dkv_smem(d);
-  cudaError_t e = allow_smem(dkv_kernel<T>, smem);
+  cudaError_t e = allow_smem(dkv_kernel<T, kX>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((sk + kB - 1) / kB, b * kvh);
-  dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
+  dkv_kernel<T, kX><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), h, kvh, sq, sk, d, scale,
-      causal);
+      causal, x);
   return cudaGetLastError();
+}
+
+// The instance of ``launch`` for the launch's type and extras.
+#define FLASH_DISPATCH(launch, dtype, x, ...)                              \
+  (dtype == 1 ? (any_extra(x) ? launch<__nv_bfloat16, true>(__VA_ARGS__)   \
+                              : launch<__nv_bfloat16, false>(__VA_ARGS__)) \
+   : dtype == 0 ? (any_extra(x) ? launch<float, true>(__VA_ARGS__)         \
+                                : launch<float, false>(__VA_ARGS__))       \
+                : cudaErrorInvalidValue)
+
+inline Extras make_extras(const void* bias, int bias_b, int bias_h,
+                          const void* seg_q, const void* seg_k, void* dbias,
+                          long long seed, float rate, float inv) {
+  return Extras{static_cast<const float*>(bias), bias_b, bias_h,
+                static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
+                static_cast<float*>(dbias), (uint32_t)seed, rate, inv};
 }
 
 }  // namespace flash
@@ -555,63 +718,70 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // flash_attention.py checks devices, types, shapes and contiguity first).
 // dtype: 0 = float32, 1 = bfloat16; block and smem: the wrapper's plan, the
 // kernels' kB-row tiles and the kernel's shared memory, or the launch is
-// refused (cudaErrorInvalidValue). Each returns its launch's cudaError_t.
+// refused (cudaErrorInvalidValue). The optional bodies: bias (f32, or
+// null) with its batch and head extents bias_b, bias_h; seg_q, seg_k
+// (int32, or both null); dbias (dq pass, or null); the dropout seed (its
+// low 32 bits), rate and inv = 1 / (1 - rate) (rate 0: no dropout). Each
+// returns its launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int b,
-                                   int h, int kvh, int sq, int sk, int d,
-                                   int block, int smem, float scale,
-                                   int causal, int dtype, void* stream) {
+                                   const void* v, const void* bias,
+                                   const void* seg_q, const void* seg_k,
+                                   void* o, void* lse, int b, int h, int kvh,
+                                   int sq, int sk, int d, int block,
+                                   int smem, int bias_b, int bias_h,
+                                   long long seed, float scale, float rate,
+                                   float inv, int causal, int dtype,
+                                   void* stream) {
   using namespace paddle_tpu_torch::flash;
   if (block != kB || (size_t)smem != fwd_smem(d)) return cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(q, k, v, o, lse, b, h, kvh, sq, sk, d,
-                                     scale, causal, s);
-  if (dtype == 0)
-    return launch_fwd<float>(q, k, v, o, lse, b, h, kvh, sq, sk, d, scale,
-                             causal, s);
-  return cudaErrorInvalidValue;
+  const Extras x = make_extras(bias, bias_b, bias_h, seg_q, seg_k, nullptr,
+                               seed, rate, inv);
+  return FLASH_DISPATCH(launch_fwd, dtype, x, q, k, v, o, lse, b, h, kvh,
+                        sq, sk, d, scale, causal, x, s);
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
-                                      const void* v, const void* dout,
-                                      const void* lse, const void* delta,
-                                      void* dq, int b, int h, int kvh,
+                                      const void* v, const void* bias,
+                                      const void* seg_q, const void* seg_k,
+                                      const void* dout, const void* lse,
+                                      const void* delta, void* dq,
+                                      void* dbias, int b, int h, int kvh,
                                       int sq, int sk, int d, int block,
-                                      int smem, float scale, int causal,
+                                      int smem, int bias_b, int bias_h,
+                                      long long seed, float scale,
+                                      float rate, float inv, int causal,
                                       int dtype, void* stream) {
   using namespace paddle_tpu_torch::flash;
   if (block != kB || (size_t)smem != dq_smem(d)) return cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, b, h, kvh,
-                                    sq, sk, d, scale, causal, s);
-  if (dtype == 0)
-    return launch_dq<float>(q, k, v, dout, lse, delta, dq, b, h, kvh, sq, sk,
-                            d, scale, causal, s);
-  return cudaErrorInvalidValue;
+  const Extras x = make_extras(bias, bias_b, bias_h, seg_q, seg_k, dbias,
+                               seed, rate, inv);
+  return FLASH_DISPATCH(launch_dq, dtype, x, q, k, v, dout, lse, delta, dq,
+                        b, h, kvh, sq, sk, d, scale, causal, x, s);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
-                                       const void* v, const void* dout,
-                                       const void* lse, const void* delta,
-                                       void* dk, void* dv, int b, int h,
-                                       int kvh, int sq, int sk, int d,
-                                       int block, int smem, float scale,
-                                       int causal, int dtype, void* stream) {
+                                       const void* v, const void* bias,
+                                       const void* seg_q, const void* seg_k,
+                                       const void* dout, const void* lse,
+                                       const void* delta, void* dk, void* dv,
+                                       int b, int h, int kvh, int sq, int sk,
+                                       int d, int block, int smem,
+                                       int bias_b, int bias_h,
+                                       long long seed, float scale,
+                                       float rate, float inv, int causal,
+                                       int dtype, void* stream) {
   using namespace paddle_tpu_torch::flash;
   if (block != kB || (size_t)smem != dkv_smem(d)) return cudaErrorInvalidValue;
   if (b == 0 || sk == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, b, h,
-                                     kvh, sq, sk, d, scale, causal, s);
-  if (dtype == 0)
-    return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, b, h, kvh, sq,
-                             sk, d, scale, causal, s);
-  return cudaErrorInvalidValue;
+  const Extras x = make_extras(bias, bias_b, bias_h, seg_q, seg_k, nullptr,
+                               seed, rate, inv);
+  return FLASH_DISPATCH(launch_dkv, dtype, x, q, k, v, dout, lse, delta, dk,
+                        dv, b, h, kvh, sq, sk, d, scale, causal, x, s);
 }
 
 extern "C" const char* cuda_error_string(int err) {

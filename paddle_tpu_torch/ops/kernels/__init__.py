@@ -14,7 +14,10 @@ KV pools, which may be int8 (the int8 cache), by pool class
 (decode_attn_block, decode_mlp_block, prefill_attn_block) count by
 residual class too (``<wrapper>.launches_by_residual``): "full" for
 ``x + product``, "partial" for the product alone, which a
-tensor-parallel shard's step launches (``inference/tp.py``). Only a
+tensor-parallel shard's step launches (``inference/tp.py``). The three
+flash wrappers count by body class (``<wrapper>.launches_by_body``: the
+optional bodies a launch runs, "bias", "dbias", "seg", "dropout",
+"causal_sq_gt_sk" joined by commas, or "plain"). Only a
 launch counts: a wrapper given CPU tensors raises before it, and the CPU
 routes run the plain versions, which count nothing.
 
@@ -80,7 +83,7 @@ def reset_launches():
     for fn in list(WRAPPERS.values()) + list(DEMO_WRAPPERS.values()):
         fn.launches = 0
         for attr in ("launches_by_weight", "launches_by_pool",
-                     "launches_by_residual"):
+                     "launches_by_residual", "launches_by_body"):
             by = getattr(fn, attr, None)
             if by is not None:
                 for k in by:
@@ -114,3 +117,11 @@ def launches_by_residual():
     return {name: dict(fn.launches_by_residual)
             for name, fn in WRAPPERS.items()
             if hasattr(fn, "launches_by_residual")}
+
+
+def launches_by_body():
+    """``{launch name: {body class: count}}`` for the flash kernels (the
+    classes launched since the last reset, some perhaps at 0)."""
+    return {name: dict(fn.launches_by_body)
+            for name, fn in WRAPPERS.items()
+            if hasattr(fn, "launches_by_body")}

@@ -34,11 +34,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["KernelOperand", "Access", "KernelPhase", "KernelLaunchSpec",
-           "capture_kernel_launches", "capturing", "begin", "check_device",
-           "dtype_name", "whole", "rows_access", "flat_access", "triton_spec",
-           "triton_run", "H100_SMS", "SMEM_BLOCK", "SMEM_SM",
-           "SMEM_RESERVED"]
+__all__ = ["KernelOperand", "Seen", "Access", "KernelPhase",
+           "KernelLaunchSpec", "capture_kernel_launches", "capturing",
+           "begin", "check_device", "dtype_name", "whole", "rows_access",
+           "flat_access", "triton_spec", "triton_run", "H100_SMS",
+           "SMEM_BLOCK", "SMEM_SM", "SMEM_RESERVED"]
 
 #: streaming multiprocessors of an H100 SXM
 H100_SMS = 132
@@ -57,15 +57,28 @@ class KernelOperand:
     tables), "pages" (a block table: its live entries), "rows" (a rope
     table: one row per sequence, at its length). Paged operands are
     exempt from the input-coverage rule, as the JAX gate exempts
-    scalar-prefetch launches."""
+    scalar-prefetch launches. ``masked``: an input read only at the tiles
+    a mask lets some query see (a bias under the causal mask: the tiles
+    past the diagonal are never needed); its reads must cover those tiles
+    (:class:`Seen`), not the whole array; its bytes are the tiles read."""
     name: str
     shape: Tuple[int, ...]
     dtype: str
     paged: Optional[str] = None
+    masked: Optional["Seen"] = None
 
     @property
     def itemsize(self) -> int:
         return torch.empty((), dtype=getattr(torch, self.dtype)).element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class Seen:
+    """The tiles of a masked input that its mask lets some query see:
+    tiles of shape ``tile``, ``seen(coords)`` true for those of the tile
+    coordinates ``coords`` ([n, ndim] int64) that some query sees."""
+    tile: Tuple[int, ...]
+    seen: Callable[[Any], Any]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,31 +3,42 @@ versions and the ``torch.autograd.Function`` that joins them.
 
 Replaces ``paddle_tpu/ops/pallas/flash_attention.py``'s
 ``flash_attention_pallas`` (launches ``flash_attention_fwd``,
-``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``). The kernels
-are ``paddle_tpu_torch/csrc/flash_attention.cu``, CUDA C++ for
-``sm_90a``, built by :mod:`._build` at the first launch and bound with
-ctypes; that file's header says what bounds them on the H100 (operations)
-and how their design follows from it.
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``), with every
+body of those kernels: causal (bottom-right, ``sq > sk`` included) or
+full, GQA, an additive f32 bias ``[b|1, h|1, sq, sk]`` and its gradient
+(``dbias``, the dq pass's ``[b*h, sq, sk]`` f32 output), segment ids, and
+in-kernel dropout keyed by :func:`dropout_keep`. The kernels are
+``paddle_tpu_torch/csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``,
+built by :mod:`._build` at the first launch and bound with ctypes; that
+file's header says what bounds them on the H100 (operations) and how their
+design follows from it.
 
 Layout: the public ``[batch, seq, heads, head_dim]`` (q, o: ``h`` heads;
 k, v: ``kvh`` heads, ``h % kvh == 0``), read by stride; the log-sum-exp
 and ``delta`` rows are ``[batch, h, sq]`` f32, the JAX package's
-``[b*h, sq]``.
+``[b*h, sq]``; segment ids ``[b, sq]`` / ``[b, sk]`` int32.
 
 The plain versions are op for op the JAX kernels' arithmetic, dense:
-:func:`flash_fwd_ref` (O and lse, ``P`` cast to V's type before ``P V``),
+:func:`flash_fwd_ref` (O and lse, ``S * scale + bias``, ``P`` dropped and
+cast to V's type before ``P V``, taken against the running max of each
+``BLOCK``-key tile as the kernels' online softmax takes it, while ``l``
+sums the undropped ``P``),
 :func:`flash_bwd_dq_ref` and :func:`flash_bwd_dkv_ref` (``P`` recomputed
-from lse, ``dS = P (dP - delta) scale``, dS cast to K's and Q's type for
-dq and dk, ``dV`` from an f32 P). ``chip_smoke.py`` holds each kernel
-against its plain version on the card; the CPU tests hold the plain
-versions against the JAX kernels in interpret mode. The semantics-level
-plain version with bias and segment ids is
-:func:`paddle_tpu_torch.ops.flash_attention._ref_attention`.
+from lse, ``dP`` dropped, ``dS = P (dP - delta) scale`` from the undropped
+``P``, dS cast to K's and Q's type for dq and dk, ``dV`` from the dropped
+f32 ``P``; ``dbias = P (dP - delta)``). ``chip_smoke.py`` holds each
+kernel against its plain version on the card; the CPU tests hold the plain
+versions against the JAX kernels in interpret mode.
 
-Not ported (the wrappers raise): additive bias, segment ids, in-kernel
-dropout, and causal attention with ``sq > sk`` (a row that sees no key:
-the JAX kernel returns zeros there and its plain version the mean of V,
-so no plain version can hold the kernel).
+A query row that sees no key (causal with ``sq > sk``, or a segment with
+no key of its id) gives O = 0 in the kernels and in their plain versions,
+as in the JAX kernels; its lse is ``MASK_VALUE`` or ``-inf`` depending on
+whether its tile visited a key tile (so lse is compared only on rows that
+see a key). The semantics-level plain version,
+:func:`paddle_tpu_torch.ops.flash_attention._ref_attention`, gives the
+mean of V on such a causal row, as the JAX package's ``_ref_attention``
+does (it zeroes only rows that segment ids leave empty); the two differ
+there by design.
 """
 from __future__ import annotations
 
@@ -42,14 +53,53 @@ from . import _build, _launch
 __all__ = ["flash_fwd_ref", "flash_bwd_dq_ref", "flash_bwd_dkv_ref",
            "flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda",
            "FlashAttention", "flash_attention_cuda", "flash_unsupported",
+           "dropout_keep", "dropout_inv", "body_class", "BODY_FLAGS",
            "MASK_VALUE"]
 
 #: the JAX kernel's DEFAULT_MASK_VALUE (-0.7 x float32 max)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
+_U32 = 0xFFFFFFFF
+
 
 def _scale(q, scale):
     return scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
+def _mul32(a, c):
+    """``a * c`` mod 2^32 for int64 ``a`` in [0, 2^32) and a 32-bit
+    constant, in halves so that no product leaves int64."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def dropout_keep(seed, qbh, qpos, kpos, rate):
+    """The JAX kernels' keep mask (``_dropout_keep``): a murmur3 finalizer
+    of ``(seed, query head b*h + hi, absolute query row, absolute key)``,
+    kept where the top 24 bits as a uniform in [0, 1) are at least
+    ``rate`` (compared in f32). ``qbh``, ``qpos``, ``kpos``: int tensors
+    that broadcast together; ``seed``: a Python int (its low 32 bits).
+    Torch has no full uint32 arithmetic, so the hash runs in int64 masked
+    to 32 bits; it gives JAX's bits."""
+    qbh, qpos, kpos = (torch.as_tensor(t).to(torch.int64) & _U32
+                       for t in (qbh, qpos, kpos))
+    seed = int(seed) & _U32
+    x = (_mul32(qpos, 0x9E3779B1) ^ _mul32(kpos, 0x85EBCA77)
+         ^ ((seed + _mul32(qbh, 0xC2B2AE3D)) & _U32))
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    u = (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return u >= float(np.float32(rate))
+
+
+def dropout_inv(rate) -> float:
+    """``1 / (1 - rate)`` rounded to f32: the constant the JAX kernels
+    multiply the kept probabilities by (a weak-typed Python float)."""
+    return float(np.float32(1.0 / (1.0 - float(rate))))
 
 
 # ---------------------------------------------------------------------------
@@ -60,24 +110,62 @@ def _repeat_kv(t, h):
     return torch.repeat_interleave(t, g, dim=2) if g > 1 else t
 
 
-def _scores(q, k, causal, scale):
-    """Scaled f32 scores [b, h, sq, sk] and the seen mask (None when every
-    key is seen)."""
+def _scores(q, k, causal, scale, bias=None, seg_q=None, seg_k=None):
+    """Scaled f32 scores [b, h, sq, sk] (plus the bias) and the seen mask
+    (None when every key is seen)."""
     h = q.shape[2]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      _repeat_kv(k, h).float()) * scale
+    if bias is not None:
+        s = s + bias.float()
     sq, sk = s.shape[-2], s.shape[-1]
     valid = None
     if causal:
         valid = torch.ones(sq, sk, dtype=torch.bool,
                            device=q.device).tril(sk - sq)
+    if seg_q is not None:
+        same = (seg_q[:, None, :, None] == seg_k[:, None, None, :])
+        valid = same if valid is None else valid & same
     return s, valid
 
 
-def flash_fwd_ref(q, k, v, causal=False, scale=None):
-    """(o [b, sq, h, d] in q's type, lse [b, h, sq] f32)."""
+def _keep(q, sk, seed, rate):
+    """[b, h, sq, sk] keep mask of the launch's query heads."""
+    b, sq, h, _ = q.shape
+    dev = q.device
+    qbh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+    return dropout_keep(seed, qbh, torch.arange(sq, device=dev)[:, None],
+                        torch.arange(sk, device=dev)[None, :], rate)
+
+
+def _dropped(t, keep, rate):
+    """``keep ? t * inv : 0`` with the f32 ``inv`` (the kernels' select)."""
+    inv = torch.tensor(dropout_inv(rate), dtype=torch.float32,
+                       device=t.device)
+    return torch.where(keep, t * inv, 0.0)
+
+
+def _running_tile_max(s):
+    """[..., sk] -> for each key, the running max of the scores over the
+    ``BLOCK``-key tiles up to its own: the max the kernels take its P
+    against before rounding P to V's type."""
+    sk = s.shape[-1]
+    nt = -(-sk // BLOCK)
+    tiles = torch.nn.functional.pad(s, (0, nt * BLOCK - sk),
+                                    value=MASK_VALUE).unflatten(-1,
+                                                                (nt, BLOCK))
+    run = tiles.amax(-1).cummax(-1).values
+    return run.repeat_interleave(BLOCK, -1)[..., :sk]
+
+
+def flash_fwd_ref(q, k, v, causal=False, scale=None, bias=None, seg_q=None,
+                  seg_k=None, seed=0, rate=0.0):
+    """(o [b, sq, h, d] in q's type, lse [b, h, sq] f32). ``P V`` takes
+    each key tile's P against the running max up to that tile, dropped,
+    rounded to V's type and then brought to the row's final max in f32,
+    as the kernels' online softmax does; ``l`` sums the undropped P."""
     scale = _scale(q, scale)
-    s, valid = _scores(q, k, causal, scale)
+    s, valid = _scores(q, k, causal, scale, bias, seg_q, seg_k)
     if valid is not None:
         s = torch.where(valid, s, MASK_VALUE)
     m = s.amax(-1, keepdim=True)
@@ -86,20 +174,36 @@ def flash_fwd_ref(q, k, v, causal=False, scale=None):
         p = torch.where(valid, p, 0.0)
     l = p.sum(-1, keepdim=True)
     l_safe = torch.where(l == 0, 1.0, l)
+    run = _running_tile_max(s)
+    p = torch.exp(s - run)
+    if valid is not None:
+        p = torch.where(valid, p, 0.0)
+    if rate > 0.0:
+        p = _dropped(p, _keep(q, k.shape[1], seed, rate), rate)
+    p = p.to(v.dtype).float() * torch.exp(run - m)
     vr = _repeat_kv(v, q.shape[2])
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vr.float())
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vr.float())
     o = o / l_safe.permute(0, 2, 1, 3)
     return o.to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
-def _probs_and_ds(q, k, v, do, lse, delta, causal, scale):
-    s, valid = _scores(q, k, causal, scale)
+def _probs_and_ds(q, k, v, do, lse, delta, causal, scale, bias, seg_q,
+                  seg_k, seed, rate):
+    """(P as dV takes it, dS, dbias): P dropped where dropout is on, dS and
+    dbias from the undropped P."""
+    s, valid = _scores(q, k, causal, scale, bias, seg_q, seg_k)
     p = torch.exp(s - lse[..., None])
     if valid is not None:
         p = torch.where(valid, p, 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(),
                       _repeat_kv(v, q.shape[2]).float())
-    return p, p * (dp - delta[..., None]) * scale
+    p_v = p
+    if rate > 0.0:
+        keep = _keep(q, k.shape[1], seed, rate)
+        dp = _dropped(dp, keep, rate)
+        p_v = _dropped(p, keep, rate)
+    dsb = p * (dp - delta[..., None])
+    return p_v, dsb * scale, dsb
 
 
 def _sum_groups(t, kvh):
@@ -109,20 +213,29 @@ def _sum_groups(t, kvh):
     return t.reshape(b, sk, kvh, h // kvh, d).sum(3)
 
 
-def flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=False, scale=None):
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=False, scale=None,
+                     bias=None, seg_q=None, seg_k=None, seed=0, rate=0.0,
+                     bias_grad=False):
     """dq [b, sq, h, d] in q's type from the forward's lse and
-    ``delta = rowsum(o * do)`` (both [b, h, sq] f32)."""
+    ``delta = rowsum(o * do)`` (both [b, h, sq] f32); with ``bias_grad``
+    ``(dq, dbias)``, dbias [b*h, sq, sk] f32 (the kernel's dbias body)."""
     scale = _scale(q, scale)
-    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    _, ds, dsb = _probs_and_ds(q, k, v, do, lse, delta, causal, scale, bias,
+                               seg_q, seg_k, seed, rate)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
-                      _repeat_kv(k, q.shape[2]).float())
-    return dq.to(q.dtype)
+                      _repeat_kv(k, q.shape[2]).float()).to(q.dtype)
+    if bias_grad:
+        b, h = q.shape[0], q.shape[2]
+        return dq, dsb.reshape(b * h, *dsb.shape[2:])
+    return dq
 
 
-def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False, scale=None):
+def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False, scale=None,
+                      bias=None, seg_q=None, seg_k=None, seed=0, rate=0.0):
     """(dk, dv) [b, sk, kvh, d] in k's and v's types."""
     scale = _scale(q, scale)
-    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    p, ds, _ = _probs_and_ds(q, k, v, do, lse, delta, causal, scale, bias,
+                             seg_q, seg_k, seed, rate)
     kvh = k.shape[2]
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
@@ -138,8 +251,19 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False, scale=None):
 BLOCK = 64
 _THREADS = 256
 _SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
-_N_PTR = {"flash_attention_fwd": 5, "flash_attention_bwd_dq": 7,
-          "flash_attention_bwd_dkv": 8}
+#: pointer arguments of each launcher (q, k, v, bias, seg_q, seg_k, then
+#: the pass's own)
+_N_PTR = {"flash_attention_fwd": 8, "flash_attention_bwd_dq": 11,
+          "flash_attention_bwd_dkv": 11}
+
+
+def flash_codes(name):
+    """The ctypes argument codes of launcher ``name``: its pointers, ten
+    ints (b, h, kvh, sq, sk, d, block, smem, bias_b, bias_h), the seed (a
+    long long), three floats (scale, rate, inv), causal, the dtype code and
+    the stream."""
+    return (("p",) * _N_PTR[name] + ("i",) * 10 + ("l",) + ("f",) * 3
+            + ("i", "i", "p"))
 
 
 def flash_smem(name, d) -> int:
@@ -164,27 +288,61 @@ def _key_tiles(q0, sk, off, causal):
 
 
 @functools.lru_cache(maxsize=128)
-def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal):
+def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
+               seg=False, dbias=False, dropout=False):
     """The launch spec of one flash kernel. Forward and dq: one block per
     (query tile, batch x head), grid (sq / BLOCK, b * h), reading the
-    tile's rows of q (and do, lse, delta) and every key tile it sees
-    (under the causal mask, those up to its diagonal), writing its rows of
-    o and lse (or dq). dkv: one block per (key tile, batch x KV head),
-    grid (sk / BLOCK, b * kvh), reading the tile's rows of k and v and, for
-    each query head of the group, every query tile that sees it, writing
-    its rows of dk and dv."""
+    tile's rows of q (and do, lse, delta, seg_q) and every key tile it
+    sees (under the causal mask, those up to its diagonal: k, v, the bias
+    tile, seg_k), writing its rows of o and lse (or dq, and with ``dbias``
+    the tile's rows of dbias over every key tile, zeros past the
+    diagonal). dkv: one block per (key tile, batch x KV head), grid
+    (sk / BLOCK, b * kvh), reading the tile's rows of k, v and seg_k and,
+    for each query head of the group, every query tile that sees it (with
+    its bias tile and seg_q), writing its rows of dk and dv. ``bias``: the
+    bias's (batch, head) extents, each 1 (broadcast) or the full one."""
     nqt, nkt = -(-sq // BLOCK), -(-sk // BLOCK)
     off, rep_ = sk - sq, h // kvh
     op = _launch.KernelOperand
-    q_, k_, v_ = (op("q", (b, sq, h, d), dt), op("k", (b, sk, kvh, d), dt),
-                  op("v", (b, sk, kvh, d), dt))
-    stat = lambda n: op(n, (b, h, sq), "float32")   # noqa: E731
     tile = (1, BLOCK, 1, d)
+    btile, stile, rtile = (1, 1, BLOCK, BLOCK), (1, BLOCK), (1, 1, BLOCK)
+
+    def pair_seen(qt, kt):
+        # some row of query tile qt sees some key of key tile kt
+        return np.minimum(qt * BLOCK + BLOCK, sq) - 1 + off >= kt * BLOCK
+
+    def rows_seen(t, axis):
+        # tiles of a per-query-row operand whose rows see some key
+        return _launch.Seen(t, lambda c: pair_seen(c[:, axis], 0))
+    # causal with sq > sk: the top query rows see no key, so the dkv pass,
+    # which walks the query tiles each key tile sees, never reads them
+    top = name == "flash_attention_bwd_dkv" and causal and sq > sk
+    q_, k_, v_ = (op("q", (b, sq, h, d), dt,
+                     masked=rows_seen(tile, 1) if top else None),
+                  op("k", (b, sk, kvh, d), dt), op("v", (b, sk, kvh, d), dt))
+    do_ = op("do", (b, sq, h, d), dt,
+             masked=rows_seen(tile, 1) if top else None)
+    stat = lambda n: op(  # noqa: E731
+        n, (b, h, sq), "float32", masked=rows_seen(rtile, 2) if top
+        else None)
     A = _launch.Access
+    extra_in = ()
+    if bias is not None:
+        # under the causal mask the tiles past the diagonal are never read
+        extra_in += (op("bias", (*bias, sq, sk), "float32", masked=(
+            _launch.Seen(btile, lambda c: pair_seen(c[:, 2], c[:, 3]))
+            if causal else None)),)
+    if seg:
+        extra_in += (op("seg_q", (b, sq), "int32",
+                        masked=rows_seen(stile, 1) if top else None),
+                     op("seg_k", (b, sk), "int32"))
+
+    def bias_at(bb, hh, qt, kt):
+        return (bb if bias[0] > 1 else 0 * bb,
+                hh if bias[1] > 1 else 0 * hh, qt, kt)
     if name == "flash_attention_bwd_dkv":
         grid = (nkt, b * kvh)
-        ins = (q_, k_, v_, op("do", (b, sq, h, d), dt), stat("lse"),
-               stat("delta"))
+        ins = (q_, k_, v_, do_, stat("lse"), stat("delta")) + extra_in
         outs = (op("dk", (b, sk, kvh, d), dt), op("dv", (b, sk, kvh, d), dt))
 
         def own(i):
@@ -202,24 +360,37 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal):
         def seen_stat(i):
             bb, qt, hh, _ = seen_q(i)
             return (bb, hh, qt)
+
+        def seen_bias(i):
+            bb, qt, hh, _ = seen_q(i)
+            return bias_at(bb, hh, qt, i // nqt // rep_ % nkt)
         n_seen = nkt * b * kvh * rep_ * nqt
+        key_reads = (A("k", tile, own), A("v", tile, own))
+        q_reads = (A("q", tile, seen_q), A("do", tile, seen_q),
+                   A("lse", rtile, seen_stat),
+                   A("delta", rtile, seen_stat))
+        if seg:
+            key_reads += (A("seg_k", stile,
+                            lambda i: (i // nkt // kvh, i % nkt)),)
+            q_reads += (A("seg_q", stile, lambda i: seen_stat(i)[::2]),)
+        if bias is not None:
+            q_reads += (A("bias", btile, seen_bias),)
         phases = (_launch.KernelPhase(
-            "keys", nkt * b * kvh, (A("k", tile, own), A("v", tile, own)),
+            "keys", nkt * b * kvh, key_reads,
             (A("dk", tile, own), A("dv", tile, own))),
-            _launch.KernelPhase(
-                "queries", n_seen,
-                (A("q", tile, seen_q), A("do", tile, seen_q),
-                 A("lse", (1, 1, BLOCK), seen_stat),
-                 A("delta", (1, 1, BLOCK), seen_stat))))
+            _launch.KernelPhase("queries", n_seen, q_reads))
     else:
         grid = (nqt, b * h)
         dq = name == "flash_attention_bwd_dq"
         ins = (q_, k_, v_)
         if dq:
-            ins += (op("do", (b, sq, h, d), dt), stat("lse"), stat("delta"))
+            ins += (do_, stat("lse"), stat("delta"))
             outs = (op("dq", (b, sq, h, d), dt),)
+            if dbias:
+                outs += (op("dbias", (b * h, sq, sk), "float32"),)
         else:
             outs = (op("o", (b, sq, h, d), dt), stat("lse_out"))
+        ins += extra_in
 
         def own(i):
             return (i // nqt // h, i % nqt, i // nqt % h, 0)
@@ -234,29 +405,47 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal):
             last = _key_tiles(qt * BLOCK, sk, off, causal) - 1
             return (bh // h, np.minimum(kt, np.maximum(last, 0)),
                     bh % h // rep_, 0)
+
+        def seen_bias(i):
+            bb, kt, _, _ = seen_k(i)
+            bh = i // nkt // nqt
+            return bias_at(bb, bh % h, i // nkt % nqt, kt)
         reads = [A("q", tile, own)]
+        key_reads = [A("k", tile, seen_k), A("v", tile, seen_k)]
         if dq:
-            reads += [A("do", tile, own), A("lse", (1, 1, BLOCK), own_stat),
-                      A("delta", (1, 1, BLOCK), own_stat)]
+            reads += [A("do", tile, own), A("lse", rtile, own_stat),
+                      A("delta", rtile, own_stat)]
             writes = (A("dq", tile, own),)
         else:
             writes = (A("o", tile, own),
-                      A("lse_out", (1, 1, BLOCK), own_stat))
+                      A("lse_out", rtile, own_stat))
+        if seg:
+            reads.append(A("seg_q", stile, lambda i: own_stat(i)[::2]))
+            key_reads.append(A("seg_k", stile,
+                               lambda i: seen_k(i)[:2]))
+        if bias is not None:
+            key_reads.append(A("bias", btile, seen_bias))
         phases = (_launch.KernelPhase("queries", nqt * b * h, tuple(reads),
                                       writes),
                   _launch.KernelPhase("keys", nqt * b * h * nkt,
-                                      (A("k", tile, seen_k),
-                                       A("v", tile, seen_k))))
+                                      tuple(key_reads)))
+        if dq and dbias:
+            # every (query tile, key tile) of each head: P (dP - delta)
+            # where seen, zeros past the diagonal
+            phases += (_launch.KernelPhase(
+                "dbias", nqt * b * h * nkt, (),
+                (A("dbias", (1, BLOCK, BLOCK),
+                   lambda i: (i // nkt // nqt, i // nkt % nqt, i % nkt)),)),)
     smem = flash_smem(name, d)
-    codes = ("p",) * _N_PTR[name] + ("i",) * 8 + ("f", "i", "i", "p")
     return _launch.KernelLaunchSpec(
         name, "cuda", _SOURCE, grid, _THREADS, ins, outs, phases,
-        ((name, codes),), dt, dyn_smem=smem,
-        params={"causal": bool(causal)},
+        ((name, flash_codes(name)),), dt, dyn_smem=smem,
+        params={"causal": bool(causal), "bias": bias, "segments": bool(seg),
+                "dbias": bool(dbias), "dropout": bool(dropout)},
         plan={"block": BLOCK, "smem": smem})
 
 
-def flash_unsupported(q, k, causal):
+def flash_unsupported(q, k, causal=False):
     """Why the kernels do not take these operands, or None."""
     if q.dtype not in _build.DTYPES:
         return f"dtype {q.dtype} (the kernels take float32 and bfloat16)"
@@ -268,9 +457,6 @@ def flash_unsupported(q, k, causal):
         return f"head_dim {d} (the kernels take a multiple of 8 up to 128)"
     if h % kvh:
         return f"{h} query heads are not a multiple of {kvh} K/V heads"
-    if causal and sq > sk:
-        return (f"causal attention with sq={sq} > sk={sk} is not ported "
-                "(rows that see no key)")
     if b * max(h, kvh) > 65535:
         return f"batch x heads = {b * h} passes the grid's 65535"
     return None
@@ -282,6 +468,8 @@ def _check(name, q, k, v, causal, *more):
         raise ValueError(f"{name}: {why}")
     _launch.check_device(name, q.device)
     for t in (k, v) + more:
+        if t is None:
+            continue
         if t.device != q.device:
             raise ValueError(f"{name}: operands on {t.device} and "
                              f"{q.device}")
@@ -296,34 +484,89 @@ def _check(name, q, k, v, causal, *more):
                          f"{v.dtype} do not match")
 
 
-def _run(name, wrapper, q, *ptrs, causal, scale):
+def _check_extras(name, q, k, bias, seg_q, seg_k, rate):
+    """The optional operands: a [b|1, h|1, sq, sk] f32 bias, [b, sq] and
+    [b, sk] int32 segment ids (both or neither), 0 <= rate < 1."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    if bias is not None:
+        if bias.dtype != torch.float32 or bias.dim() != 4 \
+                or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, h) \
+                or tuple(bias.shape[2:]) != (sq, sk):
+            raise ValueError(f"{name}: bias must be [b|1, h|1, sq, sk] = "
+                             f"[{b}|1, {h}|1, {sq}, {sk}] float32, got "
+                             f"{tuple(bias.shape)} {bias.dtype}")
+    if (seg_q is None) != (seg_k is None):
+        raise ValueError(f"{name}: give both segment ids or neither")
+    if seg_q is not None:
+        for nm, t, n in (("seg_q", seg_q, sq), ("seg_k", seg_k, sk)):
+            if t.dtype != torch.int32 or tuple(t.shape) != (b, n):
+                raise ValueError(f"{name}: {nm} must be [{b}, {n}] int32, "
+                                 f"got {tuple(t.shape)} {t.dtype}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"{name}: dropout rate {rate} is not in [0, 1)")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+#: the optional bodies, in the order a body class names them
+BODY_FLAGS = ("bias", "dbias", "seg", "dropout", "causal_sq_gt_sk")
+
+
+def body_class(bias=False, dbias=False, seg=False, dropout=False,
+               causal_sq_gt_sk=False) -> str:
+    """The body class a launch counts under (``<wrapper>.launches_by_body``):
+    its optional bodies joined by commas in :data:`BODY_FLAGS` order
+    ("seg,dropout"), or "plain"."""
+    on = dict(bias=bias, dbias=dbias, seg=seg, dropout=dropout,
+              causal_sq_gt_sk=causal_sq_gt_sk)
+    return ",".join(f for f in BODY_FLAGS if on[f]) or "plain"
+
+
+def _run(name, wrapper, q, k, v, bias, seg_q, seg_k, *ptrs, causal, scale,
+         seed, rate, dbias=False):
     b, sq, h, d = q.shape
-    kvh, sk = ptrs[0].shape[2], ptrs[0].shape[1]      # ptrs[0] is k
+    kvh, sk = k.shape[2], k.shape[1]
     spec = flash_spec(name, b, sq, sk, h, kvh, d,
-                      _launch.dtype_name(q.dtype), bool(causal))
+                      _launch.dtype_name(q.dtype), bool(causal),
+                      None if bias is None else tuple(bias.shape[:2]),
+                      seg_q is not None, bool(dbias), rate > 0.0)
     if not _launch.begin(spec, q.device):
         return
     fn = _build.c_fn("flash_attention", *spec.calls[0])
+    bb, bhh = (1, 1) if bias is None else tuple(bias.shape[:2])
+    cls = body_class(bias is not None, dbias, seg_q is not None, rate > 0.0,
+                     bool(causal) and sq > sk)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         wrapper.launches += 1
-        err = fn(q.data_ptr(), *(t.data_ptr() for t in ptrs), b, h, kvh, sq,
-                 sk, d, spec.plan["block"], spec.plan["smem"], float(scale),
+        wrapper.launches_by_body[cls] = \
+            wrapper.launches_by_body.get(cls, 0) + 1
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                 _ptr(seg_q), _ptr(seg_k), *(_ptr(t) for t in ptrs), b, h,
+                 kvh, sq, sk, d, spec.plan["block"], spec.plan["smem"], bb,
+                 bhh, int(seed) & 0xFFFFFFFF, float(scale), float(rate),
+                 dropout_inv(rate) if rate > 0.0 else 1.0,
                  int(bool(causal)), _build.DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + fn.error_string(err).decode())
 
 
-def flash_fwd_cuda(q, k, v, causal=False, scale=None):
+def flash_fwd_cuda(q, k, v, causal=False, scale=None, bias=None,
+                   seg_q=None, seg_k=None, seed=0, rate=0.0):
     """Launch ``flash_attention_fwd``: (o, lse) as :func:`flash_fwd_ref`.
     Raises for what the kernel does not take; never falls back."""
-    _check("flash_attention_fwd", q, k, v, causal)
+    name = "flash_attention_fwd"
+    _check(name, q, k, v, causal, bias, seg_q, seg_k)
+    _check_extras(name, q, k, bias, seg_q, seg_k, rate)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
                       dtype=torch.float32, device=q.device)
-    _run("flash_attention_fwd", flash_fwd_cuda, q, k, v, o, lse,
-            causal=causal, scale=_scale(q, scale))
+    _run(name, flash_fwd_cuda, q, k, v, bias, seg_q, seg_k, o, lse,
+         causal=causal, scale=_scale(q, scale), seed=seed, rate=rate)
     return o, lse
 
 
@@ -338,66 +581,115 @@ def _check_stats(name, q, do, lse, delta):
                          f"match q {tuple(q.shape)} {q.dtype}")
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None):
-    """Launch ``flash_attention_bwd_dq``: dq as :func:`flash_bwd_dq_ref`."""
-    _check("flash_attention_bwd_dq", q, k, v, causal, do, lse, delta)
-    _check_stats("flash_attention_bwd_dq", q, do, lse, delta)
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
+                      bias=None, seg_q=None, seg_k=None, seed=0, rate=0.0,
+                      bias_grad=False):
+    """Launch ``flash_attention_bwd_dq``: dq as :func:`flash_bwd_dq_ref`;
+    with ``bias_grad`` (a bias given) ``(dq, dbias)``, the kernel's dbias
+    body writing every element of dbias [b*h, sq, sk] f32."""
+    name = "flash_attention_bwd_dq"
+    _check(name, q, k, v, causal, do, lse, delta, bias, seg_q, seg_k)
+    _check_stats(name, q, do, lse, delta)
+    _check_extras(name, q, k, bias, seg_q, seg_k, rate)
+    if bias_grad and bias is None:
+        raise ValueError(f"{name}: bias_grad needs a bias")
     dq = torch.empty_like(q)
-    _run("flash_attention_bwd_dq", flash_bwd_dq_cuda, q, k, v, do, lse,
-            delta, dq, causal=causal, scale=_scale(q, scale))
-    return dq
+    dbias = (torch.empty(q.shape[0] * q.shape[2], q.shape[1], k.shape[1],
+                         dtype=torch.float32, device=q.device)
+             if bias_grad else None)
+    _run(name, flash_bwd_dq_cuda, q, k, v, bias, seg_q, seg_k, do, lse,
+         delta, dq, dbias, causal=causal, scale=_scale(q, scale), seed=seed,
+         rate=rate, dbias=bias_grad)
+    return (dq, dbias) if bias_grad else dq
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None):
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
+                       bias=None, seg_q=None, seg_k=None, seed=0, rate=0.0):
     """Launch ``flash_attention_bwd_dkv``: (dk, dv) as
     :func:`flash_bwd_dkv_ref`."""
-    _check("flash_attention_bwd_dkv", q, k, v, causal, do, lse, delta)
-    _check_stats("flash_attention_bwd_dkv", q, do, lse, delta)
+    name = "flash_attention_bwd_dkv"
+    _check(name, q, k, v, causal, do, lse, delta, bias, seg_q, seg_k)
+    _check_stats(name, q, do, lse, delta)
+    _check_extras(name, q, k, bias, seg_q, seg_k, rate)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _run("flash_attention_bwd_dkv", flash_bwd_dkv_cuda, q, k, v, do, lse,
-            delta, dk, dv, causal=causal, scale=_scale(q, scale))
+    _run(name, flash_bwd_dkv_cuda, q, k, v, bias, seg_q, seg_k, do, lse,
+         delta, dk, dv, causal=causal, scale=_scale(q, scale), seed=seed,
+         rate=rate)
     return dk, dv
 
 
 for _w in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
     _w.launches = 0
+    _w.launches_by_body = {}
+
+
+def _sum_broadcast(dbias, bias_shape, b, h):
+    """dbias [b*h, sq, sk] f32 summed over the bias's broadcast axes into
+    ``bias_shape`` (the JAX ``_flash_bwd_rule``)."""
+    d = dbias.reshape(b, h, *dbias.shape[1:])
+    if bias_shape[1] == 1:
+        d = d.sum(1, keepdim=True)
+    if bias_shape[0] == 1:
+        d = d.sum(0, keepdim=True)
+    return d
 
 
 class FlashAttention(torch.autograd.Function):
     """The kernels as one differentiable op (the JAX package's
     ``custom_vjp`` ``_flash``): the forward launches
-    ``flash_attention_fwd`` and saves q, k, v, o and lse; the backward
-    computes ``delta = rowsum(o * do)`` in f32 and launches the dq and
-    dkv passes."""
+    ``flash_attention_fwd`` and saves q, k, v, o, lse, the f32 bias, the
+    segment ids and the dropout seed; the backward computes
+    ``delta = rowsum(o * do)`` in f32 and launches the dq pass (with its
+    dbias body when the bias needs a gradient) and the dkv pass. The bias
+    gradient is summed over the bias's broadcast axes in f32 and cast to
+    the bias's type. Arguments after ``scale``: bias ``[b|1, h|1, sq,
+    sk]`` (any float type; converted to contiguous f32 once, which is
+    exact), seg_q, seg_k (int32), the dropout seed and rate."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_fwd_cuda(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+    def forward(ctx, q, k, v, causal, scale, bias=None, seg_q=None,
+                seg_k=None, seed=0, rate=0.0):
+        bias32 = None if bias is None else bias.float().contiguous()
+        o, lse = flash_fwd_cuda(q, k, v, causal, scale, bias32, seg_q,
+                                seg_k, seed, rate)
+        ctx.save_for_backward(q, k, v, o, lse, bias32, seg_q, seg_k)
+        ctx.causal, ctx.scale, ctx.seed, ctx.rate = causal, scale, seed, rate
+        ctx.bias_meta = None if bias is None else (tuple(bias.shape),
+                                                   bias.dtype)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, bias32, seg_q, seg_k = ctx.saved_tensors
         do = do.contiguous()
         delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        extras = (bias32, seg_q, seg_k, ctx.seed, ctx.rate)
+        bias_grad = bias32 is not None and ctx.needs_input_grad[5]
         dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, ctx.causal,
-                               ctx.scale)
+                               ctx.scale, *extras, bias_grad=bias_grad)
+        dbias = None
+        if bias_grad:
+            dq, full = dq
+            shape, dtype = ctx.bias_meta
+            dbias = _sum_broadcast(full, shape, q.shape[0],
+                                   q.shape[2]).to(dtype)
         dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, ctx.causal,
-                                    ctx.scale)
-        return dq, dk, dv, None, None
+                                    ctx.scale, *extras)
+        return dq, dk, dv, None, None, dbias, None, None, None, None
 
 
 def flash_attention_cuda(q, k, v, causal=False, scale=None, bias=None,
-                         segment_ids=None, kv_segment_ids=None):
-    """Flash attention through the CUDA kernels, differentiable in q, k
-    and v. Raises ``NotImplementedError`` for bias and segment ids, which
-    are not ported; never falls back to a plain version."""
-    if bias is not None or segment_ids is not None \
-            or kv_segment_ids is not None:
-        raise NotImplementedError(
-            "flash attention's CUDA kernels: additive bias and segment ids "
-            "are not ported (ROADMAP B7)")
+                         segment_ids=None, kv_segment_ids=None,
+                         dropout_rate=0.0, dropout_seed=0):
+    """Flash attention through the CUDA kernels, differentiable in q, k, v
+    and the bias (a learned bias: the caller leaves it attached; a
+    constant one is detached). Never falls back to a plain version."""
+    seg_q = seg_k = None
+    if segment_ids is not None:
+        kv = kv_segment_ids if kv_segment_ids is not None else segment_ids
+        seg_q = segment_ids.to(torch.int32).contiguous()
+        seg_k = kv.to(torch.int32).contiguous()
+    rate = float(dropout_rate or 0.0)
     return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                v.contiguous(), bool(causal), scale)
+                                v.contiguous(), bool(causal), scale, bias,
+                                seg_q, seg_k, int(dropout_seed or 0), rate)

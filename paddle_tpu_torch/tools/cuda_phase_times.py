@@ -2,7 +2,7 @@
 """Per-phase device times of the PyTorch/CUDA port's fused decode kernels
 on one GPU.
 
-    python3 tools/cuda_phase_times.py
+    python3 paddle_tpu_torch/tools/cuda_phase_times.py
 
 Run from the repository root on a machine with one NVIDIA H100 and the
 CUDA toolkit. It builds copies of ``paddle_tpu_torch/csrc/
@@ -23,6 +23,14 @@ lengths, and serving-like lengths of 300-520 tokens):
   each kernel and change register allocation: compare phases with
   phases, not with the unstamped times.
 
+The copies keep the launchers' ``extern "C"`` signatures, and the
+wrappers run on them unchanged: :func:`use` loads a copy in place of the
+built library, and ``_build.c_fn`` binds each launcher with
+``fused_decode_block.CALLS``' argument codes (the codes the gate's
+ARG_MISMATCH rule holds against the source), with the wrapper's own plan
+and its copy's cooperative grid (the grid cache is emptied, so each copy's
+occupancy query answers for its own launch bounds).
+
 One JSON object per line; the last is ``{"ok": true}``. It imports
 nothing of JAX or of ``paddle_tpu``.
 """
@@ -33,14 +41,13 @@ import sys
 import tempfile
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-# pointers, ints, floats of each C launcher (ops/kernels/fused_decode_block)
-ARGS = {"decode_attn_block": (17, 11, 2), "decode_mlp_block": (7, 6, 1),
-        "decode_block_fused": (21, 11, 2)}
+#: the launchers the copies are driven through
+LAUNCHERS = ("decode_attn_block", "decode_mlp_block", "decode_block_fused")
 STAMP = ('\n  if (blockIdx.x == 0 && threadIdx.x == 0) {'
          ' unsigned long long t;'
          ' asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));'
@@ -112,17 +119,16 @@ def build(work, srcs):
 
 
 def use(fdb, lib):
-    """Point the wrappers at ``lib``'s launchers (argtypes as
-    ``fused_decode_block._lib_fn`` sets them)."""
-    lib.cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    for name, (p, i, f) in ARGS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * p + [ctypes.c_int] * i
-                       + [ctypes.c_float] * f + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fn.error_string = lib.cuda_error_string
-        fdb._fns[name] = fn
+    """Run the wrappers of ``fdb`` (``ops.kernels.fused_decode_block``) on
+    ``lib``'s launchers: ``lib`` takes the built library's place in
+    ``_build``, whose ``c_fn`` binds each launcher at its next call with
+    the codes of ``fdb.CALLS`` (through the wrapper's launch spec), and
+    the cooperative grids are asked of ``lib`` anew."""
+    _build = fdb._build
+    _build._LIBS["fused_decode_block"] = lib
+    for key in [k for k in _build._FNS if k[0] == "fused_decode_block"]:
+        del _build._FNS[key]
+    fdb._GRIDS.clear()
 
 
 def phases(fdb, lib, fn, reps=6):

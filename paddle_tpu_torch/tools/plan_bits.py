@@ -11,13 +11,18 @@ seed at the shapes of ``chip_smoke.py``'s kernel phases (LLaMA-7B widths,
 8 slots, a 128-row prefill chunk at position 512; fp, int8 and int4
 weights, int8 pools, a tensor-parallel shard's ``residual=False`` bodies;
 flash attention, the linear CE and the norms at smaller training shapes)
-and saves every output on the host. The second form compares two such
-files case by case: the number of elements that differ in their bits.
+and saves every output on the host; a tree whose flash kernels take
+the optional bodies (bias and dbias, segment ids, dropout, causal
+sq > sk) adds a case of each. The second form compares two such files
+case by case: the number of elements that differ in their bits (cases
+only the second file has are listed as new, not failed).
 Two trees whose kernels run the same tiles in the same order give 0
 everywhere. One JSON object per line; ``--compare`` exits 1 if any case
-differs or is missing. It imports nothing of JAX or of ``paddle_tpu``.
+differs or is missing from the second file. It imports nothing of JAX or
+of ``paddle_tpu``.
 """
 import argparse
+import inspect
 import json
 import sys
 import time
@@ -152,6 +157,37 @@ def _cases(torch, k):
         qf, kf, vf, do, lse, delta, True)))
     out.append(("flash_attention_bwd_dkv", lambda: fa.flash_bwd_dkv_cuda(
         qf, kf, vf, do, lse, delta, True)))
+    # the optional bodies (a tree without them has no such cases): a
+    # [1, 8] bias with its gradient, segment ids, dropout over GQA 4:1,
+    # causal sq 1024 > sk 512; their inputs from a generator of their own,
+    # so that every other case's inputs are the parent tree's
+    if "rate" in inspect.signature(fa.flash_fwd_cuda).parameters:
+        gb = torch.Generator(device="cuda").manual_seed(99)
+        seg = (torch.arange(1024, device="cuda") // 300).to(
+            torch.int32)[None].contiguous()
+        kg = torch.randn(1, 1024, 2, 128, generator=gb, device="cuda").to(bf)
+        bias = torch.randn(1, 8, 1024, 1024, generator=gb, device="cuda")
+        bodies = {
+            "bias": (qf, kf, vf, {"bias": bias}),
+            "seg": (qf, kf, vf, {"seg_q": seg, "seg_k": seg}),
+            "dropout": (qf, kg, kg, {"seed": 0xDEADBEEF, "rate": 0.1}),
+            "causal_sq_gt_sk": (qf, kf[:, :512].contiguous(),
+                                vf[:, :512].contiguous(), {})}
+        for cls, (qb, kb, vb, kw) in bodies.items():
+            ob, lb = fa.flash_fwd_cuda(qb, kb, vb, True, None, **kw)
+            db = (ob.float() * do.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            grad = cls == "bias"
+            out += [
+                (f"flash_attention_fwd[{cls}]",
+                 lambda a=(qb, kb, vb), kw=kw: fa.flash_fwd_cuda(
+                     *a, True, None, **kw)),
+                (f"flash_attention_bwd_dq[{cls}]",
+                 lambda a=(qb, kb, vb, do, lb, db), kw=kw, g=grad:
+                 fa.flash_bwd_dq_cuda(*a, True, None, **kw, bias_grad=g)),
+                (f"flash_attention_bwd_dkv[{cls}]",
+                 lambda a=(qb, kb, vb, do, lb, db), kw=kw:
+                 fa.flash_bwd_dkv_cuda(*a, True, None, **kw))]
     ft = k.fused_train
     for dt, T, Dc, V in ((bf, 1024, 1024, 8000), (f32, 256, 512, 1003)):
         x2, head = rn(T, Dc, dt=dt), rn(Dc, V, dt=dt, std=0.02)
@@ -221,6 +257,10 @@ def compare(a, b):
     ra, rb = torch.load(a), torch.load(b)
     bad = 0
     for name in sorted(set(ra) | set(rb)):
+        if name not in ra:
+            # a body the first (parent) tree does not have
+            print(json.dumps({"case": name, "new": True}))
+            continue
         if name not in ra or name not in rb:
             print(json.dumps({"case": name, "missing": True}))
             bad += 1

@@ -132,6 +132,83 @@ def test_paged_reads_are_exempt_like_scalar_prefetch():
     assert check_launch(spec) == []
 
 
+def _drop_tile(spec, operand, drop):
+    """``spec`` with ``operand``'s reads moved off the tiles ``drop(coords)``
+    picks (to the tile coordinates it returns)."""
+    def doctor(acc):
+        if acc.operand != operand:
+            return acc
+        return dataclasses.replace(
+            acc, index_map=lambda i, f=acc.index_map: drop(
+                tuple(np.asarray(c) for c in f(i))))
+    return dataclasses.replace(spec, phases=tuple(
+        dataclasses.replace(ph, reads=tuple(doctor(a) for a in ph.reads))
+        for ph in spec.phases))
+
+
+@pytest.mark.parametrize("name", ["flash_attention_fwd",
+                                  "flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv"])
+def test_masked_bias_must_cover_the_seen_tiles(name):
+    """The bias under the causal mask is exempt past the diagonal only: a
+    plan that skips a diagonal bias tile (one some query sees) drops
+    work the function needs and fires GRID_FLOOR_DROP."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_spec
+    spec = flash_spec(name, 2, 256, 256, 4, 2, 64, "float32", True,
+                      bias=(1, 4))
+    assert check_launch(spec) == []
+
+    def drop(c):
+        bb, hh, qt, kt = c
+        # the diagonal tile of query tile 2 is read as its neighbour
+        return bb, hh, qt, np.where((qt == 2) & (kt == 2), 1, kt)
+    bad = check_launch(_drop_tile(spec, "bias", drop))
+    assert [(f.code, f.site) for f in bad] == [
+        ("GRID_FLOOR_DROP", f"{name}/bias")]
+    assert bad[0].detail["first_missing"] == [0, 0, 2, 2]
+
+
+def test_masked_rows_must_cover_the_rows_that_see_a_key():
+    """Causal with sq > sk: the dkv pass need not read the query rows that
+    see no key, but must read every query tile that sees one."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_spec
+    spec = flash_spec("flash_attention_bwd_dkv", 1, 300, 130, 4, 2, 64,
+                      "float32", True, seg=True)
+    assert check_launch(spec) == []
+    last = -(-300 // 64) - 1
+
+    def drop(c):
+        bb, qt, hh, z = c
+        return bb, np.where(qt == last, last - 1, qt), hh, z
+    bad = check_launch(_drop_tile(spec, "q", drop))
+    assert [(f.code, f.site) for f in bad] == [
+        ("GRID_FLOOR_DROP", "flash_attention_bwd_dkv/q")]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bound_counts_the_pairs_of_one_segment(causal):
+    """Given a launch's segment ids, the operations are the pairs of one
+    id (under the causal mask), counted by brute force here."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_spec
+    b, s, h, d = 2, 96, 4, 32
+    rng = np.random.default_rng(4)
+    seg = np.sort(rng.integers(0, 5, (b, s)), axis=1).astype(np.int32)
+    seg[:, -7:] = -1
+    spec = flash_spec("flash_attention_fwd", b, s, s, h, h, d, "bfloat16",
+                      causal, seg=True)
+    pairs = sum(int(seg[bi, r] == seg[bi, c]) for bi in range(b)
+                for r in range(s) for c in range(s)
+                if not causal or c <= r)
+    want = 4.0 * h * d * pairs
+    assert kc.needed_flops(spec, segments=(seg, seg)) == want
+    assert bound(spec, segments=(torch.as_tensor(seg),
+                                 torch.as_tensor(seg)))[3] == want
+    # without the ids: every (causal) pair, as the modeled figure
+    assert kc.needed_flops(spec) > want
+    with pytest.raises(ValueError):
+        kc.needed_flops(spec, [1], (seg, seg))
+
+
 # -- the regression specimen --------------------------------------------
 
 _DEMO_SITES = {"in2": "wg", "in3": "wu", "in4": "wd"}

@@ -1,0 +1,75 @@
+"""PyTorch/CUDA port, the measurement scripts of ``paddle_tpu_torch/tools``
+on the CPU: ``cuda_phase_times.py`` binds the fused decode launchers with
+the codes their ``extern "C"`` declarations take, in the committed source
+and in each instrumented copy it builds (the gate's ARG_MISMATCH check,
+applied to the tool), and its ``use`` hands the copies to the wrappers
+through ``_build.c_fn``."""
+import ctypes
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+from paddle_tpu_torch.analysis import kernel_rules
+from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+
+pytestmark = pytest.mark.torch_port
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _tool():
+    path = ROOT / "paddle_tpu_torch" / "tools" / "cuda_phase_times.py"
+    spec = importlib.util.spec_from_file_location("cuda_phase_times", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_phase_times_bindings_match_every_copy():
+    tool = _tool()
+    src = (_build.CSRC / "fused_decode_block.cu").read_text()
+    declared = kernel_rules.c_launchers(fdb._SOURCE)
+    copies = tool.variants(src)
+    assert set(copies) == {"lb1", "lb2", "lb1_stamped", "lb2_stamped"}
+    for name in tool.LAUNCHERS:
+        assert fdb.CALLS[name] == declared[name], name
+        for label, text in copies.items():
+            assert kernel_rules.launchers_in(text)[name] == \
+                fdb.CALLS[name], (label, name)
+    assert "read_stamps" in kernel_rules.launchers_in(
+        copies["lb1_stamped"])
+    assert "__launch_bounds__(kThreads, 2)\ndecode_block_fused_kernel" \
+        in copies["lb2"]
+
+
+def test_phase_times_use_rebinds_through_c_fn(monkeypatch):
+    """``use`` puts a copy in the built library's place and forgets the
+    old bindings and grids, so ``_build.c_fn`` binds the copy's launchers
+    with ``CALLS``' codes."""
+    tool = _tool()
+
+    class Fn:
+        pass
+
+    class Lib:
+        cuda_error_string = Fn()
+
+    lib = Lib()
+    for name in tool.LAUNCHERS:
+        setattr(lib, name, Fn())
+    monkeypatch.setattr(_build, "_LIBS", {"fused_decode_block": object()})
+    monkeypatch.setattr(_build, "_FNS", {("fused_decode_block", "x", ()):
+                                         object(), ("flash_attention", "y",
+                                                    ()): object()})
+    monkeypatch.setattr(fdb, "_GRIDS", {"cached": 264})
+    tool.use(fdb, lib)
+    assert _build._LIBS["fused_decode_block"] is lib
+    assert list(_build._FNS) == [("flash_attention", "y", ())]
+    assert fdb._GRIDS == {}
+    for name in tool.LAUNCHERS:
+        fn = _build.c_fn("fused_decode_block", name, fdb.CALLS[name])
+        assert fn is getattr(lib, name)
+        assert fn.argtypes == [_build.CTYPES[c] for c in fdb.CALLS[name]]
+        assert fn.restype is ctypes.c_int
