@@ -331,6 +331,23 @@ def bound(launch, seq_lens=None, segments=None):
     return model(specs[0], seq_lens, segments)
 
 
+def launch_plan(launch):
+    """The plan the launch ``launch()`` makes runs with (its spec's
+    ``plan``: tile rows, threads, shared memory, "mma" or "simt"), and for
+    a flash pass with segment ids the (query tile, key tile) pairs it
+    computes against those the causal mask alone leaves."""
+    import torch
+    from paddle_tpu_torch.ops.kernels._launch import capture_kernel_launches
+    with capture_kernel_launches() as specs:
+        launch()
+    torch.cuda.synchronize()
+    plan = dict(specs[0].plan)
+    for key in ("pairs", "pairs_causal"):
+        if key in specs[0].params:
+            plan[key] = specs[0].params[key]
+    return plan
+
+
 def ulp_close(got, want, rel):
     """|got - want| <= rel * max(|got|, |want|), in f32 (one ulp of the
     working type for rel = its machine epsilon), plus 1e-6 absolute for
@@ -2236,7 +2253,9 @@ def _kernel_group(name):
     if "flash" in name:
         for part, op in (("fwd_kernel", "flash_attention_fwd"),
                          ("dkv_kernel", "flash_attention_bwd_dkv"),
-                         ("dq_kernel", "flash_attention_bwd_dq")):
+                         ("dkv_tc_kernel", "flash_attention_bwd_dkv"),
+                         ("dq_kernel", "flash_attention_bwd_dq"),
+                         ("dq_tc_kernel", "flash_attention_bwd_dq")):
             if part in name:
                 return op
     if any(s in name.lower() for s in ("gemm", "gemv", "cutlass", "xmma",
@@ -3192,7 +3211,7 @@ def flash_phase(gpu):
             "dtype": "bfloat16", "max_abs_err": max_err[op],
             "ms": cold_ms(kernel), "plain_ms": cold_ms(plain_fn),
             "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "operations": ops,
+            "bytes": nbytes, "operations": ops, "plan": launch_plan(kernel),
             "library_ms": lib,
             "library": ("torch.nn.functional.scaled_dot_product_attention"
                         + (" forward" if op == "flash_attention_fwd" else
@@ -3200,7 +3219,8 @@ def flash_phase(gpu):
             "ok": True})
     emit({"phase": "flash", "gpu": gpu, "cases": cases, "sdpa": sdpa,
           "timed": {r["name"]: {k: r[k] for k in ("ms", "plain_ms",
-                                                  "bound_ms", "library_ms")}
+                                                  "bound_ms", "library_ms",
+                                                  "plan")}
                     for r in rows}})
     return rows
 
@@ -3411,7 +3431,8 @@ def flash_bodies_phase(gpu):
                 "flag_cost": ms / flagless if flagless else None,
                 "plain_ms": cold_ms(plain_fn, iters=3, warmup=1),
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                "operations": ops_n, "library_ms": lib_ms,
+                "operations": ops_n, "plan": launch_plan(kernel),
+                "library_ms": lib_ms,
                 "library": lib_name, "ok": True})
             torch.cuda.empty_cache()
     del kept
@@ -3419,7 +3440,7 @@ def flash_bodies_phase(gpu):
     emit({"phase": "flash_bodies", "gpu": gpu, "cases": cases,
           "timed": {r["name"]: {kk: r[kk] for kk in (
               "ms", "flagless_ms", "flag_cost", "plain_ms", "bound_ms",
-              "library_ms")} for r in rows}})
+              "library_ms", "plan")} for r in rows}})
     return rows
 
 
@@ -3480,7 +3501,10 @@ def flash_keep_readout_phase(gpu):
     dO = I the dkv kernel's dV[k, c] is inv P times the number of query
     heads of the group whose keep(c, k) holds (the query head rebuilt from
     the K/V head's grid). Both against the torch ``dropout_keep``, bit for
-    bit."""
+    bit. The dV count is read out of the bf16 dkv pass too (the
+    tensor-core pass, whose lanes hold the scores in mma.sync's fragment
+    layout): there each count times inv P is rounded to bf16, 2^-9 of it,
+    far from a neighbouring count."""
     import torch
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     b, h, kvh, n, rate = 2, 4, 1, 128, 0.1
@@ -3502,15 +3526,26 @@ def flash_keep_readout_phase(gpu):
     delta = (o * do).sum(-1).transpose(1, 2).contiguous()
     _, dv = kfa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, False, None,
                                    **kw)
-    p = torch.exp(-lse[0, 0, 0])          # the kernels' P = 1 / 128
-    count = torch.round(dv[:, :, 0, :] / (inv * p))        # [b, key, c]
     want_count = keep.sum(1).transpose(1, 2).float()       # [b, key, c]
-    dkv_equal = bool(torch.equal(count, want_count))
+
+    def count_equal(dv, lse):
+        p = torch.exp(-lse[0, 0, 0])          # the kernels' P = 1 / 128
+        count = torch.round(dv[:, :, 0, :].float() / (inv * p))
+        return bool(torch.equal(count, want_count))
+    dkv_equal = count_equal(dv, lse)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+    o16, lse16 = kfa.flash_fwd_cuda(*bf[:3], False, None, **kw)
+    delta16 = (o16.float() * bf[3].float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    _, dv16 = kfa.flash_bwd_dkv_cuda(*bf, lse16, delta16, False, None,
+                                     **kw)
+    bf16_equal = count_equal(dv16, lse16)
     res = {"phase": "flash_keep_readout", "gpu": gpu, "b": b, "h": h,
            "kvh": kvh, "n": n, "rate": rate, "seed": FLASH_DROPOUT_SEED,
            "kept_share": float(keep.float().mean()),
            "fwd_keep_equal": fwd_equal, "dkv_keep_count_equal": dkv_equal,
-           "ok": fwd_equal and dkv_equal}
+           "dkv_bf16_keep_count_equal": bf16_equal,
+           "ok": fwd_equal and dkv_equal and bf16_equal}
     emit(res)
     if not res["ok"]:
         raise AssertionError(f"keep mask read out of the kernels: {res}")
@@ -4439,6 +4474,8 @@ PTXAS_KERNELS = {
                             "prefill_attn_block"},
     "flash_attention": {"dkv_kernel": "flash_attention_bwd_dkv",
                         "dq_kernel": "flash_attention_bwd_dq",
+                        "dkv_tc_kernel": "flash_attention_bwd_dkv",
+                        "dq_tc_kernel": "flash_attention_bwd_dq",
                         "fwd_kernel": "flash_attention_fwd"},
     "linear_ce": {"ce_fwd_kernel": "linear_ce_fwd",
                   "ce_fwd_combine": "linear_ce_fwd",

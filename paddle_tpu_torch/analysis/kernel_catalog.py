@@ -29,7 +29,9 @@ pairs of one segment, live lengths), the operations half of
 :func:`build_demo_kernel_regression` audits the deliberate regression
 specimen (``demo_prefix_mlp_block``: decode_mlp_block's kernel under a
 floor-divided tile count that drops the last intermediate columns), never
-part of the default catalog.
+part of the default catalog; :func:`build_segment_skip_regression` the
+flash backward passes' segment-tile skip with a test that drops a tile
+two segments share (their plans given the specimen's ids), likewise.
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ __all__ = ["KernelCase", "kernel_cases", "capture_case", "audit_case",
            "audit_kernels", "build_demo_kernel_regression",
            "ALL_KERNEL_NAMES", "KERNEL_CASE_NAMES", "FLOP_FORMULAS",
            "modeled_flops", "needed_flops", "flop_formula_findings",
-           "DEMO_SHAPE"]
+           "DEMO_SHAPE", "SEGMENT_SHAPE", "capture_segment_skip",
+           "build_segment_skip_regression"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -750,3 +753,58 @@ def build_demo_kernel_regression() -> AuditReport:
     ``--demo-regression`` exits 2)."""
     return audit_specs(capture_demo(), "demo_prefix_mlp_block@tiny",
                        ("demo_prefix_mlp_block",))
+
+
+# -- the segment-skip specimen ---------------------------------------------
+
+#: the segment-skip specimen: one row of 512 packed tokens at tiny widths
+#: (h 4 over kv 2, d 64, bf16, causal), documents starting at 0, 100,
+#: 230, 300 and 400, padding (id -1) from 480. Key tile 1 (keys 64-127)
+#: and query tile 1 hold two segments each.
+SEGMENT_SHAPE = {"b": 1, "s": 512, "h": 4, "kvh": 2, "d": 64,
+                 "starts": (0, 100, 230, 300, 400), "pad": 480,
+                 "shared_tile": 1}
+
+
+def segment_specimen_ids():
+    """[1, 512] int32 ids of the specimen."""
+    s = SEGMENT_SHAPE["s"]
+    ids = np.searchsorted(np.asarray(SEGMENT_SHAPE["starts"]), np.arange(s),
+                          side="right") - 1
+    ids[SEGMENT_SHAPE["pad"]:] = -1
+    return ids[None].astype(np.int32)
+
+
+def capture_segment_skip(broken=False):
+    """The plans of the bf16 dq and dkv passes at the specimen's ids: the
+    pairs the kernels' id-range test keeps or, ``broken``, a test that
+    also drops every pair of the tile two segments share (key tile 1 in
+    the dq pass, query tile 1 in the dkv pass)."""
+    from ..ops.kernels import flash_attention as fa
+    sh = SEGMENT_SHAPE
+    ids = segment_specimen_ids()
+    specs = []
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        kept = fa.segment_tiles_kept(ids, ids)
+        if broken:
+            t = sh["shared_tile"]
+            if name == "flash_attention_bwd_dq":
+                kept[:, :, t] = False
+            else:
+                kept[:, t, :] = False
+        tiles = fa.SegTiles.of(ids, ids, True, kept=kept)
+        specs.append(fa.flash_spec(name, sh["b"], sh["s"], sh["s"], sh["h"],
+                                   sh["kvh"], sh["d"], "bfloat16", True,
+                                   seg=tiles))
+    return specs
+
+
+def build_segment_skip_regression() -> AuditReport:
+    """The audit of a segment-tile skip that drops a tile two segments
+    share (never part of the default catalog): the dq pass never reads
+    key tile 1 (k, v, seg_k) and the dkv pass never reads query tile 1
+    (q, do, lse, delta, seg_q), though pairs of one id need both. The gate
+    must report GRID_FLOOR_DROP on those operands."""
+    return audit_specs(capture_segment_skip(broken=True),
+                       "segment_skip@tiny",
+                       ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))

@@ -48,35 +48,64 @@
 // What bounds them on the H100: operations. At the training shape (b 2,
 // s 2048, h 32, d 128, bf16, causal) the forward does 68.7 GFLOP against
 // 134 MB and the two backward passes 240 GFLOP (S, dP, dQ; S, dP, dV, dK):
-// 0.069 ms and 0.243 ms at the bf16 tensor-core peak. These kernels run
-// every product on the CUDA cores in f32 FMAs (the f32 path must not round
-// through TF32, and the dV product takes an f32 P), so they are bound by
-// the CUDA cores' f32 rate and by shared-memory issue well before that;
-// their times stand beside those bounds in PERF.md.
+// 0.069 ms and 0.243 ms at the bf16 tensor-core peak.
 //
-// Design. The TPU kernels carry m/l/acc (forward), dq (dq pass) and dk/dv
-// (dkv pass) across a sequential grid axis in VMEM scratch. Blocks on the
-// GPU run in no order, so each carried sum is a loop inside one block:
-//   - forward and dq pass: a block per (64-row query tile, b*h head) walks
-//     the key tiles from 0 up to the causal diagonal (the TPU index map's
-//     causal clamp becomes this loop's bound);
-//   - dkv pass: a block per (64-key tile, b*kvh head) walks the query
-//     heads of its group and, for each, the query tiles from the causal
-//     diagonal on.
-// No atomics: two launches on the same inputs give the same bits. Tiles
-// live in shared memory as f32 rows with an odd stride (d + 1), so both a
-// row walk (S = Q K^T) and a column walk (P V, dS K) are free of bank
-// conflicts; 256 threads own 4 x 4 of each 64 x 64 score tile and 4 rows
-// x d/16 columns of each output tile. Ragged tails (sq, sk not multiples
-// of 64) are masked at the tile edge; rows past sq are neither read nor
-// written.
-// Not done yet: tensor-core (mma/wgmma) products for bf16 and a pipelined
-// (cp.async/TMA) tile load; the kernels reload their tiles unpipelined.
+// The f32 instances (and the forward in both types) run every product on
+// the CUDA cores in f32 FMAs: the f32 path must not round through TF32.
+// A block per (64-row query tile, b*h head) (forward, dq) or per (64-key
+// tile, b*kvh head) (dkv) walks the other side's tiles: the TPU kernels
+// carry m/l/acc, dq and dk/dv across a sequential grid axis in VMEM
+// scratch, and blocks on the GPU run in no order, so each carried sum is
+// a loop inside one block (the TPU index map's causal clamp becomes the
+// loop's bound). Tiles live in shared memory as f32 rows with an odd
+// stride (d + 1), so row and column walks are free of bank conflicts; 256
+// threads own 4 x 4 of each 64 x 64 score tile and 4 rows x d/16 columns
+// of each output tile. They are bound by shared-memory issue (8 operand
+// loads for every 16 FMAs), at about a quarter of the 67 TFLOP/s f32 rate.
+//
+// The bf16 backward passes (dq_tc_kernel, dkv_tc_kernel, after FA-2) run
+// every product on the tensor cores: mma.sync m16n8k16 bf16 x bf16 into
+// f32, at the JAX kernels' rounding points. S = Q K^T and dP = dO V^T take
+// bf16 operands (dO and V are bf16 values, so the JAX kernel's f32 dP
+// has the same products; each k-step's 16 are summed from zero and added
+// in f32, mma2_rn, since dP - delta cancels on rows that see few keys and
+// the tensor core's own running sum truncates); dQ = bf16(dS) K and dK = bf16(dS)^T Q cast dS as JAX
+// does; dV = P^T dO takes an f32 P in JAX, so P is split into hi = bf16(P)
+// and lo = bf16(P - hi) and both products go into one f32 sum (what
+// remains is under 2^-16 of P, far below dV's own bf16 rounding). Plan:
+// 128 threads, 4 warps of 16 tile rows each, 64 x 64 score tiles; every
+// operand tile is a bf16 [64][D + 8] tile in shared memory (8 columns of
+// padding: ldmatrix conflict-free), copied by 16-byte cp.async into one of
+// two stages while the tensor cores work on the other; ragged rows and
+// columns past d are zero-filled by the copy's source size. D is 64 or 128
+// (the instance that holds d; columns past d are zeros, never written).
+// A warp's score tile stays in registers from product to product (a C
+// fragment pair is an A fragment): dq holds S, dP (16 x 64) and dQ (16 x
+// D) in f32; dkv computes the transposed scores 32 query rows at a time so
+// that dK and dV (2 x 16 x D) stay in registers across the whole walk.
+// Shared memory at D = 128: dq 104,448 and dkv 105,472 bytes, two blocks
+// an SM (8 warps, __launch_bounds__(128, 2)); a staged bias (two [64][72]
+// or [64][68] f32 tiles beside K/V or Q) leaves one. ptxas -v (sm_90a),
+// registers a thread without and with the bodies, no spills: dq 212 / 242
+// and dkv 246 / 254 at D = 128, dq 180 / 240 and dkv 170 / 201 at D = 64;
+// the S/dP depth loop runs one step at a time (unrolled, ptxas hoisted the
+// next steps' fragments and spilled), and the dkv body instance at D = 128
+// scores 16 query rows a sub-step instead of 32 for the same reason. The bias tile is copied with its operand
+// tile (no device read a score); dbias is written from the fragments, zeros
+// for every tile the pass does not compute. Segment ids skip every (query
+// tile, key tile) pair whose id ranges do not meet (id_range: exact, since
+// P is 0 on such a pair; conservative, since it tests [min, max] only).
+// Not done yet: wgmma (warpgroup products from shared memory), TMA copies
+// and warp specialisation; the forward's tensor-core redesign and its
+// segment skip.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
+#include "mma_sync.cuh"
 #include "online_softmax.cuh"
 
 namespace paddle_tpu_torch {
@@ -617,6 +646,658 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward, bf16: the dq and dkv passes on the tensor cores
+// ---------------------------------------------------------------------------
+// 4 warps; each owns 16 rows of the block's tile (query rows in the dq
+// pass, keys in the dkv pass) and every product's result for them, so a
+// score tile's probabilities and dS pass from one product to the next in
+// registers (mma_sync.cuh: a C fragment pair is an A fragment).
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 128;
+constexpr int kLdBiasQ = kB + 8;   // dq: bias [query][key], float2 reads
+constexpr int kLdBiasK = kB + 4;   // dkv: bias [query][key], column reads
+
+// The instance a head dim runs: 64 or 128 columns (past d: zeros)
+inline int tc_dim(int d) { return d <= 64 ? 64 : 128; }
+// Bytes of one staged [kB][D + 8] bf16 tile (8 columns of padding: the 8
+// rows of an ldmatrix phase fall on distinct banks)
+__host__ __device__ constexpr size_t tc_tile(int D) {
+  return (size_t)kB * (D + 8) * sizeof(bf16);
+}
+// dq: Q, dO, two stages of K and V; the bias and the key ids, two stages
+inline size_t dq_tc_smem(int D, bool bias, bool seg) {
+  return 6 * tc_tile(D) + (bias ? 2 * kB * kLdBiasQ * sizeof(float) : 0) +
+         (seg ? 2 * kB * sizeof(int) : 0);
+}
+// dkv: K, V, two stages of Q, dO, lse and delta; the bias and the query
+// ids, two stages
+inline size_t dkv_tc_smem(int D, bool bias, bool seg) {
+  return 6 * tc_tile(D) + 4 * kB * sizeof(float) +
+         (bias ? 2 * kB * kLdBiasK * sizeof(float) : 0) +
+         (seg ? 2 * kB * sizeof(int) : 0);
+}
+
+// c0 += a b[0..1], c1 += a b[2..3]: the two n8 tiles of one x4 B load
+__device__ __forceinline__ void mma2(float (&c0)[4], float (&c1)[4],
+                                     const uint32_t (&a)[4],
+                                     const uint32_t (&b)[4]) {
+  const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+  mma_bf16(c0, a, b0);
+  mma_bf16(c1, a, b1);
+}
+
+// c0 += a b[0..1], c1 += a b[2..3] as products summed from zero and then
+// added in f32 (round to nearest): the tensor core aligns its sum to the
+// accumulator's magnitude and truncates, and dS = P (dP - delta) cancels
+// on rows that see few keys, so dP takes its k-steps' partial sums this
+// way to stay as close to an f32 dot as the plain version's.
+__device__ __forceinline__ void mma2_rn(float (&c0)[4], float (&c1)[4],
+                                        const uint32_t (&a)[4],
+                                        const uint32_t (&b)[4]) {
+  float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+  mma2(t0, t1, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    c0[e] += t0[e];
+    c1[e] += t1[e];
+  }
+}
+
+// The A fragment over the 16 columns of C tiles c0, c1 in bf16
+__device__ __forceinline__ void a_frag(const float (&c0)[4],
+                                       const float (&c1)[4],
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// The same for an f32 P, split: hi = bf16(P), lo = bf16(P - hi) (the
+// difference is exact in f32); hi + lo holds P to 2^-16 of itself, so two
+// bf16 products into one f32 sum take the f32 P as the JAX kernel does.
+__device__ __forceinline__ void a_frag_split(const float (&c0)[4],
+                                             const float (&c1)[4],
+                                             uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  const float e[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 hv = __floats2bfloat162_rn(e[2 * j], e[2 * j + 1]);
+    hi[j] = *reinterpret_cast<const uint32_t*>(&hv);
+    lo[j] = pack_bf16(e[2 * j] - __low2float(hv),
+                      e[2 * j + 1] - __high2float(hv));
+  }
+}
+
+// Rows [row0, row0 + kB) of one head of a [batch, rows, heads, d] bf16
+// tensor into a [kB][D + 8] tile by 16-byte cp.async; rows at or past n
+// and columns at or past d are zero-filled (the copy's source size 0).
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst,
+                                           const bf16* __restrict__ base,
+                                           size_t row_stride, int row0, int n,
+                                           int d) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < kB * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = row0 + r < n && c < d;
+    cp_async16(dst + r * (D + 8) + c,
+               ok ? base + (size_t)(row0 + r) * row_stride + c : base, ok);
+  }
+}
+
+// Entries [p0, p0 + kB) of a row of n 4-byte values (a statistic, ids);
+// zeros past n.
+template <typename T>
+__device__ __forceinline__ void stage_vec(T* dst, const T* __restrict__ src,
+                                          int p0, int n) {
+  for (int i = threadIdx.x; i < kB; i += kTcThreads) {
+    const bool ok = p0 + i < n;
+    cp_async4(dst + i, ok ? src + p0 + i : src, ok);
+  }
+}
+
+// The bias tile (query rows [r0, r0 + kB), keys [c0, c0 + kB)) of one
+// [sq, sk] f32 plane into a [kB][LDB] tile: 16-byte copies when the rows
+// allow them (sk % 4 == 0), else 4-byte ones; zeros outside the plane.
+template <int LDB>
+__device__ __forceinline__ void stage_bias(float* dst,
+                                           const float* __restrict__ bp,
+                                           int r0, int c0, int sq, int sk) {
+  if ((sk & 3) == 0) {
+    for (int i = threadIdx.x; i < kB * kB / 4; i += kTcThreads) {
+      const int r = i / (kB / 4), c = (i % (kB / 4)) * 4;
+      const bool ok = r0 + r < sq && c0 + c < sk;
+      cp_async16(dst + r * LDB + c,
+                 ok ? bp + (size_t)(r0 + r) * sk + c0 + c : bp, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kB * kB; i += kTcThreads) {
+      const int r = i / kB, c = i % kB;
+      const bool ok = r0 + r < sq && c0 + c < sk;
+      cp_async4(dst + r * LDB + c,
+                ok ? bp + (size_t)(r0 + r) * sk + c0 + c : bp, ok);
+    }
+  }
+}
+
+// [min, max] of the ids [p0, min(p0 + kB, n)) of a row, reduced over the
+// warp (all 32 lanes call it). Two tiles whose ranges do not meet hold no
+// (query, key) pair of one id, so every P of the pair is 0 and the pair
+// adds nothing: the segment-tile skip. The test is conservative: ids
+// interleaved across a tile keep it.
+__device__ __forceinline__ int2 id_range(const int* __restrict__ ids, int p0,
+                                         int n) {
+  int lo = 0x7fffffff, hi = -0x7fffffff - 1;
+  for (int i = threadIdx.x & 31; i < kB; i += 32) {
+    if (p0 + i < n) {
+      const int s = ids[p0 + i];
+      lo = min(lo, s);
+      hi = max(hi, s);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  return make_int2(lo, hi);
+}
+__device__ __forceinline__ bool ranges_meet(int2 a, int2 b) {
+  return a.y >= b.x && b.y >= a.x;
+}
+
+// One score element, probs_and_ds's arithmetic, with every choice a
+// select (the optional bodies' loads and hashes run beforehand, each in a
+// loop of its own under one uniform branch, so the 16-32 elements of a
+// lane interleave). ``s``: the query row dotted with the key (kX: already
+// scaled, the bias added); ``dpv``: dO V^T; ``ok``: the key is seen;
+// ``keep``: dropout keeps it (``drop``: rate > 0). Returns P as the dV
+// product takes it (dropped) in p, dS in ds and P (dP - delta) (dbias)
+// in dsb.
+template <bool kX>
+__device__ __forceinline__ void score(float s, float dpv, float lse,
+                                      float dl, float scale, bool ok,
+                                      bool drop, bool keep, float inv,
+                                      float& p, float& ds, float& dsb) {
+  if (!kX) {
+    p = ok ? expf(s * scale - lse) : 0.f;
+    ds = p * (dpv - dl) * scale;
+    dsb = 0.f;
+    return;
+  }
+  // a select, never a 0/1 multiply: lse is -inf on a row that sees no key
+  const float pr = ok ? expf(s - lse) : 0.f;
+  dpv = drop ? (keep ? __fmul_rn(dpv, inv) : 0.f) : dpv;
+  p = drop ? (keep ? __fmul_rn(pr, inv) : 0.f) : pr;
+  dsb = pr * (dpv - dl);
+  ds = dsb * scale;
+}
+
+// Zeros into the dbias tile (query rows [q0, q0 + kB), keys [k0, k0 +
+// kB)) of a [sq, sk] plane: a pair the dq pass does not compute.
+__device__ __forceinline__ void zero_dbias(float* db, int q0, int k0, int sq,
+                                           int sk) {
+  for (int i = threadIdx.x; i < kB * kB; i += kTcThreads) {
+    const int r = q0 + i / kB, c = k0 + i % kB;
+    if (r < sq && c < sk) db[(size_t)r * sk + c] = 0.f;
+  }
+}
+
+// dq pass: a block per (query tile, b*h head), the last query tiles (the
+// most key tiles under the causal mask) first. Q and dO are staged once;
+// the key tiles it computes stream through two stages of K, V (and the
+// bias and key ids) by cp.async, the next one copied while the current
+// one is multiplied. Warp w owns query rows 16w .. 16w + 15: S = Q K^T
+// and dP = dO V^T (ldmatrix from the row-major tiles), P and dS in
+// registers, dQ += bf16(dS) K (dS's C fragments as the A operand, K read
+// transposed by ldmatrix.trans), dQ in f32 registers to the end.
+template <int D, bool kX>
+__global__ void __launch_bounds__(kTcThreads, 2)
+dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dq, int h, int kvh, int sq, int sk, int d,
+             float scale, int causal, const Extras x) {
+  constexpr int LD = D + 8, KS = D / 16, NT = D / 8;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;
+  const int bh = blockIdx.y;
+  const int bi = bh / h, hi = bh - bi * h;
+  const int kvi = hi / (h / kvh);
+  const int off = sk - sq;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_tc);
+  bf16* do_s = q_s + kB * LD;
+  bf16* k_s = do_s + kB * LD;      // [2][kB][LD]
+  bf16* v_s = k_s + 2 * kB * LD;   // [2][kB][LD]
+  float* bias_s = reinterpret_cast<float*>(v_s + 2 * kB * LD);
+  const float* bp = kX ? bias_plane(x, bi, hi, sq, sk) : nullptr;
+  int* segk_s = reinterpret_cast<int*>(bias_s + (bp ? 2 * kB * kLdBiasQ : 0));
+  const bool seg = kX && x.seg_q != nullptr;
+  const int* sgk = seg ? x.seg_k + (size_t)bi * sk : nullptr;
+  float* db = kX && x.dbias ? x.dbias + (size_t)bh * sq * sk : nullptr;
+
+  const size_t qrs = (size_t)h * d, krs = (size_t)kvh * d;
+  const size_t qhead = ((size_t)bi * sq * h + hi) * d;
+  const bf16* kb = k + ((size_t)bi * sk * kvh + kvi) * d;
+  const bf16* vb = v + ((size_t)bi * sk * kvh + kvi) * d;
+
+  // the lane's two query rows: g and g + 8 of its warp's 16
+  int rows[2], sgq[2];
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rows[i] = q0 + warp * 16 + g + 8 * i;
+    const bool in = rows[i] < sq;
+    lse_r[i] = in ? lse[(size_t)bh * sq + rows[i]] : 0.f;
+    dl_r[i] = in ? delta[(size_t)bh * sq + rows[i]] : 0.f;
+    sgq[i] = seg && in ? x.seg_q[(size_t)bi * sq + rows[i]] : 0;
+  }
+  const int2 qids = seg ? id_range(x.seg_q + (size_t)bi * sq, q0, sq)
+                        : make_int2(0, 0);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int nkt = key_tiles(q0, sk, off, causal);
+  // the first key tile from kt on that the block computes; with dbias the
+  // tiles skipped on the way get their zeros
+  auto next = [&](int kt) {
+    for (; kt < nkt; ++kt) {
+      if (!seg || ranges_meet(qids, id_range(sgk, kt * kB, sk))) break;
+      if (db) zero_dbias(db, q0, kt * kB, sq, sk);
+    }
+    return kt;
+  };
+  auto stage = [&](int kt, int buf) {
+    const int k0 = kt * kB;
+    stage_rows<D>(k_s + buf * kB * LD, kb, krs, k0, sk, d);
+    stage_rows<D>(v_s + buf * kB * LD, vb, krs, k0, sk, d);
+    if (bp) stage_bias<kLdBiasQ>(bias_s + buf * kB * kLdBiasQ, bp, q0, k0, sq,
+                                 sk);
+    if (seg) stage_vec(segk_s + buf * kB, sgk, k0, sk);
+  };
+
+  int kt = next(0);
+  if (kt < nkt) {
+    stage_rows<D>(q_s, q + qhead, qrs, q0, sq, d);
+    stage_rows<D>(do_s, dout + qhead, qrs, q0, sq, d);
+    stage(kt, 0);
+  }
+  cp_async_commit();
+  for (int buf = 0; kt < nkt; buf ^= 1) {
+    const int nx = next(kt + 1);
+    if (nx < nkt) stage(nx, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait1();   // Q, dO and this tile have landed
+    __syncthreads();
+    const int k0 = kt * kB;
+    const bf16* ks = k_s + buf * kB * LD;
+    const bf16* vs = v_s + buf * kB * LD;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+// one depth step at a time: unrolled, the compiler hoists the next
+    // steps' fragments and spills
+#pragma unroll 1
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t aq[4], ado[4];
+      const int ai = (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+      ldmatrix4(aq, q_s + ai);
+      ldmatrix4(ado, do_s + ai);
+#pragma unroll
+      for (int n = 0; n < 8; n += 2) {
+        const int bi_ = (n * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t bk[4], bv[4];
+        ldmatrix4(bk, ks + bi_);
+        ldmatrix4(bv, vs + bi_);
+        mma2(s[n], s[n + 1], aq, bk);
+        mma2_rn(dp[n], dp[n + 1], ado, bv);
+      }
+    }
+    // element e of tile n (bit 4n + e of the masks): query row rows[e >>
+    // 1], key k0 + 8n + 2 t4 + (e & 1); dS replaces dP, dbias's P (dP -
+    // delta) replaces S
+    uint32_t ok = 0, keep = 0;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ok |= (uint32_t)sees(rows[e >> 1], k0 + n * 8 + 2 * t4 + (e & 1), sq,
+                             sk, off, causal) << (4 * n + e);
+    if (kX) {
+      // JAX's s = dot * scale + bias, each rounded
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+      if (bp) {
+        const float* bt = bias_s + buf * kB * kLdBiasQ +
+                          (warp * 16 + g) * kLdBiasQ + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = __fadd_rn(s[n][e], bt[(e >> 1) * 8 * kLdBiasQ + n * 8 +
+                                            (e & 1)]);
+      }
+      if (seg) {
+        const int* st = segk_s + buf * kB + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (sgq[e >> 1] != st[n * 8 + (e & 1)]) ok &= ~(1u << (4 * n + e));
+      }
+      if (x.rate > 0.f) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            keep |= (uint32_t)dropout_keep(x.seed, bh, rows[e >> 1],
+                                           k0 + n * 8 + 2 * t4 + (e & 1),
+                                           x.rate) << (4 * n + e);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, bit = 4 * n + e;
+        float p, ds, dsb;
+        score<kX>(s[n][e], dp[n][e], lse_r[i], dl_r[i], scale, ok >> bit & 1,
+                  kX && x.rate > 0.f, keep >> bit & 1, x.inv, p, ds, dsb);
+        dp[n][e] = ds;
+        s[n][e] = dsb;
+      }
+    if (kX && db) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int c = k0 + n * 8 + 2 * t4;
+          if (rows[i] >= sq || c >= sk) continue;
+          float* dst = db + (size_t)rows[i] * sk + c;
+          if ((sk & 1) == 0) {
+            *reinterpret_cast<float2*>(dst) =
+                make_float2(s[n][2 * i], s[n][2 * i + 1]);
+          } else {
+            dst[0] = s[n][2 * i];
+            if (c + 1 < sk) dst[1] = s[n][2 * i + 1];
+          }
+        }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      a_frag(dp[2 * kk], dp[2 * kk + 1], a);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t b[4];
+        ldmatrix4_trans(b, ks + (kk * 16 + (lane & 15)) * LD + n * 8 +
+                               (lane >> 4) * 8);
+        mma2(acc[n], acc[n + 1], a, b);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+    kt = nx;
+  }
+  cp_async_wait0();
+  if (db)
+    for (int t = nkt; t < (sk + kB - 1) / kB; ++t)
+      zero_dbias(db, q0, t * kB, sq, sk);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int col = n * 8 + 2 * t4;
+      if (rows[i] < sq && col < d)
+        *reinterpret_cast<__nv_bfloat162*>(dq + qhead +
+                                           (size_t)rows[i] * qrs + col) =
+            __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+    }
+}
+
+// dkv pass: a block per (key tile, b*kvh head). K and V are staged once;
+// for each query head of the group, the query tiles that see the key tile
+// (from the causal diagonal on, and with segment ids those whose ids meet
+// the key tile's) stream through two stages of Q, dO, lse, delta (and the
+// bias and query ids). Warp w owns keys 16w .. 16w + 15 and computes the
+// transposed scores S^T = K Q^T and dP^T = V dO^T, RS query rows at a
+// time (so that dK and dV, 2 x 16 x D f32 a warp, stay in registers);
+// dV += P^T dO with the f32 P split into two bf16 terms, dK += bf16(dS)^T
+// Q, both with the query rows as the product's depth (dO and Q read
+// transposed).
+template <int D, bool kX>
+__global__ void __launch_bounds__(kTcThreads, 2)
+dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int kvh,
+              int sq, int sk, int d, float scale, int causal,
+              const Extras x) {
+  constexpr int LD = D + 8, KS = D / 16, NT = D / 8;
+  // query rows a sub-step scores: 32, or 16 where the bodies' registers
+  // would push the D = 128 instance past 255 a thread
+  constexpr int RS = kX && D == 128 ? 16 : 32, NS = RS / 8;
+  const int k0 = blockIdx.x * kB;
+  const int bkv = blockIdx.y;
+  const int bi = bkv / kvh, kvi = bkv - bi * kvh;
+  const int groups = h / kvh;
+  const int off = sk - sq;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_tc);
+  bf16* v_s = k_s + kB * LD;
+  bf16* q_s = v_s + kB * LD;        // [2][kB][LD]
+  bf16* do_s = q_s + 2 * kB * LD;   // [2][kB][LD]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kB * LD);  // [2][kB]
+  float* dl_s = lse_s + 2 * kB;                                 // [2][kB]
+  float* bias_s = dl_s + 2 * kB;    // [2][kB][kLdBiasK]
+  const bool has_bias = kX && x.bias != nullptr;
+  int* segq_s = reinterpret_cast<int*>(bias_s +
+                                       (has_bias ? 2 * kB * kLdBiasK : 0));
+  const bool seg = kX && x.seg_q != nullptr;
+  const int* sgq = seg ? x.seg_q + (size_t)bi * sq : nullptr;
+
+  const size_t qrs = (size_t)h * d, krs = (size_t)kvh * d;
+  const size_t khead = ((size_t)bi * sk * kvh + kvi) * d;
+
+  // the lane's two keys: g and g + 8 of its warp's 16
+  int keys[2], sgk[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    keys[i] = k0 + warp * 16 + g + 8 * i;
+    sgk[i] = seg && keys[i] < sk ? x.seg_k[(size_t)bi * sk + keys[i]] : 0;
+  }
+  const int2 kids = seg ? id_range(x.seg_k + (size_t)bi * sk, k0, sk)
+                        : make_int2(0, 0);
+
+  float dk_acc[NT][4], dv_acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  // work item t: query head kvi * groups + t / span, query tile first +
+  // t % span (the TPU index map's causal clamp, here the walk's start)
+  const int first = causal ? max(k0 - off, 0) / kB : 0;
+  const int span = (sq + kB - 1) / kB - first;
+  const int items = groups * span;
+  auto next = [&](int t) {
+    if (seg)
+      while (t < items &&
+             !ranges_meet(kids, id_range(sgq, (first + t % span) * kB, sq)))
+        ++t;
+    return t;
+  };
+  auto stage = [&](int t, int buf) {
+    const int hq = kvi * groups + t / span, q0 = (first + t % span) * kB;
+    const size_t bh = (size_t)bi * h + hq;
+    const size_t qhead = ((size_t)bi * sq * h + hq) * d;
+    stage_rows<D>(q_s + buf * kB * LD, q + qhead, qrs, q0, sq, d);
+    stage_rows<D>(do_s + buf * kB * LD, dout + qhead, qrs, q0, sq, d);
+    stage_vec(lse_s + buf * kB, lse + bh * sq, q0, sq);
+    stage_vec(dl_s + buf * kB, delta + bh * sq, q0, sq);
+    if (has_bias)
+      stage_bias<kLdBiasK>(bias_s + buf * kB * kLdBiasK,
+                           bias_plane(x, bi, hq, sq, sk), q0, k0, sq, sk);
+    if (seg) stage_vec(segq_s + buf * kB, sgq, q0, sq);
+  };
+
+  int t = next(0);
+  if (t < items) {
+    stage_rows<D>(k_s, k + khead, krs, k0, sk, d);
+    stage_rows<D>(v_s, v + khead, krs, k0, sk, d);
+    stage(t, 0);
+  }
+  cp_async_commit();
+  for (int buf = 0; t < items; buf ^= 1) {
+    const int nx = next(t + 1);
+    if (nx < items) stage(nx, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait1();   // K, V and this tile have landed
+    __syncthreads();
+    const int hq = kvi * groups + t / span, q0 = (first + t % span) * kB;
+    const uint32_t qbh = (uint32_t)(bi * h + hq);
+    const bf16* qs = q_s + buf * kB * LD;
+    const bf16* dos = do_s + buf * kB * LD;
+    const float* lses = lse_s + buf * kB;
+    const float* dls = dl_s + buf * kB;
+    const float* bs = bias_s + buf * kB * kLdBiasK;
+    const int* sqs = segq_s + buf * kB;
+#pragma unroll
+    for (int part = 0; part < kB / RS; ++part) {
+      const int r0 = part * RS;
+      if (q0 + r0 >= sq) break;
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ak[4], av[4];
+        const int ai = (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                       (lane >> 4) * 8;
+        ldmatrix4(ak, k_s + ai);
+        ldmatrix4(av, v_s + ai);
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          const int bi_ = (r0 + n * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                          kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t bq[4], bdo[4];
+          ldmatrix4(bq, qs + bi_);
+          ldmatrix4(bdo, dos + bi_);
+          mma2(s[n], s[n + 1], ak, bq);
+          mma2_rn(dp[n], dp[n + 1], av, bdo);
+        }
+      }
+      // element e of tile n (bit 4n + e of the masks): key keys[e >> 1],
+      // query row q0 + r0 + 8n + 2 t4 + (e & 1); the dropped P replaces S,
+      // dS replaces dP
+      uint32_t ok = 0, keep = 0;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ok |= (uint32_t)sees(q0 + r0 + n * 8 + 2 * t4 + (e & 1),
+                               keys[e >> 1], sq, sk, off, causal)
+                << (4 * n + e);
+      if (kX) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+        if (has_bias) {
+          const float* bt = bs + (r0 + 2 * t4) * kLdBiasK + warp * 16 + g;
+#pragma unroll
+          for (int n = 0; n < NS; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[n][e] = __fadd_rn(s[n][e], bt[(n * 8 + (e & 1)) * kLdBiasK +
+                                              (e >> 1) * 8]);
+        }
+        if (seg) {
+#pragma unroll
+          for (int n = 0; n < NS; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (sqs[r0 + n * 8 + 2 * t4 + (e & 1)] != sgk[e >> 1])
+                ok &= ~(1u << (4 * n + e));
+        }
+        if (x.rate > 0.f) {
+#pragma unroll
+          for (int n = 0; n < NS; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              keep |= (uint32_t)dropout_keep(
+                          x.seed, qbh, q0 + r0 + n * 8 + 2 * t4 + (e & 1),
+                          keys[e >> 1], x.rate)
+                      << (4 * n + e);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = r0 + n * 8 + 2 * t4 + (e & 1), bit = 4 * n + e;
+          float p, ds, dsb;
+          score<kX>(s[n][e], dp[n][e], lses[rl], dls[rl], scale,
+                    ok >> bit & 1, kX && x.rate > 0.f, keep >> bit & 1,
+                    x.inv, p, ds, dsb);
+          s[n][e] = p;
+          dp[n][e] = ds;
+        }
+#pragma unroll
+      for (int kk = 0; kk < RS / 16; ++kk) {
+        uint32_t phi[4], plo[4], a[4];
+        a_frag_split(s[2 * kk], s[2 * kk + 1], phi, plo);
+        a_frag(dp[2 * kk], dp[2 * kk + 1], a);
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          const int bi_ = (r0 + kk * 16 + (lane & 15)) * LD + n * 8 +
+                          (lane >> 4) * 8;
+          uint32_t b[4];
+          ldmatrix4_trans(b, dos + bi_);
+          mma2(dv_acc[n], dv_acc[n + 1], phi, b);
+          mma2(dv_acc[n], dv_acc[n + 1], plo, b);
+          ldmatrix4_trans(b, qs + bi_);
+          mma2(dk_acc[n], dk_acc[n + 1], a, b);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+    t = nx;
+  }
+  cp_async_wait0();
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int col = n * 8 + 2 * t4;
+      if (keys[i] >= sk || col >= d) continue;
+      const size_t at = khead + (size_t)keys[i] * krs + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+}
+
 // Shared-memory bytes of each kernel (the f32 tiles of its layout).
 inline size_t fwd_smem(int d) {
   return (3 * (size_t)kB * (d + 1) + (size_t)kB * kLdP) * sizeof(float);
@@ -695,6 +1376,62 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D, bool kX>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int b, int h, int kvh, int sq, int sk,
+                         int d, float scale, int causal, const Extras& x,
+                         size_t smem, cudaStream_t stream) {
+  cudaError_t e = allow_smem(dq_tc_kernel<D, kX>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((sq + kB - 1) / kB, b * h);
+  dq_tc_kernel<D, kX><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), h, kvh, sq, sk, d, scale, causal, x);
+  return cudaGetLastError();
+}
+
+template <int D, bool kX>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int b, int h,
+                          int kvh, int sq, int sk, int d, float scale,
+                          int causal, const Extras& x, size_t smem,
+                          cudaStream_t stream) {
+  cudaError_t e = allow_smem(dkv_tc_kernel<D, kX>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((sk + kB - 1) / kB, b * kvh);
+  dkv_tc_kernel<D, kX><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, kvh, sq, sk, d,
+      scale, causal, x);
+  return cudaGetLastError();
+}
+
+// The tensor-core instance of ``launch`` for the head dim and extras.
+#define TC_DISPATCH(launch, d, x, ...)                                  \
+  (tc_dim(d) == 64 ? (any_extra(x) ? launch<64, true>(__VA_ARGS__)      \
+                                   : launch<64, false>(__VA_ARGS__))    \
+                   : (any_extra(x) ? launch<128, true>(__VA_ARGS__)     \
+                                   : launch<128, false>(__VA_ARGS__)))
+
+// The f32 (CUDA-core) instance of ``launch`` for the extras.
+#define F32_DISPATCH(launch, x, ...)                   \
+  (any_extra(x) ? launch<float, true>(__VA_ARGS__)     \
+                : launch<float, false>(__VA_ARGS__))
+
+// Whether every pointer is 16-byte aligned (the tensor-core passes copy
+// 16 bytes at a time)
+inline bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
 // The instance of ``launch`` for the launch's type and extras.
 #define FLASH_DISPATCH(launch, dtype, x, ...)                              \
   (dtype == 1 ? (any_extra(x) ? launch<__nv_bfloat16, true>(__VA_ARGS__)   \
@@ -717,8 +1454,11 @@ inline Extras make_extras(const void* bias, int bias_b, int bias_h,
 // C interface, bound with ctypes (paddle_tpu_torch/ops/kernels/
 // flash_attention.py checks devices, types, shapes and contiguity first).
 // dtype: 0 = float32, 1 = bfloat16; block and smem: the wrapper's plan, the
-// kernels' kB-row tiles and the kernel's shared memory, or the launch is
-// refused (cudaErrorInvalidValue). The optional bodies: bias (f32, or
+// kernels' kB-row tiles and the shared memory of the instance the launch
+// runs (the backward's: the tensor-core passes' in bf16, with the bias and
+// id stages it takes), or the launch is refused (cudaErrorInvalidValue;
+// a bf16 backward operand not 16-byte aligned: cudaErrorMisaligned-
+// Address). The optional bodies: bias (f32, or
 // null) with its batch and head extents bias_b, bias_h; seg_q, seg_k
 // (int32, or both null); dbias (dq pass, or null); the dropout seed (its
 // low 32 bits), rate and inv = 1 / (1 - rate) (rate 0: no dropout). Each
@@ -754,13 +1494,22 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       float rate, float inv, int causal,
                                       int dtype, void* stream) {
   using namespace paddle_tpu_torch::flash;
-  if (block != kB || (size_t)smem != dq_smem(d)) return cudaErrorInvalidValue;
+  const size_t want = dtype == 1 ? dq_tc_smem(tc_dim(d), bias != nullptr,
+                                              seg_q != nullptr)
+                                 : dq_smem(d);
+  if (block != kB || (size_t)smem != want) return cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Extras x = make_extras(bias, bias_b, bias_h, seg_q, seg_k, dbias,
                                seed, rate, inv);
-  return FLASH_DISPATCH(launch_dq, dtype, x, q, k, v, dout, lse, delta, dq,
-                        b, h, kvh, sq, sk, d, scale, causal, x, s);
+  if (dtype == 1) {
+    if (!aligned16({q, k, v, dout, bias})) return cudaErrorMisalignedAddress;
+    return TC_DISPATCH(launch_dq_tc, d, x, q, k, v, dout, lse, delta, dq, b,
+                       h, kvh, sq, sk, d, scale, causal, x, want, s);
+  }
+  if (dtype != 0) return cudaErrorInvalidValue;
+  return F32_DISPATCH(launch_dq, x, q, k, v, dout, lse, delta, dq, b, h, kvh,
+                      sq, sk, d, scale, causal, x, s);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -775,13 +1524,22 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        float rate, float inv, int causal,
                                        int dtype, void* stream) {
   using namespace paddle_tpu_torch::flash;
-  if (block != kB || (size_t)smem != dkv_smem(d)) return cudaErrorInvalidValue;
+  const size_t want = dtype == 1 ? dkv_tc_smem(tc_dim(d), bias != nullptr,
+                                               seg_q != nullptr)
+                                 : dkv_smem(d);
+  if (block != kB || (size_t)smem != want) return cudaErrorInvalidValue;
   if (b == 0 || sk == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Extras x = make_extras(bias, bias_b, bias_h, seg_q, seg_k, nullptr,
                                seed, rate, inv);
-  return FLASH_DISPATCH(launch_dkv, dtype, x, q, k, v, dout, lse, delta, dk,
-                        dv, b, h, kvh, sq, sk, d, scale, causal, x, s);
+  if (dtype == 1) {
+    if (!aligned16({q, k, v, dout, bias})) return cudaErrorMisalignedAddress;
+    return TC_DISPATCH(launch_dkv_tc, d, x, q, k, v, dout, lse, delta, dk,
+                       dv, b, h, kvh, sq, sk, d, scale, causal, x, want, s);
+  }
+  if (dtype != 0) return cudaErrorInvalidValue;
+  return F32_DISPATCH(launch_dkv, x, q, k, v, dout, lse, delta, dk, dv, b, h,
+                      kvh, sq, sk, d, scale, causal, x, s);
 }
 
 extern "C" const char* cuda_error_string(int err) {

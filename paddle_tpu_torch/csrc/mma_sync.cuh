@@ -1,0 +1,81 @@
+// The warp-level tensor-core and asynchronous-copy primitives the port's
+// CUDA kernels share (sm_80 instructions, on sm_90a): mma.sync m16n8k16
+// bf16 x bf16 -> f32, ldmatrix (plain and transposed), and cp.async with
+// its commit and wait groups.
+//
+// Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16 x 16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..),
+//                           a[2] = (g, 2t+8..), a[3] = (g + 8, 2t+8..)
+//   B (16 x 8, k x n):      b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8.., n g)
+//   C (16 x 8, f32):        c[0..1] = (g, 2t..2t+1), c[2..3] = (g + 8, ..)
+// so two neighbouring C tiles (columns 0-7 and 8-15) hold exactly the
+// elements of one A fragment over those 16 columns (FA-2's reuse of a
+// product's result as the next product's left operand, in registers).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace paddle_tpu_torch {
+
+// c += a b: one m16n8k16 bf16 product with f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes global -> shared without registers; zeros when !pred
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+// 4 bytes global -> shared; zeros when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Four 8x8 b16 matrices (or 8x4 b32) from shared memory; lane l gives the
+// address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix4_trans(uint32_t (&r)[4],
+                                                const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Two f32 as one bf16x2 register (round to nearest even), ``lo`` in the
+// low half: the element of the lower column of an A or B fragment pair
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+}  // namespace paddle_tpu_torch

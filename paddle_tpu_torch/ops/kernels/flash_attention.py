@@ -11,7 +11,12 @@ in-kernel dropout keyed by :func:`dropout_keep`. The kernels are
 ``paddle_tpu_torch/csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``,
 built by :mod:`._build` at the first launch and bound with ctypes; that
 file's header says what bounds them on the H100 (operations) and how their
-design follows from it.
+design follows from it. The bf16 backward passes run on the tensor cores
+(``dq_tc_kernel``, ``dkv_tc_kernel``: 128 threads, bf16 tiles, two
+``cp.async`` stages; :func:`flash_plan`), and with segment ids they skip
+every (query tile, key tile) pair whose id ranges do not meet
+(:func:`segment_tiles_kept`, the kernels' test in numpy); every other
+launch (the forward, the f32 passes) runs the CUDA-core kernels.
 
 Layout: the public ``[batch, seq, heads, head_dim]`` (q, o: ``h`` heads;
 k, v: ``kvh`` heads, ``h % kvh == 0``), read by stride; the log-sum-exp
@@ -42,6 +47,7 @@ there by design.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -54,7 +60,9 @@ __all__ = ["flash_fwd_ref", "flash_bwd_dq_ref", "flash_bwd_dkv_ref",
            "flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda",
            "FlashAttention", "flash_attention_cuda", "flash_unsupported",
            "dropout_keep", "dropout_inv", "body_class", "BODY_FLAGS",
-           "MASK_VALUE"]
+           "MASK_VALUE", "flash_plan", "flash_smem", "flash_spec",
+           "tensor_cores", "SegTiles", "tile_id_ranges",
+           "segment_tiles_kept", "segment_tiles_needed"]
 
 #: the JAX kernel's DEFAULT_MASK_VALUE (-0.7 x float32 max)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -249,7 +257,10 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False, scale=None,
 #: rows of a query tile and of a key tile (``kB`` in csrc/flash_attention.cu;
 #: the launchers refuse another)
 BLOCK = 64
-_THREADS = 256
+#: threads of a block: the CUDA-core kernels' 256; the bf16 backward
+#: passes' 128 (4 warps on the tensor cores, ``kTcThreads``)
+_THREADS, _TC_THREADS = 256, 128
+_TC_PASSES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 _SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 #: pointer arguments of each launcher (q, k, v, bias, seg_q, seg_k, then
 #: the pass's own)
@@ -266,16 +277,51 @@ def flash_codes(name):
             + ("i", "i", "p"))
 
 
-def flash_smem(name, d) -> int:
-    """Dynamic shared memory of one block of kernel ``name``: its f32 tiles
-    of ``BLOCK`` rows (row stride d + 1) and the score tiles (stride
-    BLOCK + 1) (``fwd_smem``/``dq_smem``/``dkv_smem`` in the source, which
-    the launchers hold this figure to)."""
+def tensor_cores(name, dt) -> bool:
+    """Whether launch ``name`` in type ``dt`` (a dtype name) runs on the
+    tensor cores: the bf16 backward passes (``dq_tc_kernel``,
+    ``dkv_tc_kernel``); every other launch runs the CUDA-core kernels."""
+    return name in _TC_PASSES and dt == "bfloat16"
+
+
+def flash_smem(name, d, dt="float32", bias=False, seg=False) -> int:
+    """Dynamic shared memory of one block of kernel ``name`` in type
+    ``dt`` (the figure its launcher holds the plan to). CUDA-core kernels:
+    f32 tiles of ``BLOCK`` rows (row stride d + 1) and the score tiles
+    (stride BLOCK + 1) (``fwd_smem``/``dq_smem``/``dkv_smem``). The
+    tensor-core passes (``dq_tc_smem``/``dkv_tc_smem``): six bf16 [BLOCK][D
+    + 8] tiles (dq: Q, dO and two stages of K and V; dkv: K, V and two
+    stages of Q and dO), the dkv pass's two stages of lse and delta, and,
+    with a bias or segment ids, two stages of the bias tile ([BLOCK][BLOCK
+    + 8] or [BLOCK][BLOCK + 4] f32) and of the other side's ids."""
+    if tensor_cores(name, dt):
+        # the instance that holds d: 64 or 128 columns (``tc_dim``)
+        tile = BLOCK * ((64 if d <= 64 else 128) + 8) * 2
+        ids = 2 * BLOCK * 4 if seg else 0
+        if name == "flash_attention_bwd_dq":
+            return 6 * tile + (2 * BLOCK * (BLOCK + 8) * 4 if bias else 0) \
+                + ids
+        return 6 * tile + 4 * BLOCK * 4 + (
+            2 * BLOCK * (BLOCK + 4) * 4 if bias else 0) + ids
     tile, ldp = BLOCK * (d + 1), BLOCK * (BLOCK + 1)
     return 4 * {"flash_attention_fwd": 3 * tile + ldp,
                 "flash_attention_bwd_dq": 4 * tile + ldp + 2 * BLOCK,
                 "flash_attention_bwd_dkv": 4 * tile + 2 * ldp
                 + 2 * BLOCK}[name]
+
+
+def flash_plan(name, d, dt, bias=False, seg=False) -> dict:
+    """The numbers launch ``name`` runs with: tile rows ("block"),
+    "threads", shared memory ("smem"), the blocks an SM holds by that
+    shared memory ("blocks_per_sm": two for a tensor-core pass that fits
+    two, else one) and where its products run ("mma": the tensor cores,
+    "simt": the CUDA cores)."""
+    tc = tensor_cores(name, dt)
+    smem = flash_smem(name, d, dt, bias, seg)
+    two = 2 * (smem + _launch.SMEM_RESERVED) <= _launch.SMEM_SM
+    return {"block": BLOCK, "threads": _TC_THREADS if tc else _THREADS,
+            "smem": smem, "blocks_per_sm": 2 if tc and two else 1,
+            "products": "mma" if tc else "simt"}
 
 
 def _key_tiles(q0, sk, off, causal):
@@ -285,6 +331,82 @@ def _key_tiles(q0, sk, off, causal):
     if causal:
         last = np.minimum(last, q0 + BLOCK - 1 + off)
     return np.where(np.asarray(last) < 0, 0, np.asarray(last) // BLOCK + 1)
+
+
+# ---------------------------------------------------------------------------
+# the segment-tile skip of the tensor-core passes, in numpy
+# ---------------------------------------------------------------------------
+def tile_id_ranges(ids):
+    """[b, n] ids -> ([b, nt] min, [b, nt] max) of the ids of each
+    ``BLOCK``-row tile (``id_range`` in the source)."""
+    ids = np.asarray(ids, dtype=np.int64)
+    b, n = ids.shape
+    nt = -(-n // BLOCK)
+    lo = np.full((b, nt * BLOCK), np.iinfo(np.int32).max, np.int64)
+    hi = np.full((b, nt * BLOCK), np.iinfo(np.int32).min, np.int64)
+    lo[:, :n] = hi[:, :n] = ids
+    return (lo.reshape(b, nt, BLOCK).min(-1),
+            hi.reshape(b, nt, BLOCK).max(-1))
+
+
+def segment_tiles_kept(seg_q, seg_k):
+    """[b, nqt, nkt] bool: the (query tile, key tile) pairs whose id
+    ranges meet, which the tensor-core passes compute (``ranges_meet``);
+    every other pair holds no (query, key) pair of one id."""
+    qlo, qhi = tile_id_ranges(seg_q)
+    klo, khi = tile_id_ranges(seg_k)
+    return ((qhi[:, :, None] >= klo[:, None, :])
+            & (khi[:, None, :] >= qlo[:, :, None]))
+
+
+def segment_tiles_needed(seg_q, seg_k, causal):
+    """[b, nqt, nkt] bool: the pairs that hold a (query, key) pair of one
+    id that the mask lets the query see (bottom-right causal when
+    ``causal``): the work the function needs."""
+    seg_q, seg_k = np.asarray(seg_q), np.asarray(seg_k)
+    (b, sq), sk = seg_q.shape, seg_k.shape[1]
+    same = seg_q[:, :, None] == seg_k[:, None, :]
+    if causal:
+        same &= np.tri(sq, sk, sk - sq, dtype=bool)
+    nqt, nkt = -(-sq // BLOCK), -(-sk // BLOCK)
+    pad = np.zeros((b, nqt * BLOCK, nkt * BLOCK), dtype=bool)
+    pad[:, :sq, :sk] = same
+    return pad.reshape(b, nqt, BLOCK, nkt, BLOCK).any(axis=(2, 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class SegTiles:
+    """A launch's segment ids at tile granularity, for its plan (hashable,
+    so that :func:`flash_spec` caches on it): the pairs the tensor-core
+    passes compute (:func:`segment_tiles_kept`) and the pairs the function
+    needs (:func:`segment_tiles_needed`), each [b, nqt, nkt] bool."""
+    shape: tuple
+    kept_bits: bytes
+    needed_bits: bytes
+
+    @classmethod
+    def of(cls, seg_q, seg_k, causal, kept=None):
+        """From the ids (tensors or arrays); ``kept`` overrides the
+        kernels' predicate (the gate's regression specimen)."""
+        seg_q, seg_k = (np.asarray(torch.as_tensor(t).cpu())
+                        for t in (seg_q, seg_k))
+        kept = segment_tiles_kept(seg_q, seg_k) if kept is None else kept
+        need = segment_tiles_needed(seg_q, seg_k, causal)
+        return cls(need.shape, np.packbits(kept).tobytes(),
+                   np.packbits(need).tobytes())
+
+    def _unpack(self, bits):
+        n = int(np.prod(self.shape))
+        return np.unpackbits(np.frombuffer(bits, np.uint8),
+                             count=n).astype(bool).reshape(self.shape)
+
+    @property
+    def kept(self):
+        return self._unpack(self.kept_bits)
+
+    @property
+    def needed(self):
+        return self._unpack(self.needed_bits)
 
 
 @functools.lru_cache(maxsize=128)
@@ -300,12 +422,33 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
     (sk / BLOCK, b * kvh), reading the tile's rows of k, v and seg_k and,
     for each query head of the group, every query tile that sees it (with
     its bias tile and seg_q), writing its rows of dk and dv. ``bias``: the
-    bias's (batch, head) extents, each 1 (broadcast) or the full one."""
+    bias's (batch, head) extents, each 1 (broadcast) or the full one.
+    ``seg``: whether segment ids are given, or for a tensor-core pass the
+    launch's :class:`SegTiles`: then the pass computes only the kept pairs,
+    and the other side's operands (k, v, seg_k for dq; q, do, lse, delta,
+    seg_q for dkv; the bias) must be read at every tile a needed pair
+    holds (``masked``), not at every tile."""
     nqt, nkt = -(-sq // BLOCK), -(-sk // BLOCK)
     off, rep_ = sk - sq, h // kvh
     op = _launch.KernelOperand
     tile = (1, BLOCK, 1, d)
     btile, stile, rtile = (1, 1, BLOCK, BLOCK), (1, BLOCK), (1, 1, BLOCK)
+    tiles = seg if isinstance(seg, SegTiles) and tensor_cores(name, dt) \
+        else None
+    need = None if tiles is None else tiles.needed
+    qt_ = np.arange(nqt)[:, None]
+    kt_ = np.arange(nkt)[None, :]
+    # the (query tile, key tile) pairs each pass visits under the causal
+    # mask: up to the query tile's diagonal (forward, dq), from the key
+    # tile's first query tile on (dkv)
+    visit = np.broadcast_to(kt_ < _key_tiles(qt_ * BLOCK, sk, off, causal),
+                            (nqt, nkt))
+    if name == "flash_attention_bwd_dkv":
+        first = np.maximum(kt_ * BLOCK - off, 0) // BLOCK if causal else 0
+        visit = np.broadcast_to(qt_ >= first, (nqt, nkt))
+    computed = None
+    if tiles is not None:
+        computed = visit[None] & tiles.kept          # [b, nqt, nkt]
 
     def pair_seen(qt, kt):
         # some row of query tile qt sees some key of key tile kt
@@ -314,33 +457,53 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
     def rows_seen(t, axis):
         # tiles of a per-query-row operand whose rows see some key
         return _launch.Seen(t, lambda c: pair_seen(c[:, axis], 0))
+
+    def needed(t, b_ax, q_ax=None, k_ax=None):
+        # tiles holding a needed pair: [b, tile] over the other axis
+        side = need.any(axis=2) if k_ax is None else need.any(axis=1)
+        ax = q_ax if k_ax is None else k_ax
+        return _launch.Seen(t, lambda c: side[c[:, b_ax], c[:, ax]])
     # causal with sq > sk: the top query rows see no key, so the dkv pass,
     # which walks the query tiles each key tile sees, never reads them
-    top = name == "flash_attention_bwd_dkv" and causal and sq > sk
-    q_, k_, v_ = (op("q", (b, sq, h, d), dt,
-                     masked=rows_seen(tile, 1) if top else None),
-                  op("k", (b, sk, kvh, d), dt), op("v", (b, sk, kvh, d), dt))
-    do_ = op("do", (b, sq, h, d), dt,
-             masked=rows_seen(tile, 1) if top else None)
-    stat = lambda n: op(  # noqa: E731
-        n, (b, h, sq), "float32", masked=rows_seen(rtile, 2) if top
-        else None)
+    dkv = name == "flash_attention_bwd_dkv"
+    top = dkv and causal and sq > sk
+    q_mask = (needed(tile, 0, q_ax=1) if dkv and tiles else
+              rows_seen(tile, 1) if top else None)
+    k_mask = needed(tile, 0, k_ax=1) if tiles and not dkv else None
+    q_, k_, v_ = (op("q", (b, sq, h, d), dt, masked=q_mask),
+                  op("k", (b, sk, kvh, d), dt, masked=k_mask),
+                  op("v", (b, sk, kvh, d), dt, masked=k_mask))
+    do_ = op("do", (b, sq, h, d), dt, masked=q_mask)
+    r_mask = (needed(rtile, 0, q_ax=2) if dkv and tiles else
+              rows_seen(rtile, 2) if top else None)
+    stat = lambda n: op(n, (b, h, sq), "float32", masked=r_mask)  # noqa
     A = _launch.Access
     extra_in = ()
     if bias is not None:
-        # under the causal mask the tiles past the diagonal are never read
-        extra_in += (op("bias", (*bias, sq, sk), "float32", masked=(
-            _launch.Seen(btile, lambda c: pair_seen(c[:, 2], c[:, 3]))
-            if causal else None)),)
+        # under the causal mask the tiles past the diagonal are never read;
+        # with skipped pairs, only the tiles of needed pairs must be
+        if tiles is not None:
+            any_b = need.any(axis=0)
+            b_mask = _launch.Seen(btile, lambda c: np.where(
+                bias[0] > 1, need[np.minimum(c[:, 0], b - 1), c[:, 2],
+                                  c[:, 3]], any_b[c[:, 2], c[:, 3]]))
+        else:
+            b_mask = (_launch.Seen(btile, lambda c: pair_seen(c[:, 2],
+                                                             c[:, 3]))
+                      if causal else None)
+        extra_in += (op("bias", (*bias, sq, sk), "float32", masked=b_mask),)
     if seg:
-        extra_in += (op("seg_q", (b, sq), "int32",
-                        masked=rows_seen(stile, 1) if top else None),
-                     op("seg_k", (b, sk), "int32"))
+        extra_in += (op("seg_q", (b, sq), "int32", masked=(
+                         needed(stile, 0, q_ax=1) if dkv and tiles else
+                         rows_seen(stile, 1) if top else None)),
+                     op("seg_k", (b, sk), "int32", masked=(
+                         needed(stile, 0, k_ax=1) if tiles and not dkv
+                         else None)))
 
     def bias_at(bb, hh, qt, kt):
         return (bb if bias[0] > 1 else 0 * bb,
                 hh if bias[1] > 1 else 0 * hh, qt, kt)
-    if name == "flash_attention_bwd_dkv":
+    if dkv:
         grid = (nkt, b * kvh)
         ins = (q_, k_, v_, do_, stat("lse"), stat("delta")) + extra_in
         outs = (op("dk", (b, sk, kvh, d), dt), op("dv", (b, sk, kvh, d), dt))
@@ -348,14 +511,33 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
         def own(i):
             return (i // nkt // kvh, i % nkt, i // nkt % kvh, 0)
 
-        def seen_q(i):
-            # item: (tile kt, batch x KV head, group member g, query tile)
-            qt, rest = i % nqt, i // nqt
-            g, rest = rest % rep_, rest // rep_
-            kt, bk = rest % nkt, rest // nkt
-            first = (np.maximum(kt * BLOCK - off, 0) // BLOCK if causal
-                     else 0)
-            return (bk // kvh, np.maximum(qt, first), bk % kvh * rep_ + g, 0)
+        if computed is None:
+            def seen_q(i):
+                # item: (tile kt, batch x KV head, group member g, query
+                # tile)
+                qt, rest = i % nqt, i // nqt
+                g, rest = rest % rep_, rest // rep_
+                kt, bk = rest % nkt, rest // nkt
+                first = (np.maximum(kt * BLOCK - off, 0) // BLOCK if causal
+                         else 0)
+                return (bk // kvh, np.maximum(qt, first),
+                        bk % kvh * rep_ + g, 0)
+
+            def key_of(i):
+                return i // nqt // rep_ % nkt
+            n_seen = nkt * b * kvh * rep_ * nqt
+        else:
+            # item: a computed (batch, query tile, key tile) pair, for each
+            # (KV head, group member)
+            cb, cq, ck = (np.repeat(a, h) for a in np.nonzero(computed))
+            ch = np.tile(np.arange(h), len(cb) // h)
+
+            def seen_q(i):
+                return (cb[i], cq[i], ch[i], 0)
+
+            def key_of(i):
+                return ck[i]
+            n_seen = len(cb)
 
         def seen_stat(i):
             bb, qt, hh, _ = seen_q(i)
@@ -363,8 +545,7 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
 
         def seen_bias(i):
             bb, qt, hh, _ = seen_q(i)
-            return bias_at(bb, hh, qt, i // nqt // rep_ % nkt)
-        n_seen = nkt * b * kvh * rep_ * nqt
+            return bias_at(bb, hh, qt, key_of(i))
         key_reads = (A("k", tile, own), A("v", tile, own))
         q_reads = (A("q", tile, seen_q), A("do", tile, seen_q),
                    A("lse", rtile, seen_stat),
@@ -398,18 +579,32 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
         def own_stat(i):
             return (i // nqt // h, i // nqt % h, i % nqt)
 
+        if computed is None:
+            def seen_pair(i):
+                # item: (query tile, batch x head, key tile) -> (batch,
+                # head, query tile, key tile)
+                kt, rest = i % nkt, i // nkt
+                qt, bh = rest % nqt, rest // nqt
+                last = _key_tiles(qt * BLOCK, sk, off, causal) - 1
+                return (bh // h, bh % h, qt,
+                        np.minimum(kt, np.maximum(last, 0)))
+            n_pairs = nqt * b * h * nkt
+        else:
+            # item: a computed (batch, query tile, key tile) pair, for each
+            # head
+            cb, cq, ck = (np.repeat(a, h) for a in np.nonzero(computed))
+            ch = np.tile(np.arange(h), len(cb) // h)
+
+            def seen_pair(i):
+                return (cb[i], ch[i], cq[i], ck[i])
+            n_pairs = len(cb)
+
         def seen_k(i):
-            # item: (query tile, batch x head, key tile)
-            kt, rest = i % nkt, i // nkt
-            qt, bh = rest % nqt, rest // nqt
-            last = _key_tiles(qt * BLOCK, sk, off, causal) - 1
-            return (bh // h, np.minimum(kt, np.maximum(last, 0)),
-                    bh % h // rep_, 0)
+            bb, hh, _, kt = seen_pair(i)
+            return (bb, kt, hh // rep_, 0)
 
         def seen_bias(i):
-            bb, kt, _, _ = seen_k(i)
-            bh = i // nkt // nqt
-            return bias_at(bb, bh % h, i // nkt % nqt, kt)
+            return bias_at(*seen_pair(i))
         reads = [A("q", tile, own)]
         key_reads = [A("k", tile, seen_k), A("v", tile, seen_k)]
         if dq:
@@ -427,22 +622,26 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
             key_reads.append(A("bias", btile, seen_bias))
         phases = (_launch.KernelPhase("queries", nqt * b * h, tuple(reads),
                                       writes),
-                  _launch.KernelPhase("keys", nqt * b * h * nkt,
-                                      tuple(key_reads)))
+                  _launch.KernelPhase("keys", n_pairs, tuple(key_reads)))
         if dq and dbias:
             # every (query tile, key tile) of each head: P (dP - delta)
-            # where seen, zeros past the diagonal
+            # where computed, zeros elsewhere
             phases += (_launch.KernelPhase(
                 "dbias", nqt * b * h * nkt, (),
                 (A("dbias", (1, BLOCK, BLOCK),
                    lambda i: (i // nkt // nqt, i // nkt % nqt, i % nkt)),)),)
-    smem = flash_smem(name, d)
+    plan = flash_plan(name, d, dt, bias is not None, bool(seg))
+    params = {"causal": bool(causal), "bias": bias, "segments": bool(seg),
+              "dbias": bool(dbias), "dropout": bool(dropout)}
+    if computed is not None:
+        # the (query tile, key tile) pairs of one head the pass computes
+        # over the batch, and those the causal mask alone leaves
+        params["pairs"] = int(computed.sum())
+        params["pairs_causal"] = int(visit.sum()) * b
     return _launch.KernelLaunchSpec(
-        name, "cuda", _SOURCE, grid, _THREADS, ins, outs, phases,
-        ((name, flash_codes(name)),), dt, dyn_smem=smem,
-        params={"causal": bool(causal), "bias": bias, "segments": bool(seg),
-                "dbias": bool(dbias), "dropout": bool(dropout)},
-        plan={"block": BLOCK, "smem": smem})
+        name, "cuda", _SOURCE, grid, plan["threads"], ins, outs, phases,
+        ((name, flash_codes(name)),), dt, dyn_smem=plan["smem"],
+        blocks_per_sm=plan["blocks_per_sm"], params=params, plan=plan)
 
 
 def flash_unsupported(q, k, causal=False):
@@ -529,10 +728,19 @@ def _run(name, wrapper, q, k, v, bias, seg_q, seg_k, *ptrs, causal, scale,
          seed, rate, dbias=False):
     b, sq, h, d = q.shape
     kvh, sk = k.shape[2], k.shape[1]
-    spec = flash_spec(name, b, sq, sk, h, kvh, d,
-                      _launch.dtype_name(q.dtype), bool(causal),
-                      None if bias is None else tuple(bias.shape[:2]),
-                      seg_q is not None, bool(dbias), rate > 0.0)
+    dt = _launch.dtype_name(q.dtype)
+    seg = seg_q is not None
+    plan_of = flash_spec
+    if seg and tensor_cores(name, dt) and q.device.type == "cuda" \
+            and _launch.capturing():
+        # the gate's capture: the plan of the pairs this launch's ids keep
+        # (read on the host; the launch path itself never syncs), built
+        # uncached, since it holds index arrays over the pairs
+        seg = SegTiles.of(seg_q, seg_k, causal)
+        plan_of = flash_spec.__wrapped__
+    spec = plan_of(name, b, sq, sk, h, kvh, d, dt, bool(causal),
+                   None if bias is None else tuple(bias.shape[:2]),
+                   seg, bool(dbias), rate > 0.0)
     if not _launch.begin(spec, q.device):
         return
     fn = _build.c_fn("flash_attention", *spec.calls[0])
@@ -553,6 +761,14 @@ def _run(name, wrapper, q, k, v, bias, seg_q, seg_k, *ptrs, causal, scale,
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + fn.error_string(err).decode())
+
+
+def _aligned(*ts):
+    """The tensors, each copied to a fresh allocation where its data does
+    not start on 16 bytes (the tensor-core passes copy 16 bytes at a
+    time; a contiguous view may start anywhere)."""
+    return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                 for t in ts)
 
 
 def flash_fwd_cuda(q, k, v, causal=False, scale=None, bias=None,
@@ -593,6 +809,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
     _check_extras(name, q, k, bias, seg_q, seg_k, rate)
     if bias_grad and bias is None:
         raise ValueError(f"{name}: bias_grad needs a bias")
+    q, k, v, do, bias = _aligned(q, k, v, do, bias)
     dq = torch.empty_like(q)
     dbias = (torch.empty(q.shape[0] * q.shape[2], q.shape[1], k.shape[1],
                          dtype=torch.float32, device=q.device)
@@ -611,6 +828,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
     _check(name, q, k, v, causal, do, lse, delta, bias, seg_q, seg_k)
     _check_stats(name, q, do, lse, delta)
     _check_extras(name, q, k, bias, seg_q, seg_k, rate)
+    q, k, v, do, bias = _aligned(q, k, v, do, bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _run(name, flash_bwd_dkv_cuda, q, k, v, bias, seg_q, seg_k, do, lse,
          delta, dk, dv, causal=causal, scale=_scale(q, scale), seed=seed,

@@ -209,6 +209,168 @@ def test_flash_bound_counts_the_pairs_of_one_segment(causal):
         kc.needed_flops(spec, [1], (seg, seg))
 
 
+# -- the bf16 backward passes: plans and the segment-tile skip ----------
+
+_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+#: the parent's f32 (and forward) plans: 256 threads, f32 tiles of stride
+#: d + 1 (csrc/flash_attention.cu's fwd_smem, dq_smem, dkv_smem)
+_PARENT_SMEM = {("flash_attention_fwd", 64): 66560,
+                ("flash_attention_fwd", 128): 115712,
+                ("flash_attention_bwd_dq", 64): 83712,
+                ("flash_attention_bwd_dq", 128): 149248,
+                ("flash_attention_bwd_dkv", 64): 100352,
+                ("flash_attention_bwd_dkv", 128): 165888}
+
+
+@pytest.mark.parametrize("name", _BWD)
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_core_plans_pass_smem_and_arg_rules(name, d):
+    """The bf16 backward passes' plans (128 threads, bf16 tiles, the bias
+    and id stages where the launch has them) fit the card and bind the
+    launcher's signature, at both instances' head dims."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_spec
+    for bias, seg, dbias in ((None, False, False), ((1, 4), True, True),
+                             ((2, 4), False, False), (None, True, False)):
+        dbias = dbias and name == "flash_attention_bwd_dq"
+        spec = flash_spec(name, 2, 256, 256, 4, 2, d, "bfloat16", True,
+                          bias=bias, seg=seg, dbias=dbias)
+        assert spec.threads == 128 and spec.plan["products"] == "mma"
+        assert spec.plan["block"] == 64
+        assert spec.dyn_smem == spec.plan["smem"] <= _launch.SMEM_BLOCK
+        bad = [f for f in check_launch(spec)
+               if f.code in ("SMEM_OVERCOMMIT", "ARG_MISMATCH")]
+        assert bad == [], bad
+        # two blocks an SM without a bias (8 warps), one with it at d 128
+        assert spec.blocks_per_sm == (1 if bias and d == 128 else 2)
+
+
+@pytest.mark.parametrize("name,d", sorted(_PARENT_SMEM))
+def test_f32_and_forward_plans_are_the_parents(name, d):
+    """The f32 instances, and the forward in both types, keep the CUDA-core
+    kernels and their plans: 256 threads, the parent's shared memory."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_spec
+    dts = ("float32", "bfloat16") if name == "flash_attention_fwd" \
+        else ("float32",)
+    for dt in dts:
+        for bias, seg in ((None, False), ((1, 4), True)):
+            spec = flash_spec(name, 1, 128, 128, 4, 2, d, dt, True,
+                              bias=bias, seg=seg)
+            assert (spec.threads, spec.dyn_smem, spec.blocks_per_sm) == \
+                (256, _PARENT_SMEM[(name, d)], 1)
+            assert spec.plan["products"] == "simt"
+
+
+@st.composite
+def _segment_ids(draw):
+    """(seg_q [b, sq], seg_k [b, sk]): random ids, monotone packings with
+    padding -1 at the end (seg_k = seg_q when the lengths agree), or a
+    packing's ids shuffled."""
+    b = draw(st.integers(1, 2))
+    sq = draw(st.integers(1, 300))
+    sk = draw(st.sampled_from([sq, draw(st.integers(1, 300))]))
+    kind = draw(st.sampled_from(["random", "packed", "shuffled"]))
+    seed = draw(st.integers(0, 2 ** 31 - 1))
+    rng = np.random.default_rng(seed)
+
+    def packed(n):
+        docs = int(rng.integers(1, 9))
+        cuts = np.sort(rng.integers(0, n + 1, docs - 1))
+        ids = np.searchsorted(cuts, np.arange(n), side="right")
+        ids[n - int(rng.integers(0, n // 3 + 1)):] = -1
+        return ids
+
+    def one(n):
+        if kind == "random":
+            return rng.integers(-1, 4, n)
+        ids = packed(n)
+        return rng.permutation(ids) if kind == "shuffled" else ids
+    seg_q = np.stack([one(sq) for _ in range(b)]).astype(np.int32)
+    seg_k = seg_q if sk == sq and kind == "packed" else \
+        np.stack([one(sk) for _ in range(b)]).astype(np.int32)
+    return seg_q, seg_k
+
+
+@settings(max_examples=80, deadline=None)
+@given(_segment_ids(), st.booleans())
+def test_segment_tile_skip_never_drops_a_pair_of_one_id(ids, causal):
+    """The Python twin of the kernels' skip (``ranges_meet`` of the two
+    tiles' [min, max] ids) keeps every (query tile, key tile) pair that
+    holds a (query, key) pair of one id the mask lets see, counted by
+    brute force; the tile ranges are each tile's min and max."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    seg_q, seg_k = ids
+    b, sq = seg_q.shape
+    sk = seg_k.shape[1]
+    kept = fa.segment_tiles_kept(seg_q, seg_k)
+    need = fa.segment_tiles_needed(seg_q, seg_k, causal)
+    brute = np.zeros_like(need)
+    for bi in range(b):
+        for r in range(sq):
+            for c in range(sk):
+                if seg_q[bi, r] == seg_k[bi, c] and (not causal
+                                                      or r + sk - sq >= c):
+                    brute[bi, r // 64, c // 64] = True
+    assert np.array_equal(need, brute)
+    assert not (need & ~kept).any()
+    lo, hi = fa.tile_id_ranges(seg_q)
+    for t in range(lo.shape[1]):
+        chunk = seg_q[:, t * 64:(t + 1) * 64]
+        assert np.array_equal(lo[:, t], chunk.min(1))
+        assert np.array_equal(hi[:, t], chunk.max(1))
+
+
+@pytest.mark.parametrize("name", _BWD)
+@pytest.mark.parametrize("seed,causal,sq,sk", [(0, True, 512, 512),
+                                               (1, True, 700, 300),
+                                               (2, False, 300, 450)])
+def test_segment_skip_plan_covers_every_needed_tile(name, seed, causal, sq,
+                                                    sk):
+    """Given the launch's ids, a tensor-core pass's plan computes the pairs
+    the skip keeps under the causal mask, and still reads every tile a
+    needed pair holds (bias and dbias included): no finding."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    rng = np.random.default_rng(seed)
+    ids = []
+    for n in (sq, sk):
+        cuts = np.sort(rng.integers(1, n, 5))
+        row = np.searchsorted(cuts, np.arange(n), side="right")
+        row[n - 40:] = -1
+        ids.append(np.stack([row, row[::-1].copy()]).astype(np.int32))
+    tiles = fa.SegTiles.of(*ids, causal)
+    spec = fa.flash_spec(name, 2, sq, sk, 4, 2, 64, "bfloat16", causal,
+                         bias=(1, 4), seg=tiles,
+                         dbias=name == "flash_attention_bwd_dq")
+    assert check_launch(spec) == []
+    nqt, nkt = -(-sq // 64), -(-sk // 64)
+    q_, k_ = np.arange(nqt)[:, None], np.arange(nkt)[None, :]
+    if name == "flash_attention_bwd_dq":
+        visit = k_ < fa._key_tiles(q_ * 64, sk, sk - sq, causal)
+    else:
+        visit = q_ >= (np.maximum(k_ * 64 - (sk - sq), 0) // 64 if causal
+                       else 0)
+    visit = np.broadcast_to(visit, (nqt, nkt))
+    assert spec.params["pairs"] == int((visit & tiles.kept).sum())
+    assert spec.params["pairs_causal"] == 2 * int(visit.sum())
+    assert spec.params["pairs"] < spec.params["pairs_causal"]
+
+
+def test_segment_skip_regression_fires_grid_floor_drop():
+    """The specimen's ids under the kernels' skip: no finding; under a skip
+    that drops the tile two segments share, GRID_FLOOR_DROP on the
+    operands that tile's pairs need (the dq pass's key side, the dkv
+    pass's query side)."""
+    assert all(check_launch(sp) == [] for sp in kc.capture_segment_skip())
+    rep = kc.build_segment_skip_regression()
+    assert {f.code for f in rep.findings} == {"GRID_FLOOR_DROP"}
+    assert sorted(f.site for f in rep.findings) == sorted(
+        [f"flash_attention_bwd_dq/{o}" for o in ("k", "v", "seg_k")]
+        + [f"flash_attention_bwd_dkv/{o}"
+           for o in ("q", "do", "lse", "delta", "seg_q")])
+    k_drop = next(f for f in rep.findings
+                  if f.site == "flash_attention_bwd_dq/k")
+    assert k_drop.detail["first_missing"] == [0, 1, 0, 0]
+
+
 # -- the regression specimen --------------------------------------------
 
 _DEMO_SITES = {"in2": "wg", "in3": "wu", "in4": "wd"}

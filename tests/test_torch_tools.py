@@ -73,3 +73,33 @@ def test_phase_times_use_rebinds_through_c_fn(monkeypatch):
         assert fn is getattr(lib, name)
         assert fn.argtypes == [_build.CTYPES[c] for c in fdb.CALLS[name]]
         assert fn.restype is ctypes.c_int
+
+
+def _plan_bits():
+    path = ROOT / "paddle_tpu_torch" / "tools" / "plan_bits.py"
+    spec = importlib.util.spec_from_file_location("plan_bits", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_plan_bits_compare_lets_only_expected_cases_differ(tmp_path):
+    """``--compare`` fails on any case whose bits differ, except those
+    ``--expect`` names (shell patterns): a redesigned kernel's cases."""
+    import torch
+    tool = _plan_bits()
+    base = {"flash_attention_bwd_dq": [torch.ones(4)],
+            "flash_attention_bwd_dq[seg]": [torch.ones(2)],
+            "rms_norm_fwd": [torch.zeros(3)]}
+    moved = dict(base, **{"flash_attention_bwd_dq": [torch.full((4,), 2.)],
+                          "flash_attention_bwd_dq[seg]": [torch.zeros(2)]})
+    paths = {}
+    for label, res in (("a", base), ("b", moved),
+                       ("c", dict(moved, rms_norm_fwd=[torch.ones(3)]))):
+        paths[label] = str(tmp_path / f"{label}.pt")
+        torch.save(res, paths[label])
+    expect = ("flash_attention_bwd_dq*",)
+    assert tool.compare(paths["a"], paths["a"]) == 0
+    assert tool.compare(paths["a"], paths["b"]) == 1
+    assert tool.compare(paths["a"], paths["b"], expect=expect) == 0
+    assert tool.compare(paths["a"], paths["c"], expect=expect) == 1
