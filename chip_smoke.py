@@ -2252,6 +2252,7 @@ def _kernel_group(name):
         return "fused_adamw"
     if "flash" in name:
         for part, op in (("fwd_kernel", "flash_attention_fwd"),
+                         ("fwd_tc_kernel", "flash_attention_fwd"),
                          ("dkv_kernel", "flash_attention_bwd_dkv"),
                          ("dkv_tc_kernel", "flash_attention_bwd_dkv"),
                          ("dq_kernel", "flash_attention_bwd_dq"),
@@ -3501,10 +3502,11 @@ def flash_keep_readout_phase(gpu):
     dO = I the dkv kernel's dV[k, c] is inv P times the number of query
     heads of the group whose keep(c, k) holds (the query head rebuilt from
     the K/V head's grid). Both against the torch ``dropout_keep``, bit for
-    bit. The dV count is read out of the bf16 dkv pass too (the
-    tensor-core pass, whose lanes hold the scores in mma.sync's fragment
-    layout): there each count times inv P is rounded to bf16, 2^-9 of it,
-    far from a neighbouring count."""
+    bit. Both are read out of the bf16 kernels too (the tensor-core
+    kernels, whose lanes hold the scores in mma.sync's fragment layout):
+    the forward's O is bf16(keep inv / 128) (P = inv rounded to bf16, then
+    a power of two), the dkv pass's each count times inv P rounded to
+    bf16, 2^-9 of it, far from a neighbouring count."""
     import torch
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     b, h, kvh, n, rate = 2, 4, 1, 128, 0.1
@@ -3540,12 +3542,14 @@ def flash_keep_readout_phase(gpu):
     _, dv16 = kfa.flash_bwd_dkv_cuda(*bf, lse16, delta16, False, None,
                                      **kw)
     bf16_equal = count_equal(dv16, lse16)
+    fwd16_equal = bool(torch.equal(o16, want_o.to(torch.bfloat16)))
     res = {"phase": "flash_keep_readout", "gpu": gpu, "b": b, "h": h,
            "kvh": kvh, "n": n, "rate": rate, "seed": FLASH_DROPOUT_SEED,
            "kept_share": float(keep.float().mean()),
            "fwd_keep_equal": fwd_equal, "dkv_keep_count_equal": dkv_equal,
+           "fwd_bf16_keep_equal": fwd16_equal,
            "dkv_bf16_keep_count_equal": bf16_equal,
-           "ok": fwd_equal and dkv_equal and bf16_equal}
+           "ok": fwd_equal and dkv_equal and fwd16_equal and bf16_equal}
     emit(res)
     if not res["ok"]:
         raise AssertionError(f"keep mask read out of the kernels: {res}")
@@ -4476,7 +4480,8 @@ PTXAS_KERNELS = {
                         "dq_kernel": "flash_attention_bwd_dq",
                         "dkv_tc_kernel": "flash_attention_bwd_dkv",
                         "dq_tc_kernel": "flash_attention_bwd_dq",
-                        "fwd_kernel": "flash_attention_fwd"},
+                        "fwd_kernel": "flash_attention_fwd",
+                        "fwd_tc_kernel": "flash_attention_fwd"},
     "linear_ce": {"ce_fwd_kernel": "linear_ce_fwd",
                   "ce_fwd_combine": "linear_ce_fwd",
                   "ce_dx_kernel": "linear_ce_bwd_dx",

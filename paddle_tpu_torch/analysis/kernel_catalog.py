@@ -30,8 +30,8 @@ pairs of one segment, live lengths), the operations half of
 specimen (``demo_prefix_mlp_block``: decode_mlp_block's kernel under a
 floor-divided tile count that drops the last intermediate columns), never
 part of the default catalog; :func:`build_segment_skip_regression` the
-flash backward passes' segment-tile skip with a test that drops a tile
-two segments share (their plans given the specimen's ids), likewise.
+bf16 flash kernels' segment-tile skip with a test that drops a tile two
+segments share (their plans given the specimen's ids), likewise.
 """
 from __future__ import annotations
 
@@ -776,19 +776,19 @@ def segment_specimen_ids():
 
 
 def capture_segment_skip(broken=False):
-    """The plans of the bf16 dq and dkv passes at the specimen's ids: the
-    pairs the kernels' id-range test keeps or, ``broken``, a test that
-    also drops every pair of the tile two segments share (key tile 1 in
-    the dq pass, query tile 1 in the dkv pass)."""
+    """The plans of the bf16 forward, dq and dkv passes at the specimen's
+    ids: the pairs the kernels' id-range test keeps or, ``broken``, a test
+    that also drops every pair of the tile two segments share (key tile 1
+    in the forward and the dq pass, query tile 1 in the dkv pass)."""
     from ..ops.kernels import flash_attention as fa
     sh = SEGMENT_SHAPE
     ids = segment_specimen_ids()
     specs = []
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+    for name in _FLASH_KERNELS:
         kept = fa.segment_tiles_kept(ids, ids)
         if broken:
             t = sh["shared_tile"]
-            if name == "flash_attention_bwd_dq":
+            if name != "flash_attention_bwd_dkv":
                 kept[:, :, t] = False
             else:
                 kept[:, t, :] = False
@@ -801,10 +801,9 @@ def capture_segment_skip(broken=False):
 
 def build_segment_skip_regression() -> AuditReport:
     """The audit of a segment-tile skip that drops a tile two segments
-    share (never part of the default catalog): the dq pass never reads
-    key tile 1 (k, v, seg_k) and the dkv pass never reads query tile 1
-    (q, do, lse, delta, seg_q), though pairs of one id need both. The gate
-    must report GRID_FLOOR_DROP on those operands."""
+    share (never part of the default catalog): the forward and the dq pass
+    never read key tile 1 (k, v, seg_k) and the dkv pass never reads query
+    tile 1 (q, do, lse, delta, seg_q), though pairs of one id need them.
+    The gate must report GRID_FLOOR_DROP on those operands."""
     return audit_specs(capture_segment_skip(broken=True),
-                       "segment_skip@tiny",
-                       ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+                       "segment_skip@tiny", _FLASH_KERNELS)

@@ -50,54 +50,72 @@
 // 134 MB and the two backward passes 240 GFLOP (S, dP, dQ; S, dP, dV, dK):
 // 0.069 ms and 0.243 ms at the bf16 tensor-core peak.
 //
-// The f32 instances (and the forward in both types) run every product on
-// the CUDA cores in f32 FMAs: the f32 path must not round through TF32.
-// A block per (64-row query tile, b*h head) (forward, dq) or per (64-key
-// tile, b*kvh head) (dkv) walks the other side's tiles: the TPU kernels
-// carry m/l/acc, dq and dk/dv across a sequential grid axis in VMEM
-// scratch, and blocks on the GPU run in no order, so each carried sum is
-// a loop inside one block (the TPU index map's causal clamp becomes the
-// loop's bound). Tiles live in shared memory as f32 rows with an odd
-// stride (d + 1), so row and column walks are free of bank conflicts; 256
-// threads own 4 x 4 of each 64 x 64 score tile and 4 rows x d/16 columns
-// of each output tile. They are bound by shared-memory issue (8 operand
-// loads for every 16 FMAs), at about a quarter of the 67 TFLOP/s f32 rate.
+// The f32 instances run every product on the CUDA cores in f32 FMAs: the
+// f32 path must not round through TF32. A block per (64-row query tile,
+// b*h head) (forward, dq) or per (64-key tile, b*kvh head) (dkv) walks the
+// other side's tiles: the TPU kernels carry m/l/acc, dq and dk/dv across a
+// sequential grid axis in VMEM scratch, and blocks on the GPU run in no
+// order, so each carried sum is a loop inside one block (the TPU index
+// map's causal clamp becomes the loop's bound). Tiles live in shared
+// memory as f32 rows with an odd stride (d + 1), so row and column walks
+// are free of bank conflicts; 256 threads own 4 x 4 of each 64 x 64 score
+// tile and 4 rows x d/16 columns of each output tile. They are bound by
+// shared-memory issue (8 operand loads for every 16 FMAs), at about a
+// quarter of the 67 TFLOP/s f32 rate.
 //
-// The bf16 backward passes (dq_tc_kernel, dkv_tc_kernel, after FA-2) run
-// every product on the tensor cores: mma.sync m16n8k16 bf16 x bf16 into
-// f32, at the JAX kernels' rounding points. S = Q K^T and dP = dO V^T take
-// bf16 operands (dO and V are bf16 values, so the JAX kernel's f32 dP
-// has the same products; each k-step's 16 are summed from zero and added
-// in f32, mma2_rn, since dP - delta cancels on rows that see few keys and
-// the tensor core's own running sum truncates); dQ = bf16(dS) K and dK = bf16(dS)^T Q cast dS as JAX
-// does; dV = P^T dO takes an f32 P in JAX, so P is split into hi = bf16(P)
-// and lo = bf16(P - hi) and both products go into one f32 sum (what
-// remains is under 2^-16 of P, far below dV's own bf16 rounding). Plan:
-// 128 threads, 4 warps of 16 tile rows each, 64 x 64 score tiles; every
-// operand tile is a bf16 [64][D + 8] tile in shared memory (8 columns of
-// padding: ldmatrix conflict-free), copied by 16-byte cp.async into one of
-// two stages while the tensor cores work on the other; ragged rows and
-// columns past d are zero-filled by the copy's source size. D is 64 or 128
-// (the instance that holds d; columns past d are zeros, never written).
-// A warp's score tile stays in registers from product to product (a C
-// fragment pair is an A fragment): dq holds S, dP (16 x 64) and dQ (16 x
-// D) in f32; dkv computes the transposed scores 32 query rows at a time so
-// that dK and dV (2 x 16 x D) stay in registers across the whole walk.
-// Shared memory at D = 128: dq 104,448 and dkv 105,472 bytes, two blocks
-// an SM (8 warps, __launch_bounds__(128, 2)); a staged bias (two [64][72]
-// or [64][68] f32 tiles beside K/V or Q) leaves one. ptxas -v (sm_90a),
-// registers a thread without and with the bodies, no spills: dq 212 / 242
-// and dkv 246 / 254 at D = 128, dq 180 / 240 and dkv 170 / 201 at D = 64;
-// the S/dP depth loop runs one step at a time (unrolled, ptxas hoisted the
-// next steps' fragments and spilled), and the dkv body instance at D = 128
-// scores 16 query rows a sub-step instead of 32 for the same reason. The bias tile is copied with its operand
-// tile (no device read a score); dbias is written from the fragments, zeros
-// for every tile the pass does not compute. Segment ids skip every (query
-// tile, key tile) pair whose id ranges do not meet (id_range: exact, since
-// P is 0 on such a pair; conservative, since it tests [min, max] only).
+// Every bf16 launch (fwd_tc_kernel, dq_tc_kernel, dkv_tc_kernel, after
+// FA-2) runs every product on the tensor cores: mma.sync m16n8k16 bf16 x
+// bf16 into f32, at the JAX kernels' rounding points. S = Q K^T and dP =
+// dO V^T take bf16 operands (dO and V are bf16 values, so the JAX kernel's
+// f32 dP has the same products); each k-step's 16 products are summed from
+// zero and added in f32 (mma2_rn): the tensor core's own running sum
+// truncates, and dS = P (dP - delta) cancels on rows that see few keys,
+// where a dS one bf16 ulp off moves dq and dk by more than two ulps. The
+// forward casts P (dropped, times the f32 inv) to bf16 before P V, sums each
+// 64-key tile's P V from zero and adds it to O alpha in f32, as JAX adds
+// dot(P, V) to acc * alpha; l sums the undropped f32 P. dQ = bf16(dS) K and
+// dK = bf16(dS)^T Q cast dS as JAX does; dV = P^T dO takes an f32 P in
+// JAX, so P is split into hi = bf16(P) and lo = bf16(P - hi) and both
+// products go into one f32 sum (what remains is under 2^-16 of P, far
+// below dV's own bf16 rounding). Plan: 128 threads, 4 warps of 16 tile rows
+// each, 64 x 64 score tiles; every operand tile is a bf16 [64][D + 8] tile
+// in shared memory (8 columns of padding: ldmatrix conflict-free), copied
+// by 16-byte cp.async into one of two stages while the tensor cores work
+// on the other; ragged rows and columns past d are zero-filled by the
+// copy's source size. D is 64 or 128 (the instance that holds d; columns
+// past d are zeros, never written). A warp's score tile stays in registers
+// from product to product (a C fragment pair is an A fragment): the
+// forward holds S/P (16 x 64) and O (16 x D) in f32; dq holds S, dP and dQ;
+// dkv computes the transposed scores 32 query rows at a time so that dK
+// and dV (2 x 16 x D) stay in registers across the whole walk. Shared
+// memory at D = 128: forward 87,040, dq 104,448 and dkv 105,472 bytes, two
+// blocks an SM (8 warps, __launch_bounds__(128, 2)); a staged bias (two
+// [64][72] or [64][68] f32 tiles beside K/V or Q) leaves one. ptxas -v
+// (sm_90a), registers a thread without and with the bodies, no spills:
+// forward 240 / 240, dq 238 / 255 and dkv 246 / 254 at D = 128; forward
+// 160 / 192, dq 208 / 250 and dkv 173 / 205 at D = 64. The S/dP depth loop
+// runs one step at a time (unrolled, ptxas hoisted the next steps'
+// fragments and spilled), and the dkv body instance at D = 128 scores 16
+// query rows a sub-step instead of 32 for the same reason. The bias tile
+// is copied with its operand tile (no device read a score); dbias is
+// written from the fragments, zeros for every tile the pass does not
+// compute. Segment ids skip every (query tile, key tile) pair whose id
+// ranges do not meet (id_range: exact, since P is 0 on such a pair;
+// conservative, since it tests [min, max] only). A row whose pairs are all
+// skipped keeps the lse fwd_kernel gives it (kMaskValue once its query tile
+// has a key tile, -inf without one), so the backward reads the same lse.
+//
+// The forward is bound by instruction issue, not by the tensor cores: per
+// score it spends a scale, a max, an exponential, a sum and a select on
+// the CUDA cores, and per tile a rescale of O, against two products on the
+// tensor cores. Its exponentials are exp2f(x log2 e) (exp_2), a fifth of
+// its time less than expf. 128-row query tiles (8 warps, the K/V reads per
+// score halved) were tried on the card and not kept: 28% faster with a
+// bias (8 warps an SM where the 64-row plan with the bias stages fits 4),
+// but 6% slower without a body or with dropout, 19-21% with segment ids
+// (the skip tests coarser pairs) (paddle_tpu_torch/tools/flash_variants.py).
 // Not done yet: wgmma (warpgroup products from shared memory), TMA copies
-// and warp specialisation; the forward's tensor-core redesign and its
-// segment skip.
+// and warp specialisation.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -665,6 +683,11 @@ inline int tc_dim(int d) { return d <= 64 ? 64 : 128; }
 __host__ __device__ constexpr size_t tc_tile(int D) {
   return (size_t)kB * (D + 8) * sizeof(bf16);
 }
+// forward: Q, two stages of K and V; the bias and the key ids, two stages
+inline size_t fwd_tc_smem(int D, bool bias, bool seg) {
+  return 5 * tc_tile(D) + (bias ? 2 * kB * kLdBiasQ * sizeof(float) : 0) +
+         (seg ? 2 * kB * sizeof(int) : 0);
+}
 // dq: Q, dO, two stages of K and V; the bias and the key ids, two stages
 inline size_t dq_tc_smem(int D, bool bias, bool seg) {
   return 6 * tc_tile(D) + (bias ? 2 * kB * kLdBiasQ * sizeof(float) : 0) +
@@ -702,6 +725,13 @@ __device__ __forceinline__ void mma2_rn(float (&c0)[4], float (&c1)[4],
     c0[e] += t0[e];
     c1[e] += t1[e];
   }
+}
+
+// e^x as 2^(x log2 e): exp2f is one MUFU.EX2 (with its range check),
+// expf a longer range reduction around it; within a few f32 ulps of expf,
+// far below the bf16 rounding of P that follows (the forward's softmax)
+__device__ __forceinline__ float exp_2(float x) {
+  return exp2f(x * 1.4426950408889634f);
 }
 
 // The A fragment over the 16 columns of C tiles c0, c1 in bf16
@@ -846,6 +876,242 @@ __device__ __forceinline__ void zero_dbias(float* db, int q0, int k0, int sq,
   }
 }
 
+// forward: a block per (query tile, b*h head), the last query tiles (the
+// most key tiles under the causal mask) first. Q is staged once; the key
+// tiles it visits (with segment ids, those whose ids meet the query
+// tile's) stream through two stages of K, V (and the bias and key ids) by
+// cp.async. Warp w owns query rows 16w .. 16w + 15: S = Q K^T by mma.sync
+// (ldmatrix from the row-major tiles), the online softmax on S's C
+// fragments (a row's max and sum over the 4 lanes that hold it), P's C
+// fragment pairs cast to bf16 as the A fragments of P V, V read
+// transposed by ldmatrix.trans. Each tile's P V is summed from zero and
+// added to O alpha in f32, as JAX adds dot(P, V) to acc * alpha; O stays in
+// f32 registers to the end. The mask runs only on a tile that crosses the
+// warp's causal diagonal or the end of the keys (or with segment ids).
+template <int D, bool kX>
+__global__ void __launch_bounds__(kTcThreads, 2)
+fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ o,
+              float* __restrict__ lse, int h, int kvh, int sq, int sk, int d,
+              float scale, int causal, const Extras x) {
+  constexpr int LD = D + 8, KS = D / 16, NT = D / 8;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;
+  const int bh = blockIdx.y;
+  const int bi = bh / h, hi = bh - bi * h;
+  const int kvi = hi / (h / kvh);
+  const int off = sk - sq;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_tc);
+  bf16* k_s = q_s + kB * LD;       // [2][kB][LD]
+  bf16* v_s = k_s + 2 * kB * LD;   // [2][kB][LD]
+  float* bias_s = reinterpret_cast<float*>(v_s + 2 * kB * LD);
+  const float* bp = kX ? bias_plane(x, bi, hi, sq, sk) : nullptr;
+  int* segk_s = reinterpret_cast<int*>(bias_s + (bp ? 2 * kB * kLdBiasQ : 0));
+  const bool seg = kX && x.seg_q != nullptr;
+  const bool drop = kX && x.rate > 0.f;
+  const int* sgk = seg ? x.seg_k + (size_t)bi * sk : nullptr;
+
+  const size_t qrs = (size_t)h * d, krs = (size_t)kvh * d;
+  const size_t qhead = ((size_t)bi * sq * h + hi) * d;
+  const bf16* kb = k + ((size_t)bi * sk * kvh + kvi) * d;
+  const bf16* vb = v + ((size_t)bi * sk * kvh + kvi) * d;
+
+  // the lane's two query rows: g and g + 8 of its warp's 16
+  int rows[2], sgq[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rows[i] = q0 + warp * 16 + g + 8 * i;
+    sgq[i] = seg && rows[i] < sq ? x.seg_q[(size_t)bi * sq + rows[i]] : 0;
+  }
+  const int2 qids = seg ? id_range(x.seg_q + (size_t)bi * sq, q0, sq)
+                        : make_int2(0, 0);
+
+  const int nkt = key_tiles(q0, sk, off, causal);
+  // fwd_kernel's running max is at least kMaskValue once a tile is
+  // visited: a row whose tiles are all skipped keeps its lse (kMaskValue),
+  // a query tile with no key tile its -inf
+  float m[2], l[2] = {0.f, 0.f}, acc[NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) m[i] = nkt > 0 ? kMaskValue : -CUDART_INF_F;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // the first key tile from kt on whose ids meet the query tile's
+  auto next = [&](int kt) {
+    if (seg)
+      while (kt < nkt && !ranges_meet(qids, id_range(sgk, kt * kB, sk))) ++kt;
+    return kt;
+  };
+  auto stage = [&](int kt, int buf) {
+    const int k0 = kt * kB;
+    stage_rows<D>(k_s + buf * kB * LD, kb, krs, k0, sk, d);
+    stage_rows<D>(v_s + buf * kB * LD, vb, krs, k0, sk, d);
+    if (bp) stage_bias<kLdBiasQ>(bias_s + buf * kB * kLdBiasQ, bp, q0, k0, sq,
+                                 sk);
+    if (seg) stage_vec(segk_s + buf * kB, sgk, k0, sk);
+  };
+
+  int kt = next(0);
+  if (kt < nkt) {
+    stage_rows<D>(q_s, q + qhead, qrs, q0, sq, d);
+    stage(kt, 0);
+  }
+  cp_async_commit();
+  for (int buf = 0; kt < nkt; buf ^= 1) {
+    const int nx = next(kt + 1);
+    if (nx < nkt) stage(nx, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait1();   // Q and this tile have landed
+    __syncthreads();
+    const int k0 = kt * kB;
+    const bf16* ks = k_s + buf * kB * LD;
+    const bf16* vs = v_s + buf * kB * LD;
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    // one depth step at a time (dq_tc_kernel: unrolled, the compiler
+    // hoists the next steps' fragments and spills)
+#pragma unroll 1
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t aq[4];
+      ldmatrix4(aq, q_s + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                        (lane >> 4) * 8);
+#pragma unroll
+      for (int n = 0; n < 8; n += 2) {
+        uint32_t bk[4];
+        ldmatrix4(bk, ks + (n * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+        mma2_rn(s[n], s[n + 1], aq, bk);
+      }
+    }
+    // element e of tile n (bit 4n + e of the masks): query row rows[e >>
+    // 1], key k0 + 8n + 2 t4 + (e & 1). JAX's s = dot * scale + bias, each
+    // rounded.
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+    if (kX && bp) {
+      const float* bt = bias_s + buf * kB * kLdBiasQ +
+                        (warp * 16 + g) * kLdBiasQ + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = __fadd_rn(s[n][e], bt[(e >> 1) * 8 * kLdBiasQ + n * 8 +
+                                          (e & 1)]);
+    }
+    uint32_t ok = 0xffffffffu, keep = 0;
+    if ((causal && k0 + kB - 1 > q0 + warp * 16 + off) || k0 + kB > sk ||
+        seg) {
+      ok = 0;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ok |= (uint32_t)sees(rows[e >> 1], k0 + n * 8 + 2 * t4 + (e & 1),
+                               sq, sk, off, causal) << (4 * n + e);
+      if (seg) {
+        const int* st = segk_s + buf * kB + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (sgq[e >> 1] != st[n * 8 + (e & 1)]) ok &= ~(1u << (4 * n + e));
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!(ok >> (4 * n + e) & 1)) s[n][e] = kMaskValue;
+    }
+    if (drop) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          keep |= (uint32_t)dropout_keep(x.seed, bh, rows[e >> 1],
+                                         k0 + n * 8 + 2 * t4 + (e & 1),
+                                         x.rate) << (4 * n + e);
+    }
+    // the online softmax: the tile's row max (from kMaskValue, as
+    // fwd_kernel), alpha, P (a select to 0 where masked), l from the
+    // undropped P; P V takes the dropped P
+    float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mc = kMaskValue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mc = fmaxf(mc, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+      const float mn = fmaxf(m[i], mc);
+      alpha[i] = exp_2(m[i] - mn);
+      m[i] = mn;
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, bit = 4 * n + e;
+        const float p = ok >> bit & 1 ? exp_2(s[n][e] - m[i]) : 0.f;
+        ps[i] += p;
+        s[n][e] = drop ? (keep >> bit & 1 ? __fmul_rn(p, x.inv) : 0.f) : p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 1);
+      ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 2);
+      l[i] = __fadd_rn(__fmul_rn(alpha[i], l[i]), ps[i]);
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag(s[2 * kk], s[2 * kk + 1], pa[kk]);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t b[4];
+        ldmatrix4_trans(b, vs + (kk * 16 + (lane & 15)) * LD + n * 8 +
+                               (lane >> 4) * 8);
+        mma2(t0, t1, pa[kk], b);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[n][e] = __fadd_rn(__fmul_rn(acc[n][e], alpha[e >> 1]), t0[e]);
+        acc[n + 1][e] =
+            __fadd_rn(__fmul_rn(acc[n + 1][e], alpha[e >> 1]), t1[e]);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+    kt = nx;
+  }
+  cp_async_wait0();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= sq) continue;
+    const float ls = l[i] == 0.f ? 1.f : l[i];
+    if (t4 == 0) lse[(size_t)bh * sq + rows[i]] = m[i] + logf(ls);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = n * 8 + 2 * t4;
+      if (col < d)
+        *reinterpret_cast<__nv_bfloat162*>(o + qhead + (size_t)rows[i] * qrs +
+                                           col) =
+            __floats2bfloat162_rn(acc[n][2 * i] / ls, acc[n][2 * i + 1] / ls);
+    }
+  }
+}
+
 // dq pass: a block per (query tile, b*h head), the last query tiles (the
 // most key tiles under the causal mask) first. Q and dO are staged once;
 // the key tiles it computes stream through two stages of K, V (and the
@@ -962,7 +1228,7 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bk[4], bv[4];
         ldmatrix4(bk, ks + bi_);
         ldmatrix4(bv, vs + bi_);
-        mma2(s[n], s[n + 1], aq, bk);
+        mma2_rn(s[n], s[n + 1], aq, bk);
         mma2_rn(dp[n], dp[n + 1], ado, bv);
       }
     }
@@ -1202,7 +1468,7 @@ dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           uint32_t bq[4], bdo[4];
           ldmatrix4(bq, qs + bi_);
           ldmatrix4(bdo, dos + bi_);
-          mma2(s[n], s[n + 1], ak, bq);
+          mma2_rn(s[n], s[n + 1], ak, bq);
           mma2_rn(dp[n], dp[n + 1], av, bdo);
         }
       }
@@ -1377,6 +1643,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 template <int D, bool kX>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
+                          void* o, void* lse, int b, int h, int kvh, int sq,
+                          int sk, int d, float scale, int causal,
+                          const Extras& x, size_t smem, cudaStream_t stream) {
+  cudaError_t e = allow_smem(fwd_tc_kernel<D, kX>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((sq + kB - 1) / kB, b * h);
+  fwd_tc_kernel<D, kX><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), h, kvh, sq, sk, d, scale, causal, x);
+  return cudaGetLastError();
+}
+
+template <int D, bool kX>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dq, int b, int h, int kvh, int sq, int sk,
@@ -1432,14 +1713,6 @@ inline bool aligned16(std::initializer_list<const void*> ps) {
   return true;
 }
 
-// The instance of ``launch`` for the launch's type and extras.
-#define FLASH_DISPATCH(launch, dtype, x, ...)                              \
-  (dtype == 1 ? (any_extra(x) ? launch<__nv_bfloat16, true>(__VA_ARGS__)   \
-                              : launch<__nv_bfloat16, false>(__VA_ARGS__)) \
-   : dtype == 0 ? (any_extra(x) ? launch<float, true>(__VA_ARGS__)         \
-                                : launch<float, false>(__VA_ARGS__))       \
-                : cudaErrorInvalidValue)
-
 inline Extras make_extras(const void* bias, int bias_b, int bias_h,
                           const void* seg_q, const void* seg_k, void* dbias,
                           long long seed, float rate, float inv) {
@@ -1455,10 +1728,10 @@ inline Extras make_extras(const void* bias, int bias_b, int bias_h,
 // flash_attention.py checks devices, types, shapes and contiguity first).
 // dtype: 0 = float32, 1 = bfloat16; block and smem: the wrapper's plan, the
 // kernels' kB-row tiles and the shared memory of the instance the launch
-// runs (the backward's: the tensor-core passes' in bf16, with the bias and
-// id stages it takes), or the launch is refused (cudaErrorInvalidValue;
-// a bf16 backward operand not 16-byte aligned: cudaErrorMisaligned-
-// Address). The optional bodies: bias (f32, or
+// runs (in bf16 the tensor-core kernel's, with the bias and id stages it
+// takes), or the launch is refused (cudaErrorInvalidValue; a bf16 operand
+// not 16-byte aligned: cudaErrorMisalignedAddress). The optional bodies:
+// bias (f32, or
 // null) with its batch and head extents bias_b, bias_h; seg_q, seg_k
 // (int32, or both null); dbias (dq pass, or null); the dropout seed (its
 // low 32 bits), rate and inv = 1 / (1 - rate) (rate 0: no dropout). Each
@@ -1473,13 +1746,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    float inv, int causal, int dtype,
                                    void* stream) {
   using namespace paddle_tpu_torch::flash;
-  if (block != kB || (size_t)smem != fwd_smem(d)) return cudaErrorInvalidValue;
+  const size_t want = dtype == 1 ? fwd_tc_smem(tc_dim(d), bias != nullptr,
+                                               seg_q != nullptr)
+                                 : fwd_smem(d);
+  if (block != kB || (size_t)smem != want) return cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Extras x = make_extras(bias, bias_b, bias_h, seg_q, seg_k, nullptr,
                                seed, rate, inv);
-  return FLASH_DISPATCH(launch_fwd, dtype, x, q, k, v, o, lse, b, h, kvh,
-                        sq, sk, d, scale, causal, x, s);
+  if (dtype == 1) {
+    if (!aligned16({q, k, v, bias})) return cudaErrorMisalignedAddress;
+    return TC_DISPATCH(launch_fwd_tc, d, x, q, k, v, o, lse, b, h, kvh, sq,
+                       sk, d, scale, causal, x, want, s);
+  }
+  if (dtype != 0) return cudaErrorInvalidValue;
+  return F32_DISPATCH(launch_fwd, x, q, k, v, o, lse, b, h, kvh, sq, sk, d,
+                      scale, causal, x, s);
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,

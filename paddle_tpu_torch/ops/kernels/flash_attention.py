@@ -11,12 +11,12 @@ in-kernel dropout keyed by :func:`dropout_keep`. The kernels are
 ``paddle_tpu_torch/csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``,
 built by :mod:`._build` at the first launch and bound with ctypes; that
 file's header says what bounds them on the H100 (operations) and how their
-design follows from it. The bf16 backward passes run on the tensor cores
-(``dq_tc_kernel``, ``dkv_tc_kernel``: 128 threads, bf16 tiles, two
-``cp.async`` stages; :func:`flash_plan`), and with segment ids they skip
-every (query tile, key tile) pair whose id ranges do not meet
-(:func:`segment_tiles_kept`, the kernels' test in numpy); every other
-launch (the forward, the f32 passes) runs the CUDA-core kernels.
+design follows from it. Every bf16 launch runs on the tensor cores
+(``fwd_tc_kernel``, ``dq_tc_kernel``, ``dkv_tc_kernel``: 128 threads, bf16
+tiles, two ``cp.async`` stages; :func:`flash_plan`), and with segment ids
+they skip every (query tile, key tile) pair whose id ranges do not meet
+(:func:`segment_tiles_kept`, the kernels' test in numpy); the f32 launches
+run the CUDA-core kernels.
 
 Layout: the public ``[batch, seq, heads, head_dim]`` (q, o: ``h`` heads;
 k, v: ``kvh`` heads, ``h % kvh == 0``), read by stride; the log-sum-exp
@@ -257,10 +257,11 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False, scale=None,
 #: rows of a query tile and of a key tile (``kB`` in csrc/flash_attention.cu;
 #: the launchers refuse another)
 BLOCK = 64
-#: threads of a block: the CUDA-core kernels' 256; the bf16 backward
-#: passes' 128 (4 warps on the tensor cores, ``kTcThreads``)
+#: threads of a block: the CUDA-core kernels' 256; the bf16 launches' 128
+#: (4 warps on the tensor cores, ``kTcThreads``)
 _THREADS, _TC_THREADS = 256, 128
-_TC_PASSES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+_TC_PASSES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
 _SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 #: pointer arguments of each launcher (q, k, v, bias, seg_q, seg_k, then
 #: the pass's own)
@@ -279,8 +280,8 @@ def flash_codes(name):
 
 def tensor_cores(name, dt) -> bool:
     """Whether launch ``name`` in type ``dt`` (a dtype name) runs on the
-    tensor cores: the bf16 backward passes (``dq_tc_kernel``,
-    ``dkv_tc_kernel``); every other launch runs the CUDA-core kernels."""
+    tensor cores: every bf16 launch (``fwd_tc_kernel``, ``dq_tc_kernel``,
+    ``dkv_tc_kernel``); the f32 launches run the CUDA-core kernels."""
     return name in _TC_PASSES and dt == "bfloat16"
 
 
@@ -289,18 +290,20 @@ def flash_smem(name, d, dt="float32", bias=False, seg=False) -> int:
     ``dt`` (the figure its launcher holds the plan to). CUDA-core kernels:
     f32 tiles of ``BLOCK`` rows (row stride d + 1) and the score tiles
     (stride BLOCK + 1) (``fwd_smem``/``dq_smem``/``dkv_smem``). The
-    tensor-core passes (``dq_tc_smem``/``dkv_tc_smem``): six bf16 [BLOCK][D
-    + 8] tiles (dq: Q, dO and two stages of K and V; dkv: K, V and two
-    stages of Q and dO), the dkv pass's two stages of lse and delta, and,
-    with a bias or segment ids, two stages of the bias tile ([BLOCK][BLOCK
-    + 8] or [BLOCK][BLOCK + 4] f32) and of the other side's ids."""
+    tensor-core kernels (``fwd_tc_smem``/``dq_tc_smem``/``dkv_tc_smem``):
+    bf16 [BLOCK][D + 8] tiles (forward: Q and two stages of K and V; dq: Q,
+    dO and two stages of K and V; dkv: K, V and two stages of Q and dO),
+    the dkv pass's two stages of lse and delta, and, with a bias or segment
+    ids, two stages of the bias tile ([BLOCK][BLOCK + 8] or [BLOCK][BLOCK +
+    4] f32) and of the other side's ids."""
     if tensor_cores(name, dt):
         # the instance that holds d: 64 or 128 columns (``tc_dim``)
         tile = BLOCK * ((64 if d <= 64 else 128) + 8) * 2
         ids = 2 * BLOCK * 4 if seg else 0
-        if name == "flash_attention_bwd_dq":
-            return 6 * tile + (2 * BLOCK * (BLOCK + 8) * 4 if bias else 0) \
-                + ids
+        if name != "flash_attention_bwd_dkv":
+            tiles = 5 if name == "flash_attention_fwd" else 6
+            return tiles * tile + (2 * BLOCK * (BLOCK + 8) * 4 if bias
+                                   else 0) + ids
         return 6 * tile + 4 * BLOCK * 4 + (
             2 * BLOCK * (BLOCK + 4) * 4 if bias else 0) + ids
     tile, ldp = BLOCK * (d + 1), BLOCK * (BLOCK + 1)
@@ -778,6 +781,7 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, bias=None,
     name = "flash_attention_fwd"
     _check(name, q, k, v, causal, bias, seg_q, seg_k)
     _check_extras(name, q, k, bias, seg_q, seg_k, rate)
+    q, k, v, bias = _aligned(q, k, v, bias)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
                       dtype=torch.float32, device=q.device)

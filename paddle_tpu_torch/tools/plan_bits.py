@@ -23,7 +23,12 @@ names (a change that reorders a kernel's sums on purpose), which may
 differ::
 
     python3 paddle_tpu_torch/tools/plan_bits.py --compare A.pt B.pt \
-        --expect "flash_attention_bwd_dq*" "flash_attention_bwd_dkv*"
+        --expect "flash_attention_fwd" "flash_attention_fwd[[][!f]*"
+
+(``[[]`` is a literal bracket: every bf16 forward case, not ``[f32]``).
+The bf16 backward cases take their lse and delta from the plain forward
+(``flash_fwd_ref``), so a change to the forward kernel shows only in the
+forward's cases.
  It imports nothing of JAX or
 of ``paddle_tpu``.
 """
@@ -154,7 +159,9 @@ def _cases(torch, k):
     fa = k.flash_attention
     qf, kf, vf = rn(1, 1024, 8, 128), rn(1, 1024, 8, 128), rn(1, 1024, 8,
                                                              128)
-    o, lse = fa.flash_fwd_cuda(qf, kf, vf, True)
+    # the bf16 backward cases take lse and delta from the plain forward, so
+    # that a change to the forward kernel shows in its own cases only
+    o, lse = fa.flash_fwd_ref(qf, kf, vf, True)
     do = rn(1, 1024, 8, 128)
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     out.append(("flash_attention_fwd", lambda: fa.flash_fwd_cuda(
@@ -180,7 +187,7 @@ def _cases(torch, k):
             "causal_sq_gt_sk": (qf, kf[:, :512].contiguous(),
                                 vf[:, :512].contiguous(), {})}
         for cls, (qb, kb, vb, kw) in bodies.items():
-            ob, lb = fa.flash_fwd_cuda(qb, kb, vb, True, None, **kw)
+            ob, lb = fa.flash_fwd_ref(qb, kb, vb, True, None, **kw)
             db = (ob.float() * do.float()).sum(-1).transpose(1, 2) \
                 .contiguous()
             grad = cls == "bias"

@@ -196,7 +196,7 @@ def test_segment_ids_from_cu_seqlens_matches_jax():
     assert got.tolist() == np.asarray(want).tolist()
 
 
-def test_dropout_is_not_ported():
+def test_dropout_is_ported_with_the_jax_keep_mask():
     """Dropout, refused before it was ported, now runs: the op and
     ``_ref_attention`` with an explicit seed equal the JAX
     ``_ref_attention`` with the same seed (one keep mask), and a seed
@@ -409,6 +409,40 @@ def test_causal_sq_gt_sk_rows_are_zero():
     lse_inf = torch.where(torch.arange(40) < top, -torch.inf, lse)
     dk, dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse_inf, delta, True)
     assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+
+
+@pytest.mark.parametrize("body", ["causal_sq_gt_sk", "segments"])
+def test_plain_forward_rows_that_see_no_key(body):
+    """A row that sees no key (causal with sq > sk; a segment id no key
+    has) gets lse = MASK_VALUE and O = 0 from the plain forward, the value
+    the CUDA kernels give a row whose query tile visits a key tile, and the
+    JAX kernel's on the same inputs (one tile: every row's tile visits)."""
+    b, sq, sk, h, kvh, d = 2, 40, 16, 2, 1, 8
+    q, k, v, _ = _qkvd(16, b, sq, sk, h, kvh, d)
+    kw, jseg = {}, (None, None)
+    if body == "segments":
+        rng = np.random.RandomState(3)
+        sgq = rng.randint(0, 3, (b, sq)).astype(np.int32)
+        sgq[:, :7] = 9                  # no key has id 9
+        sgk = rng.randint(0, 3, (b, sk)).astype(np.int32)
+        kw = {"seg_q": _t(sgq), "seg_k": _t(sgk)}
+        jseg = (jnp.asarray(sgq).reshape(b, 1, sq),
+                jnp.asarray(sgk).reshape(b, 1, sk))
+    causal = body == "causal_sq_gt_sk"
+    o, lse = kfa.flash_fwd_ref(_t(q), _t(k), _t(v), causal, **kw)
+    unseen = ~torch.from_numpy(_sees_a_key(
+        ("", b, sq, sk, h, kvh, d, causal, None, None, None),
+        {nm: t.numpy() for nm, t in kw.items()}).copy())
+    assert int(unseen.sum()) == (2 * 2 * 24 if causal else 2 * 2 * 7)
+    assert bool((lse[unseen] == kfa.MASK_VALUE).all())
+    assert bool((o.transpose(1, 2)[unseen] == 0).all())
+    assert bool((lse[~unseen] > kfa.MASK_VALUE / 2).all())
+    meta = (h, kvh, 1, 1, False, None, 0.0)
+    _, jlse = _pallas(jpfa._fwd, _heads_first(q, b, sq, h),
+                      _heads_first(k, b, sk, kvh), _heads_first(v, b, sk, kvh),
+                      None, *jseg, 1.0 / np.sqrt(d), causal, meta)
+    jlse = np.asarray(jlse).reshape(b, h, sq)
+    assert (jlse[unseen.numpy()] == np.float32(kfa.MASK_VALUE)).all()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 77, 2 ** 31 - 2, 2 ** 32 - 1])

@@ -212,8 +212,9 @@ def test_flash_bound_counts_the_pairs_of_one_segment(causal):
 # -- the bf16 backward passes: plans and the segment-tile skip ----------
 
 _BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-#: the parent's f32 (and forward) plans: 256 threads, f32 tiles of stride
-#: d + 1 (csrc/flash_attention.cu's fwd_smem, dq_smem, dkv_smem)
+_TC = ("flash_attention_fwd",) + _BWD
+#: the parent's f32 plans: 256 threads, f32 tiles of stride d + 1
+#: (csrc/flash_attention.cu's fwd_smem, dq_smem, dkv_smem)
 _PARENT_SMEM = {("flash_attention_fwd", 64): 66560,
                 ("flash_attention_fwd", 128): 115712,
                 ("flash_attention_bwd_dq", 64): 83712,
@@ -222,12 +223,12 @@ _PARENT_SMEM = {("flash_attention_fwd", 64): 66560,
                 ("flash_attention_bwd_dkv", 128): 165888}
 
 
-@pytest.mark.parametrize("name", _BWD)
+@pytest.mark.parametrize("name", _TC)
 @pytest.mark.parametrize("d", [64, 128])
 def test_tensor_core_plans_pass_smem_and_arg_rules(name, d):
-    """The bf16 backward passes' plans (128 threads, bf16 tiles, the bias
-    and id stages where the launch has them) fit the card and bind the
-    launcher's signature, at both instances' head dims."""
+    """The bf16 plans of the three kernels (128 threads, bf16 tiles, the
+    bias and id stages where the launch has them) fit the card and bind
+    the launcher's signature, at both instances' head dims."""
     from paddle_tpu_torch.ops.kernels.flash_attention import flash_spec
     for bias, seg, dbias in ((None, False, False), ((1, 4), True, True),
                              ((2, 4), False, False), (None, True, False)):
@@ -245,19 +246,16 @@ def test_tensor_core_plans_pass_smem_and_arg_rules(name, d):
 
 
 @pytest.mark.parametrize("name,d", sorted(_PARENT_SMEM))
-def test_f32_and_forward_plans_are_the_parents(name, d):
-    """The f32 instances, and the forward in both types, keep the CUDA-core
-    kernels and their plans: 256 threads, the parent's shared memory."""
+def test_f32_plans_are_the_parents(name, d):
+    """The f32 instances of the three kernels keep the CUDA-core kernels
+    and their plans: 256 threads, the parent's shared memory."""
     from paddle_tpu_torch.ops.kernels.flash_attention import flash_spec
-    dts = ("float32", "bfloat16") if name == "flash_attention_fwd" \
-        else ("float32",)
-    for dt in dts:
-        for bias, seg in ((None, False), ((1, 4), True)):
-            spec = flash_spec(name, 1, 128, 128, 4, 2, d, dt, True,
-                              bias=bias, seg=seg)
-            assert (spec.threads, spec.dyn_smem, spec.blocks_per_sm) == \
-                (256, _PARENT_SMEM[(name, d)], 1)
-            assert spec.plan["products"] == "simt"
+    for bias, seg in ((None, False), ((1, 4), True)):
+        spec = flash_spec(name, 1, 128, 128, 4, 2, d, "float32", True,
+                          bias=bias, seg=seg)
+        assert (spec.threads, spec.dyn_smem, spec.blocks_per_sm) == \
+            (256, _PARENT_SMEM[(name, d)], 1)
+        assert spec.plan["products"] == "simt"
 
 
 @st.composite
@@ -319,7 +317,7 @@ def test_segment_tile_skip_never_drops_a_pair_of_one_id(ids, causal):
         assert np.array_equal(hi[:, t], chunk.max(1))
 
 
-@pytest.mark.parametrize("name", _BWD)
+@pytest.mark.parametrize("name", _TC)
 @pytest.mark.parametrize("seed,causal,sq,sk", [(0, True, 512, 512),
                                                (1, True, 700, 300),
                                                (2, False, 300, 450)])
@@ -343,7 +341,7 @@ def test_segment_skip_plan_covers_every_needed_tile(name, seed, causal, sq,
     assert check_launch(spec) == []
     nqt, nkt = -(-sq // 64), -(-sk // 64)
     q_, k_ = np.arange(nqt)[:, None], np.arange(nkt)[None, :]
-    if name == "flash_attention_bwd_dq":
+    if name != "flash_attention_bwd_dkv":
         visit = k_ < fa._key_tiles(q_ * 64, sk, sk - sq, causal)
     else:
         visit = q_ >= (np.maximum(k_ * 64 - (sk - sq), 0) // 64 if causal
@@ -357,18 +355,21 @@ def test_segment_skip_plan_covers_every_needed_tile(name, seed, causal, sq,
 def test_segment_skip_regression_fires_grid_floor_drop():
     """The specimen's ids under the kernels' skip: no finding; under a skip
     that drops the tile two segments share, GRID_FLOOR_DROP on the
-    operands that tile's pairs need (the dq pass's key side, the dkv
-    pass's query side)."""
-    assert all(check_launch(sp) == [] for sp in kc.capture_segment_skip())
+    operands that tile's pairs need (the forward's and the dq pass's key
+    side, the dkv pass's query side)."""
+    specs = kc.capture_segment_skip()
+    assert [sp.name for sp in specs] == list(_TC)
+    assert all(check_launch(sp) == [] for sp in specs)
     rep = kc.build_segment_skip_regression()
     assert {f.code for f in rep.findings} == {"GRID_FLOOR_DROP"}
     assert sorted(f.site for f in rep.findings) == sorted(
-        [f"flash_attention_bwd_dq/{o}" for o in ("k", "v", "seg_k")]
+        [f"{n}/{o}" for n in ("flash_attention_fwd", "flash_attention_bwd_dq")
+         for o in ("k", "v", "seg_k")]
         + [f"flash_attention_bwd_dkv/{o}"
            for o in ("q", "do", "lse", "delta", "seg_q")])
-    k_drop = next(f for f in rep.findings
-                  if f.site == "flash_attention_bwd_dq/k")
-    assert k_drop.detail["first_missing"] == [0, 1, 0, 0]
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq"):
+        k_drop = next(f for f in rep.findings if f.site == f"{n}/k")
+        assert k_drop.detail["first_missing"] == [0, 1, 0, 0]
 
 
 # -- the regression specimen --------------------------------------------

@@ -103,3 +103,55 @@ def test_plan_bits_compare_lets_only_expected_cases_differ(tmp_path):
     assert tool.compare(paths["a"], paths["b"]) == 1
     assert tool.compare(paths["a"], paths["b"], expect=expect) == 0
     assert tool.compare(paths["a"], paths["c"], expect=expect) == 1
+
+
+def test_plan_bits_forward_patterns_spare_the_f32_case(tmp_path):
+    """The forward's ``--expect`` patterns (``[[]`` a literal bracket)
+    let every bf16 forward case differ and hold ``[f32]`` and the
+    backward cases to their bits."""
+    import torch
+    tool = _plan_bits()
+    names = ("flash_attention_fwd", "flash_attention_fwd[bias]",
+             "flash_attention_fwd[causal_sq_gt_sk]",
+             "flash_attention_fwd[f32]", "flash_attention_bwd_dq[f32]",
+             "flash_attention_bwd_dq")
+    base = {n: [torch.zeros(2)] for n in names}
+    expect = ("flash_attention_fwd", "flash_attention_fwd[[][!f]*")
+    for name in names:
+        a, b = str(tmp_path / "a.pt"), str(tmp_path / f"{name}.pt")
+        torch.save(base, a)
+        torch.save(dict(base, **{name: [torch.ones(2)]}), b)
+        bf16_fwd = name.startswith("flash_attention_fwd") and "f32" not in name
+        assert tool.compare(a, b, expect=expect) == (0 if bf16_fwd else 1), \
+            name
+
+
+def _flash_variants():
+    path = ROOT / "paddle_tpu_torch" / "tools" / "flash_variants.py"
+    spec = importlib.util.spec_from_file_location("flash_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_flash_variants_patch_the_committed_source():
+    """Every design ``flash_variants.py`` builds applies to the committed
+    source: ``running_s`` sums S by the running sum in all three kernels,
+    ``expf`` takes the forward's two exponentials back to expf, and
+    ``rows128`` adds a 128-row forward whose C entry takes the launcher's
+    argument codes."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    tool = _flash_variants()
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert src.count("mma2_rn(s[n], s[n + 1]") == 3
+    assert tool.patched("committed", src) == src
+    running = tool.patched("running_s", src)
+    assert running.count("mma2_rn(s[n], s[n + 1]") == 0
+    assert running.count("mma2(s[n], s[n + 1]") == 3
+    assert tool.patched("expf", src).count("exp_2(") == src.count("exp_2(") - 2
+    rows = tool.patched("rows128", src)
+    assert "fwd_tc128_kernel<D, kX><<<grid, 256, smem, stream>>>" in rows
+    launchers = kernel_rules.launchers_in(rows)
+    assert launchers["flash_attention_fwd128"] == \
+        launchers["flash_attention_fwd"] == kfa.flash_codes(
+            "flash_attention_fwd")
