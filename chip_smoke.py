@@ -27,16 +27,18 @@ script exits non-zero:
    kernels there too), and two launches that must agree bit for bit;
    decode_block_fused also against the two-stage kernels in f32, and
    timed beside the two-stage pair on the same inputs; decode_mlp_block
-   also at 32 and 128 rows (the prefill MLP). layer_norm_fwd, which no
+   also at 16, 32 and 128 rows (the prefill MLP: in bf16 its tensor-core
+   body, each case's body recorded). layer_norm_fwd, which no
    runtime route launches (as in the JAX package), at the JAX kernel
    catalog's 24 x 128 and 4096 x 1024 f32 and at [4095, 1024] bf16,
    timed at 4096 x 1024 beside F.layer_norm. prefill_attn_block runs at
-   KV=32 and 8, f32 and bf16, P=32 and 128, permuted tables and (pos0,
-   n_valid) = (0, P), (0, 1), (0, P-3), (5, P-3), (16, P), (600, 21 at
-   P=32, 77 at P=128): the real rows against the plain version, every row
-   finite, two launches bit for bit; timed at P=128, bf16, pos0 0 and 512
-   beside its bound, its plain version, its four products alone
-   (``torch.matmul``) and SDPA over the same attention. rms_norm_fwd also
+   KV=32 and 8, f32 and bf16, P=32 and 128 (and 16 in bf16: the
+   tensor-core body), permuted tables and (pos0, n_valid) = (0, P), (0,
+   1), (0, P-3), (5, P-3), (16, P), (600, 11 at P=16, 21 at P=32, 77 at
+   P=128): the real rows against the plain version, every row finite, two
+   launches bit for bit; timed at P=128, bf16, pos0 0, 512 and 896 and at
+   P=32, pos0 512, beside its bound, its plain version, its four products
+   alone (``torch.matmul``) and SDPA over the same attention. rms_norm_fwd also
    runs at the train phase's shape (x [2, 2048, 4096] bf16, the f32 norm
    weight cast to bf16), alone and through ``RMSNorm``'s autograd, and is
    timed there too.
@@ -93,7 +95,10 @@ script exits non-zero:
    decode_block_fused once per layer per decode step, decode_attn_block
    never, decode_mlp_block once per layer per chunk (the prefill MLP),
    paged attention never, RMSNorm once per decode step and once per chunk
-   (the final norms).
+   (the final norms); every prefill_attn_block and every chunk's
+   decode_mlp_block launch on the tensor-core body, every decode step's
+   decode_mlp_block (the two-stage route) on the CUDA-core one
+   (``launches_by_body``).
 5. profile of that engine: 8 requests of 384 prompt tokens; the first
    two chunks of the first one (alone on the engine) traced with
    torch.profiler (device time per chunk by kernel group), every later
@@ -233,7 +238,9 @@ script exits non-zero:
    its blocks an SM), and ptxas's static shared memory of every device
    kernel at most its launch's declared figure.
 
-Then the ``kernels`` summary line, 18 rows, the specimen's row
+Then the ``kernels`` summary line, 18 rows and ``decode_mlp_block[tc]``
+(its tensor-core body at a 128-row chunk; launches: the default route's
+chunks, by bucket), the specimen's row
 (``demo_prefix_mlp_block``, launches from its own phase), the 8 quantized rows
 (``decode_attn_block[int8]`` ... ``prefill_attn_block[int4]``, launches
 from the quantized serving routes) and the 9 int8-pool rows
@@ -745,9 +752,11 @@ def mlp_timing(fdb, args):
 def fused_mlp_phase(gpu):
     """decode_mlp_block against mlp_block_ref on the card, at F=11008 and
     at an F no tile width divides (the last F tile masked), f32 and bf16,
-    8, 20 and 32 slots and 32 and 128 rows (the prefill MLP's chunks),
-    tolerances as for the attention block (x_out at 1e-4 in f32); the bf16
-    cases of 32 and 128 rows are timed beside their bound."""
+    8, 20 and 32 slots and 16, 32 and 128 rows (the prefill MLP's chunks:
+    bf16 from 9 rows on runs the tensor-core body, each case records the
+    body its plan took), tolerances as for the attention block (x_out at
+    1e-4 in f32); the bf16 cases of 16, 32 and 128 rows are timed beside
+    their bound."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -760,7 +769,7 @@ def fused_mlp_phase(gpu):
                      (torch.bfloat16, 11000, B8), (torch.float32, 11012, B8),
                      (torch.bfloat16, F7, 32), (torch.float32, 11012, 20),
                      (torch.float32, F7, 32), (torch.bfloat16, F7, 128),
-                     (torch.float32, F7, 128)):
+                     (torch.float32, F7, 128), (torch.bfloat16, F7, 16)):
         def rn(*shape, std=1.0):
             return (torch.randn(*shape, generator=gen, device="cuda")
                     * std).to(dt)
@@ -775,12 +784,13 @@ def fused_mlp_phase(gpu):
         same = torch.equal(got, again)
         out = _check_case("x_out", got, want, dt, 1e-4)
         max_err = max(max_err, out["max_abs_err"])
+        plan = launch_plan(lambda: fdb.decode_mlp_block_cuda(*args))
         case = {"dtype": str(dt)[6:], "F": F, "B": B, "output": out,
                 "bitwise_repeatable": same, "dispatch": picked[1],
-                "smem_bytes": fdb.mlp_smem_bytes(D7, args[0].element_size()),
+                "body": plan["body"], "body_rule": plan["body_rule"],
                 "ok": out["ok"] and same and picked[1] == "cuda_fused"}
-        if dt == torch.bfloat16 and F == F7 and B in (32, 128):
-            rows[B] = mlp_timing(fdb, args)
+        if dt == torch.bfloat16 and F == F7 and B in (16, 32, 128):
+            rows[B] = dict(mlp_timing(fdb, args), body=plan["body"])
             case["ms"] = rows[B]["ms"]
         cases.append(case)
         if not case["ok"]:
@@ -805,7 +815,16 @@ def fused_mlp_phase(gpu):
            "prefill_rows": rows, "ok": True}
     emit({"phase": "kernel", "kernel": "decode_mlp_block", "gpu": gpu,
           "cases": cases, "prefill_rows": rows})
-    return row
+    # the tensor-core body at the 128-row chunk (the main path's prefill
+    # MLP), a row of its own
+    tc_row = dict(row, name="decode_mlp_block[tc]",
+                  shape={"B": 128, "D": D7, "F": F7}, max_abs_err=max(
+                      c["output"]["max_abs_err"] for c in cases
+                      if c["body"] == "tc"),
+                  **{k: rows[128][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "matmul_ms")})
+    del tc_row["prefill_rows"]
+    return [row, tc_row]
 
 
 def block_inputs(gen, dt, KV, F, rope, B):
@@ -974,19 +993,23 @@ def layer_norm_phase(gpu):
 
 
 PREFILL_CASES = ((0, 0), (0, 1), (0, -3), (5, -3), (16, 0), (600, None))
+# n_valid of PREFILL_CASES' None case by chunk rows
+PREFILL_PARTIAL = {16: 11, 32: 21, 128: 77}
 
 
 def prefill_attn_phase(gpu):
     """prefill_attn_block against prefill_attn_block_ref (the dense
     composition: the RMSNorm kernel, cuBLAS products, attention over the
     gathered view) on the card, at LLaMA-7B widths with KV=32 and KV=8,
-    f32 (TF32 off) and bf16, chunks of 32 and 128 rows, a permuted table
-    of 72 pages, and the (pos0, n_valid) cases of PREFILL_CASES (n_valid
-    0 = P, negative = P minus it, None = 21 at P=32 and 77 at P=128).
-    The real rows of x_out (f32 1e-4), k_new and v_new (f32 1e-5) must
-    agree, bf16 to two ulps (bf16_close); every row of x_out must be
-    finite; two launches must give the same bits. Dispatch must pick the
-    kernel at every shape. Timed at P=128, bf16, KV=32, pos0 0 and 512."""
+    f32 (TF32 off) and bf16, chunks of 32 and 128 rows (and 16 in bf16),
+    a permuted table of 72 pages, and the (pos0, n_valid) cases of
+    PREFILL_CASES (n_valid 0 = P, negative = P minus it, None =
+    PREFILL_PARTIAL's). The real rows of x_out (f32 1e-4), k_new and v_new
+    (f32 1e-5) must agree, bf16 to two ulps (bf16_close); every row of
+    x_out must be finite; two launches must give the same bits. Dispatch
+    must pick the kernel at every shape; each case records the body its
+    plan took (bf16: the tensor cores). Timed at P=128, bf16, KV=32, pos0
+    0, 512 and 896, and at P=32, pos0 512."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import fused_prefill_block as fpb
@@ -1011,12 +1034,12 @@ def prefill_attn_phase(gpu):
                 rn(D, H * hd, std=0.02), rn(D, KV * hd, std=0.02),
                 rn(D, KV * hd, std=0.02), rn(H * hd, D, std=0.02))
             kp, vp = rn(MB + 1, BS, KV, hd), rn(MB + 1, BS, KV, hd)
-            for P in (32, 128):
+            for P in ((16, 32, 128) if dt == torch.bfloat16 else (32, 128)):
                 meta = fpb.prefill_meta_dims(P, D, H, KV, hd, F7, BS, MB, dt,
                                              dt, False)
                 picked = KERNELS.dispatch("prefill_attn_block", meta)[0]
                 for pos0, nv in PREFILL_CASES:
-                    n = ({32: 21, 128: 77}[P] if nv is None
+                    n = (PREFILL_PARTIAL[P] if nv is None
                          else P + nv if nv <= 0 else nv)
                     args = (rn(P, D), *weights, sin[pos0:pos0 + P],
                             cos[pos0:pos0 + P], kp, vp, table, pos0, n)
@@ -1037,6 +1060,9 @@ def prefill_attn_phase(gpu):
                             "pos0": pos0, "n_valid": n, "outputs": outs,
                             "pad_rows_finite": finite,
                             "bitwise_repeatable": same, "dispatch": picked,
+                            "body": launch_plan(
+                                lambda: fpb.prefill_attn_block_cuda(
+                                    *args))["body"],
                             "ok": same and finite and picked == "cuda_fused"
                             and all(o["ok"] for o in outs.values())}
                     cases.append(case)
@@ -1047,24 +1073,26 @@ def prefill_attn_phase(gpu):
                         raise AssertionError(
                             f"prefill_attn_block disagrees: {case}")
             if dt == torch.bfloat16 and KV == H:
-                for pos0 in (0, 512):
-                    args = (rn(128, D), *weights, sin[pos0:pos0 + 128],
-                            cos[pos0:pos0 + 128], kp, vp, table, pos0, 128)
-                    timed[pos0] = prefill_timing(fpb, F, args)
+                for P, pos0 in ((128, 0), (128, 512), (128, 896), (32, 512)):
+                    args = (rn(P, D), *weights, sin[pos0:pos0 + P],
+                            cos[pos0:pos0 + P], kp, vp, table, pos0, P)
+                    timed[(P, pos0)] = prefill_timing(fpb, F, args)
     row = {"name": "prefill_attn_block", "route": "cuda",
            "source": PREFILL_SOURCE,
            "replaces": "paddle_tpu/ops/pallas/fused_prefill_block.py:431",
            "shape": {"P": 128, "n_valid": 128, "pos0": 512, "D": D, "H": H,
                      "KV": H, "hd": hd, "BS": BS, "MB": MB},
            "dtype": "bfloat16", "max_abs_err": max_err,
-           **{k: timed[512][k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "matmul_ms",
-                                         "sdpa_ms")},
+           **{k: timed[(128, 512)][k] for k in ("ms", "plain_ms",
+                                                "bound_ms", "bound_by",
+                                                "matmul_ms", "sdpa_ms")},
            "library_ms": None,
            "library": "none: no single PyTorch call computes the block",
-           "at_pos0_0": timed[0], "ok": True}
+           "at_pos0_0": timed[(128, 0)], "at_pos0_896": timed[(128, 896)],
+           "at_p32": timed[(32, 512)], "ok": True}
     emit({"phase": "kernel", "kernel": "prefill_attn_block", "gpu": gpu,
-          "cases": cases, "timed": timed})
+          "cases": cases, "timed": {f"P{P},pos0 {p0}": t
+                                    for (P, p0), t in timed.items()}})
     return row
 
 
@@ -1220,7 +1248,7 @@ def quant_mlp_phase(gpu, bits):
     11008 and the fp phase's ragged F (11000 bf16, 11012 f32: served, the
     classes' loads divide those rows), 8, 20, 32 and 128 rows; in f32
     also against mlp_block_ref (dequantize-then-matmul). Timed in bf16 at
-    8, 32 and 128 rows."""
+    8, 16, 32 and 128 rows (from 16 on the tensor-core body)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -1229,8 +1257,8 @@ def quant_mlp_phase(gpu, bits):
     cases, max_err, rows = [], 0.0, {}
     for dt, F, B in ((torch.bfloat16, F7, B8), (torch.float32, F7, B8),
                      (torch.bfloat16, 11000, B8), (torch.float32, 11012, 20),
-                     (torch.bfloat16, F7, 32), (torch.bfloat16, F7, 128),
-                     (torch.float32, F7, 128)):
+                     (torch.bfloat16, F7, 16), (torch.bfloat16, F7, 32),
+                     (torch.bfloat16, F7, 128), (torch.float32, F7, 128)):
         def rn(*shape, std=1.0):
             return (torch.randn(*shape, generator=gen, device="cuda")
                     * std).to(dt)
@@ -1372,8 +1400,9 @@ def quant_block_phase(gpu, bits):
 
 def quant_prefill_phase(gpu, bits):
     """prefill_attn_block with int8/int4 weights against
-    prefill_attn_block_wq_ref at KV=32 and 8, f32 and bf16, P=32 and 128,
-    (pos0, n_valid) = (0, P), (5, P-3) and (600, 21/77); in f32 also
+    prefill_attn_block_wq_ref at KV=32 and 8, f32 and bf16, P=32 and 128
+    (and 16 in bf16), (pos0, n_valid) = (0, P), (5, P-3) and (600,
+    PREFILL_PARTIAL's); in f32 also
     against prefill_attn_block_ref (dequantize-then-matmul); the real rows
     at the fp tolerances, every row finite, two launches bit for bit.
     Timed at P=128, bf16, KV=32, pos0 512, beside its bound, its plain
@@ -1400,12 +1429,12 @@ def quant_prefill_phase(gpu, bits):
                    rn(H * hd, D, std=0.02))
             weights = (fpw[0], *wq_leaves(fpw[1:], bits))
             kp, vp = rn(MB + 1, BS, KV, hd), rn(MB + 1, BS, KV, hd)
-            for P in (32, 128):
+            for P in ((16, 32, 128) if dt == torch.bfloat16 else (32, 128)):
                 meta = fpb.prefill_meta_dims(P, D, H, KV, hd, F7, BS, MB, dt,
                                              dt, False, weight_dtype=wd)
                 picked = KERNELS.dispatch("prefill_attn_block", meta)[0]
                 for pos0, n in ((0, P), (5, P - 3),
-                                (600, {32: 21, 128: 77}[P])):
+                                (600, PREFILL_PARTIAL[P])):
                     args = (rn(P, D), *weights, sin[pos0:pos0 + P],
                             cos[pos0:pos0 + P], kp, vp, table, pos0, n)
                     got = fpb.prefill_attn_block_cuda(*args)
@@ -1651,7 +1680,9 @@ def kv8_prefill_phase(gpu):
     """prefill_attn_block over int8 history pages in fp, int8 and int4
     weights against prefill_attn_block_wq_ref (history dequantized in f32,
     the chunk's K/V at the model type): bf16, KV=32, P=128 with (pos0,
-    n_valid) = (0, 128), (5, 125), (600, 77); for fp weights also f32,
+    n_valid) = (0, 128), (5, 125), (600, 77), KV=32, P=32 with (5, 29) and
+    (600, 21), and KV=8, P=16 with (0, 16) and (600, 11); for fp weights
+    also f32,
     KV=8, P=32 with (5, 29) and (600, 21); the real rows at the fp
     tolerances (the kernel quantizes nothing, so no code can flip), every
     row finite, two launches bit for bit, dispatch on the int8-pool meta.
@@ -1671,7 +1702,9 @@ def kv8_prefill_phase(gpu):
     for bits in KV8_WEIGHTS:
         wd = WQ_BITS.get(bits)
         name = f"prefill_attn_block[{wd + ',' if wd else ''}kv8]"
-        specs = [(bf16, H, 128, ((0, 128), (5, 125), (600, 77)))]
+        specs = [(bf16, H, 128, ((0, 128), (5, 125), (600, 77))),
+                 (bf16, H, 32, ((5, 29), (600, 21))),
+                 (bf16, 8, 16, ((0, 16), (600, 11)))]
         if not bits:
             specs.append((f32, 8, 32, ((5, 29), (600, 21))))
         cases, max_err, timed = [], 0.0, None
@@ -1718,7 +1751,7 @@ def kv8_prefill_phase(gpu):
                     emit({"phase": "kernel", "kernel": name, "gpu": gpu,
                           "cases": cases})
                     raise AssertionError(f"{name} disagrees: {case}")
-            if dt == bf16:
+            if dt == bf16 and P == 128:
                 pos0 = 512
                 x = rn(128, D)
                 timed = (x, *weights, sin[pos0:pos0 + 128],
@@ -2043,7 +2076,11 @@ def serving_phase(gpu, params, route):
     class, the unfused route's attention is the dequantizing composition
     (no paged-attention launch), and the pools' bytes and the calibration's
     seconds (the first admission's dense forward, CUDA-synchronised) are
-    printed; on the other routes every such launch is in the fp class."""
+    printed; on the other routes every such launch is in the fp class.
+    Every prefill_attn_block launch and every chunk's decode_mlp_block
+    launch runs the tensor-core body (``launches_by_body`` "tc"), every
+    decode step's decode_mlp_block (the two-stage route's 8 rows) the
+    CUDA-core one."""
     import torch
     from paddle_tpu_torch.inference import GenerationConfig, ServingEngine
     from paddle_tpu_torch.models import LLAMA_7B
@@ -2092,6 +2129,8 @@ def serving_phase(gpu, params, route):
     counts = kernels.launches()
     by_weight = kernels.launches_by_weight()
     by_pool = kernels.launches_by_pool()
+    by_body = {k: v for k, v in kernels.launches_by_body().items()
+               if k in ("decode_mlp_block", "prefill_attn_block")}
     m = eng.metrics()
     steps, chunks = m["decode_steps"], m["prefill_chunks"]
     emit({"phase": "serving", "route": route, "gpu": gpu,
@@ -2109,7 +2148,7 @@ def serving_phase(gpu, params, route):
           "dequantize_calls": serve_dequant,
           "calibration_dequantize_calls": calib_dequant[0],
           "launches_by_weight": by_weight, "launches_by_pool": by_pool,
-          "wall_s": round(wall, 3),
+          "launches_by_body": by_body, "wall_s": round(wall, 3),
           "tokens_per_sec": m["tokens_per_sec"],
           "prefill_tokens_per_sec": m["prefill_tokens_per_sec"],
           "ttft_ms_mean": m["ttft_ms_mean"],
@@ -2175,8 +2214,18 @@ def serving_phase(gpu, params, route):
         raise AssertionError(f"{route} launches {counts} != {want} "
                              f"({steps} decode steps, {chunks} chunks, "
                              f"{len(calib_s)} calibrations)")
-    return (dict(counts, by_weight=by_weight, by_pool=by_pool), eng, prompts,
-            [r.tokens for r in reqs])
+    # every bf16 chunk (32 or 128 rows) runs the tensor-core bodies; the
+    # two-stage route's decode MLP (8 rows) the CUDA-core one
+    chunk_mlp = L * chunks if base != "unfused" else 0
+    want_body = {"prefill_attn_block": {"tc": counts["prefill_attn_block"],
+                                        "cuda_core": 0},
+                 "decode_mlp_block": {"tc": chunk_mlp, "cuda_core":
+                                      counts["decode_mlp_block"] - chunk_mlp}}
+    if by_body != want_body:
+        raise AssertionError(f"{route}: launches by body {by_body} != "
+                             f"{want_body}")
+    return (dict(counts, by_weight=by_weight, by_pool=by_pool,
+                 by_body=by_body), eng, prompts, [r.tokens for r in reqs])
 
 
 def routes_phase(gpu, params, prompts, routes):
@@ -3814,6 +3863,8 @@ def body_launches(counts, cls):
     out = dict.fromkeys(FLASH_OPS, 0)
     for c in counts:
         for op, by in c.items():
+            if op not in out:   # the block kernels' "tc"/"cuda_core"
+                continue
             for k, n in by.items():
                 if want <= set(k.split(",")):
                     out[op] += n
@@ -4523,7 +4574,7 @@ def audit_phase(gpu, stream_specs):
                                  f"finding(s) in {path}'s plans")
         for sp in distinct:
             if sp.cooperative:
-                want = assumed_grid(sp.name, sp.dyn_smem)
+                want = assumed_grid(sp.name, sp.dyn_smem, sp.blocks_per_sm)
                 grids[(path, sp.name, sp.dyn_smem, sp.grid[0])] = {
                     "path": path, "kernel": sp.name, "smem": sp.dyn_smem,
                     "card": sp.grid[0], "assumed": want,
@@ -4652,7 +4703,7 @@ def main():
     gpu = gpu_line()
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
-            fused_mlp_phase(gpu), block_phase(gpu), prefill_attn_phase(gpu)]
+            *fused_mlp_phase(gpu), block_phase(gpu), prefill_attn_phase(gpu)]
     quant_rows = quant_kernel_phases(gpu)
     kv8_rows = kv8_kernel_phases(gpu)
     tp_rows = tp_kernel_phases(gpu)
@@ -4686,6 +4737,12 @@ def main():
                 gpu, params, route)
         if route == "default":
             serving_specs = specs
+            # the chunk kernels' launches by chunk rows (the buckets)
+            bucket_launches = {
+                op: {f"{P} rows": sum(sp.name == op and
+                                      sp.operand("x").shape[0] == P
+                                      for sp in specs) for P in (32, 128)}
+                for op in ("decode_mlp_block", "prefill_attn_block")}
         profile_phase(gpu, eng, route)
         del eng
     routes_phase(gpu, params, prompts, tokens)
@@ -4723,10 +4780,20 @@ def main():
     home = {"paged_attention_decode": "unfused",
             "decode_attn_block": "two_stage"}
     for row in rows:
+        if row["name"] == "decode_mlp_block[tc]":
+            # the chunks' MLP on the default route, by bucket
+            row["launches"] = counts["default"]["by_body"][
+                "decode_mlp_block"]["tc"]
+            row["launches_by_bucket"] = bucket_launches["decode_mlp_block"]
+            continue
         row["launches"] = counts[home.get(row["name"], "default")][
             row["name"]]
         if row["name"] == "decode_mlp_block":
-            row["two_stage_launches"] = counts["two_stage"][row["name"]]
+            # the 8-row body on the two-stage route's decode steps
+            row["two_stage_launches"] = counts["two_stage"]["by_body"][
+                row["name"]]["cuda_core"]
+        if row["name"] == "prefill_attn_block":
+            row["launches_by_bucket"] = bucket_launches[row["name"]]
         if row["name"] == "rms_norm_fwd":
             row["train_launches"] = train_counts["rms_norm_fwd"]
             row["ref_train_launches"] = ref_counts["rms_norm_fwd"]

@@ -237,7 +237,7 @@ def _block_case(B, D, H, KV, hd, F, BS, N, MB, dtype, quant=False, wq=None):
 
 
 def _prefill_case(P, D, H, KV, hd, BS, N, MB, dtype, pos0, quant=False,
-                  wq=None, residual=True):
+                  wq=None, residual=True, n_valid=None):
     def build():
         from ..ops.kernels import fused_prefill_block as fpb
 
@@ -247,7 +247,8 @@ def _prefill_case(P, D, H, KV, hd, BS, N, MB, dtype, pos0, quant=False,
             fpb.prefill_attn_block_cuda(
                 _meta((P, D), dtype), _meta((D,), dtype),
                 *_attn_weights(D, H, KV, hd, dtype, wq), rope, rope, pool,
-                pool, _meta((MB,), "int32"), pos0, P, kv_scales=scales,
+                pool, _meta((MB,), "int32"), pos0,
+                P if n_valid is None else n_valid, kv_scales=scales,
                 residual=residual)
         return fn
     return build
@@ -400,9 +401,40 @@ def kernel_cases() -> List[KernelCase]:
           ("prefill_attn_block",), _prefill_case(*pre7, wq="int8")),
         C("prefill_attn_block", "flagship_serving_int4_weights",
           ("prefill_attn_block",), _prefill_case(*pre7, wq="int4")),
-        # the prefill MLP runs the decode MLP kernel at chunk rows
+        # the prefill MLP runs the decode MLP kernel at chunk rows: its
+        # tensor-core body in bf16 (csrc/tile_mma.cuh), at the serving
+        # buckets' 32 and 128 rows in every weight class
         C("prefill_mlp_block", "flagship_serving", ("decode_mlp_block",),
           _mlp_block_case(_P, _D, _F, bf)),
+        C("prefill_mlp_block", "chunk128_int8_weights", ("decode_mlp_block",),
+          _mlp_block_case(_P, _D, _F, bf, wq="int8")),
+        C("prefill_mlp_block", "chunk128_int4_weights", ("decode_mlp_block",),
+          _mlp_block_case(_P, _D, _F, bf, wq="int4")),
+        C("prefill_mlp_block", "chunk32", ("decode_mlp_block",),
+          _mlp_block_case(32, _D, _F, bf)),
+        C("prefill_mlp_block", "chunk32_int8_weights", ("decode_mlp_block",),
+          _mlp_block_case(32, _D, _F, bf, wq="int8")),
+        C("prefill_mlp_block", "chunk32_int4_weights", ("decode_mlp_block",),
+          _mlp_block_case(32, _D, _F, bf, wq="int4")),
+        C("prefill_mlp_block", "tiny_tc", ("decode_mlp_block",),
+          _mlp_block_case(20, 64, 96, bf)),
+        # prefill_attn_block's tensor-core body at the 32-row bucket (the
+        # 128-row one is flagship_serving*), and at a tiny width
+        C("prefill_attn_block", "chunk32", ("prefill_attn_block",),
+          _prefill_case(32, *pre7[1:])),
+        C("prefill_attn_block", "chunk32_int8", ("prefill_attn_block",),
+          _prefill_case(32, *pre7[1:], quant=True)),
+        C("prefill_attn_block", "chunk32_int8_weights",
+          ("prefill_attn_block",), _prefill_case(32, *pre7[1:], wq="int8")),
+        C("prefill_attn_block", "chunk32_int4_weights",
+          ("prefill_attn_block",), _prefill_case(32, *pre7[1:], wq="int4")),
+        C("prefill_attn_block", "tiny_tc", ("prefill_attn_block",),
+          _prefill_case(32, 64, 2, 1, 128, 8, 9, 12, bf, 10)),
+        # a chunk whose last rows are bucket padding (77 real of 128)
+        C("prefill_attn_block", "chunk128_ragged", ("prefill_attn_block",),
+          _prefill_case(*pre7, n_valid=77)),
+        C("prefill_attn_block", "tiny_ragged", ("prefill_attn_block",),
+          _prefill_case(16, 32, 4, 2, 16, 8, 9, 6, f32, 10, n_valid=11)),
         C("fused_linear_ce", "tiny", _CE_KERNELS,
           _linear_ce_case(24, 64, 128, f32)),
         C("fused_linear_ce", "flagship_train", _CE_KERNELS,

@@ -46,6 +46,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "online_softmax.cuh"
@@ -78,7 +79,7 @@ using PoolT = typename std::conditional<KQ, int8_t, T>::type;
 // k); padded to 16 bytes. The step's K and V pages follow it, in the
 // pools' type (the prefill kernel stages its chunk's own K/V, in T, in
 // the same place).
-__device__ inline size_t attn_scratch_floats(int rows, int hd, int BS) {
+__host__ __device__ inline size_t attn_scratch_floats(int rows, int hd, int BS) {
   size_t f = 2 * (size_t)rows * hd + (size_t)rows * kPagesPerStep * BS +
              3 * (size_t)rows + (size_t)hd;
   return (f + 3) / 4 * 4;

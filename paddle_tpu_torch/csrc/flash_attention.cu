@@ -701,64 +701,11 @@ inline size_t dkv_tc_smem(int D, bool bias, bool seg) {
          (seg ? 2 * kB * sizeof(int) : 0);
 }
 
-// c0 += a b[0..1], c1 += a b[2..3]: the two n8 tiles of one x4 B load
-__device__ __forceinline__ void mma2(float (&c0)[4], float (&c1)[4],
-                                     const uint32_t (&a)[4],
-                                     const uint32_t (&b)[4]) {
-  const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-  mma_bf16(c0, a, b0);
-  mma_bf16(c1, a, b1);
-}
-
-// c0 += a b[0..1], c1 += a b[2..3] as products summed from zero and then
-// added in f32 (round to nearest): the tensor core aligns its sum to the
-// accumulator's magnitude and truncates, and dS = P (dP - delta) cancels
-// on rows that see few keys, so dP takes its k-steps' partial sums this
-// way to stay as close to an f32 dot as the plain version's.
-__device__ __forceinline__ void mma2_rn(float (&c0)[4], float (&c1)[4],
-                                        const uint32_t (&a)[4],
-                                        const uint32_t (&b)[4]) {
-  float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-  mma2(t0, t1, a, b);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    c0[e] += t0[e];
-    c1[e] += t1[e];
-  }
-}
-
 // e^x as 2^(x log2 e): exp2f is one MUFU.EX2 (with its range check),
 // expf a longer range reduction around it; within a few f32 ulps of expf,
 // far below the bf16 rounding of P that follows (the forward's softmax)
 __device__ __forceinline__ float exp_2(float x) {
   return exp2f(x * 1.4426950408889634f);
-}
-
-// The A fragment over the 16 columns of C tiles c0, c1 in bf16
-__device__ __forceinline__ void a_frag(const float (&c0)[4],
-                                       const float (&c1)[4],
-                                       uint32_t (&a)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// The same for an f32 P, split: hi = bf16(P), lo = bf16(P - hi) (the
-// difference is exact in f32); hi + lo holds P to 2^-16 of itself, so two
-// bf16 products into one f32 sum take the f32 P as the JAX kernel does.
-__device__ __forceinline__ void a_frag_split(const float (&c0)[4],
-                                             const float (&c1)[4],
-                                             uint32_t (&hi)[4],
-                                             uint32_t (&lo)[4]) {
-  const float e[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const __nv_bfloat162 hv = __floats2bfloat162_rn(e[2 * j], e[2 * j + 1]);
-    hi[j] = *reinterpret_cast<const uint32_t*>(&hv);
-    lo[j] = pack_bf16(e[2 * j] - __low2float(hv),
-                      e[2 * j + 1] - __high2float(hv));
-  }
 }
 
 // Rows [row0, row0 + kB) of one head of a [batch, rows, heads, d] bf16

@@ -116,7 +116,24 @@
 // the one definition of the sizes) and passed in, is carved as
 // block_products.cuh describes; the block kernel's is the attention
 // kernel's layout, the larger of its two halves.
-#include "block_products.cuh"
+//
+// decode_mlp_block at chunk rows (the prefill MLP: 32 and 128 rows; any
+// launch of more than 8 rows in bf16, the wrapper's plan) runs a second
+// instance of its kernel (kTC), on the tensor cores: at 128 rows the MLP
+// is 34.6 GFLOP, which the CUDA cores (67 TFLOP/s f32 at best) cannot do
+// in less than 0.52 ms, and the 8-row passes above stream the weights 16
+// times. Its phases: the RMSNorm of every row once, into a [B][D] bf16
+// workspace | grid sync | gate and up by column tiles of F over all B
+// rows at once (tile_mma.cuh: mma.sync bf16 -> f32, both products on one
+// staged left operand), each sum scaled and cast to bf16, silu(g)*u in
+// bf16 into a [B][F] workspace | grid sync | down by column tiles of D
+// over all of F, scaled, cast, + x. The rounding points are the CUDA-core
+// body's (mlp_block_wq_ref); only the summation order differs. One block
+// an SM: 132 blocks take gate/up's 172 tiles of 64 columns and down's 64
+// tiles of 64 in two parts of F (f32 partial sums added in part order
+// after one more grid barrier) at LLaMA-7B. 8-row launches, f32, decode_block_fused and the
+// gate's specimen keep the CUDA-core code.
+#include "tile_mma.cuh"
 
 namespace paddle_tpu_torch {
 namespace fused {
@@ -161,6 +178,12 @@ struct MlpArgs {
   // first down_k columns of silu(g)*u and rows of wd (F for the MLP; the
   // kernel-geometry gate's regression specimen runs a shorter one)
   int up_lpr, up_tiles, down_lpr, down_tiles, down_k;
+  // the tensor-core body's (kTC): the normalised rows [B][D] (bf16), the
+  // tiles of kTileRows rows, down's split of F into down_parts parts and
+  // their f32 partial sums [down_parts][B][D]
+  void* h_ws;
+  int row_tiles, down_parts;
+  float* part_ws;
 };
 
 // The single-launch kernel: the attention half writes resid (f32 [B][D])
@@ -525,6 +548,112 @@ __device__ void mlp_down_phase(const MlpArgs& a, unsigned char* smem) {
   }
 }
 
+// The tensor-core MLP body's column tiles: gate/up's (of each of the two
+// weights) and down's
+constexpr int kUpCols = 64;
+constexpr int kDownCols = 64;
+
+// MLP at chunk rows on the tensor cores, 1. gate and up by kUpCols-column
+// tiles of F over every row (the normalised rows in h_ws), each scaled sum
+// cast to bf16, silu(g)*u in bf16 -> ff_ws [B][F]
+template <int WQ>
+__device__ void mlp_rows_up_phase(const MlpArgs& a, unsigned char* smem) {
+  constexpr int WC = wclass(WQ, false);
+  const unsigned char* W[2] = {static_cast<const unsigned char*>(a.wg),
+                               static_cast<const unsigned char*>(a.wu)};
+  const bf16* h = static_cast<const bf16*>(a.h_ws);
+  bf16* ff = static_cast<bf16*>(a.ff_ws);
+  const int F = a.F, tiles = a.up_tiles;
+  for (int item = blockIdx.x; item < a.row_tiles * tiles;
+       item += gridDim.x) {
+    const int t = item % tiles, r0 = (item / tiles) * kTileRows;
+    const TileJob j{h, a.D, r0, min(kTileRows, a.B - r0), a.D,
+                    t * kUpCols, F};
+    tile_product<WC, 2, kUpCols>(j, W, row_bytes<bf16, WC>(F), smem,
+                                 [&](int r, int c, const float* v) {
+      const float g = round_t<bf16>(scaled<WQ>(v[0], a.sg, c));
+      const float u = round_t<bf16>(scaled<WQ>(v[1], a.su, c));
+      const float sg = round_t<bf16>(g / (1.f + expf(-g)));
+      ff[(size_t)r * F + c] = __float2bfloat16(__fmul_rn(sg, u));
+    });
+  }
+}
+
+// down's epilogue of output (r, c) from its f32 sum: scaled, cast to
+// bf16, then + x in bf16 (no add when residual is 0)
+template <int WQ>
+__device__ __forceinline__ void mlp_rows_out(const MlpArgs& a, int r, int c,
+                                             float v) {
+  const size_t o = (size_t)r * a.D + c;
+  const float d = round_t<bf16>(scaled<WQ>(v, a.sd, c));
+  static_cast<bf16*>(a.out)[o] = __float2bfloat16(
+      a.residual ? to_float(static_cast<const bf16*>(a.x)[o]) + d : d);
+}
+
+// 2. down by kDownCols-column tiles of D (half as many stored columns a
+// tile for int4, packed along D) over F split into down_parts parts: the
+// output, or with parts the f32 partial sums
+template <int WQ>
+__device__ void mlp_rows_down_phase(const MlpArgs& a, unsigned char* smem) {
+  constexpr int WC = wclass(WQ, true);
+  const unsigned char* W[1] = {static_cast<const unsigned char*>(a.wd)};
+  const bf16* ff = static_cast<const bf16*>(a.ff_ws);
+  const int D = a.D, tiles = a.down_tiles, parts = a.down_parts;
+  const int nst = WC == kWInt4N ? D / 2 : D;   // stored columns
+  for (int item = blockIdx.x; item < a.row_tiles * parts * tiles;
+       item += gridDim.x) {
+    const int t = item % tiles, p = (item / tiles) % parts;
+    const int r0 = (item / (tiles * parts)) * kTileRows;
+    const TileJob j{ff, a.F, r0, min(kTileRows, a.B - r0), a.F,
+                    t * TileW<WC, kDownCols>::cols, nst, p, parts};
+    tile_product<WC, 1, kDownCols>(j, W, row_bytes<bf16, WC>(D), smem,
+                                   [&](int r, int c, const float* v) {
+      if (parts > 1)
+        a.part_ws[((size_t)p * a.B + r) * D + c] = v[0];
+      else
+        mlp_rows_out<WQ>(a, r, c, v[0]);
+    });
+  }
+}
+
+// 3. with down_parts > 1: each output's parts added in part order, then
+// down's epilogue; four outputs a thread (D is a multiple of 32)
+template <int WQ>
+__device__ void mlp_rows_combine_phase(const MlpArgs& a) {
+  const int n4 = a.B * a.D / 4;
+  const float4* part = reinterpret_cast<const float4*>(a.part_ws);
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n4;
+       i += gridDim.x * kThreads) {
+    float4 v = part[i];
+    for (int p = 1; p < a.down_parts; ++p) {
+      const float4 w = part[p * n4 + i];
+      v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
+    }
+    const int r = 4 * i / a.D, c = 4 * i - r * a.D;
+    mlp_rows_out<WQ>(a, r, c, v.x);
+    mlp_rows_out<WQ>(a, r, c + 1, v.y);
+    mlp_rows_out<WQ>(a, r, c + 2, v.z);
+    mlp_rows_out<WQ>(a, r, c + 3, v.w);
+  }
+}
+
+// Shared memory of the tensor-core MLP body: the larger of its two
+// phases' tile_mma.cuh layouts (gate/up: two weights; down: one, int4
+// packed along D)
+inline size_t mlp_tc_smem(int wbits) {
+  switch (wbits) {
+    case 8:
+      return std::max(tile_smem_bytes<kWInt8, 2, kUpCols>(),
+                      tile_smem_bytes<kWInt8, 1, kDownCols>());
+    case 4:
+      return std::max(tile_smem_bytes<kWInt4K, 2, kUpCols>(),
+                      tile_smem_bytes<kWInt4N, 1, kDownCols>());
+    default:
+      return std::max(tile_smem_bytes<kWFp, 2, kUpCols>(),
+                      tile_smem_bytes<kWFp, 1, kDownCols>());
+  }
+}
+
 template <typename T, int WQ, bool KQ>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_attn_block_kernel(const AttnArgs a) {
@@ -539,14 +668,30 @@ decode_attn_block_kernel(const AttnArgs a) {
   o_proj_phase<T, WQ, false>(a, smem, nullptr);
 }
 
-template <typename T, int WQ>
-__global__ void __launch_bounds__(kThreads, 2)
+// kTC: the tensor-core body at chunk rows (bf16 only; the file header),
+// one block an SM
+template <typename T, int WQ, bool kTC = false>
+__global__ void __launch_bounds__(kThreads, kTC ? 1 : 2)
 decode_mlp_block_kernel(const MlpArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  mlp_up_phase<T, T, WQ>(a, smem);
-  grid.sync();
-  mlp_down_phase<T, WQ, false>(a, smem);
+  if constexpr (kTC) {
+    norm_rows(static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.nw),
+              static_cast<bf16*>(a.h_ws), a.B, a.D, a.eps,
+              reinterpret_cast<float*>(smem));
+    grid.sync();
+    mlp_rows_up_phase<WQ>(a, smem);
+    grid.sync();
+    mlp_rows_down_phase<WQ>(a, smem);
+    if (a.down_parts > 1) {   // grid-uniform
+      grid.sync();
+      mlp_rows_combine_phase<WQ>(a);
+    }
+  } else {
+    mlp_up_phase<T, T, WQ>(a, smem);
+    grid.sync();
+    mlp_down_phase<T, WQ, false>(a, smem);
+  }
 }
 
 // One block an SM: under __launch_bounds__(kThreads, 2) (128 registers)
@@ -574,6 +719,15 @@ decode_block_fused_kernel(const BlockArgs a) {
 
 PADDLE_TPU_PICK_KV_KERNEL(attn_kernel, decode_attn_block_kernel, AttnArgs)
 PADDLE_TPU_PICK_KERNEL(mlp_kernel, decode_mlp_block_kernel, MlpArgs)
+
+// The tensor-core MLP body for (dtype, weight bits): bf16 only
+inline KernelFn<MlpArgs> mlp_tc_kernel(int dtype, int wbits) {
+  if (dtype != 1) return nullptr;
+  if (wbits == 0) return decode_mlp_block_kernel<bf16, 0, true>;
+  if (wbits == 8) return decode_mlp_block_kernel<bf16, 8, true>;
+  if (wbits == 4) return decode_mlp_block_kernel<bf16, 4, true>;
+  return nullptr;
+}
 PADDLE_TPU_PICK_KV_KERNEL(block_kernel, decode_block_fused_kernel, BlockArgs)
 
 // The attention half's arguments, the workspaces carved from ws_t (T):
@@ -630,7 +784,8 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
 // (cudaErrorInvalidValue), as is a plan the kernels cannot run.
 
 // The cooperative grid of kernel ``which`` (0 decode_attn_block, 1
-// decode_mlp_block, 2 decode_block_fused) for (dtype, wbits, kvbits) at
+// decode_mlp_block, 2 decode_block_fused, 3 decode_mlp_block's
+// tensor-core body) for (dtype, wbits, kvbits) at
 // ``smem`` bytes of dynamic shared memory a block; minus the cudaError_t
 // on failure.
 extern "C" int decode_coop_grid(int which, int dtype, int wbits, int kvbits,
@@ -639,6 +794,7 @@ extern "C" int decode_coop_grid(int which, int dtype, int wbits, int kvbits,
   if (which == 0) return coop_grid_or_error(attn_kernel(dtype, wbits, kvbits), smem);
   if (which == 1) return coop_grid_or_error(mlp_kernel(dtype, wbits), smem);
   if (which == 2) return coop_grid_or_error(block_kernel(dtype, wbits, kvbits), smem);
+  if (which == 3) return coop_grid_or_error(mlp_tc_kernel(dtype, wbits), smem);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -670,27 +826,51 @@ extern "C" int decode_attn_block(
   return launch_coop(kernel, a, smem, grid, static_cast<cudaStream_t>(stream));
 }
 
-// ff_ws (T): [P][F][8].
+// ff_ws (T): [P][F][8] for the CUDA-core body (body 0); for the
+// tensor-core body (body 1, bf16): silu(g)*u [B][F], then the normalised
+// rows [B][D] at an offset rounded up to 8 elements, then (down_parts > 1)
+// down's f32 partial sums [down_parts][B][D] at an offset rounded up to 16
+// bytes. The tensor-core body's plan: up_tiles of kUpCols columns of F,
+// down_tiles of kDownCols of D, row_tiles of 128 rows, down over all of F
+// in 1 to 8 parts, lanes per row 0, at its own shared memory
+// (mlp_tc_smem); any other is refused.
 extern "C" int decode_mlp_block(const void* x, const void* nw, const void* wg,
                                 const void* wu, const void* wd, const void* sg,
                                 const void* su, const void* sd, void* out,
                                 void* ff_ws, int B, int D, int F,
                                 int residual, int region, int smem,
-                                int wbits, int grid, int up_lpr,
+                                int wbits, int grid, int body, int up_lpr,
                                 int up_tiles, int down_lpr, int down_tiles,
-                                int down_k, float eps, int dtype,
-                                void* stream) {
+                                int down_k, int row_tiles, int down_parts,
+                                float eps, int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
-  const auto kernel = mlp_kernel(dtype, wbits);
+  if (body != 0 && body != 1) return cudaErrorInvalidValue;
+  const auto kernel = body ? mlp_tc_kernel(dtype, wbits)
+                           : mlp_kernel(dtype, wbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  if (!plan_ok(up_lpr, up_tiles) || !plan_ok(down_lpr, down_tiles) ||
-      down_k < 0 || down_k > F)
+  if (body == 1) {
+    if (up_lpr != 0 || down_lpr != 0 || up_tiles != cdiv(F, kUpCols) ||
+        down_tiles != cdiv(D, kDownCols) || row_tiles != cdiv(B, kTileRows) ||
+        down_k != F || F % 16 || D % 32 || down_parts < 1 ||
+        down_parts > 8 || (size_t)smem != mlp_tc_smem(wbits))
+      return cudaErrorInvalidValue;
+  } else if (!plan_ok(up_lpr, up_tiles) || !plan_ok(down_lpr, down_tiles) ||
+             down_k < 0 || down_k > F) {
     return cudaErrorInvalidValue;
+  }
   if (B == 0) return cudaSuccess;
+  char* h_ws = body ? static_cast<char*>(ff_ws) +
+                          ((size_t)B * F + 7) / 8 * 8 * sizeof(bf16)
+                    : nullptr;
+  float* part_ws =
+      body ? reinterpret_cast<float*>(
+                 h_ws + ((size_t)B * D * sizeof(bf16) + 15) / 16 * 16)
+           : nullptr;
   MlpArgs a{x, nw, wg, wu, wd, static_cast<const float*>(sg),
             static_cast<const float*>(su), static_cast<const float*>(sd),
             out, ff_ws, B, D, F, residual, eps, (size_t)region, up_lpr,
-            up_tiles, down_lpr, down_tiles, down_k};
+            up_tiles, down_lpr, down_tiles, down_k, h_ws, row_tiles,
+            body ? down_parts : 1, part_ws};
   return launch_coop(kernel, a, smem, grid, static_cast<cudaStream_t>(stream));
 }
 

@@ -58,17 +58,30 @@
 //      -> workspace (T, k-major by pass)
 //   | grid sync | 4. o_proj of the real rows by column tiles, + x.
 // No atomics: two launches give identical bits. Every pass of 8 rows
-// streams the weights again (16 passes at P=128), so the products are
-// bound by the CUDA cores' FMA rate, not by bytes: this design is right
-// and simple first. Not done yet (later work): tensor-core (wgmma) products
-// that take the chunk's rows in one pass over the weights, and a
-// cp.async/TMA pipeline of the weight and page streams.
+// streams the weights again (16 passes at P=128), so these products are
+// bound by the CUDA cores' FMA rate, not by bytes. Shared memory, sized by
+// the wrapper (ops/kernels/fused_prefill_block.py, from
+// fused_decode_block._layout: the one definition of the sizes) and passed
+// in, is carved as block_products.cuh describes; the attention scratch is
+// that of an item of groups * bq query rows. f32 launches, and bf16 ones
+// whose plan refuses the tensor cores, run this body.
 //
-// Shared memory, sized by the wrapper (ops/kernels/fused_prefill_block.py,
-// from fused_decode_block._layout: the one definition of the sizes) and
-// passed in, is carved as block_products.cuh describes; the attention
-// scratch is that of an item of groups * bq query rows.
-#include "block_products.cuh"
+// The tensor-core body (kTC, bf16, head dim 128: the wrapper's plan picks
+// it) moves the work onto mma.sync, one block an SM (the phase functions
+// below): 0. the RMSNorm of every real row once into a [P][D] workspace
+// | grid sync | 1. q/k/v by column tiles, every row of the chunk
+// against each weight tile in one pass (tile_mma.cuh: each weight byte
+// read once a launch) | grid sync | 2. RoPE, as above | grid sync | 3.
+// attention: over fp pools on the tensor cores (prefill_attn_tc_phase:
+// S exact in bf16 x bf16 -> f32, P V from the f32 P as bf16 hi + lo, the
+// warps splitting the keys and combining in a fixed order), over int8
+// pools the CUDA-core phase above | grid sync | 4. o_proj by column
+// tiles, + x. The rounding points are the CUDA-core body's; only the
+// summation order differs. Its shared memory is prefill_tc_smem's figure,
+// which the launcher holds the wrapper's to. Not done yet: wgmma/TMA and
+// warp specialisation of the products, the int8-pool attention on the
+// tensor cores.
+#include "tile_mma.cuh"
 
 namespace paddle_tpu_torch {
 namespace fused {
@@ -82,14 +95,20 @@ struct PrefillArgs {
   const int* table;
   void *x_out, *k_new, *v_new;
   void *qkv_ws, *q_ws, *attn_ws;   // T: [P][(H+2KV)*hd], [P][H*hd],
-                                   //    [passes(P)][H*hd][8]
+                                   //    [passes(P)][H*hd][8] ([P][H*hd]
+                                   //    in the tensor-core body)
+  void* h_ws;                      // the tensor-core body's [P][D] rows
   int P, D, H, KV, hd, BS, MB, pos0, n_valid, bq, residual;
   float eps, scale;
   size_t region;
-  // the tile plan (the wrapper's): lanes per weight row and tile counts of
-  // the q/k/v phase (q_tiles of wq, kv_tiles each of wk and wv) and of
-  // o_proj
-  int qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles;
+  // the tile plan (the wrapper's): lanes per weight row (0 in the
+  // tensor-core body, whose tiles are kQkvCols / kOCols columns) and tile
+  // counts of the q/k/v phase (q_tiles of wq, kv_tiles each of wk and wv)
+  // and of o_proj; the tensor-core body's row tiles of kTileRows rows and
+  // o_proj's split of H*hd into o_parts parts, with their f32 partial sums
+  // [o_parts][P][D]
+  int qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles, row_tiles, o_parts;
+  float* part_ws;
 };
 
 template <int WQ>
@@ -98,102 +117,75 @@ __device__ __forceinline__ float scaled(float v, const float* s, int c) {
   return v;
 }
 
-template <typename T, int WQ, bool KQ>
-__global__ void __launch_bounds__(kThreads, 2)
-prefill_attn_block_kernel(const PrefillArgs a) {
+// 2. RoPE at each real row's own rope row: q -> q_ws, k -> k_new, and
+// v -> v_new; zeros in every pad row of k_new, v_new and x_out. A thread
+// takes the pair of columns (j, j + hd/2) of one head, which the rotation
+// reads together.
+template <typename T>
+__device__ void prefill_rope_phase(const PrefillArgs& a) {
+  const int P = a.P, D = a.D, H = a.H, KV = a.KV, hd = a.hd;
+  const int nv = a.n_valid;
+  const int hd2 = hd / 2;
+  const int nq = H * hd, nkv = KV * hd, ncols = nq + 2 * nkv;
+  const int npairs = ncols / 2;
+  const T* qkv = static_cast<const T*>(a.qkv_ws);
+  T* q_ws = static_cast<T*>(a.q_ws);
+  T* k_new = static_cast<T*>(a.k_new);
+  T* v_new = static_cast<T*>(a.v_new);
+  const size_t stride = (size_t)gridDim.x * kThreads;
+  const size_t first = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  for (size_t i = first; i < (size_t)P * npairs; i += stride) {
+    const int r = (int)(i / npairs), pr = (int)(i - (size_t)r * npairs);
+    const int j = pr % hd2, c = (pr / hd2) * hd + j;   // columns c, c + hd2
+    if (r >= nv) {
+      if (c >= nq) {
+        T* out = c < nq + nkv ? k_new : v_new;
+        const size_t o = (size_t)r * nkv + (c - nq) % nkv;
+        out[o] = out[o + hd2] = from_float<T>(0.f);
+      }
+      continue;
+    }
+    const T* head = qkv + (size_t)r * ncols + (c - j);
+    const float* sn = a.sin + (size_t)r * hd2;
+    const float* cs = a.cos + (size_t)r * hd2;
+    T* out;
+    size_t o;
+    if (c < nq) {
+      out = q_ws; o = (size_t)r * nq + c;
+    } else if (c < nq + nkv) {
+      out = k_new; o = (size_t)r * nkv + c - nq;
+    } else {
+      v_new[(size_t)r * nkv + c - nq - nkv] = head[j];
+      v_new[(size_t)r * nkv + c - nq - nkv + hd2] = head[j + hd2];
+      continue;
+    }
+    out[o] = from_float<T>(rope_at<T>(head, j, hd2, sn, cs));
+    out[o + hd2] = from_float<T>(rope_at<T>(head, j + hd2, hd2, sn, cs));
+  }
+  T* xo = static_cast<T*>(a.x_out);
+  for (size_t i = (size_t)nv * D + first; i < (size_t)P * D; i += stride)
+    xo[i] = from_float<T>(0.f);
+}
+
+// 3. attention per (query block, KV head) on the CUDA cores: the history
+// pages, then the chunk's own K/V under the causal mask; the rows go to
+// attn_ws k-major by pass (kRowMajor false: the CUDA-core o_proj's
+// operand) or row-major [P][H*hd] (the tensor-core o_proj's)
+template <typename T, bool KQ, bool kRowMajor>
+__device__ void prefill_attn_cc_phase(const PrefillArgs& a,
+                                      unsigned char* smem) {
   using Pt = PoolT<T, KQ>;                 // the pools' type
   constexpr int V = Vec<T>::n;
   constexpr int PV = 16 / sizeof(Pt);      // pool elements a 16-byte load
-  constexpr int WC = wclass(WQ, false);
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int P = a.P, D = a.D, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
+  const int H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
   const int nv = a.n_valid, pos0 = a.pos0, bq = a.bq;
   const int tid = threadIdx.x;
-  const int groups = H / KV, hd2 = hd / 2;
-  const int nq = H * hd, nkv = KV * hd, ncols = nq + 2 * nkv;
-  T* region = reinterpret_cast<T*>(smem);
-  float* red_s = reinterpret_cast<float*>(smem + a.region);
-  float* res_s = red_s + kWarps * kMaxLpr * V * kRB;
-  T* qkv = static_cast<T*>(a.qkv_ws);
-  T* q_ws = static_cast<T*>(a.q_ws);
+  const int groups = H / KV;
+  const int nq = H * hd;
   T* attn_t = static_cast<T*>(a.attn_ws);
-  T* k_new = static_cast<T*>(a.k_new);
-  T* v_new = static_cast<T*>(a.v_new);
-  cg::grid_group grid = cg::this_grid();
-
-  // 1. q/k/v products of the real rows by column tiles of the three
-  // matrices, over the RMSNorm of each pass of rows
-  {
-    const int lpr = a.qkv_lpr, tc = lpr * V;
-    const int tq = a.q_tiles, tk = a.kv_tiles;
-    int held = -1;
-    const int kn = WC == kWInt4K ? D / 2 : D;   // stored weight rows
-    for (int t = blockIdx.x; t < tq + 2 * tk; t += gridDim.x) {
-      const void* W;
-      const float* S;
-      int col0, n, base;
-      if (t < tq) {
-        W = a.wq; S = a.sq; col0 = t * tc; n = nq; base = 0;
-      } else if (t < tq + tk) {
-        W = a.wk; S = a.sk; col0 = (t - tq) * tc; n = nkv; base = nq;
-      } else {
-        W = a.wv; S = a.sv; col0 = (t - tq - tk) * tc; n = nkv;
-        base = nq + nkv;
-      }
-      for (int p = 0; p < passes(nv); ++p) {
-        hold_pass<T>(static_cast<const T*>(a.x), static_cast<const T*>(a.nw),
-                     region, p, &held, nv, D, a.eps, red_s);
-        float acc[kRB][V];
-        zero<T>(acc);
-        tile_accumulate<T, WC>(acc, region, region + (size_t)kn * kRB, W,
-                               row_bytes<T, WC>(n), kn, col0, n, lpr);
-        tile_reduce<T>(acc, red_s, res_s, lpr);
-        for (int i = tid; i < tc * kRB; i += kThreads) {
-          const int c = col0 + i / kRB, r = p * kRB + i % kRB;
-          if (r < nv && c < n)
-            qkv[(size_t)r * ncols + base + c] =
-                from_float<T>(scaled<WQ>(res_s[i], S, c));
-        }
-        __syncthreads();
-      }
-    }
-  }
-  grid.sync();
-
-  // 2. RoPE at each real row's own rope row: q -> q_ws, k -> k_new, and
-  // v -> v_new; zeros in every pad row of k_new, v_new and x_out
-  {
-    const size_t stride = (size_t)gridDim.x * kThreads;
-    const size_t first = (size_t)blockIdx.x * kThreads + tid;
-    for (size_t i = first; i < (size_t)P * ncols; i += stride) {
-      const int r = (int)(i / ncols), c = (int)(i - (size_t)r * ncols);
-      const int d = c % hd;
-      if (r >= nv) {
-        if (c >= nq) {
-          T* out = c < nq + nkv ? k_new : v_new;
-          out[(size_t)r * nkv + (c - nq) % nkv] = from_float<T>(0.f);
-        }
-        continue;
-      }
-      const T* head = qkv + (size_t)r * ncols + (c - d);
-      const float* sn = a.sin + (size_t)r * hd2;
-      const float* cs = a.cos + (size_t)r * hd2;
-      if (c < nq)
-        q_ws[(size_t)r * nq + c] = from_float<T>(rope_at<T>(head, d, hd2, sn, cs));
-      else if (c < nq + nkv)
-        k_new[(size_t)r * nkv + c - nq] =
-            from_float<T>(rope_at<T>(head, d, hd2, sn, cs));
-      else
-        v_new[(size_t)r * nkv + c - nq - nkv] = head[d];
-    }
-    T* xo = static_cast<T*>(a.x_out);
-    for (size_t i = (size_t)nv * D + first; i < (size_t)P * D; i += stride)
-      xo[i] = from_float<T>(0.f);
-  }
-  grid.sync();
-
-  // 3. attention per (query block, KV head): the history pages, then the
-  // chunk's own K/V under the causal mask
+  const T* q_ws = static_cast<const T*>(a.q_ws);
+  const T* k_new = static_cast<const T*>(a.k_new);
+  const T* v_new = static_cast<const T*>(a.v_new);
   {
     const int SB = kPagesPerStep * BS;   // keys a step
     const int R = groups * bq;           // query rows of an item
@@ -291,36 +283,447 @@ prefill_attn_block_kernel(const PrefillArgs a) {
         const int g = i / hd, d = i - g * hd;
         const int r = q0 + g % bq, col = (kvh * groups + g / bq) * hd + d;
         if (r < nv)
-          attn_t[((size_t)(r / kRB) * nq + col) * kRB + r % kRB] =
+          attn_t[kRowMajor ? (size_t)r * nq + col
+                           : ((size_t)(r / kRB) * nq + col) * kRB + r % kRB] =
               from_float<T>(acc[i] / l[g]);
       }
       __syncthreads();   // the next item reuses the scratch
     }
   }
-  grid.sync();
+}
 
-  // 4. o_proj of the real rows by column tiles of D, then the residual add
-  {
-    const int lpr = a.o_lpr, tc = lpr * V;
-    const int kc_max = min(nq, (int)(a.region / (sizeof(T) * kRB)));
-    const T* x = static_cast<const T*>(a.x);
-    T* xo = static_cast<T*>(a.x_out);
-    const int tiles = a.o_tiles;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      for (int p = 0; p < passes(nv); ++p) {
-        tile_sums_staged<T, WC>(attn_t + (size_t)p * nq * kRB, nq, region,
-                                kc_max, a.wo, row_bytes<T, WC>(D), t * tc,
-                                D, min(kRB, nv - p * kRB), lpr, red_s,
-                                res_s);
-        for (int i = tid; i < tc * kRB; i += kThreads) {
-          const int c = t * tc + i / kRB, r = p * kRB + i % kRB;
-          if (r < nv && c < D) {
-            const size_t o = (size_t)r * D + c;
-            const float d = round_t<T>(scaled<WQ>(res_s[i], a.so, c));
-            xo[o] = from_float<T>(a.residual ? to_float(x[o]) + d : d);
+// ---------------------------------------------------------------------------
+// The tensor-core body (bf16, head dim kHd; the wrapper's plan picks it):
+// RMSNorm of every real row once -> h_ws | q/k/v by kQkvCols-column
+// tiles over all rows (tile_mma.cuh) | RoPE | attention | o_proj by
+// kOCols-column tiles over all rows, split over H*hd into o_parts parts
+// when its tiles are fewer than the SMs (| grid sync | the parts added in
+// order), + x. Over fp pools the attention
+// runs on the tensor cores too (prefill_attn_tc_phase); over int8 pools it
+// is the CUDA-core phase above, rows written row-major.
+// ---------------------------------------------------------------------------
+constexpr int kQkvCols = 64;                 // q/k/v's column tiles
+constexpr int kOCols = 64;                   // o_proj's
+constexpr int kHd = 128;                     // head dim of the tc attention
+constexpr int kQRows = 16;                   // query rows of an item (BQ)
+constexpr int kSlice = 16;                   // keys a warp takes a step
+constexpr int kKeyStep = kWarps * kSlice;    // keys a step
+constexpr int kLdH = kHd + 8;                // bf16 a staged head row
+
+// Shared memory of the tensor-core attention: the item's Q [16][kLdH],
+// two stages of K and V [kKeyStep][kLdH] (bf16); the warps' (m, l, acc)
+// for the combine reuse the stages.
+__host__ __device__ constexpr size_t attn_tc_bytes() {
+  return (size_t)(kQRows + 2 * 2 * kKeyStep) * kLdH * sizeof(bf16);
+}
+
+// Shared memory of the tensor-core body: the larger of its product
+// layout (one weight a tile) and its attention phase's (the tensor-core
+// one over fp pools; over int8 pools the CUDA-core item of groups * 16
+// rows, block_products.cuh's attn_scratch_floats plus two staged tiles)
+inline size_t prefill_tc_smem(int wbits, int kvbits, int H, int KV, int hd,
+                              int BS) {
+  const size_t prod =
+      wbits == 8   ? std::max(tile_smem_bytes<kWInt8, 1, kQkvCols>(),
+                              tile_smem_bytes<kWInt8, 1, kOCols>())
+      : wbits == 4 ? std::max(tile_smem_bytes<kWInt4K, 1, kQkvCols>(),
+                              tile_smem_bytes<kWInt4K, 1, kOCols>())
+                   : std::max(tile_smem_bytes<kWFp, 1, kQkvCols>(),
+                              tile_smem_bytes<kWFp, 1, kOCols>());
+  const size_t attn =
+      kvbits ? attn_scratch_floats(H / KV * kQRows, hd, BS) * sizeof(float) +
+                   2 * (size_t)kPagesPerStep * BS * hd * sizeof(bf16)
+             : attn_tc_bytes();
+  return std::max(prod, attn);
+}
+
+// 1. q/k/v of the real rows by kQkvCols-column tiles of wq (q_tiles), wk
+// and wv (kv_tiles each), every row of a row tile at once; each scaled sum
+// cast to bf16 -> qkv_ws
+template <int WQ>
+__device__ void prefill_tc_qkv_phase(const PrefillArgs& a,
+                                     unsigned char* smem) {
+  constexpr int WC = wclass(WQ, false);
+  const int nq = a.H * a.hd, nkv = a.KV * a.hd, ncols = nq + 2 * nkv;
+  const int tq = a.q_tiles, tk = a.kv_tiles, tiles = tq + 2 * tk;
+  const bf16* h = static_cast<const bf16*>(a.h_ws);
+  bf16* qkv = static_cast<bf16*>(a.qkv_ws);
+  for (int item = blockIdx.x; item < a.row_tiles * tiles;
+       item += gridDim.x) {
+    const int t = item % tiles, r0 = (item / tiles) * kTileRows;
+    const int rows = min(kTileRows, a.n_valid - r0);
+    if (rows <= 0) continue;   // block-uniform: a tile of pad rows
+    const void* W;
+    const float* S;
+    int col0, n, base;
+    if (t < tq) {
+      W = a.wq; S = a.sq; col0 = t * kQkvCols; n = nq; base = 0;
+    } else if (t < tq + tk) {
+      W = a.wk; S = a.sk; col0 = (t - tq) * kQkvCols; n = nkv; base = nq;
+    } else {
+      W = a.wv; S = a.sv; col0 = (t - tq - tk) * kQkvCols; n = nkv;
+      base = nq + nkv;
+    }
+    const unsigned char* Wp[1] = {static_cast<const unsigned char*>(W)};
+    const TileJob j{h, a.D, r0, rows, a.D, col0, n};
+    tile_product<WC, 1, kQkvCols>(j, Wp, row_bytes<bf16, WC>(n), smem,
+                                  [&](int r, int c, const float* v) {
+      qkv[(size_t)r * ncols + base + c] =
+          __float2bfloat16(scaled<WQ>(v[0], S, c));
+    });
+  }
+}
+
+// 3. attention over fp pools on the tensor cores. Items: (16-row query
+// block, query head), the heads of a KV head adjacent. Keys: the history
+// (positions < pos0, through the table, fetches clamped to its last page)
+// and then the chunk's own rows c < min(q0 + 16, n_valid), 128 a step in
+// two cp.async stages (a masked or missing key staged as zeros); warp w
+// takes keys [16w, 16w + 16) of each step. S = Q K^T on mma.sync (bf16
+// operands, exact products; each depth step summed from zero and added in
+// f32), times the scale; row r sees every history key and chunk key c iff
+// c <= min(r, n_valid - 1); the warp's online softmax in f32 (expf; a row
+// that sees no key of a step keeps its state); P V from the f32 P as bf16
+// hi + lo (PR 12's dV scheme: within 2^-16 of P), each step's product
+// summed from zero and added to acc * alpha. The 8 warps' (m, l, acc) are
+// then combined in warp order (no atomics) and normalised -> attn_ws
+// [P][H*hd] (bf16), real rows only.
+__device__ void prefill_attn_tc_phase(const PrefillArgs& a,
+                                      unsigned char* smem) {
+  const int H = a.H, KV = a.KV, BS = a.BS;
+  const int nv = a.n_valid, pos0 = a.pos0;
+  const int groups = H / KV, nq = H * kHd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  bf16* q_s = reinterpret_cast<bf16*>(smem);   // [16][kLdH]
+  bf16* kv_s = q_s + kQRows * kLdH;            // [2][K, V][kKeyStep][kLdH]
+  float* m_s = reinterpret_cast<float*>(kv_s); // combine: [8][16] m, l,
+  float* l_s = m_s + kWarps * kQRows;          // [8][16][kHd] acc
+  float* acc_s = l_s + kWarps * kQRows;
+  const bf16* q_ws = static_cast<const bf16*>(a.q_ws);
+  const bf16* k_new = static_cast<const bf16*>(a.k_new);
+  const bf16* v_new = static_cast<const bf16*>(a.v_new);
+  const bf16* k_pool = static_cast<const bf16*>(a.k_pool);
+  const bf16* v_pool = static_cast<const bf16*>(a.v_pool);
+  bf16* attn = static_cast<bf16*>(a.attn_ws);
+  const int nqb = cdiv(nv, kQRows);
+  for (int item = blockIdx.x; item < nqb * H; item += gridDim.x) {
+    const int gi = item % groups, kvh = (item / groups) % KV;
+    const int q0 = (item / (groups * KV)) * kQRows;
+    const int h = kvh * groups + gi;
+    const int nk = pos0 + min(q0 + kQRows, nv);   // keys this block sees
+    const int steps = cdiv(nk, kKeyStep);
+    __syncthreads();   // the previous item's combine is done with smem
+    {
+      const int r = threadIdx.x >> 4, c = (threadIdx.x & 15) * 8;
+      const bool ok = q0 + r < nv;
+      cp_async16(q_s + r * kLdH + c,
+                 ok ? q_ws + (size_t)(q0 + r) * nq + h * kHd + c : q_ws, ok);
+    }
+    // key i of a step: K rows by threads 0-127, V rows by 128-255
+    auto stage = [&](int step, int buf) {
+      const int i = threadIdx.x & (kKeyStep - 1), v = threadIdx.x >> 7;
+      const int key = step * kKeyStep + i;
+      const bf16* src = nullptr;
+      if (key < pos0) {
+        const size_t page =
+            (size_t)a.table[clamped_page_index(pos0, BS, key / BS)];
+        src = (v ? v_pool : k_pool) +
+              ((page * BS + key % BS) * KV + kvh) * kHd;
+      } else if (key < nk) {
+        src = (v ? v_new : k_new) + ((size_t)(key - pos0) * KV + kvh) * kHd;
+      }
+      bf16* dst = kv_s + ((size_t)(buf * 2 + v) * kKeyStep + i) * kLdH;
+#pragma unroll
+      for (int c = 0; c < kHd; c += 8)
+        cp_async16(dst + c, src ? src + c : q_ws, src != nullptr);
+    };
+    stage(0, 0);
+    cp_async_commit();
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+    float acc[kHd / 8][4];
+#pragma unroll
+    for (int n = 0; n < kHd / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int st = 0; st < steps; ++st) {
+      const int buf = st & 1;
+      if (st + 1 < steps) stage(st + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait1();   // Q and this step have landed
+      __syncthreads();
+      const int j0 = st * kKeyStep + warp * kSlice;
+      if (j0 < nk) {   // warp-uniform
+        const bf16* ks = kv_s + ((size_t)(buf * 2) * kKeyStep +
+                                 warp * kSlice) * kLdH;
+        const bf16* vs = ks + (size_t)kKeyStep * kLdH;
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 1
+        for (int kk = 0; kk < kHd / 16; ++kk) {
+          uint32_t aq[4], bk[4];
+          ldmatrix4(aq, q_s + (lane & 15) * kLdH + kk * 16 +
+                            (lane >> 4) * 8);
+          ldmatrix4(bk, ks + ((lane & 7) + ((lane >> 4) << 3)) * kLdH +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+          mma2_rn(s[0], s[1], aq, bk);
+        }
+        // element e of tile n: query row q0 + g + 8 (e >> 1), key j0 + 8n
+        // + 2 t4 + (e & 1)
+        uint32_t ok = 0;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = j0 + n * 8 + 2 * t4 + (e & 1);
+            const int row = q0 + g + 8 * (e >> 1);
+            const bool seen = key < pos0 ||
+                              (key < nk && key - pos0 <= min(row, nv - 1));
+            ok |= (uint32_t)seen << (4 * n + e);
+            s[n][e] = seen ? __fmul_rn(s[n][e], a.scale) : -CUDART_INF_F;
+          }
+        float alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float mc = fmaxf(fmaxf(s[0][2 * i], s[0][2 * i + 1]),
+                           fmaxf(s[1][2 * i], s[1][2 * i + 1]));
+          mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+          mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+          const float mn = fmaxf(m[i], mc);
+          // 0 on a row's first keys (m -inf); 1 while it has seen none
+          alpha[i] = mn == -CUDART_INF_F ? 1.f : expf(m[i] - mn);
+          m[i] = mn;
+        }
+        float ps[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p =
+                ok >> (4 * n + e) & 1 ? expf(s[n][e] - m[e >> 1]) : 0.f;
+            ps[e >> 1] += p;
+            s[n][e] = p;
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 1);
+          ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 2);
+          l[i] = alpha[i] * l[i] + ps[i];
+        }
+        uint32_t phi[4], plo[4];
+        a_frag_split(s[0], s[1], phi, plo);
+#pragma unroll
+        for (int n = 0; n < kHd / 8; n += 2) {
+          uint32_t b[4];
+          ldmatrix4_trans(b, vs + (lane & 15) * kLdH + n * 8 +
+                                 (lane >> 4) * 8);
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma2(t0, t1, phi, b);
+          mma2(t0, t1, plo, b);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[n][e] = acc[n][e] * alpha[e >> 1] + t0[e];
+            acc[n + 1][e] = acc[n + 1][e] * alpha[e >> 1] + t1[e];
           }
         }
-        __syncthreads();
+      }
+      __syncthreads();   // every warp is done with this stage
+    }
+    cp_async_wait0();
+    // the warps' states, then the combine in warp order
+    if (t4 == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        m_s[warp * kQRows + g + 8 * i] = m[i];
+        l_s[warp * kQRows + g + 8 * i] = l[i];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kHd / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc_s[(warp * kQRows + g + 8 * (e >> 1)) * kHd + n * 8 + 2 * t4 +
+              (e & 1)] = acc[n][e];
+    __syncthreads();
+    for (int i = threadIdx.x; i < kQRows * kHd; i += kThreads) {
+      const int r = i / kHd, d = i - r * kHd;
+      if (q0 + r >= nv) continue;
+      float mx = -CUDART_INF_F;
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * kQRows + r]);
+      // every real row saw its own key, so mx is finite and sum > 0
+      float sum = 0.f, o = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = expf(m_s[w * kQRows + r] - mx);
+        sum += f * l_s[w * kQRows + r];
+        o += f * acc_s[(w * kQRows + r) * kHd + d];
+      }
+      attn[(size_t)(q0 + r) * nq + h * kHd + d] = __float2bfloat16(o / sum);
+    }
+  }
+}
+
+// o_proj's epilogue of output (r, c) from its f32 sum: scaled, cast to
+// bf16, then + x in bf16 (no add when residual is 0)
+template <int WQ>
+__device__ __forceinline__ void prefill_o_out(const PrefillArgs& a, int r,
+                                              int c, float v) {
+  const size_t o = (size_t)r * a.D + c;
+  const float d = round_t<bf16>(scaled<WQ>(v, a.so, c));
+  static_cast<bf16*>(a.x_out)[o] = __float2bfloat16(
+      a.residual ? to_float(static_cast<const bf16*>(a.x)[o]) + d : d);
+}
+
+// 5. o_proj of the real rows by kOCols-column tiles of D, every row of a
+// row tile at once, H*hd split into o_parts parts: the output, or with
+// parts the f32 partial sums
+template <int WQ>
+__device__ void prefill_tc_o_phase(const PrefillArgs& a,
+                                   unsigned char* smem) {
+  constexpr int WC = wclass(WQ, false);
+  const int nq = a.H * a.hd, D = a.D, tiles = a.o_tiles;
+  const int parts = a.o_parts;
+  const unsigned char* Wp[1] = {static_cast<const unsigned char*>(a.wo)};
+  for (int item = blockIdx.x; item < a.row_tiles * parts * tiles;
+       item += gridDim.x) {
+    const int t = item % tiles, p = (item / tiles) % parts;
+    const int r0 = (item / (tiles * parts)) * kTileRows;
+    const int rows = min(kTileRows, a.n_valid - r0);
+    if (rows <= 0) continue;
+    const TileJob j{static_cast<const bf16*>(a.attn_ws), nq, r0, rows, nq,
+                    t * kOCols, D, p, parts};
+    tile_product<WC, 1, kOCols>(j, Wp, row_bytes<bf16, WC>(D), smem,
+                                [&](int r, int c, const float* v) {
+      if (parts > 1)
+        a.part_ws[((size_t)p * a.P + r) * D + c] = v[0];
+      else
+        prefill_o_out<WQ>(a, r, c, v[0]);
+    });
+  }
+}
+
+// 6. with o_parts > 1: each real row's outputs, parts added in part order,
+// then o_proj's epilogue; four outputs a thread (D is a multiple of 32)
+template <int WQ>
+__device__ void prefill_tc_combine_phase(const PrefillArgs& a) {
+  const int n4 = a.P * a.D / 4, real4 = a.n_valid * a.D / 4;
+  const float4* part = reinterpret_cast<const float4*>(a.part_ws);
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < real4;
+       i += gridDim.x * kThreads) {
+    float4 v = part[i];
+    for (int p = 1; p < a.o_parts; ++p) {
+      const float4 w = part[p * n4 + i];
+      v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
+    }
+    const int r = 4 * i / a.D, c = 4 * i - r * a.D;
+    prefill_o_out<WQ>(a, r, c, v.x);
+    prefill_o_out<WQ>(a, r, c + 1, v.y);
+    prefill_o_out<WQ>(a, r, c + 2, v.z);
+    prefill_o_out<WQ>(a, r, c + 3, v.w);
+  }
+}
+
+// kTC: the tensor-core body (bf16; the file header), one block an SM.
+template <typename T, int WQ, bool KQ, bool kTC = false>
+__global__ void __launch_bounds__(kThreads, kTC ? 1 : 2)
+prefill_attn_block_kernel(const PrefillArgs a) {
+  constexpr int V = Vec<T>::n;
+  constexpr int WC = wclass(WQ, false);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = a.P, D = a.D, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
+  const int nv = a.n_valid;
+  const int tid = threadIdx.x;
+  const int nq = H * hd, nkv = KV * hd, ncols = nq + 2 * nkv;
+  T* region = reinterpret_cast<T*>(smem);
+  float* red_s = reinterpret_cast<float*>(smem + a.region);
+  float* res_s = red_s + kWarps * kMaxLpr * V * kRB;
+  T* qkv = static_cast<T*>(a.qkv_ws);
+  T* attn_t = static_cast<T*>(a.attn_ws);
+  cg::grid_group grid = cg::this_grid();
+  if constexpr (kTC) {
+    norm_rows(static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.nw),
+              static_cast<bf16*>(a.h_ws), nv, D, a.eps,
+              reinterpret_cast<float*>(smem));
+    grid.sync();
+    prefill_tc_qkv_phase<WQ>(a, smem);
+    grid.sync();
+    prefill_rope_phase<T>(a);
+    grid.sync();
+    if constexpr (KQ)
+      prefill_attn_cc_phase<T, KQ, true>(a, smem);
+    else
+      prefill_attn_tc_phase(a, smem);
+    grid.sync();
+    prefill_tc_o_phase<WQ>(a, smem);
+    if (a.o_parts > 1) {   // grid-uniform
+      grid.sync();
+      prefill_tc_combine_phase<WQ>(a);
+    }
+  } else {
+    // 1. q/k/v products of the real rows by column tiles of the three
+    // matrices, over the RMSNorm of each pass of rows
+    {
+      const int lpr = a.qkv_lpr, tc = lpr * V;
+      const int tq = a.q_tiles, tk = a.kv_tiles;
+      int held = -1;
+      const int kn = WC == kWInt4K ? D / 2 : D;   // stored weight rows
+      for (int t = blockIdx.x; t < tq + 2 * tk; t += gridDim.x) {
+        const void* W;
+        const float* S;
+        int col0, n, base;
+        if (t < tq) {
+          W = a.wq; S = a.sq; col0 = t * tc; n = nq; base = 0;
+        } else if (t < tq + tk) {
+          W = a.wk; S = a.sk; col0 = (t - tq) * tc; n = nkv; base = nq;
+        } else {
+          W = a.wv; S = a.sv; col0 = (t - tq - tk) * tc; n = nkv;
+          base = nq + nkv;
+        }
+        for (int p = 0; p < passes(nv); ++p) {
+          hold_pass<T>(static_cast<const T*>(a.x), static_cast<const T*>(a.nw),
+                       region, p, &held, nv, D, a.eps, red_s);
+          float acc[kRB][V];
+          zero<T>(acc);
+          tile_accumulate<T, WC>(acc, region, region + (size_t)kn * kRB, W,
+                                 row_bytes<T, WC>(n), kn, col0, n, lpr);
+          tile_reduce<T>(acc, red_s, res_s, lpr);
+          for (int i = tid; i < tc * kRB; i += kThreads) {
+            const int c = col0 + i / kRB, r = p * kRB + i % kRB;
+            if (r < nv && c < n)
+              qkv[(size_t)r * ncols + base + c] =
+                  from_float<T>(scaled<WQ>(res_s[i], S, c));
+          }
+          __syncthreads();
+        }
+      }
+    }
+    grid.sync();
+    prefill_rope_phase<T>(a);
+    grid.sync();
+    prefill_attn_cc_phase<T, KQ, false>(a, smem);
+    grid.sync();
+
+    // 4. o_proj of the real rows by column tiles of D, then the residual add
+    {
+      const int lpr = a.o_lpr, tc = lpr * V;
+      const int kc_max = min(nq, (int)(a.region / (sizeof(T) * kRB)));
+      const T* x = static_cast<const T*>(a.x);
+      T* xo = static_cast<T*>(a.x_out);
+      const int tiles = a.o_tiles;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        for (int p = 0; p < passes(nv); ++p) {
+          tile_sums_staged<T, WC>(attn_t + (size_t)p * nq * kRB, nq, region,
+                                  kc_max, a.wo, row_bytes<T, WC>(D), t * tc,
+                                  D, min(kRB, nv - p * kRB), lpr, red_s,
+                                  res_s);
+          for (int i = tid; i < tc * kRB; i += kThreads) {
+            const int c = t * tc + i / kRB, r = p * kRB + i % kRB;
+            if (r < nv && c < D) {
+              const size_t o = (size_t)r * D + c;
+              const float d = round_t<T>(scaled<WQ>(res_s[i], a.so, c));
+              xo[o] = from_float<T>(a.residual ? to_float(x[o]) + d : d);
+            }
+          }
+          __syncthreads();
+        }
       }
     }
   }
@@ -328,6 +731,31 @@ prefill_attn_block_kernel(const PrefillArgs a) {
 
 PADDLE_TPU_PICK_KV_KERNEL(prefill_kernel, prefill_attn_block_kernel,
                           PrefillArgs)
+
+// The tensor-core body for (dtype, weight bits, pool bits): bf16 only
+inline KernelFn<PrefillArgs> prefill_tc_kernel(int dtype, int wbits,
+                                               int kvbits) {
+  if (dtype != 1 || (kvbits != 0 && kvbits != 8)) return nullptr;
+  const bool kq = kvbits == 8;
+  if (wbits == 0)
+    return kq ? &prefill_attn_block_kernel<bf16, 0, true, true>
+              : &prefill_attn_block_kernel<bf16, 0, false, true>;
+  if (wbits == 8)
+    return kq ? &prefill_attn_block_kernel<bf16, 8, true, true>
+              : &prefill_attn_block_kernel<bf16, 8, false, true>;
+  if (wbits == 4)
+    return kq ? &prefill_attn_block_kernel<bf16, 4, true, true>
+              : &prefill_attn_block_kernel<bf16, 4, false, true>;
+  return nullptr;
+}
+
+// The body ``body`` (0 CUDA cores, 1 tensor cores) for the classes
+inline KernelFn<PrefillArgs> prefill_body(int body, int dtype, int wbits,
+                                          int kvbits) {
+  return body == 1   ? prefill_tc_kernel(dtype, wbits, kvbits)
+         : body == 0 ? prefill_kernel(dtype, wbits, kvbits)
+                     : nullptr;
+}
 
 }  // namespace fused
 }  // namespace paddle_tpu_torch
@@ -339,20 +767,26 @@ PADDLE_TPU_PICK_KV_KERNEL(prefill_kernel, prefill_attn_block_kernel,
 // weights' class, 0 = T, 8 = int8, 4 = int4 packed along the contraction
 // axis, with the f32 scale pointers s* (null for 0); kvbits: the pools'
 // class, 0 = T, 8 = int8 with the f32 [KV] scale pointers k_scale/v_scale
-// (null for 0); region and smem: the shared-memory layout's bytes; bq:
-// query rows a work item takes (P is a multiple of it); grid and the tile
-// plan: the wrapper's, as for fused_decode_block.cu's launchers (a grid
-// other than the kernel's cooperative grid, prefill_coop_grid, or a plan
-// the kernel cannot run is refused). Returns the launch's cudaError_t; a
-// (dtype, wbits, kvbits) it does not take is cudaErrorInvalidValue.
+// (null for 0); body: 0 the CUDA-core body, 1 the tensor-core body (its
+// h_ws: the normalised rows [P][D] bf16, then o_proj's f32 partial sums
+// [o_parts][P][D] at an offset rounded up to 16 bytes); region
+// and smem: the shared-memory layout's bytes; bq: query rows a work item
+// takes (P is a multiple of it); grid and the tile plan: the wrapper's, as
+// for fused_decode_block.cu's launchers (a grid other than the body's
+// cooperative grid, prefill_coop_grid, or a plan the body cannot run is
+// refused: the tensor-core body takes bf16, head dim 128, bq 16, lanes 0,
+// kQkvCols / kOCols column tiles, row tiles of 128 and prefill_tc_smem's
+// shared memory).
+// Returns the launch's cudaError_t; a (dtype, wbits, kvbits, body) it does
+// not take is cudaErrorInvalidValue.
 
-// The cooperative grid of the kernel for (dtype, wbits, kvbits) at
-// ``smem`` bytes of dynamic shared memory a block; minus the cudaError_t
-// on failure.
-extern "C" int prefill_coop_grid(int dtype, int wbits, int kvbits,
+// The cooperative grid of the body for (dtype, wbits, kvbits) at ``smem``
+// bytes of dynamic shared memory a block; minus the cudaError_t on
+// failure.
+extern "C" int prefill_coop_grid(int dtype, int wbits, int kvbits, int body,
                                  int smem) {
   using namespace paddle_tpu_torch::fused;
-  return coop_grid_or_error(prefill_kernel(dtype, wbits, kvbits), smem);
+  return coop_grid_or_error(prefill_body(body, dtype, wbits, kvbits), smem);
 }
 
 extern "C" int prefill_attn_block(
@@ -361,18 +795,28 @@ extern "C" int prefill_attn_block(
     const void* sv, const void* so, const void* sin, const void* cos,
     const void* k_pool, const void* v_pool, const void* k_scale,
     const void* v_scale, const void* table, void* x_out, void* k_new,
-    void* v_new, void* qkv_ws, void* q_ws, void* attn_ws, int P, int D, int H,
-    int KV, int hd, int BS, int MB, int pos0, int n_valid, int bq,
-    int residual, int region, int smem, int wbits, int kvbits, int grid,
-    int qkv_lpr, int q_tiles, int kv_tiles, int o_lpr, int o_tiles,
-    float eps, float scale, int dtype, void* stream) {
+    void* v_new, void* qkv_ws, void* q_ws, void* attn_ws, void* h_ws, int P,
+    int D, int H, int KV, int hd, int BS, int MB, int pos0, int n_valid,
+    int bq, int residual, int region, int smem, int wbits, int kvbits,
+    int grid, int body, int row_tiles, int o_parts, int qkv_lpr,
+    int q_tiles, int kv_tiles, int o_lpr, int o_tiles, float eps,
+    float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
-  const auto kernel = prefill_kernel(dtype, wbits, kvbits);
+  const auto kernel = prefill_body(body, dtype, wbits, kvbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   if (n_valid < 1 || n_valid > P || bq < 1 || P % bq) return cudaErrorInvalidValue;
-  if (!plan_ok(qkv_lpr, q_tiles) || !plan_ok(qkv_lpr, kv_tiles) ||
-      !plan_ok(o_lpr, o_tiles))
+  if (body == 1) {
+    if (hd != kHd || bq != kQRows || qkv_lpr != 0 || o_lpr != 0 ||
+        q_tiles != cdiv(H * hd, kQkvCols) ||
+        kv_tiles != cdiv(KV * hd, kQkvCols) ||
+        o_tiles != cdiv(D, kOCols) || row_tiles != cdiv(P, kTileRows) ||
+        D % 32 || o_parts < 1 || o_parts > 8 ||
+        (size_t)smem != prefill_tc_smem(wbits, kvbits, H, KV, hd, BS))
+      return cudaErrorInvalidValue;
+  } else if (!plan_ok(qkv_lpr, q_tiles) || !plan_ok(qkv_lpr, kv_tiles) ||
+             !plan_ok(o_lpr, o_tiles)) {
     return cudaErrorInvalidValue;
+  }
   PrefillArgs a{x, nw, wq, wk, wv, wo,
                 static_cast<const float*>(sq), static_cast<const float*>(sk),
                 static_cast<const float*>(sv), static_cast<const float*>(so),
@@ -380,9 +824,14 @@ extern "C" int prefill_attn_block(
                 k_pool, v_pool, static_cast<const float*>(k_scale),
                 static_cast<const float*>(v_scale),
                 static_cast<const int*>(table), x_out, k_new,
-                v_new, qkv_ws, q_ws, attn_ws, P, D, H, KV, hd, BS, MB, pos0,
-                n_valid, bq, residual, eps, scale, (size_t)region, qkv_lpr,
-                q_tiles, kv_tiles, o_lpr, o_tiles};
+                v_new, qkv_ws, q_ws, attn_ws, h_ws, P, D, H, KV, hd, BS, MB,
+                pos0, n_valid, bq, residual, eps, scale, (size_t)region,
+                qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles, row_tiles,
+                body == 1 ? o_parts : 1,
+                body == 1 ? reinterpret_cast<float*>(
+                                static_cast<char*>(h_ws) +
+                                ((size_t)P * D * sizeof(bf16) + 15) / 16 * 16)
+                          : nullptr};
   return launch_coop(kernel, a, smem, grid, static_cast<cudaStream_t>(stream));
 }
 

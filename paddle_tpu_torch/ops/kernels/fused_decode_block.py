@@ -390,16 +390,18 @@ def block_smem_bytes(D, H, KV, hd, BS, itemsize, pool_itemsize=None) -> int:
 # the launch plans: tile widths and counts, the cooperative grid, the spec
 # ---------------------------------------------------------------------------
 _SOURCE = "paddle_tpu_torch/csrc/fused_decode_block.cu"
-#: blocks an SM each cooperative kernel is built for (its __launch_bounds__)
+#: blocks an SM each cooperative kernel is built for (its __launch_bounds__;
+#: "_tc": the tensor-core body of decode_mlp_block / prefill_attn_block)
 BOUNDS = {"decode_attn_block": 2, "decode_mlp_block": 2,
-          "decode_block_fused": 1, "prefill_attn_block": 2}
+          "decode_block_fused": 1, "prefill_attn_block": 2,
+          "decode_mlp_block_tc": 1, "prefill_attn_block_tc": 1}
 #: the launchers' ctypes argument codes (pointers, ints, floats, then the
 #: dtype code and the stream)
 CALLS = {"decode_attn_block": _build.c_codes(23, 19, 2),
-         "decode_mlp_block": _build.c_codes(10, 13, 1),
+         "decode_mlp_block": _build.c_codes(10, 16, 1),
          "decode_block_fused": _build.c_codes(30, 23, 2)}
 _GRID_QUERY = {"decode_attn_block": 0, "decode_mlp_block": 1,
-               "decode_block_fused": 2}
+               "decode_block_fused": 2, "decode_mlp_block_tc": 3}
 _GRIDS = {}
 
 
@@ -518,6 +520,102 @@ def mlp_plan(D, F, vec, bits, grid, floor_tile=None):
             "down_tiles": -(-nst // (down_lpr * dcols)), "down_k": down_k}
 
 
+# ---------------------------------------------------------------------------
+# the tensor-core bodies' plans (csrc/tile_mma.cuh): all rows of a row tile
+# against each weight tile in one pass, 128 k a stage, 3 stages
+# ---------------------------------------------------------------------------
+TC_TILE_ROWS = 128   # rows a tile (a chunk's, at most)
+TC_CHUNK_K = 128     # logical k a stage
+TC_STAGES = 3
+#: the tensor-core MLP body's column tiles: gate/up's (of each weight) and
+#: down's (the source's kUpCols, kDownCols)
+MLP_UP_COLS, MLP_DOWN_COLS = 64, 64
+#: split K into at most this many parts (f32 partial sums added in part
+#: order after one more grid barrier) where a phase has fewer tiles than
+#: the grid has blocks
+TC_MAX_PARTS = 8
+#: decode_mlp_block takes its tensor-core body in bf16 from this many rows
+#: on (the prefill MLP's chunks: 32 and 128 rows); below it the CUDA-core
+#: body, whose passes of 8 rows read the weights once at 8 rows
+MLP_TC_MIN_ROWS = 9
+#: the weight classes of csrc/block_products.cuh
+_WFP, _WINT8, _WINT4K, _WINT4N = 0, 1, 2, 3
+
+
+def wclass(bits, out_packed=False):
+    """A product's weight class under a kernel's weight bits."""
+    return {8: _WINT8, 4: _WINT4N if out_packed else _WINT4K}.get(bits, _WFP)
+
+
+def tile_smem_bytes(wc, nmat, tc):
+    """tile_mma.cuh's ``tile_smem_bytes<WC, NMAT, TC>``: the A stages
+    [3][128][136] bf16, then for each weight its raw stages and, quantized,
+    a converted [128][tc + 8] bf16 tile."""
+    a = TC_STAGES * TC_TILE_ROWS * (TC_CHUNK_K + 8) * 2
+    rows = TC_CHUNK_K // 2 if wc == _WINT4K else TC_CHUNK_K
+    cols = tc // 2 if wc == _WINT4N else tc
+    ld = (tc + 8) * 2 if wc == _WFP else cols
+    cvt = 0 if wc == _WFP else TC_CHUNK_K * (tc + 8) * 2
+    return a + nmat * (TC_STAGES * rows * ld + cvt)
+
+
+def mlp_tc_smem(bits):
+    """Shared memory of decode_mlp_block's tensor-core body (the source's
+    ``mlp_tc_smem``): gate/up's two weights or down's one, the larger."""
+    return max(tile_smem_bytes(wclass(bits), 2, MLP_UP_COLS),
+               tile_smem_bytes(wclass(bits, True), 1, MLP_DOWN_COLS))
+
+
+def mlp_body(B, D, F, dt, floor_tile=None):
+    """(body, reason): which body of decode_mlp_block a launch runs, the
+    rule its plan records. "tc" (csrc/tile_mma.cuh on the tensor cores) for
+    bf16 from MLP_TC_MIN_ROWS rows on, with D a multiple of 32 and F of 16
+    (16-byte copies of every class's rows and tiles); "cuda_core" (the
+    8-row passes) otherwise, and for the gate's specimen."""
+    if floor_tile is not None:
+        return "cuda_core", "the gate's specimen runs the CUDA-core plan"
+    if dt != "bfloat16":
+        return "cuda_core", f"{dt}: the tensor-core body is bf16 only"
+    if B < MLP_TC_MIN_ROWS:
+        return "cuda_core", (f"{B} rows < {MLP_TC_MIN_ROWS}: one pass of 8 "
+                             "rows reads the weights once")
+    if D % 32 or F % 16:
+        return "cuda_core", (f"D {D} not a multiple of 32 or F {F} of 16: "
+                             "the tile copies need both")
+    return "tc", f"{B} rows >= {MLP_TC_MIN_ROWS} in bf16"
+
+
+def tc_parts(items, grid, chunks):
+    """The parts a tensor-core phase of ``items`` (row tile, column tile)
+    items splits K's ``chunks`` into: as many as the grid has room for,
+    at most TC_MAX_PARTS and ``chunks``, at least 1."""
+    return max(1, min(TC_MAX_PARTS, chunks, grid // max(items, 1)))
+
+
+def part_rows(K, parts, packed=False):
+    """Stored weight rows of one part of a K split into ``parts`` (the
+    tile_mma.cuh ranges: ceil(chunks / parts) chunks of 128 k; int4 packed
+    along K: 64 stored rows a chunk)."""
+    per_chunk = TC_CHUNK_K // 2 if packed else TC_CHUNK_K
+    kn = K // 2 if packed else K
+    return -(-(-(-kn // per_chunk)) // parts) * per_chunk
+
+
+def mlp_tc_plan(B, D, F, bits, grid):
+    """The tensor-core body's plan: row tiles of 128 rows, column tiles of
+    F (gate/up, ``up_cols`` of each weight) and of D (down, ``down_cols``:
+    half as many stored columns for int4, packed along D), down over F in
+    ``down_parts`` parts (:func:`tc_parts` on ``grid``), k 128 a stage in
+    3 stages."""
+    rt, dt = -(-B // TC_TILE_ROWS), -(-D // MLP_DOWN_COLS)
+    return {"body": "tc", "row_tiles": rt, "rows_tile": TC_TILE_ROWS,
+            "up_cols": MLP_UP_COLS, "down_cols": MLP_DOWN_COLS,
+            "up_lpr": 0, "up_tiles": -(-F // MLP_UP_COLS), "down_lpr": 0,
+            "down_tiles": dt, "down_k": F,
+            "down_parts": tc_parts(rt * dt, grid, -(-F // TC_CHUNK_K)),
+            "k_chunk": TC_CHUNK_K, "stages": TC_STAGES}
+
+
 def _attn_parts(B, D, H, KV, hd, BS, MB, N, rope_rows, dt, bits, kv_bits,
                 plan, x_out):
     """Operands and phases of the attention half (decode_attn_block, and
@@ -585,13 +683,10 @@ def _attn_parts(B, D, H, KV, hd, BS, MB, N, rope_rows, dt, bits, kv_bits,
     return ins, outs, phases
 
 
-def _mlp_parts(B, D, F, dt, bits, plan, x_name, norm_name):
-    """Operands and phases of the MLP half (decode_mlp_block, and the
-    single-launch kernel's last two phases; ``x_name`` None: its rows are
-    the single-launch kernel's f32 residual workspace). int4 down_proj
-    writes each output row in two column ranges, [0, D/2) and [D/2, D): the
-    spec sees the output (and its scale) as [B, 2, D/2]."""
-    vec = 16 // _ITEM[dt]
+def _mlp_operands(B, D, F, dt, bits, x_name, norm_name):
+    """The MLP half's operands (inputs, outputs); int4 down_proj writes
+    each output row in two column ranges, [0, D/2) and [D/2, D): the spec
+    sees the output (and its scale) as [B, 2, D/2]."""
     ins = []
     if x_name:
         ins.append(_op(x_name, (B, D), dt))
@@ -606,6 +701,18 @@ def _mlp_parts(B, D, F, dt, bits, plan, x_name, norm_name):
         ins += [_op("sg", (F,), "float32"), _op("su", (F,), "float32"),
                 _op("sd", (2, D // 2) if half else (D,), "float32")]
     outs = [_op("x_out", (B, 2, D // 2) if half else (B, D), dt)]
+    return ins, outs
+
+
+def _mlp_parts(B, D, F, dt, bits, plan, x_name, norm_name):
+    """Operands and phases of the MLP half (decode_mlp_block, and the
+    single-launch kernel's last two phases; ``x_name`` None: its rows are
+    the single-launch kernel's f32 residual workspace). int4 down_proj
+    writes each output row in two column ranges, [0, D/2) and [D/2, D): the
+    spec sees the output (and its scale) as [B, 2, D/2]."""
+    vec = 16 // _ITEM[dt]
+    ins, outs = _mlp_operands(B, D, F, dt, bits, x_name, norm_name)
+    half = bits == 4
     kn = D // 2 if half else D
     tc = plan["up_lpr"] * vec
     tcs = plan["down_lpr"] * (vec // 2 if half else vec)
@@ -652,18 +759,78 @@ def attn_spec(B, D, H, KV, hd, BS, MB, N, rope_rows, dt, bits, kv_bits,
                                "kvbits": kv_bits}, plan=plan)
 
 
+def _mlp_tc_parts(B, D, F, dt, bits, plan):
+    """Operands and phases of decode_mlp_block's tensor-core body: the
+    RMSNorm of every row, then gate/up and down by (row tile, column
+    tile) items, the column fastest (down's: (row tile, part of F, column
+    tile))."""
+    ins, outs = _mlp_operands(B, D, F, dt, bits, "x", "nw")
+    half = bits == 4
+    R, tc, dc = TC_TILE_ROWS, plan["up_cols"], plan["down_cols"]
+    tcs = dc // 2 if half else dc
+    kn = D // 2 if half else D
+    A = _launch.Access
+    ut, dn, parts = plan["up_tiles"], plan["down_tiles"], plan["down_parts"]
+    up_reads = [A("wg", (kn, tc), lambda i: (0, i % ut)),
+                A("wu", (kn, tc), lambda i: (0, i % ut))]
+    if bits:
+        up_reads += [A("sg", (tc,), lambda i: (i % ut,)),
+                     A("su", (tc,), lambda i: (i % ut,))]
+    # down's items: (row tile, part of F, column tile), the column fastest
+    down_reads = [A("wd", (part_rows(F, parts), tcs),
+                    lambda i: ((i // dn) % parts, i % dn))]
+    if half:
+        down_writes = (A("x_out", (R, 1, tcs),
+                         lambda i: (i // (dn * parts), 0, i % dn)),
+                       A("x_out", (R, 1, tcs),
+                         lambda i: (i // (dn * parts), 1, i % dn)))
+        if bits:
+            down_reads += [A("sd", (1, tcs), lambda i: (0, i % dn)),
+                           A("sd", (1, tcs), lambda i: (1, i % dn))]
+    else:
+        down_writes = (A("x_out", (R, dc),
+                         lambda i: (i // (dn * parts), i % dn)),)
+        if bits:
+            down_reads.append(A("sd", (dc,), lambda i: (i % dn,)))
+    items = plan["row_tiles"] * parts * dn
+    phases = [
+        _launch.KernelPhase("norm", B, (A("x", (1, D), lambda i: (i, 0)),
+                                        _launch.whole(ins[1], B))),
+        _launch.KernelPhase("gate_up", plan["row_tiles"] * ut,
+                            tuple(up_reads))]
+    if parts == 1:
+        phases.append(_launch.KernelPhase("down", items, tuple(down_reads),
+                                          down_writes))
+    else:
+        # the parts' f32 sums, then the combine writes x_out whole (a
+        # workspace the spec does not track lies between)
+        phases += [_launch.KernelPhase("down", items, tuple(down_reads)),
+                   _launch.KernelPhase("combine", 1, (),
+                                       (_launch.whole(outs[0]),))]
+    return ins, outs, phases
+
+
 @functools.lru_cache(maxsize=512)
-def mlp_spec(B, D, F, dt, bits, residual, grid, smem, floor_tile=None):
+def mlp_spec(B, D, F, dt, bits, residual, grid, smem, floor_tile=None,
+             body="cuda_core"):
     """The launch spec of decode_mlp_block (``floor_tile``: of the gate's
-    regression specimen, :func:`demo_prefix_mlp_block_cuda`)."""
-    plan = mlp_plan(D, F, 16 // _ITEM[dt], bits, grid, floor_tile)
-    ins, outs, phases = _mlp_parts(B, D, F, dt, bits, plan, "x", "nw")
+    regression specimen, :func:`demo_prefix_mlp_block_cuda`; ``body``:
+    "tc" for the tensor-core body's plan, :func:`mlp_tc_plan`)."""
+    if body == "tc":
+        plan = mlp_tc_plan(B, D, F, bits, grid)
+        ins, outs, phases = _mlp_tc_parts(B, D, F, dt, bits, plan)
+    else:
+        plan = mlp_plan(D, F, 16 // _ITEM[dt], bits, grid, floor_tile)
+        plan["body"] = "cuda_core"
+        ins, outs, phases = _mlp_parts(B, D, F, dt, bits, plan, "x", "nw")
+    plan["body_rule"] = mlp_body(B, D, F, dt, floor_tile)[1]
     name = ("decode_mlp_block" if floor_tile is None
             else "demo_prefix_mlp_block")
+    bounds = "decode_mlp_block_tc" if body == "tc" else "decode_mlp_block"
     return _launch.KernelLaunchSpec(
         name, "cuda", _SOURCE, (grid,), _THREADS, tuple(ins), tuple(outs),
         tuple(phases), (("decode_mlp_block", CALLS["decode_mlp_block"]),),
-        dt, blocks_per_sm=BOUNDS["decode_mlp_block"], cooperative=True,
+        dt, blocks_per_sm=BOUNDS[bounds], cooperative=True,
         dyn_smem=smem, params={"residual": bool(residual), "wbits": bits},
         plan=plan)
 
@@ -924,7 +1091,10 @@ def decode_mlp_block_cuda(x, nw, wg, wu, wd, eps=1e-6, residual=True):
 def _mlp_launch(name, wrapper, x, nw, wg, wu, wd, eps, residual,
                 floor_tile):
     """decode_mlp_block's kernel under its plan (``floor_tile`` None) or
-    under the gate's regression specimen's floor-divided one."""
+    under the gate's regression specimen's floor-divided one. The plan's
+    rule (:func:`mlp_body`) picks the body: the tensor-core one at chunk
+    rows in bf16, the CUDA-core one otherwise; a failed build or launch
+    raises, never falls back to the other."""
     _check_common(name, x, {"x": x, "nw": nw}, {})
     B, D = x.shape
     F, leaves = _mlp_leaves(x, wg, wu, wd)
@@ -934,25 +1104,38 @@ def _mlp_launch(name, wrapper, x, nw, wg, wu, wd, eps, residual,
                          "must be multiples of 16 bytes (the load width)")
     bits, w, sc = _weights(name, x, leaves)
     _shape(name, "nw", nw, (D,))
-    region, smem = _layout(D, 0, 0, 0, item)
+    dt = _launch.dtype_name(x.dtype)
+    body = mlp_body(B, D, F, dt, floor_tile)[0]
+    if body == "tc":
+        region, smem, kernel = 0, mlp_tc_smem(bits), "decode_mlp_block_tc"
+    else:
+        region, smem = _layout(D, 0, 0, 0, item)
+        kernel = "decode_mlp_block"
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    grid = coop_grid("decode_mlp_block", x.device, x.dtype, bits, 0, smem)
-    spec = mlp_spec(B, D, F, _launch.dtype_name(x.dtype), bits,
-                    bool(residual), grid, smem, floor_tile)
+    grid = coop_grid(kernel, x.device, x.dtype, bits, 0, smem)
+    spec = mlp_spec(B, D, F, dt, bits, bool(residual), grid, smem,
+                    floor_tile, body)
+    pl = spec.plan
+    if body == "tc":
+        # silu(g)*u [B][F], the normalised rows [B][D] (bf16), then down's
+        # f32 partial sums [parts][B][D], 16-byte aligned (in bf16 elements)
+        ws = -(-B * F // 8) * 8 + -(-B * D // 8) * 8
+        ws += 2 * pl["down_parts"] * B * D if pl["down_parts"] > 1 else 0
+    else:
+        # silu(g)*u, k-major rows ([pass][F][8])
+        ws = _passes(B) * _ROWS * F
     out = torch.empty_like(x)
-    # silu(g)*u, k-major rows ([pass][F][8], csrc/fused_decode_block.cu)
-    ff_ws = torch.empty(_passes(B) * _ROWS * F, dtype=x.dtype,
-                        device=x.device)
+    ff_ws = torch.empty(ws, dtype=x.dtype, device=x.device)
     if not _launch.begin(spec, x.device):
         return out
     fn = _build.c_fn("fused_decode_block", *spec.calls[0])
-    pl = spec.plan
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if floor_tile is None:
             _count(wrapper, bits, residual=residual)
+            wrapper.launches_by_body[body] += 1
         else:
             wrapper.launches += 1
         err = fn(x.data_ptr(), nw.data_ptr(),
@@ -960,8 +1143,9 @@ def _mlp_launch(name, wrapper, x, nw, wg, wu, wd, eps, residual,
                  *(_ptr(sc[k]) for k in ("wg", "wu", "wd")),
                  out.data_ptr(), ff_ws.data_ptr(), B, D, F,
                  int(bool(residual)), region, smem, bits, grid,
-                 pl["up_lpr"], pl["up_tiles"], pl["down_lpr"],
-                 pl["down_tiles"], pl["down_k"], float(eps),
+                 int(body == "tc"), pl["up_lpr"], pl["up_tiles"],
+                 pl["down_lpr"], pl["down_tiles"], pl["down_k"],
+                 pl.get("row_tiles", 0), pl.get("down_parts", 1), float(eps),
                  _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_mlp_block launch failed: "
@@ -1110,6 +1294,9 @@ for _w in (decode_attn_block_cuda, decode_block_fused_cuda):
 for _w in (decode_attn_block_cuda, decode_mlp_block_cuda):
     # and, for the two-stage kernels, by residual class
     _w.launches_by_residual = {"full": 0, "partial": 0}
+# and decode_mlp_block by body: "tc" (the tensor cores, chunk rows in bf16)
+# or "cuda_core" (the passes of 8 rows)
+decode_mlp_block_cuda.launches_by_body = {"tc": 0, "cuda_core": 0}
 
 
 # ---------------------------------------------------------------------------

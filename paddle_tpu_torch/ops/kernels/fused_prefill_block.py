@@ -155,24 +155,101 @@ def prefill_mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
 # ---------------------------------------------------------------------------
 _SOURCE = "paddle_tpu_torch/csrc/fused_prefill_block.cu"
 #: the launcher's ctypes argument codes
-CALL = ("prefill_attn_block", _build.c_codes(23, 21, 2))
+CALL = ("prefill_attn_block", _build.c_codes(24, 24, 2))
+#: head dim of the tensor-core attention (the source's kHd)
+TC_HEAD_DIM = 128
+#: the tensor-core body's column tiles of q/k/v and of o_proj (the
+#: source's kQkvCols, kOCols)
+QKV_COLS, O_COLS = 64, 64
 
 
-def _grid_query(dtype, bits, kv_bits, smem):
-    fn = _build.c_fn("fused_prefill_block", "prefill_coop_grid", ("i",) * 4)
-    return fn(dtype, bits, kv_bits, smem)
+def _grid_query(body):
+    def query(dtype, bits, kv_bits, smem):
+        fn = _build.c_fn("fused_prefill_block", "prefill_coop_grid",
+                         ("i",) * 5)
+        return fn(dtype, bits, kv_bits, body, smem)
+    return query
+
+
+def prefill_tc_smem(bits, kv_bits, H, KV, hd, BS):
+    """Shared memory of the tensor-core body (the source's
+    ``prefill_tc_smem``): the larger of its product layout (one weight a
+    tile, :func:`.fused_decode_block.tile_smem_bytes`) and its attention's:
+    over fp pools the item's Q and two stages of 128 keys' K and V, bf16
+    [.][136]; over int8 pools the CUDA-core item of (H/KV) * BQ rows
+    (``_layout``'s attention scratch) with two staged tiles of bf16."""
+    prod = max(_fdb.tile_smem_bytes(_fdb.wclass(bits), 1, c)
+               for c in (QKV_COLS, O_COLS))
+    if kv_bits:
+        sb = _fdb._PAGES_PER_STEP * BS
+        rows = H // KV * BQ
+        f = 2 * rows * hd + rows * sb + 3 * rows + hd
+        attn = -(-f // 4) * 4 * 4 + 2 * sb * hd * 2
+    else:
+        attn = (BQ + 2 * 2 * _fdb._WARPS * 16) * (TC_HEAD_DIM + 8) * 2
+    return max(prod, attn)
+
+
+def prefill_body(P, D, H, KV, hd, BS, dt, bits, kv_bits):
+    """(body, reason): which body of prefill_attn_block a launch runs, the
+    rule its plan records: "tc" (the tensor cores) for bf16 with head dim
+    128, D a multiple of 32 and the body's shared memory within the card's
+    limit; "cuda_core" otherwise (every f32 launch)."""
+    if dt != "bfloat16":
+        return "cuda_core", f"{dt}: the tensor-core body is bf16 only"
+    if hd != TC_HEAD_DIM:
+        return "cuda_core", (f"head dim {hd}: the tensor-core attention "
+                             f"takes {TC_HEAD_DIM}")
+    if D % 32:
+        return "cuda_core", f"D {D} not a multiple of 32 (the tile copies)"
+    need = prefill_tc_smem(bits, kv_bits, H, KV, hd, BS)
+    if need > _fdb.SMEM_LIMIT:
+        return "cuda_core", (f"the tensor-core body needs {need} B of "
+                             "shared memory a block")
+    return "tc", "bf16, head dim 128" + (", int8 pools: CUDA-core attention"
+                                         if kv_bits else "")
+
+
+def prefill_tc_plan(P, D, H, KV, hd, bits, grid):
+    """The tensor-core body's plan: row tiles of 128 rows, column tiles of
+    wq (q_tiles), wk and wv (kv_tiles each; ``qkv_cols`` columns) and wo
+    (o_tiles of ``o_cols``, over H*hd in ``o_parts`` parts:
+    :func:`.fused_decode_block.tc_parts` on ``grid``), 128 k a stage in 3
+    stages; attention items (16-row query block, query head), 128 keys a
+    step."""
+    rt, ot = -(-P // _fdb.TC_TILE_ROWS), -(-D // O_COLS)
+    nq = H * hd
+    chunks = -(-(nq // 2 if bits == 4 else nq)
+               // (_fdb.TC_CHUNK_K // 2 if bits == 4 else _fdb.TC_CHUNK_K))
+    return {"body": "tc", "row_tiles": rt, "rows_tile": _fdb.TC_TILE_ROWS,
+            "qkv_cols": QKV_COLS, "o_cols": O_COLS, "qkv_lpr": 0,
+            "q_tiles": -(-nq // QKV_COLS),
+            "kv_tiles": -(-KV * hd // QKV_COLS), "o_lpr": 0,
+            "o_tiles": ot, "o_parts": _fdb.tc_parts(rt * ot, grid, chunks),
+            "k_chunk": _fdb.TC_CHUNK_K, "stages": _fdb.TC_STAGES,
+            "key_step": _fdb._WARPS * 16}
 
 
 @functools.lru_cache(maxsize=512)
 def prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits, residual,
-                 pos0, n_valid, grid, smem):
+                 pos0, n_valid, grid, smem, body="cuda_core"):
     """The launch spec of prefill_attn_block: the q/k/v products of the
     real rows by column tiles, the RoPE pass that writes k_new and v_new
     whole, the attention items (query block, KV head) over the paged
-    history of ``pos0`` tokens, and o_proj by column tiles into x_out."""
+    history of ``pos0`` tokens, and o_proj by column tiles into x_out. The
+    tensor-core body (``body`` "tc") normalises the real rows first, tiles
+    32 columns by rows of 128, and over fp pools takes (query block, query
+    head) attention items."""
     nq, nkv = H * hd, KV * hd
     vec = 16 // _fdb._ITEM[dt]
-    plan = _fdb.attn_plan(nq, nkv, D, vec, grid)
+    tc = body == "tc"
+    if tc:
+        plan = prefill_tc_plan(P, D, H, KV, hd, bits, grid)
+    else:
+        plan = _fdb.attn_plan(nq, nkv, D, vec, grid)
+        plan["body"] = "cuda_core"
+    plan["body_rule"] = prefill_body(P, D, H, KV, hd, BS, dt, bits,
+                                     kv_bits)[1]
     op = _fdb._op
     pool_dt = "int8" if kv_bits else dt
     ins = [op("x", (P, D), dt), op("nw", (D,), dt)]
@@ -195,17 +272,18 @@ def prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits, residual,
             op("v_new", (P, KV, hd), dt)]
     kn = D // 2 if bits == 4 else D
     kn_o = nq // 2 if bits == 4 else nq
-    tc, tq, tk = plan["qkv_lpr"] * vec, plan["q_tiles"], plan["kv_tiles"]
-    otc = plan["o_lpr"] * vec
+    tw = plan["qkv_cols"] if tc else plan["qkv_lpr"] * vec
+    tq, tk = plan["q_tiles"], plan["kv_tiles"]
+    otc = plan["o_cols"] if tc else plan["o_lpr"] * vec
     A, whole = _launch.Access, _launch.whole
-    qkv_reads = [whole(ins[0]), whole(ins[1]),
-                 A("wq", (kn, tc), _fdb._col, 0, tq),
-                 A("wk", (kn, tc), _fdb._col, tq, tk),
-                 A("wv", (kn, tc), _fdb._col, tq + tk, tk)]
+    qkv_reads = [] if tc else [whole(ins[0]), whole(ins[1])]
+    qkv_reads += [A("wq", (kn, tw), _fdb._col, 0, tq),
+                  A("wk", (kn, tw), _fdb._col, tq, tk),
+                  A("wv", (kn, tw), _fdb._col, tq + tk, tk)]
     if bits:
-        qkv_reads += [A("sq", (tc,), _fdb._vec, 0, tq),
-                      A("sk", (tc,), _fdb._vec, tq, tk),
-                      A("sv", (tc,), _fdb._vec, tq + tk, tk)]
+        qkv_reads += [A("sq", (tw,), _fdb._vec, 0, tq),
+                      A("sk", (tw,), _fdb._vec, tq, tk),
+                      A("sv", (tw,), _fdb._vec, tq + tk, tk)]
     names = [o.name for o in ins]
     rope_reads = (whole(ins[names.index("sin")]),
                   whole(ins[names.index("cos")]))
@@ -213,21 +291,47 @@ def prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits, residual,
     if kv_bits:
         attn_reads = (whole(ins[names.index("k_scale")]),
                       whole(ins[names.index("v_scale")]))
-    o_reads = [A("wo", (kn_o, otc), _fdb._col)]
+    parts = plan.get("o_parts", 1)
+    if parts == 1:
+        o_reads = [A("wo", (kn_o, otc), _fdb._col)]
+    else:
+        # items (row tile, part of H*hd, column tile), the column fastest
+        ot = plan["o_tiles"]
+        o_reads = [A("wo", (_fdb.part_rows(H * hd, parts, bits == 4), otc),
+                     lambda i: ((i // ot) % parts, i % ot))]
     if bits:
-        o_reads.append(A("so", (otc,), _fdb._vec))
+        o_reads.append(A("so", (otc,), lambda i: (i % plan["o_tiles"],)))
+    # attention items: (query block, KV head), or on the tensor cores over
+    # fp pools (query block, query head)
+    items = -(-n_valid // BQ) * (H if tc and not kv_bits else KV)
     phases = (
         _launch.KernelPhase("qkv", tq + 2 * tk, tuple(qkv_reads)),
         _launch.KernelPhase("rope", 1, rope_reads,
                             (whole(outs[1]), whole(outs[2]))),
-        _launch.KernelPhase("attention", -(-n_valid // BQ) * KV,
-                            attn_reads),
-        _launch.KernelPhase("o_proj", plan["o_tiles"], tuple(o_reads),
-                            (A("x_out", (P, otc), _fdb._col),)))
+        _launch.KernelPhase("attention", items, attn_reads))
+    if parts == 1:
+        phases += (_launch.KernelPhase(
+            "o_proj", plan["o_tiles"], tuple(o_reads),
+            (A("x_out", (P, otc), _fdb._col),)),)
+    else:
+        # the parts' f32 sums, then the combine writes x_out (with the
+        # RoPE phase's zeros in the pad rows)
+        phases += (_launch.KernelPhase("o_proj", parts * plan["o_tiles"],
+                                       tuple(o_reads)),
+                   _launch.KernelPhase("combine", 1, (), (whole(outs[0]),)))
+    if tc:
+        # the real rows normalised once, before the products (x whole, as
+        # the CUDA-core body's q/k/v phase reads it: a pad row is read by
+        # neither); the row tiles' items repeat the column tiles (the first
+        # row tile's shown)
+        phases = (_launch.KernelPhase("norm", n_valid,
+                                      (whole(ins[0]), whole(ins[1]))),
+                  ) + phases
     return _launch.KernelLaunchSpec(
         "prefill_attn_block", "cuda", _SOURCE, (grid,), _fdb._THREADS,
         tuple(ins), tuple(outs), phases, (CALL,), dt,
-        blocks_per_sm=_fdb.BOUNDS["prefill_attn_block"],
+        blocks_per_sm=_fdb.BOUNDS["prefill_attn_block_tc" if tc
+                                  else "prefill_attn_block"],
         cooperative=True, dyn_smem=smem,
         params={"residual": bool(residual), "wbits": bits,
                 "kvbits": kv_bits, "pos0": pos0, "n_valid": n_valid,
@@ -294,25 +398,39 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if pos0 < 0 or -(-pos0 // BS) > MB:
         raise ValueError(f"{name}: pos0={pos0} needs more than the table's "
                          f"{MB} pages of history")
-    region, smem = _fdb._layout(D, H // KV * BQ, hd, BS, item)
+    dt = _launch.dtype_name(x.dtype)
+    body = prefill_body(P, D, H, KV, hd, BS, dt, bits, kv_bits)[0]
+    if body == "tc":
+        region, smem = 0, prefill_tc_smem(bits, kv_bits, H, KV, hd, BS)
+    else:
+        region, smem = _fdb._layout(D, H // KV * BQ, hd, BS, item)
     if smem > _fdb.SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {_fdb.SMEM_LIMIT}")
-    grid = _fdb.coop_grid("prefill_attn_block", x.device, x.dtype, bits,
-                          kv_bits, smem, query=_grid_query)
-    spec = prefill_spec(P, D, H, KV, hd, BS, MB, N,
-                        _launch.dtype_name(x.dtype), bits, kv_bits,
-                        bool(residual), pos0, n_valid, grid, smem)
+    kernel = "prefill_attn_block_tc" if body == "tc" else "prefill_attn_block"
+    grid = _fdb.coop_grid(kernel, x.device, x.dtype, bits, kv_bits, smem,
+                          query=_grid_query(int(body == "tc")))
+    spec = prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits,
+                        bool(residual), pos0, n_valid, grid, smem, body)
     x_out = torch.empty_like(x)
     k_new = torch.empty((P, KV, hd), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
     # the kernel's workspaces (csrc/fused_prefill_block.cu): the q/k/v
-    # projections, the roped q rows, the attention rows k-major by pass
+    # projections, the roped q rows, the attention rows (k-major by pass;
+    # row-major [P][H*hd] in the tensor-core body, the same size since P
+    # is a multiple of 16) and the tensor-core body's normalised rows
     qkv_ws = torch.empty((P, (H + 2 * KV) * hd), dtype=x.dtype,
                          device=x.device)
     q_ws = torch.empty((P, H * hd), dtype=x.dtype, device=x.device)
     attn_ws = torch.empty((_fdb._passes(P) * _fdb._ROWS, H * hd),
                           dtype=x.dtype, device=x.device)
+    # the normalised rows [P][D] and o_proj's f32 partial sums
+    # [parts][P][D], 16-byte aligned (in x's elements)
+    parts = spec.plan.get("o_parts", 1)
+    h_ws = (torch.empty(-(-P * D // 8) * 8 + (2 * parts * P * D
+                                              if parts > 1 else 0),
+                        dtype=x.dtype, device=x.device)
+            if body == "tc" else None)
     order = ("wq", "wk", "wv", "wo")
     if not _launch.begin(spec, x.device):
         return x_out, k_new, v_new
@@ -321,18 +439,20 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _fdb._count(prefill_attn_block_cuda, bits, kv_bits, residual)
+        prefill_attn_block_cuda.launches_by_body[body] += 1
         err = fn(x.data_ptr(), nw.data_ptr(),
                  *(w[k].data_ptr() for k in order),
                  *(_fdb._ptr(sc[k]) for k in order), sin.data_ptr(),
                  cos.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  _fdb._ptr(ks), _fdb._ptr(vs), table.data_ptr(),
                  x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                 qkv_ws.data_ptr(), q_ws.data_ptr(), attn_ws.data_ptr(), P,
-                 D, H, KV, hd, BS, MB, pos0, n_valid, BQ,
+                 qkv_ws.data_ptr(), q_ws.data_ptr(), attn_ws.data_ptr(),
+                 _fdb._ptr(h_ws), P, D, H, KV, hd, BS, MB, pos0, n_valid, BQ,
                  int(bool(residual)), region, smem, bits, kv_bits, grid,
-                 pl["qkv_lpr"], pl["q_tiles"], pl["kv_tiles"], pl["o_lpr"],
-                 pl["o_tiles"], float(eps), 1.0 / math.sqrt(hd),
-                 DTYPES[x.dtype], stream)
+                 int(body == "tc"), pl.get("row_tiles", 0),
+                 pl.get("o_parts", 1), pl["qkv_lpr"],
+                 pl["q_tiles"], pl["kv_tiles"], pl["o_lpr"], pl["o_tiles"],
+                 float(eps), 1.0 / math.sqrt(hd), DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("prefill_attn_block launch failed: "
                            + fn.error_string(err).decode())
@@ -347,6 +467,8 @@ prefill_attn_block_cuda.launches_by_weight = {"fp": 0, "int8": 0,
 prefill_attn_block_cuda.launches_by_pool = {"fp": 0, "int8": 0}
 # and by residual class
 prefill_attn_block_cuda.launches_by_residual = {"full": 0, "partial": 0}
+# and by body: "tc" (the tensor cores, bf16) or "cuda_core"
+prefill_attn_block_cuda.launches_by_body = {"tc": 0, "cuda_core": 0}
 
 
 # ---------------------------------------------------------------------------

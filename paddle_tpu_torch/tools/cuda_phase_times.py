@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Per-phase device times of the PyTorch/CUDA port's fused decode kernels
-on one GPU.
+"""Per-phase device times of the PyTorch/CUDA port's fused decode and
+prefill kernels on one GPU.
 
-    python3 paddle_tpu_torch/tools/cuda_phase_times.py
+    python3 paddle_tpu_torch/tools/cuda_phase_times.py [--part decode|prefill|all]
 
 Run from the repository root on a machine with one NVIDIA H100 and the
 CUDA toolkit. It builds copies of ``paddle_tpu_torch/csrc/
@@ -23,18 +23,35 @@ lengths, and serving-like lengths of 300-520 tokens):
   each kernel and change register allocation: compare phases with
   phases, not with the unstamped times.
 
+The prefill part (``--part prefill``) builds an unstamped and a stamped
+copy of ``fused_prefill_block.cu`` and of ``fused_decode_block.cu`` (every
+cooperative kernel of each stamped) and, at LLaMA-7B widths in bf16,
+times prefill_attn_block at P 128 (all rows real) with pos0 0, 512 and
+896 (a history of that many pool positions of 1152), and decode_mlp_block
+at 16, 20, 32 and 128 rows (the prefill MLP's chunk rows): each with its
+stamped phases, labelled by the kernel body's barriers (the CUDA-core
+bodies: products with their RMSNorm inside, RoPE, attention, o_proj;
+gate/up, down; a body with a phase of its own for the RMSNorm lists it
+first, and one that splits o_proj's or down's K adds their combine).
+Where the wrappers choose a body by a row threshold
+(``fused_decode_block.MLP_TC_MIN_ROWS``), each row count is timed under
+both bodies: the crossover.
+
 The copies keep the launchers' ``extern "C"`` signatures, and the
 wrappers run on them unchanged: :func:`use` loads a copy in place of the
-built library, and ``_build.c_fn`` binds each launcher with
-``fused_decode_block.CALLS``' argument codes (the codes the gate's
-ARG_MISMATCH rule holds against the source), with the wrapper's own plan
-and its copy's cooperative grid (the grid cache is emptied, so each copy's
-occupancy query answers for its own launch bounds).
+built library, and ``_build.c_fn`` binds each launcher with the
+wrappers' argument codes (the codes the gate's ARG_MISMATCH rule holds
+against the source), with the wrapper's own plan and its copy's
+cooperative grid (the grid cache is emptied, so each copy's occupancy
+query answers for its own launch bounds).
 
 One JSON object per line; the last is ``{"ok": true}``. It imports
 nothing of JAX or of ``paddle_tpu``.
 """
+import argparse
+import contextlib
 import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -48,7 +65,7 @@ import chip_smoke as cs  # noqa: E402
 
 #: the launchers the copies are driven through
 LAUNCHERS = ("decode_attn_block", "decode_mlp_block", "decode_block_fused")
-STAMP = ('\n  if (blockIdx.x == 0 && threadIdx.x == 0) {'
+STAMP = ('\n  if (blockIdx.x == 0 && threadIdx.x == 0 && g_n < 64) {'
          ' unsigned long long t;'
          ' asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));'
          ' g_stamps[g_n++] = t; }\n')
@@ -64,21 +81,33 @@ extern "C" int read_stamps(unsigned long long* out) {
 '''
 
 
+#: a cooperative kernel's head: ``<name>_kernel(const <Args> a) {``
+KERNEL_HEAD = re.compile(r"\b(\w+_kernel)\(const (\w+) a\) \{")
+
+
 def stamped(src):
-    """``src`` with block 0 stamping the global timer at each kernel's
-    start, after each grid sync, and after a final grid sync."""
-    out = src.replace("struct BlockArgs {",
-                      "__device__ unsigned long long g_stamps[64];\n"
-                      "__device__ int g_n;\nstruct BlockArgs {", 1)
-    for name, args in (("decode_attn_block", "AttnArgs"),
-                       ("decode_mlp_block", "MlpArgs"),
-                       ("decode_block_fused", "BlockArgs")):
-        head = f"{name}_kernel(const {args} a) {{"
-        i = out.index(head)
-        j = out.index("\n}\n", i)
-        body = out[i:j].replace("cg::this_grid();", "cg::this_grid();" + STAMP)
+    """``src`` with block 0 stamping the global timer at the start of each
+    cooperative kernel (a body that takes ``cg::this_grid()``), after each
+    grid sync, and after a final grid sync."""
+    decl = ("__device__ unsigned long long g_stamps[64];\n"
+            "__device__ int g_n;\n")
+    at = src.index("namespace fused {\n") + len("namespace fused {\n")
+    out = src[:at] + decl + src[at:]
+    pos = 0
+    while True:
+        m = KERNEL_HEAD.search(out, pos)
+        if m is None:
+            break
+        j = out.index("\n}\n", m.end())
+        body = out[m.start():j]
+        if "cg::this_grid();" not in body:
+            pos = j
+            continue
+        body = body.replace("cg::this_grid();", "cg::this_grid();" + STAMP)
         body = body.replace("grid.sync();", "grid.sync();" + STAMP)
-        out = out[:i] + body + "\n  grid.sync();" + STAMP + out[j:]
+        body += "\n  grid.sync();" + STAMP
+        out = out[:m.start()] + body + out[j:]
+        pos = m.start() + len(body)
     return out + READ
 
 
@@ -91,6 +120,12 @@ def variants(src):
     lb2 = src.replace(one, two)
     return {"lb1": src, "lb2": lb2, "lb1_stamped": stamped(src),
             "lb2_stamped": stamped(lb2)}
+
+
+def prefill_variants(prefill_src, decode_src):
+    """The prefill part's copies: each source unstamped and stamped."""
+    return {"prefill": prefill_src, "prefill_stamped": stamped(prefill_src),
+            "decode": decode_src, "decode_stamped": stamped(decode_src)}
 
 
 def build(work, srcs):
@@ -118,17 +153,18 @@ def build(work, srcs):
     return libs, ptxas
 
 
-def use(fdb, lib):
-    """Run the wrappers of ``fdb`` (``ops.kernels.fused_decode_block``) on
+def use(fdb, lib, source="fused_decode_block"):
+    """Run the wrappers of ``fdb`` (``ops.kernels.fused_decode_block``, or
+    of the prefill module with ``source`` "fused_prefill_block") on
     ``lib``'s launchers: ``lib`` takes the built library's place in
     ``_build``, whose ``c_fn`` binds each launcher at its next call with
-    the codes of ``fdb.CALLS`` (through the wrapper's launch spec), and
-    the cooperative grids are asked of ``lib`` anew."""
+    the codes of the wrapper's launch spec, and the cooperative grids are
+    asked of ``lib`` anew."""
     _build = fdb._build
-    _build._LIBS["fused_decode_block"] = lib
-    for key in [k for k in _build._FNS if k[0] == "fused_decode_block"]:
+    _build._LIBS[source] = lib
+    for key in [k for k in _build._FNS if k[0] == source]:
         del _build._FNS[key]
-    fdb._GRIDS.clear()
+    (getattr(fdb, "_fdb", None) or fdb)._GRIDS.clear()
 
 
 def phases(fdb, lib, fn, reps=6):
@@ -152,55 +188,184 @@ def phases(fdb, lib, fn, reps=6):
     return [round(float(v), 1) for v in np.median(np.array(runs), axis=0)]
 
 
+#: the prefill part's shapes: chunk rows, history lengths, MLP rows
+PREFILL_P = 128
+PREFILL_POS0 = (0, 512, 896)
+MLP_ROWS = (16, 20, 32, 128)
+#: the phases of each body, by the number of stamped intervals
+PHASE_NAMES = {
+    "prefill_attn_block": {4: ("qkv_with_norm", "rope", "attention",
+                               "o_proj"),
+                           5: ("norm", "qkv", "rope", "attention",
+                               "o_proj"),
+                           6: ("norm", "qkv", "rope", "attention",
+                               "o_proj", "combine")},
+    "decode_mlp_block": {2: ("gate_up_with_norm", "down"),
+                         3: ("norm", "gate_up", "down"),
+                         4: ("norm", "gate_up", "down", "combine")},
+}
+
+
+def named(kernel, times):
+    """Stamped intervals under their phase names (a list where the count
+    is not one the table knows)."""
+    names = PHASE_NAMES[kernel].get(len(times))
+    return dict(zip(names, times)) if names else times
+
+
+def decode_part(fdb, libs, gpu):
+    """The fused decode kernels at 8 slots (the part's header above)."""
+    import torch
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rope = build_rope_cache(4096, cs.HD7, device="cuda")
+    args = list(cs.block_inputs(gen, torch.bfloat16, cs.H7, cs.F7, rope,
+                                cs.B8))
+    serving = torch.randint(300, 520, (cs.B8,), generator=gen,
+                            device="cuda").to(torch.int32)
+    for label, lens in (("kernel_phase_lengths", args[15]),
+                        ("serving_lengths", serving)):
+        args[15] = lens
+        x, nw, wq, wk, wv, wo, pw, wg, wu, wd = args[:10]
+        attn = (x, nw, wq, wk, wv, wo, *args[10:])
+
+        def block():
+            return fdb.decode_block_fused_cuda(*args)
+
+        def pair():
+            xo = fdb.decode_attn_block_cuda(*attn)[0]
+            return fdb.decode_mlp_block_cuda(xo, pw, wg, wu, wd)
+        row = {"phase": "times", "gpu": gpu, "lengths": label,
+               "seq_lens": lens.tolist()}
+        for name in ("lb1", "lb2"):
+            use(fdb, libs[name])
+            row[f"{name}_block_ms"] = cs.cold_ms(block, iters=40)
+            row[f"{name}_pair_ms"] = cs.cold_ms(pair, iters=40)
+        for name in ("lb1_stamped", "lb2_stamped"):
+            use(fdb, libs[name])
+            row[name] = {
+                "decode_attn_block": phases(
+                    fdb, libs[name],
+                    lambda: fdb.decode_attn_block_cuda(*attn)),
+                "decode_mlp_block": phases(
+                    fdb, libs[name],
+                    lambda: fdb.decode_mlp_block_cuda(x, pw, wg, wu, wd)),
+                "decode_block_fused": phases(fdb, libs[name], block)}
+        cs.emit(row)
+
+
+def prefill_inputs(gen, P, pos0):
+    """prefill_attn_block's arguments at LLaMA-7B widths (KV = H), bf16:
+    P rows, all real, over a permuted table of 72 pages of 16."""
+    import torch
+    from paddle_tpu_torch.ops.rope import build_rope_cache
+    D, H, hd, BS, MB = cs.D7, cs.H7, cs.HD7, cs.BS16, cs.MB72
+    dt = torch.bfloat16
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * std).to(dt)
+    sin, cos = build_rope_cache(MB * BS, hd, device="cuda")
+    table = (torch.randperm(MB, generator=gen, device="cuda") + 1
+             ).to(torch.int32)
+    nw = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dt)
+    return (rn(P, D), nw, rn(D, H * hd, std=0.02), rn(D, H * hd, std=0.02),
+            rn(D, H * hd, std=0.02), rn(H * hd, D, std=0.02),
+            sin[pos0:pos0 + P], cos[pos0:pos0 + P],
+            rn(MB + 1, BS, H, hd), rn(MB + 1, BS, H, hd), table, pos0, P)
+
+
+def mlp_inputs(gen, rows):
+    """decode_mlp_block's arguments at LLaMA-7B widths, bf16."""
+    import torch
+    dt = torch.bfloat16
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * std).to(dt)
+    nw = (1 + 0.1 * torch.randn(cs.D7, generator=gen, device="cuda")).to(dt)
+    return (rn(rows, cs.D7), nw, rn(cs.D7, cs.F7, std=0.02),
+            rn(cs.D7, cs.F7, std=0.02), rn(cs.F7, cs.D7, std=0.02))
+
+
+@contextlib.contextmanager
+def mlp_body(fdb, body):
+    """Run decode_mlp_block under ``body`` ("tc": the tensor-core body
+    from 9 rows on; "cuda_core": never; None: the committed threshold) by
+    moving the threshold; a tree without one has a single body."""
+    old = getattr(fdb, "MLP_TC_MIN_ROWS", None)
+    if old is not None and body is not None:
+        fdb.MLP_TC_MIN_ROWS = 9 if body == "tc" else 1 << 30
+    try:
+        yield
+    finally:
+        if old is not None:
+            fdb.MLP_TC_MIN_ROWS = old
+
+
+def prefill_part(fdb, fpb, libs, gpu):
+    """prefill_attn_block at P 128 over histories of PREFILL_POS0, and
+    decode_mlp_block at MLP_ROWS, bf16, 7B widths: times and phases."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for pos0 in PREFILL_POS0:
+        args = prefill_inputs(gen, PREFILL_P, pos0)
+
+        def run():
+            return fpb.prefill_attn_block_cuda(*args)
+        use(fpb, libs["prefill"], "fused_prefill_block")
+        row = {"phase": "prefill_attn_block", "gpu": gpu, "P": PREFILL_P,
+               "pos0": pos0, "ms": cs.cold_ms(run, iters=40)}
+        use(fpb, libs["prefill_stamped"], "fused_prefill_block")
+        row["phases_us"] = named("prefill_attn_block",
+                                 phases(fpb, libs["prefill_stamped"], run))
+        cs.emit(row)
+    tc = getattr(fdb, "MLP_TC_MIN_ROWS", None) is not None
+    for rows in MLP_ROWS:
+        args = mlp_inputs(gen, rows)
+
+        def run():
+            return fdb.decode_mlp_block_cuda(*args)
+        row = {"phase": "decode_mlp_block", "gpu": gpu, "rows": rows}
+        for body in (("tc", "cuda_core") if tc else (None,)):
+            with mlp_body(fdb, body):
+                use(fdb, libs["decode"])
+                ms = cs.cold_ms(run, iters=40)
+                use(fdb, libs["decode_stamped"])
+                ph = named("decode_mlp_block",
+                           phases(fdb, libs["decode_stamped"], run))
+            key = body or "committed"
+            row[key] = {"ms": ms, "phases_us": ph}
+        cs.emit(row)
+
+
 def main():
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--part", choices=("decode", "prefill", "all"),
+                    default="all")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("cuda_phase_times: no CUDA device", file=sys.stderr)
         return 1
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
-    from paddle_tpu_torch.ops.rope import build_rope_cache
+    from paddle_tpu_torch.ops.kernels import fused_prefill_block as fpb
     gpu = cs.gpu_line()
-    src = (fdb._build.CSRC / "fused_decode_block.cu").read_text()
+    decode_src = (fdb._build.CSRC / "fused_decode_block.cu").read_text()
+    prefill_src = (fdb._build.CSRC / "fused_prefill_block.cu").read_text()
     work = Path(tempfile.mkdtemp(prefix="phase_times_"))
+    srcs = {}
+    if opts.part in ("decode", "all"):
+        srcs.update(variants(decode_src))
+    if opts.part in ("prefill", "all"):
+        srcs.update(prefill_variants(prefill_src, decode_src))
     try:
-        libs, ptxas = build(work, variants(src))
+        libs, ptxas = build(work, srcs)
         cs.emit({"phase": "build", "gpu": gpu, "ptxas": ptxas})
-        gen = torch.Generator(device="cuda").manual_seed(6)
-        rope = build_rope_cache(4096, cs.HD7, device="cuda")
-        args = list(cs.block_inputs(gen, torch.bfloat16, cs.H7, cs.F7, rope,
-                                    cs.B8))
-        serving = torch.randint(300, 520, (cs.B8,), generator=gen,
-                                device="cuda").to(torch.int32)
-        for label, lens in (("kernel_phase_lengths", args[15]),
-                            ("serving_lengths", serving)):
-            args[15] = lens
-            x, nw, wq, wk, wv, wo, pw, wg, wu, wd = args[:10]
-            attn = (x, nw, wq, wk, wv, wo, *args[10:])
-
-            def block():
-                return fdb.decode_block_fused_cuda(*args)
-
-            def pair():
-                xo = fdb.decode_attn_block_cuda(*attn)[0]
-                return fdb.decode_mlp_block_cuda(xo, pw, wg, wu, wd)
-            row = {"phase": "times", "gpu": gpu, "lengths": label,
-                   "seq_lens": lens.tolist()}
-            for name in ("lb1", "lb2"):
-                use(fdb, libs[name])
-                row[f"{name}_block_ms"] = cs.cold_ms(block, iters=40)
-                row[f"{name}_pair_ms"] = cs.cold_ms(pair, iters=40)
-            for name in ("lb1_stamped", "lb2_stamped"):
-                use(fdb, libs[name])
-                row[name] = {
-                    "decode_attn_block": phases(
-                        fdb, libs[name],
-                        lambda: fdb.decode_attn_block_cuda(*attn)),
-                    "decode_mlp_block": phases(
-                        fdb, libs[name],
-                        lambda: fdb.decode_mlp_block_cuda(x, pw, wg, wu,
-                                                          wd)),
-                    "decode_block_fused": phases(fdb, libs[name], block)}
-            cs.emit(row)
+        if opts.part in ("decode", "all"):
+            decode_part(fdb, libs, gpu)
+        if opts.part in ("prefill", "all"):
+            prefill_part(fdb, fpb, libs, gpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     cs.emit({"ok": True})

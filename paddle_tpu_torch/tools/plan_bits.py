@@ -29,6 +29,12 @@ differ::
 The bf16 backward cases take their lse and delta from the plain forward
 (``flash_fwd_ref``), so a change to the forward kernel shows only in the
 forward's cases.
+Against a tree from before the chunk-row bodies moved to the tensor cores
+(PR 14), the bf16 chunk-row MLP and bf16 prefill cases differ, nothing
+else::
+
+    --expect "decode_mlp_block[[]*rows*" \
+        "prefill_attn_block[[]torch.bfloat16*"
  It imports nothing of JAX or
 of ``paddle_tpu``.
 """
@@ -150,6 +156,43 @@ def _cases(torch, k):
                 pos0, nv)
         out.append((f"prefill_attn_block[{dt},{P},{pos0},w{bits}]",
                     lambda args=args: fpb.prefill_attn_block_cuda(*args)))
+    # the chunk-row bodies' classes (the tensor cores in bf16 from PR 14):
+    # the MLP at 32 rows and with int8 and int4 weights at 128, and the
+    # prefill block at a 32-row chunk, with int8 weights and over int8
+    # pools; inputs from a generator of their own
+    gc = torch.Generator(device="cuda").manual_seed(97)
+
+    def rc(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gc, device="cuda")
+                * std).to(bf)
+    x32, mc = rc(32, D), [rc(D, F, std=0.02), rc(D, F, std=0.02),
+                          rc(F, D, std=0.02)]
+    out.append(("decode_mlp_block[32 rows]",
+                lambda: fdb.decode_mlp_block_cuda(x32, a[1], *mc)))
+    xc = rc(128, D)
+    for bits in (8, 4):
+        qm = wq(mc, bits, down=mc[2])
+        out.append((f"decode_mlp_block[128 rows,int{bits}]",
+                    lambda qm=qm: fdb.decode_mlp_block_cuda(xc, a[1], *qm)))
+    KV, N = 32, MB + 1
+    table = (torch.randperm(N - 1, generator=gc, device="cuda")[:MB]
+             + 1).to(torch.int32)
+    wc = [rc(D, H * hd, std=0.02), rc(D, KV * hd, std=0.02),
+          rc(D, KV * hd, std=0.02), rc(H * hd, D, std=0.02)]
+    kpc, vpc = rc(N, BS, KV, hd), rc(N, BS, KV, hd)
+    kq8, vq8, sc8 = kv8(kpc, vpc)
+    for P, pos0, nv, bits, pools in ((32, 40, 21, 0, False),
+                                     (128, 512, 128, 8, False),
+                                     (128, 512, 128, 0, True)):
+        rope = torch.randn(2, P, hd // 2, generator=gc, device="cuda")
+        args = (rc(P, D), (1 + 0.1 * rc(D).float()).to(bf),
+                *(wq(wc, bits) if bits else wc), rope[0], rope[1],
+                *((kq8, vq8) if pools else (kpc, vpc)), table, pos0, nv)
+        kw = {"kv_scales": sc8} if pools else {}
+        out.append((f"prefill_attn_block[{bf},{P},{pos0},w{bits}"
+                    f"{',kv8' if pools else ''}]",
+                    lambda args=args, kw=kw: fpb.prefill_attn_block_cuda(
+                        *args, **kw)))
     pa = decode_args(bf, 32)
     q = rn(B, H, hd)
     out.append(("paged_attention_decode",

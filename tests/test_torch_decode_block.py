@@ -530,3 +530,115 @@ def test_layer_norm_op_and_wrapper():
     with pytest.raises(ValueError, match="CUDA"):
         tnorms.layer_norm_fwd_triton(x, w, b)
     assert tnorms.layer_norm_fwd_triton.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# decode_mlp_block at chunk rows: the tensor-core body's plan (the kernel
+# runs on the card only; its plain version is mlp_block_wq_ref)
+# ---------------------------------------------------------------------------
+def _capture_mlp(B, D, F, dtype="bfloat16", wq=None):
+    from paddle_tpu_torch.analysis import kernel_catalog as kc
+    from paddle_tpu_torch.ops.kernels import _launch
+    build = kc._mlp_block_case(B, D, F, dtype, wq=wq)
+    with _launch.capture_kernel_launches() as specs:
+        build()()
+    assert len(specs) == 1
+    return specs[0]
+
+
+@pytest.mark.parametrize("B,dt,floor,body", [
+    (8, "bfloat16", None, "cuda_core"), (9, "bfloat16", None, "tc"),
+    (32, "bfloat16", None, "tc"), (128, "bfloat16", None, "tc"),
+    (128, "float32", None, "cuda_core"), (32, "bfloat16", 64, "cuda_core")])
+def test_mlp_body_by_dtype_and_rows(B, dt, floor, body):
+    """bf16 from MLP_TC_MIN_ROWS rows on runs the tensor-core body; 8 rows
+    (a decode step), f32 and the gate's specimen the CUDA-core one; the
+    rule is recorded in the plan."""
+    got, why = fdb.mlp_body(B, 4096, 11008, dt, floor)
+    assert got == body and why
+    if floor is None:
+        spec = _capture_mlp(B, 4096, 11008, dt)
+        assert spec.plan["body"] == body
+        assert spec.plan["body_rule"] == why
+    assert fdb.mlp_body(32, 4096, 11000, "bfloat16")[0] == "cuda_core"
+    assert fdb.mlp_body(32, 4112, 11008, "bfloat16")[0] == "cuda_core"
+
+
+@pytest.mark.parametrize("B,D,F", [(20, 160, 208), (128, 4096, 11008),
+                                   (130, 96, 80), (24, 64, 400)])
+def test_mlp_tc_tiles_cover_rows_and_columns_once(B, D, F):
+    """Every (row tile, column tile) of gate/up, and every (row tile, part
+    of F, column tile) of down, is one item, exactly once; the tiles cover
+    every row and column exactly once and the parts every chunk of F: the
+    plan drops and repeats nothing. Down splits F where its tiles are fewer
+    than the grid's blocks (LLaMA-7B: 64 tiles in 2 parts on 132)."""
+    plan = fdb.mlp_tc_plan(B, D, F, 0, 132)
+    R = fdb.TC_TILE_ROWS
+    for key, n, T in (("up_tiles", F, plan["up_cols"]),
+                      ("down_tiles", D, plan["down_cols"])):
+        # the kernel's items: (row tile, column tile), the column fastest
+        n_items = plan["row_tiles"] * plan[key]
+        items = [(i // plan[key], i % plan[key]) for i in range(n_items)]
+        assert len(set(items)) == n_items
+        rows = np.zeros(B, int)
+        cols = np.zeros(n, int)
+        for rt in range(plan["row_tiles"]):
+            rows[rt * R:(rt + 1) * R] += 1
+        for ct in range(plan[key]):
+            cols[ct * T:(ct + 1) * T] += 1
+        assert (rows == 1).all() and (cols == 1).all()
+    parts, chunks = plan["down_parts"], -(-F // fdb.TC_CHUNK_K)
+    per = fdb.part_rows(F, parts) // fdb.TC_CHUNK_K
+    seen = np.zeros(chunks, int)
+    for p in range(parts):
+        seen[p * per:(p + 1) * per] += 1
+    assert (seen == 1).all() and (parts - 1) * per < chunks
+    assert plan["down_k"] == F
+    if (B, D, F) == (128, 4096, 11008):
+        assert (plan["down_tiles"], parts) == (64, 2)
+
+
+@pytest.mark.parametrize("wq,want", [(None, 215040), ("int8", 190464),
+                                     ("int4", 165888)])
+def test_mlp_tc_smem_within_limit_and_declared(wq, want):
+    """The tensor-core body's shared memory (the A stages and each weight's
+    stages, the larger phase) is what its launch declares, within the
+    card's 227 KB a block, one block an SM."""
+    bits = {None: 0, "int8": 8, "int4": 4}[wq]
+    assert fdb.mlp_tc_smem(bits) == want <= fdb.SMEM_LIMIT
+    spec = _capture_mlp(128, 4096, 11008, wq=wq)
+    assert spec.dyn_smem == want
+    assert spec.blocks_per_sm == 1 and spec.grid == (132,)
+    assert [p.name for p in spec.phases] == ["norm", "gate_up", "down",
+                                             "combine"]
+    assert spec.phases[1].items == 172 and spec.phases[2].items == 128
+
+
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_mlp_chunk_rows_plain_version_matches_jax_kernel(bits):
+    """At chunk rows in bf16 the tensor-core body's plain version
+    (mlp_block_wq_ref: the products' f32 sums scaled, cast at the JAX
+    kernel's points) against the JAX MLP kernel (interpret) on the same
+    quantized leaves, to two bf16 ulps."""
+    from paddle_tpu.quantization import ptq
+    rng = np.random.RandomState(40 + bits)
+    D, F, B = 64, 96, 20
+    mk = lambda *s: (rng.randn(*s) * 0.07).astype(np.float32)  # noqa: E731
+    x, nw = mk(B, D), (rng.rand(D) + 0.5).astype(np.float32)
+    ws = [mk(D, F), mk(D, F), mk(F, D)]
+    jx = jnp.asarray(x, jnp.bfloat16)
+    jnw = jnp.asarray(nw, jnp.bfloat16)
+    jws = [jnp.asarray(w, jnp.bfloat16) for w in ws]
+    if bits:
+        jws = [ptq.quantize_leaf(w, bits, pack_axis=1 if i == 2 else 0)
+               for i, w in enumerate(jws)]
+
+    def port(leaf):
+        if isinstance(leaf, dict):
+            return {k: torch.from_numpy(np.array(v)) for k, v in
+                    leaf.items()}
+        return torch.from_numpy(np.asarray(leaf, np.float32)).to(
+            torch.bfloat16)
+    got = fdb.mlp_block_wq_ref(port(jx), port(jnw), *map(port, jws))
+    want = _pallas(jfdb.fused_mlp_block_pallas, jx, jnw, *jws)
+    _close(got, want, bf16=True)

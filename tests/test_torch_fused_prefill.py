@@ -422,3 +422,105 @@ def test_unhonourable_prefill_routes_raise(params):
         ServingEngine(tp, TCFG, device="cpu", fused_prefill="pallas", **kw)
     with pytest.raises(ValueError, match="fused_prefill"):
         ServingEngine(tp, TCFG, device="cpu", fused_prefill="bogus", **kw)
+
+
+# ---------------------------------------------------------------------------
+# prefill_attn_block's tensor-core body: its plan (the kernel runs on the
+# card only; its plain version is prefill_attn_block_wq_ref)
+# ---------------------------------------------------------------------------
+def _capture_prefill(P, KV=32, wq=None, quant=False, D=4096, H=32, hd=128):
+    from paddle_tpu_torch.analysis import kernel_catalog as kc
+    from paddle_tpu_torch.ops.kernels import _launch
+    build = kc._prefill_case(P, D, H, KV, hd, 16, 577, 72, "bfloat16", 512,
+                             quant=quant, wq=wq)
+    with _launch.capture_kernel_launches() as specs:
+        build()()
+    assert len(specs) == 1
+    return specs[0]
+
+
+@pytest.mark.parametrize("dt,hd,D,body", [
+    ("bfloat16", 128, 4096, "tc"), ("float32", 128, 4096, "cuda_core"),
+    ("bfloat16", 64, 4096, "cuda_core"), ("bfloat16", 128, 4112,
+                                          "cuda_core")])
+def test_prefill_body_by_dtype_and_head_dim(dt, hd, D, body):
+    """bf16 at head dim 128 runs the tensor-core body, over fp and int8
+    pools; f32, another head dim or a D the tiles cannot copy the CUDA-core
+    one; the rule is recorded in the plan."""
+    for kv_bits in (0, 8):
+        got, why = fpb.prefill_body(128, D, 32, 32, hd, 16, dt, 0, kv_bits)
+        assert got == body and why
+    spec = _capture_prefill(128)
+    assert spec.plan["body"] == "tc"
+    assert spec.plan["body_rule"] == fpb.prefill_body(
+        128, 4096, 32, 32, 128, 16, "bfloat16", 0, 0)[1]
+
+
+@pytest.mark.parametrize("P,KV", [(128, 32), (32, 8), (144, 8)])
+def test_prefill_tc_tiles_and_items_cover_once(P, KV):
+    """The tensor-core plan's column tiles cover wq, wk, wv and wo exactly
+    once, its row tiles every row, and the attention takes each (16-row
+    query block, query head) over fp pools once."""
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    H, hd, D = 32, 128, 4096
+    plan = fpb.prefill_tc_plan(P, D, H, KV, hd, 0, 132)
+    R = fdb.TC_TILE_ROWS
+    for key, n, T in (("q_tiles", H * hd, plan["qkv_cols"]),
+                      ("kv_tiles", KV * hd, plan["qkv_cols"]),
+                      ("o_tiles", D, plan["o_cols"])):
+        assert (plan[key] - 1) * T < n <= plan[key] * T
+    assert (plan["row_tiles"] - 1) * R < P <= plan["row_tiles"] * R
+    spec = _capture_prefill(P, KV)
+    attn = {p.name: p for p in spec.phases}["attention"]
+    assert attn.items == -(-P // fpb.BQ) * H
+    assert [p.name for p in spec.phases] == ["norm", "qkv", "rope",
+                                             "attention", "o_proj",
+                                             "combine"][:5 + (
+                                                 plan["o_parts"] > 1)]
+    assert plan["o_parts"] == (2 if P <= 128 else 1)
+    q8 = _capture_prefill(P, KV, quant=True)
+    assert {p.name: p for p in q8.phases}["attention"].items == \
+        -(-P // fpb.BQ) * KV
+
+
+@pytest.mark.parametrize("KV,quant,wq", [(32, False, None), (8, False, None),
+                                         (32, True, None), (8, True, None),
+                                         (32, False, "int8"),
+                                         (32, False, "int4")])
+def test_prefill_tc_smem_within_limit_and_declared(KV, quant, wq):
+    """The tensor-core body's shared memory (the larger of its product
+    stages and its attention's) is what its launch declares, within the
+    card's 227 KB a block, one block an SM."""
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    bits = {None: 0, "int8": 8, "int4": 4}[wq]
+    want = fpb.prefill_tc_smem(bits, 8 if quant else 0, 32, KV, 128, 16)
+    assert want <= fdb.SMEM_LIMIT
+    # the q/k/v stages (64-column tiles), or for int4 weights the
+    # attention's Q and two stages of 128 keys' K and V
+    assert want == {0: 159744, 8: 147456, 4: 143616}[bits]
+    spec = _capture_prefill(128, KV, wq=wq, quant=quant)
+    assert spec.dyn_smem == want and spec.blocks_per_sm == 1
+    assert spec.grid == (132,)
+
+
+def test_tc_plan_constants_are_the_sources():
+    """The Python plans' tile and attention constants are the ones the CUDA
+    sources are built with (csrc/tile_mma.cuh, fused_prefill_block.cu)."""
+    import re
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+
+    def const(text, name):
+        return int(re.search(rf"constexpr int {name} = (\w+);", text)[1])
+    tm = (_build.CSRC / "tile_mma.cuh").read_text()
+    pf = (_build.CSRC / "fused_prefill_block.cu").read_text()
+    dc = (_build.CSRC / "fused_decode_block.cu").read_text()
+    assert const(tm, "kTileRows") == fdb.TC_TILE_ROWS
+    assert const(tm, "kChunkK") == fdb.TC_CHUNK_K
+    assert const(dc, "kUpCols") == fdb.MLP_UP_COLS
+    assert const(dc, "kDownCols") == fdb.MLP_DOWN_COLS
+    assert const(pf, "kQkvCols") == fpb.QKV_COLS
+    assert const(pf, "kOCols") == fpb.O_COLS
+    assert const(tm, "kStages") == fdb.TC_STAGES
+    assert const(pf, "kHd") == fpb.TC_HEAD_DIM
+    assert const(pf, "kQRows") == fpb.BQ

@@ -738,3 +738,103 @@ def test_package_baseline_holds_no_findings():
     from paddle_tpu_torch.analysis import load_baseline
     from paddle_tpu_torch.analysis.kernel_audit import DEFAULT_BASELINE
     assert load_baseline(DEFAULT_BASELINE)["findings"] == {}
+
+
+# ---------------------------------------------------------------------------
+# the chunk-row bodies on the tensor cores: their catalog cases, a dropped
+# tile, the body counters
+# ---------------------------------------------------------------------------
+_TC_CASES = ["prefill_mlp_block@flagship_serving",
+             "prefill_mlp_block@chunk128_int8_weights",
+             "prefill_mlp_block@chunk128_int4_weights",
+             "prefill_mlp_block@chunk32",
+             "prefill_mlp_block@chunk32_int8_weights",
+             "prefill_mlp_block@chunk32_int4_weights",
+             "prefill_mlp_block@tiny_tc",
+             "prefill_attn_block@flagship_serving",
+             "prefill_attn_block@chunk32", "prefill_attn_block@chunk32_int8",
+             "prefill_attn_block@chunk32_int8_weights",
+             "prefill_attn_block@chunk32_int4_weights",
+             "prefill_attn_block@tiny_tc",
+             "prefill_attn_block@chunk128_ragged"]
+
+
+@pytest.mark.parametrize("name", _TC_CASES)
+def test_tensor_core_body_cases_are_clean(name):
+    """Every catalog case of the tensor-core bodies captures that body's
+    plan and gives no finding."""
+    case = {c.name: c for c in kc.kernel_cases()}[name]
+    rep = kc.audit_case(case)
+    assert rep.findings == [], [f.message for f in rep.findings]
+    specs, err = kc.capture_case(case)
+    assert err is None and [s.plan["body"] for s in specs] == ["tc"]
+
+
+@pytest.mark.parametrize("drop,operands", [
+    ("up_tiles", {"wg", "wu"}), ("down_tiles", {"wd"}),
+    ("down_parts", {"wd"})])
+def test_dropped_mlp_tensor_core_tile_is_a_floor_drop(drop, operands):
+    """The tensor-core MLP plan with one column tile or one part of F fewer
+    leaves rows or columns of the weights it reads untouched: the gate
+    reports GRID_FLOOR_DROP on exactly those operands (down's split writes
+    x_out whole in its combine, from the parts' workspace)."""
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    from paddle_tpu_torch.ops.kernels import _launch
+    B, D, F = 128, 4096, 11008
+    plan = fdb.mlp_tc_plan(B, D, F, 0, 132)
+    ok = _launch.KernelLaunchSpec(
+        "decode_mlp_block", "cuda", fdb._SOURCE, (132,), 256,
+        *fdb._mlp_tc_parts(B, D, F, "bfloat16", 0, plan),
+        (("decode_mlp_block", fdb.CALLS["decode_mlp_block"]),),
+        "bfloat16", blocks_per_sm=1, cooperative=True,
+        dyn_smem=fdb.mlp_tc_smem(0), plan=plan)
+    assert check_launch(ok) == []
+    plan = dict(plan, **{drop: plan[drop] - 1})
+    if drop == "down_parts":   # 3 parts' rows, of which 2 are read
+        plan["down_parts"] = 3
+        ok_parts = fdb._mlp_tc_parts(B, D, F, "bfloat16", 0, plan)[2]
+        down = ok_parts[2]
+        ok_parts[2] = dataclasses.replace(down, items=down.items * 2 // 3)
+        found = check_launch(dataclasses.replace(ok, phases=tuple(ok_parts)))
+        assert {f.detail["operand"] for f in found} == operands
+        return
+    bad = dataclasses.replace(ok, **dict(zip(
+        ("inputs", "outputs", "phases"),
+        fdb._mlp_tc_parts(B, D, F, "bfloat16", 0, plan))))
+    found = check_launch(bad)
+    assert {f.code for f in found} == {"GRID_FLOOR_DROP"}
+    assert {f.detail["operand"] for f in found} == operands
+
+
+def test_dropped_prefill_tensor_core_tile_is_a_floor_drop(monkeypatch):
+    """prefill_attn_block's tensor-core plan with one o_proj tile fewer:
+    GRID_FLOOR_DROP on wo (x_out is written whole by the split's
+    combine)."""
+    from paddle_tpu_torch.ops.kernels import fused_prefill_block as fpb
+    real = fpb.prefill_tc_plan
+
+    def short(*a):
+        plan = real(*a)
+        plan["o_tiles"] -= 1
+        return plan
+    monkeypatch.setattr(fpb, "prefill_tc_plan", short)
+    spec = fpb.prefill_spec.__wrapped__(
+        128, 4096, 32, 32, 128, 16, 72, 577, "bfloat16", 0, 0, True, 512,
+        128, 132, fpb.prefill_tc_smem(0, 0, 32, 32, 128, 16), "tc")
+    found = check_launch(spec)
+    assert {f.code for f in found} == {"GRID_FLOOR_DROP"}
+    assert {f.detail["operand"] for f in found} == {"wo"}
+
+
+def test_block_wrappers_count_by_body():
+    """decode_mlp_block and prefill_attn_block count their launches by body
+    ("tc", "cuda_core") under launches_by_body(), beside the flash kernels'
+    classes, and reset_launches zeroes them."""
+    from paddle_tpu_torch.ops import kernels
+    by = kernels.launches_by_body()
+    for name in ("decode_mlp_block", "prefill_attn_block"):
+        assert set(by[name]) == {"tc", "cuda_core"}
+        kernels.WRAPPERS[name].launches_by_body["tc"] += 3
+    kernels.reset_launches()
+    assert all(v == 0 for name in ("decode_mlp_block", "prefill_attn_block")
+               for v in kernels.launches_by_body()[name].values())

@@ -1,9 +1,11 @@
 """PyTorch/CUDA port, the measurement scripts of ``paddle_tpu_torch/tools``
-on the CPU: ``cuda_phase_times.py`` binds the fused decode launchers with
-the codes their ``extern "C"`` declarations take, in the committed source
-and in each instrumented copy it builds (the gate's ARG_MISMATCH check,
-applied to the tool), and its ``use`` hands the copies to the wrappers
-through ``_build.c_fn``."""
+on the CPU: ``cuda_phase_times.py`` binds the fused decode and prefill
+launchers with the codes their ``extern "C"`` declarations take, in the
+committed sources and in each instrumented copy it builds (the gate's
+ARG_MISMATCH check, applied to the tool), and its ``use`` hands the copies
+to the wrappers through ``_build.c_fn``; ``plan_bits.py``'s compare;
+``flash_variants.py``'s and ``chunk_variants.py``'s patches apply to the
+committed sources."""
 import ctypes
 import importlib.util
 from pathlib import Path
@@ -155,3 +157,59 @@ def test_flash_variants_patch_the_committed_source():
     assert launchers["flash_attention_fwd128"] == \
         launchers["flash_attention_fwd"] == kfa.flash_codes(
             "flash_attention_fwd")
+
+
+def test_phase_times_prefill_copies_bind_like_the_sources():
+    """The prefill part's copies of ``fused_prefill_block.cu`` and
+    ``fused_decode_block.cu`` keep every launcher's ``extern "C"`` codes,
+    the stamped ones stamp every cooperative kernel (both bodies of the
+    two chunk kernels) and export ``read_stamps``; stamped phases take the
+    names of the body that ran."""
+    from paddle_tpu_torch.ops.kernels import fused_prefill_block as fpb
+    tool = _tool()
+    psrc = (_build.CSRC / "fused_prefill_block.cu").read_text()
+    dsrc = (_build.CSRC / "fused_decode_block.cu").read_text()
+    copies = tool.prefill_variants(psrc, dsrc)
+    assert set(copies) == {"prefill", "prefill_stamped", "decode",
+                           "decode_stamped"}
+    for label, text in copies.items():
+        launchers = kernel_rules.launchers_in(text)
+        if label.startswith("prefill"):
+            assert launchers["prefill_attn_block"] == fpb.CALL[1]
+        else:
+            for name in tool.LAUNCHERS:
+                assert launchers[name] == fdb.CALLS[name], (label, name)
+        assert ("read_stamps" in launchers) == label.endswith("stamped")
+    # a stamp at the kernel's start, after every grid barrier of both
+    # bodies, and one after a last barrier at its end
+    text = copies["prefill_stamped"]
+    assert text.count("g_stamps[g_n++]") == psrc.count("grid.sync();") + 2
+    assert tool.named("decode_mlp_block", [1.0, 2.0, 3.0, 4.0]) == {
+        "norm": 1.0, "gate_up": 2.0, "down": 3.0, "combine": 4.0}
+    assert tool.named("prefill_attn_block", [1.0] * 4) == {
+        "qkv_with_norm": 1.0, "rope": 1.0, "attention": 1.0, "o_proj": 1.0}
+
+
+def _chunk_variants():
+    path = ROOT / "paddle_tpu_torch" / "tools" / "chunk_variants.py"
+    spec = importlib.util.spec_from_file_location("chunk_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chunk_variants_patch_the_committed_sources():
+    """Every design ``chunk_variants.py`` builds applies to the committed
+    sources, and the plan constants it sets are the wrappers' own names,
+    so a variant's plan matches its kernels."""
+    from paddle_tpu_torch.ops.kernels import fused_prefill_block as fpb
+    tool = _chunk_variants()
+    mods = {"fdb": fdb, "fpb": fpb}
+    for name, (patches, consts) in tool.PATCHES.items():
+        for f in {f for f, _, _ in patches}:
+            text = (_build.CSRC / f).read_text()
+            assert tool.patched(name, f, text) != text, (name, f)
+        for key in consts:
+            mod, attr = key.split(".")
+            assert hasattr(mods[mod], attr), (name, key)
+    assert tool.PATCHES["committed"] == ((), {})
