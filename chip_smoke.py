@@ -25,8 +25,12 @@ script exits non-zero:
    f32 and bf16, with lengths 0/1/15/16/17/1151, a ragged F for the MLP,
    20 and 32 slots (more than one pass of 8 rows; dispatch must pick the
    kernels there too), and two launches that must agree bit for bit;
-   decode_block_fused also against the two-stage kernels in f32, and
-   timed beside the two-stage pair on the same inputs; decode_mlp_block
+   decode_block_fused also against the two-stage kernels in f32, each
+   case's body recorded (bf16 at up to 8 rows: the weight ring), and
+   timed beside the two-stage pair and its own CUDA-core body on the same
+   inputs; paged_attention_decode (the split page stream) at KV 32 and 8,
+   MB 72 and 75, f32 and bf16, lengths 0/1/16/17/127/the whole table,
+   zeros for length 0 and two launches bit for bit; decode_mlp_block
    also at 16, 32 and 128 rows (the prefill MLP: in bf16 its tensor-core
    body, each case's body recorded). layer_norm_fwd, which no
    runtime route launches (as in the JAX package), at the JAX kernel
@@ -541,8 +545,8 @@ def rms_phase(gpu):
 def paged_inputs(gen, dt, B, H, KV, hd, BS, MB):
     import torch
     full = MB * BS
-    rand = torch.randint(2, full, (B - 5,), generator=gen, device="cuda")
-    seq = torch.tensor([0, 1, BS, BS + 1, full], device="cuda")
+    rand = torch.randint(2, full, (B - 6,), generator=gen, device="cuda")
+    seq = torch.tensor([0, 1, BS, BS + 1, 127, full], device="cuda")
     seq_lens = torch.cat([seq, rand]).to(torch.int32)
     N = B * MB + 1
     perm = torch.randperm(N - 1, generator=gen, device="cuda") + 1
@@ -553,18 +557,32 @@ def paged_inputs(gen, dt, B, H, KV, hd, BS, MB):
     return q, k, v, tables, seq_lens
 
 
+#: paged_attention_decode's cases: (dtype, KV, MB); MB 75 is no multiple of
+#: the split page stream's 8 pages (a short last split)
+PAGED_CASES = (("bfloat16", 32, 72), ("float32", 32, 72), ("bfloat16", 8, 72),
+               ("float32", 8, 72), ("bfloat16", 8, 75), ("float32", 32, 75))
+
+
 def paged_phase(gpu):
+    """paged_attention_decode (the split page stream, csrc/paged_stream.cuh)
+    against its plain version at the serving shapes (B 8, H 32, hd 128, BS
+    16), KV 32 and 8 (GQA 4:1), MB 72 and 75, f32 at 1e-5 and bf16 at
+    2e-2, lengths 0, 1, 16, 17, 127, the whole table and random ones:
+    exact zeros for length 0, two launches bit for bit, the plan recorded.
+    Timed in bf16 at KV 32, MB 72 beside SDPA over the K/V gathered
+    densely beforehand."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels.paged_attention import (
         paged_attention_decode_cuda, paged_attention_decode_ref)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    B, H, hd, BS, MB = 8, 32, 128, 16, 72     # the serving phase's shapes
+    B, H, hd, BS = 8, 32, 128, 16     # the serving phase's shapes
     cases, max_err, timed = [], 0.0, None
-    for dt, KV in ((torch.bfloat16, 32), (torch.float32, 32),
-                   (torch.bfloat16, 8), (torch.float32, 8)):
+    for dname, KV, MB in PAGED_CASES:
+        dt = getattr(torch, dname)
         args = paged_inputs(gen, dt, B, H, KV, hd, BS, MB)
         got = paged_attention_decode_cuda(*args)
+        again = paged_attention_decode_cuda(*args)
         want = paged_attention_decode_ref(*args)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
@@ -572,15 +590,19 @@ def paged_phase(gpu):
         ok = bool(torch.allclose(got.float(), want.float(), atol=tol,
                                  rtol=tol))
         zero = bool((got[args[4] == 0] == 0).all())
-        cases.append({"dtype": str(dt)[6:], "KV": KV,
+        same = bool(torch.equal(got, again))
+        cases.append({"dtype": dname, "KV": KV, "MB": MB,
                       "seq_lens": args[4].tolist(), "max_abs_err": err,
                       "tol": f"atol=rtol={tol}", "zero_for_len_0": zero,
-                      "ok": ok and zero})
+                      "bitwise_repeatable": same,
+                      "plan": launch_plan(
+                          lambda a=args: paged_attention_decode_cuda(*a)),
+                      "ok": ok and zero and same})
         max_err = max(max_err, err)
-        if not (ok and zero):
+        if not cases[-1]["ok"]:
             raise AssertionError(
                 f"paged_attention_decode disagrees: {cases[-1]}")
-        if dt == torch.bfloat16 and KV == H:
+        if dt == torch.bfloat16 and KV == H and MB == 72:
             timed = args
     q, k, v, tables, seq_lens = timed
     lens = seq_lens.long()
@@ -588,6 +610,7 @@ def paged_phase(gpu):
                        lens.tolist())[:2]
     # yardstick: SDPA over K/V gathered densely beforehand (the gather is
     # not timed), the padding masked out
+    MB = tables.shape[1]
     T = MB * BS
     kd = k[tables.long()].reshape(B, T, H, hd).transpose(1, 2)
     vd = v[tables.long()].reshape(B, T, H, hd).transpose(1, 2)
@@ -890,10 +913,13 @@ def block_phase(gpu):
             outs[nm] = _check_case(nm, g, w, dt, tol)
         max_err = max([max_err] + [outs[k]["max_abs_err"]
                                    for k in ("x_out", "k_new", "v_new")])
+        plan = launch_plan(lambda a=args: fdb.decode_block_fused_cuda(*a))
         case = {"dtype": str(dt)[6:], "KV": KV, "B": B, "F": F,
                 "seq_lens": args[15].tolist(), "outputs": outs,
                 "bitwise_repeatable": same, "dispatch": picked,
-                "smem_bytes": fdb.block_smem_bytes(
+                "body": plan["body"], "body_rule": plan["body_rule"],
+                "smem_bytes": fdb.ring_smem(D7, H7, KV, HD7, BS16, 2)
+                if plan["body"] == "ring" else fdb.block_smem_bytes(
                     D7, H7, KV, HD7, BS16, args[0].element_size()),
                 "ok": same and picked == "cuda_block"
                 and all(o["ok"] for o in outs.values())}
@@ -913,6 +939,8 @@ def block_phase(gpu):
     def two_stage():
         xo, _, _ = fdb.decode_attn_block_cuda(*attn_args)
         return fdb.decode_mlp_block_cuda(xo, pw, wg, wu, wd)
+    with cuda_core_block(fdb):
+        core_ms = cold_ms(lambda: fdb.decode_block_fused_cuda(*timed))
     row = {"name": "decode_block_fused", "route": "cuda",
            "source": FUSED_SOURCE,
            "replaces": "paddle_tpu/ops/pallas/fused_decode_block.py:1021",
@@ -923,11 +951,27 @@ def block_phase(gpu):
            "plain_ms": cold_ms(lambda: fdb.decode_block_ref(*timed)),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
            "library": "none: no single PyTorch call computes the layer",
-           "two_stage_ms": cold_ms(two_stage), "ok": True}
+           "two_stage_ms": cold_ms(two_stage), "cuda_core_ms": core_ms,
+           "body": launch_plan(
+               lambda: fdb.decode_block_fused_cuda(*timed))["body"],
+           "ok": True}
     emit({"phase": "kernel", "kernel": "decode_block_fused", "gpu": gpu,
           "cases": cases, "ms": row["ms"], "two_stage_ms": row["two_stage_ms"],
-          "bound_ms": b_ms})
+          "cuda_core_ms": core_ms, "bound_ms": b_ms})
     return row
+
+
+@contextlib.contextmanager
+def cuda_core_block(fdb):
+    """decode_block_fused on its CUDA-core body at every row count (the
+    8-row passes of block_products.cuh; the weight ring's threshold moved
+    to 0 rows), for a time on the same inputs."""
+    old = fdb.RING_MAX_ROWS
+    fdb.RING_MAX_ROWS = 0
+    try:
+        yield
+    finally:
+        fdb.RING_MAX_ROWS = old
 
 
 LN_CASES = (((24, 128), "float32"), ((4096, 1024), "float32"),
@@ -2283,6 +2327,8 @@ def _kernel_group(name):
                "decode_block_fused", "paged_attention_decode"):
         if op in name:
             return op
+    if "decode_block_ring_kernel" in name:   # decode_block_fused's ring body
+        return "decode_block_fused"
     for part, op in (("res_rms_fwd", "residual_rms_norm_fwd"),
                      ("ln_fwd", "layer_norm_fwd"),
                      ("rms_fwd", "rms_norm_fwd"),
@@ -4524,7 +4570,8 @@ PTXAS_KERNELS = {
                         "paged_attention_decode"},
     "fused_decode_block": {"decode_attn_block_kernel": "decode_attn_block",
                            "decode_mlp_block_kernel": "decode_mlp_block",
-                           "decode_block_fused_kernel": "decode_block_fused"},
+                           "decode_block_fused_kernel": "decode_block_fused",
+                           "decode_block_ring_kernel": "decode_block_fused"},
     "fused_prefill_block": {"prefill_attn_block_kernel":
                             "prefill_attn_block"},
     "flash_attention": {"dkv_kernel": "flash_attention_bwd_dkv",

@@ -328,6 +328,14 @@ def kernel_cases() -> List[KernelCase]:
         C("paged_attention", "flagship_serving",
           ("paged_attention_decode",),
           _paged_case(_B, _H, _H, _HD, _BS, _N, _MB, bf)),
+        # the split page stream at GQA 4:1 and a table of pages that is no
+        # multiple of the split (a short last split)
+        C("paged_attention", "tiny_gqa_short_split",
+          ("paged_attention_decode",),
+          _paged_case(6, 8, 2, 16, 8, 67, 11, bf)),
+        C("paged_attention", "flagship_serving_gqa",
+          ("paged_attention_decode",),
+          _paged_case(_B, _H, 8, _HD, _BS, _B * 75 + 1, 75, bf)),
         C("flash_attention", "tiny", _FLASH_KERNELS,
           _flash_case(1, 128, 4, 2, 64, f32)),
         C("flash_attention", "tiny_bias_seg", _FLASH_KERNELS,
@@ -378,6 +386,16 @@ def kernel_cases() -> List[KernelCase]:
           ("decode_block_fused",), _block_case(*block7, wq="int8")),
         C("decode_block_fused", "flagship_serving_int4_weights",
           ("decode_block_fused",), _block_case(*block7, wq="int4")),
+        # the weight-ring body (bf16 weights, at most 8 rows): a tiny case
+        # whose K splits into parts, GQA 4:1 at 7B, and 5 slots
+        C("decode_block_fused", "tiny_ring", ("decode_block_fused",),
+          _block_case(5, 512, 4, 2, 64, 640, 8, 41, 8, bf)),
+        C("decode_block_fused", "flagship_serving_gqa",
+          ("decode_block_fused",),
+          _block_case(_B, _D, _H, 8, _HD, _F, _BS, _N, _MB, bf)),
+        C("decode_block_fused", "flagship_serving_5_slots",
+          ("decode_block_fused",),
+          _block_case(5, _D, _H, _H, _HD, _F, _BS, _N, _MB, bf)),
         C("decode_mlp_block", "tiny", ("decode_mlp_block",),
           _mlp_block_case(2, 32, 64, f32)),
         C("decode_mlp_block", "tiny_int4_weights", ("decode_mlp_block",),

@@ -1,8 +1,9 @@
 // The block-wide building blocks of the port's fused layer kernels
-// (fused_decode_block.cu, fused_prefill_block.cu): the product tile
-// routine, the RMSNorm of a pass of rows, the RoPE rotation, the carve of
-// an attention item's scratch and the cooperative launch. One definition
-// keeps the kernels' rounding orders the same.
+// (fused_decode_block.cu, fused_prefill_block.cu) and of the paged
+// kernel (paged_attention.cu): the product tile routine, the RMSNorm of a
+// pass of rows, the RoPE rotation and the cooperative launch (an
+// attention item's scratch and its page stream are paged_stream.cuh's).
+// One definition keeps the kernels' rounding orders the same.
 //
 // A product runs 8 rows at a time (a pass): each thread streams weight
 // vectors (neighbouring lanes on neighbouring columns, four loads in
@@ -38,7 +39,9 @@
 // a staged chunk of a product's operand, or the attention scratch of one
 // work item), then the per-warp partial sums [kWarps][kMaxLpr * V][8] f32
 // and two [kMaxLpr * V][8] f32 result tiles. None of it depends on the
-// weight class: weights are streamed from device memory, never staged.
+// weight class: these routines stream weights from device memory into
+// registers, never staged (the single-launch kernel's bf16 body stages
+// them: weight_ring.cuh).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -49,7 +52,7 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "online_softmax.cuh"
+#include "paged_stream.cuh"
 
 namespace paddle_tpu_torch {
 namespace fused {
@@ -60,7 +63,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRB = 8;          // rows summed per pass
 constexpr int kMaxLpr = 8;      // lanes per weight row, at most
-constexpr int kPagesPerStep = 4;   // KV pages an attention step streams
 
 template <typename T>
 struct Vec {
@@ -72,18 +74,6 @@ __host__ __device__ inline int passes(int B) { return (B + kRB - 1) / kRB; }
 // The KV pools' element type: the model's T, or int8 for the int8 cache.
 template <typename T, bool KQ>
 using PoolT = typename std::conditional<KQ, int8_t, T>::type;
-
-// f32 scratch of one attention item of ``rows`` query rows, at the start
-// of the region: q, acc [rows][hd]; scores [rows][pages per step * BS];
-// m, l, alpha [rows]; one more [hd] row (the decode kernel's new-token
-// k); padded to 16 bytes. The step's K and V pages follow it, in the
-// pools' type (the prefill kernel stages its chunk's own K/V, in T, in
-// the same place).
-__host__ __device__ inline size_t attn_scratch_floats(int rows, int hd, int BS) {
-  size_t f = 2 * (size_t)rows * hd + (size_t)rows * kPagesPerStep * BS +
-             3 * (size_t)rows + (size_t)hd;
-  return (f + 3) / 4 * 4;
-}
 
 template <typename T>
 __device__ __forceinline__ void unpack(const uint4& raw, float (&w)[Vec<T>::n]);

@@ -82,11 +82,11 @@
 //   attention: QKV products by column tiles, each block normalising the
 //              8 rows of a pass into shared memory as it needs them
 //              -> workspace (T)
-//              | grid sync | attention over 8-page chunks of each
-//              (sequence, KV head), 4 pages a step through
-//              online_softmax_page_update -> f32 partials
+//              | grid sync | attention: paged_stream.cuh's split page
+//              stream (items of 8 pages of each (sequence, KV head), 4
+//              pages a step, the next step in flight) -> f32 partials
 //              | grid sync | per (sequence, KV head): the partials and
-//              the new token combined in a fixed order -> workspace (T)
+//              the new token combined in split order -> workspace (T)
 //              | grid sync | o_proj by column tiles, + x.
 //   MLP:       RMSNorm | gate/up by F tiles (a ragged last tile is
 //              masked), silu(g)*u -> workspace (T) | grid sync | down by
@@ -108,9 +108,19 @@
 // atomics touch any sum, so two launches give identical bits. The tile
 // width is picked per phase from the grid so the busiest block has the
 // fewest columns: the wrapper's plan (tile widths and counts, and the
-// grid), passed in the arguments. Not done yet (later work): tensor-core
-// products, cp.async/TMA pipelining of the weight stream, and a
-// multi-layer form over thread-block clusters.
+// grid), passed in the arguments.
+//
+// decode_block_fused in bf16 with bf16 weights at up to 8 rows (the
+// serving engine's decode step; the wrapper's plan, plan["body"] "ring")
+// runs a second kernel, decode_block_ring_kernel: the same phases and
+// rounding points, with every product's weights streamed through a ring
+// of chunks in shared memory onto mma.sync, K split into parts that fill
+// the grid, and the next product phase's first chunks issued before the
+// barrier that precedes it (weight_ring.cuh says why and how). f32, int8
+// and int4 weights and more rows keep the CUDA-core body and its bits.
+// Not done yet (later work): the ring for the quantized classes and for
+// the two-stage kernels, and a multi-layer form over thread-block
+// clusters.
 //
 // Shared memory, sized by the wrapper (ops/kernels/fused_decode_block.py,
 // the one definition of the sizes) and passed in, is carved as
@@ -134,15 +144,10 @@
 // after one more grid barrier) at LLaMA-7B. 8-row launches, f32, decode_block_fused and the
 // gate's specimen keep the CUDA-core code.
 #include "tile_mma.cuh"
+#include "weight_ring.cuh"
 
 namespace paddle_tpu_torch {
 namespace fused {
-
-constexpr int kSplitPages = 8;  // pages per attention work item
-
-__host__ __device__ inline int splits(int MB) {
-  return (MB + kSplitPages - 1) / kSplitPages;
-}
 
 struct AttnArgs {
   const void *x, *nw, *wq, *wk, *wv, *wo;   // weights: T, int8 or int4
@@ -193,6 +198,7 @@ struct BlockArgs {
   AttnArgs attn;
   MlpArgs mlp;
   float* resid;
+  RingArgs ring;   // the weight-ring body's plan (weight_ring.cuh)
 };
 
 // The scaled f32 sum of output column c: the weight's scale multiplies
@@ -251,128 +257,105 @@ __device__ void attn_qkv_phase(const AttnArgs& a, unsigned char* smem) {
   }
 }
 
-// 2. attention over 8-page chunks of each (sequence, KV head), 4 pages a
-// step; chunk 0 also makes the new token's k/v and score. KQ: int8 pools,
-// staged as int8 and dequantized per element in the page update.
-template <typename T, bool KQ>
+// Bytes of one attention item's scratch (paged_stream.cuh's layout, the
+// pages in the pool's type P), rounded up to 16.
+template <typename P>
+__host__ __device__ inline size_t attn_item_bytes(int groups, int hd,
+                                                  int BS) {
+  const size_t b = attn_scratch_floats(groups, hd, BS) * sizeof(float) +
+                   2 * (size_t)kPageStages * kPagesPerStep * BS * hd *
+                       sizeof(P);
+  return (b + 15) / 16 * 16;
+}
+
+// 2. attention over the split page stream (paged_stream.cuh): items of
+// kSplitPages pages of each (sequence, KV head), kPagesPerStep pages a
+// step, the next step in flight; split 0 also makes the new token's k/v
+// and score. KQ: int8 pools, staged as int8 and dequantized per element in
+// the page update. kTeams 2: the block's two halves (four warps each, a
+// named barrier each) take an item each, with a scratch each (one block an
+// SM runs two page chains at once; each item's sums are the same as the
+// whole block's).
+template <typename T, bool KQ, int kTeams = 1>
 __device__ void attn_pages_phase(const AttnArgs& a, unsigned char* smem) {
   using P = PoolT<T, KQ>;
-  constexpr int PV = 16 / sizeof(P);   // pool elements a 16-byte load
+  using Team = typename std::conditional<kTeams == 1, BlockTeam,
+                                         WarpTeam>::type;
   const int B = a.B, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
-  const int tid = threadIdx.x;
   const int groups = H / KV, hd2 = hd / 2, NS = splits(a.MB);
   const int nq = H * hd, nkv = KV * hd, ncols = nq + 2 * nkv;
   const T* qkv = static_cast<const T*>(a.qkv_ws);
-  const int SB = kPagesPerStep * BS;   // tokens a step
-  float* q_s = reinterpret_cast<float*>(smem);   // [groups][hd]
-  float* acc = q_s + groups * hd;                 // [groups][hd]
-  float* s = acc + groups * hd;                   // [groups][SB]
-  float* m = s + groups * SB;                     // [groups]
-  float* l = m + groups;
-  float* alpha = l + groups;
-  float* kn_s = alpha + groups;                   // [hd]
-  P* k_s = reinterpret_cast<P*>(q_s + attn_scratch_floats(groups, hd, BS));
-  P* v_s = k_s + SB * hd;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int row_vecs = hd / PV;
-  for (int item = blockIdx.x; item < NS * B * KV; item += gridDim.x) {
-    const int kvh = item % KV, b = (item / KV) % B, sp = item / (KV * B);
-    const float ks = KQ ? a.k_scale[kvh] : 1.f;
-    const float vs = KQ ? a.v_scale[kvh] : 1.f;
-    const int seq_len = a.seq_lens[b];
-    const int n_pages = min((seq_len + BS - 1) / BS, a.MB);   // 0 if 0
-    const int p0 = sp * kSplitPages;
-    const int p1 = min(p0 + kSplitPages, n_pages);
-    if (sp > 0 && p0 >= n_pages) continue;   // block-uniform
-    const int pos = min(max(seq_len, 0), a.rope_rows - 1);
-    const float* sn = a.sin + (size_t)pos * hd2;
-    const float* cs = a.cos + (size_t)pos * hd2;
-    const T* row = qkv + (size_t)b * ncols;
-    const T* qr = row + (size_t)kvh * groups * hd;
-    for (int i = tid; i < groups * hd; i += kThreads) {
-      const int g = i / hd, d = i - g * hd;
-      q_s[i] = round_t<T>(rope_at<T>(qr + g * hd, d, hd2, sn, cs));
-      acc[i] = 0.f;
-    }
-    for (int g = tid; g < groups; g += kThreads) {
-      m[g] = -CUDART_INF_F;
-      l[g] = 0.f;
-    }
-    if (sp == 0) {
-      const T* kr = row + nq + (size_t)kvh * hd;
-      const T* vr = row + nq + nkv + (size_t)kvh * hd;
-      const size_t kv_off = ((size_t)b * KV + kvh) * hd;
-      for (int d = tid; d < hd; d += kThreads) {
-        const T kt = from_float<T>(rope_at<T>(kr, d, hd2, sn, cs));
-        static_cast<T*>(a.k_new)[kv_off + d] = kt;
-        static_cast<T*>(a.v_new)[kv_off + d] = vr[d];
-        // the value the pool gives back: T itself, or its int8 round trip
-        kn_s[d] = KQ ? kv_round_trip(to_float(kt), ks) : to_float(kt);
-      }
-      __syncthreads();
-      for (int g = warp; g < groups; g += kWarps) {
-        float dot = 0.f;
-        for (int d = lane; d < hd; d += 32) dot += q_s[g * hd + d] * kn_s[d];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        if (lane == 0) a.s_new[b * H + kvh * groups + g] = dot * a.scale;
-      }
-    }
-    const int* table = a.tables + (size_t)b * a.MB;
-    for (int pg = p0; pg < p1; pg += kPagesPerStep) {
-      __syncthreads();
-      // pages past the chunk's last live page are clamped to it and
-      // masked by seq_len (the chunk's page count is a multiple of the
-      // step except where the sequence ends)
-      // four K and four V vectors in flight per thread before any store
-      const int nvec = SB * row_vecs;
-      for (int i0 = tid; i0 < nvec; i0 += 4 * kThreads) {
-        uint4 kk[4], vv[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + u * kThreads;
-          if (i < nvec) {
-            const int t = i / row_vecs, c = i - t * row_vecs;
-            const size_t page =
-                (size_t)table[clamped_page_index(seq_len, BS, pg + t / BS)];
-            const size_t off =
-                ((page * BS + t % BS) * KV + kvh) * hd + (size_t)c * PV;
-            kk[u] = *reinterpret_cast<const uint4*>(
-                static_cast<const P*>(a.k_pool) + off);
-            vv[u] = *reinterpret_cast<const uint4*>(
-                static_cast<const P*>(a.v_pool) + off);
-          }
+  constexpr int kTeamThreads = kThreads / kTeams;
+  const int team_id = threadIdx.x / kTeamThreads;
+  Team team;
+  if constexpr (kTeams > 1)
+    team = WarpTeam{(int)threadIdx.x % kTeamThreads, kTeamThreads,
+                    1 + team_id};
+  const int tid = team.tid(), nthr = team.size();
+  const PageScratch<P> c = carve_pages<P>(
+      smem + team_id * attn_item_bytes<P>(groups, hd, BS), groups, hd, BS);
+  const PagedView pv{a.k_pool, a.v_pool, a.tables, KV, hd, BS, a.MB};
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  paged_items<P>(
+      pv, c, blockIdx.x * kTeams + team_id, gridDim.x * kTeams, NS * B * KV,
+      groups, a.scale, team,
+      [&](int i, PageItem& it) {
+        const bool take = page_item(i, B, KV, BS, a.MB, a.seq_lens, true, it);
+        if (KQ) {
+          it.ks = a.k_scale[it.kvh];
+          it.vs = a.v_scale[it.kvh];
         }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + u * kThreads;
-          if (i < nvec) {
-            reinterpret_cast<uint4*>(k_s)[i] = kk[u];
-            reinterpret_cast<uint4*>(v_s)[i] = vv[u];
-          }
+        return take;
+      },
+      [&](const PageItem& it) {
+        const int b = it.b, kvh = it.kvh, seq_len = it.seq_len;
+        const int pos = min(max(seq_len, 0), a.rope_rows - 1);
+        const float* sn = a.sin + (size_t)pos * hd2;
+        const float* cs = a.cos + (size_t)pos * hd2;
+        const T* row = qkv + (size_t)b * ncols;
+        const T* qr = row + (size_t)kvh * groups * hd;
+        for (int i = tid; i < groups * hd; i += nthr) {
+          const int g = i / hd, d = i - g * hd;
+          c.q[i] = round_t<T>(rope_at<T>(qr + g * hd, d, hd2, sn, cs));
+          c.acc[i] = 0.f;
         }
-      }
-      __syncthreads();
-      online_softmax_page_update<P>(q_s, k_s, v_s, pg / kPagesPerStep, SB,
-                                    seq_len, a.scale, groups, hd, s, m, l,
-                                    alpha, acc, ks, vs);
-    }
-    __syncthreads();
-    const size_t pidx = (((size_t)b * KV + kvh) * NS + sp) * groups;
-    for (int i = tid; i < groups * hd; i += kThreads)
-      a.part_acc[pidx * hd + i] = acc[i];
-    for (int g = tid; g < groups; g += kThreads) {
-      a.part_m[pidx + g] = m[g];
-      a.part_l[pidx + g] = l[g];
-    }
-    __syncthreads();   // the next item reuses the scratch
-  }
+        for (int g = tid; g < groups; g += nthr) {
+          c.m[g] = -CUDART_INF_F;
+          c.l[g] = 0.f;
+        }
+        if (it.sp != 0) return;
+        const T* kr = row + nq + (size_t)kvh * hd;
+        const T* vr = row + nq + nkv + (size_t)kvh * hd;
+        const size_t kv_off = ((size_t)b * KV + kvh) * hd;
+        for (int d = tid; d < hd; d += nthr) {
+          const T kt = from_float<T>(rope_at<T>(kr, d, hd2, sn, cs));
+          static_cast<T*>(a.k_new)[kv_off + d] = kt;
+          static_cast<T*>(a.v_new)[kv_off + d] = vr[d];
+          // the value the pool gives back: T itself, or its int8 round trip
+          c.extra[d] = KQ ? kv_round_trip(to_float(kt), it.ks)
+                          : to_float(kt);
+        }
+        team.sync();
+        for (int g = warp; g < groups; g += nwarps) {
+          float dot = 0.f;
+          for (int d = lane; d < hd; d += 32)
+            dot += c.q[g * hd + d] * c.extra[d];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          if (lane == 0) a.s_new[b * H + kvh * groups + g] = dot * a.scale;
+        }
+      },
+      [&](const PageItem& it) {
+        store_partials<P>(c, a.part_m, a.part_l, a.part_acc,
+                          (((size_t)it.b * KV + it.kvh) * NS + it.sp) *
+                              groups, groups, hd, team);
+      });
 }
 
-// 3. per (sequence, KV head): the chunks' partials and the new token
-// (always unmasked, so l > 0) combined in chunk order; KQ: the new token's
-// v as the int8 pool gives it back
+// 3. per (sequence, KV head): the splits' partials and the new token
+// (always unmasked, so l > 0) combined in split order (combine_splits);
+// KQ: the new token's v as the int8 pool gives it back
 template <typename T, bool KQ>
 __device__ void attn_combine_phase(const AttnArgs& a) {
   const int B = a.B, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
@@ -389,22 +372,14 @@ __device__ void attn_combine_phase(const AttnArgs& a) {
     for (int i = threadIdx.x; i < groups * hd; i += kThreads) {
       const int g = i / hd, d = i - g * hd;
       const float snew = a.s_new[b * H + kvh * groups + g];
-      float mx = snew;
-      for (int sp = 0; sp < ns; ++sp)
-        mx = fmaxf(mx, a.part_m[(pbase + sp) * groups + g]);
-      const float pn = expf(snew - mx);
       const float vn = KQ ? kv_round_trip(to_float(vnew[d]), vs)
                           : to_float(vnew[d]);
-      float l = pn, o = pn * vn;
-      for (int sp = 0; sp < ns; ++sp) {
-        const size_t pi = (pbase + sp) * groups + g;
-        const float w = expf(a.part_m[pi] - mx);
-        l += w * a.part_l[pi];
-        o += w * a.part_acc[pi * hd + d];
-      }
+      const float2 ol = combine_splits<true>(a.part_m, a.part_l, a.part_acc,
+                                             pbase, ns, groups, g, d, hd,
+                                             snew, vn);
       const int col = (kvh * groups + g) * hd + d;
       attn_t[((size_t)(b / kRB) * nq + col) * kRB + b % kRB] =
-          from_float<T>(o / l);
+          from_float<T>(ol.x / ol.y);
     }
   }
 }
@@ -717,6 +692,97 @@ decode_block_fused_kernel(const BlockArgs a) {
   mlp_down_phase<T, WQ, true>(a.mlp, smem);
 }
 
+// The weight-ring body (weight_ring.cuh) of the single-launch kernel: bf16
+// activations and weights, at most 8 rows, fp or int8 pools (KQ). Shared
+// memory: the ring, then the RMSNorm's per-warp sums and the ticket flag
+// (kRingAux bytes), then one region that holds either the phase's
+// resident normalised rows [D][8] or the attention scratch of two items
+// (the block's two teams of four warps take an item each: the attention
+// phase is bound by each item's chain of page steps, not by bytes).
+constexpr int kRingAux = 512;
+
+// ring_smem: the ring body's dynamic shared memory for D and the attention
+// scratch (``attn`` bytes: one item's paged_stream scratch with two staged
+// steps in the pools' type, attn_item_bytes; the body's two teams hold one
+// item each)
+inline size_t ring_smem(int D, size_t attn) {
+  return (size_t)kRingStages * kRingStageBytes + kRingAux +
+         std::max((size_t)D * kRB * sizeof(ring_bf16), 2 * attn);
+}
+
+template <bool KQ>
+__global__ void __launch_bounds__(kThreads, 1)
+decode_block_ring_kernel(const BlockArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  using T = ring_bf16;
+  const RingArgs& r = a.ring;
+  const int B = a.attn.B, D = a.attn.D;
+  unsigned char* ring = smem;
+  float* red_s = reinterpret_cast<float*>(
+      smem + (size_t)kRingStages * kRingStageBytes);
+  int* flag = reinterpret_cast<int*>(red_s + kWarps * kRB);
+  unsigned char* region =
+      smem + (size_t)kRingStages * kRingStageBytes + kRingAux;
+  T* h = reinterpret_cast<T*>(region);   // resident rows [D][8]
+  Ring g = ring_init(r);
+  // q/k/v's first chunks fly while the block normalises its rows
+  g.stop = g.base[1];
+  ring_prefetch(r, g, ring, kRingStages - 1);
+  ring_norm<T>(static_cast<const T*>(a.attn.x),
+               static_cast<const T*>(a.attn.nw), h, B, D, a.attn.eps, red_s);
+  const int ncols = r.ph[0].ncols;
+  T* qkv = static_cast<T*>(a.attn.qkv_ws);
+  ring_phase(r, g, ring, h, 0, B, flag,
+             [&](int row, int c, const float* v) {
+               qkv[(size_t)row * ncols + c] = from_float<T>(v[0]);
+             });
+  grid.sync();
+  attn_pages_phase<T, KQ, 2>(a.attn, region);
+  grid.sync();
+  attn_combine_phase<T, KQ>(a.attn);
+  // o_proj's first chunks fly across the barrier
+  g.stop = g.base[4];
+  ring_prefetch(r, g, ring, g.base[1] + kRingStages - 1);
+  grid.sync();
+  ring_open(r, g, ring, 1);
+  const T* x = static_cast<const T*>(a.attn.x);
+  float* resid = a.resid;
+  ring_phase(r, g, ring, nullptr, 1, B, flag,
+             [&](int row, int c, const float* v) {
+               const size_t o = (size_t)row * D + c;
+               resid[o] = to_float(x[o]) + v[0];
+             });
+  grid.sync();
+  ring_open(r, g, ring, 2);
+  ring_norm<float>(resid, static_cast<const T*>(a.mlp.nw), h, B, D,
+                   a.mlp.eps, red_s);
+  T* ff = static_cast<T*>(a.mlp.ff_ws);
+  ring_phase(r, g, ring, h, 2, B, flag,
+             [&](int row, int c, const float* v) {
+               const float gt = round_t<T>(v[0]);
+               const float ut = round_t<T>(v[1]);
+               const float sg = round_t<T>(gt / (1.f + expf(-gt)));
+               ff[(size_t)c * kRB + row] = from_float<T>(__fmul_rn(sg, ut));
+             });
+  grid.sync();
+  ring_open(r, g, ring, 3);
+  T* xo = static_cast<T*>(a.mlp.out);
+  ring_phase(r, g, ring, nullptr, 3, B, flag,
+             [&](int row, int c, const float* v) {
+               const size_t o = (size_t)row * D + c;
+               xo[o] = from_float<T>(resid[o] + v[0]);
+             });
+  cp_async_wait0();
+}
+
+inline KernelFn<BlockArgs> ring_kernel(int dtype, int wbits, int kvbits) {
+  if (dtype != 1 || wbits != 0) return nullptr;
+  if (kvbits == 0) return decode_block_ring_kernel<false>;
+  if (kvbits == 8) return decode_block_ring_kernel<true>;
+  return nullptr;
+}
+
 PADDLE_TPU_PICK_KV_KERNEL(attn_kernel, decode_attn_block_kernel, AttnArgs)
 PADDLE_TPU_PICK_KERNEL(mlp_kernel, decode_mlp_block_kernel, MlpArgs)
 
@@ -785,7 +851,8 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
 
 // The cooperative grid of kernel ``which`` (0 decode_attn_block, 1
 // decode_mlp_block, 2 decode_block_fused, 3 decode_mlp_block's
-// tensor-core body) for (dtype, wbits, kvbits) at
+// tensor-core body, 4 decode_block_fused's weight-ring body) for (dtype,
+// wbits, kvbits) at
 // ``smem`` bytes of dynamic shared memory a block; minus the cudaError_t
 // on failure.
 extern "C" int decode_coop_grid(int which, int dtype, int wbits, int kvbits,
@@ -795,6 +862,7 @@ extern "C" int decode_coop_grid(int which, int dtype, int wbits, int kvbits,
   if (which == 1) return coop_grid_or_error(mlp_kernel(dtype, wbits), smem);
   if (which == 2) return coop_grid_or_error(block_kernel(dtype, wbits, kvbits), smem);
   if (which == 3) return coop_grid_or_error(mlp_tc_kernel(dtype, wbits), smem);
+  if (which == 4) return coop_grid_or_error(ring_kernel(dtype, wbits, kvbits), smem);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -876,7 +944,13 @@ extern "C" int decode_mlp_block(const void* x, const void* nw, const void* wg,
 
 // ws_t (T): attn_args' qkv and attention rows, then ff [P][F][8] at an
 // offset rounded up to 8 elements; ws_f (f32): attn_args' partials and
-// scores, then resid [B][D] at an offset rounded up to 4 floats.
+// scores, then resid [B][D] at an offset rounded up to 4 floats. body 0:
+// the CUDA-core body; body 1: the weight-ring body (weight_ring.cuh: bf16,
+// bf16 weights, B <= 8, D, F and H * hd multiples of kRingK), whose plan
+// is the parts of K of each product phase (1 to kRingMaxParts), at its own
+// shared memory (ring_smem), with ring_ws the f32 partials [parts * (1 +
+// paired)][8][cols] of its widest phase and tickets one int per tile of
+// its widest phase, 0 before the launch (each launch leaves them 0).
 extern "C" int decode_block_fused(
     const void* x, const void* nw, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* pw, const void* wg,
@@ -885,20 +959,37 @@ extern "C" int decode_block_fused(
     const void* sd, const void* sin, const void* cos, const void* k_pool,
     const void* v_pool, const void* k_scale, const void* v_scale,
     const void* tables, const void* seq_lens, void* x_out, void* k_new,
-    void* v_new, void* ws_t, void* ws_f, int B, int D, int H, int KV, int hd,
-    int F, int BS, int MB, int rope_rows, int region, int smem, int wbits,
-    int kvbits, int grid, int qkv_lpr, int q_tiles, int kv_tiles, int o_lpr,
-    int o_tiles, int up_lpr, int up_tiles, int down_lpr, int down_tiles,
-    float eps, float scale, int dtype, void* stream) {
+    void* v_new, void* ws_t, void* ws_f, void* ring_ws, void* tickets,
+    int B, int D, int H, int KV, int hd, int F, int BS, int MB,
+    int rope_rows, int region, int smem, int wbits, int kvbits, int grid,
+    int qkv_lpr, int q_tiles, int kv_tiles, int o_lpr, int o_tiles,
+    int up_lpr, int up_tiles, int down_lpr, int down_tiles, int body,
+    int qkv_parts, int o_parts, int up_parts, int down_parts, float eps,
+    float scale, int dtype, void* stream) {
+  using namespace paddle_tpu_torch;
   using namespace paddle_tpu_torch::fused;
-  const auto kernel = block_kernel(dtype, wbits, kvbits);
+  if (body != 0 && body != 1) return cudaErrorInvalidValue;
+  const auto kernel = body ? ring_kernel(dtype, wbits, kvbits)
+                           : block_kernel(dtype, wbits, kvbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  if (!plan_ok(qkv_lpr, q_tiles) || !plan_ok(qkv_lpr, kv_tiles) ||
-      !plan_ok(o_lpr, o_tiles) || !plan_ok(up_lpr, up_tiles) ||
-      !plan_ok(down_lpr, down_tiles))
-    return cudaErrorInvalidValue;
-  if (B == 0) return cudaSuccess;
   const int item = dtype == 1 ? 2 : 4;
+  const int nq = H * hd, nkv = KV * hd;
+  if (body == 0) {
+    if (!plan_ok(qkv_lpr, q_tiles) || !plan_ok(qkv_lpr, kv_tiles) ||
+        !plan_ok(o_lpr, o_tiles) || !plan_ok(up_lpr, up_tiles) ||
+        !plan_ok(down_lpr, down_tiles))
+      return cudaErrorInvalidValue;
+  } else {
+    const int parts[4] = {qkv_parts, o_parts, up_parts, down_parts};
+    for (int p : parts)
+      if (p < 1 || p > kRingMaxParts) return cudaErrorInvalidValue;
+    const size_t attn = kvbits ? attn_item_bytes<int8_t>(H / KV, hd, BS)
+                               : attn_item_bytes<ring_bf16>(H / KV, hd, BS);
+    if (B > kRB || D % kRingK || F % kRingK || nq % kRingK ||
+        nkv % 8 || (size_t)smem != ring_smem(D, attn))
+      return cudaErrorInvalidValue;
+  }
+  if (B == 0) return cudaSuccess;
   const int plan[5] = {qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles};
   const AttnArgs attn = attn_args(
       x, nw, wq, wk, wv, wo, sq, sk, sv, so, sin, cos, k_pool, v_pool,
@@ -915,7 +1006,45 @@ extern "C" int decode_block_fused(
                     static_cast<char*>(ws_t) + n_t * item, B, D, F, 1, eps,
                     (size_t)region, up_lpr, up_tiles, down_lpr, down_tiles,
                     F};
-  const BlockArgs a{attn, mlp, resid};
+  RingArgs ring{};
+  if (body == 1) {
+    using W = const ring_bf16*;
+    const int parts[4] = {qkv_parts, o_parts, up_parts, down_parts};
+    // slots: q/k/v concatenate their columns; gate and up are paired
+    const W w[4][kRingSlots] = {{W(wq), W(wk), W(wv)}, {W(wo)},
+                                {W(wg), W(wu)}, {W(wd)}};
+    const int n[4][kRingSlots] = {{nq, nkv, nkv}, {D}, {F, F}, {D}};
+    const int nslot[4] = {3, 1, 2, 1}, K[4] = {D, nq, D, F};
+    const W a_src[4] = {nullptr, static_cast<W>(attn.attn_ws), nullptr,
+                        static_cast<W>(mlp.ff_ws)};
+    for (int p = 0; p < 4; ++p) {
+      RingPhase& f = ring.ph[p];
+      f.nslot = nslot[p];
+      f.paired = p == 2;
+      f.parts = parts[p];
+      const int chunks = cdiv(K[p], kRingK);
+      f.part_rows = cdiv(chunks, parts[p]) * kRingK;
+      f.K = K[p];
+      f.a_src = a_src[p];
+      int items = 0, ticks = 0, out0 = 0;
+      for (int s = 0; s < f.nslot; ++s) {
+        f.w[s] = w[p][s];
+        f.n[s] = n[p][s];
+        f.tiles[s] = cdiv(n[p][s], kRingCols);
+        f.first[s] = items;
+        items += f.tiles[s] * parts[p];
+        f.out0[s] = f.paired ? 0 : out0;
+        f.tick0[s] = f.paired ? 0 : ticks;
+        if (!f.paired || s == 0) ticks += f.tiles[s];
+        out0 += f.paired ? 0 : n[p][s];
+      }
+      f.items = items;
+      f.ncols = f.paired ? F : out0;
+    }
+    ring.part = static_cast<float*>(ring_ws);
+    ring.tickets = static_cast<int*>(tickets);
+  }
+  const BlockArgs a{attn, mlp, resid, ring};
   return launch_coop(kernel, a, smem, grid, static_cast<cudaStream_t>(stream));
 }
 

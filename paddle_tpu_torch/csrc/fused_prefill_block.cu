@@ -320,7 +320,7 @@ __host__ __device__ constexpr size_t attn_tc_bytes() {
 // Shared memory of the tensor-core body: the larger of its product
 // layout (one weight a tile) and its attention phase's (the tensor-core
 // one over fp pools; over int8 pools the CUDA-core item of groups * 16
-// rows, block_products.cuh's attn_scratch_floats plus two staged tiles)
+// rows, paged_stream.cuh's attn_scratch_floats plus two staged tiles)
 inline size_t prefill_tc_smem(int wbits, int kvbits, int H, int KV, int hd,
                               int BS) {
   const size_t prod =

@@ -1,7 +1,7 @@
 // The warp-level tensor-core and asynchronous-copy primitives the port's
 // CUDA kernels share (sm_80 instructions, on sm_90a): mma.sync m16n8k16
-// bf16 x bf16 -> f32, ldmatrix (plain and transposed), and cp.async with
-// its commit and wait groups.
+// bf16 x bf16 -> f32, ldmatrix (plain and transposed), cp.async with its
+// commit and wait groups, and named barriers.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..),
@@ -56,6 +56,12 @@ __device__ __forceinline__ void cp_async_wait0() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Named barrier ``id`` (1-15; 0 is __syncthreads') over ``n`` threads,
+// whole warps: the warps of one team of a block meet without the rest
+__device__ __forceinline__ void named_barrier_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // Four 8x8 b16 matrices (or 8x4 b32) from shared memory; lane l gives the

@@ -21,13 +21,16 @@
 //   m, l   [groups]      running max and running sum of the softmax
 //   alpha  [groups]      scratch (rescale factor of this page)
 //   acc    [groups][hd]  running, unnormalised output
-// Every thread of the block must call it (it synchronises the block).
-// The caller synchronises before it overwrites k or v afterwards.
+// Every thread of the block (or of the team it is given) must call it (it
+// synchronises them). The caller synchronises before it overwrites k or v
+// afterwards.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace paddle_tpu_torch {
 
@@ -67,6 +70,26 @@ __device__ __forceinline__ float kv_round_trip(float x, float s) {
   return __fmul_rn(q, s);
 }
 
+// The threads that run one online-softmax update together: the whole
+// block (BlockTeam), or a team of whole warps of it with its own named
+// barrier (WarpTeam: the single-launch kernel's attention runs two items
+// at once, one a team). A team's result does not depend on its size: each
+// score is one warp's sum, each row's max and sum one warp's, each output
+// element one thread's sum over the tile's keys in order.
+struct BlockTeam {
+  __device__ __forceinline__ int tid() const { return threadIdx.x; }
+  __device__ __forceinline__ int size() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+struct WarpTeam {
+  int t, n, id;   // this thread's index in the team, its threads, and its
+                  // barrier (1-15; 0 is __syncthreads')
+  __device__ __forceinline__ int tid() const { return t; }
+  __device__ __forceinline__ int size() const { return n; }
+  __device__ __forceinline__ void sync() const { named_barrier_sync(id, n); }
+};
+
 // Logical page ``pg`` of a sequence of ``seq_len`` tokens, clamped to its
 // last live page, so a fetch never reads a block-table entry past it
 // (entries there are padding or belong to nobody).
@@ -81,29 +104,41 @@ __device__ __forceinline__ int clamped_page_index(int seq_len, int bs,
 // says whether row g sees key t. A row that sees no key of the tile keeps
 // its state (alpha 1, nothing added), even before its first key. ``ks``
 // and ``vs`` scale an int8 tile (kv_float) and are not read otherwise.
-template <typename T, typename Seen>
+template <typename T, typename Seen, typename Team = BlockTeam>
 __device__ __forceinline__ void online_softmax_masked_update(
     const float* q, const T* k, const T* v, int bs, Seen seen, float scale,
     int groups, int hd, float* s, float* m, float* l, float* alpha,
-    float* acc, float ks, float vs) {
-  const int tid = threadIdx.x;
+    float* acc, float ks, float vs, Team team = Team()) {
+  const int tid = team.tid();
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int nwarps = team.size() >> 5;
 
-  // scores: one warp per (query row, token), lanes split head_dim
-  for (int idx = warp; idx < groups * bs; idx += nwarps) {
-    const int g = idx / bs;
-    const int t = idx - g * bs;
-    float dot = 0.f;
-    for (int d = lane; d < hd; d += 32)
+  // scores: one warp per (query row, token), lanes split head_dim; a warp
+  // takes two of them at a time (each summed as alone, the two chains
+  // interleaved)
+  const int n = groups * bs;
+  for (int idx = warp; idx < n; idx += 2 * nwarps) {
+    const int idx2 = idx + nwarps;
+    const bool two = idx2 < n;   // warp-uniform
+    const int g = idx / bs, t = idx - g * bs;
+    const int g2 = two ? idx2 / bs : g, t2 = two ? idx2 - g2 * bs : t;
+    float dot = 0.f, dot2 = 0.f;
+    for (int d = lane; d < hd; d += 32) {
       dot += q[g * hd + d] * kv_float(k[t * hd + d], ks);
+      dot2 += q[g2 * hd + d] * kv_float(k[t2 * hd + d], ks);
+    }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
+    for (int off = 16; off > 0; off >>= 1) {
       dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    if (lane == 0) s[idx] = seen(g, t) ? dot * scale : -CUDART_INF_F;
+      dot2 += __shfl_xor_sync(0xffffffffu, dot2, off);
+    }
+    if (lane == 0) {
+      s[idx] = seen(g, t) ? dot * scale : -CUDART_INF_F;
+      if (two) s[idx2] = seen(g2, t2) ? dot2 * scale : -CUDART_INF_F;
+    }
   }
-  __syncthreads();
+  team.sync();
 
   // running max / sum: one warp per query row, lanes over the tokens,
   // reduced across the warp in a fixed order
@@ -133,10 +168,10 @@ __device__ __forceinline__ void online_softmax_masked_update(
       m[g] = m_new;
     }
   }
-  __syncthreads();
+  team.sync();
 
   // acc = alpha * acc + p @ v, one output element per thread
-  for (int i = tid; i < groups * hd; i += blockDim.x) {
+  for (int i = tid; i < groups * hd; i += team.size()) {
     const int g = i / hd;
     const int d = i - g * hd;
     const float* pg_row = s + g * bs;
@@ -152,14 +187,15 @@ __device__ __forceinline__ void online_softmax_masked_update(
 // Tokens at or after ``seq_len`` are masked out; callers only pass pages
 // that hold at least one live token. T is the pool's type; an int8 page
 // is dequantized with its head's scales ``ks`` and ``vs``.
-template <typename T>
+template <typename T, typename Team = BlockTeam>
 __device__ __forceinline__ void online_softmax_page_update(
     const float* q, const T* k, const T* v, int pg, int bs, int seq_len,
     float scale, int groups, int hd, float* s, float* m, float* l,
-    float* alpha, float* acc, float ks = 1.f, float vs = 1.f) {
+    float* alpha, float* acc, float ks = 1.f, float vs = 1.f,
+    Team team = Team()) {
   online_softmax_masked_update<T>(
       q, k, v, bs, [=](int, int t) { return pg * bs + t < seq_len; }, scale,
-      groups, hd, s, m, l, alpha, acc, ks, vs);
+      groups, hd, s, m, l, alpha, acc, ks, vs, team);
 }
 
 // One tile of a prefill chunk's own K/V folded into the online softmax

@@ -17,9 +17,10 @@ residual class too (``<wrapper>.launches_by_residual``): "full" for
 tensor-parallel shard's step launches (``inference/tp.py``). The three
 flash wrappers count by body class (``<wrapper>.launches_by_body``: the
 optional bodies a launch runs, "bias", "dbias", "seg", "dropout",
-"causal_sq_gt_sk" joined by commas, or "plain"), and decode_mlp_block and
+"causal_sq_gt_sk" joined by commas, or "plain"), decode_mlp_block and
 prefill_attn_block by the body their plan took: "tc" (the tensor cores,
-chunk rows in bf16) or "cuda_core". Only a
+chunk rows in bf16) or "cuda_core", and decode_block_fused by "ring" (its
+weight ring, bf16 weights at up to 8 rows) or "cuda_core". Only a
 launch counts: a wrapper given CPU tensors raises before it, and the CPU
 routes run the plain versions, which count nothing.
 
@@ -123,8 +124,9 @@ def launches_by_residual():
 
 def launches_by_body():
     """``{launch name: {body class: count}}`` for the flash kernels (the
-    classes launched since the last reset, some perhaps at 0) and for
-    decode_mlp_block and prefill_attn_block ("tc", "cuda_core")."""
+    classes launched since the last reset, some perhaps at 0), for
+    decode_mlp_block and prefill_attn_block ("tc", "cuda_core") and for
+    decode_block_fused ("ring", "cuda_core")."""
     return {name: dict(fn.launches_by_body)
             for name, fn in WRAPPERS.items()
             if hasattr(fn, "launches_by_body")}

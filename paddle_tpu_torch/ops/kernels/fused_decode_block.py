@@ -339,36 +339,44 @@ _WARPS = 8           # warps a block (256 threads)
 _MAX_LPR = 8         # lanes per weight row, at most
 _PAGES_PER_STEP = 4  # KV pages an attention step streams
 _SPLIT_PAGES = 8     # KV pages of one attention work item
+_PAGE_STAGES = 2     # staged steps of the decode kernels' page stream
 
 
 def _passes(B):
     return -(-B // _ROWS)
 
 
-def _layout(D, rows, hd, BS, item, pool_item=None):
+def _layout(D, rows, hd, BS, item, pool_item=None, page_stages=1):
     """(region, total) bytes: the region holds one pass of normalised rows
     [D][8] (or a staged chunk of a product's operand, or the f32 scratch
-    and K/V pages of one attention item of ``rows`` query rows, 0 for
-    none: ``attn_scratch_floats`` in csrc/block_products.cuh, the pages
-    staged in the pool's type of ``pool_item`` bytes, x's by default);
-    then the per-warp partial sums and two result tiles of the widest
-    column tile."""
-    attn = 0
+    and one staged step of K/V pages of one attention item of ``rows``
+    query rows, 0 for none: ``attn_scratch_floats`` in
+    csrc/paged_stream.cuh, the pages in the pool's type of ``pool_item``
+    bytes, x's by default); then the per-warp partial sums and two result
+    tiles of the widest column tile. ``page_stages`` staged steps (the
+    decode kernels' split page stream stages two) may reach past the
+    region into the products' tiles, which no attention phase uses: the
+    total covers them, and the region, which sets the products' staged
+    chunks, stays what one step needs."""
+    attn = attn_all = 0
     if rows:
         sb = _PAGES_PER_STEP * BS
         f = 2 * rows * hd + rows * sb + 3 * rows + hd
-        attn = -(-f // 4) * 4 * 4 + 2 * sb * hd * (pool_item or item)
+        step = 2 * sb * hd * (pool_item or item)
+        attn = -(-f // 4) * 4 * 4 + step
+        attn_all = attn + (page_stages - 1) * step
     region = -(-max(_ROWS * D * item, attn) // 16) * 16
     tc = _MAX_LPR * (16 // item)
-    return region, region + (_WARPS + 2) * tc * _ROWS * 4
+    return region, max(region + (_WARPS + 2) * tc * _ROWS * 4, attn_all)
 
 
 def attn_smem_bytes(D, H, KV, hd, BS, itemsize, pool_itemsize=None) -> int:
     """Dynamic shared memory of one decode_attn_block block: 8 normalised
-    rows of width D, or the attention scratch of one work item (its pages
-    in the pool's type, x's by default), whichever is larger, plus the
-    products' reduction tiles. Independent of B."""
-    return _layout(D, H // KV, hd, BS, itemsize, pool_itemsize)[1]
+    rows of width D, or the attention scratch of one work item (two
+    staged steps of pages in the pool's type, x's by default), whichever
+    is larger, plus the products' reduction tiles. Independent of B."""
+    return _layout(D, H // KV, hd, BS, itemsize, pool_itemsize,
+                   _PAGE_STAGES)[1]
 
 
 def mlp_smem_bytes(D, itemsize) -> int:
@@ -381,7 +389,8 @@ def block_smem_bytes(D, H, KV, hd, BS, itemsize, pool_itemsize=None) -> int:
     """Dynamic shared memory of one decode_block_fused block: the larger
     of its two halves' layouts, which is the attention half's (its region
     holds 8 normalised rows or an attention item's scratch). Independent
-    of B; 86,016 B at LLaMA-7B bf16, fp or int8 pools."""
+    of B; 86,016 B at LLaMA-7B bf16, fp or int8 pools. The weight-ring
+    body's is :func:`ring_smem`."""
     return max(attn_smem_bytes(D, H, KV, hd, BS, itemsize, pool_itemsize),
                mlp_smem_bytes(D, itemsize))
 
@@ -394,14 +403,16 @@ _SOURCE = "paddle_tpu_torch/csrc/fused_decode_block.cu"
 #: "_tc": the tensor-core body of decode_mlp_block / prefill_attn_block)
 BOUNDS = {"decode_attn_block": 2, "decode_mlp_block": 2,
           "decode_block_fused": 1, "prefill_attn_block": 2,
-          "decode_mlp_block_tc": 1, "prefill_attn_block_tc": 1}
+          "decode_mlp_block_tc": 1, "prefill_attn_block_tc": 1,
+          "decode_block_fused_ring": 1}
 #: the launchers' ctypes argument codes (pointers, ints, floats, then the
 #: dtype code and the stream)
 CALLS = {"decode_attn_block": _build.c_codes(23, 19, 2),
          "decode_mlp_block": _build.c_codes(10, 16, 1),
-         "decode_block_fused": _build.c_codes(30, 23, 2)}
+         "decode_block_fused": _build.c_codes(32, 28, 2)}
 _GRID_QUERY = {"decode_attn_block": 0, "decode_mlp_block": 1,
-               "decode_block_fused": 2, "decode_mlp_block_tc": 3}
+               "decode_block_fused": 2, "decode_mlp_block_tc": 3,
+               "decode_block_fused_ring": 4}
 _GRIDS = {}
 
 
@@ -614,6 +625,146 @@ def mlp_tc_plan(B, D, F, bits, grid):
             "down_tiles": dt, "down_k": F,
             "down_parts": tc_parts(rt * dt, grid, -(-F // TC_CHUNK_K)),
             "k_chunk": TC_CHUNK_K, "stages": TC_STAGES}
+
+
+# ---------------------------------------------------------------------------
+# the single-launch kernel's weight-ring body (csrc/weight_ring.cuh): bf16,
+# bf16 weights, at most 8 rows; every product phase's weights streamed
+# through a ring of chunks in shared memory onto mma.sync
+# ---------------------------------------------------------------------------
+RING_COLS = 128      # output columns a tile: 256 B of a bf16 weight row
+RING_K = 64          # k rows a chunk (16 KB of bf16 weights)
+RING_STAGES = 4      # chunks in the ring (three in flight)
+RING_LDW = RING_COLS + 8
+RING_STAGE_BYTES = RING_K * RING_LDW * 2 + RING_K * _ROWS * 2
+RING_AUX = 512       # the RMSNorm's per-warp sums and the ticket flag
+RING_MAX_PARTS = 4
+#: decode_block_fused takes the ring body in bf16 up to this many rows (one
+#: pass of the 8-row activation operand)
+RING_MAX_ROWS = _ROWS
+#: the ring's product phases, in the kernel's order (its plan's keys)
+RING_PHASES = ("qkv", "o_proj", "gate_up", "down")
+
+
+def ring_parts(tiles, chunks, grid, max_parts=RING_MAX_PARTS):
+    """The parts a weight-ring phase of ``tiles`` column tiles splits K's
+    ``chunks`` chunks into: the fewest chunks for the busiest block of
+    ``grid`` (``ceil(tiles * parts / grid) * ceil(chunks / parts)``),
+    the fewer parts on a tie; never a part that starts past K."""
+    best, cost = 1, None
+    for p in range(1, min(max_parts, chunks) + 1):
+        per = -(-chunks // p)
+        if (p - 1) * per >= chunks:
+            continue
+        c = -(-tiles * p // grid) * per
+        if cost is None or c < cost:
+            best, cost = p, c
+    return best
+
+
+def block_body(B, D, H, KV, hd, F, dt, bits):
+    """(body, reason): which body of decode_block_fused a launch runs, the
+    rule its plan records. "ring" (csrc/weight_ring.cuh) for bf16 with
+    bf16 weights at up to 8 rows, with D, F and H * hd multiples of
+    RING_K and KV * hd of 8; "cuda_core" (block_products.cuh's passes of
+    8 rows) otherwise: f32, int8 and int4 weights (their ring, converting
+    the codes from shared memory, is later work), more than 8 rows."""
+    if dt != "bfloat16":
+        return "cuda_core", f"{dt}: the weight-ring body is bf16 only"
+    if bits:
+        return "cuda_core", (f"int{bits} weights: the ring carries bf16 "
+                             "weights only")
+    if B > RING_MAX_ROWS:
+        return "cuda_core", (f"{B} rows > {RING_MAX_ROWS}: the ring runs one "
+                             "pass of 8 rows")
+    if D % RING_K or F % RING_K or (H * hd) % RING_K or (KV * hd) % 8:
+        return "cuda_core", (f"D {D}, F {F} or H * hd {H * hd} not a "
+                             f"multiple of {RING_K}")
+    return "ring", f"bf16 weights at {B} <= {_ROWS} rows"
+
+
+def ring_smem(D, H, KV, hd, BS, pool_item):
+    """Shared memory of the ring body (the source's ``ring_smem``): the
+    ring, the RMSNorm's sums and the flag, then one region for the
+    resident normalised rows [D][8] or the attention scratch of two items
+    (the body's two teams; two staged steps of pages each, in the pool's
+    type)."""
+    sb = _PAGES_PER_STEP * BS
+    g = H // KV
+    f = 2 * g * hd + g * sb + 3 * g + hd
+    attn = -(-f // 4) * 16 + _PAGE_STAGES * 2 * sb * hd * pool_item
+    attn = -(-attn // 16) * 16
+    return (RING_STAGES * RING_STAGE_BYTES + RING_AUX
+            + max(D * _ROWS * 2, 2 * attn))
+
+
+def ring_plan(B, D, H, KV, hd, F, grid):
+    """The ring body's plan: for each product phase its column tiles of
+    RING_COLS (q, k and v concatenated; gate and up paired over F), its
+    parts of K (:func:`ring_parts` on ``grid``: each item a column tile
+    of one weight over one part), its items and tickets; and the
+    workspaces: the f32 partials of the widest phase and one ticket per
+    tile."""
+    nq, nkv = H * hd, KV * hd
+    ct = lambda n: -(-n // RING_COLS)   # noqa: E731
+    shapes = {"qkv": ((nq, nkv, nkv), D, False),
+              "o_proj": ((D,), nq, False),
+              "gate_up": ((F, F), D, True),
+              "down": ((D,), F, False)}
+    plan = {"body": "ring", "ring_cols": RING_COLS, "ring_k": RING_K,
+            "ring_stages": RING_STAGES, "grid": grid}
+    part_ws = tickets = 0
+    for name in RING_PHASES:
+        ns, K, paired = shapes[name]
+        tiles = [ct(n) for n in ns]
+        chunks = -(-K // RING_K)
+        ticks = tiles[0] if paired else sum(tiles)
+        parts = ring_parts(ticks * (2 if paired else 1), chunks, grid)
+        ncols = ns[0] if paired else sum(ns)
+        plan[name] = {"tiles": tiles, "parts": parts, "K": K,
+                      "part_rows": -(-chunks // parts) * RING_K,
+                      "items": sum(tiles) * parts, "tickets": ticks,
+                      "ncols": ncols, "paired": paired}
+        if parts * (2 if paired else 1) > 1:
+            part_ws = max(part_ws, parts * (2 if paired else 1) * _ROWS
+                          * ncols)
+        tickets = max(tickets, ticks)
+    plan["part_ws"], plan["tickets"] = part_ws, tickets
+    return plan
+
+
+def _ring_phases(B, D, H, KV, hd, F, MB, plan, pages, combine):
+    """The ring body's phases for the gate: each product phase's items
+    read their weight's (part rows, RING_COLS) tile, slot-major then
+    part-major; down's part-0 items stand for the tile's last item, which
+    writes x_out (the parts' f32 sums lie in a workspace the spec does not
+    track)."""
+    A = _launch.Access
+    nq, nkv = H * hd, KV * hd
+    out = []
+    for name, ws, extra in (("qkv", ("wq", "wk", "wv"), ["x", "nw"]),
+                            ("o_proj", ("wo",), []),
+                            ("gate_up", ("wg", "wu"), ["pw"]),
+                            ("down", ("wd",), [])):
+        ph = plan[name]
+        rows, P = ph["part_rows"], ph["parts"]
+        reads, first = [], 0
+        for w, T in zip(ws, ph["tiles"]):
+            reads.append(A(w, (rows, RING_COLS),
+                           lambda j, T=T: (j // T, j % T), first, T * P))
+            first += T * P
+        reads += [A(e, (B, D) if e == "x" else (D,),
+                    (lambda i: (0, 0)) if e == "x" else (lambda i: (0,)),
+                    0, 1) for e in extra]
+        writes = ()
+        if name == "down":
+            writes = (A("x_out", (B, RING_COLS), lambda j: (0, j), 0,
+                        ph["tiles"][0]),)
+        out.append(_launch.KernelPhase(name, ph["items"], tuple(reads),
+                                       writes))
+        if name == "qkv":
+            out += [pages, combine]
+    return out
 
 
 def _attn_parts(B, D, H, KV, hd, BS, MB, N, rope_rows, dt, bits, kv_bits,
@@ -837,10 +988,11 @@ def mlp_spec(B, D, F, dt, bits, residual, grid, smem, floor_tile=None,
 
 @functools.lru_cache(maxsize=512)
 def block_spec(B, D, H, KV, hd, F, BS, MB, N, rope_rows, dt, bits, kv_bits,
-               grid, smem):
+               grid, smem, body="cuda_core"):
     """The launch spec of decode_block_fused: the attention half's phases
     (o_proj into the f32 residual workspace), then the MLP half's (gate/up
-    over the post-norm of that residual, down into x_out)."""
+    over the post-norm of that residual, down into x_out). ``body`` "ring":
+    the weight-ring body's plan (:func:`ring_plan`) and phases."""
     vec = 16 // _ITEM[dt]
     plan = attn_plan(H * hd, KV * hd, D, vec, grid)
     plan.update(mlp_plan(D, F, vec, bits, grid))
@@ -855,11 +1007,21 @@ def block_spec(B, D, H, KV, hd, F, BS, MB, N, rope_rows, dt, bits, kv_bits,
     if bits:
         at = [op.name for op in ins].index("so") + 1
         ins[at:at] = scales
+    if body == "ring":
+        plan = ring_plan(B, D, H, KV, hd, F, grid)
+        phases = _ring_phases(B, D, H, KV, hd, F, MB, plan, phases[1],
+                              phases[2])
+        m_phases = []
+        bounds = "decode_block_fused_ring"
+    else:
+        plan["body"] = "cuda_core"
+        bounds = "decode_block_fused"
+    plan["body_rule"] = block_body(B, D, H, KV, hd, F, dt, bits)[1]
     return _launch.KernelLaunchSpec(
         "decode_block_fused", "cuda", _SOURCE, (grid,), _THREADS,
         tuple(ins), tuple(m_outs + outs), tuple(phases + m_phases),
         (("decode_block_fused", CALLS["decode_block_fused"]),), dt,
-        blocks_per_sm=BOUNDS["decode_block_fused"], cooperative=True,
+        blocks_per_sm=BOUNDS[bounds], cooperative=True,
         dyn_smem=smem, params={"wbits": bits, "kvbits": kv_bits}, plan=plan)
 
 
@@ -1030,7 +1192,8 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if sin.dim() != 2 or sin.shape[1] != hd // 2:
         raise ValueError(f"{name}: rope tables must be [T, {hd // 2}], got "
                          f"{tuple(sin.shape)}")
-    region, smem = _layout(D, H // KV, hd, BS, item, k_pool.element_size())
+    region, smem = _layout(D, H // KV, hd, BS, item, k_pool.element_size(),
+                           _PAGE_STAGES)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
@@ -1235,34 +1398,49 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     if sin.dim() != 2 or sin.shape[1] != hd // 2:
         raise ValueError(f"{name}: rope tables must be [T, {hd // 2}], got "
                          f"{tuple(sin.shape)}")
-    region, smem = _layout(D, H // KV, hd, BS, item, k_pool.element_size())
+    dt = _launch.dtype_name(x.dtype)
+    body = block_body(B, D, H, KV, hd, F, dt, bits)[0]
+    region, smem = _layout(D, H // KV, hd, BS, item, k_pool.element_size(),
+                           _PAGE_STAGES)
+    kernel = "decode_block_fused"
+    if body == "ring":
+        smem = ring_smem(D, H, KV, hd, BS, k_pool.element_size())
+        kernel = "decode_block_fused_ring"
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    grid = coop_grid("decode_block_fused", x.device, x.dtype, bits, kv_bits,
-                     smem)
-    spec = block_spec(B, D, H, KV, hd, F, BS, MB, N, sin.shape[0],
-                      _launch.dtype_name(x.dtype), bits, kv_bits, grid, smem)
+    grid = coop_grid(kernel, x.device, x.dtype, bits, kv_bits, smem)
+    spec = block_spec(B, D, H, KV, hd, F, BS, MB, N, sin.shape[0], dt, bits,
+                      kv_bits, grid, smem, body)
+    pl = spec.plan
     x_out = torch.empty_like(x)
     k_new = torch.empty((B, KV, hd), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
     # the workspaces (layout in csrc/fused_decode_block.cu): the q/k/v
     # rows, the k-major attention rows and silu(g)*u rows in x's type; the
-    # f32 attention partials and new-token scores, then the f32 residual
+    # f32 attention partials and new-token scores, then the f32 residual;
+    # the ring body's f32 partial sums and its tickets (kept zero between
+    # launches: _ring_tickets)
     n_qkv = -(-B * (H + 2 * KV) * hd // 8) * 8
     ws_t = torch.empty(n_qkv + _passes(B) * _ROWS * (H * hd + F),
                        dtype=x.dtype, device=x.device)
     n_part = B * H * -(-MB // _SPLIT_PAGES)
     n_f = -(-(n_part * (2 + hd) + B * H) // 4) * 4
     ws_f = torch.empty(n_f + B * D, dtype=torch.float32, device=x.device)
+    ring_ws = tickets = None
+    if body == "ring":
+        ring_ws = torch.empty(max(pl["part_ws"], 4), dtype=torch.float32,
+                              device=x.device)
+        tickets = _ring_tickets(x.device, pl["tickets"])
     order = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
     if not _launch.begin(spec, x.device):
         return x_out, k_new, v_new
     fn = _build.c_fn("fused_decode_block", *spec.calls[0])
-    pl = spec.plan
+    ring = body == "ring"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _count(decode_block_fused_cuda, bits, kv_bits)
+        decode_block_fused_cuda.launches_by_body[body] += 1
         err = fn(x.data_ptr(), nw.data_ptr(),
                  *(w[k].data_ptr() for k in order[:4]), pw.data_ptr(),
                  *(w[k].data_ptr() for k in order[4:]),
@@ -1270,17 +1448,35 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
                  cos.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  _ptr(ks), _ptr(vs), block_tables.data_ptr(),
                  seq_lens.data_ptr(), x_out.data_ptr(), k_new.data_ptr(),
-                 v_new.data_ptr(), ws_t.data_ptr(), ws_f.data_ptr(), B, D, H,
+                 v_new.data_ptr(), ws_t.data_ptr(), ws_f.data_ptr(),
+                 _ptr(ring_ws), _ptr(tickets), B, D, H,
                  KV, hd, F, BS, MB, sin.shape[0], region, smem, bits,
-                 kv_bits, grid, pl["qkv_lpr"], pl["q_tiles"], pl["kv_tiles"],
-                 pl["o_lpr"], pl["o_tiles"], pl["up_lpr"], pl["up_tiles"],
-                 pl["down_lpr"], pl["down_tiles"], float(eps),
-                 1.0 / math.sqrt(hd),
+                 kv_bits, grid, *(pl.get(k, 0) for k in (
+                     "qkv_lpr", "q_tiles", "kv_tiles", "o_lpr", "o_tiles",
+                     "up_lpr", "up_tiles", "down_lpr", "down_tiles")),
+                 int(ring),
+                 *(pl[p]["parts"] if ring else 1 for p in RING_PHASES),
+                 float(eps), 1.0 / math.sqrt(hd),
                  _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_block_fused launch failed: "
                            + fn.error_string(err).decode())
     return x_out, k_new, v_new
+
+
+_TICKETS = {}
+
+
+def _ring_tickets(device, n):
+    """The ring body's ticket counters on ``device``: one int32 per tile
+    of its widest phase, zeroed once; each launch leaves them zero (the
+    last item of a tile sets its counter back), so they are kept across
+    launches. Grown (zeroed anew) when a launch needs more."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                           device=device)
+    return t
 
 
 for _w in (decode_attn_block_cuda, decode_mlp_block_cuda,
@@ -1295,8 +1491,10 @@ for _w in (decode_attn_block_cuda, decode_mlp_block_cuda):
     # and, for the two-stage kernels, by residual class
     _w.launches_by_residual = {"full": 0, "partial": 0}
 # and decode_mlp_block by body: "tc" (the tensor cores, chunk rows in bf16)
-# or "cuda_core" (the passes of 8 rows)
+# or "cuda_core" (the passes of 8 rows); decode_block_fused by body: "ring"
+# (the weight ring, bf16 at up to 8 rows) or "cuda_core"
 decode_mlp_block_cuda.launches_by_body = {"tc": 0, "cuda_core": 0}
+decode_block_fused_cuda.launches_by_body = {"ring": 0, "cuda_core": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,13 @@ Replaces ``paddle_tpu/ops/pallas/paged_attention.py``'s
 ``paged_attention_decode_pallas`` (launch ``paged_attention_decode``).
 The kernel is ``paddle_tpu_torch/csrc/paged_attention.cu``, CUDA C++ for
 ``sm_90a``, built by :mod:`._build` at its first launch and bound with
-ctypes; that file's header says what bounds it on the H100 (memory: one
-read of the live K/V pages) and how its design follows from that.
+ctypes. It runs the split page stream of ``csrc/paged_stream.cuh``, the
+one the fused decode kernels run: one cooperative launch whose blocks
+take (split of :data:`SPLIT_PAGES` pages, sequence, KV head) items,
+:data:`PAGES_PER_STEP` pages a step with the next step's K/V in flight,
+leave f32 partials in a workspace, and after one grid barrier combine
+them in split order. :func:`paged_spec` records that plan (grid, shared
+memory, the split and step) and the launcher refuses any other.
 
 :func:`paged_attention_decode_ref` is the plain version, the counterpart
 of the JAX package's ``paged_attention_decode_xla``: it gathers each
@@ -28,13 +33,21 @@ import torch
 from . import _build, _launch
 
 __all__ = ["paged_attention_decode_ref", "paged_attention_decode_cuda",
-           "paged_spec"]
+           "paged_spec", "paged_smem", "SPLIT_PAGES", "PAGES_PER_STEP"]
 
 _SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
-_THREADS = 128
-#: the launcher's ctypes argument codes: q, pools, tables, lengths, out;
-#: B, H, KV, hd, BS, MB and the plan's grid_x, grid_y, smem; the scale
-CALL = ("paged_attention_decode", ("p",) * 6 + ("i",) * 9 + ("f", "i", "p"))
+_THREADS = 256
+#: blocks an SM the kernel is built for (its __launch_bounds__)
+BOUNDS = 3
+#: the launcher's ctypes argument codes: q, pools, tables, lengths, out and
+#: the partials' workspace; B, H, KV, hd, BS, MB and the plan's grid,
+#: smem, split_pages, pages_per_step; the scale
+CALL = ("paged_attention_decode",
+        ("p",) * 7 + ("i",) * 10 + ("f", "i", "p"))
+#: the split page stream's constants (csrc/paged_stream.cuh): pages a work
+#: item, pages a step, staged steps
+SPLIT_PAGES, PAGES_PER_STEP, PAGE_STAGES = 8, 4, 2
+_GRIDS = {}
 
 
 def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens,
@@ -75,16 +88,56 @@ def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens,
     return out.to(q.dtype)
 
 
+def paged_smem(groups, hd, BS, item):
+    """Dynamic shared memory of one block (the source's ``paged_smem``):
+    one item's f32 scratch (``attn_scratch_floats``: q and acc of the
+    group, the scores of a step, m, l, alpha and one spare row, padded to
+    16 bytes), then two staged steps of K and V in the pools' type."""
+    sb = PAGES_PER_STEP * BS
+    f = 2 * groups * hd + groups * sb + 3 * groups + hd
+    return -(-f // 4) * 16 + 2 * PAGE_STAGES * sb * hd * item
+
+
+def splits(MB):
+    """Work items of a sequence's pages: splits of SPLIT_PAGES pages."""
+    return -(-MB // SPLIT_PAGES)
+
+
+def coop_grid(device, dtype, smem):
+    """The kernel's cooperative grid: on the meta device the H100's (132
+    SMs times the blocks an SM holds: BOUNDS, or fewer where ``smem`` does
+    not fit twice); on a card the launcher's occupancy query
+    (``paged_coop_grid``), asked once per (device, type, shared memory)."""
+    if device.type == "meta":
+        per_sm = min(BOUNDS, _launch.SMEM_SM // (smem + _launch.SMEM_RESERVED))
+        return _launch.H100_SMS * per_sm
+    key = (device.index, dtype, smem)
+    grid = _GRIDS.get(key)
+    if grid is None:
+        with torch.cuda.device(device):
+            fn = _build.c_fn("paged_attention", "paged_coop_grid", ("i", "i"))
+            grid = fn(_build.DTYPES[dtype], smem)
+        if grid <= 0:
+            raise RuntimeError(f"paged_attention_decode: no cooperative grid "
+                               f"at {smem} B of shared memory "
+                               f"(cudaError {-grid})")
+        _GRIDS[key] = grid
+    return grid
+
+
 @functools.lru_cache(maxsize=256)
-def paged_spec(B, H, KV, hd, BS, MB, N, dt):
-    """The launch spec: one block of 128 threads per (KV head, sequence),
-    grid (KV, B), reading the head group's q rows, the sequence's live
-    pages (paged) and writing its output rows; shared memory: two pages of
-    K/V in the pools' type and the f32 softmax state of the group."""
+def paged_spec(B, H, KV, hd, BS, MB, N, dt, grid):
+    """The launch spec: one cooperative launch of ``grid`` blocks of 256
+    threads (csrc/paged_stream.cuh's split page stream). Phase "pages": the
+    work items (split of SPLIT_PAGES pages, sequence, KV head), each
+    reading its head group's q rows and its split's live pages (paged) and
+    writing f32 partials to a workspace; phase "combine", after the grid
+    barrier: one item per (sequence, KV head), its partials combined in
+    split order into the group's output rows."""
     groups = H // KV
     item = 4 if dt == "float32" else 2
-    smem = 2 * BS * hd * item + (2 * groups * hd + groups * BS
-                                 + 3 * groups) * 4
+    smem = paged_smem(groups, hd, BS, item)
+    ns = splits(MB)
     op = _launch.KernelOperand
     ins = (op("q", (B, H, hd), dt),
            op("k_pool", (N, BS, KV, hd), dt, "tokens"),
@@ -94,16 +147,23 @@ def paged_spec(B, H, KV, hd, BS, MB, N, dt):
     outs = (op("out", (B, H, hd), dt),)
 
     def head_rows(i):
-        return (i // KV, i % KV, 0)
+        return ((i // KV) % B, i % KV, 0)
     A = _launch.Access
-    phase = _launch.KernelPhase(
-        "heads", KV * B,
-        (A("q", (1, groups, hd), head_rows), _launch.whole(ins[4])),
-        (A("out", (1, groups, hd), head_rows),))
+    pages = _launch.KernelPhase(
+        "pages", ns * B * KV,
+        (A("q", (1, groups, hd), head_rows), _launch.whole(ins[4])))
+    combine = _launch.KernelPhase(
+        "combine", B * KV, (), (A("out", (1, groups, hd), head_rows),))
     return _launch.KernelLaunchSpec(
-        "paged_attention_decode", "cuda", _SOURCE, (KV, B), _THREADS, ins,
-        outs, (phase,), (CALL,), dt, dyn_smem=smem,
-        plan={"grid": (KV, B), "smem": smem})
+        "paged_attention_decode", "cuda", _SOURCE, (grid,), _THREADS, ins,
+        outs, (pages, combine), (CALL,), dt,
+        blocks_per_sm=min(BOUNDS, _launch.SMEM_SM
+                          // (smem + _launch.SMEM_RESERVED)),
+        cooperative=True, dyn_smem=smem,
+        plan={"grid": grid, "smem": smem, "threads": _THREADS,
+              "launch": "cooperative", "split_pages": SPLIT_PAGES,
+              "pages_per_step": PAGES_PER_STEP, "stages": PAGE_STAGES,
+              "items": ns * B * KV, "combine": "split order"})
 
 
 def _check(q, k_pool, v_pool, block_tables, seq_lens):
@@ -152,20 +212,31 @@ def paged_attention_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens):
     B, H, hd = q.shape
     N, BS, KV, _ = k_pool.shape
     MB = block_tables.shape[1]
-    spec = paged_spec(B, H, KV, hd, BS, MB, N,
-                      _launch.dtype_name(q.dtype))
+    smem = paged_smem(H // KV, hd, BS, q.element_size())
+    if smem > _launch.SMEM_BLOCK:
+        raise ValueError(f"paged_attention_decode_cuda: needs {smem} B of "
+                         f"shared memory a block, over the card's "
+                         f"{_launch.SMEM_BLOCK}")
+    grid = coop_grid(q.device, q.dtype, smem)
+    spec = paged_spec(B, H, KV, hd, BS, MB, N, _launch.dtype_name(q.dtype),
+                      grid)
     out = torch.empty_like(q)
+    # the f32 partials: m and l of every (sequence, head, split), then acc
+    n_part = B * H * splits(MB)
+    ws = torch.empty(n_part * (2 + hd), dtype=torch.float32, device=q.device)
     if not _launch.begin(spec, q.device):
         return out
     fn = _build.c_fn("paged_attention", *spec.calls[0])
-    (gx, gy), smem = spec.plan["grid"], spec.plan["smem"]
+    pl = spec.plan
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         paged_attention_decode_cuda.launches += 1
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), seq_lens.data_ptr(),
-                 out.data_ptr(), B, H, KV, hd, BS, MB, gx, gy, smem,
-                 1.0 / math.sqrt(hd), _build.DTYPES[q.dtype], stream)
+                 out.data_ptr(), ws.data_ptr(), B, H, KV, hd, BS, MB,
+                 pl["grid"], pl["smem"], pl["split_pages"],
+                 pl["pages_per_step"], 1.0 / math.sqrt(hd),
+                 _build.DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError("paged_attention_decode launch failed: "
                            + fn.error_string(err).decode())

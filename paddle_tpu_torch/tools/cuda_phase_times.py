@@ -19,7 +19,11 @@ lengths, and serving-like lengths of 300-520 tokens):
   decode_mlp_block on the same inputs (chip_smoke.py's ``cold_ms``);
 - the stamped phases, microseconds: decode_attn_block (qkv, pages,
   combine, o_proj), decode_mlp_block (gate/up, down) and
-  decode_block_fused (all six). The stamps add a barrier at the end of
+  decode_block_fused (all six: qkv, pages, combine, o_proj, gate/up,
+  down), on the body the wrapper picks at 8 bf16 rows (the weight ring,
+  ``csrc/weight_ring.cuh``) and, where the tree has one, on its
+  CUDA-core body too (``chip_smoke.cuda_core_block``), which is also
+  timed. The stamps add a barrier at the end of
   each kernel and change register allocation: compare phases with
   phases, not with the unstamped times.
 
@@ -237,9 +241,14 @@ def decode_part(fdb, libs, gpu):
             return fdb.decode_mlp_block_cuda(xo, pw, wg, wu, wd)
         row = {"phase": "times", "gpu": gpu, "lengths": label,
                "seq_lens": lens.tolist()}
+        ring = hasattr(fdb, "RING_MAX_ROWS")
         for name in ("lb1", "lb2"):
             use(fdb, libs[name])
             row[f"{name}_block_ms"] = cs.cold_ms(block, iters=40)
+            if ring:
+                with cs.cuda_core_block(fdb):
+                    row[f"{name}_block_cuda_core_ms"] = cs.cold_ms(
+                        block, iters=40)
             row[f"{name}_pair_ms"] = cs.cold_ms(pair, iters=40)
         for name in ("lb1_stamped", "lb2_stamped"):
             use(fdb, libs[name])
@@ -250,8 +259,29 @@ def decode_part(fdb, libs, gpu):
                 "decode_mlp_block": phases(
                     fdb, libs[name],
                     lambda: fdb.decode_mlp_block_cuda(x, pw, wg, wu, wd)),
-                "decode_block_fused": phases(fdb, libs[name], block)}
+                "decode_block_fused": block_phases(
+                    fdb, phases(fdb, libs[name], block))}
+            if ring:
+                with cs.cuda_core_block(fdb):
+                    row[name]["decode_block_fused_cuda_core"] = block_phases(
+                        fdb, phases(fdb, libs[name], block), "cuda_core")
         cs.emit(row)
+
+
+#: decode_block_fused's stamped phases by body: the weight ring's norm runs
+#: inside q/k/v and gate/up; the CUDA-core body's in each product
+BLOCK_PHASES = ("qkv", "pages", "combine", "o_proj", "gate_up", "down")
+
+
+def block_phases(fdb, times, body=None):
+    """decode_block_fused's stamped intervals under their phase names, with
+    the body they ran (the wrapper's rule at 8 bf16 rows, or ``body``)."""
+    if body is None:
+        body = (fdb.block_body(8, cs.D7, cs.H7, cs.H7, cs.HD7, cs.F7,
+                               "bfloat16", 0)[0]
+                if hasattr(fdb, "block_body") else "cuda_core")
+    out = dict(zip(BLOCK_PHASES, times)) if len(times) == 6 else times
+    return {"body": body, "phases_us": out}
 
 
 def prefill_inputs(gen, P, pos0):

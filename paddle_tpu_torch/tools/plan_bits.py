@@ -35,6 +35,14 @@ else::
 
     --expect "decode_mlp_block[[]*rows*" \
         "prefill_attn_block[[]torch.bfloat16*"
+
+Against a tree from before the split page stream and the weight ring,
+the paged case and the bf16-weight decode-block cases differ
+(the paged kernel's new reduction order; decode_block_fused's ring body),
+nothing else::
+
+    --expect "paged_attention_decode*" \
+        "decode_block_fused[[]torch.bfloat16*" "decode_block_fused[[]kv8]"
  It imports nothing of JAX or
 of ``paddle_tpu``.
 """
