@@ -1363,9 +1363,13 @@ def quant_block_phase(gpu, bits):
     (the JAX block kernel's rounding points, scales in the epilogue) at
     KV=32 and 8, f32 and bf16, 8 and 20 slots, F 11008 and 11000; in f32
     also against the dequantize composition (attn_block_ref then
-    mlp_block_ref); two launches bit for bit; dispatch must pick it.
-    Timed at B 8, bf16, beside its bound, its plain version, the fp
-    kernel on the same activations and the quantized two-stage pair."""
+    mlp_block_ref); two launches bit for bit; dispatch must pick it; each
+    case records its body (bf16 at up to 8 rows: the weight ring over the
+    codes; f32, 20 slots and F 11000: the CUDA-core body), and bf16 at 7
+    slots runs the ring too. Timed at B 8, bf16, beside its bound, its
+    plain version, the bf16-weight ring on the same activations, the
+    quantized two-stage pair and its own CUDA-core body on the same
+    inputs."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -1377,10 +1381,11 @@ def quant_block_phase(gpu, bits):
     cases, max_err, timed = [], 0.0, None
     for dt, KV, B, F in ((bf16, 32, B8, F7), (f32, 32, B8, F7),
                          (bf16, 8, B8, F7), (f32, 8, 20, F7),
-                         (bf16, 32, B8, 11000)):
+                         (bf16, 32, B8, 11000), (bf16, 32, 7, F7)):
         fp = block_inputs(gen, dt, KV, F, rope, B)
         args = (*fp[:2], *wq_leaves(fp[2:6], bits), fp[6],
                 *wq_leaves(fp[7:10], bits, down=fp[9]), *fp[10:])
+        plan = launch_plan(lambda a=args: fdb.decode_block_fused_cuda(*a))
         meta = fdb.decode_meta_dims(B, D7, H7, KV, HD7, F, BS16, MB72, dt,
                                     dt, False, weight_dtype=wd)
         picked = KERNELS.dispatch("decode_block_fused", meta)[0]
@@ -1403,7 +1408,8 @@ def quant_block_phase(gpu, bits):
         torch.cuda.synchronize()
         case = {"dtype": str(dt)[6:], "KV": KV, "B": B, "F": F,
                 "outputs": outs, "bitwise_repeatable": same,
-                "dispatch": picked,
+                "dispatch": picked, "body": plan["body"],
+                "body_rule": plan["body_rule"],
                 "ok": same and picked == "cuda_block"
                 and all(o["ok"] for o in outs.values())}
         cases.append(case)
@@ -1420,6 +1426,8 @@ def quant_block_phase(gpu, bits):
     def two_stage():
         xo, _, _ = fdb.decode_attn_block_cuda(*timed[:6], *timed[10:])
         return fdb.decode_mlp_block_cuda(xo, *timed[6:10])
+    with cuda_core_block(fdb):
+        core_ms = cold_ms(lambda: fdb.decode_block_fused_cuda(*timed))
     row = {"name": f"decode_block_fused[{wd}]", "route": "cuda",
            "source": FUSED_SOURCE,
            "replaces": "paddle_tpu/ops/pallas/fused_decode_block.py:1021",
@@ -1432,13 +1440,16 @@ def quant_block_phase(gpu, bits):
            "bound_ms": b_ms, "bound_by": b_by,
            "fp_kernel_ms": cold_ms(
                lambda: fdb.decode_block_fused_cuda(*timed_fp)),
-           "two_stage_ms": cold_ms(two_stage), "library_ms": None,
+           "two_stage_ms": cold_ms(two_stage), "cuda_core_ms": core_ms,
+           "body": launch_plan(
+               lambda: fdb.decode_block_fused_cuda(*timed))["body"],
+           "library_ms": None,
            "library": "none: no single PyTorch call computes the layer",
            "ok": True}
     emit({"phase": "kernel", "kernel": row["name"], "gpu": gpu,
           "cases": cases, **{k: row[k] for k in (
               "ms", "plain_ms", "bound_ms", "fp_kernel_ms",
-              "two_stage_ms")}})
+              "two_stage_ms", "cuda_core_ms", "body")}})
     return row
 
 
@@ -1502,6 +1513,9 @@ def quant_prefill_phase(gpu, bits):
                             "pos0": pos0, "n_valid": n, "outputs": outs,
                             "pad_rows_finite": finite,
                             "bitwise_repeatable": same, "dispatch": picked,
+                            "body": launch_plan(
+                                lambda a=args: fpb.prefill_attn_block_cuda(
+                                    *a))["body"],
                             "ok": same and finite and picked == "cuda_fused"
                             and all(o["ok"] for o in outs.values())}
                     cases.append(case)
@@ -1632,7 +1646,12 @@ def kv8_decode_phase(gpu, op):
     the kernel-order plain version (_kv8_decode_outputs). Timed at B 8,
     bf16, KV=32 beside its bound (int8 pages and their scales, the
     weights in their class), its plain version and the fp-pool kernel on
-    the same activations."""
+    the same activations; each case records its body, and
+    decode_block_fused's timed row, on the same inputs, its CUDA-core
+    body's time, the two-stage pair's (decode_attn_block then
+    decode_mlp_block) and, for int8 and int4 weights, the bf16-weight
+    ring's on the same activations and pools (its bf16 cases at 8 slots
+    run the weight ring, over bf16, int8 and int4 weights)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -1658,6 +1677,7 @@ def kv8_decode_phase(gpu, op):
         for dt, KV, B in specs:
             base = (fused_attn_inputs(gen, dt, KV, rope, B) if attn
                     else block_inputs(gen, dt, KV, F7, rope, B))
+            fp_weights = base
             if bits and attn:
                 base = (*base[:2], *wq_leaves(base[2:6], bits), *base[6:])
             elif bits:
@@ -1686,6 +1706,8 @@ def kv8_decode_phase(gpu, op):
                     "rows_with_a_code_flip": flip_rows,
                     "codes_flipped": flip_codes,
                     "bitwise_repeatable": same, "dispatch": picked,
+                    "body": launch_plan(lambda a=args: wrapper(
+                        *a, kv_scales=scales)).get("body", "cuda_core"),
                     "ok": same and picked == variant
                     and all(o["ok"] for o in outs.values())}
             cases.append(case)
@@ -1695,6 +1717,8 @@ def kv8_decode_phase(gpu, op):
                 raise AssertionError(f"{name} disagrees: {case}")
             if dt == bf16 and KV == H7 and B == B8:
                 timed, timed_fp, tsc = args, fp_args, scales
+                timed_bf16w = (*fp_weights[:ip], kq, vq,
+                               *fp_weights[ip + 2:])
         lens = timed[ip + 3].tolist()
         b_ms, b_by = bound(lambda: wrapper(*timed, kv_scales=tsc), lens)[:2]
         row = {"name": name, "route": "cuda", "source": FUSED_SOURCE,
@@ -1713,9 +1737,26 @@ def kv8_decode_phase(gpu, op):
                "library": "none: no single PyTorch call computes the "
                           + ("block" if attn else "layer"),
                "ok": True}
+        if not attn:
+            row["body"] = launch_plan(
+                lambda: wrapper(*timed, kv_scales=tsc))["body"]
+            with cuda_core_block(fdb):
+                row["cuda_core_ms"] = cold_ms(
+                    lambda: wrapper(*timed, kv_scales=tsc))
+
+            def two_stage():
+                xo, _, _ = fdb.decode_attn_block_cuda(
+                    *timed[:6], *timed[10:], kv_scales=tsc)
+                return fdb.decode_mlp_block_cuda(xo, *timed[6:10])
+            row["two_stage_ms"] = cold_ms(two_stage)
+            if bits:
+                row["bf16_ring_ms"] = cold_ms(
+                    lambda: wrapper(*timed_bf16w, kv_scales=tsc))
         emit({"phase": "kernel", "kernel": name, "gpu": gpu,
               "cases": cases, **{k: row[k] for k in (
-                  "ms", "plain_ms", "bound_ms", "fp_pool_kernel_ms")}})
+                  "ms", "plain_ms", "bound_ms", "fp_pool_kernel_ms",
+                  "cuda_core_ms", "two_stage_ms", "bf16_ring_ms", "body")
+                  if k in row}})
         rows.append(row)
     return rows
 
@@ -1731,7 +1772,10 @@ def kv8_prefill_phase(gpu):
     tolerances (the kernel quantizes nothing, so no code can flip), every
     row finite, two launches bit for bit, dispatch on the int8-pool meta.
     Timed at P=128, bf16, KV=32, pos0 512 beside its bound, its plain
-    version and the fp-pool kernel on the same activations."""
+    version and the fp-pool kernel on the same activations. Each case
+    records its body (bf16: the tensor cores, the history's codes
+    converted exactly to bf16 with the scales on the f32 sums; f32: the
+    CUDA cores)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_prefill_block as fpb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -1788,6 +1832,9 @@ def kv8_prefill_phase(gpu):
                         "pos0": pos0, "n_valid": n, "outputs": outs,
                         "pad_rows_finite": finite,
                         "bitwise_repeatable": same, "dispatch": picked,
+                        "body": launch_plan(
+                            lambda a=args: fpb.prefill_attn_block_cuda(
+                                *a, kv_scales=scales))["body"],
                         "ok": same and finite and picked == "cuda_fused"
                         and all(o["ok"] for o in outs.values())}
                 cases.append(case)
@@ -1817,6 +1864,8 @@ def kv8_prefill_phase(gpu):
                "bound_ms": b_ms, "bound_by": b_by,
                "fp_pool_kernel_ms": cold_ms(
                    lambda: fpb.prefill_attn_block_cuda(*timed_fp)),
+               "body": launch_plan(lambda: fpb.prefill_attn_block_cuda(
+                   *timed, kv_scales=tsc))["body"],
                "library_ms": None,
                "library": "none: no single PyTorch call computes the block",
                "ok": True}
@@ -2782,10 +2831,11 @@ def tp_prefill_phase(gpu):
                    rn(D, H * hd, std=0.02), rn(D, H * hd, std=0.02),
                    rn(H * hd, D, std=0.02))
         kp, vp = rn(MB + 1, BS, H, hd), rn(MB + 1, BS, H, hd)
-        kw, plain = {}, fpb.prefill_attn_block_ref
+        kw, plain, fp_pools = {}, fpb.prefill_attn_block_ref, None
         if kv8:
-            kp, vp, kw["kv_scales"], _, _ = kv8_pools(kp, vp)
+            kp, vp, kw["kv_scales"], kd, vd = kv8_pools(kp, vp)
             plain = fpb.prefill_attn_block_wq_ref
+            fp_pools = (kd, vd)
         meta = fpb.prefill_meta_dims(P, D, H, H, hd, F7 // tp, BS, MB, dt,
                                      kp.dtype, kv8)
         picked = KERNELS.dispatch("prefill_attn_block", meta)[0]
@@ -2813,6 +2863,9 @@ def tp_prefill_phase(gpu):
                     "pos0": pos0, "n_valid": n, "outputs": outs,
                     "pad_rows_finite": finite, "bitwise_repeatable": same,
                     "equals_residual_body": adds, "dispatch": picked,
+                    "body": launch_plan(
+                        lambda a=args: fpb.prefill_attn_block_cuda(
+                            *a, **kw, residual=False))["body"],
                     "ok": same and adds and finite
                     and picked == "cuda_fused"
                     and all(o["ok"] for o in outs.values())}
@@ -2829,6 +2882,12 @@ def tp_prefill_phase(gpu):
         x, pos0, n = timed[0], timed[11], timed[12]
         b_ms, b_by = bound(lambda: fpb.prefill_attn_block_cuda(
             *timed, **kw, residual=False))[:2]
+        extra = {}
+        if fp_pools is not None:   # the fp-pool body, same activations
+            fp_timed = (*timed[:8], *fp_pools, *timed[10:])
+            extra["fp_pool_kernel_ms"] = cold_ms(
+                lambda: fpb.prefill_attn_block_cuda(*fp_timed,
+                                                    residual=False))
         rows.append(_tp_row(
             name, "prefill_attn_block", tp, kv8, None,
             {"P": P, "n_valid": n, "pos0": pos0, "D": D, "H": H, "KV": H,
@@ -2839,11 +2898,14 @@ def tp_prefill_phase(gpu):
                                                residual=False)),
              "bound_ms": b_ms, "bound_by": b_by,
              "full_residual_ms": cold_ms(
-                 lambda: fpb.prefill_attn_block_cuda(*timed, **kw))}))
+                 lambda: fpb.prefill_attn_block_cuda(*timed, **kw)),
+             "body": launch_plan(lambda: fpb.prefill_attn_block_cuda(
+                 *timed, **kw, residual=False))["body"], **extra}))
     emit({"phase": "kernel", "kernel": "prefill_attn_block[partial]",
           "gpu": gpu, "cases": cases,
           "timed": {r["name"]: {k: r[k] for k in (
-              "ms", "plain_ms", "bound_ms", "full_residual_ms")}
+              "ms", "plain_ms", "bound_ms", "full_residual_ms", "body",
+              "fp_pool_kernel_ms") if k in r}
               for r in rows}})
     return rows
 

@@ -396,6 +396,18 @@ def kernel_cases() -> List[KernelCase]:
         C("decode_block_fused", "flagship_serving_5_slots",
           ("decode_block_fused",),
           _block_case(5, _D, _H, _H, _HD, _F, _BS, _N, _MB, bf)),
+        # the ring over int8 and int4 codes: a tiny case whose K splits into
+        # parts (int4: q/k/v, o_proj and gate/up packed along K, down along
+        # its output columns), and int8 weights over int8 pools at 7B
+        C("decode_block_fused", "tiny_ring_int8_weights",
+          ("decode_block_fused",),
+          _block_case(5, 512, 4, 2, 64, 640, 8, 41, 8, bf, wq="int8")),
+        C("decode_block_fused", "tiny_ring_int4_weights",
+          ("decode_block_fused",),
+          _block_case(5, 512, 4, 2, 64, 640, 8, 41, 8, bf, wq="int4")),
+        C("decode_block_fused", "flagship_serving_int8_weights_int8",
+          ("decode_block_fused",),
+          _block_case(*block7, quant=True, wq="int8")),
         C("decode_mlp_block", "tiny", ("decode_mlp_block",),
           _mlp_block_case(2, 32, 64, f32)),
         C("decode_mlp_block", "tiny_int4_weights", ("decode_mlp_block",),
@@ -448,6 +460,14 @@ def kernel_cases() -> List[KernelCase]:
           ("prefill_attn_block",), _prefill_case(32, *pre7[1:], wq="int4")),
         C("prefill_attn_block", "tiny_tc", ("prefill_attn_block",),
           _prefill_case(32, 64, 2, 1, 128, 8, 9, 12, bf, 10)),
+        # the int8-pool attention on the tensor cores: tiny, and the tp=2
+        # partial body at 7B (H = KV = 16, o_proj without the residual)
+        C("prefill_attn_block", "tiny_tc_int8", ("prefill_attn_block",),
+          _prefill_case(32, 64, 2, 1, 128, 8, 9, 12, bf, 10, quant=True)),
+        C("prefill_attn_block", "flagship_serving_tp2_partial_int8",
+          ("prefill_attn_block",),
+          _prefill_case(_P, _D, 16, 16, _HD, _BS, _N, _MB, bf, _POS0,
+                        quant=True, residual=False)),
         # a chunk whose last rows are bucket padding (77 real of 128)
         C("prefill_attn_block", "chunk128_ragged", ("prefill_attn_block",),
           _prefill_case(*pre7, n_valid=77)),

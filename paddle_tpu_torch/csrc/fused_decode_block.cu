@@ -110,17 +110,17 @@
 // fewest columns: the wrapper's plan (tile widths and counts, and the
 // grid), passed in the arguments.
 //
-// decode_block_fused in bf16 with bf16 weights at up to 8 rows (the
-// serving engine's decode step; the wrapper's plan, plan["body"] "ring")
-// runs a second kernel, decode_block_ring_kernel: the same phases and
-// rounding points, with every product's weights streamed through a ring
-// of chunks in shared memory onto mma.sync, K split into parts that fill
-// the grid, and the next product phase's first chunks issued before the
-// barrier that precedes it (weight_ring.cuh says why and how). f32, int8
-// and int4 weights and more rows keep the CUDA-core body and its bits.
-// Not done yet (later work): the ring for the quantized classes and for
-// the two-stage kernels, and a multi-layer form over thread-block
-// clusters.
+// decode_block_fused in bf16 at up to 8 rows, with bf16, int8 or int4
+// weights (the serving engine's decode step; the wrapper's plan,
+// plan["body"] "ring") runs a second kernel, decode_block_ring_kernel: the
+// same phases and rounding points, with every product's weights streamed
+// through a ring of chunks in shared memory onto mma.sync (the codes
+// unchanged, converted in registers), K split into parts that fill the
+// grid, and the next product phase's first chunks issued before the
+// barrier that precedes it (weight_ring.cuh says why and how). f32 and
+// more rows keep the CUDA-core body and its bits. Not done yet (later
+// work): the ring for the two-stage kernels, and a multi-layer form over
+// thread-block clusters.
 //
 // Shared memory, sized by the wrapper (ops/kernels/fused_decode_block.py,
 // the one definition of the sizes) and passed in, is carved as
@@ -693,93 +693,113 @@ decode_block_fused_kernel(const BlockArgs a) {
 }
 
 // The weight-ring body (weight_ring.cuh) of the single-launch kernel: bf16
-// activations and weights, at most 8 rows, fp or int8 pools (KQ). Shared
-// memory: the ring, then the RMSNorm's per-warp sums and the ticket flag
-// (kRingAux bytes), then one region that holds either the phase's
-// resident normalised rows [D][8] or the attention scratch of two items
-// (the block's two teams of four warps take an item each: the attention
-// phase is bound by each item's chain of page steps, not by bytes).
+// activations, bf16, int8 or int4 weights (WQ), at most 8 rows, fp or int8
+// pools (KQ). Shared memory: the ring, then the RMSNorm's per-warp sums
+// and the ticket flag (kRingAux bytes), then one region that holds either
+// the phase's resident normalised rows [D][8] or the attention scratch of
+// two items (the block's two teams of four warps take an item each: the
+// attention phase is bound by each item's chain of page steps, not by
+// bytes).
 constexpr int kRingAux = 512;
 
-// ring_smem: the ring body's dynamic shared memory for D and the attention
-// scratch (``attn`` bytes: one item's paged_stream scratch with two staged
-// steps in the pools' type, attn_item_bytes; the body's two teams hold one
-// item each)
+// ring_smem: the ring body's dynamic shared memory under weight bits WQ
+// for D and the attention scratch (``attn`` bytes: one item's paged_stream
+// scratch with two staged steps in the pools' type, attn_item_bytes; the
+// body's two teams hold one item each)
+template <int WQ>
 inline size_t ring_smem(int D, size_t attn) {
-  return (size_t)kRingStages * kRingStageBytes + kRingAux +
+  return (size_t)kRingStages * RingGeom<WQ>::stage + kRingAux +
          std::max((size_t)D * kRB * sizeof(ring_bf16), 2 * attn);
 }
 
-template <bool KQ>
+inline size_t ring_smem_bits(int wbits, int D, size_t attn) {
+  return wbits == 8   ? ring_smem<8>(D, attn)
+         : wbits == 4 ? ring_smem<4>(D, attn)
+                      : ring_smem<0>(D, attn);
+}
+
+template <int WQ, bool KQ>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_block_ring_kernel(const BlockArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   using T = ring_bf16;
+  using G = RingGeom<WQ>;
+  // q/k/v, o_proj and gate/up: int4 packed along K; down: along N
+  constexpr int WC = wclass(WQ, false), WD = wclass(WQ, true);
   const RingArgs& r = a.ring;
   const int B = a.attn.B, D = a.attn.D;
   unsigned char* ring = smem;
-  float* red_s = reinterpret_cast<float*>(
-      smem + (size_t)kRingStages * kRingStageBytes);
+  float* red_s =
+      reinterpret_cast<float*>(smem + (size_t)kRingStages * G::stage);
   int* flag = reinterpret_cast<int*>(red_s + kWarps * kRB);
-  unsigned char* region =
-      smem + (size_t)kRingStages * kRingStageBytes + kRingAux;
+  unsigned char* region = smem + (size_t)kRingStages * G::stage + kRingAux;
   T* h = reinterpret_cast<T*>(region);   // resident rows [D][8]
-  Ring g = ring_init(r);
+  Ring g = ring_init<WQ>(r);
   // q/k/v's first chunks fly while the block normalises its rows
   g.stop = g.base[1];
-  ring_prefetch(r, g, ring, kRingStages - 1);
+  ring_prefetch<WQ>(r, g, ring, kRingStages - 1);
   ring_norm<T>(static_cast<const T*>(a.attn.x),
                static_cast<const T*>(a.attn.nw), h, B, D, a.attn.eps, red_s);
   const int ncols = r.ph[0].ncols;
   T* qkv = static_cast<T*>(a.attn.qkv_ws);
-  ring_phase(r, g, ring, h, 0, B, flag,
-             [&](int row, int c, const float* v) {
-               qkv[(size_t)row * ncols + c] = from_float<T>(v[0]);
-             });
+  ring_phase<WQ, WC>(r, g, ring, h, 0, B, flag,
+                     [&](int row, int c, const float* v) {
+                       qkv[(size_t)row * ncols + c] = from_float<T>(v[0]);
+                     });
   grid.sync();
   attn_pages_phase<T, KQ, 2>(a.attn, region);
   grid.sync();
   attn_combine_phase<T, KQ>(a.attn);
   // o_proj's first chunks fly across the barrier
   g.stop = g.base[4];
-  ring_prefetch(r, g, ring, g.base[1] + kRingStages - 1);
+  ring_prefetch<WQ>(r, g, ring, g.base[1] + kRingStages - 1);
   grid.sync();
-  ring_open(r, g, ring, 1);
+  ring_open<WQ>(r, g, ring, 1);
   const T* x = static_cast<const T*>(a.attn.x);
   float* resid = a.resid;
-  ring_phase(r, g, ring, nullptr, 1, B, flag,
-             [&](int row, int c, const float* v) {
-               const size_t o = (size_t)row * D + c;
-               resid[o] = to_float(x[o]) + v[0];
-             });
+  ring_phase<WQ, WC>(r, g, ring, nullptr, 1, B, flag,
+                     [&](int row, int c, const float* v) {
+                       const size_t o = (size_t)row * D + c;
+                       resid[o] = to_float(x[o]) + v[0];
+                     });
   grid.sync();
-  ring_open(r, g, ring, 2);
+  ring_open<WQ>(r, g, ring, 2);
   ring_norm<float>(resid, static_cast<const T*>(a.mlp.nw), h, B, D,
                    a.mlp.eps, red_s);
   T* ff = static_cast<T*>(a.mlp.ff_ws);
-  ring_phase(r, g, ring, h, 2, B, flag,
-             [&](int row, int c, const float* v) {
-               const float gt = round_t<T>(v[0]);
-               const float ut = round_t<T>(v[1]);
-               const float sg = round_t<T>(gt / (1.f + expf(-gt)));
-               ff[(size_t)c * kRB + row] = from_float<T>(__fmul_rn(sg, ut));
-             });
+  ring_phase<WQ, WC>(r, g, ring, h, 2, B, flag,
+                     [&](int row, int c, const float* v) {
+                       const float gt = round_t<T>(v[0]);
+                       const float ut = round_t<T>(v[1]);
+                       const float sg = round_t<T>(gt / (1.f + expf(-gt)));
+                       ff[(size_t)c * kRB + row] =
+                           from_float<T>(__fmul_rn(sg, ut));
+                     });
   grid.sync();
-  ring_open(r, g, ring, 3);
+  ring_open<WQ>(r, g, ring, 3);
   T* xo = static_cast<T*>(a.mlp.out);
-  ring_phase(r, g, ring, nullptr, 3, B, flag,
-             [&](int row, int c, const float* v) {
-               const size_t o = (size_t)row * D + c;
-               xo[o] = from_float<T>(resid[o] + v[0]);
-             });
+  ring_phase<WQ, WD>(r, g, ring, nullptr, 3, B, flag,
+                     [&](int row, int c, const float* v) {
+                       const size_t o = (size_t)row * D + c;
+                       xo[o] = from_float<T>(resid[o] + v[0]);
+                     });
   cp_async_wait0();
 }
 
+// The ring body for (dtype, weight bits, pool bits): bf16 activations
 inline KernelFn<BlockArgs> ring_kernel(int dtype, int wbits, int kvbits) {
-  if (dtype != 1 || wbits != 0) return nullptr;
-  if (kvbits == 0) return decode_block_ring_kernel<false>;
-  if (kvbits == 8) return decode_block_ring_kernel<true>;
+  if (dtype != 1 || (kvbits != 0 && kvbits != 8)) return nullptr;
+  const bool kq = kvbits == 8;
+  if (wbits == 0)
+    return kq ? decode_block_ring_kernel<0, true>
+              : decode_block_ring_kernel<0, false>;
+  if (wbits == 8)
+    return kq ? decode_block_ring_kernel<8, true>
+              : decode_block_ring_kernel<8, false>;
+  if (wbits == 4)
+    return kq ? decode_block_ring_kernel<4, true>
+              : decode_block_ring_kernel<4, false>;
   return nullptr;
 }
 
@@ -946,11 +966,14 @@ extern "C" int decode_mlp_block(const void* x, const void* nw, const void* wg,
 // offset rounded up to 8 elements; ws_f (f32): attn_args' partials and
 // scores, then resid [B][D] at an offset rounded up to 4 floats. body 0:
 // the CUDA-core body; body 1: the weight-ring body (weight_ring.cuh: bf16,
-// bf16 weights, B <= 8, D, F and H * hd multiples of kRingK), whose plan
-// is the parts of K of each product phase (1 to kRingMaxParts), at its own
-// shared memory (ring_smem), with ring_ws the f32 partials [parts * (1 +
+// bf16, int8 or int4 weights, B <= 8; bf16 weights: D, F and H * hd
+// multiples of kRingK; codes: every phase's stored rows multiples of
+// kRingQRows and its stored rows whole 16-byte copies), whose plan is the
+// parts of K of each product phase (1 to kRingMaxParts), at its own shared
+// memory (ring_smem), with ring_ws the f32 partials [parts * (1 +
 // paired)][8][cols] of its widest phase and tickets one int per tile of
-// its widest phase, 0 before the launch (each launch leaves them 0).
+// its widest phase, 0 before the launch (each launch leaves them 0; one
+// launch at a time may hold them).
 extern "C" int decode_block_fused(
     const void* x, const void* nw, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* pw, const void* wg,
@@ -985,9 +1008,20 @@ extern "C" int decode_block_fused(
       if (p < 1 || p > kRingMaxParts) return cudaErrorInvalidValue;
     const size_t attn = kvbits ? attn_item_bytes<int8_t>(H / KV, hd, BS)
                                : attn_item_bytes<ring_bf16>(H / KV, hd, BS);
-    if (B > kRB || D % kRingK || F % kRingK || nq % kRingK ||
-        nkv % 8 || (size_t)smem != ring_smem(D, attn))
+    if (B > kRB || (size_t)smem != ring_smem_bits(wbits, D, attn))
       return cudaErrorInvalidValue;
+    if (wbits == 0) {
+      if (D % kRingK || F % kRingK || nq % kRingK || nkv % 8)
+        return cudaErrorInvalidValue;
+    } else {
+      // every phase's stored rows a whole number of chunks, every stored
+      // row a whole number of 16-byte copies
+      const int h = wbits == 4 ? 2 : 1;
+      if ((D / h) % kRingQRows || (nq / h) % kRingQRows ||
+          F % kRingQRows || D % (16 * h) || nq % 16 || nkv % 16 ||
+          F % 16)
+        return cudaErrorInvalidValue;
+    }
   }
   if (B == 0) return cudaSuccess;
   const int plan[5] = {qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles};
@@ -1008,29 +1042,39 @@ extern "C" int decode_block_fused(
                     F};
   RingArgs ring{};
   if (body == 1) {
-    using W = const ring_bf16*;
+    using W = const unsigned char*;
+    using S = const float*;
     const int parts[4] = {qkv_parts, o_parts, up_parts, down_parts};
     // slots: q/k/v concatenate their columns; gate and up are paired
     const W w[4][kRingSlots] = {{W(wq), W(wk), W(wv)}, {W(wo)},
                                 {W(wg), W(wu)}, {W(wd)}};
+    const S sc[4][kRingSlots] = {{S(sq), S(sk), S(sv)}, {S(so)},
+                                 {S(sg), S(su)}, {S(sd)}};
     const int n[4][kRingSlots] = {{nq, nkv, nkv}, {D}, {F, F}, {D}};
     const int nslot[4] = {3, 1, 2, 1}, K[4] = {D, nq, D, F};
-    const W a_src[4] = {nullptr, static_cast<W>(attn.attn_ws), nullptr,
-                        static_cast<W>(mlp.ff_ws)};
+    const ring_bf16* a_src[4] = {
+        nullptr, static_cast<const ring_bf16*>(attn.attn_ws), nullptr,
+        static_cast<const ring_bf16*>(mlp.ff_ws)};
+    const int rows = wbits ? kRingQRows : kRingK;   // stored rows a chunk
     for (int p = 0; p < 4; ++p) {
       RingPhase& f = ring.ph[p];
+      const int wc = wclass(wbits, p == 3);
       f.nslot = nslot[p];
       f.paired = p == 2;
       f.parts = parts[p];
-      const int chunks = cdiv(K[p], kRingK);
-      f.part_rows = cdiv(chunks, parts[p]) * kRingK;
       f.K = K[p];
+      f.kn = wc == kWInt4K ? K[p] / 2 : K[p];
+      f.half = wc == kWInt4K ? K[p] / 2 : 0;
+      const int chunks = cdiv(f.kn, rows);
+      f.part_rows = cdiv(chunks, parts[p]) * rows;
       f.a_src = a_src[p];
       int items = 0, ticks = 0, out0 = 0;
       for (int s = 0; s < f.nslot; ++s) {
         f.w[s] = w[p][s];
+        f.s[s] = wbits ? sc[p][s] : nullptr;
         f.n[s] = n[p][s];
-        f.tiles[s] = cdiv(n[p][s], kRingCols);
+        f.ns[s] = wc == kWInt4N ? n[p][s] / 2 : n[p][s];
+        f.tiles[s] = cdiv(f.ns[s], kRingCols);
         f.first[s] = items;
         items += f.tiles[s] * parts[p];
         f.out0[s] = f.paired ? 0 : out0;

@@ -72,15 +72,16 @@
 // | grid sync | 1. q/k/v by column tiles, every row of the chunk
 // against each weight tile in one pass (tile_mma.cuh: each weight byte
 // read once a launch) | grid sync | 2. RoPE, as above | grid sync | 3.
-// attention: over fp pools on the tensor cores (prefill_attn_tc_phase:
-// S exact in bf16 x bf16 -> f32, P V from the f32 P as bf16 hi + lo, the
-// warps splitting the keys and combining in a fixed order), over int8
-// pools the CUDA-core phase above | grid sync | 4. o_proj by column
-// tiles, + x. The rounding points are the CUDA-core body's; only the
+// attention on the tensor cores (prefill_attn_tc_phase: S exact in bf16 x
+// bf16 -> f32, P V from the f32 P as bf16 hi + lo, the warps splitting the
+// keys and combining in a fixed order; over int8 pools the history staged
+// as codes, converted exactly to bf16, its scales on the f32 sums) | grid
+// sync | 4. o_proj by column tiles, + x. The rounding points are the
+// CUDA-core body's, but for the int8 history's scales (on the sums, not
+// on each code: a roundoff-level difference); otherwise only the
 // summation order differs. Its shared memory is prefill_tc_smem's figure,
 // which the launcher holds the wrapper's to. Not done yet: wgmma/TMA and
-// warp specialisation of the products, the int8-pool attention on the
-// tensor cores.
+// warp specialisation of the products.
 #include "tile_mma.cuh"
 
 namespace paddle_tpu_torch {
@@ -169,9 +170,8 @@ __device__ void prefill_rope_phase(const PrefillArgs& a) {
 
 // 3. attention per (query block, KV head) on the CUDA cores: the history
 // pages, then the chunk's own K/V under the causal mask; the rows go to
-// attn_ws k-major by pass (kRowMajor false: the CUDA-core o_proj's
-// operand) or row-major [P][H*hd] (the tensor-core o_proj's)
-template <typename T, bool KQ, bool kRowMajor>
+// attn_ws k-major by pass (the CUDA-core o_proj's operand)
+template <typename T, bool KQ>
 __device__ void prefill_attn_cc_phase(const PrefillArgs& a,
                                       unsigned char* smem) {
   using Pt = PoolT<T, KQ>;                 // the pools' type
@@ -283,8 +283,7 @@ __device__ void prefill_attn_cc_phase(const PrefillArgs& a,
         const int g = i / hd, d = i - g * hd;
         const int r = q0 + g % bq, col = (kvh * groups + g / bq) * hd + d;
         if (r < nv)
-          attn_t[kRowMajor ? (size_t)r * nq + col
-                           : ((size_t)(r / kRB) * nq + col) * kRB + r % kRB] =
+          attn_t[((size_t)(r / kRB) * nq + col) * kRB + r % kRB] =
               from_float<T>(acc[i] / l[g]);
       }
       __syncthreads();   // the next item reuses the scratch
@@ -298,9 +297,8 @@ __device__ void prefill_attn_cc_phase(const PrefillArgs& a,
 // tiles over all rows (tile_mma.cuh) | RoPE | attention | o_proj by
 // kOCols-column tiles over all rows, split over H*hd into o_parts parts
 // when its tiles are fewer than the SMs (| grid sync | the parts added in
-// order), + x. Over fp pools the attention
-// runs on the tensor cores too (prefill_attn_tc_phase); over int8 pools it
-// is the CUDA-core phase above, rows written row-major.
+// order), + x. The attention runs on the tensor cores too
+// (prefill_attn_tc_phase), over fp and int8 pools.
 // ---------------------------------------------------------------------------
 constexpr int kQkvCols = 64;                 // q/k/v's column tiles
 constexpr int kOCols = 64;                   // o_proj's
@@ -311,18 +309,19 @@ constexpr int kKeyStep = kWarps * kSlice;    // keys a step
 constexpr int kLdH = kHd + 8;                // bf16 a staged head row
 
 // Shared memory of the tensor-core attention: the item's Q [16][kLdH],
-// two stages of K and V [kKeyStep][kLdH] (bf16); the warps' (m, l, acc)
-// for the combine reuse the stages.
-__host__ __device__ constexpr size_t attn_tc_bytes() {
-  return (size_t)(kQRows + 2 * 2 * kKeyStep) * kLdH * sizeof(bf16);
+// two stages of K and V [kKeyStep][kLdH] (bf16; a history step over int8
+// pools stages its codes [kKeyStep][kHd] bytes in the same place), and
+// over int8 pools (kq) each warp's K and V rows converted to bf16
+// [kWarps][2][kSlice][kLdH]; the warps' (m, l, acc) for the combine reuse
+// the stages.
+__host__ __device__ constexpr size_t attn_tc_bytes(bool kq) {
+  return (size_t)(kQRows + 2 * 2 * kKeyStep + (kq ? 2 * kKeyStep : 0)) *
+         kLdH * sizeof(bf16);
 }
 
 // Shared memory of the tensor-core body: the larger of its product
-// layout (one weight a tile) and its attention phase's (the tensor-core
-// one over fp pools; over int8 pools the CUDA-core item of groups * 16
-// rows, paged_stream.cuh's attn_scratch_floats plus two staged tiles)
-inline size_t prefill_tc_smem(int wbits, int kvbits, int H, int KV, int hd,
-                              int BS) {
+// layout (one weight a tile) and its attention phase's
+inline size_t prefill_tc_smem(int wbits, int kvbits) {
   const size_t prod =
       wbits == 8   ? std::max(tile_smem_bytes<kWInt8, 1, kQkvCols>(),
                               tile_smem_bytes<kWInt8, 1, kOCols>())
@@ -330,11 +329,7 @@ inline size_t prefill_tc_smem(int wbits, int kvbits, int H, int KV, int hd,
                               tile_smem_bytes<kWInt4K, 1, kOCols>())
                    : std::max(tile_smem_bytes<kWFp, 1, kQkvCols>(),
                               tile_smem_bytes<kWFp, 1, kOCols>());
-  const size_t attn =
-      kvbits ? attn_scratch_floats(H / KV * kQRows, hd, BS) * sizeof(float) +
-                   2 * (size_t)kPagesPerStep * BS * hd * sizeof(bf16)
-             : attn_tc_bytes();
-  return std::max(prod, attn);
+  return std::max(prod, attn_tc_bytes(kvbits != 0));
 }
 
 // 1. q/k/v of the real rows by kQkvCols-column tiles of wq (q_tiles), wk
@@ -374,20 +369,44 @@ __device__ void prefill_tc_qkv_phase(const PrefillArgs& a,
   }
 }
 
-// 3. attention over fp pools on the tensor cores. Items: (16-row query
-// block, query head), the heads of a KV head adjacent. Keys: the history
-// (positions < pos0, through the table, fetches clamped to its last page)
-// and then the chunk's own rows c < min(q0 + 16, n_valid), 128 a step in
-// two cp.async stages (a masked or missing key staged as zeros); warp w
-// takes keys [16w, 16w + 16) of each step. S = Q K^T on mma.sync (bf16
-// operands, exact products; each depth step summed from zero and added in
-// f32), times the scale; row r sees every history key and chunk key c iff
-// c <= min(r, n_valid - 1); the warp's online softmax in f32 (expf; a row
-// that sees no key of a step keeps its state); P V from the f32 P as bf16
-// hi + lo (PR 12's dV scheme: within 2^-16 of P), each step's product
-// summed from zero and added to acc * alpha. The 8 warps' (m, l, acc) are
-// then combined in warp order (no atomics) and normalised -> attn_ws
-// [P][H*hd] (bf16), real rows only.
+// 16 keys' rows of kHd int8 codes (kHd bytes a row) as bf16 rows
+// [16][kLdH], exactly; one warp, four codes a lane at a time
+__device__ __forceinline__ void codes_rows_bf16(const unsigned char* src,
+                                                bf16* dst, int lane) {
+#pragma unroll 4
+  for (int i = lane; i < kSlice * kHd / 4; i += 32) {
+    const int r = i / (kHd / 4), c = (i % (kHd / 4)) * 4;
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(src + r * kHd + c);
+    uint2 o;
+    o.x = s8x2_bf16(v, 0, 1);
+    o.y = s8x2_bf16(v, 2, 3);
+    *reinterpret_cast<uint2*>(dst + r * kLdH + c) = o;
+  }
+}
+
+// 3. attention on the tensor cores. Items: (16-row query block, query
+// head), the heads of a KV head adjacent. Keys: the history (positions <
+// pos0, through the table, fetches clamped to its last page) and then the
+// chunk's own rows c < min(q0 + 16, n_valid), 128 a step in two cp.async
+// stages (a masked or missing key staged as zeros); warp w takes keys
+// [16w, 16w + 16) of each step. S = Q K^T on mma.sync (bf16 operands,
+// exact products; each depth step summed from zero and added in f32),
+// times the scale; row r sees every history key and chunk key c iff c <=
+// min(r, n_valid - 1); the warp's online softmax in f32 (expf; a row that
+// sees no key of a step keeps its state); P V from the f32 P as bf16 hi +
+// lo (the flash backward's dV scheme: within 2^-16 of P), each step's
+// product summed from zero and added to acc * alpha. The 8 warps' (m, l,
+// acc) are then combined in warp order (no atomics) and normalised ->
+// attn_ws [P][H*hd] (bf16), real rows only.
+// KQ (int8 pools): the history's steps come first, each holding history
+// keys only, staged as int8 codes (half the bytes); each warp converts its
+// 16 keys' K and V codes exactly to bf16 rows of its own, and the scales
+// leave the per-code product for the f32 sums: S = k_scale[kvh] * (Q
+// codes^T), then the softmax scale; the step's P V product (summed from
+// zero) times v_scale[kvh] is added to acc * alpha. The chunk's own steps
+// follow, its K/V in bf16 with scale 1 (the caller's pool write quantizes
+// them).
+template <bool KQ>
 __device__ void prefill_attn_tc_phase(const PrefillArgs& a,
                                       unsigned char* smem) {
   const int H = a.H, KV = a.KV, BS = a.BS;
@@ -397,6 +416,10 @@ __device__ void prefill_attn_tc_phase(const PrefillArgs& a,
   const int g = lane >> 2, t4 = lane & 3;
   bf16* q_s = reinterpret_cast<bf16*>(smem);   // [16][kLdH]
   bf16* kv_s = q_s + kQRows * kLdH;            // [2][K, V][kKeyStep][kLdH]
+  // KQ: this warp's converted K and V rows [2][kSlice][kLdH]
+  bf16* kt_s = kv_s + (size_t)2 * 2 * kKeyStep * kLdH +
+               (size_t)warp * 2 * kSlice * kLdH;
+  bf16* vt_s = kt_s + kSlice * kLdH;
   float* m_s = reinterpret_cast<float*>(kv_s); // combine: [8][16] m, l,
   float* l_s = m_s + kWarps * kQRows;          // [8][16][kHd] acc
   float* acc_s = l_s + kWarps * kQRows;
@@ -412,7 +435,13 @@ __device__ void prefill_attn_tc_phase(const PrefillArgs& a,
     const int q0 = (item / (groups * KV)) * kQRows;
     const int h = kvh * groups + gi;
     const int nk = pos0 + min(q0 + kQRows, nv);   // keys this block sees
-    const int steps = cdiv(nk, kKeyStep);
+    // KQ: hs history steps (keys st * kKeyStep on), then the chunk's
+    // (keys pos0 + (st - hs) * kKeyStep on)
+    const int hs = KQ ? cdiv(pos0, kKeyStep) : 0;
+    const int steps =
+        KQ ? hs + cdiv(nk - pos0, kKeyStep) : cdiv(nk, kKeyStep);
+    const float ksc = KQ ? a.k_scale[kvh] : 1.f;
+    const float vsc = KQ ? a.v_scale[kvh] : 1.f;
     __syncthreads();   // the previous item's combine is done with smem
     {
       const int r = threadIdx.x >> 4, c = (threadIdx.x & 15) * 8;
@@ -420,10 +449,34 @@ __device__ void prefill_attn_tc_phase(const PrefillArgs& a,
       cp_async16(q_s + r * kLdH + c,
                  ok ? q_ws + (size_t)(q0 + r) * nq + h * kHd + c : q_ws, ok);
     }
+    auto first_key = [&](int step) {
+      return KQ && step >= hs ? pos0 + (step - hs) * kKeyStep
+                              : step * kKeyStep;
+    };
     // key i of a step: K rows by threads 0-127, V rows by 128-255
     auto stage = [&](int step, int buf) {
       const int i = threadIdx.x & (kKeyStep - 1), v = threadIdx.x >> 7;
-      const int key = step * kKeyStep + i;
+      const int key = first_key(step) + i;
+      bf16* dst = kv_s + ((size_t)(buf * 2 + v) * kKeyStep + i) * kLdH;
+      if (KQ && step < hs) {   // codes, kHd bytes a key
+        const signed char* src = nullptr;
+        if (key < pos0) {
+          const size_t page =
+              (size_t)a.table[clamped_page_index(pos0, BS, key / BS)];
+          src = static_cast<const signed char*>(v ? a.v_pool : a.k_pool) +
+                ((page * BS + key % BS) * KV + kvh) * kHd;
+        }
+        unsigned char* d8 =
+            reinterpret_cast<unsigned char*>(kv_s +
+                                             (size_t)(buf * 2 + v) *
+                                                 kKeyStep * kLdH) +
+            (size_t)i * kHd;
+#pragma unroll
+        for (int c = 0; c < kHd; c += 16)
+          cp_async16(d8 + c, src ? static_cast<const void*>(src + c) : q_ws,
+                     src != nullptr);
+        return;
+      }
       const bf16* src = nullptr;
       if (key < pos0) {
         const size_t page =
@@ -433,7 +486,6 @@ __device__ void prefill_attn_tc_phase(const PrefillArgs& a,
       } else if (key < nk) {
         src = (v ? v_new : k_new) + ((size_t)(key - pos0) * KV + kvh) * kHd;
       }
-      bf16* dst = kv_s + ((size_t)(buf * 2 + v) * kKeyStep + i) * kLdH;
 #pragma unroll
       for (int c = 0; c < kHd; c += 8)
         cp_async16(dst + c, src ? src + c : q_ws, src != nullptr);
@@ -448,15 +500,28 @@ __device__ void prefill_attn_tc_phase(const PrefillArgs& a,
       for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
     for (int st = 0; st < steps; ++st) {
       const int buf = st & 1;
+      const bool codes = KQ && st < hs;   // block-uniform
       if (st + 1 < steps) stage(st + 1, buf ^ 1);
       cp_async_commit();
       cp_async_wait1();   // Q and this step have landed
       __syncthreads();
-      const int j0 = st * kKeyStep + warp * kSlice;
-      if (j0 < nk) {   // warp-uniform
+      const int j0 = first_key(st) + warp * kSlice;
+      if (j0 < (codes ? pos0 : nk)) {   // warp-uniform
         const bf16* ks = kv_s + ((size_t)(buf * 2) * kKeyStep +
                                  warp * kSlice) * kLdH;
         const bf16* vs = ks + (size_t)kKeyStep * kLdH;
+        if (codes) {
+          const unsigned char* c8 = reinterpret_cast<const unsigned char*>(
+              kv_s + (size_t)(buf * 2) * kKeyStep * kLdH);
+          __syncwarp();   // the warp's reads of its previous rows are done
+          codes_rows_bf16(c8 + (size_t)warp * kSlice * kHd, kt_s, lane);
+          codes_rows_bf16(c8 + (size_t)kKeyStep * kLdH * sizeof(bf16) +
+                              (size_t)warp * kSlice * kHd,
+                          vt_s, lane);
+          __syncwarp();
+          ks = kt_s;
+          vs = vt_s;
+        }
         float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll 1
         for (int kk = 0; kk < kHd / 16; ++kk) {
@@ -476,10 +541,21 @@ __device__ void prefill_attn_tc_phase(const PrefillArgs& a,
           for (int e = 0; e < 4; ++e) {
             const int key = j0 + n * 8 + 2 * t4 + (e & 1);
             const int row = q0 + g + 8 * (e >> 1);
-            const bool seen = key < pos0 ||
-                              (key < nk && key - pos0 <= min(row, nv - 1));
+            bool seen;
+            float v = s[n][e];
+            if constexpr (KQ) {
+              if (codes) {
+                seen = key < pos0;
+                v = __fmul_rn(v, ksc);   // the history's scale, then S's
+              } else {
+                seen = key < nk && key - pos0 <= min(row, nv - 1);
+              }
+            } else {
+              seen = key < pos0 ||
+                     (key < nk && key - pos0 <= min(row, nv - 1));
+            }
             ok |= (uint32_t)seen << (4 * n + e);
-            s[n][e] = seen ? __fmul_rn(s[n][e], a.scale) : -CUDART_INF_F;
+            s[n][e] = seen ? __fmul_rn(v, a.scale) : -CUDART_INF_F;
           }
         float alpha[2];
 #pragma unroll
@@ -521,6 +597,12 @@ __device__ void prefill_attn_tc_phase(const PrefillArgs& a,
           mma2(t0, t1, plo, b);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
+            if constexpr (KQ) {
+              if (codes) {   // the history's scale on the step's product
+                t0[e] = __fmul_rn(t0[e], vsc);
+                t1[e] = __fmul_rn(t1[e], vsc);
+              }
+            }
             acc[n][e] = acc[n][e] * alpha[e >> 1] + t0[e];
             acc[n + 1][e] = acc[n + 1][e] * alpha[e >> 1] + t1[e];
           }
@@ -647,10 +729,7 @@ prefill_attn_block_kernel(const PrefillArgs a) {
     grid.sync();
     prefill_rope_phase<T>(a);
     grid.sync();
-    if constexpr (KQ)
-      prefill_attn_cc_phase<T, KQ, true>(a, smem);
-    else
-      prefill_attn_tc_phase(a, smem);
+    prefill_attn_tc_phase<KQ>(a, smem);
     grid.sync();
     prefill_tc_o_phase<WQ>(a, smem);
     if (a.o_parts > 1) {   // grid-uniform
@@ -698,7 +777,7 @@ prefill_attn_block_kernel(const PrefillArgs a) {
     grid.sync();
     prefill_rope_phase<T>(a);
     grid.sync();
-    prefill_attn_cc_phase<T, KQ, false>(a, smem);
+    prefill_attn_cc_phase<T, KQ>(a, smem);
     grid.sync();
 
     // 4. o_proj of the real rows by column tiles of D, then the residual add
@@ -811,7 +890,7 @@ extern "C" int prefill_attn_block(
         kv_tiles != cdiv(KV * hd, kQkvCols) ||
         o_tiles != cdiv(D, kOCols) || row_tiles != cdiv(P, kTileRows) ||
         D % 32 || o_parts < 1 || o_parts > 8 ||
-        (size_t)smem != prefill_tc_smem(wbits, kvbits, H, KV, hd, BS))
+        (size_t)smem != prefill_tc_smem(wbits, kvbits))
       return cudaErrorInvalidValue;
   } else if (!plan_ok(qkv_lpr, q_tiles) || !plan_ok(qkv_lpr, kv_tiles) ||
              !plan_ok(o_lpr, o_tiles)) {

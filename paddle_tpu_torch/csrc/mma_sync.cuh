@@ -89,6 +89,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two signed int8 codes of ``v`` (bytes i and j) as one bf16x2 register,
+// byte i in the low half; exact (|q| <= 128 fits bf16's 8 bits). Each
+// byte, its sign bit flipped, goes into the mantissa of 2^23 and leaves
+// as f32 less 2^23 + 128 (byte_perm and an add, no integer conversion).
+__device__ __forceinline__ uint32_t s8x2_bf16(uint32_t v, int i, int j) {
+  const uint32_t u = v ^ 0x80808080u;
+  const float lo =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+  const float hi =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+  return pack_bf16(lo, hi);
+}
+
+// Two signed int4 codes of ``v`` as one bf16x2 register: the nibbles at
+// bits [s, s + 4) (low half) and [s + 16, s + 20); exact. Each nibble n,
+// its sign bit flipped, goes into the mantissa of bf16 128 (0x4300 |
+// (n ^ 8) is 136 + n), and 136 is taken off in bf16.
+__device__ __forceinline__ uint32_t s4x2_bf16(uint32_t v, int s) {
+  const uint32_t b = ((v >> s) & 0x000F000Fu) ^ 0x43084308u;
+  __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&b);
+  x = __hsub2(x, __float2bfloat162_rn(136.f));
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
 // c0 += a b[0..1], c1 += a b[2..3]: the two n8 tiles of one x4 B load
 __device__ __forceinline__ void mma2(float (&c0)[4], float (&c1)[4],
                                      const uint32_t (&a)[4],

@@ -628,12 +628,14 @@ def mlp_tc_plan(B, D, F, bits, grid):
 
 
 # ---------------------------------------------------------------------------
-# the single-launch kernel's weight-ring body (csrc/weight_ring.cuh): bf16,
-# bf16 weights, at most 8 rows; every product phase's weights streamed
-# through a ring of chunks in shared memory onto mma.sync
+# the single-launch kernel's weight-ring body (csrc/weight_ring.cuh): bf16
+# activations, bf16, int8 or int4 weights, at most 8 rows; every product
+# phase's weights (the stored codes, for int8 and int4) streamed through a
+# ring of chunks in shared memory onto mma.sync
 # ---------------------------------------------------------------------------
-RING_COLS = 128      # output columns a tile: 256 B of a bf16 weight row
-RING_K = 64          # k rows a chunk (16 KB of bf16 weights)
+RING_COLS = 128      # stored columns a tile: 256 B of a bf16 weight row
+RING_K = 64          # k rows a chunk of bf16 weights (16 KB)
+RING_QROWS = 128     # stored rows a chunk of int8 / int4 codes (16 KB)
 RING_STAGES = 4      # chunks in the ring (three in flight)
 RING_LDW = RING_COLS + 8
 RING_STAGE_BYTES = RING_K * RING_LDW * 2 + RING_K * _ROWS * 2
@@ -644,6 +646,24 @@ RING_MAX_PARTS = 4
 RING_MAX_ROWS = _ROWS
 #: the ring's product phases, in the kernel's order (its plan's keys)
 RING_PHASES = ("qkv", "o_proj", "gate_up", "down")
+
+
+def ring_rows(bits):
+    """Stored rows a ring chunk holds under the weight bits: 64 of bf16,
+    RING_QROWS of int8 or int4 codes (16 KB of a tile of 128 stored
+    columns in every class)."""
+    return RING_QROWS if bits else RING_K
+
+
+def ring_stage_bytes(bits):
+    """One stage of the ring (the source's ``RingGeom<WQ>::stage``): the
+    staged weight rows (bf16 rows padded by 8; code rows unpadded,
+    swizzled), then the staged activation rows [rows][8] bf16 (two ranges
+    of them for int4 packed along K)."""
+    if not bits:
+        return RING_STAGE_BYTES
+    return (RING_QROWS * RING_COLS
+            + (2 if bits == 4 else 1) * RING_QROWS * _ROWS * 2)
 
 
 def ring_parts(tiles, chunks, grid, max_parts=RING_MAX_PARTS):
@@ -664,67 +684,84 @@ def ring_parts(tiles, chunks, grid, max_parts=RING_MAX_PARTS):
 
 def block_body(B, D, H, KV, hd, F, dt, bits):
     """(body, reason): which body of decode_block_fused a launch runs, the
-    rule its plan records. "ring" (csrc/weight_ring.cuh) for bf16 with
-    bf16 weights at up to 8 rows, with D, F and H * hd multiples of
-    RING_K and KV * hd of 8; "cuda_core" (block_products.cuh's passes of
-    8 rows) otherwise: f32, int8 and int4 weights (their ring, converting
-    the codes from shared memory, is later work), more than 8 rows."""
+    rule its plan records. "ring" (csrc/weight_ring.cuh) for bf16 at up to
+    8 rows: bf16 weights with D, F and H * hd multiples of RING_K and
+    KV * hd of 8; int8 or int4 weights with every phase's stored rows a
+    multiple of RING_QROWS (D, H * hd, halved for int4 along K, and F) and
+    every stored row whole 16-byte copies. "cuda_core"
+    (block_products.cuh's passes of 8 rows) otherwise: f32, more than 8
+    rows, ragged widths."""
     if dt != "bfloat16":
         return "cuda_core", f"{dt}: the weight-ring body is bf16 only"
-    if bits:
-        return "cuda_core", (f"int{bits} weights: the ring carries bf16 "
-                             "weights only")
     if B > RING_MAX_ROWS:
         return "cuda_core", (f"{B} rows > {RING_MAX_ROWS}: the ring runs one "
                              "pass of 8 rows")
-    if D % RING_K or F % RING_K or (H * hd) % RING_K or (KV * hd) % 8:
-        return "cuda_core", (f"D {D}, F {F} or H * hd {H * hd} not a "
-                             f"multiple of {RING_K}")
-    return "ring", f"bf16 weights at {B} <= {_ROWS} rows"
+    nq, nkv = H * hd, KV * hd
+    if not bits:
+        if D % RING_K or F % RING_K or nq % RING_K or nkv % 8:
+            return "cuda_core", (f"D {D}, F {F} or H * hd {nq} not a "
+                                 f"multiple of {RING_K}")
+        return "ring", f"bf16 weights at {B} <= {_ROWS} rows"
+    h = 2 if bits == 4 else 1
+    if (D // h) % RING_QROWS or (nq // h) % RING_QROWS or F % RING_QROWS \
+            or D % (16 * h) or nq % 16 or nkv % 16 or F % 16:
+        return "cuda_core", (f"int{bits}: stored rows of D {D}, H * hd {nq} "
+                             f"or F {F} not a multiple of {RING_QROWS}, or "
+                             "stored rows not whole 16-byte copies")
+    return "ring", (f"int{bits} weights at {B} <= {_ROWS} rows: the ring "
+                    "carries the codes")
 
 
-def ring_smem(D, H, KV, hd, BS, pool_item):
+def ring_smem(D, H, KV, hd, BS, pool_item, bits=0):
     """Shared memory of the ring body (the source's ``ring_smem``): the
-    ring, the RMSNorm's sums and the flag, then one region for the
-    resident normalised rows [D][8] or the attention scratch of two items
-    (the body's two teams; two staged steps of pages each, in the pool's
-    type)."""
+    ring (:func:`ring_stage_bytes` of the weight bits), the RMSNorm's sums
+    and the flag, then one region for the resident normalised rows [D][8]
+    or the attention scratch of two items (the body's two teams; two
+    staged steps of pages each, in the pool's type)."""
     sb = _PAGES_PER_STEP * BS
     g = H // KV
     f = 2 * g * hd + g * sb + 3 * g + hd
     attn = -(-f // 4) * 16 + _PAGE_STAGES * 2 * sb * hd * pool_item
     attn = -(-attn // 16) * 16
-    return (RING_STAGES * RING_STAGE_BYTES + RING_AUX
+    return (RING_STAGES * ring_stage_bytes(bits) + RING_AUX
             + max(D * _ROWS * 2, 2 * attn))
 
 
-def ring_plan(B, D, H, KV, hd, F, grid):
-    """The ring body's plan: for each product phase its column tiles of
-    RING_COLS (q, k and v concatenated; gate and up paired over F), its
-    parts of K (:func:`ring_parts` on ``grid``: each item a column tile
-    of one weight over one part), its items and tickets; and the
-    workspaces: the f32 partials of the widest phase and one ticket per
-    tile."""
+def ring_plan(B, D, H, KV, hd, F, grid, bits=0):
+    """The ring body's plan: for each product phase its stored column
+    tiles of RING_COLS (q, k and v concatenated; gate and up paired over
+    F; int4 down packs two output columns a stored column), its K's
+    stored rows ``kn`` (K / 2 for int4 packed along K) in chunks of
+    :func:`ring_rows`, its parts of K (:func:`ring_parts` on ``grid``:
+    each item a column tile of one weight over one part), its items and
+    tickets; and the workspaces: the f32 partials of the widest phase and
+    one ticket per tile."""
     nq, nkv = H * hd, KV * hd
+    rows = ring_rows(bits)
     ct = lambda n: -(-n // RING_COLS)   # noqa: E731
-    shapes = {"qkv": ((nq, nkv, nkv), D, False),
-              "o_proj": ((D,), nq, False),
-              "gate_up": ((F, F), D, True),
-              "down": ((D,), F, False)}
-    plan = {"body": "ring", "ring_cols": RING_COLS, "ring_k": RING_K,
-            "ring_stages": RING_STAGES, "grid": grid}
+    # (logical columns of each slot, K, paired, packed along the output)
+    shapes = {"qkv": ((nq, nkv, nkv), D, False, False),
+              "o_proj": ((D,), nq, False, False),
+              "gate_up": ((F, F), D, True, False),
+              "down": ((D,), F, False, True)}
+    plan = {"body": "ring", "ring_cols": RING_COLS, "ring_k": rows,
+            "ring_stages": RING_STAGES, "grid": grid, "wbits": bits}
     part_ws = tickets = 0
     for name in RING_PHASES:
-        ns, K, paired = shapes[name]
-        tiles = [ct(n) for n in ns]
-        chunks = -(-K // RING_K)
+        ns, K, paired, out_packed = shapes[name]
+        wc = wclass(bits, out_packed)
+        stored = [n // 2 if wc == _WINT4N else n for n in ns]
+        kn = K // 2 if wc == _WINT4K else K
+        tiles = [ct(n) for n in stored]
+        chunks = -(-kn // rows)
         ticks = tiles[0] if paired else sum(tiles)
         parts = ring_parts(ticks * (2 if paired else 1), chunks, grid)
         ncols = ns[0] if paired else sum(ns)
-        plan[name] = {"tiles": tiles, "parts": parts, "K": K,
-                      "part_rows": -(-chunks // parts) * RING_K,
+        plan[name] = {"tiles": tiles, "parts": parts, "K": K, "kn": kn,
+                      "part_rows": -(-chunks // parts) * rows,
                       "items": sum(tiles) * parts, "tickets": ticks,
-                      "ncols": ncols, "paired": paired}
+                      "ncols": ncols, "paired": paired,
+                      "stored_cols": stored}
         if parts * (2 if paired else 1) > 1:
             part_ws = max(part_ws, parts * (2 if paired else 1) * _ROWS
                           * ncols)
@@ -733,33 +770,44 @@ def ring_plan(B, D, H, KV, hd, F, grid):
     return plan
 
 
-def _ring_phases(B, D, H, KV, hd, F, MB, plan, pages, combine):
+def _ring_phases(B, D, H, KV, hd, F, MB, plan, pages, combine, bits=0):
     """The ring body's phases for the gate: each product phase's items
-    read their weight's (part rows, RING_COLS) tile, slot-major then
-    part-major; down's part-0 items stand for the tile's last item, which
-    writes x_out (the parts' f32 sums lie in a workspace the spec does not
-    track)."""
+    read their weight's (part rows, RING_COLS) tile of stored rows and
+    columns, slot-major then part-major; a quantized slot's part-0 items
+    also read its scales, and down's part-0 items stand for the tile's
+    last item, which writes x_out (the parts' f32 sums lie in a workspace
+    the spec does not track); int4 down writes two column ranges a tile."""
     A = _launch.Access
-    nq, nkv = H * hd, KV * hd
+    half = bits == 4
+    C = RING_COLS
     out = []
-    for name, ws, extra in (("qkv", ("wq", "wk", "wv"), ["x", "nw"]),
-                            ("o_proj", ("wo",), []),
-                            ("gate_up", ("wg", "wu"), ["pw"]),
-                            ("down", ("wd",), [])):
+    for name, ws, scs, extra in (
+            ("qkv", ("wq", "wk", "wv"), ("sq", "sk", "sv"), ["x", "nw"]),
+            ("o_proj", ("wo",), ("so",), []),
+            ("gate_up", ("wg", "wu"), ("sg", "su"), ["pw"]),
+            ("down", ("wd",), ("sd",), [])):
         ph = plan[name]
         rows, P = ph["part_rows"], ph["parts"]
         reads, first = [], 0
-        for w, T in zip(ws, ph["tiles"]):
-            reads.append(A(w, (rows, RING_COLS),
+        for w, sc, T in zip(ws, scs, ph["tiles"]):
+            reads.append(A(w, (rows, C),
                            lambda j, T=T: (j // T, j % T), first, T * P))
+            if bits and name == "down" and half:
+                reads += [A(sc, (1, C), lambda j: (0, j), first, T),
+                          A(sc, (1, C), lambda j: (1, j), first, T)]
+            elif bits:
+                reads.append(A(sc, (C,), lambda j: (j,), first, T))
             first += T * P
         reads += [A(e, (B, D) if e == "x" else (D,),
                     (lambda i: (0, 0)) if e == "x" else (lambda i: (0,)),
                     0, 1) for e in extra]
         writes = ()
         if name == "down":
-            writes = (A("x_out", (B, RING_COLS), lambda j: (0, j), 0,
-                        ph["tiles"][0]),)
+            T = ph["tiles"][0]
+            writes = ((A("x_out", (B, 1, C), lambda j: (0, 0, j), 0, T),
+                       A("x_out", (B, 1, C), lambda j: (0, 1, j), 0, T))
+                      if half else (A("x_out", (B, C), lambda j: (0, j), 0,
+                                      T),))
         out.append(_launch.KernelPhase(name, ph["items"], tuple(reads),
                                        writes))
         if name == "qkv":
@@ -1008,9 +1056,9 @@ def block_spec(B, D, H, KV, hd, F, BS, MB, N, rope_rows, dt, bits, kv_bits,
         at = [op.name for op in ins].index("so") + 1
         ins[at:at] = scales
     if body == "ring":
-        plan = ring_plan(B, D, H, KV, hd, F, grid)
+        plan = ring_plan(B, D, H, KV, hd, F, grid, bits)
         phases = _ring_phases(B, D, H, KV, hd, F, MB, plan, phases[1],
-                              phases[2])
+                              phases[2], bits)
         m_phases = []
         bounds = "decode_block_fused_ring"
     else:
@@ -1404,7 +1452,7 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
                            _PAGE_STAGES)
     kernel = "decode_block_fused"
     if body == "ring":
-        smem = ring_smem(D, H, KV, hd, BS, k_pool.element_size())
+        smem = ring_smem(D, H, KV, hd, BS, k_pool.element_size(), bits)
         kernel = "decode_block_fused_ring"
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
@@ -1420,7 +1468,7 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     # rows, the k-major attention rows and silu(g)*u rows in x's type; the
     # f32 attention partials and new-token scores, then the f32 residual;
     # the ring body's f32 partial sums and its tickets (kept zero between
-    # launches: _ring_tickets)
+    # launches, one buffer a stream: _ring_tickets)
     n_qkv = -(-B * (H + 2 * KV) * hd // 8) * 8
     ws_t = torch.empty(n_qkv + _passes(B) * _ROWS * (H * hd + F),
                        dtype=x.dtype, device=x.device)
@@ -1431,7 +1479,6 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     if body == "ring":
         ring_ws = torch.empty(max(pl["part_ws"], 4), dtype=torch.float32,
                               device=x.device)
-        tickets = _ring_tickets(x.device, pl["tickets"])
     order = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
     if not _launch.begin(spec, x.device):
         return x_out, k_new, v_new
@@ -1439,6 +1486,8 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     ring = body == "ring"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        if ring:
+            tickets = _ring_tickets(x.device, pl["tickets"], stream)
         _count(decode_block_fused_cuda, bits, kv_bits)
         decode_block_fused_cuda.launches_by_body[body] += 1
         err = fn(x.data_ptr(), nw.data_ptr(),
@@ -1467,15 +1516,19 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
 _TICKETS = {}
 
 
-def _ring_tickets(device, n):
-    """The ring body's ticket counters on ``device``: one int32 per tile
-    of its widest phase, zeroed once; each launch leaves them zero (the
-    last item of a tile sets its counter back), so they are kept across
-    launches. Grown (zeroed anew) when a launch needs more."""
-    t = _TICKETS.get(device)
+def _ring_tickets(device, n, stream):
+    """The ring body's ticket counters for launches on ``stream`` (a
+    stream handle) of ``device``: one int32 per tile of its widest phase,
+    zeroed once; each launch leaves them zero (the last item of a tile
+    sets its counter back), so they are kept across launches. One buffer
+    a (device, stream): launches on one stream run one after another, so
+    no two launches in flight count into the same tickets. Grown (zeroed
+    anew) when a launch needs more."""
+    key = (device, stream)
+    t = _TICKETS.get(key)
     if t is None or t.numel() < n:
-        t = _TICKETS[device] = torch.zeros(max(n, 256), dtype=torch.int32,
-                                           device=device)
+        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                        device=device)
     return t
 
 

@@ -171,22 +171,19 @@ def _grid_query(body):
     return query
 
 
-def prefill_tc_smem(bits, kv_bits, H, KV, hd, BS):
+def prefill_tc_smem(bits, kv_bits):
     """Shared memory of the tensor-core body (the source's
     ``prefill_tc_smem``): the larger of its product layout (one weight a
     tile, :func:`.fused_decode_block.tile_smem_bytes`) and its attention's:
-    over fp pools the item's Q and two stages of 128 keys' K and V, bf16
-    [.][136]; over int8 pools the CUDA-core item of (H/KV) * BQ rows
-    (``_layout``'s attention scratch) with two staged tiles of bf16."""
+    the item's Q and two stages of 128 keys' K and V, bf16 [.][136] (a
+    history step over int8 pools stages its codes in the same place), and
+    over int8 pools each warp's 16 keys' K and V converted to bf16
+    [8][2][16][136]."""
     prod = max(_fdb.tile_smem_bytes(_fdb.wclass(bits), 1, c)
                for c in (QKV_COLS, O_COLS))
-    if kv_bits:
-        sb = _fdb._PAGES_PER_STEP * BS
-        rows = H // KV * BQ
-        f = 2 * rows * hd + rows * sb + 3 * rows + hd
-        attn = -(-f // 4) * 4 * 4 + 2 * sb * hd * 2
-    else:
-        attn = (BQ + 2 * 2 * _fdb._WARPS * 16) * (TC_HEAD_DIM + 8) * 2
+    step = _fdb._WARPS * 16
+    attn = (BQ + 2 * 2 * step + (2 * step if kv_bits else 0)) \
+        * (TC_HEAD_DIM + 8) * 2
     return max(prod, attn)
 
 
@@ -202,11 +199,12 @@ def prefill_body(P, D, H, KV, hd, BS, dt, bits, kv_bits):
                              f"takes {TC_HEAD_DIM}")
     if D % 32:
         return "cuda_core", f"D {D} not a multiple of 32 (the tile copies)"
-    need = prefill_tc_smem(bits, kv_bits, H, KV, hd, BS)
+    need = prefill_tc_smem(bits, kv_bits)
     if need > _fdb.SMEM_LIMIT:
         return "cuda_core", (f"the tensor-core body needs {need} B of "
                              "shared memory a block")
-    return "tc", "bf16, head dim 128" + (", int8 pools: CUDA-core attention"
+    return "tc", "bf16, head dim 128" + (", int8 pools: the history's codes "
+                                         "on the tensor cores"
                                          if kv_bits else "")
 
 
@@ -238,8 +236,8 @@ def prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits, residual,
     whole, the attention items (query block, KV head) over the paged
     history of ``pos0`` tokens, and o_proj by column tiles into x_out. The
     tensor-core body (``body`` "tc") normalises the real rows first, tiles
-    32 columns by rows of 128, and over fp pools takes (query block, query
-    head) attention items."""
+    32 columns by rows of 128, and takes (query block, query head)
+    attention items."""
     nq, nkv = H * hd, KV * hd
     vec = 16 // _fdb._ITEM[dt]
     tc = body == "tc"
@@ -301,9 +299,9 @@ def prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits, residual,
                      lambda i: ((i // ot) % parts, i % ot))]
     if bits:
         o_reads.append(A("so", (otc,), lambda i: (i % plan["o_tiles"],)))
-    # attention items: (query block, KV head), or on the tensor cores over
-    # fp pools (query block, query head)
-    items = -(-n_valid // BQ) * (H if tc and not kv_bits else KV)
+    # attention items: (query block, KV head), or on the tensor cores
+    # (query block, query head)
+    items = -(-n_valid // BQ) * (H if tc else KV)
     phases = (
         _launch.KernelPhase("qkv", tq + 2 * tk, tuple(qkv_reads)),
         _launch.KernelPhase("rope", 1, rope_reads,
@@ -401,7 +399,7 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     dt = _launch.dtype_name(x.dtype)
     body = prefill_body(P, D, H, KV, hd, BS, dt, bits, kv_bits)[0]
     if body == "tc":
-        region, smem = 0, prefill_tc_smem(bits, kv_bits, H, KV, hd, BS)
+        region, smem = 0, prefill_tc_smem(bits, kv_bits)
     else:
         region, smem = _fdb._layout(D, H // KV * BQ, hd, BS, item)
     if smem > _fdb.SMEM_LIMIT:

@@ -3,6 +3,7 @@
 prefill kernels on one GPU.
 
     python3 paddle_tpu_torch/tools/cuda_phase_times.py [--part decode|prefill|all]
+        [--wbits 0 8 4] [--pools fp int8]
 
 Run from the repository root on a machine with one NVIDIA H100 and the
 CUDA toolkit. It builds copies of ``paddle_tpu_torch/csrc/
@@ -15,7 +16,9 @@ registers and spills per bf16 kernel, and then, at LLaMA-7B widths, 8
 slots, bf16, at two sets of lengths (chip_smoke.py's kernel-phase
 lengths, and serving-like lengths of 300-520 tokens):
 
-- the time of decode_block_fused and of decode_attn_block followed by
+- for each weight class of ``--wbits`` (bf16, int8 and int4 codes, made
+  by the port's PTQ harness from the same bf16 weights), the time of
+  decode_block_fused and of decode_attn_block followed by
   decode_mlp_block on the same inputs (chip_smoke.py's ``cold_ms``);
 - the stamped phases, microseconds: decode_attn_block (qkv, pages,
   combine, o_proj), decode_mlp_block (gate/up, down) and
@@ -31,7 +34,10 @@ The prefill part (``--part prefill``) builds an unstamped and a stamped
 copy of ``fused_prefill_block.cu`` and of ``fused_decode_block.cu`` (every
 cooperative kernel of each stamped) and, at LLaMA-7B widths in bf16,
 times prefill_attn_block at P 128 (all rows real) with pos0 0, 512 and
-896 (a history of that many pool positions of 1152), and decode_mlp_block
+896 (a history of that many pool positions of 1152), over the pools of
+``--pools`` (bf16, and int8 codes of the same pools with their per-head
+scales: the int8-pool attention on the tensor cores) and for each weight
+class of ``--wbits``, and decode_mlp_block
 at 16, 20, 32 and 128 rows (the prefill MLP's chunk rows): each with its
 stamped phases, labelled by the kernel body's barriers (the CUDA-core
 bodies: products with their RMSNorm inside, RoPE, attention, o_proj;
@@ -217,16 +223,33 @@ def named(kernel, times):
     return dict(zip(names, times)) if names else times
 
 
-def decode_part(fdb, libs, gpu):
+def quantized(args, bits):
+    """decode_block_fused's arguments with the weights as int8 or int4
+    leaves of the port's PTQ harness (down_proj packed along its output
+    axis), or as they are for ``bits`` 0."""
+    if not bits:
+        return list(args)
+    return [*args[:2], *cs.wq_leaves(args[2:6], bits), args[6],
+            *cs.wq_leaves(args[7:10], bits, down=args[9]), *args[10:]]
+
+
+def decode_part(fdb, libs, gpu, wbits=(0,)):
     """The fused decode kernels at 8 slots (the part's header above)."""
     import torch
     from paddle_tpu_torch.ops.rope import build_rope_cache
     gen = torch.Generator(device="cuda").manual_seed(6)
     rope = build_rope_cache(4096, cs.HD7, device="cuda")
-    args = list(cs.block_inputs(gen, torch.bfloat16, cs.H7, cs.F7, rope,
-                                cs.B8))
+    fp = list(cs.block_inputs(gen, torch.bfloat16, cs.H7, cs.F7, rope,
+                              cs.B8))
     serving = torch.randint(300, 520, (cs.B8,), generator=gen,
                             device="cuda").to(torch.int32)
+    for bits in wbits:
+        args = quantized(fp, bits)
+        decode_lengths(fdb, libs, gpu, args, bits, serving)
+
+
+def decode_lengths(fdb, libs, gpu, args, bits, serving):
+    """decode_part's rows of one weight class, at both sets of lengths."""
     for label, lens in (("kernel_phase_lengths", args[15]),
                         ("serving_lengths", serving)):
         args[15] = lens
@@ -240,7 +263,7 @@ def decode_part(fdb, libs, gpu):
             xo = fdb.decode_attn_block_cuda(*attn)[0]
             return fdb.decode_mlp_block_cuda(xo, pw, wg, wu, wd)
         row = {"phase": "times", "gpu": gpu, "lengths": label,
-               "seq_lens": lens.tolist()}
+               "wbits": bits, "seq_lens": lens.tolist()}
         ring = hasattr(fdb, "RING_MAX_ROWS")
         for name in ("lb1", "lb2"):
             use(fdb, libs[name])
@@ -260,7 +283,7 @@ def decode_part(fdb, libs, gpu):
                     fdb, libs[name],
                     lambda: fdb.decode_mlp_block_cuda(x, pw, wg, wu, wd)),
                 "decode_block_fused": block_phases(
-                    fdb, phases(fdb, libs[name], block))}
+                    fdb, phases(fdb, libs[name], block), bits=bits)}
             if ring:
                 with cs.cuda_core_block(fdb):
                     row[name]["decode_block_fused_cuda_core"] = block_phases(
@@ -273,12 +296,13 @@ def decode_part(fdb, libs, gpu):
 BLOCK_PHASES = ("qkv", "pages", "combine", "o_proj", "gate_up", "down")
 
 
-def block_phases(fdb, times, body=None):
+def block_phases(fdb, times, body=None, bits=0):
     """decode_block_fused's stamped intervals under their phase names, with
-    the body they ran (the wrapper's rule at 8 bf16 rows, or ``body``)."""
+    the body they ran (the wrapper's rule at 8 bf16 rows in weight class
+    ``bits``, or ``body``)."""
     if body is None:
         body = (fdb.block_body(8, cs.D7, cs.H7, cs.H7, cs.HD7, cs.F7,
-                               "bfloat16", 0)[0]
+                               "bfloat16", bits)[0]
                 if hasattr(fdb, "block_body") else "cuda_core")
     out = dict(zip(BLOCK_PHASES, times)) if len(times) == 6 else times
     return {"body": body, "phases_us": out}
@@ -333,23 +357,35 @@ def mlp_body(fdb, body):
             fdb.MLP_TC_MIN_ROWS = old
 
 
-def prefill_part(fdb, fpb, libs, gpu):
-    """prefill_attn_block at P 128 over histories of PREFILL_POS0, and
+def prefill_part(fdb, fpb, libs, gpu, wbits=(0,), pools=("fp",)):
+    """prefill_attn_block at P 128 over histories of PREFILL_POS0 (each
+    weight class of ``wbits``, each pool class of ``pools``), and
     decode_mlp_block at MLP_ROWS, bf16, 7B widths: times and phases."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(7)
     for pos0 in PREFILL_POS0:
-        args = prefill_inputs(gen, PREFILL_P, pos0)
+        fp = prefill_inputs(gen, PREFILL_P, pos0)
+        for bits in wbits:
+            args = list(fp)
+            if bits:
+                args[2:6] = cs.wq_leaves(fp[2:6], bits)
+            for pool in pools:
+                a, kw = list(args), {}
+                if pool == "int8":
+                    kq, vq, kw["kv_scales"], _, _ = cs.kv8_pools(a[8], a[9])
+                    a[8], a[9] = kq, vq
 
-        def run():
-            return fpb.prefill_attn_block_cuda(*args)
-        use(fpb, libs["prefill"], "fused_prefill_block")
-        row = {"phase": "prefill_attn_block", "gpu": gpu, "P": PREFILL_P,
-               "pos0": pos0, "ms": cs.cold_ms(run, iters=40)}
-        use(fpb, libs["prefill_stamped"], "fused_prefill_block")
-        row["phases_us"] = named("prefill_attn_block",
-                                 phases(fpb, libs["prefill_stamped"], run))
-        cs.emit(row)
+                def run(a=a, kw=kw):
+                    return fpb.prefill_attn_block_cuda(*a, **kw)
+                use(fpb, libs["prefill"], "fused_prefill_block")
+                row = {"phase": "prefill_attn_block", "gpu": gpu,
+                       "P": PREFILL_P, "pos0": pos0, "wbits": bits,
+                       "pools": pool, "ms": cs.cold_ms(run, iters=40)}
+                use(fpb, libs["prefill_stamped"], "fused_prefill_block")
+                row["phases_us"] = named(
+                    "prefill_attn_block",
+                    phases(fpb, libs["prefill_stamped"], run))
+                cs.emit(row)
     tc = getattr(fdb, "MLP_TC_MIN_ROWS", None) is not None
     for rows in MLP_ROWS:
         args = mlp_inputs(gen, rows)
@@ -374,6 +410,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--part", choices=("decode", "prefill", "all"),
                     default="all")
+    ap.add_argument("--wbits", type=int, nargs="+", default=[0, 8, 4],
+                    choices=(0, 8, 4))
+    ap.add_argument("--pools", nargs="+", default=["fp", "int8"],
+                    choices=("fp", "int8"))
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("cuda_phase_times: no CUDA device", file=sys.stderr)
@@ -393,9 +433,9 @@ def main():
         libs, ptxas = build(work, srcs)
         cs.emit({"phase": "build", "gpu": gpu, "ptxas": ptxas})
         if opts.part in ("decode", "all"):
-            decode_part(fdb, libs, gpu)
+            decode_part(fdb, libs, gpu, opts.wbits)
         if opts.part in ("prefill", "all"):
-            prefill_part(fdb, fpb, libs, gpu)
+            prefill_part(fdb, fpb, libs, gpu, opts.wbits, opts.pools)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     cs.emit({"ok": True})

@@ -4,6 +4,7 @@ weight-ring body beside the designs tried, on one GPU.
 
     python3 paddle_tpu_torch/tools/decode_variants.py [--stages 1 2 4]
         [--cols 64 128 256] [--variants committed nomma ...]
+        [--wbits 0 8 4]
 
 Run from the repository root on a machine with one NVIDIA H100 and the
 CUDA toolkit. decode_block_fused reads ~404 MB of weights a layer at
@@ -34,13 +35,18 @@ a temporary directory with block 0 stamping the global timer after each
 grid barrier (``cuda_phase_times.stamped``) and loaded in place of the
 built library, so the wrapper runs it unchanged (with its plan constants
 set to the variant's): ``committed``; ``nomma``, the same copies and
-barriers with no product (the body's own stream; its errors are
-meaningless); ``stages2`` and ``stages6``, two and six chunks in the ring
-(six do not fit beside the attention's two items: the card refuses it,
-and the row says so); ``teams1``, the attention phase with the whole
-block on one item at a time. For each: decode_block_fused at LLaMA-7B
-widths, 8 rows, bf16 (its worst error against ``decode_block_ref`` in
-units of chip_smoke.py's two-ulp bound, ``bf16_close``: 1 is the limit),
+barriers with no product, and over codes no conversion either (the
+body's own stream; its errors are meaningless); ``stages2`` and
+``stages6``, two and six chunks in the ring (six do not fit beside the
+attention's two items: the card refuses it, and the row says so);
+``teams1``, the attention phase with the whole block on one item at a
+time; ``noconv``, the codes handed to the tensor cores unconverted (the
+conversion's cost; its errors are meaningless; the code classes only).
+For each weight class of
+``--wbits`` (bf16, int8 and int4 codes of the same weights, the port's
+PTQ harness): decode_block_fused at LLaMA-7B widths, 8 rows, bf16 (its
+worst error against ``decode_block_ref`` in units of chip_smoke.py's
+two-ulp bound, ``bf16_close``: 1 is the limit),
 its time and its stamped phases at chip_smoke.py's kernel-phase lengths
 and at serving-like ones (300-520 tokens).
 
@@ -244,18 +250,33 @@ def _set(name, old, new):
 #: constants it runs with)
 PATCHES = {
     "committed": ((), {}),
-    "nomma": ((("weight_ring.cuh", "      if (k0 < f.K) {   // block-uniform",
+    "nomma": ((("weight_ring.cuh", "      if (k0 < f.kn) {   // block-uniform",
                 "      if (false) {   // block-uniform"),), {}),
     "stages2": ((_set("kRingStages", 4, 2),), {"RING_STAGES": 2}),
     "stages6": ((_set("kRingStages", 4, 6),), {"RING_STAGES": 6}),
     "teams1": ((("fused_decode_block.cu",
                  "attn_pages_phase<T, KQ, 2>(a.attn, region);",
                  "attn_pages_phase<T, KQ, 1>(a.attn, region);"),), {}),
+    "noconv": ((("weight_ring.cuh",
+                 "{s8x2_bf16(r0, 0, 2), s8x2_bf16(r0, 1, 3),\n" + " " * 32
+                 + "s8x2_bf16(r1, 0, 2), s8x2_bf16(r1, 1, 3)}",
+                 "{r0, r0 >> 8, r1, r1 >> 8}"),
+                ("weight_ring.cuh",
+                 "{s4x2_bf16(r0, 0), s4x2_bf16(r0, 8),\n" + " " * 32
+                 + "s4x2_bf16(r1, 0), s4x2_bf16(r1, 8)}",
+                 "{r0, r0 >> 8, r1, r1 >> 8}"),
+                ("weight_ring.cuh",
+                 "{s4x2_bf16(r0, 4), s4x2_bf16(r0, 12),\n" + " " * 32
+                 + "s4x2_bf16(r1, 4), s4x2_bf16(r1, 12)}",
+                 "{r0 >> 4, r0 >> 12, r1 >> 4, r1 >> 12}")), {}),
 }
+#: variants that differ from the committed body only over codes
+CODES_ONLY = ("noconv",)
 
 
-def body_variants(names, gpu, work):
-    """The committed body and its variants (the module header)."""
+def body_variants(names, gpu, work, wbits=(0,)):
+    """The committed body and its variants (the module header), for each
+    weight class of ``wbits``."""
     import torch
     sys.path.insert(0, str(ROOT / "paddle_tpu_torch" / "tools"))
     import cuda_phase_times as pt
@@ -291,24 +312,37 @@ def body_variants(names, gpu, work):
                            if "ring" in k}})
     gen = torch.Generator(device="cuda").manual_seed(6)
     rope = build_rope_cache(4096, cs.HD7, device="cuda")
-    args = list(cs.block_inputs(gen, torch.bfloat16, cs.H7, cs.F7, rope,
-                                cs.B8))
-    refs = list(args)
-    refs[12], refs[13] = args[12].clone(), args[13].clone()
-    want = fdb.decode_block_ref(*refs)[0]
+    fp = list(cs.block_inputs(gen, torch.bfloat16, cs.H7, cs.F7, rope,
+                              cs.B8))
     # chip_smoke's kernel-phase lengths, and serving-like ones
-    lengths = {"kernel_phase_lengths": args[15],
-               "serving_lengths": torch.randint(
-                   300, 520, (cs.B8,), generator=gen,
-                   device="cuda").to(torch.int32)}
+    serving = torch.randint(300, 520, (cs.B8,), generator=gen,
+                            device="cuda").to(torch.int32)
     default = {k: getattr(fdb, k) for _, consts in PATCHES.values()
                for k in consts}
+    for bits in wbits:
+        args = pt.quantized(fp, bits)
+        refs = list(args)
+        refs[12], refs[13] = args[12].clone(), args[13].clone()
+        want = fdb.decode_block_ref(*refs)[0]
+        lengths = {"kernel_phase_lengths": args[15],
+                   "serving_lengths": serving}
+        run_variants([n for n in names if bits or n not in CODES_ONLY],
+                     libs, gpu, args, want, lengths, bits, default)
+    fdb.block_spec.cache_clear()
+
+
+def run_variants(names, libs, gpu, args, want, lengths, bits, default):
+    """body_variants' rows of one weight class."""
+    sys.path.insert(0, str(ROOT / "paddle_tpu_torch" / "tools"))
+    import cuda_phase_times as pt
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     for name in names:
         pt.use(fdb, libs[name])
         fdb.block_spec.cache_clear()
         for k, v in dict(default, **PATCHES[name][1]).items():
             setattr(fdb, k, v)
-        row = {"phase": "variant", "variant": name, "gpu": gpu}
+        row = {"phase": "variant", "variant": name, "wbits": bits,
+               "gpu": gpu}
         try:
             for label, lens in lengths.items():
                 a = args[:15] + [lens]
@@ -320,13 +354,13 @@ def body_variants(names, gpu, work):
                         run()[0], want)[1] / 2 ** -6
                 row[label] = {"ms": cs.cold_ms(run, iters=30),
                               "phases_us": pt.block_phases(
-                                  fdb, pt.phases(fdb, libs[name], run))}
+                                  fdb, pt.phases(fdb, libs[name], run),
+                                  bits=bits)}
         except (RuntimeError, ValueError) as e:   # one the card refuses
             row["error"] = str(e)[:300]
         cs.emit(row)
     for k, v in default.items():
         setattr(fdb, k, v)
-    fdb.block_spec.cache_clear()
 
 
 def main():
@@ -335,6 +369,8 @@ def main():
     ap.add_argument("--stages", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--cols", type=int, nargs="+", default=[64, 128, 256])
     ap.add_argument("--variants", nargs="*", default=list(PATCHES))
+    ap.add_argument("--wbits", type=int, nargs="+", default=[0, 8, 4],
+                    choices=(0, 8, 4))
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_variants: no CUDA device", file=sys.stderr)
@@ -385,7 +421,7 @@ def main():
         del ws
         torch.cuda.empty_cache()
         if opts.variants:
-            body_variants(opts.variants, gpu, work)
+            body_variants(opts.variants, gpu, work, opts.wbits)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     cs.emit({"ok": True})

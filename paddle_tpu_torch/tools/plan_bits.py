@@ -43,7 +43,16 @@ nothing else::
 
     --expect "paged_attention_decode*" \
         "decode_block_fused[[]torch.bfloat16*" "decode_block_fused[[]kv8]"
- It imports nothing of JAX or
+
+Against a tree from before the ring carried int8 and int4 codes and the
+prefill attention over int8 pools moved to the tensor cores, the
+quantized decode-block cases (8 rows, both pool classes) and the kv8
+prefill cases differ, nothing else (the cases the parent lacks are
+new)::
+
+    --expect "decode_block_fused[[]int*" "prefill_attn_block[[]*kv8*"
+
+It imports nothing of JAX or
 of ``paddle_tpu``.
 """
 import argparse
@@ -139,6 +148,14 @@ def _cases(torch, k):
                 lambda: fdb.decode_block_fused_cuda(
                     *a[:6], a[1], *m, *a[6:8], kq, vq, *a[10:],
                     kv_scales=sc)))
+    # int8 and int4 codes over int8 pools (no input drawn: the weights and
+    # pools above, quantized)
+    for bits in (8, 4):
+        qa, qm = wq(a[2:6], bits), wq(m, bits, down=m[2])
+        out.append((f"decode_block_fused[int{bits},kv8]",
+                    lambda qa=qa, qm=qm: fdb.decode_block_fused_cuda(
+                        a[0], a[1], *qa, a[1], *qm, *a[6:8], kq, vq,
+                        *a[10:], kv_scales=sc)))
     a16 = decode_args(bf, 16, Hq=16)
     out.append(("decode_attn_block[partial,tp2]",
                 lambda: fdb.decode_attn_block_cuda(*a16, residual=False)))
@@ -201,6 +218,17 @@ def _cases(torch, k):
                     f"{',kv8' if pools else ''}]",
                     lambda args=args, kw=kw: fpb.prefill_attn_block_cuda(
                         *args, **kw)))
+    # a tensor-parallel shard's body over int8 pools (H = KV = 16, no
+    # residual), drawn after every case above
+    w16 = [rc(D, 16 * hd, std=0.02), rc(D, 16 * hd, std=0.02),
+           rc(D, 16 * hd, std=0.02), rc(16 * hd, D, std=0.02)]
+    kq16, vq16, sc16 = kv8(rc(N, BS, 16, hd), rc(N, BS, 16, hd))
+    rope = torch.randn(2, 128, hd // 2, generator=gc, device="cuda")
+    a16p = (rc(128, D), (1 + 0.1 * rc(D).float()).to(bf), *w16, rope[0],
+            rope[1], kq16, vq16, table, 512, 128)
+    out.append((f"prefill_attn_block[{bf},128,512,w0,kv8,partial,tp2]",
+                lambda: fpb.prefill_attn_block_cuda(
+                    *a16p, kv_scales=sc16, residual=False)))
     pa = decode_args(bf, 32)
     q = rn(B, H, hd)
     out.append(("paged_attention_decode",

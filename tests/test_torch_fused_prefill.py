@@ -460,7 +460,7 @@ def test_prefill_body_by_dtype_and_head_dim(dt, hd, D, body):
 def test_prefill_tc_tiles_and_items_cover_once(P, KV):
     """The tensor-core plan's column tiles cover wq, wk, wv and wo exactly
     once, its row tiles every row, and the attention takes each (16-row
-    query block, query head) over fp pools once."""
+    query block, query head) once, over fp and over int8 pools."""
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     H, hd, D = 32, 128, 4096
     plan = fpb.prefill_tc_plan(P, D, H, KV, hd, 0, 132)
@@ -480,7 +480,7 @@ def test_prefill_tc_tiles_and_items_cover_once(P, KV):
     assert plan["o_parts"] == (2 if P <= 128 else 1)
     q8 = _capture_prefill(P, KV, quant=True)
     assert {p.name: p for p in q8.phases}["attention"].items == \
-        -(-P // fpb.BQ) * KV
+        -(-P // fpb.BQ) * H
 
 
 @pytest.mark.parametrize("KV,quant,wq", [(32, False, None), (8, False, None),
@@ -493,14 +493,37 @@ def test_prefill_tc_smem_within_limit_and_declared(KV, quant, wq):
     card's 227 KB a block, one block an SM."""
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     bits = {None: 0, "int8": 8, "int4": 4}[wq]
-    want = fpb.prefill_tc_smem(bits, 8 if quant else 0, 32, KV, 128, 16)
+    want = fpb.prefill_tc_smem(bits, 8 if quant else 0)
     assert want <= fdb.SMEM_LIMIT
     # the q/k/v stages (64-column tiles), or for int4 weights the
-    # attention's Q and two stages of 128 keys' K and V
-    assert want == {0: 159744, 8: 147456, 4: 143616}[bits]
+    # attention's Q and two stages of 128 keys' K and V; over int8 pools
+    # the attention's, with each warp's converted K and V rows
+    assert want == (213248 if quant else
+                    {0: 159744, 8: 147456, 4: 143616}[bits])
     spec = _capture_prefill(128, KV, wq=wq, quant=quant)
     assert spec.dyn_smem == want and spec.blocks_per_sm == 1
     assert spec.grid == (132,)
+
+
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_prefill_body_and_smem_over_int8_pools(bits):
+    """Over int8 pools the tensor-core body runs its attention on the
+    tensor cores too (the reason says so): its shared memory is the
+    attention's Q, two stages of 128 keys' K and V, and each of the 8
+    warps' 16 keys converted to bf16, [16 + 512 + 256][136] bf16, in every
+    weight class, within the card's limit; the CUDA-core body's rule
+    (f32, another head dim) is unchanged."""
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    body, why = fpb.prefill_body(128, 4096, 32, 32, 128, 16, "bfloat16",
+                                 bits, 8)
+    assert body == "tc" and "int8 pools" in why and "tensor cores" in why
+    smem = fpb.prefill_tc_smem(bits, 8)
+    assert smem == (16 + 4 * 128 + 2 * 128) * 136 * 2 == 213248
+    assert smem <= fdb.SMEM_LIMIT
+    assert fpb.prefill_body(128, 4096, 32, 32, 128, 16, "float32", bits,
+                            8)[0] == "cuda_core"
+    assert fpb.prefill_body(128, 4096, 32, 32, 64, 16, "bfloat16", bits,
+                            8)[0] == "cuda_core"
 
 
 def test_tc_plan_constants_are_the_sources():

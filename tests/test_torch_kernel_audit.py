@@ -820,7 +820,7 @@ def test_dropped_prefill_tensor_core_tile_is_a_floor_drop(monkeypatch):
     monkeypatch.setattr(fpb, "prefill_tc_plan", short)
     spec = fpb.prefill_spec.__wrapped__(
         128, 4096, 32, 32, 128, 16, 72, 577, "bfloat16", 0, 0, True, 512,
-        128, 132, fpb.prefill_tc_smem(0, 0, 32, 32, 128, 16), "tc")
+        128, 132, fpb.prefill_tc_smem(0, 0), "tc")
     found = check_launch(spec)
     assert {f.code for f in found} == {"GRID_FLOOR_DROP"}
     assert {f.detail["operand"] for f in found} == {"wo"}

@@ -247,17 +247,105 @@ def test_ring_parts_fill_the_grid_at_7b():
     (1, "bfloat16", 0, SEVEN_B, "ring"),
     (9, "bfloat16", 0, SEVEN_B, "cuda_core"),
     (8, "float32", 0, SEVEN_B, "cuda_core"),
-    (8, "bfloat16", 8, SEVEN_B, "cuda_core"),
-    (8, "bfloat16", 4, SEVEN_B, "cuda_core"),
-    (8, "bfloat16", 0, dict(SEVEN_B, F=11000), "cuda_core")])
+    (8, "bfloat16", 8, SEVEN_B, "ring"),
+    (8, "bfloat16", 4, SEVEN_B, "ring"),
+    (8, "bfloat16", 0, dict(SEVEN_B, F=11000), "cuda_core"),
+    (5, "bfloat16", 4, dict(SEVEN_B, KV=8), "ring"),
+    (9, "bfloat16", 8, SEVEN_B, "cuda_core"),
+    (8, "float32", 4, SEVEN_B, "cuda_core"),
+    (8, "bfloat16", 8, dict(SEVEN_B, F=11000), "cuda_core"),
+    (8, "bfloat16", 4, dict(SEVEN_B, D=4224), "cuda_core")])
 def test_block_body_rule(B, dt, bits, dims, body):
-    """decode_block_fused's body: the weight ring for bf16 weights at up to
-    8 rows with D, F, H * hd multiples of 64; the CUDA-core body (the
-    code and bits it had before the ring) for f32, int8 and int4 weights,
-    more rows and ragged widths. The rule is recorded in the plan."""
+    """decode_block_fused's body: the weight ring in bf16 at up to 8 rows,
+    for bf16 weights with D, F, H * hd multiples of 64 and for int8 and
+    int4 codes with every phase's stored rows a multiple of 128 (int4
+    packed along K halves D and H * hd); the CUDA-core body (the code and
+    bits it had before the ring) for f32, more rows and ragged widths.
+    The rule is recorded in the plan."""
     got, why = fdb.block_body(B, dims["D"], dims["H"], dims["KV"],
                               dims["hd"], dims["F"], dt, bits)
     assert got == body and why
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("dims,grid", [
+    (SEVEN_B, 132), (dict(SEVEN_B, KV=8), 132),
+    (dict(D=512, H=4, KV=2, hd=64, F=640), 3),
+    (dict(D=256, H=4, KV=1, hd=64, F=384), 7)])
+def test_ring_plan_covers_every_stored_chunk_once(bits, dims, grid):
+    """Over int8 and int4 codes the ring's items, walked as the kernel
+    walks them, read every (weight, stored column tile, chunk of 128
+    stored rows) exactly once: int8 [K][N]; int4 along K (q/k/v, o_proj,
+    gate/up: K/2 stored rows, each holding rows k' and k' + K/2); int4
+    along N (down: N/2 stored columns, each holding columns c' and
+    c' + N/2), in parts that start inside the stored rows."""
+    D, H, KV, hd, F = (dims[k] for k in ("D", "H", "KV", "hd", "F"))
+    plan = fdb.ring_plan(8, D, H, KV, hd, F, grid, bits)
+    assert plan["ring_k"] == fdb.RING_QROWS == 128 and plan["wbits"] == bits
+    h = 2 if bits == 4 else 1
+    want_cols = {"qkv": (H * hd, KV * hd, KV * hd), "o_proj": (D,),
+                 "gate_up": (F, F), "down": (D // h,)}
+    want_kn = {"qkv": D // h, "o_proj": H * hd // h, "gate_up": D // h,
+               "down": F}
+    rows_c = fdb.ring_rows(bits)
+    for name in fdb.RING_PHASES:
+        ph = plan[name]
+        P, rows, kn = ph["parts"], ph["part_rows"], ph["kn"]
+        assert kn == want_kn[name] and rows % rows_c == 0
+        assert 1 <= P <= fdb.RING_MAX_PARTS and (P - 1) * rows < kn
+        assert kn <= P * rows
+        tiles = ph["tiles"]
+        assert ph["stored_cols"] == list(want_cols[name])
+        assert tiles == [-(-n // 128) for n in want_cols[name]]
+        seen = {}
+        firsts = np.cumsum([0] + [t * P for t in tiles])
+        for blk in range(grid):
+            for i in range(blk, ph["items"], grid):
+                s = int(np.searchsorted(firsts, i, side="right") - 1)
+                part, t = divmod(i - firsts[s], tiles[s])
+                for k0 in range(part * rows, (part + 1) * rows, rows_c):
+                    if k0 < kn:
+                        seen[(s, t, k0)] = seen.get((s, t, k0), 0) + 1
+        want = {(s, t, k0) for s, T in enumerate(tiles) for t in range(T)
+                for k0 in range(0, kn, rows_c)}
+        assert set(seen) == want and set(seen.values()) == {1}, name
+
+
+def test_ring_code_stage_carries_bf16s_bytes():
+    """A chunk of codes is 16 KB of weights as a bf16 chunk is (128 rows
+    of 128 stored columns, no padding: swizzled), so the ring keeps as
+    many bytes in flight; int4's stage adds the second row range of the
+    staged activations. The plan's constants are the source's."""
+    import re
+    from paddle_tpu_torch.ops.kernels import _build
+    src = (_build.CSRC / "weight_ring.cuh").read_text()
+    for name, const in (("kRingQRows", fdb.RING_QROWS),
+                        ("kRingCols", fdb.RING_COLS), ("kRingK", fdb.RING_K)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src)[1]) \
+            == const, name
+    assert fdb.ring_stage_bytes(0) == 64 * 136 * 2 + 64 * 8 * 2
+    assert fdb.ring_stage_bytes(8) == 128 * 128 + 128 * 8 * 2
+    assert fdb.ring_stage_bytes(4) == 128 * 128 + 2 * 128 * 8 * 2
+    for bits in (0, 8, 4):
+        weights = fdb.ring_rows(bits) * 128 * (1 if bits else 2)
+        assert weights == 16384
+
+
+@pytest.mark.parametrize("bits", [0, 8, 4], ids=["bf16", "int8", "int4"])
+@pytest.mark.parametrize("KV,pool", [(32, "bfloat16"), (8, "bfloat16"),
+                                     (32, "int8"), (8, "int8")])
+def test_ring_shared_memory_fits_every_class(bits, KV, pool):
+    """The ring body's shared memory for each weight class over both pool
+    classes at 7B: 4 stages of the class's chunk, 512 B, and the larger
+    of the resident rows and two attention items; within 227 KB at one
+    block an SM, so the grid is 132 blocks."""
+    item = 1 if pool == "int8" else 2
+    smem = fdb.ring_smem(4096, 32, KV, 128, 16, item, bits)
+    base = fdb.ring_smem(4096, 32, KV, 128, 16, item)
+    assert smem == base + 4 * (fdb.ring_stage_bytes(bits)
+                               - fdb.ring_stage_bytes(0))
+    assert smem <= _launch.SMEM_BLOCK
+    assert fdb.assumed_grid("decode_block_fused_ring", smem) == 132
 
 
 @pytest.mark.parametrize("KV,pool", [(32, "bfloat16"), (8, "bfloat16"),
@@ -283,7 +371,12 @@ RING_CASES = ["decode_block_fused@flagship_serving",
               "decode_block_fused@flagship_serving_int8",
               "decode_block_fused@tiny_ring",
               "decode_block_fused@flagship_serving_gqa",
-              "decode_block_fused@flagship_serving_5_slots"]
+              "decode_block_fused@flagship_serving_5_slots",
+              "decode_block_fused@flagship_serving_int8_weights",
+              "decode_block_fused@flagship_serving_int4_weights",
+              "decode_block_fused@tiny_ring_int8_weights",
+              "decode_block_fused@tiny_ring_int4_weights",
+              "decode_block_fused@flagship_serving_int8_weights_int8"]
 
 
 @pytest.mark.parametrize("name", RING_CASES)
@@ -321,6 +414,34 @@ def test_ring_dropped_part_is_a_floor_drop(drop):
     found = check_launch(dataclasses.replace(spec, phases=tuple(phases)))
     want = {"qkv": {"wq", "wk", "wv"}, "gate_up": {"wg", "wu"},
             "down": {"wd"}}[drop]
+    assert {f.code for f in found} == {"GRID_FLOOR_DROP"}
+    assert {f.detail["operand"] for f in found} == want
+
+
+@pytest.mark.parametrize("drop", ["qkv", "o_proj", "gate_up", "down"])
+@pytest.mark.parametrize("case", ["flagship_serving_int8_weights",
+                                  "flagship_serving_int4_weights",
+                                  "flagship_serving_int8_weights_int8"])
+def test_ring_dropped_part_of_codes_is_a_floor_drop(case, drop):
+    """Over codes too, a phase that runs one part fewer than its plan
+    splits K into leaves stored weight rows unread: GRID_FLOOR_DROP on
+    that phase's weights (the scales, read by each tile's last item,
+    stay whole)."""
+    import dataclasses
+    spec = kc.capture_case({c.name: c for c in kc.kernel_cases()}[
+        "decode_block_fused@" + case])[0][0]
+    assert spec.plan["body"] == "ring" and spec.params["wbits"] in (8, 4)
+    phases = list(spec.phases)
+    at = [p.name for p in phases].index(drop)
+    ph = phases[at]
+    P = spec.plan[drop]["parts"]
+    assert P > 1
+    reads = tuple(dataclasses.replace(a, items=a.items // P * (P - 1))
+                  if a.operand.startswith("w") else a for a in ph.reads)
+    phases[at] = dataclasses.replace(ph, reads=reads)
+    found = check_launch(dataclasses.replace(spec, phases=tuple(phases)))
+    want = {"qkv": {"wq", "wk", "wv"}, "o_proj": {"wo"},
+            "gate_up": {"wg", "wu"}, "down": {"wd"}}[drop]
     assert {f.code for f in found} == {"GRID_FLOOR_DROP"}
     assert {f.detail["operand"] for f in found} == want
 
