@@ -26,9 +26,11 @@ script exits non-zero:
    20 and 32 slots (more than one pass of 8 rows; dispatch must pick the
    kernels there too), and two launches that must agree bit for bit;
    decode_block_fused also against the two-stage kernels in f32, each
-   case's body recorded (bf16 at up to 8 rows: the weight ring), and
-   timed beside the two-stage pair and its own CUDA-core body on the same
-   inputs; paged_attention_decode (the split page stream) at KV 32 and 8,
+   case's body recorded (bf16 at up to 8 rows: the weight ring, for
+   decode_mlp_block too; decode_attn_block's ring body, which its rule
+   keeps off as slower, held against the plain version and timed on the
+   timed inputs), and each 8-row bf16 kernel timed beside the body the
+   ring replaces on the same inputs; paged_attention_decode (the split page stream) at KV 32 and 8,
    MB 72 and 75, f32 and bf16, lengths 0/1/16/17/127/the whole table,
    zeros for length 0 and two launches bit for bit; decode_mlp_block
    also at 16, 32 and 128 rows (the prefill MLP: in bf16 its tensor-core
@@ -78,7 +80,9 @@ script exits non-zero:
    versions with ``residual=False`` at the fp and kv8 phases' tolerances;
    two launches bit for bit; the residual body on the same inputs equal,
    bit for bit, to x plus the partial output; timed beside the bound at
-   the shard's shapes, the plain version and the residual body.
+   the shard's shapes, the plain version, the residual body and the
+   body the ring replaces (decode_mlp_block) or the ring body
+   (decode_attn_block) on the same inputs.
 3. parity: LLaMA-7B widths, 2 layers, f32: greedy tokens for 5 requests
    through 2 slots from the engine on its default route (fused prefill,
    the single-launch decode kernel), on the two-stage decode route
@@ -101,8 +105,8 @@ script exits non-zero:
    paged attention never, RMSNorm once per decode step and once per chunk
    (the final norms); every prefill_attn_block and every chunk's
    decode_mlp_block launch on the tensor-core body, every decode step's
-   decode_mlp_block (the two-stage route) on the CUDA-core one
-   (``launches_by_body``).
+   decode_mlp_block (the two-stage and tp psum routes) on the weight ring
+   and decode_attn_block on the CUDA-core body (``launches_by_body``).
 5. profile of that engine: 8 requests of 384 prompt tokens; the first
    two chunks of the first one (alone on the engine) traced with
    torch.profiler (device time per chunk by kernel group), every later
@@ -694,7 +698,10 @@ def fused_attn_phase(gpu):
     ulps (bf16_close). Two launches on the same inputs must give the same
     bits: no sum uses atomics. At 20 and 32 slots dispatch must pick the
     kernel (its shared memory does not grow with B); the bf16 32-slot
-    case is timed."""
+    case is timed. Each case records its body and the rule's reason (the
+    CUDA-core body in every class: the weight ring is measured slower);
+    the timed row holds the ring body against the plain version and times
+    it on the same inputs (:func:`attn_ring_row`)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.rope import build_rope_cache
@@ -720,10 +727,13 @@ def fused_attn_phase(gpu):
                               ("v_new", got[2], want[2], 1e-5)):
             outs[nm] = _check_case(nm, g, w, dt, tol)
             max_err = max(max_err, outs[nm]["max_abs_err"])
+        plan = launch_plan(lambda a=args: fdb.decode_attn_block_cuda(*a))
         case = {"dtype": str(dt)[6:], "KV": KV, "B": B,
                 "seq_lens": args[11].tolist(), "outputs": outs,
                 "bitwise_repeatable": same, "dispatch": picked[0],
-                "smem_bytes": fdb.attn_smem_bytes(
+                "body": plan["body"], "body_rule": plan["body_rule"],
+                "smem_bytes": fdb.ring_smem(D7, H7, KV, HD7, BS16, 2)
+                if plan["body"] == "ring" else fdb.attn_smem_bytes(
                     D7, H7, KV, HD7, BS16, args[0].element_size()),
                 "ok": same and picked[0] == "cuda_fused"
                 and all(o["ok"] for o in outs.values())}
@@ -751,9 +761,14 @@ def fused_attn_phase(gpu):
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
            "library": "none: no single PyTorch call computes the block",
            "matmul_ms": cold_ms(lambda: (h @ wq, h @ wk, h @ wv, a @ wo)),
+           "body": launch_plan(
+               lambda: fdb.decode_attn_block_cuda(*timed))["body"],
+           **attn_ring_row(fdb, lambda: fdb.decode_attn_block_cuda(*timed),
+                           lambda: fdb.attn_block_ref(*timed), x.dtype),
            "ok": True}
     emit({"phase": "kernel", "kernel": "decode_attn_block", "gpu": gpu,
-          "cases": cases})
+          "cases": cases, **{k: row[k] for k in (
+              "ms", "ring_ms", "plain_ms", "bound_ms", "body")}})
     return row
 
 
@@ -776,10 +791,11 @@ def fused_mlp_phase(gpu):
     """decode_mlp_block against mlp_block_ref on the card, at F=11008 and
     at an F no tile width divides (the last F tile masked), f32 and bf16,
     8, 20 and 32 slots and 16, 32 and 128 rows (the prefill MLP's chunks:
-    bf16 from 9 rows on runs the tensor-core body, each case records the
-    body its plan took), tolerances as for the attention block (x_out at
-    1e-4 in f32); the bf16 cases of 16, 32 and 128 rows are timed beside
-    their bound."""
+    bf16 from 9 rows on runs the tensor-core body, at up to 8 the weight
+    ring, each case records the body its plan took), tolerances as for the
+    attention block (x_out at 1e-4 in f32); the bf16 cases of 16, 32 and
+    128 rows are timed beside their bound, and the 8-row row beside the
+    CUDA-core body on the same inputs."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -835,9 +851,14 @@ def fused_mlp_phase(gpu):
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
            "library": "none: no single PyTorch call computes the block",
            "matmul_ms": cold_ms(lambda: (h @ wg, h @ wu, ff @ wd)),
+           "body": launch_plan(
+               lambda: fdb.decode_mlp_block_cuda(*timed))["body"],
+           "cuda_core_ms": core_ms(
+               fdb, lambda: fdb.decode_mlp_block_cuda(*timed)),
            "prefill_rows": rows, "ok": True}
     emit({"phase": "kernel", "kernel": "decode_mlp_block", "gpu": gpu,
-          "cases": cases, "prefill_rows": rows})
+          "cases": cases, "prefill_rows": rows, **{k: row[k] for k in (
+              "ms", "cuda_core_ms", "plain_ms", "bound_ms", "body")}})
     # the tensor-core body at the 128-row chunk (the main path's prefill
     # MLP), a row of its own
     tc_row = dict(row, name="decode_mlp_block[tc]",
@@ -846,7 +867,9 @@ def fused_mlp_phase(gpu):
                       if c["body"] == "tc"),
                   **{k: rows[128][k] for k in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "matmul_ms")})
-    del tc_row["prefill_rows"]
+    for k in ("prefill_rows", "cuda_core_ms"):
+        del tc_row[k]
+    tc_row["body"] = rows[128]["body"]
     return [row, tc_row]
 
 
@@ -963,15 +986,65 @@ def block_phase(gpu):
 
 @contextlib.contextmanager
 def cuda_core_block(fdb):
-    """decode_block_fused on its CUDA-core body at every row count (the
-    8-row passes of block_products.cuh; the weight ring's threshold moved
-    to 0 rows), for a time on the same inputs."""
+    """decode_block_fused, decode_attn_block and decode_mlp_block on their
+    CUDA-core bodies at up to 8 rows (the 8-row passes of
+    block_products.cuh; the weight ring's threshold moved to 0 rows), for
+    a time on the same inputs."""
     old = fdb.RING_MAX_ROWS
     fdb.RING_MAX_ROWS = 0
     try:
         yield
     finally:
         fdb.RING_MAX_ROWS = old
+
+
+@contextlib.contextmanager
+def ring_attn(fdb):
+    """decode_attn_block with its weight-ring body where the ring's widths
+    take it (``fdb.ATTN_RING``: the rule keeps it off, measured slower
+    than the CUDA-core body), to hold and time it on the same inputs."""
+    old = fdb.ATTN_RING
+    fdb.ATTN_RING = True
+    try:
+        yield
+    finally:
+        fdb.ATTN_RING = old
+
+
+def attn_ring_row(fdb, fn, plain, dt, scales=None):
+    """decode_attn_block's ring body on the inputs of the launch ``fn``:
+    its outputs against ``plain()``'s (the phase's plain version: bf16 two
+    ulps, over int8 pools :func:`_kv8_decode_outputs`), two launches bit
+    for bit, and its time in the same call as the CUDA-core body's.
+    Raises if the ring body did not run or disagrees."""
+    import torch
+    with ring_attn(fdb):
+        body = launch_plan(fn)["body"]
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        want = plain()
+        torch.cuda.synchronize()
+        if scales is None:
+            outs = {nm: _check_case(nm, g, w, dt, tol) for nm, g, w, tol in
+                    zip(("x_out", "k_new", "v_new"), got, want,
+                        (1e-4, 1e-5, 1e-5))}
+        else:
+            outs = _kv8_decode_outputs(got, want, dt, scales)[0]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ms = cold_ms(fn)
+    row = {"ring_body": body, "ring_ms": ms, "ring_bitwise_repeatable": same,
+           "ring_max_abs_err": max(o["max_abs_err"] for o in outs.values())}
+    if body != "ring" or not same or not all(o["ok"] for o in outs.values()):
+        raise AssertionError(f"decode_attn_block's ring body: {row} {outs}")
+    return row
+
+
+def core_ms(fdb, fn):
+    """``fn``'s time with the decode kernels on their CUDA-core bodies
+    (:func:`cuda_core_block`): the body the ring replaces, same inputs,
+    same call."""
+    with cuda_core_block(fdb):
+        return cold_ms(fn)
 
 
 LN_CASES = (((24, 128), "float32"), ((4096, 1024), "float32"),
@@ -1215,9 +1288,11 @@ def quant_attn_phase(gpu, bits):
     (its epilogue-order plain version) on the card at KV=32 and 8, f32
     and bf16, 8 and 20 slots, the fp phase's lengths; in f32 also against
     attn_block_ref (dequantize-then-matmul), at the fp tolerances; two
-    launches bit for bit; dispatch must pick the kernel. Timed at B 8,
-    bf16, KV=32 beside its bound (integer weights and scales), its plain
-    version and the fp kernel on the same activations."""
+    launches bit for bit; dispatch must pick the kernel; each case records
+    its body. Timed at B 8, bf16, KV=32 beside its bound (integer weights
+    and scales), its plain version, the fp kernel on the same activations
+    and, held against the plain version, the ring body over the codes on
+    the same inputs (:func:`attn_ring_row`)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -1251,6 +1326,8 @@ def quant_attn_phase(gpu, bits):
         torch.cuda.synchronize()
         case = {"dtype": str(dt)[6:], "KV": KV, "B": B, "outputs": outs,
                 "bitwise_repeatable": same, "dispatch": picked,
+                "body": launch_plan(lambda a=args: fdb.decode_attn_block_cuda(
+                    *a))["body"],
                 "ok": same and picked == "cuda_fused"
                 and all(o["ok"] for o in outs.values())}
         cases.append(case)
@@ -1275,14 +1352,19 @@ def quant_attn_phase(gpu, bits):
            "bound_ms": b_ms, "bound_by": b_by,
            "fp_kernel_ms": cold_ms(
                lambda: fdb.decode_attn_block_cuda(*timed_fp)),
+           "body": launch_plan(
+               lambda: fdb.decode_attn_block_cuda(*timed))["body"],
+           **attn_ring_row(fdb, lambda: fdb.decode_attn_block_cuda(*timed),
+                           lambda: fdb.attn_block_wq_ref(*timed),
+                           torch.bfloat16),
            "library_ms": None,
            "library": "none: no single PyTorch call computes the block",
            "library_products_ms": lib_ms, "library_products": lib,
            "ok": True}
     emit({"phase": "kernel", "kernel": row["name"], "gpu": gpu,
           "cases": cases, **{k: row[k] for k in (
-              "ms", "plain_ms", "bound_ms", "fp_kernel_ms",
-              "library_products_ms")}})
+              "ms", "plain_ms", "bound_ms", "fp_kernel_ms", "ring_ms",
+              "body", "library_products_ms")}})
     return row
 
 
@@ -1291,8 +1373,10 @@ def quant_mlp_phase(gpu, bits):
     down along its output D) against mlp_block_wq_ref, f32 and bf16, F
     11008 and the fp phase's ragged F (11000 bf16, 11012 f32: served, the
     classes' loads divide those rows), 8, 20, 32 and 128 rows; in f32
-    also against mlp_block_ref (dequantize-then-matmul). Timed in bf16 at
-    8, 16, 32 and 128 rows (from 16 on the tensor-core body)."""
+    also against mlp_block_ref (dequantize-then-matmul); each case records
+    its body. Timed in bf16 at 8, 16, 32 and 128 rows (at 8 the weight
+    ring over the codes, beside its CUDA-core body on the same inputs;
+    from 16 on the tensor-core body)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -1325,6 +1409,8 @@ def quant_mlp_phase(gpu, bits):
         same = torch.equal(got, again)
         case = {"dtype": str(dt)[6:], "F": F, "B": B, "outputs": outs,
                 "bitwise_repeatable": same, "dispatch": picked,
+                "body": launch_plan(lambda a=args: fdb.decode_mlp_block_cuda(
+                    *a))["body"],
                 "ok": same and picked == "cuda_fused"
                 and all(o["ok"] for o in outs.values())}
         if dt == torch.bfloat16 and F == F7:
@@ -1338,6 +1424,10 @@ def quant_mlp_phase(gpu, bits):
                     lambda: fdb.decode_mlp_block_cuda(*fp))}
             rows[B]["library_products_ms"], rows[B]["library_products"] = \
                 _library_products(fp[0], args[2:], B)
+            rows[B]["body"] = case["body"]
+            if B == B8:
+                rows[B]["cuda_core_ms"] = core_ms(
+                    fdb, lambda: fdb.decode_mlp_block_cuda(*args))
             case["ms"] = rows[B]["ms"]
         cases.append(case)
         if not case["ok"]:
@@ -1646,12 +1736,14 @@ def kv8_decode_phase(gpu, op):
     the kernel-order plain version (_kv8_decode_outputs). Timed at B 8,
     bf16, KV=32 beside its bound (int8 pages and their scales, the
     weights in their class), its plain version and the fp-pool kernel on
-    the same activations; each case records its body, and
-    decode_block_fused's timed row, on the same inputs, its CUDA-core
-    body's time, the two-stage pair's (decode_attn_block then
-    decode_mlp_block) and, for int8 and int4 weights, the bf16-weight
-    ring's on the same activations and pools (its bf16 cases at 8 slots
-    run the weight ring, over bf16, int8 and int4 weights)."""
+    the same activations; each case records its body; decode_attn_block's
+    timed row holds its ring body against the plain version and times it
+    on the same inputs (:func:`attn_ring_row`); decode_block_fused's its
+    CUDA-core body's time on the same inputs and the two-stage pair's
+    (decode_attn_block then decode_mlp_block)
+    and, for int8 and int4 weights, the bf16-weight ring's on the same
+    activations and pools (the bf16 cases of both kernels at 8 slots run
+    the weight ring, over bf16, int8 and int4 weights)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -1737,12 +1829,15 @@ def kv8_decode_phase(gpu, op):
                "library": "none: no single PyTorch call computes the "
                           + ("block" if attn else "layer"),
                "ok": True}
-        if not attn:
-            row["body"] = launch_plan(
-                lambda: wrapper(*timed, kv_scales=tsc))["body"]
-            with cuda_core_block(fdb):
-                row["cuda_core_ms"] = cold_ms(
-                    lambda: wrapper(*timed, kv_scales=tsc))
+        row["body"] = launch_plan(
+            lambda: wrapper(*timed, kv_scales=tsc))["body"]
+        if attn:
+            row.update(attn_ring_row(
+                fdb, lambda: wrapper(*timed, kv_scales=tsc),
+                lambda: plain(*timed, kv_scales=tsc), bf16, tsc))
+        else:
+            row["cuda_core_ms"] = core_ms(
+                fdb, lambda: wrapper(*timed, kv_scales=tsc))
 
             def two_stage():
                 xo, _, _ = fdb.decode_attn_block_cuda(
@@ -1755,7 +1850,8 @@ def kv8_decode_phase(gpu, op):
         emit({"phase": "kernel", "kernel": name, "gpu": gpu,
               "cases": cases, **{k: row[k] for k in (
                   "ms", "plain_ms", "bound_ms", "fp_pool_kernel_ms",
-                  "cuda_core_ms", "two_stage_ms", "bf16_ring_ms", "body")
+                  "cuda_core_ms", "ring_ms", "two_stage_ms", "bf16_ring_ms",
+                  "body")
                   if k in row}})
         rows.append(row)
     return rows
@@ -2172,8 +2268,9 @@ def serving_phase(gpu, params, route):
     printed; on the other routes every such launch is in the fp class.
     Every prefill_attn_block launch and every chunk's decode_mlp_block
     launch runs the tensor-core body (``launches_by_body`` "tc"), every
-    decode step's decode_mlp_block (the two-stage route's 8 rows) the
-    CUDA-core one."""
+    decode step's decode_mlp_block (the two-stage route's 8 rows, bf16)
+    the weight ring ("ring"), and its decode_attn_block the CUDA-core body
+    (the rule's choice: its ring is measured slower)."""
     import torch
     from paddle_tpu_torch.inference import GenerationConfig, ServingEngine
     from paddle_tpu_torch.models import LLAMA_7B
@@ -2223,7 +2320,8 @@ def serving_phase(gpu, params, route):
     by_weight = kernels.launches_by_weight()
     by_pool = kernels.launches_by_pool()
     by_body = {k: v for k, v in kernels.launches_by_body().items()
-               if k in ("decode_mlp_block", "prefill_attn_block")}
+               if k in ("decode_mlp_block", "prefill_attn_block",
+                        "decode_attn_block")}
     m = eng.metrics()
     steps, chunks = m["decode_steps"], m["prefill_chunks"]
     emit({"phase": "serving", "route": route, "gpu": gpu,
@@ -2308,12 +2406,15 @@ def serving_phase(gpu, params, route):
                              f"({steps} decode steps, {chunks} chunks, "
                              f"{len(calib_s)} calibrations)")
     # every bf16 chunk (32 or 128 rows) runs the tensor-core bodies; the
-    # two-stage route's decode MLP (8 rows) the CUDA-core one
+    # two-stage route's decode step (8 rows) the weight ring
     chunk_mlp = L * chunks if base != "unfused" else 0
     want_body = {"prefill_attn_block": {"tc": counts["prefill_attn_block"],
                                         "cuda_core": 0},
-                 "decode_mlp_block": {"tc": chunk_mlp, "cuda_core":
-                                      counts["decode_mlp_block"] - chunk_mlp}}
+                 "decode_mlp_block": {"tc": chunk_mlp, "cuda_core": 0,
+                                      "ring": counts["decode_mlp_block"]
+                                      - chunk_mlp},
+                 "decode_attn_block": {"ring": 0, "cuda_core":
+                                       counts["decode_attn_block"]}}
     if by_body != want_body:
         raise AssertionError(f"{route}: launches by body {by_body} != "
                              f"{want_body}")
@@ -2376,8 +2477,11 @@ def _kernel_group(name):
                "decode_block_fused", "paged_attention_decode"):
         if op in name:
             return op
-    if "decode_block_ring_kernel" in name:   # decode_block_fused's ring body
-        return "decode_block_fused"
+    for ring, op in (("decode_block_ring_kernel", "decode_block_fused"),
+                     ("decode_attn_ring_kernel", "decode_attn_block"),
+                     ("decode_mlp_ring_kernel", "decode_mlp_block")):
+        if ring in name:   # a ring body
+            return op
     for part, op in (("res_rms_fwd", "residual_rms_norm_fwd"),
                      ("ln_fwd", "layer_norm_fwd"),
                      ("rms_fwd", "rms_norm_fwd"),
@@ -2650,8 +2754,10 @@ def tp_attn_phase(gpu):
     lengths), at the fp and kv8 phases' tolerances; two launches bit for
     bit; the residual body on the same inputs equal to x plus this one's
     output, and its k_new/v_new equal; dispatch on the per-shard meta
-    (tp in it) picks the kernel. Each bf16 case is timed beside its bound
-    at the shard's shapes, its plain version and the residual body."""
+    (tp in it) picks the kernel; each case records its body. Each bf16
+    case is timed beside its bound at the shard's shapes, its plain
+    version, the residual body and, held against the plain version, its
+    ring body on the same inputs (:func:`attn_ring_row`)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -2699,7 +2805,9 @@ def tp_attn_phase(gpu):
         case = {"kernel": name, "dtype": dtn, "H": H, "KV": H,
                 "outputs": outs, "code_flips": flips,
                 "bitwise_repeatable": same, "equals_residual_body": adds,
-                "dispatch": picked,
+                "dispatch": picked, "body": launch_plan(
+                    lambda: fdb.decode_attn_block_cuda(
+                        *base, **kw, residual=False))["body"],
                 "ok": same and adds and picked == "cuda_fused"
                 and all(o["ok"] for o in outs.values())}
         cases.append(case)
@@ -2722,12 +2830,18 @@ def tp_attn_phase(gpu):
              "plain_ms": cold_ms(lambda: plain(*base, **kw, residual=False)),
              "bound_ms": b_ms, "bound_by": b_by,
              "full_residual_ms": cold_ms(
-                 lambda: fdb.decode_attn_block_cuda(*base, **kw))}))
+                 lambda: fdb.decode_attn_block_cuda(*base, **kw)),
+             "body": case["body"],
+             **attn_ring_row(
+                 fdb, lambda: fdb.decode_attn_block_cuda(
+                     *base, **kw, residual=False),
+                 lambda: plain(*base, **kw, residual=False), dt,
+                 kw.get("kv_scales"))}))
     emit({"phase": "kernel", "kernel": "decode_attn_block[partial]",
           "gpu": gpu, "cases": cases,
           "timed": {r["name"]: {k: r[k] for k in (
-              "ms", "plain_ms", "bound_ms", "full_residual_ms")}
-              for r in rows}})
+              "ms", "plain_ms", "bound_ms", "full_residual_ms", "body",
+              "ring_ms")} for r in rows}})
     return rows
 
 
@@ -2736,9 +2850,10 @@ def tp_mlp_phase(gpu):
     (residual=False) at one shard's columns (TP_MLP_CASES: F = 11008,
     5504, 2752 against D 4096, 8 rows; no tile width divides 2752) at the
     fp phase's tolerances; two launches bit for bit; the residual body
-    equal to x plus this one's output; dispatch on the per-shard meta. The
-    bf16 cases timed beside their bound, plain version and residual
-    body."""
+    equal to x plus this one's output; dispatch on the per-shard meta;
+    each case records its body (bf16: the weight ring). The bf16 cases
+    timed beside their bound, plain version, residual body and CUDA-core
+    body on the same inputs."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -2767,7 +2882,9 @@ def tp_mlp_phase(gpu):
         out = _check_case("x_out", got, want, dt, 1e-4)
         case = {"kernel": name, "dtype": dtn, "F": F, "output": out,
                 "bitwise_repeatable": same, "equals_residual_body": adds,
-                "dispatch": picked,
+                "dispatch": picked, "body": launch_plan(
+                    lambda: fdb.decode_mlp_block_cuda(
+                        *args, residual=False))["body"],
                 "ok": out["ok"] and same and adds and picked == "cuda_fused"}
         cases.append(case)
         if not case["ok"]:
@@ -2787,12 +2904,15 @@ def tp_mlp_phase(gpu):
                  *args, residual=False)),
              "bound_ms": b_ms, "bound_by": b_by,
              "full_residual_ms": cold_ms(
-                 lambda: fdb.decode_mlp_block_cuda(*args))}))
+                 lambda: fdb.decode_mlp_block_cuda(*args)),
+             "body": case["body"],
+             "cuda_core_ms": core_ms(fdb, lambda: fdb.decode_mlp_block_cuda(
+                 *args, residual=False))}))
     emit({"phase": "kernel", "kernel": "decode_mlp_block[partial]",
           "gpu": gpu, "cases": cases,
           "timed": {r["name"]: {k: r[k] for k in (
-              "ms", "plain_ms", "bound_ms", "full_residual_ms")}
-              for r in rows}})
+              "ms", "plain_ms", "bound_ms", "full_residual_ms", "body",
+              "cuda_core_ms")} for r in rows}})
     return rows
 
 
@@ -2934,7 +3054,10 @@ def tp_serving_phase(gpu, params, route):
     launch in the "partial" residual class, decode_block_fused never; the
     tp=1 mesh runs the fused chunk (prefill_attn_block and the prefill
     MLP in the "full" class once per layer per chunk), tp=2 the verbatim
-    chunk (RMSNorm 2L+1 a chunk). The gather route runs the composition:
+    chunk (RMSNorm 2L+1 a chunk); every decode launch of decode_mlp_block
+    runs the weight ring (``launches_by_body`` "ring") and of
+    decode_attn_block the CUDA-core body (the rule's choice), the chunks'
+    MLP the tensor-core body. The gather route runs the composition:
     paged attention tp x L times a step, RMSNorm 2L+1 a step and a chunk,
     no block kernel. Over int8 pools every pool read is in the int8 class
     and the calibration (the placement's dense forward) adds 2L+1
@@ -2974,6 +3097,8 @@ def tp_serving_phase(gpu, params, route):
     counts = kernels.launches()
     by_res = kernels.launches_by_residual()
     by_pool = kernels.launches_by_pool()
+    by_body = {k: v for k, v in kernels.launches_by_body().items()
+               if k in ("decode_attn_block", "decode_mlp_block")}
     m = eng.metrics()
     steps, chunks = m["decode_steps"], m["prefill_chunks"]
     calib = m["calibration_traces"]
@@ -2987,6 +3112,7 @@ def tp_serving_phase(gpu, params, route):
           "decode_variant": m["decode_variant"],
           "prefill_variant": m["prefill_variant"],
           "launches_by_residual": by_res, "launches_by_pool": by_pool,
+          "launches_by_body": by_body,
           "wall_s": round(wall, 3), "tokens_per_sec": m["tokens_per_sec"],
           "prefill_tokens_per_sec": m["prefill_tokens_per_sec"],
           "ttft_ms_mean": m["ttft_ms_mean"], "ttft_ms_max": m["ttft_ms_max"],
@@ -3029,6 +3155,14 @@ def tp_serving_phase(gpu, params, route):
         if by_res != want_res:
             raise AssertionError(f"{route}: launches by residual {by_res} "
                                  f"!= {want_res}")
+        want_body = {"decode_attn_block": {"ring": 0,
+                                           "cuda_core": tp * L * steps},
+                     "decode_mlp_block": {"ring": tp * L * steps,
+                                          "tc": L * chunks if fused else 0,
+                                          "cuda_core": 0}}
+        if by_body != want_body:
+            raise AssertionError(f"{route}: launches by body {by_body} != "
+                                 f"{want_body}")
         want_var = {"mode": "auto", "block": "composed",
                     "attn": "cuda_fused", "mlp": "cuda_fused"}
     else:
@@ -3048,7 +3182,7 @@ def tp_serving_phase(gpu, params, route):
     if m["prefill_variant"]["attn"] != want_pre:
         raise AssertionError(f"{route}: prefill_variant "
                              f"{m['prefill_variant']}")
-    return dict(counts, by_residual=by_res), eng
+    return dict(counts, by_residual=by_res, by_body=by_body), eng
 
 
 @contextlib.contextmanager
@@ -4633,7 +4767,9 @@ PTXAS_KERNELS = {
     "fused_decode_block": {"decode_attn_block_kernel": "decode_attn_block",
                            "decode_mlp_block_kernel": "decode_mlp_block",
                            "decode_block_fused_kernel": "decode_block_fused",
-                           "decode_block_ring_kernel": "decode_block_fused"},
+                           "decode_block_ring_kernel": "decode_block_fused",
+                           "decode_attn_ring_kernel": "decode_attn_block",
+                           "decode_mlp_ring_kernel": "decode_mlp_block"},
     "fused_prefill_block": {"prefill_attn_block_kernel":
                             "prefill_attn_block"},
     "flash_attention": {"dkv_kernel": "flash_attention_bwd_dkv",

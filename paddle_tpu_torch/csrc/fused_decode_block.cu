@@ -118,8 +118,20 @@
 // unchanged, converted in registers), K split into parts that fill the
 // grid, and the next product phase's first chunks issued before the
 // barrier that precedes it (weight_ring.cuh says why and how). f32 and
-// more rows keep the CUDA-core body and its bits. Not done yet (later
-// work): the ring for the two-stage kernels, and a multi-layer form over
+// more rows keep the CUDA-core body and its bits.
+// decode_attn_block and decode_mlp_block have ring bodies for bf16 at up
+// to 8 rows, every weight class, both pool classes and both residual
+// classes (plan["body"] "ring"): decode_attn_ring_kernel (the RMSNorm with
+// q/k/v's first chunks in flight, q/k/v on the ring | pages | combine, with
+// o_proj's first chunks issued before the barrier | o_proj on the ring) and
+// decode_mlp_ring_kernel (RMSNorm, gate/up on the ring | down on the ring).
+// Their epilogues keep the two-stage rounding points above (o and down
+// cast to T before x is added in T, or alone when residual is 0), not the
+// single-launch kernel's f32 residual. decode_mlp_block runs its ring; the
+// wrapper's rule keeps decode_attn_block's off: at one block an SM its
+// page phase (kRingTeams teams of warps) is slower than the CUDA-core
+// body's at two blocks an SM by more than the ring saves on q/k/v and
+// o_proj (PERF.md). Not done yet (later work): a multi-layer form over
 // thread-block clusters.
 //
 // Shared memory, sized by the wrapper (ops/kernels/fused_decode_block.py,
@@ -355,13 +367,18 @@ __device__ void attn_pages_phase(const AttnArgs& a, unsigned char* smem) {
 
 // 3. per (sequence, KV head): the splits' partials and the new token
 // (always unmasked, so l > 0) combined in split order (combine_splits);
-// KQ: the new token's v as the int8 pool gives it back
-template <typename T, bool KQ>
+// KQ: the new token's v as the int8 pool gives it back. kTeams: the block's
+// threads split into that many teams, an item each (each output element
+// is one thread's sum either way).
+template <typename T, bool KQ, int kTeams = 1>
 __device__ void attn_combine_phase(const AttnArgs& a) {
   const int B = a.B, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
   const int groups = H / KV, NS = splits(a.MB), nq = H * hd;
+  constexpr int kTeamThreads = kThreads / kTeams;
+  const int tid = threadIdx.x % kTeamThreads;
   T* attn_t = static_cast<T*>(a.attn_ws);
-  for (int item = blockIdx.x; item < B * KV; item += gridDim.x) {
+  for (int item = blockIdx.x * kTeams + threadIdx.x / kTeamThreads;
+       item < B * KV; item += gridDim.x * kTeams) {
     const int b = item / KV, kvh = item - b * KV;
     const int seq_len = a.seq_lens[b];
     const int n_pages = min((seq_len + BS - 1) / BS, a.MB);
@@ -369,7 +386,7 @@ __device__ void attn_combine_phase(const AttnArgs& a) {
     const size_t pbase = ((size_t)b * KV + kvh) * NS;
     const T* vnew = static_cast<const T*>(a.v_new) + ((size_t)b * KV + kvh) * hd;
     const float vs = KQ ? a.v_scale[kvh] : 1.f;
-    for (int i = threadIdx.x; i < groups * hd; i += kThreads) {
+    for (int i = tid; i < groups * hd; i += kTeamThreads) {
       const int g = i / hd, d = i - g * hd;
       const float snew = a.s_new[b * H + kvh * groups + g];
       const float vn = KQ ? kv_round_trip(to_float(vnew[d]), vs)
@@ -692,24 +709,26 @@ decode_block_fused_kernel(const BlockArgs a) {
   mlp_down_phase<T, WQ, true>(a.mlp, smem);
 }
 
-// The weight-ring body (weight_ring.cuh) of the single-launch kernel: bf16
-// activations, bf16, int8 or int4 weights (WQ), at most 8 rows, fp or int8
-// pools (KQ). Shared memory: the ring, then the RMSNorm's per-warp sums
-// and the ticket flag (kRingAux bytes), then one region that holds either
-// the phase's resident normalised rows [D][8] or the attention scratch of
-// two items (the block's two teams of four warps take an item each: the
-// attention phase is bound by each item's chain of page steps, not by
-// bytes).
+// The weight-ring bodies (weight_ring.cuh) of the single-launch kernel and
+// of the two-stage kernels: bf16 activations, bf16, int8 or int4 weights
+// (WQ), at most 8 rows, fp or int8 pools (KQ). Shared memory: the ring,
+// then the RMSNorm's per-warp sums and the ticket flag (kRingAux bytes),
+// then one region that holds either the phase's resident normalised rows
+// [D][8] or the attention scratch of kRingTeams items (the block's teams
+// of kThreads / kRingTeams threads take an item each: the attention phase
+// is bound by each item's chain of page steps, not by bytes).
 constexpr int kRingAux = 512;
+constexpr int kRingTeams = 2;
 
-// ring_smem: the ring body's dynamic shared memory under weight bits WQ
-// for D and the attention scratch (``attn`` bytes: one item's paged_stream
-// scratch with two staged steps in the pools' type, attn_item_bytes; the
-// body's two teams hold one item each)
+// ring_smem: a ring body's dynamic shared memory under weight bits WQ for
+// D and the attention scratch (``attn`` bytes: one item's paged_stream
+// scratch with two staged steps in the pools' type, attn_item_bytes; each
+// of the body's kRingTeams teams holds one item; 0: decode_mlp_block's
+// body, which has no attention)
 template <int WQ>
 inline size_t ring_smem(int D, size_t attn) {
   return (size_t)kRingStages * RingGeom<WQ>::stage + kRingAux +
-         std::max((size_t)D * kRB * sizeof(ring_bf16), 2 * attn);
+         std::max((size_t)D * kRB * sizeof(ring_bf16), kRingTeams * attn);
 }
 
 inline size_t ring_smem_bits(int wbits, int D, size_t attn) {
@@ -748,7 +767,7 @@ decode_block_ring_kernel(const BlockArgs a) {
                        qkv[(size_t)row * ncols + c] = from_float<T>(v[0]);
                      });
   grid.sync();
-  attn_pages_phase<T, KQ, 2>(a.attn, region);
+  attn_pages_phase<T, KQ, kRingTeams>(a.attn, region);
   grid.sync();
   attn_combine_phase<T, KQ>(a.attn);
   // o_proj's first chunks fly across the barrier
@@ -787,6 +806,123 @@ decode_block_ring_kernel(const BlockArgs a) {
   cp_async_wait0();
 }
 
+// The two-stage kernels' ring bodies take their half's arguments and the
+// ring's plan.
+struct AttnRingArgs {
+  AttnArgs attn;
+  RingArgs ring;   // phases 0 (q/k/v) and 1 (o_proj); 2 and 3 empty
+};
+struct MlpRingArgs {
+  MlpArgs mlp;
+  RingArgs ring;   // phases 2 (gate/up) and 3 (down); 0 and 1 empty
+};
+
+// decode_attn_block's ring body: the single-launch ring's attention half
+// with the two-stage epilogues (q/k/v as above; o = T(the scaled f32 sum),
+// x_out = x + o in T, or o alone when residual is 0). The page phase is
+// paged_stream.cuh's split page stream in kRingTeams teams, as the
+// single-launch ring runs it; its cp.async groups never mix with the
+// ring's (q/k/v's chunks are all consumed before it; o_proj's are issued
+// after it).
+template <int WQ, bool KQ>
+__global__ void __launch_bounds__(kThreads, 1)
+decode_attn_ring_kernel(const AttnRingArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  using T = ring_bf16;
+  using G = RingGeom<WQ>;
+  constexpr int WC = wclass(WQ, false);
+  const RingArgs& r = a.ring;
+  const int B = a.attn.B, D = a.attn.D;
+  unsigned char* ring = smem;
+  float* red_s =
+      reinterpret_cast<float*>(smem + (size_t)kRingStages * G::stage);
+  int* flag = reinterpret_cast<int*>(red_s + kWarps * kRB);
+  unsigned char* region = smem + (size_t)kRingStages * G::stage + kRingAux;
+  T* h = reinterpret_cast<T*>(region);   // resident rows [D][8]
+  Ring g = ring_init<WQ>(r);
+  // q/k/v's first chunks fly while the block normalises its rows
+  g.stop = g.base[1];
+  ring_prefetch<WQ>(r, g, ring, kRingStages - 1);
+  ring_norm<T>(static_cast<const T*>(a.attn.x),
+               static_cast<const T*>(a.attn.nw), h, B, D, a.attn.eps, red_s);
+  const int ncols = r.ph[0].ncols;
+  T* qkv = static_cast<T*>(a.attn.qkv_ws);
+  ring_phase<WQ, WC>(r, g, ring, h, 0, B, flag,
+                     [&](int row, int c, const float* v) {
+                       qkv[(size_t)row * ncols + c] = from_float<T>(v[0]);
+                     });
+  grid.sync();
+  attn_pages_phase<T, KQ, kRingTeams>(a.attn, region);
+  grid.sync();
+  attn_combine_phase<T, KQ, kRingTeams>(a.attn);
+  // o_proj's first chunks fly across the barrier
+  g.stop = g.base[4];
+  ring_prefetch<WQ>(r, g, ring, g.base[1] + kRingStages - 1);
+  grid.sync();
+  ring_open<WQ>(r, g, ring, 1);
+  const T* x = static_cast<const T*>(a.attn.x);
+  T* xo = static_cast<T*>(a.attn.x_out);
+  const int residual = a.attn.residual;
+  ring_phase<WQ, WC>(r, g, ring, nullptr, 1, B, flag,
+                     [&](int row, int c, const float* v) {
+                       const size_t o = (size_t)row * D + c;
+                       const float d = round_t<T>(v[0]);
+                       xo[o] = from_float<T>(residual ? to_float(x[o]) + d
+                                                      : d);
+                     });
+  cp_async_wait0();
+}
+
+// decode_mlp_block's ring body: the RMSNorm with gate/up's first chunks in
+// flight, gate/up on the ring (g and u cast to T, silu(g)*u in T) | down on
+// the ring (its weights issued during gate/up, its staged rows once the
+// barrier has passed): down = T(the scaled f32 sum over all of F), x_out =
+// x + down in T, or down alone when residual is 0.
+template <int WQ>
+__global__ void __launch_bounds__(kThreads, 1)
+decode_mlp_ring_kernel(const MlpRingArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  using T = ring_bf16;
+  using G = RingGeom<WQ>;
+  constexpr int WC = wclass(WQ, false), WD = wclass(WQ, true);
+  const RingArgs& r = a.ring;
+  const int B = a.mlp.B, D = a.mlp.D;
+  unsigned char* ring = smem;
+  float* red_s =
+      reinterpret_cast<float*>(smem + (size_t)kRingStages * G::stage);
+  int* flag = reinterpret_cast<int*>(red_s + kWarps * kRB);
+  T* h = reinterpret_cast<T*>(smem + (size_t)kRingStages * G::stage +
+                              kRingAux);   // resident rows [D][8]
+  Ring g = ring_init<WQ>(r);   // phases 0 and 1 hold no chunk
+  ring_prefetch<WQ>(r, g, ring, kRingStages - 1);
+  const T* x = static_cast<const T*>(a.mlp.x);
+  ring_norm<T>(x, static_cast<const T*>(a.mlp.nw), h, B, D, a.mlp.eps,
+               red_s);
+  T* ff = static_cast<T*>(a.mlp.ff_ws);
+  ring_phase<WQ, WC>(r, g, ring, h, 2, B, flag,
+                     [&](int row, int c, const float* v) {
+                       const float gt = round_t<T>(v[0]);
+                       const float ut = round_t<T>(v[1]);
+                       const float sg = round_t<T>(gt / (1.f + expf(-gt)));
+                       ff[(size_t)c * kRB + row] =
+                           from_float<T>(__fmul_rn(sg, ut));
+                     });
+  grid.sync();
+  ring_open<WQ>(r, g, ring, 3);
+  T* xo = static_cast<T*>(a.mlp.out);
+  const int residual = a.mlp.residual;
+  ring_phase<WQ, WD>(r, g, ring, nullptr, 3, B, flag,
+                     [&](int row, int c, const float* v) {
+                       const size_t o = (size_t)row * D + c;
+                       const float d = round_t<T>(v[0]);
+                       xo[o] = from_float<T>(residual ? to_float(x[o]) + d
+                                                      : d);
+                     });
+  cp_async_wait0();
+}
+
 // The ring body for (dtype, weight bits, pool bits): bf16 activations
 inline KernelFn<BlockArgs> ring_kernel(int dtype, int wbits, int kvbits) {
   if (dtype != 1 || (kvbits != 0 && kvbits != 8)) return nullptr;
@@ -800,6 +936,30 @@ inline KernelFn<BlockArgs> ring_kernel(int dtype, int wbits, int kvbits) {
   if (wbits == 4)
     return kq ? decode_block_ring_kernel<4, true>
               : decode_block_ring_kernel<4, false>;
+  return nullptr;
+}
+
+inline KernelFn<AttnRingArgs> attn_ring_kernel(int dtype, int wbits,
+                                               int kvbits) {
+  if (dtype != 1 || (kvbits != 0 && kvbits != 8)) return nullptr;
+  const bool kq = kvbits == 8;
+  if (wbits == 0)
+    return kq ? decode_attn_ring_kernel<0, true>
+              : decode_attn_ring_kernel<0, false>;
+  if (wbits == 8)
+    return kq ? decode_attn_ring_kernel<8, true>
+              : decode_attn_ring_kernel<8, false>;
+  if (wbits == 4)
+    return kq ? decode_attn_ring_kernel<4, true>
+              : decode_attn_ring_kernel<4, false>;
+  return nullptr;
+}
+
+inline KernelFn<MlpRingArgs> mlp_ring_kernel(int dtype, int wbits) {
+  if (dtype != 1) return nullptr;
+  if (wbits == 0) return decode_mlp_ring_kernel<0>;
+  if (wbits == 8) return decode_mlp_ring_kernel<8>;
+  if (wbits == 4) return decode_mlp_ring_kernel<4>;
   return nullptr;
 }
 
@@ -851,6 +1011,72 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
                   plan[4]};
 }
 
+// Ring phase p (0 q/k/v, 1 o_proj, 2 gate/up, 3 down) can run under
+// weight bits ``wbits`` at contraction depth K over its slots' columns n:
+// its stored rows a whole number of chunks, every stored row whole
+// 16-byte copies (int4 packs q/k/v, o_proj and gate/up along K, down along
+// its columns). The wrapper's rule (fused_decode_block.ring_width_reason)
+// is the same test.
+inline bool ring_phase_ok(int wbits, int p, int K, const int* n, int nslot) {
+  const int wc = wclass(wbits, p == 3);
+  const int rows = wbits ? kRingQRows : kRingK;
+  const int esz = wbits ? 1 : 2;
+  if (K <= 0 || (wc == kWInt4K && K % 2)) return false;
+  if ((wc == kWInt4K ? K / 2 : K) % rows) return false;
+  for (int s = 0; s < nslot; ++s) {
+    if (n[s] <= 0 || (wc == kWInt4N && n[s] % 2)) return false;
+    if (((wc == kWInt4N ? n[s] / 2 : n[s]) * esz) % 16) return false;
+  }
+  return true;
+}
+
+// The ring's plan of phase p from its weights (slots: q/k/v concatenate
+// their columns; gate and up are paired over the same columns), their f32
+// scales (null for bf16), their columns n, its depth K, its parts of K and
+// its staged activation rows (null: resident); ``parts`` 0 is a phase the
+// kernel does not run (no item, no chunk).
+inline RingPhase ring_phase_plan(int p, int wbits, int nslot,
+                                 const void* const* w,
+                                 const void* const* sc, const int* n, int K,
+                                 int parts, const void* a_src) {
+  RingPhase f{};
+  if (parts == 0) return f;
+  const int wc = wclass(wbits, p == 3);
+  const int rows = wbits ? kRingQRows : kRingK;   // stored rows a chunk
+  f.nslot = nslot;
+  f.paired = p == 2;
+  f.parts = parts;
+  f.K = K;
+  f.kn = wc == kWInt4K ? K / 2 : K;
+  f.half = wc == kWInt4K ? K / 2 : 0;
+  f.part_rows = cdiv(cdiv(f.kn, rows), parts) * rows;
+  f.a_src = static_cast<const ring_bf16*>(a_src);
+  int items = 0, ticks = 0, out0 = 0;
+  for (int s = 0; s < nslot; ++s) {
+    f.w[s] = static_cast<const unsigned char*>(w[s]);
+    f.s[s] = wbits ? static_cast<const float*>(sc[s]) : nullptr;
+    f.n[s] = n[s];
+    f.ns[s] = wc == kWInt4N ? n[s] / 2 : n[s];
+    f.tiles[s] = cdiv(f.ns[s], kRingCols);
+    f.first[s] = items;
+    items += f.tiles[s] * parts;
+    f.out0[s] = f.paired ? 0 : out0;
+    f.tick0[s] = f.paired ? 0 : ticks;
+    if (!f.paired || s == 0) ticks += f.tiles[s];
+    out0 += f.paired ? 0 : n[s];
+  }
+  f.items = items;
+  f.ncols = f.paired ? n[0] : out0;
+  return f;
+}
+
+// The parts of K of each ring phase a kernel runs: 1 to kRingMaxParts.
+inline bool ring_parts_ok(const int* parts, int n) {
+  for (int i = 0; i < n; ++i)
+    if (parts[i] < 1 || parts[i] > kRingMaxParts) return false;
+  return true;
+}
+
 }  // namespace fused
 }  // namespace paddle_tpu_torch
 
@@ -871,8 +1097,9 @@ inline AttnArgs attn_args(const void* x, const void* nw, const void* wq,
 
 // The cooperative grid of kernel ``which`` (0 decode_attn_block, 1
 // decode_mlp_block, 2 decode_block_fused, 3 decode_mlp_block's
-// tensor-core body, 4 decode_block_fused's weight-ring body) for (dtype,
-// wbits, kvbits) at
+// tensor-core body, 4 decode_block_fused's weight-ring body, 5
+// decode_attn_block's and 6 decode_mlp_block's weight-ring bodies) for
+// (dtype, wbits, kvbits) at
 // ``smem`` bytes of dynamic shared memory a block; minus the cudaError_t
 // on failure.
 extern "C" int decode_coop_grid(int which, int dtype, int wbits, int kvbits,
@@ -883,39 +1110,84 @@ extern "C" int decode_coop_grid(int which, int dtype, int wbits, int kvbits,
   if (which == 2) return coop_grid_or_error(block_kernel(dtype, wbits, kvbits), smem);
   if (which == 3) return coop_grid_or_error(mlp_tc_kernel(dtype, wbits), smem);
   if (which == 4) return coop_grid_or_error(ring_kernel(dtype, wbits, kvbits), smem);
+  if (which == 5) return coop_grid_or_error(attn_ring_kernel(dtype, wbits, kvbits), smem);
+  if (which == 6) return coop_grid_or_error(mlp_ring_kernel(dtype, wbits), smem);
   return -(int)cudaErrorInvalidValue;
 }
 
-// ws_t and ws_f as attn_args carves them.
+// ws_t and ws_f as attn_args carves them. body 0: the CUDA-core body
+// (the tile plan); body 1: the weight-ring body (bf16, B <= 8, the widths
+// ring_phase_ok takes), whose plan is the parts of K of q/k/v and o_proj
+// (1 to kRingMaxParts), at its own shared memory (ring_smem over two
+// attention items), with ring_ws the f32 partials of its wider phase and
+// tickets one int per tile of its widest phase, 0 before the launch (each
+// launch leaves them 0; one launch at a time may hold them).
 extern "C" int decode_attn_block(
     const void* x, const void* nw, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* sq, const void* sk,
     const void* sv, const void* so, const void* sin, const void* cos,
     const void* k_pool, const void* v_pool, const void* k_scale,
     const void* v_scale, const void* tables, const void* seq_lens,
-    void* x_out, void* k_new, void* v_new, void* ws_t, void* ws_f, int B,
-    int D, int H, int KV, int hd, int BS, int MB, int rope_rows,
-    int residual, int region, int smem, int wbits, int kvbits, int grid,
-    int qkv_lpr, int q_tiles, int kv_tiles, int o_lpr, int o_tiles,
-    float eps, float scale, int dtype, void* stream) {
+    void* x_out, void* k_new, void* v_new, void* ws_t, void* ws_f,
+    void* ring_ws, void* tickets, int B, int D, int H, int KV, int hd,
+    int BS, int MB, int rope_rows, int residual, int region, int smem,
+    int wbits, int kvbits, int grid, int qkv_lpr, int q_tiles, int kv_tiles,
+    int o_lpr, int o_tiles, int body, int qkv_parts, int o_parts, float eps,
+    float scale, int dtype, void* stream) {
+  using namespace paddle_tpu_torch;
   using namespace paddle_tpu_torch::fused;
-  const auto kernel = attn_kernel(dtype, wbits, kvbits);
+  const int plan[5] = {qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == 0) {
+    const auto kernel = attn_kernel(dtype, wbits, kvbits);
+    if (kernel == nullptr) return cudaErrorInvalidValue;
+    if (!plan_ok(qkv_lpr, q_tiles) || !plan_ok(qkv_lpr, kv_tiles) ||
+        !plan_ok(o_lpr, o_tiles))
+      return cudaErrorInvalidValue;
+    if (B == 0) return cudaSuccess;
+    const AttnArgs a = attn_args(
+        x, nw, wq, wk, wv, wo, sq, sk, sv, so, sin, cos, k_pool, v_pool,
+        k_scale, v_scale, tables, seq_lens, x_out, k_new, v_new, ws_t, ws_f,
+        B, D, H, KV, hd, BS, MB, rope_rows, residual, region, eps, scale,
+        dtype == 1 ? 2 : 4, plan);
+    return launch_coop(kernel, a, smem, grid, st);
+  }
+  if (body != 1) return cudaErrorInvalidValue;
+  const auto kernel = attn_ring_kernel(dtype, wbits, kvbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  if (!plan_ok(qkv_lpr, q_tiles) || !plan_ok(qkv_lpr, kv_tiles) ||
-      !plan_ok(o_lpr, o_tiles))
+  const int nq = H * hd, nkv = KV * hd;
+  const int parts[2] = {qkv_parts, o_parts};
+  const int n_qkv[3] = {nq, nkv, nkv}, n_o[1] = {D};
+  const size_t attn = kvbits ? attn_item_bytes<int8_t>(H / KV, hd, BS)
+                             : attn_item_bytes<ring_bf16>(H / KV, hd, BS);
+  if (B > kRB || !ring_parts_ok(parts, 2) ||
+      !ring_phase_ok(wbits, 0, D, n_qkv, 3) ||
+      !ring_phase_ok(wbits, 1, nq, n_o, 1) ||
+      (size_t)smem != ring_smem_bits(wbits, D, attn))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const int plan[5] = {qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles};
-  const AttnArgs a = attn_args(
+  AttnRingArgs a{attn_args(
       x, nw, wq, wk, wv, wo, sq, sk, sv, so, sin, cos, k_pool, v_pool,
-      k_scale, v_scale, tables, seq_lens, x_out, k_new, v_new, ws_t, ws_f, B,
-      D, H, KV, hd, BS, MB, rope_rows, residual, region, eps, scale,
-      dtype == 1 ? 2 : 4, plan);
-  return launch_coop(kernel, a, smem, grid, static_cast<cudaStream_t>(stream));
+      k_scale, v_scale, tables, seq_lens, x_out, k_new, v_new, ws_t, ws_f,
+      B, D, H, KV, hd, BS, MB, rope_rows, residual, region, eps, scale, 2,
+      plan), RingArgs{}};
+  const void* w_qkv[3] = {wq, wk, wv};
+  const void* s_qkv[3] = {sq, sk, sv};
+  a.ring.ph[0] = ring_phase_plan(0, wbits, 3, w_qkv, s_qkv, n_qkv, D,
+                                 qkv_parts, nullptr);
+  a.ring.ph[1] = ring_phase_plan(1, wbits, 1, &wo, &so, n_o, nq, o_parts,
+                                 a.attn.attn_ws);
+  a.ring.part = static_cast<float*>(ring_ws);
+  a.ring.tickets = static_cast<int*>(tickets);
+  return launch_coop(kernel, a, smem, grid, st);
 }
 
-// ff_ws (T): [P][F][8] for the CUDA-core body (body 0); for the
-// tensor-core body (body 1, bf16): silu(g)*u [B][F], then the normalised
+// ff_ws (T): [P][F][8] for the CUDA-core body (body 0) and the weight-ring
+// body (body 2: bf16, B <= 8, the widths ring_phase_ok takes; its plan the
+// parts of K of gate/up and down, up_parts and down_parts, 1 to
+// kRingMaxParts, at its own shared memory, ring_smem with no attention;
+// ring_ws and tickets as decode_attn_block's); for the tensor-core body
+// (body 1, bf16): silu(g)*u [B][F], then the normalised
 // rows [B][D] at an offset rounded up to 8 elements, then (down_parts > 1)
 // down's f32 partial sums [down_parts][B][D] at an offset rounded up to 16
 // bytes. The tensor-core body's plan: up_tiles of kUpCols columns of F,
@@ -925,13 +1197,42 @@ extern "C" int decode_attn_block(
 extern "C" int decode_mlp_block(const void* x, const void* nw, const void* wg,
                                 const void* wu, const void* wd, const void* sg,
                                 const void* su, const void* sd, void* out,
-                                void* ff_ws, int B, int D, int F,
-                                int residual, int region, int smem,
-                                int wbits, int grid, int body, int up_lpr,
-                                int up_tiles, int down_lpr, int down_tiles,
-                                int down_k, int row_tiles, int down_parts,
-                                float eps, int dtype, void* stream) {
+                                void* ff_ws, void* ring_ws, void* tickets,
+                                int B, int D, int F, int residual, int region,
+                                int smem, int wbits, int grid, int body,
+                                int up_lpr, int up_tiles, int down_lpr,
+                                int down_tiles, int down_k, int row_tiles,
+                                int up_parts, int down_parts, float eps,
+                                int dtype, void* stream) {
   using namespace paddle_tpu_torch::fused;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == 2) {
+    const auto kernel = mlp_ring_kernel(dtype, wbits);
+    if (kernel == nullptr) return cudaErrorInvalidValue;
+    const int parts[2] = {up_parts, down_parts};
+    const int n_up[2] = {F, F}, n_down[1] = {D};
+    if (B > kRB || !ring_parts_ok(parts, 2) ||
+        !ring_phase_ok(wbits, 2, D, n_up, 2) ||
+        !ring_phase_ok(wbits, 3, F, n_down, 1) ||
+        (size_t)smem != ring_smem_bits(wbits, D, 0))
+      return cudaErrorInvalidValue;
+    if (B == 0) return cudaSuccess;
+    MlpRingArgs a{MlpArgs{x, nw, wg, wu, wd, static_cast<const float*>(sg),
+                          static_cast<const float*>(su),
+                          static_cast<const float*>(sd), out, ff_ws, B, D,
+                          F, residual, eps, 0, 0, 0, 0, 0, F, nullptr, 0,
+                          1, nullptr},
+                  RingArgs{}};
+    const void* w_up[2] = {wg, wu};
+    const void* s_up[2] = {sg, su};
+    a.ring.ph[2] = ring_phase_plan(2, wbits, 2, w_up, s_up, n_up, D,
+                                   up_parts, nullptr);
+    a.ring.ph[3] = ring_phase_plan(3, wbits, 1, &wd, &sd, n_down, F,
+                                   down_parts, ff_ws);
+    a.ring.part = static_cast<float*>(ring_ws);
+    a.ring.tickets = static_cast<int*>(tickets);
+    return launch_coop(kernel, a, smem, grid, st);
+  }
   if (body != 0 && body != 1) return cudaErrorInvalidValue;
   const auto kernel = body ? mlp_tc_kernel(dtype, wbits)
                            : mlp_kernel(dtype, wbits);
@@ -959,16 +1260,15 @@ extern "C" int decode_mlp_block(const void* x, const void* nw, const void* wg,
             out, ff_ws, B, D, F, residual, eps, (size_t)region, up_lpr,
             up_tiles, down_lpr, down_tiles, down_k, h_ws, row_tiles,
             body ? down_parts : 1, part_ws};
-  return launch_coop(kernel, a, smem, grid, static_cast<cudaStream_t>(stream));
+  return launch_coop(kernel, a, smem, grid, st);
 }
 
 // ws_t (T): attn_args' qkv and attention rows, then ff [P][F][8] at an
 // offset rounded up to 8 elements; ws_f (f32): attn_args' partials and
 // scores, then resid [B][D] at an offset rounded up to 4 floats. body 0:
 // the CUDA-core body; body 1: the weight-ring body (weight_ring.cuh: bf16,
-// bf16, int8 or int4 weights, B <= 8; bf16 weights: D, F and H * hd
-// multiples of kRingK; codes: every phase's stored rows multiples of
-// kRingQRows and its stored rows whole 16-byte copies), whose plan is the
+// bf16, int8 or int4 weights, B <= 8, the widths ring_phase_ok takes in
+// every phase), whose plan is the
 // parts of K of each product phase (1 to kRingMaxParts), at its own shared
 // memory (ring_smem), with ring_ws the f32 partials [parts * (1 +
 // paired)][8][cols] of its widest phase and tickets one int per tile of
@@ -1004,24 +1304,16 @@ extern "C" int decode_block_fused(
       return cudaErrorInvalidValue;
   } else {
     const int parts[4] = {qkv_parts, o_parts, up_parts, down_parts};
-    for (int p : parts)
-      if (p < 1 || p > kRingMaxParts) return cudaErrorInvalidValue;
+    const int n_qkv[3] = {nq, nkv, nkv}, n_o[1] = {D}, n_up[2] = {F, F};
     const size_t attn = kvbits ? attn_item_bytes<int8_t>(H / KV, hd, BS)
                                : attn_item_bytes<ring_bf16>(H / KV, hd, BS);
-    if (B > kRB || (size_t)smem != ring_smem_bits(wbits, D, attn))
+    if (B > kRB || !ring_parts_ok(parts, 4) ||
+        !ring_phase_ok(wbits, 0, D, n_qkv, 3) ||
+        !ring_phase_ok(wbits, 1, nq, n_o, 1) ||
+        !ring_phase_ok(wbits, 2, D, n_up, 2) ||
+        !ring_phase_ok(wbits, 3, F, n_o, 1) ||
+        (size_t)smem != ring_smem_bits(wbits, D, attn))
       return cudaErrorInvalidValue;
-    if (wbits == 0) {
-      if (D % kRingK || F % kRingK || nq % kRingK || nkv % 8)
-        return cudaErrorInvalidValue;
-    } else {
-      // every phase's stored rows a whole number of chunks, every stored
-      // row a whole number of 16-byte copies
-      const int h = wbits == 4 ? 2 : 1;
-      if ((D / h) % kRingQRows || (nq / h) % kRingQRows ||
-          F % kRingQRows || D % (16 * h) || nq % 16 || nkv % 16 ||
-          F % 16)
-        return cudaErrorInvalidValue;
-    }
   }
   if (B == 0) return cudaSuccess;
   const int plan[5] = {qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles};
@@ -1042,49 +1334,16 @@ extern "C" int decode_block_fused(
                     F};
   RingArgs ring{};
   if (body == 1) {
-    using W = const unsigned char*;
-    using S = const float*;
-    const int parts[4] = {qkv_parts, o_parts, up_parts, down_parts};
     // slots: q/k/v concatenate their columns; gate and up are paired
-    const W w[4][kRingSlots] = {{W(wq), W(wk), W(wv)}, {W(wo)},
-                                {W(wg), W(wu)}, {W(wd)}};
-    const S sc[4][kRingSlots] = {{S(sq), S(sk), S(sv)}, {S(so)},
-                                 {S(sg), S(su)}, {S(sd)}};
+    const void* w[4][kRingSlots] = {{wq, wk, wv}, {wo}, {wg, wu}, {wd}};
+    const void* sc[4][kRingSlots] = {{sq, sk, sv}, {so}, {sg, su}, {sd}};
     const int n[4][kRingSlots] = {{nq, nkv, nkv}, {D}, {F, F}, {D}};
     const int nslot[4] = {3, 1, 2, 1}, K[4] = {D, nq, D, F};
-    const ring_bf16* a_src[4] = {
-        nullptr, static_cast<const ring_bf16*>(attn.attn_ws), nullptr,
-        static_cast<const ring_bf16*>(mlp.ff_ws)};
-    const int rows = wbits ? kRingQRows : kRingK;   // stored rows a chunk
-    for (int p = 0; p < 4; ++p) {
-      RingPhase& f = ring.ph[p];
-      const int wc = wclass(wbits, p == 3);
-      f.nslot = nslot[p];
-      f.paired = p == 2;
-      f.parts = parts[p];
-      f.K = K[p];
-      f.kn = wc == kWInt4K ? K[p] / 2 : K[p];
-      f.half = wc == kWInt4K ? K[p] / 2 : 0;
-      const int chunks = cdiv(f.kn, rows);
-      f.part_rows = cdiv(chunks, parts[p]) * rows;
-      f.a_src = a_src[p];
-      int items = 0, ticks = 0, out0 = 0;
-      for (int s = 0; s < f.nslot; ++s) {
-        f.w[s] = w[p][s];
-        f.s[s] = wbits ? sc[p][s] : nullptr;
-        f.n[s] = n[p][s];
-        f.ns[s] = wc == kWInt4N ? n[p][s] / 2 : n[p][s];
-        f.tiles[s] = cdiv(f.ns[s], kRingCols);
-        f.first[s] = items;
-        items += f.tiles[s] * parts[p];
-        f.out0[s] = f.paired ? 0 : out0;
-        f.tick0[s] = f.paired ? 0 : ticks;
-        if (!f.paired || s == 0) ticks += f.tiles[s];
-        out0 += f.paired ? 0 : n[p][s];
-      }
-      f.items = items;
-      f.ncols = f.paired ? F : out0;
-    }
+    const int parts[4] = {qkv_parts, o_parts, up_parts, down_parts};
+    const void* a_src[4] = {nullptr, attn.attn_ws, nullptr, mlp.ff_ws};
+    for (int p = 0; p < 4; ++p)
+      ring.ph[p] = ring_phase_plan(p, wbits, nslot[p], w[p], sc[p], n[p],
+                                   K[p], parts[p], a_src[p]);
     ring.part = static_cast<float*>(ring_ws);
     ring.tickets = static_cast<int*>(tickets);
   }

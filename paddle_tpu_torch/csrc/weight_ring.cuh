@@ -1,8 +1,10 @@
-// The weight ring of the single-launch decode kernel's bf16 body
-// (fused_decode_block.cu, decode_block_fused at up to 8 rows in bf16, with
-// bf16, int8 or int4 weights): every product phase (q/k/v, o_proj,
-// gate/up, down) streams its weights through shared memory and multiplies
-// them on the tensor cores.
+// The weight ring of the decode kernels' bf16 bodies at up to 8 rows
+// (fused_decode_block.cu: decode_block_fused, and the two-stage
+// decode_attn_block and decode_mlp_block, with bf16, int8 or int4
+// weights): every product phase (q/k/v, o_proj, gate/up, down) streams its
+// weights through shared memory and multiplies them on the tensor cores.
+// A kernel runs the phases it holds; a phase it does not hold has no item
+// (its parts are 0) and no chunk, so one RingArgs serves all three.
 //
 // Why. At 8 rows a decode layer is a stream of ~404 MB of weights (LLaMA-7B
 // in bf16) with ~2 flops a byte. The CUDA-core body (block_products.cuh's
@@ -37,8 +39,9 @@
 // each chunk over all its k; each chunk's four depth steps are summed from
 // zero and then added to the f32 sum (the tensor core's running sum
 // truncates: mma_sync.cuh's mma2_rn lesson). decode_block_ref's rounding
-// points stay: f32 sums, q/k/v and g/u cast to bf16, o and down kept in
-// f32 into the residual.
+// points stay (f32 sums, q/k/v and g/u cast to bf16, o and down kept in
+// f32 into the residual), and so do the two-stage kernels' (o and down
+// cast to bf16 before the residual add): the epilogue is each kernel's.
 //
 // Parts. An item of a split K leaves f32 partial sums [part][8][cols]
 // in a workspace; the last of a tile's items to finish (a ticket counter
@@ -46,7 +49,9 @@
 // whatever the order they arrived in, and runs the phase's epilogue; it
 // sets the counter back to 0 for the next launch. So the sums are the same
 // in every launch, and no atomic touches a value. The counters belong to
-// one launch at a time: the wrapper keeps a buffer per (device, stream).
+// one launch at a time: the wrapper keeps a buffer per (device, stream),
+// which the three ring kernels share (launches on one stream run in turn,
+// and each leaves its counters at 0).
 //
 // Quantized weights (block_products.cuh's classes: int8 [K][N]; int4
 // packed along K, [K/2][N], byte (k', c) holding rows k' and k' + K/2;
@@ -71,7 +76,7 @@
 // by its column's f32 scale (the slot's own, indexed by the weight's own
 // column) after the whole of K: after the parts are added, in the last
 // arriver's epilogue, and only then cast, roped, SiLU'd or added to the
-// residual, at decode_block_ref's rounding points.
+// residual, at the kernel's rounding points.
 #pragma once
 
 #include "block_products.cuh"

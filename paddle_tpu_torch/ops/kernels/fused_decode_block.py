@@ -404,15 +404,17 @@ _SOURCE = "paddle_tpu_torch/csrc/fused_decode_block.cu"
 BOUNDS = {"decode_attn_block": 2, "decode_mlp_block": 2,
           "decode_block_fused": 1, "prefill_attn_block": 2,
           "decode_mlp_block_tc": 1, "prefill_attn_block_tc": 1,
-          "decode_block_fused_ring": 1}
+          "decode_block_fused_ring": 1, "decode_attn_block_ring": 1,
+          "decode_mlp_block_ring": 1}
 #: the launchers' ctypes argument codes (pointers, ints, floats, then the
 #: dtype code and the stream)
-CALLS = {"decode_attn_block": _build.c_codes(23, 19, 2),
-         "decode_mlp_block": _build.c_codes(10, 16, 1),
+CALLS = {"decode_attn_block": _build.c_codes(25, 22, 2),
+         "decode_mlp_block": _build.c_codes(12, 17, 1),
          "decode_block_fused": _build.c_codes(32, 28, 2)}
 _GRID_QUERY = {"decode_attn_block": 0, "decode_mlp_block": 1,
                "decode_block_fused": 2, "decode_mlp_block_tc": 3,
-               "decode_block_fused_ring": 4}
+               "decode_block_fused_ring": 4, "decode_attn_block_ring": 5,
+               "decode_mlp_block_ring": 6}
 _GRIDS = {}
 
 
@@ -577,16 +579,25 @@ def mlp_tc_smem(bits):
                tile_smem_bytes(wclass(bits, True), 1, MLP_DOWN_COLS))
 
 
-def mlp_body(B, D, F, dt, floor_tile=None):
+def mlp_body(B, D, F, dt, floor_tile=None, bits=0):
     """(body, reason): which body of decode_mlp_block a launch runs, the
-    rule its plan records. "tc" (csrc/tile_mma.cuh on the tensor cores) for
-    bf16 from MLP_TC_MIN_ROWS rows on, with D a multiple of 32 and F of 16
-    (16-byte copies of every class's rows and tiles); "cuda_core" (the
-    8-row passes) otherwise, and for the gate's specimen."""
+    rule its plan records. "ring" (csrc/weight_ring.cuh) for bf16 at up to
+    RING_MAX_ROWS rows where gate/up and down pass the ring's width test
+    (:func:`ring_width_reason` in weight class ``bits``); "tc"
+    (csrc/tile_mma.cuh on the tensor cores) for bf16 from MLP_TC_MIN_ROWS
+    rows on, with D a multiple of 32 and F of 16 (16-byte copies of every
+    class's rows and tiles); "cuda_core" (the 8-row passes) otherwise, and
+    for the gate's specimen."""
     if floor_tile is not None:
         return "cuda_core", "the gate's specimen runs the CUDA-core plan"
     if dt != "bfloat16":
-        return "cuda_core", f"{dt}: the tensor-core body is bf16 only"
+        return "cuda_core", (f"{dt}: the ring and tensor-core bodies are "
+                             "bf16 only")
+    if B <= RING_MAX_ROWS:
+        why = ring_width_reason(bits, D, 0, 0, F, MLP_RING_PHASES)
+        if why:
+            return "cuda_core", why
+        return "ring", _ring_reason(B, bits)
     if B < MLP_TC_MIN_ROWS:
         return "cuda_core", (f"{B} rows < {MLP_TC_MIN_ROWS}: one pass of 8 "
                              "rows reads the weights once")
@@ -644,8 +655,53 @@ RING_MAX_PARTS = 4
 #: decode_block_fused takes the ring body in bf16 up to this many rows (one
 #: pass of the 8-row activation operand)
 RING_MAX_ROWS = _ROWS
-#: the ring's product phases, in the kernel's order (its plan's keys)
+#: the ring's product phases, in the kernels' order (their plans' keys):
+#: decode_block_fused runs all four, decode_attn_block the first two and
+#: decode_mlp_block the last two
 RING_PHASES = ("qkv", "o_proj", "gate_up", "down")
+ATTN_RING_PHASES, MLP_RING_PHASES = RING_PHASES[:2], RING_PHASES[2:]
+#: the ring bodies' attention teams (the source's kRingTeams): kThreads /
+#: RING_TEAMS threads take a page item each
+RING_TEAMS = 2
+
+
+def _ring_shapes(D, nq, nkv, F):
+    """Each ring phase's (logical columns of each slot, K, paired, packed
+    along the output under int4): q, k and v concatenated; gate and up
+    paired over F; int4 down packed along its output columns."""
+    return {"qkv": ((nq, nkv, nkv), D, False, False),
+            "o_proj": ((D,), nq, False, False),
+            "gate_up": ((F, F), D, True, False),
+            "down": ((D,), F, False, True)}
+
+
+def ring_width_reason(bits, D, nq, nkv, F, phases=RING_PHASES):
+    """Why the weight ring cannot run ``phases`` at these widths in weight
+    class ``bits``, or None: the one width test of the three ring bodies
+    (the source's ``ring_phase_ok``). Each phase's stored rows of K (K / 2
+    for int4 packed along K) must be a whole number of chunks
+    (:func:`ring_rows`: 64 of bf16, RING_QROWS of codes) and each stored
+    row of each weight (N / 2 for int4 down, packed along its columns)
+    whole 16-byte copies."""
+    rows, esz = ring_rows(bits), 1 if bits else 2
+    for name in phases:
+        ns, K, _, out_packed = _ring_shapes(D, nq, nkv, F)[name]
+        wc = wclass(bits, out_packed)
+        kn = K // 2 if wc == _WINT4K else K
+        if K < 1 or (wc == _WINT4K and K % 2) or kn % rows:
+            return (f"{name}: {kn} stored rows of K {K} not a multiple of "
+                    f"{rows} (the ring's chunk, weight bits {bits})")
+        for n in ns:
+            st = n // 2 if wc == _WINT4N else n
+            if n < 1 or (wc == _WINT4N and n % 2) or (st * esz) % 16:
+                return (f"{name}: {st} stored columns of {n} not whole "
+                        f"16-byte copies (weight bits {bits})")
+    return None
+
+
+def _ring_reason(B, bits):
+    cls = {8: "int8", 4: "int4"}.get(bits, "bf16")
+    return f"{cls} weights at {B} <= {RING_MAX_ROWS} rows: the weight ring"
 
 
 def ring_rows(bits):
@@ -685,10 +741,11 @@ def ring_parts(tiles, chunks, grid, max_parts=RING_MAX_PARTS):
 def block_body(B, D, H, KV, hd, F, dt, bits):
     """(body, reason): which body of decode_block_fused a launch runs, the
     rule its plan records. "ring" (csrc/weight_ring.cuh) for bf16 at up to
-    8 rows: bf16 weights with D, F and H * hd multiples of RING_K and
-    KV * hd of 8; int8 or int4 weights with every phase's stored rows a
-    multiple of RING_QROWS (D, H * hd, halved for int4 along K, and F) and
-    every stored row whole 16-byte copies. "cuda_core"
+    8 rows where all four product phases pass the ring's width test
+    (:func:`ring_width_reason`: bf16 weights with D, F and H * hd multiples
+    of RING_K and KV * hd of 8; int8 or int4 weights with every phase's
+    stored rows a multiple of RING_QROWS, D and H * hd halved for int4
+    along K, and every stored row whole 16-byte copies). "cuda_core"
     (block_products.cuh's passes of 8 rows) otherwise: f32, more than 8
     rows, ragged widths."""
     if dt != "bfloat16":
@@ -696,39 +753,74 @@ def block_body(B, D, H, KV, hd, F, dt, bits):
     if B > RING_MAX_ROWS:
         return "cuda_core", (f"{B} rows > {RING_MAX_ROWS}: the ring runs one "
                              "pass of 8 rows")
-    nq, nkv = H * hd, KV * hd
-    if not bits:
-        if D % RING_K or F % RING_K or nq % RING_K or nkv % 8:
-            return "cuda_core", (f"D {D}, F {F} or H * hd {nq} not a "
-                                 f"multiple of {RING_K}")
-        return "ring", f"bf16 weights at {B} <= {_ROWS} rows"
-    h = 2 if bits == 4 else 1
-    if (D // h) % RING_QROWS or (nq // h) % RING_QROWS or F % RING_QROWS \
-            or D % (16 * h) or nq % 16 or nkv % 16 or F % 16:
-        return "cuda_core", (f"int{bits}: stored rows of D {D}, H * hd {nq} "
-                             f"or F {F} not a multiple of {RING_QROWS}, or "
-                             "stored rows not whole 16-byte copies")
-    return "ring", (f"int{bits} weights at {B} <= {_ROWS} rows: the ring "
-                    "carries the codes")
+    why = ring_width_reason(bits, D, H * hd, KV * hd, F)
+    if why:
+        return "cuda_core", why
+    return "ring", _ring_reason(B, bits)
 
 
-def ring_smem(D, H, KV, hd, BS, pool_item, bits=0):
-    """Shared memory of the ring body (the source's ``ring_smem``): the
-    ring (:func:`ring_stage_bytes` of the weight bits), the RMSNorm's sums
-    and the flag, then one region for the resident normalised rows [D][8]
-    or the attention scratch of two items (the body's two teams; two
-    staged steps of pages each, in the pool's type)."""
+#: decode_attn_block takes its ring body only where it is measured faster
+#: than its CUDA-core body on the same inputs, and on no class a route
+#: drives is it (PERF.md §6): the rule sends every class to the
+#: CUDA-core body with ATTN_RING_REASON, which its plan records.
+#: ``chip_smoke.ring_attn`` sets ATTN_RING to hold and time the ring body
+#: on the same inputs.
+ATTN_RING = False
+ATTN_RING_REASON = (
+    "measured no faster than the CUDA-core body on the same inputs (NVIDIA "
+    "H100, PERF.md §6): the ring body's page phase at one block an "
+    "SM (two teams of 4 warps) takes ~80 us against ~60-64 at two blocks "
+    "an SM, as much as or more than the ring saves on q/k/v and o_proj")
+
+
+def attn_body(B, D, H, KV, hd, BS, pool_item, dt, bits):
+    """(body, reason): which body of decode_attn_block a launch runs, the
+    rule its plan records. "ring" (csrc/weight_ring.cuh, the kernel
+    decode_attn_ring_kernel) for bf16 at up to RING_MAX_ROWS rows where
+    q/k/v and o_proj pass the ring's width test (:func:`ring_width_reason`),
+    its shared memory (:func:`ring_smem`: the ring and RING_TEAMS
+    attention items) fits a block and ATTN_RING is set; "cuda_core"
+    (block_products.cuh's passes of 8 rows) otherwise: f32, more than 8
+    rows, ragged widths, and with ATTN_RING_REASON every class the ring
+    could take (it is slower there)."""
+    if dt != "bfloat16":
+        return "cuda_core", f"{dt}: the weight-ring body is bf16 only"
+    if B > RING_MAX_ROWS:
+        return "cuda_core", (f"{B} rows > {RING_MAX_ROWS}: the ring runs one "
+                             "pass of 8 rows")
+    why = ring_width_reason(bits, D, H * hd, KV * hd, 0, ATTN_RING_PHASES)
+    if why:
+        return "cuda_core", why
+    need = ring_smem(D, H, KV, hd, BS, pool_item, bits)
+    if need > SMEM_LIMIT:
+        return "cuda_core", (f"the ring and {RING_TEAMS} attention items "
+                             f"need {need} B of shared memory > "
+                             f"{SMEM_LIMIT}")
+    if not ATTN_RING:
+        return "cuda_core", ATTN_RING_REASON
+    return "ring", _ring_reason(B, bits)
+
+
+def ring_smem(D, H=0, KV=1, hd=0, BS=0, pool_item=0, bits=0):
+    """Shared memory of a ring body (the source's ``ring_smem``): the ring
+    (:func:`ring_stage_bytes` of the weight bits), the RMSNorm's sums and
+    the flag, then one region for the resident normalised rows [D][8] or
+    the attention scratch of RING_TEAMS items (the body's teams; two staged
+    steps of pages each, in the pool's type). decode_mlp_block's body has
+    no attention: ``ring_smem(D, bits=bits)``."""
     sb = _PAGES_PER_STEP * BS
     g = H // KV
     f = 2 * g * hd + g * sb + 3 * g + hd
     attn = -(-f // 4) * 16 + _PAGE_STAGES * 2 * sb * hd * pool_item
     attn = -(-attn // 16) * 16
     return (RING_STAGES * ring_stage_bytes(bits) + RING_AUX
-            + max(D * _ROWS * 2, 2 * attn))
+            + max(D * _ROWS * 2, RING_TEAMS * attn))
 
 
-def ring_plan(B, D, H, KV, hd, F, grid, bits=0):
-    """The ring body's plan: for each product phase its stored column
+def ring_plan(B, D, H, KV, hd, F, grid, bits=0, phases=RING_PHASES):
+    """A ring body's plan for the product ``phases`` it runs (all four for
+    decode_block_fused, ATTN_RING_PHASES for decode_attn_block,
+    MLP_RING_PHASES for decode_mlp_block): for each its stored column
     tiles of RING_COLS (q, k and v concatenated; gate and up paired over
     F; int4 down packs two output columns a stored column), its K's
     stored rows ``kn`` (K / 2 for int4 packed along K) in chunks of
@@ -736,18 +828,14 @@ def ring_plan(B, D, H, KV, hd, F, grid, bits=0):
     each item a column tile of one weight over one part), its items and
     tickets; and the workspaces: the f32 partials of the widest phase and
     one ticket per tile."""
-    nq, nkv = H * hd, KV * hd
     rows = ring_rows(bits)
     ct = lambda n: -(-n // RING_COLS)   # noqa: E731
-    # (logical columns of each slot, K, paired, packed along the output)
-    shapes = {"qkv": ((nq, nkv, nkv), D, False, False),
-              "o_proj": ((D,), nq, False, False),
-              "gate_up": ((F, F), D, True, False),
-              "down": ((D,), F, False, True)}
+    shapes = _ring_shapes(D, H * hd, KV * hd, F)
     plan = {"body": "ring", "ring_cols": RING_COLS, "ring_k": rows,
-            "ring_stages": RING_STAGES, "grid": grid, "wbits": bits}
+            "ring_stages": RING_STAGES, "grid": grid, "wbits": bits,
+            "phases": tuple(phases)}
     part_ws = tickets = 0
-    for name in RING_PHASES:
+    for name in phases:
         ns, K, paired, out_packed = shapes[name]
         wc = wclass(bits, out_packed)
         stored = [n // 2 if wc == _WINT4N else n for n in ns]
@@ -770,26 +858,28 @@ def ring_plan(B, D, H, KV, hd, F, grid, bits=0):
     return plan
 
 
-def _ring_phases(B, D, H, KV, hd, F, MB, plan, pages, combine, bits=0):
-    """The ring body's phases for the gate: each product phase's items
-    read their weight's (part rows, RING_COLS) tile of stored rows and
-    columns, slot-major then part-major; a quantized slot's part-0 items
-    also read its scales, and down's part-0 items stand for the tile's
-    last item, which writes x_out (the parts' f32 sums lie in a workspace
-    the spec does not track); int4 down writes two column ranges a tile."""
+def _ring_phases(B, D, plan, bits, extra, pages=(), out="down"):
+    """A ring body's phases for the gate (``plan["phases"]``): each product
+    phase's items read their weight's (part rows, RING_COLS) tile of stored
+    rows and columns, slot-major then part-major; a quantized slot's part-0
+    items also read its scales, and the ``out`` phase's part-0 items stand
+    for the tile's last item, which writes x_out (the parts' f32 sums lie
+    in a workspace the spec does not track); int4 down writes two column
+    ranges a tile. ``extra``: phase -> the operands it reads whole (x [B,
+    D], a norm weight [D]); ``pages``: the attention phases, after q/k/v."""
     A = _launch.Access
     half = bits == 4
     C = RING_COLS
-    out = []
-    for name, ws, scs, extra in (
-            ("qkv", ("wq", "wk", "wv"), ("sq", "sk", "sv"), ["x", "nw"]),
-            ("o_proj", ("wo",), ("so",), []),
-            ("gate_up", ("wg", "wu"), ("sg", "su"), ["pw"]),
-            ("down", ("wd",), ("sd",), [])):
+    slots = {"qkv": (("wq", "sq"), ("wk", "sk"), ("wv", "sv")),
+             "o_proj": (("wo", "so"),), "gate_up": (("wg", "sg"),
+                                                    ("wu", "su")),
+             "down": (("wd", "sd"),)}
+    out_phases = []
+    for name in plan["phases"]:
         ph = plan[name]
         rows, P = ph["part_rows"], ph["parts"]
         reads, first = [], 0
-        for w, sc, T in zip(ws, scs, ph["tiles"]):
+        for (w, sc), T in zip(slots[name], ph["tiles"]):
             reads.append(A(w, (rows, C),
                            lambda j, T=T: (j // T, j % T), first, T * P))
             if bits and name == "down" and half:
@@ -800,19 +890,19 @@ def _ring_phases(B, D, H, KV, hd, F, MB, plan, pages, combine, bits=0):
             first += T * P
         reads += [A(e, (B, D) if e == "x" else (D,),
                     (lambda i: (0, 0)) if e == "x" else (lambda i: (0,)),
-                    0, 1) for e in extra]
+                    0, 1) for e in extra.get(name, ())]
         writes = ()
-        if name == "down":
+        if name == out:
             T = ph["tiles"][0]
             writes = ((A("x_out", (B, 1, C), lambda j: (0, 0, j), 0, T),
                        A("x_out", (B, 1, C), lambda j: (0, 1, j), 0, T))
-                      if half else (A("x_out", (B, C), lambda j: (0, j), 0,
-                                      T),))
-        out.append(_launch.KernelPhase(name, ph["items"], tuple(reads),
-                                       writes))
+                      if half and name == "down" else
+                      (A("x_out", (B, C), lambda j: (0, j), 0, T),))
+        out_phases.append(_launch.KernelPhase(name, ph["items"],
+                                              tuple(reads), writes))
         if name == "qkv":
-            out += [pages, combine]
-    return out
+            out_phases += list(pages)
+    return out_phases
 
 
 def _attn_parts(B, D, H, KV, hd, BS, MB, N, rope_rows, dt, bits, kv_bits,
@@ -943,17 +1033,28 @@ _ITEM = {"float32": 4, "bfloat16": 2}
 
 @functools.lru_cache(maxsize=512)
 def attn_spec(B, D, H, KV, hd, BS, MB, N, rope_rows, dt, bits, kv_bits,
-              residual, grid, smem):
+              residual, grid, smem, body="cuda_core"):
     """The launch spec of decode_attn_block (cached by its arguments: the
-    decode step builds it once per shape)."""
+    decode step builds it once per shape). ``body`` "ring": the weight-ring
+    body's plan (:func:`ring_plan` of q/k/v and o_proj) and phases."""
     plan = attn_plan(H * hd, KV * hd, D, 16 // _ITEM[dt], grid)
     ins, outs, phases = _attn_parts(B, D, H, KV, hd, BS, MB, N, rope_rows,
                                     dt, bits, kv_bits, plan, True)
+    bounds = "decode_attn_block"
+    if body == "ring":
+        plan = ring_plan(B, D, H, KV, hd, 0, grid, bits, ATTN_RING_PHASES)
+        phases = _ring_phases(B, D, plan, bits, {"qkv": ("x", "nw")},
+                              phases[1:3], "o_proj")
+        bounds = "decode_attn_block_ring"
+    else:
+        plan["body"] = "cuda_core"
+    plan["body_rule"] = attn_body(B, D, H, KV, hd, BS,
+                                  1 if kv_bits else _ITEM[dt], dt, bits)[1]
     return _launch.KernelLaunchSpec(
         "decode_attn_block", "cuda", _SOURCE, (grid,), _THREADS,
         tuple(ins), tuple(outs), tuple(phases),
         (("decode_attn_block", CALLS["decode_attn_block"]),), dt,
-        blocks_per_sm=BOUNDS["decode_attn_block"], cooperative=True,
+        blocks_per_sm=BOUNDS[bounds], cooperative=True,
         dyn_smem=smem, params={"residual": bool(residual), "wbits": bits,
                                "kvbits": kv_bits}, plan=plan)
 
@@ -1014,18 +1115,24 @@ def mlp_spec(B, D, F, dt, bits, residual, grid, smem, floor_tile=None,
              body="cuda_core"):
     """The launch spec of decode_mlp_block (``floor_tile``: of the gate's
     regression specimen, :func:`demo_prefix_mlp_block_cuda`; ``body``:
-    "tc" for the tensor-core body's plan, :func:`mlp_tc_plan`)."""
+    "tc" for the tensor-core body's plan, :func:`mlp_tc_plan`; "ring" for
+    the weight-ring body's, :func:`ring_plan` of gate/up and down)."""
     if body == "tc":
         plan = mlp_tc_plan(B, D, F, bits, grid)
         ins, outs, phases = _mlp_tc_parts(B, D, F, dt, bits, plan)
+    elif body == "ring":
+        plan = ring_plan(B, D, 0, 1, 0, F, grid, bits, MLP_RING_PHASES)
+        ins, outs = _mlp_operands(B, D, F, dt, bits, "x", "nw")
+        phases = _ring_phases(B, D, plan, bits, {"gate_up": ("x", "nw")})
     else:
         plan = mlp_plan(D, F, 16 // _ITEM[dt], bits, grid, floor_tile)
         plan["body"] = "cuda_core"
         ins, outs, phases = _mlp_parts(B, D, F, dt, bits, plan, "x", "nw")
-    plan["body_rule"] = mlp_body(B, D, F, dt, floor_tile)[1]
+    plan["body_rule"] = mlp_body(B, D, F, dt, floor_tile, bits)[1]
     name = ("decode_mlp_block" if floor_tile is None
             else "demo_prefix_mlp_block")
-    bounds = "decode_mlp_block_tc" if body == "tc" else "decode_mlp_block"
+    bounds = {"tc": "decode_mlp_block_tc",
+              "ring": "decode_mlp_block_ring"}.get(body, "decode_mlp_block")
     return _launch.KernelLaunchSpec(
         name, "cuda", _SOURCE, (grid,), _THREADS, tuple(ins), tuple(outs),
         tuple(phases), (("decode_mlp_block", CALLS["decode_mlp_block"]),),
@@ -1057,8 +1164,9 @@ def block_spec(B, D, H, KV, hd, F, BS, MB, N, rope_rows, dt, bits, kv_bits,
         ins[at:at] = scales
     if body == "ring":
         plan = ring_plan(B, D, H, KV, hd, F, grid, bits)
-        phases = _ring_phases(B, D, H, KV, hd, F, MB, plan, phases[1],
-                              phases[2], bits)
+        phases = _ring_phases(B, D, plan, bits, {"qkv": ("x", "nw"),
+                                                 "gate_up": ("pw",)},
+                              phases[1:3])
         m_phases = []
         bounds = "decode_block_fused_ring"
     else:
@@ -1240,16 +1348,21 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     if sin.dim() != 2 or sin.shape[1] != hd // 2:
         raise ValueError(f"{name}: rope tables must be [T, {hd // 2}], got "
                          f"{tuple(sin.shape)}")
+    dt = _launch.dtype_name(x.dtype)
+    body = attn_body(B, D, H, KV, hd, BS, k_pool.element_size(), dt,
+                     bits)[0]
     region, smem = _layout(D, H // KV, hd, BS, item, k_pool.element_size(),
                            _PAGE_STAGES)
+    kernel = "decode_attn_block"
+    if body == "ring":
+        smem = ring_smem(D, H, KV, hd, BS, k_pool.element_size(), bits)
+        kernel = "decode_attn_block_ring"
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
-    grid = coop_grid("decode_attn_block", x.device, x.dtype, bits, kv_bits,
-                     smem)
-    spec = attn_spec(B, D, H, KV, hd, BS, MB, N, sin.shape[0],
-                     _launch.dtype_name(x.dtype), bits, kv_bits,
-                     bool(residual), grid, smem)
+    grid = coop_grid(kernel, x.device, x.dtype, bits, kv_bits, smem)
+    spec = attn_spec(B, D, H, KV, hd, BS, MB, N, sin.shape[0], dt, bits,
+                     kv_bits, bool(residual), grid, smem, body)
     x_out = torch.empty_like(x)
     k_new = torch.empty((B, KV, hd), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
@@ -1263,13 +1376,20 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     n_part = B * H * -(-MB // _SPLIT_PAGES)
     ws_f = torch.empty(n_part * (2 + hd) + B * H, dtype=torch.float32,
                        device=x.device)
+    pl = spec.plan
+    ring = body == "ring"
+    # the ring body's f32 partial sums; its tickets: _ring_tickets
+    ring_ws = (torch.empty(max(pl["part_ws"], 4), dtype=torch.float32,
+                           device=x.device) if ring else None)
     if not _launch.begin(spec, x.device):
         return x_out, k_new, v_new
     fn = _build.c_fn("fused_decode_block", *spec.calls[0])
-    pl = spec.plan
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        tickets = (_ring_tickets(x.device, pl["tickets"], stream) if ring
+                   else None)
         _count(decode_attn_block_cuda, bits, kv_bits, residual)
+        decode_attn_block_cuda.launches_by_body[body] += 1
         err = fn(x.data_ptr(), nw.data_ptr(), *(w[k].data_ptr() for k in
                                                  ("wq", "wk", "wv", "wo")),
                  *(_ptr(sc[k]) for k in ("wq", "wk", "wv", "wo")),
@@ -1277,11 +1397,15 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                  v_pool.data_ptr(), _ptr(ks), _ptr(vs),
                  block_tables.data_ptr(), seq_lens.data_ptr(),
                  x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                 ws_t.data_ptr(), ws_f.data_ptr(), B, D, H, KV, hd, BS, MB,
+                 ws_t.data_ptr(), ws_f.data_ptr(), _ptr(ring_ws),
+                 _ptr(tickets), B, D, H, KV, hd, BS, MB,
                  sin.shape[0], int(bool(residual)), region, smem, bits,
-                 kv_bits, grid, pl["qkv_lpr"], pl["q_tiles"], pl["kv_tiles"],
-                 pl["o_lpr"], pl["o_tiles"], float(eps), 1.0 / math.sqrt(hd),
-                 _build.DTYPES[x.dtype], stream)
+                 kv_bits, grid, *(pl.get(k, 0) for k in (
+                     "qkv_lpr", "q_tiles", "kv_tiles", "o_lpr", "o_tiles")),
+                 int(ring),
+                 *(pl[p]["parts"] if ring else 1 for p in ATTN_RING_PHASES),
+                 float(eps), 1.0 / math.sqrt(hd), _build.DTYPES[x.dtype],
+                 stream)
     if err:
         raise RuntimeError("decode_attn_block launch failed: "
                            + fn.error_string(err).decode())
@@ -1303,9 +1427,10 @@ def _mlp_launch(name, wrapper, x, nw, wg, wu, wd, eps, residual,
                 floor_tile):
     """decode_mlp_block's kernel under its plan (``floor_tile`` None) or
     under the gate's regression specimen's floor-divided one. The plan's
-    rule (:func:`mlp_body`) picks the body: the tensor-core one at chunk
-    rows in bf16, the CUDA-core one otherwise; a failed build or launch
-    raises, never falls back to the other."""
+    rule (:func:`mlp_body`) picks the body: the weight ring at up to 8
+    rows in bf16, the tensor-core one at chunk rows in bf16, the CUDA-core
+    one otherwise; a failed build or launch raises, never falls back to
+    another."""
     _check_common(name, x, {"x": x, "nw": nw}, {})
     B, D = x.shape
     F, leaves = _mlp_leaves(x, wg, wu, wd)
@@ -1316,9 +1441,12 @@ def _mlp_launch(name, wrapper, x, nw, wg, wu, wd, eps, residual,
     bits, w, sc = _weights(name, x, leaves)
     _shape(name, "nw", nw, (D,))
     dt = _launch.dtype_name(x.dtype)
-    body = mlp_body(B, D, F, dt, floor_tile)[0]
+    body = mlp_body(B, D, F, dt, floor_tile, bits)[0]
     if body == "tc":
         region, smem, kernel = 0, mlp_tc_smem(bits), "decode_mlp_block_tc"
+    elif body == "ring":
+        region, smem = 0, ring_smem(D, bits=bits)
+        kernel = "decode_mlp_block_ring"
     else:
         region, smem = _layout(D, 0, 0, 0, item)
         kernel = "decode_mlp_block"
@@ -1335,29 +1463,39 @@ def _mlp_launch(name, wrapper, x, nw, wg, wu, wd, eps, residual,
         ws = -(-B * F // 8) * 8 + -(-B * D // 8) * 8
         ws += 2 * pl["down_parts"] * B * D if pl["down_parts"] > 1 else 0
     else:
-        # silu(g)*u, k-major rows ([pass][F][8])
+        # silu(g)*u, k-major rows ([pass][F][8]; the ring's down stages it)
         ws = _passes(B) * _ROWS * F
+    ring = body == "ring"
     out = torch.empty_like(x)
     ff_ws = torch.empty(ws, dtype=x.dtype, device=x.device)
+    ring_ws = (torch.empty(max(pl["part_ws"], 4), dtype=torch.float32,
+                           device=x.device) if ring else None)
     if not _launch.begin(spec, x.device):
         return out
     fn = _build.c_fn("fused_decode_block", *spec.calls[0])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        tickets = (_ring_tickets(x.device, pl["tickets"], stream) if ring
+                   else None)
         if floor_tile is None:
             _count(wrapper, bits, residual=residual)
             wrapper.launches_by_body[body] += 1
         else:
             wrapper.launches += 1
+        if ring:
+            parts = tuple(pl[p]["parts"] for p in MLP_RING_PHASES)
+        else:
+            parts = (1, pl.get("down_parts", 1))
         err = fn(x.data_ptr(), nw.data_ptr(),
                  *(w[k].data_ptr() for k in ("wg", "wu", "wd")),
                  *(_ptr(sc[k]) for k in ("wg", "wu", "wd")),
-                 out.data_ptr(), ff_ws.data_ptr(), B, D, F,
-                 int(bool(residual)), region, smem, bits, grid,
-                 int(body == "tc"), pl["up_lpr"], pl["up_tiles"],
-                 pl["down_lpr"], pl["down_tiles"], pl["down_k"],
-                 pl.get("row_tiles", 0), pl.get("down_parts", 1), float(eps),
-                 _build.DTYPES[x.dtype], stream)
+                 out.data_ptr(), ff_ws.data_ptr(), _ptr(ring_ws),
+                 _ptr(tickets), B, D, F, int(bool(residual)), region, smem,
+                 bits, grid, {"cuda_core": 0, "tc": 1, "ring": 2}[body],
+                 *(pl.get(k, 0) for k in ("up_lpr", "up_tiles", "down_lpr",
+                                          "down_tiles")),
+                 pl.get("down_k", F), pl.get("row_tiles", 0), *parts,
+                 float(eps), _build.DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError("decode_mlp_block launch failed: "
                            + fn.error_string(err).decode())
@@ -1517,13 +1655,17 @@ _TICKETS = {}
 
 
 def _ring_tickets(device, n, stream):
-    """The ring body's ticket counters for launches on ``stream`` (a
-    stream handle) of ``device``: one int32 per tile of its widest phase,
-    zeroed once; each launch leaves them zero (the last item of a tile
-    sets its counter back), so they are kept across launches. One buffer
-    a (device, stream): launches on one stream run one after another, so
-    no two launches in flight count into the same tickets. Grown (zeroed
-    anew) when a launch needs more."""
+    """The ring bodies' ticket counters for launches on ``stream`` (a
+    stream handle) of ``device``: at least one int32 per tile of the
+    widest phase of the launch asking (``n``), zeroed once; each launch
+    leaves them zero (the last item of a tile sets its counter back), so
+    they are kept across launches. One buffer a (device, stream), shared
+    by decode_block_fused, decode_attn_block and decode_mlp_block (a
+    tensor-parallel step's shards too, run in turn on one stream):
+    launches on one stream run one after another, so no two launches in
+    flight count into the same tickets, and the buffer is sized for the
+    largest phase any of them has asked for. Grown (zeroed anew) when a
+    launch needs more."""
     key = (device, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
@@ -1543,10 +1685,12 @@ for _w in (decode_attn_block_cuda, decode_block_fused_cuda):
 for _w in (decode_attn_block_cuda, decode_mlp_block_cuda):
     # and, for the two-stage kernels, by residual class
     _w.launches_by_residual = {"full": 0, "partial": 0}
-# and decode_mlp_block by body: "tc" (the tensor cores, chunk rows in bf16)
-# or "cuda_core" (the passes of 8 rows); decode_block_fused by body: "ring"
-# (the weight ring, bf16 at up to 8 rows) or "cuda_core"
-decode_mlp_block_cuda.launches_by_body = {"tc": 0, "cuda_core": 0}
+# and by body: "ring" (the weight ring, bf16 at up to 8 rows), "tc"
+# (decode_mlp_block on the tensor cores, chunk rows in bf16) or "cuda_core"
+# (the passes of 8 rows)
+decode_attn_block_cuda.launches_by_body = {"ring": 0, "cuda_core": 0}
+decode_mlp_block_cuda.launches_by_body = {"tc": 0, "cuda_core": 0,
+                                          "ring": 0}
 decode_block_fused_cuda.launches_by_body = {"ring": 0, "cuda_core": 0}
 
 

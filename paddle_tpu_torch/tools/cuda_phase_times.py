@@ -23,10 +23,13 @@ lengths, and serving-like lengths of 300-520 tokens):
 - the stamped phases, microseconds: decode_attn_block (qkv, pages,
   combine, o_proj), decode_mlp_block (gate/up, down) and
   decode_block_fused (all six: qkv, pages, combine, o_proj, gate/up,
-  down), on the body the wrapper picks at 8 bf16 rows (the weight ring,
-  ``csrc/weight_ring.cuh``) and, where the tree has one, on its
-  CUDA-core body too (``chip_smoke.cuda_core_block``), which is also
-  timed. The stamps add a barrier at the end of
+  down), each with the body it ran: the body the wrapper picks at 8 bf16
+  rows (the weight ring, ``csrc/weight_ring.cuh``, for all three kernels
+  in a tree whose two-stage kernels have one; decode_attn_block's rule
+  keeps its ring off, and it is stamped on as well, ``chip_smoke.
+  ring_attn``) and, where the tree has a ring, the CUDA-core bodies too
+  (``chip_smoke.cuda_core_block``), which are also timed (the block alone
+  and the pair). The stamps add a barrier at the end of
   each kernel and change register allocation: compare phases with
   phases, not with the unstamped times.
 
@@ -268,27 +271,55 @@ def decode_lengths(fdb, libs, gpu, args, bits, serving):
         for name in ("lb1", "lb2"):
             use(fdb, libs[name])
             row[f"{name}_block_ms"] = cs.cold_ms(block, iters=40)
+            row[f"{name}_pair_ms"] = cs.cold_ms(pair, iters=40)
             if ring:
                 with cs.cuda_core_block(fdb):
                     row[f"{name}_block_cuda_core_ms"] = cs.cold_ms(
                         block, iters=40)
-            row[f"{name}_pair_ms"] = cs.cold_ms(pair, iters=40)
+                    row[f"{name}_pair_cuda_core_ms"] = cs.cold_ms(
+                        pair, iters=40)
         for name in ("lb1_stamped", "lb2_stamped"):
             use(fdb, libs[name])
-            row[name] = {
-                "decode_attn_block": phases(
-                    fdb, libs[name],
-                    lambda: fdb.decode_attn_block_cuda(*attn)),
-                "decode_mlp_block": phases(
-                    fdb, libs[name],
-                    lambda: fdb.decode_mlp_block_cuda(x, pw, wg, wu, wd)),
-                "decode_block_fused": block_phases(
-                    fdb, phases(fdb, libs[name], block), bits=bits)}
+            row[name] = stamped_kernels(fdb, libs[name], block, attn,
+                                        (x, pw, wg, wu, wd), bits)
+            if hasattr(cs, "ring_attn"):
+                with cs.ring_attn(fdb):
+                    row[name]["decode_attn_block_ring"] = stamped_kernels(
+                        fdb, libs[name], block, attn, (x, pw, wg, wu, wd),
+                        bits)["decode_attn_block"]
             if ring:
                 with cs.cuda_core_block(fdb):
-                    row[name]["decode_block_fused_cuda_core"] = block_phases(
-                        fdb, phases(fdb, libs[name], block), "cuda_core")
+                    core = stamped_kernels(fdb, libs[name], block, attn,
+                                           (x, pw, wg, wu, wd), bits)
+                row[name].update({f"{k}_cuda_core": v
+                                  for k, v in core.items()})
         cs.emit(row)
+
+
+#: the two-stage kernels' stamped phases (either body: the weight ring runs
+#: its RMSNorm inside q/k/v and gate/up, as the CUDA-core body does)
+TWO_STAGE_PHASES = {"decode_attn_block": ("qkv", "pages", "combine",
+                                          "o_proj"),
+                    "decode_mlp_block": ("gate_up", "down")}
+
+
+def stamped_kernels(fdb, lib, block, attn, mlp, bits):
+    """The three fused decode kernels' stamped phases at 8 rows, each with
+    the body its plan ran (the tree's own rule, or the CUDA-core bodies
+    under ``chip_smoke.cuda_core_block``)."""
+    out = {}
+    for kernel, fn in (
+            ("decode_attn_block", lambda: fdb.decode_attn_block_cuda(*attn)),
+            ("decode_mlp_block", lambda: fdb.decode_mlp_block_cuda(*mlp))):
+        times = phases(fdb, lib, fn)
+        names = TWO_STAGE_PHASES[kernel]
+        out[kernel] = {"body": cs.launch_plan(fn).get("body", "cuda_core"),
+                       "phases_us": (dict(zip(names, times))
+                                     if len(times) == len(names) else times)}
+    out["decode_block_fused"] = block_phases(
+        fdb, phases(fdb, lib, block),
+        cs.launch_plan(block).get("body", "cuda_core"), bits)
+    return out
 
 
 #: decode_block_fused's stamped phases by body: the weight ring's norm runs

@@ -52,6 +52,14 @@ new)::
 
     --expect "decode_block_fused[[]int*" "prefill_attn_block[[]*kv8*"
 
+Against a tree from before decode_mlp_block took the weight ring (bf16
+at up to 8 rows), its bf16 8-row cases differ (every weight class, the
+tp=4 partial), nothing else: decode_attn_block's rule keeps its ring
+off, so its cases, the f32 and the chunk-row cases keep their bits::
+
+    --expect "decode_mlp_block[[]torch.bfloat16]" \
+        "decode_mlp_block[[]int?]" "decode_mlp_block[[]partial*"
+
 It imports nothing of JAX or
 of ``paddle_tpu``.
 """

@@ -547,13 +547,13 @@ def _capture_mlp(B, D, F, dtype="bfloat16", wq=None):
 
 
 @pytest.mark.parametrize("B,dt,floor,body", [
-    (8, "bfloat16", None, "cuda_core"), (9, "bfloat16", None, "tc"),
+    (8, "bfloat16", None, "ring"), (9, "bfloat16", None, "tc"),
     (32, "bfloat16", None, "tc"), (128, "bfloat16", None, "tc"),
     (128, "float32", None, "cuda_core"), (32, "bfloat16", 64, "cuda_core")])
 def test_mlp_body_by_dtype_and_rows(B, dt, floor, body):
     """bf16 from MLP_TC_MIN_ROWS rows on runs the tensor-core body; 8 rows
-    (a decode step), f32 and the gate's specimen the CUDA-core one; the
-    rule is recorded in the plan."""
+    (a decode step) the weight ring; f32 and the gate's specimen the
+    CUDA-core one; the rule is recorded in the plan."""
     got, why = fdb.mlp_body(B, 4096, 11008, dt, floor)
     assert got == body and why
     if floor is None:
