@@ -27,10 +27,10 @@ script exits non-zero:
    kernels there too), and two launches that must agree bit for bit;
    decode_block_fused also against the two-stage kernels in f32, each
    case's body recorded (bf16 at up to 8 rows: the weight ring, for
-   decode_mlp_block too; decode_attn_block's ring body, which its rule
-   keeps off as slower, held against the plain version and timed on the
-   timed inputs), and each 8-row bf16 kernel timed beside the body the
-   ring replaces on the same inputs; paged_attention_decode (the split page stream) at KV 32 and 8,
+   decode_mlp_block too, and for decode_attn_block over int8 pools but
+   for bf16 weights on a tp=4 shard's heads), and each 8-row bf16 kernel
+   on the ring timed beside the body the ring replaces on the same
+   inputs; paged_attention_decode (the split page stream) at KV 32 and 8,
    MB 72 and 75, f32 and bf16, lengths 0/1/16/17/127/the whole table,
    zeros for length 0 and two launches bit for bit; decode_mlp_block
    also at 16, 32 and 128 rows (the prefill MLP: in bf16 its tensor-core
@@ -76,13 +76,14 @@ script exits non-zero:
    prefill_attn_block (the tensor-parallel "psum" placement's partial
    products) at one shard's shapes: H = KV = 32, 16 and 8 heads and F =
    11008, 5504 and 2752 columns against D 4096 (tp 1, 2, 4), fp and int8
-   pools, int8 weights at full width, bf16 and f32, against their plain
+   pools, int8 weights at full width and over int8 pools at tp 2, bf16
+   and f32, against their plain
    versions with ``residual=False`` at the fp and kv8 phases' tolerances;
    two launches bit for bit; the residual body on the same inputs equal,
    bit for bit, to x plus the partial output; timed beside the bound at
-   the shard's shapes, the plain version, the residual body and the
-   body the ring replaces (decode_mlp_block) or the ring body
-   (decode_attn_block) on the same inputs.
+   the shard's shapes, the plain version, the residual body and, where
+   the case runs the weight ring, the body it replaces on the same
+   inputs.
 3. parity: LLaMA-7B widths, 2 layers, f32: greedy tokens for 5 requests
    through 2 slots from the engine on its default route (fused prefill,
    the single-launch decode kernel), on the two-stage decode route
@@ -106,7 +107,9 @@ script exits non-zero:
    (the final norms); every prefill_attn_block and every chunk's
    decode_mlp_block launch on the tensor-core body, every decode step's
    decode_mlp_block (the two-stage and tp psum routes) on the weight ring
-   and decode_attn_block on the CUDA-core body (``launches_by_body``).
+   and decode_attn_block on its rule's body (the weight ring on the kv8
+   two-stage and tp=2 int8-pool psum routes, the CUDA-core body on the
+   others; ``launches_by_body``).
 5. profile of that engine: 8 requests of 384 prompt tokens; the first
    two chunks of the first one (alone on the engine) traced with
    torch.profiler (device time per chunk by kernel group), every later
@@ -699,9 +702,8 @@ def fused_attn_phase(gpu):
     bits: no sum uses atomics. At 20 and 32 slots dispatch must pick the
     kernel (its shared memory does not grow with B); the bf16 32-slot
     case is timed. Each case records its body and the rule's reason (the
-    CUDA-core body in every class: the weight ring is measured slower);
-    the timed row holds the ring body against the plain version and times
-    it on the same inputs (:func:`attn_ring_row`)."""
+    CUDA-core body in every class: decode_attn_block's weight ring runs
+    over int8 pools only, :func:`kv8_decode_phase`)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.rope import build_rope_cache
@@ -732,10 +734,10 @@ def fused_attn_phase(gpu):
                 "seq_lens": args[11].tolist(), "outputs": outs,
                 "bitwise_repeatable": same, "dispatch": picked[0],
                 "body": plan["body"], "body_rule": plan["body_rule"],
-                "smem_bytes": fdb.ring_smem(D7, H7, KV, HD7, BS16, 2)
-                if plan["body"] == "ring" else fdb.attn_smem_bytes(
+                "smem_bytes": fdb.attn_smem_bytes(
                     D7, H7, KV, HD7, BS16, args[0].element_size()),
                 "ok": same and picked[0] == "cuda_fused"
+                and plan["body"] == "cuda_core"
                 and all(o["ok"] for o in outs.values())}
         if B == 32:
             case["ms"] = cold_ms(lambda: fdb.decode_attn_block_cuda(*args))
@@ -761,14 +763,11 @@ def fused_attn_phase(gpu):
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
            "library": "none: no single PyTorch call computes the block",
            "matmul_ms": cold_ms(lambda: (h @ wq, h @ wk, h @ wv, a @ wo)),
-           "body": launch_plan(
-               lambda: fdb.decode_attn_block_cuda(*timed))["body"],
-           **attn_ring_row(fdb, lambda: fdb.decode_attn_block_cuda(*timed),
-                           lambda: fdb.attn_block_ref(*timed), x.dtype),
+           **body_row(fdb, lambda: fdb.decode_attn_block_cuda(*timed)),
            "ok": True}
     emit({"phase": "kernel", "kernel": "decode_attn_block", "gpu": gpu,
           "cases": cases, **{k: row[k] for k in (
-              "ms", "ring_ms", "plain_ms", "bound_ms", "body")}})
+              "ms", "plain_ms", "bound_ms", "body", "body_rule")}})
     return row
 
 
@@ -998,45 +997,22 @@ def cuda_core_block(fdb):
         fdb.RING_MAX_ROWS = old
 
 
-@contextlib.contextmanager
-def ring_attn(fdb):
-    """decode_attn_block with its weight-ring body where the ring's widths
-    take it (``fdb.ATTN_RING``: the rule keeps it off, measured slower
-    than the CUDA-core body), to hold and time it on the same inputs."""
-    old = fdb.ATTN_RING
-    fdb.ATTN_RING = True
-    try:
-        yield
-    finally:
-        fdb.ATTN_RING = old
-
-
-def attn_ring_row(fdb, fn, plain, dt, scales=None):
-    """decode_attn_block's ring body on the inputs of the launch ``fn``:
-    its outputs against ``plain()``'s (the phase's plain version: bf16 two
-    ulps, over int8 pools :func:`_kv8_decode_outputs`), two launches bit
-    for bit, and its time in the same call as the CUDA-core body's.
-    Raises if the ring body did not run or disagrees."""
-    import torch
-    with ring_attn(fdb):
-        body = launch_plan(fn)["body"]
-        got, again = fn(), fn()
-        torch.cuda.synchronize()
-        want = plain()
-        torch.cuda.synchronize()
-        if scales is None:
-            outs = {nm: _check_case(nm, g, w, dt, tol) for nm, g, w, tol in
-                    zip(("x_out", "k_new", "v_new"), got, want,
-                        (1e-4, 1e-5, 1e-5))}
-        else:
-            outs = _kv8_decode_outputs(got, want, dt, scales)[0]
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        ms = cold_ms(fn)
-    row = {"ring_body": body, "ring_ms": ms, "ring_bitwise_repeatable": same,
-           "ring_max_abs_err": max(o["max_abs_err"] for o in outs.values())}
-    if body != "ring" or not same or not all(o["ok"] for o in outs.values()):
-        raise AssertionError(f"decode_attn_block's ring body: {row} {outs}")
+def body_row(fdb, fn):
+    """The body a launch of ``fn`` runs (its plan's ``body`` and
+    ``body_rule``) and, where that is the weight ring, the CUDA-core
+    body's time on the same inputs in the same call (:func:`core_ms`)."""
+    plan = launch_plan(fn)
+    row = {"body": plan["body"], "body_rule": plan["body_rule"]}
+    if plan["body"] == "ring":
+        row["cuda_core_ms"] = core_ms(fdb, fn)
     return row
+
+
+def attn_route_body(fdb, H, KV, pool_item, bits):
+    """The body decode_attn_block's rule gives a decode step of 8 bf16
+    rows at LLaMA-7B widths with ``H`` heads a shard (the routes' class)."""
+    return fdb.attn_body(B8, D7, H, KV, HD7, BS16, pool_item, "bfloat16",
+                         bits)[0]
 
 
 def core_ms(fdb, fn):
@@ -1289,10 +1265,10 @@ def quant_attn_phase(gpu, bits):
     and bf16, 8 and 20 slots, the fp phase's lengths; in f32 also against
     attn_block_ref (dequantize-then-matmul), at the fp tolerances; two
     launches bit for bit; dispatch must pick the kernel; each case records
-    its body. Timed at B 8, bf16, KV=32 beside its bound (integer weights
-    and scales), its plain version, the fp kernel on the same activations
-    and, held against the plain version, the ring body over the codes on
-    the same inputs (:func:`attn_ring_row`)."""
+    its body and the rule's reason (over bf16 pools the CUDA-core body).
+    Timed at B 8, bf16, KV=32 beside its bound (integer weights and
+    scales), its plain version and the fp kernel on the same
+    activations."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -1352,19 +1328,15 @@ def quant_attn_phase(gpu, bits):
            "bound_ms": b_ms, "bound_by": b_by,
            "fp_kernel_ms": cold_ms(
                lambda: fdb.decode_attn_block_cuda(*timed_fp)),
-           "body": launch_plan(
-               lambda: fdb.decode_attn_block_cuda(*timed))["body"],
-           **attn_ring_row(fdb, lambda: fdb.decode_attn_block_cuda(*timed),
-                           lambda: fdb.attn_block_wq_ref(*timed),
-                           torch.bfloat16),
+           **body_row(fdb, lambda: fdb.decode_attn_block_cuda(*timed)),
            "library_ms": None,
            "library": "none: no single PyTorch call computes the block",
            "library_products_ms": lib_ms, "library_products": lib,
            "ok": True}
     emit({"phase": "kernel", "kernel": row["name"], "gpu": gpu,
           "cases": cases, **{k: row[k] for k in (
-              "ms", "plain_ms", "bound_ms", "fp_kernel_ms", "ring_ms",
-              "body", "library_products_ms")}})
+              "ms", "plain_ms", "bound_ms", "fp_kernel_ms", "body",
+              "body_rule", "library_products_ms")}})
     return row
 
 
@@ -1736,14 +1708,15 @@ def kv8_decode_phase(gpu, op):
     the kernel-order plain version (_kv8_decode_outputs). Timed at B 8,
     bf16, KV=32 beside its bound (int8 pages and their scales, the
     weights in their class), its plain version and the fp-pool kernel on
-    the same activations; each case records its body; decode_attn_block's
-    timed row holds its ring body against the plain version and times it
-    on the same inputs (:func:`attn_ring_row`); decode_block_fused's its
-    CUDA-core body's time on the same inputs and the two-stage pair's
-    (decode_attn_block then decode_mlp_block)
-    and, for int8 and int4 weights, the bf16-weight ring's on the same
-    activations and pools (the bf16 cases of both kernels at 8 slots run
-    the weight ring, over bf16, int8 and int4 weights)."""
+    the same activations; each case records its body (decode_attn_block's
+    ring at 8 bf16 rows in every weight class, held against the plain
+    version as every case is); each timed row its body,
+    the rule's reason and, on the ring, the CUDA-core body's time on the
+    same inputs (:func:`body_row`); decode_block_fused's row also the
+    two-stage pair's (decode_attn_block then decode_mlp_block) and, for
+    int8 and int4 weights, the bf16-weight ring's on the same activations
+    and pools (decode_block_fused's bf16 cases at 8 slots run the weight
+    ring over bf16, int8 and int4 weights)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -1829,16 +1802,8 @@ def kv8_decode_phase(gpu, op):
                "library": "none: no single PyTorch call computes the "
                           + ("block" if attn else "layer"),
                "ok": True}
-        row["body"] = launch_plan(
-            lambda: wrapper(*timed, kv_scales=tsc))["body"]
-        if attn:
-            row.update(attn_ring_row(
-                fdb, lambda: wrapper(*timed, kv_scales=tsc),
-                lambda: plain(*timed, kv_scales=tsc), bf16, tsc))
-        else:
-            row["cuda_core_ms"] = core_ms(
-                fdb, lambda: wrapper(*timed, kv_scales=tsc))
-
+        row.update(body_row(fdb, lambda: wrapper(*timed, kv_scales=tsc)))
+        if not attn:
             def two_stage():
                 xo, _, _ = fdb.decode_attn_block_cuda(
                     *timed[:6], *timed[10:], kv_scales=tsc)
@@ -1850,8 +1815,8 @@ def kv8_decode_phase(gpu, op):
         emit({"phase": "kernel", "kernel": name, "gpu": gpu,
               "cases": cases, **{k: row[k] for k in (
                   "ms", "plain_ms", "bound_ms", "fp_pool_kernel_ms",
-                  "cuda_core_ms", "ring_ms", "two_stage_ms", "bf16_ring_ms",
-                  "body")
+                  "cuda_core_ms", "two_stage_ms", "bf16_ring_ms", "body",
+                  "body_rule")
                   if k in row}})
         rows.append(row)
     return rows
@@ -2269,8 +2234,9 @@ def serving_phase(gpu, params, route):
     Every prefill_attn_block launch and every chunk's decode_mlp_block
     launch runs the tensor-core body (``launches_by_body`` "tc"), every
     decode step's decode_mlp_block (the two-stage route's 8 rows, bf16)
-    the weight ring ("ring"), and its decode_attn_block the CUDA-core body
-    (the rule's choice: its ring is measured slower)."""
+    the weight ring ("ring"), and its decode_attn_block the body its rule
+    gives the route's class (:func:`attn_route_body`: the weight ring on
+    the kv8 two-stage route, the CUDA-core body over bf16 pools)."""
     import torch
     from paddle_tpu_torch.inference import GenerationConfig, ServingEngine
     from paddle_tpu_torch.models import LLAMA_7B
@@ -2406,15 +2372,20 @@ def serving_phase(gpu, params, route):
                              f"({steps} decode steps, {chunks} chunks, "
                              f"{len(calib_s)} calibrations)")
     # every bf16 chunk (32 or 128 rows) runs the tensor-core bodies; the
-    # two-stage route's decode step (8 rows) the weight ring
+    # two-stage route's decode step (8 rows) the weight ring for the MLP
+    # and its rule's body for the attention
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     chunk_mlp = L * chunks if base != "unfused" else 0
+    attn_n = counts["decode_attn_block"]
+    attn_ring = attn_route_body(fdb, H7, H7, 1 if kv8 else 2,
+                                {"int8": 8, "int4": 4}.get(wq, 0)) == "ring"
     want_body = {"prefill_attn_block": {"tc": counts["prefill_attn_block"],
                                         "cuda_core": 0},
                  "decode_mlp_block": {"tc": chunk_mlp, "cuda_core": 0,
                                       "ring": counts["decode_mlp_block"]
                                       - chunk_mlp},
-                 "decode_attn_block": {"ring": 0, "cuda_core":
-                                       counts["decode_attn_block"]}}
+                 "decode_attn_block": {"ring": attn_n * attn_ring,
+                                       "cuda_core": attn_n * (not attn_ring)}}
     if by_body != want_body:
         raise AssertionError(f"{route}: launches by body {by_body} != "
                              f"{want_body}")
@@ -2705,7 +2676,8 @@ TP_REPLACES = {
 TP_ATTN_CASES = ((1, False, 0, "bfloat16"), (2, False, 0, "bfloat16"),
                  (4, False, 0, "bfloat16"), (2, True, 0, "bfloat16"),
                  (4, True, 0, "bfloat16"), (1, False, 8, "bfloat16"),
-                 (2, False, 0, "float32"), (4, True, 0, "float32"))
+                 (2, True, 8, "bfloat16"), (2, False, 0, "float32"),
+                 (4, True, 0, "float32"))
 # (tp, dtype): F = 11008 / tp columns of a shard (2752: no tile divides)
 TP_MLP_CASES = ((1, "bfloat16"), (2, "bfloat16"), (4, "bfloat16"),
                 (2, "float32"), (4, "float32"))
@@ -2754,10 +2726,11 @@ def tp_attn_phase(gpu):
     lengths), at the fp and kv8 phases' tolerances; two launches bit for
     bit; the residual body on the same inputs equal to x plus this one's
     output, and its k_new/v_new equal; dispatch on the per-shard meta
-    (tp in it) picks the kernel; each case records its body. Each bf16
-    case is timed beside its bound at the shard's shapes, its plain
-    version, the residual body and, held against the plain version, its
-    ring body on the same inputs (:func:`attn_ring_row`)."""
+    (tp in it) picks the kernel; each case records its body (over int8
+    pools the weight ring but for bf16 weights at tp=4, held against the
+    plain version as every case is). Each bf16 case is timed beside its bound at the
+    shard's shapes, its plain version, the residual body and, on the ring,
+    the CUDA-core body on the same inputs (:func:`body_row`)."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     from paddle_tpu_torch.ops.kernels.registry import KERNELS
@@ -2831,17 +2804,13 @@ def tp_attn_phase(gpu):
              "bound_ms": b_ms, "bound_by": b_by,
              "full_residual_ms": cold_ms(
                  lambda: fdb.decode_attn_block_cuda(*base, **kw)),
-             "body": case["body"],
-             **attn_ring_row(
-                 fdb, lambda: fdb.decode_attn_block_cuda(
-                     *base, **kw, residual=False),
-                 lambda: plain(*base, **kw, residual=False), dt,
-                 kw.get("kv_scales"))}))
+             **body_row(fdb, lambda: fdb.decode_attn_block_cuda(
+                 *base, **kw, residual=False))}))
     emit({"phase": "kernel", "kernel": "decode_attn_block[partial]",
           "gpu": gpu, "cases": cases,
           "timed": {r["name"]: {k: r[k] for k in (
               "ms", "plain_ms", "bound_ms", "full_residual_ms", "body",
-              "ring_ms")} for r in rows}})
+              "body_rule", "cuda_core_ms") if k in r} for r in rows}})
     return rows
 
 
@@ -3056,8 +3025,10 @@ def tp_serving_phase(gpu, params, route):
     MLP in the "full" class once per layer per chunk), tp=2 the verbatim
     chunk (RMSNorm 2L+1 a chunk); every decode launch of decode_mlp_block
     runs the weight ring (``launches_by_body`` "ring") and of
-    decode_attn_block the CUDA-core body (the rule's choice), the chunks'
-    MLP the tensor-core body. The gather route runs the composition:
+    decode_attn_block the body its rule gives the shard's class
+    (:func:`attn_route_body`: the weight ring over int8 pools, the
+    CUDA-core body over bf16 pools), the chunks' MLP the tensor-core
+    body. The gather route runs the composition:
     paged attention tp x L times a step, RMSNorm 2L+1 a step and a chunk,
     no block kernel. Over int8 pools every pool read is in the int8 class
     and the calibration (the placement's dense forward) adds 2L+1
@@ -3155,8 +3126,12 @@ def tp_serving_phase(gpu, params, route):
         if by_res != want_res:
             raise AssertionError(f"{route}: launches by residual {by_res} "
                                  f"!= {want_res}")
-        want_body = {"decode_attn_block": {"ring": 0,
-                                           "cuda_core": tp * L * steps},
+        from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+        n = tp * L * steps
+        ring = attn_route_body(fdb, H7 // tp, H7 // tp,
+                               1 if cache == "int8" else 2, 0) == "ring"
+        want_body = {"decode_attn_block": {"ring": n * ring,
+                                           "cuda_core": n * (not ring)},
                      "decode_mlp_block": {"ring": tp * L * steps,
                                           "tc": L * chunks if fused else 0,
                                           "cuda_core": 0}}

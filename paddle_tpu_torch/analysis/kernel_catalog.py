@@ -190,25 +190,18 @@ def _mlp_weights(D, F, dtype, wq):
 
 
 def _attn_block_case(B, D, H, KV, hd, BS, N, MB, dtype, quant=False,
-                     wq=None, residual=True, ring=False):
-    """``ring``: the launch under ``fdb.ATTN_RING`` (the ring body the rule
-    keeps off, audited all the same)."""
+                     wq=None, residual=True):
     def build():
         from ..ops.kernels import fused_decode_block as fdb
 
         def fn():
             pool, scales = _pools(N, BS, KV, hd, dtype, quant)
             rope = _meta((MB * BS + 1, hd // 2), "float32")
-            old, fdb.ATTN_RING = fdb.ATTN_RING, ring or fdb.ATTN_RING
-            try:
-                fdb.decode_attn_block_cuda(
-                    _meta((B, D), dtype), _meta((D,), dtype),
-                    *_attn_weights(D, H, KV, hd, dtype, wq), rope, rope,
-                    pool, pool, _meta((B, MB), "int32"),
-                    _meta((B,), "int32"), kv_scales=scales,
-                    residual=residual)
-            finally:
-                fdb.ATTN_RING = old
+            fdb.decode_attn_block_cuda(
+                _meta((B, D), dtype), _meta((D,), dtype),
+                *_attn_weights(D, H, KV, hd, dtype, wq), rope, rope,
+                pool, pool, _meta((B, MB), "int32"), _meta((B,), "int32"),
+                kv_scales=scales, residual=residual)
         return fn
     return build
 
@@ -383,42 +376,51 @@ def kernel_cases() -> List[KernelCase]:
           ("decode_attn_block",),
           _attn_block_case(_B, _D, 16, 16, _HD, _BS, _N, _MB, bf,
                            residual=False)),
-        # decode_attn_block's weight-ring body (bf16 at up to 8 rows; the
-        # rule keeps it off, fdb.ATTN_RING, and these cases audit it on): a
-        # tiny case whose K splits into parts in every weight class and
-        # over int8 pools, 7B in every class, the tp=2 shard's partials
-        C("decode_attn_block", "tiny_ring", ("decode_attn_block",),
-          _attn_block_case(5, 512, 4, 2, 64, 8, 41, 8, bf, ring=True)),
-        C("decode_attn_block", "tiny_ring_int8_weights",
-          ("decode_attn_block",),
-          _attn_block_case(5, 512, 4, 2, 64, 8, 41, 8, bf, wq="int8",
-                           ring=True)),
-        C("decode_attn_block", "tiny_ring_int4_weights",
-          ("decode_attn_block",),
-          _attn_block_case(5, 512, 4, 2, 64, 8, 41, 8, bf, wq="int4",
-                           ring=True)),
+        # decode_attn_block's weight-ring body (bf16 at up to 8 rows over
+        # int8 pools, but for bf16 weights on a tp=4 shard's heads; 7B over
+        # int8 pools, flagship_serving_int8 above, runs it too): a tiny case
+        # whose K splits into parts in every weight class, 7B with int8 and
+        # int4 weights and GQA 4:1, the tp=2 shard's partials with bf16 and
+        # int8 weights, the tp=4 shard's with int4; and the tp=4 shard with
+        # bf16 weights, which the rule keeps on the CUDA-core body
         C("decode_attn_block", "tiny_ring_int8", ("decode_attn_block",),
-          _attn_block_case(5, 512, 4, 2, 64, 8, 41, 8, bf, quant=True,
-                           ring=True)),
-        C("decode_attn_block", "flagship_serving_ring",
-          ("decode_attn_block",), _attn_block_case(*attn7, ring=True)),
-        C("decode_attn_block", "flagship_serving_int8_ring",
+          _attn_block_case(5, 256, 4, 2, 64, 8, 41, 8, bf, quant=True)),
+        C("decode_attn_block", "tiny_ring_int8_weights_int8",
           ("decode_attn_block",),
-          _attn_block_case(*attn7, quant=True, ring=True)),
-        C("decode_attn_block", "flagship_serving_int8_weights_ring",
+          _attn_block_case(5, 256, 4, 2, 64, 8, 41, 8, bf, quant=True,
+                           wq="int8")),
+        C("decode_attn_block", "tiny_ring_int4_weights_int8",
           ("decode_attn_block",),
-          _attn_block_case(*attn7, wq="int8", ring=True)),
-        C("decode_attn_block", "flagship_serving_int4_weights_ring",
+          _attn_block_case(5, 256, 4, 2, 64, 8, 41, 8, bf, quant=True,
+                           wq="int4")),
+        C("decode_attn_block", "flagship_serving_int8_weights_int8",
           ("decode_attn_block",),
-          _attn_block_case(*attn7, wq="int4", ring=True)),
-        C("decode_attn_block", "flagship_serving_tp2_partial_ring",
+          _attn_block_case(*attn7, quant=True, wq="int8")),
+        C("decode_attn_block", "flagship_serving_int4_weights_int8",
+          ("decode_attn_block",),
+          _attn_block_case(*attn7, quant=True, wq="int4")),
+        C("decode_attn_block", "flagship_serving_gqa_int8_weights_int8",
+          ("decode_attn_block",),
+          _attn_block_case(_B, _D, _H, 8, _HD, _BS, _N, _MB, bf,
+                           quant=True, wq="int8")),
+        C("decode_attn_block",
+          "flagship_serving_tp2_partial_int8_weights_int8",
           ("decode_attn_block",),
           _attn_block_case(_B, _D, 16, 16, _HD, _BS, _N, _MB, bf,
-                           residual=False, ring=True)),
-        C("decode_attn_block", "flagship_serving_tp2_partial_int8_ring",
+                           quant=True, wq="int8", residual=False)),
+        C("decode_attn_block",
+          "flagship_serving_tp4_partial_int4_weights_int8",
+          ("decode_attn_block",),
+          _attn_block_case(_B, _D, 8, 8, _HD, _BS, _N, _MB, bf,
+                           quant=True, wq="int4", residual=False)),
+        C("decode_attn_block", "flagship_serving_tp2_partial_int8",
           ("decode_attn_block",),
           _attn_block_case(_B, _D, 16, 16, _HD, _BS, _N, _MB, bf,
-                           quant=True, residual=False, ring=True)),
+                           quant=True, residual=False)),
+        C("decode_attn_block", "flagship_serving_tp4_partial_int8",
+          ("decode_attn_block",),
+          _attn_block_case(_B, _D, 8, 8, _HD, _BS, _N, _MB, bf,
+                           quant=True, residual=False)),
         C("decode_block_fused", "tiny", ("decode_block_fused",),
           _block_case(2, 32, 2, 2, 16, 64, 8, 8, 4, f32)),
         C("decode_block_fused", "flagship_serving", ("decode_block_fused",),

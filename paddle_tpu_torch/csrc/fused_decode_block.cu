@@ -119,20 +119,21 @@
 // grid, and the next product phase's first chunks issued before the
 // barrier that precedes it (weight_ring.cuh says why and how). f32 and
 // more rows keep the CUDA-core body and its bits.
-// decode_attn_block and decode_mlp_block have ring bodies for bf16 at up
-// to 8 rows, every weight class, both pool classes and both residual
-// classes (plan["body"] "ring"): decode_attn_ring_kernel (the RMSNorm with
-// q/k/v's first chunks in flight, q/k/v on the ring | pages | combine, with
-// o_proj's first chunks issued before the barrier | o_proj on the ring) and
-// decode_mlp_ring_kernel (RMSNorm, gate/up on the ring | down on the ring).
-// Their epilogues keep the two-stage rounding points above (o and down
+// decode_mlp_block has a ring body for bf16 at up to 8 rows, every weight
+// class and both residual classes (plan["body"] "ring"):
+// decode_mlp_ring_kernel (RMSNorm, gate/up on the ring | down on the
+// ring). decode_attn_block has one over int8 pools only, every weight
+// class and both residual classes: decode_attn_ring_kernel (the RMSNorm
+// with q/k/v's first chunks in flight, q/k/v on the ring | pages in
+// kAttnRingTeams teams | combine, with o_proj's first chunks issued before
+// the barrier | o_proj on the ring). Over bf16 pools its page phase at one
+// block an SM is slower than the CUDA-core body's at two blocks an SM by
+// more than the ring saves on q/k/v and o_proj (PERF.md), so no bf16-pool
+// instance is built; the wrapper's rule says which int8-pool classes take
+// it. Both epilogues keep the two-stage rounding points above (o and down
 // cast to T before x is added in T, or alone when residual is 0), not the
-// single-launch kernel's f32 residual. decode_mlp_block runs its ring; the
-// wrapper's rule keeps decode_attn_block's off: at one block an SM its
-// page phase (kRingTeams teams of warps) is slower than the CUDA-core
-// body's at two blocks an SM by more than the ring saves on q/k/v and
-// o_proj (PERF.md). Not done yet (later work): a multi-layer form over
-// thread-block clusters.
+// single-launch kernel's f32 residual. Not done yet (later work): a
+// multi-layer form over thread-block clusters.
 //
 // Shared memory, sized by the wrapper (ops/kernels/fused_decode_block.py,
 // the one definition of the sizes) and passed in, is carved as
@@ -714,27 +715,31 @@ decode_block_fused_kernel(const BlockArgs a) {
 // (WQ), at most 8 rows, fp or int8 pools (KQ). Shared memory: the ring,
 // then the RMSNorm's per-warp sums and the ticket flag (kRingAux bytes),
 // then one region that holds either the phase's resident normalised rows
-// [D][8] or the attention scratch of kRingTeams items (the block's teams
-// of kThreads / kRingTeams threads take an item each: the attention phase
-// is bound by each item's chain of page steps, not by bytes).
+// [D][8] or the attention scratch of one item a team (the block's teams
+// of kThreads / teams threads take an item each: the attention phase is
+// bound by each item's chain of page steps, not by bytes). The
+// single-launch ring runs kRingTeams teams (two items' scratch fits beside
+// the ring over bf16 pools); decode_attn_block's ring, over int8 pools
+// only, kAttnRingTeams (four teams of two warps: its page phase measured
+// faster than two teams of four warps, PERF.md).
 constexpr int kRingAux = 512;
 constexpr int kRingTeams = 2;
+constexpr int kAttnRingTeams = 4;
 
 // ring_smem: a ring body's dynamic shared memory under weight bits WQ for
-// D and the attention scratch (``attn`` bytes: one item's paged_stream
-// scratch with two staged steps in the pools' type, attn_item_bytes; each
-// of the body's kRingTeams teams holds one item; 0: decode_mlp_block's
-// body, which has no attention)
+// D and the attention scratch of ``teams`` items (``attn`` bytes an item:
+// one paged_stream scratch with two staged steps in the pools' type,
+// attn_item_bytes; 0: decode_mlp_block's body, which has no attention)
 template <int WQ>
-inline size_t ring_smem(int D, size_t attn) {
+inline size_t ring_smem(int D, size_t attn, int teams) {
   return (size_t)kRingStages * RingGeom<WQ>::stage + kRingAux +
-         std::max((size_t)D * kRB * sizeof(ring_bf16), kRingTeams * attn);
+         std::max((size_t)D * kRB * sizeof(ring_bf16), teams * attn);
 }
 
-inline size_t ring_smem_bits(int wbits, int D, size_t attn) {
-  return wbits == 8   ? ring_smem<8>(D, attn)
-         : wbits == 4 ? ring_smem<4>(D, attn)
-                      : ring_smem<0>(D, attn);
+inline size_t ring_smem_bits(int wbits, int D, size_t attn, int teams) {
+  return wbits == 8   ? ring_smem<8>(D, attn, teams)
+         : wbits == 4 ? ring_smem<4>(D, attn, teams)
+                      : ring_smem<0>(D, attn, teams);
 }
 
 template <int WQ, bool KQ>
@@ -820,8 +825,8 @@ struct MlpRingArgs {
 // decode_attn_block's ring body: the single-launch ring's attention half
 // with the two-stage epilogues (q/k/v as above; o = T(the scaled f32 sum),
 // x_out = x + o in T, or o alone when residual is 0). The page phase is
-// paged_stream.cuh's split page stream in kRingTeams teams, as the
-// single-launch ring runs it; its cp.async groups never mix with the
+// paged_stream.cuh's split page stream in kAttnRingTeams teams (int8
+// pools only: KQ is true in every instance); its cp.async groups never mix with the
 // ring's (q/k/v's chunks are all consumed before it; o_proj's are issued
 // after it).
 template <int WQ, bool KQ>
@@ -853,9 +858,9 @@ decode_attn_ring_kernel(const AttnRingArgs a) {
                        qkv[(size_t)row * ncols + c] = from_float<T>(v[0]);
                      });
   grid.sync();
-  attn_pages_phase<T, KQ, kRingTeams>(a.attn, region);
+  attn_pages_phase<T, KQ, kAttnRingTeams>(a.attn, region);
   grid.sync();
-  attn_combine_phase<T, KQ, kRingTeams>(a.attn);
+  attn_combine_phase<T, KQ, kAttnRingTeams>(a.attn);
   // o_proj's first chunks fly across the barrier
   g.stop = g.base[4];
   ring_prefetch<WQ>(r, g, ring, g.base[1] + kRingStages - 1);
@@ -939,19 +944,13 @@ inline KernelFn<BlockArgs> ring_kernel(int dtype, int wbits, int kvbits) {
   return nullptr;
 }
 
+// decode_attn_block's ring body: bf16 activations over int8 pools only
 inline KernelFn<AttnRingArgs> attn_ring_kernel(int dtype, int wbits,
                                                int kvbits) {
-  if (dtype != 1 || (kvbits != 0 && kvbits != 8)) return nullptr;
-  const bool kq = kvbits == 8;
-  if (wbits == 0)
-    return kq ? decode_attn_ring_kernel<0, true>
-              : decode_attn_ring_kernel<0, false>;
-  if (wbits == 8)
-    return kq ? decode_attn_ring_kernel<8, true>
-              : decode_attn_ring_kernel<8, false>;
-  if (wbits == 4)
-    return kq ? decode_attn_ring_kernel<4, true>
-              : decode_attn_ring_kernel<4, false>;
+  if (dtype != 1 || kvbits != 8) return nullptr;
+  if (wbits == 0) return decode_attn_ring_kernel<0, true>;
+  if (wbits == 8) return decode_attn_ring_kernel<8, true>;
+  if (wbits == 4) return decode_attn_ring_kernel<4, true>;
   return nullptr;
 }
 
@@ -1116,12 +1115,13 @@ extern "C" int decode_coop_grid(int which, int dtype, int wbits, int kvbits,
 }
 
 // ws_t and ws_f as attn_args carves them. body 0: the CUDA-core body
-// (the tile plan); body 1: the weight-ring body (bf16, B <= 8, the widths
-// ring_phase_ok takes), whose plan is the parts of K of q/k/v and o_proj
-// (1 to kRingMaxParts), at its own shared memory (ring_smem over two
-// attention items), with ring_ws the f32 partials of its wider phase and
-// tickets one int per tile of its widest phase, 0 before the launch (each
-// launch leaves them 0; one launch at a time may hold them).
+// (the tile plan); body 1: the weight-ring body (bf16 over int8 pools, B
+// <= 8, the widths ring_phase_ok takes), whose plan is the parts of K of
+// q/k/v and o_proj (1 to kRingMaxParts), at its own shared memory
+// (ring_smem over kAttnRingTeams attention items), with ring_ws the f32
+// partials of its wider phase and tickets one int per tile of its widest
+// phase, 0 before the launch (each launch leaves them 0; one launch at a
+// time may hold them).
 extern "C" int decode_attn_block(
     const void* x, const void* nw, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* sq, const void* sk,
@@ -1158,12 +1158,11 @@ extern "C" int decode_attn_block(
   const int nq = H * hd, nkv = KV * hd;
   const int parts[2] = {qkv_parts, o_parts};
   const int n_qkv[3] = {nq, nkv, nkv}, n_o[1] = {D};
-  const size_t attn = kvbits ? attn_item_bytes<int8_t>(H / KV, hd, BS)
-                             : attn_item_bytes<ring_bf16>(H / KV, hd, BS);
+  const size_t attn = attn_item_bytes<int8_t>(H / KV, hd, BS);
   if (B > kRB || !ring_parts_ok(parts, 2) ||
       !ring_phase_ok(wbits, 0, D, n_qkv, 3) ||
       !ring_phase_ok(wbits, 1, nq, n_o, 1) ||
-      (size_t)smem != ring_smem_bits(wbits, D, attn))
+      (size_t)smem != ring_smem_bits(wbits, D, attn, kAttnRingTeams))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   AttnRingArgs a{attn_args(
@@ -1214,7 +1213,7 @@ extern "C" int decode_mlp_block(const void* x, const void* nw, const void* wg,
     if (B > kRB || !ring_parts_ok(parts, 2) ||
         !ring_phase_ok(wbits, 2, D, n_up, 2) ||
         !ring_phase_ok(wbits, 3, F, n_down, 1) ||
-        (size_t)smem != ring_smem_bits(wbits, D, 0))
+        (size_t)smem != ring_smem_bits(wbits, D, 0, 0))
       return cudaErrorInvalidValue;
     if (B == 0) return cudaSuccess;
     MlpRingArgs a{MlpArgs{x, nw, wg, wu, wd, static_cast<const float*>(sg),
@@ -1312,7 +1311,7 @@ extern "C" int decode_block_fused(
         !ring_phase_ok(wbits, 1, nq, n_o, 1) ||
         !ring_phase_ok(wbits, 2, D, n_up, 2) ||
         !ring_phase_ok(wbits, 3, F, n_o, 1) ||
-        (size_t)smem != ring_smem_bits(wbits, D, attn))
+        (size_t)smem != ring_smem_bits(wbits, D, attn, kRingTeams))
       return cudaErrorInvalidValue;
   }
   if (B == 0) return cudaSuccess;

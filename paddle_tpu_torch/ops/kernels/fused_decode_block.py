@@ -660,9 +660,12 @@ RING_MAX_ROWS = _ROWS
 #: decode_mlp_block the last two
 RING_PHASES = ("qkv", "o_proj", "gate_up", "down")
 ATTN_RING_PHASES, MLP_RING_PHASES = RING_PHASES[:2], RING_PHASES[2:]
-#: the ring bodies' attention teams (the source's kRingTeams): kThreads /
-#: RING_TEAMS threads take a page item each
+#: the single-launch ring's attention teams (the source's kRingTeams):
+#: kThreads / RING_TEAMS threads take a page item each
 RING_TEAMS = 2
+#: decode_attn_block's ring, over int8 pools only, runs its page and
+#: combine phases in this many teams (the source's kAttnRingTeams)
+ATTN_RING_TEAMS = 4
 
 
 def _ring_shapes(D, nq, nkv, F):
@@ -759,62 +762,81 @@ def block_body(B, D, H, KV, hd, F, dt, bits):
     return "ring", _ring_reason(B, bits)
 
 
-#: decode_attn_block takes its ring body only where it is measured faster
-#: than its CUDA-core body on the same inputs, and on no class a route
-#: drives is it (PERF.md §6): the rule sends every class to the
-#: CUDA-core body with ATTN_RING_REASON, which its plan records.
-#: ``chip_smoke.ring_attn`` sets ATTN_RING to hold and time the ring body
-#: on the same inputs.
-ATTN_RING = False
-ATTN_RING_REASON = (
-    "measured no faster than the CUDA-core body on the same inputs (NVIDIA "
-    "H100, PERF.md §6): the ring body's page phase at one block an "
-    "SM (two teams of 4 warps) takes ~80 us against ~60-64 at two blocks "
-    "an SM, as much as or more than the ring saves on q/k/v and o_proj")
+#: why decode_attn_block's ring body is not built over bf16 pools
+ATTN_RING_FP_POOLS = (
+    "bf16 pools: the ring body runs over int8 pools only; over bf16 pools "
+    "its page phase at one block an SM (~80 us at LLaMA-7B widths, 8 rows) "
+    "takes longer than the CUDA-core body's at two blocks an SM (~60-64) "
+    "by more than the ring saves on q/k/v and o_proj: measured slower in "
+    "every bf16-pool class (NVIDIA H100, PERF.md section 6)")
+#: why it keeps the CUDA-core body for bf16 weights on a narrow shard
+ATTN_RING_SHARD = (
+    "int8 pools, bf16 weights, H * hd <= D / 4 (a tp=4 shard's heads): "
+    "measured slower on the ring than on the CUDA-core body at LLaMA-7B's "
+    "tp=4 shard (NVIDIA H100, PERF.md section 6): the products shrink "
+    "with the shard and the fewer page items leave the ring's teams idle; "
+    "over int8 pools the ring pays with int8 or int4 weights, and with "
+    "bf16 weights at full width and at a tp=2 shard")
+
+
+def attn_ring_pays(bits, pool_item, nq, D):
+    """Why decode_attn_block's ring body does not pay in this class, or
+    None (the part of :func:`attn_body` its measurements decide, PERF.md
+    section 6, ``tools/attn_body_ab.py``): over bf16 pools never (no such
+    instance is built); over int8 pools with int8 or int4 weights, and
+    with bf16 weights unless ``nq = H * hd`` is a quarter of D or less (a
+    tp=4 shard)."""
+    if pool_item != 1:
+        return ATTN_RING_FP_POOLS
+    if not bits and 4 * nq <= D:
+        return ATTN_RING_SHARD
+    return None
 
 
 def attn_body(B, D, H, KV, hd, BS, pool_item, dt, bits):
     """(body, reason): which body of decode_attn_block a launch runs, the
     rule its plan records. "ring" (csrc/weight_ring.cuh, the kernel
-    decode_attn_ring_kernel) for bf16 at up to RING_MAX_ROWS rows where
-    q/k/v and o_proj pass the ring's width test (:func:`ring_width_reason`),
-    its shared memory (:func:`ring_smem`: the ring and RING_TEAMS
-    attention items) fits a block and ATTN_RING is set; "cuda_core"
-    (block_products.cuh's passes of 8 rows) otherwise: f32, more than 8
-    rows, ragged widths, and with ATTN_RING_REASON every class the ring
-    could take (it is slower there)."""
+    decode_attn_ring_kernel) for bf16 at up to RING_MAX_ROWS rows over
+    int8 pools (``pool_item`` 1) where q/k/v and o_proj pass the ring's
+    width test (:func:`ring_width_reason`), the ring is measured faster
+    (:func:`attn_ring_pays`) and its shared memory (:func:`ring_smem`:
+    the ring and ATTN_RING_TEAMS attention items) fits a block;
+    "cuda_core" (block_products.cuh's passes of 8 rows) otherwise: f32,
+    more than 8 rows, ragged widths, bf16 pools, and bf16 weights on a
+    tp=4 shard's heads."""
     if dt != "bfloat16":
         return "cuda_core", f"{dt}: the weight-ring body is bf16 only"
     if B > RING_MAX_ROWS:
         return "cuda_core", (f"{B} rows > {RING_MAX_ROWS}: the ring runs one "
                              "pass of 8 rows")
-    why = ring_width_reason(bits, D, H * hd, KV * hd, 0, ATTN_RING_PHASES)
+    why = (ring_width_reason(bits, D, H * hd, KV * hd, 0, ATTN_RING_PHASES)
+           or attn_ring_pays(bits, pool_item, H * hd, D))
     if why:
         return "cuda_core", why
-    need = ring_smem(D, H, KV, hd, BS, pool_item, bits)
+    need = ring_smem(D, H, KV, hd, BS, pool_item, bits, ATTN_RING_TEAMS)
     if need > SMEM_LIMIT:
-        return "cuda_core", (f"the ring and {RING_TEAMS} attention items "
-                             f"need {need} B of shared memory > "
+        return "cuda_core", (f"the ring and {ATTN_RING_TEAMS} attention "
+                             f"items need {need} B of shared memory > "
                              f"{SMEM_LIMIT}")
-    if not ATTN_RING:
-        return "cuda_core", ATTN_RING_REASON
     return "ring", _ring_reason(B, bits)
 
 
-def ring_smem(D, H=0, KV=1, hd=0, BS=0, pool_item=0, bits=0):
+def ring_smem(D, H=0, KV=1, hd=0, BS=0, pool_item=0, bits=0,
+              teams=RING_TEAMS):
     """Shared memory of a ring body (the source's ``ring_smem``): the ring
     (:func:`ring_stage_bytes` of the weight bits), the RMSNorm's sums and
     the flag, then one region for the resident normalised rows [D][8] or
-    the attention scratch of RING_TEAMS items (the body's teams; two staged
-    steps of pages each, in the pool's type). decode_mlp_block's body has
-    no attention: ``ring_smem(D, bits=bits)``."""
+    the attention scratch of ``teams`` items (the body's teams: RING_TEAMS
+    for decode_block_fused, ATTN_RING_TEAMS for decode_attn_block; two
+    staged steps of pages each, in the pool's type). decode_mlp_block's
+    body has no attention: ``ring_smem(D, bits=bits)``."""
     sb = _PAGES_PER_STEP * BS
     g = H // KV
     f = 2 * g * hd + g * sb + 3 * g + hd
     attn = -(-f // 4) * 16 + _PAGE_STAGES * 2 * sb * hd * pool_item
     attn = -(-attn // 16) * 16
     return (RING_STAGES * ring_stage_bytes(bits) + RING_AUX
-            + max(D * _ROWS * 2, RING_TEAMS * attn))
+            + max(D * _ROWS * 2, teams * attn))
 
 
 def ring_plan(B, D, H, KV, hd, F, grid, bits=0, phases=RING_PHASES):
@@ -1349,14 +1371,9 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
         raise ValueError(f"{name}: rope tables must be [T, {hd // 2}], got "
                          f"{tuple(sin.shape)}")
     dt = _launch.dtype_name(x.dtype)
-    body = attn_body(B, D, H, KV, hd, BS, k_pool.element_size(), dt,
-                     bits)[0]
-    region, smem = _layout(D, H // KV, hd, BS, item, k_pool.element_size(),
-                           _PAGE_STAGES)
-    kernel = "decode_attn_block"
-    if body == "ring":
-        smem = ring_smem(D, H, KV, hd, BS, k_pool.element_size(), bits)
-        kernel = "decode_attn_block_ring"
+    body, kernel, region, smem = _attn_setup(
+        B, D, H, KV, hd, BS, item, k_pool.element_size(), dt, bits,
+        _plan_constants())
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
@@ -1378,16 +1395,15 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                        device=x.device)
     pl = spec.plan
     ring = body == "ring"
-    # the ring body's f32 partial sums; its tickets: _ring_tickets
-    ring_ws = (torch.empty(max(pl["part_ws"], 4), dtype=torch.float32,
-                           device=x.device) if ring else None)
     if not _launch.begin(spec, x.device):
         return x_out, k_new, v_new
     fn = _build.c_fn("fused_decode_block", *spec.calls[0])
+    ring_ws = tickets = None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        tickets = (_ring_tickets(x.device, pl["tickets"], stream) if ring
-                   else None)
+        if ring:
+            ring_ws = _ring_partials(x.device, pl["part_ws"], stream)
+            tickets = _ring_tickets(x.device, pl["tickets"], stream)
         _count(decode_attn_block_cuda, bits, kv_bits, residual)
         decode_attn_block_cuda.launches_by_body[body] += 1
         err = fn(x.data_ptr(), nw.data_ptr(), *(w[k].data_ptr() for k in
@@ -1441,15 +1457,8 @@ def _mlp_launch(name, wrapper, x, nw, wg, wu, wd, eps, residual,
     bits, w, sc = _weights(name, x, leaves)
     _shape(name, "nw", nw, (D,))
     dt = _launch.dtype_name(x.dtype)
-    body = mlp_body(B, D, F, dt, floor_tile, bits)[0]
-    if body == "tc":
-        region, smem, kernel = 0, mlp_tc_smem(bits), "decode_mlp_block_tc"
-    elif body == "ring":
-        region, smem = 0, ring_smem(D, bits=bits)
-        kernel = "decode_mlp_block_ring"
-    else:
-        region, smem = _layout(D, 0, 0, 0, item)
-        kernel = "decode_mlp_block"
+    body, kernel, region, smem = _mlp_setup(B, D, F, item, dt, bits,
+                                            floor_tile, _plan_constants())
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
@@ -1468,15 +1477,15 @@ def _mlp_launch(name, wrapper, x, nw, wg, wu, wd, eps, residual,
     ring = body == "ring"
     out = torch.empty_like(x)
     ff_ws = torch.empty(ws, dtype=x.dtype, device=x.device)
-    ring_ws = (torch.empty(max(pl["part_ws"], 4), dtype=torch.float32,
-                           device=x.device) if ring else None)
     if not _launch.begin(spec, x.device):
         return out
     fn = _build.c_fn("fused_decode_block", *spec.calls[0])
+    ring_ws = tickets = None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        tickets = (_ring_tickets(x.device, pl["tickets"], stream) if ring
-                   else None)
+        if ring:
+            ring_ws = _ring_partials(x.device, pl["part_ws"], stream)
+            tickets = _ring_tickets(x.device, pl["tickets"], stream)
         if floor_tile is None:
             _count(wrapper, bits, residual=residual)
             wrapper.launches_by_body[body] += 1
@@ -1585,13 +1594,9 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
         raise ValueError(f"{name}: rope tables must be [T, {hd // 2}], got "
                          f"{tuple(sin.shape)}")
     dt = _launch.dtype_name(x.dtype)
-    body = block_body(B, D, H, KV, hd, F, dt, bits)[0]
-    region, smem = _layout(D, H // KV, hd, BS, item, k_pool.element_size(),
-                           _PAGE_STAGES)
-    kernel = "decode_block_fused"
-    if body == "ring":
-        smem = ring_smem(D, H, KV, hd, BS, k_pool.element_size(), bits)
-        kernel = "decode_block_fused_ring"
+    body, kernel, region, smem = _block_setup(
+        B, D, H, KV, hd, F, BS, item, k_pool.element_size(), dt, bits,
+        _plan_constants())
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} B of shared memory a block,"
                          f" over the card's {SMEM_LIMIT}")
@@ -1606,25 +1611,24 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     # rows, the k-major attention rows and silu(g)*u rows in x's type; the
     # f32 attention partials and new-token scores, then the f32 residual;
     # the ring body's f32 partial sums and its tickets (kept zero between
-    # launches, one buffer a stream: _ring_tickets)
+    # launches): one buffer of each a stream, _ring_partials and
+    # _ring_tickets
     n_qkv = -(-B * (H + 2 * KV) * hd // 8) * 8
     ws_t = torch.empty(n_qkv + _passes(B) * _ROWS * (H * hd + F),
                        dtype=x.dtype, device=x.device)
     n_part = B * H * -(-MB // _SPLIT_PAGES)
     n_f = -(-(n_part * (2 + hd) + B * H) // 4) * 4
     ws_f = torch.empty(n_f + B * D, dtype=torch.float32, device=x.device)
-    ring_ws = tickets = None
-    if body == "ring":
-        ring_ws = torch.empty(max(pl["part_ws"], 4), dtype=torch.float32,
-                              device=x.device)
     order = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
     if not _launch.begin(spec, x.device):
         return x_out, k_new, v_new
     fn = _build.c_fn("fused_decode_block", *spec.calls[0])
     ring = body == "ring"
+    ring_ws = tickets = None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if ring:
+            ring_ws = _ring_partials(x.device, pl["part_ws"], stream)
             tickets = _ring_tickets(x.device, pl["tickets"], stream)
         _count(decode_block_fused_cuda, bits, kv_bits)
         decode_block_fused_cuda.launches_by_body[body] += 1
@@ -1651,7 +1655,74 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
     return x_out, k_new, v_new
 
 
+def _plan_constants():
+    """The module's plan constants that a launch's body and shared memory
+    follow and that the tools vary (chip_smoke.cuda_core_block, the
+    variant and phase tools): part of the setup caches' keys."""
+    return (RING_MAX_ROWS, MLP_TC_MIN_ROWS, RING_STAGES, RING_TEAMS,
+            ATTN_RING_TEAMS, TC_STAGES, TC_CHUNK_K, MLP_UP_COLS,
+            MLP_DOWN_COLS)
+
+
+@functools.lru_cache(maxsize=512)
+def _attn_setup(B, D, H, KV, hd, BS, item, pool_item, dt, bits, consts):
+    """(body, kernel, region, shared memory) of a decode_attn_block launch
+    at these arguments, cached by them and by the plan constants
+    (``consts``, :func:`_plan_constants`), so a decode step decides once a
+    shape."""
+    body = attn_body(B, D, H, KV, hd, BS, pool_item, dt, bits)[0]
+    region, smem = _layout(D, H // KV, hd, BS, item, pool_item,
+                           _PAGE_STAGES)
+    if body == "ring":
+        return (body, "decode_attn_block_ring", region,
+                ring_smem(D, H, KV, hd, BS, pool_item, bits,
+                          ATTN_RING_TEAMS))
+    return body, "decode_attn_block", region, smem
+
+
+@functools.lru_cache(maxsize=512)
+def _mlp_setup(B, D, F, item, dt, bits, floor_tile, consts):
+    """(body, kernel, region, shared memory) of a decode_mlp_block launch,
+    cached as :func:`_attn_setup`'s."""
+    body = mlp_body(B, D, F, dt, floor_tile, bits)[0]
+    if body == "tc":
+        return body, "decode_mlp_block_tc", 0, mlp_tc_smem(bits)
+    if body == "ring":
+        return body, "decode_mlp_block_ring", 0, ring_smem(D, bits=bits)
+    return (body, "decode_mlp_block", *_layout(D, 0, 0, 0, item))
+
+
+@functools.lru_cache(maxsize=512)
+def _block_setup(B, D, H, KV, hd, F, BS, item, pool_item, dt, bits,
+                 consts):
+    """(body, kernel, region, shared memory) of a decode_block_fused
+    launch, cached as :func:`_attn_setup`'s."""
+    body = block_body(B, D, H, KV, hd, F, dt, bits)[0]
+    region, smem = _layout(D, H // KV, hd, BS, item, pool_item,
+                           _PAGE_STAGES)
+    if body == "ring":
+        return (body, "decode_block_fused_ring", region,
+                ring_smem(D, H, KV, hd, BS, pool_item, bits))
+    return body, "decode_block_fused", region, smem
+
+
 _TICKETS = {}
+_PARTIALS = {}
+
+
+def _ring_partials(device, n, stream):
+    """The ring bodies' f32 partial sums for launches on ``stream`` of
+    ``device`` (at least ``n`` floats: the parts of K of the widest phase
+    of the launch asking), held as the tickets are (:func:`_ring_tickets`):
+    one buffer a (device, stream), shared by the three ring kernels, whose
+    launches on one stream run in turn; each launch writes the partials it
+    reads. Grown when a launch needs more."""
+    key = (device, stream)
+    t = _PARTIALS.get(key)
+    if t is None or t.numel() < n:
+        t = _PARTIALS[key] = torch.empty(max(n, 4096), dtype=torch.float32,
+                                         device=device)
+    return t
 
 
 def _ring_tickets(device, n, stream):

@@ -24,14 +24,17 @@ lengths, and serving-like lengths of 300-520 tokens):
   combine, o_proj), decode_mlp_block (gate/up, down) and
   decode_block_fused (all six: qkv, pages, combine, o_proj, gate/up,
   down), each with the body it ran: the body the wrapper picks at 8 bf16
-  rows (the weight ring, ``csrc/weight_ring.cuh``, for all three kernels
-  in a tree whose two-stage kernels have one; decode_attn_block's rule
-  keeps its ring off, and it is stamped on as well, ``chip_smoke.
-  ring_attn``) and, where the tree has a ring, the CUDA-core bodies too
-  (``chip_smoke.cuda_core_block``), which are also timed (the block alone
-  and the pair). The stamps add a barrier at the end of
-  each kernel and change register allocation: compare phases with
-  phases, not with the unstamped times.
+  rows (the weight ring, ``csrc/weight_ring.cuh``, in a tree whose
+  kernels have one: decode_block_fused and decode_mlp_block; over bf16
+  pools decode_attn_block keeps its CUDA-core body) and, where the tree
+  has a ring, the CUDA-core bodies too (``chip_smoke.cuda_core_block``),
+  which are also timed (the block alone and the pair); in a tree whose
+  decode_attn_block has a ring body (over int8 pools only), its phases
+  over int8 pools made from the same pools on the ring
+  (``attn_body_ab.ring_taken``: in every class) and on the CUDA-core
+  body. The stamps add a barrier at the end of each kernel and change
+  register allocation: compare phases with phases, not with the
+  unstamped times.
 
 The prefill part (``--part prefill``) builds an unstamped and a stamped
 copy of ``fused_prefill_block.cu`` and of ``fused_decode_block.cu`` (every
@@ -253,6 +256,10 @@ def decode_part(fdb, libs, gpu, wbits=(0,)):
 
 def decode_lengths(fdb, libs, gpu, args, bits, serving):
     """decode_part's rows of one weight class, at both sets of lengths."""
+    ring_attn = hasattr(fdb, "attn_ring_pays")
+    if ring_attn:
+        from attn_body_ab import ring_taken
+        kq, vq, scales, _, _ = cs.kv8_pools(args[12], args[13])
     for label, lens in (("kernel_phase_lengths", args[15]),
                         ("serving_lengths", serving)):
         args[15] = lens
@@ -282,11 +289,17 @@ def decode_lengths(fdb, libs, gpu, args, bits, serving):
             use(fdb, libs[name])
             row[name] = stamped_kernels(fdb, libs[name], block, attn,
                                         (x, pw, wg, wu, wd), bits)
-            if hasattr(cs, "ring_attn"):
-                with cs.ring_attn(fdb):
-                    row[name]["decode_attn_block_ring"] = stamped_kernels(
-                        fdb, libs[name], block, attn, (x, pw, wg, wu, wd),
-                        bits)["decode_attn_block"]
+            if ring_attn:
+                kv8 = (*attn[:8], kq, vq, *attn[10:])
+
+                def attn_kv8(a=kv8):
+                    return fdb.decode_attn_block_cuda(*a, kv_scales=scales)
+                for body, ctx in (("ring", ring_taken),
+                                  ("cuda_core", cs.cuda_core_block)):
+                    with ctx(fdb):
+                        times = phases(fdb, libs[name], attn_kv8)
+                    row[name][f"decode_attn_block_kv8_{body}"] = dict(
+                        zip(TWO_STAGE_PHASES["decode_attn_block"], times))
             if ring:
                 with cs.cuda_core_block(fdb):
                     core = stamped_kernels(fdb, libs[name], block, attn,

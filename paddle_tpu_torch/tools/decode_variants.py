@@ -39,10 +39,12 @@ barriers with no product, and over codes no conversion either (the
 body's own stream; its errors are meaningless); ``stages2`` and
 ``stages6``, two and six chunks in the ring (six do not fit beside the
 attention's two items: the card refuses it, and the row says so);
-``teams1`` and ``teams4``, the ring bodies' attention phase with the whole
-block on one item at a time, or four teams of two warps on an item each
-(kRingTeams; four items' scratch fits beside the ring over int8 pools
-only: over bf16 pools the wrapper refuses it, and the row says so);
+``teams1`` and ``teams4``, the single-launch ring's attention phase with
+the whole block on one item at a time, or four teams of two warps on an
+item each (kRingTeams; four items' scratch fits beside the ring over int8
+pools only: over bf16 pools the wrapper refuses it, and the row says so);
+``attn_teams2``, decode_attn_block's ring with two teams of four warps
+(kAttnRingTeams; committed: four of two);
 ``noconv``, the codes handed to the tensor cores unconverted (the
 conversion's cost; its errors are meaningless; the code classes only).
 For each weight class of
@@ -52,10 +54,11 @@ worst error against ``decode_block_ref`` in units of chip_smoke.py's
 two-ulp bound, ``bf16_close``: 1 is the limit),
 its time and its stamped phases at chip_smoke.py's kernel-phase lengths
 and at serving-like ones (300-520 tokens); and decode_attn_block's ring
-body (``chip_smoke.ring_attn``: its rule keeps it off) on the same
-weights over bf16 and int8 pools, beside its CUDA-core body (the row
-``cuda_core``; its error against ``attn_block_wq_ref`` in the same
-units, its time and its stamped phases at both sets of lengths).
+body on the same weights over int8 pools (the only pools it is built
+for; taken in every class, ``attn_body_ab.ring_taken``, whatever the
+rule says), beside its CUDA-core body (the row ``cuda_core``; its error
+against ``attn_block_wq_ref`` in the same units, its time and its stamped
+phases at both sets of lengths).
 
 One JSON object per line; the last is ``{"ok": true}``. It imports
 nothing of JAX or of ``paddle_tpu``.
@@ -267,6 +270,10 @@ PATCHES = {
     "teams4": ((("fused_decode_block.cu",
                  "constexpr int kRingTeams = 2;",
                  "constexpr int kRingTeams = 4;"),), {"RING_TEAMS": 4}),
+    "attn_teams2": ((("fused_decode_block.cu",
+                      "constexpr int kAttnRingTeams = 4;",
+                      "constexpr int kAttnRingTeams = 2;"),),
+                    {"ATTN_RING_TEAMS": 2}),
     "noconv": ((("weight_ring.cuh",
                  "{s8x2_bf16(r0, 0, 2), s8x2_bf16(r0, 1, 3),\n" + " " * 32
                  + "s8x2_bf16(r1, 0, 2), s8x2_bf16(r1, 1, 3)}",
@@ -338,12 +345,13 @@ def body_variants(names, gpu, work, wbits=(0,)):
                    "serving_lengths": serving}
         run_variants([n for n in names if bits or n not in CODES_ONLY],
                      libs, gpu, args, want, lengths, bits, default)
-        for pools in ("fp", "int8"):
-            attn_variants(["cuda_core"] * ("committed" in names)
-                          + [n for n in names if n not in CODES_ONLY], libs,
-                          gpu, args, lengths, bits, pools, default)
+        attn_variants(["cuda_core"] * ("committed" in names)
+                      + [n for n in names if n not in CODES_ONLY], libs,
+                      gpu, args, lengths, bits, default)
     fdb.block_spec.cache_clear()
     fdb.attn_spec.cache_clear()
+    fdb._block_setup.cache_clear()
+    fdb._attn_setup.cache_clear()
 
 
 #: decode_attn_block's stamped phases (its ring body's and its CUDA-core
@@ -351,50 +359,51 @@ def body_variants(names, gpu, work, wbits=(0,)):
 ATTN_PHASES = ("qkv", "pages", "combine", "o_proj")
 
 
-def attn_variants(names, libs, gpu, block_args, lengths, bits, pools,
-                  default):
-    """decode_attn_block's rows of one weight class and pool class: each
+def attn_variants(names, libs, gpu, block_args, lengths, bits, default):
+    """decode_attn_block's rows of one weight class over int8 pools: each
     variant's worst error against attn_block_wq_ref (two-ulp units), its
     time and its stamped phases at both sets of lengths."""
     sys.path.insert(0, str(ROOT / "paddle_tpu_torch" / "tools"))
     import cuda_phase_times as pt
+    from attn_body_ab import ring_taken
     from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
     a = list(block_args[:6]) + list(block_args[10:])
     kw = {}
-    if pools == "int8":
-        a[8], a[9], kw["kv_scales"], _, _ = cs.kv8_pools(a[8], a[9])
+    a[8], a[9], kw["kv_scales"], _, _ = cs.kv8_pools(a[8], a[9])
     ref = list(a)
     ref[8], ref[9] = a[8].clone(), a[9].clone()
     want = fdb.attn_block_wq_ref(*ref, **kw)[0]
     for name in names:
-        # "cuda_core": the committed sources under the rule (the CUDA-core
-        # body); every other variant with the ring body on
+        # "cuda_core": the committed sources on the CUDA-core body; every
+        # other variant on the ring body
         lib = libs["committed" if name == "cuda_core" else name]
         pt.use(fdb, lib)
         fdb.attn_spec.cache_clear()
+        fdb._attn_setup.cache_clear()
         for k, v in dict(default, **PATCHES.get(name, ((), {}))[1]).items():
             setattr(fdb, k, v)
-        fdb.ATTN_RING = name != "cuda_core"
         row = {"phase": "attn_variant", "variant": name, "wbits": bits,
-               "pools": pools, "gpu": gpu}
+               "pools": "int8", "gpu": gpu}
+        body = cs.cuda_core_block(fdb) if name == "cuda_core" \
+            else ring_taken(fdb)
         try:
-            for label, lens in lengths.items():
-                a[11] = lens
+            with body:
+                for label, lens in lengths.items():
+                    a[11] = lens
 
-                def run(a=list(a)):
-                    return fdb.decode_attn_block_cuda(*a, **kw)
-                if label == "kernel_phase_lengths":
-                    row["body"] = cs.launch_plan(run)["body"]
-                    row["err_units"] = cs.bf16_close(
-                        run()[0], want)[1] / 2 ** -6
-                times = pt.phases(fdb, lib, run)
-                row[label] = {"ms": cs.cold_ms(run, iters=30),
-                              "phases_us": dict(zip(ATTN_PHASES, times))
-                              if len(times) == 4 else times}
+                    def run(a=list(a)):
+                        return fdb.decode_attn_block_cuda(*a, **kw)
+                    if label == "kernel_phase_lengths":
+                        row["body"] = cs.launch_plan(run)["body"]
+                        row["err_units"] = cs.bf16_close(
+                            run()[0], want)[1] / 2 ** -6
+                    times = pt.phases(fdb, lib, run)
+                    row[label] = {"ms": cs.cold_ms(run, iters=30),
+                                  "phases_us": dict(zip(ATTN_PHASES, times))
+                                  if len(times) == 4 else times}
         except (RuntimeError, ValueError) as e:   # one the card refuses
             row["error"] = str(e)[:300]
         cs.emit(row)
-    fdb.ATTN_RING = False
     for k, v in default.items():
         setattr(fdb, k, v)
 
@@ -407,6 +416,7 @@ def run_variants(names, libs, gpu, args, want, lengths, bits, default):
     for name in names:
         pt.use(fdb, libs[name])
         fdb.block_spec.cache_clear()
+        fdb._block_setup.cache_clear()
         for k, v in dict(default, **PATCHES[name][1]).items():
             setattr(fdb, k, v)
         row = {"phase": "variant", "variant": name, "wbits": bits,

@@ -52,13 +52,18 @@ new)::
 
     --expect "decode_block_fused[[]int*" "prefill_attn_block[[]*kv8*"
 
-Against a tree from before decode_mlp_block took the weight ring (bf16
-at up to 8 rows), its bf16 8-row cases differ (every weight class, the
-tp=4 partial), nothing else: decode_attn_block's rule keeps its ring
-off, so its cases, the f32 and the chunk-row cases keep their bits::
+Against a tree from before the two-stage kernels took the weight ring
+(bf16 at up to 8 rows), decode_mlp_block's bf16 8-row cases differ (every
+weight class, the tp=4 partial) and decode_attn_block's over int8 pools
+(full width in every weight class, the tp=2 shard), nothing else: its
+cases over bf16 pools, the f32 and the chunk-row cases keep their bits
+(a tree older than the tool lacks the int8-pool attention cases with
+quantized weights and the tp=2 shard's over int8 pools: new there)::
 
     --expect "decode_mlp_block[[]torch.bfloat16]" \
-        "decode_mlp_block[[]int?]" "decode_mlp_block[[]partial*"
+        "decode_mlp_block[[]int?]" "decode_mlp_block[[]partial*" \
+        "decode_attn_block[[]kv8]" "decode_attn_block[[]int?,kv8]" \
+        "decode_attn_block[[]partial,tp2,kv8]"
 
 It imports nothing of JAX or
 of ``paddle_tpu``.
@@ -164,9 +169,19 @@ def _cases(torch, k):
                     lambda qa=qa, qm=qm: fdb.decode_block_fused_cuda(
                         a[0], a[1], *qa, a[1], *qm, *a[6:8], kq, vq,
                         *a[10:], kv_scales=sc)))
+        out.append((f"decode_attn_block[int{bits},kv8]",
+                    lambda qa=qa: fdb.decode_attn_block_cuda(
+                        a[0], a[1], *qa, *a[6:8], kq, vq, *a[10:],
+                        kv_scales=sc)))
     a16 = decode_args(bf, 16, Hq=16)
     out.append(("decode_attn_block[partial,tp2]",
                 lambda: fdb.decode_attn_block_cuda(*a16, residual=False)))
+    # the same shard over int8 pools (no input drawn; bound now: the
+    # names are taken again below)
+    out.append(("decode_attn_block[partial,tp2,kv8]",
+                lambda q=kv8(a16[8], a16[9]): fdb.decode_attn_block_cuda(
+                    *a16[:8], *q[:2], *a16[10:], kv_scales=q[2],
+                    residual=False)))
     m2 = mlp_w(bf, F // 4)
     out.append(("decode_mlp_block[partial,tp4]",
                 lambda: fdb.decode_mlp_block_cuda(a[0], a[1], *m2,

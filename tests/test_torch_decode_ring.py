@@ -1,6 +1,6 @@
 """The two-stage decode kernels' weight-ring bodies on the CPU:
-``decode_attn_block`` and ``decode_mlp_block`` in bf16 at up to 8 rows
-(``paddle_tpu_torch/csrc/fused_decode_block.cu``, kernels
+``decode_attn_block`` (over int8 pools) and ``decode_mlp_block`` in bf16
+at up to 8 rows (``paddle_tpu_torch/csrc/fused_decode_block.cu``, kernels
 ``decode_attn_ring_kernel`` and ``decode_mlp_ring_kernel`` over
 ``csrc/weight_ring.cuh``). The kernels run on the card only
 (``chip_smoke.py``); here:
@@ -14,12 +14,14 @@
   cast, silu(g) * u in the model type), held against the JAX Pallas
   kernels (interpret mode, x64 off) and the port's plain versions
   (``attn_block_wq_ref``, ``mlp_block_wq_ref``) on the same inputs, made
-  with numpy from a seed: bf16, int8 and int4 weights, fp and int8 pools,
-  residual on and off, 1, 5 and 8 rows;
-- the body rule (dtype, rows, weight class, shard widths) and its one width
-  predicate; each ring plan covering every (weight, tile, chunk) once;
-  shared memory against the source's layout; the tickets the three ring
-  kernels share on a stream; the gate's ring cases and a dropped part.
+  with numpy from a seed: bf16, int8 and int4 weights, int8 pools (the
+  attention's ring is built for no other), residual on and off, 1, 5 and
+  8 rows;
+- the body rule (dtype, rows, weight class, pool class, shard widths) and
+  its one width predicate; each ring plan covering every (weight, tile,
+  chunk) once; shared memory against the source's layout; the tickets and
+  partial sums the three ring kernels share on a stream; the gate's ring
+  cases and a dropped part.
 
 Tolerances: f32 3e-5 absolute, 1e-5 relative (the JAX quantized tests'
 own); bf16 two bf16 ulps at the element's magnitude plus two at the
@@ -162,27 +164,27 @@ def _fresh(a):
     return a
 
 
-_ATTN_CASES = [(bits, kv8, res)
-               for bits in (0, 8, 4) for kv8 in (False, True)
+_ATTN_CASES = [(bits, KV, res)
+               for bits in (0, 8, 4) for KV in (1, 4)
                for res in (True, False)]
 
 
-@pytest.mark.parametrize("bits,kv8,residual", _ATTN_CASES, ids=[
-    f"w{b}-{'kv8' if k else 'fp'}-{'full' if r else 'partial'}"
+@pytest.mark.parametrize("bits,KV,residual", _ATTN_CASES, ids=[
+    f"w{b}-kv8-kv{k}-{'full' if r else 'partial'}"
     for b, k, r in _ATTN_CASES])
-def test_attn_ring_twin_matches_jax_and_plain(bits, kv8, residual,
-                                             monkeypatch):
-    """decode_attn_block's ring order (D 256, H 4, KV 1 and 4, K split into
-    parts on a 5-block grid but for int4's single chunk) against the JAX
-    two-stage attention kernel and attn_block_wq_ref in f32, and against
-    attn_block_wq_ref in bf16;
-    the body the rule picks at these widths is the ring. Rows 1, 5 and 8
-    and KV 1 and 4 alternate across the cases."""
-    i = _ATTN_CASES.index((bits, kv8, residual))
-    B, KV = (1, 5, 8)[i % 3], (1, 4)[i % 2]
+def test_attn_ring_twin_matches_jax_and_plain(bits, KV, residual):
+    """decode_attn_block's ring order over int8 pools (D 256, H 4, KV 1 and
+    4, K split into parts on a 5-block grid but for int4's single chunk)
+    against the JAX two-stage attention kernel and attn_block_wq_ref in
+    f32, and against attn_block_wq_ref in bf16; the rule picks the ring
+    at these widths (H * hd = D) in every weight class. Rows 1, 5 and 8
+    alternate across the cases."""
+    i = _ATTN_CASES.index((bits, KV, residual))
+    B, kv8 = (1, 5, 8)[i % 3], True
     args, scales = _attn_case(100 + i, B, bits, kv8, KV)
-    monkeypatch.setattr(fdb, "ATTN_RING", True)
-    assert fdb.attn_body(B, D, H, KV, HD, 16, 1 if kv8 else 2, "bfloat16",
+    assert fdb.ring_width_reason(bits, D, H * HD, KV * HD, 0,
+                                 fdb.ATTN_RING_PHASES) is None
+    assert fdb.attn_body(B, D, H, KV, HD, 16, 1, "bfloat16",
                          bits)[0] == "ring"
     plan = fdb.ring_plan(B, D, H, KV, HD, 0, GRID, bits,
                          fdb.ATTN_RING_PHASES)
@@ -236,10 +238,11 @@ def test_ring_twins_differ_from_one_part_by_roundoff_only():
     """The parts change the f32 sums by roundoff only: the same blocks on
     1 and on 5 blocks (1 and several parts a phase) agree to f32
     roundoff, and the summation order is real (not bit for bit)."""
-    args, _ = _attn_case(7, 8, 0, False, 4)
-    t32 = _torch(args, torch.float32, range(10))
-    one = attn_ring_twin(_fresh(t32), None, 1, True)[0]
-    five = attn_ring_twin(_fresh(t32), None, GRID, True)[0]
+    args, scales = _attn_case(7, 8, 0, True, 4)
+    tsc = tuple(map(_port, scales))
+    t32 = _torch(args, torch.float32, range(6))
+    one = attn_ring_twin(_fresh(t32), tsc, 1, True)[0]
+    five = attn_ring_twin(_fresh(t32), tsc, GRID, True)[0]
     _close(one, five)
     m = _torch(_mlp_case(8, 8, 0), torch.float32, range(5))
     _close(mlp_ring_twin(m, 1, True), mlp_ring_twin(m, GRID, True))
@@ -266,30 +269,30 @@ TP4 = dict(SEVEN_B, H=8, KV=8, F=2752)
     (8, "bfloat16", 0, TP2, "ring", "ring"),
     (8, "bfloat16", 8, TP2, "ring", "ring"),
     (8, "bfloat16", 4, TP2, "ring", "ring"),
-    (8, "bfloat16", 0, TP4, "ring", "ring"),
+    (8, "bfloat16", 0, TP4, "cuda_core", "ring"),
     (8, "bfloat16", 8, TP4, "ring", "cuda_core"),
     (8, "bfloat16", 4, TP4, "ring", "cuda_core"),
     (8, "bfloat16", 0, dict(SEVEN_B, F=11000), "ring", "cuda_core"),
     (8, "bfloat16", 4, dict(SEVEN_B, D=4224), "cuda_core", "cuda_core")])
-def test_two_stage_body_rule(B, dt, bits, dims, attn, mlp, monkeypatch):
-    """decode_attn_block and decode_mlp_block can take the ring in bf16 at
-    up to 8 rows in every weight class where their phases pass the ring's
-    width test; the tp=2 shard widths (H = KV = 16, F 5504) pass in every
-    class; the quantized tp=4 F 2752 (not a multiple of RING_QROWS) keeps
-    the MLP's CUDA-core body with its reason; f32 keeps the CUDA-core
-    bodies, more rows the tensor-core MLP. decode_attn_block's ring is
-    measured slower: the rule sends each class it could take to the
-    CUDA-core body with that reason (ATTN_RING off), and takes it with
-    ATTN_RING set. Every rule has a reason."""
-    dims_a = (B, dims["D"], dims["H"], dims["KV"], dims["hd"], 16, 2, dt,
-              bits)
+def test_two_stage_body_rule(B, dt, bits, dims, attn, mlp):
+    """decode_mlp_block takes the ring in bf16 at up to 8 rows in every
+    weight class where its phases pass the ring's width test; the tp=2
+    shard widths (H = KV = 16, F 5504) pass in every class; the quantized
+    tp=4 F 2752 (not a multiple of RING_QROWS) keeps the MLP's CUDA-core
+    body with its reason; f32 keeps the CUDA-core bodies, more rows the
+    tensor-core MLP. decode_attn_block (``attn``: its body over int8
+    pools) takes the ring where its widths pass and it is measured
+    faster (attn_ring_pays: int8 or int4 weights, or bf16 weights at full
+    width and at tp=2, not at tp=4); over bf16 pools never. Every rule has
+    a reason."""
     got_m, why_m = fdb.mlp_body(B, dims["D"], dims["F"], dt, bits=bits)
     assert got_m == mlp and why_m
-    got_a, why_a = fdb.attn_body(*dims_a)
-    assert got_a == "cuda_core" and why_a
-    assert (why_a == fdb.ATTN_RING_REASON) == (attn == "ring")
-    monkeypatch.setattr(fdb, "ATTN_RING", True)
-    assert fdb.attn_body(*dims_a)[0] == attn
+    for pool, want in ((1, attn), (2, "cuda_core")):
+        got_a, why_a = fdb.attn_body(B, dims["D"], dims["H"], dims["KV"],
+                                     dims["hd"], 16, pool, dt, bits)
+        assert got_a == want and why_a
+        if dt == "bfloat16" and B <= 8 and dims["D"] == 4096:
+            assert (why_a == fdb.ATTN_RING_FP_POOLS) == (pool == 2)
     if mlp == "cuda_core" and dt == "bfloat16" and B <= 8:
         assert str(fdb.RING_QROWS if bits else fdb.RING_K) in why_m
 
@@ -305,8 +308,8 @@ def test_gate_specimen_and_chunk_rows_keep_their_bodies():
     try:
         fdb.RING_MAX_ROWS = 0
         assert fdb.mlp_body(8, 4096, 11008, "bfloat16")[0] == "cuda_core"
-        assert fdb.attn_body(8, 4096, 32, 32, 128, 16, 2, "bfloat16",
-                             0)[0] == "cuda_core"
+        assert fdb.attn_body(8, 4096, 32, 32, 128, 16, 1, "bfloat16",
+                             8)[0] == "cuda_core"
     finally:
         fdb.RING_MAX_ROWS = old
 
@@ -426,43 +429,55 @@ def _const(src, name):
 def test_ring_shared_memory_is_the_sources(bits, KV, pool):
     """Each ring body's shared memory is the source's ring_smem: the
     source's stages of the class's chunk, kRingAux bytes, then the larger
-    of the resident rows [D][8] and kRingTeams attention items
+    of the resident rows [D][8] and one attention item a team
     (decode_attn_block; paged_stream.cuh's scratch with two staged steps)
     or the rows alone (decode_mlp_block); within a block's 227 KB at one
-    block an SM, so the grid is 132 blocks."""
+    block an SM, so the grid is 132 blocks. Over int8 pools the items are
+    decode_attn_block's kAttnRingTeams, over bf16 pools
+    decode_block_fused's kRingTeams."""
     src = (_build.CSRC / "fused_decode_block.cu").read_text()
     ring = (_build.CSRC / "weight_ring.cuh").read_text()
     assert _const(src, "kRingTeams") == fdb.RING_TEAMS
+    assert _const(src, "kAttnRingTeams") == fdb.ATTN_RING_TEAMS
     assert _const(src, "kRingAux") == fdb.RING_AUX
     assert _const(ring, "kRingStages") == fdb.RING_STAGES
     g, hd, BS = 32 // KV, 128, 16
     f = 2 * g * hd + g * 4 * BS + 3 * g + hd
     item = -(-(-(-f // 4) * 16 + 2 * 2 * 4 * BS * hd * pool) // 16) * 16
     ring_bytes = fdb.RING_STAGES * fdb.ring_stage_bytes(bits) + fdb.RING_AUX
-    attn = fdb.ring_smem(4096, 32, KV, hd, BS, pool, bits)
+    # decode_attn_block's ring (int8 pools) in its teams; over bf16 pools
+    # the single-launch ring's
+    name, teams = (("decode_attn_block_ring", fdb.ATTN_RING_TEAMS)
+                   if pool == 1 else ("decode_block_fused_ring",
+                                      fdb.RING_TEAMS))
+    attn = fdb.ring_smem(4096, 32, KV, hd, BS, pool, bits, teams)
     mlp = fdb.ring_smem(4096, bits=bits)
-    assert attn == ring_bytes + max(4096 * 8 * 2, fdb.RING_TEAMS * item)
+    assert attn == ring_bytes + max(4096 * 8 * 2, teams * item)
     assert mlp == ring_bytes + 4096 * 8 * 2
-    for name, smem in (("decode_attn_block_ring", attn),
-                       ("decode_mlp_block_ring", mlp)):
+    for name, smem in ((name, attn), ("decode_mlp_block_ring", mlp)):
         assert smem <= fdb.SMEM_LIMIT
         assert fdb.assumed_grid(name, smem) == 132
 
 
 def test_attn_body_refuses_what_does_not_fit():
-    """A group of queries whose two attention items and the ring do not
-    fit a block keeps the CUDA-core body, with the bytes in its reason."""
-    body, why = fdb.attn_body(8, 4096, 32, 4, 128, 16, 2, "bfloat16", 4)
+    """A group of queries whose ATTN_RING_TEAMS attention items and the
+    ring do not fit a block (GQA 4:1 over int8 pools with int4 weights)
+    keeps the CUDA-core body, with the bytes in its reason."""
+    body, why = fdb.attn_body(8, 4096, 32, 8, 128, 16, 1, "bfloat16", 4)
     assert body == "cuda_core" and "shared memory" in why
-    assert fdb.ring_smem(4096, 32, 4, 128, 16, 2, 4) > fdb.SMEM_LIMIT
+    assert fdb.ring_smem(4096, 32, 8, 128, 16, 1, 4,
+                         fdb.ATTN_RING_TEAMS) > fdb.SMEM_LIMIT
 
 
 def test_ring_kernels_share_one_ticket_buffer_per_stream(monkeypatch):
     """decode_attn_block then decode_mlp_block (then decode_block_fused, and
     a tp=2 shard's pair) on one stream take the one buffer of that stream:
     each launch leaves its counters at 0 and launches on one stream run in
-    turn; it holds a ticket for every tile of the widest phase of each."""
+    turn; it holds a ticket for every tile of the widest phase of each.
+    Their f32 partial sums are held the same way: one buffer a stream,
+    as large as the largest launch's."""
     monkeypatch.setattr(fdb, "_TICKETS", {})
+    monkeypatch.setattr(fdb, "_PARTIALS", {})
     dev = torch.device("cpu")
     plans = [fdb.ring_plan(8, 4096, 32, 32, 128, 0, 132, 0,
                            fdb.ATTN_RING_PHASES),
@@ -477,18 +492,47 @@ def test_ring_kernels_share_one_ticket_buffer_per_stream(monkeypatch):
     assert all(b is bufs[0] for b in bufs)
     assert bufs[0].numel() >= max(p["tickets"] for p in plans)
     assert fdb._ring_tickets(dev, 96, 8) is not bufs[0]
+    n = max(p["part_ws"] for p in plans)
+    first = fdb._ring_partials(dev, n, 7)
+    parts = [fdb._ring_partials(dev, p["part_ws"], 7) for p in plans]
+    assert all(b is first for b in parts) and first.numel() >= n
+    assert first.dtype == torch.float32
+    assert fdb._ring_partials(dev, 4, 8) is not first
+
+
+def test_launch_setup_is_cached_and_follows_the_plan_constants(monkeypatch):
+    """Each wrapper decides its body once a shape (a cached setup: body,
+    kernel, region, shared memory), keyed by the plan constants too:
+    moving RING_MAX_ROWS (as chip_smoke.cuda_core_block does) gives the
+    setup the moved rule's body, and moving it back the cached one."""
+    mlp = (8, 4096, 11008, 2, "bfloat16", 0, None)
+    first = fdb._mlp_setup(*mlp, fdb._plan_constants())
+    assert first[:2] == ("ring", "decode_mlp_block_ring")
+    assert fdb._mlp_setup(*mlp, fdb._plan_constants()) is first
+    attn = (8, 4096, 32, 32, 128, 16, 2, 1, "bfloat16", 0)
+    ring = fdb._attn_setup(*attn, fdb._plan_constants())
+    assert ring[:2] == ("ring", "decode_attn_block_ring")
+    assert ring[3] == fdb.ring_smem(4096, 32, 32, 128, 16, 1, 0,
+                                    fdb.ATTN_RING_TEAMS)
+    monkeypatch.setattr(fdb, "RING_MAX_ROWS", 0)
+    assert fdb._mlp_setup(*mlp, fdb._plan_constants())[0] == "cuda_core"
+    assert fdb._attn_setup(*attn, fdb._plan_constants())[:2] == \
+        ("cuda_core", "decode_attn_block")
+    monkeypatch.setattr(fdb, "RING_MAX_ROWS", 8)
+    assert fdb._mlp_setup(*mlp, fdb._plan_constants()) is first
 
 
 # ---------------------------------------------------------------------------
 # the gate's ring cases
 # ---------------------------------------------------------------------------
-ATTN_RING_CASES = ["tiny_ring", "tiny_ring_int8_weights",
-                   "tiny_ring_int4_weights", "tiny_ring_int8",
-                   "flagship_serving_ring", "flagship_serving_int8_ring",
-                   "flagship_serving_int8_weights_ring",
-                   "flagship_serving_int4_weights_ring",
-                   "flagship_serving_tp2_partial_ring",
-                   "flagship_serving_tp2_partial_int8_ring"]
+ATTN_RING_CASES = ["tiny_ring_int8", "tiny_ring_int8_weights_int8",
+                   "tiny_ring_int4_weights_int8", "flagship_serving_int8",
+                   "flagship_serving_int8_weights_int8",
+                   "flagship_serving_int4_weights_int8",
+                   "flagship_serving_gqa_int8_weights_int8",
+                   "flagship_serving_tp2_partial_int8",
+                   "flagship_serving_tp2_partial_int8_weights_int8",
+                   "flagship_serving_tp4_partial_int4_weights_int8"]
 MLP_RING_CASES = ["tiny_ring", "tiny_ring_int8_weights",
                   "tiny_ring_int4_weights", "flagship_serving",
                   "flagship_serving_int8_weights",
@@ -523,8 +567,9 @@ def test_two_stage_ring_catalog_cases_are_clean(op, name):
 
 
 _DROPS = ([("decode_attn_block", c, d) for c in
-           ("flagship_serving_ring", "flagship_serving_int4_weights_ring",
-            "tiny_ring_int8") for d in ("qkv", "o_proj")]
+           ("flagship_serving_int8", "flagship_serving_int4_weights_int8",
+            "tiny_ring_int8")
+           for d in ("qkv", "o_proj")]
           + [("decode_mlp_block", c, d) for c in
              ("flagship_serving", "flagship_serving_int8_weights",
               "tiny_ring_int4_weights") for d in ("gate_up", "down")])
@@ -551,20 +596,23 @@ def test_two_stage_ring_dropped_part_is_a_floor_drop(op, name, drop):
     assert {f.detail["operand"] for f in found} == want
 
 
-@pytest.mark.parametrize("name,kv8,bits", [
-    ("flagship_serving", False, 0), ("flagship_serving_int8", True, 0),
-    ("flagship_serving_int8_weights", False, 8),
-    ("flagship_serving_tp2_partial", False, 0)])
-def test_attn_rule_records_the_measured_reason(name, kv8, bits):
-    """By default decode_attn_block's bf16 8-row classes (the routes'
-    classes) capture the CUDA-core plan, and the plan records why: the
-    ring body measured slower on the same inputs."""
+@pytest.mark.parametrize("name,kv8,bits,H", [
+    ("flagship_serving", False, 0, 32),
+    ("flagship_serving_tp4_partial_int8", True, 0, 8),
+    ("flagship_serving_int8_weights", False, 8, 32),
+    ("flagship_serving_tp2_partial", False, 0, 16)])
+def test_attn_rule_records_the_measured_reason(name, kv8, bits, H):
+    """decode_attn_block's bf16 8-row classes whose ring its measurements
+    turn down (bf16 pools; bf16 weights on a tp=4 shard's heads over int8
+    pools) capture the CUDA-core plan, and the plan records why
+    (attn_ring_pays)."""
     spec = kc.capture_case(_case("decode_attn_block", name))[0][0]
+    why = fdb.attn_ring_pays(bits, 1 if kv8 else 2, H * 128, 4096)
+    assert why in (fdb.ATTN_RING_FP_POOLS, fdb.ATTN_RING_SHARD)
     assert spec.plan["body"] == "cuda_core" and spec.grid == (264,)
-    assert spec.plan["body_rule"] == fdb.ATTN_RING_REASON
+    assert spec.plan["body_rule"] == why
     assert (spec.params["kvbits"], spec.params["wbits"]) == \
         (8 if kv8 else 0, bits)
-    assert not fdb.ATTN_RING
 
 
 def test_two_stage_launchers_match_their_signatures():
@@ -619,7 +667,7 @@ def test_chip_smoke_groups_and_audits_the_ring_kernels():
     assert chip_smoke._kernel_group(mlp) == "decode_mlp_block"
     kernels = chip_smoke.PTXAS_KERNELS["fused_decode_block"]
     for mangled, launch in (
-            ("_ZN16paddle_tpu_torch5fused23decode_attn_ring_kernelILi4ELb0E"
+            ("_ZN16paddle_tpu_torch5fused23decode_attn_ring_kernelILi4ELb1E"
              "EEvNS0_12AttnRingArgsE", "decode_attn_block"),
             ("_ZN16paddle_tpu_torch5fused22decode_mlp_ring_kernelILi8EEEvNS0"
              "_11MlpRingArgsE", "decode_mlp_block")):
