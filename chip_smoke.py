@@ -211,10 +211,14 @@ script exits non-zero:
    swiglu_bwd at [4096, 11008] and [4095, 11008] bf16, [7, 1001] bf16 and
    [1024, 11008] f32, the three linear-CE kernels at T 4096, D 4096, V
    32000 bf16 (the train step's), T 4095 / V 32003, the tied head (the
-   embedding seen transposed), every label ignored (dx and dh exactly 0)
-   and f32 (T 512, V 32003): each against its plain version, two launches
-   bit for bit; timed at the train step's shapes beside the bound, the
-   plain version and, for the CE, cuBLAS on the same products.
+   embedding seen transposed), every label ignored (dx and dh exactly 0),
+   f32 (T 512, V 32003) and the backward's P workspace in two token
+   chunks: each against its plain version, two launches bit for bit; the
+   backward's P pass against its plain hi + lo split, dh over the P dx's
+   call keeps bit for bit equal to dh alone; timed at the train step's
+   shapes beside the bound, the plain version and, for the CE, cuBLAS on
+   the same products (the backward's also as the hi + lo pair); the P
+   pass and each backward product on their own.
 11. train parity: LLaMA at 7B widths, 2 layers, f32, b 2, s 256, on the
    "ref" route and on the default route (``fused_train=None``): each
    route's loss and every gradient through its kernels against the same
@@ -2461,12 +2465,19 @@ def _kernel_group(name):
                      ("swiglu_fwd", "swiglu_fwd"),
                      ("swiglu_bwd", "swiglu_bwd"),
                      ("ce_fwd", "linear_ce_fwd"),
-                     ("ce_dx_kernel", "linear_ce_bwd_dx"),
-                     ("ce_dh_kernel", "linear_ce_bwd_dh")):
+                     # the backward: the P pass runs in dx's call on the
+                     # main path; dx's product pairs two A tiles over a
+                     # K-major one (<1, 0, ...>), dh's are <2, ...> and,
+                     # for the tied layout, <1, 1, ...>
+                     ("ce_gemm_kernel<0,", "linear_ce_bwd_dx"),
+                     ("ce_f32_gemm_kernel<true>", "linear_ce_bwd_dx"),
+                     ("ce_gemm_kernel<1, 0,", "linear_ce_bwd_dx"),
+                     ("ce_gemm_kernel<1, 1,", "linear_ce_bwd_dh"),
+                     ("ce_gemm_kernel<2,", "linear_ce_bwd_dh")):
         if part in name:
             return op
-    if "linear_ce::sum_cast" in name:
-        return None     # dx's and dh's second kernel: see _device_groups
+    if "ce_f32_gemm_kernel<false>" in name:
+        return None     # f32 dx or dh product: see _device_groups
     if "adamw_kernel" in name:
         return "fused_adamw"
     if "flash" in name:
@@ -2488,9 +2499,9 @@ def _device_groups(prof, per):
     """Device activities (kernels, copies) of a torch.profiler run, per
     ``per`` steps or chunks: ({name: (ms, count)}, {group: [ms, count]}).
     Every device kernel a wrapper call launches counts in its op's group:
-    a second kernel whose name does not tell the op (linear_ce's sum/cast,
+    a kernel whose name does not tell the op (linear_ce's f32 product,
     shared by dx and dh) joins the group of the activity before it, which
-    is the main kernel of the same call."""
+    is a kernel of the same call."""
     import torch
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -4213,14 +4224,17 @@ FT_REPLACES = {
     "linear_ce_bwd_dx": "paddle_tpu/ops/pallas/fused_train.py:273",
     "linear_ce_bwd_dh": "paddle_tpu/ops/pallas/fused_train.py:289"}
 FT_OPS = tuple(FT_REPLACES)
-# (label, T, V, dtype, head, labels); the first is the train step's shape
-# (batch 2 x seq 2048 tokens, D 4096) and the one timed
+# (label, T, V, dtype, head, labels[, backward chunk rows]); the first is
+# the train step's shape (batch 2 x seq 2048 tokens, D 4096) and the one
+# timed; the last forces P's workspace into two token chunks
 CE_CASES = (("train", 4096, 32000, "bfloat16", "untied", "mixed"),
             ("ragged_T4095_V32003", 4095, 32003, "bfloat16", "untied",
              "mixed"),
             ("tied_head", 4096, 32000, "bfloat16", "tied", "mixed"),
             ("all_ignored", 1024, 32000, "bfloat16", "untied", "ignored"),
-            ("f32", 512, 32003, "float32", "untied", "mixed"))
+            ("f32", 512, 32003, "float32", "untied", "mixed"),
+            ("two_chunks", 4096, 32000, "bfloat16", "untied", "mixed",
+             2048))
 
 
 def _twice(fn):
@@ -4239,9 +4253,13 @@ def fused_train_phase(gpu):
     over rows or the vocab; bf16: two ulps, ``bf16_close``), two launches
     bit for bit, at the train step's shapes and edge cases (ragged rows
     and elements; for the CE: T 4095 and V 32003, the tied head, every
-    label ignored, f32). Timed at the train step's shapes, L2 flushed,
-    beside the bound, the plain version and, for the CE (no single PyTorch
-    call computes it), cuBLAS's time for the same products."""
+    label ignored, f32, P's workspace in two token chunks; the backward's
+    P pass against its plain hi + lo split, dh over the P dx's call keeps
+    and dh alone bit for bit). Timed at the train step's shapes, L2
+    flushed, beside the bound, the plain version and, for the CE (no single
+    PyTorch call computes it), cuBLAS's time for the same products (bf16
+    once, and the backward's as the hi + lo pair); the backward's P pass
+    and each product on their own, and the pair of calls."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_train as kft
     from paddle_tpu_torch.ops.kernels import norms as kn
@@ -4314,7 +4332,8 @@ def fused_train_phase(gpu):
 
     # -- linear CE ----------------------------------------------------------
     timed = None
-    for label, t, v, dtn, head_kind, lab_kind in CE_CASES:
+    for label, t, v, dtn, head_kind, lab_kind, *chunk in CE_CASES:
+        chunk = chunk[0] if chunk else None
         dt = getattr(torch, dtn)
         x = rn(t, D, dt=dt, scale=0.5)
         if head_kind == "tied":
@@ -4331,45 +4350,69 @@ def fused_train_phase(gpu):
         lab = torch.as_tensor(lab, device="cuda")
         coef = torch.tensor([1.0 / max(int((lab >= 0).sum()), 1)],
                             device="cuda")
-        (lse, pick), same_f = _twice(lambda: kft.linear_ce_fwd_cuda(
-            x, head, lab))
-        want_lse, want_pick = kft.ce_fwd_ref(x, head, lab)
-        outs = {"lse": _held(lse, want_lse, f32, 1e-5),
-                "pick": _held(pick, want_pick, f32, 1e-5)}
-        record("linear_ce_fwd", {
-            "case": label, "T": t, "D": D, "V": v, "dtype": dtn,
-            "head": head_kind, "outputs": outs, "bitwise_repeatable": same_f,
-            "ok": same_f and all(o["ok"] for o in outs.values())})
-        del want_lse, want_pick
+        shape = {"case": label, "T": t, "D": D, "V": v, "dtype": dtn,
+                 "head": head_kind, "chunk_rows": chunk}
+        if chunk is None:
+            (lse, pick), same_f = _twice(lambda: kft.linear_ce_fwd_cuda(
+                x, head, lab))
+            want_lse, want_pick = kft.ce_fwd_ref(x, head, lab)
+            outs = {"lse": _held(lse, want_lse, f32, 1e-5),
+                    "pick": _held(pick, want_pick, f32, 1e-5)}
+            record("linear_ce_fwd", dict(
+                shape, outputs=outs, bitwise_repeatable=same_f,
+                ok=same_f and all(o["ok"] for o in outs.values())))
+            del want_lse, want_pick
+        else:
+            lse, _ = kft.linear_ce_fwd_cuda(x, head, lab)
         # the backward passes take the plain forward's lse, as the plain
-        # versions do, so both sides see the same inputs
-        (dx,), same = _twice(lambda: kft.linear_ce_bwd_dx_cuda(
-            x, head, lab, lse, coef))
+        # versions do, so both sides see the same inputs; dh over the P
+        # that dx's call keeps, as LinearCE runs them
+        def dx_call():
+            dx, ws = kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef,
+                                               chunk_rows=chunk, keep_p=True)
+            return (dx, ws.hi) + (() if ws.lo is None else (ws.lo,))
+        (dx, *p_ws), same = _twice(dx_call)
         want = kft.ce_bwd_dx_ref(x, head, lab, lse, coef)
         o = _held(dx, want, dt, 1e-4)
         ok = same and o["ok"]
         if lab_kind == "ignored":
             o["all_zero"] = not bool(dx.any())
             ok = ok and o["all_zero"]
-        record("linear_ce_bwd_dx", {
-            "case": label, "T": t, "D": D, "V": v, "dtype": dtn,
-            "head": head_kind, "outputs": {"dx": o},
-            "bitwise_repeatable": same, "ok": ok})
+        outs = {"dx": o}
+        if chunk is None:
+            # the P pass's hi + lo (f32: P) against the plain split: f32
+            # sums in another order, 1e-5 of P's largest magnitude
+            p0, p1 = kft.ce_p_split_ref(x, head, lab, lse, coef)
+            got = sum(t.float() for t in p_ws)
+            outs["p"] = _held(got, p0.float() + (
+                0 if p1 is None else p1.float()), f32, 1e-5)
+            ok = ok and outs["p"]["ok"]
+            del p0, p1, got
+        record("linear_ce_bwd_dx", dict(
+            shape, outputs=outs, bitwise_repeatable=same, ok=ok))
         del dx, want
-        (dh,), same = _twice(lambda: kft.linear_ce_bwd_dh_cuda(
-            x, head, lab, lse, coef))
+
+        def pair():
+            _, p = kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef,
+                                             chunk_rows=chunk, keep_p=True)
+            return kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef, p=p,
+                                             chunk_rows=chunk)
+        (dh,), same = _twice(pair)
+        alone = kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef,
+                                          chunk_rows=chunk)
         want = kft.ce_bwd_dh_ref(x, head, lab, lse, coef)
         o = _held(dh, want, dt, 1e-4)
-        ok = same and o["ok"] and dh.stride() == head.stride()
         o["layout_as_head"] = dh.stride() == head.stride()
+        # dh's own P passes give the bits of the P dx's call kept
+        o["alone_bitwise_equal"] = bool(torch.equal(alone, dh))
+        ok = same and o["ok"] and o["layout_as_head"] \
+            and o["alone_bitwise_equal"]
         if lab_kind == "ignored":
             o["all_zero"] = not bool(dh.any())
             ok = ok and o["all_zero"]
-        record("linear_ce_bwd_dh", {
-            "case": label, "T": t, "D": D, "V": v, "dtype": dtn,
-            "head": head_kind, "outputs": {"dh": o},
-            "bitwise_repeatable": same, "ok": ok})
-        del dh, want
+        record("linear_ce_bwd_dh", dict(
+            shape, outputs={"dh": o}, bitwise_repeatable=same, ok=ok))
+        del dh, want, alone, p_ws
         if timed is None:
             timed = (x, head, lab, lse, coef)
         else:
@@ -4416,32 +4459,72 @@ def fused_train_phase(gpu):
     torch.cuda.empty_cache()
     x, head, lab, lse, coef = timed
     V = head.shape[1]
-    pb = (torch.randn(T, V, generator=gen, device="cuda") * 1e-4).to(bf16)
-    fwd_products = cold_ms(lambda: x @ head)
-    dx_products = cold_ms(lambda: (x @ head, pb @ head.T))
-    dh_products = cold_ms(lambda: (x @ head, x.T @ pb))
-    del pb
+    # the backward's pieces on their own, on the P dx's call keeps
+    _, ws = kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef, keep_p=True)
+    ops = kft.ce_operands(x, head)
+    sdx = kft.ce_spec("linear_ce_bwd_dx", T, D, V, "bfloat16", "bfloat16")
+    sdh = kft.ce_spec("linear_ce_bwd_dh", T, D, V, "bfloat16", "bfloat16",
+                      p_given=True)
+    dx_out, dh_out = torch.empty_like(x), torch.empty(D, V, dtype=bf16,
+                                                      device="cuda")
+    wp = kft.ce_workspace(x, T, V)
+    pieces = {
+        "p_pass_ms": cold_ms(lambda: kft.ce_p_pass(sdx, ops, lab, lse, coef,
+                                                   wp, 0, T)),
+        "dx_product_ms": cold_ms(lambda: kft.ce_dx_product(sdx, ops, ws,
+                                                           dx_out)),
+        "dh_product_ms": cold_ms(lambda: kft.ce_dh_product(sdh, ops, ws,
+                                                           dh_out, None, 0))}
+
+    def pair():
+        _, p = kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef,
+                                         keep_p=True)
+        kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef, p=p)
+    pieces["pair_ms"] = cold_ms(pair)
+    pieces["dh_alone_ms"] = cold_ms(lambda: kft.linear_ce_bwd_dh_cuda(
+        x, head, lab, lse, coef))
+    # the cuBLAS yardstick on the same products (never called by the
+    # port): bf16 once, and as the hi + lo pair
+    hi, lo = ws.hi[:, :V], ws.lo[:, :V]
+    yard = {"S_ms": cold_ms(lambda: x @ head),
+            "dx_bf16_ms": cold_ms(lambda: (x @ head, hi @ head.T)),
+            "dx_hilo_ms": cold_ms(lambda: (x @ head, hi @ head.T,
+                                           lo @ head.T)),
+            "dh_bf16_ms": cold_ms(lambda: x.T @ hi),
+            "dh_hilo_ms": cold_ms(lambda: (x.T @ hi, x.T @ lo))}
+    del dx_out, dh_out, wp, hi, lo
     shape = {"T": T, "D": D, "V": V, "head": "untied"}
     note = ("none: no single PyTorch call; products_ms is cuBLAS (bf16) "
             "on the same products")
     row("linear_ce_fwd", "cuda", CE_SOURCE, shape, "bfloat16",
         lambda: kft.linear_ce_fwd_cuda(x, head, lab),
         lambda: kft.ce_fwd_ref(x, head, lab),
-        {"library": note, "products_ms": fwd_products})
+        {"library": note, "products_ms": yard["S_ms"]})
     row("linear_ce_bwd_dx", "cuda", CE_SOURCE, shape, "bfloat16",
         lambda: kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef),
         lambda: kft.ce_bwd_dx_ref(x, head, lab, lse, coef),
-        {"library": note, "products_ms": dx_products})
+        {"library": note, "products_ms": yard["dx_bf16_ms"],
+         "products_hilo_ms": yard["dx_hilo_ms"],
+         "p_pass_ms": pieces["p_pass_ms"],
+         "product_ms": pieces["dx_product_ms"],
+         "pair_ms": pieces["pair_ms"], "plan": launch_plan(
+             lambda: kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef))})
     row("linear_ce_bwd_dh", "cuda", CE_SOURCE, shape, "bfloat16",
-        lambda: kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef),
+        lambda: kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef, p=ws),
         lambda: kft.ce_bwd_dh_ref(x, head, lab, lse, coef),
-        {"library": note, "products_ms": dh_products})
-    del x, head, lab, lse, coef, timed
+        {"library": note, "products_ms": yard["dh_bf16_ms"],
+         "products_hilo_ms": yard["dh_hilo_ms"],
+         "product_ms": pieces["dh_product_ms"],
+         "alone_ms": pieces["dh_alone_ms"], "given_p": True,
+         "plan": launch_plan(lambda: kft.linear_ce_bwd_dh_cuda(
+             x, head, lab, lse, coef, p=ws))})
+    del x, head, lab, lse, coef, timed, ws
     torch.cuda.empty_cache()
     emit({"phase": "fused_train_kernels", "gpu": gpu, "cases": cases,
           "timed": {r["name"]: {k: r.get(k) for k in (
-              "ms", "plain_ms", "bound_ms", "bound_by", "products_ms")}
-              for r in rows}})
+              "ms", "plain_ms", "bound_ms", "bound_by", "products_ms",
+              "products_hilo_ms", "p_pass_ms", "product_ms", "pair_ms",
+              "alone_ms") if k in r} for r in rows}})
     return rows
 
 
@@ -4449,6 +4532,20 @@ def _params_like(base):
     """A fresh copy of a parameter tree."""
     return {k: _params_like(v) if isinstance(v, dict) else v.clone()
             for k, v in base.items()}
+
+
+def _plain_ce_dx(x2, head, labels, lse, coef, chunk_rows=None,
+                 keep_p=False):
+    """linear_ce_bwd_dx_cuda's call, on the plain version (no P kept)."""
+    from paddle_tpu_torch.ops.kernels import fused_train as kft
+    dx = kft.ce_bwd_dx_ref(x2, head, labels, lse, coef)
+    return (dx, None) if keep_p else dx
+
+
+def _plain_ce_dh(x2, head, labels, lse, coef, p=None, chunk_rows=None):
+    """linear_ce_bwd_dh_cuda's call, on the plain version."""
+    from paddle_tpu_torch.ops.kernels import fused_train as kft
+    return kft.ce_bwd_dh_ref(x2, head, labels, lse, coef)
 
 
 @contextlib.contextmanager
@@ -4470,8 +4567,8 @@ def plain_kernels(fused_train):
         (kft, "swiglu_fwd_triton", kft.swiglu_fwd_ref),
         (kft, "swiglu_bwd_triton", kft.swiglu_bwd_ref),
         (kft, "linear_ce_fwd_cuda", kft.ce_fwd_ref),
-        (kft, "linear_ce_bwd_dx_cuda", kft.ce_bwd_dx_ref),
-        (kft, "linear_ce_bwd_dh_cuda", kft.ce_bwd_dh_ref)]
+        (kft, "linear_ce_bwd_dx_cuda", _plain_ce_dx),
+        (kft, "linear_ce_bwd_dh_cuda", _plain_ce_dh)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -4755,9 +4852,9 @@ PTXAS_KERNELS = {
                         "fwd_tc_kernel": "flash_attention_fwd"},
     "linear_ce": {"ce_fwd_kernel": "linear_ce_fwd",
                   "ce_fwd_combine": "linear_ce_fwd",
-                  "ce_dx_kernel": "linear_ce_bwd_dx",
-                  "ce_dh_kernel": "linear_ce_bwd_dh",
-                  "sum_cast": ("linear_ce_bwd_dx", "linear_ce_bwd_dh")},
+                  "ce_gemm_kernel": ("linear_ce_bwd_dx", "linear_ce_bwd_dh"),
+                  "ce_f32_gemm_kernel": ("linear_ce_bwd_dx",
+                                         "linear_ce_bwd_dh")},
 }
 DEMO_REPLACES = "paddle_tpu/analysis/kernel_catalog.py:864"
 

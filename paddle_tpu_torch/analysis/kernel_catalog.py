@@ -254,17 +254,27 @@ def _prefill_case(P, D, H, KV, hd, BS, N, MB, dtype, pos0, quant=False,
     return build
 
 
-def _linear_ce_case(T, D, V, dtype):
+def _linear_ce_case(T, D, V, dtype, tied=False, chunk_rows=None):
+    """The forward; the backward as LinearCE runs it (dx keeping P, dh
+    over it); and dh alone (its own P passes). ``tied``: the head is the
+    embedding [V, D] seen transposed; ``chunk_rows`` forces P's token
+    chunks."""
     def build():
         from ..ops.kernels import fused_train as ft
 
         def fn():
-            x, head = _meta((T, D), dtype), _meta((D, V), dtype)
+            x = _meta((T, D), dtype)
+            head = _meta((V, D), dtype).T if tied else _meta((D, V), dtype)
             labels = _meta((T,), "int64")
             lse, coef = _meta((T,), "float32"), _meta((), "float32")
             ft.linear_ce_fwd_cuda(x, head, labels)
-            ft.linear_ce_bwd_dx_cuda(x, head, labels, lse, coef)
-            ft.linear_ce_bwd_dh_cuda(x, head, labels, lse, coef)
+            _, p = ft.linear_ce_bwd_dx_cuda(x, head, labels, lse, coef,
+                                            chunk_rows=chunk_rows,
+                                            keep_p=True)
+            ft.linear_ce_bwd_dh_cuda(x, head, labels, lse, coef, p=p,
+                                     chunk_rows=chunk_rows)
+            ft.linear_ce_bwd_dh_cuda(x, head, labels, lse, coef,
+                                     chunk_rows=chunk_rows)
         return fn
     return build
 
@@ -531,6 +541,23 @@ def kernel_cases() -> List[KernelCase]:
           _linear_ce_case(24, 64, 128, f32)),
         C("fused_linear_ce", "flagship_train", _CE_KERNELS,
           _linear_ce_case(_T, _D, _V, bf)),
+        # the backward's P pass and products (wgmma) in every layout: the
+        # tied head, a ragged V (the head staged to aligned rows), forced
+        # token chunks (dh's f32 sum across them), the f32 passes chunked
+        C("fused_linear_ce", "tiny_bf16_ragged", _CE_KERNELS,
+          _linear_ce_case(200, 64, 300, bf)),
+        C("fused_linear_ce", "tiny_tied", _CE_KERNELS,
+          _linear_ce_case(130, 64, 256, bf, tied=True)),
+        C("fused_linear_ce", "tiny_two_chunks", _CE_KERNELS,
+          _linear_ce_case(256, 64, 320, bf, chunk_rows=128)),
+        C("fused_linear_ce", "tiny_f32_chunks", _CE_KERNELS,
+          _linear_ce_case(300, 48, 131, f32, chunk_rows=128)),
+        C("fused_linear_ce", "flagship_train_tied", _CE_KERNELS,
+          _linear_ce_case(_T, _D, _V, bf, tied=True)),
+        C("fused_linear_ce", "flagship_train_ragged", _CE_KERNELS,
+          _linear_ce_case(_T - 1, _D, _V + 3, bf)),
+        C("fused_linear_ce", "flagship_train_two_chunks", _CE_KERNELS,
+          _linear_ce_case(_T, _D, _V, bf, chunk_rows=_T // 2)),
         C("fused_swiglu", "tiny", ("swiglu_fwd", "swiglu_bwd"),
           _swiglu_case(16, 64, f32)),
         C("fused_swiglu", "flagship_train", ("swiglu_fwd", "swiglu_bwd"),
@@ -689,8 +716,15 @@ def _flops_ce_fwd(spec, needed, live):
 
 
 def _flops_ce_bwd(spec, needed, live):
-    (T, D), (_, V) = _dims(spec, "x", "head")
-    return 4.0 * T * D * V
+    """The JAX model: the logits and one product, 4 T D V, for either
+    pass. Needed: the dx call S and its product; the dh call one product
+    and S for the rows of P it is not given (its own P passes)."""
+    (T, D), (_, V) = _dims(spec, "x", spec.outputs[0].name
+                           if spec.name == "linear_ce_bwd_dh" else "head")
+    if not (needed and spec.params.get("p_given")):
+        return 4.0 * T * D * V
+    rows = spec.plan["chunk_rows"]
+    return 2.0 * T * D * V + 2.0 * (T - rows) * D * V
 
 
 def _flops_swiglu_fwd(spec, needed, live):

@@ -1,91 +1,83 @@
-// Fused lm-head + cross entropy for Hopper (sm_90a): the forward and the
-// two backward passes, each a kernel of its own.
+// Fused lm-head + cross entropy for Hopper (sm_90a): the forward, and the
+// backward as a P pass and two products.
 //
 // Replaces paddle_tpu/ops/pallas/fused_train.py's three Pallas kernels:
-//   linear_ce_fwd     _ce_fwd_kernel  (launch in _ce_fwd_call)
-//   linear_ce_bwd_dx  _ce_dx_kernel   (launch in _ce_bwd_call)
-//   linear_ce_bwd_dh  _ce_dh_kernel   (launch in _ce_bwd_call)
-// and the tile recomputation they share (_ce_tile).
+//   linear_ce_fwd     _ce_fwd_kernel  (:246, launch in _ce_fwd_call)
+//   linear_ce_bwd_dx  _ce_dx_kernel   (:130, launch in _ce_bwd_call :273)
+//   linear_ce_bwd_dh  _ce_dh_kernel   (:151, launch in _ce_bwd_call :289)
+// and the tile recomputation they share (_ce_tile, :113).
 //
-//   x      [T, D]   f32 or bf16, contiguous (the flattened hidden states)
-//   head   [D, V]   x's type, read by its two strides (sd, sv): the
-//                   untied lm head is row-major, the tied one is the
-//                   embedding [V, D] seen transposed (sd = 1); no copy
+//   x      [T, D]   f32 or bf16, rows of sx elements (the flattened hidden
+//                   states)
+//   head   [D, V]   x's type, in one of two layouts: the untied lm head
+//                   row-major (rows of D, sh elements apart), or the tied
+//                   one, the embedding [V, D] seen transposed (rows of V,
+//                   sh elements apart); the wrapper copies any other
 //   labels [T]      int64; a negative label is ignored
 //   lse, pick [T]   f32: log-sum-exp of the row's logits and the logit at
 //                   its label (0 where the label is ignored)
 //   coef            one f32 on the device: g / max(count, 1)
-//   dx [T, D], dh [D, V] (dh by the strides the caller gives)
 //
-// The logits S = x head are never stored whole. The forward streams
-// (64-token x 128-vocab) tiles of S through an online log-sum-exp; each
-// backward pass recomputes its tiles of S and forms
-//   P = (exp(S - lse) - onehot(label)) * (label >= 0) * coef
-// (_ce_tile), then dx = P head^T and dh = x^T P. Vocab columns >= V are
-// masked to -inf (P = 0 there); token rows >= T are read as zeros with
-// label -1 and never written.
+// The forward streams (64-token x 128-vocab) tiles of the logits S = x
+// head through an online log-sum-exp (mma.sync bf16 or f32 FMAs; a block
+// per token tile and vocab split, a second kernel combines the splits in
+// split order). It is unchanged by the backward's redesign.
+//
+// The backward. The TPU kernels recompute S tile by tile in each pass and
+// carry the dx and dh sums across a sequential grid axis in VMEM. A Hopper
+// block cannot hold those sums (a 64-row f32 dx tile at D = 4096 is 1 MB),
+// so doing the same here means f32 partial sums in device memory for every
+// logit tile (the former kernels: ~65 GB of traffic at the training shape)
+// and S computed twice. Instead, P is formed once:
+//   1. the P pass (linear_ce_p): S = x head on wgmma, then in the epilogue
+//      P = (exp(S - lse) - onehot(label)) * (label >= 0) * coef, columns
+//      >= V zero, written as two bf16 arrays hi = bf16(P), lo = bf16(P -
+//      hi) [rows, Vp] (Vp = V rounded up to 64);
+//   2. dx = hi head^T + lo head^T (linear_ce_bwd_dx): K = Vp, one staged
+//      head tile feeds both products into the same f32 registers;
+//   3. dh = x^T hi + x^T lo (linear_ce_bwd_dh): K = T, into dh [D, V], or
+//      dh^T = hi^T x + lo^T x into [V, D] when dh is the tied embedding's
+//      gradient, so that its stores run along the embedding's rows.
+// Every product is one bf16 GEMM with its sum in registers: output tiles
+// of 128 x 256, two consumer warpgroups of 64 rows each (m64n256k16, f32
+// accumulators), operand tiles 64 deep (dh's 32: x and P both MN-major,
+// five stages) staged by TMA with the 128-byte swizzle into a ring of
+// stages behind mbarriers, one producer warp; one tile a block, the tiles
+// taken in groups of output rows so that the blocks in flight share their
+// operand panels in the 50 MB L2. x, hi and lo are read K-major or
+// MN-major as the product needs, by wgmma's transpose bits
+// (hopper_gemm.cuh). hi + lo carries ~16 bits of P, the head is exact in
+// bf16, so the products hold P to better than the TF32 the former kernels
+// rounded it to.
+//
+// Token chunks. The wrapper bounds P's workspace (T Vp 4 bytes <= 1 GiB,
+// one chunk at the training shape) and walks chunks of rows beyond it: dx
+// rows are whole in each chunk (dx's call walks them last to first, so
+// that the workspace it leaves holds the first); dh accumulates over the
+// chunks in chunk order in an f32 buffer [M, N] (``mode``: 1 store, 2 add,
+// 3 add and cast; 0 cast a single chunk's sum), the last chunk's epilogue
+// casting it.
+//
+// f32 inputs run the same three passes on CUDA-core FMA tiles (64 x 128,
+// 256 threads) with an f32 P and no TF32 anywhere, so the loss and both
+// gradients hold to 1e-5 of the plain f32 version; expf / logf are the
+// accurate ones.
 //
 // What bounds them on the H100: operations. At the training shape (T
-// 4096, D 4096, V 32000, bf16) the forward is 1.07 TFLOP of products and
-// each backward pass 2.15 TFLOP: 1.09 and 2.17 ms at the bf16 tensor-core
-// peak (989 TFLOP/s), the P products at the TF32 peak (495) 3.26 ms.
+// 4096, D 4096, V 32000, bf16) the forward is 1.07 TFLOP of products
+// (1.09 ms at the bf16 peak of 989 TFLOP/s), the dx call S plus one
+// product (2.15 TFLOP: 2.17 ms), the dh call over a given P one product
+// (1.07 TFLOP: 1.09 ms); the backward pair 3.26 ms. The hi + lo products
+// run twice the operations the function needs.
 //
-// Precision. bf16 inputs: S from mma.sync m16n8k16 bf16 x bf16 with f32
-// accumulators (exactly the JAX dot's products); the backward's P
-// products (the JAX body multiplies P by the head cast to f32) by TF32
-// mma.sync m16n8k8: P is rounded to TF32 (10 mantissa bits), x and the
-// head are bf16 and exact in TF32, the sums f32. f32 inputs: every
-// product on the CUDA cores in f32 FMAs (no TF32 anywhere), so the loss
-// holds to 1e-5 of the plain f32 version. expf / logf are the accurate
-// ones, not the __ intrinsics. Both paths share the accumulator layout of
-// mma.sync's C fragment, so the epilogues are written once.
-//
-// Design. The TPU kernels carry the online (m, l, pick), the (bt, D) f32
-// dx accumulator and the (D, bv) f32 dh accumulator across a sequential
-// grid axis in VMEM (4 MB and 8 MB at its tiles). A Hopper block has 227
-// KB of shared memory, and even a 64-row f32 dx tile at D = 4096 is 1 MB,
-// so:
-//   - forward: a block per (64-token tile, vocab split) walks its split's
-//     vocab tiles with an online (m, l, pick) per row and writes them to
-//     [3, splits, T] f32; a second kernel combines the splits in split
-//     order (splits = 528 / token tiles: at T = 4096, 512 blocks, two
-//     whole waves of two blocks per SM);
-//   - dx: a block per (64-token tile, vocab split) owns the rows
-//     [split][t0, t0 + 64) of an f32 partial buffer [splits, T, D] in
-//     device memory that no other block touches: per vocab tile it
-//     recomputes P into shared memory, then per 128-column chunk of D
-//     adds P head^T to its rows (store at the split's first tile); a
-//     second kernel sums the splits in order and casts to x's type
-//     (splits = 264 / token tiles, one wave: 4 at the training shape,
-//     268 MB of partials);
-//   - dh: a block per 128-column vocab tile owns the columns of an f32
-//     buffer [D, V] (524 MB at the training shape): per 128 tokens it
-//     recomputes P (two logit tiles) into shared memory, then per
-//     64-row chunk of D adds x^T P to its columns; a cast kernel writes
-//     dh in the head's layout.
-// Every kernel fits two blocks on an SM (at most 128 registers a thread;
-// 34, 103 and 106 KB of shared memory), so that one block's loads overlap
-// the other's products.
 // No atomics anywhere: every sum runs in a fixed order, so two launches
-// give the same bits. The accumulators' read-modify-write through device
-// memory (dx ~32 GB, dh ~33 GB of traffic at the training shape) is the
-// price of not splitting D, which would recompute the logits D / chunk
-// times; a thread-block cluster holding them in distributed shared memory
-// is later work, as are wgmma and TMA.
-//
-// Two routes through each kernel. The fast one (bf16, D % 8 == 0, V % 8
-// == 0, 16-byte aligned rows, an n-contiguous head: the untied lm head):
-// every bf16 operand tile is copied by cp.async, 16 bytes a thread, into
-// one of two stages while the tensor cores work on the other, and its
-// fragments come from ldmatrix; the P products permute k inside each
-// step of 8 on both operands so that each TF32 fragment register is one
-// load (see dx_product). The generic one (f32, a ragged V, unaligned rows,
-// the tied head): plain element loads and scalar fragment loads.
+// give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
 #include "mma_sync.cuh"
 #include "online_softmax.cuh"
 
@@ -96,13 +88,7 @@ constexpr int kThreads = 256;   // 8 warps: 2 (rows) x 4 (columns)
 constexpr int kBT = 64;         // tokens of a logit tile
 constexpr int kBV = 128;        // vocab columns of a logit tile
 constexpr int kBK = 32;         // depth of one staged operand slice
-constexpr int kBD = 128;        // columns of D one backward product covers
-constexpr int kDhT = 128;       // tokens one dh product folds in
-constexpr int kBDh = 64;        // rows of D one dh product covers
 constexpr int kLdS = kBV + 4;   // forward logit tile row stride
-constexpr int kLdH = kBV + 4;   // dx: the head chunk [d][v]
-constexpr int kLdPh = kBV + 8;  // dh: P as the B operand, conflict-free
-constexpr int kLdX = kBDh + 8;  // dh: the x chunk [t][d]
 
 // Row strides of the logit product's staged operands: 40 bf16 (80 bytes)
 // keep the 32-bit fragment loads of 8 rows on distinct banks; 33 f32 do
@@ -147,19 +133,6 @@ __device__ __forceinline__ void zero(float (&acc)[MI][4][4]) {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ---------------------------------------------------------------------------
@@ -359,211 +332,6 @@ __device__ void logit_tile(const T* __restrict__ x, const T* __restrict__ head,
   }
 }
 
-// _ce_tile's P from a logit tile in registers: (exp(s - lse) - onehot) *
-// (valid * coef); columns >= V and rows whose label is negative give 0.
-// Written to ps[row * ldp + col] or, TRANS, ps[col * ldp + row]; rounded
-// to TF32 (RNA) when the products that read it run on TF32 tensor cores
-// (TC), so they read it exactly as rounded once.
-template <bool TC, bool TRANS>
-__device__ __forceinline__ void p_tile(const float (&acc)[2][4][4],
-                                       const Frag& f, int v0, int V,
-                                       const float* lse_s,
-                                       const long long* lab_s, float coef,
-                                       float* ps, int ldp) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = frag_row<2>(f, mi, r), col = frag_col(f, ni, r);
-        const long long v = v0 + col, lb = lab_s[row];
-        float p = 0.f;
-        if (v < V) {
-          const float e = expf(acc[mi][ni][r] - lse_s[row]);
-          p = (e - (v == lb ? 1.f : 0.f)) * (lb >= 0 ? coef : 0.f);
-        }
-        if (TC) p = __uint_as_float(tf32(p));
-        ps[TRANS ? col * ldp + row : row * ldp + col] = p;
-      }
-}
-
-// The backward products on TF32 tensor cores, fast route. Inside each
-// step of 8, k is permuted (the mma's k = t is the tile's 2t, its t + 4 the
-// tile's 2t + 1) on both operands, which leaves the sum as it is and lets
-// every fragment register come from one load: two neighbouring f32 of P
-// in one 8-byte load, two neighbouring bf16 of the head or of x in one
-// 32-bit word of an ldmatrix, widened exactly (bf16 is exact in TF32, and
-// P was rounded to TF32 when it was written). Rows of f32 tiles are 136
-// words apart, of bf16 tiles 272 bytes: conflict-free for both loads.
-constexpr int kLdF = 136;   // f32 tiles read by the fast products
-constexpr int kLdB = 136;   // bf16 tiles read by ldmatrix
-__device__ __forceinline__ void widen(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  lo = w << 16;
-  hi = w & 0xffff0000u;
-}
-
-// dx: C[t][d] += sum_v P[t][v] head[d][v]; ps [64 t][kLdF] f32, hb
-// [128 d][kLdB] bf16 (one chunk of D, the tile's 128 vocab columns)
-__device__ __forceinline__ void dx_product(const float* ps,
-                                           const __nv_bfloat16* hb,
-                                           float (&acc)[2][4][4],
-                                           const Frag& f) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll 2
-  for (int kk = 0; kk < kBV; kk += 16) {
-    uint32_t a[2][2][4], b[2][4][2];   // [k step][tile][register]
-#pragma unroll
-    for (int st = 0; st < 2; ++st)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* p =
-            ps + (f.wm * 32 + mi * 16 + f.g) * kLdF + kk + st * 8 + 2 * f.t4;
-        const float2 lo = *reinterpret_cast<const float2*>(p);
-        const float2 hi = *reinterpret_cast<const float2*>(p + 8 * kLdF);
-        a[st][mi][0] = __float_as_uint(lo.x);
-        a[st][mi][2] = __float_as_uint(lo.y);
-        a[st][mi][1] = __float_as_uint(hi.x);
-        a[st][mi][3] = __float_as_uint(hi.y);
-      }
-#pragma unroll
-    for (int ni = 0; ni < 4; ni += 2) {
-      uint32_t r[4];
-      ldmatrix4(r, hb + (f.wn * 32 + ni * 8 + (lane & 7) + ((lane >> 4) << 3)) *
-                            kLdB +
-                       kk + ((lane >> 3) & 1) * 8);
-      widen(r[0], b[0][ni][0], b[0][ni][1]);
-      widen(r[1], b[1][ni][0], b[1][ni][1]);
-      widen(r[2], b[0][ni + 1][0], b[0][ni + 1][1]);
-      widen(r[3], b[1][ni + 1][0], b[1][ni + 1][1]);
-    }
-#pragma unroll
-    for (int st = 0; st < 2; ++st)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_tf32(acc[mi][ni], a[st][mi], b[st][ni]);
-  }
-}
-
-// dh: C[d][v] += sum_t x[t][d] P[t][v]; xb [128 t][kLdXb] bf16 (one
-// 64-column chunk of D), pt = P^T [128 v][kLdF] f32
-constexpr int kLdXb = kBDh + 8;   // 144 bytes: conflict-free for ldmatrix
-__device__ __forceinline__ void dh_product(const __nv_bfloat16* xb,
-                                           const float* pt,
-                                           float (&acc)[2][4][4],
-                                           const Frag& f) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll 2
-  for (int kk = 0; kk < kDhT; kk += 16) {
-    uint32_t a[2][2][4], b[2][4][2];   // [k step][tile][register]
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      uint32_t r[4];
-      ldmatrix4_trans(r, xb + (kk + (lane & 7) + ((lane >> 4) << 3)) * kLdXb +
-                             f.wm * 32 + mi * 16 + ((lane >> 3) & 1) * 8);
-      widen(r[0], a[0][mi][0], a[0][mi][2]);
-      widen(r[1], a[0][mi][1], a[0][mi][3]);
-      widen(r[2], a[1][mi][0], a[1][mi][2]);
-      widen(r[3], a[1][mi][1], a[1][mi][3]);
-    }
-#pragma unroll
-    for (int st = 0; st < 2; ++st)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float2 v2 = *reinterpret_cast<const float2*>(
-            pt + (f.wn * 32 + ni * 8 + f.g) * kLdF + kk + st * 8 + 2 * f.t4);
-        b[st][ni][0] = __float_as_uint(v2.x);
-        b[st][ni][1] = __float_as_uint(v2.y);
-      }
-#pragma unroll
-    for (int st = 0; st < 2; ++st)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_tf32(acc[mi][ni], a[st][mi], b[st][ni]);
-  }
-}
-
-// One 128 x COLS bf16 tile (rows r0.., columns c0.., row stride ``ld``
-// elements in global memory) into dst [128][COLS + 8] by cp.async; rows
-// >= nr or columns >= nc are zeros (nc % 8 == 0)
-template <int COLS>
-__device__ __forceinline__ void stage_bf16_tile(const __nv_bfloat16* src,
-                                                long long ld, int r0, int nr,
-                                                int c0, int nc,
-                                                __nv_bfloat16* dst) {
-  constexpr int kChunks = COLS / 8;
-#pragma unroll
-  for (int j = 0; j < 128 * kChunks / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int rr = i / kChunks, c8 = (i % kChunks) * 8;
-    const bool ok = r0 + rr < nr && c0 + c8 < nc;
-    cp_async16(dst + rr * (COLS + 8) + c8,
-               ok ? src + (r0 + rr) * ld + c0 + c8 : src, ok);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// C[M][128] += A[M][K] B[K][128] from f32 shared memory, A(m, k) =
-// as[m * a_m + k * a_k], B(k, n) = bs[k * b_k + n * b_n]; M = MI * 32.
-// TF32 tensor cores (TC) or f32 FMAs, the same accumulator layout.
-// ---------------------------------------------------------------------------
-template <bool TC, int MI>
-__device__ __forceinline__ void smem_product(const float* as, int a_m, int a_k,
-                                             const float* bs, int b_k, int b_n,
-                                             int K, float (&acc)[MI][4][4],
-                                             const Frag& f) {
-  const int m0 = f.wm * MI * 16, n0 = f.wn * 32;
-  if constexpr (TC) {
-    for (int kk = 0; kk < K; kk += 8) {
-      uint32_t a[MI][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int m = m0 + mi * 16 + f.g, k = kk + f.t4;
-        a[mi][0] = tf32(as[m * a_m + k * a_k]);
-        a[mi][1] = tf32(as[(m + 8) * a_m + k * a_k]);
-        a[mi][2] = tf32(as[m * a_m + (k + 4) * a_k]);
-        a[mi][3] = tf32(as[(m + 8) * a_m + (k + 4) * a_k]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + ni * 8 + f.g, k = kk + f.t4;
-        b[ni][0] = tf32(bs[k * b_k + n * b_n]);
-        b[ni][1] = tf32(bs[(k + 4) * b_k + n * b_n]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], a[mi], b[ni]);
-    }
-  } else {
-    for (int k = 0; k < K; ++k) {
-      float a[MI][2], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          a[mi][h] = as[(m0 + mi * 16 + f.g + 8 * h) * a_m + k * a_k];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          b[ni][j] = bs[k * b_k + (n0 + ni * 8 + 2 * f.t4 + j) * b_n];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            acc[mi][ni][r] =
-                fmaf(a[mi][r >> 1], b[ni][r & 1], acc[mi][ni][r]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // linear_ce_fwd
 // ---------------------------------------------------------------------------
@@ -653,250 +421,374 @@ __global__ void ce_fwd_combine(const float* __restrict__ part, int Tn,
   pick[t] = P;
 }
 
-// out[r][c] (row stride ld) = C (first) or += C, for the tile's rows r0 +
-// .. < nr and columns c0 + .. < nc; PAIRS: two neighbouring columns in one
-// 8-byte access (ld and nc even)
-template <bool PAIRS>
-__device__ __forceinline__ void accumulate(const float (&c)[2][4][4],
-                                           const Frag& f, float* out,
-                                           long long ld, int r0, int nr,
-                                           int c0, int nc, bool first) {
+// ---------------------------------------------------------------------------
+// The backward: the P pass and the dx and dh products
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+using namespace hopper;
+
+constexpr int kGBM = 128;                 // output rows of a tile (2 x 64)
+constexpr int kGBN = 256;                 // output columns of a tile
+constexpr int kGThreads = 384;            // 2 consumer warpgroups, 1 producer
+constexpr int kStageBudget = 200 * 1024;
+constexpr int kMaxStages = 6;
+// PAIR: 0 one product (the P pass); 1 two A tiles (hi, lo) share the staged
+// B tile; 2 two B tiles share the staged A tile (dh: x and P both MN-major,
+// stages 32 deep so that the ring holds five)
+template <int PAIR>
+__host__ __device__ constexpr int depth() {
+  return PAIR == 2 ? 32 : 64;
+}
+template <int PAIR>
+__host__ __device__ constexpr int a_tile() {
+  return kGBM * depth<PAIR>() * 2;
+}
+template <int PAIR>
+__host__ __device__ constexpr int b_tile() {
+  return kGBN * depth<PAIR>() * 2;
+}
+template <int PAIR>
+__host__ __device__ constexpr int stage_bytes() {
+  return (PAIR == 1 ? 2 : 1) * a_tile<PAIR>() +
+         (PAIR == 2 ? 2 : 1) * b_tile<PAIR>();
+}
+template <int PAIR>
+__host__ __device__ constexpr int stages() {
+  return kStageBudget / stage_bytes<PAIR>() < kMaxStages
+             ? kStageBudget / stage_bytes<PAIR>()
+             : kMaxStages;
+}
+// the ring, 1 KB to align it, the full and empty barriers
+template <int PAIR>
+__host__ __device__ constexpr int smem_bytes() {
+  return stages<PAIR>() * stage_bytes<PAIR>() + 1024 + 2 * kMaxStages * 8;
+}
+
+struct Epi {
+  // the P pass
+  const long long* labels;
+  const float* lse;
+  const float* coef;
+  int V;
+  void* hi;          // P itself for f32
+  void* lo;
+  int ldp;           // Vp
+  // the gradients
+  void* out;
+  long long ldo;
+  int out_vmajor;    // f32 dh only: element (m, n) at n * ldo + m
+  float* work;       // [M, N] f32 across token chunks
+  int mode;          // 0 cast; 1 store, 2 add, 3 add and cast (work)
+};
+
+__device__ __forceinline__ float p_value(float s, int v, int V, float lse,
+                                         long long lab, float scale) {
+  return v < V ? (expf(s - lse) - (v == lab ? 1.f : 0.f)) * scale : 0.f;
+}
+
+// one operand tile of R rows of the product (M or N) x BK deep, at row r0
+// and depth k0; T 0: K-major (one box of 64 x R; BK 64), 1: MN-major (R /
+// 64 boxes of 64 columns x BK rows, 64 BK 2 bytes apart)
+template <int T, int R, int BK>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int r0, int k0) {
+  if constexpr (T == 0) {
+    tma_load_2d(dst, map, bar, k0, r0);
+  } else {
+#pragma unroll
+    for (int c = 0; c < R / 64; ++c)
+      tma_load_2d(dst + c * 64 * BK * 2, map, bar, r0 + 64 * c, k0);
+  }
+}
+
+// the descriptor of a tile's 16-deep step kk
+template <int T, int BK>
+__device__ __forceinline__ uint64_t step_desc(const unsigned char* tile,
+                                              int kk) {
+  return T == 0 ? wgmma_desc(tile + kk * 32, 16, 1024)
+                : wgmma_desc(tile + kk * 2048, 64 * BK * 2, 1024);
+}
+
+// C[M, N] = sum_k A(m, k) B(k, n) over one 128 x 256 tile a block; TA, TB:
+// 0 K-major, 1 MN-major. P_EPI: the P pass's epilogue (hi and lo out),
+// else the gradients' (cast, or the f32 sum across chunks).
+template <int PAIR, int TA, int TB, bool P_EPI>
+__global__ void __launch_bounds__(kGThreads, 1)
+    ce_gemm_kernel(const __grid_constant__ CUtensorMap a0,
+                   const __grid_constant__ CUtensorMap a1,
+                   const __grid_constant__ CUtensorMap b0,
+                   const __grid_constant__ CUtensorMap b1, int M, int N,
+                   int K, int group_m, Epi epi) {
+  constexpr int S = stages<PAIR>(), SB = stage_bytes<PAIR>();
+  constexpr int BK = depth<PAIR>(), AT = a_tile<PAIR>(), BT = b_tile<PAIR>();
+  constexpr int NA = PAIR == 1 ? 2 : 1;
+  static_assert(BK == 64 || (TA == 1 && TB == 1),
+                "a K-major tile is 128 bytes deep");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * SB);
+  uint64_t* empty = full + S;
+  // grouped order: group_m tile rows walk the tile columns together
+  const int nm = (M + kGBM - 1) / kGBM, nn = (N + kGBN - 1) / kGBN;
+  const int per_group = group_m * nn, g = blockIdx.x / per_group;
+  const int first = g * group_m;
+  const int gm = nm - first < group_m ? nm - first : group_m;
+  const int in = blockIdx.x - g * per_group;
+  const int m0 = (first + in % gm) * kGBM, n0 = (in / gm) * kGBN;
+  const int nk = (K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // the producer: one thread keeps the ring full
+    regs_release_40();
+    if (threadIdx.x == 256) {
+      for (int ks = 0; ks < nk; ++ks) {
+        const int s = ks % S;
+        mbar_wait(&empty[s], ((ks / S) & 1) ^ 1);
+        unsigned char* st = smem + s * SB;
+        mbar_expect_tx(&full[s], SB);
+        const int k0 = ks * BK;
+        load_tile<TA, kGBM, BK>(st, &a0, &full[s], m0, k0);
+        if constexpr (PAIR == 1)
+          load_tile<TA, kGBM, BK>(st + AT, &a1, &full[s], m0, k0);
+        unsigned char* bt = st + NA * AT;
+        load_tile<TB, kGBN, BK>(bt, &b0, &full[s], n0, k0);
+        if constexpr (PAIR == 2)
+          load_tile<TB, kGBN, BK>(bt + BT, &b1, &full[s], n0, k0);
+      }
+    }
+  } else {
+    regs_claim_232();
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < nk; ++ks) {
+      const int s = ks % S;
+      mbar_wait(&full[s], (ks / S) & 1);
+      const unsigned char* st = smem + s * SB;
+      // this warpgroup's 64 rows of A: rows wg * 64 (K-major) or the
+      // wg-th 64-column box (MN-major), 64 BK 2 bytes in either case
+      const unsigned char* at = st + wg * 64 * BK * 2;
+      const unsigned char* bt = st + NA * AT;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t da = step_desc<TA, BK>(at, kk);
+        const uint64_t db = step_desc<TB, BK>(bt, kk);
+        wgmma_m64n256k16<TA, TB>(acc, da, db);
+        if constexpr (PAIR == 1)
+          wgmma_m64n256k16<TA, TB>(acc, step_desc<TA, BK>(at + AT, kk), db);
+        if constexpr (PAIR == 2)
+          wgmma_m64n256k16<TA, TB>(acc, da, step_desc<TB, BK>(bt + BT, kk));
+      }
+      wgmma_commit();
+      fence_regs(acc);
+      // the stage before this one has been read: hand it back
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (ks > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(ks - 1) % S]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+    const int rbase = m0 + wg * 64 + wq * 16 + (lane >> 2);
+    const int cbase = n0 + 2 * (lane & 3);
+    if constexpr (P_EPI) {
+      float lse_h[2], sc_h[2];
+      long long lab_h[2];
+      const float coef = *epi.coef;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rbase + 8 * h;
+        const bool ok = row < M;
+        lse_h[h] = ok ? epi.lse[row] : 0.f;
+        lab_h[h] = ok ? epi.labels[row] : -1;
+        sc_h[h] = lab_h[h] >= 0 ? coef : 0.f;
+      }
+      auto* hi = static_cast<__nv_bfloat16*>(epi.hi);
+      auto* lo = static_cast<__nv_bfloat16*>(epi.lo);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = cbase + j * 8;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = rbase + 8 * h;
+          if (row >= M || col >= epi.ldp) continue;
+          const float p0 = p_value(acc[j * 4 + 2 * h], col, epi.V, lse_h[h],
+                                   lab_h[h], sc_h[h]);
+          const float p1 = p_value(acc[j * 4 + 2 * h + 1], col + 1, epi.V,
+                                   lse_h[h], lab_h[h], sc_h[h]);
+          const __nv_bfloat162 vh = __floats2bfloat162_rn(p0, p1);
+          const __nv_bfloat162 vl = __floats2bfloat162_rn(
+              p0 - __low2float(vh), p1 - __high2float(vh));
+          const long long o = static_cast<long long>(row) * epi.ldp + col;
+          *reinterpret_cast<__nv_bfloat162*>(hi + o) = vh;
+          *reinterpret_cast<__nv_bfloat162*>(lo + o) = vl;
+        }
+      }
+    } else {
+      auto* out = static_cast<__nv_bfloat16*>(epi.out);
+      const bool pairs = epi.mode == 0 && epi.ldo % 2 == 0;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = cbase + j * 8;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = rbase + 8 * h;
+          if (row >= M || col >= N) continue;
+          const float x0 = acc[j * 4 + 2 * h], x1 = acc[j * 4 + 2 * h + 1];
+          const long long o = row * epi.ldo + col;
+          if (pairs && col + 1 < N) {
+            *reinterpret_cast<__nv_bfloat162*>(out + o) =
+                __floats2bfloat162_rn(x0, x1);
+            continue;
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (col + e >= N) break;
+            float v = e ? x1 : x0;
+            if (epi.mode != 0) {
+              float* w = epi.work + static_cast<long long>(row) * N + col + e;
+              if (epi.mode != 1) v += *w;
+              if (epi.mode != 3) {
+                *w = v;
+                continue;
+              }
+            }
+            out[o + e] = __float2bfloat16_rn(v);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int PAIR, int TA, int TB, bool P_EPI>
+cudaError_t launch_gemm(const CUtensorMap (&maps)[4], int M, int N, int K,
+                        int group_m, const Epi& epi, cudaStream_t st) {
+  auto kern = ce_gemm_kernel<PAIR, TA, TB, P_EPI>;
+  constexpr int smem = smem_bytes<PAIR>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int nm = (M + kGBM - 1) / kGBM, nn = (N + kGBN - 1) / kGBN;
+  if (nm == 0 || nn == 0) return cudaSuccess;
+  kern<<<nm * nn, kGThreads, smem, st>>>(maps[0], maps[1], maps[2], maps[3],
+                                        M, N, K, group_m < nm ? group_m : nm,
+                                        epi);
+  return cudaGetLastError();
+}
+
+// --- f32: the same passes on the CUDA cores ---------------------------------
+constexpr int kF32Ld = Ld<float>::v;
+
+// C[M, N] = sum_k A(m, k) B(k, n), A(m, k) = a[m sam + k sak] (k < K),
+// B(k, n) = b[k sbk + n sbn] (k < KB, n < NB; zero elsewhere), one 64 x
+// 128 tile a block in mma.sync's accumulator layout (slice_product)
+template <bool P_EPI>
+__global__ void __launch_bounds__(linear_ce::kThreads, 2)
+    ce_f32_gemm_kernel(const float* __restrict__ a, long long sam,
+                       long long sak, const float* __restrict__ b,
+                       long long sbk, long long sbn, int M, int N, int K,
+                       int KB, int NB, Epi epi) {
+  __shared__ __align__(16) float as[kBT * kF32Ld];
+  __shared__ __align__(16) float bs[kBV * kF32Ld];
+  const Frag f = frag();
+  const int m0 = blockIdx.y * kBT, n0 = blockIdx.x * kBV;
+  float acc[2][4][4];
+  zero(acc);
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    // neighbouring threads on neighbouring addresses of each operand
+    for (int i = threadIdx.x; i < kBT * kBK; i += linear_ce::kThreads) {
+      int r, k;
+      if (sak == 1) {
+        r = i / kBK;
+        k = i % kBK;
+      } else {
+        k = i / kBT;
+        r = i % kBT;
+      }
+      const int m = m0 + r, kk = k0 + k;
+      as[r * kF32Ld + k] = (m < M && kk < K) ? a[m * sam + kk * sak] : 0.f;
+    }
+    for (int i = threadIdx.x; i < kBV * kBK; i += linear_ce::kThreads) {
+      int n, k;
+      if (sbn == 1) {
+        k = i / kBV;
+        n = i % kBV;
+      } else {
+        n = i / kBK;
+        k = i % kBK;
+      }
+      const int nn = n0 + n, kk = k0 + k;
+      bs[n * kF32Ld + k] =
+          (nn < NB && kk < KB) ? b[kk * sbk + nn * sbn] : 0.f;
+    }
+    __syncthreads();
+    slice_product(as, bs, acc, f);
+    __syncthreads();
+  }
+  const float coef = P_EPI ? *epi.coef : 0.f;
+  auto* out = static_cast<float*>(epi.out);
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r0 + frag_row<2>(f, mi, 2 * h);
-        const int col = c0 + frag_col(f, ni, 0);
-        float* o = out + r * ld + col;
-        const float x0 = c[mi][ni][2 * h], x1 = c[mi][ni][2 * h + 1];
-        if (PAIRS) {
-          if (r < nr && col < nc) {
-            float2 v = first ? make_float2(0.f, 0.f)
-                             : *reinterpret_cast<const float2*>(o);
-            *reinterpret_cast<float2*>(o) = make_float2(v.x + x0, v.y + x1);
+      for (int r = 0; r < 4; ++r) {
+        const int row = m0 + frag_row<2>(f, mi, r);
+        const int col = n0 + frag_col(f, ni, r);
+        if (row >= M || col >= N) continue;
+        float v = acc[mi][ni][r];
+        if constexpr (P_EPI) {
+          const long long lab = epi.labels[row];
+          static_cast<float*>(epi.hi)[static_cast<long long>(row) * epi.ldp +
+                                      col] =
+              p_value(v, col, epi.V, epi.lse[row], lab,
+                      lab >= 0 ? coef : 0.f);
+        } else {
+          const long long o = epi.out_vmajor
+                                  ? col * epi.ldo + row
+                                  : row * epi.ldo + col;
+          if (epi.mode != 0) {
+            float* w = epi.work + static_cast<long long>(row) * N + col;
+            if (epi.mode != 1) v += *w;
+            if (epi.mode != 3) {
+              *w = v;
+              continue;
+            }
           }
-        } else if (r < nr) {
-          if (col < nc) o[0] = first ? x0 : o[0] + x0;
-          if (col + 1 < nc) o[1] = first ? x1 : o[1] + x1;
+          out[o] = v;
         }
       }
 }
 
-// ---------------------------------------------------------------------------
-// linear_ce_bwd_dx
-// ---------------------------------------------------------------------------
-constexpr int kDxSmem = kBT * kLdF * 4 + kBT * 4 + kBT * 8 +
-                        cmax(kOperandSmem,
-                             cmax(kBD * kLdH * 4, 2 * kBD * kLdB * 2));
-
-// part: [splits][T][D] f32, rows [t0, t0 + 64) of slice ``split`` owned by
-// this block alone
-template <typename T, bool FAST>
-__global__ void __launch_bounds__(kThreads, 2)
-    ce_dx_kernel(const T* __restrict__ x, const T* __restrict__ head,
-                 long long sd, long long sv, int head_kmajor,
-                 const long long* __restrict__ labels,
-                 const float* __restrict__ lse, const float* __restrict__ coef_p,
-                 int Tn, int D, int V, int tiles_per_split,
-                 float* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ps = reinterpret_cast<float*>(smem);               // [kBT][kLdF]
-  float* lse_s = ps + kBT * kLdF;                            // [kBT]
-  long long* lab_s = reinterpret_cast<long long*>(lse_s + kBT);  // [kBT]
-  unsigned char* ops = reinterpret_cast<unsigned char*>(lab_s + kBT);
-  // after the logit product: the head chunk, as [kBD d][kLdH v] f32
-  // (generic) or two cp.async stages of [kBD d][kLdB v] bf16 (fast)
-  float* hc = reinterpret_cast<float*>(ops);
-  auto* hb = reinterpret_cast<__nv_bfloat16*>(ops);
-  constexpr bool kTC = sizeof(T) == 2;
-  const Frag f = frag();
-  const int t0 = blockIdx.x * kBT, split = blockIdx.y;
-  const int nvt = (V + kBV - 1) / kBV;
-  const int vt0 = split * tiles_per_split;
-  const int vt1 = min(vt0 + tiles_per_split, nvt);
-  const float coef = *coef_p;
-  if (threadIdx.x < kBT) {
-    const int t = t0 + threadIdx.x;
-    lse_s[threadIdx.x] = t < Tn ? lse[t] : 0.f;
-    lab_s[threadIdx.x] = t < Tn ? labels[t] : -1;
-  }
-  float* out = part + static_cast<long long>(split) * Tn * D;
-  float acc[2][4][4];
-  for (int vt = vt0; vt < vt1; ++vt) {
-    const int v0 = vt * kBV;
-    logit_tile<T, FAST>(x, head, sd, sv, head_kmajor, Tn, D, V, t0, v0,
-                            ops, acc, f);
-    p_tile<kTC, false>(acc, f, v0, V, lse_s, lab_s, coef, ps, kLdF);
-    if constexpr (FAST) {
-      __syncthreads();   // P written; the logit operands' readers done
-      stage_bf16_tile<kBV>(reinterpret_cast<const __nv_bfloat16*>(head), sd, 0,
-                           D, v0, V, hb);
-      cp_async_commit();
-    }
-    for (int dc = 0, d0 = 0; d0 < D; ++dc, d0 += kBD) {
-      float c[2][4][4];
-      zero(c);
-      // C[t][d] = sum_v P[t][v] head[d][v]
-      if constexpr (FAST) {
-        if (d0 + kBD < D)
-          stage_bf16_tile<kBV>(reinterpret_cast<const __nv_bfloat16*>(head),
-                               sd, d0 + kBD, D, v0, V,
-                               hb + ((dc + 1) & 1) * kBD * kLdB);
-        cp_async_commit();
-        cp_async_wait1();
-        __syncthreads();
-        dx_product(ps, hb + (dc & 1) * kBD * kLdB, c, f);
-      } else {
-        __syncthreads();   // P written; the last chunk's readers done
-        for (int i = threadIdx.x; i < kBD * kBV; i += kThreads) {
-          int dd, n;
-          if (head_kmajor) {
-            n = i / kBD;
-            dd = i % kBD;
-          } else {
-            dd = i / kBV;
-            n = i % kBV;
-          }
-          const int d = d0 + dd, v = v0 + n;
-          hc[dd * kLdH + n] =
-              (d < D && v < V) ? to_float(head[d * sd + v * sv]) : 0.f;
-        }
-        __syncthreads();
-        smem_product<kTC, 2>(ps, kLdF, 1, hc, 1, kLdH, kBV, c, f);
-      }
-      accumulate<FAST>(c, f, out, D, t0, Tn, d0, D, vt == vt0);
-      if constexpr (FAST) __syncthreads();   // this stage's readers done
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// linear_ce_bwd_dh
-// ---------------------------------------------------------------------------
-constexpr int kDhSmem = cmax(kDhT * kLdPh, kBV * kLdF) * 4 + kDhT * 4 +
-                        kDhT * 8 +
-                        cmax(kOperandSmem,
-                             cmax(kDhT * kLdX * 4, 2 * kDhT * kLdXb * 2));
-
-// acc: [D][V] f32, columns [v0, v0 + 128) owned by this block alone
-template <typename T, bool FAST>
-__global__ void __launch_bounds__(kThreads, 2)
-    ce_dh_kernel(const T* __restrict__ x, const T* __restrict__ head,
-                 long long sd, long long sv, int head_kmajor,
-                 const long long* __restrict__ labels,
-                 const float* __restrict__ lse, const float* __restrict__ coef_p,
-                 int Tn, int D, int V, float* __restrict__ accum) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // P as [t][kLdPh] (generic) or P^T as [v][kLdF] (fast)
-  float* ps = reinterpret_cast<float*>(smem);
-  float* lse_s = ps + cmax(kDhT * kLdPh, kBV * kLdF);        // [kDhT]
-  long long* lab_s = reinterpret_cast<long long*>(lse_s + kDhT);  // [kDhT]
-  unsigned char* ops = reinterpret_cast<unsigned char*>(lab_s + kDhT);
-  // after the logit products: the x chunk, as [t][kLdX] f32 (generic) or
-  // two cp.async stages of [t][kLdB] bf16 (fast)
-  float* xc = reinterpret_cast<float*>(ops);
-  auto* xb = reinterpret_cast<__nv_bfloat16*>(ops);
-  constexpr bool kTC = sizeof(T) == 2;
-  const Frag f = frag();
-  const int v0 = blockIdx.x * kBV;
-  const float coef = *coef_p;
-  float acc[2][4][4];
-  for (int tg = 0; tg < Tn; tg += kDhT) {
-    __syncthreads();     // the last group's readers of lse_s / lab_s done
-    if (threadIdx.x < kDhT) {
-      const int t = tg + threadIdx.x;
-      lse_s[threadIdx.x] = t < Tn ? lse[t] : 0.f;
-      lab_s[threadIdx.x] = t < Tn ? labels[t] : -1;
-    }
-    for (int sub = 0; sub < kDhT / kBT; ++sub) {
-      logit_tile<T, FAST>(x, head, sd, sv, head_kmajor, Tn, D, V,
-                              tg + sub * kBT, v0, ops, acc, f);
-      if constexpr (FAST)
-        p_tile<kTC, true>(acc, f, v0, V, lse_s + sub * kBT, lab_s + sub * kBT,
-                          coef, ps + sub * kBT, kLdF);
-      else
-        p_tile<kTC, false>(acc, f, v0, V, lse_s + sub * kBT,
-                           lab_s + sub * kBT, coef, ps + sub * kBT * kLdPh,
-                           kLdPh);
-    }
-    if constexpr (FAST) {
-      __syncthreads();   // P written; the logit operands' readers done
-      stage_bf16_tile<kBDh>(reinterpret_cast<const __nv_bfloat16*>(x), D, tg,
-                            Tn, 0, D, xb);
-      cp_async_commit();
-    }
-    for (int dc = 0, d0 = 0; d0 < D; ++dc, d0 += kBDh) {
-      float c[2][4][4];
-      zero(c);
-      // C[d][v] = sum_t x[t][d] P[t][v]
-      if constexpr (FAST) {
-        if (d0 + kBDh < D)
-          stage_bf16_tile<kBDh>(reinterpret_cast<const __nv_bfloat16*>(x), D,
-                                tg, Tn, d0 + kBDh, D,
-                                xb + ((dc + 1) & 1) * kDhT * kLdXb);
-        cp_async_commit();
-        cp_async_wait1();
-        __syncthreads();
-        dh_product(xb + (dc & 1) * kDhT * kLdXb, ps, c, f);
-      } else {
-        __syncthreads();
-        for (int i = threadIdx.x; i < kDhT * kBDh; i += kThreads) {
-          const int tt = i / kBDh, dd = i % kBDh;
-          const int t = tg + tt, d = d0 + dd;
-          xc[tt * kLdX + dd] =
-              (t < Tn && d < D)
-                  ? to_float(x[static_cast<long long>(t) * D + d])
-                  : 0.f;
-        }
-        __syncthreads();
-        smem_product<kTC, 2>(xc, 1, kLdX, ps, kLdPh, 1, kDhT, c, f);
-      }
-      accumulate<FAST>(c, f, accum, V, d0, D, v0, V, tg == 0);
-      if constexpr (FAST) __syncthreads();   // this stage's readers done
-    }
-  }
-}
-
-// out[r, c] (strides so_r, so_c) = sum over p of part[p][r][c], in p
-// order, cast to T; walked in the output's contiguous order
-template <typename T>
-__global__ void sum_cast(const float* __restrict__ part, int parts, int rows,
-                         int cols, T* __restrict__ out, long long so_r,
-                         long long so_c, int col_major) {
-  const long long n = static_cast<long long>(rows) * cols;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    long long r, c;
-    if (col_major) {
-      c = i / rows;
-      r = i % rows;
-    } else {
-      r = i / cols;
-      c = i % cols;
-    }
-    const long long src = r * cols + c;
-    float s = 0.f;
-    for (int p = 0; p < parts; ++p) s += part[p * n + src];
-    out[r * so_r + c * so_c] = from_float<T>(s);
-  }
-}
-
-template <typename T>
-cudaError_t launch_sum_cast(const float* part, int parts, int rows, int cols,
-                            void* out, long long so_r, long long so_c,
-                            cudaStream_t st) {
-  const long long n = static_cast<long long>(rows) * cols;
-  if (n == 0) return cudaSuccess;
-  const int blocks = static_cast<int>(
-      n / kThreads + 1 < 132 * 16 ? n / kThreads + 1 : 132 * 16);
-  sum_cast<T><<<blocks, kThreads, 0, st>>>(part, parts, rows, cols,
-                                           static_cast<T*>(out), so_r, so_c,
-                                           so_r == 1 && so_c != 1);
+template <bool P_EPI>
+cudaError_t launch_f32(const void* a, long long sam, long long sak,
+                       const void* b, long long sbk, long long sbn, int M,
+                       int N, int K, int KB, int NB, const Epi& epi,
+                       cudaStream_t st) {
+  dim3 grid((N + kBV - 1) / kBV, (M + kBT - 1) / kBT);
+  if (grid.x == 0 || grid.y == 0) return cudaSuccess;
+  ce_f32_gemm_kernel<P_EPI><<<grid, linear_ce::kThreads, 0, st>>>(
+      static_cast<const float*>(a), sam, sak, static_cast<const float*>(b),
+      sbk, sbn, M, N, K, KB, NB, epi);
   return cudaGetLastError();
 }
+
+}  // namespace bwd
 
 template <typename T, bool FAST>
 cudaError_t fwd(const void* x, const void* head, long long sd, long long sv,
@@ -913,43 +805,6 @@ cudaError_t fwd(const void* x, const void* head, long long sd, long long sv,
   ce_fwd_combine<<<(Tn + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       part, Tn, splits, lse, pick);
   return cudaGetLastError();
-}
-
-template <typename T, bool FAST>
-cudaError_t bwd_dx(const void* x, const void* head, long long sd, long long sv,
-                   const long long* labels, const float* lse,
-                   const float* coef, void* dx, float* part, int Tn, int D,
-                   int V, int tiles_per_split, cudaStream_t st) {
-  const int nvt = (V + kBV - 1) / kBV;
-  const int splits = (nvt + tiles_per_split - 1) / tiles_per_split;
-  cudaError_t err = cudaFuncSetAttribute(
-      ce_dx_kernel<T, FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDxSmem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tn + kBT - 1) / kBT, splits);
-  ce_dx_kernel<T, FAST><<<grid, kThreads, kDxSmem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(head), sd, sv, sd == 1,
-      labels, lse, coef, Tn, D, V, tiles_per_split, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_sum_cast<T>(part, splits, Tn, D, dx, D, 1, st);
-}
-
-template <typename T, bool FAST>
-cudaError_t bwd_dh(const void* x, const void* head, long long sd, long long sv,
-                   const long long* labels, const float* lse,
-                   const float* coef, void* dh, long long so_d, long long so_v,
-                   float* accum, int Tn, int D, int V, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ce_dh_kernel<T, FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDhSmem);
-  if (err != cudaSuccess) return err;
-  ce_dh_kernel<T, FAST><<<(V + kBV - 1) / kBV, kThreads, kDhSmem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(head), sd, sv, sd == 1,
-      labels, lse, coef, Tn, D, V, accum);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_sum_cast<T>(accum, 1, D, V, dh, so_d, so_v, st);
 }
 
 // Which instantiation runs: 0 f32; 1 bf16, generic loads (a k-contiguous
@@ -969,13 +824,13 @@ inline int route(const void* x, const void* head, long long sd, long long sv,
 }  // namespace paddle_tpu_torch
 
 using namespace paddle_tpu_torch::linear_ce;
+namespace hopper = paddle_tpu_torch::hopper;
 
-// dtype: 0 float32, 1 bfloat16; T, D and V >= 1. bt, bv, splits and smem
-// are the wrapper's plan: the logit tile (kBT x kBV), the number of vocab
-// splits tiles_per_split makes, and the dynamic shared memory of the main
-// kernel; a plan other than the kernels' is refused
-// (cudaErrorInvalidValue). Each returns cudaError_t as int (0: both of its
-// kernels were launched).
+// The forward's launcher. dtype: 0 float32, 1 bfloat16; T, D and V >= 1.
+// bt, bv and splits are the wrapper's plan: the logit tile (kBT x kBV) and
+// the number of vocab splits tiles_per_split makes; a plan other than the
+// kernels' is refused (cudaErrorInvalidValue). Returns cudaError_t as int
+// (0: both of its kernels were launched).
 inline bool plan_ok(int V, int tiles_per_split, int bt, int bv, int splits) {
   const int nvt = (V + kBV - 1) / kBV;
   return bt == kBT && bv == kBV && tiles_per_split >= 1 &&
@@ -1006,36 +861,156 @@ extern "C" int linear_ce_fwd(const void* x, const void* head, long long sd,
                   tiles_per_split, st)
 }
 
-extern "C" int linear_ce_bwd_dx(const void* x, const void* head, long long sd,
-                                long long sv, const void* labels,
-                                const void* lse, const void* coef, void* dx,
-                                void* part, int Tn, int D, int V,
-                                int tiles_per_split, int bt, int bv,
-                                int splits, int smem, int dtype,
-                                void* stream) {
-  if (!plan_ok(V, tiles_per_split, bt, bv, splits) || smem != kDxSmem)
-    return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto lab = static_cast<const long long*>(labels);
-  auto l = static_cast<const float*>(lse), c = static_cast<const float*>(coef);
-  auto w = static_cast<float*>(part);
-  LINEAR_CE_ROUTE(bwd_dx, x, head, sd, sv, lab, l, c, dx, w, Tn, D, V,
-                  tiles_per_split, st)
+// The backward's launchers. dtype: 0 float32, 1 bfloat16; ``smem`` is the
+// wrapper's plan of the launch's dynamic shared memory (the bf16 kernels'
+// smem_bytes; 0 for f32, whose tiles are static), refused otherwise
+// (cudaErrorInvalidValue), as is a bf16 operand TMA cannot read (a base
+// not 16-byte aligned, a row stride not a multiple of 8 elements).
+// ``head_kmajor``: 0 the untied layout (rows of D), 1 the tied one (rows
+// of V). Each returns cudaError_t as int.
+namespace {
+
+bool aligned(const void* p, long long ld) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 8 == 0;
 }
 
-extern "C" int linear_ce_bwd_dh(const void* x, const void* head, long long sd,
-                                long long sv, const void* labels,
-                                const void* lse, const void* coef, void* dh,
-                                long long so_d, long long so_v, void* accum,
-                                int Tn, int D, int V, int bv, int smem,
-                                int dtype, void* stream) {
-  if (bv != kBV || smem != kDhSmem) return cudaErrorInvalidValue;
+// the bf16 P pass's and gradients' dynamic shared memory
+constexpr int kSmemP = bwd::smem_bytes<0>();
+constexpr int kSmemPairA = bwd::smem_bytes<1>();
+constexpr int kSmemPairB = bwd::smem_bytes<2>();
+
+bwd::Epi no_epi() {
+  bwd::Epi e{};
+  return e;
+}
+
+}  // namespace
+
+// P over the ``rows`` rows of x (the chunk's first row at ``x``): p0 = hi,
+// p1 = lo [rows, Vp] bf16; f32: p0 = P [rows, Vp] f32
+extern "C" int linear_ce_p(const void* x, long long sx, const void* head,
+                           long long sh, int head_kmajor, const void* labels,
+                           const void* lse, const void* coef, void* p0,
+                           void* p1, int rows, int D, int V, int Vp,
+                           int smem, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  auto lab = static_cast<const long long*>(labels);
-  auto l = static_cast<const float*>(lse), c = static_cast<const float*>(coef);
-  auto w = static_cast<float*>(accum);
-  LINEAR_CE_ROUTE(bwd_dh, x, head, sd, sv, lab, l, c, dh, so_d, so_v, w, Tn,
-                  D, V, st)
+  bwd::Epi epi = no_epi();
+  epi.labels = static_cast<const long long*>(labels);
+  epi.lse = static_cast<const float*>(lse);
+  epi.coef = static_cast<const float*>(coef);
+  epi.V = V;
+  epi.hi = p0;
+  epi.lo = p1;
+  epi.ldp = Vp;
+  if (dtype == 0) {
+    if (smem != 0) return cudaErrorInvalidValue;
+    // B(k = d, n = v)
+    return head_kmajor
+               ? bwd::launch_f32<true>(x, sx, 1, head, 1, sh, rows, Vp, D, D,
+                                       V, epi, st)
+               : bwd::launch_f32<true>(x, sx, 1, head, sh, 1, rows, Vp, D, D,
+                                       V, epi, st);
+  }
+  if (smem != kSmemP || !aligned(x, sx) || !aligned(head, sh) ||
+      !aligned(p0, Vp) || !aligned(p1, Vp))
+    return cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  bool ok = hopper::make_map(&m[0], x, rows, D, sx, bwd::kGBM);
+  m[1] = m[0];
+  if (head_kmajor) {          // [V][D]: B K-major
+    ok = ok && hopper::make_map(&m[2], head, V, D, sh, bwd::kGBN);
+  } else {                    // [D][V]: B MN-major
+    ok = ok && hopper::make_map(&m[2], head, D, V, sh, 64);
+  }
+  m[3] = m[2];
+  if (!ok) return cudaErrorInvalidValue;
+  const int nm = (rows + bwd::kGBM - 1) / bwd::kGBM;
+  return head_kmajor
+             ? bwd::launch_gemm<0, 0, 0, true>(m, rows, Vp, D, nm, epi, st)
+             : bwd::launch_gemm<0, 0, 1, true>(m, rows, Vp, D, nm, epi, st);
+}
+
+// dx [rows, D] (x's type, rows of D) = P head^T over the chunk's P
+extern "C" int linear_ce_bwd_dx(const void* p0, const void* p1,
+                                const void* head, long long sh,
+                                int head_kmajor, void* dx, int rows, int D,
+                                int V, int Vp, int smem, int dtype,
+                                void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  bwd::Epi epi = no_epi();
+  epi.out = dx;
+  epi.ldo = D;
+  if (dtype == 0) {
+    if (smem != 0) return cudaErrorInvalidValue;
+    // A = P [rows][Vp]; B(k = v, n = d)
+    return head_kmajor
+               ? bwd::launch_f32<false>(p0, Vp, 1, head, sh, 1, rows, D, Vp,
+                                        V, D, epi, st)
+               : bwd::launch_f32<false>(p0, Vp, 1, head, 1, sh, rows, D, Vp,
+                                        V, D, epi, st);
+  }
+  if (smem != kSmemPairA || !aligned(head, sh) || !aligned(p0, Vp) ||
+      !aligned(p1, Vp))
+    return cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  bool ok = hopper::make_map(&m[0], p0, rows, Vp, Vp, bwd::kGBM) &&
+            hopper::make_map(&m[1], p1, rows, Vp, Vp, bwd::kGBM);
+  if (head_kmajor) {          // [V][D]: B(k = v, n = d) MN-major
+    ok = ok && hopper::make_map(&m[2], head, V, D, sh, 64);
+  } else {                    // [D][V]: K-major
+    ok = ok && hopper::make_map(&m[2], head, D, V, sh, bwd::kGBN);
+  }
+  m[3] = m[2];
+  if (!ok) return cudaErrorInvalidValue;
+  return head_kmajor
+             ? bwd::launch_gemm<1, 0, 1, false>(m, rows, D, Vp, 8, epi, st)
+             : bwd::launch_gemm<1, 0, 0, false>(m, rows, D, Vp, 8, epi, st);
+}
+
+// dh from the chunk's P and x: out_vmajor 0: dh [D, V] (row stride ldo);
+// 1: dh^T [V, D] (row stride ldo). ``work``: the f32 sum [M, N] across
+// chunks for ``mode`` 1-3 (see the file's header), unused for mode 0.
+extern "C" int linear_ce_bwd_dh(const void* x, long long sx, const void* p0,
+                                const void* p1, void* dh, long long ldo,
+                                int out_vmajor, void* work, int mode,
+                                int rows, int D, int V, int Vp, int smem,
+                                int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (mode < 0 || mode > 3 || (mode != 0 && work == nullptr))
+    return cudaErrorInvalidValue;
+  bwd::Epi epi = no_epi();
+  epi.out = dh;
+  epi.ldo = ldo;
+  epi.out_vmajor = out_vmajor;
+  epi.work = static_cast<float*>(work);
+  epi.mode = mode;
+  if (dtype == 0) {
+    if (smem != 0) return cudaErrorInvalidValue;
+    // A(m = d, k = t) = x[t sx + d], B(k = t, n = v) = P[t Vp + v]
+    return bwd::launch_f32<false>(x, 1, sx, p0, Vp, 1, D, V, rows, rows, V,
+                                  epi, st);
+  }
+  if (smem != (out_vmajor ? kSmemPairA : kSmemPairB) || !aligned(x, sx) ||
+      !aligned(p0, Vp) || !aligned(p1, Vp))
+    return cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  CUtensorMap xm, hi, lo;
+  // MN-major boxes: 64 columns x the stage's depth
+  const int bk = out_vmajor ? bwd::depth<1>() : bwd::depth<2>();
+  bool ok = hopper::make_map(&xm, x, rows, D, sx, bk) &&
+            hopper::make_map(&hi, p0, rows, Vp, Vp, bk) &&
+            hopper::make_map(&lo, p1, rows, Vp, Vp, bk);
+  if (!ok) return cudaErrorInvalidValue;
+  if (out_vmajor) {           // dh^T = P^T x: A = hi, lo; B = x
+    m[0] = hi;
+    m[1] = lo;
+    m[2] = m[3] = xm;
+    return bwd::launch_gemm<1, 1, 1, false>(m, V, D, rows, 8, epi, st);
+  }
+  m[0] = m[1] = xm;           // dh = x^T P: A = x; B = hi, lo
+  m[2] = hi;
+  m[3] = lo;
+  return bwd::launch_gemm<2, 1, 1, false>(m, D, V, rows, 32, epi, st);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -23,18 +23,28 @@ The linear CE replaces ``_ce_fwd_kernel``, ``_ce_dx_kernel`` and
 ``linear_ce_bwd_dh``); the kernels are
 ``paddle_tpu_torch/csrc/linear_ce.cu``, built by :mod:`._build` at the
 first launch and bound with ctypes. That file's header says what bounds
-them (operations: 1.07 / 2.15 / 2.15 TFLOP at the training shape), how
-their f32 accumulators live in device memory, and where they round. Each
-wrapper call is two device kernels (the main one and a fixed-order
-combine or cast), counted once. The plain versions :func:`ce_fwd_ref`,
-:func:`ce_bwd_dx_ref` and :func:`ce_bwd_dh_ref` compute the same
-functions densely in f32. :class:`LinearCE` does what the JAX package does
+them (operations: 1.07 TFLOP the forward, 2.15 the dx call, 1.07 the dh
+call over a given P at the training shape) and how the backward is laid
+out: a P pass writes P = (softmax - onehot) * valid * coef once, as bf16
+hi + lo (f32 for f32 inputs), then dx = P head^T and dh = x^T P are plain
+products on wgmma with their sums in registers. ``linear_ce_bwd_dx``'s
+call runs the P pass and dx and can keep P (:class:`CEWorkspace`) for
+``linear_ce_bwd_dh``'s, which then runs only its product; P's workspace
+is held to ``P_CAP_BYTES`` by token chunks (:func:`ce_chunk_rows`). Each
+wrapper call is counted once, whatever kernels it runs. The plain
+versions :func:`ce_fwd_ref`, :func:`ce_bwd_dx_ref` and
+:func:`ce_bwd_dh_ref` compute the same functions densely in f32;
+:func:`ce_p_split_ref`, :func:`ce_bwd_dx_split_ref` and
+:func:`ce_bwd_dh_split_ref` are the P pass's split and the products over
+it, plainly. :class:`LinearCE` does what the JAX package does
 outside its kernels: flatten to [T, D], count the labels >= 0 (negative
 labels, -1 and -100 alike, are ignored), the masked mean of ``lse -
 pick`` over ``max(count, 1)``, and ``coef = g / max(count, 1)``. Labels
 are taken as int64 (int32 widens; nothing narrows). The head is read by
-its strides, so the tied head (the embedding seen transposed) is not
-copied, and dh is written in the head's layout.
+its strides in either dense layout, so the tied head (the embedding seen
+transposed) is not copied (:func:`ce_operands` copies a head or x whose
+rows the card's tensor memory accelerator cannot read), and dh is written
+in the head's layout.
 
 The Functions run the kernels for CUDA tensors and the plain versions for
 CPU ones; a wrapper given anything else raises, never falls back.
@@ -43,8 +53,11 @@ never at import.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build, _launch
@@ -52,29 +65,49 @@ from ._build import DTYPES
 
 __all__ = ["swiglu_fwd_ref", "swiglu_bwd_ref", "swiglu_fwd_triton",
            "swiglu_bwd_triton", "SwiGLU", "ce_fwd_ref", "ce_bwd_dx_ref",
-           "ce_bwd_dh_ref", "linear_ce_fwd_cuda", "linear_ce_bwd_dx_cuda",
-           "linear_ce_bwd_dh_cuda", "LinearCE", "ce_splits", "BT", "BV"]
+           "ce_bwd_dh_ref", "ce_p_split_ref", "ce_bwd_dx_split_ref",
+           "ce_bwd_dh_split_ref", "linear_ce_fwd_cuda",
+           "linear_ce_bwd_dx_cuda", "linear_ce_bwd_dh_cuda", "LinearCE",
+           "CEOperands", "CEWorkspace", "ce_operands", "ce_workspace",
+           "ce_p_pass", "ce_dx_product", "ce_dh_product", "ce_splits",
+           "ce_chunk_rows", "p_width", "BT", "BV"]
 
 BLOCK = 1024
-#: the linear-CE kernels' logit tile (``kBT`` x ``kBV`` in linear_ce.cu;
-#: the launchers refuse another)
+#: the linear-CE forward's logit tile (``kBT`` x ``kBV`` in linear_ce.cu;
+#: the launcher refuses another)
 BT, BV = 64, 128
 _SMS = _launch.H100_SMS
 _TRITON_SOURCE = "paddle_tpu_torch/ops/kernels/fused_train.py"
 _CE_SOURCE = "paddle_tpu_torch/csrc/linear_ce.cu"
 _CE_THREADS = 256
-#: shared memory of the CE kernels (linear_ce.cu): the forward's static
-#: tile (kFwdSmem), the dx and dh kernels' dynamic ones (kDxSmem, kDhSmem,
-#: which their launchers hold these figures to)
-CE_FWD_SMEM, CE_DX_SMEM, CE_DH_SMEM = 33792, 105216, 108032
+#: the forward's static shared memory (kFwdSmem)
+CE_FWD_SMEM = 33792
+#: the backward's bf16 products (linear_ce.cu, ``bwd::``): output tiles of
+#: GEMM_BM x GEMM_BN, depth stages of GEMM_BK (dh's, x and P both
+#: MN-major: GEMM_BK_DH), 384 threads (two consumer warpgroups and a
+#: producer), one block an SM
+GEMM_BM, GEMM_BN, GEMM_BK, GEMM_BK_DH, GEMM_THREADS = 128, 256, 64, 32, 384
+#: their stages and dynamic shared memory (``bwd::stages``,
+#: ``bwd::smem_bytes``): the P pass; two A tiles on one B tile (dx, and
+#: dh^T for the tied layout); two B tiles on one A tile (dh)
+CE_STAGES = {"p": 4, "pair_a": 3, "pair_b": 5}
+CE_P_SMEM, CE_PAIR_A_SMEM, CE_PAIR_B_SMEM = 197728, 197728, 205920
+#: the f32 backward's CUDA-core tiles: BT x BV, depth F32_BK, static
+#: shared memory (BT + BV) x (F32_BK + 1) f32
+F32_BK, CE_F32_SMEM = 32, 25344
+#: P's columns are V rounded up to P_ALIGN; its workspace (hi + lo, or the
+#: f32 P: T Vp 4 bytes) is held to P_CAP_BYTES by token chunks
+P_ALIGN, P_CAP_BYTES = 64, 1 << 30
 #: the launchers' ctypes argument codes
 CE_CALLS = {
     "linear_ce_fwd": ("p", "p", "l", "l") + ("p",) * 4 + ("i",) * 7
     + ("i", "p"),
-    "linear_ce_bwd_dx": ("p", "p", "l", "l") + ("p",) * 5 + ("i",) * 8
+    "linear_ce_p": ("p", "l", "p", "l", "i") + ("p",) * 5 + ("i",) * 5
     + ("i", "p"),
-    "linear_ce_bwd_dh": ("p", "p", "l", "l") + ("p",) * 4 + ("l", "l", "p")
-    + ("i",) * 5 + ("i", "p")}
+    "linear_ce_bwd_dx": ("p", "p", "p", "l", "i", "p") + ("i",) * 5
+    + ("i", "p"),
+    "linear_ce_bwd_dh": ("p", "l", "p", "p", "p", "l", "i", "p")
+    + ("i",) * 6 + ("i", "p")}
 _kernels = {}
 tl = None          # triton.language, bound by triton_jit at the first launch
 
@@ -247,6 +280,48 @@ def ce_bwd_dh_ref(x2, head, labels, lse, coef):
     return (x2.float().T @ _ce_p(x2, head, labels, lse, coef)).to(head.dtype)
 
 
+def p_width(V):
+    """P's columns: V rounded up to ``P_ALIGN``."""
+    return -(-V // P_ALIGN) * P_ALIGN
+
+
+def ce_p_split_ref(x2, head, labels, lse, coef):
+    """The P pass's output, plainly: ``(hi, lo)``, hi = bf16(P), lo =
+    bf16(P - hi), [T, Vp] with zeros past V; for f32 inputs ``(P, None)``,
+    P f32 [T, Vp]."""
+    p = _ce_p(x2, head, labels, lse, coef)
+    p = torch.nn.functional.pad(p, (0, p_width(p.shape[1]) - p.shape[1]))
+    if x2.dtype != torch.bfloat16:
+        return p, None
+    hi = p.to(torch.bfloat16)
+    return hi, (p - hi.float()).to(torch.bfloat16)
+
+
+def _p_value(p0, p1, V):
+    """The first V columns of P as the products read it: hi + lo in f32."""
+    return (p0.float() if p1 is None else p0.float() + p1.float())[:, :V]
+
+
+def ce_bwd_dx_split_ref(p0, p1, head, dtype):
+    """dx from the P pass's output as the kernel sums it: ``hi head^T +
+    lo head^T`` in f32, cast to ``dtype``."""
+    return (_p_value(p0, p1, head.shape[1]) @ head.float().T).to(dtype)
+
+
+def ce_bwd_dh_split_ref(x2, p0, p1, V, dtype, chunk_rows=None):
+    """dh from the P pass's output: ``x^T hi + x^T lo`` over chunks of
+    ``chunk_rows`` rows (all of T by default), the chunks' f32 sums added
+    in chunk order, cast to ``dtype`` once."""
+    T = x2.shape[0]
+    step = T if chunk_rows is None else chunk_rows
+    acc = None
+    for r0 in range(0, T, step):
+        part = x2[r0:r0 + step].float().T @ _p_value(
+            p0[r0:r0 + step], None if p1 is None else p1[r0:r0 + step], V)
+        acc = part if acc is None else acc + part
+    return acc.to(dtype)
+
+
 def ce_splits(T, V, blocks):
     """``(tiles_per_split, splits)``: the vocab tiles cut into ``splits``
     runs so that at most ``blocks`` blocks of 64 tokens run (whole waves
@@ -258,62 +333,214 @@ def ce_splits(T, V, blocks):
     return tps, -(-nvt // tps)
 
 
+def ce_chunk_rows(T, V, chunk_rows=None):
+    """Rows of P one backward chunk holds: all of T while ``T Vp 4 <=
+    P_CAP_BYTES`` (the training shape's 524 MB is one chunk), else the most
+    multiple of ``GEMM_BM`` that fits; a given ``chunk_rows`` (a multiple
+    of ``GEMM_BM``) forces the size."""
+    if chunk_rows is None:
+        fit = P_CAP_BYTES // (p_width(V) * 4)
+        chunk_rows = T if T <= fit else max(GEMM_BM, fit // GEMM_BM * GEMM_BM)
+    elif chunk_rows < 1 or (chunk_rows < T and chunk_rows % GEMM_BM):
+        raise ValueError(f"chunk_rows {chunk_rows}: a multiple of {GEMM_BM}")
+    return min(T, chunk_rows)
+
+
+def _chunks(T, rows):
+    """``[(r0, n), ...]``: the token chunks in order."""
+    return [(r0, min(rows, T - r0)) for r0 in range(0, T, rows)]
+
+
+def _grouped(i, nm, nn, gm):
+    """Tile (m, n) of block ``i`` in the kernels' grouped order: ``gm``
+    tile rows walk the tile columns together (numpy-friendly)."""
+    gm = min(gm, nm)
+    g = i // (gm * nn)
+    first = g * gm
+    size = np.minimum(nm - first, gm)
+    j = i - g * gm * nn
+    return first + j % size, j // size
+
+
+def _tile_order(bf, nm, nn, gm):
+    """Block index -> output tile (m, n): the bf16 kernels' grouped order,
+    the f32 kernels' grid (blockIdx.x over the tile columns)."""
+    if bf:
+        return lambda i: _grouped(i, nm, nn, gm)
+    return lambda i: (i // nn, i % nn)
+
+
 @functools.lru_cache(maxsize=64)
-def ce_spec(name, T, D, V, dt, head_dt, splits):
-    """The launch spec of one linear-CE wrapper call: its main kernel
-    (forward and dx: one block of 256 threads per (64-token tile, vocab
-    split), reading the tile's rows of x and labels and the split's
-    columns of the head; dh: one block per 128-column vocab tile, reading
-    all of x) and its second kernel (the forward's combine of the split
-    partials into lse and pick, one thread a token; dx's and dh's
-    fixed-order cast of the f32 accumulators into the output)."""
+def ce_spec(name, T, D, V, dt, head_dt, splits=1, head_kmajor=False,
+            chunk_rows=None, p_given=False, staged=(), dh_vmajor=False):
+    """The launch spec of one linear-CE wrapper call.
+
+    - ``linear_ce_fwd``: one block of 256 threads per (64-token tile, vocab
+      split), reading the tile's rows of x and labels and the split's
+      columns of the head, then the combine of the split partials into lse
+      and pick (one thread a token).
+    - ``linear_ce_bwd_dx``: per token chunk (last to first), the P pass
+      (a 128 x 256 tile of P a block: x's rows, the head's columns; hi and
+      lo out) and the dx product (a 128 x 256 tile of dx a block: P's
+      rows, the head's rows). P's workspace (``p_hi``, ``p_lo``; f32
+      ``p``) is an output: after the call it holds the first chunk.
+    - ``linear_ce_bwd_dh``: per chunk (first to last) the dh product (a
+      128 x 256 tile of dh, or of dh^T for a head laid out as the tied
+      embedding, a block: x's and P's columns over the chunk's rows), each
+      chunk's P from the given workspace (``p_given``: an input, holding
+      the first chunk) or from a P pass of its own; several chunks add
+      into an f32 sum ``dh_sum`` in chunk order.
+
+    ``head_kmajor``: the head is read in the tied layout (the embedding
+    [V, D]); ``dh_vmajor``: dh is written as the embedding's gradient
+    [V, D] seen transposed; ``staged``: operands copied to 16-byte
+    aligned rows first."""
     op = _launch.KernelOperand
     A, whole = _launch.Access, _launch.whole
-    nt, nvt = -(-T // BT), -(-V // BV)
     x, head = op("x", (T, D), dt), op("head", (D, V), head_dt)
     labels = op("labels", (T,), "int64")
-    stats = (op("lse", (T,), "float32"), op("coef", (1,), "float32"))
-    if name == "linear_ce_bwd_dh":
-        ins = (x, head, labels) + stats
-        outs = (op("dh", (D, V), head_dt),)
-        grid, smem = (nvt,), CE_DH_SMEM
-        main = _launch.KernelPhase(
-            "vocab_tiles", nvt,
-            (A("head", (D, BV), lambda i: (0, i)), whole(x), whole(labels),
-             whole(stats[0]), whole(stats[1])))
-        plan = {"bv": BV, "smem": smem}
-    else:
-        tps = -(-nvt // splits)
-        grid = (nt, splits)
-        reads = (A("x", (BT, D), lambda i: (i % nt, 0)),
-                 A("labels", (BT,), lambda i: (i % nt,)),
-                 A("head", (D, tps * BV), lambda i: (0, i // nt)))
-        if name == "linear_ce_fwd":
-            ins = (x, head, labels)
-            outs = (op("lse_out", (T,), "float32"),
-                    op("pick", (T,), "float32"))
-            smem = 0
-        else:
-            ins = (x, head, labels) + stats
-            outs = (op("dx", (T, D), dt),)
-            reads += (A("lse", (BT,), lambda i: (i % nt,)),
-                      whole(stats[1]))
-            smem = CE_DX_SMEM
-        main = _launch.KernelPhase("token_tiles", nt * splits, reads)
-        plan = {"bt": BT, "bv": BV, "tiles_per_split": tps,
-                "splits": splits, "smem": smem}
+    lse, coef = op("lse", (T,), "float32"), op("coef", (1,), "float32")
     if name == "linear_ce_fwd":
+        nt, nvt = -(-T // BT), -(-V // BV)
+        tps = -(-nvt // splits)
+        main = _launch.KernelPhase(
+            "token_tiles", nt * splits,
+            (A("x", (BT, D), lambda i: (i % nt, 0)),
+             A("labels", (BT,), lambda i: (i % nt,)),
+             A("head", (D, tps * BV), lambda i: (0, i // nt))))
+        outs = (op("lse_out", (T,), "float32"), op("pick", (T,), "float32"))
         n_comb = -(-T // _CE_THREADS)
-        second = _launch.KernelPhase(
+        comb = _launch.KernelPhase(
             "combine", n_comb, (),
             tuple(A(o.name, (_CE_THREADS,), lambda i: (i,)) for o in outs))
+        return _launch.KernelLaunchSpec(
+            name, "cuda", _CE_SOURCE, (nt, splits), _CE_THREADS,
+            (x, head, labels), outs, (main, comb),
+            ((name, CE_CALLS[name]),), dt, blocks_per_sm=2,
+            static_smem=CE_FWD_SMEM,
+            plan={"bt": BT, "bv": BV, "tiles_per_split": tps,
+                  "splits": splits})
+    bf = dt == "bfloat16"
+    vp = p_width(V)
+    rows = ce_chunk_rows(T, V, chunk_rows)
+    chunks = _chunks(T, rows)
+    pdt = "bfloat16" if bf else "float32"
+    p_names = ("p_hi", "p_lo") if bf else ("p",)
+    vmajor = dh_vmajor and name == "linear_ce_bwd_dh"
+    if bf:
+        bm, bn = GEMM_BM, GEMM_BN
+        threads, per_sm, static = GEMM_THREADS, 1, 0
+        smem_p = CE_P_SMEM
+        smem_g = CE_PAIR_A_SMEM if name == "linear_ce_bwd_dx" or vmajor \
+            else CE_PAIR_B_SMEM
     else:
-        second = _launch.KernelPhase("cast", 1, (), (whole(outs[0]),))
+        bm, bn = BT, BV
+        threads, per_sm, static = _CE_THREADS, 2, CE_F32_SMEM
+        smem_p = smem_g = 0
+
+    def tiles(M, N):
+        return -(-M // bm), -(-N // bn)
+
+    def p_pass(c, r0, n, names, skip=0):
+        # skip: rows of labels and lse before the operands' first (the
+        # chunk whose P the dh call is given)
+        nm, nn = tiles(n, vp)
+        t0 = r0 // bm
+        f = (lambda i: ((r0 - skip) // bm + i % nm,))
+        reads = (A("x", (bm, D), lambda i: (t0 + i % nm, 0)),
+                 A("labels", (bm,), f), A("lse", (bm,), f), whole(coef),
+                 A("head", (D, bn), lambda i: (0, i // nm)))
+        writes = tuple(A(p, (bm, bn), lambda i: (i % nm, i // nm))
+                       for p in names)
+        return _launch.KernelPhase(f"p_pass[{c}]", nm * nn, reads, writes)
+
+    phases, calls = [], []
+    ins = [x]
+    if name == "linear_ce_bwd_dx":
+        ins += [head, labels, lse, coef]
+        outs = [op("dx", (T, D), dt)] + [op(p, (rows, vp), pdt)
+                                         for p in p_names]
+        gm = 8 if bf else 1
+        for c, (r0, n) in reversed(list(enumerate(chunks))):
+            phases.append(p_pass(c, r0, n, p_names))
+            nm, nn = tiles(n, D)
+            t0 = r0 // bm
+            mn = _tile_order(bf, nm, nn, gm)
+            phases.append(_launch.KernelPhase(
+                f"dx[{c}]", nm * nn,
+                tuple(A(p, (bm, vp), lambda i, mn=mn: (mn(i)[0], 0))
+                      for p in p_names)
+                + (A("head", (bn, V), lambda i, mn=mn: (mn(i)[1], 0)),),
+                (A("dx", (bm, bn),
+                   lambda i, mn=mn, t0=t0: (t0 + mn(i)[0], mn(i)[1])),)))
+        calls = [("linear_ce_p", CE_CALLS["linear_ce_p"]),
+                 ("linear_ce_bwd_dx", CE_CALLS["linear_ce_bwd_dx"])]
+        accum = tuple(p_names) if len(chunks) > 1 else ()
+    else:
+        own = [f"{p}_chunks" for p in p_names] if p_given else p_names
+        if p_given:
+            ins += [op(p, (rows, vp), pdt) for p in p_names]
+        skip = rows if p_given else 0
+        if not p_given or len(chunks) > 1:
+            ins += [head, op("labels", (T - skip,), "int64"),
+                    op("lse", (T - skip,), "float32"), coef]
+        outs = [op("dh", (D, V), head_dt)]
+        if not p_given or len(chunks) > 1:
+            outs += [op(p, (rows, vp), pdt) for p in own]
+        if len(chunks) > 1:
+            outs.append(op("dh_sum", (D, V), "float32"))
+        # M x N: dh [D, V], or dh^T [V, D] for the tied layout (bf16)
+        dh_t = vmajor and bf
+        M, N = (V, D) if dh_t else (D, V)
+        nm, nn = tiles(M, N)
+        gm = (8 if vmajor else 32) if bf else 1
+        for c, (r0, n) in enumerate(chunks):
+            src = p_names if p_given and c == 0 else own
+            if not (p_given and c == 0):
+                phases.append(p_pass(c, r0, n, own, skip))
+            mn = _tile_order(bf, nm, nn, gm)
+            if not dh_t:      # dh = x^T P: tile (d, v)
+                reads = (A("x", (rows, bm), lambda i, mn=mn, c=c:
+                           (c, mn(i)[0])),) + tuple(
+                    A(p, (rows, bn), lambda i, mn=mn: (0, mn(i)[1]))
+                    for p in src)
+                dmap = (lambda i, mn=mn: mn(i))
+                dtile = (bm, bn)
+            else:             # dh^T = P^T x: tile (v, d)
+                reads = tuple(A(p, (rows, bm), lambda i, mn=mn: (0, mn(i)[0]))
+                              for p in src) + (
+                    A("x", (rows, bn), lambda i, mn=mn, c=c: (c, mn(i)[1])),)
+                dmap = (lambda i, mn=mn: (mn(i)[1], mn(i)[0]))
+                dtile = (bn, bm)
+            writes = (A("dh", dtile, dmap),)
+            if len(chunks) > 1:
+                writes += (A("dh_sum", dtile, dmap),)
+            phases.append(_launch.KernelPhase(f"dh[{c}]", nm * nn, reads,
+                                              writes))
+        if not p_given or len(chunks) > 1:
+            calls.append(("linear_ce_p", CE_CALLS["linear_ce_p"]))
+        calls.append(("linear_ce_bwd_dh", CE_CALLS["linear_ce_bwd_dh"]))
+        p_passes = len(chunks) - (1 if p_given else 0)
+        accum = (("dh", "dh_sum") if len(chunks) > 1 else ()) + (
+            tuple(own) if p_passes > 1 else ())
+    nm, nn = tiles(min(rows, T), vp)
     return _launch.KernelLaunchSpec(
-        name, "cuda", _CE_SOURCE, grid, _CE_THREADS, ins, outs,
-        (main, second), ((name, CE_CALLS[name]),), dt, blocks_per_sm=2,
-        dyn_smem=smem, static_smem=CE_FWD_SMEM if name == "linear_ce_fwd"
-        else 0, plan=plan)
+        name, "cuda", _CE_SOURCE, (nm * nn,), threads, tuple(ins),
+        tuple(outs), tuple(phases), tuple(calls), dt, blocks_per_sm=per_sm,
+        dyn_smem=max(smem_p, smem_g), static_smem=static,
+        accum_outputs=accum,
+        params={"head_layout": "tied" if head_kmajor else "untied",
+                "p_given": p_given, "staged": tuple(staged)},
+        plan={"body": "wgmma" if bf else "cuda_core", "tile": (bm, bn),
+              "depth_step": (GEMM_BK_DH if smem_g == CE_PAIR_B_SMEM
+                             else GEMM_BK) if bf else F32_BK, "vp": vp,
+              "stages": (CE_STAGES["p"], CE_STAGES[
+                  "pair_a" if smem_g == CE_PAIR_A_SMEM else "pair_b"])
+              if bf else None,
+              "chunk_rows": rows, "chunks": len(chunks),
+              "p_smem": smem_p, "gemm_smem": smem_g,
+              "dh_layout": ("vd" if vmajor else "dv")
+              if name == "linear_ce_bwd_dh" else None})
 
 
 def _check_ce(name, x2, head, labels, *stats):
@@ -344,21 +571,16 @@ def _check_ce(name, x2, head, labels, *stats):
                              "float32 on x's device")
 
 
-def _run(name, wrapper, x2, spec, *args):
-    if not _launch.begin(spec, x2.device):
-        return
-    fn = _build.c_fn("linear_ce", *spec.calls[0])
+def _run(name, x2, spec, *args):
+    """One C launcher of ``spec`` (by name) on x's current stream; raises
+    with the card's error string."""
+    fn = _build.c_fn("linear_ce", name, dict(spec.calls)[name])
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        wrapper.launches += 1
         err = fn(*args, DTYPES[x2.dtype], stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + fn.error_string(err).decode())
-
-
-def _head_args(head):
-    return head.data_ptr(), head.stride(0), head.stride(1)
 
 
 def linear_ce_fwd_cuda(x2, head, labels):
@@ -374,50 +596,208 @@ def linear_ce_fwd_cuda(x2, head, labels):
     lse = torch.empty(T, dtype=torch.float32, device=x2.device)
     pick = torch.empty_like(lse)
     part = torch.empty(3, splits, T, dtype=torch.float32, device=x2.device)
-    _run("linear_ce_fwd", linear_ce_fwd_cuda, x2, spec, x2.data_ptr(),
-         *_head_args(head), labels.data_ptr(), lse.data_ptr(),
-         pick.data_ptr(), part.data_ptr(), T, D, V, tps, BT, BV, splits)
+    if _launch.begin(spec, x2.device):
+        linear_ce_fwd_cuda.launches += 1
+        _run("linear_ce_fwd", x2, spec, x2.data_ptr(), head.data_ptr(),
+             head.stride(0), head.stride(1), labels.data_ptr(),
+             lse.data_ptr(), pick.data_ptr(), part.data_ptr(), T, D, V, tps,
+             BT, BV, splits)
     return lse, pick
 
 
-def linear_ce_bwd_dx_cuda(x2, head, labels, lse, coef):
+# -- the backward -----------------------------------------------------------
+@dataclasses.dataclass
+class CEOperands:
+    """x and the head as the backward kernels read them: row-major rows of
+    ``sx`` / ``sh`` elements; ``head_kmajor`` the tied layout (the head's
+    rows run along V); ``staged``: the operands copied first (bf16 rows
+    TMA cannot read: a stride not a multiple of 16 bytes, a base not
+    16-byte aligned, or a head in neither layout)."""
+    x: torch.Tensor
+    sx: int
+    head: torch.Tensor
+    sh: int
+    head_kmajor: bool
+    staged: Tuple[str, ...]
+    D: int
+    V: int
+
+
+def _rows_ok(t, ld, bf):
+    return not bf or (t.data_ptr() % 16 == 0 and ld % 8 == 0)
+
+
+def ce_operands(x2, head):
+    """:class:`CEOperands` of ``x2`` [T, D] and ``head`` [D, V]: the
+    tensors themselves where their rows are readable, else padded copies
+    (rows rounded up to 8 elements, the pad never read)."""
+    T, D = x2.shape
+    V = head.shape[1]
+    bf = x2.dtype == torch.bfloat16
+    staged = []
+    x, sx = x2, D
+    if not _rows_ok(x2, D, bf):
+        sx = -(-D // 8) * 8
+        x = torch.empty(T, sx, dtype=x2.dtype, device=x2.device)
+        x[:, :D].copy_(x2)
+        staged.append("x")
+    s0, s1 = head.stride()
+    if s1 == 1 and _rows_ok(head, s0, bf):
+        h, sh, kmajor = head, s0, False
+    elif s0 == 1 and _rows_ok(head, s1, bf):
+        h, sh, kmajor = head, s1, True
+    else:
+        sh = -(-V // 8) * 8 if bf else V
+        h = torch.empty(D, sh, dtype=head.dtype, device=head.device)
+        h[:, :V].copy_(head)
+        kmajor = False
+        staged.append("head")
+    return CEOperands(x, sx, h, sh, kmajor, tuple(staged), D, V)
+
+
+@dataclasses.dataclass
+class CEWorkspace:
+    """P of one token chunk, rows [r0, r0 + rows): bf16 ``hi`` and ``lo``
+    [chunk rows, Vp], or f32 ``hi`` (= P) and ``lo`` None."""
+    hi: torch.Tensor
+    lo: Optional[torch.Tensor]
+    r0: int
+    rows: int
+
+    def ptrs(self):
+        hi = self.hi.data_ptr()
+        return hi, hi if self.lo is None else self.lo.data_ptr()
+
+
+def ce_workspace(x2, rows, V):
+    """An empty :class:`CEWorkspace` of ``rows`` rows for x's type."""
+    bf = x2.dtype == torch.bfloat16
+    hi = torch.empty(rows, p_width(V), device=x2.device,
+                     dtype=torch.bfloat16 if bf else torch.float32)
+    return CEWorkspace(hi, torch.empty_like(hi) if bf else None, 0, 0)
+
+
+def _smem(x2, pair):
+    if x2.dtype != torch.bfloat16:
+        return 0
+    return {"p": CE_P_SMEM, "a": CE_PAIR_A_SMEM, "b": CE_PAIR_B_SMEM}[pair]
+
+
+def ce_p_pass(spec, ops, labels, lse, coef, ws, r0, n):
+    """The P pass over rows [r0, r0 + n) into ``ws`` (no count: the
+    wrappers count their calls)."""
+    p0, p1 = ws.ptrs()
+    isz = ops.x.element_size()
+    _run("linear_ce_p", ops.x, spec, ops.x.data_ptr() + r0 * ops.sx * isz,
+         ops.sx, ops.head.data_ptr(), ops.sh, int(ops.head_kmajor),
+         labels.data_ptr() + r0 * 8, lse.data_ptr() + r0 * 4,
+         coef.data_ptr(), p0, p1, n, ops.D, ops.V, p_width(ops.V),
+         _smem(ops.x, "p"))
+    ws.r0, ws.rows = r0, n
+
+
+def ce_dx_product(spec, ops, ws, dx):
+    """dx's rows of ``ws``'s chunk from its P."""
+    p0, p1 = ws.ptrs()
+    _run("linear_ce_bwd_dx", ops.x, spec, p0, p1, ops.head.data_ptr(),
+         ops.sh, int(ops.head_kmajor),
+         dx.data_ptr() + ws.r0 * ops.D * dx.element_size(), ws.rows, ops.D,
+         ops.V, p_width(ops.V), _smem(ops.x, "a"))
+
+
+def ce_dh_product(spec, ops, ws, dh, work, mode):
+    """dh (``mode`` 0) or its f32 sum across chunks (1 store, 2 add, 3 add
+    and cast into dh) from ``ws``'s chunk."""
+    p0, p1 = ws.ptrs()
+    vmajor = _dh_vmajor(dh)
+    isz = ops.x.element_size()
+    _run("linear_ce_bwd_dh", ops.x, spec,
+         ops.x.data_ptr() + ws.r0 * ops.sx * isz, ops.sx, p0, p1,
+         dh.data_ptr(), dh.stride(1) if vmajor else dh.stride(0),
+         int(vmajor), 0 if work is None else work.data_ptr(), mode, ws.rows,
+         ops.D, ops.V, p_width(ops.V),
+         _smem(ops.x, "a" if vmajor else "b"))
+
+
+def _dh_out(head):
+    """dh laid out as the head is when it is dense: the tied head's dh is
+    the embedding's gradient [V, D] seen transposed."""
+    D, V = head.shape
+    if head.stride(0) == 1 and head.stride(1) == D:
+        return torch.empty(V, D, dtype=head.dtype, device=head.device).T
+    return torch.empty(D, V, dtype=head.dtype, device=head.device)
+
+
+def _dh_vmajor(dh):
+    D, V = dh.shape
+    return dh.stride(0) == 1 and dh.stride(1) == D and V > 1
+
+
+def linear_ce_bwd_dx_cuda(x2, head, labels, lse, coef, chunk_rows=None,
+                          keep_p=False):
     """Launch ``linear_ce_bwd_dx``: dx [T, D] as :func:`ce_bwd_dx_ref`;
-    ``coef`` one f32 on the card."""
+    ``coef`` one f32 on the card. Per token chunk (:func:`ce_chunk_rows`;
+    ``chunk_rows`` forces it), last to first: the P pass, then dx's rows.
+    ``keep_p``: return ``(dx, workspace)``, the workspace holding the first
+    chunk's P for :func:`linear_ce_bwd_dh_cuda`."""
     _check_ce("linear_ce_bwd_dx", x2, head, labels, lse, coef)
     T, D = x2.shape
     V = head.shape[1]
-    tps, splits = ce_splits(T, V, 2 * _SMS)
+    ops = ce_operands(x2, head)
+    rows = ce_chunk_rows(T, V, chunk_rows)
     spec = ce_spec("linear_ce_bwd_dx", T, D, V,
                    _launch.dtype_name(x2.dtype),
-                   _launch.dtype_name(head.dtype), splits)
+                   _launch.dtype_name(head.dtype), 1, ops.head_kmajor, rows,
+                   False, ops.staged)
     dx = torch.empty_like(x2)
-    part = torch.empty(splits, T, D, dtype=torch.float32, device=x2.device)
-    _run("linear_ce_bwd_dx", linear_ce_bwd_dx_cuda, x2, spec, x2.data_ptr(),
-         *_head_args(head), labels.data_ptr(), lse.data_ptr(),
-         coef.data_ptr(), dx.data_ptr(), part.data_ptr(), T, D, V, tps, BT,
-         BV, splits, CE_DX_SMEM)
-    return dx
+    ws = ce_workspace(x2, rows, V)
+    if _launch.begin(spec, x2.device):
+        linear_ce_bwd_dx_cuda.launches += 1
+        for r0, n in reversed(_chunks(T, rows)):
+            ce_p_pass(spec, ops, labels, lse, coef, ws, r0, n)
+            ce_dx_product(spec, ops, ws, dx)
+    else:
+        ws.rows = min(rows, T)
+    return (dx, ws) if keep_p else dx
 
 
-def linear_ce_bwd_dh_cuda(x2, head, labels, lse, coef):
+def linear_ce_bwd_dh_cuda(x2, head, labels, lse, coef, p=None,
+                          chunk_rows=None):
     """Launch ``linear_ce_bwd_dh``: dh [D, V] as :func:`ce_bwd_dh_ref`,
     laid out as the head is when it is dense (the tied head's dh is the
-    embedding's gradient seen transposed)."""
+    embedding's gradient seen transposed). ``p``: the workspace
+    :func:`linear_ce_bwd_dx_cuda` kept for the same inputs (its first
+    chunk is not recomputed; the call may overwrite it); without it each
+    chunk's P pass runs here. Chunks run first to last; several add into
+    an f32 sum in that order."""
     _check_ce("linear_ce_bwd_dh", x2, head, labels, lse, coef)
     T, D = x2.shape
     V = head.shape[1]
-    if head.stride(0) == 1 and head.stride(1) == D:
-        dh = torch.empty(V, D, dtype=head.dtype, device=head.device).T
-    else:
-        dh = torch.empty(D, V, dtype=head.dtype, device=head.device)
-    accum = torch.empty(D, V, dtype=torch.float32, device=x2.device)
+    ops = ce_operands(x2, head)
+    rows = ce_chunk_rows(T, V, chunk_rows if p is None
+                         else chunk_rows or p.hi.shape[0])
+    if p is not None and (p.r0 != 0 or p.rows != min(rows, T)
+                          or tuple(p.hi.shape) != (rows, p_width(V))):
+        raise ValueError("linear_ce_bwd_dh: the workspace does not hold "
+                         f"the first chunk of {rows} rows of this call")
+    dh = _dh_out(head)
+    chunks = _chunks(T, rows)
     spec = ce_spec("linear_ce_bwd_dh", T, D, V,
                    _launch.dtype_name(x2.dtype),
-                   _launch.dtype_name(head.dtype), 1)
-    _run("linear_ce_bwd_dh", linear_ce_bwd_dh_cuda, x2, spec, x2.data_ptr(),
-         *_head_args(head), labels.data_ptr(), lse.data_ptr(),
-         coef.data_ptr(), dh.data_ptr(), dh.stride(0), dh.stride(1),
-         accum.data_ptr(), T, D, V, BV, CE_DH_SMEM)
+                   _launch.dtype_name(head.dtype), 1, ops.head_kmajor, rows,
+                   p is not None, ops.staged, _dh_vmajor(dh))
+    ws = p if p is not None else ce_workspace(x2, rows, V)
+    work = None
+    if len(chunks) > 1:
+        work = torch.empty(D * V, dtype=torch.float32, device=x2.device)
+    if _launch.begin(spec, x2.device):
+        linear_ce_bwd_dh_cuda.launches += 1
+        for c, (r0, n) in enumerate(chunks):
+            if not (p is not None and c == 0):
+                ce_p_pass(spec, ops, labels, lse, coef, ws, r0, n)
+            mode = 0 if len(chunks) == 1 else (
+                1 if c == 0 else 3 if c == len(chunks) - 1 else 2)
+            ce_dh_product(spec, ops, ws, dh, work, mode)
     return dh
 
 
@@ -430,7 +810,8 @@ class LinearCE(torch.autograd.Function):
     """The JAX package's ``_linear_ce_vjp`` with the flattening and the
     masked mean around it: ``hidden [..., D]``, ``head [D, V]``, ``labels
     [...]`` int -> the f32 mean over labels >= 0 of ``lse - pick``. The
-    kernels on CUDA, the plain versions on the CPU."""
+    kernels on CUDA (the backward's P pass runs once: dx's call keeps P
+    for dh's), the plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, hidden, head, labels):
@@ -454,12 +835,19 @@ class LinearCE(torch.autograd.Function):
     def backward(ctx, g):
         x2, head, lab, lse, count = ctx.saved_tensors
         coef = (g.float() / torch.clamp(count, min=1.0)).reshape(1)
-        cpu = x2.device.type == "cpu"
-        dx = dh = None
-        if ctx.needs_input_grad[0]:
-            dx = (ce_bwd_dx_ref if cpu else linear_ce_bwd_dx_cuda)(
-                x2, head, lab, lse, coef).reshape(ctx.shape)
-        if ctx.needs_input_grad[1]:
-            dh = (ce_bwd_dh_ref if cpu else linear_ce_bwd_dh_cuda)(
-                x2, head, lab, lse, coef)
-        return dx, dh, None
+        need_dx, need_dh = ctx.needs_input_grad[:2]
+        dx = dh = p = None
+        if x2.device.type == "cpu":
+            if need_dx:
+                dx = ce_bwd_dx_ref(x2, head, lab, lse, coef)
+            if need_dh:
+                dh = ce_bwd_dh_ref(x2, head, lab, lse, coef)
+        else:
+            if need_dx:
+                dx = linear_ce_bwd_dx_cuda(x2, head, lab, lse, coef,
+                                           keep_p=need_dh)
+                if need_dh:
+                    dx, p = dx
+            if need_dh:
+                dh = linear_ce_bwd_dh_cuda(x2, head, lab, lse, coef, p=p)
+        return None if dx is None else dx.reshape(ctx.shape), dh, None

@@ -65,6 +65,13 @@ quantized weights and the tp=2 shard's over int8 pools: new there)::
         "decode_attn_block[[]kv8]" "decode_attn_block[[]int?,kv8]" \
         "decode_attn_block[[]partial,tp2,kv8]"
 
+Against a tree from before the linear-CE backward formed P once (a P pass
+writing bf16 hi + lo, then dx and dh as products over it), the CE
+backward cases differ in both types (new summation orders), nothing
+else; the forward keeps its bits::
+
+    --expect "linear_ce_bwd_dx*" "linear_ce_bwd_dh*"
+
 It imports nothing of JAX or
 of ``paddle_tpu``.
 """

@@ -181,6 +181,214 @@ def test_ce_refs_match_pallas_kernels(t, d, v, bf16):
 
 
 # ---------------------------------------------------------------------------
+# the backward's P pass and products (linear_ce.cu): their plain versions
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("t,d,v,bf16", [(37, 32, 131, False),
+                                        (26, 32, 97, True),
+                                        (64, 48, 320, True)])
+def test_p_split_reproduces_ce_p(t, d, v, bf16):
+    """hi + lo carries P to 2^-16 of its magnitude (hi: 8 bits, lo the
+    next 8, so 2^-17 at worst, one rounding of each); columns past V, up
+    to Vp, are zero; f32 keeps P itself."""
+    x, head, lab = _ce_inputs(t + v, t, d, v)
+    td = torch.bfloat16 if bf16 else torch.float32
+    tx, th, tl_ = _t(x, td), _t(head, td), torch.from_numpy(lab)
+    lse, _ = kft.ce_fwd_ref(tx, th, tl_)
+    coef = torch.tensor([0.37])
+    p = kft._ce_p(tx, th, tl_, lse, coef)
+    hi, lo = kft.ce_p_split_ref(tx, th, tl_, lse, coef)
+    vp = kft.p_width(v)
+    assert hi.shape == (t, vp) and vp % kft.P_ALIGN == 0 and vp - v < 64
+    if not bf16:
+        assert lo is None and hi.dtype == torch.float32
+        assert torch.equal(hi[:, :v], p)
+        assert not hi[:, v:].any()
+        return
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    got = hi.float() + lo.float()
+    assert not got[:, v:].any()
+    err = (got[:, :v] - p).abs()
+    assert bool((err <= 2.0 ** -16 * p.abs()).all()), float(
+        (err / p.abs().clamp_min(1e-30)).max())
+    # hi alone is bf16's rounding: the pair is what carries P
+    assert float((hi.float()[:, :v] - p).abs().max()) > float(err.max())
+
+
+@pytest.mark.parametrize("t,d,v,bf16", [(37, 32, 131, False),
+                                        (19, 48, 33, False),
+                                        (26, 32, 97, True)])
+def test_split_products_match_refs_and_pallas_kernels(t, d, v, bf16):
+    """dx = hi head^T + lo head^T and dh = x^T hi + x^T lo (the kernels'
+    sums, f32) against the dense plain versions and the JAX kernels
+    (``_ce_bwd_call``, interpret mode) on the same lse: f32 1e-5, bf16 two
+    ulps (the module's tolerances; hi + lo holds P to 2^-16)."""
+    x, head, lab = _ce_inputs(t + v, t, d, v, bf16)
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+    lse, _, wdx, wdh = _pallas_ce(x, head, lab, jd)
+    tx, th, tl_ = _t(x, td), _t(head, td), torch.from_numpy(lab)
+    tlse, coef = _t(np.asarray(lse)), torch.tensor([0.37])
+    p0, p1 = kft.ce_p_split_ref(tx, th, tl_, tlse, coef)
+    gdx = kft.ce_bwd_dx_split_ref(p0, p1, th, td)
+    gdh = kft.ce_bwd_dh_split_ref(tx, p0, p1, v, td)
+    assert gdx.dtype == gdh.dtype == td
+    _close(gdx, wdx, bf16)
+    _close(gdh, wdh, bf16)
+    _close(gdx, kft.ce_bwd_dx_ref(tx, th, tl_, tlse, coef), bf16)
+    _close(gdh, kft.ce_bwd_dh_ref(tx, th, tl_, tlse, coef), bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_chunked_dh_equals_unchunked(bf16):
+    """dh summed over token chunks of 128 rows (the f32 sum the kernels
+    carry across chunks, in chunk order) against one sum over all rows:
+    f32 sums regrouped, 1e-6 of the largest magnitude; the cast results
+    within one bf16 rounding of each other."""
+    t, d, v = 300, 48, 131
+    x, head, lab = _ce_inputs(5, t, d, v)
+    td = torch.bfloat16 if bf16 else torch.float32
+    tx, th, tl_ = _t(x, td), _t(head, td), torch.from_numpy(lab)
+    lse, _ = kft.ce_fwd_ref(tx, th, tl_)
+    p0, p1 = kft.ce_p_split_ref(tx, th, tl_, lse, torch.tensor([0.37]))
+    whole = kft.ce_bwd_dh_split_ref(tx, p0, p1, v, torch.float32)
+    chunked = kft.ce_bwd_dh_split_ref(tx, p0, p1, v, torch.float32,
+                                      chunk_rows=128)
+    np.testing.assert_allclose(_np(chunked), _np(whole), rtol=0,
+                               atol=1e-6 * float(whole.abs().max()))
+    assert not torch.equal(chunked, whole) or t <= 128
+    cast = kft.ce_bwd_dh_split_ref(tx, p0, p1, v, td, chunk_rows=128)
+    _close(cast, whole.to(td), bf16)
+
+
+def test_ce_chunk_rows():
+    """One chunk while T Vp 4 fits 1 GiB (the training shape: 524 MB);
+    beyond it the most multiple of 128 rows that fits; a forced size must
+    be a multiple of 128 below T."""
+    assert kft.ce_chunk_rows(4096, 32000) == 4096
+    fit = kft.P_CAP_BYTES // (kft.p_width(32000) * 4)
+    assert kft.ce_chunk_rows(16384, 32000) == fit // 128 * 128 < 16384
+    assert kft.ce_chunk_rows(4096, 32000, 2048) == 2048
+    assert kft.ce_chunk_rows(100, 131, 4096) == 100
+    with pytest.raises(ValueError, match="multiple of 128"):
+        kft.ce_chunk_rows(4096, 32000, 1000)
+    assert kft._chunks(300, 128) == [(0, 128), (128, 128), (256, 44)]
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+def _ce_backward_specs(T, D, V, dt=torch.bfloat16, tied=False, chunk=None):
+    """The plans LinearCE's backward records: dx keeping P, then dh over
+    it; and dh alone."""
+    from paddle_tpu_torch.ops.kernels import _launch
+    x = _meta(T, D, dtype=dt)
+    head = _meta(V, D, dtype=dt).T if tied else _meta(D, V, dtype=dt)
+    lab = _meta(T, dtype=torch.int64)
+    lse, coef = _meta(T, dtype=torch.float32), _meta(1, dtype=torch.float32)
+    with _launch.capture_kernel_launches() as specs:
+        dx, p = kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef,
+                                          chunk_rows=chunk, keep_p=True)
+        dh = kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef, p=p,
+                                       chunk_rows=chunk)
+        kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef, chunk_rows=chunk)
+    assert dx.shape == (T, D) and dh.shape == (D, V)
+    assert dh.stride() == head.stride() or not tied
+    return specs
+
+
+def test_backward_specs_at_the_training_shape():
+    """T 4096, D 4096, V 32000, bf16: the P workspace is dx's output and
+    dh's input; one chunk; the P pass 32 x 125 tiles of 128 x 256, dx 32 x
+    16, dh 32 x 125; one block of 384 threads an SM; the rings' shared
+    memory; needed operations 4 TDV (dx: S and one product) and 2 TDV (dh
+    over the given P), 3.26 ms together at the bf16 peak."""
+    from paddle_tpu_torch.analysis import kernel_catalog as kc
+    from paddle_tpu_torch.analysis.kernel_rules import bound, check_launch
+    T, D, V = 4096, 4096, 32000
+    dx, dh, alone = _ce_backward_specs(T, D, V)
+    assert [o.name for o in dx.outputs] == ["dx", "p_hi", "p_lo"]
+    assert [o.shape for o in dx.outputs[1:]] == [(T, V), (T, V)]
+    assert {"p_hi", "p_lo"} <= {o.name for o in dh.inputs}
+    assert "head" not in {o.name for o in dh.inputs}
+    assert [o.name for o in alone.outputs] == ["dh", "p_hi", "p_lo"]
+    assert [ph.name for ph in dx.phases] == ["p_pass[0]", "dx[0]"]
+    assert [ph.items for ph in dx.phases] == [32 * 125, 32 * 16]
+    assert [ph.name for ph in dh.phases] == ["dh[0]"]
+    assert dh.phases[0].items == 32 * 125
+    assert [ph.name for ph in alone.phases] == ["p_pass[0]", "dh[0]"]
+    for sp in (dx, dh, alone):
+        assert sp.threads == kft.GEMM_THREADS and sp.blocks_per_sm == 1
+        assert sp.plan["chunks"] == 1 and sp.plan["chunk_rows"] == T
+        assert sp.plan["body"] == "wgmma"
+        assert sp.dyn_smem <= 227 * 1024 and sp.static_smem == 0
+        assert check_launch(sp) == []
+    assert dx.plan["gemm_smem"] == kft.CE_PAIR_A_SMEM
+    assert dh.plan["gemm_smem"] == kft.CE_PAIR_B_SMEM
+    assert dh.plan["depth_step"] == kft.GEMM_BK_DH
+    assert dx.plan["stages"] == (4, 3) and dh.plan["stages"] == (4, 5)
+    tdv = T * D * V
+    assert kc.needed_flops(dx) == 4.0 * tdv
+    assert kc.needed_flops(dh) == 2.0 * tdv
+    assert kc.needed_flops(alone) == 4.0 * tdv
+    assert kc.modeled_flops(dh) == 4.0 * tdv      # the JAX model
+    ms = bound(dx)[0] + bound(dh)[0]
+    assert bound(dx)[1] == bound(dh)[1] == "operations"
+    assert abs(ms - 6.0 * tdv / 989e12 * 1e3) < 1e-9 and 3.25 < ms < 3.27
+
+
+@pytest.mark.parametrize("tied,chunk,dt", [(True, None, torch.bfloat16),
+                                           (False, 2048, torch.bfloat16),
+                                           (False, 128, torch.float32)])
+def test_backward_specs_in_every_layout(tied, chunk, dt):
+    """The tied head (dh^T into the embedding's layout, two A tiles on one
+    B tile), forced chunks (dx last to first, dh first to last over an f32
+    sum, its later chunks' P passes its own), f32 (the CUDA-core tiles):
+    every plan clean under the gate's rules."""
+    from paddle_tpu_torch.analysis import kernel_catalog as kc
+    from paddle_tpu_torch.analysis.kernel_rules import check_launch
+    T, D, V = (4096, 4096, 32000) if dt == torch.bfloat16 else (300, 48, 131)
+    dx, dh, alone = _ce_backward_specs(T, D, V, dt, tied, chunk)
+    n = -(-T // (chunk or T))
+    for sp in (dx, dh, alone):
+        assert sp.plan["chunks"] == n
+        assert check_launch(sp) == [], [f.to_dict() for f in
+                                        check_launch(sp)]
+    if tied:
+        assert dh.plan["dh_layout"] == "vd" and dx.params["head_layout"] \
+            == "tied"
+        assert dh.plan["gemm_smem"] == kft.CE_PAIR_A_SMEM
+    if n > 1:
+        assert [ph.name for ph in dx.phases][:2] == [f"p_pass[{n - 1}]",
+                                                     f"dx[{n - 1}]"]
+        assert "dh_sum" in dh.accum_outputs
+        assert [ph.name for ph in dh.phases][:2] == ["dh[0]", "p_pass[1]"]
+        tdv = T * D * V
+        assert kc.needed_flops(dh) == 2.0 * tdv + 2.0 * (T - chunk) * D * V
+    if dt == torch.float32:
+        assert dx.plan["body"] == "cuda_core"
+        assert dx.static_smem == kft.CE_F32_SMEM and dx.dyn_smem == 0
+
+
+def test_ragged_operands_are_staged():
+    """bf16 rows TMA cannot read are copied to aligned rows first: a head
+    of V 32003 (64006-byte rows), an x of D 4095; aligned ones and f32 are
+    read in place, the tied head by its own layout."""
+    ops = kft.ce_operands(_meta(8, 64), _meta(64, 32003))
+    assert ops.staged == ("head",) and ops.sh == 32008 \
+        and not ops.head_kmajor
+    ops = kft.ce_operands(_meta(8, 4095), _meta(4095, 320))
+    assert ops.staged == ("x",) and ops.sx == 4096
+    ops = kft.ce_operands(_meta(8, 64), _meta(320, 64).T)
+    assert ops.staged == () and ops.head_kmajor and ops.sh == 64
+    ops = kft.ce_operands(_meta(8, 63, dtype=torch.float32),
+                          _meta(63, 131, dtype=torch.float32))
+    assert ops.staged == ()
+    assert kft.ce_operands(_meta(8, 64), _meta(64, 640)[:, ::2]).staged \
+        == ("head",)
+
+
+# ---------------------------------------------------------------------------
 # per Function: against jax.value_and_grad of the JAX fused ops
 # ---------------------------------------------------------------------------
 def _jax_ce(x, head, lab, jd, lead=None):
@@ -353,6 +561,23 @@ def test_wrappers_refuse_cpu_tensors():
                  lambda: kft.linear_ce_fwd_cuda(x, x.T.contiguous(), lab),
                  lambda: tnorms.rms_norm_bwd_triton(x, w, x),
                  lambda: tnorms.residual_rms_norm_fwd_triton(x, x, w)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    """The backward's wrappers take CUDA tensors only, the workspace-taking
+    dh call too: nothing falls back to the plain versions."""
+    x, head = torch.ones(4, 8), torch.ones(8, 16)
+    lab = torch.zeros(4, dtype=torch.int64)
+    lse, coef = torch.zeros(4), torch.ones(1)
+    ws = kft.CEWorkspace(torch.zeros(4, 64), None, 0, 4)
+    for call in (lambda: kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef),
+                 lambda: kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef,
+                                                   keep_p=True),
+                 lambda: kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef),
+                 lambda: kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef,
+                                                   p=ws)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
 
