@@ -2461,7 +2461,7 @@ def _kernel_group(name):
                      ("ln_fwd", "layer_norm_fwd"),
                      ("rms_fwd", "rms_norm_fwd"),
                      ("rms_bwd", "rms_norm_bwd"),
-                     ("sum_rows", "rms_norm_bwd"),
+                     ("dw_sum", "rms_norm_bwd"),
                      ("swiglu_fwd", "swiglu_fwd"),
                      ("swiglu_bwd", "swiglu_bwd"),
                      ("ce_fwd", "linear_ce_fwd"),
@@ -4253,16 +4253,21 @@ def fused_train_phase(gpu):
     over rows or the vocab; bf16: two ulps, ``bf16_close``), two launches
     bit for bit, at the train step's shapes and edge cases (ragged rows
     and elements; for the CE: T 4095 and V 32003, the tied head, every
-    label ignored, f32, P's workspace in two token chunks; the backward's
-    P pass against its plain hi + lo split, dh over the P dx's call keeps
-    and dh alone bit for bit). Timed at the train step's shapes, L2
-    flushed, beside the bound, the plain version and, for the CE (no single
+    label ignored, f32, P's workspace in two token chunks; the forward's
+    lse and pick against its plain vocab-tile stats and their combine too;
+    the backward's P pass against its plain hi + lo split, dh over the P
+    dx's call keeps and dh alone bit for bit). Timed at the train step's
+    shapes, L2 flushed, beside the bound, the plain version, the former
+    RMSNorm backward (``tools/rms_bwd_ab.py``'s ``parent_rms_norm_bwd``),
+    the library's ``_fused_rms_norm_backward`` and, for the CE (no single
     PyTorch call computes it), cuBLAS's time for the same products (bf16
-    once, and the backward's as the hi + lo pair); the backward's P pass
-    and each product on their own, and the pair of calls."""
+    once, and the backward's as the hi + lo pair); the forward over the
+    tied head too; the backward's P pass and each product on their own,
+    and the pair of calls."""
     import torch
     from paddle_tpu_torch.ops.kernels import fused_train as kft
     from paddle_tpu_torch.ops.kernels import norms as kn
+    from paddle_tpu_torch.tools.rms_bwd_ab import parent_rms_norm_bwd
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -4286,16 +4291,20 @@ def fused_train_phase(gpu):
             raise AssertionError(f"{op} disagrees: {case}")
 
     # -- the row and elementwise kernels -----------------------------------
-    for rows, dt in ((T, bf16), (T - 1, bf16), (1024, f32)):
-        x, g, delta = rn(rows, D, dt=dt), rn(rows, D, dt=dt), rn(rows, D,
+    # the norms at the train step's rows, ragged rows, f32, fewer rows
+    # than the backward's programs at a D that is no power of two, and the
+    # widest row the kernels take (MAX_D)
+    for rows, d, dt in ((T, D, bf16), (T - 1, D, bf16), (1024, D, f32),
+                        (7, 1000, bf16), (300, kn.MAX_D, f32)):
+        x, g, delta = rn(rows, d, dt=dt), rn(rows, d, dt=dt), rn(rows, d,
                                                                   dt=dt)
-        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dt)
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
         got, same = _twice(lambda: kn.rms_norm_bwd_triton(x, w, g, eps))
         want = kn.rms_bwd_ref(eps, (x, w), g)
         outs = {"dx": _held(got[0], want[0], dt, 1e-5),
                 "dw": _held(got[1], want[1], dt, 1e-4)}
         record("rms_norm_bwd", {
-            "rows": rows, "D": D, "dtype": str(dt)[6:], "outputs": outs,
+            "rows": rows, "D": d, "dtype": str(dt)[6:], "outputs": outs,
             "bitwise_repeatable": same,
             "ok": same and all(o["ok"] for o in outs.values())})
         got, same = _twice(lambda: kn.residual_rms_norm_fwd_triton(
@@ -4305,7 +4314,7 @@ def fused_train_phase(gpu):
                 "h": _held(got[1], want[1], dt, 1e-5)}
         outs["y"]["bitwise_equal"] = bool(torch.equal(got[0], want[0]))
         record("residual_rms_norm_fwd", {
-            "rows": rows, "D": D, "dtype": str(dt)[6:], "outputs": outs,
+            "rows": rows, "D": d, "dtype": str(dt)[6:], "outputs": outs,
             "bitwise_repeatable": same,
             "ok": same and outs["y"]["bitwise_equal"]
             and outs["h"]["ok"]})
@@ -4358,8 +4367,18 @@ def fused_train_phase(gpu):
             want_lse, want_pick = kft.ce_fwd_ref(x, head, lab)
             outs = {"lse": _held(lse, want_lse, f32, 1e-5),
                     "pick": _held(pick, want_pick, f32, 1e-5)}
+            if dt == bf16:
+                # the wgmma body's split: each vocab tile's stats, then
+                # their combine in the kernel's order
+                m_lse, m_pick = kft.ce_fwd_combine_ref(
+                    kft.ce_fwd_stats_ref(x, head, lab))
+                outs["lse_model"] = _held(lse, m_lse, f32, 1e-5)
+                outs["pick_model"] = _held(pick, m_pick, f32, 1e-5)
+                del m_lse, m_pick
             record("linear_ce_fwd", dict(
                 shape, outputs=outs, bitwise_repeatable=same_f,
+                body=launch_plan(lambda: kft.linear_ce_fwd_cuda(
+                    x, head, lab))["body"],
                 ok=same_f and all(o["ok"] for o in outs.values())))
             del want_lse, want_pick
         else:
@@ -4436,11 +4455,22 @@ def fused_train_phase(gpu):
     x, g, delta = rn(T, D), rn(T, D), rn(T, D)
     w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(bf16)
     n = x.numel()
+    # the library's fused RMSNorm backward on the same inputs, its rstd
+    # from the library's forward outside the timed window (never called by
+    # the port)
+    lib = getattr(torch.ops.aten, "_fused_rms_norm_backward", None)
+    lib_ms = None
+    if lib is not None:
+        _, rstd = torch.ops.aten._fused_rms_norm(x, [D], w, eps)
+        lib_ms = cold_ms(lambda: lib(g, x, [D], rstd, w, [True, True]))
+        del rstd
     row("rms_norm_bwd", "triton", RMS_SOURCE, [T, D], "bfloat16",
         lambda: kn.rms_norm_bwd_triton(x, w, g, eps),
         lambda: kn.rms_bwd_ref(eps, (x, w), g),
-        {"library": "none (one wrapper call: the row kernel and the "
-                    "fixed-order dw sum)"})
+        {"library": "torch.ops.aten._fused_rms_norm_backward"
+                    if lib is not None else "none in this torch",
+         "library_ms": lib_ms,
+         "parent_ms": cold_ms(lambda: parent_rms_norm_bwd(x, w, g, eps))})
     row("residual_rms_norm_fwd", "triton", RMS_SOURCE, [T, D], "bfloat16",
         lambda: kn.residual_rms_norm_fwd_triton(delta, x, w, eps),
         lambda: kn.residual_rms_norm_fwd_ref(delta, x, w, eps),
@@ -4496,10 +4526,16 @@ def fused_train_phase(gpu):
     shape = {"T": T, "D": D, "V": V, "head": "untied"}
     note = ("none: no single PyTorch call; products_ms is cuBLAS (bf16) "
             "on the same products")
+    # the forward over the tied head (the embedding [V, D] seen
+    # transposed) at the same shape, on the same body
+    emb = rn(V, D, scale=0.02)
+    tied_ms = cold_ms(lambda: kft.linear_ce_fwd_cuda(x, emb.T, lab))
+    del emb
     row("linear_ce_fwd", "cuda", CE_SOURCE, shape, "bfloat16",
         lambda: kft.linear_ce_fwd_cuda(x, head, lab),
         lambda: kft.ce_fwd_ref(x, head, lab),
-        {"library": note, "products_ms": yard["S_ms"]})
+        {"library": note, "products_ms": yard["S_ms"], "tied_ms": tied_ms,
+         "plan": launch_plan(lambda: kft.linear_ce_fwd_cuda(x, head, lab))})
     row("linear_ce_bwd_dx", "cuda", CE_SOURCE, shape, "bfloat16",
         lambda: kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef),
         lambda: kft.ce_bwd_dx_ref(x, head, lab, lse, coef),
@@ -4522,9 +4558,10 @@ def fused_train_phase(gpu):
     torch.cuda.empty_cache()
     emit({"phase": "fused_train_kernels", "gpu": gpu, "cases": cases,
           "timed": {r["name"]: {k: r.get(k) for k in (
-              "ms", "plain_ms", "bound_ms", "bound_by", "products_ms",
-              "products_hilo_ms", "p_pass_ms", "product_ms", "pair_ms",
-              "alone_ms") if k in r} for r in rows}})
+              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "parent_ms", "tied_ms", "products_ms", "products_hilo_ms",
+              "p_pass_ms", "product_ms", "pair_ms", "alone_ms") if k in r}
+              for r in rows}})
     return rows
 
 
@@ -4850,7 +4887,9 @@ PTXAS_KERNELS = {
                         "dq_tc_kernel": "flash_attention_bwd_dq",
                         "fwd_kernel": "flash_attention_fwd",
                         "fwd_tc_kernel": "flash_attention_fwd"},
-    "linear_ce": {"ce_fwd_kernel": "linear_ce_fwd",
+    "linear_ce": {"ce_fwd_gemm_kernel": "linear_ce_fwd",
+                  "ce_fwd_stats_combine": "linear_ce_fwd",
+                  "ce_fwd_kernel": "linear_ce_fwd",
                   "ce_fwd_combine": "linear_ce_fwd",
                   "ce_gemm_kernel": ("linear_ce_bwd_dx", "linear_ce_bwd_dh"),
                   "ce_f32_gemm_kernel": ("linear_ce_bwd_dx",

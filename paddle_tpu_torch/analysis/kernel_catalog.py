@@ -319,6 +319,9 @@ def kernel_cases() -> List[KernelCase]:
           _rms_case(_T, _D, bf)),
         C("rms_norm", "flagship_serving", ("rms_norm_fwd", "rms_norm_bwd"),
           _rms_case(_B, _D, bf)),
+        # fewer rows than the backward's programs, D no power of two
+        C("rms_norm", "ragged_narrow", ("rms_norm_fwd", "rms_norm_bwd"),
+          _rms_case(7, 1000, bf)),
         C("rms_norm_residual", "tiny",
           ("residual_rms_norm_fwd", "rms_norm_bwd"),
           _rms_case(24, 128, f32, residual=True)),

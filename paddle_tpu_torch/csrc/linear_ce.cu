@@ -2,7 +2,7 @@
 // backward as a P pass and two products.
 //
 // Replaces paddle_tpu/ops/pallas/fused_train.py's three Pallas kernels:
-//   linear_ce_fwd     _ce_fwd_kernel  (:246, launch in _ce_fwd_call)
+//   linear_ce_fwd     _ce_fwd_kernel  (:72, launch in _ce_fwd_call :246)
 //   linear_ce_bwd_dx  _ce_dx_kernel   (:130, launch in _ce_bwd_call :273)
 //   linear_ce_bwd_dh  _ce_dh_kernel   (:151, launch in _ce_bwd_call :289)
 // and the tile recomputation they share (_ce_tile, :113).
@@ -18,18 +18,39 @@
 //                   its label (0 where the label is ignored)
 //   coef            one f32 on the device: g / max(count, 1)
 //
-// The forward streams (64-token x 128-vocab) tiles of the logits S = x
-// head through an online log-sum-exp (mma.sync bf16 or f32 FMAs; a block
-// per token tile and vocab split, a second kernel combines the splits in
-// split order). It is unchanged by the backward's redesign.
+// Every bf16 pass forms S = x head, or a product over P, as one bf16 GEMM
+// with its sum in registers: output tiles of 128 x 256, two consumer
+// warpgroups of 64 rows each (m64n256k16, f32 accumulators), operand tiles
+// 64 deep (dh's 32: x and P both MN-major, five stages) staged by TMA with
+// the 128-byte swizzle into a ring of stages behind mbarriers, one
+// producer warp; one tile a block, the tiles taken in groups of output
+// rows so that the blocks in flight share their operand panels in the
+// 50 MB L2. x, P and the head are read K-major or MN-major as the product
+// needs, by wgmma's transpose bits (hopper_gemm.cuh). The passes differ in
+// their epilogue, a template argument of the one kernel body.
+//
+// The forward (linear_ce_fwd). The TPU kernel walks the vocab tiles of a
+// token tile in a sequential grid axis, carrying an online log-sum-exp in
+// VMEM. Here each 128 x 256 tile of S is one block's product, and its
+// epilogue reduces the tile's rows to stats: for each row, m = the max of
+// its columns below V, l = sum exp(s - m) over them, pick = s at the row's
+// label when the label falls in the tile; a row's 256 columns sit on the 4
+// lanes of a quad, so it reduces with two shuffles. The stats go to part
+// [3][vocab tiles][T] f32 (rows >= T never written); a second kernel
+// combines a token's vocab tiles in a fixed order (8 strands of tiles v,
+// v + 8, ..., each in tile order, then the strands in order): lse = M +
+// log(sum l exp(m - M)), M the max of the m, and pick the sum of the
+// picks. f32 keeps the CUDA-core forward: (64-token x 128-vocab) FMA tiles
+// through an online log-sum-exp, a block per token tile and vocab split,
+// the splits combined in split order.
 //
 // The backward. The TPU kernels recompute S tile by tile in each pass and
 // carry the dx and dh sums across a sequential grid axis in VMEM. A Hopper
 // block cannot hold those sums (a 64-row f32 dx tile at D = 4096 is 1 MB),
 // so doing the same here means f32 partial sums in device memory for every
-// logit tile (the former kernels: ~65 GB of traffic at the training shape)
-// and S computed twice. Instead, P is formed once:
-//   1. the P pass (linear_ce_p): S = x head on wgmma, then in the epilogue
+// logit tile (~65 GB of traffic at the training shape) and S computed
+// twice. Instead, P is formed once:
+//   1. the P pass (linear_ce_p): S = x head, then in the epilogue
 //      P = (exp(S - lse) - onehot(label)) * (label >= 0) * coef, columns
 //      >= V zero, written as two bf16 arrays hi = bf16(P), lo = bf16(P -
 //      hi) [rows, Vp] (Vp = V rounded up to 64);
@@ -38,17 +59,8 @@
 //   3. dh = x^T hi + x^T lo (linear_ce_bwd_dh): K = T, into dh [D, V], or
 //      dh^T = hi^T x + lo^T x into [V, D] when dh is the tied embedding's
 //      gradient, so that its stores run along the embedding's rows.
-// Every product is one bf16 GEMM with its sum in registers: output tiles
-// of 128 x 256, two consumer warpgroups of 64 rows each (m64n256k16, f32
-// accumulators), operand tiles 64 deep (dh's 32: x and P both MN-major,
-// five stages) staged by TMA with the 128-byte swizzle into a ring of
-// stages behind mbarriers, one producer warp; one tile a block, the tiles
-// taken in groups of output rows so that the blocks in flight share their
-// operand panels in the 50 MB L2. x, hi and lo are read K-major or
-// MN-major as the product needs, by wgmma's transpose bits
-// (hopper_gemm.cuh). hi + lo carries ~16 bits of P, the head is exact in
-// bf16, so the products hold P to better than the TF32 the former kernels
-// rounded it to.
+// hi + lo carries ~16 bits of P, the head is exact in bf16, so the
+// products hold P to better than the TF32 the TPU kernels round it to.
 //
 // Token chunks. The wrapper bounds P's workspace (T Vp 4 bytes <= 1 GiB,
 // one chunk at the training shape) and walks chunks of rows beyond it: dx
@@ -58,8 +70,8 @@
 // 3 add and cast; 0 cast a single chunk's sum), the last chunk's epilogue
 // casting it.
 //
-// f32 inputs run the same three passes on CUDA-core FMA tiles (64 x 128,
-// 256 threads) with an f32 P and no TF32 anywhere, so the loss and both
+// f32 inputs run the same passes on CUDA-core FMA tiles (64 x 128, 256
+// threads) with an f32 P and no TF32 anywhere, so the loss and both
 // gradients hold to 1e-5 of the plain f32 version; expf / logf are the
 // accurate ones.
 //
@@ -78,35 +90,26 @@
 #include <stdint.h>
 
 #include "hopper_gemm.cuh"
-#include "mma_sync.cuh"
-#include "online_softmax.cuh"
 
 namespace paddle_tpu_torch {
 namespace linear_ce {
 
+// The f32 (CUDA-core) tiles of every pass
 constexpr int kThreads = 256;   // 8 warps: 2 (rows) x 4 (columns)
 constexpr int kBT = 64;         // tokens of a logit tile
 constexpr int kBV = 128;        // vocab columns of a logit tile
 constexpr int kBK = 32;         // depth of one staged operand slice
 constexpr int kLdS = kBV + 4;   // forward logit tile row stride
+// row stride of the staged operands: 33 f32 keep the loads of 8 rows on
+// distinct banks
+constexpr int kLd = kBK + 1;
 
-// Row strides of the logit product's staged operands: 40 bf16 (80 bytes)
-// keep the 32-bit fragment loads of 8 rows on distinct banks; 33 f32 do
-// the same for the FMA path.
-template <typename T> struct Ld;
-template <> struct Ld<__nv_bfloat16> { static constexpr int v = kBK + 8; };
-template <> struct Ld<float> { static constexpr int v = kBK + 1; };
-
-template <typename T>
-__host__ __device__ constexpr int operand_bytes() {
-  return (kBT + kBV) * Ld<T>::v * static_cast<int>(sizeof(T));
-}
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// Where a thread's accumulators sit: mma.sync's C fragment. Warp (wm, wn)
-// owns rows wm * (MI * 16) .. and columns wn * 32 ..; acc[mi][ni][r] is
-// row wm*MI*16 + mi*16 + g + 8*(r >> 1), column wn*32 + ni*8 + 2*t4 +
-// (r & 1).
+// Where a thread's accumulators sit: mma.sync's C fragment layout. Warp
+// (wm, wn) owns rows wm * (MI * 16) .. and columns wn * 32 ..; acc[mi][ni]
+// [r] is row wm*MI*16 + mi*16 + g + 8*(r >> 1), column wn*32 + ni*8 +
+// 2*t4 + (r & 1).
 struct Frag {
   int wm, wn, g, t4;
 };
@@ -131,90 +134,22 @@ __device__ __forceinline__ void zero(float (&acc)[MI][4][4]) {
       for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // ---------------------------------------------------------------------------
-// The logit tile S[t0 .. t0+64, v0 .. v0+128) = x head, f32 accumulators
+// The f32 logit tile S[t0 .. t0+64, v0 .. v0+128) = x head
 // ---------------------------------------------------------------------------
-// Fast path (bf16, D % 8 == 0, 16-byte aligned rows): each depth slice
-// of x and of the head is copied with cp.async, 16 bytes a thread, into
-// one of two stages while the tensor cores work on the other; fragments
-// come from ldmatrix. xs[row][k] (row stride 40: the 8 rows of an
-// ldmatrix phase fall on distinct banks); the n-contiguous head as
-// hs[k][n] (row stride 136), read transposed by ldmatrix.trans.
-constexpr int kLdXs = kBK + 8;
-constexpr int kLdHn = kBV + 8;
-constexpr int kXsBytes = kBT * kLdXs * 2;
-constexpr int kHsBytes = kBK * kLdHn * 2;
-constexpr int kFastOperandBytes = 2 * (kXsBytes + kHsBytes);
-
-__device__ __forceinline__ void fast_stage(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ head,
-    long long sd, int Tn, int D, int V, int t0, int v0, int k0,
-    __nv_bfloat16* xs, __nv_bfloat16* hs) {
-  const int tid = threadIdx.x;
-  {
-    const int r = tid >> 2, c = (tid & 3) * 8;
-    const bool ok = t0 + r < Tn && k0 + c < D;
-    cp_async16(xs + r * kLdXs + c,
-               ok ? x + static_cast<long long>(t0 + r) * D + k0 + c : x, ok);
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int i = tid + j * kThreads;
-    const int k = i >> 4, c = (i & 15) * 8;
-    const bool ok = k0 + k < D && v0 + c < V;
-    cp_async16(hs + k * kLdHn + c, ok ? head + (k0 + k) * sd + (v0 + c) : head,
-               ok);
-  }
-}
-
-__device__ __forceinline__ void fast_slice_product(const __nv_bfloat16* xs,
-                                                   const __nv_bfloat16* hs,
-                                                   float (&acc)[2][4][4],
-                                                   const Frag& f) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 16) {
-    uint32_t a[2][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      ldmatrix4(a[mi], xs + (f.wm * 32 + mi * 16 + (lane & 15)) * kLdXs +
-                           kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int ni = 0; ni < 4; ni += 2) {
-      uint32_t r[4];
-      ldmatrix4_trans(r, hs + (kk + (lane & 15)) * kLdHn + f.wn * 32 + ni * 8 +
-                             (lane >> 4) * 8);
-      b[ni][0] = r[0];
-      b[ni][1] = r[1];
-      b[ni + 1][0] = r[2];
-      b[ni + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-  }
-}
-
-// Generic path (f32, or rows that are not 16-byte aligned): plain loads.
 // One depth slice [k0, k0 + kBK) of both operands into shared memory:
-// xs[row][k] and hs[n][k] (the head transposed, so a fragment's two
-// consecutive k are one 32-bit word). Out-of-range elements are zeros.
-template <typename T>
-__device__ void stage_slice(const T* __restrict__ x, const T* __restrict__ head,
-                            long long sd, long long sv, bool head_kmajor,
-                            int Tn, int D, int V, int t0, int v0, int k0,
-                            T* xs, T* hs) {
-  constexpr int ld = Ld<T>::v;
+// xs[row][k] and hs[n][k] (the head transposed, so a row's consecutive k
+// are neighbours). Out-of-range elements are zeros.
+__device__ void stage_slice(const float* __restrict__ x,
+                            const float* __restrict__ head, long long sd,
+                            long long sv, bool head_kmajor, int Tn, int D,
+                            int V, int t0, int v0, int k0, float* xs,
+                            float* hs) {
   for (int i = threadIdx.x; i < kBT * kBK; i += kThreads) {
     const int r = i / kBK, k = i % kBK;
     const int t = t0 + r, d = k0 + k;
-    xs[r * ld + k] = (t < Tn && d < D) ? x[static_cast<long long>(t) * D + d]
-                                       : from_float<T>(0.f);
+    xs[r * kLd + k] = (t < Tn && d < D) ? x[static_cast<long long>(t) * D + d]
+                                        : 0.f;
   }
   for (int i = threadIdx.x; i < kBV * kBK; i += kThreads) {
     int n, k;   // neighbouring threads on neighbouring addresses of head
@@ -226,60 +161,26 @@ __device__ void stage_slice(const T* __restrict__ x, const T* __restrict__ head,
       n = i % kBV;
     }
     const int v = v0 + n, d = k0 + k;
-    hs[n * ld + k] = (v < V && d < D) ? head[d * sd + v * sv]
-                                      : from_float<T>(0.f);
+    hs[n * kLd + k] = (v < V && d < D) ? head[d * sd + v * sv] : 0.f;
   }
 }
 
-// acc += xs hs^T over one slice: bf16 on the tensor cores ...
-__device__ __forceinline__ void slice_product(const __nv_bfloat16* xs,
-                                              const __nv_bfloat16* hs,
-                                              float (&acc)[2][4][4],
-                                              const Frag& f) {
-  constexpr int ld = Ld<__nv_bfloat16>::v;
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 16) {
-    uint32_t a[2][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const __nv_bfloat16* p = xs + (f.wm * 32 + mi * 16 + f.g) * ld + kk +
-                               2 * f.t4;
-      a[mi][0] = ld32(p);
-      a[mi][1] = ld32(p + 8 * ld);
-      a[mi][2] = ld32(p + 8);
-      a[mi][3] = ld32(p + 8 * ld + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const __nv_bfloat16* q = hs + (f.wn * 32 + ni * 8 + f.g) * ld + kk +
-                               2 * f.t4;
-      b[ni][0] = ld32(q);
-      b[ni][1] = ld32(q + 8);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-  }
-}
-
-// ... f32 on the CUDA cores, same accumulator layout
+// acc += xs hs^T over one slice, f32 on the CUDA cores
 __device__ __forceinline__ void slice_product(const float* xs, const float* hs,
                                               float (&acc)[2][4][4],
                                               const Frag& f) {
-  constexpr int ld = Ld<float>::v;
   for (int k = 0; k < kBK; ++k) {
     float a[2][2], b[4][2];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        a[mi][h] = xs[(f.wm * 32 + mi * 16 + f.g + 8 * h) * ld + k];
+        a[mi][h] = xs[(f.wm * 32 + mi * 16 + f.g + 8 * h) * kLd + k];
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        b[ni][j] = hs[(f.wn * 32 + ni * 8 + 2 * f.t4 + j) * ld + k];
+        b[ni][j] = hs[(f.wn * 32 + ni * 8 + 2 * f.t4 + j) * kLd + k];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -293,57 +194,31 @@ __device__ __forceinline__ void slice_product(const float* xs, const float* hs,
 // The whole logit tile. Every thread calls it; it synchronises the block
 // before it stages anything and after its last product, so the caller may
 // overwrite ``ops`` (the staging area) once it returns.
-template <typename T, bool FAST>
-__device__ void logit_tile(const T* __restrict__ x, const T* __restrict__ head,
-                           long long sd, long long sv, bool head_kmajor,
-                           int Tn, int D, int V, int t0, int v0,
-                           unsigned char* ops, float (&acc)[2][4][4],
-                           const Frag& f) {
+__device__ void logit_tile(const float* __restrict__ x,
+                           const float* __restrict__ head, long long sd,
+                           long long sv, bool head_kmajor, int Tn, int D,
+                           int V, int t0, int v0, unsigned char* ops,
+                           float (&acc)[2][4][4], const Frag& f) {
   zero(acc);
   __syncthreads();
-  if constexpr (FAST) {
-    auto* xs = reinterpret_cast<__nv_bfloat16*>(ops);
-    auto* hs = reinterpret_cast<__nv_bfloat16*>(ops + 2 * kXsBytes);
-    constexpr int hstage = kHsBytes / 2;
-    const int nk = (D + kBK - 1) / kBK;
-    fast_stage(x, head, sd, Tn, D, V, t0, v0, 0, xs, hs);
-    cp_async_commit();
-    for (int ks = 0; ks < nk; ++ks) {
-      const int cur = ks & 1, nxt = cur ^ 1;
-      if (ks + 1 < nk)
-        fast_stage(x, head, sd, Tn, D, V, t0, v0, (ks + 1) * kBK,
-                   xs + nxt * kBT * kLdXs, hs + nxt * hstage);
-      cp_async_commit();
-      cp_async_wait1();
-      __syncthreads();
-      fast_slice_product(xs + cur * kBT * kLdXs, hs + cur * hstage, acc, f);
-      __syncthreads();
-    }
-  } else {
-    T* xs = reinterpret_cast<T*>(ops);
-    T* hs = xs + kBT * Ld<T>::v;
-    for (int k0 = 0; k0 < D; k0 += kBK) {
-      stage_slice<T>(x, head, sd, sv, head_kmajor, Tn, D, V, t0, v0, k0, xs,
-                     hs);
-      __syncthreads();
-      slice_product(xs, hs, acc, f);
-      __syncthreads();
-    }
+  float* xs = reinterpret_cast<float*>(ops);
+  float* hs = xs + kBT * kLd;
+  for (int k0 = 0; k0 < D; k0 += kBK) {
+    stage_slice(x, head, sd, sv, head_kmajor, Tn, D, V, t0, v0, k0, xs, hs);
+    __syncthreads();
+    slice_product(xs, hs, acc, f);
+    __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------------------
-// linear_ce_fwd
+// linear_ce_fwd, f32
 // ---------------------------------------------------------------------------
-constexpr int kOperandSmem =
-    cmax(cmax(operand_bytes<float>(), operand_bytes<__nv_bfloat16>()),
-         kFastOperandBytes);
-constexpr int kFwdSmem = cmax(kBT * kLdS * 4, kOperandSmem);
+constexpr int kFwdSmem = cmax(kBT * kLdS * 4, (kBT + kBV) * kLd * 4);
 
 // part: [3][splits][T] f32 -- m, l and pick of each (split, token)
-template <typename T, bool FAST>
 __global__ void __launch_bounds__(kThreads, 2)
-    ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ head,
+    ce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ head,
                   long long sd, long long sv, int head_kmajor,
                   const long long* __restrict__ labels, int Tn, int D, int V,
                   int tiles_per_split, float* __restrict__ part) {
@@ -362,8 +237,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   float acc[2][4][4];
   for (int vt = vt0; vt < vt1; ++vt) {
     const int v0 = vt * kBV;
-    logit_tile<T, FAST>(x, head, sd, sv, head_kmajor, Tn, D, V, t0, v0,
-                            smem, acc, f);
+    logit_tile(x, head, sd, sv, head_kmajor, Tn, D, V, t0, v0, smem, acc, f);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -422,9 +296,60 @@ __global__ void ce_fwd_combine(const float* __restrict__ part, int Tn,
 }
 
 // ---------------------------------------------------------------------------
-// The backward: the P pass and the dx and dh products
+// linear_ce_fwd, bf16: the combine of the wgmma tiles' stats
 // ---------------------------------------------------------------------------
-namespace bwd {
+// A block takes kCombTokens tokens (one a lane) and kCombStrands warps;
+// warp w walks the vocab tiles w, w + kCombStrands, ... in order, the
+// strands' sums then add in strand order. part: [3][tiles][T] (m, l,
+// pick), rows of T.
+constexpr int kCombTokens = 32;
+constexpr int kCombStrands = 8;
+
+__global__ void __launch_bounds__(kCombTokens * kCombStrands)
+    ce_fwd_stats_combine(const float* __restrict__ part, int Tn, int tiles,
+                         float* __restrict__ lse, float* __restrict__ pick) {
+  __shared__ float red[3][kCombStrands][kCombTokens];
+  const int lane = threadIdx.x & 31, s = threadIdx.x >> 5;
+  const int t = blockIdx.x * kCombTokens + lane;
+  const bool ok = t < Tn;
+  const long long plane = static_cast<long long>(tiles) * Tn;
+  float M = -CUDART_INF_F;
+  if (ok)
+    for (int v = s; v < tiles; v += kCombStrands)
+      M = fmaxf(M, part[static_cast<long long>(v) * Tn + t]);
+  red[0][s][lane] = M;
+  __syncthreads();
+  M = red[0][0][lane];
+#pragma unroll
+  for (int k = 1; k < kCombStrands; ++k) M = fmaxf(M, red[0][k][lane]);
+  float L = 0.f, P = 0.f;
+  if (ok)
+    for (int v = s; v < tiles; v += kCombStrands) {
+      const long long o = static_cast<long long>(v) * Tn + t;
+      L += part[plane + o] * expf(part[o] - M);
+      P += part[2 * plane + o];
+    }
+  red[1][s][lane] = L;
+  red[2][s][lane] = P;
+  __syncthreads();
+  if (s == 0 && ok) {
+    L = red[1][0][lane];
+    P = red[2][0][lane];
+#pragma unroll
+    for (int k = 1; k < kCombStrands; ++k) {
+      L += red[1][k][lane];
+      P += red[2][k][lane];
+    }
+    lse[t] = M + logf(L);
+    pick[t] = P;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 passes on wgmma: the forward's stats, the P pass, the dx and dh
+// products
+// ---------------------------------------------------------------------------
+namespace gemm {
 
 using namespace hopper;
 
@@ -480,7 +405,14 @@ struct Epi {
   int out_vmajor;    // f32 dh only: element (m, n) at n * ldo + m
   float* work;       // [M, N] f32 across token chunks
   int mode;          // 0 cast; 1 store, 2 add, 3 add and cast (work)
+  // the forward: [3][N tiles][M] f32, each row's (m, l, pick) of a tile
+  float* part;
 };
+
+// What the epilogue does with a tile (a template argument of the body)
+constexpr int kEpiOut = 0;     // the gradients: cast, or the f32 chunk sum
+constexpr int kEpiP = 1;       // the P pass: hi and lo out
+constexpr int kEpiStats = 2;   // the forward: each row's m, l and pick
 
 __device__ __forceinline__ float p_value(float s, int v, int V, float lse,
                                          long long lab, float scale) {
@@ -512,15 +444,17 @@ __device__ __forceinline__ uint64_t step_desc(const unsigned char* tile,
 }
 
 // C[M, N] = sum_k A(m, k) B(k, n) over one 128 x 256 tile a block; TA, TB:
-// 0 K-major, 1 MN-major. P_EPI: the P pass's epilogue (hi and lo out),
-// else the gradients' (cast, or the f32 sum across chunks).
-template <int PAIR, int TA, int TB, bool P_EPI>
-__global__ void __launch_bounds__(kGThreads, 1)
-    ce_gemm_kernel(const __grid_constant__ CUtensorMap a0,
-                   const __grid_constant__ CUtensorMap a1,
-                   const __grid_constant__ CUtensorMap b0,
-                   const __grid_constant__ CUtensorMap b1, int M, int N,
-                   int K, int group_m, Epi epi) {
+// 0 K-major, 1 MN-major; the maps are the kernel's __grid_constant__
+// parameters. EPI: kEpiP the P pass's epilogue (hi and lo out), kEpiStats
+// the forward's (each row's stats), kEpiOut the gradients' (cast, or the
+// f32 sum across chunks).
+template <int PAIR, int TA, int TB, int EPI>
+__device__ __forceinline__ void gemm_tile(const CUtensorMap* a0,
+                                          const CUtensorMap* a1,
+                                          const CUtensorMap* b0,
+                                          const CUtensorMap* b1, int M,
+                                          int N, int K, int group_m,
+                                          const Epi& epi) {
   constexpr int S = stages<PAIR>(), SB = stage_bytes<PAIR>();
   constexpr int BK = depth<PAIR>(), AT = a_tile<PAIR>(), BT = b_tile<PAIR>();
   constexpr int NA = PAIR == 1 ? 2 : 1;
@@ -558,13 +492,13 @@ __global__ void __launch_bounds__(kGThreads, 1)
         unsigned char* st = smem + s * SB;
         mbar_expect_tx(&full[s], SB);
         const int k0 = ks * BK;
-        load_tile<TA, kGBM, BK>(st, &a0, &full[s], m0, k0);
+        load_tile<TA, kGBM, BK>(st, a0, &full[s], m0, k0);
         if constexpr (PAIR == 1)
-          load_tile<TA, kGBM, BK>(st + AT, &a1, &full[s], m0, k0);
+          load_tile<TA, kGBM, BK>(st + AT, a1, &full[s], m0, k0);
         unsigned char* bt = st + NA * AT;
-        load_tile<TB, kGBN, BK>(bt, &b0, &full[s], n0, k0);
+        load_tile<TB, kGBN, BK>(bt, b0, &full[s], n0, k0);
         if constexpr (PAIR == 2)
-          load_tile<TB, kGBN, BK>(bt + BT, &b1, &full[s], n0, k0);
+          load_tile<TB, kGBN, BK>(bt + BT, b1, &full[s], n0, k0);
       }
     }
   } else {
@@ -605,7 +539,7 @@ __global__ void __launch_bounds__(kGThreads, 1)
     const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
     const int rbase = m0 + wg * 64 + wq * 16 + (lane >> 2);
     const int cbase = n0 + 2 * (lane & 3);
-    if constexpr (P_EPI) {
+    if constexpr (EPI == kEpiP) {
       float lse_h[2], sc_h[2];
       long long lab_h[2];
       const float coef = *epi.coef;
@@ -636,6 +570,48 @@ __global__ void __launch_bounds__(kGThreads, 1)
           const long long o = static_cast<long long>(row) * epi.ldp + col;
           *reinterpret_cast<__nv_bfloat162*>(hi + o) = vh;
           *reinterpret_cast<__nv_bfloat162*>(lo + o) = vl;
+        }
+      }
+    } else if constexpr (EPI == kEpiStats) {
+      // a row's 256 columns sit on the 4 lanes of a quad (64 each):
+      // the row's max, then its sum of exp and its pick, each reduced
+      // over the quad by two shuffles; columns >= V do not count
+      const int vt = n0 / kGBN;
+      const long long plane = static_cast<long long>(nn) * M;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rbase + 8 * h;
+        const long long lab = row < M ? epi.labels[row] : -1;
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (cbase + j * 8 + e < epi.V)
+              mx = fmaxf(mx, acc[j * 4 + 2 * h + e]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        float l = 0.f, pk = 0.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = cbase + j * 8 + e;
+            if (col < epi.V) {
+              const float sv = acc[j * 4 + 2 * h + e];
+              l += expf(sv - mx);
+              if (col == lab) pk = sv;
+            }
+          }
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        pk += __shfl_xor_sync(0xffffffffu, pk, 1);
+        pk += __shfl_xor_sync(0xffffffffu, pk, 2);
+        if ((lane & 3) == 0 && row < M) {
+          float* p = epi.part + static_cast<long long>(vt) * M + row;
+          p[0] = mx;
+          p[plane] = l;
+          p[2 * plane] = pk;
         }
       }
     } else {
@@ -676,6 +652,28 @@ __global__ void __launch_bounds__(kGThreads, 1)
 }
 
 template <int PAIR, int TA, int TB, bool P_EPI>
+__global__ void __launch_bounds__(kGThreads, 1)
+    ce_gemm_kernel(const __grid_constant__ CUtensorMap a0,
+                   const __grid_constant__ CUtensorMap a1,
+                   const __grid_constant__ CUtensorMap b0,
+                   const __grid_constant__ CUtensorMap b1, int M, int N,
+                   int K, int group_m, Epi epi) {
+  gemm_tile<PAIR, TA, TB, P_EPI ? kEpiP : kEpiOut>(&a0, &a1, &b0, &b1, M, N,
+                                                    K, group_m, epi);
+}
+
+// the forward's S = x head: x K-major; the head MN-major (TB 1, the untied
+// [D][V]) or K-major (TB 0, the tied [V][D])
+template <int TB>
+__global__ void __launch_bounds__(kGThreads, 1)
+    ce_fwd_gemm_kernel(const __grid_constant__ CUtensorMap x,
+                       const __grid_constant__ CUtensorMap head, int M,
+                       int N, int K, int group_m, Epi epi) {
+  gemm_tile<0, 0, TB, kEpiStats>(&x, &x, &head, &head, M, N, K, group_m,
+                                 epi);
+}
+
+template <int PAIR, int TA, int TB, bool P_EPI>
 cudaError_t launch_gemm(const CUtensorMap (&maps)[4], int M, int N, int K,
                         int group_m, const Epi& epi, cudaStream_t st) {
   auto kern = ce_gemm_kernel<PAIR, TA, TB, P_EPI>;
@@ -691,8 +689,23 @@ cudaError_t launch_gemm(const CUtensorMap (&maps)[4], int M, int N, int K,
   return cudaGetLastError();
 }
 
+// the forward's product and stats: every tile row walks the tile columns
+// together (group_m = the tile rows), as the P pass does
+template <int TB>
+cudaError_t launch_fwd(const CUtensorMap& x, const CUtensorMap& head, int M,
+                       int N, int K, const Epi& epi, cudaStream_t st) {
+  auto kern = ce_fwd_gemm_kernel<TB>;
+  constexpr int smem = smem_bytes<0>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int nm = (M + kGBM - 1) / kGBM, nn = (N + kGBN - 1) / kGBN;
+  if (nm == 0 || nn == 0) return cudaSuccess;
+  kern<<<nm * nn, kGThreads, smem, st>>>(x, head, M, N, K, nm, epi);
+  return cudaGetLastError();
+}
+
 // --- f32: the same passes on the CUDA cores ---------------------------------
-constexpr int kF32Ld = Ld<float>::v;
 
 // C[M, N] = sum_k A(m, k) B(k, n), A(m, k) = a[m sam + k sak] (k < K),
 // B(k, n) = b[k sbk + n sbn] (k < KB, n < NB; zero elsewhere), one 64 x
@@ -703,8 +716,8 @@ __global__ void __launch_bounds__(linear_ce::kThreads, 2)
                        long long sak, const float* __restrict__ b,
                        long long sbk, long long sbn, int M, int N, int K,
                        int KB, int NB, Epi epi) {
-  __shared__ __align__(16) float as[kBT * kF32Ld];
-  __shared__ __align__(16) float bs[kBV * kF32Ld];
+  __shared__ __align__(16) float as[kBT * kLd];
+  __shared__ __align__(16) float bs[kBV * kLd];
   const Frag f = frag();
   const int m0 = blockIdx.y * kBT, n0 = blockIdx.x * kBV;
   float acc[2][4][4];
@@ -721,7 +734,7 @@ __global__ void __launch_bounds__(linear_ce::kThreads, 2)
         r = i % kBT;
       }
       const int m = m0 + r, kk = k0 + k;
-      as[r * kF32Ld + k] = (m < M && kk < K) ? a[m * sam + kk * sak] : 0.f;
+      as[r * kLd + k] = (m < M && kk < K) ? a[m * sam + kk * sak] : 0.f;
     }
     for (int i = threadIdx.x; i < kBV * kBK; i += linear_ce::kThreads) {
       int n, k;
@@ -733,7 +746,7 @@ __global__ void __launch_bounds__(linear_ce::kThreads, 2)
         k = i % kBK;
       }
       const int nn = n0 + n, kk = k0 + k;
-      bs[n * kF32Ld + k] =
+      bs[n * kLd + k] =
           (nn < NB && kk < KB) ? b[kk * sbk + nn * sbn] : 0.f;
     }
     __syncthreads();
@@ -788,18 +801,20 @@ cudaError_t launch_f32(const void* a, long long sam, long long sak,
   return cudaGetLastError();
 }
 
-}  // namespace bwd
+}  // namespace gemm
 
-template <typename T, bool FAST>
-cudaError_t fwd(const void* x, const void* head, long long sd, long long sv,
-                const long long* labels, float* lse, float* pick, float* part,
-                int Tn, int D, int V, int tiles_per_split, cudaStream_t st) {
+// the f32 forward: the CUDA-core tiles, then the combine in split order
+inline cudaError_t fwd_f32(const float* x, const float* head, long long sd,
+                           long long sv, int head_kmajor,
+                           const long long* labels, float* lse, float* pick,
+                           float* part, int Tn, int D, int V,
+                           int tiles_per_split, cudaStream_t st) {
   const int nvt = (V + kBV - 1) / kBV;
   const int splits = (nvt + tiles_per_split - 1) / tiles_per_split;
   dim3 grid((Tn + kBT - 1) / kBT, splits);
-  ce_fwd_kernel<T, FAST><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(head), sd, sv, sd == 1,
-      labels, Tn, D, V, tiles_per_split, part);
+  ce_fwd_kernel<<<grid, kThreads, 0, st>>>(x, head, sd, sv, head_kmajor,
+                                           labels, Tn, D, V,
+                                           tiles_per_split, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ce_fwd_combine<<<(Tn + kThreads - 1) / kThreads, kThreads, 0, st>>>(
@@ -807,59 +822,11 @@ cudaError_t fwd(const void* x, const void* head, long long sd, long long sv,
   return cudaGetLastError();
 }
 
-// Which instantiation runs: 0 f32; 1 bf16, generic loads (a k-contiguous
-// head, the tied one, among them); 2 bf16 fast. The fast path needs an
-// n-contiguous head and 16-byte aligned rows: D % 8 == 0, V % 8 == 0 and
-// the head's row stride a multiple of 8.
-inline int route(const void* x, const void* head, long long sd, long long sv,
-                 int D, int V, int dtype) {
-  if (dtype != 1) return 0;
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(head) % 16 == 0 &&
-                       D % 8 == 0 && V % 8 == 0 && sd % 8 == 0;
-  return aligned && sv == 1 ? 2 : 1;
-}
-
 }  // namespace linear_ce
 }  // namespace paddle_tpu_torch
 
 using namespace paddle_tpu_torch::linear_ce;
 namespace hopper = paddle_tpu_torch::hopper;
-
-// The forward's launcher. dtype: 0 float32, 1 bfloat16; T, D and V >= 1.
-// bt, bv and splits are the wrapper's plan: the logit tile (kBT x kBV) and
-// the number of vocab splits tiles_per_split makes; a plan other than the
-// kernels' is refused (cudaErrorInvalidValue). Returns cudaError_t as int
-// (0: both of its kernels were launched).
-inline bool plan_ok(int V, int tiles_per_split, int bt, int bv, int splits) {
-  const int nvt = (V + kBV - 1) / kBV;
-  return bt == kBT && bv == kBV && tiles_per_split >= 1 &&
-         splits == (nvt + tiles_per_split - 1) / tiles_per_split;
-}
-
-#define LINEAR_CE_ROUTE(fn, ...)                        \
-  switch (route(x, head, sd, sv, D, V, dtype)) {        \
-    case 0:                                             \
-      return fn<float, false>(__VA_ARGS__);             \
-    case 1:                                             \
-      return fn<__nv_bfloat16, false>(__VA_ARGS__);     \
-    default:                                            \
-      return fn<__nv_bfloat16, true>(__VA_ARGS__);      \
-  }
-
-extern "C" int linear_ce_fwd(const void* x, const void* head, long long sd,
-                             long long sv, const void* labels, void* lse,
-                             void* pick, void* part, int Tn, int D, int V,
-                             int tiles_per_split, int bt, int bv, int splits,
-                             int dtype, void* stream) {
-  if (!plan_ok(V, tiles_per_split, bt, bv, splits)) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto lab = static_cast<const long long*>(labels);
-  auto l = static_cast<float*>(lse), p = static_cast<float*>(pick),
-       w = static_cast<float*>(part);
-  LINEAR_CE_ROUTE(fwd, x, head, sd, sv, lab, l, p, w, Tn, D, V,
-                  tiles_per_split, st)
-}
 
 // The backward's launchers. dtype: 0 float32, 1 bfloat16; ``smem`` is the
 // wrapper's plan of the launch's dynamic shared memory (the bf16 kernels'
@@ -875,16 +842,74 @@ bool aligned(const void* p, long long ld) {
 }
 
 // the bf16 P pass's and gradients' dynamic shared memory
-constexpr int kSmemP = bwd::smem_bytes<0>();
-constexpr int kSmemPairA = bwd::smem_bytes<1>();
-constexpr int kSmemPairB = bwd::smem_bytes<2>();
+constexpr int kSmemP = gemm::smem_bytes<0>();
+constexpr int kSmemPairA = gemm::smem_bytes<1>();
+constexpr int kSmemPairB = gemm::smem_bytes<2>();
 
-bwd::Epi no_epi() {
-  bwd::Epi e{};
+gemm::Epi no_epi() {
+  gemm::Epi e{};
   return e;
 }
 
 }  // namespace
+
+// The forward's launcher. dtype: 0 float32, 1 bfloat16; T, D and V >= 1.
+// bt x bv is the wrapper's logit tile, tiles_per_split and splits its
+// vocab plan and smem its dynamic shared memory: for f32 the CUDA-core
+// tiles (kBT x kBV; ``splits`` runs of ``tiles_per_split`` vocab tiles;
+// smem 0; x in rows of D), for bf16 the wgmma tiles (128 x 256, one vocab
+// tile a split, the P pass's smem_bytes). A plan other than the kernels'
+// is refused (cudaErrorInvalidValue), as is a bf16 operand TMA cannot
+// read. part: [3][splits][T] f32, the stats the combine reads. Returns
+// cudaError_t as int (0: both of its kernels were launched).
+extern "C" int linear_ce_fwd(const void* x, long long sx, const void* head,
+                             long long sh, int head_kmajor,
+                             const void* labels, void* lse, void* pick,
+                             void* part, int Tn, int D, int V, int bt, int bv,
+                             int tiles_per_split, int splits, int smem,
+                             int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto lab = static_cast<const long long*>(labels);
+  auto l = static_cast<float*>(lse), p = static_cast<float*>(pick),
+       w = static_cast<float*>(part);
+  if (dtype == 0) {
+    const int nvt = (V + kBV - 1) / kBV;
+    if (bt != kBT || bv != kBV || tiles_per_split < 1 ||
+        splits != (nvt + tiles_per_split - 1) / tiles_per_split ||
+        smem != 0 || sx != D)
+      return cudaErrorInvalidValue;
+    // the head's element (d, v) at d sd + v sv
+    const long long sd = head_kmajor ? 1 : sh, sv = head_kmajor ? sh : 1;
+    return fwd_f32(static_cast<const float*>(x),
+                   static_cast<const float*>(head), sd, sv, head_kmajor, lab,
+                   l, p, w, Tn, D, V, tiles_per_split, st);
+  }
+  const int nvt = (V + gemm::kGBN - 1) / gemm::kGBN;
+  if (bt != gemm::kGBM || bv != gemm::kGBN || tiles_per_split != 1 ||
+      splits != nvt || smem != kSmemP || !aligned(x, sx) ||
+      !aligned(head, sh))
+    return cudaErrorInvalidValue;
+  CUtensorMap xm, hm;
+  bool ok = hopper::make_map(&xm, x, Tn, D, sx, gemm::kGBM);
+  if (head_kmajor) {          // [V][D]: B K-major
+    ok = ok && hopper::make_map(&hm, head, V, D, sh, gemm::kGBN);
+  } else {                    // [D][V]: B MN-major
+    ok = ok && hopper::make_map(&hm, head, D, V, sh, 64);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  gemm::Epi epi = no_epi();
+  epi.labels = lab;
+  epi.V = V;
+  epi.part = w;
+  cudaError_t err = head_kmajor
+                        ? gemm::launch_fwd<0>(xm, hm, Tn, V, D, epi, st)
+                        : gemm::launch_fwd<1>(xm, hm, Tn, V, D, epi, st);
+  if (err != cudaSuccess) return err;
+  ce_fwd_stats_combine<<<(Tn + kCombTokens - 1) / kCombTokens,
+                         kCombTokens * kCombStrands, 0, st>>>(w, Tn, nvt, l,
+                                                              p);
+  return cudaGetLastError();
+}
 
 // P over the ``rows`` rows of x (the chunk's first row at ``x``): p0 = hi,
 // p1 = lo [rows, Vp] bf16; f32: p0 = P [rows, Vp] f32
@@ -894,7 +919,7 @@ extern "C" int linear_ce_p(const void* x, long long sx, const void* head,
                            void* p1, int rows, int D, int V, int Vp,
                            int smem, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  bwd::Epi epi = no_epi();
+  gemm::Epi epi = no_epi();
   epi.labels = static_cast<const long long*>(labels);
   epi.lse = static_cast<const float*>(lse);
   epi.coef = static_cast<const float*>(coef);
@@ -906,28 +931,28 @@ extern "C" int linear_ce_p(const void* x, long long sx, const void* head,
     if (smem != 0) return cudaErrorInvalidValue;
     // B(k = d, n = v)
     return head_kmajor
-               ? bwd::launch_f32<true>(x, sx, 1, head, 1, sh, rows, Vp, D, D,
+               ? gemm::launch_f32<true>(x, sx, 1, head, 1, sh, rows, Vp, D, D,
                                        V, epi, st)
-               : bwd::launch_f32<true>(x, sx, 1, head, sh, 1, rows, Vp, D, D,
+               : gemm::launch_f32<true>(x, sx, 1, head, sh, 1, rows, Vp, D, D,
                                        V, epi, st);
   }
   if (smem != kSmemP || !aligned(x, sx) || !aligned(head, sh) ||
       !aligned(p0, Vp) || !aligned(p1, Vp))
     return cudaErrorInvalidValue;
   CUtensorMap m[4];
-  bool ok = hopper::make_map(&m[0], x, rows, D, sx, bwd::kGBM);
+  bool ok = hopper::make_map(&m[0], x, rows, D, sx, gemm::kGBM);
   m[1] = m[0];
   if (head_kmajor) {          // [V][D]: B K-major
-    ok = ok && hopper::make_map(&m[2], head, V, D, sh, bwd::kGBN);
+    ok = ok && hopper::make_map(&m[2], head, V, D, sh, gemm::kGBN);
   } else {                    // [D][V]: B MN-major
     ok = ok && hopper::make_map(&m[2], head, D, V, sh, 64);
   }
   m[3] = m[2];
   if (!ok) return cudaErrorInvalidValue;
-  const int nm = (rows + bwd::kGBM - 1) / bwd::kGBM;
+  const int nm = (rows + gemm::kGBM - 1) / gemm::kGBM;
   return head_kmajor
-             ? bwd::launch_gemm<0, 0, 0, true>(m, rows, Vp, D, nm, epi, st)
-             : bwd::launch_gemm<0, 0, 1, true>(m, rows, Vp, D, nm, epi, st);
+             ? gemm::launch_gemm<0, 0, 0, true>(m, rows, Vp, D, nm, epi, st)
+             : gemm::launch_gemm<0, 0, 1, true>(m, rows, Vp, D, nm, epi, st);
 }
 
 // dx [rows, D] (x's type, rows of D) = P head^T over the chunk's P
@@ -937,34 +962,34 @@ extern "C" int linear_ce_bwd_dx(const void* p0, const void* p1,
                                 int V, int Vp, int smem, int dtype,
                                 void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  bwd::Epi epi = no_epi();
+  gemm::Epi epi = no_epi();
   epi.out = dx;
   epi.ldo = D;
   if (dtype == 0) {
     if (smem != 0) return cudaErrorInvalidValue;
     // A = P [rows][Vp]; B(k = v, n = d)
     return head_kmajor
-               ? bwd::launch_f32<false>(p0, Vp, 1, head, sh, 1, rows, D, Vp,
+               ? gemm::launch_f32<false>(p0, Vp, 1, head, sh, 1, rows, D, Vp,
                                         V, D, epi, st)
-               : bwd::launch_f32<false>(p0, Vp, 1, head, 1, sh, rows, D, Vp,
+               : gemm::launch_f32<false>(p0, Vp, 1, head, 1, sh, rows, D, Vp,
                                         V, D, epi, st);
   }
   if (smem != kSmemPairA || !aligned(head, sh) || !aligned(p0, Vp) ||
       !aligned(p1, Vp))
     return cudaErrorInvalidValue;
   CUtensorMap m[4];
-  bool ok = hopper::make_map(&m[0], p0, rows, Vp, Vp, bwd::kGBM) &&
-            hopper::make_map(&m[1], p1, rows, Vp, Vp, bwd::kGBM);
+  bool ok = hopper::make_map(&m[0], p0, rows, Vp, Vp, gemm::kGBM) &&
+            hopper::make_map(&m[1], p1, rows, Vp, Vp, gemm::kGBM);
   if (head_kmajor) {          // [V][D]: B(k = v, n = d) MN-major
     ok = ok && hopper::make_map(&m[2], head, V, D, sh, 64);
   } else {                    // [D][V]: K-major
-    ok = ok && hopper::make_map(&m[2], head, D, V, sh, bwd::kGBN);
+    ok = ok && hopper::make_map(&m[2], head, D, V, sh, gemm::kGBN);
   }
   m[3] = m[2];
   if (!ok) return cudaErrorInvalidValue;
   return head_kmajor
-             ? bwd::launch_gemm<1, 0, 1, false>(m, rows, D, Vp, 8, epi, st)
-             : bwd::launch_gemm<1, 0, 0, false>(m, rows, D, Vp, 8, epi, st);
+             ? gemm::launch_gemm<1, 0, 1, false>(m, rows, D, Vp, 8, epi, st)
+             : gemm::launch_gemm<1, 0, 0, false>(m, rows, D, Vp, 8, epi, st);
 }
 
 // dh from the chunk's P and x: out_vmajor 0: dh [D, V] (row stride ldo);
@@ -978,7 +1003,7 @@ extern "C" int linear_ce_bwd_dh(const void* x, long long sx, const void* p0,
   auto st = static_cast<cudaStream_t>(stream);
   if (mode < 0 || mode > 3 || (mode != 0 && work == nullptr))
     return cudaErrorInvalidValue;
-  bwd::Epi epi = no_epi();
+  gemm::Epi epi = no_epi();
   epi.out = dh;
   epi.ldo = ldo;
   epi.out_vmajor = out_vmajor;
@@ -987,7 +1012,7 @@ extern "C" int linear_ce_bwd_dh(const void* x, long long sx, const void* p0,
   if (dtype == 0) {
     if (smem != 0) return cudaErrorInvalidValue;
     // A(m = d, k = t) = x[t sx + d], B(k = t, n = v) = P[t Vp + v]
-    return bwd::launch_f32<false>(x, 1, sx, p0, Vp, 1, D, V, rows, rows, V,
+    return gemm::launch_f32<false>(x, 1, sx, p0, Vp, 1, D, V, rows, rows, V,
                                   epi, st);
   }
   if (smem != (out_vmajor ? kSmemPairA : kSmemPairB) || !aligned(x, sx) ||
@@ -996,7 +1021,7 @@ extern "C" int linear_ce_bwd_dh(const void* x, long long sx, const void* p0,
   CUtensorMap m[4];
   CUtensorMap xm, hi, lo;
   // MN-major boxes: 64 columns x the stage's depth
-  const int bk = out_vmajor ? bwd::depth<1>() : bwd::depth<2>();
+  const int bk = out_vmajor ? gemm::depth<1>() : gemm::depth<2>();
   bool ok = hopper::make_map(&xm, x, rows, D, sx, bk) &&
             hopper::make_map(&hi, p0, rows, Vp, Vp, bk) &&
             hopper::make_map(&lo, p1, rows, Vp, Vp, bk);
@@ -1005,12 +1030,12 @@ extern "C" int linear_ce_bwd_dh(const void* x, long long sx, const void* p0,
     m[0] = hi;
     m[1] = lo;
     m[2] = m[3] = xm;
-    return bwd::launch_gemm<1, 1, 1, false>(m, V, D, rows, 8, epi, st);
+    return gemm::launch_gemm<1, 1, 1, false>(m, V, D, rows, 8, epi, st);
   }
   m[0] = m[1] = xm;           // dh = x^T P: A = x; B = hi, lo
   m[2] = hi;
   m[3] = lo;
-  return bwd::launch_gemm<2, 1, 1, false>(m, D, V, rows, 32, epi, st);
+  return gemm::launch_gemm<2, 1, 1, false>(m, D, V, rows, 32, epi, st);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -24,12 +24,19 @@ The linear CE replaces ``_ce_fwd_kernel``, ``_ce_dx_kernel`` and
 ``paddle_tpu_torch/csrc/linear_ce.cu``, built by :mod:`._build` at the
 first launch and bound with ctypes. That file's header says what bounds
 them (operations: 1.07 TFLOP the forward, 2.15 the dx call, 1.07 the dh
-call over a given P at the training shape) and how the backward is laid
-out: a P pass writes P = (softmax - onehot) * valid * coef once, as bf16
-hi + lo (f32 for f32 inputs), then dx = P head^T and dh = x^T P are plain
-products on wgmma with their sums in registers. ``linear_ce_bwd_dx``'s
-call runs the P pass and dx and can keep P (:class:`CEWorkspace`) for
-``linear_ce_bwd_dh``'s, which then runs only its product; P's workspace
+call over a given P at the training shape) and how they are laid out:
+in bf16 every pass is one wgmma GEMM with its sum in registers, told
+apart by its epilogue. The forward's reduces each 128 x 256 tile of S to
+its rows' stats (max, sum of exp, the logit at the label) in a partials
+buffer of [3, vocab tiles, T] f32, which a second kernel combines in a
+fixed order (:func:`ce_fwd_stats_ref` and :func:`ce_fwd_combine_ref` are
+that split, plainly); f32 keeps the CUDA-core tiles and their vocab
+splits (:func:`ce_splits`). The backward's P pass writes P = (softmax -
+onehot) * valid * coef once, as bf16 hi + lo (f32 for f32 inputs), then
+dx = P head^T and dh = x^T P are plain products over it.
+``linear_ce_bwd_dx``'s call runs the P pass and dx and can keep P
+(:class:`CEWorkspace`) for ``linear_ce_bwd_dh``'s, which then runs only
+its product; P's workspace
 is held to ``P_CAP_BYTES`` by token chunks (:func:`ce_chunk_rows`). Each
 wrapper call is counted once, whatever kernels it runs. The plain
 versions :func:`ce_fwd_ref`, :func:`ce_bwd_dx_ref` and
@@ -40,11 +47,12 @@ it, plainly. :class:`LinearCE` does what the JAX package does
 outside its kernels: flatten to [T, D], count the labels >= 0 (negative
 labels, -1 and -100 alike, are ignored), the masked mean of ``lse -
 pick`` over ``max(count, 1)``, and ``coef = g / max(count, 1)``. Labels
-are taken as int64 (int32 widens; nothing narrows). The head is read by
-its strides in either dense layout, so the tied head (the embedding seen
-transposed) is not copied (:func:`ce_operands` copies a head or x whose
-rows the card's tensor memory accelerator cannot read), and dh is written
-in the head's layout.
+are taken as int64 (int32 widens; nothing narrows). Every call reads x
+and the head through :func:`ce_operands`: the head in either dense layout
+by its strides, so the tied head (the embedding seen transposed) is not
+copied, and a bf16 head or x whose rows the card's tensor memory
+accelerator cannot read is copied to aligned rows; dh is written in the
+head's layout.
 
 The Functions run the kernels for CUDA tensors and the plain versions for
 CPU ones; a wrapper given anything else raises, never falls back.
@@ -65,33 +73,39 @@ from ._build import DTYPES
 
 __all__ = ["swiglu_fwd_ref", "swiglu_bwd_ref", "swiglu_fwd_triton",
            "swiglu_bwd_triton", "SwiGLU", "ce_fwd_ref", "ce_bwd_dx_ref",
-           "ce_bwd_dh_ref", "ce_p_split_ref", "ce_bwd_dx_split_ref",
+           "ce_bwd_dh_ref", "ce_fwd_stats_ref", "ce_fwd_combine_ref",
+           "ce_p_split_ref", "ce_bwd_dx_split_ref",
            "ce_bwd_dh_split_ref", "linear_ce_fwd_cuda",
            "linear_ce_bwd_dx_cuda", "linear_ce_bwd_dh_cuda", "LinearCE",
            "CEOperands", "CEWorkspace", "ce_operands", "ce_workspace",
            "ce_p_pass", "ce_dx_product", "ce_dh_product", "ce_splits",
-           "ce_chunk_rows", "p_width", "BT", "BV"]
+           "ce_chunk_rows", "ce_vtiles", "p_width", "BT", "BV"]
 
 BLOCK = 1024
-#: the linear-CE forward's logit tile (``kBT`` x ``kBV`` in linear_ce.cu;
-#: the launcher refuses another)
+#: the f32 passes' logit tile (``kBT`` x ``kBV`` in linear_ce.cu; the
+#: launchers refuse another)
 BT, BV = 64, 128
 _SMS = _launch.H100_SMS
 _TRITON_SOURCE = "paddle_tpu_torch/ops/kernels/fused_train.py"
 _CE_SOURCE = "paddle_tpu_torch/csrc/linear_ce.cu"
 _CE_THREADS = 256
-#: the forward's static shared memory (kFwdSmem)
+#: the f32 forward's static shared memory (kFwdSmem)
 CE_FWD_SMEM = 33792
-#: the backward's bf16 products (linear_ce.cu, ``bwd::``): output tiles of
+#: every bf16 pass's GEMM (linear_ce.cu, ``gemm::``): output tiles of
 #: GEMM_BM x GEMM_BN, depth stages of GEMM_BK (dh's, x and P both
 #: MN-major: GEMM_BK_DH), 384 threads (two consumer warpgroups and a
 #: producer), one block an SM
 GEMM_BM, GEMM_BN, GEMM_BK, GEMM_BK_DH, GEMM_THREADS = 128, 256, 64, 32, 384
-#: their stages and dynamic shared memory (``bwd::stages``,
-#: ``bwd::smem_bytes``): the P pass; two A tiles on one B tile (dx, and
-#: dh^T for the tied layout); two B tiles on one A tile (dh)
+#: their stages and dynamic shared memory (``gemm::stages``,
+#: ``gemm::smem_bytes``): one product (the forward and the P pass); two A
+#: tiles on one B tile (dx, and dh^T for the tied layout); two B tiles on
+#: one A tile (dh)
 CE_STAGES = {"p": 4, "pair_a": 3, "pair_b": 5}
 CE_P_SMEM, CE_PAIR_A_SMEM, CE_PAIR_B_SMEM = 197728, 197728, 205920
+#: the bf16 forward's combine: a block of COMBINE_TOKENS tokens by
+#: COMBINE_STRANDS strands of vocab tiles (``kCombTokens``,
+#: ``kCombStrands``)
+COMBINE_TOKENS, COMBINE_STRANDS = 32, 8
 #: the f32 backward's CUDA-core tiles: BT x BV, depth F32_BK, static
 #: shared memory (BT + BV) x (F32_BK + 1) f32
 F32_BK, CE_F32_SMEM = 32, 25344
@@ -100,7 +114,7 @@ F32_BK, CE_F32_SMEM = 32, 25344
 P_ALIGN, P_CAP_BYTES = 64, 1 << 30
 #: the launchers' ctypes argument codes
 CE_CALLS = {
-    "linear_ce_fwd": ("p", "p", "l", "l") + ("p",) * 4 + ("i",) * 7
+    "linear_ce_fwd": ("p", "l", "p", "l", "i") + ("p",) * 4 + ("i",) * 8
     + ("i", "p"),
     "linear_ce_p": ("p", "l", "p", "l", "i") + ("p",) * 5 + ("i",) * 5
     + ("i", "p"),
@@ -262,6 +276,51 @@ def ce_fwd_ref(x2, head, labels):
             torch.where(_onehot(labels, s.shape[1]), s, 0.0).sum(-1))
 
 
+def ce_vtiles(V):
+    """The bf16 forward's vocab tiles: V in tiles of ``GEMM_BN`` columns
+    (the last one partial)."""
+    return -(-V // GEMM_BN)
+
+
+def ce_fwd_stats_ref(x2, head, labels):
+    """The bf16 forward's partials, plainly: ``part`` [3, ce_vtiles(V), T]
+    f32 holding, for each vocab tile of ``GEMM_BN`` columns and each token,
+    m = the max of the row's logits in the tile (columns past V do not
+    count), l = the sum of exp(s - m) over them, and pick = the logit at
+    the label when the label falls in the tile, else 0."""
+    s = _logits(x2, head)
+    T, V = s.shape
+    nvt = ce_vtiles(V)
+    pad = nvt * GEMM_BN - V
+    tiles = torch.nn.functional.pad(s, (0, pad), value=-torch.inf).view(
+        T, nvt, GEMM_BN)
+    m = tiles.amax(-1)
+    l = torch.exp(tiles - m[..., None]).sum(-1)
+    pick = torch.nn.functional.pad(
+        torch.where(_onehot(labels, V), s, 0.0), (0, pad)).view(
+        T, nvt, GEMM_BN).sum(-1)
+    return torch.stack([m, l, pick]).transpose(1, 2).contiguous()
+
+
+def ce_fwd_combine_ref(part):
+    """``(lse, pick)`` [T] from :func:`ce_fwd_stats_ref`'s partials in the
+    combine kernel's order: M = the max of a token's m; strand k of
+    ``COMBINE_STRANDS`` sums l exp(m - M) and pick over the vocab tiles k,
+    k + strands, ... in tile order; the strands add in strand order;
+    lse = M + log(L)."""
+    m, l, pick = part[0], part[1], part[2]
+    M = m.amax(0)
+    w = l * torch.exp(m - M)
+    L, P = torch.zeros_like(M), torch.zeros_like(M)
+    for k in range(COMBINE_STRANDS):
+        lk, pk = torch.zeros_like(M), torch.zeros_like(M)
+        for v in range(k, m.shape[0], COMBINE_STRANDS):
+            lk = lk + w[v]
+            pk = pk + pick[v]
+        L, P = L + lk, P + pk
+    return M + torch.log(L), P
+
+
 def _ce_p(x2, head, labels, lse, coef):
     """``_ce_tile``'s P, dense: (softmax - onehot) * valid * coef."""
     s = _logits(x2, head)
@@ -375,10 +434,14 @@ def ce_spec(name, T, D, V, dt, head_dt, splits=1, head_kmajor=False,
             chunk_rows=None, p_given=False, staged=(), dh_vmajor=False):
     """The launch spec of one linear-CE wrapper call.
 
-    - ``linear_ce_fwd``: one block of 256 threads per (64-token tile, vocab
-      split), reading the tile's rows of x and labels and the split's
-      columns of the head, then the combine of the split partials into lse
-      and pick (one thread a token).
+    - ``linear_ce_fwd``, bf16: one block per 128 x 256 tile of S (x's rows,
+      the head's columns), the tiles in the grouped order (every tile row
+      walks the tile columns together), each block writing its rows' stats
+      to the partials (``plan["part"]``: [3, vocab tiles, T] f32, a
+      workspace), then the combine (a block per 32 tokens) into lse and
+      pick. f32: one block of 256 threads per (64-token tile, vocab split
+      of ``splits``), then the combine of the split partials (one thread a
+      token).
     - ``linear_ce_bwd_dx``: per token chunk (last to first), the P pass
       (a 128 x 256 tile of P a block: x's rows, the head's columns; hi and
       lo out) and the dx product (a 128 x 256 tile of dx a block: P's
@@ -401,6 +464,32 @@ def ce_spec(name, T, D, V, dt, head_dt, splits=1, head_kmajor=False,
     labels = op("labels", (T,), "int64")
     lse, coef = op("lse", (T,), "float32"), op("coef", (1,), "float32")
     if name == "linear_ce_fwd":
+        outs = (op("lse_out", (T,), "float32"), op("pick", (T,), "float32"))
+        params = {"head_layout": "tied" if head_kmajor else "untied",
+                  "staged": tuple(staged)}
+        calls = ((name, CE_CALLS[name]),)
+        if dt == "bfloat16":
+            nm, nn = -(-T // GEMM_BM), ce_vtiles(V)
+            mn = _tile_order(True, nm, nn, nm)
+            main = _launch.KernelPhase(
+                "tiles", nm * nn,
+                (A("x", (GEMM_BM, D), lambda i: (mn(i)[0], 0)),
+                 A("labels", (GEMM_BM,), lambda i: (mn(i)[0],)),
+                 A("head", (D, GEMM_BN), lambda i: (0, mn(i)[1]))))
+            comb = _launch.KernelPhase(
+                "combine", -(-T // COMBINE_TOKENS), (),
+                tuple(A(o.name, (COMBINE_TOKENS,), lambda i: (i,))
+                      for o in outs))
+            return _launch.KernelLaunchSpec(
+                name, "cuda", _CE_SOURCE, (nm * nn,), GEMM_THREADS,
+                (x, head, labels), outs, (main, comb), calls, dt,
+                blocks_per_sm=1, dyn_smem=CE_P_SMEM, params=params,
+                plan={"body": "wgmma", "tile": (GEMM_BM, GEMM_BN),
+                      "tiles_per_split": 1, "splits": nn,
+                      "depth_step": GEMM_BK, "stages": CE_STAGES["p"],
+                      "group_m": nm, "smem": CE_P_SMEM, "part": (3, nn, T),
+                      "part_bytes": 3 * nn * T * 4,
+                      "combine": (COMBINE_TOKENS, COMBINE_STRANDS)})
         nt, nvt = -(-T // BT), -(-V // BV)
         tps = -(-nvt // splits)
         main = _launch.KernelPhase(
@@ -408,18 +497,17 @@ def ce_spec(name, T, D, V, dt, head_dt, splits=1, head_kmajor=False,
             (A("x", (BT, D), lambda i: (i % nt, 0)),
              A("labels", (BT,), lambda i: (i % nt,)),
              A("head", (D, tps * BV), lambda i: (0, i // nt))))
-        outs = (op("lse_out", (T,), "float32"), op("pick", (T,), "float32"))
         n_comb = -(-T // _CE_THREADS)
         comb = _launch.KernelPhase(
             "combine", n_comb, (),
             tuple(A(o.name, (_CE_THREADS,), lambda i: (i,)) for o in outs))
         return _launch.KernelLaunchSpec(
             name, "cuda", _CE_SOURCE, (nt, splits), _CE_THREADS,
-            (x, head, labels), outs, (main, comb),
-            ((name, CE_CALLS[name]),), dt, blocks_per_sm=2,
-            static_smem=CE_FWD_SMEM,
-            plan={"bt": BT, "bv": BV, "tiles_per_split": tps,
-                  "splits": splits})
+            (x, head, labels), outs, (main, comb), calls, dt,
+            blocks_per_sm=2, static_smem=CE_FWD_SMEM, params=params,
+            plan={"body": "cuda_core", "tile": (BT, BV),
+                  "tiles_per_split": tps, "splits": splits, "smem": 0,
+                  "part": (3, splits, T), "part_bytes": 3 * splits * T * 4})
     bf = dt == "bfloat16"
     vp = p_width(V)
     rows = ce_chunk_rows(T, V, chunk_rows)
@@ -586,29 +674,35 @@ def _run(name, x2, spec, *args):
 def linear_ce_fwd_cuda(x2, head, labels):
     """Launch ``linear_ce_fwd``: ``(lse, pick)`` as :func:`ce_fwd_ref`.
     ``x2`` [T, D] contiguous, ``head`` [D, V] of x's type with any
-    strides, ``labels`` int64 [T]."""
+    strides (read through :func:`ce_operands`), ``labels`` int64 [T]."""
     _check_ce("linear_ce_fwd", x2, head, labels)
     T, D = x2.shape
     V = head.shape[1]
-    tps, splits = ce_splits(T, V, 4 * _SMS)
+    ops = ce_operands(x2, head)
+    splits = ce_vtiles(V) if x2.dtype == torch.bfloat16 \
+        else ce_splits(T, V, 4 * _SMS)[1]
     spec = ce_spec("linear_ce_fwd", T, D, V, _launch.dtype_name(x2.dtype),
-                   _launch.dtype_name(head.dtype), splits)
+                   _launch.dtype_name(head.dtype), splits, ops.head_kmajor,
+                   staged=ops.staged)
     lse = torch.empty(T, dtype=torch.float32, device=x2.device)
     pick = torch.empty_like(lse)
-    part = torch.empty(3, splits, T, dtype=torch.float32, device=x2.device)
+    part = torch.empty(spec.plan["part"], dtype=torch.float32,
+                       device=x2.device)
     if _launch.begin(spec, x2.device):
         linear_ce_fwd_cuda.launches += 1
-        _run("linear_ce_fwd", x2, spec, x2.data_ptr(), head.data_ptr(),
-             head.stride(0), head.stride(1), labels.data_ptr(),
-             lse.data_ptr(), pick.data_ptr(), part.data_ptr(), T, D, V, tps,
-             BT, BV, splits)
+        bt, bv = spec.plan["tile"]
+        _run("linear_ce_fwd", ops.x, spec, ops.x.data_ptr(), ops.sx,
+             ops.head.data_ptr(), ops.sh, int(ops.head_kmajor),
+             labels.data_ptr(), lse.data_ptr(), pick.data_ptr(),
+             part.data_ptr(), T, D, V, bt, bv, spec.plan["tiles_per_split"],
+             splits, spec.plan["smem"])
     return lse, pick
 
 
-# -- the backward -----------------------------------------------------------
+# -- the operands and the backward ----------------------------------------
 @dataclasses.dataclass
 class CEOperands:
-    """x and the head as the backward kernels read them: row-major rows of
+    """x and the head as the CE kernels read them: row-major rows of
     ``sx`` / ``sh`` elements; ``head_kmajor`` the tied layout (the head's
     rows run along V); ``staged``: the operands copied first (bf16 rows
     TMA cannot read: a stride not a multiple of 16 bytes, a base not

@@ -16,16 +16,28 @@ Replaces four kernels of ``paddle_tpu/ops/pallas/norms.py``:
   row is one block held in registers, read once and written once.
 - ``_rms_bwd_kernel`` (launch ``rms_norm_bwd``, ``rms_norm_bwd_pallas``)
   by :func:`rms_norm_bwd_triton`: ``dx`` per row and ``dw = sum over rows
-  of g * x_hat`` (f32, cast to the weight's type), op for op
+  of g * x_hat`` (f32, cast once to the weight's type), dx op for op
   :func:`rms_bwd_ref`. Bound: memory, x and g read and dx written once
   (100.7 MB at [4096, 4096] bf16, 0.030 ms). The TPU carries dw through
   a sequential grid in VMEM; Hopper's blocks run in no order, so each of
   ``P <= 264`` programs (two per SM) walks rows ``pid, pid + P, ...``,
   keeps its dw partial in registers and writes it to a ``[P, D]`` f32
-  buffer, and a second Triton kernel sums the partials in program order:
-  no atomics, relaunches are bit-identical. One wrapper call is those two
-  device kernels (one count in ``.launches``); the partials add 2 P D 4
-  bytes (8.7 MB at D = 4096).
+  buffer (:func:`rms_bwd_partition`). What bounds a row is memory
+  latency: a program's two row reductions depend on its loads, so a
+  program that loads a row only when the last is done keeps one row in
+  flight and the SM's memory pipe idles through the reductions. Each
+  program therefore issues the next row's loads before it reduces the
+  current one (two rows of x and g in flight a program, four an SM).
+  The second kernel sums the partials over the whole card: a program
+  per ``_SUM_COLS`` columns adds chunks of ``_SUM_ROWS`` partial rows in
+  chunk order, each chunk by ``tl.sum``'s fixed tree
+  (:func:`rms_dw_combine_ref` is that order, plainly). No atomics:
+  relaunches are bit-identical. One wrapper call is those two device
+  kernels (one count in ``.launches``); the partials add 2 P D 4 bytes
+  (8.7 MB at D = 4096, 8.6% of the bound's bytes). Triton, not CUDA C++:
+  the work is a row normalisation and a column sum with no tensor-core
+  product, bound by memory, and Triton's vectorised loads and tree
+  reductions move the same bytes a second as hand-written loads would.
 - ``_res_rms_fwd_kernel`` (launch ``residual_rms_norm_fwd``,
   ``_res_rms_fwd_call``) by :func:`residual_rms_norm_fwd_triton`: ``y = x +
   delta`` rounded in the model dtype first (the f32 sum cast back, as
@@ -72,7 +84,8 @@ from ._build import DTYPES
 from .registry import KERNELS, dispatch_fused_variant
 
 __all__ = ["rms_norm_ref", "rms_norm_fwd_triton", "rms_bwd_ref",
-           "rms_norm_bwd_triton", "residual_rms_norm_fwd_ref",
+           "rms_norm_bwd_triton", "rms_bwd_partition", "rms_dw_combine_ref",
+           "residual_rms_norm_fwd_ref",
            "residual_rms_norm_fwd_triton", "layer_norm_ref",
            "layer_norm_fwd_triton", "rms_bwd_meta", "RMSNorm",
            "ResidualRMSNorm", "MAX_D"]
@@ -82,7 +95,7 @@ tl = None          # triton.language, bound by triton_jit at the first launch
 MAX_D = 16384      # a row is one register-resident block
 _BWD_PROGRAMS = 264                  # dw partials: two programs per SM
 _SOURCE = "paddle_tpu_torch/ops/kernels/norms.py"
-_SUM_BLOCK = 1024                    # columns a dw-sum program adds
+_SUM_ROWS, _SUM_COLS = 128, 32       # a dw-sum program's chunk of partials
 
 
 def rms_norm_ref(x, weight, epsilon=1e-6):
@@ -111,28 +124,40 @@ def _rms_bwd_kernel(x_ptr, w_ptr, g_ptr, dx_ptr, part_ptr, rows, D, eps,
     mask = cols < D
     wf = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
     dw = tl.zeros([BLOCK], tl.float32)
+    off = pid.to(tl.int64) * D + cols       # row pid < rows: a first row
+    x = tl.load(x_ptr + off, mask=mask, other=0.0)
+    g = tl.load(g_ptr + off, mask=mask, other=0.0)
     for r in range(pid, rows, nprog):
-        off = r.to(tl.int64) * D + cols
-        x = tl.load(x_ptr + off, mask=mask, other=0.0)
+        # the next row's loads go out before this row's reductions
+        nxt = r + nprog
+        noff = nxt.to(tl.int64) * D + cols
+        x_next = tl.load(x_ptr + noff, mask=mask & (nxt < rows), other=0.0)
+        g_next = tl.load(g_ptr + noff, mask=mask & (nxt < rows), other=0.0)
         xf = x.to(tl.float32)
-        gf = tl.load(g_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        gf = g.to(tl.float32)
         inv = tl.rsqrt(tl.sum(xf * xf, axis=0) / D + eps)
         xhat = xf * inv
         gw = gf * wf
         dx = inv * (gw - xhat * (tl.sum(gw * xhat, axis=0) / D))
         tl.store(dx_ptr + off, dx.to(x.dtype), mask=mask)
         dw += gf * xhat
+        x, g, off = x_next, g_next, noff
     tl.store(part_ptr + pid.to(tl.int64) * D + cols, dw, mask=mask)
 
 
-def _sum_rows_kernel(part_ptr, out_ptr, n_rows, D, BLOCK: "tl.constexpr"):
-    """out[c] = sum of part[p, c] over p = 0, 1, ... in that order."""
-    cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    mask = cols < D
-    acc = tl.zeros([BLOCK], tl.float32)
-    for p in range(0, n_rows):
-        acc += tl.load(part_ptr + p * D + cols, mask=mask, other=0.0)
-    tl.store(out_ptr + cols, acc.to(out_ptr.dtype.element_ty), mask=mask)
+def _dw_sum_kernel(part_ptr, out_ptr, n_rows, D, ROWS: "tl.constexpr",
+                   COLS: "tl.constexpr"):
+    """out[c] = the sum of part[p, c] over p: chunks of ROWS partial rows
+    in chunk order, each chunk summed by ``tl.sum``'s fixed tree."""
+    cols = tl.program_id(0) * COLS + tl.arange(0, COLS)
+    cmask = cols < D
+    acc = tl.zeros([COLS], tl.float32)
+    for p0 in range(0, n_rows, ROWS):
+        r = p0 + tl.arange(0, ROWS)
+        m = (r < n_rows)[:, None] & cmask[None, :]
+        acc += tl.sum(tl.load(part_ptr + r.to(tl.int64)[:, None] * D
+                              + cols[None, :], mask=m, other=0.0), axis=0)
+    tl.store(out_ptr + cols, acc.to(out_ptr.dtype.element_ty), mask=cmask)
 
 
 def _res_rms_fwd_kernel(d_ptr, x_ptr, w_ptr, y_ptr, h_ptr, D, eps,
@@ -232,28 +257,51 @@ def rms_fwd_spec(rows, D, dt):
         (("_rms_fwd_kernel", 5, (rows,), {"BLOCK": block}, _warps(block)),))
 
 
+def rms_bwd_partition(rows):
+    """``(programs, [rows of program p, in its order])``: the row kernel's
+    ``min(rows, 264)`` programs (at least one), program p taking rows p,
+    p + programs, ..."""
+    nprog = max(1, min(rows, _BWD_PROGRAMS))
+    return nprog, [list(range(p, rows, nprog)) for p in range(nprog)]
+
+
+def rms_dw_combine_ref(part, dtype):
+    """dw from the row kernel's ``part`` [P, D] f32 as the sum kernel adds
+    it: chunks of ``_SUM_ROWS`` partial rows in chunk order (each chunk's
+    own sum a fixed tree on the card, here torch's), cast once."""
+    acc = torch.zeros(part.shape[1], dtype=torch.float32, device=part.device)
+    for p0 in range(0, part.shape[0], _SUM_ROWS):
+        acc = acc + part[p0:p0 + _SUM_ROWS].sum(0)
+    return acc.to(dtype)
+
+
 @functools.lru_cache(maxsize=256)
 def rms_bwd_spec(rows, D, dt):
-    """The row kernel (``min(rows, 264)`` programs striding over the rows,
-    each keeping an f32 partial of dw) and the fixed-order sum of the
-    partials (one program per 1024 columns)."""
+    """The row kernel (:func:`rms_bwd_partition`'s programs striding over
+    the rows, each keeping an f32 partial of dw and loading its next row
+    before it reduces the current one) and the sum of the partials (one
+    program per ``_SUM_COLS`` columns, chunks of ``_SUM_ROWS`` partial rows
+    in order). ``plan["part"]``: the partials' shape, a workspace."""
     x, w, g = (_op("x", (rows, D), dt), _op("w", (D,), dt),
                _op("g", (rows, D), dt))
     dx, dw = _op("dx", (rows, D), dt), _op("dw", (D,), dt)
     block = _pow2(D)
-    nprog = max(1, min(rows, _BWD_PROGRAMS))
+    nprog, _ = rms_bwd_partition(rows)
+    nsum = -(-D // _SUM_COLS)
     phases = (
         _launch.KernelPhase("rows", rows, (_launch.rows_access(x),
                                            _launch.rows_access(g),
                                            _launch.whole(w)),
                             (_launch.rows_access(dx),)),
-        _launch.KernelPhase("dw", -(-D // _SUM_BLOCK), (),
-                            (_launch.flat_access(dw, _SUM_BLOCK),)))
-    return _launch.triton_spec(
+        _launch.KernelPhase("dw", nsum, (),
+                            (_launch.flat_access(dw, _SUM_COLS),)))
+    spec = _launch.triton_spec(
         "rms_norm_bwd", _SOURCE, dt, phases, (x, w, g), (dx, dw),
         (("_rms_bwd_kernel", 8, (nprog,), {"BLOCK": block}, _warps(block)),
-         ("_sum_rows_kernel", 4, (-(-D // _SUM_BLOCK),),
-          {"BLOCK": _SUM_BLOCK}, 4)))
+         ("_dw_sum_kernel", 4, (nsum,),
+          {"ROWS": _SUM_ROWS, "COLS": _SUM_COLS}, 4)))
+    spec.plan["part"] = (nprog, D)
+    return spec
 
 
 @functools.lru_cache(maxsize=256)
@@ -322,10 +370,14 @@ def rms_norm_bwd_triton(x, weight, g, epsilon=1e-6):
     g2 = g.reshape(-1, D).contiguous()
     rows = x2.shape[0]
     dx = torch.empty_like(x2)
+    if not rows:            # no row: dw is a sum of nothing
+        return dx.reshape(x.shape), torch.zeros(D, dtype=weight.dtype,
+                                                device=x.device)
     dw = torch.empty(D, dtype=weight.dtype, device=x.device)
     spec = rms_bwd_spec(rows, D, _launch.dtype_name(x.dtype))
-    nprog = spec.plan["launches"][0][0][0]
-    part = torch.empty(nprog, D, dtype=torch.float32, device=x.device)
+    nprog = spec.plan["part"][0]
+    part = torch.empty(spec.plan["part"], dtype=torch.float32,
+                       device=x.device)
     if _launch.begin(spec, x.device):
         with torch.cuda.device(x.device):
             rms_norm_bwd_triton.launches += 1

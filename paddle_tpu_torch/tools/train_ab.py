@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Training metrics and the linear-CE backward of one tree of the port, for
-A/B runs of two commits on one GPU.
+"""Training metrics, the linear CE and the RMSNorm backward of one tree of
+the port, for A/B runs of two commits on one GPU.
 
     python3 paddle_tpu_torch/tools/train_ab.py --root DIR
 
@@ -8,11 +8,13 @@ Imports ``chip_smoke`` and ``paddle_tpu_torch`` from the tree at ``DIR``
 (so the same script drives a checkout of another commit), builds the
 kernels the train step runs, then:
 
-- times the linear-CE backward at the train step's shape (T 4096, D 4096,
-  V 32000, bf16, untied head; inputs from a fixed seed, L2 flushed,
-  ``chip_smoke.cold_ms``): the dx call, the dh call as ``LinearCE`` makes
-  it (over the P dx's call keeps, where the tree's wrappers take one) and
-  the pair;
+- times the linear CE at the train step's shape (T 4096, D 4096, V
+  32000, bf16, untied head; inputs from a fixed seed, L2 flushed,
+  ``chip_smoke.cold_ms``): the forward, over the untied and the tied head
+  (the embedding [V, D] seen transposed); the backward's dx call, the dh
+  call as ``LinearCE`` makes it (over the P dx's call keeps, where the
+  tree's wrappers take one) and the pair;
+- times the RMSNorm backward at [4096, 4096] bf16;
 - runs ``chip_smoke.train_phase`` on the default route (the 1.07B rung,
   batch 2 x 2048): step ms, MFU, peak memory and the profiled step's
   device ms by group, the CE group being the three ``linear_ce_*``
@@ -45,6 +47,7 @@ def main():
     import chip_smoke as cs
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import fused_train as kft
+    from paddle_tpu_torch.ops.kernels import norms as kn
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -59,6 +62,18 @@ def main():
         torch.bfloat16)
     lab = torch.randint(0, V, (T,), generator=gen, device="cuda")
     coef = torch.tensor([1.0 / T], device="cuda")
+    emb = (torch.randn(V, D, generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    fwd = {"untied_ms": cs.cold_ms(lambda: kft.linear_ce_fwd_cuda(
+        x, head, lab), iters=10),
+        "tied_ms": cs.cold_ms(lambda: kft.linear_ce_fwd_cuda(
+            x, emb.T, lab), iters=10)}
+    del emb
+    g = torch.randn(T, D, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    rms = {"ms": cs.cold_ms(lambda: kn.rms_norm_bwd_triton(x, w, g, 1e-6))}
+    del g, w
     # nothing of this part stays allocated: the train phase's peak
     # counts what is live when it starts
     lse = kft.linear_ce_fwd_cuda(x, head, lab)[0]
@@ -88,7 +103,8 @@ def main():
     torch.cuda.empty_cache()
     _, res = cs.train_phase(gpu, None)
     groups = res["profiled_step"]["by_group"]
-    out = {"root": root, "gpu": gpu, "ce_backward": ce,
+    out = {"root": root, "gpu": gpu, "ce_forward": fwd, "ce_backward": ce,
+           "rms_norm_bwd": rms,
            "train": {k: res[k] for k in (
                "step_ms_mean", "wall_ms_per_step", "tokens_per_sec", "mfu",
                "peak_memory_gb")},

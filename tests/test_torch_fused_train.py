@@ -99,6 +99,77 @@ def test_rms_bwd_ref_matches_pallas_kernel(shape, bf16):
         _close(a, b, bf16, F32_RES)
 
 
+def _rms_bwd_model(x, w, g, eps=EPS):
+    """The RMSNorm backward as the Triton kernels partition it: dx per row
+    (op for op ``rms_bwd_ref``), each program's f32 dw partial summed over
+    its rows in its order, then the partials' chunk-order combine."""
+    xf, gf = x.float(), g.float()
+    inv = torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    xhat = xf * inv
+    nprog, parts = tnorms.rms_bwd_partition(x.shape[0])
+    part = torch.zeros(nprog, x.shape[1])
+    for p, rows in enumerate(parts):
+        for r in rows:
+            part[p] += gf[r] * xhat[r]
+    dx, _ = tnorms.rms_bwd_ref(eps, (x, w), g)
+    return dx, tnorms.rms_dw_combine_ref(part, w.dtype), part
+
+
+@pytest.mark.parametrize("rows,d,bf16", [(70, 48, False), (300, 40, False),
+                                         (600, 64, True), (5, 33, True)])
+def test_rms_bwd_partition_model_matches_ref_and_pallas_kernel(rows, d, bf16):
+    """More rows than the 264 programs (300, 600: programs of two or three
+    rows, the 264 partial rows combined in three chunks of 128), fewer (5,
+    70), D never a power of two: the model of the kernels' partition and
+    combine order against ``rms_bwd_ref`` and the JAX kernel
+    (``rms_norm_bwd_pallas``, interpret) on the same inputs, at the
+    module's RMSNorm-backward tolerance (f32 2e-5; bf16 two ulps)."""
+    rng = np.random.RandomState(rows + d)
+    x, g = rng.randn(rows, d), rng.randn(rows, d)
+    w = 1 + 0.1 * rng.randn(d)
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+    tx, tw, tg = _t(x, td), _t(w, td), _t(g, td)
+    dx, dw, part = _rms_bwd_model(tx, tw, tg)
+    nprog = min(rows, 264)
+    assert part.shape == (nprog, d)
+    want = tnorms.rms_bwd_ref(EPS, (tx, tw), tg)
+    assert torch.equal(dx, want[0]) and dw.dtype == td
+    _close(dw, want[1], bf16, F32_RES)
+    jdx, jdw = jnorms.rms_norm_bwd_pallas(_j(x, jd), _j(w, jd), _j(g, jd),
+                                          EPS)
+    _close(dx, jdx, bf16, F32_RES)
+    _close(dw, jdw, bf16, F32_RES)
+
+
+@pytest.mark.parametrize("rows,d,dt", [(4096, 4096, "bfloat16"),
+                                       (4095, 4096, "bfloat16"),
+                                       (7, 1000, "bfloat16"),
+                                       (300, 16384, "float32"),
+                                       (24, 128, "float32"),
+                                       (1, 64, "bfloat16")])
+def test_rms_bwd_spec_covers_every_row_and_column_once(rows, d, dt):
+    """The partition gives each row to one program, in increasing order
+    within a program; min(rows, 264) programs (at least one); the dw sum
+    one program per 32 columns over chunks of 128 partial rows; the
+    partials [programs, D] f32; every row of x, g and dx and every column
+    of dw covered, clean under the gate's rules."""
+    from paddle_tpu_torch.analysis.kernel_rules import check_launch
+    nprog, parts = tnorms.rms_bwd_partition(rows)
+    assert nprog == max(1, min(rows, 264)) == len(parts)
+    seen = sorted(r for rows_p in parts for r in rows_p)
+    assert seen == list(range(rows))
+    assert all(rp == sorted(rp) for rp in parts)
+    sp = tnorms.rms_bwd_spec(rows, d, dt)
+    (g1, c1, w1), (g2, c2, w2) = sp.plan["launches"]
+    assert g1 == (nprog,) and c1 == {"BLOCK": 1 << (d - 1).bit_length()}
+    assert g2 == (-(-d // 32),) and c2 == {"ROWS": 128, "COLS": 32}
+    assert sp.plan["part"] == (nprog, d)
+    assert [c[0] for c in sp.calls] == ["_rms_bwd_kernel", "_dw_sum_kernel"]
+    assert check_launch(sp) == []
+    assert tnorms.rms_bwd_partition(0) == (1, [[]])
+
+
 @pytest.mark.parametrize("rows,d,bf16", [(37, 48, False), (16, 64, True)])
 def test_residual_rms_norm_fwd_ref_matches_pallas_kernel(rows, d, bf16):
     rng = np.random.RandomState(rows)
@@ -178,6 +249,165 @@ def test_ce_refs_match_pallas_kernels(t, d, v, bf16):
     assert gdx.dtype == gdh.dtype == td
     _close(gdx, dx, bf16)
     _close(gdh, dh, bf16)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forward (linear_ce.cu's wgmma tiles and their combine): the plain
+# model of its split
+# ---------------------------------------------------------------------------
+def _pallas_ce_fwd(x, head, lab, jd, bt=8, bv=128):
+    """The JAX forward kernel (``_ce_fwd_call``, interpret mode) on the
+    padded problem, as ``linear_ce_pallas`` pads it: (lse, pick) of the
+    first T rows."""
+    t, v = x.shape[0], head.shape[1]
+    tp, vp = -(-t // bt) * bt, -(-v // bv) * bv
+    x2 = jnp.pad(_j(x, jd), ((0, tp - t), (0, 0)))
+    hp = jnp.pad(_j(head, jd), ((0, 0), (0, vp - v)))
+    lab2 = jnp.asarray(np.pad(lab, (0, tp - t), constant_values=-1),
+                       jnp.int32).reshape(tp, 1)
+    lse, pick = jft._ce_fwd_call(x2, hp, lab2, v, bt, bv)
+    return lse[:t, 0], pick[:t, 0]
+
+
+@pytest.mark.parametrize("t,d,v,bf16,tied,ignore_all", [
+    (37, 32, 131, False, False, False),     # one partial vocab tile
+    (26, 32, 97, True, False, False),
+    (40, 48, 600, False, True, False),      # three tiles, the tied layout
+    (24, 32, 520, True, True, False),       # 8 columns in the last tile
+    (19, 48, 300, True, False, True)])      # every label ignored
+def test_ce_fwd_stats_model_matches_ref_and_pallas_kernel(t, d, v, bf16, tied,
+                                                         ignore_all):
+    """The bf16 forward's split, plainly: each vocab tile of 256 columns
+    reduced to (m, l, pick) per token, then the combine in the kernel's
+    order (8 strands of tiles, then the strands in order), against the
+    dense ``ce_fwd_ref`` and the JAX kernel (``_ce_fwd_call``, interpret)
+    on the same inputs: f32 1e-5 (the module's tolerance; both compute in
+    f32 from the same bf16 operands). V is never a multiple of 256, one
+    label sits in the last, partial tile; the tied head is the embedding
+    [V, D] seen transposed."""
+    x, head, lab = _ce_inputs(t + v, t, d, v, ignore_all=ignore_all)
+    if not ignore_all:
+        lab[-1] = v - 1
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+    tx, tl_ = _t(x, td), torch.from_numpy(lab)
+    th = _t(head.T, td).T if tied else _t(head, td)
+    part = kft.ce_fwd_stats_ref(tx, th, tl_)
+    nvt = kft.ce_vtiles(v)
+    assert part.shape == (3, nvt, t) and nvt == -(-v // 256)
+    m, l, pick = part
+    assert bool(torch.isfinite(m).all()) and bool((l >= 1.0).all())
+    s = tx.float() @ th.float()
+    for r in range(t):
+        tile = int(lab[r]) // 256
+        if lab[r] >= 0:
+            assert float(pick[tile, r]) == float(s[r, lab[r]])
+        others = [k for k in range(nvt) if lab[r] < 0 or k != tile]
+        assert not pick[others, r].any()
+    lse, got_pick = kft.ce_fwd_combine_ref(part)
+    want_lse, want_pick = kft.ce_fwd_ref(tx, th, tl_)
+    _close(lse, want_lse)
+    _close(got_pick, want_pick)
+    jlse, jpick = _pallas_ce_fwd(x, head, lab, jd)
+    _close(lse, jlse)
+    _close(got_pick, jpick)
+    if ignore_all:
+        assert not got_pick.any()
+
+
+def test_ce_fwd_combine_order():
+    """The combine's order on made-up stats: M the max of the m; strand k
+    sums tiles k, k + 8, ... in order; the strands add in order. Against a
+    direct loop in float64 and, for 19 tiles, bit for bit against the same
+    order written out in f32."""
+    rng = np.random.RandomState(3)
+    nvt, t = 19, 5
+    part = torch.from_numpy(np.stack([
+        rng.randn(nvt, t), rng.rand(nvt, t) * 40 + 1,
+        np.where(rng.rand(nvt, t) < 0.1, rng.randn(nvt, t), 0.0)])).float()
+    lse, pick = kft.ce_fwd_combine_ref(part)
+    m, l, pk = (a.double() for a in part)
+    M = m.max(0).values
+    np.testing.assert_allclose(
+        _np(lse), _np(M + torch.log((l * torch.exp(m - M)).sum(0))),
+        rtol=1e-6)
+    np.testing.assert_allclose(_np(pick), _np(pk.sum(0)), rtol=1e-6)
+    w = part[1] * torch.exp(part[0] - part[0].max(0).values)
+    strands = [sum((w[v] for v in range(k, nvt, 8)), torch.zeros(t))
+               for k in range(8)]
+    assert torch.equal(lse, part[0].max(0).values
+                       + torch.log(sum(strands, torch.zeros(t))))
+
+
+def _ce_forward_spec(T, D, V, dt=torch.bfloat16, tied=False):
+    from paddle_tpu_torch.ops.kernels import _launch
+    x = _meta(T, D, dtype=dt)
+    head = _meta(V, D, dtype=dt).T if tied else _meta(D, V, dtype=dt)
+    with _launch.capture_kernel_launches() as specs:
+        lse, pick = kft.linear_ce_fwd_cuda(x, head,
+                                           _meta(T, dtype=torch.int64))
+    assert lse.shape == pick.shape == (T,)
+    spec, = specs
+    return spec
+
+
+def test_forward_spec_at_the_training_shape():
+    """T 4096, D 4096, V 32000, bf16: 32 x 125 tiles of 128 x 256 on the
+    wgmma body, in the grouped order (the 32 tile rows walk each tile
+    column together), each tile once; partials [3, 125, 4096] f32 (6.1
+    MB); a combine of 128 blocks of 32 tokens; the P pass's ring (one
+    block of 384 threads an SM); 2 T D V + 3 T V operations, 1.086 ms at
+    the bf16 peak; clean under the gate's rules."""
+    from paddle_tpu_torch.analysis.kernel_rules import bound, check_launch
+    T, D, V = 4096, 4096, 32000
+    for tied in (False, True):
+        sp = _ce_forward_spec(T, D, V, tied=tied)
+        assert sp.plan["body"] == "wgmma" and sp.grid == (32 * 125,)
+        assert sp.params["head_layout"] == ("tied" if tied else "untied")
+        assert sp.params["staged"] == ()
+        assert sp.threads == kft.GEMM_THREADS and sp.blocks_per_sm == 1
+        assert sp.dyn_smem == kft.CE_P_SMEM and sp.static_smem == 0
+        assert sp.plan["tile"] == (128, 256) and sp.plan["group_m"] == 32
+        assert sp.plan["splits"] == kft.ce_vtiles(V) == 125
+        assert sp.plan["part"] == (3, 125, T)
+        assert sp.plan["part_bytes"] == 3 * 125 * T * 4 == 6_144_000
+        assert [(ph.name, ph.items) for ph in sp.phases] == [
+            ("tiles", 4000), ("combine", 128)]
+        assert check_launch(sp) == []
+        ms, by, nbytes, ops = bound(sp)
+        assert by == "operations" and ops == 2.0 * T * D * V + 3.0 * T * V
+        assert 1.08 < ms < 1.09
+    # the grouped order: block i's tile, every (m, n) once, the first 32
+    # blocks on tile column 0
+    tiles = [kft._grouped(i, 32, 125, 32) for i in range(4000)]
+    assert len({(int(m), int(n)) for m, n in tiles}) == 4000
+    assert {int(n) for _, n in tiles[:32]} == {0}
+    assert [int(m) for m, _ in tiles[:32]] == list(range(32))
+
+
+def test_forward_specs_staging_and_f32():
+    """V 32003: the untied head's rows (64006 bytes) are copied to aligned
+    rows first, the tied head's (rows of D) are read in place; 126 vocab
+    tiles, the last holding 3 columns. f32 keeps the CUDA-core tiles:
+    (64 x 128) blocks over ``ce_splits``' vocab splits, 256 threads, two
+    blocks an SM, the static tile buffer, the split combine."""
+    from paddle_tpu_torch.analysis.kernel_rules import check_launch
+    for tied, staged in ((False, ("head",)), (True, ())):
+        sp = _ce_forward_spec(4095, 4096, 32003, tied=tied)
+        assert sp.params["staged"] == staged
+        assert sp.plan["splits"] == 126 and sp.grid == (32 * 126,)
+        assert check_launch(sp) == []
+    T, D, V = 512, 4096, 32003
+    sp = _ce_forward_spec(T, D, V, dt=torch.float32)
+    tps, splits = kft.ce_splits(T, V, 4 * 132)
+    assert sp.plan["body"] == "cuda_core" and sp.grid == (8, splits)
+    assert sp.plan["tile"] == (kft.BT, kft.BV)
+    assert (sp.plan["tiles_per_split"], sp.plan["splits"]) == (tps, splits)
+    assert sp.plan["part"] == (3, splits, T) and sp.plan["smem"] == 0
+    assert sp.threads == 256 and sp.blocks_per_sm == 2
+    assert sp.static_smem == kft.CE_FWD_SMEM and sp.dyn_smem == 0
+    assert [ph.name for ph in sp.phases] == ["token_tiles", "combine"]
+    assert check_launch(sp) == []
 
 
 # ---------------------------------------------------------------------------
