@@ -2294,8 +2294,10 @@ def serving_phase(gpu, params, route):
                         "decode_attn_block")}
     m = eng.metrics()
     steps, chunks = m["decode_steps"], m["prefill_chunks"]
+    graph = graph_stats(captured(eng, route))
     emit({"phase": "serving", "route": route, "gpu": gpu,
           "model": "LLAMA_7B", "layers": L, "dtype": "bfloat16",
+          "decode_traces": m["decode_traces"], **graph,
           "weight_quant": wq, "cache_dtype": "int8" if kv8 else None,
           "pool_bytes": 2 * eng._k_pools.numel()
           * eng._k_pools.element_size(),
@@ -2631,6 +2633,8 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels, groups = _device_groups(prof, steps)
     device_ms = sum(ms for ms, _ in kernels.values())
+    # every decode step of the windows is a replay of the one graph
+    graph = graph_stats(captured(eng, route))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
     per_launch = {}
     launch_bytes = {}
@@ -2655,7 +2659,7 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
         per_launch[op] = {"bytes": nbytes, "bound_us": bound_us, "us": us,
                           "x_bound": us / bound_us}
     emit({"phase": "profile", "route": route, "gpu": gpu,
-          "prefill": prefill,
+          "prefill": prefill, "decode": "graph replays", **graph,
           "decode_steps": steps, "live_slots": eng.capacity,
           "live_tokens_mean": float(np.mean([sum(ls) for ls in lens])),
           "step_ms": round(step_ms, 3),
@@ -3084,8 +3088,10 @@ def tp_serving_phase(gpu, params, route):
     m = eng.metrics()
     steps, chunks = m["decode_steps"], m["prefill_chunks"]
     calib = m["calibration_traces"]
+    graph = graph_stats(captured(eng, route))
     emit({"phase": "serving", "route": route, "gpu": gpu,
           "model": "LLAMA_7B", "layers": L, "dtype": "bfloat16",
+          "decode_traces": m["decode_traces"], **graph,
           "mesh": m["mesh"], "devices": [str(d) for d in mesh.devices],
           "cache_dtype": cache, "construct_s": round(construct_s, 3),
           "pool_bytes": sum(2 * p.numel() * p.element_size()
@@ -3173,19 +3179,40 @@ def tp_serving_phase(gpu, params, route):
 
 @contextlib.contextmanager
 def recorded_logits():
-    """Every logits tensor the serving engine samples from (decode steps
-    and prefill chunks, in order), copied, while the block runs."""
+    """Every logits tensor the serving engine samples from, copied, in
+    order, while the block runs: a prefill chunk's as it samples, a
+    decode step's from the step's logits buffer after the step (its body
+    runs captured, so no Python sees its logits at replay)."""
     from paddle_tpu_torch.inference import serving
-    orig, seen = serving._sample_slots, []
+    cls = serving.ServingEngine
+    sample, body, run = (serving._sample_slots, cls._decode_body,
+                         cls._run_decode)
+    seen, in_body = [], [False]
 
     def record(logits, *a):
-        seen.append(logits.detach().clone())
-        return orig(logits, *a)
+        if not in_body[0]:
+            seen.append(logits.detach().clone())
+        return sample(logits, *a)
+
+    def decode_body(self):
+        in_body[0] = True
+        try:
+            return body(self)
+        finally:
+            in_body[0] = False
+
+    def run_decode(self):
+        did = run(self)
+        if did:
+            seen.append(self._d_logits.clone())
+        return did
     serving._sample_slots = record
+    cls._decode_body, cls._run_decode = decode_body, run_decode
     try:
         yield seen
     finally:
-        serving._sample_slots = orig
+        serving._sample_slots = sample
+        cls._decode_body, cls._run_decode = body, run
 
 
 def tp_parity_phase(gpu):
@@ -3296,6 +3323,209 @@ def tp_parity_phase(gpu):
                                  f"{runs[name]['decode_variant']}")
     del params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the captured decode step: every serving route's decode step replayed as
+# one CUDA graph, held against a twin engine whose every step runs the
+# uncaptured body
+# ---------------------------------------------------------------------------
+class EagerStep:
+    """A twin engine's decode step: its program's body, run eagerly at
+    every step (nothing captured)."""
+
+    def __init__(self, prog):
+        self.body = prog.body
+
+    def prepare(self):
+        pass
+
+    def __call__(self):
+        self.body()
+
+
+def eager_twin(eng):
+    """``eng``, its decode steps running its program's uncaptured body."""
+    build = eng._decode_program
+    eng._decode_program = lambda: EagerStep(build())
+    return eng
+
+
+def captured(eng, route):
+    """The engine's one decode program, which must have been captured
+    once (``decode_traces`` 1) and replayed at every decode step after
+    the first (the warm-up). Returns it."""
+    progs = list(eng._decode_fns.values())
+    steps = eng.counters["decode_steps"]
+    if (len(progs) != 1 or eng.counters["decode_traces"] != 1
+            or progs[0].graph is None or progs[0].replays != steps - 1):
+        raise AssertionError(
+            f"{route}: the decode step is not one replayed graph: "
+            f"{len(progs)} program(s), decode_traces "
+            f"{eng.counters['decode_traces']}, {steps} steps, replays "
+            f"{[p.replays for p in progs]}")
+    return progs[0]
+
+
+def graph_stats(prog):
+    return {"capture_s": round(prog.capture_s, 4),
+            "graph_nodes": prog.nodes, "replays": prog.replays}
+
+
+GRAPH_PARITY_ROUTES = {
+    **ROUTES, **QUANT_ROUTES,
+    "int4_two_stage": dict(ROUTES["two_stage"], weight_quant="int4"),
+    "kv8_default": KV8_ROUTES["kv8_default"],
+    "kv8_two_stage": KV8_ROUTES["kv8_two_stage"],
+    "tp1_psum": {"mesh": (1, "psum")}, "tp2_psum": {"mesh": (2, "psum")}}
+GRAPH_SERVING_ROUTES = ("default", "two_stage", "unfused", "kv8_default")
+# the routes whose sampled ids are held too, at the parity size
+GRAPH_SAMPLED = ("default", "two_stage", "unfused", "kv8_default")
+GRAPH_SEEDS = (0, 1)
+
+
+def _graph_engine(params, cfg, route, routes, engine_kw, seed):
+    from paddle_tpu_torch.inference import ServingEngine, ServingMesh
+    kw = dict(routes[route])
+    if "mesh" in kw:
+        tp, coll = kw.pop("mesh")
+        kw["mesh"] = ServingMesh.make(tp, collective=coll,
+                                      devices=["cuda:0"] * tp)
+    return ServingEngine(params, cfg, seed=seed, **engine_kw, **kw)
+
+
+def _graph_run(eng, prompts, gens):
+    """The requests through ``eng``: (ids, launches, launches by class)."""
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    reqs = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+    eng.drain()
+    torch.cuda.synchronize()
+    return ([r.tokens for r in reqs], kernels.launches(),
+            kernels.launches_by_class())
+
+
+def _pools_equal(a, b):
+    """The engines' pools byte for byte, but scratch page 0 (the inactive
+    slots' and pad rows' duplicate writes land there, in no fixed
+    order)."""
+    import torch
+    pa = a._k_pools if isinstance(a._k_pools, list) else [a._k_pools]
+    pb = b._k_pools if isinstance(b._k_pools, list) else [b._k_pools]
+    va = a._v_pools if isinstance(a._v_pools, list) else [a._v_pools]
+    vb = b._v_pools if isinstance(b._v_pools, list) else [b._v_pools]
+    return all(torch.equal(x[:, 1:], y[:, 1:])
+               for x, y in zip(pa + va, pb + vb))
+
+
+def _tickets_zero():
+    """Whether every ticket counter of the weight ring reads zero."""
+    from paddle_tpu_torch.ops.kernels import fused_decode_block as fdb
+    return all(not bool(t.any()) for t in fdb._TICKETS.values())
+
+
+def graph_phase(gpu, size, params=None):
+    """The captured decode step against its eager twin. ``size``
+    "parity": LLaMA-7B widths, 2 layers, f32, the parity phase's 5
+    requests through 2 slots, on every route of GRAPH_PARITY_ROUTES
+    (default, two-stage, unfused; int8 and int4 weights on the default and
+    two-stage routes; int8 pools on both; tp=1 and colocated tp=2
+    "psum"); "serving": the serving phase's size (32 layers, bf16, 8
+    slots, its 12 requests, over ``params``, the serving phases' tree) on
+    GRAPH_SERVING_ROUTES. Each engine runs
+    beside a twin built with the same seed and parameters whose every
+    decode step calls the uncaptured body (:func:`eager_twin`): greedy ids
+    equal, pools byte-equal after the drain (but scratch page 0), launch
+    counts (and by class) equal, ``decode_traces`` 1 with every step after
+    the first a replay, the weight ring's tickets zero after the drain; at
+    the parity size on GRAPH_SAMPLED also sampled ids (temperature 0.8,
+    seeds 0 and 1) equal to the twin's for the same seed. Prints each
+    route's capture seconds, graph nodes and both engines' step ms."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.inference import GenerationConfig
+    from paddle_tpu_torch.models import LLAMA_7B, init_params
+    if size == "parity":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = dataclasses.replace(LLAMA_7B, num_hidden_layers=2,
+                                  dtype=torch.float32)
+        params = init_params(cfg, seed=1)
+        specs = [(5, 6), (40, 4), (300, 5), (17, 3), (129, 5)]
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, S).astype(np.int32)
+                   for S, _ in specs]
+        news = [N for _, N in specs]
+        engine_kw = dict(capacity=2, block_size=16, max_seq_len=512,
+                         prefill_buckets=(32, 128))
+        routes, sampled = GRAPH_PARITY_ROUTES, GRAPH_SAMPLED
+    else:
+        cfg = LLAMA_7B
+        rng = np.random.default_rng(0)
+        lens = rng.integers(40, 601, SERVE_REQUESTS)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+                   for n in lens]
+        news = [SERVE_NEW] * len(prompts)
+        engine_kw = dict(capacity=8, block_size=16, max_seq_len=1024,
+                         prefill_buckets=(32, 128))
+        routes = {r: ALL_ROUTES[r] for r in GRAPH_SERVING_ROUTES}
+        sampled = ()
+    greedy = [GenerationConfig(max_new_tokens=N, greedy=True) for N in news]
+    out, bad = {}, []
+    t0 = time.perf_counter()
+    for route in routes:
+        runs = {}
+        for seed, gens in [(0, greedy)] + [
+                (sd, [GenerationConfig(max_new_tokens=N, temperature=0.8)
+                      for N in news])
+                for sd in (GRAPH_SEEDS if route in sampled else ())]:
+            pair = []
+            for twin in (False, True):
+                eng = _graph_engine(params, cfg, route, routes, engine_kw,
+                                    seed)
+                if twin:
+                    eager_twin(eng)
+                ids, counts, by_class = _graph_run(eng, prompts, gens)
+                pair.append((eng, ids, counts, by_class,
+                             eng.metrics()["decode_step_ms_mean"]))
+            (g, ids, counts, by_class, ms), (t, t_ids, t_counts,
+                                             t_by_class, t_ms) = pair
+            key = "greedy" if gens is greedy else f"sampled_seed{seed}"
+            res = {"ids_equal": ids == t_ids,
+                   "launches_equal": counts == t_counts
+                   and by_class == t_by_class,
+                   "pools_equal": _pools_equal(g, t),
+                   "tickets_zero": _tickets_zero(),
+                   "decode_traces": g.counters["decode_traces"],
+                   "twin_decode_traces": t.counters["decode_traces"],
+                   "decode_steps": g.counters["decode_steps"],
+                   "step_ms": ms, "twin_step_ms": t_ms}
+            try:
+                res.update(graph_stats(captured(g, route)))
+            except AssertionError as e:
+                res["captured"] = str(e)
+                bad.append((route, key, "captured"))
+            for k in ("ids_equal", "launches_equal", "pools_equal",
+                      "tickets_zero"):
+                if not res[k]:
+                    bad.append((route, key, k))
+            if res["twin_decode_traces"] != 0:
+                bad.append((route, key, "twin captured"))
+            if key == "greedy":
+                res["launches"] = {k: v for k, v in counts.items() if v}
+            runs[key] = res
+            del pair, g, t
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[route] = runs
+    emit({"phase": "graph", "size": size, "gpu": gpu,
+          "dtype": str(cfg.dtype).replace("torch.", ""),
+          "layers": cfg.num_hidden_layers, "routes": out,
+          "failed": [list(b) for b in bad],
+          "seconds": round(time.perf_counter() - t0, 1)})
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"graph phase ({size}): {bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -5084,6 +5314,9 @@ def main():
         parity_phase(gpu, wq)
     kv8_parity_phase(gpu)
     tp_parity_phase(gpu)
+    # this slice's main path: every route's decode step captured once and
+    # replayed, against an eager twin, at the parity size
+    graph_phase(gpu, "parity")
     params = init_params(LLAMA_7B, seed=0)
     counts, tokens = {}, {}
     prompts = None
@@ -5102,6 +5335,8 @@ def main():
         profile_phase(gpu, eng, route)
         del eng
     routes_phase(gpu, params, prompts, tokens)
+    # and at the serving size, on the serving phases' tree
+    graph_phase(gpu, "serving", params)
     audit_phase(gpu, {"serving_default": (serving_specs, counts["default"]),
                       "train_default": (train_specs, train_counts)})
     del serving_specs, train_specs

@@ -6,7 +6,9 @@ tiny and flagship shape classes of :mod:`.kernel_catalog`, evaluates the
 tile maps over every work item and proves grid coverage
 (GRID_FLOOR_DROP), tile bounds (OOB_BLOCK), write injectivity
 (WRITE_RACE), the shared-memory budget (SMEM_OVERCOMMIT) and the ctypes
-and Triton signatures (ARG_MISMATCH). Findings diff against the
+and Triton signatures (ARG_MISMATCH); and the registry lint
+(DISPATCH_KEY_GAP) over every registered op's ``supports()`` predicates
+against its declared program-key coverage. Findings diff against the
 baseline beside this module, as ``tools/kernel_audit.py`` does for the
 JAX package: new findings fail the gate. No card is needed.
 
@@ -68,7 +70,8 @@ def main(argv=None) -> int:
     from .kernel_catalog import (KERNEL_CASE_NAMES, audit_kernels,
                                  build_demo_kernel_regression)
     if args.list:
-        print("\n".join(KERNEL_CASE_NAMES + ("flop_formulas",)))
+        print("\n".join(KERNEL_CASE_NAMES
+                         + ("flop_formulas", "kernel_registry")))
         return 0
     if args.write_baseline and args.demo_regression:
         print("[kernel-audit] refusing --write-baseline with "

@@ -26,6 +26,11 @@ equal to the JAX catalog's at the cases the two share);
 pairs of one segment, live lengths), the operations half of
 :func:`.kernel_rules.bound`.
 
+:func:`audit_kernel_registry` runs the registry lint (``DISPATCH_KEY_GAP``,
+:func:`.kernel_rules.dispatch_key_rule`) over every registered op at its
+flagship meta (:func:`lint_metas`); :func:`audit_kernels` includes it as
+the ``kernel_registry`` program.
+
 :func:`build_demo_kernel_regression` audits the deliberate regression
 specimen (``demo_prefix_mlp_block``: decode_mlp_block's kernel under a
 floor-divided tile count that drops the last intermediate columns), never
@@ -42,11 +47,12 @@ import numpy as np
 import torch
 
 from .auditor import AuditReport
-from .kernel_rules import check_launch
+from .kernel_rules import check_launch, dispatch_key_rule
 from .rules import Finding
 
 __all__ = ["KernelCase", "kernel_cases", "capture_case", "audit_case",
-           "audit_kernels", "build_demo_kernel_regression",
+           "audit_kernels", "audit_kernel_registry", "lint_metas",
+           "build_demo_kernel_regression",
            "ALL_KERNEL_NAMES", "KERNEL_CASE_NAMES", "FLOP_FORMULAS",
            "modeled_flops", "needed_flops", "flop_formula_findings",
            "DEMO_SHAPE", "SEGMENT_SHAPE", "capture_segment_skip",
@@ -859,29 +865,89 @@ def audit_case(case: KernelCase) -> AuditReport:
     return audit_specs(specs, case.name, case.kernels)
 
 
+def lint_metas() -> Dict[str, dict]:
+    """A flagship meta for each registered op, from the same meta builders
+    its call sites use (so the lint reads the real key set): the serving
+    shapes (8 slots at LLaMA-7B widths, bf16, 128-row chunks) and the train
+    rung's (4096 tokens at D 4096, vocab 32000)."""
+    from ..ops.flash_attention import flash_meta
+    from ..ops.fused_train import ce_meta, swiglu_meta
+    from ..ops.kernels.fused_adamw import adamw_meta
+    from ..ops.kernels.fused_decode_block import decode_meta_dims
+    from ..ops.kernels.fused_prefill_block import prefill_meta_dims
+    from ..ops.kernels.norms import rms_bwd_meta
+    bf16 = torch.bfloat16
+    decode = decode_meta_dims(_B, _D, _H, _H, _HD, _F, _BS, _MB, bf16, bf16,
+                              False)
+    prefill = prefill_meta_dims(128, _D, _H, _H, _HD, _F, _BS, _MB, bf16,
+                                bf16, False)
+    q = torch.empty(2, 2048, _H, _HD, dtype=bf16, device="meta")
+    flash = dict(flash_meta(q, q, True), device="cuda")
+    return {
+        "decode_attn_block": decode, "decode_mlp_block": decode,
+        "decode_block_fused": decode, "prefill_attn_block": prefill,
+        "prefill_mlp_block": prefill, "flash_attention": flash,
+        "fused_linear_ce": ce_meta(4096, _D, 32000, bf16, "cuda"),
+        "fused_swiglu": swiglu_meta(4096, _F, bf16, "cuda"),
+        "rms_norm_bwd": rms_bwd_meta(4096, _D, bf16, "cuda"),
+        "rms_norm_residual": rms_bwd_meta(4096, _D, bf16, "cuda"),
+        "fused_adamw": adamw_meta(_NPARAM, torch.float32, torch.float32,
+                                  True, "cuda"),
+    }
+
+
+def audit_kernel_registry(registry=None) -> AuditReport:
+    """The DISPATCH_KEY_GAP lint over every op of ``registry`` (the port's
+    ``KERNELS``) at :func:`lint_metas`. An op without a lint meta is
+    itself a finding: a new op teaches the gate its shape class."""
+    from ..ops.kernels.registry import KERNELS
+    registry = KERNELS if registry is None else registry
+    report = AuditReport(program="kernel_registry",
+                         rules_run=["dispatch_key"])
+    metas = lint_metas()
+    for op in registry.ops():
+        if op not in metas:
+            report.findings.append(Finding(
+                rule="kernel_geometry", code="DISPATCH_KEY_GAP",
+                severity="error", program="kernel_registry",
+                site=f"{op}:no-sample",
+                message=(f"registered kernel op {op!r} has no lint meta in "
+                         "the kernel catalog: its supports() reads cannot "
+                         "be held against its declared program-key "
+                         "coverage"),
+                detail={"op": op}))
+            continue
+        report.findings.extend(dispatch_key_rule(
+            registry, op, metas[op], program="kernel_registry"))
+    report.meta["ops"] = registry.ops()
+    return report
+
+
 def audit_kernels(names: Optional[List[str]] = None) -> List[AuditReport]:
     """Audit the catalog (every case, or the ``op`` / ``op@case``
-    subset), plus the FLOP-formula coverage. A name the catalog does not
-    know raises ValueError instead of gating nothing."""
+    subset), plus the FLOP-formula coverage and the registry lint
+    (``kernel_registry``). A name the catalog does not know raises
+    ValueError instead of gating nothing."""
     cases = kernel_cases()
-    formulas = True
+    extra = {"flop_formulas", "kernel_registry"}
     if names is not None:
         wanted = set(names)
-        known = ({c.name for c in cases} | {c.op for c in cases}
-                 | {"flop_formulas"})
+        known = {c.name for c in cases} | {c.op for c in cases} | extra
         unknown = wanted - known
         if unknown:
             raise ValueError(f"unknown kernel case(s): {sorted(unknown)}; "
                              f"known: {sorted(known)}")
         cases = [c for c in cases if c.name in wanted or c.op in wanted]
-        formulas = "flop_formulas" in wanted
+        extra &= wanted
     reports = [audit_case(c) for c in cases]
-    if formulas:
+    if "flop_formulas" in extra:
         rep = AuditReport(program="flop_formulas",
                           rules_run=["flop_formulas"])
         rep.findings.extend(flop_formula_findings())
         rep.meta["registered"] = sorted(FLOP_FORMULAS)
         reports.append(rep)
+    if "kernel_registry" in extra:
+        reports.append(audit_kernel_registry())
     return reports
 
 

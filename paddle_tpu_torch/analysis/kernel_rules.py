@@ -36,9 +36,12 @@ this card, what the JAX rules prove for a Pallas grid:
   launch against the kernel function's signature (read from the module,
   which imports without ``triton``).
 
-The registry lint ``DISPATCH_KEY_GAP`` checks a program cache's key; the
-port keys no program cache (it dispatches per call), so the lint comes
-with the captured decode step (``ROADMAP.md`` A5(b)).
+The registry lint ``DISPATCH_KEY_GAP`` (:func:`dispatch_key_rule`) checks
+a program's key: every meta key that a variant's ``supports()`` reads must
+be covered by the op's ``KERNELS.declare_cache_key`` declaration, or a
+changed value would replay a program built under the other dispatch (the
+serving engine's captured decode step keys its CUDA graph by the pins and
+is built for the shapes its engine fixes).
 
 :func:`modeled_launch_bytes` and :func:`bound` are the one model of what a
 launch must move and do: each input byte read once and each output byte
@@ -53,6 +56,7 @@ import functools
 import importlib
 import inspect
 import re
+from collections.abc import Mapping
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -62,8 +66,8 @@ from ..ops.kernels import _launch
 from .rules import Finding
 
 __all__ = ["KERNEL_RULE_CODES", "check_launch", "modeled_launch_bytes",
-           "bound", "c_launchers", "launchers_in", "HBM_BYTES_PER_S",
-           "PEAK_OPS_PER_S"]
+           "bound", "c_launchers", "launchers_in", "dispatch_key_rule",
+           "HBM_BYTES_PER_S", "PEAK_OPS_PER_S"]
 
 KERNEL_RULE_CODES = ("GRID_FLOOR_DROP", "OOB_BLOCK", "WRITE_RACE",
                      "SMEM_OVERCOMMIT", "ARG_MISMATCH")
@@ -508,3 +512,87 @@ def bound(spec, seq_lens: Optional[Sequence[int]] = None, segments=None):
     t_ops = ops / PEAK_OPS_PER_S[spec.dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops)
+
+
+# -- the registry lint ----------------------------------------------------
+
+
+class _RecordingMeta(Mapping):
+    """A meta that records every key a ``supports()`` predicate (or what it
+    calls) reads. A membership test counts as a read, and any iteration or
+    copy (``dict(meta)``, ``{**meta}``, ``items()``) as reading every key.
+    Not a dict subclass: ``dict(subclass)`` skips overridden methods,
+    while copying a Mapping goes through the recorded protocol."""
+
+    def __init__(self, data):
+        self._data = dict(data)
+        self.accessed = set()
+
+    def __getitem__(self, k):
+        self.accessed.add(k)
+        return self._data[k]
+
+    def get(self, k, default=None):
+        self.accessed.add(k)
+        return self._data.get(k, default)
+
+    def __contains__(self, k):
+        self.accessed.add(k)
+        return k in self._data
+
+    def __iter__(self):
+        self.accessed.update(self._data)
+        return iter(self._data)
+
+    def __len__(self):
+        return len(self._data)
+
+
+def dispatch_key_rule(registry, op: str, meta: Dict,
+                      program: str = "kernel_registry") -> List[Finding]:
+    """``DISPATCH_KEY_GAP`` (port of the JAX gate's rule): run every
+    variant's ``supports()`` of ``op`` over ``meta`` and flag each meta key
+    it reads that the op's declared program-key coverage
+    (``registry.declare_cache_key``) does not include; an op that never
+    declared its coverage, and a predicate that raises, are findings too.
+    A ``supports()`` read is an input of dispatch: a program (the serving
+    engine's captured decode step) whose key does not cover it would
+    replay the route chosen under another value."""
+    decl = registry.cache_key_decl(op)
+    if decl is None:
+        return [_finding(program, "DISPATCH_KEY_GAP", f"{op}:undeclared",
+                         f"kernel op {op!r} has supports() dispatch but no "
+                         "declare_cache_key() coverage: the lint cannot "
+                         "show that its callers' program keys cover every "
+                         "dispatch input", {"op": op})]
+    fields, covers = decl
+    fieldset = set(fields)
+    out: List[Finding] = []
+    for variant in registry.variants(op):
+        if variant.supports is None:
+            continue
+        rec = _RecordingMeta(meta)
+        try:
+            variant.supports(rec)
+        except Exception as e:  # noqa: BLE001 - a raising predicate is a bug
+            out.append(_finding(
+                program, "DISPATCH_KEY_GAP", f"{op}/{variant.name}:raised",
+                f"supports() of {op}/{variant.name} raised "
+                f"{type(e).__name__}: {e}",
+                {"op": op, "variant": variant.name,
+                 "exception": type(e).__name__}))
+            continue
+        gap = sorted(k for k in rec.accessed
+                     if k not in fieldset and covers.get(k) not in fieldset)
+        if gap:
+            out.append(_finding(
+                program, "DISPATCH_KEY_GAP", f"{op}/{variant.name}",
+                f"supports() of {op}/{variant.name} reads meta key(s) "
+                f"{gap} that the op's declared program-key coverage does "
+                "not include: a changed value would flip dispatch without "
+                "a new program; add the key to the caller's program key "
+                "and to declare_cache_key()",
+                {"op": op, "variant": variant.name, "gap": gap,
+                 "accessed": sorted(rec.accessed),
+                 "declared": sorted(fieldset)}))
+    return out

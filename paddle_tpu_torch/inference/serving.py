@@ -78,19 +78,41 @@ bodies, the unfused routes dequantize before each product;
 The prefix cache, host offload, observability and telemetry come with
 later slices: their constructor arguments raise here.
 
+THE DECODE PROGRAM (the JAX engine's ``_make_decode_fn``, one jitted step
+a dispatch): the step's carried state is fixed buffers on the engine's
+device (the next tokens, the lengths, the tables, the temperatures, the
+logits), allocated once; a change on the host is copied into them, and
+the step writes its next tokens and lengths back into them, as
+``_DECODE_CARRY`` maps the JAX step's outputs to its arguments. On CUDA
+the first decode step runs the step's body eagerly on a stream the engine
+owns (the warm-up: kernels built, Triton compiled, the weight ring's
+tickets and partials allocated for that stream), the second captures the
+body as one CUDA graph and replays it, every later step replays it: one
+``cudaGraphLaunch`` a step, sampling included (the engine's generator is
+registered with the graph, so every replay draws fresh noise). On the
+CPU the body runs eagerly over the same buffers. The graph is keyed by
+the registry's force pins (``KERNELS.forced_state()``, in "auto" mode);
+every other input of dispatch is fixed when the engine is built. A
+replay adds the launches its capture made to the kernels' counts and
+reports their plans to an active ``capture_kernel_launches``. A mesh
+whose shards sit on more than one card is refused: one graph runs on
+one card. Prefill chunks run eagerly.
+
 ``metrics()`` has the JAX engine's keys (observability off, one device)
-plus ``decode_step_ms_mean``. The port runs eagerly, so its
-``decode_traces`` and ``prefill_traces`` count how often a step's route is
-resolved and its kernels built (1 for the decode step, at most 1 per
-prefill bucket), and ``calibration_traces`` counts the int8 cache's
-calibrations (one an engine); the offload counters and the spill and
-restore bytes stay 0 until the host tier is ported. ``roofline`` models
-each decode route's bytes a step against the H100's memory rate
-(``observability/roofline.py``), with 1-byte pools for the int8 cache.
+plus ``decode_step_ms_mean``. ``decode_traces`` counts the decode
+program's captures on CUDA (as ``jax.jit`` traces once: 1 an engine) and
+its builds on the CPU (1); ``prefill_traces`` counts how often a bucket's
+chunk route is resolved (at most 1 per bucket) and ``calibration_traces``
+the int8 cache's calibrations (one an engine); the offload counters and
+the spill and restore bytes stay 0 until the host tier is ported.
+``roofline`` models each decode route's bytes a step against the H100's
+memory rate (``observability/roofline.py``), with 1-byte pools for the
+int8 cache.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -125,6 +147,93 @@ def _sample_slots(logits, generator, temps):
              + _gumbel(logits.shape, generator, logits.device))
     sampled = torch.argmax(noisy, dim=-1)
     return torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
+
+
+def _graph_nodes(graph) -> int:
+    """The node count of a captured CUDA graph (kept with ``keep_graph``),
+    read through libcuda's ``cuGraphGetNodes``."""
+    import ctypes
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return n.value
+
+
+class _DecodeProgram:
+    """One decode step as a program (the JAX engine's ``jax.jit`` of its
+    step): ``body`` reads and writes only the engine's fixed buffers.
+
+    On the CPU each call runs ``body``. On CUDA the first call runs it
+    eagerly on the engine's ``stream`` (the warm-up, a real step: the
+    kernels are built, Triton compiles, cuBLAS sets its workspace and the
+    weight ring allocates its tickets and partials for that stream);
+    :meth:`prepare` before the second call captures it on that stream as a
+    CUDA graph with a memory pool of its own (the ring's tickets zeroed
+    first, outside the graph; the engine's generator registered, so every
+    replay draws fresh noise and capturing draws none), and every call
+    from then on is one replay, on the caller's stream. Capturing runs no
+    kernel, so it counts nothing: the launches and the plans its wrappers
+    recorded are kept (``launches``, ``specs``) and added to the counts,
+    and reported to an active ``capture_kernel_launches``, at each replay.
+    A capture that fails raises with CUDA's error."""
+
+    def __init__(self, body, device, stream, generator, counters):
+        self.body = body
+        self.device = device
+        self._stream = stream
+        self._gen = generator
+        self._counters = counters
+        self._warm = False
+        self.graph = None
+        self.replays = 0
+        self.launches: Dict = {}       # what one replay launches
+        self.specs: List = []          # the plans of those launches
+        self.capture_s: Optional[float] = None
+        self.nodes: Optional[int] = None
+        self._keep: Tuple = ()         # the ring buffers the graph reads
+
+    def prepare(self):
+        """Capture the body once its warm-up has run (CUDA only)."""
+        if self.graph is None and self._warm:
+            self._capture()
+
+    def __call__(self):
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+            from ..ops import kernels
+            from ..ops.kernels import _launch
+            kernels.add_launches(self.launches)
+            _launch.report(self.specs)
+        elif self.device.type == "cuda":
+            main = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                self.body()
+            main.wait_stream(self._stream)
+            self._warm = True
+        else:
+            self.body()
+
+    def _capture(self):
+        from ..ops import kernels
+        from ..ops.kernels import _launch
+        from ..ops.kernels.fused_decode_block import ring_buffers
+        t0 = time.perf_counter()
+        self._keep = ring_buffers(self.device, self._stream.cuda_stream)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.register_generator_state(self._gen)
+        with kernels.launches_apart() as launches, \
+                _launch.capture_kernel_launches(isolated=True) as specs:
+            with torch.cuda.graph(graph, stream=self._stream):
+                self.body()
+        graph.instantiate()
+        self.nodes = _graph_nodes(graph)
+        self.graph, self.launches, self.specs = graph, launches, specs
+        self.capture_s = time.perf_counter() - t0
+        self._counters["decode_traces"] += 1
 
 
 def _not_ported(arg: str, value, what: str):
@@ -324,19 +433,36 @@ class ServingEngine:
         self._requests: List[Request] = []
         self._next_id = 0
         self._slot_tables = np.zeros((C, MB), np.int32)
-        # decode inputs (host mirrors). Mid-prefill slots keep table 0 /
-        # seq 0 here: their decode write must hit scratch.
-        self._h_tok = np.zeros((C,), np.int32)
-        self._h_seq = np.zeros((C,), np.int32)
-        self._h_tables = np.zeros((C, MB), np.int32)
-        self._h_temps = np.zeros((C,), np.float32)
+        # the decode program's inputs: fixed buffers on the device, each
+        # with its host mirror (pinned on CUDA; the _h_* arrays are numpy
+        # views of them), copied in when the host changes them (_dirty).
+        # Mid-prefill slots keep table 0 / seq 0 here: their decode write
+        # must hit scratch.
+        pin = self.device.type == "cuda"
+        shapes = {"tok": ((C,), torch.int32), "seq": ((C,), torch.int32),
+                  "tables": ((C, MB), torch.int32),
+                  "temps": ((C,), torch.float32)}
+        self._host_carry = {k: torch.zeros(sh, dtype=dt, pin_memory=pin)
+                            for k, (sh, dt) in shapes.items()}
+        self._h_tok, self._h_seq, self._h_tables, self._h_temps = (
+            self._host_carry[k].numpy() for k in shapes)
+        self._d_tok, self._d_seq, self._d_tables, self._d_temps = (
+            torch.zeros(sh, dtype=dt, device=self.device)
+            for sh, dt in shapes.values())
+        # the step's logits [C, V], in the model's type (sampled from here)
+        self._d_logits = torch.zeros((C, cfg.vocab_size), dtype=cfg.dtype,
+                                     device=self.device)
         self._dirty = True
-        self._d_tok = self._d_seq = self._d_tables = self._d_temps = None
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(seed))
-        # the JAX engine's counters; *_traces count route resolutions and
-        # calibrations (module docstring), the offload ones stay 0 without
-        # a host tier
+        # the decode programs by key (_decode_key) and, on CUDA, the stream
+        # their warm-up and capture run on
+        self._decode_fns: Dict[Tuple, _DecodeProgram] = {}
+        self._stream = (torch.cuda.Stream(self.device) if pin else None)
+        # the JAX engine's counters; decode_traces counts the decode
+        # program's captures (builds on the CPU), the other *_traces route
+        # resolutions and calibrations (module docstring), the offload ones
+        # stay 0 without a host tier
         self.counters = {
             "decode_traces": 0, "prefill_traces": {},
             "calibration_traces": 0, "decode_steps": 0,
@@ -348,8 +474,8 @@ class ServingEngine:
             "offload_traces": 0, "kv_spill_bytes": 0,
             "kv_restore_bytes": 0,
         }
-        # the decode and prefill variants, captured at the first decode
-        # step and the first fused chunk
+        # the decode and prefill variants, recorded when the decode program
+        # is built and at the first fused chunk
         self._decode_variant: Optional[Dict] = None
         self._prefill_variant: Optional[Dict] = None
         self._decode_ms = 0.0          # summed decode-step time
@@ -367,11 +493,20 @@ class ServingEngine:
                                for P in self.buckets}
 
     def _check_mesh(self, cfg, wq):
-        """The JAX engine's refusals under a mesh, with its reasons: a
-        quantized tree over tp > 1, a model the mesh cannot split, the
-        "pallas" decode pin under "gather", the "block" pin under any mesh
-        and the "pallas" prefill pin where the chunk cannot be fused."""
+        """The refusals under a mesh, with their reasons: shards on more
+        than one device (the decode step is one CUDA graph); and the JAX
+        engine's: a quantized tree over tp > 1, a model the mesh cannot
+        split, the "pallas" decode pin under "gather", the "block" pin
+        under any mesh and the "pallas" prefill pin where the chunk cannot
+        be fused."""
         sm = self._mesh
+        if len(set(sm.devices)) > 1:
+            raise ValueError(
+                f"ServingEngine(mesh=...): shards on {len(set(sm.devices))}"
+                " devices; the decode step is one CUDA graph, which runs on"
+                " one card, and no collective spans cards yet (the "
+                "multi-card backend, ROADMAP A10(b)/A11): colocate the "
+                "shards on one device")
         if wq and sm.tp > 1:
             raise ValueError(
                 f"ServingEngine(weight_quant={wq!r}) cannot shard"
@@ -658,8 +793,9 @@ class ServingEngine:
         """Which decode-block implementation the decode step runs:
         ``{"mode", "block", "attn", "mlp"}``: every name "cuda_block" for
         the single-launch kernel, else block "composed" and attn/mlp
-        "cuda_fused" or "unfused". Captured at the first decode step;
-        before it, what dispatch would pick now."""
+        "cuda_fused" or "unfused". Recorded when the decode program is
+        built (under the pins it is keyed by); before it, what dispatch
+        would pick now."""
         if not self._fused:
             return {"mode": "unfused", "block": "composed",
                     "attn": "unfused", "mlp": "unfused"}
@@ -998,57 +1134,112 @@ class ServingEngine:
             self._h_temps[slot_id] = self._temp_of(req.gen)
             self._dirty = True
 
-    def _decode(self):
-        """The decode program: one token for every slot, sampled, with
-        the device-side carry (tokens, lengths) advanced. Inactive slots
-        hold seq 0 and stay there; their write landed in scratch page 0."""
-        if self._decode_variant is None:
-            # the step's route resolved (and its kernels built) once: the
-            # port's count of the JAX engine's decode traces
-            self._decode_variant = self.decode_variant
-            self.counters["decode_traces"] += 1
+    # -- the decode program ------------------------------------------
+    # the JAX engine's decode step: (params, tok, seq_lens, tables, temps,
+    # key, k_pools, v_pools) -> (tok, seq_lens, key, k_pools, v_pools).
+    # Its carry, output index -> argument index, is here the buffer each
+    # output is written into: the next tokens into tok's, the lengths into
+    # seq_lens'; the pools are written in place and the key is the
+    # generator, whose offset the step's draws advance
+    _DECODE_CARRY = {0: 1, 1: 2, 2: 5, 3: 6, 4: 7}   # out idx -> argnum
+
+    def _decode_args(self):
+        pools = (self._k_pools, self._v_pools)
+        return (self.params, self._d_tok, self._d_seq, self._d_tables,
+                self._d_temps, self._gen) + pools
+
+    def _decode_body(self):
+        """The decode step over the fixed buffers: one token for every
+        slot, sampled (into the logits buffer first), the carry written
+        back as ``_DECODE_CARRY`` maps it. Inactive slots hold seq 0 and
+        stay there; their write landed in scratch page 0."""
+        args = self._decode_args()
+        params, tok, seq, tables, temps, gen, k_pools, v_pools = args
         if self._mesh is not None:
-            logits, _, _ = _tp_decode_step(
-                self.params, self._d_tok, self.cfg, self._k_pools,
-                self._v_pools, self._d_tables, self._d_seq, self._mesh,
-                rope=self._rope, kv_scales=self._shard_scales,
+            logits, k_pools, v_pools = _tp_decode_step(
+                params, tok, self.cfg, k_pools, v_pools, tables, seq,
+                self._mesh, rope=self._rope, kv_scales=self._shard_scales,
                 fused=self._fused)
         elif self._fused:
-            logits, _, _ = _fused_decode_step(
-                self.params, self._d_tok, self.cfg, self._k_pools,
-                self._v_pools, self._d_tables, self._d_seq, rope=self._rope,
-                mode=self._fused, kv_scales=self._kv_scales)
-        else:
-            logits, _, _ = _paged_decode_step(
-                self.params, self._d_tok, self.cfg, self._k_pools,
-                self._v_pools, self._d_tables, self._d_seq, rope=self._rope,
+            logits, k_pools, v_pools = _fused_decode_step(
+                params, tok, self.cfg, k_pools, v_pools, tables, seq,
+                rope=self._rope, mode=self._fused,
                 kv_scales=self._kv_scales)
-        self._d_tok = _sample_slots(logits, self._gen, self._d_temps)
-        self._d_seq = torch.where(self._d_seq > 0, self._d_seq + 1, 0)
+        else:
+            logits, k_pools, v_pools = _paged_decode_step(
+                params, tok, self.cfg, k_pools, v_pools, tables, seq,
+                rope=self._rope, kv_scales=self._kv_scales)
+        self._d_logits.copy_(logits)
+        out = (_sample_slots(self._d_logits, gen, temps),
+               torch.where(seq > 0, seq + 1, 0), gen, k_pools, v_pools)
+        for o, a in self._DECODE_CARRY.items():
+            if out[o] is not args[a]:
+                args[a].copy_(out[o])
+
+    def _decode_key(self) -> Tuple:
+        """The decode program's key: the registry's force pins, which
+        "auto" dispatch reads when the program is built. Nothing else that
+        dispatch reads changes within an engine (shapes, types, weight and
+        pool classes are fixed in the constructor)."""
+        from ..ops.kernels.registry import KERNELS
+        return KERNELS.forced_state() if self._fused == "auto" else ()
+
+    def _make_decode_fn(self) -> _DecodeProgram:
+        """The decode program (the JAX engine's ``_make_decode_fn``) of the
+        current key; records the variant its dispatch picks, under the
+        same pins. Counts a build in ``decode_traces`` on the CPU (on CUDA
+        the program counts its capture)."""
+        if self._fused:
+            self._decode_variant = self._resolve_variant()
+        if self.device.type != "cuda":
+            self.counters["decode_traces"] += 1
+        # the program must not keep its engine alive (the engine holds the
+        # program): a cycle would keep the pools and the graph's memory
+        # until the next full collection
+        engine = weakref.ref(self)
+
+        def body():
+            engine()._decode_body()
+        return _DecodeProgram(body, self.device, self._stream, self._gen,
+                              self.counters)
+
+    def _decode_program(self) -> _DecodeProgram:
+        key = self._decode_key()
+        prog = self._decode_fns.get(key)
+        if prog is None:
+            prog = self._decode_fns[key] = self._make_decode_fn()
+        return prog
+
+    def _upload_carry(self):
+        """The host mirrors into the decode program's buffers (from pinned
+        memory on CUDA, without a sync: no mirror changes before the
+        step's token read, which syncs)."""
+        for d, h in zip((self._d_tok, self._d_seq, self._d_tables,
+                         self._d_temps), self._host_carry.values()):
+            d.copy_(h, non_blocking=True)
 
     def _run_decode(self) -> bool:
         live = [i for i, s in enumerate(self._slots)
                 if s.phase == "decode"]
         if not live:
             return False
+        prog = self._decode_program()
         if self._dirty:
-            self._d_tok = self._upload(self._h_tok)
-            self._d_seq = self._upload(self._h_seq)
-            self._d_tables = self._upload(self._h_tables)
-            self._d_temps = self._upload(self._h_temps)
+            self._upload_carry()
             self._dirty = False
+        prog.prepare()
         if self.device.type == "cuda":
             ev0, ev1 = (torch.cuda.Event(enable_timing=True),
                         torch.cuda.Event(enable_timing=True))
             ev0.record()
-            self._decode()
+            prog()
             ev1.record()
             nxt = self._d_tok.cpu().numpy()    # the per-step host sync
             self._decode_ms += ev0.elapsed_time(ev1)
         else:
             t0 = time.perf_counter()
-            self._decode()
-            nxt = self._d_tok.numpy()
+            prog()
+            nxt = self._d_tok.numpy().copy()
             self._decode_ms += (time.perf_counter() - t0) * 1e3
         self.counters["decode_steps"] += 1
         self.counters["live_slot_steps"] += len(live)

@@ -210,7 +210,7 @@ def _same_pins():
     recomputation runs in the autograd engine's thread, so it re-enters
     the forward's registry pins there and dispatches as the forward did
     (the JAX package bakes the dispatch into the traced layer)."""
-    return contextlib.nullcontext(), KERNELS.pinned(KERNELS.pins())
+    return contextlib.nullcontext(), KERNELS.pinned(KERNELS.forced_state())
 
 
 def forward_hidden(params: Dict, tokens, cfg: LlamaConfig,

@@ -111,6 +111,10 @@ KERNELS.register("flash_attention", "cuda", flash_attention_cuda,
                  priority=10, supports=_supports_cuda)
 KERNELS.register("flash_attention", "unfused", _ref_attention, priority=0,
                  supports=_supports_plain)
+# every flash_meta key (``unsupported`` is the kernels' refusal of the
+# operands' shapes and type, which a call site fixes)
+KERNELS.declare_cache_key("flash_attention", (
+    "device", "bias", "bias_grad", "segments", "dropout", "unsupported"))
 
 
 def _mix64(x: int) -> int:

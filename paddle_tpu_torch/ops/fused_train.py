@@ -92,6 +92,13 @@ KERNELS.register("rms_norm_residual", "cuda_fused",
                      "kernels", "d"))
 KERNELS.register("rms_norm_residual", "unfused", residual_rms_norm_ref,
                  priority=0, supports=supports_plain)
+# the JAX declarations, with ``device`` for ``interpret`` (the shared
+# memory of these kernels is fixed, so no budget keys them)
+KERNELS.declare_cache_key("fused_linear_ce", ("T", "D", "V", "dtype",
+                                              "device"))
+KERNELS.declare_cache_key("fused_swiglu", ("R", "F", "dtype", "device"))
+KERNELS.declare_cache_key("rms_norm_residual", ("rows", "d", "dtype",
+                                                "device"))
 
 
 def _rows(t):

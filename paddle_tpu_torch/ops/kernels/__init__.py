@@ -6,23 +6,31 @@ kernel for CUDA tensors and raises for anything else; it counts its
 launches in a plain integer attribute, ``<wrapper>.launches``.
 :data:`WRAPPERS` maps each TPU launch name to its wrapper; the dispatch
 registry of ops with several variants is :mod:`.registry`'s ``KERNELS``.
-The four decode and prefill block wrappers, whose kernels take fp, int8
-or int4 weights, also count their launches by weight class
-(``<wrapper>.launches_by_weight``), and the three of them that read the
-KV pools, which may be int8 (the int8 cache), by pool class
-(``<wrapper>.launches_by_pool``). The three with a ``residual`` flag
-(decode_attn_block, decode_mlp_block, prefill_attn_block) count by
-residual class too (``<wrapper>.launches_by_residual``): "full" for
+A wrapper whose kernel has classes also counts each launch in one store,
+``<wrapper>.launches_by_class``, keyed by (family, class)
+(``_launch.counted``, ``_launch.count``), read by
+:func:`launches_by_class`. The families: "weight" for the four decode
+and prefill block kernels, whose kernels take fp, int8 or int4 weights;
+"pool" for the three of them that read the KV pools, which may be int8
+(the int8 cache); "residual" for the three with a ``residual`` flag
+(decode_attn_block, decode_mlp_block, prefill_attn_block): "full" for
 ``x + product``, "partial" for the product alone, which a
-tensor-parallel shard's step launches (``inference/tp.py``). The three
-flash wrappers count by body class (``<wrapper>.launches_by_body``: the
-optional bodies a launch runs, "bias", "dbias", "seg", "dropout",
-"causal_sq_gt_sk" joined by commas, or "plain"), decode_mlp_block and
-prefill_attn_block by the body their plan took: "tc" (the tensor cores,
-chunk rows in bf16) or "cuda_core", and decode_block_fused by "ring" (its
-weight ring, bf16 weights at up to 8 rows) or "cuda_core". Only a
-launch counts: a wrapper given CPU tensors raises before it, and the CPU
-routes run the plain versions, which count nothing.
+tensor-parallel shard's step launches (``inference/tp.py``); "body" for
+the three flash wrappers (the optional bodies a launch runs, "bias",
+"dbias", "seg", "dropout", "causal_sq_gt_sk" joined by commas, or
+"plain"), for decode_mlp_block and prefill_attn_block (the body their
+plan took: "tc", the tensor cores, chunk rows in bf16, or "cuda_core",
+decode_mlp_block "ring" too) and for decode_attn_block and
+decode_block_fused ("ring", their weight ring, or "cuda_core").
+:func:`launches_by_weight`, :func:`launches_by_pool`,
+:func:`launches_by_residual` and :func:`launches_by_body` are one family
+each of that store, as are the wrappers' ``launches_by_<family>`` views.
+Only a launch counts: a wrapper given CPU tensors raises before it, and
+the CPU routes run the plain versions, which count nothing. A program
+that replays launches made once (the serving engine's CUDA graph of its
+decode step) counts them apart while it captures them
+(:func:`launches_apart`) and adds them back at each replay
+(:func:`add_launches`).
 
 Every wrapper builds its launch's plan, a ``_launch.KernelLaunchSpec``, and
 passes it to ``_launch.begin`` right before the launch; under
@@ -34,6 +42,8 @@ kernel under a floor-divided plan that drops the last intermediate
 columns. It is no part of :data:`WRAPPERS` and no route or dispatch
 reaches it.
 """
+import contextlib
+
 from .flash_attention import (flash_bwd_dkv_cuda,  # noqa: F401
                               flash_bwd_dq_cuda, flash_fwd_cuda)
 from .fused_adamw import fused_adamw_triton  # noqa: F401
@@ -81,16 +91,16 @@ WRAPPERS = {
 DEMO_WRAPPERS = {"demo_prefix_mlp_block": demo_prefix_mlp_block_cuda}
 
 
+def _counted_wrappers():
+    return list(WRAPPERS.items()) + list(DEMO_WRAPPERS.items())
+
+
 def reset_launches():
     """Set every wrapper's launch counts to 0 (the specimen's too)."""
-    for fn in list(WRAPPERS.values()) + list(DEMO_WRAPPERS.values()):
+    for _, fn in _counted_wrappers():
         fn.launches = 0
-        for attr in ("launches_by_weight", "launches_by_pool",
-                     "launches_by_residual", "launches_by_body"):
-            by = getattr(fn, attr, None)
-            if by is not None:
-                for k in by:
-                    by[k] = 0
+        for k in fn.launches_by_class:
+            fn.launches_by_class[k] = 0
 
 
 def launches():
@@ -98,35 +108,81 @@ def launches():
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def launches_by_class():
+    """``{launch name: {(family, class): count}}`` for every kernel (empty
+    for a kernel without classes): the one store of the by-class counts."""
+    return {name: dict(fn.launches_by_class)
+            for name, fn in WRAPPERS.items()}
+
+
+def _family(family):
+    return {name: dict(getattr(fn, f"launches_by_{family}"))
+            for name, fn in WRAPPERS.items()
+            if hasattr(fn, f"launches_by_{family}")}
+
+
 def launches_by_weight():
     """``{launch name: {"fp"|"int8"|"int4": count}}`` for the kernels that
     take quantized weights."""
-    return {name: dict(fn.launches_by_weight)
-            for name, fn in WRAPPERS.items()
-            if hasattr(fn, "launches_by_weight")}
+    return _family("weight")
 
 
 def launches_by_pool():
     """``{launch name: {"fp"|"int8": count}}`` for the kernels that read
     the KV pools."""
-    return {name: dict(fn.launches_by_pool)
-            for name, fn in WRAPPERS.items()
-            if hasattr(fn, "launches_by_pool")}
+    return _family("pool")
 
 
 def launches_by_residual():
     """``{launch name: {"full"|"partial": count}}`` for the kernels with a
     ``residual`` flag."""
-    return {name: dict(fn.launches_by_residual)
-            for name, fn in WRAPPERS.items()
-            if hasattr(fn, "launches_by_residual")}
+    return _family("residual")
 
 
 def launches_by_body():
     """``{launch name: {body class: count}}`` for the flash kernels (the
     classes launched since the last reset, some perhaps at 0), for
-    decode_mlp_block and prefill_attn_block ("tc", "cuda_core") and for
+    decode_mlp_block and prefill_attn_block ("tc", "cuda_core";
+    decode_mlp_block "ring" too) and for decode_attn_block and
     decode_block_fused ("ring", "cuda_core")."""
-    return {name: dict(fn.launches_by_body)
-            for name, fn in WRAPPERS.items()
-            if hasattr(fn, "launches_by_body")}
+    return _family("body")
+
+
+def _counts():
+    return {name: (fn.launches, dict(fn.launches_by_class))
+            for name, fn in _counted_wrappers()}
+
+
+def add_launches(delta, times=1):
+    """Add ``times`` x ``delta`` (``{launch name: (launches, {(family,
+    class): count})}``, as :func:`launches_apart` records it) to the
+    wrappers' counts: the launches a replayed program made without
+    running its wrappers."""
+    wrappers = dict(_counted_wrappers())
+    for name, (n, by) in delta.items():
+        fn = wrappers[name]
+        fn.launches += times * n
+        for k, v in by.items():
+            fn.launches_by_class[k] = fn.launches_by_class.get(k, 0) \
+                + times * v
+
+
+@contextlib.contextmanager
+def launches_apart():
+    """Count the launches the block makes apart from the wrappers'
+    counts: yields a dict that, when the block ends, holds what it
+    launched (``{launch name: (launches, {(family, class): count})}``,
+    wrappers that launched nothing left out), which is taken back out of
+    the counts, so that the block itself counts nothing."""
+    before = _counts()
+    delta = {}
+    try:
+        yield delta
+    finally:
+        for name, (n, by) in _counts().items():
+            n0, by0 = before[name]
+            d = {k: v - by0.get(k, 0) for k, v in by.items()
+                 if v != by0.get(k, 0)}
+            if n != n0 or d:
+                delta[name] = (n - n0, d)
+        add_launches(delta, times=-1)

@@ -24,21 +24,32 @@ not to launch: the wrapper returns empty meta outputs of the right
 shapes, and no launch is counted. This is the port's ``jax.eval_shape``:
 the gate (:mod:`paddle_tpu_torch.analysis.kernel_catalog`) runs every
 wrapper over meta tensors on a machine without a card. Outside a
-capture, meta tensors raise, as CPU tensors do.
+capture, meta tensors raise, as CPU tensors do. A program that replays
+launches made once (the serving engine's CUDA graph of its decode step)
+records their specs apart while it captures them (``isolated=True``) and
+hands them to the active captures at each replay (:func:`report`).
+
+The launch counts: each wrapper counts its launches in ``.launches`` and,
+where its kernel has classes (weight, pool, residual or body), in one
+store ``.launches_by_class`` keyed by (family, class);
+``.launches_by_<family>`` is that family's view of the store
+(:func:`counted`, :func:`count`).
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+from collections.abc import MutableMapping
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 __all__ = ["KernelOperand", "Seen", "Access", "KernelPhase",
            "KernelLaunchSpec", "capture_kernel_launches", "capturing",
-           "begin", "check_device", "dtype_name", "whole", "rows_access",
-           "flat_access", "triton_spec", "triton_run", "H100_SMS",
-           "SMEM_BLOCK", "SMEM_SM", "SMEM_RESERVED"]
+           "begin", "report", "check_device", "dtype_name", "whole",
+           "rows_access", "flat_access", "triton_spec", "triton_run",
+           "counted", "count", "ClassCounts", "H100_SMS", "SMEM_BLOCK",
+           "SMEM_SM", "SMEM_RESERVED"]
 
 #: streaming multiprocessors of an H100 SXM
 H100_SMS = 132
@@ -166,16 +177,25 @@ class capture_kernel_launches:
     capture also feeds the outer ones. ``all_threads=True`` also collects
     the launches other threads make meanwhile: autograd runs a CUDA
     backward on its own device thread, so a training step's backward
-    kernels are seen only this way."""
+    kernels are seen only this way. ``isolated=True`` collects this
+    thread's launches for this capture alone, hidden from the captures
+    around it (a program recording what it will replay)."""
 
-    def __init__(self, all_threads=False):
+    def __init__(self, all_threads=False, isolated=False):
         self.specs = []
         self.all_threads = all_threads
+        self.isolated = isolated
+        self._saved = None
 
     def __enter__(self):
         if self.all_threads:
             with _ALL_LOCK:
                 _ALL_THREADS.append(self.specs)
+            return self.specs
+        if self.isolated:
+            self._saved = (getattr(_CAPTURE, "stack", None),
+                           getattr(_CAPTURE, "isolated", False))
+            _CAPTURE.stack, _CAPTURE.isolated = [self.specs], True
             return self.specs
         stack = getattr(_CAPTURE, "stack", None)
         if stack is None:
@@ -187,14 +207,33 @@ class capture_kernel_launches:
         if self.all_threads:
             with _ALL_LOCK:
                 _ALL_THREADS.remove(self.specs)
+        elif self.isolated:
+            _CAPTURE.stack, _CAPTURE.isolated = self._saved
         else:
             _CAPTURE.stack.pop()
         return False
 
 
+def _sinks():
+    """The spec lists of the captures that see this thread's launches."""
+    stack = list(getattr(_CAPTURE, "stack", None) or ())
+    if getattr(_CAPTURE, "isolated", False):
+        return stack
+    with _ALL_LOCK:
+        return stack + list(_ALL_THREADS)
+
+
 def capturing() -> bool:
     """Whether a capture is active on this thread (or on all of them)."""
-    return bool(getattr(_CAPTURE, "stack", None) or _ALL_THREADS)
+    return bool(_sinks())
+
+
+def report(specs):
+    """Hand ``specs``, launches made again without their wrappers (a
+    replayed CUDA graph's), to the active captures, as :func:`begin` would
+    have."""
+    for sink in _sinks():
+        sink.extend(specs)
 
 
 def check_device(name, device):
@@ -214,19 +253,64 @@ def begin(spec: KernelLaunchSpec, device) -> bool:
     ``spec`` in the active captures, and returns whether to launch (True
     for CUDA tensors, False for meta tensors under a capture). Raises for
     any other device."""
-    stack = getattr(_CAPTURE, "stack", None)
-    if not stack and not _ALL_THREADS:      # the launch path: no capture
+    if not getattr(_CAPTURE, "stack", None) and not _ALL_THREADS:
+        # the launch path: no capture
         if device.type == "cuda":
             return True
         check_device(spec.name, device)
-    for sink in stack or ():
+    for sink in _sinks():
         sink.append(spec)
-    if _ALL_THREADS:
-        with _ALL_LOCK:
-            for sink in _ALL_THREADS:
-                sink.append(spec)
     check_device(spec.name, device)
     return device.type == "cuda"
+
+
+class ClassCounts(MutableMapping):
+    """One family's view ``{class: count}`` of a wrapper's
+    ``launches_by_class`` store, whose keys are (family, class). Setting a
+    class the family does not have yet adds it (the flash bodies' classes
+    appear as they launch)."""
+
+    def __init__(self, store, family):
+        self._store, self._family = store, family
+
+    def __getitem__(self, cls):
+        return self._store[(self._family, cls)]
+
+    def __setitem__(self, cls, n):
+        self._store[(self._family, cls)] = n
+
+    def __delitem__(self, cls):
+        del self._store[(self._family, cls)]
+
+    def __iter__(self):
+        return iter([c for f, c in self._store if f == self._family])
+
+    def __len__(self):
+        return sum(f == self._family for f, _ in self._store)
+
+    def __repr__(self):
+        return repr(dict(self))
+
+
+def counted(fn, **families):
+    """Give wrapper ``fn`` its launch counts: ``fn.launches`` (0), the store
+    ``fn.launches_by_class`` with each family's classes at 0, and
+    ``fn.launches_by_<family>``, the family's view of the store.
+    ``families``: family name -> its classes (may be empty)."""
+    fn.launches = 0
+    fn.launches_by_class = {(f, c): 0 for f, classes in families.items()
+                            for c in classes}
+    for f in families:
+        setattr(fn, f"launches_by_{f}", ClassCounts(fn.launches_by_class, f))
+
+
+def count(fn, **classes):
+    """One launch of ``fn``'s kernel, in the class given for each family
+    (``weight="int8"``, ``body="ring"``, ...)."""
+    fn.launches += 1
+    store = fn.launches_by_class
+    for f, c in classes.items():
+        store[(f, c)] = store.get((f, c), 0) + 1
 
 
 def dtype_name(dtype) -> str:

@@ -752,9 +752,7 @@ def _run(name, wrapper, q, k, v, bias, seg_q, seg_k, *ptrs, causal, scale,
                      bool(causal) and sq > sk)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        wrapper.launches += 1
-        wrapper.launches_by_body[cls] = \
-            wrapper.launches_by_body.get(cls, 0) + 1
+        _launch.count(wrapper, body=cls)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                  _ptr(seg_q), _ptr(seg_k), *(_ptr(t) for t in ptrs), b, h,
                  kvh, sq, sk, d, spec.plan["block"], spec.plan["smem"], bb,
@@ -841,8 +839,8 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
 
 
 for _w in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
-    _w.launches = 0
-    _w.launches_by_body = {}
+    # the launches by body class, keys added as the classes launch
+    _launch.counted(_w, body=())
 
 
 def _sum_broadcast(dbias, bias_shape, b, h):

@@ -159,7 +159,7 @@ def fused_adamw_triton(param, grad, moment1, moment2, lr, step, beta1=0.9,
     return out
 
 
-fused_adamw_triton.launches = 0
+_launch.counted(fused_adamw_triton)
 
 
 @functools.lru_cache(maxsize=64)
@@ -213,6 +213,10 @@ KERNELS.register("fused_adamw", "cuda", fused_adamw_triton, priority=10,
                  supports=_supports_triton)
 KERNELS.register("fused_adamw", "unfused", adamw_update_ref, priority=0,
                  supports=_supports_plain)
+# the keys of one call site's update, all fixed by its flat buffers (the
+# JAX trainer's program key, with ``device`` for ``interpret``)
+KERNELS.declare_cache_key(
+    "fused_adamw", ("n", "dtype", "moment_dtype", "shadow", "device"))
 
 
 def adamw_update(param, grad, moment1, moment2, lr, step, **kw):

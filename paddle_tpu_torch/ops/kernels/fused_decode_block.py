@@ -1299,18 +1299,19 @@ def _pools(name, x, k_pool, kv_scales):
     return torch.int8, 8, ks, vs
 
 
-def _count(fn, bits, kv_bits=None, residual=None):
-    """One launch of ``fn``'s kernel, in weight class ``bits``; for the
-    kernels that read the pools, in pool class ``kv_bits``; for the
-    kernels with a ``residual`` flag, in residual class "full" (x + the
-    product) or "partial" (the product alone: a tensor-parallel shard's
-    part)."""
-    fn.launches += 1
-    fn.launches_by_weight[{0: "fp", 8: "int8", 4: "int4"}[bits]] += 1
+def _count(fn, bits, body, kv_bits=None, residual=None):
+    """One launch of ``fn``'s kernel, in weight class ``bits`` and body
+    class ``body``; for the kernels that read the pools, in pool class
+    ``kv_bits``; for the kernels with a ``residual`` flag, in residual
+    class "full" (x + the product) or "partial" (the product alone: a
+    tensor-parallel shard's part)."""
+    classes = {"weight": {0: "fp", 8: "int8", 4: "int4"}[bits],
+               "body": body}
     if kv_bits is not None:
-        fn.launches_by_pool[{0: "fp", 8: "int8"}[kv_bits]] += 1
+        classes["pool"] = {0: "fp", 8: "int8"}[kv_bits]
     if residual is not None:
-        fn.launches_by_residual["full" if residual else "partial"] += 1
+        classes["residual"] = "full" if residual else "partial"
+    _launch.count(fn, **classes)
 
 
 def _attn_leaves(x, wq, wk, wv, wo, KV, hd):
@@ -1404,8 +1405,7 @@ def decode_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
         if ring:
             ring_ws = _ring_partials(x.device, pl["part_ws"], stream)
             tickets = _ring_tickets(x.device, pl["tickets"], stream)
-        _count(decode_attn_block_cuda, bits, kv_bits, residual)
-        decode_attn_block_cuda.launches_by_body[body] += 1
+        _count(decode_attn_block_cuda, bits, body, kv_bits, residual)
         err = fn(x.data_ptr(), nw.data_ptr(), *(w[k].data_ptr() for k in
                                                  ("wq", "wk", "wv", "wo")),
                  *(_ptr(sc[k]) for k in ("wq", "wk", "wv", "wo")),
@@ -1487,8 +1487,7 @@ def _mlp_launch(name, wrapper, x, nw, wg, wu, wd, eps, residual,
             ring_ws = _ring_partials(x.device, pl["part_ws"], stream)
             tickets = _ring_tickets(x.device, pl["tickets"], stream)
         if floor_tile is None:
-            _count(wrapper, bits, residual=residual)
-            wrapper.launches_by_body[body] += 1
+            _count(wrapper, bits, body, residual=residual)
         else:
             wrapper.launches += 1
         if ring:
@@ -1546,7 +1545,7 @@ def demo_prefix_mlp_block_cuda(x, nw, wg, wu, wd, eps=1e-6):
                        True, DEMO_TILE)
 
 
-demo_prefix_mlp_block_cuda.launches = 0
+_launch.counted(demo_prefix_mlp_block_cuda)
 
 
 def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
@@ -1630,8 +1629,7 @@ def decode_block_fused_cuda(x, nw, wq, wk, wv, wo, pw, wg, wu, wd, sin, cos,
         if ring:
             ring_ws = _ring_partials(x.device, pl["part_ws"], stream)
             tickets = _ring_tickets(x.device, pl["tickets"], stream)
-        _count(decode_block_fused_cuda, bits, kv_bits)
-        decode_block_fused_cuda.launches_by_body[body] += 1
+        _count(decode_block_fused_cuda, bits, body, kv_bits)
         err = fn(x.data_ptr(), nw.data_ptr(),
                  *(w[k].data_ptr() for k in order[:4]), pw.data_ptr(),
                  *(w[k].data_ptr() for k in order[4:]),
@@ -1710,6 +1708,25 @@ _TICKETS = {}
 _PARTIALS = {}
 
 
+def _ring_buffer(store, device, n, stream, make):
+    """``store``'s buffer for (``device``, ``stream``), made (or grown) by
+    ``make(n)`` when it holds fewer than ``n`` elements. Never while a
+    CUDA graph captures on the stream: the graph would keep reading the
+    old buffer, so the warm-up step on that stream sizes it first."""
+    key = (device, stream)
+    t = store.get(key)
+    if t is None or t.numel() < n:
+        if device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the weight ring's buffer for stream {stream:#x} needs {n} "
+                f"elements, has {0 if t is None else t.numel()}, and a CUDA "
+                "graph is capturing there: run the captured step once on "
+                "the stream before capturing it (its warm-up)")
+        t = store[key] = make(n)
+    return t
+
+
 def _ring_partials(device, n, stream):
     """The ring bodies' f32 partial sums for launches on ``stream`` of
     ``device`` (at least ``n`` floats: the parts of K of the widest phase
@@ -1717,12 +1734,8 @@ def _ring_partials(device, n, stream):
     one buffer a (device, stream), shared by the three ring kernels, whose
     launches on one stream run in turn; each launch writes the partials it
     reads. Grown when a launch needs more."""
-    key = (device, stream)
-    t = _PARTIALS.get(key)
-    if t is None or t.numel() < n:
-        t = _PARTIALS[key] = torch.empty(max(n, 4096), dtype=torch.float32,
-                                         device=device)
-    return t
+    return _ring_buffer(_PARTIALS, device, n, stream, lambda m: torch.empty(
+        max(m, 4096), dtype=torch.float32, device=device))
 
 
 def _ring_tickets(device, n, stream):
@@ -1737,32 +1750,34 @@ def _ring_tickets(device, n, stream):
     flight count into the same tickets, and the buffer is sized for the
     largest phase any of them has asked for. Grown (zeroed anew) when a
     launch needs more."""
+    return _ring_buffer(_TICKETS, device, n, stream, lambda m: torch.zeros(
+        max(m, 256), dtype=torch.int32, device=device))
+
+
+def ring_buffers(device, stream):
+    """The ring's partial sums and tickets for launches on ``stream`` of
+    ``device`` (those present), the tickets zeroed anew: what a CUDA graph
+    captured on that stream reads, which its owner keeps alive. A launch
+    stopped mid-way would have left its tickets dirty."""
     key = (device, stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
-                                        device=device)
-    return t
+    tickets = _TICKETS.get(key)
+    if tickets is not None:
+        tickets.zero_()
+    return tuple(t for t in (_PARTIALS.get(key), tickets) if t is not None)
 
 
-for _w in (decode_attn_block_cuda, decode_mlp_block_cuda,
-           decode_block_fused_cuda):
-    _w.launches = 0
-    # the same launches by weight class
-    _w.launches_by_weight = {"fp": 0, "int8": 0, "int4": 0}
-for _w in (decode_attn_block_cuda, decode_block_fused_cuda):
-    # and, for the kernels that read the pools, by pool class
-    _w.launches_by_pool = {"fp": 0, "int8": 0}
-for _w in (decode_attn_block_cuda, decode_mlp_block_cuda):
-    # and, for the two-stage kernels, by residual class
-    _w.launches_by_residual = {"full": 0, "partial": 0}
-# and by body: "ring" (the weight ring, bf16 at up to 8 rows), "tc"
-# (decode_mlp_block on the tensor cores, chunk rows in bf16) or "cuda_core"
-# (the passes of 8 rows)
-decode_attn_block_cuda.launches_by_body = {"ring": 0, "cuda_core": 0}
-decode_mlp_block_cuda.launches_by_body = {"tc": 0, "cuda_core": 0,
-                                          "ring": 0}
-decode_block_fused_cuda.launches_by_body = {"ring": 0, "cuda_core": 0}
+# the launches by weight class, for the kernels that read the pools by
+# pool class, for the two-stage kernels by residual class, and by body:
+# "ring" (the weight ring, bf16 at up to 8 rows), "tc" (decode_mlp_block on
+# the tensor cores, chunk rows in bf16) or "cuda_core" (the passes of 8 rows)
+_WEIGHTS, _POOLS = ("fp", "int8", "int4"), ("fp", "int8")
+_RESIDUAL = ("full", "partial")
+_launch.counted(decode_attn_block_cuda, weight=_WEIGHTS, pool=_POOLS,
+                residual=_RESIDUAL, body=("ring", "cuda_core"))
+_launch.counted(decode_mlp_block_cuda, weight=_WEIGHTS, residual=_RESIDUAL,
+                body=("tc", "cuda_core", "ring"))
+_launch.counted(decode_block_fused_cuda, weight=_WEIGHTS, pool=_POOLS,
+                body=("ring", "cuda_core"))
 
 
 # ---------------------------------------------------------------------------
@@ -1777,9 +1792,10 @@ def decode_meta_dims(B, D, H, KV, hd, F, BS, MB, dtype, pool_dtype, quant,
     the tensor-parallel degree. The tensor-parallel step passes the
     per-shard dims (H, KV, F of one shard) and its ``tp``, so a shard of
     a tp=N mesh is a shape class apart from a tp=1 model of the same
-    local dims; the single-launch kernel refuses tp != 1. The port keys
-    no program cache on the meta (it dispatches per call), so the meta is
-    all ``tp`` feeds."""
+    local dims; the single-launch kernel refuses tp != 1. Every key is
+    fixed when a serving engine is built, so its captured decode step
+    (one CUDA graph) is keyed by the force pins alone
+    (:data:`DECODE_KEY_FIELDS`, the registry's program-key declaration)."""
     return {
         "tp": int(tp),
         "B": int(B), "D": int(D), "H": int(H), "KV": int(KV),
@@ -1945,6 +1961,18 @@ KERNELS.register("decode_block_fused", "cuda_block", decode_block_fused_cuda,
                  priority=10, supports=_supports_block)
 KERNELS.register("decode_block_fused", "composed", decode_block_composed,
                  priority=0)
+# every decode_meta_dims key is fixed when a serving engine is built (the
+# shapes, the model's, the pools' and the weights' types, tp, the device,
+# the card's shared memory) or is in its decode program's key (the force
+# pins, ``KERNELS.forced_state()``): the DISPATCH_KEY_GAP lint holds the
+# predicates to this declaration
+DECODE_KEY_FIELDS = ("B", "D", "H", "KV", "hd", "F", "BS", "MB", "dtype",
+                     "pool_dtype", "quant", "device", "tp", "weight_dtype",
+                     "smem_limit")
+DECODE_KEY_COVERS = {"itemsize": "dtype", "pool_itemsize": "pool_dtype"}
+for _name in ("decode_attn_block", "decode_mlp_block", "decode_block_fused"):
+    KERNELS.declare_cache_key(_name, DECODE_KEY_FIELDS,
+                              covers=DECODE_KEY_COVERS)
 
 
 def resolve_decode_blocks(meta: dict, mode="auto"):

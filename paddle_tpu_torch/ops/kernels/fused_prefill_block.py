@@ -436,8 +436,7 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     pl = spec.plan
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _fdb._count(prefill_attn_block_cuda, bits, kv_bits, residual)
-        prefill_attn_block_cuda.launches_by_body[body] += 1
+        _fdb._count(prefill_attn_block_cuda, bits, body, kv_bits, residual)
         err = fn(x.data_ptr(), nw.data_ptr(),
                  *(w[k].data_ptr() for k in order),
                  *(_fdb._ptr(sc[k]) for k in order), sin.data_ptr(),
@@ -457,16 +456,11 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     return x_out, k_new, v_new
 
 
-prefill_attn_block_cuda.launches = 0
-# the same launches by weight class
-prefill_attn_block_cuda.launches_by_weight = {"fp": 0, "int8": 0,
-                                              "int4": 0}
-# and by pool class
-prefill_attn_block_cuda.launches_by_pool = {"fp": 0, "int8": 0}
-# and by residual class
-prefill_attn_block_cuda.launches_by_residual = {"full": 0, "partial": 0}
-# and by body: "tc" (the tensor cores, bf16) or "cuda_core"
-prefill_attn_block_cuda.launches_by_body = {"tc": 0, "cuda_core": 0}
+# the launches by weight, pool and residual class, and by body: "tc" (the
+# tensor cores, bf16) or "cuda_core"
+_launch.counted(prefill_attn_block_cuda, weight=_fdb._WEIGHTS,
+                pool=_fdb._POOLS, residual=_fdb._RESIDUAL,
+                body=("tc", "cuda_core"))
 
 
 # ---------------------------------------------------------------------------
@@ -517,6 +511,15 @@ KERNELS.register("prefill_mlp_block", "cuda_fused",
                  supports=_fdb._supports_mlp)
 KERNELS.register("prefill_mlp_block", "unfused", prefill_mlp_block_ref,
                  priority=0, supports=_fdb._supports_composition)
+# every prefill_meta_dims key is fixed when a serving engine is built or
+# is the bucket's width P, the key a per-bucket chunk program takes (the
+# JAX engine's; the port's chunks run eagerly, dispatching per call): the
+# DISPATCH_KEY_GAP lint holds the predicates to this declaration
+PREFILL_KEY_FIELDS = ("P",) + tuple(k for k in _fdb.DECODE_KEY_FIELDS
+                                    if k not in ("B", "tp"))
+for _name in ("prefill_attn_block", "prefill_mlp_block"):
+    KERNELS.declare_cache_key(_name, PREFILL_KEY_FIELDS,
+                              covers=_fdb.DECODE_KEY_COVERS)
 
 
 def resolve_prefill_blocks(meta: dict, mode="auto"):

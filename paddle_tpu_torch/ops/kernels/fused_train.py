@@ -897,7 +897,7 @@ def linear_ce_bwd_dh_cuda(x2, head, labels, lse, coef, p=None,
 
 for _w in (swiglu_fwd_triton, swiglu_bwd_triton, linear_ce_fwd_cuda,
            linear_ce_bwd_dx_cuda, linear_ce_bwd_dh_cuda):
-    _w.launches = 0
+    _launch.counted(_w)
 
 
 class LinearCE(torch.autograd.Function):

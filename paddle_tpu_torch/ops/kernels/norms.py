@@ -440,7 +440,7 @@ def layer_norm_fwd_triton(x, weight, bias, epsilon=1e-5):
 
 for _w in (rms_norm_fwd_triton, rms_norm_bwd_triton,
            residual_rms_norm_fwd_triton, layer_norm_fwd_triton):
-    _w.launches = 0
+    _launch.counted(_w)
 
 
 def rms_bwd_ref(epsilon, res, g):
@@ -504,6 +504,8 @@ KERNELS.register("rms_norm_bwd", "cuda_fused", _rms_bwd_kernel_variant,
                      "the rms_norm_bwd Triton kernels", "d"))
 KERNELS.register("rms_norm_bwd", "unfused", rms_bwd_ref, priority=0,
                  supports=supports_plain)
+# the JAX declaration, with ``device`` for ``interpret``
+KERNELS.declare_cache_key("rms_norm_bwd", ("rows", "d", "dtype", "device"))
 
 
 class RMSNorm(torch.autograd.Function):

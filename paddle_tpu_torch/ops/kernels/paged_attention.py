@@ -79,9 +79,11 @@ def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens,
     T = MB * BS
     mask = (torch.arange(T, device=q.device)[None, None, :]
             < seq_lens[:, None, None])
+    # a fill, not a copy from the host: the int8 cache's unfused decode
+    # step runs this inside the captured CUDA graph
     scores = torch.where(mask, scores,
-                         torch.tensor(-1e30, dtype=torch.float32,
-                                      device=q.device))
+                         torch.full((), -1e30, dtype=torch.float32,
+                                    device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bht,bthd->bhd", probs, v.float())
     out = torch.where(seq_lens[:, None, None] > 0, out, 0.0)
@@ -243,4 +245,4 @@ def paged_attention_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens):
     return out
 
 
-paged_attention_decode_cuda.launches = 0
+_launch.counted(paged_attention_decode_cuda)

@@ -12,15 +12,19 @@ priority-0 composition (CPU tensors only), so a refused kernel on the
 card raises rather than running the composition in its place.
 
 ``force()`` pins an op to a named variant for a ``with`` block,
-bypassing ``supports``; pins stack and are per thread. ``pins()`` and
-``pinned()`` carry a thread's pins to another thread: the autograd engine
-runs a CUDA backward (and a checkpointed layer's recomputation) in a
-thread of its own.
+bypassing ``supports``; pins stack and are per thread. ``forced_state()``
+and ``pinned()`` carry a thread's pins to another thread: the autograd
+engine runs a CUDA backward (and a checkpointed layer's recomputation) in
+a thread of its own.
 
-The JAX package's ``declare_cache_key`` and ``forced_state`` key jitted
-programs that bake a dispatch choice in. PyTorch runs eagerly and
-dispatches per call, so the port has no such program cache yet; both
-come with the CUDA-graph capture of the decode step.
+A program that bakes a dispatch choice in keys its cache by everything
+dispatch reads, as the JAX package's jitted programs do: the serving
+engine's captured decode step (a CUDA graph) by ``forced_state()``, the
+pins dispatch consults, and by the shapes, types and classes that are
+fixed when the engine is built. ``declare_cache_key`` states, per op,
+the meta keys its callers' program keys cover; the ``DISPATCH_KEY_GAP``
+lint (:func:`paddle_tpu_torch.analysis.kernel_rules.dispatch_key_rule`)
+holds every ``supports()`` predicate to that declaration.
 """
 from __future__ import annotations
 
@@ -61,6 +65,8 @@ class KernelRegistry:
     def __init__(self):
         self._ops: Dict[str, List[KernelVariant]] = {}
         self._forced = threading.local()
+        self._cache_keys: Dict[str, Tuple[Tuple[str, ...],
+                                          Dict[str, str]]] = {}
 
     def register(self, op: str, name: str, fn: Callable, *,
                  priority: int = 0, supports=None) -> KernelVariant:
@@ -71,6 +77,25 @@ class KernelRegistry:
         lst.sort(key=lambda v: -v.priority)
         self._ops[op] = lst
         return var
+
+    def declare_cache_key(self, op: str, fields, covers=None) -> None:
+        """Declare the meta keys that the program keys of ``op``'s callers
+        cover: explicitly (the serving engine's decode-program key holds
+        ``forced_state()``) or because the caller's program is built for
+        them and never sees another value (the shapes, types and classes
+        an engine fixes in its constructor). ``covers`` maps a derived key
+        to the declared key that subsumes it (``{"itemsize": "dtype"}``).
+        The ``DISPATCH_KEY_GAP`` lint flags any meta key a ``supports()``
+        reads that the declaration does not cover."""
+        self._cache_keys[op] = (tuple(fields), dict(covers or {}))
+
+    def cache_key_decl(self, op: str):
+        """(declared fields, covers) of ``op``, or None if it never
+        declared its program-key coverage."""
+        return self._cache_keys.get(op)
+
+    def ops(self) -> List[str]:
+        return sorted(self._ops)
 
     def variant(self, op: str, name: str) -> KernelVariant:
         for v in self._ops.get(op, []):
@@ -102,14 +127,18 @@ class KernelRegistry:
                 return False
         return _Force()
 
-    def pins(self) -> Tuple[Tuple[str, str], ...]:
-        """This thread's (op, variant) pins, innermost last."""
+    def forced_state(self) -> Tuple[Tuple[str, str], ...]:
+        """This thread's (op, variant) pins, innermost last: an immutable
+        snapshot. Dispatch consults the pins when a program is built, so
+        a program cache keys on this snapshot: a program built under a
+        pin is never replayed for calls without it (and the reverse)."""
         return tuple(getattr(self._forced, "stack", None) or ())
 
     @contextlib.contextmanager
     def pinned(self, pins):
-        """Context manager that re-enters ``pins`` (from :meth:`pins`,
-        possibly of another thread) on this thread."""
+        """Context manager that re-enters ``pins`` (from
+        :meth:`forced_state`, possibly of another thread) on this
+        thread."""
         stack = getattr(self._forced, "stack", None)
         if stack is None:
             stack = self._forced.stack = []

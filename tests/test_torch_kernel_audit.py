@@ -719,7 +719,8 @@ def test_cli_exit_codes(tmp_path):
     assert _cli("--json", str(out)).returncode == 0      # the whole catalog
     doc = json.loads(out.read_text())
     assert doc["summary"]["findings"] == 0
-    assert len(doc["programs"]) == len(kc.KERNEL_CASE_NAMES) + 1
+    # every case, the FLOP formulas and the registry lint
+    assert len(doc["programs"]) == len(kc.KERNEL_CASE_NAMES) + 2
     demo = _cli("--case", "decode_mlp_block@tiny", "--demo-regression")
     assert demo.returncode == 2
     assert demo.stderr.count("GRID_FLOOR_DROP") == 3
