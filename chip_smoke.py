@@ -245,6 +245,22 @@ script exits non-zero:
    kernel group and the busy share. Then the same on the "ref" route
    (RMSNorm 4L + 1 a step, the fused-train kernels never).
 
+7f. prefix (this slice's main path; the parity size after the graph
+   phase's, the serving size after it): the radix prefix cache, its host
+   tier and ``generate_paged`` (``prefix_phase``). At 7B widths, 2 layers,
+   f32: the streams of tests/test_prefix_cache.py and the spill/restore
+   streams of tests/test_fleet.py (lengths scaled to block 16), three of
+   them also on the two-stage and unfused routes: ids equal to a cold
+   engine and to dense ``generate``, every prefix and offload counter
+   equal to the port's CPU run, one decode capture, tickets zero, cached
+   bytes untouched by a divergent writer, restored bytes equal to the
+   spilled; ``generate_paged`` on three routes, an int8 cache and a store
+   called twice. At LLaMA-7B, bf16: bench.py's prefix stream (24 requests
+   of 224 shared + 32 own tokens, 64 new) cold, warm and over the host
+   tier, then 8 of them again from the host tier (tokens/s, TTFT, prefill
+   tokens = the cold run's less tokens_skipped, spill/restore GB/s), and
+   ``generate_paged`` over 4 prompts of 40-600 tokens (ms a token).
+   ``python3 chip_smoke.py prefix`` runs the build and this phase alone.
 13. audit: the plans of every launch of the default serving route's
    phase and of the default train route's phase, captured while they
    ran, audited by the kernel-geometry gate (0 findings), and the whole
@@ -269,7 +285,10 @@ no route runs), the 16 flash body rows (``flash_attention_fwd[bias]``
 dq[dbias]``; launches from the varlen and bias path phases in the body
 classes that hold the row's flags) (each kernel's launches from
 the serving phase of the route that runs it, from the default route's
-train phase, or, for layer_norm_fwd, from its own phase) and,
+train phase, or, for layer_norm_fwd, from its own phase; the
+decode_mlp_block, decode_block_fused and prefill_attn_block rows also
+carry ``prefix_launches``, their launches in the prefix phase's serving
+size, and ``prefill_attn_block[kv8]`` its int8-cache stream's) and,
 last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
 prints no result. It imports nothing of JAX or of ``paddle_tpu``.
 """
@@ -3529,6 +3548,625 @@ def graph_phase(gpu, size, params=None):
 
 
 # ---------------------------------------------------------------------------
+# the radix prefix cache, its host tier and generate_paged
+# ---------------------------------------------------------------------------
+# the parity size's engine (the graph phase's); the streams of
+# tests/test_prefix_cache.py and tests/test_fleet.py run at block 16: their
+# token lengths and the undersized pool's max_seq_len scaled by 4 (their
+# block is 4), the pools' page counts kept
+PREFIX_ENGINE = dict(capacity=2, block_size=16, max_seq_len=512,
+                     prefill_buckets=(32, 128))
+PREFIX_TIE = 1e-4       # the parity phase's near-tie bound on a top-2 gap
+
+
+def _pgen(n, greedy=True, temperature=1.0):
+    from paddle_tpu_torch.inference import GenerationConfig
+    return GenerationConfig(max_new_tokens=n, greedy=greedy,
+                            temperature=temperature)
+
+
+def _pages_of(eng, pages):
+    return [(eng._k_pools[:, p].clone(), eng._v_pools[:, p].clone())
+            for p in pages]
+
+
+def _same_pages(eng, pages, saved):
+    import torch
+    return all(torch.equal(eng._k_pools[:, p], k)
+               and torch.equal(eng._v_pools[:, p], v)
+               for p, (k, v) in zip(pages, saved))
+
+
+def _ps_twice(n_tokens, n_new):
+    def stream(eng, rng, V):
+        p = rng.integers(0, V, n_tokens).astype(np.int32)
+        r1 = eng.submit(p, _pgen(n_new))
+        eng.drain()
+        r2 = eng.submit(p, _pgen(n_new))
+        eng.drain()
+        return [r1, r2]
+    return stream
+
+
+def _ps_three(eng, rng, V):
+    sysp = rng.integers(0, V, 48).astype(np.int32)
+    reqs = [eng.submit(np.concatenate(
+        [sysp, rng.integers(0, V, 20 + 4 * i).astype(np.int32)]), _pgen(5))
+        for i in range(3)]
+    eng.drain()
+    return reqs
+
+
+def _ps_cow(eng, rng, V):
+    """A request diverging inside the cached prompt's partial tail page:
+    the cached pages keep their bytes exactly."""
+    base = rng.integers(0, V, 40).astype(np.int32)
+    r1 = eng.submit(base, _pgen(4))
+    eng.drain()
+    pages = saved = None
+    if eng._pcache is not None:
+        full, tail, _ = eng._pcache.match(base)
+        pages = [n.page for n in full] + [tail.page]
+        saved = _pages_of(eng, pages)
+    div = base.copy()
+    div[36] = (div[36] + 1) % V
+    div = np.concatenate([div, rng.integers(0, V, 24).astype(np.int32)])
+    r2 = eng.submit(div, _pgen(4))
+    eng.drain()
+    if pages is not None and not _same_pages(eng, pages, saved):
+        raise AssertionError("prefix: a divergent writer changed a cached "
+                             f"page (of {pages})")
+    r3 = eng.submit(base, _pgen(4))
+    eng.drain()
+    return [r1, r2, r3]
+
+
+def _ps_in_flight(eng, rng, V):
+    p = rng.integers(0, V, 48).astype(np.int32)
+    r1 = eng.submit(p, _pgen(8))
+    eng.step()
+    r2 = eng.submit(np.concatenate(
+        [p, rng.integers(0, V, 16).astype(np.int32)]), _pgen(8))
+    eng.drain()
+    return [r1, r2]
+
+
+def _ps_many(n_tokens, n_new, repeat_first=False):
+    def stream(eng, rng, V):
+        prompts = [rng.integers(0, V, n_tokens).astype(np.int32)
+                   for _ in range(6)]
+        reqs = [eng.submit(p, _pgen(n_new)) for p in prompts]
+        eng.drain()
+        if repeat_first:
+            reqs.append(eng.submit(prompts[0], _pgen(n_new)))
+            eng.drain()
+        return reqs
+    return stream
+
+
+def _ps_mixed(eng, rng, V):
+    sysp = rng.integers(0, V, 32).astype(np.int32)
+    reqs = []
+    for i in range(12):
+        p = rng.integers(0, V, int(rng.integers(12, 60))).astype(np.int32)
+        if i % 2:
+            p = np.concatenate([sysp, p[:24]])
+        reqs.append(eng.submit(p, _pgen(int(rng.integers(2, 6)),
+                                        greedy=bool(i % 3),
+                                        temperature=0.7)))
+        eng.step()
+    eng.drain()
+    return reqs
+
+
+def _ps_spill(eng, rng, V):
+    """The whole tree spilled to host memory, then hit again: the restored
+    pages hold the spilled bytes bit for bit."""
+    p = rng.integers(0, V, 48).astype(np.int32)
+    r1 = eng.submit(p, _pgen(4))
+    eng.drain()
+    pc = eng._pcache
+    if pc is not None:
+        full, _, _ = pc.match(p)
+        saved = _pages_of(eng, [n.page for n in full])
+        if pc.evict(100) < 3 or pc.cached_pages:
+            raise AssertionError("prefix: the tree did not spill whole")
+    r2 = eng.submit(p, _pgen(4))
+    eng.drain()
+    if pc is not None:
+        full, _, _ = pc.match(p)
+        if not _same_pages(eng, [n.page for n in full[:2]], saved[:2]):
+            raise AssertionError("prefix: restored bytes differ from the "
+                                 "spilled ones")
+    return [r1, r2]
+
+
+UNDERSIZED = dict(num_blocks=14, max_seq_len=128)
+# name -> (stream, seed, engine keywords beside prefix_cache=True)
+PREFIX_STREAMS = {
+    "warm_cache": (_ps_twice(80, 5), 0, {}),
+    "three_shared": (_ps_three, 1, {}),
+    "cow_divergent": (_ps_cow, 2, {}),
+    "in_flight": (_ps_in_flight, 8, {}),
+    "eviction": (_ps_many(64, 4), 3, UNDERSIZED),
+    "tail_upgrade": (_ps_many(40, 3), 7, UNDERSIZED),
+    "int8": (_ps_twice(48, 5), 4, dict(cache_dtype="int8")),
+    "mixed": (_ps_mixed, 5, dict(capacity=3)),
+    "spill_restore": (_ps_spill, 4, dict(kv_offload=True)),
+    "pressure": (_ps_many(64, 4, repeat_first=True), 5,
+                 dict(UNDERSIZED, kv_offload=True)),
+    "host_budget": (_ps_many(64, 4), 6, dict(UNDERSIZED, kv_offload=2)),
+}
+# the streams also run on the two-stage and the unfused decode routes
+PREFIX_ROUTE_STREAMS = ("three_shared", "cow_divergent", "pressure")
+
+
+def _prefix_engine(params, cfg, device, kw):
+    from paddle_tpu_torch.inference import ServingEngine
+    return ServingEngine(params, cfg, device=device,
+                         **dict(PREFIX_ENGINE, **kw))
+
+
+def _tie_gap(params, cfg, prompt, ids):
+    """The top-2 gap of the port's dense logits after ``prompt + ids`` on
+    the card."""
+    import torch
+    from paddle_tpu_torch.inference.generation import (cached_forward,
+                                                       init_cache)
+    x = torch.tensor([[int(t) for t in prompt] + list(ids)], device="cuda")
+    kc, vc = init_cache(cfg, 1, x.shape[1])
+    logits, _, _ = cached_forward(params, x, cfg, kc, vc, 0)
+    top2 = torch.topk(logits[0, -1].float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def _ids_held(params, cfg, prompt, got, want):
+    """None when equal, else the first divergent step and the dense top-2
+    gap there (which must be a near tie)."""
+    if got == want:
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    return {"step": j, "top2_gap": _tie_gap(params, cfg, prompt, want[:j])}
+
+
+def _prefix_compare(name, route, eng, reqs, cold, cpu, params, cfg, dense):
+    """One stream's card run on ``route`` against the cold engine, the
+    port's dense ``generate`` and the port's CPU run of the same stream."""
+    m = eng.metrics()
+    cpu_eng, cpu_reqs = cpu
+    parts = []
+    for r, c in zip(reqs, cold):
+        if not r.gen.greedy:
+            continue
+        for what, want in (("cold", c.tokens),
+                           ("dense", None if name == "int8"
+                            else dense(r.prompt, len(r.tokens)))):
+            if want is None:
+                continue
+            d = _ids_held(params, cfg, r.prompt, r.tokens, want)
+            if d is not None:
+                parts.append(dict(d, req=r.req_id, against=what))
+    same_ids = all(a.tokens == b.tokens for a, b in zip(reqs, cpu_reqs))
+    summary = eng.prefix_summary()
+    # the tree's paths carry the generated ids: where a sampled or parted
+    # request's differ from the CPU run's, the summaries are held in their
+    # lengths and the counters in those the prompts alone decide
+    keys = (list(m["prefix_cache"]) if same_ids else
+            ["hits", "misses", "tokens_skipped", "shared_pages",
+             "cow_forks"])
+    cpu_m = cpu_eng.metrics()["prefix_cache"]
+    res = {"requests": len(reqs), "parted": parts,
+           "ids_equal_cpu": same_ids,
+           "prefix_cache": m["prefix_cache"],
+           "offload": eng.offload_metrics(),
+           "prefix_cache_equal_cpu": all(m["prefix_cache"][k] == cpu_m[k]
+                                         for k in keys),
+           "offload_equal_cpu": (not same_ids or eng.offload_metrics()
+                                 == cpu_eng.offload_metrics()),
+           "summary_equal_cpu": (
+               summary == cpu_eng.prefix_summary() if same_ids else
+               sorted(summary.values())
+               == sorted(cpu_eng.prefix_summary().values())),
+           "decode_traces": m["decode_traces"],
+           "prefill_traces": m["prefill_traces"],
+           "checks": eng.mgr.check(False) + eng._pcache.check(False),
+           "tickets_zero": _tickets_zero()}
+    bad = [k for k in ("prefix_cache_equal_cpu", "offload_equal_cpu",
+                       "summary_equal_cpu", "tickets_zero") if not res[k]]
+    if res["decode_traces"] != 1 or any(
+            n > 1 for n in res["prefill_traces"].values()):
+        bad.append("traces")
+    if res["checks"]:
+        bad.append("checks")
+    # over int8 pools a chunk's codes may round across a boundary where
+    # the cold run's did not: parted ids there are printed, not held
+    bad += [f"ids ({p['against']})" for p in parts
+            if p["top2_gap"] >= PREFIX_TIE and name != "int8"]
+    return res, [(name, route, b) for b in bad]
+
+
+def _generate_paged_parity(params, cpu_params, cfg, dense):
+    """``generate_paged`` at the parity size on the card: two 40-token
+    prompts, 6 new tokens, on the default, two-stage and unfused decode
+    routes against dense ``generate``; over an int8 cache against the same
+    call on the CPU; a ``PagedKVCacheStore`` called twice (the second call
+    warm: the one-token suffix through the fused chunk) against dense
+    ``generate`` and its counters against a CPU store's."""
+    import torch
+    from paddle_tpu_torch.inference import PagedKVCacheStore, generate_paged
+    rng = np.random.default_rng(9)
+    p = rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    g = _pgen(6)
+    want = [dense(row, 6) for row in p]
+    out, bad = {}, []
+
+    def held(name, ids, wants, hold=True):
+        parts = [dict(d, row=i) for i, (row, got, w) in
+                 enumerate(zip(p, ids, wants))
+                 if (d := _ids_held(params, cfg, row, got, w)) is not None]
+        out[name] = {"parted": parts}
+        bad.extend(("generate_paged", name, "ids") for d in parts
+                   if d["top2_gap"] >= PREFIX_TIE and hold)
+
+    for route, fused in (("default", None), ("two_stage", "pallas"),
+                         ("unfused", False)):
+        ids = generate_paged(params, p, cfg, g, fused_decode=fused)
+        held(route, ids[:, 40:].tolist(), want)
+    kv8 = generate_paged(params, p, cfg, g, cache_dtype="int8")
+    kv8_cpu = generate_paged(cpu_params, p, cfg, g, cache_dtype="int8",
+                             device="cpu")
+    # int8 codes may round differently on the card: printed, not held
+    held("int8_cache", kv8[:, 40:].tolist(), kv8_cpu[:, 40:].tolist(),
+         hold=False)
+    store = PagedKVCacheStore(cfg, block_size=16, num_blocks=64)
+    cpu_store = PagedKVCacheStore(cfg, block_size=16, num_blocks=64,
+                                  device="cpu")
+    for call in ("cold", "warm"):
+        ids = generate_paged(params, p, cfg, g, prefix_cache=store)
+        generate_paged(cpu_params, p, cfg, g, prefix_cache=cpu_store)
+        held(f"store_{call}", ids[:, 40:].tolist(), want)
+        out[f"store_{call}"]["metrics"] = store.metrics()
+        if store.metrics() != cpu_store.metrics():
+            bad.append(("generate_paged", f"store_{call}", "metrics"))
+    if store.cache.stats["tokens_skipped"] != 2 * 39:
+        bad.append(("generate_paged", "store_warm", "tokens_skipped"))
+    torch.cuda.synchronize()
+    return out, bad
+
+
+PREFIX_SERVE = {"requests": 24, "shared": 224, "tail": 32, "new": 64}
+# the offload run's pool: the 8 slots' live pages (14 shared + 8 x 6) fit,
+# the tree of 24 finished requests (14 + 24 x 6 pages) does not
+PREFIX_OFFLOAD_BLOCKS = 96
+
+
+def _prefix_stream(params, cfg, prompts, warm, gen, on_engine=None, **kw):
+    """bench.py's prefix stream (``bench_serving_prefix_cache``) through
+    one engine: a warm-up request (the first prompt, 2 new tokens; it
+    seeds a prefix cache) and one more sharing the system prompt, then
+    ``reset_metrics`` and every request submitted at once and drained.
+    ``on_engine`` sees the engine before its first request."""
+    import torch
+    from paddle_tpu_torch.inference import ServingEngine
+    eng = ServingEngine(params, cfg, capacity=8, block_size=16,
+                        max_seq_len=1024, prefill_buckets=(32, 128), **kw)
+    if on_engine is not None:
+        on_engine(eng)
+    for p in (prompts[0], warm):
+        eng.submit(p, _pgen(2))
+        eng.drain()
+    eng.reset_metrics()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, gen) for p in prompts]
+    eng.drain()
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t0
+
+
+def _timed_offload(eng, acc):
+    """The tree's spill and restore callbacks, each batch timed between two
+    device syncs (the pinned copies are otherwise left in flight), its
+    seconds, pages and bytes summed into ``acc`` by direction."""
+    import torch
+    pc = eng._pcache
+
+    def wrap(fn, key, pages_arg):
+        def timed(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            n = len(a[pages_arg])
+            acc[key]["s"] += time.perf_counter() - t
+            acc[key]["pages"] += n
+            acc[key]["bytes"] += n * eng._page_nbytes
+            return out
+        return timed
+    pc._spill_batch = wrap(pc._spill_batch, "spill", 0)
+    pc._restore_batch = wrap(pc._restore_batch, "restore", 1)
+
+
+def _stream_row(eng, reqs, wall):
+    m = eng.metrics()
+    row = {"wall_s": round(wall, 3),
+           "tokens_per_sec": round(sum(len(r.tokens) for r in reqs) / wall,
+                                   3),
+           "ttft_ms_mean": m["ttft_ms_mean"], "ttft_ms_max": m["ttft_ms_max"],
+           "prefill_chunks": m["prefill_chunks"],
+           "prefill_tokens": m["prefill_tokens"],
+           "decode_steps": m["decode_steps"],
+           "decode_step_ms_mean": m["decode_step_ms_mean"],
+           "decode_traces": m["decode_traces"],
+           "prefill_traces": m["prefill_traces"]}
+    if "prefix_cache" in m:
+        pc = m["prefix_cache"]
+        row.update({k: pc[k] for k in ("hits", "misses", "tokens_skipped",
+                                       "shared_pages", "cow_forks",
+                                       "evicted_pages")},
+                   offload=eng.offload_metrics())
+    return row
+
+
+def prefix_phase(gpu, size, params=None):
+    """The radix prefix cache, its host tier and ``generate_paged`` on the
+    card. Returns the launch counts of its serving-size run (0 at the
+    parity size) and of its int8-pool stream.
+
+    ``size`` "parity": LLaMA-7B widths, 2 layers, f32 (the graph phase's
+    config and engine): the streams of tests/test_prefix_cache.py (warm
+    cache, three requests sharing a prefix, a divergent writer over a COW
+    fork, in-flight sharing, eviction in an undersized pool twice, the int8
+    cache, the 12-request mixed stream) and the spill/restore streams of
+    tests/test_fleet.py (the whole tree spilled and hit again, pressure on
+    an undersized pool and a repeat served from the host tier, a host
+    budget of 2 pages), PREFIX_ROUTE_STREAMS also on the two-stage and
+    unfused routes. Each run holds: greedy ids equal to the same stream on
+    a cold engine (no prefix cache, same route) and to dense ``generate``
+    (or parting on a near tie, gap < PREFIX_TIE), ``metrics()
+    ["prefix_cache"]``, ``offload_metrics()`` and ``prefix_summary()``
+    equal to the port's CPU run of the stream, one decode capture and at
+    most one chunk route a bucket, both checks clean and the ring's
+    tickets zero after the replays; a cached page's bytes unchanged by a
+    divergent writer and restored bytes equal to the spilled ones. Then
+    ``generate_paged`` (:func:`_generate_paged_parity`).
+
+    ``size`` "serving": LLaMA-7B (32 layers, ``params``, bf16), the
+    serving phase's engine (capacity 8, block 16, max 1024, buckets 32 and
+    128): bench.py's prefix stream, 24 requests of a 224-token shared
+    prefix and a 32-token unique tail, 64 greedy new tokens, submitted at
+    once after a warm-up, cold (no prefix cache), warm, and warm with
+    ``kv_offload`` over PREFIX_OFFLOAD_BLOCKS pages, then its first 8
+    prompts again (served from the host tier). Prints tokens/s, TTFT mean
+    and max, prefill chunks and tokens, hits, tokens skipped, COW forks,
+    spilled and restored pages and bytes, the pinned copies' GB/s, and
+    each warm request's common prefix with its cold twin (bf16 ids may
+    part); holds that the warm run prefills exactly the cold run's tokens
+    less ``tokens_skipped``. Then ``generate_paged`` over 4 prompts of
+    40-600 tokens, 32 new tokens, one call each, on the default route,
+    the int8 cache, int8 weights and a ``PagedKVCacheStore`` called twice:
+    ms a token."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.inference import (PagedKVCacheStore, generate,
+                                            generate_paged)
+    from paddle_tpu_torch.models import LLAMA_7B, init_params
+    from paddle_tpu_torch.models.llama import params_to
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    if size == "parity":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = dataclasses.replace(LLAMA_7B, num_hidden_layers=2,
+                                  dtype=torch.float32)
+        params = init_params(cfg, seed=1)
+        cpu_params = params_to(params, "cpu")
+        dense_ids = {}
+
+        def dense(prompt, n):
+            key = (prompt.tobytes(), n)
+            if key not in dense_ids:
+                dense_ids[key] = generate(params, prompt[None], cfg,
+                                          _pgen(n))[0, prompt.size:].tolist()
+            return dense_ids[key]
+
+        out, bad, kv8_counts = {}, [], {}
+        for name, (stream, seed, kw) in PREFIX_STREAMS.items():
+            kw = dict(kw, prefix_cache=True)
+            cpu_eng = _prefix_engine(cpu_params, cfg, "cpu", kw)
+            cpu = (cpu_eng, stream(cpu_eng, np.random.default_rng(seed),
+                                   cfg.vocab_size))
+            routes = (ROUTES if name in PREFIX_ROUTE_STREAMS
+                      else {"default": ROUTES["default"]})
+            out[name] = {}
+            for route, knobs in routes.items():
+                cold_kw = {k: v for k, v in kw.items()
+                           if k not in ("prefix_cache", "kv_offload")}
+                cold_eng = _prefix_engine(params, cfg, None,
+                                          dict(cold_kw, **knobs))
+                cold = stream(cold_eng, np.random.default_rng(seed),
+                              cfg.vocab_size)
+                del cold_eng
+                kernels.reset_launches()
+                eng = _prefix_engine(params, cfg, None, dict(kw, **knobs))
+                reqs = stream(eng, np.random.default_rng(seed),
+                              cfg.vocab_size)
+                torch.cuda.synchronize()
+                if name == "int8":
+                    kv8_counts = {"launches": kernels.launches(),
+                                  "by_pool": kernels.launches_by_pool()}
+                res, b = _prefix_compare(name, route, eng, reqs, cold, cpu,
+                                         params, cfg, dense)
+                out[name][route] = res
+                bad += b
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+        gp, b = _generate_paged_parity(params, cpu_params, cfg, dense)
+        bad += b
+        emit({"phase": "prefix", "size": size, "gpu": gpu,
+              "dtype": "float32", "layers": 2, "streams": out,
+              "generate_paged": gp, "failed": [list(x) for x in bad],
+              "seconds": round(time.perf_counter() - t0, 1)})
+        del params, cpu_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bad:
+            raise AssertionError(f"prefix phase (parity): {bad}")
+        return {"int8_stream": kv8_counts}
+
+    cfg = LLAMA_7B
+    S = PREFIX_SERVE
+    rng = np.random.default_rng(0)
+    sysp = rng.integers(0, cfg.vocab_size, S["shared"])
+    prompts = [np.concatenate([sysp, rng.integers(0, cfg.vocab_size,
+                                                  S["tail"])])
+               .astype(np.int32) for _ in range(S["requests"])]
+    warm = np.concatenate([sysp, rng.integers(0, cfg.vocab_size, S["tail"])
+                           ]).astype(np.int32)
+    gen = _pgen(S["new"])
+    kernels.reset_launches()
+    rows, bad = {}, []
+    cold_eng, cold, wall = _prefix_stream(params, cfg, prompts, warm, gen)
+    rows["cold"] = _stream_row(cold_eng, cold, wall)
+    del cold_eng
+    torch.cuda.empty_cache()
+    warm_eng, warm_reqs, wall = _prefix_stream(params, cfg, prompts, warm,
+                                               gen, prefix_cache=True)
+    rows["warm"] = _stream_row(warm_eng, warm_reqs, wall)
+    rows["warm"]["common_prefix_with_cold"] = [
+        next((i for i, (a, b) in enumerate(zip(r.tokens, c.tokens))
+              if a != b), len(r.tokens)) for r, c in zip(warm_reqs, cold)]
+    progs = list(warm_eng._decode_fns.values())
+    if len(progs) != 1 or progs[0].graph is None:
+        bad.append(("serving", "warm decode step not one captured graph"))
+    else:
+        rows["warm"].update(graph_stats(progs[0]))
+    del warm_eng, progs
+    torch.cuda.empty_cache()
+    moved = {k: {"s": 0.0, "pages": 0, "bytes": 0}
+             for k in ("spill", "restore")}
+    off_eng, off_reqs, wall = _prefix_stream(
+        params, cfg, prompts, warm, gen,
+        on_engine=lambda e: _timed_offload(e, moved), prefix_cache=True,
+        kv_offload=True, num_blocks=PREFIX_OFFLOAD_BLOCKS)
+    rows["offload"] = _stream_row(off_eng, off_reqs, wall)
+    rows["offload"]["common_prefix_with_cold"] = [
+        next((i for i, (a, b) in enumerate(zip(r.tokens, c.tokens))
+              if a != b), len(r.tokens)) for r, c in zip(off_reqs, cold)]
+    # the tree's accounting before reset_metrics zeroes its counters (after
+    # it the spill identity no longer closes, as in the JAX engine)
+    checks = off_eng.mgr.check(False) + off_eng._pcache.check(False)
+    # the first 8 prompts again: their tails were spilled, the hits restore
+    off_eng.reset_metrics()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    again = [off_eng.submit(p, gen) for p in prompts[:8]]
+    off_eng.drain()
+    torch.cuda.synchronize()
+    rows["offload_repeat"] = _stream_row(off_eng, again,
+                                         time.perf_counter() - t1)
+    rows["offload_repeat"]["common_prefix_with_first_run"] = [
+        next((i for i, (a, b) in enumerate(zip(r.tokens, c.tokens))
+              if a != b), len(r.tokens)) for r, c in zip(again, off_reqs)]
+    off = rows["offload"]["offload"]
+    rows["offload_moved"] = {
+        k: dict(v, s=round(v["s"], 4),
+                gb_per_s=(round(v["bytes"] / v["s"] / 1e9, 3)
+                          if v["s"] else None))
+        for k, v in moved.items()}
+    rows["offload_moved"]["page_bytes"] = off_eng._page_nbytes
+    checks += off_eng.mgr.check(False)
+    del off_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_counts = {"launches": kernels.launches(),
+                    "by_pool": kernels.launches_by_pool()}
+    for r in cold + warm_reqs + off_reqs + again:
+        if not (r.done and len(r.tokens) == S["new"]
+                and all(0 <= t < cfg.vocab_size for t in r.tokens)):
+            raise AssertionError(f"prefix stream: request {r.req_id} "
+                                 f"unfinished or out of range")
+    c, w = rows["cold"], rows["warm"]
+    if w["prefill_tokens"] != c["prefill_tokens"] - w["tokens_skipped"]:
+        bad.append(("serving", "warm prefill tokens",
+                    w["prefill_tokens"], c["prefill_tokens"],
+                    w["tokens_skipped"]))
+    if not (w["hits"] == S["requests"] and w["tokens_skipped"]
+            >= S["requests"] * S["shared"]):
+        bad.append(("serving", "hits", w["hits"], w["tokens_skipped"]))
+    o = rows["offload"]
+    if o["prefill_tokens"] != c["prefill_tokens"] - o["tokens_skipped"]:
+        bad.append(("serving", "offload prefill tokens"))
+    rep = rows["offload_repeat"]["offload"]
+    if not (off["spilled_pages"] > 0 and rep["restored_pages"] > 0):
+        bad.append(("serving", "offload", off))
+    if checks:
+        bad.append(("serving", "checks", checks))
+    for k in ("cold", "warm", "offload", "offload_repeat"):
+        if rows[k]["decode_traces"] != 1 or any(
+                n > 1 for n in rows[k]["prefill_traces"].values()):
+            bad.append(("serving", k, "traces"))
+    # generate_paged: 4 prompts of 40-600 tokens, one call each
+    lens = [int(n) for n in np.random.default_rng(3).integers(40, 601, 4)]
+    gp_prompts = [np.random.default_rng(10 + i).integers(
+        0, cfg.vocab_size, (1, n)).astype(np.int32)
+        for i, n in enumerate(lens)]
+    g32 = _pgen(32)
+    from paddle_tpu_torch.quantization import quantize_weights
+    torch.cuda.synchronize()
+    tq = time.perf_counter()
+    q8 = quantize_weights(params, bits=8)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - tq
+    store = PagedKVCacheStore(cfg, block_size=16, num_blocks=512)
+    gp = {"prompt_tokens": lens, "new_tokens": 32,
+          "int8_quantize_s": round(quant_s, 3)}
+    runs = {"default": (params, {}), "int8_cache": (params,
+                                                    dict(cache_dtype="int8")),
+            "int8_weights": (q8, {}),
+            "store_cold": (params, dict(prefix_cache=store)),
+            "store_warm": (params, dict(prefix_cache=store))}
+    ids = {}
+    for name, (tree, kw) in runs.items():
+        ms, ids[name] = [], []
+        for p in gp_prompts:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            o = generate_paged(tree, p, cfg, g32, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3 / 32)
+            toks = o[0, p.shape[1]:].tolist()
+            if len(toks) != 32 or not all(0 <= x < cfg.vocab_size
+                                          for x in toks):
+                raise AssertionError(f"generate_paged {name}: {toks}")
+            ids[name].append(toks)
+        gp[name] = {"ms_per_token": [round(x, 3) for x in ms],
+                    "ms_per_token_mean": round(float(np.mean(ms)), 3)}
+    gp["store"] = store.metrics()
+    gp["store_warm_common_prefix_with_cold"] = [
+        next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+        for x, y in zip(ids["store_warm"], ids["store_cold"])]
+    if store.cache.stats["tokens_skipped"] != sum(n - 1 for n in lens):
+        bad.append(("generate_paged", "store tokens_skipped",
+                    store.cache.stats["tokens_skipped"]))
+    del q8, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "prefix", "size": size, "gpu": gpu, "model": "LLAMA_7B",
+          "layers": cfg.num_hidden_layers, "dtype": "bfloat16",
+          "stream": dict(S, offload_blocks=PREFIX_OFFLOAD_BLOCKS),
+          **rows, "generate_paged": gp,
+          "launches": {k: v for k, v in serve_counts["launches"].items()
+                       if v},
+          "failed": [list(map(str, b)) for b in bad],
+          "seconds": round(time.perf_counter() - t0, 1)})
+    if bad:
+        raise AssertionError(f"prefix phase (serving): {bad}")
+    return serve_counts
+
+
+# ---------------------------------------------------------------------------
 # training: flash attention, fused AdamW, the train step
 # ---------------------------------------------------------------------------
 # bench.py's LLAMA_LADDER rung "1.07B-h4096": LLaMA-7B widths, 4 layers
@@ -5276,7 +5914,22 @@ def demo_phase(gpu):
             "ok": True}
 
 
-def main():
+def prefix_only(gpu):
+    """``python3 chip_smoke.py prefix``: the build and the prefix phase
+    alone, both sizes (the serving size over the serving phases' seeded
+    tree)."""
+    import torch
+    from paddle_tpu_torch.models import LLAMA_7B, init_params
+    build_kernels()
+    prefix_phase(gpu, "parity")
+    prefix_phase(gpu, "serving", init_params(LLAMA_7B, seed=0))
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def main(argv=()):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -5287,6 +5940,12 @@ def main():
     from paddle_tpu_torch.ops.kernels._launch import capture_kernel_launches
     t_start = time.perf_counter()
     gpu = gpu_line()
+    if list(argv) == ["prefix"]:
+        return prefix_only(gpu)
+    if argv:
+        print(f"chip_smoke: unknown arguments {list(argv)}; run it with "
+              "none, or with 'prefix'", file=sys.stderr)
+        return 2
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
             *fused_mlp_phase(gpu), block_phase(gpu), prefill_attn_phase(gpu)]
@@ -5317,6 +5976,9 @@ def main():
     # this slice's main path: every route's decode step captured once and
     # replayed, against an eager twin, at the parity size
     graph_phase(gpu, "parity")
+    # this slice's main path: the radix prefix cache, its host tier and
+    # generate_paged, first at the parity size
+    prefix_counts = prefix_phase(gpu, "parity")
     params = init_params(LLAMA_7B, seed=0)
     counts, tokens = {}, {}
     prompts = None
@@ -5337,6 +5999,8 @@ def main():
     routes_phase(gpu, params, prompts, tokens)
     # and at the serving size, on the serving phases' tree
     graph_phase(gpu, "serving", params)
+    # and bench.py's prefix stream at the serving size
+    prefix_counts.update(prefix_phase(gpu, "serving", params))
     audit_phase(gpu, {"serving_default": (serving_specs, counts["default"]),
                       "train_default": (train_specs, train_counts)})
     del serving_specs, train_specs
@@ -5371,6 +6035,11 @@ def main():
     home = {"paged_attention_decode": "unfused",
             "decode_attn_block": "two_stage"}
     for row in rows:
+        # the prefix phase's serving-size launches (its stream cold, warm
+        # and over the host tier, and generate_paged with its int8 cache)
+        if row["name"] in ("decode_mlp_block", "decode_block_fused",
+                           "prefill_attn_block"):
+            row["prefix_launches"] = prefix_counts["launches"][row["name"]]
         if row["name"] == "decode_mlp_block[tc]":
             # the chunks' MLP on the default route, by bucket
             row["launches"] = counts["default"]["by_body"][
@@ -5418,6 +6087,10 @@ def main():
         row["launches_route"] = route
         if name == "decode_attn_block" and wd == "bfloat16":
             row["default_route_launches"] = counts["kv8_default"][name]
+        if row["name"] == "prefill_attn_block[kv8]":
+            # the prefix phase's int8-cache stream (f32, parity size)
+            row["prefix_launches"] = prefix_counts["int8_stream"][
+                "by_pool"][name]["int8"]
     rows += kv8_rows
     # the residual=False bodies' launches on the tensor-parallel routes:
     # the tp=1 and tp=2 psum routes (tp2_psum_kv8 for the int8-pool body);
@@ -5458,4 +6131,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

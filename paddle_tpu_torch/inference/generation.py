@@ -19,6 +19,12 @@ after the attention, each resolved through the kernel registry).
 layer one ``prefill_attn_block``, the chunk's pool write, one
 ``prefill_mlp_block``, straight over the pools.
 
+``generate_paged`` is the JAX package's paged serving loop: a dense
+prefill repacked into pools (or, over a persistent ``PagedKVCacheStore``,
+a radix prefix match and a suffix-only prefill per sequence), then decode
+steps over the pools in chunks of ``_DECODE_CHUNK`` steps
+(``_paged_chunk_runner``), every step run eagerly on the pools' device.
+
 Every function takes a weight-quantized tree (:mod:`..quantization`) as
 well as a plain one: the unfused products (``_mm``) dequantize each leaf
 first, and the fused steps hand the leaves to the kernels, which stream
@@ -34,6 +40,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -43,18 +50,19 @@ import torch
 
 from ..device import resolve_device
 from ..models import llama as _llama
+from ..models.llama import params_to
 from ..ops import rms_norm, swiglu
-from ..ops.paged_attention import (paged_attention_decode,
+from ..ops.paged_attention import (BlockManager, paged_attention_decode,
                                    paged_attention_decode_quant,
-                                   write_chunk_to_pool,
+                                   quantize_pools, write_chunk_to_pool,
                                    write_chunk_to_pool_quant, write_to_pool,
                                    write_to_pool_quant)
 from ..ops.rope import apply_rope, build_rope_cache
-from ..quantization.ptq import weight_quant_mode
+from ..quantization.ptq import ensure_quantized, weight_quant_mode
 from ..quantization.quanters import maybe_dequantize
 
 __all__ = ["GenerationConfig", "init_cache", "cached_forward",
-           "sample_token", "generate"]
+           "sample_token", "generate", "generate_paged"]
 
 _FUSED_MODES = ("auto", "pallas", "ref", "block")
 _FUSED_PREFILL_MODES = ("auto", "pallas", "ref")
@@ -187,19 +195,39 @@ def _gumbel(shape, generator, device):
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
 
 
+def _filter_logits(logits, gen: GenerationConfig):
+    """Temperature-scaled f32 logits [B, V] with the JAX package's top-k
+    and top-p filters applied (a filtered logit is -inf): top-k keeps the
+    logits at or above the k-th largest, top-p the smallest sorted set
+    whose cumulative probability reaches ``top_p`` (the top token
+    always)."""
+    logits = logits.float() / max(gen.temperature, 1e-6)
+    if gen.top_k > 0:
+        k = min(int(gen.top_k), logits.shape[-1])
+        kth = torch.sort(logits, dim=-1).values[:, -k][:, None]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if gen.top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        # the first sorted index whose cumulative probability reaches
+        # top_p (clamped: a sum that rounds short keeps every token)
+        cutoff_idx = torch.sum(cum < gen.top_p, dim=-1).clamp_max(
+            logits.shape[-1] - 1)
+        cutoff = sorted_logits.gather(-1, cutoff_idx[:, None])
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return logits
+
+
 def sample_token(logits, gen: GenerationConfig,
                  generator: Optional[torch.Generator] = None):
     """[B, V] -> [B] next tokens: greedy (``greedy`` or temperature 0;
-    the first maximum, as ``jnp.argmax``) or temperature sampling with
-    ``generator`` (Gumbel-max, the form of ``jax.random.categorical``;
-    the numbers differ from JAX's). Top-k/top-p come with a later
-    slice."""
-    logits = logits.float()
+    the first maximum, as ``jnp.argmax``), else temperature sampling with
+    ``generator`` over the top-k/top-p filtered logits
+    (:func:`_filter_logits`). The draw is Gumbel-max (the form of
+    ``jax.random.categorical``; the numbers differ from JAX's)."""
     if gen.greedy or gen.temperature == 0.0:
-        return torch.argmax(logits, dim=-1)
-    if gen.top_k > 0 or gen.top_p < 1.0:
-        raise NotImplementedError("top-k/top-p sampling is not ported yet")
-    logits = logits / max(gen.temperature, 1e-6)
+        return torch.argmax(logits.float(), dim=-1)
+    logits = _filter_logits(logits, gen)
     return torch.argmax(
         logits + _gumbel(logits.shape, generator, logits.device), dim=-1)
 
@@ -470,3 +498,458 @@ def _fused_prefill_forward(params, toks, cfg, k_pools, v_pools, table,
                    lp["up_proj"], lp["down_proj"], eps)
     x = rms_norm(x[None], params["final_norm"].to(x.dtype), eps)[0]
     return x @ _head(params), k_pools, v_pools
+
+
+# ---------------------------------------------------------------------------
+# generate_paged: the paged serving loop
+# ---------------------------------------------------------------------------
+_PAGED_CACHE: Dict = {}
+_FUSED_PREFILL_CACHE: Dict = {}
+_TP_PREFILL_CACHE: Dict = {}
+# decode steps a runner call takes (the JAX package's default chunk)
+_DECODE_CHUNK = 32
+
+
+def _cache_get(cache: Dict, key):
+    """LRU read: re-insert on a hit, so dict order follows recency."""
+    hit = cache.get(key)
+    if hit is not None:
+        del cache[key]
+        cache[key] = hit
+    return hit
+
+
+def _cache_put(cache: Dict, key, value):
+    if len(cache) > 16:            # evict the least recent runner only
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+    return value
+
+
+def _mesh_route(sm):
+    """The mesh's part of a runner-cache key: axis name, tp degree,
+    collective placement and the devices (two meshes over different cards
+    must not share a runner)."""
+    if sm is None:
+        return ()
+    return (sm.axis, sm.tp, sm.collective,
+            tuple(str(d) for d in sm.devices))
+
+
+def _route_key(mode):
+    """The inputs of dispatch beyond the shapes that a runner's steps
+    resolve: the registry's force pins, which "auto" dispatch reads."""
+    if mode not in ("auto", True):
+        return ()
+    from ..ops.kernels.registry import KERNELS
+    return KERNELS.forced_state()
+
+
+def _paged_chunk_runner(cfg, gen, quant=False, fused=False, sm=None,
+                        wq=None):
+    """The n-step decode loop of ``generate_paged`` (the JAX package's
+    jitted scan, run eagerly), cached per (cfg values, gen values, int8
+    pools, route and its pins, mesh, weight mode) as the JAX
+    ``_PAGED_CACHE`` is. Each step runs ``_fused_decode_step`` (route
+    ``fused``), ``_paged_decode_step`` (False) or, under a mesh,
+    ``tp._tp_decode_step``, then samples with the caller's generator; a
+    sequence that drew EOS keeps drawing EOS.
+
+    The runner: ``run(n, params, tok, generator, done, k_pools, v_pools,
+    seq_lens, block_tables, kv_scales, rope) -> (toks [n, B], tok, done,
+    seq_lens)``, the pools written in place."""
+    ck = (dataclasses.astuple(cfg), dataclasses.astuple(gen), bool(quant),
+          fused, _route_key(fused), _mesh_route(sm), wq)
+    cached = _cache_get(_PAGED_CACHE, ck)
+    if cached is not None:
+        return cached
+    if sm is not None:
+        from .tp import _tp_decode_step
+
+        def step(params, tok, kp, vp, bt, seq, kv_scales, rope):
+            return _tp_decode_step(params, tok, cfg, kp, vp, bt, seq, sm,
+                                   rope=rope, kv_scales=kv_scales,
+                                   fused=fused)
+    elif fused:
+        def step(params, tok, kp, vp, bt, seq, kv_scales, rope):
+            return _fused_decode_step(params, tok, cfg, kp, vp, bt, seq,
+                                      rope=rope, mode=fused,
+                                      kv_scales=kv_scales)
+    else:
+        def step(params, tok, kp, vp, bt, seq, kv_scales, rope):
+            return _paged_decode_step(params, tok, cfg, kp, vp, bt, seq,
+                                      rope=rope, kv_scales=kv_scales)
+
+    def run(n, params, tok, generator, done, k_pools, v_pools, seq_lens,
+            block_tables, kv_scales=None, rope=None):
+        toks = []
+        for _ in range(n):
+            logits, _, _ = step(params, tok, k_pools, v_pools, block_tables,
+                                seq_lens, kv_scales, rope)
+            nxt = sample_token(logits, gen, generator)
+            nxt = torch.where(done, gen.eos_token_id, nxt)
+            done = done | (nxt == gen.eos_token_id)
+            seq_lens = seq_lens + 1
+            toks.append(nxt)
+            tok = nxt
+        return torch.stack(toks), tok, done, seq_lens
+
+    return _cache_put(_PAGED_CACHE, ck, run)
+
+
+def _decode_chunks(chunk_fn, gen, params, tok, generator, k_pools, v_pools,
+                   seq_lens, block_tables, kv_scales, rope):
+    """The first sampled token ``tok`` [B] and ``gen.max_new_tokens - 1``
+    more from ``chunk_fn`` (a :func:`_paged_chunk_runner`),
+    ``_DECODE_CHUNK`` steps a call: [B, max_new_tokens]."""
+    done = tok == gen.eos_token_id
+    out = [tok[:, None]]
+    left = gen.max_new_tokens - 1
+    while left > 0:
+        n = min(_DECODE_CHUNK, left)
+        toks, tok, done, seq_lens = chunk_fn(
+            n, params, tok, generator, done, k_pools, v_pools, seq_lens,
+            block_tables, kv_scales, rope)
+        out.append(toks.T)
+        left -= n
+    return torch.cat(out, dim=1)
+
+
+def _suffix_prefill_runner(cfg, P, MB, mode):
+    """The prefix-store path's fused suffix prefill: one sequence's
+    un-cached suffix of exactly ``P`` tokens through
+    :func:`_fused_prefill_forward`, pool-direct (the warm prefix pages are
+    its paged history), cached per (cfg values, P, table width, mode,
+    pins) as the JAX runner is. The chunk goes in padded to the prefill
+    kernel's 16-row query blocks (``n_valid = P``: the pad rows' K/V go
+    to scratch page 0), so ``MB`` must cover ``pos0`` plus the padded
+    width. ``run(params, toks [P], pos0, table [MB], k_pools, v_pools,
+    wtable [MB], rope) -> logits [V]`` of the last suffix token."""
+    from ..ops.kernels.fused_prefill_block import BQ
+    ck = (dataclasses.astuple(cfg), P, MB, mode, _route_key(mode))
+    cached = _cache_get(_FUSED_PREFILL_CACHE, ck)
+    if cached is not None:
+        return cached
+    P_pad = -(-P // BQ) * BQ
+
+    def run(params, toks, pos0, table, k_pools, v_pools, wtable, rope=None):
+        dev = k_pools.device
+        padded = torch.zeros(P_pad, dtype=torch.long, device=dev)
+        padded[:P] = toks
+        logits, _, _ = _fused_prefill_forward(
+            params, padded, cfg, k_pools, v_pools, table, wtable, pos0, P,
+            rope=rope, mode=mode)
+        return logits[P - 1]
+
+    return _cache_put(_FUSED_PREFILL_CACHE, ck, run)
+
+
+def _tp_prefill_runner(cfg, sm, B, S, T):
+    """The tensor-parallel dense prefill of ``generate_paged``: each
+    shard's own dense cache [L, B, T, KV_loc, hd] built on its device and
+    ``tp._tp_cached_forward`` over them, cached per (cfg values, geometry,
+    mesh) as the JAX runner is. ``run(shards, ids) -> (logits [B, S, V],
+    k_caches, v_caches)``."""
+    ck = (dataclasses.astuple(cfg), B, S, T, _mesh_route(sm))
+    cached = _cache_get(_TP_PREFILL_CACHE, ck)
+    if cached is not None:
+        return cached
+    from .tp import _tp_cached_forward
+    L, hd = cfg.num_hidden_layers, cfg.head_dim
+    KV_loc = cfg.num_key_value_heads // sm.tp
+
+    def run(shards, ids):
+        shape = (L, B, T, KV_loc, hd)
+        kcs, vcs = ([torch.zeros(shape, dtype=cfg.dtype, device=d)
+                     for d in sm.devices] for _ in range(2))
+        return _tp_cached_forward(shards, ids, cfg, kcs, vcs, 0, sm)
+
+    return _cache_put(_TP_PREFILL_CACHE, ck, run)
+
+
+def _scatter_prefill_pages(kp, vp, wtable, kc, vc):
+    """One sequence's dense prefill view [L, 1, MB*BS, KV, hd] back into
+    the pools [L, N, BS, KV, hd] through its WRITE table [MB], in place
+    (shared entries are page 0: those duplicate writes land on the scratch
+    page, which nothing reads)."""
+    L, _, BS, KV, hd = kp.shape
+    MB = wtable.shape[0]
+    kp[:, wtable] = kc.reshape(L, MB, BS, KV, hd).to(kp.dtype)
+    vp[:, wtable] = vc.reshape(L, MB, BS, KV, hd).to(vp.dtype)
+    return kp, vp
+
+
+def _quantize_layer_pools(k_pools, v_pools):
+    """[L, N, BS, KV, hd] pools -> int8 pools and their (k_scale [L, KV],
+    v_scale [L, KV]): :func:`quantize_pools` a layer (the JAX package
+    vmaps it over the layers)."""
+    per = [quantize_pools(k_pools[i], v_pools[i])
+           for i in range(k_pools.shape[0])]
+    return tuple(torch.stack([p[j] for p in per]) for j in range(4))
+
+
+_FP_CACHE_DTYPES = (None, "bfloat16", "float32", torch.bfloat16,
+                    torch.float32)
+
+
+def generate_paged(params: Dict, input_ids, cfg: _llama.LlamaConfig,
+                   gen: Optional[GenerationConfig] = None,
+                   block_size: int = 16, seed: int = 0, cache_dtype=None,
+                   prefix_cache=None, observability=None,
+                   fused_decode=None, mesh=None, fused_prefill=None,
+                   weight_quant=None, device=None) -> torch.Tensor:
+    """vLLM-style serving loop over a paged KV cache (the JAX package's
+    ``generate_paged``). input_ids [B, S] -> [B, S + N].
+
+    The prompts prefill through the dense cache (``cached_forward``), the
+    dense cache is repacked into pools of ``block_size``-token pages (every
+    sequence's whole generation allocated up front by a ``BlockManager``),
+    then the decode steps run over the pools in chunks of
+    ``_DECODE_CHUNK`` (:func:`_paged_chunk_runner`), eagerly.
+
+    ``cache_dtype="int8"``: the pools quantize after the prefill with
+    static per-layer, per-head scales from their absmax (the port's
+    ``quantize_pools``), and decode reads int8 pages.
+    ``prefix_cache``: a :class:`~.prefix_cache.PagedKVCacheStore` whose
+    pools and radix tree outlive the call: each prompt longest-prefix
+    matches the store and prefills only its un-cached suffix (fused
+    through :func:`_fused_prefill_forward` where ``fused_prefill``
+    dispatches both prefill ops to the CUDA kernels, else the dense chunk
+    over a gathered view), the shared pages never written; finished
+    sequences are indexed back into the tree. fp caches only (int8 is
+    refused, as in the JAX package); not under a mesh.
+    ``fused_decode``: the decode route, as the engine's (None/True/"auto"
+    the registry's pick, "pallas"/"block" the CUDA kernels, "ref" the
+    composition, False the unfused step). ``mesh``: a ``ServingMesh`` (or
+    an int tp): the prefill and the decode steps run tensor-parallel over
+    the head axis (``inference/tp.py``), pools per shard.
+    ``weight_quant``: "int8"/"int4" quantizes a plain tree once on the
+    way in (a quantized tree rides as-is); not with a mesh, as in the JAX
+    package. ``observability`` raises: the harness is not ported (ROADMAP
+    A8). ``device``: None is CUDA (a mesh's shard 0, a store's device),
+    ``"cpu"`` the plain versions; ``params`` move there."""
+    from .tp import normalize_mesh
+    gen = gen or GenerationConfig()
+    if observability:
+        raise NotImplementedError(
+            "generate_paged(observability=...): the observability harness "
+            "is not ported yet (ROADMAP A8)")
+    fused = _fused_mode(fused_decode)
+    sm = normalize_mesh(mesh)
+    if sm is not None:
+        home = sm.devices[0]
+    elif prefix_cache is not None:
+        home = prefix_cache.device
+    else:
+        home = resolve_device(device)
+    if device is not None and resolve_device(device) != home:
+        raise ValueError(f"generate_paged(device={device!r}) is not the "
+                         f"mesh's or the store's device {home}")
+    params, wq_mode = ensure_quantized(params_to(params, home), weight_quant)
+    if wq_mode is not None and sm is not None:
+        raise ValueError(
+            "generate_paged(weight_quant=...) does not take a mesh: "
+            "sharding quantized weight trees (packed int4 + per-channel"
+            " scales) over tp > 1 is named headroom — run quantized "
+            "serving single-device, or use ServingEngine with tp=1 "
+            "groups")
+    if sm is not None:
+        ok, reason = sm.supports(cfg)
+        if not ok:
+            raise ValueError(f"generate_paged(mesh=...): {reason}")
+        if prefix_cache is not None:
+            raise NotImplementedError(
+                "generate_paged(prefix_cache=...) does not take a mesh:"
+                " the persistent store owns single-device pools that "
+                "outlive the call. Use ServingEngine(mesh=..., "
+                "prefix_cache=True) for sharded prefix sharing")
+    if cache_dtype not in _FP_CACHE_DTYPES + ("int8", torch.int8):
+        raise ValueError(f"cache_dtype must be bfloat16|float32|int8, "
+                         f"got {cache_dtype!r}")
+    if prefix_cache is not None:
+        return _generate_paged_prefix(
+            params, input_ids, cfg, gen, block_size, seed, cache_dtype,
+            prefix_cache, fused=fused,
+            fused_prefill=_fused_prefill_mode(fused_prefill), wq=wq_mode)
+    ids = torch.as_tensor(np.asarray(input_ids), device=home).long()
+    B, S = ids.shape
+    T = S + gen.max_new_tokens
+    if T > cfg.max_position_embeddings:
+        raise ValueError(
+            f"prompt+max_new_tokens = {T} exceeds max_position_embeddings "
+            f"= {cfg.max_position_embeddings} (rope table bound)")
+    L, hd = cfg.num_hidden_layers, cfg.head_dim
+    BS = block_size
+    MB = -(-T // BS)
+    num_blocks = B * MB + 1
+
+    # prefill with the dense cache, then repack into pools
+    if sm is None:
+        k_cache, v_cache = init_cache(cfg, B, T, device=home)
+        logits, k_cache, v_cache = cached_forward(params, ids, cfg, k_cache,
+                                                  v_cache, 0)
+        kcs, vcs = [k_cache], [v_cache]
+    else:
+        params = sm.shard(params, sm.param_specs(cfg, params))
+        logits, kcs, vcs = _tp_prefill_runner(cfg, sm, B, S, T)(params, ids)
+
+    mgr = BlockManager(num_blocks, BS, MB)
+    for sid in range(B):
+        # the whole generation up front: the steps' tables stay fixed
+        mgr.allocate(sid, T)
+    tables = mgr.table_array(range(B))
+    flat = torch.as_tensor(tables.reshape(-1), device=home).long()
+    pad = MB * BS - T
+    k_pools, v_pools = [], []
+    for kc, vc in zip(kcs, vcs):
+        KVl, dev = kc.shape[3], kc.device
+        for dense, pools in ((kc, k_pools), (vc, v_pools)):
+            pool = torch.zeros((L, num_blocks, BS, KVl, hd),
+                               dtype=dense.dtype, device=dev)
+            dense = torch.nn.functional.pad(dense, (0, 0, 0, 0, 0, pad))
+            pool[:, flat.to(dev)] = dense.reshape(L, B * MB, BS, KVl, hd)
+            pools.append(pool)
+
+    kv_scales = None
+    if cache_dtype in ("int8", torch.int8):
+        # static per-layer, per-head scales from the prefill KV; each
+        # shard quantizes its own heads (the same scales: a head lies in
+        # one shard)
+        shard_scales = []
+        for i in range(len(k_pools)):
+            k_pools[i], v_pools[i], ks, vs = _quantize_layer_pools(
+                k_pools[i], v_pools[i])
+            shard_scales.append((ks, vs))
+        kv_scales = shard_scales if sm is not None else shard_scales[0]
+    if sm is None:
+        k_pools, v_pools = k_pools[0], v_pools[0]
+
+    chunk_fn = _paged_chunk_runner(cfg, gen, quant=kv_scales is not None,
+                                   fused=fused, sm=sm, wq=wq_mode)
+    rope = build_rope_cache(cfg.max_position_embeddings, hd,
+                            base=cfg.rope_theta, device=home)
+    generator = torch.Generator(device=home).manual_seed(int(seed))
+    out = _decode_chunks(
+        chunk_fn, gen, params, sample_token(logits[:, -1], gen, generator), generator, k_pools,
+        v_pools, torch.full((B,), S, dtype=torch.int32, device=home),
+        torch.as_tensor(tables, device=home), kv_scales, rope)
+    return torch.cat([ids, out], dim=1)
+
+
+def _generate_paged_prefix(params, input_ids, cfg, gen, block_size, seed,
+                           cache_dtype, store, fused=False,
+                           fused_prefill=False, wq=None):
+    """``generate_paged`` over a persistent ``PagedKVCacheStore``.
+
+    Admission longest-prefix-matches each prompt against the store's radix
+    tree (full pages shared in place, the partial tail as a COW fork) and
+    prefills only the un-cached suffix, one sequence at a time (each has
+    its own start position): pool-direct through the fused prefill ops
+    where ``fused_prefill`` selects both CUDA kernels, else the dense
+    chunk over the sequence's gathered pages scattered back through a
+    WRITE table whose shared entries are page 0, so shared pages are never
+    written. Decode runs the cold path's chunk runner; finished sequences
+    are indexed back into the tree (cut at the first EOS) and released."""
+    from ..ops.kernels.fused_prefill_block import (BQ, prefill_fused_selected,
+                                                   prefill_meta)
+    if cache_dtype not in _FP_CACHE_DTYPES:
+        raise ValueError(
+            "generate_paged(prefix_cache=...) supports bf16/f32 caches "
+            f"only, got cache_dtype={cache_dtype!r}: the int8 path "
+            "recalibrates per call, which cannot share pages that "
+            "outlive the call (use ServingEngine's static-scale int8)")
+    if int(block_size) != store.block_size:
+        raise ValueError(
+            f"block_size {block_size} != prefix store block_size "
+            f"{store.block_size}")
+    dev = store.device
+    prompts = np.asarray(input_ids, np.int32)
+    B, S = prompts.shape
+    T = S + gen.max_new_tokens
+    if T > cfg.max_position_embeddings:
+        raise ValueError(
+            f"prompt+max_new_tokens = {T} exceeds max_position_embeddings "
+            f"= {cfg.max_position_embeddings} (rope table bound)")
+    L, KV, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    BS = store.block_size
+    MB = -(-T // BS)
+    # the fused suffix's table: wide enough for pos0 plus the padded chunk
+    MBw = -(-(T + BQ) // BS)
+    mgr, cache = store.mgr, store.cache
+
+    seq_ids, matched_ns, shared_ns = [], [], []
+    tables = np.zeros((B, MB), np.int32)
+    for b in range(B):
+        sid = store.next_seq_id
+        store.next_seq_id += 1
+        got = cache.acquire(prompts[b], S - 1, MB)
+        if got is None:
+            for done_sid in seq_ids:
+                mgr.release(done_sid)
+            raise RuntimeError(
+                f"prefix store pool exhausted: batch needs up to "
+                f"{B * MB} pages, store has {store.num_blocks - 1}")
+        pages, matched, shared = got
+        mgr.attach(sid, pages, owned=True)
+        t = mgr.allocate(sid, T)
+        tables[b, :len(t)] = t
+        seq_ids.append(sid)
+        matched_ns.append(matched)
+        shared_ns.append(shared)
+
+    rope = build_rope_cache(max(MBw * BS, cfg.max_position_embeddings), hd,
+                            base=cfg.rope_theta, device=dev)
+    ids = torch.as_tensor(prompts, device=dev).long()
+    logits_last = []
+    for b in range(B):
+        M = matched_ns[b]
+        wt = tables[b].copy()
+        wt[:shared_ns[b]] = 0              # never write a shared page
+        P = S - M
+        use_fused = bool(fused_prefill) and prefill_fused_selected(
+            prefill_meta(cfg, -(-P // BQ) * BQ, BS, MBw,
+                         store.k_pools.dtype, False, weight_dtype=wq,
+                         device=dev), fused_prefill)
+        if use_fused:
+            wide = np.zeros((2, MBw), np.int32)
+            wide[0, :MB], wide[1, :MB] = tables[b], wt
+            wide = torch.as_tensor(wide, device=dev)
+            run = _suffix_prefill_runner(cfg, P, MBw, fused_prefill)
+            logits_last.append(run(params, ids[b, M:], M, wide[0],
+                                   store.k_pools, store.v_pools, wide[1],
+                                   rope)[None])
+        else:
+            tb = torch.as_tensor(tables[b], device=dev).long()
+            kc = store.k_pools[:, tb].reshape(L, 1, MB * BS, KV, hd)
+            vc = store.v_pools[:, tb].reshape(L, 1, MB * BS, KV, hd)
+            lg, kc, vc = cached_forward(params, ids[b:b + 1, M:], cfg, kc,
+                                        vc, M)
+            _scatter_prefill_pages(store.k_pools, store.v_pools,
+                                   torch.as_tensor(wt, device=dev).long(),
+                                   kc, vc)
+            logits_last.append(lg[:, -1])
+
+    generator = torch.Generator(device=dev).manual_seed(int(seed))
+    out = _decode_chunks(
+        _paged_chunk_runner(cfg, gen, quant=False, fused=fused, wq=wq),
+        gen, params,
+        sample_token(torch.cat(logits_last, dim=0), gen, generator),
+        generator, store.k_pools, store.v_pools,
+        torch.full((B,), S, dtype=torch.int32, device=dev),
+        torch.as_tensor(tables, device=dev), None, rope)       # [B, N]
+
+    out_np = out.cpu().numpy()
+    for b in range(B):
+        # KV is valid for prompt + N-1 generated tokens (the last one's
+        # KV was never written); forced-EOS padding after the first EOS
+        # is not traffic, so the index stops there
+        valid = gen.max_new_tokens - 1
+        if gen.eos_token_id >= 0:
+            hits = np.nonzero(out_np[b] == gen.eos_token_id)[0]
+            if hits.size:
+                valid = min(valid, int(hits[0]) + 1)
+        seq = np.concatenate([prompts[b], out_np[b, :valid]])
+        cache.insert(seq, list(mgr.tables.get(seq_ids[b], ())))
+        mgr.release(seq_ids[b])
+    return torch.cat([ids, out], dim=1)

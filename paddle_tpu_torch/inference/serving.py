@@ -16,12 +16,26 @@ prefill chunk; fp or int8 pools).
   into a dense [L, 1, MB*BS, KV, hd] view, runs ``cached_forward``'s math
   (that of ``generate``'s prefill, as ``_tp_cached_forward`` over one
   "gather" shard: the same op sequence) and scatters the whole view back
-  through the request's table. Padded table entries and pad rows go to
-  page 0, so the duplicate writes of the in-place scatters
-  (``index_put_``) all land on the scratch page. (The JAX engine writes through a separate WRITE
-  table that redirects prefix-cache pages to scratch; without a prefix
-  cache the two tables are equal, and the port adds it with the prefix
-  cache.)
+  through the request's WRITE table. Both chunks write through the WRITE
+  table, the read table with the prefix cache's shared pages sent to
+  scratch page 0: a shared page never receives a prefill write. Padded
+  table entries and pad rows go to page 0 too, so the duplicate writes of
+  the in-place scatters (``index_put_``) all land on the scratch page.
+- RADIX PREFIX CACHE (``prefix_cache=True``, ``inference/prefix_cache.py``):
+  at admission a prompt longest-prefix matches the tree (capped at S-1
+  tokens), its full matched pages join its table shared in place, a
+  matched partial tail is COW-forked (one page copied on the device,
+  ``make_page_copier``), and only the suffix prefills. The prompt is
+  indexed when its prefill completes and again, with the generated
+  tokens, when the request finishes. The pages are host bookkeeping, so
+  neither the captured decode step nor a bucket's chunk route changes
+  with a hit: shared pages reach the decode step through its table
+  buffer. It works over int8 pools (the engine's static scales) and
+  under a mesh (page indices are global). ``kv_offload=True`` (or an int
+  host-page budget) adds the host tier: eviction spills pages to pinned
+  host memory in windows of ``_OFFLOAD_WINDOW`` pages, without a host
+  sync, and a hit restores them byte for byte (``_spill_pages``,
+  ``_restore_pages``).
 - SLOT RECYCLING, priority/deadline admission and preemption with
   bit-identical resume, as in the JAX package.
 - INT8 CACHE (``cache_dtype="int8"``): the pools store int8 with static
@@ -75,8 +89,10 @@ JAX engine does: a plain tree is quantized once in the constructor, on
 the engine's device; the fused routes run the kernels' quantized-weight
 bodies, the unfused routes dequantize before each product;
 ``weight_quant_variant`` reports it. It composes with the int8 cache.
-The prefix cache, host offload, observability and telemetry come with
-later slices: their constructor arguments raise here.
+Observability and telemetry come with a later slice: their constructor
+arguments raise here. ``PADDLE_TPU_CHECK_INVARIANTS=1`` runs the
+allocator's and the tree's ``check()`` after every step (the JAX
+engine's opt-in self-check).
 
 THE DECODE PROGRAM (the JAX engine's ``_make_decode_fn``, one jitted step
 a dispatch): the step's carried state is fixed buffers on the engine's
@@ -103,14 +119,21 @@ plus ``decode_step_ms_mean``. ``decode_traces`` counts the decode
 program's captures on CUDA (as ``jax.jit`` traces once: 1 an engine) and
 its builds on the CPU (1); ``prefill_traces`` counts how often a bucket's
 chunk route is resolved (at most 1 per bucket) and ``calibration_traces``
-the int8 cache's calibrations (one an engine); the offload counters and
-the spill and restore bytes stay 0 until the host tier is ported.
+the int8 cache's calibrations (one an engine), ``offload_traces`` the
+host tier's spill and restore paths at their first use (at most 1 each,
+as the JAX engine's two programs trace once), and ``kv_spill_bytes`` /
+``kv_restore_bytes`` the bytes the tier moved each way (both pools, all
+layers, a page). With a prefix cache ``metrics()["prefix_cache"]`` and
+``scheduler_snapshot()["prefix_cache"]`` carry the tree's counters;
+``offload_metrics()``, ``prefix_summary()`` and ``prefix_cache_version``
+are the JAX engine's.
 ``roofline`` models each decode route's bytes a step against the H100's
 memory rate (``observability/roofline.py``), with 1-byte pools for the
 int8 cache.
 """
 from __future__ import annotations
 
+import os
 import time
 import weakref
 from dataclasses import dataclass, field
@@ -135,6 +158,7 @@ from .tp import (ServingMesh, _tp_cached_forward, _tp_decode_step,
 __all__ = ["Request", "ServingEngine"]
 
 _SCRATCH_SEQ = -1      # BlockManager key owning the reserved page 0
+_OFFLOAD_WINDOW = 8    # pages a spill or restore transfer moves at most
 
 
 def _sample_slots(logits, generator, temps):
@@ -323,10 +347,10 @@ class ServingEngine:
         if self._mesh is not None:
             self._check_mesh(cfg, normalize_weight_quant(weight_quant)
                              or weight_quant_mode(params))
-        if prefix_cache or kv_offload:
-            _not_ported("prefix_cache/kv_offload",
-                        prefix_cache or kv_offload,
-                        "the radix prefix cache and its host tier")
+        if kv_offload and not prefix_cache:
+            raise ValueError(
+                "kv_offload requires prefix_cache=True: the host tier "
+                "spills radix-tree pages, not per-request tables")
         if cache_dtype in ("int8", torch.int8):
             self._quant = True
         elif cache_dtype in (None, "bfloat16", "float32", torch.bfloat16,
@@ -356,6 +380,10 @@ class ServingEngine:
                     f'{knob}="{mode}" forces the CUDA kernels, which do '
                     f"not run on {self.device}; use 'auto' or 'ref' there")
         self._clock = clock if clock is not None else time.perf_counter
+        # opt-in per-step self-check: the allocator's and the tree's
+        # invariants after every step (they walk the pool and the tree)
+        self._check_inv = os.environ.get(
+            "PADDLE_TPU_CHECK_INVARIANTS", "") == "1"
         # weight quantization (quantization/ptq.py): "int8"/"int4"
         # quantizes a plain tree once, on the engine's device; a quantized
         # tree rides as-is and None adopts its mode; a requested mode that
@@ -422,6 +450,28 @@ class ServingEngine:
         scratch = self.mgr.allocate(_SCRATCH_SEQ, 1)
         if scratch != [0]:
             raise RuntimeError("scratch must be page 0 (tables pad with 0)")
+        # the radix prefix cache and its host tier: kv_offload=True (or an
+        # int host-page budget) spills evicted tree pages to host memory
+        # and restores them on a hit
+        self._pcache = None
+        self._kv_offload = bool(kv_offload)
+        # one page across both pools, all layers, in bytes (the spill and
+        # restore byte counters)
+        self._page_nbytes = int(2 * L * BS * KV * hd * torch.empty(
+            (), dtype=self._pool_dtype).element_size())
+        # the offload directions used so far ("spill", "restore")
+        self._offload_paths = set()
+        if prefix_cache:
+            from .prefix_cache import PrefixCache, make_page_copier
+            self._copy_fn = make_page_copier()
+            budget = (int(kv_offload)
+                      if kv_offload and kv_offload is not True else None)
+            self._pcache = PrefixCache(
+                self.mgr, BS, copy_page=self._copy_page,
+                spill_pages=self._spill_pages if kv_offload else None,
+                restore_pages=(self._restore_pages if kv_offload
+                               else None),
+                host_budget_pages=budget)
 
         C, MB = self.capacity, self.max_blocks
         self._slots = [_Slot() for _ in range(C)]
@@ -433,6 +483,10 @@ class ServingEngine:
         self._requests: List[Request] = []
         self._next_id = 0
         self._slot_tables = np.zeros((C, MB), np.int32)
+        # prefill WRITE tables: the true tables with the shared prefix
+        # entries sent to scratch page 0, so no prefill chunk writes a page
+        # another request or the tree reads
+        self._slot_wtables = np.zeros((C, MB), np.int32)
         # the decode program's inputs: fixed buffers on the device, each
         # with its host mirror (pinned on CUDA; the _h_* arrays are numpy
         # views of them), copied in when the host changes them (_dirty).
@@ -461,8 +515,7 @@ class ServingEngine:
         self._stream = (torch.cuda.Stream(self.device) if pin else None)
         # the JAX engine's counters; decode_traces counts the decode
         # program's captures (builds on the CPU), the other *_traces route
-        # resolutions and calibrations (module docstring), the offload ones
-        # stay 0 without a host tier
+        # resolutions, calibrations and offload paths (module docstring)
         self.counters = {
             "decode_traces": 0, "prefill_traces": {},
             "calibration_traces": 0, "decode_steps": 0,
@@ -541,6 +594,70 @@ class ServingEngine:
         which the scheduler goes on mutating)."""
         return torch.from_numpy(np.array(x)).to(self.device)
 
+    def _copy_page(self, src: int, dst: int):
+        """The prefix cache's COW copy: page ``src`` -> ``dst`` of every
+        layer in both pools (every shard's), on the device."""
+        self._copy_fn(self._k_pools, self._v_pools, src, dst)
+
+    # -- host-RAM KV offload tier -------------------------------------
+    def _pool_pairs(self):
+        """(k pool, v pool) of each shard (one pair meshless)."""
+        if self._mesh is None:
+            return [(self._k_pools, self._v_pools)]
+        return list(zip(self._k_pools, self._v_pools))
+
+    def _count_offload(self, path: str):
+        if path not in self._offload_paths:
+            self._offload_paths.add(path)
+            self.counters["offload_traces"] += 1
+
+    def _spill_pages(self, pages):
+        """The prefix cache's batch spill: the pages' raw bytes to host
+        memory, ``_OFFLOAD_WINDOW`` pages a transfer: each pool's window
+        gathered on the device page-major ([W, L, BS, KV, hd], contiguous)
+        and copied into pinned memory without a host sync
+        (:func:`~.prefix_cache.host_put`). Returns one payload a page: a
+        (k, v) pair of contiguous [L, BS, KV, hd] host views a shard;
+        only :meth:`_restore_pages` reads them, after a copy ordered
+        behind the spill's on the same stream."""
+        from .prefix_cache import host_put
+        self._count_offload("spill")
+        payloads = []
+        for w0 in range(0, len(pages), _OFFLOAD_WINDOW):
+            win = [int(p) for p in pages[w0:w0 + _OFFLOAD_WINDOW]]
+            per_shard = []
+            for kp, vp in self._pool_pairs():
+                idx = torch.as_tensor(win, device=kp.device)
+                per_shard.append(tuple(
+                    host_put(p[:, idx].transpose(0, 1).contiguous())
+                    for p in (kp, vp)))
+            for j in range(len(win)):
+                payloads.append(tuple((k[j], v[j]) for k, v in per_shard))
+        self.counters["kv_spill_bytes"] += self._page_nbytes * len(pages)
+        return payloads
+
+    def _restore_pages(self, payloads, dsts):
+        """The prefix cache's batch restore: the spilled bytes back into
+        pages ``dsts``, byte for byte, ``_OFFLOAD_WINDOW`` pages a
+        transfer: each page copied from its pinned payload into a window
+        on the device without a host sync, then the window written into
+        the pool's pages. The copies are ordered before the suffix prefill
+        chunk that reads the pages next, on the same stream."""
+        self._count_offload("restore")
+        for w0 in range(0, len(dsts), _OFFLOAD_WINDOW):
+            win_d = [int(d) for d in dsts[w0:w0 + _OFFLOAD_WINDOW]]
+            win_p = payloads[w0:w0 + _OFFLOAD_WINDOW]
+            for s, (kp, vp) in enumerate(self._pool_pairs()):
+                idx = torch.as_tensor(win_d, device=kp.device)
+                for j_pool, pool in enumerate((kp, vp)):
+                    buf = torch.empty((len(win_d),) + pool.shape[:1]
+                                      + pool.shape[2:], dtype=pool.dtype,
+                                      device=pool.device)
+                    for j, payload in enumerate(win_p):
+                        buf[j].copy_(payload[s][j_pool], non_blocking=True)
+                    pool[:, idx] = buf.transpose(0, 1)
+        self.counters["kv_restore_bytes"] += self._page_nbytes * len(dsts)
+
     # -- public API ---------------------------------------------------
     def _alloc_tokens(self, req: Request) -> int:
         """Token span the engine allocates KV pages for: prompt plus
@@ -600,6 +717,12 @@ class ServingEngine:
         did = self._run_decode() or did
         if did:
             self._t_last = self._clock()
+        if self._check_inv:
+            # PADDLE_TPU_CHECK_INVARIANTS=1: the allocator's and the
+            # tree's invariants after every step
+            self.mgr.check()
+            if self._pcache is not None:
+                self._pcache.check()
         return did or expired > 0
 
     @property
@@ -616,11 +739,38 @@ class ServingEngine:
     def live_slots(self) -> int:
         return sum(1 for s in self._slots if s.phase != "idle")
 
+    @property
+    def prefix_cache_version(self) -> int:
+        """Monotone radix-tree version (0 without a prefix cache): a
+        router refreshes its cached tree summary when this moves."""
+        return 0 if self._pcache is None else self._pcache.version
+
+    def prefix_summary(self) -> Dict[int, int]:
+        """The router's tree summary: ``{prefix_hash: n_tokens}`` for every
+        page-aligned cached path (empty without a prefix cache)."""
+        return {} if self._pcache is None else self._pcache.summary()
+
+    def offload_metrics(self) -> Dict:
+        """The host tier's report (the JAX engine's keys): page counts from
+        the radix tree, bytes from the engine's counters. All zeros
+        without ``kv_offload``."""
+        pc = self._pcache.stats if self._pcache is not None else {}
+        return {
+            "spilled_pages": pc.get("spilled_pages", 0),
+            "restored_pages": pc.get("restored_pages", 0),
+            "readopted_pages": pc.get("readopted_pages", 0),
+            "host_evicted_pages": pc.get("host_evicted_pages", 0),
+            "host_pages": (self._pcache.host_pages
+                           if self._pcache is not None else 0),
+            "spill_bytes": self.counters["kv_spill_bytes"],
+            "restore_bytes": self.counters["kv_restore_bytes"],
+        }
+
     def scheduler_snapshot(self) -> Dict:
         """Host-side scheduler state: queue depth, the first 16 queued
-        requests, slot phases, per-slot seq_len, free pages (the JAX
-        engine's, without its prefix-cache entry)."""
-        return {
+        requests, slot phases, per-slot seq_len, free pages and, with a
+        prefix cache, its counters (the JAX engine's)."""
+        snap = {
             "queue_depth": len(self._queue),
             "queued": [{"req_id": e.item.req_id,
                         "prompt_tokens": int(e.item.prompt.size),
@@ -639,6 +789,9 @@ class ServingEngine:
             "num_blocks": self.num_blocks,
             "capacity": self.capacity,
         }
+        if self._pcache is not None:
+            snap["prefix_cache"] = self._pcache.metrics()
+        return snap
 
     def drain(self, max_steps: Optional[int] = None) -> int:
         """Step until queue and slots are empty; returns the step count.
@@ -695,6 +848,8 @@ class ServingEngine:
         c["weight_quant_variant"] = self.weight_quant_variant
         c["roofline"] = self._roofline_metrics(c["decode_step_ms_mean"])
         c["scheduler"] = self._scheduler_metrics()
+        if self._pcache is not None:
+            c["prefix_cache"] = self._pcache.metrics()
         if self._mesh is not None:
             c["mesh"] = self._mesh.describe()
         return c
@@ -703,7 +858,8 @@ class ServingEngine:
         """Zero the throughput counters and timers (e.g. after a warm-up
         pass), as the JAX engine does. The trace counters are cumulative
         and stay; TTFTs of requests that got their first token before
-        this call leave the mean."""
+        this call leave the mean. With a prefix cache its workload
+        counters restart as well; the cached pages stay."""
         for k in ("decode_steps", "prefill_chunks", "prefill_tokens",
                   "prefill_pad_tokens",
                   "live_slot_steps", "tokens_generated",
@@ -714,6 +870,10 @@ class ServingEngine:
             self.counters[k] = 0
         self._sched_cls = {}
         self._slo = [0, 0]
+        if self._pcache is not None:
+            # the tree's workload counters restart too (its pages stay)
+            for k in self._pcache.stats:
+                self._pcache.stats[k] = 0
         self._decode_ms = 0.0
         self._t_first = self._t_last = None
         self._metrics_reset_t = self._clock()
@@ -892,7 +1052,9 @@ class ServingEngine:
                 victim = self._preempt_candidate(req)
                 if victim is None:
                     break
-            if req.resume is None and not self._acquire_pages(req):
+            ok, acquired = ((True, None) if req.resume is not None
+                            else self._acquire_pages(req))
+            if not ok:
                 # the line head is page-starved. Fresh requests may not
                 # overtake it, but a RESUME entry allocates nothing and
                 # holds pages whose release may be what the head waits
@@ -917,21 +1079,37 @@ class ServingEngine:
                 # the static scales come from the first admitted prompt,
                 # before any chunk or decode step reads the pools
                 self._calibrate(req.prompt)
+            matched = shared = 0
+            if acquired is not None:
+                pages, matched, shared = acquired
+                # the matched pages join the table; their references pass
+                # to the request's table entries
+                self.mgr.attach(req.req_id, pages, owned=True)
             table = self.mgr.allocate(req.req_id, self._alloc_tokens(req))
             slot.req = req
             slot.phase = "prefill"
             slot.seq_len = 0
-            slot.prefill_pos = 0
+            slot.prefill_pos = matched     # prefill only the suffix
             self._slot_tables[slot_id] = 0
             self._slot_tables[slot_id, :len(table)] = table
+            self._slot_wtables[slot_id] = self._slot_tables[slot_id]
+            self._slot_wtables[slot_id, :shared] = 0
             self._record_admit(req)
         return len(expired)
 
-    def _acquire_pages(self, req: Request) -> bool:
-        """Page-availability check for a fresh admission (the JAX
-        engine's no-prefix-cache branch: a free-list check)."""
+    def _acquire_pages(self, req: Request):
+        """Page-availability check for a fresh admission: ``(ok,
+        acquired)``. Without a prefix cache a free-list check; with one,
+        ``PrefixCache.acquire`` longest-prefix matches (capped at S-1, so
+        at least one token prefills and gives the first token's logits),
+        pins the matched pages and checks that free plus evictable pages
+        cover the rest."""
         need = -(-self._alloc_tokens(req) // self.block_size)
-        return len(self.mgr.free) >= need
+        if self._pcache is None:
+            return len(self.mgr.free) >= need, None
+        acquired = self._pcache.acquire(
+            req.prompt, int(req.prompt.size) - 1, need)
+        return acquired is not None, acquired
 
     def _record_admit(self, req: Request):
         """Queue-wait stats per priority class and SLO attainment, at a
@@ -1005,6 +1183,7 @@ class ServingEngine:
         slot.prefill_pos = int(req.prompt.size)
         self._slot_tables[slot_id] = 0
         self._slot_tables[slot_id, :len(table)] = table
+        self._slot_wtables[slot_id] = self._slot_tables[slot_id]
         self._h_tok[slot_id] = tok
         self._h_seq[slot_id] = seq_len
         self._h_tables[slot_id] = self._slot_tables[slot_id]
@@ -1040,17 +1219,19 @@ class ServingEngine:
         return (ServingMesh((self.device,), collective="gather"),
                 [self.params], [self._k_pools], [self._v_pools])
 
-    def _prefill_chunk(self, toks, pos0, table, last_idx, temp):
+    def _prefill_chunk(self, toks, pos0, table, wtable, last_idx, temp):
         """One prefill chunk (the JAX engine's ``_make_prefill_fn_ref``
         program, and under a mesh ``_make_prefill_fn_tp``): each shard
         gathers the request's pages of its KV heads into a dense view
-        (page indices are global; int8 pools dequantized to the model type
-        with the shard's scales), ``_tp_cached_forward`` runs the
-        placement over the views, each view is scattered back in place
-        through the table (int8: quantized back first), and a token is
-        sampled from row ``last_idx``."""
+        through the read ``table`` (page indices are global; int8 pools
+        dequantized to the model type with the shard's scales),
+        ``_tp_cached_forward`` runs the placement over the views, each
+        view is scattered back in place through the WRITE table
+        ``wtable`` (int8: quantized back first; shared pages go to scratch
+        page 0), and a token is sampled from row ``last_idx``."""
         sm, shards, k_pools, v_pools = self._shards()
         tables = sm.replicate(table)
+        wtables = sm.replicate(wtable)
         scales = self._shard_scales or [(None, None)] * sm.tp
         kcs = [self._dense_view(p, t, sc[0])
                for p, t, sc in zip(k_pools, tables, scales)]
@@ -1058,22 +1239,23 @@ class ServingEngine:
                for p, t, sc in zip(v_pools, tables, scales)]
         logits, _, _ = _tp_cached_forward(shards, toks, self.cfg, kcs, vcs,
                                           pos0, sm)
-        for i, (t, sc) in enumerate(zip(tables, scales)):
+        for i, (t, sc) in enumerate(zip(wtables, scales)):
             self._scatter_view(k_pools[i], t, kcs[i], sc[0])
             self._scatter_view(v_pools[i], t, vcs[i], sc[1])
         return _sample_slots(logits[:, last_idx], self._gen, temp)[0]
 
-    def _prefill_chunk_fused(self, toks, pos0, table, n, temp):
+    def _prefill_chunk_fused(self, toks, pos0, table, wtable, n, temp):
         """One prefill chunk through the fused prefill-block ops (the JAX
         engine's ``_make_prefill_fn_fused`` program): straight over the
-        pools, only the chunk's own K/V written, a token sampled from row
-        ``n - 1``. ``table`` is int32 and serves as the write table too."""
+        pools, reading the history through ``table``, only the chunk's own
+        K/V written, through the WRITE table ``wtable`` (both int32), a
+        token sampled from row ``n - 1``."""
         if self._prefill_variant is None:
             self._prefill_variant = self._resolve_prefill_variant(
                 toks.shape[1])
         _, shards, kps, vps = self._shards()    # one shard (tp=1)
         logits, _, _ = _fused_prefill_forward(
-            shards[0], toks[0], self.cfg, kps[0], vps[0], table, table,
+            shards[0], toks[0], self.cfg, kps[0], vps[0], table, wtable,
             pos0, n, rope=self._rope, mode=self._fused_prefill,
             kv_scales=self._kv_scales)
         return _sample_slots(logits[n - 1:n], self._gen, temp)[0]
@@ -1097,11 +1279,14 @@ class ServingEngine:
             if self._fused_buckets[P]:
                 tok = self._prefill_chunk_fused(
                     self._upload(toks), pos0,
-                    self._upload(self._slot_tables[slot_id]), n, temp)
+                    self._upload(self._slot_tables[slot_id]),
+                    self._upload(self._slot_wtables[slot_id]), n, temp)
             else:
                 tok = self._prefill_chunk(
                     self._upload(toks), pos0,
                     self._upload(self._slot_tables[slot_id].astype(
+                        np.int64)),
+                    self._upload(self._slot_wtables[slot_id].astype(
                         np.int64)), n - 1, temp)
             self.counters["prefill_chunks"] += 1
             self.counters["prefill_tokens"] += n
@@ -1114,6 +1299,14 @@ class ServingEngine:
                 req.tokens.append(first)
                 self.counters["tokens_generated"] += 1
                 slot.seq_len = S
+                if self._pcache is not None:
+                    # the prompt's KV is whole now: index it, so requests
+                    # sharing the prefix hit while this one decodes
+                    # (decode appends at positions >= S, past every
+                    # position the tree claims of these pages)
+                    self._pcache.insert(
+                        req.prompt,
+                        list(self.mgr.tables.get(req.req_id, ())))
                 self._on_prefill_complete(slot_id, first)
             return True
         return False
@@ -1296,6 +1489,15 @@ class ServingEngine:
         req = slot.req
         req.done = True
         req.finish_t = self._clock()
+        if self._pcache is not None and slot.seq_len > 0:
+            # the pages go to the radix tree instead of the free list: the
+            # valid KV covers the prompt and every generated token but the
+            # last sampled one (never written), slot.seq_len positions
+            gen_n = slot.seq_len - req.prompt.size
+            seq = np.concatenate(
+                [req.prompt, np.asarray(req.tokens[:gen_n], np.int32)])
+            self._pcache.insert(
+                seq, list(self.mgr.tables.get(req.req_id, ())))
         self.mgr.release(req.req_id)
         self._clear_slot(slot_id)
         self.counters["requests_completed"] += 1
@@ -1309,6 +1511,7 @@ class ServingEngine:
         slot.seq_len = 0
         slot.prefill_pos = 0
         self._slot_tables[slot_id] = 0
+        self._slot_wtables[slot_id] = 0
         self._h_tok[slot_id] = 0
         self._h_seq[slot_id] = 0
         self._h_tables[slot_id] = 0

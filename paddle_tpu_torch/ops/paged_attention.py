@@ -166,14 +166,17 @@ def paged_attention_decode_quant(q, k_pool, v_pool, block_tables, seq_lens,
 
 class BlockManager:
     """Host-side physical block allocator with reference-counted pages
-    (the JAX package's, which is plain Python and numpy, without the
-    prefix cache's copy-on-write ``fork`` and ``reclaim`` hook).
+    (the JAX package's, which is plain Python and numpy).
 
     ``allocate`` hands out pages at refcount 1, ``attach`` appends
     already-populated shared pages to a table (incref), ``release``
     decrefs every table entry and a page returns to the free list only
-    when its count hits 0. ``max_blocks_per_seq`` is the width of a
-    block table (the reference's constructor)."""
+    when its count hits 0. When the free list runs dry, the ``reclaim``
+    callback (the prefix cache's LRU eviction,
+    :meth:`..inference.prefix_cache.PrefixCache.evict`) gets one chance to
+    free cold cached pages before the allocator gives up.
+    ``max_blocks_per_seq`` is the width of a block table
+    (:meth:`table_array`)."""
 
     def __init__(self, num_blocks: int, block_size: int,
                  max_blocks_per_seq: int):
@@ -183,9 +186,12 @@ class BlockManager:
         self.free = list(range(num_blocks - 1, -1, -1))
         self.tables = {}            # seq_id -> list of physical block ids
         self.refcount = np.zeros(num_blocks, np.int32)
+        self.reclaim = None         # callback(n_pages) -> pages freed
 
     def alloc_page(self) -> int:
         """Pop one free page at refcount 1 (sole owner: the caller)."""
+        if not self.free and self.reclaim is not None:
+            self.reclaim(1)
         if not self.free:
             raise RuntimeError("KV cache pool exhausted")
         p = self.free.pop()
@@ -215,9 +221,22 @@ class BlockManager:
             return True
         return False
 
+    def fork(self, src_page: int) -> int:
+        """Copy-on-write allocation: a fresh page destined to receive a
+        copy of ``src_page`` (the owner of the pools makes the device
+        copy). The source is pinned meanwhile, so the reclaim callback
+        cannot evict it while the fork is in flight."""
+        self.incref(src_page)
+        try:
+            return self.alloc_page()
+        finally:
+            self.decref(src_page)
+
     def attach(self, seq_id: int, pages, owned: bool = False):
-        """Append already-populated pages to a sequence's table. Must run
-        before ``allocate`` fills the suffix."""
+        """Append already-populated pages (a matched shared prefix, or a
+        COW fork whose reference is handed over: ``owned``) to a
+        sequence's table. Must run before ``allocate`` fills the
+        suffix."""
         table = self.tables.setdefault(seq_id, [])
         for p in pages:
             if not owned:
@@ -228,20 +247,41 @@ class BlockManager:
     def allocate(self, seq_id: int, num_tokens: int):
         need = (num_tokens + self.block_size - 1) // self.block_size
         table = self.tables.setdefault(seq_id, [])
+        shortfall = (need - len(table)) - len(self.free)
+        if shortfall > 0 and self.reclaim is not None:
+            # one batched eviction pass instead of a tree walk a page
+            self.reclaim(shortfall)
         while len(table) < need:
             table.append(self.alloc_page())
         return table
+
+    def append_token(self, seq_id: int, cur_len: int):
+        """Ensure capacity for one more token; returns the table."""
+        return self.allocate(seq_id, cur_len + 1)
 
     def release(self, seq_id: int):
         for b in self.tables.pop(seq_id, []):
             self.decref(b)
 
+    def table_array(self, seq_ids) -> np.ndarray:
+        """The tables of ``seq_ids`` as one int32 [len, max_blocks_per_seq]
+        array, padded with page 0."""
+        out = np.zeros((len(seq_ids), self.max_blocks_per_seq), np.int32)
+        for i, sid in enumerate(seq_ids):
+            t = self.tables.get(sid, [])
+            out[i, :len(t)] = t
+        return out
+
     def check(self, raise_on_violation: bool = True):
-        """Structural invariant sweep: refcounts never negative, free
-        pages at refcount 0 and listed once, every page either free or
-        referenced, and no page referenced by more table entries than
-        its refcount. Returns the violations (empty = clean), or raises
-        when ``raise_on_violation``."""
+        """Structural invariant sweep over the allocator (the one
+        definition the engine's opt-in per-step self-check,
+        ``PADDLE_TPU_CHECK_INVARIANTS=1``, and ``PrefixCache.check`` run):
+        refcounts never negative, free pages at refcount 0 and listed once,
+        every page either free or referenced (pages a fork or a reclaim
+        moved included), and no page referenced by more table entries than
+        its refcount (a shared page's other references are the tree's,
+        whose equality ``PrefixCache.check`` holds). Returns the violations
+        (empty = clean), or raises when ``raise_on_violation``."""
         problems = []
         seen_free = set()
         for p in self.free:

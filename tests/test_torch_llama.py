@@ -151,6 +151,8 @@ def test_sample_token_greedy_and_temperature():
     b = tgen.sample_token(logits, g, torch.Generator().manual_seed(7))
     assert torch.equal(a, b)
     assert bool(((a >= 0) & (a < 97)).all())
-    with pytest.raises(NotImplementedError):
-        tgen.sample_token(logits, tgen.GenerationConfig(top_k=5),
-                          torch.Generator())
+    # top-k: the token drawn is one of each row's 5 largest logits
+    top5 = torch.topk(logits, 5, dim=-1).indices
+    k = tgen.sample_token(logits, tgen.GenerationConfig(top_k=5),
+                          torch.Generator().manual_seed(7))
+    assert bool((top5 == k[:, None]).any(dim=-1).all())

@@ -194,8 +194,24 @@ def test_routes_of_later_slices_raise(params, kw):
     KV cache (both spellings) has been ported since: it builds int8 pools
     and no scales until its first admission calibrates them. So has
     tensor-parallel serving: an int tp takes the visible CUDA cards (with
-    none, it raises), a mesh of CPU devices serves."""
+    none, it raises), a mesh of CPU devices serves. So has the prefix
+    cache: ``prefix_cache=True`` builds the radix tree, ``kv_offload``
+    builds its host tier beside it and alone raises the JAX engine's
+    "requires prefix_cache" error."""
     _, tp = params
+    if "prefix_cache" in kw:
+        eng = ServingEngine(tp, TCFG, device="cpu", **ENGINE, **kw)
+        assert eng.metrics()["prefix_cache"]["cached_pages"] == 0
+        assert eng.offload_metrics()["host_pages"] == 0
+        return
+    if "kv_offload" in kw:
+        with pytest.raises(ValueError, match="requires prefix_cache"):
+            ServingEngine(tp, TCFG, device="cpu", **ENGINE, **kw)
+        eng = ServingEngine(tp, TCFG, device="cpu", prefix_cache=True,
+                            **ENGINE, **kw)
+        assert eng._pcache._spill_batch is not None
+        assert eng._pcache.host_budget is None
+        return
     if "cache_dtype" in kw:
         eng = ServingEngine(tp, TCFG, device="cpu", **ENGINE, **kw)
         assert eng._k_pools.dtype == eng._v_pools.dtype == torch.int8
