@@ -42,7 +42,10 @@ script exits non-zero:
    tensor-core body), permuted tables and (pos0, n_valid) = (0, P), (0,
    1), (0, P-3), (5, P-3), (16, P), (600, 11 at P=16, 21 at P=32, 77 at
    P=128): the real rows against the plain version, every row finite, two
-   launches bit for bit; timed at P=128, bf16, pos0 0, 512 and 896 and at
+   launches bit for bit; the kernel reads (pos0, n_valid) from its device
+   bounds buffer: captured in a CUDA graph at one pair and replayed after
+   five others are written there, bit for bit equal to a launch at each
+   (bf16 and f32, KV 32 and 8, P 128); timed at P=128, bf16, pos0 0, 512 and 896 and at
    P=32, pos0 512, beside its bound, its plain version, its four products
    alone (``torch.matmul``) and SDPA over the same attention. rms_norm_fwd also
    runs at the train phase's shape (x [2, 2048, 4096] bf16, the f32 norm
@@ -254,13 +257,29 @@ script exits non-zero:
    engine and to dense ``generate``, every prefix and offload counter
    equal to the port's CPU run, one decode capture, tickets zero, cached
    bytes untouched by a divergent writer, restored bytes equal to the
-   spilled; ``generate_paged`` on three routes, an int8 cache and a store
-   called twice. At LLaMA-7B, bf16: bench.py's prefix stream (24 requests
+   spilled; every stream and route also beside an eager twin (its chunks
+   and steps uncaptured): ids, pools (but scratch page 0) and launch
+   counts by class equal, each bucket's chunk program captured once where
+   it ran twice or more and replayed at every later chunk;
+   ``generate_paged`` on three routes, an int8 cache and a store called
+   twice, and on every route, int8 weights, a colocated tp=2 mesh and
+   top-k/top-p sampling with its decode steps captured against eager:
+   ids equal. At LLaMA-7B, bf16: bench.py's prefix stream (24 requests
    of 224 shared + 32 own tokens, 64 new) cold, warm and over the host
    tier, then 8 of them again from the host tier (tokens/s, TTFT, prefill
    tokens = the cold run's less tokens_skipped, spill/restore GB/s), and
-   ``generate_paged`` over 4 prompts of 40-600 tokens (ms a token).
+   ``generate_paged`` over 4 prompts of 40-600 tokens (ms a token,
+   captured, and eager on the default route: ids equal).
    ``python3 chip_smoke.py prefix`` runs the build and this phase alone.
+7g. graph (the parity size after tp parity, the serving size after the
+   routes phase; ``graph_phase``): every route's engine beside an eager
+   twin whose decode steps and prefill chunks run their uncaptured
+   bodies: ids (greedy, and sampled at the parity size), pools and launch
+   counts by class equal; the decode step one graph replayed at every
+   step but the first; each bucket's chunk one graph
+   (``prefill_traces`` 1 where the bucket ran twice or more), replays =
+   chunks - buckets used. At the serving size the 128- and 32-row chunk
+   ms (CUDA events), TTFT mean and max and tokens/s of both.
 13. audit: the plans of every launch of the default serving route's
    phase and of the default train route's phase, captured while they
    ran, audited by the kernel-geometry gate (0 findings), and the whole
@@ -298,6 +317,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1136,7 +1156,7 @@ def prefill_attn_phase(gpu):
     gen = torch.Generator(device="cuda").manual_seed(5)
     D, H, hd, BS, MB = D7, H7, HD7, BS16, MB72
     sin, cos = build_rope_cache(MB * BS, hd, device="cuda")
-    cases, max_err, timed = [], 0.0, {}
+    cases, max_err, timed, replayed = [], 0.0, {}, []
     for dt in (torch.bfloat16, torch.float32):
         def rn(*shape, std=1.0):
             return (torch.randn(*shape, generator=gen, device="cuda")
@@ -1188,6 +1208,11 @@ def prefill_attn_phase(gpu):
                               "cases": cases})
                         raise AssertionError(
                             f"prefill_attn_block disagrees: {case}")
+            replayed.append(bounds_replay(fpb, rn(128, D), weights, sin, cos,
+                                          kp, vp, table))
+            if not replayed[-1]["ok"]:
+                raise AssertionError(f"prefill_attn_block's bounds replay: "
+                                     f"{replayed[-1]}")
             if dt == torch.bfloat16 and KV == H:
                 for P, pos0 in ((128, 0), (128, 512), (128, 896), (32, 512)):
                     args = (rn(P, D), *weights, sin[pos0:pos0 + P],
@@ -1207,9 +1232,57 @@ def prefill_attn_phase(gpu):
            "at_pos0_0": timed[(128, 0)], "at_pos0_896": timed[(128, 896)],
            "at_p32": timed[(32, 512)], "ok": True}
     emit({"phase": "kernel", "kernel": "prefill_attn_block", "gpu": gpu,
-          "cases": cases, "timed": {f"P{P},pos0 {p0}": t
-                                    for (P, p0), t in timed.items()}})
+          "cases": cases, "bounds_replay": replayed,
+          "timed": {f"P{P},pos0 {p0}": t for (P, p0), t in timed.items()}})
     return row
+
+
+# (pos0, n_valid) written into a captured launch's bounds buffer; the
+# capture's own is the first
+BOUNDS_REPLAY = ((512, 128), (0, 128), (5, 125), (600, 77), (16, 1))
+
+
+def bounds_replay(fpb, x, weights, sin, cos, kp, vp, table):
+    """prefill_attn_block (P 128) captured in a CUDA graph over a bounds
+    buffer at BOUNDS_REPLAY's first (pos0, n_valid), then replayed after
+    each case's values (and its RoPE rows) are written into the buffers:
+    x_out, k_new and v_new equal, bit for bit, to a launch of the wrapper
+    at that case (which writes its own bounds): the kernel reads pos0 and
+    n_valid from device memory, as the TPU kernel reads its
+    scalar-prefetch operand."""
+    import torch
+    P = x.shape[0]
+    s_buf, c_buf = (torch.empty_like(t[:P]) for t in (sin, cos))
+    bounds = torch.zeros(2, dtype=torch.int32, device="cuda")
+
+    def write(pos0, n):
+        s_buf.copy_(sin[pos0:pos0 + P])
+        c_buf.copy_(cos[pos0:pos0 + P])
+        bounds.copy_(torch.tensor([pos0, n], dtype=torch.int32))
+
+    def launch(pos0, n, **kw):
+        return fpb.prefill_attn_block_cuda(x, *weights, s_buf, c_buf, kp, vp,
+                                           table, pos0, n, **kw)
+    write(*BOUNDS_REPLAY[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(*BOUNDS_REPLAY[0], bounds=bounds)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = launch(*BOUNDS_REPLAY[0], bounds=bounds)
+    held = []
+    for pos0, n in BOUNDS_REPLAY:
+        write(pos0, n)
+        graph.replay()
+        want = launch(pos0, n)
+        torch.cuda.synchronize()
+        held.append({"pos0": pos0, "n_valid": n, "equal": all(
+            torch.equal(a, b) for a, b in zip(outs, want))})
+    del graph
+    return {"dtype": str(x.dtype)[6:], "KV": kp.shape[2], "P": P,
+            "cases": held, "ok": all(h["equal"] for h in held)}
 
 
 def prefill_timing(fpb, F, args):
@@ -2313,10 +2386,11 @@ def serving_phase(gpu, params, route):
                         "decode_attn_block")}
     m = eng.metrics()
     steps, chunks = m["decode_steps"], m["prefill_chunks"]
-    graph = graph_stats(captured(eng, route))
+    graph = graph_stats(captured(eng, route, chunks), eng)
     emit({"phase": "serving", "route": route, "gpu": gpu,
           "model": "LLAMA_7B", "layers": L, "dtype": "bfloat16",
-          "decode_traces": m["decode_traces"], **graph,
+          "decode_traces": m["decode_traces"],
+          "prefill_traces": m["prefill_traces"], **graph,
           "weight_quant": wq, "cache_dtype": "int8" if kv8 else None,
           "pool_bytes": 2 * eng._k_pools.numel()
           * eng._k_pools.element_size(),
@@ -2544,27 +2618,56 @@ def _rounded(groups):
             for k, v in sorted(groups.items())}
 
 
+def next_bucket(eng):
+    """The bucket of the prefill chunk the engine's next step runs, or
+    None (its ``_run_prefill``'s choice: the first slot in prefill)."""
+    for s in eng._slots:
+        if s.phase == "prefill":
+            return eng._bucket_for(min(s.req.prompt.size - s.prefill_pos,
+                                       eng.buckets[-1]))
+    return None
+
+
 def _timed_chunks(eng):
-    """Wrap the engine's two chunk programs so that each chunk records
-    CUDA events around it: returns the list of (bucket, start, end) that
-    fills as chunks run, and a switch to pause recording."""
+    """Wrap the engine's prefill step so that each chunk records CUDA
+    events around it (staging and the chunk's program: a replay, or the
+    eager body): returns the list of (bucket, start, end) that fills as
+    chunks run, and a switch to pause recording."""
     import torch
     record = {"on": True, "events": []}
-    for attr in ("_prefill_chunk", "_prefill_chunk_fused"):
-        fn = getattr(eng, attr)
+    run = eng._run_prefill
 
-        def timed(toks, *a, _fn=fn):
-            if not record["on"]:
-                return _fn(toks, *a)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = _fn(toks, *a)
-            end.record()
-            record["events"].append((int(toks.shape[1]), start, end))
-            return out
-        setattr(eng, attr, timed)
+    def timed():
+        P = next_bucket(eng)
+        if not record["on"] or P is None:
+            return run()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run()
+        end.record()
+        record["events"].append((P, start, end))
+        return out
+    eng._run_prefill = timed
     return record
+
+
+def chunk_ms(record):
+    """Chunk ms by bucket from :func:`_timed_chunks`'s events (after a
+    sync): count, mean, median, max, and the mean and median of the
+    chunks after each bucket's first two (on CUDA those two are the
+    warm-up and the capture)."""
+    by_bucket = {}
+    for P, start, end in record["events"]:
+        by_bucket.setdefault(P, []).append(start.elapsed_time(end))
+    return {str(P): {"chunks": len(v), "ms_mean": float(np.mean(v)),
+                     "ms_median": float(np.median(v)),
+                     "ms_max": float(np.max(v)), "first_ms": v[:2],
+                     "steady_ms_mean": (float(np.mean(v[2:])) if v[2:]
+                                        else None),
+                     "steady_ms_median": (float(np.median(v[2:])) if v[2:]
+                                          else None)}
+            for P, v in sorted(by_bucket.items())}
 
 
 def profile_phase(gpu, eng, route, steps=10, prompt=384):
@@ -2608,18 +2711,12 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
         eng.step()
     eng.step()
     torch.cuda.synchronize()
-    by_bucket = {}
-    for P, start, end in record["events"]:
-        by_bucket.setdefault(P, []).append(start.elapsed_time(end))
-    chunk_ms = {str(P): {"chunks": len(v), "ms_mean": float(np.mean(v)),
-                         "ms_max": float(np.max(v))}
-                for P, v in sorted(by_bucket.items())}
     record["on"] = False
     prefill = {"chunks_traced": traced,
                "per_chunk_by_group": _rounded(chunk_groups),
                "device_ms_per_chunk": round(sum(
                    v[0] for v in chunk_groups.values()), 3),
-               "chunk_ms_by_bucket": chunk_ms}
+               "chunk_ms_by_bucket": chunk_ms(record)}
     ms, n = chunk_groups.get("prefill_attn_block", [0.0, 0.0])
     if n:
         # the catalog's byte model of each traced launch (a shard's under
@@ -2652,8 +2749,10 @@ def profile_phase(gpu, eng, route, steps=10, prompt=384):
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels, groups = _device_groups(prof, steps)
     device_ms = sum(ms for ms, _ in kernels.values())
-    # every decode step of the windows is a replay of the one graph
-    graph = graph_stats(captured(eng, route))
+    # every decode step of the windows is a replay of the one graph, and
+    # every chunk after a bucket's first a replay of its graph
+    graph = graph_stats(captured(eng, route,
+                                 eng.counters["prefill_chunks"]), eng)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
     per_launch = {}
     launch_bytes = {}
@@ -3107,7 +3206,7 @@ def tp_serving_phase(gpu, params, route):
     m = eng.metrics()
     steps, chunks = m["decode_steps"], m["prefill_chunks"]
     calib = m["calibration_traces"]
-    graph = graph_stats(captured(eng, route))
+    graph = graph_stats(captured(eng, route, chunks), eng)
     emit({"phase": "serving", "route": route, "gpu": gpu,
           "model": "LLAMA_7B", "layers": L, "dtype": "bfloat16",
           "decode_traces": m["decode_traces"], **graph,
@@ -3350,30 +3449,60 @@ def tp_parity_phase(gpu):
 # uncaptured body
 # ---------------------------------------------------------------------------
 class EagerStep:
-    """A twin engine's decode step: its program's body, run eagerly at
-    every step (nothing captured)."""
+    """A twin's program: its body, run eagerly at every call (nothing
+    captured); ``calls`` counts them."""
 
     def __init__(self, prog):
         self.body = prog.body
+        self.calls = 0
 
     def prepare(self):
         pass
 
-    def __call__(self):
+    def __call__(self, respec=None):
+        self.calls += 1
         self.body()
 
 
 def eager_twin(eng):
-    """``eng``, its decode steps running its program's uncaptured body."""
-    build = eng._decode_program
+    """``eng``, its decode steps and its prefill chunks running their
+    programs' uncaptured bodies (one EagerStep a bucket, in
+    ``eng._twin_chunks``)."""
+    build, build_chunk = eng._decode_program, eng._prefill_program
     eng._decode_program = lambda: EagerStep(build())
+    eng._twin_chunks = {}
+
+    def chunk_program(P):
+        if P not in eng._twin_chunks:
+            eng._twin_chunks[P] = EagerStep(build_chunk(P))
+        return eng._twin_chunks[P]
+    eng._prefill_program = chunk_program
     return eng
 
 
-def captured(eng, route):
+@contextlib.contextmanager
+def eager_programs():
+    """``generate_paged``'s decode steps run eagerly inside the block:
+    its step program (``inference.program.Program``) swapped for
+    EagerStep."""
+    from paddle_tpu_torch.inference import program
+    real = program.Program
+    program.Program = lambda body, *a, **k: EagerStep(
+        types.SimpleNamespace(body=body))
+    try:
+        yield
+    finally:
+        program.Program = real
+
+
+def captured(eng, route, chunks=None):
     """The engine's one decode program, which must have been captured
     once (``decode_traces`` 1) and replayed at every decode step after
-    the first (the warm-up). Returns it."""
+    the first (the warm-up), and its prefill programs: one a bucket used,
+    captured (``prefill_traces[P]`` 1) where the bucket ran more than one
+    chunk, every chunk after a bucket's first a replay (``chunks``, the
+    engine's chunk count where no ``reset_metrics`` intervened, = the
+    replays plus the buckets used). Returns the decode program."""
     progs = list(eng._decode_fns.values())
     steps = eng.counters["decode_steps"]
     if (len(progs) != 1 or eng.counters["decode_traces"] != 1
@@ -3383,12 +3512,54 @@ def captured(eng, route):
             f"{len(progs)} program(s), decode_traces "
             f"{eng.counters['decode_traces']}, {steps} steps, replays "
             f"{[p.replays for p in progs]}")
+    chunk_progs = {key[0]: p for key, p in eng._prefill_fns.items()}
+    traces = eng.counters["prefill_traces"]
+    bad = [P for P, p in chunk_progs.items()
+           if traces.get(P) != int(p.graph is not None)
+           or (p.graph is None and p.replays)]
+    replays = sum(p.replays for p in chunk_progs.values())
+    if (len(chunk_progs) != len(eng._prefill_fns) or bad
+            or set(traces) != set(chunk_progs)
+            or (chunks is not None
+                and replays != chunks - len(chunk_progs))):
+        raise AssertionError(
+            f"{route}: the prefill chunks are not one replayed graph a "
+            f"bucket: programs {list(eng._prefill_fns)}, prefill_traces "
+            f"{traces}, replays {[p.replays for p in chunk_progs.values()]}"
+            f", {chunks} chunks")
     return progs[0]
 
 
-def graph_stats(prog):
-    return {"capture_s": round(prog.capture_s, 4),
-            "graph_nodes": prog.nodes, "replays": prog.replays}
+def chunk_replays_held(g, t, route):
+    """Engine ``g``'s prefill programs against its eager twin ``t``'s
+    chunks: each bucket's program captured (``prefill_traces`` 1) where
+    the bucket ran more than one chunk and replayed at every chunk but its
+    first; the twin captured nothing. Returns the twin's chunks by
+    bucket."""
+    twin = {P: st.calls for P, st in t._twin_chunks.items()}
+    got = {pk[0]: (p.replays, g.counters["prefill_traces"][pk[0]])
+           for pk, p in g._prefill_fns.items()}
+    want = {P: (n - 1, int(n > 1)) for P, n in twin.items()}
+    if got != want or t.counters["decode_traces"] or any(
+            t.counters["prefill_traces"].values()):
+        raise AssertionError(
+            f"{route}: chunk (replays, prefill_traces) by bucket {got}, "
+            f"want {want} from the twin's chunks; twin's traces "
+            f"{t.counters['decode_traces']}, {t.counters['prefill_traces']}")
+    return twin
+
+
+def graph_stats(prog, eng=None):
+    """A decode program's capture seconds, graph nodes and replays and,
+    given its engine, each bucket's prefill program's."""
+    out = {"capture_s": round(prog.capture_s, 4),
+           "graph_nodes": prog.nodes, "replays": prog.replays}
+    if eng is not None:
+        out["chunk_programs"] = {
+            str(key[0]): {"capture_s": p.capture_s and round(p.capture_s, 4),
+                          "graph_nodes": p.nodes, "replays": p.replays}
+            for key, p in eng._prefill_fns.items()}
+    return out
 
 
 GRAPH_PARITY_ROUTES = {
@@ -3414,15 +3585,23 @@ def _graph_engine(params, cfg, route, routes, engine_kw, seed):
 
 
 def _graph_run(eng, prompts, gens):
-    """The requests through ``eng``: (ids, launches, launches by class)."""
+    """The requests through ``eng``: (ids, launches, launches by class,
+    serving metrics: tokens/s, TTFT mean and max, decode-step ms and the
+    chunk ms by bucket)."""
     import torch
     from paddle_tpu_torch.ops import kernels
     kernels.reset_launches()
+    record = _timed_chunks(eng)
     reqs = [eng.submit(p, g) for p, g in zip(prompts, gens)]
     eng.drain()
     torch.cuda.synchronize()
+    m = eng.metrics()
+    served = {k: m[k] for k in ("tokens_per_sec", "ttft_ms_mean",
+                                "ttft_ms_max", "decode_step_ms_mean",
+                                "prefill_chunks")}
+    served["chunk_ms"] = chunk_ms(record)
     return ([r.tokens for r in reqs], kernels.launches(),
-            kernels.launches_by_class())
+            kernels.launches_by_class(), served)
 
 
 def _pools_equal(a, b):
@@ -3459,8 +3638,15 @@ def graph_phase(gpu, size, params=None):
     counts (and by class) equal, ``decode_traces`` 1 with every step after
     the first a replay, the weight ring's tickets zero after the drain; at
     the parity size on GRAPH_SAMPLED also sampled ids (temperature 0.8,
-    seeds 0 and 1) equal to the twin's for the same seed. Prints each
-    route's capture seconds, graph nodes and both engines' step ms."""
+    seeds 0 and 1) equal to the twin's for the same seed. The prefill
+    chunks the same way: the twin's run its buckets' uncaptured bodies;
+    the engine's one program a bucket used, captured (``prefill_traces``
+    1) where the bucket ran more than one chunk, every chunk after a
+    bucket's first a replay (replays = chunks - buckets used), the
+    twin's ``prefill_traces`` all 0. Prints each route's capture seconds
+    and graph nodes (decode and a bucket's chunk), and both engines'
+    step ms, chunk ms by bucket (CUDA events around each chunk),
+    tokens/s and TTFT mean and max."""
     import dataclasses
     import torch
     from paddle_tpu_torch.inference import GenerationConfig
@@ -3504,11 +3690,11 @@ def graph_phase(gpu, size, params=None):
                                     seed)
                 if twin:
                     eager_twin(eng)
-                ids, counts, by_class = _graph_run(eng, prompts, gens)
-                pair.append((eng, ids, counts, by_class,
-                             eng.metrics()["decode_step_ms_mean"]))
-            (g, ids, counts, by_class, ms), (t, t_ids, t_counts,
-                                             t_by_class, t_ms) = pair
+                ids, counts, by_class, served = _graph_run(eng, prompts,
+                                                           gens)
+                pair.append((eng, ids, counts, by_class, served))
+            (g, ids, counts, by_class, served), (t, t_ids, t_counts,
+                                                 t_by_class, t_served) = pair
             key = "greedy" if gens is greedy else f"sampled_seed{seed}"
             res = {"ids_equal": ids == t_ids,
                    "launches_equal": counts == t_counts
@@ -3517,10 +3703,15 @@ def graph_phase(gpu, size, params=None):
                    "tickets_zero": _tickets_zero(),
                    "decode_traces": g.counters["decode_traces"],
                    "twin_decode_traces": t.counters["decode_traces"],
+                   "prefill_traces": g.counters["prefill_traces"],
+                   "twin_prefill_traces": t.counters["prefill_traces"],
                    "decode_steps": g.counters["decode_steps"],
-                   "step_ms": ms, "twin_step_ms": t_ms}
+                   "served": served, "twin_served": t_served}
             try:
-                res.update(graph_stats(captured(g, route)))
+                res.update(graph_stats(captured(
+                    g, route, g.counters["prefill_chunks"]), g))
+                res["twin_chunks_by_bucket"] = chunk_replays_held(g, t,
+                                                                  route)
             except AssertionError as e:
                 res["captured"] = str(e)
                 bad.append((route, key, "captured"))
@@ -3528,8 +3719,6 @@ def graph_phase(gpu, size, params=None):
                       "tickets_zero"):
                 if not res[k]:
                     bad.append((route, key, k))
-            if res["twin_decode_traces"] != 0:
-                bad.append((route, key, "twin captured"))
             if key == "greedy":
                 res["launches"] = {k: v for k, v in counts.items() if v}
             runs[key] = res
@@ -3792,14 +3981,28 @@ def _generate_paged_parity(params, cpu_params, cfg, dense):
     routes against dense ``generate``; over an int8 cache against the same
     call on the CPU; a ``PagedKVCacheStore`` called twice (the second call
     warm: the one-token suffix through the fused chunk) against dense
-    ``generate`` and its counters against a CPU store's."""
+    ``generate`` and its counters against a CPU store's. Every route, and
+    int8 weights, a colocated tp=2 mesh and top-k/top-p sampling besides,
+    also runs with its decode steps eager (:func:`eager_programs`): the
+    captured steps' ids equal to the eager ones."""
     import torch
-    from paddle_tpu_torch.inference import PagedKVCacheStore, generate_paged
+    from paddle_tpu_torch.inference import (GenerationConfig,
+                                            PagedKVCacheStore, ServingMesh,
+                                            generate_paged)
     rng = np.random.default_rng(9)
     p = rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
     g = _pgen(6)
     want = [dense(row, 6) for row in p]
     out, bad = {}, []
+
+    def eager_held(name, ids, tree=params, gen=g, **kw):
+        """The same call with the decode steps eager: ids equal."""
+        with eager_programs():
+            eager = generate_paged(tree, p, cfg, gen, **kw)
+        out.setdefault(name, {})["eager_ids_equal"] = torch.equal(ids,
+                                                                  eager)
+        if not torch.equal(ids, eager):
+            bad.append(("generate_paged", name, "captured != eager"))
 
     def held(name, ids, wants, hold=True):
         parts = [dict(d, row=i) for i, (row, got, w) in
@@ -3813,19 +4016,33 @@ def _generate_paged_parity(params, cpu_params, cfg, dense):
                          ("unfused", False)):
         ids = generate_paged(params, p, cfg, g, fused_decode=fused)
         held(route, ids[:, 40:].tolist(), want)
+        eager_held(route, ids, fused_decode=fused)
     kv8 = generate_paged(params, p, cfg, g, cache_dtype="int8")
     kv8_cpu = generate_paged(cpu_params, p, cfg, g, cache_dtype="int8",
                              device="cpu")
     # int8 codes may round differently on the card: printed, not held
     held("int8_cache", kv8[:, 40:].tolist(), kv8_cpu[:, 40:].tolist(),
          hold=False)
+    eager_held("int8_cache", kv8, cache_dtype="int8")
+    for name, kw in (
+            ("int8_weights", dict(weight_quant="int8")),
+            ("tp2_psum", dict(mesh=ServingMesh.make(
+                2, collective="psum", devices=["cuda:0"] * 2))),
+            ("sampled_top_k_p", dict(seed=3))):
+        gen = (GenerationConfig(max_new_tokens=6, temperature=0.8,
+                                top_k=40, top_p=0.9)
+               if name.startswith("sampled") else g)
+        eager_held(name, generate_paged(params, p, cfg, gen, **kw),
+                   gen=gen, **kw)
     store = PagedKVCacheStore(cfg, block_size=16, num_blocks=64)
     cpu_store = PagedKVCacheStore(cfg, block_size=16, num_blocks=64,
                                   device="cpu")
+    eager_store = PagedKVCacheStore(cfg, block_size=16, num_blocks=64)
     for call in ("cold", "warm"):
         ids = generate_paged(params, p, cfg, g, prefix_cache=store)
         generate_paged(cpu_params, p, cfg, g, prefix_cache=cpu_store)
         held(f"store_{call}", ids[:, 40:].tolist(), want)
+        eager_held(f"store_{call}", ids, prefix_cache=eager_store)
         out[f"store_{call}"]["metrics"] = store.metrics()
         if store.metrics() != cpu_store.metrics():
             bad.append(("generate_paged", f"store_{call}", "metrics"))
@@ -3987,19 +4204,45 @@ def prefix_phase(gpu, size, params=None):
                 cold = stream(cold_eng, np.random.default_rng(seed),
                               cfg.vocab_size)
                 del cold_eng
-                kernels.reset_launches()
-                eng = _prefix_engine(params, cfg, None, dict(kw, **knobs))
-                reqs = stream(eng, np.random.default_rng(seed),
-                              cfg.vocab_size)
-                torch.cuda.synchronize()
-                if name == "int8":
-                    kv8_counts = {"launches": kernels.launches(),
-                                  "by_pool": kernels.launches_by_pool()}
+                runs = []
+                for twin in (False, True):
+                    kernels.reset_launches()
+                    e = _prefix_engine(params, cfg, None, dict(kw, **knobs))
+                    if twin:
+                        eager_twin(e)
+                    r = stream(e, np.random.default_rng(seed),
+                               cfg.vocab_size)
+                    torch.cuda.synchronize()
+                    runs.append((e, r, kernels.launches(),
+                                 kernels.launches_by_class()))
+                    if name == "int8" and not twin:
+                        kv8_counts = {"launches": kernels.launches(),
+                                      "by_pool": kernels.launches_by_pool()}
+                (eng, reqs, counts, by_class), (t, t_reqs, t_counts,
+                                                t_by_class) = runs
                 res, b = _prefix_compare(name, route, eng, reqs, cold, cpu,
                                          params, cfg, dense)
+                # the captured chunks and steps against the eager twin's
+                twin = {"ids_equal": [r.tokens for r in reqs]
+                        == [r.tokens for r in t_reqs],
+                        "pools_equal": _pools_equal(eng, t),
+                        "launches_equal": counts == t_counts
+                        and by_class == t_by_class}
+                try:
+                    twin["chunks_by_bucket"] = chunk_replays_held(eng, t,
+                                                                  route)
+                    twin["chunk_programs"] = graph_stats(
+                        captured(eng, route), eng)["chunk_programs"]
+                except AssertionError as e:
+                    twin["captured"] = str(e)
+                    b.append((name, route, "captured"))
+                b += [(name, route, f"twin {k}") for k in
+                      ("ids_equal", "pools_equal", "launches_equal")
+                      if not twin[k]]
+                res["eager_twin"] = twin
                 out[name][route] = res
                 bad += b
-                del eng
+                del eng, t, runs
                 gc.collect()
                 torch.cuda.empty_cache()
         gp, b = _generate_paged_parity(params, cpu_params, cfg, dense)
@@ -4126,14 +4369,19 @@ def prefix_phase(gpu, size, params=None):
                                                     dict(cache_dtype="int8")),
             "int8_weights": (q8, {}),
             "store_cold": (params, dict(prefix_cache=store)),
-            "store_warm": (params, dict(prefix_cache=store))}
+            "store_warm": (params, dict(prefix_cache=store)),
+            # the default route with its decode steps eager, as before
+            # they were captured
+            "default_eager": (params, {})}
     ids = {}
     for name, (tree, kw) in runs.items():
         ms, ids[name] = [], []
         for p in gp_prompts:
             torch.cuda.synchronize()
             t = time.perf_counter()
-            o = generate_paged(tree, p, cfg, g32, **kw)
+            with (eager_programs() if name.endswith("_eager")
+                  else contextlib.nullcontext()):
+                o = generate_paged(tree, p, cfg, g32, **kw)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3 / 32)
             toks = o[0, p.shape[1]:].tolist()
@@ -4143,6 +4391,9 @@ def prefix_phase(gpu, size, params=None):
             ids[name].append(toks)
         gp[name] = {"ms_per_token": [round(x, 3) for x in ms],
                     "ms_per_token_mean": round(float(np.mean(ms)), 3)}
+    gp["default_eager_ids_equal"] = ids["default_eager"] == ids["default"]
+    if not gp["default_eager_ids_equal"]:
+        bad.append(("generate_paged", "default captured != eager"))
     gp["store"] = store.metrics()
     gp["store_warm_common_prefix_with_cold"] = [
         next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))

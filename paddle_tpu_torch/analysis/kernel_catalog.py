@@ -255,7 +255,7 @@ def _prefill_case(P, D, H, KV, hd, BS, N, MB, dtype, pos0, quant=False,
                 *_attn_weights(D, H, KV, hd, dtype, wq), rope, rope, pool,
                 pool, _meta((MB,), "int32"), pos0,
                 P if n_valid is None else n_valid, kv_scales=scales,
-                residual=residual)
+                residual=residual, bounds=_meta((2,), "int32"))
         return fn
     return build
 

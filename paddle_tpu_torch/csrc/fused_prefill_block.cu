@@ -9,6 +9,10 @@
 //   padding), nw [D], wq [D, H*hd], wk/wv [D, KV*hd], wo [H*hd, D] (type T)
 //   sin/cos [P, hd/2] f32: the rope rows of positions pos0..pos0+P-1
 //   pools [N, BS, KV, hd] (T), table [MB] int32 (the request's pages)
+//   bounds [2] int32: (pos0, n_valid), read from device memory by every
+//   block at entry, as the TPU kernel reads them from its scalar-prefetch
+//   operand (b_ref): a CUDA graph captured over one chunk replays for any
+//   history length and any count of real rows
 //   -> x_out = x + o_proj(attn) [P, D] (o_proj alone when residual is 0),
 //   k_new (roped) / v_new [P, KV, hd]; no pool write.
 // Real row r (r < n_valid, position pos0 + r) attends to every history
@@ -94,12 +98,13 @@ struct PrefillArgs {
   const void *k_pool, *v_pool;           // T, or int8 (KQ)
   const float *k_scale, *v_scale;        // f32 [KV] (int8 pools), or null
   const int* table;
+  const int* bounds;                     // int32 [2]: (pos0, n_valid)
   void *x_out, *k_new, *v_new;
   void *qkv_ws, *q_ws, *attn_ws;   // T: [P][(H+2KV)*hd], [P][H*hd],
                                    //    [passes(P)][H*hd][8] ([P][H*hd]
                                    //    in the tensor-core body)
   void* h_ws;                      // the tensor-core body's [P][D] rows
-  int P, D, H, KV, hd, BS, MB, pos0, n_valid, bq, residual;
+  int P, D, H, KV, hd, BS, MB, bq, residual;
   float eps, scale;
   size_t region;
   // the tile plan (the wrapper's): lanes per weight row (0 in the
@@ -112,6 +117,16 @@ struct PrefillArgs {
   float* part_ws;
 };
 
+// The chunk's (pos0, n_valid), loaded once by each block from the bounds
+// buffer; every block reads the same two values.
+struct Bounds {
+  int pos0, nv;
+};
+
+__device__ __forceinline__ Bounds load_bounds(const PrefillArgs& a) {
+  return Bounds{__ldg(a.bounds), __ldg(a.bounds + 1)};
+}
+
 template <int WQ>
 __device__ __forceinline__ float scaled(float v, const float* s, int c) {
   if constexpr (WQ != 0) return v * s[c];
@@ -123,9 +138,9 @@ __device__ __forceinline__ float scaled(float v, const float* s, int c) {
 // takes the pair of columns (j, j + hd/2) of one head, which the rotation
 // reads together.
 template <typename T>
-__device__ void prefill_rope_phase(const PrefillArgs& a) {
+__device__ void prefill_rope_phase(const PrefillArgs& a, const Bounds b) {
   const int P = a.P, D = a.D, H = a.H, KV = a.KV, hd = a.hd;
-  const int nv = a.n_valid;
+  const int nv = b.nv;
   const int hd2 = hd / 2;
   const int nq = H * hd, nkv = KV * hd, ncols = nq + 2 * nkv;
   const int npairs = ncols / 2;
@@ -172,13 +187,13 @@ __device__ void prefill_rope_phase(const PrefillArgs& a) {
 // pages, then the chunk's own K/V under the causal mask; the rows go to
 // attn_ws k-major by pass (the CUDA-core o_proj's operand)
 template <typename T, bool KQ>
-__device__ void prefill_attn_cc_phase(const PrefillArgs& a,
+__device__ void prefill_attn_cc_phase(const PrefillArgs& a, const Bounds b,
                                       unsigned char* smem) {
   using Pt = PoolT<T, KQ>;                 // the pools' type
   constexpr int V = Vec<T>::n;
   constexpr int PV = 16 / sizeof(Pt);      // pool elements a 16-byte load
   const int H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
-  const int nv = a.n_valid, pos0 = a.pos0, bq = a.bq;
+  const int nv = b.nv, pos0 = b.pos0, bq = a.bq;
   const int tid = threadIdx.x;
   const int groups = H / KV;
   const int nq = H * hd;
@@ -336,7 +351,7 @@ inline size_t prefill_tc_smem(int wbits, int kvbits) {
 // and wv (kv_tiles each), every row of a row tile at once; each scaled sum
 // cast to bf16 -> qkv_ws
 template <int WQ>
-__device__ void prefill_tc_qkv_phase(const PrefillArgs& a,
+__device__ void prefill_tc_qkv_phase(const PrefillArgs& a, const Bounds b,
                                      unsigned char* smem) {
   constexpr int WC = wclass(WQ, false);
   const int nq = a.H * a.hd, nkv = a.KV * a.hd, ncols = nq + 2 * nkv;
@@ -346,7 +361,7 @@ __device__ void prefill_tc_qkv_phase(const PrefillArgs& a,
   for (int item = blockIdx.x; item < a.row_tiles * tiles;
        item += gridDim.x) {
     const int t = item % tiles, r0 = (item / tiles) * kTileRows;
-    const int rows = min(kTileRows, a.n_valid - r0);
+    const int rows = min(kTileRows, b.nv - r0);
     if (rows <= 0) continue;   // block-uniform: a tile of pad rows
     const void* W;
     const float* S;
@@ -407,10 +422,10 @@ __device__ __forceinline__ void codes_rows_bf16(const unsigned char* src,
 // follow, its K/V in bf16 with scale 1 (the caller's pool write quantizes
 // them).
 template <bool KQ>
-__device__ void prefill_attn_tc_phase(const PrefillArgs& a,
+__device__ void prefill_attn_tc_phase(const PrefillArgs& a, const Bounds b,
                                       unsigned char* smem) {
   const int H = a.H, KV = a.KV, BS = a.BS;
-  const int nv = a.n_valid, pos0 = a.pos0;
+  const int nv = b.nv, pos0 = b.pos0;
   const int groups = H / KV, nq = H * kHd;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -658,7 +673,7 @@ __device__ __forceinline__ void prefill_o_out(const PrefillArgs& a, int r,
 // row tile at once, H*hd split into o_parts parts: the output, or with
 // parts the f32 partial sums
 template <int WQ>
-__device__ void prefill_tc_o_phase(const PrefillArgs& a,
+__device__ void prefill_tc_o_phase(const PrefillArgs& a, const Bounds b,
                                    unsigned char* smem) {
   constexpr int WC = wclass(WQ, false);
   const int nq = a.H * a.hd, D = a.D, tiles = a.o_tiles;
@@ -668,7 +683,7 @@ __device__ void prefill_tc_o_phase(const PrefillArgs& a,
        item += gridDim.x) {
     const int t = item % tiles, p = (item / tiles) % parts;
     const int r0 = (item / (tiles * parts)) * kTileRows;
-    const int rows = min(kTileRows, a.n_valid - r0);
+    const int rows = min(kTileRows, b.nv - r0);
     if (rows <= 0) continue;
     const TileJob j{static_cast<const bf16*>(a.attn_ws), nq, r0, rows, nq,
                     t * kOCols, D, p, parts};
@@ -685,8 +700,9 @@ __device__ void prefill_tc_o_phase(const PrefillArgs& a,
 // 6. with o_parts > 1: each real row's outputs, parts added in part order,
 // then o_proj's epilogue; four outputs a thread (D is a multiple of 32)
 template <int WQ>
-__device__ void prefill_tc_combine_phase(const PrefillArgs& a) {
-  const int n4 = a.P * a.D / 4, real4 = a.n_valid * a.D / 4;
+__device__ void prefill_tc_combine_phase(const PrefillArgs& a,
+                                         const Bounds b) {
+  const int n4 = a.P * a.D / 4, real4 = b.nv * a.D / 4;
   const float4* part = reinterpret_cast<const float4*>(a.part_ws);
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < real4;
        i += gridDim.x * kThreads) {
@@ -711,7 +727,8 @@ prefill_attn_block_kernel(const PrefillArgs a) {
   constexpr int WC = wclass(WQ, false);
   extern __shared__ __align__(16) unsigned char smem[];
   const int P = a.P, D = a.D, H = a.H, KV = a.KV, hd = a.hd, BS = a.BS;
-  const int nv = a.n_valid;
+  const Bounds b = load_bounds(a);
+  const int nv = b.nv;
   const int tid = threadIdx.x;
   const int nq = H * hd, nkv = KV * hd, ncols = nq + 2 * nkv;
   T* region = reinterpret_cast<T*>(smem);
@@ -725,16 +742,16 @@ prefill_attn_block_kernel(const PrefillArgs a) {
               static_cast<bf16*>(a.h_ws), nv, D, a.eps,
               reinterpret_cast<float*>(smem));
     grid.sync();
-    prefill_tc_qkv_phase<WQ>(a, smem);
+    prefill_tc_qkv_phase<WQ>(a, b, smem);
     grid.sync();
-    prefill_rope_phase<T>(a);
+    prefill_rope_phase<T>(a, b);
     grid.sync();
-    prefill_attn_tc_phase<KQ>(a, smem);
+    prefill_attn_tc_phase<KQ>(a, b, smem);
     grid.sync();
-    prefill_tc_o_phase<WQ>(a, smem);
+    prefill_tc_o_phase<WQ>(a, b, smem);
     if (a.o_parts > 1) {   // grid-uniform
       grid.sync();
-      prefill_tc_combine_phase<WQ>(a);
+      prefill_tc_combine_phase<WQ>(a, b);
     }
   } else {
     // 1. q/k/v products of the real rows by column tiles of the three
@@ -775,9 +792,9 @@ prefill_attn_block_kernel(const PrefillArgs a) {
       }
     }
     grid.sync();
-    prefill_rope_phase<T>(a);
+    prefill_rope_phase<T>(a, b);
     grid.sync();
-    prefill_attn_cc_phase<T, KQ>(a, smem);
+    prefill_attn_cc_phase<T, KQ>(a, b, smem);
     grid.sync();
 
     // 4. o_proj of the real rows by column tiles of D, then the residual add
@@ -849,8 +866,12 @@ inline KernelFn<PrefillArgs> prefill_body(int body, int dtype, int wbits,
 // (null for 0); body: 0 the CUDA-core body, 1 the tensor-core body (its
 // h_ws: the normalised rows [P][D] bf16, then o_proj's f32 partial sums
 // [o_parts][P][D] at an offset rounded up to 16 bytes); region
-// and smem: the shared-memory layout's bytes; bq: query rows a work item
-// takes (P is a multiple of it); grid and the tile plan: the wrapper's, as
+// and smem: the shared-memory layout's bytes; bounds: int32 [2] on the
+// device, (pos0, n_valid) with pos0's history within the table's MB pages
+// and 1 <= n_valid <= P (the wrapper checks the host values it writes
+// there; the kernel reads them at run time, so they are not checked
+// here); bq: query rows a work item takes (P is a multiple of it); grid
+// and the tile plan: the wrapper's, as
 // for fused_decode_block.cu's launchers (a grid other than the body's
 // cooperative grid, prefill_coop_grid, or a plan the body cannot run is
 // refused: the tensor-core body takes bf16, head dim 128, bq 16, lanes 0,
@@ -873,9 +894,9 @@ extern "C" int prefill_attn_block(
     const void* wv, const void* wo, const void* sq, const void* sk,
     const void* sv, const void* so, const void* sin, const void* cos,
     const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, void* x_out, void* k_new,
-    void* v_new, void* qkv_ws, void* q_ws, void* attn_ws, void* h_ws, int P,
-    int D, int H, int KV, int hd, int BS, int MB, int pos0, int n_valid,
+    const void* v_scale, const void* table, const void* bounds, void* x_out,
+    void* k_new, void* v_new, void* qkv_ws, void* q_ws, void* attn_ws,
+    void* h_ws, int P, int D, int H, int KV, int hd, int BS, int MB,
     int bq, int residual, int region, int smem, int wbits, int kvbits,
     int grid, int body, int row_tiles, int o_parts, int qkv_lpr,
     int q_tiles, int kv_tiles, int o_lpr, int o_tiles, float eps,
@@ -883,7 +904,7 @@ extern "C" int prefill_attn_block(
   using namespace paddle_tpu_torch::fused;
   const auto kernel = prefill_body(body, dtype, wbits, kvbits);
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  if (n_valid < 1 || n_valid > P || bq < 1 || P % bq) return cudaErrorInvalidValue;
+  if (bounds == nullptr || bq < 1 || P % bq) return cudaErrorInvalidValue;
   if (body == 1) {
     if (hd != kHd || bq != kQRows || qkv_lpr != 0 || o_lpr != 0 ||
         q_tiles != cdiv(H * hd, kQkvCols) ||
@@ -902,9 +923,10 @@ extern "C" int prefill_attn_block(
                 static_cast<const float*>(sin), static_cast<const float*>(cos),
                 k_pool, v_pool, static_cast<const float*>(k_scale),
                 static_cast<const float*>(v_scale),
-                static_cast<const int*>(table), x_out, k_new,
-                v_new, qkv_ws, q_ws, attn_ws, h_ws, P, D, H, KV, hd, BS, MB,
-                pos0, n_valid, bq, residual, eps, scale, (size_t)region,
+                static_cast<const int*>(table),
+                static_cast<const int*>(bounds), x_out, k_new, v_new, qkv_ws,
+                q_ws, attn_ws, h_ws, P, D, H, KV, hd, BS, MB, bq, residual,
+                eps, scale, (size_t)region,
                 qkv_lpr, q_tiles, kv_tiles, o_lpr, o_tiles, row_tiles,
                 body == 1 ? o_parts : 1,
                 body == 1 ? reinterpret_cast<float*>(

@@ -23,7 +23,9 @@ layer one ``prefill_attn_block``, the chunk's pool write, one
 prefill repacked into pools (or, over a persistent ``PagedKVCacheStore``,
 a radix prefix match and a suffix-only prefill per sequence), then decode
 steps over the pools in chunks of ``_DECODE_CHUNK`` steps
-(``_paged_chunk_runner``), every step run eagerly on the pools' device.
+(``_paged_chunk_runner``): on CUDA the step is captured once as a CUDA
+graph over the call's fixed buffers and replayed (``_decode_chunks``), on
+the CPU it runs eagerly.
 
 Every function takes a weight-quantized tree (:mod:`..quantization`) as
 well as a plain one: the unfused products (``_mm``) dequantize each leaf
@@ -128,20 +130,37 @@ def init_cache(cfg: _llama.LlamaConfig, batch: int, max_len: int,
             torch.zeros(shape, dtype=cfg.dtype, device=device))
 
 
+def _positions(pos, s, device):
+    """Absolute positions pos..pos+s-1 [s]: ``pos`` a host int, or a 0-d
+    tensor on ``device`` (a captured program's buffer, read on the device
+    with no host sync)."""
+    return pos + torch.arange(s, device=device)
+
+
+def _check_span(pos, s, T):
+    """Raise unless positions pos..pos+s-1 fit T; a tensor ``pos`` is the
+    caller's to check (it checked the host value it wrote there)."""
+    if not torch.is_tensor(pos) and (pos < 0 or pos + s > T):
+        raise ValueError(f"tokens at {pos}..{pos + s - 1} do not fit a "
+                         f"cache of {T} positions")
+
+
 def _chunk_attention(h, lp, sin, cos, kc, vc, pos):
     """One layer's attention rows for S new tokens at absolute position
-    ``pos``, from the normalised rows h [B, S, D]: the q/k/v products
-    (their H and KV heads read off the products: a tensor-parallel
-    shard's own), RoPE, the tokens' K/V written into the dense cache
-    kc/vc [B, T, KV, hd] in place at ``pos..pos+S-1``, then causal
-    attention over absolute positions in f32: [B, S, H, hd]."""
+    ``pos`` (a host int or a 0-d tensor), from the normalised rows h [B,
+    S, D]: the q/k/v products (their H and KV heads read off the
+    products: a tensor-parallel shard's own), RoPE, the tokens' K/V
+    written into the dense cache kc/vc [B, T, KV, hd] in place at
+    ``pos..pos+S-1``, then causal attention over absolute positions in
+    f32: [B, S, H, hd]."""
     b, s, _ = h.shape
     T, hd = kc.shape[1], kc.shape[3]
     q = apply_rope(_mm(h, lp["q_proj"]).reshape(b, s, -1, hd), sin, cos)
     k = apply_rope(_mm(h, lp["k_proj"]).reshape(b, s, -1, hd), sin, cos)
     v = _mm(h, lp["v_proj"]).reshape(b, s, -1, hd)
-    kc[:, pos:pos + s] = k.to(kc.dtype)
-    vc[:, pos:pos + s] = v.to(vc.dtype)
+    rows = _positions(pos, s, h.device)
+    kc.index_copy_(1, rows, k.to(kc.dtype))
+    vc.index_copy_(1, rows, v.to(vc.dtype))
     rep = q.shape[2] // k.shape[2]
     kk = _repeat_kv(kc, rep)    # [B, T, H, hd]
     vv = _repeat_kv(vc, rep)
@@ -149,7 +168,7 @@ def _chunk_attention(h, lp, sin, cos, kc, vc, pos):
     scores = torch.einsum("bshd,bthd->bhst", q.float(), kk.float()) * scale
     # query i at pos+i sees keys <= pos+i
     t_idx = torch.arange(T, device=h.device)[None, None, None, :]
-    q_idx = pos + torch.arange(s, device=h.device)[None, None, :, None]
+    q_idx = rows[None, None, :, None]
     scores = scores.masked_fill(t_idx > q_idx, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhst,bthd->bshd", probs, vv.float())
@@ -170,19 +189,19 @@ def _cached_layer(lp, x, sin, cos, cfg, kc, vc, pos):
 
 def cached_forward(params: Dict, tokens, cfg: _llama.LlamaConfig,
                    k_cache, v_cache, pos: int):
-    """Forward over S tokens starting at absolute position ``pos``.
-    Writes their K/V into the caches in place and returns (logits
-    [B, S, V], k_cache, v_cache)."""
+    """Forward over S tokens starting at absolute position ``pos`` (a host
+    int, or a 0-d tensor on the caches' device holding the same value:
+    the same results, bit for bit). Writes their K/V into the caches in
+    place and returns (logits [B, S, V], k_cache, v_cache)."""
     s = tokens.shape[1]
     T = k_cache.shape[2]
-    if pos < 0 or pos + s > T:
-        raise ValueError(f"tokens at {pos}..{pos + s - 1} do not fit a "
-                         f"cache of {T} positions")
+    _check_span(pos, s, T)
     x = params["embed_tokens"][tokens.long()]
     sin_full, cos_full = build_rope_cache(T, cfg.head_dim,
                                           base=cfg.rope_theta,
                                           device=x.device)
-    sin, cos = sin_full[pos:pos + s], cos_full[pos:pos + s]
+    rows = _positions(pos, s, x.device)
+    sin, cos = sin_full.index_select(0, rows), cos_full.index_select(0, rows)
     for i in range(cfg.num_hidden_layers):
         x, _, _ = _cached_layer(_layer(params, i), x, sin, cos, cfg,
                                 k_cache[i], v_cache[i], pos)
@@ -448,13 +467,18 @@ def _fused_prefill_mode(fused_prefill):
 
 def _fused_prefill_forward(params, toks, cfg, k_pools, v_pools, table,
                            wtable, pos0, n_valid, rope=None, mode="auto",
-                           kv_scales=None):
+                           kv_scales=None, bounds=None):
     """One request's prefill chunk through the fused prefill-block ops,
     straight over the pools.
 
     toks: [P] bucket-padded chunk tokens (``n_valid`` real, host int);
     pools [L, N, BS, KV, hd]; table/wtable [MB] int32: the request's READ
-    and WRITE tables; pos0: host int, tokens already in the pools. Per
+    and WRITE tables; pos0: host int, tokens already in the pools.
+    ``bounds``: an int32 [2] tensor on the pools' device holding (pos0,
+    n_valid) (a captured chunk's buffer; without one, one is written,
+    once for every layer): every position on the device -- the RoPE rows,
+    the pool writes, the kernels' bounds -- is read from it, and the host
+    ints go only to the kernels' checks and plans. Per
     layer: one ``prefill_attn_block`` (RMSNorm + QKV + RoPE + attention
     over the paged history and the chunk + o_proj + residual), the
     chunk's own K/V written into the pools in place through the write
@@ -475,11 +499,16 @@ def _fused_prefill_forward(params, toks, cfg, k_pools, v_pools, table,
                         quant=kv_scales is not None,
                         weight_dtype=_wq_mode(params), device=k_pools.device)
     attn_fn, mlp_fn, _ = resolve_prefill_blocks(meta, mode)
+    from ..ops.kernels.fused_prefill_block import device_bounds
     x = params["embed_tokens"][toks.long()]              # [P, D]
     if rope is None:
         rope = build_rope_cache(MB * BS, cfg.head_dim, base=cfg.rope_theta,
                                 device=x.device)
-    sin, cos = rope[0][pos0:pos0 + P], rope[1][pos0:pos0 + P]
+    if bounds is None:
+        bounds = device_bounds(pos0, n_valid, x.device)
+    at, nv = bounds[0], bounds[1]
+    rows = _positions(at, P, x.device)
+    sin, cos = rope[0].index_select(0, rows), rope[1].index_select(0, rows)
     eps = cfg.rms_norm_eps
     for i in range(cfg.num_hidden_layers):
         lp = _layer(params, i)
@@ -488,12 +517,12 @@ def _fused_prefill_forward(params, toks, cfg, k_pools, v_pools, table,
         x, k_new, v_new = attn_fn(
             x, lp["input_norm"].to(x.dtype), lp["q_proj"], lp["k_proj"],
             lp["v_proj"], lp["o_proj"], sin, cos, kp, vp, table, pos0,
-            n_valid, scales, eps)
+            n_valid, scales, eps, bounds=bounds)
         if scales is None:
-            write_chunk_to_pool(kp, vp, wtable, pos0, n_valid, k_new, v_new)
+            write_chunk_to_pool(kp, vp, wtable, at, nv, k_new, v_new)
         else:
-            write_chunk_to_pool_quant(kp, vp, wtable, pos0, n_valid, k_new,
-                                      v_new, *scales)
+            write_chunk_to_pool_quant(kp, vp, wtable, at, nv, k_new, v_new,
+                                      *scales)
         x = mlp_fn(x, lp["post_norm"].to(x.dtype), lp["gate_proj"],
                    lp["up_proj"], lp["down_proj"], eps)
     x = rms_norm(x[None], params["final_norm"].to(x.dtype), eps)[0]
@@ -547,17 +576,21 @@ def _route_key(mode):
 
 def _paged_chunk_runner(cfg, gen, quant=False, fused=False, sm=None,
                         wq=None):
-    """The n-step decode loop of ``generate_paged`` (the JAX package's
-    jitted scan, run eagerly), cached per (cfg values, gen values, int8
+    """The decode step of ``generate_paged``'s loop (the step of the JAX
+    package's jitted scan), cached per (cfg values, gen values, int8
     pools, route and its pins, mesh, weight mode) as the JAX
-    ``_PAGED_CACHE`` is. Each step runs ``_fused_decode_step`` (route
-    ``fused``), ``_paged_decode_step`` (False) or, under a mesh,
-    ``tp._tp_decode_step``, then samples with the caller's generator; a
+    ``_PAGED_CACHE`` is. It runs ``_fused_decode_step`` (route ``fused``),
+    ``_paged_decode_step`` (False) or, under a mesh,
+    ``tp._tp_decode_step``, then samples with the call's generator; a
     sequence that drew EOS keeps drawing EOS.
 
-    The runner: ``run(n, params, tok, generator, done, k_pools, v_pools,
-    seq_lens, block_tables, kv_scales, rope) -> (toks [n, B], tok, done,
-    seq_lens)``, the pools written in place."""
+    The runner: ``step(b)``, one decode step over the call's fixed
+    buffers ``b`` (:func:`_decode_chunks`): it reads ``b.tok``,
+    ``b.seq``, ``b.tables``, the pools, the scales and the RoPE table, and
+    writes the next tokens into ``b.tok`` and row ``b.idx`` of ``b.out``,
+    ``b.done``, ``b.seq + 1`` and ``b.idx + 1`` in place, the pools in
+    place: no host value changes from one step to the next, so the step
+    is one capturable program."""
     ck = (dataclasses.astuple(cfg), dataclasses.astuple(gen), bool(quant),
           fused, _route_key(fused), _mesh_route(sm), wq)
     cached = _cache_get(_PAGED_CACHE, ck)
@@ -566,53 +599,73 @@ def _paged_chunk_runner(cfg, gen, quant=False, fused=False, sm=None,
     if sm is not None:
         from .tp import _tp_decode_step
 
-        def step(params, tok, kp, vp, bt, seq, kv_scales, rope):
-            return _tp_decode_step(params, tok, cfg, kp, vp, bt, seq, sm,
-                                   rope=rope, kv_scales=kv_scales,
-                                   fused=fused)
+        def logits_of(b):
+            return _tp_decode_step(b.params, b.tok, cfg, b.k_pools,
+                                   b.v_pools, b.tables, b.seq, sm,
+                                   rope=b.rope, kv_scales=b.kv_scales,
+                                   fused=fused)[0]
     elif fused:
-        def step(params, tok, kp, vp, bt, seq, kv_scales, rope):
-            return _fused_decode_step(params, tok, cfg, kp, vp, bt, seq,
-                                      rope=rope, mode=fused,
-                                      kv_scales=kv_scales)
+        def logits_of(b):
+            return _fused_decode_step(b.params, b.tok, cfg, b.k_pools,
+                                      b.v_pools, b.tables, b.seq,
+                                      rope=b.rope, mode=fused,
+                                      kv_scales=b.kv_scales)[0]
     else:
-        def step(params, tok, kp, vp, bt, seq, kv_scales, rope):
-            return _paged_decode_step(params, tok, cfg, kp, vp, bt, seq,
-                                      rope=rope, kv_scales=kv_scales)
+        def logits_of(b):
+            return _paged_decode_step(b.params, b.tok, cfg, b.k_pools,
+                                      b.v_pools, b.tables, b.seq,
+                                      rope=b.rope, kv_scales=b.kv_scales)[0]
 
-    def run(n, params, tok, generator, done, k_pools, v_pools, seq_lens,
-            block_tables, kv_scales=None, rope=None):
-        toks = []
-        for _ in range(n):
-            logits, _, _ = step(params, tok, k_pools, v_pools, block_tables,
-                                seq_lens, kv_scales, rope)
-            nxt = sample_token(logits, gen, generator)
-            nxt = torch.where(done, gen.eos_token_id, nxt)
-            done = done | (nxt == gen.eos_token_id)
-            seq_lens = seq_lens + 1
-            toks.append(nxt)
-            tok = nxt
-        return torch.stack(toks), tok, done, seq_lens
+    def step(b):
+        nxt = sample_token(logits_of(b), gen, b.generator)
+        nxt = torch.where(b.done, gen.eos_token_id, nxt)
+        torch.logical_or(b.done, nxt == gen.eos_token_id, out=b.done)
+        b.seq.add_(1)
+        b.tok.copy_(nxt)
+        b.out.index_copy_(0, b.idx, nxt[None])
+        b.idx.add_(1)
 
-    return _cache_put(_PAGED_CACHE, ck, run)
+    return _cache_put(_PAGED_CACHE, ck, step)
 
 
-def _decode_chunks(chunk_fn, gen, params, tok, generator, k_pools, v_pools,
+def _decode_chunks(step, gen, params, tok, generator, k_pools, v_pools,
                    seq_lens, block_tables, kv_scales, rope):
     """The first sampled token ``tok`` [B] and ``gen.max_new_tokens - 1``
-    more from ``chunk_fn`` (a :func:`_paged_chunk_runner`),
-    ``_DECODE_CHUNK`` steps a call: [B, max_new_tokens]."""
-    done = tok == gen.eos_token_id
-    out = [tok[:, None]]
+    more from ``step`` (a :func:`_paged_chunk_runner`), as the JAX loop
+    runs its scan, ``_DECODE_CHUNK`` steps a chunk: [B, max_new_tokens].
+    The step is one program (:class:`.program.Program`) over fixed
+    buffers made here: the tokens, the EOS flags, the lengths, the step
+    index and the [N - 1, B] output on the device; the tables, pools,
+    scales, RoPE table and generator are the call's. On CUDA the first
+    step runs eagerly (the warm-up), the second is captured as one CUDA
+    graph (the generator registered) and every step is a replay, with no
+    host sync until the caller reads the output; on the CPU each step
+    runs eagerly. The pools belong to the call (a store's persist, but
+    its tables change per call), so a capture serves one call."""
+    from types import SimpleNamespace
+    from .program import Program
     left = gen.max_new_tokens - 1
+    if left <= 0:
+        return tok[:, None]
+    dev = tok.device
+    b = SimpleNamespace(
+        params=params, k_pools=k_pools, v_pools=v_pools,
+        tables=block_tables, kv_scales=kv_scales, rope=rope,
+        generator=generator, tok=tok.clone(),
+        done=tok == gen.eos_token_id, seq=seq_lens.clone(),
+        idx=torch.zeros((1,), dtype=torch.long, device=dev),
+        out=torch.empty((left, tok.shape[0]), dtype=tok.dtype, device=dev))
+    cuda = dev.type == "cuda"
+    prog = Program(lambda: step(b), dev,
+                   torch.cuda.Stream(dev) if cuda else None,
+                   generator if cuda else None)
     while left > 0:
         n = min(_DECODE_CHUNK, left)
-        toks, tok, done, seq_lens = chunk_fn(
-            n, params, tok, generator, done, k_pools, v_pools, seq_lens,
-            block_tables, kv_scales, rope)
-        out.append(toks.T)
+        for _ in range(n):
+            prog.prepare()
+            prog()
         left -= n
-    return torch.cat(out, dim=1)
+    return torch.cat([tok[:, None], b.out.T], dim=1)
 
 
 def _suffix_prefill_runner(cfg, P, MB, mode):
@@ -705,7 +758,8 @@ def generate_paged(params: Dict, input_ids, cfg: _llama.LlamaConfig,
     dense cache is repacked into pools of ``block_size``-token pages (every
     sequence's whole generation allocated up front by a ``BlockManager``),
     then the decode steps run over the pools in chunks of
-    ``_DECODE_CHUNK`` (:func:`_paged_chunk_runner`), eagerly.
+    ``_DECODE_CHUNK`` (:func:`_paged_chunk_runner`): on CUDA one captured
+    CUDA graph replayed a step (:func:`_decode_chunks`).
 
     ``cache_dtype="int8"``: the pools quantize after the prefill with
     static per-layer, per-head scales from their absmax (the port's
@@ -722,7 +776,8 @@ def generate_paged(params: Dict, input_ids, cfg: _llama.LlamaConfig,
     the registry's pick, "pallas"/"block" the CUDA kernels, "ref" the
     composition, False the unfused step). ``mesh``: a ``ServingMesh`` (or
     an int tp): the prefill and the decode steps run tensor-parallel over
-    the head axis (``inference/tp.py``), pools per shard.
+    the head axis (``inference/tp.py``), pools per shard; on CUDA its
+    shards must share one card (the step is one CUDA graph).
     ``weight_quant``: "int8"/"int4" quantizes a plain tree once on the
     way in (a quantized tree rides as-is); not with a mesh, as in the JAX
     package. ``observability`` raises: the harness is not ported (ROADMAP
@@ -757,6 +812,12 @@ def generate_paged(params: Dict, input_ids, cfg: _llama.LlamaConfig,
         ok, reason = sm.supports(cfg)
         if not ok:
             raise ValueError(f"generate_paged(mesh=...): {reason}")
+        if home.type == "cuda" and len(set(sm.devices)) > 1:
+            raise ValueError(
+                f"generate_paged(mesh=...): shards on "
+                f"{len(set(sm.devices))} devices; the decode step is one "
+                "CUDA graph, which runs on one card: colocate the shards "
+                "on one device")
         if prefix_cache is not None:
             raise NotImplementedError(
                 "generate_paged(prefix_cache=...) does not take a mesh:"

@@ -64,7 +64,8 @@ prefill chunk; fp or int8 pools).
 
 Each step does admission, one prefill chunk and one decode step; the one
 host sync per decode step is the read of the sampled tokens, where the
-host detects EOS / length-done and recycles slots.
+host detects EOS / length-done and recycles slots, and a request's last
+prefill chunk syncs on its first token.
 
 The decode step follows ``fused_decode`` as in the JAX engine. The
 default ("auto", also None/True) runs ``_fused_decode_step`` through the
@@ -112,13 +113,31 @@ every other input of dispatch is fixed when the engine is built. A
 replay adds the launches its capture made to the kernels' counts and
 reports their plans to an active ``capture_kernel_launches``. A mesh
 whose shards sit on more than one card is refused: one graph runs on
-one card. Prefill chunks run eagerly.
+one card.
+
+THE PREFILL PROGRAMS (the JAX engine's ``_prefill_fns``, one jitted chunk
+a bucket): one program a bucket and key (``(P,) + _prefill_key()``, the
+JAX engine's program key), the fused, the verbatim or the mesh chunk as
+the bucket's route says, over the bucket's fixed buffers
+(``_ChunkBuffers``: tokens, bounds = (pos0, n), read and write tables,
+temperature, the sampled token), which each chunk's values are staged
+into first. Every position is read from the bounds buffer on the device
+(``prefill_attn_block`` reads it too, as the TPU kernel reads its
+scalar-prefetch operand), so one graph serves every chunk of a bucket:
+at a prefix hit's ``pos0`` off a bucket multiple and with a write table
+that sends shared pages to scratch. A bucket's first chunk runs eagerly
+(the warm-up), its second is captured and replayed, every later chunk is
+one replay; the prefill graphs share one memory pool. A COW fork, a
+host-tier restore and the int8 cache's calibration run before the
+chunk, outside its graph, on the same stream. A replay reports each
+``prefill_attn_block`` launch at its own chunk's (pos0, n).
 
 ``metrics()`` has the JAX engine's keys (observability off, one device)
 plus ``decode_step_ms_mean``. ``decode_traces`` counts the decode
 program's captures on CUDA (as ``jax.jit`` traces once: 1 an engine) and
-its builds on the CPU (1); ``prefill_traces`` counts how often a bucket's
-chunk route is resolved (at most 1 per bucket) and ``calibration_traces``
+its builds on the CPU (1); ``prefill_traces[P]`` counts bucket P's
+prefill programs' captures on CUDA and their builds on the CPU (at most
+1 a bucket and key, as the JAX engine's traces) and ``calibration_traces``
 the int8 cache's calibrations (one an engine), ``offload_traces`` the
 host tier's spill and restore paths at their first use (at most 1 each,
 as the JAX engine's two programs trace once), and ``kv_spill_bytes`` /
@@ -149,9 +168,11 @@ from ..ops.rope import build_rope_cache
 from ..quantization.ptq import (ensure_quantized, normalize_weight_quant,
                                 weight_quant_mode)
 from .admission import AdmissionQueue
-from .generation import (GenerationConfig, _fused_decode_step,
-                         _fused_mode, _fused_prefill_forward,
-                         _fused_prefill_mode, _gumbel, _paged_decode_step)
+from .generation import (GenerationConfig, _check_span,
+                         _fused_decode_step, _fused_mode,
+                         _fused_prefill_forward, _fused_prefill_mode,
+                         _gumbel, _paged_decode_step)
+from .program import Program as _Program
 from .tp import (ServingMesh, _tp_cached_forward, _tp_decode_step,
                  normalize_mesh)
 
@@ -171,93 +192,6 @@ def _sample_slots(logits, generator, temps):
              + _gumbel(logits.shape, generator, logits.device))
     sampled = torch.argmax(noisy, dim=-1)
     return torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
-
-
-def _graph_nodes(graph) -> int:
-    """The node count of a captured CUDA graph (kept with ``keep_graph``),
-    read through libcuda's ``cuGraphGetNodes``."""
-    import ctypes
-    n = ctypes.c_size_t(0)
-    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
-        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
-    return n.value
-
-
-class _DecodeProgram:
-    """One decode step as a program (the JAX engine's ``jax.jit`` of its
-    step): ``body`` reads and writes only the engine's fixed buffers.
-
-    On the CPU each call runs ``body``. On CUDA the first call runs it
-    eagerly on the engine's ``stream`` (the warm-up, a real step: the
-    kernels are built, Triton compiles, cuBLAS sets its workspace and the
-    weight ring allocates its tickets and partials for that stream);
-    :meth:`prepare` before the second call captures it on that stream as a
-    CUDA graph with a memory pool of its own (the ring's tickets zeroed
-    first, outside the graph; the engine's generator registered, so every
-    replay draws fresh noise and capturing draws none), and every call
-    from then on is one replay, on the caller's stream. Capturing runs no
-    kernel, so it counts nothing: the launches and the plans its wrappers
-    recorded are kept (``launches``, ``specs``) and added to the counts,
-    and reported to an active ``capture_kernel_launches``, at each replay.
-    A capture that fails raises with CUDA's error."""
-
-    def __init__(self, body, device, stream, generator, counters):
-        self.body = body
-        self.device = device
-        self._stream = stream
-        self._gen = generator
-        self._counters = counters
-        self._warm = False
-        self.graph = None
-        self.replays = 0
-        self.launches: Dict = {}       # what one replay launches
-        self.specs: List = []          # the plans of those launches
-        self.capture_s: Optional[float] = None
-        self.nodes: Optional[int] = None
-        self._keep: Tuple = ()         # the ring buffers the graph reads
-
-    def prepare(self):
-        """Capture the body once its warm-up has run (CUDA only)."""
-        if self.graph is None and self._warm:
-            self._capture()
-
-    def __call__(self):
-        if self.graph is not None:
-            self.graph.replay()
-            self.replays += 1
-            from ..ops import kernels
-            from ..ops.kernels import _launch
-            kernels.add_launches(self.launches)
-            _launch.report(self.specs)
-        elif self.device.type == "cuda":
-            main = torch.cuda.current_stream(self.device)
-            self._stream.wait_stream(main)
-            with torch.cuda.stream(self._stream):
-                self.body()
-            main.wait_stream(self._stream)
-            self._warm = True
-        else:
-            self.body()
-
-    def _capture(self):
-        from ..ops import kernels
-        from ..ops.kernels import _launch
-        from ..ops.kernels.fused_decode_block import ring_buffers
-        t0 = time.perf_counter()
-        self._keep = ring_buffers(self.device, self._stream.cuda_stream)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        graph.register_generator_state(self._gen)
-        with kernels.launches_apart() as launches, \
-                _launch.capture_kernel_launches(isolated=True) as specs:
-            with torch.cuda.graph(graph, stream=self._stream):
-                self.body()
-        graph.instantiate()
-        self.nodes = _graph_nodes(graph)
-        self.graph, self.launches, self.specs = graph, launches, specs
-        self.capture_s = time.perf_counter() - t0
-        self._counters["decode_traces"] += 1
 
 
 def _not_ported(arg: str, value, what: str):
@@ -306,6 +240,59 @@ class _Slot:
         self.phase = "idle"          # idle | prefill | decode
         self.seq_len = 0             # tokens cached in the pools
         self.prefill_pos = 0         # next prompt position to prefill
+
+
+class _ChunkBuffers:
+    """One bucket's fixed buffers, the prefill program's arguments on the
+    engine's device: ``toks`` [1, P] int64, ``bounds`` int32 [2] = (pos0,
+    n), the READ ``table`` and WRITE ``wtable`` [MB] (int32 for the fused
+    chunk, int64 for the verbatim one), ``temp`` [1] f32 and the sampled
+    token ``tok`` [1] int32; ``at``: the staged (pos0, n) on the host.
+
+    :meth:`stage` writes a chunk's values into them on the current stream.
+    On CUDA it copies from a ring of two pinned host slots without a host
+    sync: chunks that are not a request's last do not sync, so a slot is
+    rewritten only once the copy that last read it has run (its event),
+    and a queued chunk never sees the next chunk's values."""
+
+    _RING = 2
+
+    def __init__(self, P: int, MB: int, table_dtype, device):
+        shapes = {"toks": ((1, P), torch.int64),
+                  "bounds": ((2,), torch.int32),
+                  "table": ((MB,), table_dtype),
+                  "wtable": ((MB,), table_dtype),
+                  "temp": ((1,), torch.float32)}
+        self.dev = {k: torch.zeros(sh, dtype=dt, device=device)
+                    for k, (sh, dt) in shapes.items()}
+        self.toks, self.bounds, self.table, self.wtable, self.temp = (
+            self.dev[k] for k in shapes)
+        self.tok = torch.zeros((1,), dtype=torch.int32, device=device)
+        self.at = (0, 1)
+        self._ring = ([{k: torch.zeros(sh, dtype=dt, pin_memory=True)
+                        for k, (sh, dt) in shapes.items()}
+                       for _ in range(self._RING)]
+                      if device.type == "cuda" else [])
+        self._events = [None] * len(self._ring)
+        self._next = 0
+
+    def stage(self, toks, pos0: int, n: int, table, wtable, temp: float):
+        vals = {"toks": toks[None], "bounds": (pos0, n), "table": table,
+                "wtable": wtable, "temp": (temp,)}
+        self.at = (pos0, n)
+        if not self._ring:
+            for k, v in vals.items():
+                self.dev[k].copy_(torch.as_tensor(np.asarray(v)))
+            return
+        i = self._next
+        self._next = (i + 1) % len(self._ring)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        for k, h in self._ring[i].items():
+            h.numpy()[...] = vals[k]
+            self.dev[k].copy_(h, non_blocking=True)
+        self._events[i] = torch.cuda.Event()
+        self._events[i].record()
 
 
 class ServingEngine:
@@ -511,8 +498,15 @@ class ServingEngine:
             int(seed))
         # the decode programs by key (_decode_key) and, on CUDA, the stream
         # their warm-up and capture run on
-        self._decode_fns: Dict[Tuple, _DecodeProgram] = {}
+        self._decode_fns: Dict[Tuple, _Program] = {}
         self._stream = (torch.cuda.Stream(self.device) if pin else None)
+        # the prefill programs by (bucket,) + key (_prefill_key), each
+        # bucket's fixed buffers, and on CUDA the one memory pool their
+        # graphs share (they never run at once)
+        self._prefill_fns: Dict[Tuple, _Program] = {}
+        self._prefill_bufs: Dict[int, _ChunkBuffers] = {}
+        self._prefill_pool = (torch.cuda.graph_pool_handle() if pin
+                              else None)
         # the JAX engine's counters; decode_traces counts the decode
         # program's captures (builds on the CPU), the other *_traces route
         # resolutions, calibrations and offload paths (module docstring)
@@ -1219,48 +1213,101 @@ class ServingEngine:
         return (ServingMesh((self.device,), collective="gather"),
                 [self.params], [self._k_pools], [self._v_pools])
 
-    def _prefill_chunk(self, toks, pos0, table, wtable, last_idx, temp):
-        """One prefill chunk (the JAX engine's ``_make_prefill_fn_ref``
-        program, and under a mesh ``_make_prefill_fn_tp``): each shard
-        gathers the request's pages of its KV heads into a dense view
-        through the read ``table`` (page indices are global; int8 pools
-        dequantized to the model type with the shard's scales),
-        ``_tp_cached_forward`` runs the placement over the views, each
-        view is scattered back in place through the WRITE table
-        ``wtable`` (int8: quantized back first; shared pages go to scratch
-        page 0), and a token is sampled from row ``last_idx``."""
+    def _prefill_chunk(self, buf: _ChunkBuffers):
+        """One prefill chunk over ``buf`` (the JAX engine's
+        ``_make_prefill_fn_ref`` program, and under a mesh
+        ``_make_prefill_fn_tp``): each shard gathers the request's pages
+        of its KV heads into a dense view through the read ``table`` (page
+        indices are global; int8 pools dequantized to the model type with
+        the shard's scales), ``_tp_cached_forward`` runs the placement over
+        the views at ``bounds[0]``, each view is scattered back in place
+        through the WRITE table (int8: quantized back first; shared pages
+        go to scratch page 0), and a token is sampled from row ``bounds[1]
+        - 1``: [1] int32."""
         sm, shards, k_pools, v_pools = self._shards()
-        tables = sm.replicate(table)
-        wtables = sm.replicate(wtable)
+        tables = sm.replicate(buf.table)
+        wtables = sm.replicate(buf.wtable)
         scales = self._shard_scales or [(None, None)] * sm.tp
         kcs = [self._dense_view(p, t, sc[0])
                for p, t, sc in zip(k_pools, tables, scales)]
         vcs = [self._dense_view(p, t, sc[1])
                for p, t, sc in zip(v_pools, tables, scales)]
-        logits, _, _ = _tp_cached_forward(shards, toks, self.cfg, kcs, vcs,
-                                          pos0, sm)
+        logits, _, _ = _tp_cached_forward(shards, buf.toks, self.cfg, kcs,
+                                          vcs, buf.bounds[0], sm)
         for i, (t, sc) in enumerate(zip(wtables, scales)):
             self._scatter_view(k_pools[i], t, kcs[i], sc[0])
             self._scatter_view(v_pools[i], t, vcs[i], sc[1])
-        return _sample_slots(logits[:, last_idx], self._gen, temp)[0]
+        last = logits.index_select(1, buf.bounds[1:] - 1)[:, 0]
+        return _sample_slots(last, self._gen, buf.temp)
 
-    def _prefill_chunk_fused(self, toks, pos0, table, wtable, n, temp):
-        """One prefill chunk through the fused prefill-block ops (the JAX
-        engine's ``_make_prefill_fn_fused`` program): straight over the
-        pools, reading the history through ``table``, only the chunk's own
-        K/V written, through the WRITE table ``wtable`` (both int32), a
-        token sampled from row ``n - 1``."""
-        if self._prefill_variant is None:
-            self._prefill_variant = self._resolve_prefill_variant(
-                toks.shape[1])
+    def _prefill_chunk_fused(self, buf: _ChunkBuffers):
+        """One prefill chunk over ``buf`` through the fused prefill-block
+        ops (the JAX engine's ``_make_prefill_fn_fused`` program):
+        straight over the pools, reading the history through ``table``,
+        only the chunk's own K/V written, through the WRITE table
+        ``wtable`` (both int32), every position read from ``bounds`` on the
+        device (the host's ``at`` goes to the kernels' checks and plans),
+        a token sampled from row ``bounds[1] - 1``: [1] int32."""
         _, shards, kps, vps = self._shards()    # one shard (tp=1)
+        pos0, n = buf.at
         logits, _, _ = _fused_prefill_forward(
-            shards[0], toks[0], self.cfg, kps[0], vps[0], table, wtable,
-            pos0, n, rope=self._rope, mode=self._fused_prefill,
-            kv_scales=self._kv_scales)
-        return _sample_slots(logits[n - 1:n], self._gen, temp)[0]
+            shards[0], buf.toks[0], self.cfg, kps[0], vps[0], buf.table,
+            buf.wtable, pos0, n, rope=self._rope, mode=self._fused_prefill,
+            kv_scales=self._kv_scales, bounds=buf.bounds)
+        last = logits.index_select(0, buf.bounds[1:] - 1)
+        return _sample_slots(last, self._gen, buf.temp)
+
+    def _prefill_body(self, P: int):
+        """Bucket ``P``'s chunk over its fixed buffers: the fused or the
+        verbatim chunk, the sampled token written into ``tok``."""
+        buf = self._prefill_bufs[P]
+        chunk = (self._prefill_chunk_fused if self._fused_buckets[P]
+                 else self._prefill_chunk)
+        buf.tok.copy_(chunk(buf))
+
+    def _prefill_key(self) -> Tuple:
+        """The prefill programs' key beside the bucket: the registry's
+        force pins in "auto" mode (the JAX engine's route key, as
+        :meth:`_decode_key`)."""
+        from ..ops.kernels.registry import KERNELS
+        return (KERNELS.forced_state() if self._fused_prefill == "auto"
+                else ())
+
+    def _make_prefill_fn(self, P: int) -> _Program:
+        """Bucket ``P``'s prefill program (the JAX engine's
+        ``_make_prefill_fn``) of the current key, over the bucket's fixed
+        buffers (made at its first program); records the fused chunk's
+        variant under the same pins. ``prefill_traces[P]`` counts a build
+        on the CPU and a capture on CUDA."""
+        if P not in self._prefill_bufs:
+            tdt = torch.int32 if self._fused_buckets[P] else torch.int64
+            self._prefill_bufs[P] = _ChunkBuffers(P, self.max_blocks, tdt,
+                                                  self.device)
+        if self._fused_buckets[P]:
+            self._prefill_variant = self._resolve_prefill_variant(P)
+        traces = self.counters["prefill_traces"]
+        traces.setdefault(P, 0)
+        if self.device.type != "cuda":
+            traces[P] += 1
+        engine = weakref.ref(self)   # no cycle through the program
+
+        def body():
+            engine()._prefill_body(P)
+
+        def captured():
+            traces[P] += 1
+        return _Program(body, self.device, self._stream, self._gen,
+                        on_capture=captured, pool=self._prefill_pool)
+
+    def _prefill_program(self, P: int) -> _Program:
+        key = (P,) + self._prefill_key()
+        prog = self._prefill_fns.get(key)
+        if prog is None:
+            prog = self._prefill_fns[key] = self._make_prefill_fn(P)
+        return prog
 
     def _run_prefill(self) -> bool:
+        from ..ops.kernels.fused_prefill_block import prefill_spec_at
         for slot_id, slot in enumerate(self._slots):
             if slot.phase != "prefill":
                 continue
@@ -1269,31 +1316,22 @@ class ServingEngine:
             pos0 = slot.prefill_pos
             n = min(S - pos0, self.buckets[-1])
             P = self._bucket_for(n)
-            toks = np.zeros((1, P), np.int64)
-            toks[0, :n] = req.prompt[pos0:pos0 + n]
-            temp = self._upload(np.array([self._temp_of(req.gen)],
-                                         np.float32))
-            traces = self.counters["prefill_traces"]
-            if P not in traces:
-                traces[P] = 1        # the bucket's chunk resolved once
-            if self._fused_buckets[P]:
-                tok = self._prefill_chunk_fused(
-                    self._upload(toks), pos0,
-                    self._upload(self._slot_tables[slot_id]),
-                    self._upload(self._slot_wtables[slot_id]), n, temp)
-            else:
-                tok = self._prefill_chunk(
-                    self._upload(toks), pos0,
-                    self._upload(self._slot_tables[slot_id].astype(
-                        np.int64)),
-                    self._upload(self._slot_wtables[slot_id].astype(
-                        np.int64)), n - 1, temp)
+            # the programs read pos0 on the device: check it here
+            _check_span(pos0, P, self.max_blocks * self.block_size)
+            prog = self._prefill_program(P)
+            buf = self._prefill_bufs[P]
+            toks = np.zeros(P, np.int64)
+            toks[:n] = req.prompt[pos0:pos0 + n]
+            buf.stage(toks, pos0, n, self._slot_tables[slot_id],
+                      self._slot_wtables[slot_id], self._temp_of(req.gen))
+            prog.prepare()
+            prog(respec=lambda sp: prefill_spec_at(sp, pos0, n))
             self.counters["prefill_chunks"] += 1
             self.counters["prefill_tokens"] += n
             self.counters["prefill_pad_tokens"] += P - n
             slot.prefill_pos += n
             if slot.prefill_pos == S:
-                first = int(tok)             # syncs on the final chunk
+                first = int(buf.tok[0])      # syncs on the final chunk
                 req.first_token_t = self._clock()
                 req.ttft = req.first_token_t - req.submit_t
                 req.tokens.append(first)
@@ -1377,7 +1415,7 @@ class ServingEngine:
         from ..ops.kernels.registry import KERNELS
         return KERNELS.forced_state() if self._fused == "auto" else ()
 
-    def _make_decode_fn(self) -> _DecodeProgram:
+    def _make_decode_fn(self) -> _Program:
         """The decode program (the JAX engine's ``_make_decode_fn``) of the
         current key; records the variant its dispatch picks, under the
         same pins. Counts a build in ``decode_traces`` on the CPU (on CUDA
@@ -1393,10 +1431,15 @@ class ServingEngine:
 
         def body():
             engine()._decode_body()
-        return _DecodeProgram(body, self.device, self._stream, self._gen,
-                              self.counters)
 
-    def _decode_program(self) -> _DecodeProgram:
+        counters = self.counters
+
+        def captured():
+            counters["decode_traces"] += 1
+        return _Program(body, self.device, self._stream, self._gen,
+                        on_capture=captured)
+
+    def _decode_program(self) -> _Program:
         key = self._decode_key()
         prog = self._decode_fns.get(key)
         if prog is None:

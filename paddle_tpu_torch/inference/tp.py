@@ -59,8 +59,9 @@ from ..device import resolve_device
 from ..models.llama import tp_param_specs
 from ..ops import rms_norm, swiglu
 from ..ops.rope import build_rope_cache
-from .generation import (_chunk_attention, _decode_attention, _head, _layer,
-                         _layer_scales, _mm, _wq_mode, _write_new_token)
+from .generation import (_check_span, _chunk_attention, _decode_attention,
+                         _head, _layer, _layer_scales, _mm, _positions,
+                         _wq_mode, _write_new_token)
 
 __all__ = ["ServingMesh", "tp_reject_reason", "normalize_mesh"]
 
@@ -397,18 +398,20 @@ def _tp_decode_step_gather(shards, tok, cfg, k_pools, v_pools, block_tables,
     return _final_logits(shards, xs, cfg), k_pools, v_pools
 
 
-def _tp_cached_layer(lps, xs, sins, coss, cfg, kcs, vcs, pos, mesh):
+def _tp_cached_layer(lps, xs, sins, coss, cfg, kcs, vcs, poss, mesh):
     """Tensor-parallel ``generation._cached_layer``: one decoder block over
-    S new tokens at absolute position ``pos`` on every shard, each reading
-    and writing its slice of the dense cache (kcs/vcs: [B, T, KV_loc, hd]
-    per shard, written in place). Returns the replicated rows."""
+    S new tokens at absolute position ``poss[i]`` on shard i (each shard's
+    copy of one position), each reading and writing its slice of the
+    dense cache (kcs/vcs: [B, T, KV_loc, hd] per shard, written in place).
+    Returns the replicated rows."""
     eps = cfg.rms_norm_eps
     b, s, _ = xs[0].shape
     gather = mesh.collective == "gather"
     hs = _once_per_device(mesh, lambda x, lp: rms_norm(
         x, lp["input_norm"].to(x.dtype), eps), xs, lps)
     attn = [_chunk_attention(h, lp, sin, cos, kc, vc, pos)
-            for h, lp, kc, vc, sin, cos in zip(hs, lps, kcs, vcs, sins, coss)]
+            for h, lp, kc, vc, sin, cos, pos
+            in zip(hs, lps, kcs, vcs, sins, coss, poss)]
     if gather:
         attn = mesh.all_gather(attn, 2)
         xs = _once_per_device(mesh, lambda x, a, lp: x + _mm(
@@ -433,22 +436,24 @@ def _tp_cached_forward(shards, tokens, cfg, k_caches, v_caches, pos: int,
                        mesh):
     """Tensor-parallel ``generation.cached_forward``, the per-shard prefill
     body: ``k_caches``/``v_caches`` are each shard's dense view
-    [L, B, T, KV_loc, hd] (written in place); tokens on shard 0's device.
+    [L, B, T, KV_loc, hd] (written in place); tokens on shard 0's device;
+    ``pos`` a host int or a 0-d tensor on shard 0's device (the same
+    results, bit for bit; a tensor is the caller's to range-check).
     Returns (logits [B, S, V] on shard 0's device, k_caches, v_caches)."""
     s = tokens.shape[1]
     T = k_caches[0].shape[2]
-    if pos < 0 or pos + s > T:
-        raise ValueError(f"tokens at {pos}..{pos + s - 1} do not fit a "
-                         f"cache of {T} positions")
+    _check_span(pos, s, T)
     xs = mesh.replicate(shards[0]["embed_tokens"][tokens.long()])
     sin, cos = build_rope_cache(T, cfg.head_dim, base=cfg.rope_theta,
                                 device=xs[0].device)
-    sins = mesh.replicate(sin[pos:pos + s])
-    coss = mesh.replicate(cos[pos:pos + s])
+    rows = _positions(pos, s, xs[0].device)
+    sins = mesh.replicate(sin.index_select(0, rows))
+    coss = mesh.replicate(cos.index_select(0, rows))
+    poss = mesh.replicate(pos) if torch.is_tensor(pos) else [pos] * mesh.tp
     for layer in range(cfg.num_hidden_layers):
         xs = _tp_cached_layer([_layer(p, layer) for p in shards], xs, sins,
                               coss, cfg, [k[layer] for k in k_caches],
-                              [v[layer] for v in v_caches], pos, mesh)
+                              [v[layer] for v in v_caches], poss, mesh)
     x = rms_norm(xs[0], shards[0]["final_norm"].to(xs[0].dtype),
                  cfg.rms_norm_eps)
     return x @ _head(shards[0]), k_caches, v_caches

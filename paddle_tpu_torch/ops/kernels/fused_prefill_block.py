@@ -53,7 +53,7 @@ __all__ = ["prefill_attn_block_ref", "prefill_attn_block_wq_ref",
            "prefill_mlp_block_ref",
            "prefill_attn_block_cuda", "prefill_meta", "prefill_meta_dims",
            "prefill_attn_smem_bytes", "resolve_prefill_blocks",
-           "prefill_fused_selected"]
+           "prefill_fused_selected", "device_bounds", "prefill_spec_at"]
 
 #: query rows of one attention work item; the chunk width P must be a
 #: multiple of it (both serving buckets, 32 and 128, are)
@@ -63,22 +63,33 @@ BQ = 16
 # ---------------------------------------------------------------------------
 # plain versions: the dense composition, op for op
 # ---------------------------------------------------------------------------
+def device_bounds(pos0, n_valid, device):
+    """The kernel's bounds buffer: (pos0, n_valid) as int32 [2] on
+    ``device``, copied from pageable host memory without a host sync (CUDA
+    stages the 8 bytes before the copy call returns)."""
+    return torch.tensor([int(pos0), int(n_valid)],
+                        dtype=torch.int32).to(device, non_blocking=True)
+
+
 def _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool, table,
                   pos0, kv_scales, eps, residual, mm, omm, hist_dtype):
     """The dense chunk's attention half with the q/k/v products of ``mm``
     and the o_proj of ``omm`` (both landing in x's type). Over int8 pools
     (``kv_scales``) the gathered history is dequantized in f32 and held
     in ``hist_dtype`` (x's type in the JAX composition, f32 in the
-    kernel); the chunk's K/V go into that view at x's type."""
+    kernel); the chunk's K/V go into that view at x's type. ``pos0`` is
+    a host int (range-checked here) or a 0-d tensor (the caller checked
+    the value it wrote there)."""
     from .. import rms_norm
     from ..rope import apply_rope
     P, D = x.shape
     _, BS, KV, hd = k_pool.shape
     T = table.shape[0] * BS
     H = _fdb._wq_parts(wq)[0].shape[1] // hd
-    if pos0 + P > T:
+    if not torch.is_tensor(pos0) and pos0 + P > T:
         raise ValueError(f"chunk rows {pos0}..{pos0 + P - 1} do not fit the "
                          f"table's {T} positions")
+    rows = pos0 + torch.arange(P, device=x.device)
     kc = k_pool[table.long()].reshape(T, KV, hd)
     vc = v_pool[table.long()].reshape(T, KV, hd)
     if kv_scales is not None:
@@ -90,15 +101,15 @@ def _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool, table,
     k = apply_rope(mm(h, wk).reshape(1, P, KV, hd), sin, cos)
     v = mm(h, wv).reshape(1, P, KV, hd)
     k_new, v_new = k[0], v[0]
-    kc[pos0:pos0 + P] = k_new.to(kc.dtype)
-    vc[pos0:pos0 + P] = v_new.to(vc.dtype)
+    kc.index_copy_(0, rows, k_new.to(kc.dtype))
+    vc.index_copy_(0, rows, v_new.to(vc.dtype))
     rep = H // KV
     kk = kc.repeat_interleave(rep, dim=1).float()
     vv = vc.repeat_interleave(rep, dim=1).float()
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("phd,thd->hpt", q[0].float(), kk) * scale
     t_idx = torch.arange(T, device=x.device)[None, None, :]
-    q_idx = pos0 + torch.arange(P, device=x.device)[None, :, None]
+    q_idx = rows[None, :, None]
     scores = scores.masked_fill(t_idx > q_idx, float("-inf"))
     attn = torch.einsum("hpt,thd->phd", torch.softmax(scores, dim=-1), vv)
     o = omm(attn.to(x.dtype).reshape(P, H * hd), wo)
@@ -107,7 +118,7 @@ def _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool, table,
 
 def prefill_attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                            table, pos0, n_valid, kv_scales=None, eps=1e-6,
-                           residual=True):
+                           residual=True, bounds=None):
     """The attention half of a prefill-chunk layer as the dense chunk runs
     it.
 
@@ -116,7 +127,9 @@ def prefill_attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     quantized leaves, dequantized to x's type before their product);
     sin/cos: the chunk's rope rows [P, hd/2] f32, row i for position
     pos0 + i; pools [N, BS, KV, hd]; table [MB]: the request's READ table;
-    pos0: tokens of the request already in the pools; ``kv_scales``:
+    pos0: tokens of the request already in the pools, a host int or a
+    0-d tensor (``bounds``, the kernel's int32 [2] buffer of (pos0,
+    n_valid), takes its place when given); ``kv_scales``:
     (k_scale, v_scale) [KV] f32 for int8 pools, whose gathered history is
     dequantized and cast to x's type (the JAX composition). Gathers the
     request's pages into a dense [MB*BS] view, writes the chunk's K/V into
@@ -124,13 +137,14 @@ def prefill_attn_block_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     or o alone when ``residual`` is False; k_new, v_new [P, KV, hd]). Pays
     full pad work: ``n_valid`` rides only for signature parity."""
     return _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
-                         table, pos0, kv_scales, eps, residual, _fdb._deq_mm,
-                         _fdb._deq_mm, x.dtype)
+                         table, pos0 if bounds is None else bounds[0],
+                         kv_scales, eps, residual, _fdb._deq_mm, _fdb._deq_mm,
+                         x.dtype)
 
 
 def prefill_attn_block_wq_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool,
                               v_pool, table, pos0, n_valid, kv_scales=None,
-                              eps=1e-6, residual=True):
+                              eps=1e-6, residual=True, bounds=None):
     """:func:`prefill_attn_block_ref`'s contract in prefill_attn_block's
     epilogue order (the JAX ``_prefill_attn_kernel``'s): each product
     ``dot(h, q) * s`` in f32, then cast to x's type (q/k/v before RoPE,
@@ -139,7 +153,8 @@ def prefill_attn_block_wq_ref(x, nw, wq, wk, wv, wo, sin, cos, k_pool,
     own K/V stay at x's type. The kernel's plain version for quantized
     weights and int8 pools."""
     return _prefill_attn(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
-                         table, pos0, kv_scales, eps, residual, _fdb._epi_mm,
+                         table, pos0 if bounds is None else bounds[0],
+                         kv_scales, eps, residual, _fdb._epi_mm,
                          lambda a, w: _fdb._f32mm(a, w).to(x.dtype),
                          torch.float32)
 
@@ -155,7 +170,7 @@ def prefill_mlp_block_ref(x, nw, wg, wu, wd, eps=1e-6, residual=True):
 # ---------------------------------------------------------------------------
 _SOURCE = "paddle_tpu_torch/csrc/fused_prefill_block.cu"
 #: the launcher's ctypes argument codes
-CALL = ("prefill_attn_block", _build.c_codes(24, 24, 2))
+CALL = ("prefill_attn_block", _build.c_codes(25, 22, 2))
 #: head dim of the tensor-core attention (the source's kHd)
 TC_HEAD_DIM = 128
 #: the tensor-core body's column tiles of q/k/v and of o_proj (the
@@ -237,7 +252,9 @@ def prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits, residual,
     history of ``pos0`` tokens, and o_proj by column tiles into x_out. The
     tensor-core body (``body`` "tc") normalises the real rows first, tiles
     32 columns by rows of 128, and takes (query block, query head)
-    attention items."""
+    attention items. ``pos0`` and ``n_valid`` are the values the launch's
+    bounds buffer holds (its plan's live lengths; the launch reads them
+    from the buffer)."""
     nq, nkv = H * hd, KV * hd
     vec = 16 // _fdb._ITEM[dt]
     tc = body == "tc"
@@ -265,7 +282,7 @@ def prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits, residual,
     if kv_bits:
         ins += [op("k_scale", (KV,), "float32"),
                 op("v_scale", (KV,), "float32")]
-    ins.append(op("table", (MB,), "int32", "pages"))
+    ins += [op("table", (MB,), "int32", "pages"), op("bounds", (2,), "int32")]
     outs = [op("x_out", (P, D), dt), op("k_new", (P, KV, hd), dt),
             op("v_new", (P, KV, hd), dt)]
     kn = D // 2 if bits == 4 else D
@@ -283,8 +300,11 @@ def prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits, residual,
                       A("sk", (tw,), _fdb._vec, tq, tk),
                       A("sv", (tw,), _fdb._vec, tq + tk, tk)]
     names = [o.name for o in ins]
+    # every block loads the bounds at entry (modeled once, with RoPE's
+    # reads)
     rope_reads = (whole(ins[names.index("sin")]),
-                  whole(ins[names.index("cos")]))
+                  whole(ins[names.index("cos")]),
+                  whole(ins[names.index("bounds")]))
     attn_reads = ()
     if kv_bits:
         attn_reads = (whole(ins[names.index("k_scale")]),
@@ -336,6 +356,24 @@ def prefill_spec(P, D, H, KV, hd, BS, MB, N, dt, bits, kv_bits, residual,
                 "live": (pos0,)}, plan=plan)
 
 
+def prefill_spec_at(spec, pos0, n_valid):
+    """``spec``, a prefill_attn_block launch's plan, at another chunk's
+    (pos0, n_valid): what a replayed CUDA graph captured over one chunk
+    launches for another (the kernel reads both from its bounds buffer;
+    grid, shared memory and tiles do not depend on them). Any other
+    launch's spec comes back as it is."""
+    if spec.name != "prefill_attn_block" or (
+            spec.params["pos0"], spec.params["n_valid"]) == (pos0, n_valid):
+        return spec
+    (P, D), (N, BS, KV, hd) = (spec.operand("x").shape,
+                               spec.operand("k_pool").shape)
+    return prefill_spec(P, D, spec.operand("wq").shape[1] // hd, KV, hd, BS,
+                        spec.operand("table").shape[0], N, spec.dtype,
+                        spec.params["wbits"], spec.params["kvbits"],
+                        spec.params["residual"], int(pos0), int(n_valid),
+                        spec.grid[0], spec.dyn_smem, spec.plan["body"])
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel's wrapper
 # ---------------------------------------------------------------------------
@@ -353,22 +391,28 @@ def prefill_attn_smem_bytes(D, H, KV, hd, BS, itemsize,
 
 def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                             table, pos0, n_valid, kv_scales=None, eps=1e-6,
-                            residual=True):
+                            residual=True, bounds=None):
     """Launch the prefill_attn_block kernel (the contract of
     :func:`prefill_attn_block_wq_ref`, except that rows at or after
     ``n_valid`` come back as zeros) on PyTorch's current stream. Weights
     are tensors of x's type or quantized leaves (int8, or int4 packed
     along the contraction axis); pools of x's type, or int8 with
-    ``kv_scales``. ``pos0`` and ``n_valid`` are host ints. Raises for
-    anything the kernel does not take, and if the launch is refused.
-    Never falls back."""
+    ``kv_scales``. ``pos0`` and ``n_valid`` are host ints: the checks and
+    the launch's plan take them. The kernel reads them from ``bounds``,
+    an int32 [2] tensor on x's device that holds the same two values (a
+    captured CUDA graph's buffer, rewritten before each replay); when it
+    is None the wrapper writes one. Raises for anything the kernel does
+    not take, and if the launch is refused. Never falls back."""
     name = "prefill_attn_block_cuda"
     pool_dt, kv_bits, ks, vs = _fdb._pools(name, x, k_pool, kv_scales)
-    _fdb._check_common(name, x, {
-        "x": x, "nw": nw, "sin": sin, "cos": cos, "k_pool": k_pool,
-        "v_pool": v_pool, "table": table},
-        {"sin": torch.float32, "cos": torch.float32, "k_pool": pool_dt,
-         "v_pool": pool_dt, "table": torch.int32})
+    named = {"x": x, "nw": nw, "sin": sin, "cos": cos, "k_pool": k_pool,
+             "v_pool": v_pool, "table": table}
+    if bounds is not None:
+        named["bounds"] = bounds
+    _fdb._check_common(name, x, named,
+                       {"sin": torch.float32, "cos": torch.float32,
+                        "k_pool": pool_dt, "v_pool": pool_dt,
+                        "table": torch.int32, "bounds": torch.int32})
     P, D = x.shape
     N, BS, KV, hd = k_pool.shape
     H, leaves = _fdb._attn_leaves(x, wq, wk, wv, wo, KV, hd)
@@ -390,6 +434,8 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                           ("sin", sin, (P, hd // 2)),
                           ("cos", cos, (P, hd // 2)), ("table", table, (MB,))):
         _fdb._shape(name, tname, t, shp)
+    if bounds is not None:
+        _fdb._shape(name, "bounds", bounds, (2,))
     pos0, n_valid = int(pos0), int(n_valid)
     if not 1 <= n_valid <= P:
         raise ValueError(f"{name}: n_valid={n_valid} outside 1..P={P}")
@@ -432,6 +478,8 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
     order = ("wq", "wk", "wv", "wo")
     if not _launch.begin(spec, x.device):
         return x_out, k_new, v_new
+    if bounds is None:
+        bounds = device_bounds(pos0, n_valid, x.device)
     fn = _build.c_fn("fused_prefill_block", *spec.calls[0])
     pl = spec.plan
     with torch.cuda.device(x.device):
@@ -442,9 +490,10 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                  *(_fdb._ptr(sc[k]) for k in order), sin.data_ptr(),
                  cos.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  _fdb._ptr(ks), _fdb._ptr(vs), table.data_ptr(),
-                 x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                 qkv_ws.data_ptr(), q_ws.data_ptr(), attn_ws.data_ptr(),
-                 _fdb._ptr(h_ws), P, D, H, KV, hd, BS, MB, pos0, n_valid, BQ,
+                 bounds.data_ptr(), x_out.data_ptr(), k_new.data_ptr(),
+                 v_new.data_ptr(), qkv_ws.data_ptr(), q_ws.data_ptr(),
+                 attn_ws.data_ptr(), _fdb._ptr(h_ws), P, D, H, KV, hd, BS,
+                 MB, BQ,
                  int(bool(residual)), region, smem, bits, kv_bits, grid,
                  int(body == "tc"), pl.get("row_tiles", 0),
                  pl.get("o_parts", 1), pl["qkv_lpr"],
@@ -513,7 +562,7 @@ KERNELS.register("prefill_mlp_block", "unfused", prefill_mlp_block_ref,
                  priority=0, supports=_fdb._supports_composition)
 # every prefill_meta_dims key is fixed when a serving engine is built or
 # is the bucket's width P, the key a per-bucket chunk program takes (the
-# JAX engine's; the port's chunks run eagerly, dispatching per call): the
+# JAX engine's and the port's: one captured graph a bucket and pins): the
 # DISPATCH_KEY_GAP lint holds the predicates to this declaration
 PREFILL_KEY_FIELDS = ("P",) + tuple(k for k in _fdb.DECODE_KEY_FIELDS
                                     if k not in ("B", "tp"))

@@ -82,7 +82,9 @@ def write_chunk_to_pool(k_pool, v_pool, wtable, pos0, n_valid, k_new,
     ``n_valid`` (bucket padding) go to scratch page 0 too, so only the
     chunk's own tokens land in the request's pages. Those duplicate writes
     all hit page 0, which nothing reads, so which of them wins does not
-    matter. Returns the (updated) pools."""
+    matter. ``pos0`` and ``n_valid`` are host ints or 0-d tensors on the
+    pools' device (a captured chunk's bounds buffer): the same values
+    either way. Returns the (updated) pools."""
     P = k_new.shape[0]
     BS = k_pool.shape[1]
     rows = torch.arange(P, device=k_pool.device)

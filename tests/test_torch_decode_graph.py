@@ -238,7 +238,7 @@ def test_replay_accounting_in_plain_python():
     nothing); N replays add N times the delta to ``launches()``, to the
     one store ``launches_by_class()`` and to each family's reader, and
     hand N copies of the plans to an active capture. The replays run
-    through ``_DecodeProgram.__call__`` itself, over a stand-in graph."""
+    through ``Program.__call__`` itself, over a stand-in graph."""
     kernels.reset_launches()
     block, paged = fdb.decode_block_fused_cuda, kernels.WRAPPERS[
         "paged_attention_decode"]
@@ -260,8 +260,9 @@ def test_replay_accounting_in_plain_python():
         ("weight", "int8"): 3, ("pool", "fp"): 3, ("body", "ring"): 3}),
         "paged_attention_decode": (2, {})}
     counters = {"decode_traces": 0}
-    prog = tserving._DecodeProgram(capture_body, torch.device("cpu"), None,
-                                   None, counters)
+    prog = tserving._Program(capture_body, torch.device("cpu"), None, None,
+                             on_capture=lambda: counters.update(
+                                 decode_traces=counters["decode_traces"] + 1))
     prog.graph, prog.launches, prog.specs = _Replayed(), delta, specs
     N = 5
     with _launch.capture_kernel_launches() as outer:
