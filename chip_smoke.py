@@ -280,6 +280,24 @@ script exits non-zero:
    (``prefill_traces`` 1 where the bucket ran twice or more), replays =
    chunks - buckets used. At the serving size the 128- and 32-row chunk
    ms (CUDA events), TTFT mean and max and tokens/s of both.
+7h. disagg (this slice's main path; the parity size after the prefix
+   phase's, the serving size after it; ``disagg_phase``):
+   ``DisaggregatedEngine`` and ``ServingFleet``. At 7B widths, 2 layers,
+   f32, both groups on the card: the streams of tests/test_disagg.py at
+   block 16 (the 22-request mixed stream, the prefix cache's warm path,
+   int8 pools, colocated tp=2 groups under "psum" and "gather", prefill
+   tp 1 into decode tp 2, partial windows, the abort marker, preemption on
+   the decode group, a one-token budget): ids equal to the colocated
+   engine on the same route, every handed-off page equal to its prefill
+   page bit for bit when its insert lands, the decode group's pools and
+   scales never rebound, one decode capture on the decode group and none
+   on the prefill group, the schedule equal to the port's CPU run; then
+   tests/test_fleet.py's mixed-kind fleet on both policies. At LLaMA-7B,
+   bf16: the serving phase's requests through the disaggregated engine in
+   turns with the colocated one (tokens/s, TTFT, step ms, handoffs, bytes,
+   the handoff's ms and GB/s, peak memory, launch counts), and bench.py's
+   fleet traffic on both policies. ``python3 chip_smoke.py disagg`` runs
+   the build and this phase alone.
 13. audit: the plans of every launch of the default serving route's
    phase and of the default train route's phase, captured while they
    ran, audited by the kernel-geometry gate (0 findings), and the whole
@@ -307,7 +325,9 @@ the serving phase of the route that runs it, from the default route's
 train phase, or, for layer_norm_fwd, from its own phase; the
 decode_mlp_block, decode_block_fused and prefill_attn_block rows also
 carry ``prefix_launches``, their launches in the prefix phase's serving
-size, and ``prefill_attn_block[kv8]`` its int8-cache stream's) and,
+size, and ``disagg_launches``, their launches in the disagg phase's first
+disaggregated run at the serving size, and ``prefill_attn_block[kv8]`` its
+int8-cache stream's) and,
 last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
 prints no result. It imports nothing of JAX or of ``paddle_tpu``.
 """
@@ -4418,6 +4438,726 @@ def prefix_phase(gpu, size, params=None):
 
 
 # ---------------------------------------------------------------------------
+# disaggregated prefill/decode serving and the fleet router
+# ---------------------------------------------------------------------------
+# the parity size runs the streams of tests/test_disagg.py and
+# tests/test_fleet.py at block 16: their token lengths, buckets, max_seq_len
+# and new tokens scaled by 4 (their block is 4), page counts kept, prompt
+# ids below 97 (their vocabulary), so that the port's CPU run of each stream
+# (their model: vocabulary 97, hidden 64, 2 layers, f32) takes the same
+# prompts. What it holds of the CPU run is the schedule (handoffs, pages
+# moved, routing, prefix hits, offload pages), which no generated id moves:
+# no stream stops at an EOS, and no prompt holds a generated id
+DISAGG_SCALE = 4
+DISAGG_V = 97
+DISAGG_ENGINE = dict(capacity=3, block_size=16, prefill_buckets=(32, 64),
+                     max_seq_len=256)
+DISAGG_HANDOFF = ("handoffs", "partial_handoffs", "handoff_traces",
+                  "requests_submitted", "drain_truncations")
+
+
+def _dprompt(rng, n):
+    return rng.randint(0, DISAGG_V, int(n)).astype(np.int32)
+
+
+def _ds_mixed(n=22, seed=7, new=5, sizes=(4, 14)):
+    """tests/test_disagg.py's (and, with n 30 and sizes 4-14,
+    tests/test_fleet.py's) stream: n requests arriving in waves
+    interleaved with steps."""
+    def stream(eng):
+        rng = np.random.RandomState(seed)
+        lens = rng.randint(*sizes, n) * DISAGG_SCALE
+        reqs = []
+        for i, s in enumerate(lens):
+            reqs.append(eng.submit(_dprompt(rng, s),
+                                   _pgen(new * DISAGG_SCALE)))
+            if i % 3 == 2:
+                eng.step()
+                eng.step()
+        eng.drain()
+        return reqs
+    return stream
+
+
+def _ds_twice(eng):
+    """The prefix cache's warm path: the mixed stream cold, then again."""
+    return _ds_mixed()(eng) + _ds_mixed()(eng)
+
+
+def _ds_eos_first(eng):
+    """A one-token budget: done on the prefill group, no handoff."""
+    r = eng.submit(np.arange(1, 8 * DISAGG_SCALE + 1, dtype=np.int32),
+                   _pgen(1))
+    eng.drain()
+    return [r]
+
+
+def _ds_partial(eng):
+    """Prompts longer than the largest bucket: partial windows."""
+    rng = np.random.RandomState(9)
+    reqs = [eng.submit(_dprompt(rng, 21 * DISAGG_SCALE),
+                       _pgen(6 * DISAGG_SCALE)) for _ in range(4)]
+    eng.drain()
+    return reqs
+
+
+def _ds_abort(eng):
+    """A long prompt with a one-token budget: partials, then the abort
+    marker releases the decode-side pages."""
+    free0 = len(eng.decode.mgr.free) if hasattr(eng, "decode") else None
+    r = eng.submit(np.arange(1, 21 * DISAGG_SCALE + 1, dtype=np.int32),
+                   _pgen(1))
+    eng.drain()
+    if free0 is not None and len(eng.decode.mgr.free) != free0:
+        raise AssertionError("disagg: the abort left decode pages held")
+    return [r]
+
+
+def _ds_preempt(eng):
+    """A class-0 handoff preempts a class-2 decode slot."""
+    rng = np.random.RandomState(4)
+    prompts = [_dprompt(rng, 8 * DISAGG_SCALE) for _ in range(3)]
+    g = _pgen(20 * DISAGG_SCALE)
+    r0 = eng.submit(prompts[0], g, priority=2)
+    r1 = eng.submit(prompts[1], g, priority=2)
+    for _ in range(8):
+        eng.step()
+    hp = eng.submit(prompts[2], g, priority=0)
+    eng.drain()
+    return [r0, r1, hp]
+
+
+# name -> (stream, keywords: the engine's beside DISAGG_ENGINE; "groups"
+# = (prefill tp, decode tp, placement) for mesh groups on one device)
+DISAGG_STREAMS = {
+    "mixed22": (_ds_mixed(), {}),
+    "prefix_warm": (_ds_twice, dict(prefix_cache=True)),
+    "int8_pools": (_ds_mixed(n=8), dict(cache_dtype="int8")),
+    "tp2_psum": (_ds_mixed(), dict(groups=(2, 2, "psum"))),
+    "tp2_gather": (_ds_mixed(), dict(groups=(2, 2, "gather"))),
+    "reshard_tp1_to_tp2": (_ds_mixed(), dict(groups=(1, 2, "gather"))),
+    "partial": (_ds_partial, {}),
+    "abort": (_ds_abort, {}),
+    "preempt": (_ds_preempt, dict(capacity=2, prefill_slots=1,
+                                  prefill_buckets=(32,))),
+    "eos_first_token": (_ds_eos_first, dict(prefill_buckets=(32,))),
+}
+
+
+def _disagg_engine(params, cfg, device, kw):
+    from paddle_tpu_torch.inference import DisaggregatedEngine
+    kw = dict(DISAGG_ENGINE, **kw)
+    kw.setdefault("prefill_slots", 2)
+    groups = kw.pop("groups", None)
+    if groups:
+        tp_p, tp_d, coll = groups
+        kw.update(prefill_devices=[device] * tp_p,
+                  decode_devices=[device] * tp_d, collective=coll)
+    else:
+        kw["device"] = device
+    return DisaggregatedEngine(params, cfg, **kw)
+
+
+def _colocated_twin(params, cfg, device, kw):
+    """The colocated engine on the route of a disaggregated engine built
+    with ``kw``: the decode group's mesh and placement."""
+    from paddle_tpu_torch.inference import ServingEngine, ServingMesh
+    kw = {k: v for k, v in dict(DISAGG_ENGINE, **kw).items()
+          if k != "prefill_slots"}
+    groups = kw.pop("groups", None)
+    if groups:
+        kw["mesh"] = ServingMesh.make(groups[1], collective=groups[2],
+                                      devices=[device] * groups[1])
+    else:
+        kw["device"] = device
+    return ServingEngine(params, cfg, **kw)
+
+
+def _group_pages(eng, pages):
+    """An engine's pages ``pages`` of both pools, the shards' KV heads
+    joined: (k, v) [L, n, BS, KV, hd] on its device."""
+    import torch
+    out = []
+    for pools in (eng._k_pools, eng._v_pools):
+        shards = pools if isinstance(pools, list) else [pools]
+        idx = torch.as_tensor(list(pages), device=shards[0].device)
+        out.append(torch.cat([p.index_select(1, idx) for p in shards],
+                             dim=3))
+    return out
+
+
+def _decode_storage(eng):
+    """The decode group's pools' and (once bound) scales' addresses."""
+    dec = eng.decode
+    ts = []
+    for pools in (dec._k_pools, dec._v_pools):
+        ts += pools if isinstance(pools, list) else [pools]
+    if dec._kv_scales is not None:
+        ts += list(dec._kv_scales) + [s for p in dec._shard_scales
+                                      for s in p]
+    return [t.data_ptr() for t in ts]
+
+
+def _watch_handoffs(eng, held):
+    """Each landed insert's decode pages against the prefill pages read
+    when its transfer was issued (bit for bit, into ``held["pages"]``),
+    and the decode group's storage after it (``held["storage"]``)."""
+    import torch
+    start, complete = eng._start_transfer, eng._complete_transfer
+
+    def started(job):
+        st = start(job)
+        st["src_copy"] = _group_pages(eng.prefill,
+                                      job.src_pages[job.offset:])
+        return st
+
+    def completed(st):
+        complete(st)
+        if not st["job"].abort:
+            got = _group_pages(eng.decode, st["dst"])
+            held["pages"].append(all(torch.equal(a, b) for a, b in
+                                     zip(got, st["src_copy"])))
+            held["storage"].append(_decode_storage(eng))
+    eng._start_transfer, eng._complete_transfer = started, completed
+
+
+def _handoff_schedule(eng):
+    """What a disaggregated engine's schedule decides, on any device and
+    model: the handoff counters, the pages moved, both groups' steps and
+    chunks, preemptions and the prefill group's prefix hits."""
+    m = eng.metrics()
+    pre, dec = m["groups"]["prefill"], m["groups"]["decode"]
+    out = {k: m[k] for k in DISAGG_HANDOFF}
+    out["pages_moved"] = (m["kv_bytes_transferred"]
+                          // eng.prefill._page_nbytes)
+    out.update(prefill_chunks=pre["prefill_chunks"],
+               decode_steps=dec["decode_steps"],
+               preemptions=dec["preemptions"],
+               requests_completed=m["requests_completed"])
+    if "prefix_cache" in pre:
+        out["prefix_cache"] = {k: pre["prefix_cache"][k] for k in (
+            "hits", "misses", "tokens_skipped", "shared_pages",
+            "cow_forks")}
+    return out
+
+
+def _groups_held(eng, name):
+    """The decode group: one decode capture (where it stepped twice or
+    more; replays = steps - 1) and no chunk; the prefill group: no decode
+    program, at most one chunk capture a bucket."""
+    pre, dec = eng.prefill, eng.decode
+    bad = []
+    if dec.counters["decode_steps"] >= 2:
+        try:
+            captured(dec, f"{name} decode group")
+        except AssertionError as e:
+            bad.append(str(e))
+    elif dec.counters["decode_traces"]:
+        bad.append("decode group captured without a second step")
+    if dec.counters["prefill_chunks"] or dec._prefill_fns:
+        bad.append("decode group ran a chunk")
+    if pre._decode_fns or pre.counters["decode_traces"]:
+        bad.append("prefill group built a decode step")
+    traces = pre.counters["prefill_traces"]
+    for key, p in pre._prefill_fns.items():
+        if traces.get(key[0]) != int(p.graph is not None):
+            bad.append(f"prefill group bucket {key[0]}: {traces}")
+    return bad
+
+
+def _disagg_parity(params, cfg, cpu_params, cpu_cfg):
+    """The streams of DISAGG_STREAMS on the card (both groups on cuda:0)
+    beside the colocated engine on the same route and the port's CPU
+    run."""
+    import torch
+    out, bad = {}, []
+    for name, (stream, kw) in DISAGG_STREAMS.items():
+        eng = _disagg_engine(params, cfg, "cuda:0", kw)
+        held = {"pages": [], "storage": []}
+        _watch_handoffs(eng, held)
+        pools0 = _decode_storage(eng)
+        reqs = stream(eng)
+        torch.cuda.synchronize()
+        twin = _colocated_twin(params, cfg, "cuda:0", kw)
+        twin_reqs = stream(twin)
+        cpu = _disagg_engine(cpu_params, cpu_cfg, "cpu", kw)
+        stream(cpu)
+        sched = _handoff_schedule(eng)
+        storage = held["storage"] + [_decode_storage(eng)]
+        # the twin's route is the decode group's; with the groups' tp
+        # apart (the reshard) no colocated engine runs the prefill group's
+        # route, whose products differ in shape: there the prefix phase's
+        # rule holds (equal, or parting at a near tie of dense logits)
+        parted = [dict(d, req=i) for i, (r, w) in enumerate(
+            zip(reqs, twin_reqs)) if (d := _ids_held(
+                params, cfg, r.prompt, r.tokens, w.tokens)) is not None]
+        resharded = "groups" in kw and kw["groups"][0] != kw["groups"][1]
+        res = {"requests": len(reqs),
+               "ids_equal_colocated": not parted or (resharded and all(
+                   d["top2_gap"] < PREFIX_TIE for d in parted)),
+               "parted": parted,
+               "pages_bit_equal": all(held["pages"]),
+               "inserts": len(held["pages"]),
+               "storage_kept": all(s[:len(pools0)] == pools0
+                                   and s == storage[-1]
+                                   for s in storage),
+               "tickets_zero": _tickets_zero(),
+               "schedule": sched,
+               "schedule_equal_cpu": sched == _handoff_schedule(cpu),
+               "decode_traces": eng.decode.counters["decode_traces"],
+               "prefill_traces": eng.prefill.counters["prefill_traces"]}
+        fails = [k for k in ("ids_equal_colocated", "pages_bit_equal",
+                             "storage_kept", "tickets_zero",
+                             "schedule_equal_cpu") if not res[k]]
+        fails += _groups_held(eng, name)
+        if not all(r.done for r in reqs):
+            fails.append("unfinished")
+        if name == "preempt" and not sched["preemptions"]:
+            fails.append("no preemption")
+        if name in ("partial", "abort") and not sched["partial_handoffs"]:
+            fails.append("no partial handoff")
+        if name == "prefix_warm" and not sched["prefix_cache"]["hits"]:
+            fails.append("no prefix hit")
+        if sched["handoffs"] and sched["handoff_traces"] != 2:
+            fails.append("handoff builds")
+        res["failed"] = fails
+        bad += [(name, f) for f in fails]
+        out[name] = res
+        del eng, twin, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, bad
+
+
+# tests/test_fleet.py's mixed-kind fleet at the parity size: a colocated
+# replica with the host tier over an undersized pool, a colocated tp=2
+# "gather" mesh (shards on the card) and a disaggregated replica, all with
+# the prefix cache; each request's ids are held against the colocated
+# engine on its replica's route
+FLEET_PARITY = (("coloc_offload", dict(prefix_cache=True, kv_offload=True,
+                                       num_blocks=14)),
+                ("tp2_gather", dict(prefix_cache=True,
+                                    groups=(2, 2, "gather"))),
+                ("disagg", dict(prefix_cache=True, prefill_slots=1)))
+
+
+def _fleet_replicas(params, cfg, device):
+    reps = []
+    for name, kw in FLEET_PARITY:
+        kw = dict(kw, capacity=2)
+        if name == "disagg":
+            eng = _disagg_engine(params, cfg, device, kw)
+        else:
+            eng = _colocated_twin(params, cfg, device, kw)
+        submit = eng.submit
+
+        def tagged(*a, _submit=submit, _name=name, **k):
+            r = _submit(*a, **k)
+            r.replica = _name
+            return r
+        eng.submit = tagged
+        reps.append((name, eng))
+    return reps
+
+
+def _fleet_schedule(fleet):
+    m = fleet.metrics()
+    rt = m["routing"]
+    return {"routing": {k: rt[k] for k in ("warm", "cold", "diverted")},
+            "per_replica": {n: {k: v[k] for k in ("routed", "warm_routed")}
+                            for n, v in rt["per_replica"].items()},
+            "offload_pages": {k: m["offload"][k] for k in (
+                "spilled_pages", "restored_pages", "readopted_pages",
+                "host_evicted_pages")},
+            "requests_completed": m["requests_completed"]}
+
+
+def _fleet_parity(params, cfg, cpu_params, cpu_cfg):
+    """The mixed-kind fleet on both policies, its 30-request stream cold
+    and, after reset_metrics, warm; ids against the colocated engine of
+    each replica's route; the routing and offload schedule against the
+    port's CPU run."""
+    import torch
+    from paddle_tpu_torch.inference import ServingFleet
+    stream = _ds_mixed(n=30, sizes=(4, 15))
+    refs = {route: [r.tokens for r in stream(_colocated_twin(
+        params, cfg, "cuda:0", dict(kw, capacity=3)))]
+        for route, kw in (("default", {}),
+                          ("tp2_gather", dict(groups=(2, 2, "gather"))))}
+    out, bad = {}, []
+    for policy in ("prefix", "round_robin"):
+        runs = {}
+        for where, tree, c in (("cuda:0", params, cfg),
+                               ("cpu", cpu_params, cpu_cfg)):
+            fleet = ServingFleet(_fleet_replicas(tree, c, where),
+                                 policy=policy)
+            cold = stream(fleet)
+            cold_sched = _fleet_schedule(fleet)
+            fleet.reset_metrics()
+            warm = stream(fleet)
+            runs[where] = (fleet, cold, warm, cold_sched,
+                           _fleet_schedule(fleet))
+        fleet, cold, warm, cold_sched, warm_sched = runs["cuda:0"]
+        torch.cuda.synchronize()
+        # a warm request prefills a suffix where its reference prefilled
+        # the whole prompt (the prefix phase's rule): equal ids, or parting
+        # at a near tie of dense logits
+        parted = []
+        for run, reqs in (("cold", cold), ("warm", warm)):
+            for i, r in enumerate(reqs):
+                want = refs["tp2_gather" if r.replica == "tp2_gather"
+                            else "default"][i]
+                d = _ids_held(params, cfg, r.prompt, r.tokens, want)
+                if d is not None:
+                    parted.append(dict(d, run=run, req=i,
+                                       replica=r.replica))
+        m = fleet.metrics()
+        res = {"cold": cold_sched, "warm": warm_sched,
+               "schedule_equal_cpu": (cold_sched, warm_sched)
+               == runs["cpu"][3:],
+               "parted": parted, "tickets_zero": _tickets_zero(),
+               "decode_traces": {
+                   n: (e.decode if hasattr(e, "decode") else e).counters[
+                       "decode_traces"] for n, e in
+                   ((r.name, r.engine) for r in fleet._replicas)},
+               "warm_hit_ratio": m["routing"]["warm_hit_ratio"]}
+        fails = [k for k in ("schedule_equal_cpu", "tickets_zero")
+                 if not res[k]]
+        if any(p["top2_gap"] >= PREFIX_TIE for p in parted):
+            fails.append("ids")
+        if any(v != 1 for v in res["decode_traces"].values()):
+            fails.append("decode captures")
+        if not all(r.done for r in cold + warm):
+            fails.append("unfinished")
+        if policy == "prefix" and not warm_sched["routing"]["warm"]:
+            fails.append("no warm route")
+        res["failed"] = fails
+        bad += [("fleet", policy, f) for f in fails]
+        out[policy] = res
+        del fleet, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, bad
+
+
+def _timed_handoff(eng, acc):
+    """CUDA events around each transfer's extract and insert (no sync):
+    ``acc`` collects (pages, extract events, insert events)."""
+    import torch
+    extract, insert = eng._extract, eng._insert
+
+    def timed(fn, key):
+        def run(*a):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a)
+            ev[1].record()
+            acc[key].append((len(a[0]), ev))
+            return out
+        return run
+    eng._extract = timed(extract, "extract")
+    eng._insert = timed(insert, "insert")
+
+
+def _serve_turn(params, cfg, kind, prompts, gen):
+    """One turn of the serving size: the serving phase's requests through
+    the disaggregated engine or the colocated default engine."""
+    import torch
+    from paddle_tpu_torch.inference import DisaggregatedEngine, ServingEngine
+    from paddle_tpu_torch.ops import kernels
+    L = cfg.num_hidden_layers
+    kw = dict(capacity=8, block_size=16, max_seq_len=1024,
+              prefill_buckets=(32, 128))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if kind == "disagg":
+        eng = DisaggregatedEngine(params, cfg, prefill_slots=2, **kw)
+        acc = {"extract": [], "insert": []}
+        _timed_handoff(eng, acc)
+    else:
+        eng = ServingEngine(params, cfg, **kw)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, gen) for p in prompts]
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    m = eng.metrics()
+    row = {"wall_s": round(wall, 3), "tokens_per_sec": m["tokens_per_sec"],
+           "ttft_ms_mean": m["ttft_ms_mean"], "ttft_ms_max": m["ttft_ms_max"],
+           "peak_memory_gb": round(torch.cuda.max_memory_allocated()
+                                   / 2 ** 30, 3),
+           "launches": {k: v for k, v in counts.items() if v}}
+    bad = []
+    if kind == "disagg":
+        pre, dec = m["groups"]["prefill"], m["groups"]["decode"]
+        chunks, steps = pre["prefill_chunks"], dec["decode_steps"]
+        ms = [sum(ev[0].elapsed_time(ev[1]) for _, ev in pair)
+              for pair in zip(acc["extract"], acc["insert"])]
+        nbytes = m["kv_bytes_transferred"]
+        row.update({
+            "decode_step_ms_mean": dec["decode_step_ms_mean"],
+            "handoffs": m["handoffs"],
+            "partial_handoffs": m["partial_handoffs"],
+            "kv_bytes_transferred": nbytes,
+            "pages_moved": nbytes // eng.prefill._page_nbytes,
+            "handoff_ms_mean": m["handoff_ms_mean"],
+            "handoff_ms_max": m["handoff_ms_max"],
+            "handoff_device_ms_total": round(sum(ms), 4),
+            "handoff_device_ms_max": round(max(ms), 4) if ms else None,
+            "handoff_gb_per_s": (round(nbytes / (sum(ms) * 1e-3) / 1e9, 3)
+                                 if ms else None),
+            # the least time: each moved page read and written by the
+            # extract and again by the insert, at 3.35 TB/s
+            "handoff_bound_ms": round(4 * nbytes / 3.35e12 * 1e3, 4),
+            "prefill_chunks": chunks, "decode_steps": steps,
+            "decode_traces": dec["decode_traces"],
+            "prefill_traces": pre["prefill_traces"],
+            "decode_variant": dec["decode_variant"],
+            "prefill_variant": pre["prefill_variant"]})
+        bad += [("serving", f) for f in _groups_held(eng, "serving")]
+    else:
+        chunks, steps = m["prefill_chunks"], m["decode_steps"]
+        row.update({"decode_step_ms_mean": m["decode_step_ms_mean"],
+                    "prefill_chunks": chunks, "decode_steps": steps})
+    want = {"prefill_attn_block": L * chunks, "decode_mlp_block": L * chunks,
+            "decode_block_fused": L * steps, "decode_attn_block": 0,
+            "paged_attention_decode": 0, "rms_norm_fwd": steps + chunks}
+    if {k: counts[k] for k in want} != want:
+        bad.append(("serving", kind, "launches", counts, want))
+    for r in reqs:
+        if not (r.done and len(r.tokens) == gen.max_new_tokens
+                and all(0 <= t < cfg.vocab_size for t in r.tokens)):
+            bad.append(("serving", kind, "request", r.req_id))
+    return row, [r.tokens for r in reqs], bad
+
+
+def _common_prefix(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+# bench.py serving_fleet's traffic shape at LLaMA-7B: two prefix-cached
+# replicas with the host tier over bench's undersized pool, 24 requests,
+# each one of 4 templates of 224 tokens picked Zipf(1.2) plus 32 tokens of
+# its own, 64 new
+FLEET_SERVE = {"replicas": 2, "capacity": 4, "requests": 24,
+               "templates": 4, "template_tokens": 224, "tail": 32,
+               "new": 64, "zipf_a": 1.2}
+
+
+def _fleet_serving(params, cfg):
+    """Both policies over the same prompts, and one colocated engine."""
+    import torch
+    from paddle_tpu_torch.inference import ServingEngine, ServingFleet
+    S = FLEET_SERVE
+    rng = np.random.RandomState(0)
+    V = cfg.vocab_size
+    templates = [rng.randint(0, V, S["template_tokens"])
+                 for _ in range(S["templates"])]
+    picks = np.minimum(rng.zipf(S["zipf_a"], S["requests"]) - 1,
+                       S["templates"] - 1)
+    prompts = [np.concatenate([templates[int(k)], rng.randint(0, V,
+                                                              S["tail"])])
+               .astype(np.int32) for k in picks]
+    warm_tail = rng.randint(0, V, S["tail"])
+    ctx = S["template_tokens"] + S["tail"]
+    req_pages = -(-(ctx + S["new"]) // 16)
+    kw = dict(block_size=16, max_seq_len=ctx + S["new"],
+              prefill_buckets=(32, 128))
+    gen = _pgen(S["new"])
+    out, ids, bad = {}, {}, []
+    for policy in ("prefix", "round_robin"):
+        reps = []
+        for _ in range(S["replicas"]):
+            eng = ServingEngine(
+                params, cfg, capacity=S["capacity"], prefix_cache=True,
+                kv_offload=True,
+                num_blocks=(S["capacity"] + 1) * req_pages
+                + req_pages // 2 + 1, **kw)
+            # bench's warm-up: both buckets run (and are captured) outside
+            # the window
+            eng.submit(prompts[0], _pgen(2))
+            eng.drain()
+            eng.submit(np.concatenate([prompts[0][:S["template_tokens"]],
+                                       warm_tail]).astype(np.int32),
+                       _pgen(2))
+            eng.drain()
+            reps.append(eng)
+        fleet = ServingFleet(reps, policy=policy)
+        fleet.reset_metrics()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = []
+        for i, p in enumerate(prompts):
+            reqs.append(fleet.submit(p, gen))
+            if i % 3 == 2:
+                fleet.step()
+        fleet.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = fleet.metrics()
+        ids[policy] = [r.tokens for r in reqs]
+        out[policy] = {
+            "wall_s": round(wall, 3), "tokens_per_sec": m["tokens_per_sec"],
+            "ttft_ms_mean": m["ttft_ms_mean"],
+            "ttft_ms_max": m["ttft_ms_max"],
+            "warm_hit_ratio": m["routing"]["warm_hit_ratio"],
+            "routing": {k: m["routing"][k] for k in ("warm", "cold",
+                                                     "diverted")},
+            "tokens_skipped": sum(r["prefix_cache"]["tokens_skipped"]
+                                  for r in m["replicas"].values()),
+            "prefill_tokens": sum(r["prefill_tokens"]
+                                  for r in m["replicas"].values()),
+            "offload": m["offload"],
+            "decode_step_ms_mean": [r["decode_step_ms_mean"]
+                                    for r in m["replicas"].values()]}
+        if not all(r.done and len(r.tokens) == S["new"] for r in reqs):
+            bad.append(("fleet serving", policy, "unfinished"))
+        del fleet, reps
+        gc.collect()
+        torch.cuda.empty_cache()
+    eng = ServingEngine(params, cfg, capacity=8, **kw)
+    reqs = [eng.submit(p, gen) for p in prompts]
+    eng.drain()
+    ids["colocated"] = [r.tokens for r in reqs]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    for a, b in (("prefix", "round_robin"), ("prefix", "colocated"),
+                 ("round_robin", "colocated")):
+        cp = [_common_prefix(x, y) for x, y in zip(ids[a], ids[b])]
+        out[f"{a}_vs_{b}_common_prefix"] = cp
+        if any(c != S["new"] for c in cp):
+            bad.append(("fleet serving", f"{a} ids != {b}"))
+    return dict(out, stream=S, templates_picked=[int(k) for k in picks]), \
+        bad
+
+
+def disagg_phase(gpu, size, params=None):
+    """Disaggregated prefill/decode serving and the fleet router on the
+    card. Returns the launch counts of its serving-size disaggregated run
+    (empty at the parity size).
+
+    ``size`` "parity": LLaMA-7B widths, 2 layers, f32, both groups on
+    cuda:0, decode steps and chunks captured: the streams of
+    tests/test_disagg.py at block 16 (DISAGG_STREAMS: the 22-request mixed
+    stream, the prefix cache's warm path, int8 pools, colocated tp=2 groups
+    under "psum" and "gather", prefill tp 1 into decode tp 2, partial
+    windows, the abort marker, preemption on the decode group, a one-token
+    budget), each held to: ids equal to the colocated engine on the same
+    route (bit for bit in f32), every handed-off page equal to its prefill
+    page bit for bit right after its insert lands, the decode group's pools
+    and scales never rebound, the decode group one decode capture and no
+    chunk, the prefill group no decode step and at most one chunk capture a
+    bucket, the ring's tickets zero, and the schedule (handoffs, pages
+    moved, steps, preemptions, prefix hits) equal to the port's CPU run.
+    Then tests/test_fleet.py's mixed-kind fleet (a colocated replica with
+    the host tier, a colocated tp=2 "gather" mesh, a disaggregated
+    replica) on the "prefix" and "round_robin" policies: ids against the
+    colocated engine on each replica's route, the routing and offload
+    schedule against the CPU run.
+
+    ``size`` "serving": LLaMA-7B (32 layers, ``params``, bf16): the serving
+    phase's 12 requests through ``DisaggregatedEngine(capacity=8,
+    prefill_slots=2, block_size=16, max_seq_len=1024, prefill_buckets=(32,
+    128))`` on the default routes, in turns with the colocated default
+    engine (disaggregated, colocated, disaggregated, colocated): tokens/s,
+    TTFT, the decode group's step ms, handoffs, partial handoffs, bytes
+    moved, the handoff's host ms (issue to landed insert) and device ms
+    (CUDA events around extract and insert) and GB/s, peak memory; launch
+    counts (prefill_attn_block and decode_mlp_block L a chunk,
+    decode_block_fused L a step, RMSNorm once a chunk and a step), the
+    bf16 ids' common prefix with the colocated engine's. Then bench.py
+    serving_fleet's traffic shape (FLEET_SERVE) on both policies and one
+    colocated engine: warm-hit ratio, tokens skipped, tokens/s, TTFT; ids
+    equal across the three."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.models import LLAMA_7B, init_params
+    from paddle_tpu_torch.models import llama as tl
+    t0 = time.perf_counter()
+    if size == "parity":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = dataclasses.replace(LLAMA_7B, num_hidden_layers=2,
+                                  dtype=torch.float32)
+        params = init_params(cfg, seed=1)
+        # tests/test_disagg.py's model, for the CPU run of the schedule
+        cpu_cfg = tl.LlamaConfig(vocab_size=DISAGG_V, hidden_size=64,
+                                 intermediate_size=128, num_hidden_layers=2,
+                                 num_attention_heads=4, num_key_value_heads=4,
+                                 max_position_embeddings=512,
+                                 dtype=torch.float32)
+        cpu_params = init_params(cpu_cfg, seed=0, device="cpu")
+        streams, bad = _disagg_parity(params, cfg, cpu_params, cpu_cfg)
+        fleet, b = _fleet_parity(params, cfg, cpu_params, cpu_cfg)
+        bad += b
+        emit({"phase": "disagg", "size": size, "gpu": gpu,
+              "dtype": "float32", "layers": 2, "streams": streams,
+              "fleet": fleet, "failed": [list(map(str, x)) for x in bad],
+              "seconds": round(time.perf_counter() - t0, 1)})
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bad:
+            raise AssertionError(f"disagg phase (parity): {bad}")
+        return {}
+    from paddle_tpu_torch.ops import kernels
+    cfg = LLAMA_7B
+    rng = np.random.default_rng(0)
+    lens = rng.integers(40, 601, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    gen = _pgen(SERVE_NEW)
+    turns, ids, bad = [], {}, []
+    disagg_counts = None
+    for kind in ("disagg", "colocated", "disagg", "colocated"):
+        row, toks, b = _serve_turn(params, cfg, kind, prompts, gen)
+        bad += b
+        if kind in ids and ids[kind] != toks:
+            bad.append(("serving", kind, "ids differ between turns"))
+        ids.setdefault(kind, toks)
+        if kind == "disagg" and disagg_counts is None:
+            disagg_counts = dict(kernels.launches())
+        turns.append(dict(row, kind=kind))
+        gc.collect()
+        torch.cuda.empty_cache()
+    common = [_common_prefix(a, b) for a, b in zip(ids["disagg"],
+                                                   ids["colocated"])]
+    fleet, b = _fleet_serving(params, cfg)
+    bad += b
+    emit({"phase": "disagg", "size": size, "gpu": gpu, "model": "LLAMA_7B",
+          "layers": cfg.num_hidden_layers, "dtype": "bfloat16",
+          "requests": len(prompts), "prompt_tokens": [int(n) for n in lens],
+          "new_tokens": SERVE_NEW, "turns": turns,
+          "disagg_vs_colocated_common_prefix": common,
+          "requests_equal": sum(c == SERVE_NEW for c in common),
+          "fleet": fleet, "failed": [list(map(str, x)) for x in bad],
+          "seconds": round(time.perf_counter() - t0, 1)})
+    if bad:
+        raise AssertionError(f"disagg phase (serving): {bad}")
+    return disagg_counts
+
+
+def disagg_only(gpu):
+    """``python3 chip_smoke.py disagg``: the build and the disagg phase
+    alone, both sizes (the serving size over the serving phases' seeded
+    tree)."""
+    import torch
+    from paddle_tpu_torch.models import LLAMA_7B, init_params
+    build_kernels()
+    disagg_phase(gpu, "parity")
+    disagg_phase(gpu, "serving", init_params(LLAMA_7B, seed=0))
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # training: flash attention, fused AdamW, the train step
 # ---------------------------------------------------------------------------
 # bench.py's LLAMA_LADDER rung "1.07B-h4096": LLaMA-7B widths, 4 layers
@@ -6193,9 +6933,11 @@ def main(argv=()):
     gpu = gpu_line()
     if list(argv) == ["prefix"]:
         return prefix_only(gpu)
+    if list(argv) == ["disagg"]:
+        return disagg_only(gpu)
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}; run it with "
-              "none, or with 'prefix'", file=sys.stderr)
+              "none, or with 'prefix' or 'disagg'", file=sys.stderr)
         return 2
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
@@ -6230,6 +6972,9 @@ def main(argv=()):
     # this slice's main path: the radix prefix cache, its host tier and
     # generate_paged, first at the parity size
     prefix_counts = prefix_phase(gpu, "parity")
+    # this slice's main path: disaggregated prefill/decode serving and the
+    # fleet router, first at the parity size
+    disagg_phase(gpu, "parity")
     params = init_params(LLAMA_7B, seed=0)
     counts, tokens = {}, {}
     prompts = None
@@ -6252,6 +6997,9 @@ def main(argv=()):
     graph_phase(gpu, "serving", params)
     # and bench.py's prefix stream at the serving size
     prefix_counts.update(prefix_phase(gpu, "serving", params))
+    # and the disaggregated engine, the colocated one in turns with it, and
+    # bench.py's fleet traffic at the serving size
+    disagg_counts = disagg_phase(gpu, "serving", params)
     audit_phase(gpu, {"serving_default": (serving_specs, counts["default"]),
                       "train_default": (train_specs, train_counts)})
     del serving_specs, train_specs
@@ -6291,6 +7039,8 @@ def main(argv=()):
         if row["name"] in ("decode_mlp_block", "decode_block_fused",
                            "prefill_attn_block"):
             row["prefix_launches"] = prefix_counts["launches"][row["name"]]
+            # and its disaggregated run's (the serving phase's requests)
+            row["disagg_launches"] = disagg_counts[row["name"]]
         if row["name"] == "decode_mlp_block[tc]":
             # the chunks' MLP on the default route, by bucket
             row["launches"] = counts["default"]["by_body"][

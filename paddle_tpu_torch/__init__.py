@@ -3,7 +3,8 @@ H100 (sm_90a).
 
 It serves LLaMA through the same data plane as ``paddle_tpu``'s serving
 routes -- model parameters, ops, paged KV cache and the
-continuous-batching ``ServingEngine`` -- and trains it on one device
+continuous-batching ``ServingEngine``, disaggregated into prefill and
+decode groups or behind the fleet router -- and trains it on one device
 (``models.llama.loss_fn``, ``distributed.Trainer``), runs the attention
 functionals (``nn.functional``, ``incubate.nn.functional``), with the TPU's
 Pallas kernels rewritten by hand for Hopper (``ops/kernels/``). It imports ``torch``,

@@ -1,5 +1,6 @@
 """The port's gates: the kernel-geometry gate over the launch plans of
-every hand-written kernel (port of the kernel half of
+every hand-written kernel and the lifecycle checker over the serving
+state machine (port of the kernel and lifecycle parts of
 ``paddle_tpu/analysis``).
 
 - :mod:`.rules`: the frozen ``Finding`` schema and its fingerprint;
@@ -11,10 +12,15 @@ every hand-written kernel (port of the kernel half of
 - :mod:`.kernel_catalog`: the tiny and flagship cases of every launch, the
   FLOP model and the regression specimen ``demo_prefix_mlp_block``;
 - :mod:`.kernel_audit`: the CLI, ``python -m
-  paddle_tpu_torch.analysis.kernel_audit``.
+  paddle_tpu_torch.analysis.kernel_audit``;
+- :mod:`.lifecycle`: the lifecycle model checker over the serving host
+  classes (``BlockManager``, ``PrefixCache``, ``AdmissionQueue``), and
+  :mod:`.lifecycle_audit`, its CLI, ``python -m
+  paddle_tpu_torch.analysis.lifecycle_audit``.
 
 It imports ``torch`` and numpy, never ``jax`` or ``paddle_tpu``, and runs
-on the CPU: the wrappers are called over meta tensors.
+on the CPU: the wrappers are called over meta tensors, and the lifecycle
+checker drives host bookkeeping only.
 """
 from .auditor import (AuditReport, diff_findings,  # noqa: F401
                       findings_to_json, load_baseline, write_baseline)

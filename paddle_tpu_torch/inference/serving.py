@@ -194,6 +194,34 @@ def _sample_slots(logits, generator, temps):
     return torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
 
 
+def _drain_loop(eng, max_steps: Optional[int], starve_reason: str,
+                starve_error: str) -> int:
+    """The drain loop of every engine kind (the JAX package's, shared by
+    ServingEngine, DisaggregatedEngine and ServingFleet): step ``eng``
+    until it is idle and return the step count. A capped drain that stops
+    with work pending sets ``last_drain_truncated`` and counts
+    ``drain_truncations``; a step that runs nothing while work is pending
+    raises ``starve_error``, unless that step left the engine idle (its
+    last request only expired). ``starve_reason`` names the stall for the
+    flight-recorder dump the JAX loop writes first; that dump comes with
+    the observability harness (ROADMAP A8), so here it names nothing."""
+    del starve_reason
+    n = 0
+    eng.last_drain_truncated = False
+    while not eng.idle:
+        if not eng.step():
+            if eng.idle:
+                break       # the last step only expired a request
+            raise RuntimeError(starve_error)
+        n += 1
+        if max_steps is not None and n >= max_steps:
+            if not eng.idle:
+                eng.last_drain_truncated = True
+                eng.counters["drain_truncations"] += 1
+            break
+    return n
+
+
 def _not_ported(arg: str, value, what: str):
     raise NotImplementedError(
         f"ServingEngine({arg}={value!r}): {what} is not ported yet; this "
@@ -791,23 +819,14 @@ class ServingEngine:
         """Step until queue and slots are empty; returns the step count.
         Hitting ``max_steps`` with work pending sets
         ``last_drain_truncated``; a step that can run nothing while
-        requests wait raises."""
-        n = 0
-        self.last_drain_truncated = False
-        while not self.idle:
-            if not self.step():
-                if self.idle:
-                    break       # the last step only expired a request
-                raise RuntimeError(
-                    "engine starved: queued requests cannot be admitted "
-                    "(KV pool too small for the in-flight mix?)")
-            n += 1
-            if max_steps is not None and n >= max_steps:
-                if not self.idle:
-                    self.last_drain_truncated = True
-                    self.counters["drain_truncations"] += 1
-                break
-        return n
+        requests wait raises (the shared :func:`_drain_loop`)."""
+        return _drain_loop(
+            self, max_steps,
+            starve_reason="drain starved: queued requests cannot be "
+                          "admitted",
+            starve_error="engine starved: queued requests cannot be "
+                         "admitted (KV pool too small for the in-flight "
+                         "mix?)")
 
     def metrics(self) -> Dict:
         c = {k: (dict(v) if isinstance(v, dict) else v)
@@ -830,10 +849,7 @@ class ServingEngine:
         c["ttft_ms_max"] = (round(float(np.max(ttfts)) * 1e3, 3)
                             if ttfts else None)
         steps = c["decode_steps"]
-        # on CUDA: device time between events around the step, read at
-        # the step's own sync (host clock on the CPU)
-        c["decode_step_ms_mean"] = (round(self._decode_ms / steps, 3)
-                                    if steps else None)
+        c["decode_step_ms_mean"] = self._decode_step_ms_mean()
         c["slot_utilization"] = (
             round(c["live_slot_steps"] / (steps * self.capacity), 4)
             if steps else 0.0)
@@ -872,6 +888,13 @@ class ServingEngine:
         self._t_first = self._t_last = None
         self._metrics_reset_t = self._clock()
         self._requests = [r for r in self._requests if not r.done]
+
+    def _decode_step_ms_mean(self) -> Optional[float]:
+        """The mean decode-step time: on CUDA device time between events
+        around the step, read at the step's own sync (host clock on the
+        CPU); None before the first step."""
+        steps = self.counters["decode_steps"]
+        return round(self._decode_ms / steps, 3) if steps else None
 
     def _active_arm(self) -> str:
         """The roofline arm the decode step runs: the single-launch
@@ -1330,6 +1353,10 @@ class ServingEngine:
             self.counters["prefill_tokens"] += n
             self.counters["prefill_pad_tokens"] += P - n
             slot.prefill_pos += n
+            if slot.prefill_pos < S:
+                # a chunk before the prompt's last: the chunked-prefill
+                # handoff's hook (host state only, no sync)
+                self._on_prefill_chunk(slot_id)
             if slot.prefill_pos == S:
                 first = int(buf.tok[0])      # syncs on the final chunk
                 req.first_token_t = self._clock()
@@ -1348,6 +1375,13 @@ class ServingEngine:
                 self._on_prefill_complete(slot_id, first)
             return True
         return False
+
+    def _on_prefill_chunk(self, slot_id: int):
+        """Hook: a chunk before the prompt's last ran (the slot's
+        ``prefill_pos`` has advanced, prompt remains). A no-op here; the
+        disaggregated engine's prefill worker hands the pages the chunk
+        completed to the decode group (``inference/disagg.py``). It reads
+        host state only: the chunk is not synced."""
 
     def _on_prefill_complete(self, slot_id: int, first: int):
         """Prompt prefilled and first token sampled: move the slot to
