@@ -298,6 +298,30 @@ script exits non-zero:
    the handoff's ms and GB/s, peak memory, launch counts), and bench.py's
    fleet traffic on both policies. ``python3 chip_smoke.py disagg`` runs
    the build and this phase alone.
+7i. obs (this slice's main path; the parity size after the disagg
+   phase's, the serving size after it; ``obs_phase``): the observability
+   and telemetry harness. At 7B widths, 2 layers, f32, beside the port's
+   CPU run of tests/test_observability.py's model: an observed engine
+   against the plain one (ids equal) and the CPU twin (key sets, timeline
+   events and request ids in order, schedule counters equal), its Chrome
+   trace and JSONL (tools/trace_summary.py), the retrace watchdog (0
+   warnings over warmed buckets, 1 at a new bucket's capture), stall dumps
+   (a 0 s step deadline, a drain starved by hostage pages), a colocated
+   tp=2 mesh's flight recorder, ``generate_paged``, the disaggregated
+   engine (one shared timeline, handoff events) and the fleet (route
+   events). At LLaMA-7B, bf16: the serving phase's requests through
+   ``ServingEngine(..., observability=True, telemetry=True)`` in turns
+   with the plain engine (observed, plain, observed, plain; tokens/s and
+   their ratio, TTFT, decode_step_ms p50/p95 beside decode_step_ms_mean,
+   ``metrics()``'s host ms, launch counts; 0 retrace warnings, a clean
+   exposition with no alert, the exports), a bucket first captured after
+   the reset (1 warning) and a 0 s deadline's dump; then the trainer at
+   rung "1.07B-h4096" observed and plain in turns (losses bit-identical;
+   stage, dispatch and sync ms, host-gap findings 0, the ``compile``
+   entry, ``hbm``, the counted-FLOPs ``mfu`` beside bench.py's formula
+   MFU) and ``Profiler`` with the GPU target over 3 steps (its device
+   trace names every train-route kernel). ``python3 chip_smoke.py obs``
+   runs the build and this phase alone.
 13. audit: the plans of every launch of the default serving route's
    phase and of the default train route's phase, captured while they
    ran, audited by the kernel-geometry gate (0 findings), and the whole
@@ -325,9 +349,11 @@ the serving phase of the route that runs it, from the default route's
 train phase, or, for layer_norm_fwd, from its own phase; the
 decode_mlp_block, decode_block_fused and prefill_attn_block rows also
 carry ``prefix_launches``, their launches in the prefix phase's serving
-size, and ``disagg_launches``, their launches in the disagg phase's first
-disaggregated run at the serving size, and ``prefill_attn_block[kv8]`` its
-int8-cache stream's) and,
+size, ``disagg_launches``, their launches in the disagg phase's first
+disaggregated run at the serving size, and ``obs_launches`` (RMSNorm's
+too), their launches in the obs phase's first observed run, the train rows
+``obs_train_launches``, the observed trainer's, and
+``prefill_attn_block[kv8]`` its int8-cache stream's) and,
 last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
 prints no result. It imports nothing of JAX or of ``paddle_tpu``.
 """
@@ -5158,6 +5184,611 @@ def disagg_only(gpu):
 
 
 # ---------------------------------------------------------------------------
+# the observability and telemetry harness (paddle_tpu_torch/observability/,
+# profiler/, distributed/flight_recorder.py) on the serving engines and the
+# trainer
+# ---------------------------------------------------------------------------
+# the parity size's engine (2 layers, f32) and the CPU twin's model
+OBS_KW = dict(capacity=2, block_size=16, prefill_buckets=(16, 32),
+              max_seq_len=128)
+# the serving size's engine: the serving phase's
+OBS_SERVE_KW = dict(capacity=8, block_size=16, max_seq_len=1024,
+                    prefill_buckets=(32, 128))
+# the metrics() keys the harness adds (tests/test_observability.py)
+OBS_KEYS = {"latency", "gauges", "retrace_warnings", "stall_dumps",
+            "timeline_events", "timeline_dropped"}
+OBS_TRAIN_KEYS = {"latency", "gauges", "compile", "compiles",
+                  "retrace_warnings", "mfu", "hbm", "host_gap_findings",
+                  "stall_dumps", "timeline_events", "timeline_dropped"}
+
+
+def _trace_summary():
+    """tools/trace_summary.py, imported from the checkout."""
+    import importlib
+    import os
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    try:
+        return importlib.import_module("trace_summary")
+    finally:
+        sys.path.pop(0)
+
+
+def _obs_exports(eng, tmp, name, mode="serving"):
+    """``eng``'s Chrome trace and JSONL, read back: the trace's request
+    rows and ``roofline:`` tracks, and tools/trace_summary.py over the
+    JSONL (its summary rendered). Returns (row, failures)."""
+    ts = _trace_summary()
+    trace_p = f"{tmp}/{name}.trace.json"
+    jsonl_p = f"{tmp}/{name}.jsonl"
+    eng.export_trace(trace_p)
+    eng.write_timeline(jsonl_p)
+    with open(trace_p) as f:
+        evs = json.load(f)["traceEvents"]
+    spans = {e["name"] for e in evs if e.get("ph") == "X"}
+    meta, events, requests = ts.load(jsonl_p)
+    if mode == "train":
+        text = ts.render_train(ts.summarize_train(meta, events, top=3))
+    else:
+        text = ts.render(ts.summarize(meta, events, requests, top=3))
+    row = {"trace_events": len(evs),
+           "request_rows": sum(n.startswith("req") for n in spans),
+           "roofline_tracks": sorted(e["name"] for e in evs
+                                     if e.get("ph") == "C" and
+                                     e["name"].startswith("roofline:")),
+           "jsonl_events": len(events), "jsonl_requests": len(requests),
+           "summary_chars": len(text)}
+    bad = []
+    if mode == "serving" and not row["request_rows"]:
+        bad.append((name, "no request rows in the trace"))
+    if mode != "train" and not row["roofline_tracks"]:
+        bad.append((name, "no roofline track in the trace"))
+    if not events:
+        bad.append((name, "empty JSONL"))
+    return row, bad
+
+
+def _obs_timeline(eng):
+    return [(e.name, e.req_id) for e in eng.observability.timeline.events()]
+
+
+def _obs_stream(eng, prompts, gen):
+    reqs = [eng.submit(p, gen) for p in prompts]
+    eng.drain()
+    return reqs
+
+
+def _obs_parity(gpu):
+    """The parity size: LLaMA-7B widths, 2 layers, f32, on cuda:0, beside
+    the port's CPU run of tests/test_observability.py's model on the same
+    stream (the schedule: events, counters and key sets hold across
+    them)."""
+    import dataclasses
+    import tempfile
+    import warnings
+    import torch
+    from paddle_tpu_torch.inference import (DisaggregatedEngine,
+                                            ServingEngine, ServingFleet,
+                                            ServingMesh, generate_paged)
+    from paddle_tpu_torch.models import LLAMA_7B, init_params
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.observability import Observability
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(LLAMA_7B, num_hidden_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, seed=1)
+    cpu_cfg = tl.LlamaConfig(vocab_size=97, hidden_size=64,
+                             intermediate_size=128, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2,
+                             max_position_embeddings=128,
+                             dtype=torch.float32)
+    cpu_params = init_params(cpu_cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(14)
+    prompts = [rng.randint(0, 97, (int(s),)).astype(np.int32)
+               for s in rng.randint(3, 40, 8)]
+    gen = _pgen(6)
+    tmp = tempfile.mkdtemp(prefix="obs_parity_")
+    res, bad = {}, []
+
+    def engine(p, c, device, **kw):
+        return ServingEngine(p, c, device=device, **dict(OBS_KW, **kw))
+
+    # the observed engine against the plain one and the CPU twin
+    obs = engine(params, cfg, None, observability=True)
+    obs_reqs = _obs_stream(obs, prompts, gen)
+    plain = engine(params, cfg, None)
+    plain_reqs = _obs_stream(plain, prompts, gen)
+    cpu = engine(cpu_params, cpu_cfg, "cpu", observability=True)
+    _obs_stream(cpu, prompts, gen)
+    m, mc, mp = obs.metrics(), cpu.metrics(), plain.metrics()
+    sched = ("decode_steps", "prefill_chunks", "prefill_tokens",
+             "tokens_generated", "requests_completed")
+    res["engine"] = {
+        "ids_equal": [r.tokens for r in obs_reqs]
+        == [r.tokens for r in plain_reqs],
+        "keys_equal_cpu": set(m) == set(mc),
+        "obs_keys": set(m) - set(mp) == OBS_KEYS,
+        "latency_keys_equal_cpu": set(m["latency"]) == set(mc["latency"]),
+        "timeline_equal_cpu": _obs_timeline(obs) == _obs_timeline(cpu),
+        "counters_equal_cpu": all(m[k] == mc[k] for k in sched),
+        "timeline_events": m["timeline_events"],
+        "decode_step_ms": m["latency"]["decode_step_ms"],
+        "decode_step_ms_mean": m["decode_step_ms_mean"]}
+    exp, b = _obs_exports(obs, tmp, "engine")
+    res["engine"]["exports"] = exp
+    bad += b + [("engine", k) for k in ("ids_equal", "keys_equal_cpu",
+                                        "obs_keys",
+                                        "latency_keys_equal_cpu",
+                                        "timeline_equal_cpu",
+                                        "counters_equal_cpu")
+                if not res["engine"][k]]
+    del obs, plain, cpu
+    # the watchdog: every bucket warmed (a bucket is captured at its
+    # second use), armed by reset_metrics, silent on warmed traffic; a
+    # bucket first seen after the reset fires once, at its capture
+    eng = engine(params, cfg, None, observability=True)
+    for s in (10, 10, 25, 25):
+        _obs_stream(eng, [prompts[0][:1].repeat(s)], _pgen(3))
+    eng.reset_metrics()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        _obs_stream(eng, prompts[:4], gen)
+        warmed = eng.metrics()["retrace_warnings"]
+    eng2 = engine(params, cfg, None, observability=True)
+    for s in (10, 10):
+        _obs_stream(eng2, [prompts[0][:1].repeat(s)], _pgen(3))
+    eng2.reset_metrics()
+    with warnings.catch_warnings(record=True) as caught2:
+        warnings.simplefilter("always", RuntimeWarning)
+        for _ in range(2):
+            _obs_stream(eng2, [prompts[1][:1].repeat(25)], _pgen(3))
+    forced = eng2.metrics()["retrace_warnings"]
+    res["watchdog"] = {"warmed": warmed, "forced": forced,
+                       "events": eng2.observability.watchdog.events,
+                       "warned": len(caught) + len(caught2)}
+    if warmed != 0 or forced != 1 or \
+            eng2.observability.watchdog.events[0]["program"] != "prefill[32]":
+        bad.append(("watchdog", res["watchdog"]))
+    del eng, eng2
+    # stall dumps: a blown step deadline, and a drain starved by pages
+    # held hostage (tests/test_observability.py's)
+    dl = f"{tmp}/deadline.json"
+    eng = engine(params, cfg, None, observability=Observability(
+        step_deadline_s=0.0, stall_dump_path=dl))
+    eng.submit(prompts[0], _pgen(2))
+    eng.step()
+    st = f"{tmp}/starved.json"
+    eng2 = engine(params, cfg, None, num_blocks=10,
+                  observability=Observability(stall_dump_path=st))
+    eng2.mgr.allocate(999, 7 * 16)
+    eng2.submit(rng.randint(0, 97, (20,)).astype(np.int32), _pgen(60))
+    try:
+        eng2.drain()
+        starved = "no error"
+    except RuntimeError as e:
+        starved = str(e)
+    res["stall"] = {"deadline_dump": _json_file(dl).get("reason"),
+                    "starved_error": starved,
+                    "starved_dump": _json_file(st).get("reason")}
+    if not (res["stall"]["deadline_dump"] or "").count("deadline"):
+        bad.append(("stall", "no deadline dump"))
+    if st not in starved or not res["stall"]["starved_dump"]:
+        bad.append(("stall", "no starved-drain dump"))
+    del eng, eng2
+    # a colocated tp=2 mesh: the flight recorder's collectives
+    eng = engine(params, cfg, None, observability=True,
+                 mesh=ServingMesh.make(2, collective="psum",
+                                       devices=["cuda:0"] * 2))
+    _obs_stream(eng, prompts[:3], gen)
+    coll = eng.metrics().get("collectives", {})
+    res["mesh"] = {"collectives_calls": coll.get("calls"),
+                   "collectives_bytes": coll.get("bytes")}
+    if not (coll.get("calls") or {}).get("psum@tp"):
+        bad.append(("mesh", "no psum collectives recorded"))
+    del eng
+    # generate_paged, observed against plain
+    ids = rng.randint(0, 97, (2, 12)).astype(np.int32)
+    o = Observability()
+    a = generate_paged(params, ids, cfg, _pgen(40), block_size=16,
+                       observability=o)
+    b = generate_paged(params, ids, cfg, _pgen(40), block_size=16)
+    names = [e.name for e in o.timeline.events()]
+    res["generate_paged"] = {"ids_equal": bool(torch.equal(a, b)),
+                             "events": names,
+                             "decode_step_ms":
+                                 o.latency_snapshot()["decode_step_ms"]}
+    if not torch.equal(a, b) or "decode_step" not in names:
+        bad.append(("generate_paged", names))
+    # the disaggregated engine: one shared timeline with handoff events
+    dis = DisaggregatedEngine(params, cfg, capacity=2, prefill_slots=1,
+                              block_size=16, prefill_buckets=(16, 32),
+                              max_seq_len=128, observability=True)
+    dis_reqs = _obs_stream(dis, prompts, gen)
+    names = [e.name for e in dis.observability.timeline.events()]
+    dm = dis.metrics()
+    res["disagg"] = {"ids_equal_colocated": [r.tokens for r in dis_reqs]
+                     == [r.tokens for r in plain_reqs],
+                     "handoff_events": names.count("handoff"),
+                     "handoff_ms": dm["latency"]["handoff_ms"],
+                     "collectives_calls": dm["collectives"]["calls"],
+                     "shared_timeline": dis.prefill.observability.timeline
+                     is dis.decode.observability.timeline
+                     is dis.observability.timeline}
+    exp, b = _obs_exports(dis, tmp, "disagg")
+    res["disagg"]["exports"] = exp
+    bad += b
+    if not (res["disagg"]["ids_equal_colocated"]
+            and res["disagg"]["handoff_events"]
+            and res["disagg"]["shared_timeline"]):
+        bad.append(("disagg", res["disagg"]))
+    del dis
+    # the fleet: route events, the exports
+    fleet = ServingFleet([engine(params, cfg, None, prefix_cache=True,
+                                 observability=True),
+                          engine(params, cfg, None)], observability=True)
+    fl_reqs = _obs_stream(fleet, prompts, gen)
+    names = [e.name for e in fleet.observability.timeline.events()]
+    res["fleet"] = {"ids_equal_colocated": [r.tokens for r in fl_reqs]
+                    == [r.tokens for r in plain_reqs],
+                    "route_events": names.count("route")}
+    exp, b = _obs_exports(fleet, tmp, "fleet", mode="fleet")
+    res["fleet"]["exports"] = exp
+    bad += b
+    if not (res["fleet"]["ids_equal_colocated"]
+            and res["fleet"]["route_events"] == len(prompts)):
+        bad.append(("fleet", res["fleet"]))
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, bad
+
+
+def _json_file(path):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def _obs_serving(gpu, params):
+    """The serving size: LLaMA-7B (``params``, bf16), the serving phase's
+    12 requests on the default route, observed (observability and
+    telemetry) and plain in turns: observed, plain, observed, plain; each
+    engine warms both buckets and the decode step (each captured at its
+    second use) and resets its metrics first."""
+    import tempfile
+    import warnings
+    import torch
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import LLAMA_7B
+    from paddle_tpu_torch.observability import (Observability,
+                                                lint_exposition)
+    from paddle_tpu_torch.ops import kernels
+    cfg = LLAMA_7B
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(0)
+    lens = rng.integers(40, 601, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    warm = [np.full(n, 7, np.int32) for n in (20, 20, 100, 100)]
+    gen = _pgen(SERVE_NEW)
+    tmp = tempfile.mkdtemp(prefix="obs_serving_")
+    turns, ids, bad, obs_counts = [], {}, [], None
+    for kind in ("observed", "plain", "observed", "plain"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kw = (dict(observability=True, telemetry=True)
+              if kind == "observed" else {})
+        eng = ServingEngine(params, cfg, **OBS_SERVE_KW, **kw)
+        for p in warm:
+            _obs_stream(eng, [p], _pgen(2))
+        eng.reset_metrics()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            reqs = _obs_stream(eng, prompts, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        host = []
+        for _ in range(5):
+            t = time.perf_counter()
+            m = eng.metrics()
+            host.append((time.perf_counter() - t) * 1e3)
+        steps, chunks = m["decode_steps"], m["prefill_chunks"]
+        row = {"kind": kind, "wall_s": round(wall, 3),
+               "tokens_per_sec": m["tokens_per_sec"],
+               "ttft_ms_mean": m["ttft_ms_mean"],
+               "ttft_ms_max": m["ttft_ms_max"],
+               "decode_step_ms_mean": m["decode_step_ms_mean"],
+               "decode_steps": steps, "prefill_chunks": chunks,
+               "metrics_host_ms": [round(x, 3) for x in host]}
+        want = {"prefill_attn_block": L * chunks,
+                "decode_mlp_block": L * chunks,
+                "decode_block_fused": L * steps, "decode_attn_block": 0,
+                "paged_attention_decode": 0, "rms_norm_fwd": steps + chunks}
+        if {k: counts[k] for k in want} != want:
+            bad.append(("serving", kind, "launches", counts, want))
+        if kind == "observed":
+            lat = m["latency"]
+            tel = eng.telemetry
+            expo = tel.expose()
+            row.update({
+                "decode_step_ms": lat["decode_step_ms"],
+                "prefill_chunk_ms": lat["prefill_chunk_ms"],
+                "step_ms": lat["step_ms"], "ttft_ms": lat["ttft_ms"],
+                "tpot_ms": lat["tpot_ms"],
+                "retrace_warnings": m["retrace_warnings"],
+                "runtime_warnings": [str(w.message)[:80] for w in caught],
+                "telemetry": m["telemetry"],
+                "alerts": [dict(a) for a in tel.alerts],
+                "exposition_lint": lint_exposition(expo),
+                "exposition_lines": expo.count("\n"),
+                "keys_ok": OBS_KEYS | {"telemetry"} <= set(m)})
+            exp, b = _obs_exports(eng, tmp, f"serving{len(turns)}")
+            row["exports"] = exp
+            bad += b
+            if m["retrace_warnings"] or caught:
+                bad.append(("serving", "retrace after warm-up",
+                            m["retrace_warnings"]))
+            if row["exposition_lint"] or \
+                    m["telemetry"]["alerts"] != {"page": 0, "ticket": 0}:
+                bad.append(("serving", "telemetry",
+                            row["exposition_lint"][:3],
+                            m["telemetry"]["alerts"]))
+            if not row["keys_ok"]:
+                bad.append(("serving", "metrics keys", sorted(m)))
+            if obs_counts is None:
+                obs_counts = dict(counts)
+        toks = [r.tokens for r in reqs]
+        if not all(r.done and len(r.tokens) == SERVE_NEW for r in reqs):
+            bad.append(("serving", kind, "unfinished"))
+        ids.setdefault(kind, toks)
+        if ids[kind] != toks:
+            bad.append(("serving", kind, "ids differ between turns"))
+        turns.append(row)
+        del eng
+        gc.collect()
+    if ids["observed"] != ids["plain"]:
+        bad.append(("serving", "observed ids != plain ids"))
+    tps = {k: [t["tokens_per_sec"] for t in turns if t["kind"] == k]
+           for k in ("observed", "plain")}
+    ratio = float(np.mean(tps["observed"]) / np.mean(tps["plain"]))
+    # one bucket first seen after the reset (128: only 32 was warmed)
+    # fires the watchdog once, at its capture; then a step past a 0 s
+    # deadline writes a stall dump
+    dump = f"{tmp}/deadline.json"
+    obs = Observability(stall_dump_path=dump)
+    eng = ServingEngine(params, cfg, observability=obs, **OBS_SERVE_KW)
+    for p in warm[:2]:
+        _obs_stream(eng, [p], _pgen(2))
+    eng.reset_metrics()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        for p in warm[2:]:
+            _obs_stream(eng, [p], _pgen(2))
+    forced = {"retrace_warnings": eng.metrics()["retrace_warnings"],
+              "events": obs.watchdog.events, "warned": len(caught)}
+    if forced["retrace_warnings"] != 1 or \
+            obs.watchdog.events[0]["program"] != "prefill[128]":
+        bad.append(("serving", "forced bucket", forced))
+    obs.step_deadline_s = 0.0
+    eng.submit(warm[0], _pgen(2))
+    eng.step()
+    forced["deadline_dump"] = _json_file(dump).get("reason")
+    if not forced["deadline_dump"]:
+        bad.append(("serving", "no deadline dump"))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"requests": len(prompts), "new_tokens": SERVE_NEW,
+             "turns": turns, "tokens_per_sec_ratio": round(ratio, 4),
+             "forced": forced,
+             "ids_equal": ids["observed"] == ids["plain"]},
+            obs_counts, bad)
+
+
+def _obs_train(gpu):
+    """The 1.07B-h4096 rung on the default route, observed and plain in
+    turns (observed, plain, observed, plain), each warmed one step and
+    reset, then TRAIN_STEPS steps; then the Profiler with the GPU target
+    over 3 steps of the last turn's trainer."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.distributed.trainer import tree_leaves
+    from paddle_tpu_torch.models import init_params, llama
+    from paddle_tpu_torch.observability import live_hbm_bytes
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
+    cfg = train_config(fused_train=None)
+    L, B, S = cfg.num_hidden_layers, TRAIN_RUNG["batch"], TRAIN_RUNG["seq"]
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device="cuda")
+    labels = torch.roll(toks, -1, -1)
+    turns, losses, bad, obs_counts = [], {}, [], None
+    tr = state = None
+    for kind in ("observed", "plain", "observed", "plain"):
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_params(cfg, seed=0)
+        n_params = sum(v.numel() for v in tree_leaves(params))
+        tr = Trainer(lambda p, t, l: llama.loss_fn(p, t, l, cfg), lr=1e-4,
+                     moment_dtype=torch.bfloat16,
+                     observability=kind == "observed")
+        state = tr.init_state(params)
+        del params
+        state, m = tr.step(state, toks, labels)          # warm-up
+        run = [float(m["loss"])]
+        tr.reset_metrics()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        step_losses = []
+        for _ in range(TRAIN_STEPS):
+            state, m = tr.step(state, toks, labels)
+            step_losses.append(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        run += [float(x) for x in step_losses]
+        tps = B * S * TRAIN_STEPS / wall
+        formula_flops = (6 * n_params + 6 * L * S * cfg.hidden_size) * B * S
+        row = {"kind": kind, "wall_ms_per_step":
+               round(wall * 1e3 / TRAIN_STEPS, 3),
+               "tokens_per_sec": round(tps, 1),
+               "mfu_formula": round(tps / (B * S) * formula_flops / 989e12,
+                                    4)}
+        if kind == "observed":
+            mm = tr.metrics()
+            lat = mm["latency"]
+            comp = mm["compile"]["programs"].get("train_step", {})
+            counted = (mm["mfu"] or {}).get("flops_per_step_per_device")
+            row.update({
+                "phases_ms": {k: {"p50": lat[k]["p50"], "mean": lat[k]["mean"]}
+                              for k in ("step_ms", "stage_ms", "dispatch_ms",
+                                        "sync_ms")},
+                "host_gap_findings": mm["host_gap_findings"],
+                "compile": mm["compile"], "hbm": mm["hbm"],
+                "mfu": mm["mfu"],
+                "counted_over_formula_flops": (round(counted / formula_flops, 4)
+                                               if counted else None),
+                "hbm_bytes_in_use": mm["gauges"].get(
+                    "hbm_bytes_in_use", {}).get("last"),
+                "live_hbm_bytes": live_hbm_bytes("cuda"),
+                "keys_ok": set(mm) >= OBS_TRAIN_KEYS,
+                "retrace_warnings": mm["retrace_warnings"]})
+            num = (row["hbm_bytes_in_use"], (mm["mfu"] or {}).get("mfu"),
+                   (mm["hbm"] or {}).get("temp_bytes"),
+                   (mm["hbm"] or {}).get("argument_bytes"),
+                   comp.get("cost", {}).get("flops"))
+            if not all(isinstance(x, (int, float)) and x > 0 for x in num):
+                bad.append(("train", "hbm/mfu/memory not numbers", num))
+            if mm["host_gap_findings"] or mm["retrace_warnings"] or \
+                    not row["keys_ok"]:
+                bad.append(("train", "findings", mm["host_gap_findings"],
+                            mm["retrace_warnings"], sorted(mm)))
+            if obs_counts is None:
+                obs_counts = dict(counts)
+        losses.setdefault(kind, run)
+        row["losses"] = run
+        if run != losses[kind]:
+            bad.append(("train", kind, "losses differ between turns"))
+        turns.append(row)
+    if losses["observed"] != losses["plain"]:
+        bad.append(("train", "observed loss != plain loss"))
+    # the profiler with the GPU target over 3 steps of the last trainer
+    tmp = tempfile.mkdtemp(prefix="obs_profile_")
+    with Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU],
+                  trace_dir=tmp) as prof:
+        for _ in range(3):
+            state, m = tr.step(state, toks, labels)
+            prof.step()
+    names = set()
+    if prof.device_trace_path is None:
+        bad.append(("profiler", "no device trace written"))
+    else:
+        with open(prof.device_trace_path) as f:
+            evs = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in evs if e.get("cat") == "kernel"}
+    groups = sorted({g for g in map(_kernel_group, names) if g})
+    want = {"flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv", "fused_adamw", "rms_norm_fwd",
+            "residual_rms_norm_fwd", "rms_norm_bwd", "swiglu_fwd",
+            "swiglu_bwd", "linear_ce_fwd", "linear_ce_bwd_dx",
+            "linear_ce_bwd_dh"}
+    profiled = {"trace_kernels": len(names), "groups": groups,
+                "steps": prof.step_num}
+    if not want <= set(groups):
+        bad.append(("profiler", "kernels missing",
+                    sorted(want - set(groups))))
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"rung": TRAIN_RUNG["label"], "steps": TRAIN_STEPS,
+             "turns": turns, "profiler": profiled,
+             "losses_equal": losses["observed"] == losses["plain"]},
+            obs_counts, bad)
+
+
+def obs_phase(gpu, size, params=None):
+    """The observability and telemetry harness on the card. Returns the
+    launch counts of its observed runs at the serving size (empty at the
+    parity size): {"serving": ..., "train": ...}.
+
+    ``size`` "parity": LLaMA-7B widths, 2 layers, f32, on cuda:0, the
+    port's CPU run beside: an observed engine (8 requests) against the
+    plain one (ids equal) and the CPU twin (the same metrics() and
+    latency key sets, the same timeline events and request ids in order,
+    the same schedule counters); its Chrome trace (request rows, the
+    ``roofline:`` track) and JSONL (read by tools/trace_summary.py); the
+    retrace watchdog silent on traffic over warmed buckets (each bucket
+    captured at its second use) and firing once when a bucket first seen
+    after the reset is captured; a stall dump on a blown step deadline
+    and on a drain starved by pages held hostage; a colocated tp=2 mesh's
+    flight recorder (psum calls and bytes); ``generate_paged`` observed
+    (ids equal); the disaggregated engine (one timeline shared by both
+    groups, handoff events, its exports; ids equal to the colocated
+    engine's) and the fleet (route events, its exports).
+
+    ``size`` "serving": the serving phase's 12 requests through
+    ``ServingEngine(..., observability=True, telemetry=True)`` on the
+    default route (decode steps and chunks captured) in turns with the
+    plain engine: ids equal, the enabled key set, 0 retrace warnings after
+    the warmed reset, the exposition lint-clean with no alert, the
+    exports; tokens/s, TTFT, decode_step_ms p50/p95 (dispatch to the
+    step's token read) beside decode_step_ms_mean (CUDA events), the host
+    ms of ``metrics()``; launch counts (the default route's); a bucket
+    first captured after the reset fires the watchdog once, a 0 s step
+    deadline writes a dump. Then the trainer at rung "1.07B-h4096" on the
+    default route, observed and plain in turns: losses bit-identical, the
+    phase split (stage, dispatch, sync), host-gap findings (0), the
+    ``compile`` entry, ``hbm`` and the counted-FLOPs ``mfu`` (numbers),
+    beside bench.py's formula MFU; and ``Profiler`` with the GPU target
+    over 3 steps, whose device trace names the train route's kernels."""
+    import torch
+    t0 = time.perf_counter()
+    if size == "parity":
+        res, bad = _obs_parity(gpu)
+        emit({"phase": "obs", "size": size, "gpu": gpu, "dtype": "float32",
+              "layers": 2, **res, "failed": [list(map(str, x)) for x in bad],
+              "seconds": round(time.perf_counter() - t0, 1)})
+        if bad:
+            raise AssertionError(f"obs phase (parity): {bad}")
+        return {}
+    serving, serve_counts, bad = _obs_serving(gpu, params)
+    train, train_counts, b = _obs_train(gpu)
+    bad += b
+    emit({"phase": "obs", "size": size, "gpu": gpu, "model": "LLAMA_7B",
+          "dtype": "bfloat16", "serving": serving, "train": train,
+          "failed": [list(map(str, x)) for x in bad],
+          "seconds": round(time.perf_counter() - t0, 1)})
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"obs phase (serving): {bad}")
+    return {"serving": serve_counts, "train": train_counts}
+
+
+def obs_only(gpu):
+    """``python3 chip_smoke.py obs``: the build and the obs phase alone,
+    both sizes (the serving size over the serving phases' seeded tree)."""
+    import torch
+    from paddle_tpu_torch.models import LLAMA_7B, init_params
+    build_kernels()
+    obs_phase(gpu, "parity")
+    obs_phase(gpu, "serving", init_params(LLAMA_7B, seed=0))
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # training: flash attention, fused AdamW, the train step
 # ---------------------------------------------------------------------------
 # bench.py's LLAMA_LADDER rung "1.07B-h4096": LLaMA-7B widths, 4 layers
@@ -6935,9 +7566,11 @@ def main(argv=()):
         return prefix_only(gpu)
     if list(argv) == ["disagg"]:
         return disagg_only(gpu)
+    if list(argv) == ["obs"]:
+        return obs_only(gpu)
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}; run it with "
-              "none, or with 'prefix' or 'disagg'", file=sys.stderr)
+              "none, or with 'prefix', 'disagg' or 'obs'", file=sys.stderr)
         return 2
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
@@ -6975,6 +7608,9 @@ def main(argv=()):
     # this slice's main path: disaggregated prefill/decode serving and the
     # fleet router, first at the parity size
     disagg_phase(gpu, "parity")
+    # this slice's main path: the observability and telemetry harness on
+    # the engines and the trainer, first at the parity size
+    obs_phase(gpu, "parity")
     params = init_params(LLAMA_7B, seed=0)
     counts, tokens = {}, {}
     prompts = None
@@ -7000,6 +7636,9 @@ def main(argv=()):
     # and the disaggregated engine, the colocated one in turns with it, and
     # bench.py's fleet traffic at the serving size
     disagg_counts = disagg_phase(gpu, "serving", params)
+    # and the observed default engine in turns with the plain one, and the
+    # observed trainer at the train rung
+    obs_counts = obs_phase(gpu, "serving", params)
     audit_phase(gpu, {"serving_default": (serving_specs, counts["default"]),
                       "train_default": (train_specs, train_counts)})
     del serving_specs, train_specs
@@ -7041,6 +7680,10 @@ def main(argv=()):
             row["prefix_launches"] = prefix_counts["launches"][row["name"]]
             # and its disaggregated run's (the serving phase's requests)
             row["disagg_launches"] = disagg_counts[row["name"]]
+        if row["name"] in ("decode_mlp_block", "decode_block_fused",
+                           "prefill_attn_block", "rms_norm_fwd"):
+            # the observed engine's run (the obs phase, serving size)
+            row["obs_launches"] = obs_counts["serving"][row["name"]]
         if row["name"] == "decode_mlp_block[tc]":
             # the chunks' MLP on the default route, by bucket
             row["launches"] = counts["default"]["by_body"][
@@ -7113,6 +7756,8 @@ def main(argv=()):
         # steps (the main path), and on the "ref" route's
         row["launches"] = train_counts[row["name"]]
         row["ref_train_launches"] = ref_counts[row["name"]]
+        # the observed trainer's timed steps (the obs phase)
+        row["obs_train_launches"] = obs_counts["train"][row["name"]]
     for row in body_rows:
         # each body class's launches on the varlen and bias path phases, in
         # the classes that hold all of its flags

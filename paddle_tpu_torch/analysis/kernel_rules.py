@@ -62,6 +62,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..observability.compile import H100_HBM_BW, H100_PEAK_OPS
 from ..ops.kernels import _launch
 from .rules import Finding
 
@@ -73,9 +74,10 @@ KERNEL_RULE_CODES = ("GRID_FLOOR_DROP", "OOB_BLOCK", "WRITE_RACE",
                      "SMEM_OVERCOMMIT", "ARG_MISMATCH")
 
 #: the H100 SXM's memory rate and peak operation rates (NVIDIA's data
-#: sheet, dense): bf16 on the tensor cores, f32 outside them
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+#: sheet, dense): bf16 on the tensor cores, f32 outside them; the one peak
+#: table's entry (``observability/compile.py``)
+HBM_BYTES_PER_S = H100_HBM_BW
+PEAK_OPS_PER_S = dict(H100_PEAK_OPS)
 
 _REPO = Path(__file__).resolve().parents[2]
 

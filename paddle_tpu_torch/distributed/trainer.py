@@ -21,10 +21,25 @@ The optimizer has the JAX package's two paths:
 - per leaf (:func:`_adamw_update`, the CPU's default as the JAX
   package's default off the TPU).
 
+``observability=True`` (or an ``Observability`` instance) runs the
+OBSERVED step, as the JAX trainer's: the same step body, phase-timed into
+``stage_ms`` (the batch's host-to-device staging), ``dispatch_ms`` (the
+host's enqueue of the whole eager step: forward, ``torch.autograd.grad``
+and the optimizer update; a new signature's kernel builds excluded) and
+``sync_ms`` (the wait for the step's end: one CUDA event and its
+``synchronize()``, the observed step's one sync, as the JAX trainer's
+``block_until_ready``); loss, grad-norm and live-memory gauges; the step
+telemetry of ``observability/compile.py`` (kernel-build time, counted
+FLOPs and counted-FLOPs MFU, the memory breakdown, new signatures after
+``reset_metrics()`` warned as retraces); and the host-vs-device gap
+detector, which dumps when the host's time dwarfs the wait. The step
+body reads no tensor on the host. ``telemetry=`` adds the telemetry plane
+(implies observability). Disabled, the trainer holds ``None`` and
+allocates no event object.
+
 Not ported here (raise ``NotImplementedError`` unless off): ``mesh``,
 ``param_specs`` and ``data_spec`` (distributed training, ROADMAP A11),
-``observability`` and ``telemetry`` (A8), :meth:`Trainer.prefetch` and
-:meth:`Trainer.audit` (A12).
+:meth:`Trainer.prefetch` (A9) and :meth:`Trainer.audit` (A12).
 """
 from __future__ import annotations
 
@@ -35,6 +50,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability import (TRAIN_HISTOGRAMS, CompileWatcher,
+                             HostGapDetector, Observability,
+                             TelemetryConfig, TelemetryPlane,
+                             live_hbm_bytes)
 
 __all__ = ["TrainState", "Trainer", "tree_leaves", "tree_unflatten"]
 
@@ -120,20 +139,22 @@ class Trainer:
                  weight_decay=0.1, grad_clip=1.0, accumulate_steps: int = 1,
                  donate: bool = True,
                  fused_optimizer: Optional[bool] = None,
-                 moment_dtype=None, observability=False, telemetry=False,
+                 moment_dtype=None, observability=False,
+                 host_gap_factor: float = 4.0,
+                 host_gap_min_ms: float = 50.0, telemetry=False,
                  device=None):
         """``loss_fn(params, *batch) -> scalar``. ``fused_optimizer``:
         None picks the flat fused path on CUDA for an eligible tree and
         the per-leaf path on the CPU; True/False force. ``moment_dtype``:
         storage type of the AdamW moments (None = f32; bf16 halves them,
-        the update still runs in f32). ``device``: CUDA by default;
-        ``"cpu"`` runs the plain versions."""
+        the update still runs in f32). ``observability``/``telemetry``
+        and the gap detector's ``host_gap_factor``/``host_gap_min_ms``:
+        the module docstring. ``device``: CUDA by default; ``"cpu"`` runs
+        the plain versions."""
         for name, val, off, slice_ in (
                 ("mesh", mesh, None, "distributed training, ROADMAP A11"),
                 ("param_specs", param_specs, None, "ROADMAP A11"),
-                ("data_spec", data_spec, None, "ROADMAP A11"),
-                ("observability", observability, False, "ROADMAP A8"),
-                ("telemetry", telemetry, False, "ROADMAP A8")):
+                ("data_spec", data_spec, None, "ROADMAP A11")):
             if val is not off and val != off:
                 _not_ported(name, slice_)
         self.device = resolve_device(device)
@@ -149,6 +170,30 @@ class Trainer:
         self.counters = {"steps": 0, "samples": 0, "tokens": 0}
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
+        # telemetry implies observability (alerts land timeline events
+        # and stall dumps, both owned by the harness)
+        _tcfg = TelemetryConfig.coerce(telemetry)
+        if observability or _tcfg is not None:
+            self._obs = (observability
+                         if isinstance(observability, Observability)
+                         else Observability(histograms=TRAIN_HISTOGRAMS))
+            self._obs.registry.adopt_counters(self.counters)
+            self._compile = CompileWatcher(self._obs.registry,
+                                           self._obs.timeline)
+            self._gap = HostGapDetector(factor=host_gap_factor,
+                                        min_wall_ms=host_gap_min_ms)
+        else:
+            self._obs = None
+            self._compile = None
+            self._gap = None
+        # the telemetry plane samples metrics() on a step cadence; None
+        # when disabled
+        self._telemetry = None
+        if _tcfg is not None:
+            self._telemetry = TelemetryPlane(
+                _tcfg, on_alert=self._telemetry_alert)
+            self._telemetry.register("trainer", self.metrics,
+                                     counters=self.counters)
 
     # -- state init ----------------------------------------------------------
     @staticmethod
@@ -305,22 +350,201 @@ class Trainer:
                 self.counters["samples"] += int(shape[0])
         self._t_last = t_end
 
+    def _lr_tensor(self) -> torch.Tensor:
+        """lr as an f32 0-d tensor on the device: one copy when it
+        changes, not one a step."""
+        if self._lr_cache is None or self._lr_cache[0] != self.lr:
+            self._lr_cache = (self.lr, torch.tensor(
+                self.lr, dtype=torch.float32, device=self.device))
+        return self._lr_cache[1]
+
     def step(self, state: TrainState, *batch) -> Tuple[TrainState, Dict]:
         """One training step; ``state`` is updated in place and returned.
         The metrics ``loss`` and ``grad_norm`` are 0-d device tensors
         (reading them synchronises)."""
+        if self._obs is not None:
+            out = self._step_observed(state, batch)
+            if self._telemetry is not None:
+                self._telemetry.on_step()
+            return out
         if self._t_first is None:
             self._t_first = time.perf_counter()
         batch = tuple(self._stage(b) for b in batch)
-        if self._lr_cache is None or self._lr_cache[0] != self.lr:
-            self._lr_cache = (self.lr, torch.tensor(
-                self.lr, dtype=torch.float32, device=self.device))
-        metrics = self._step_body(state, self._lr_cache[1], batch)
+        metrics = self._step_body(state, self._lr_tensor(), batch)
         self._count_step(batch, time.perf_counter())
         return state, metrics
 
+    # -- observed step (enabled mode) ---------------------------------------
+    def _signature(self, staged) -> Tuple:
+        """The step's signature, the key of the step telemetry: the batch
+        shapes and dtypes, the registry's force pins, the optimizer path
+        and the accumulation count (what makes the eager step run other
+        kernels or other shapes)."""
+        from ..ops.kernels.registry import KERNELS
+        return (tuple((tuple(b.shape), b.dtype) for b in staged),
+                KERNELS.forced_state(), self._fused,
+                self.accumulate_steps)
+
+    def _wait(self):
+        """The observed step's one sync: the wait for everything the step
+        enqueued (one CUDA event recorded after it, synchronised). The
+        CPU's eager step is done when it returns."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            ev.synchronize()
+
+    def _step_observed(self, state: TrainState, batch
+                       ) -> Tuple[TrainState, Dict]:
+        """The enabled-mode step: the same step body, phase-timed into
+        stage (batch h2d), dispatch (the eager step's enqueue returning)
+        and sync (the wait for its end) — the split the host-vs-device gap
+        detector reads. A new signature's first step runs under the
+        watcher's probe (kernel builds timed and left out of dispatch,
+        FLOPs counted, memory read): the same numerics; the gap detector
+        skips that step."""
+        obs = self._obs
+        t0 = obs.now()
+        if self._t_first is None:
+            self._t_first = t0
+        staged = tuple(self._stage(b) for b in batch)
+        t_stage = obs.now()
+        lr = self._lr_tensor()
+        key = self._signature(staged)
+        compile_ms = 0.0
+        first = not self._compile.known("train_step", key)
+        if not first:
+            metrics = self._step_body(state, lr, staged)
+        else:
+            state_tensors = [t for part in state.tree()
+                             for t in tree_leaves(part)]
+            outputs = list(state_tensors)
+            with self._compile.first_step(
+                    "train_step", key, self.device,
+                    inputs=state_tensors + [lr, *staged],
+                    outputs=outputs, aliased=state_tensors) as probe:
+                metrics = self._step_body(state, lr, staged)
+                outputs += list(metrics.values())
+            compile_ms = probe.wall_s * 1e3
+        t_disp = obs.now()
+        self._wait()
+        t_sync = obs.now()
+        stage_ms = (t_stage - t0) * 1e3
+        # dispatch = the step's enqueue; a new signature's kernel builds
+        # are timed by the watcher and excluded here rather than
+        # masquerading as dispatch work
+        dispatch_ms = max((t_disp - t_stage) * 1e3 - compile_ms, 0.0)
+        sync_ms = (t_sync - t_disp) * 1e3
+        step_ms = (t_sync - t0) * 1e3
+        self._count_step(staged, t_sync)
+        step_idx = self.counters["steps"]
+        for name, v in (("step_ms", step_ms), ("stage_ms", stage_ms),
+                        ("dispatch_ms", dispatch_ms),
+                        ("sync_ms", sync_ms)):
+            obs.hist(name).observe(v)
+        # the step has ended: these reads wait for nothing
+        loss = float(metrics["loss"])
+        gnorm = float(metrics["grad_norm"])
+        vals = {"loss": loss, "grad_norm": gnorm}
+        hbm = live_hbm_bytes(self.device)
+        if hbm is not None:
+            vals["hbm_bytes_in_use"] = hbm
+        obs.sample_gauges(t_sync, vals)
+        obs.timeline.record(
+            "train_step", dur_ms=step_ms, step=step_idx,
+            stage_ms=round(stage_ms, 3),
+            dispatch_ms=round(dispatch_ms, 3),
+            sync_ms=round(sync_ms, 3), loss=round(loss, 6))
+        # a signature's first step is not judged: its dispatch carries the
+        # watcher's counting (the JAX trainer's compile, which it leaves
+        # out of dispatch too)
+        finding = (None if first else
+                   self._gap.observe(step_idx, stage_ms, dispatch_ms,
+                                     sync_ms))
+        if finding is not None:
+            obs.timeline.record("host_gap", **finding)
+            if self._gap.should_dump():
+                obs.stall_dump(
+                    f"host-vs-device gap: step {step_idx} spent "
+                    f"{finding['host_ms']:.1f} ms on the host "
+                    f"(stage {finding['stage_ms']:.1f} + dispatch "
+                    f"{finding['dispatch_ms']:.1f}) vs "
+                    f"{finding['device_wait_ms']:.1f} ms waiting on "
+                    "the device — per-step h2d staging or host-side "
+                    "work owns this step, not compute",
+                    scheduler={"phase_split": finding,
+                               "mesh": self._mesh_shape(),
+                               "accumulate_steps": self.accumulate_steps},
+                    metrics={"steps": step_idx})
+        if obs.step_deadline_s is not None \
+                and step_ms > obs.step_deadline_s * 1e3:
+            obs.stall_dump(
+                f"train step {step_idx} took {step_ms:.1f} ms "
+                f"(deadline {obs.step_deadline_s * 1e3:.1f} ms)",
+                scheduler={"step": step_idx,
+                           "phases": {"stage_ms": round(stage_ms, 3),
+                                      "dispatch_ms": round(dispatch_ms, 3),
+                                      "sync_ms": round(sync_ms, 3)}})
+        return state, metrics
+
+    @staticmethod
+    def _mesh_shape() -> Dict[str, int]:
+        """The one-device trainer's mesh, as the JAX trainer's
+        single-device mesh describes itself: every axis 1."""
+        return {"pp": 1, "dp": 1, "fsdp": 1, "sp": 1, "tp": 1}
+
+    @property
+    def observability(self) -> Optional[Observability]:
+        return self._obs
+
+    def _require_obs(self) -> Observability:
+        if self._obs is None:
+            raise RuntimeError(
+                "observability is disabled for this trainer; construct "
+                "with Trainer(..., observability=True)")
+        return self._obs
+
+    @property
+    def telemetry(self) -> Optional[TelemetryPlane]:
+        """The continuous telemetry plane, or None when disabled."""
+        return self._telemetry
+
+    def _telemetry_alert(self, alert: Dict):
+        """Stamp an ``alert`` timeline event; page-severity alerts also
+        land a flight-recorder dump (the trainer has no scheduler, so
+        the dump carries the throughput counters instead)."""
+        obs = self._obs
+        if obs is None:
+            return
+        obs.timeline.record(
+            "alert", rule=alert.get("rule"),
+            severity=alert.get("severity"), metric=alert.get("metric"),
+            value=alert.get("value"), threshold=alert.get("threshold"))
+        if (alert.get("severity") == "page"
+                and self._telemetry.config.page_dumps):
+            obs.stall_dump(
+                f"telemetry alert: {alert.get('rule')} on "
+                f"{alert.get('metric')}",
+                {"counters": {k: self.counters[k]
+                              for k in self._COUNTER_KEYS}},
+                metrics={"alert": alert})
+
+    def export_trace(self, path: str) -> str:
+        """Write the per-step chrome trace (train_step/compile spans +
+        gauge counter tracks) — open in Perfetto / chrome://tracing."""
+        return self._require_obs().export_chrome(
+            path, process_name="paddle_tpu trainer")
+
+    def write_timeline(self, path: str) -> str:
+        """Write the structured per-step JSONL — input for
+        ``tools/trace_summary.py --mode train``."""
+        return self._require_obs().write_jsonl(
+            path, header={"mode": "train", "mesh": self._mesh_shape(),
+                          "accumulate_steps": self.accumulate_steps})
+
     def prefetch(self, batches, depth: int = 2):
         _not_ported("prefetch", "double-buffered ingest, ROADMAP A9")
+
 
     def audit(self, state: TrainState, *batch, register: bool = True):
         _not_ported("audit", "static program audit, ROADMAP A12")
@@ -328,9 +552,15 @@ class Trainer:
     # -- metrics --------------------------------------------------------------
     def metrics(self) -> Dict:
         """Step, sample and token counters and their rates over the
-        window. The window closes when :meth:`step` returns, before the
-        device finishes: read a metric (``float(m["loss"])``) first for
-        exact rates."""
+        window. Disabled, the window closes when :meth:`step` returns,
+        before the device finishes: read a metric (``float(m["loss"])``)
+        first for exact rates; the observed step waits for its end, so
+        its window is exact. With observability on (the JAX trainer's
+        keys): the phase histograms, gauges, the step telemetry
+        (``compile``, ``compiles``, ``retrace_warnings``, counted-FLOPs
+        ``mfu``, ``hbm``: the step's memory breakdown), the host-gap,
+        stall-dump and timeline counters, and ``collectives`` where a
+        bound flight recorder fed the counters."""
         c = {k: self.counters[k] for k in self._COUNTER_KEYS}
         wall = ((self._t_last - self._t_first)
                 if self._t_first is not None and self._t_last is not None
@@ -340,10 +570,51 @@ class Trainer:
                                 if wall > 0 else 0.0)
         c["tokens_per_sec"] = (round(c["tokens"] / wall, 3)
                                if wall > 0 else 0.0)
+        if self._obs is None:
+            return c
+        obs = self._obs
+        c["latency"] = obs.latency_snapshot(TRAIN_HISTOGRAMS)
+        c["gauges"] = obs.gauges_snapshot()
+        comp = self._compile.snapshot()
+        c["compile"] = comp
+        c["compiles"] = comp["count"]
+        c["retrace_warnings"] = comp["retraces_after_warmup"]
+        c["mfu"] = self._compile.mfu("train_step", steps=c["steps"],
+                                     wall_s=wall)
+        prog = self._compile.programs.get("train_step")
+        c["hbm"] = prog.get("memory") if prog else None
+        c["host_gap_findings"] = len(self._gap.findings)
+        c["stall_dumps"] = (len(obs.stall_dumps)
+                            + obs.stall_dumps_suppressed)
+        c["timeline_events"] = len(obs.timeline)
+        c["timeline_dropped"] = obs.timeline.dropped
+        calls = self.counters.get("collective_calls")
+        if calls:
+            c["collectives"] = {
+                "calls": dict(calls),
+                "bytes": dict(self.counters.get("collective_bytes", {})),
+                "latency_ms": {
+                    name[len("collective_"):-len("_ms")]: h.snapshot()
+                    for name, h in sorted(
+                        obs.registry.histograms.items())
+                    if name.startswith("collective_")
+                    and name.endswith("_ms")}}
+        if self._telemetry is not None:
+            c["telemetry"] = self._telemetry.snapshot()
         return c
 
     def reset_metrics(self):
-        """Zero the throughput window (e.g. after warm-up)."""
+        """Zero the throughput window (e.g. after warm-up). With
+        observability on this also restarts the histogram window and ARMS
+        the step watcher: a new step signature after this call is a
+        steady-state retrace and warns. Only the trainer's own counter
+        keys reset."""
         for k in self._COUNTER_KEYS:
             self.counters[k] = 0
         self._t_first = self._t_last = None
+        if self._obs is not None:
+            self._obs.reset_window()
+            self._compile.arm()
+            # warmup's first-staging host gap must neither show up in the
+            # measured window's findings nor spend its dump budget
+            self._gap.reset()

@@ -48,8 +48,15 @@ Greedy parity: the prefill group runs the colocated engine's prefill math
 and the decode group its decode math; the handoff moves raw page bytes. On
 one device, or under the "gather" placement, greedy output equals the
 colocated ``ServingEngine``'s bit for bit. ``metrics()`` has the JAX
-engine's keys with observability off; ``observability=``/``telemetry=``
-(ROADMAP A8) and the program audit (A12) raise.
+engine's keys.
+
+Observability (``observability=``/``telemetry=``, as the JAX engine's):
+both groups share the DisaggregatedEngine's timeline ring and
+request-record log, each transfer feeds a bound flight recorder
+(``kv_handoff@xfer``) plus the ``handoff_ms`` histogram and a
+``handoff``/``handoff_partial``/``handoff_abort`` event, and
+``export_trace``/``write_timeline`` write the whole engine's trace. The
+program audit (ROADMAP A12) raises.
 """
 from __future__ import annotations
 
@@ -62,12 +69,23 @@ import torch
 
 from ..device import resolve_device
 from ..models.llama import params_to
+from ..observability import Observability, TelemetryConfig, TelemetryPlane
 from ..quantization.ptq import ensure_quantized
 from .generation import GenerationConfig
-from .serving import Request, ServingEngine, _drain_loop
+from .serving import (Request, ServingEngine, _collectives_snapshot,
+                      _drain_loop)
 from .tp import ServingMesh, normalize_mesh
 
 __all__ = ["DisaggregatedEngine"]
+
+# the engine-level latency set: request-level distributions (fed by
+# whichever group admits or finishes the request: the histogram objects
+# are SHARED with both groups' registries) plus what only the
+# orchestrator can time (handoff, whole-engine step)
+DISAGG_HISTOGRAMS = ("ttft_ms", "tpot_ms", "queue_wait_ms", "e2e_ms",
+                     "handoff_ms", "step_ms")
+# the sub-set shared by reference with the groups' registries
+_SHARED_HISTOGRAMS = ("ttft_ms", "tpot_ms", "queue_wait_ms", "e2e_ms")
 
 
 def _later_slice(what: str, item: str):
@@ -194,8 +212,6 @@ class DisaggregatedEngine:
                  weight_quant=None,
                  aging_s: Optional[float] = None, telemetry=False,
                  clock=None, device=None):
-        if observability or telemetry:
-            _later_slice("the observability and telemetry harness", "A8")
         # one injectable scheduler clock for both groups
         self._clock = clock if clock is not None else time.perf_counter
         pre_mesh, dec_mesh = self._resolve_groups(
@@ -213,6 +229,25 @@ class DisaggregatedEngine:
             "kv_bytes_transferred": 0, "requests_submitted": 0,
             "drain_truncations": 0,
         }
+        # telemetry implies observability (alerts land timeline events
+        # and stall dumps, both owned by the harness)
+        _tcfg = TelemetryConfig.coerce(telemetry)
+        if observability or _tcfg is not None:
+            self._obs = (observability
+                         if isinstance(observability, Observability)
+                         else Observability(histograms=DISAGG_HISTOGRAMS))
+            self._obs.registry.adopt_counters(self.counters)
+            pre_obs: object = Observability()
+            dec_obs: object = Observability()
+        else:
+            self._obs = None
+            pre_obs = dec_obs = False
+        self._flight = None
+        if self._obs is not None:
+            from ..distributed.flight_recorder import FlightRecorder
+            rec = FlightRecorder(capacity=4096)
+            rec.enabled = True
+            self._flight = self._obs.bind_flight_recorder(rec)
         BS = int(block_size)
         msl = int(max_seq_len or cfg.max_position_embeddings)
         if prefill_num_blocks is None:
@@ -225,6 +260,7 @@ class DisaggregatedEngine:
             num_blocks=prefill_num_blocks, max_seq_len=msl,
             cache_dtype=cache_dtype, prefill_buckets=prefill_buckets,
             seed=seed, prefix_cache=prefix_cache, kv_offload=kv_offload,
+            observability=pre_obs,
             fused_decode=False, fused_prefill=fused_prefill,
             mesh=pre_mesh, aging_s=aging_s, clock=clock, device=device,
             on_complete=self._on_prefilled,
@@ -233,9 +269,37 @@ class DisaggregatedEngine:
             params, cfg, capacity=capacity, block_size=BS,
             num_blocks=num_blocks, max_seq_len=msl,
             cache_dtype=cache_dtype, prefill_buckets=prefill_buckets,
-            seed=seed + 1, prefix_cache=False,
+            seed=seed + 1, prefix_cache=False, observability=dec_obs,
             fused_decode=fused_decode, fused_prefill=fused_prefill,
             mesh=dec_mesh, aging_s=aging_s, clock=clock, device=device)
+        if self._obs is not None:
+            # one timeline ring + one request-record log for the whole
+            # engine: both groups' events interleave with the
+            # orchestrator's handoff events, so one JSONL export
+            # describes the full request lifecycle
+            self.prefill._obs.timeline = self._obs.timeline
+            self.decode._obs.timeline = self._obs.timeline
+            self.prefill._obs.request_records = self._obs.request_records
+            self.decode._obs.request_records = self._obs.request_records
+            self._share_histograms()
+        # the telemetry plane: the orchestrator rollup plus each group's
+        # engine under a `group` label, so a decode-side regression is
+        # attributable without un-merging the rollup
+        self._telemetry = None
+        if _tcfg is not None:
+            self._telemetry = TelemetryPlane(
+                _tcfg, on_alert=self._telemetry_alert)
+            self._telemetry.register("disagg_engine", self.metrics,
+                                     counters=self.counters,
+                                     skip=("groups",))
+            self._telemetry.register(
+                "disagg_group", self.prefill.metrics,
+                labels={"group": "prefill"},
+                counters=self.prefill.counters, skip=("groups",))
+            self._telemetry.register(
+                "disagg_group", self.decode.metrics,
+                labels={"group": "decode"},
+                counters=self.decode.counters, skip=("groups",))
         self.block_size = BS
         self.max_seq_len = msl
         self.capacity = int(capacity)
@@ -321,6 +385,8 @@ class DisaggregatedEngine:
         and issue new transfers, then one prefill-group step (admission and
         one chunk) and one decode-group step (resume admission and one
         decode step over every live slot)."""
+        obs = self._obs
+        t0 = self._clock() if obs is not None else 0.0
         if self._t_first is None:
             self._t_first = self._clock()
         did = self._run_handoffs()
@@ -328,6 +394,11 @@ class DisaggregatedEngine:
         did = self.decode.step() or did
         if did:
             self._t_last = self._clock()
+            if obs is not None:
+                obs.hist("step_ms").observe(
+                    (self._clock() - t0) * 1e3)
+        if self._telemetry is not None:
+            self._telemetry.on_step()
         return did
 
     @property
@@ -370,6 +441,13 @@ class DisaggregatedEngine:
             starve_error="disaggregated engine starved: pending "
                          "requests cannot be admitted or handed off "
                          "(KV pools too small for the in-flight mix?)")
+
+    def _drain_truncated_event(self, n: int):
+        if self._obs is not None:
+            self._obs.timeline.record(
+                "drain_truncated", steps=n,
+                handoff_queue_depth=(len(self._handoffs)
+                                     + len(self._inflight)))
 
     # -- handoff ------------------------------------------------------
     def _need_pages(self, req: Request) -> int:
@@ -527,12 +605,22 @@ class DisaggregatedEngine:
         dst_table = dec.mgr.allocate(req.req_id, total)
         src = job.src_pages[job.offset:]
         n = len(src)
+        task = None
+        if self._flight is not None:
+            cfg = self.cfg
+            task = self._flight.begin(
+                "kv_handoff", "xfer",
+                (2 * cfg.num_hidden_layers, n * self.block_size,
+                 cfg.num_key_value_heads * cfg.head_dim),
+                str(pre._pool_dtype).replace("torch.", ""))
         kpag, vpag = self._extract(src)
+        t1 = self._clock()
         if job.final:
             pre.mgr.release(req.req_id)
         return {"job": job, "kpag": kpag, "vpag": vpag,
                 "dst": dst_table[job.offset:job.offset + n], "pages": n,
-                "nbytes": pre._page_nbytes * n, "t0": t0}
+                "nbytes": pre._page_nbytes * n, "task": task, "t0": t0,
+                "t1": t1}
 
     def _complete_transfer(self, st: Dict):
         """Land one transfer: the insert into the decode pools, then (final
@@ -545,12 +633,29 @@ class DisaggregatedEngine:
         dec = self.decode
         if job.abort:
             dec.mgr.release(req.req_id)
+            if self._obs is not None:
+                self._obs.timeline.record("handoff_abort", req.req_id)
             return
+        t2 = self._clock()
         self._insert(st["dst"], st["kpag"], st["vpag"])
-        dur_ms = (self._clock() - st["t0"]) * 1e3
+        t3 = self._clock()
+        if st["task"] is not None:
+            self._flight.end(st["task"])
+        dur_ms = (t3 - st["t0"]) * 1e3
         self.counters["kv_bytes_transferred"] += st["nbytes"]
+        # host times of the phases; "put" (the JAX engine's copy onto the
+        # decode group's devices) is 0: both groups sit on one device
+        phase_ms = {
+            "extract_ms": round((st["t1"] - st["t0"]) * 1e3, 3),
+            "put_ms": 0.0,
+            "insert_ms": round((t3 - t2) * 1e3, 3),
+        }
         if not job.final:
             self.counters["partial_handoffs"] += 1
+            if self._obs is not None:
+                self._obs.timeline.record(
+                    "handoff_partial", req.req_id, dur_ms=dur_ms,
+                    pages=st["pages"], bytes=st["nbytes"], **phase_ms)
             return
         # the resume entry: (prompt length, first sampled token), exactly
         # the colocated engine's decode-entry state; started=True: the
@@ -563,6 +668,11 @@ class DisaggregatedEngine:
         hs[0] += 1
         hs[1] += dur_ms
         hs[2] = max(hs[2], dur_ms)
+        if self._obs is not None:
+            self._obs.hist("handoff_ms").observe(dur_ms)
+            self._obs.timeline.record(
+                "handoff", req.req_id, dur_ms=dur_ms,
+                pages=st["pages"], bytes=st["nbytes"], **phase_ms)
 
     # -- reporting ----------------------------------------------------
     def scheduler_snapshot(self) -> Dict:
@@ -575,12 +685,15 @@ class DisaggregatedEngine:
                 "decode": self.decode.scheduler_snapshot()}
 
     def metrics(self) -> Dict:
-        """The JAX engine's report with observability off: the handoff
-        counters, tokens/s and TTFT over both groups, the handoff's host
-        time (issue to landed insert, spanning one orchestrator step), the
-        scheduler report, both groups' metrics and the decode group's
-        roofline."""
-        c = dict(self.counters)
+        """The JAX engine's report: the handoff counters, tokens/s and
+        TTFT over both groups, the handoff's host time (issue to landed
+        insert, spanning one orchestrator step), the scheduler report,
+        both groups' metrics and the decode group's roofline; with
+        observability, the latency histograms, both groups' retrace
+        warnings, the stall-dump and timeline counters and the handoff's
+        ``collectives``; with telemetry, its snapshot."""
+        c = {k: v for k, v in self.counters.items()
+             if k not in ("collective_calls", "collective_bytes")}
         pre_m, dec_m = self.prefill.metrics(), self.decode.metrics()
         wall = ((self._t_last - self._t_first)
                 if self._t_first is not None
@@ -615,11 +728,50 @@ class DisaggregatedEngine:
         # engine's (each group also carries its own under "groups")
         c["roofline"] = self.decode._roofline_metrics(
             dec_m["decode_step_ms_mean"])
+        if self._obs is not None:
+            obs = self._obs
+            c["latency"] = obs.latency_snapshot()
+            c["retrace_warnings"] = (
+                len(self.prefill._obs.watchdog.events)
+                + len(self.decode._obs.watchdog.events))
+            c["stall_dumps"] = (len(obs.stall_dumps)
+                                + obs.stall_dumps_suppressed)
+            c["timeline_events"] = len(obs.timeline)
+            c["timeline_dropped"] = obs.timeline.dropped
+            if self._flight is not None:
+                c["collectives"] = _collectives_snapshot(self.counters,
+                                                         obs)
+        if self._telemetry is not None:
+            c["telemetry"] = self._telemetry.snapshot()
         return c
 
+    @property
+    def telemetry(self) -> Optional[TelemetryPlane]:
+        """The continuous telemetry plane, or None when disabled."""
+        return self._telemetry
+
+    def _telemetry_alert(self, alert: Dict):
+        """Stamp an ``alert`` timeline event; page-severity alerts also
+        land a flight-recorder dump with the whole-engine scheduler
+        snapshot (both groups + handoff queue)."""
+        obs = self._obs
+        if obs is None:
+            return
+        obs.timeline.record(
+            "alert", rule=alert.get("rule"),
+            severity=alert.get("severity"), metric=alert.get("metric"),
+            value=alert.get("value"), threshold=alert.get("threshold"))
+        if (alert.get("severity") == "page"
+                and self._telemetry.config.page_dumps):
+            obs.stall_dump(
+                f"telemetry alert: {alert.get('rule')} on "
+                f"{alert.get('metric')}", self.scheduler_snapshot(),
+                metrics={"alert": alert})
+
     def reset_metrics(self):
-        """Restart the measurement window here and on both groups (the
-        handoff build counter is cumulative, like every build counter)."""
+        """Restart the measurement window here and on both groups (each
+        group's retrace watchdog arms; the handoff build counter is
+        cumulative, like every build counter)."""
         for k in ("handoffs", "partial_handoffs",
                   "kv_bytes_transferred", "requests_submitted",
                   "drain_truncations"):
@@ -628,16 +780,66 @@ class DisaggregatedEngine:
         self._t_first = self._t_last = None
         self._metrics_reset_t = self._clock()
         self._requests = [r for r in self._requests if not r.done]
+        if self._flight is not None:
+            self.counters.pop("collective_calls", None)
+            self.counters.pop("collective_bytes", None)
+        if self._obs is not None:
+            self._obs.reset_window()
         self.prefill.reset_metrics()
         self.decode.reset_metrics()
+        if self._obs is not None:
+            # the groups' reset_window() replaced their histogram
+            # objects — re-share the request-level set
+            self._share_histograms()
 
-    # -- surfaces of later slices -------------------------------------
+    def _share_histograms(self):
+        """Point both groups' request-level latency histograms at the
+        engine-level objects: a request admits on the prefill group and
+        finishes on the decode group (or on the prefill group for an
+        EOS-at-first-token), and its TTFT/TPOT/queue-wait must land in
+        ONE distribution wherever it completes."""
+        for name in _SHARED_HISTOGRAMS:
+            h = self._obs.registry.histogram(name)
+            self.prefill._obs.registry.histograms[name] = h
+            self.decode._obs.registry.histograms[name] = h
+
+    # -- observability export -----------------------------------------
+    @property
+    def observability(self) -> Optional[Observability]:
+        return self._obs
+
+    def _require_obs(self) -> Observability:
+        if self._obs is None:
+            raise RuntimeError(
+                "observability is disabled for this engine; construct "
+                "with DisaggregatedEngine(..., observability=True)")
+        return self._obs
+
+    def _decode_roofline(self) -> Dict:
+        dec = self.decode
+        return dec._roofline_metrics(dec._decode_step_ms_mean())
+
     def export_trace(self, path: str) -> str:
-        _later_slice("the Chrome trace export", "A8")
+        """The whole engine's chrome trace: both groups' request rows and
+        the handoff spans on the shared timeline, gauge tracks, the
+        flight recorder's handoff track and the decode group's roofline
+        track."""
+        from ..observability.roofline import roofline_chrome_events
+        return self._require_obs().export_chrome(
+            path, process_name="paddle_tpu disagg serving",
+            extra_events=roofline_chrome_events(self._decode_roofline()))
 
     def write_timeline(self, path: str) -> str:
-        _later_slice("the timeline export", "A8")
+        """The structured per-phase JSONL of the whole engine."""
+        return self._require_obs().write_jsonl(
+            path, header={"mode": "serving",
+                          "disaggregated": True,
+                          "capacity": self.capacity,
+                          "prefill_slots": self.prefill_slots,
+                          "block_size": self.block_size,
+                          "roofline": self._decode_roofline()})
 
+    # -- the program audit (ROADMAP A12) ------------------------------
     def program_specs(self, register: bool = True):
         _later_slice("the static program audit", "A12")
 

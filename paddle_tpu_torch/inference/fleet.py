@@ -32,8 +32,13 @@ kind, so the fleet's output equals a single colocated engine's, wherever a
 request lands. The router is host bookkeeping only: no device work.
 ``step()`` runs one scheduler iteration a replica, in turn; on one card
 the replicas' device work runs back to back. ``metrics()`` has the JAX
-fleet's keys with observability off; ``observability=``/``telemetry=``
-(ROADMAP A8) and the program audit (A12) raise.
+fleet's keys. ``observability=``/``telemetry=`` are the JAX fleet's: the
+request-level histograms are shared by reference with every replica that
+has the harness, the router records ``route`` events and per-replica
+queue-depth gauges, the telemetry plane registers the fleet rollup and
+each replica under a ``replica`` label, and ``export_trace``/
+``write_timeline`` write the router's trace. The program audit (ROADMAP
+A12) raises.
 """
 from __future__ import annotations
 
@@ -42,10 +47,20 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..observability import Observability, TelemetryConfig, TelemetryPlane
 from .generation import GenerationConfig
 from .serving import Request, _drain_loop
 
 __all__ = ["ServingFleet"]
+
+# request-level distributions shared BY REFERENCE with every
+# observability-enabled replica (the disagg engine's idiom): a request
+# admits and finishes on its replica, but its TTFT/TPOT must land in
+# ONE fleet-wide distribution wherever it ran
+FLEET_SHARED_HISTOGRAMS = ("ttft_ms", "tpot_ms", "queue_wait_ms",
+                           "e2e_ms")
+# ...plus what only the router can time
+FLEET_HISTOGRAMS = FLEET_SHARED_HISTOGRAMS + ("step_ms",)
 
 _POLICIES = ("prefix", "least_loaded", "round_robin")
 
@@ -108,8 +123,6 @@ class ServingFleet:
     def __init__(self, replicas, policy: str = "prefix",
                  max_queue_depth: Optional[int] = None,
                  observability=False, telemetry=False):
-        if observability or telemetry:
-            _later_slice("the observability and telemetry harness", "A8")
         if not replicas:
             raise ValueError("ServingFleet needs at least one replica")
         self._replicas: List[_Replica] = []
@@ -142,6 +155,50 @@ class ServingFleet:
         self._t_first = self._t_last = None
         self._metrics_reset_t = None
         self.last_drain_truncated = False
+        # telemetry implies observability (alerts land timeline events
+        # and stall dumps, both owned by the harness)
+        _tcfg = TelemetryConfig.coerce(telemetry)
+        if observability or _tcfg is not None:
+            self._obs = (observability
+                         if isinstance(observability, Observability)
+                         else Observability(histograms=FLEET_HISTOGRAMS))
+            self._obs.registry.adopt_counters(self.counters)
+            self._share_histograms()
+        else:
+            self._obs = None
+        # the telemetry plane: the fleet rollup plus every replica's
+        # engine under a `replica` label, so burn-rate and anomaly rules
+        # judge each replica separately
+        self._telemetry = None
+        if _tcfg is not None:
+            self._telemetry = TelemetryPlane(
+                _tcfg, on_alert=self._telemetry_alert)
+            self._telemetry.register("fleet", self.metrics,
+                                     counters=self.counters,
+                                     skip=("replicas",))
+            for rep in self._replicas:
+                self._telemetry.register(
+                    "fleet_replica", rep.engine.metrics,
+                    labels={"replica": rep.name},
+                    counters=getattr(rep.engine, "counters", None),
+                    skip=("replicas", "groups"))
+
+    def _share_histograms(self):
+        """Point every observability-enabled replica's request-level
+        latency histograms at the fleet-level objects (replicas without
+        observability keep their zero-overhead None harness and do not
+        feed the fleet distributions). A disaggregated replica re-shares
+        onward to its two groups."""
+        for rep in self._replicas:
+            obs = rep.engine.observability
+            if obs is None:
+                continue
+            for name in FLEET_SHARED_HISTOGRAMS:
+                obs.registry.histograms[name] = \
+                    self._obs.registry.histogram(name)
+            resh = getattr(rep.engine, "_share_histograms", None)
+            if resh is not None:
+                resh()
 
     # -- routing ------------------------------------------------------
     def _match_tokens(self, rep: _Replica, toks: Tuple[int, ...]) -> int:
@@ -222,11 +279,18 @@ class ServingFleet:
         if diverted:
             self.counters["routed_diverted"] += 1
         self._requests.append(req)
+        if self._obs is not None:
+            self._obs.timeline.record(
+                "route", req.req_id, replica=rep.name,
+                matched_tokens=matched,
+                **({"diverted": True} if diverted else {}))
         return req
 
     def step(self) -> bool:
         """One scheduler iteration on every replica, in turn. Returns True
         if any replica did work."""
+        obs = self._obs
+        t0 = time.perf_counter() if obs is not None else 0.0
         if self._t_first is None:
             self._t_first = time.perf_counter()
         did = False
@@ -235,6 +299,15 @@ class ServingFleet:
         self.counters["fleet_steps"] += 1
         if did:
             self._t_last = time.perf_counter()
+        if obs is not None:
+            now = time.perf_counter()
+            if did:
+                obs.hist("step_ms").observe((now - t0) * 1e3)
+            obs.sample_gauges(now, {
+                f"queue_depth[{r.name}]": r.engine.queue_depth
+                for r in self._replicas})
+        if self._telemetry is not None:
+            self._telemetry.on_step()
         return did
 
     @property
@@ -252,6 +325,13 @@ class ServingFleet:
             starve_error="fleet starved: no replica can admit its "
                          "queued requests (KV pools too small for the "
                          "in-flight mix?)")
+
+    def _drain_truncated_event(self, n: int):
+        if self._obs is not None:
+            self._obs.timeline.record(
+                "drain_truncated", steps=n,
+                queue_depths={r.name: r.engine.queue_depth
+                              for r in self._replicas})
 
     # -- reporting ----------------------------------------------------
     def scheduler_snapshot(self) -> Dict:
@@ -281,7 +361,7 @@ class ServingFleet:
         for r in self._replicas:
             for k, v in r.engine.offload_metrics().items():
                 off[k] = off.get(k, 0) + v
-        return {
+        m = {
             "replicas_n": len(self._replicas),
             "requests_submitted": c["requests_submitted"],
             "requests_completed": sum(mm["requests_completed"]
@@ -317,10 +397,49 @@ class ServingFleet:
             "roofline": {r.name: _replica_roofline(r.engine)
                          for r in self._replicas},
         }
+        if self._obs is not None:
+            obs = self._obs
+            m["latency"] = obs.latency_snapshot()
+            m["gauges"] = obs.gauges_snapshot()
+            # replicas own their watchdogs; the fleet report must
+            # surface ANY steady-state retrace in the fleet
+            m["retrace_warnings"] = sum(
+                mm.get("retrace_warnings", 0) for mm in rm.values())
+            m["stall_dumps"] = (len(obs.stall_dumps)
+                                + obs.stall_dumps_suppressed)
+            m["timeline_events"] = len(obs.timeline)
+            m["timeline_dropped"] = obs.timeline.dropped
+        if self._telemetry is not None:
+            m["telemetry"] = self._telemetry.snapshot()
+        return m
+
+    @property
+    def telemetry(self) -> Optional[TelemetryPlane]:
+        """The continuous telemetry plane, or None when disabled."""
+        return self._telemetry
+
+    def _telemetry_alert(self, alert: Dict):
+        """Stamp an ``alert`` timeline event (replica attribution rides
+        in the alert's labels); page-severity alerts also land a
+        flight-recorder dump with the fleet scheduler snapshot."""
+        obs = self._obs
+        if obs is None:
+            return
+        obs.timeline.record(
+            "alert", rule=alert.get("rule"),
+            severity=alert.get("severity"), metric=alert.get("metric"),
+            replica=(alert.get("labels") or {}).get("replica"),
+            value=alert.get("value"), threshold=alert.get("threshold"))
+        if (alert.get("severity") == "page"
+                and self._telemetry.config.page_dumps):
+            obs.stall_dump(
+                f"telemetry alert: {alert.get('rule')} on "
+                f"{alert.get('metric')}", self.scheduler_snapshot(),
+                metrics={"alert": alert})
 
     def reset_metrics(self):
         """Restart the measurement window on the router and every
-        replica."""
+        replica (each replica's retrace watchdog arms)."""
         for k in ("requests_submitted", "routed_warm", "routed_cold",
                   "routed_diverted", "fleet_steps", "drain_truncations"):
             self.counters[k] = 0
@@ -330,13 +449,54 @@ class ServingFleet:
         self._requests = [r for r in self._requests if not r.done]
         self._t_first = self._t_last = None
         self._metrics_reset_t = time.perf_counter()
+        if self._obs is not None:
+            # the replicas' reset_window() replaced their histogram
+            # objects — restart the fleet window and re-share
+            self._obs.reset_window()
+            self._share_histograms()
 
-    # -- surfaces of later slices -------------------------------------
+    # -- observability export -----------------------------------------
+    @property
+    def observability(self) -> Optional[Observability]:
+        return self._obs
+
+    def _require_obs(self) -> Observability:
+        if self._obs is None:
+            raise RuntimeError(
+                "observability is disabled for this fleet; construct "
+                "with ServingFleet(..., observability=True)")
+        return self._obs
+
     def export_trace(self, path: str) -> str:
-        _later_slice("the Chrome trace export", "A8")
+        """The router's chrome trace (route events, the queue-depth
+        gauges) with every replica's roofline track."""
+        from ..observability.roofline import roofline_chrome_events
+        events = []
+        for r in self._replicas:
+            report = _replica_roofline(r.engine)
+            report = {"variants": {
+                f"{r.name}:{k}": v
+                for k, v in report["variants"].items()}}
+            events.extend(roofline_chrome_events(report))
+        return self._require_obs().export_chrome(
+            path, process_name="paddle_tpu serving fleet",
+            extra_events=events)
 
     def write_timeline(self, path: str) -> str:
-        _later_slice("the timeline export", "A8")
+        # the summary tooling reads header["roofline"]["variants"]:
+        # report the FIRST replica's model there (fleets are homogeneous
+        # in practice) and the full per-replica map beside
+        roof = {r.name: _replica_roofline(r.engine)
+                for r in self._replicas}
+        first = self._replicas[0].name if self._replicas else None
+        return self._require_obs().write_jsonl(
+            path, header={"mode": "serving", "fleet": True,
+                          "policy": self.policy,
+                          "replicas": [r.name for r in self._replicas],
+                          "roofline": roof.get(first),
+                          "roofline_replicas": roof})
+
+    # -- the program audit (ROADMAP A12) ------------------------------
 
     def program_specs(self, register: bool = True):
         _later_slice("the static program audit", "A12")

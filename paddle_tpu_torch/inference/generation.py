@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -435,17 +436,18 @@ def _fused_decode_step(params, tok, cfg, k_pools, v_pools, block_tables,
 
 
 def _decode_variant_name(cfg, B, BS, MB, pool_dtype, fused,
-                         device="cuda", wq=None, quant=False):
+                         device="cuda", wq=None, quant=False, tp=1):
     """The variant one decode step would run, as one string: "cuda_block"
     (the single-launch kernel), "cuda_fused" (the two hand-written
     kernels) or "unfused" (the composition). ``quant``: int8 pools with
-    scales (the int8 KV cache)."""
+    scales (the int8 KV cache); ``tp``: the mesh's (the JAX package's
+    attribution of the decode_step timeline events)."""
     if not fused:
         return "unfused"
     from ..ops.kernels.fused_decode_block import (decode_meta,
                                                   resolve_decode_step)
     meta = decode_meta(cfg, B=B, BS=BS, MB=MB, pool_dtype=pool_dtype,
-                       quant=quant, weight_dtype=wq, device=device)
+                       quant=quant, tp=tp, weight_dtype=wq, device=device)
     block_fn, _, _, names = resolve_decode_step(meta, fused)
     return names["block"] if block_fn is not None else names["attn"]
 
@@ -629,7 +631,8 @@ def _paged_chunk_runner(cfg, gen, quant=False, fused=False, sm=None,
 
 
 def _decode_chunks(step, gen, params, tok, generator, k_pools, v_pools,
-                   seq_lens, block_tables, kv_scales, rope):
+                   seq_lens, block_tables, kv_scales, rope, obs=None,
+                   variant=None):
     """The first sampled token ``tok`` [B] and ``gen.max_new_tokens - 1``
     more from ``step`` (a :func:`_paged_chunk_runner`), as the JAX loop
     runs its scan, ``_DECODE_CHUNK`` steps a chunk: [B, max_new_tokens].
@@ -641,7 +644,10 @@ def _decode_chunks(step, gen, params, tok, generator, k_pools, v_pools,
     graph (the generator registered) and every step is a replay, with no
     host sync until the caller reads the output; on the CPU each step
     runs eagerly. The pools belong to the call (a store's persist, but
-    its tables change per call), so a capture serves one call."""
+    its tables change per call), so a capture serves one call. ``obs``:
+    an observability harness, which gets each chunk's host dispatch time
+    (``decode_step_ms`` a step, a ``decode_step`` event a chunk, stamped
+    ``variant``)."""
     from types import SimpleNamespace
     from .program import Program
     left = gen.max_new_tokens - 1
@@ -661,9 +667,17 @@ def _decode_chunks(step, gen, params, tok, generator, k_pools, v_pools,
                    generator if cuda else None)
     while left > 0:
         n = min(_DECODE_CHUNK, left)
+        t0 = time.perf_counter() if obs is not None else 0.0
         for _ in range(n):
             prog.prepare()
             prog()
+        if obs is not None:
+            dur = (time.perf_counter() - t0) * 1e3
+            obs.hist("decode_step_ms").observe(dur / n)
+            obs.timeline.record("decode_step", dur_ms=dur,
+                                live_slots=int(tok.shape[0]),
+                                tokens=int(n * tok.shape[0]),
+                                decode_variant=variant)
         left -= n
     return torch.cat([tok[:, None], b.out.T], dim=1)
 
@@ -780,15 +794,17 @@ def generate_paged(params: Dict, input_ids, cfg: _llama.LlamaConfig,
     shards must share one card (the step is one CUDA graph).
     ``weight_quant``: "int8"/"int4" quantizes a plain tree once on the
     way in (a quantized tree rides as-is); not with a mesh, as in the JAX
-    package. ``observability`` raises: the harness is not ported (ROADMAP
-    A8). ``device``: None is CUDA (a mesh's shard 0, a store's device),
-    ``"cpu"`` the plain versions; ``params`` move there."""
+    package. ``observability``: True or an ``Observability`` harness,
+    which gets host-side phase times (each prefill's dispatch, each decode
+    chunk's) and pool gauges in its timeline and histograms: no added
+    sync, the same output. ``device``: None is CUDA (a mesh's shard 0, a
+    store's device), ``"cpu"`` the plain versions; ``params`` move
+    there."""
     from .tp import normalize_mesh
     gen = gen or GenerationConfig()
-    if observability:
-        raise NotImplementedError(
-            "generate_paged(observability=...): the observability harness "
-            "is not ported yet (ROADMAP A8)")
+    if observability is True:      # mirror ServingEngine's normalization
+        from ..observability import Observability
+        observability = Observability()
     fused = _fused_mode(fused_decode)
     sm = normalize_mesh(mesh)
     if sm is not None:
@@ -830,8 +846,9 @@ def generate_paged(params: Dict, input_ids, cfg: _llama.LlamaConfig,
     if prefix_cache is not None:
         return _generate_paged_prefix(
             params, input_ids, cfg, gen, block_size, seed, cache_dtype,
-            prefix_cache, fused=fused,
+            prefix_cache, observability, fused=fused,
             fused_prefill=_fused_prefill_mode(fused_prefill), wq=wq_mode)
+    obs = observability or None
     ids = torch.as_tensor(np.asarray(input_ids), device=home).long()
     B, S = ids.shape
     T = S + gen.max_new_tokens
@@ -845,6 +862,7 @@ def generate_paged(params: Dict, input_ids, cfg: _llama.LlamaConfig,
     num_blocks = B * MB + 1
 
     # prefill with the dense cache, then repack into pools
+    t0 = time.perf_counter() if obs is not None else 0.0
     if sm is None:
         k_cache, v_cache = init_cache(cfg, B, T, device=home)
         logits, k_cache, v_cache = cached_forward(params, ids, cfg, k_cache,
@@ -853,6 +871,13 @@ def generate_paged(params: Dict, input_ids, cfg: _llama.LlamaConfig,
     else:
         params = sm.shard(params, sm.param_specs(cfg, params))
         logits, kcs, vcs = _tp_prefill_runner(cfg, sm, B, S, T)(params, ids)
+    if obs is not None:
+        # host dispatch time (the card completes it behind; waiting here
+        # would add a sync)
+        dur = (time.perf_counter() - t0) * 1e3
+        obs.hist("prefill_chunk_ms").observe(dur)
+        obs.timeline.record("prefill_chunk", dur_ms=dur, pos0=0,
+                            n=int(B * S), bucket=int(S))
 
     mgr = BlockManager(num_blocks, BS, MB)
     for sid in range(B):
@@ -890,16 +915,28 @@ def generate_paged(params: Dict, input_ids, cfg: _llama.LlamaConfig,
     rope = build_rope_cache(cfg.max_position_embeddings, hd,
                             base=cfg.rope_theta, device=home)
     generator = torch.Generator(device=home).manual_seed(int(seed))
+    dv = None
+    if obs is not None:
+        free = len(mgr.free)
+        obs.sample_gauges(time.perf_counter(), {
+            "pages_free": free, "pages_in_use": num_blocks - free})
+        dv = _decode_variant_name(
+            cfg, B, BS, MB, k_pools[0].dtype if sm is not None
+            else k_pools.dtype, fused, device=home.type, wq=wq_mode,
+            quant=kv_scales is not None,
+            tp=(sm.tp if sm is not None else 1))
     out = _decode_chunks(
-        chunk_fn, gen, params, sample_token(logits[:, -1], gen, generator), generator, k_pools,
-        v_pools, torch.full((B,), S, dtype=torch.int32, device=home),
-        torch.as_tensor(tables, device=home), kv_scales, rope)
+        chunk_fn, gen, params, sample_token(logits[:, -1], gen, generator),
+        generator, k_pools, v_pools,
+        torch.full((B,), S, dtype=torch.int32, device=home),
+        torch.as_tensor(tables, device=home), kv_scales, rope, obs=obs,
+        variant=dv)
     return torch.cat([ids, out], dim=1)
 
 
 def _generate_paged_prefix(params, input_ids, cfg, gen, block_size, seed,
-                           cache_dtype, store, fused=False,
-                           fused_prefill=False, wq=None):
+                           cache_dtype, store, observability=None,
+                           fused=False, fused_prefill=False, wq=None):
     """``generate_paged`` over a persistent ``PagedKVCacheStore``.
 
     Admission longest-prefix-matches each prompt against the store's radix
@@ -959,6 +996,12 @@ def _generate_paged_prefix(params, input_ids, cfg, gen, block_size, seed,
         matched_ns.append(matched)
         shared_ns.append(shared)
 
+    obs = observability or None
+    if obs is not None:
+        obs.sample_gauges(time.perf_counter(), {
+            "pages_free": len(mgr.free),
+            "pages_in_use": store.num_blocks - len(mgr.free),
+            "prefix_tree_pages": cache.cached_pages})
     rope = build_rope_cache(max(MBw * BS, cfg.max_position_embeddings), hd,
                             base=cfg.rope_theta, device=dev)
     ids = torch.as_tensor(prompts, device=dev).long()
@@ -967,6 +1010,7 @@ def _generate_paged_prefix(params, input_ids, cfg, gen, block_size, seed,
         M = matched_ns[b]
         wt = tables[b].copy()
         wt[:shared_ns[b]] = 0              # never write a shared page
+        t0 = time.perf_counter() if obs is not None else 0.0
         P = S - M
         use_fused = bool(fused_prefill) and prefill_fused_selected(
             prefill_meta(cfg, -(-P // BQ) * BQ, BS, MBw,
@@ -990,15 +1034,27 @@ def _generate_paged_prefix(params, input_ids, cfg, gen, block_size, seed,
                                    torch.as_tensor(wt, device=dev).long(),
                                    kc, vc)
             logits_last.append(lg[:, -1])
+        if obs is not None:
+            dur = (time.perf_counter() - t0) * 1e3
+            obs.hist("prefill_chunk_ms").observe(dur)
+            obs.timeline.record("prefill_chunk", req_id=seq_ids[b],
+                                dur_ms=dur, pos0=M, n=int(S - M),
+                                matched_tokens=M,
+                                variant=("cuda_fused" if use_fused
+                                         else "ref"))
 
     generator = torch.Generator(device=dev).manual_seed(int(seed))
+    dv = (_decode_variant_name(cfg, B, BS, MB, store.k_pools.dtype, fused,
+                               device=dev.type, wq=wq)
+          if obs is not None else None)
     out = _decode_chunks(
         _paged_chunk_runner(cfg, gen, quant=False, fused=fused, wq=wq),
         gen, params,
         sample_token(torch.cat(logits_last, dim=0), gen, generator),
         generator, store.k_pools, store.v_pools,
         torch.full((B,), S, dtype=torch.int32, device=dev),
-        torch.as_tensor(tables, device=dev), None, rope)       # [B, N]
+        torch.as_tensor(tables, device=dev), None, rope, obs=obs,
+        variant=dv)                                             # [B, N]
 
     out_np = out.cpu().numpy()
     for b in range(B):

@@ -90,8 +90,22 @@ JAX engine does: a plain tree is quantized once in the constructor, on
 the engine's device; the fused routes run the kernels' quantized-weight
 bodies, the unfused routes dequantize before each product;
 ``weight_quant_variant`` reports it. It composes with the int8 cache.
-Observability and telemetry come with a later slice: their constructor
-arguments raise here. ``PADDLE_TPU_CHECK_INVARIANTS=1`` runs the
+``observability=True`` (or an ``Observability`` instance) threads the
+metrics and tracing harness (``paddle_tpu_torch/observability/``) through
+the scheduler as the JAX engine does: request lifecycle events in a
+bounded ring, TTFT/TPOT/queue-wait/chunk/step histograms, per-step
+allocator and prefix-cache gauges, the retrace watchdog armed by
+``reset_metrics()`` (a new CUDA-graph capture after warm-up is a
+retrace), stall dumps on a starved ``drain()`` or a blown
+``step_deadline_s``, ``export_trace``/``write_timeline``; under a mesh a
+bound flight recorder replays the mesh's declared collective inventory
+around each step. ``telemetry=True`` (or a ``TelemetryConfig``) adds the
+telemetry plane, and implies observability. Every hook is host code
+around the programs, never inside a captured graph: ``decode_step_ms``
+runs from the dispatch to the step's existing token read (no added
+sync), ``prefill_chunk_ms`` is the chunk's host dispatch. Disabled, the
+engine holds ``None`` and allocates no event object.
+``PADDLE_TPU_CHECK_INVARIANTS=1`` runs the
 allocator's and the tree's ``check()`` after every step (the JAX
 engine's opt-in self-check).
 
@@ -132,8 +146,9 @@ host-tier restore and the int8 cache's calibration run before the
 chunk, outside its graph, on the same stream. A replay reports each
 ``prefill_attn_block`` launch at its own chunk's (pos0, n).
 
-``metrics()`` has the JAX engine's keys (observability off, one device)
-plus ``decode_step_ms_mean``. ``decode_traces`` counts the decode
+``metrics()`` has the JAX engine's keys (with observability off or on,
+one device or a mesh) plus ``decode_step_ms_mean`` (device time between
+CUDA events around the step on the card). ``decode_traces`` counts the decode
 program's captures on CUDA (as ``jax.jit`` traces once: 1 an engine) and
 its builds on the CPU (1); ``prefill_traces[P]`` counts bucket P's
 prefill programs' captures on CUDA and their builds on the CPU (at most
@@ -164,6 +179,7 @@ import torch
 from ..device import resolve_device
 from ..models.llama import params_to
 from ..ops.paged_attention import BlockManager, dequant_cache, quant_cache
+from ..observability import Observability, TelemetryConfig, TelemetryPlane
 from ..ops.rope import build_rope_cache
 from ..quantization.ptq import (ensure_quantized, normalize_weight_quant,
                                 weight_quant_mode)
@@ -194,38 +210,52 @@ def _sample_slots(logits, generator, temps):
     return torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
 
 
+def _collectives_snapshot(counters: Dict, obs: Observability) -> Dict:
+    """The structured ``metrics()["collectives"]`` sub-dict (the
+    Trainer.metrics contract): per-(op, axis) call/byte counters from
+    the adopted dict + latency histograms from the bound recorder.
+    ONE definition shared by ServingEngine and DisaggregatedEngine."""
+    return {"calls": dict(counters.get("collective_calls", {})),
+            "bytes": dict(counters.get("collective_bytes", {})),
+            "latency_ms": {
+                name[len("collective_"):-len("_ms")]: h.snapshot()
+                for name, h in sorted(obs.registry.histograms.items())
+                if name.startswith("collective_")
+                and name.endswith("_ms")}}
+
+
 def _drain_loop(eng, max_steps: Optional[int], starve_reason: str,
                 starve_error: str) -> int:
     """The drain loop of every engine kind (the JAX package's, shared by
     ServingEngine, DisaggregatedEngine and ServingFleet): step ``eng``
     until it is idle and return the step count. A capped drain that stops
-    with work pending sets ``last_drain_truncated`` and counts
-    ``drain_truncations``; a step that runs nothing while work is pending
-    raises ``starve_error``, unless that step left the engine idle (its
-    last request only expired). ``starve_reason`` names the stall for the
-    flight-recorder dump the JAX loop writes first; that dump comes with
-    the observability harness (ROADMAP A8), so here it names nothing."""
-    del starve_reason
+    with work pending sets ``last_drain_truncated``, counts
+    ``drain_truncations`` and records a ``drain_truncated`` event; a step
+    that runs nothing while work is pending raises ``starve_error``,
+    after a stall dump named ``starve_reason`` when the engine has the
+    observability harness, unless that step left the engine idle (its
+    last request only expired)."""
     n = 0
     eng.last_drain_truncated = False
     while not eng.idle:
         if not eng.step():
             if eng.idle:
                 break       # the last step only expired a request
-            raise RuntimeError(starve_error)
+            dump = ""
+            if eng._obs is not None:
+                dump = eng._obs.stall_dump(starve_reason,
+                                           eng.scheduler_snapshot(),
+                                           metrics=eng.metrics())
+            raise RuntimeError(
+                starve_error + (f"; stall dump: {dump}" if dump else ""))
         n += 1
         if max_steps is not None and n >= max_steps:
             if not eng.idle:
                 eng.last_drain_truncated = True
                 eng.counters["drain_truncations"] += 1
+                eng._drain_truncated_event(n)
             break
     return n
-
-
-def _not_ported(arg: str, value, what: str):
-    raise NotImplementedError(
-        f"ServingEngine({arg}={value!r}): {what} is not ported yet; this "
-        "engine runs the single-device fused and unfused routes")
 
 
 @dataclass
@@ -339,7 +369,8 @@ class ServingEngine:
     ``mesh``: a :class:`~.tp.ServingMesh` (or an int tp over the visible
     cards); the engine's ``device`` is then shard 0's (a ``device`` that
     differs raises), ``params`` is the list of per-shard trees and the
-    pools are per-shard lists.
+    pools are per-shard lists. ``observability``/``telemetry``: the
+    harness and the telemetry plane (module docstring).
     """
 
     def __init__(self, params: Dict, cfg, capacity: int = 4,
@@ -374,10 +405,6 @@ class ServingEngine:
         else:
             raise ValueError(f"cache_dtype must be bfloat16|float32|int8,"
                              f" got {cache_dtype!r}")
-        if observability or telemetry:
-            _not_ported("observability/telemetry",
-                        observability or telemetry,
-                        "the observability and telemetry harness")
         if self._mesh is None:
             self.device = resolve_device(device)
         else:
@@ -558,6 +585,48 @@ class ServingEngine:
         self._t_last = None
         self._metrics_reset_t = None   # TTFTs from before this are warmup
         self.last_drain_truncated = False
+        # observability: None when disabled — every hook below is a
+        # single `is not None` check, so the disabled hot loop allocates
+        # NO event objects and issues NO extra device syncs (the per-
+        # step d2h token read in _run_decode stays the only sync point).
+        # telemetry implies observability: the plane's alerts land
+        # timeline events and stall dumps, both owned by the harness.
+        _tcfg = TelemetryConfig.coerce(telemetry)
+        if observability or _tcfg is not None:
+            self._obs = (observability
+                         if isinstance(observability, Observability)
+                         else Observability())
+            self._obs.registry.adopt_counters(self.counters)
+            if self._kv_offload:
+                # handoff_ms-style distributions for the host tier
+                self._obs.ensure_histograms(("spill_ms", "restore_ms"))
+        else:
+            self._obs = None
+        # serving-collective instrumentation: a mesh'd engine with
+        # observability on binds an engine-scoped flight recorder and
+        # replays the DECLARED per-step collective inventory around each
+        # dispatched program (host-observed spans; byte counters exact,
+        # the shapes being static); metrics() surfaces them under
+        # "collectives" like Trainer.metrics()
+        self._flight = None
+        self._coll_decode = ()
+        self._coll_prefill: Dict[int, tuple] = {}
+        if self._mesh is not None and self._obs is not None:
+            from ..distributed.flight_recorder import FlightRecorder
+            rec = FlightRecorder(capacity=4096)
+            rec.enabled = True
+            self._flight = self._obs.bind_flight_recorder(rec)
+            self._coll_decode = tuple(self._mesh.collective_inventory(
+                cfg, B=self.capacity))
+        # the telemetry plane: samples this engine's metrics() on a step
+        # cadence into bounded series with burn-rate/anomaly alerting;
+        # None when disabled
+        self._telemetry = None
+        if _tcfg is not None:
+            self._telemetry = TelemetryPlane(
+                _tcfg, on_alert=self._telemetry_alert)
+            self._telemetry.register("serving_engine", self.metrics,
+                                     counters=self.counters)
         if self._fused:
             # on CUDA a kernel that refuses the shapes raises here, with
             # the predicate's reason, rather than at the first decode step
@@ -611,6 +680,19 @@ class ServingEngine:
                 "prefill run the unfused chunk by contract; use "
                 'collective="psum" with tp=1 or drop the pin')
 
+    def _record_collectives(self, inventory):
+        """Open one CommTask per declared collective class; returns the
+        tasks for :meth:`_end_collectives` after the program's sync."""
+        if self._flight is None or not inventory:
+            return None
+        return [self._flight.begin(op, ax, shape, dt)
+                for op, ax, shape, dt in inventory]
+
+    def _end_collectives(self, tasks):
+        if tasks:
+            for t in tasks:
+                self._flight.end(t)
+
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         """Host mirror -> device, as a copy (never aliasing the mirror,
         which the scheduler goes on mutating)."""
@@ -644,6 +726,7 @@ class ServingEngine:
         behind the spill's on the same stream."""
         from .prefix_cache import host_put
         self._count_offload("spill")
+        t0 = self._clock()
         payloads = []
         for w0 in range(0, len(pages), _OFFLOAD_WINDOW):
             win = [int(p) for p in pages[w0:w0 + _OFFLOAD_WINDOW]]
@@ -656,6 +739,16 @@ class ServingEngine:
             for j in range(len(win)):
                 payloads.append(tuple((k[j], v[j]) for k, v in per_shard))
         self.counters["kv_spill_bytes"] += self._page_nbytes * len(pages)
+        if self._obs is not None and pages:
+            # host time (the copies run on the stream behind it)
+            dur = (self._clock() - t0) * 1e3
+            per = dur / len(pages)
+            for _ in pages:      # one observation per PAGE (the
+                self._obs.hist("spill_ms").observe(per)   # count
+            self._obs.timeline.record(   # contract: count == pages)
+                "kv_spill", pages=[int(p) for p in pages],
+                bytes=self._page_nbytes * len(pages),
+                dur_ms=round(dur, 3))
         return payloads
 
     def _restore_pages(self, payloads, dsts):
@@ -666,6 +759,7 @@ class ServingEngine:
         the pool's pages. The copies are ordered before the suffix prefill
         chunk that reads the pages next, on the same stream."""
         self._count_offload("restore")
+        t0 = self._clock()
         for w0 in range(0, len(dsts), _OFFLOAD_WINDOW):
             win_d = [int(d) for d in dsts[w0:w0 + _OFFLOAD_WINDOW]]
             win_p = payloads[w0:w0 + _OFFLOAD_WINDOW]
@@ -679,6 +773,15 @@ class ServingEngine:
                         buf[j].copy_(payload[s][j_pool], non_blocking=True)
                     pool[:, idx] = buf.transpose(0, 1)
         self.counters["kv_restore_bytes"] += self._page_nbytes * len(dsts)
+        if self._obs is not None and dsts:
+            dur = (self._clock() - t0) * 1e3
+            per = dur / len(dsts)
+            for _ in dsts:
+                self._obs.hist("restore_ms").observe(per)
+            self._obs.timeline.record(
+                "kv_restore", pages=[int(d) for d in dsts],
+                bytes=self._page_nbytes * len(dsts),
+                dur_ms=round(dur, 3))
 
     # -- public API ---------------------------------------------------
     def _alloc_tokens(self, req: Request) -> int:
@@ -725,6 +828,13 @@ class ServingEngine:
                                       deadline_s=deadline_s)
         self._requests.append(req)
         self.counters["requests_submitted"] += 1
+        if self._obs is not None:
+            self._obs.timeline.record(
+                "submit", req.req_id, prompt_tokens=int(prompt.size),
+                max_new_tokens=int(gen.max_new_tokens),
+                priority=req.priority,
+                **({"deadline_s": deadline_s}
+                   if deadline_s is not None else {}))
         return req
 
     def step(self) -> bool:
@@ -732,6 +842,8 @@ class ServingEngine:
         prefill chunk (if an admission is in flight), then one decode
         step over all live slots. Returns True if any work ran,
         deadline expiries included."""
+        obs = self._obs
+        t0 = self._clock() if obs is not None else 0.0
         if self._t_first is None:
             self._t_first = self._clock()
         expired = self._admit()
@@ -739,6 +851,10 @@ class ServingEngine:
         did = self._run_decode() or did
         if did:
             self._t_last = self._clock()
+        if obs is not None:
+            self._observe_step(t0, did)
+        if self._telemetry is not None:
+            self._telemetry.on_step()
         if self._check_inv:
             # PADDLE_TPU_CHECK_INVARIANTS=1: the allocator's and the
             # tree's invariants after every step
@@ -746,6 +862,45 @@ class ServingEngine:
             if self._pcache is not None:
                 self._pcache.check()
         return did or expired > 0
+
+    def _observe_step(self, t0: float, did: bool):
+        """Post-step observability: gauges, watchdog, step deadline.
+        Pure host bookkeeping — reads only host mirrors, never the
+        device."""
+        obs = self._obs
+        now = self._clock()
+        free = len(self.mgr.free)
+        vals = {
+            "pages_free": free,
+            "pages_in_use": self.num_blocks - free,
+            "kv_refcount_total": int(self.mgr.refcount.sum()),
+            "queue_depth": len(self._queue),
+            "live_slots": sum(1 for s in self._slots
+                              if s.phase != "idle"),
+        }
+        if self._slo[0]:
+            vals["slo_attainment"] = self._slo[1] / self._slo[0]
+        if self._pcache is not None:
+            st = self._pcache.stats
+            looked = st["hits"] + st["misses"]
+            vals["prefix_tree_pages"] = self._pcache.cached_pages
+            vals["prefix_hit_ratio"] = (round(st["hits"] / looked, 4)
+                                        if looked else 0.0)
+            if self._kv_offload:
+                vals["prefix_host_pages"] = self._pcache.host_pages
+        obs.sample_gauges(now, vals)
+        if obs.watchdog.check(self.counters):
+            obs.timeline.record("retrace",
+                                events=len(obs.watchdog.events))
+        if did:
+            dur = now - t0
+            obs.hist("step_ms").observe(dur * 1e3)
+            if obs.step_deadline_s is not None \
+                    and dur > obs.step_deadline_s:
+                obs.stall_dump(
+                    f"step took {dur * 1e3:.1f} ms "
+                    f"(deadline {obs.step_deadline_s * 1e3:.1f} ms)",
+                    self.scheduler_snapshot())
 
     @property
     def idle(self) -> bool:
@@ -828,9 +983,46 @@ class ServingEngine:
                          "admitted (KV pool too small for the in-flight "
                          "mix?)")
 
+    def _drain_truncated_event(self, n: int):
+        if self._obs is not None:
+            self._obs.timeline.record(
+                "drain_truncated", steps=n,
+                queue_depth=len(self._queue),
+                live_slots=sum(1 for s in self._slots
+                               if s.phase != "idle"))
+
+    @property
+    def telemetry(self) -> Optional[TelemetryPlane]:
+        """The continuous telemetry plane, or None when disabled."""
+        return self._telemetry
+
+    def _telemetry_alert(self, alert: Dict):
+        """Plane alert callback: stamp an ``alert`` timeline event; a
+        page-severity alert additionally self-documents through the
+        flight-recorder stall-dump machinery (scheduler snapshot + the
+        alert that fired)."""
+        obs = self._obs
+        if obs is None:
+            return
+        obs.timeline.record(
+            "alert", rule=alert.get("rule"),
+            severity=alert.get("severity"), metric=alert.get("metric"),
+            value=alert.get("value"), threshold=alert.get("threshold"))
+        if (alert.get("severity") == "page"
+                and self._telemetry is not None
+                and self._telemetry.config.page_dumps):
+            obs.stall_dump(
+                f"telemetry alert: {alert.get('rule')} on "
+                f"{alert.get('metric')}", self.scheduler_snapshot(),
+                metrics={"alert": alert})
+
     def metrics(self) -> Dict:
+        # the flight recorder parks raw collective_calls/bytes counters
+        # in the adopted dict; they surface ONLY under the structured
+        # "collectives" key below (the Trainer.metrics contract)
         c = {k: (dict(v) if isinstance(v, dict) else v)
-             for k, v in self.counters.items()}
+             for k, v in self.counters.items()
+             if k not in ("collective_calls", "collective_bytes")}
         wall = ((self._t_last - self._t_first)
                 if self._t_first is not None and self._t_last is not None
                 else 0.0)
@@ -862,6 +1054,20 @@ class ServingEngine:
             c["prefix_cache"] = self._pcache.metrics()
         if self._mesh is not None:
             c["mesh"] = self._mesh.describe()
+        if self._telemetry is not None:
+            c["telemetry"] = self._telemetry.snapshot()
+        if self._obs is not None:
+            obs = self._obs
+            c["latency"] = obs.latency_snapshot()
+            c["gauges"] = obs.gauges_snapshot()
+            c["retrace_warnings"] = len(obs.watchdog.events)
+            c["stall_dumps"] = (len(obs.stall_dumps)
+                                + obs.stall_dumps_suppressed)
+            c["timeline_events"] = len(obs.timeline)
+            c["timeline_dropped"] = obs.timeline.dropped
+            if self._flight is not None:
+                c["collectives"] = _collectives_snapshot(self.counters,
+                                                         obs)
         return c
 
     def reset_metrics(self):
@@ -869,7 +1075,9 @@ class ServingEngine:
         pass), as the JAX engine does. The trace counters are cumulative
         and stay; TTFTs of requests that got their first token before
         this call leave the mean. With a prefix cache its workload
-        counters restart as well; the cached pages stay."""
+        counters restart as well; the cached pages stay. The retrace
+        watchdog arms HERE: a program captured (built, on the CPU) after
+        this call is a steady-state retrace and warns."""
         for k in ("decode_steps", "prefill_chunks", "prefill_tokens",
                   "prefill_pad_tokens",
                   "live_slot_steps", "tokens_generated",
@@ -888,6 +1096,46 @@ class ServingEngine:
         self._t_first = self._t_last = None
         self._metrics_reset_t = self._clock()
         self._requests = [r for r in self._requests if not r.done]
+        if self._flight is not None:
+            # the recorder's call/byte counters restart with the
+            # collective latency histograms: one window
+            self.counters.pop("collective_calls", None)
+            self.counters.pop("collective_bytes", None)
+        if self._obs is not None:
+            self._obs.reset_window()
+            self._obs.watchdog.mark_warmup(self.counters)
+
+    # -- observability export -----------------------------------------
+    @property
+    def observability(self) -> Optional[Observability]:
+        return self._obs
+
+    def _require_obs(self) -> Observability:
+        if self._obs is None:
+            raise RuntimeError(
+                "observability is disabled for this engine; construct "
+                "with ServingEngine(..., observability=True)")
+        return self._obs
+
+    def export_trace(self, path: str) -> str:
+        """Write the request-lifecycle chrome trace (+ gauge counter
+        tracks + the per-route roofline annotation track) to ``path`` —
+        open in Perfetto / chrome://tracing."""
+        from ..observability.roofline import roofline_chrome_events
+        return self._require_obs().export_chrome(
+            path, extra_events=roofline_chrome_events(
+                self._roofline_metrics(self._decode_step_ms_mean())))
+
+    def write_timeline(self, path: str) -> str:
+        """Write the structured per-phase JSONL (events + per-request
+        records) to ``path`` — input for tools/trace_summary.py. The
+        meta header carries the per-route roofline model."""
+        return self._require_obs().write_jsonl(
+            path, header={"capacity": self.capacity,
+                          "num_blocks": self.num_blocks,
+                          "block_size": self.block_size,
+                          "roofline": self._roofline_metrics(
+                              self._decode_step_ms_mean())})
 
     def _decode_step_ms_mean(self) -> Optional[float]:
         """The mean decode-step time: on CUDA device time between events
@@ -1111,7 +1359,7 @@ class ServingEngine:
             self._slot_tables[slot_id, :len(table)] = table
             self._slot_wtables[slot_id] = self._slot_tables[slot_id]
             self._slot_wtables[slot_id, :shared] = 0
-            self._record_admit(req)
+            self._record_admit(req, slot_id, now, matched)
         return len(expired)
 
     def _acquire_pages(self, req: Request):
@@ -1128,21 +1376,32 @@ class ServingEngine:
             req.prompt, int(req.prompt.size) - 1, need)
         return acquired is not None, acquired
 
-    def _record_admit(self, req: Request):
-        """Queue-wait stats per priority class and SLO attainment, at a
-        request's first admission (a resume keeps the first)."""
-        if req.admit_t is not None:
-            return
-        req.admit_t = self._clock()
-        wait_ms = (req.admit_t - req.submit_t) * 1e3
-        st = self._sched_cls.setdefault(req.priority, [0, 0.0, 0.0])
-        st[0] += 1
-        st[1] += wait_ms
-        st[2] = max(st[2], wait_ms)
-        if req.deadline_s is not None:
-            self._slo[0] += 1
-            if wait_ms <= req.deadline_s * 1e3:
-                self._slo[1] += 1
+    def _record_admit(self, req: Request, slot_id: int, now: float,
+                      matched: int = 0):
+        """Admission bookkeeping shared by the fresh and resume paths:
+        queue-wait stats per priority class and SLO attainment at a
+        request's first admission (a resume keeps the first), the
+        queue_wait histogram and the timeline event."""
+        first = req.admit_t is None
+        if first:
+            req.admit_t = self._clock()
+            wait_ms = (req.admit_t - req.submit_t) * 1e3
+            st = self._sched_cls.setdefault(req.priority, [0, 0.0, 0.0])
+            st[0] += 1
+            st[1] += wait_ms
+            st[2] = max(st[2], wait_ms)
+            if req.deadline_s is not None:
+                self._slo[0] += 1
+                if wait_ms <= req.deadline_s * 1e3:
+                    self._slo[1] += 1
+            if self._obs is not None:
+                self._obs.hist("queue_wait_ms").observe(wait_ms)
+        if self._obs is not None:
+            wait_ms = (self._clock() - req.submit_t) * 1e3
+            self._obs.timeline.record(
+                "admit" if first else "resume", req.req_id,
+                slot=slot_id, queue_wait_ms=round(wait_ms, 3),
+                matched_tokens=matched, priority=req.priority)
 
     def _expire(self, req: Request, now: float):
         """Admission deadline passed while queued: reject, never admit
@@ -1155,6 +1414,10 @@ class ServingEngine:
             self._slo[0] += 1       # a deadline seen and MISSED
         if req.req_id in self.mgr.tables:
             self.mgr.release(req.req_id)
+        if self._obs is not None:
+            self._obs.timeline.record(
+                "expired", req.req_id, priority=req.priority,
+                waited_ms=round((now - req.submit_t) * 1e3, 3))
 
     def _preempt_candidate(self, req: Request) -> Optional[int]:
         """The decode slot a waiting ``req`` may evict: the strictly
@@ -1180,6 +1443,11 @@ class ServingEngine:
         self.counters["preemptions"] += 1
         self.counters["requeues"] += 1
         self._queue.requeue(req.qentry)
+        if self._obs is not None:
+            self._obs.timeline.record(
+                "preempt", req.req_id, slot=slot_id,
+                priority=req.priority,
+                gen_tokens=len(req.tokens), seq_len=slot.seq_len)
         self._clear_slot(slot_id)
         return slot_id
 
@@ -1206,7 +1474,7 @@ class ServingEngine:
         self._h_tables[slot_id] = self._slot_tables[slot_id]
         self._h_temps[slot_id] = self._temp_of(req.gen)
         self._dirty = True
-        self._record_admit(req)
+        self._record_admit(req, slot_id, now)
 
     def _dense_view(self, pool, table, scale):
         """A request's pages of one pool [L, N, BS, KV, hd] (a shard's,
@@ -1345,13 +1613,34 @@ class ServingEngine:
             buf = self._prefill_bufs[P]
             toks = np.zeros(P, np.int64)
             toks[:n] = req.prompt[pos0:pos0 + n]
+            t0 = self._clock() if self._obs is not None else 0.0
+            if self._flight is not None:
+                inv = self._coll_prefill.get(P)
+                if inv is None:
+                    inv = self._coll_prefill[P] = tuple(
+                        self._mesh.collective_inventory(self.cfg, B=1,
+                                                        chunk=P))
+                tasks = self._record_collectives(inv)
+            else:
+                tasks = None
             buf.stage(toks, pos0, n, self._slot_tables[slot_id],
                       self._slot_wtables[slot_id], self._temp_of(req.gen))
             prog.prepare()
             prog(respec=lambda sp: prefill_spec_at(sp, pos0, n))
+            self._end_collectives(tasks)
             self.counters["prefill_chunks"] += 1
             self.counters["prefill_tokens"] += n
             self.counters["prefill_pad_tokens"] += P - n
+            if self._obs is not None:
+                # host dispatch time only (the chunk completes on the
+                # card behind it; waiting here would ADD a sync)
+                dur_ms = (self._clock() - t0) * 1e3
+                self._obs.hist("prefill_chunk_ms").observe(dur_ms)
+                self._obs.timeline.record(
+                    "prefill_chunk", req.req_id, dur_ms=dur_ms,
+                    pos0=pos0, n=n, bucket=P,
+                    variant=("cuda_fused" if self._fused_buckets[P]
+                             else "ref"))
             slot.prefill_pos += n
             if slot.prefill_pos < S:
                 # a chunk before the prompt's last: the chunked-prefill
@@ -1362,6 +1651,10 @@ class ServingEngine:
                 req.first_token_t = self._clock()
                 req.ttft = req.first_token_t - req.submit_t
                 req.tokens.append(first)
+                if self._obs is not None:
+                    self._obs.timeline.record(
+                        "first_token", req.req_id,
+                        ttft_ms=round(req.ttft * 1e3, 3))
                 self.counters["tokens_generated"] += 1
                 slot.seq_len = S
                 if self._pcache is not None:
@@ -1497,6 +1790,8 @@ class ServingEngine:
         if self._dirty:
             self._upload_carry()
             self._dirty = False
+        t_obs = self._clock() if self._obs is not None else 0.0
+        tasks = self._record_collectives(self._coll_decode)
         prog.prepare()
         if self.device.type == "cuda":
             ev0, ev1 = (torch.cuda.Event(enable_timing=True),
@@ -1511,8 +1806,22 @@ class ServingEngine:
             prog()
             nxt = self._d_tok.numpy().copy()
             self._decode_ms += (time.perf_counter() - t0) * 1e3
+        self._end_collectives(tasks)
         self.counters["decode_steps"] += 1
         self.counters["live_slot_steps"] += len(live)
+        if self._obs is not None:
+            # dispatch-to-sync wall time: the token read above already
+            # synchronizes every step, so this measures real step
+            # latency without adding a device round trip
+            dur_ms = (self._clock() - t_obs) * 1e3
+            self._obs.hist("decode_step_ms").observe(dur_ms)
+            # which decode-block implementation served this step
+            # (tools/trace_summary.py --mode serving attributes by it)
+            v = self.decode_variant
+            dv = v["block"] if v["block"] == "cuda_block" else v["attn"]
+            self._obs.timeline.record("decode_step", dur_ms=dur_ms,
+                                      live_slots=len(live),
+                                      decode_variant=dv)
         for i in live:
             slot = self._slots[i]
             req = slot.req
@@ -1566,6 +1875,38 @@ class ServingEngine:
         req = slot.req
         req.done = True
         req.finish_t = self._clock()
+        if self._obs is not None:
+            n_gen = len(req.tokens)
+            tpot_ms = (((req.finish_t - req.first_token_t)
+                        / (n_gen - 1)) * 1e3
+                       if n_gen > 1 and req.first_token_t is not None
+                       else None)
+            rec = {
+                "req_id": req.req_id,
+                "prompt_tokens": int(req.prompt.size),
+                "gen_tokens": n_gen,
+                "queue_wait_ms": (round((req.admit_t - req.submit_t)
+                                        * 1e3, 3)
+                                  if req.admit_t is not None else None),
+                "ttft_ms": (round(req.ttft * 1e3, 3)
+                            if req.ttft is not None else None),
+                "tpot_ms": (round(tpot_ms, 3)
+                            if tpot_ms is not None else None),
+                "e2e_ms": round((req.finish_t - req.submit_t) * 1e3, 3),
+                "priority": req.priority,
+                **({"preemptions": req.preemptions}
+                   if req.preemptions else {}),
+            }
+            # a request whose first token predates the last reset carries
+            # a warm-up TTFT: its record stays, the histograms skip it
+            # (the predicate metrics() uses for ttft_ms_mean/max)
+            cut = self._metrics_reset_t
+            self._obs.observe_request(
+                rec, stale=(cut is not None
+                            and req.first_token_t is not None
+                            and req.first_token_t < cut))
+            self._obs.timeline.record("finish", req.req_id,
+                                      gen_tokens=n_gen)
         if self._pcache is not None and slot.seq_len > 0:
             # the pages go to the radix tree instead of the free list: the
             # valid KV covers the prompt and every generated token but the

@@ -1,36 +1,150 @@
-"""The decode step's roofline model on one NVIDIA H100 (port of the
-per-decode-variant half of ``paddle_tpu/observability/roofline.py``).
+"""Kernel roofline observatory on one NVIDIA H100 (port of
+``paddle_tpu/observability/roofline.py``): modeled bytes and FLOPs of each
+kernel launch, and the decode step's model of each serving route.
 
-:func:`decode_step_bytes` models the device-memory bytes one decode step
-of each of the port's routes moves, closed form from the engine's static
-dims; :func:`decode_roofline` turns them into the least step time the
-card's memory rate allows and, given a measured step time, the achieved
-share of that rate: the ``roofline`` sub-dict of
-``ServingEngine.metrics()``, in the JAX engine's schema. The peaks are the
-H100 SXM data sheet's, never a TPU's. Host arithmetic only.
+- :func:`roofline_point` classifies one (bytes, FLOPs[, measured time])
+  point against the card's roofline;
+- :func:`kernel_cost` prices one launch's captured plan
+  (:class:`~paddle_tpu_torch.ops.kernels._launch.KernelLaunchSpec`): its
+  bytes from ``analysis/kernel_rules.modeled_launch_bytes`` (each input
+  read once, each output written once, by the live lengths), its FLOPs
+  from ``analysis/kernel_catalog.modeled_flops`` (the JAX package's
+  full-table formulas);
+- :func:`capture_kernel_costs` runs a function over meta tensors under
+  ``capture_kernel_launches`` (the port's ``jax.eval_shape``: every
+  wrapper records its plan and launches nothing) and prices every launch;
+- :func:`decode_step_bytes` models the device-memory bytes one decode step
+  of each of the port's routes moves, closed form from the engine's
+  static dims; :func:`decode_roofline` turns them into the least step time
+  the card's memory rate allows and, given a measured step time, the
+  achieved share of that rate: the ``roofline`` sub-dict of
+  ``ServingEngine.metrics()``, in the JAX engine's schema;
+  :func:`roofline_chrome_events` renders it as the ``roofline:`` counter
+  track of the engines' Chrome traces.
+
+The peaks are read from ``observability/compile.py``'s one table (the
+H100 SXM data sheet's, never a TPU's), so no two denominators can
+disagree. Host arithmetic only: no device work, no syncs.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
-__all__ = ["peak_snapshot", "decode_step_bytes", "decode_roofline"]
+from .compile import (H100_HBM_BW, H100_PEAK_OPS, device_peak_flops,
+                      device_peak_hbm_bw)
 
-#: NVIDIA H100 SXM5 (80 GB HBM3) data-sheet peaks, dense
-PEAK_HBM_BW = 3.35e12
-PEAK_FLOPS = 989e12
-_SOURCE = "NVIDIA H100 SXM5 data sheet"
+__all__ = ["peak_snapshot", "kernel_cost", "roofline_point",
+           "capture_kernel_costs", "decode_step_bytes", "decode_roofline",
+           "roofline_chrome_events", "PEAK_HBM_BW", "PEAK_FLOPS"]
+
+#: NVIDIA H100 SXM5 (80 GB HBM3) data-sheet peaks, dense (the peak table's
+#: entry, ``observability/compile.py``)
+PEAK_HBM_BW = H100_HBM_BW
+PEAK_FLOPS = H100_PEAK_OPS["bfloat16"]
 
 
 def peak_snapshot() -> Dict:
-    """The labelled peak pair every row is priced against."""
-    return {"peak_flops": PEAK_FLOPS, "peak_hbm_bw": PEAK_HBM_BW,
-            "peak_source": {
-                "flops": f"{_SOURCE}: 989 TFLOP/s bf16 dense",
-                "hbm_bw": f"{_SOURCE}: 3.35 TB/s HBM3"}}
+    """The labelled peak pair every roofline row prices against."""
+    flops, flops_src = device_peak_flops()
+    bw, bw_src = device_peak_hbm_bw()
+    return {"peak_flops": flops, "peak_hbm_bw": bw,
+            "peak_source": {"flops": flops_src, "hbm_bw": bw_src}}
 
 
 def _sig4(x: float) -> float:
     return float(f"{x:.4g}")
+
+
+def roofline_point(bytes_modeled: Optional[float],
+                   flops_modeled: Optional[float],
+                   time_us: Optional[float] = None,
+                   peaks: Optional[Dict] = None) -> Dict:
+    """Classify one (bytes, FLOPs[, measured time]) point against the
+    device roofline.
+
+    Returns ``intensity`` (FLOPs/byte), ``bound`` (``"memory"`` /
+    ``"compute"`` by the ridge point ``peak_flops / peak_hbm_bw``),
+    the bound-side lower-bound execution time ``time_at_roofline_us``
+    and — when a measured ``time_us`` is given — ``achieved_bw_frac``,
+    ``achieved_flops_frac`` and ``roofline_frac`` (lower bound over
+    measured: 1.0 means the launch runs AT the roofline). Fields whose
+    inputs are missing are ``None``, never silently zero.
+    """
+    peaks = peaks or peak_snapshot()
+    peak_flops = peaks["peak_flops"]
+    peak_bw = peaks["peak_hbm_bw"]
+    out: Dict = {"intensity": None, "bound": None,
+                 "time_at_roofline_us": None,
+                 "achieved_bw_frac": None, "achieved_flops_frac": None,
+                 "roofline_frac": None,
+                 "peak_source": peaks["peak_source"]}
+    has_bytes = bytes_modeled is not None and bytes_modeled > 0
+    has_flops = flops_modeled is not None and flops_modeled > 0
+    if has_bytes and has_flops:
+        intensity = flops_modeled / bytes_modeled
+        out["intensity"] = round(intensity, 3)
+        ridge = peak_flops / peak_bw
+        out["bound"] = "memory" if intensity < ridge else "compute"
+    t_bw = bytes_modeled / peak_bw if has_bytes else None
+    t_fl = flops_modeled / peak_flops if has_flops else None
+    t_roof = max(t for t in (t_bw, t_fl) if t is not None) \
+        if (t_bw is not None or t_fl is not None) else None
+    if t_roof is not None:
+        out["time_at_roofline_us"] = round(t_roof * 1e6, 3)
+    if time_us is not None and time_us > 0:
+        t_s = time_us * 1e-6
+        if has_bytes:
+            out["achieved_bw_frac"] = _sig4(
+                bytes_modeled / t_s / peak_bw)
+        if has_flops:
+            out["achieved_flops_frac"] = _sig4(
+                flops_modeled / t_s / peak_flops)
+        if t_roof is not None:
+            out["roofline_frac"] = _sig4(t_roof / t_s)
+    return out
+
+
+def kernel_cost(spec, time_us: Optional[float] = None,
+                seq_lens=None, peaks: Optional[Dict] = None) -> Dict:
+    """One captured launch -> its full roofline row: modeled bytes
+    (read/written split; paged operands by ``seq_lens``, by default the
+    launch's own live lengths), modeled FLOPs (``None`` + a
+    ``flops_model: "missing"`` marker when the kernel has no registered
+    formula — the gap is also a gate finding), and the
+    :func:`roofline_point` classification."""
+    from ..analysis.kernel_catalog import modeled_flops
+    from ..analysis.kernel_rules import modeled_launch_bytes
+
+    bm = modeled_launch_bytes(spec, seq_lens)
+    flops = modeled_flops(spec)
+    row = {"kernel": spec.name, "grid": list(spec.grid),
+           "bytes_modeled": int(bm["total_bytes"]),
+           "read_bytes": int(bm["read_bytes"]),
+           "written_bytes": int(bm["written_bytes"]),
+           "flops_modeled": flops,
+           "flops_model": "formula" if flops is not None else "missing"}
+    row.update(roofline_point(row["bytes_modeled"], flops,
+                              time_us=time_us, peaks=peaks))
+    return row
+
+
+def capture_kernel_costs(fn: Callable, *args,
+                         times_us: Optional[Dict[str, float]] = None
+                         ) -> List[Dict]:
+    """Run ``fn(*args)`` over meta tensors under launch capture (the
+    port's ``jax.eval_shape``: each wrapper records its plan and launches
+    nothing) and price every captured launch. ``args`` hold meta tensors
+    (``torch.empty(..., device="meta")``). ``times_us`` optionally maps
+    kernel name -> measured microseconds to fill the achieved
+    fractions."""
+    from ..ops.kernels._launch import capture_kernel_launches
+
+    with capture_kernel_launches() as specs:
+        fn(*args)
+    peaks = peak_snapshot()
+    times_us = times_us or {}
+    return [kernel_cost(s, time_us=times_us.get(s.name), peaks=peaks)
+            for s in specs]
 
 
 def decode_step_bytes(B: int, D: int, H: int, KV: int, hd: int, F: int,
@@ -90,3 +204,18 @@ def decode_roofline(step_bytes: Dict[str, int],
         variants[name] = row
     return {"variants": variants, "peak_hbm_bw": peak_bw,
             "peak_source": peaks["peak_source"]}
+
+
+def roofline_chrome_events(report: Dict, t_us: float = 0.0) -> List[Dict]:
+    """Render a :func:`decode_roofline` report (or any
+    ``{"variants": {name: {...}}}`` mapping) as chrome-trace counter
+    events — one ``roofline:<name>`` annotation track per route carrying
+    the modeled bytes/step, so the Perfetto view of a serving trace
+    shows the bandwidth-bound floor next to the measured rows."""
+    events = []
+    for name, row in sorted(report.get("variants", {}).items()):
+        events.append({"name": f"roofline:{name}", "ph": "C",
+                       "ts": t_us,
+                       "args": {"bytes_per_step":
+                                row.get("bytes_per_step", 0)}})
+    return events

@@ -19,7 +19,10 @@ of :data:`CTYPES` in order; the wrappers record the same codes in their
 launch specs (``_launch.KernelLaunchSpec.calls``), which the gate's
 ``ARG_MISMATCH`` rule holds against the ``extern "C"`` declaration in the
 source. The Triton kernels are built by :func:`triton_jit` at their first
-launch. :data:`DTYPES` is the types every kernel takes, with the code the
+launch. :func:`build_seconds` is the wall time spent building so far (nvcc
+here, Triton's compiles at the first launch of each specialization in
+``_launch.triton_run``): the observability harness's ``compile`` entry.
+:data:`DTYPES` is the types every kernel takes, with the code the
 C launchers read. Nothing here runs at import: this module imports without
 nvcc, Triton, CUDA or a card.
 """
@@ -30,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -37,7 +41,7 @@ import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPES", "CTYPES",
            "nvcc_path", "library_path", "build", "load", "c_fn", "c_codes",
-           "triton_jit"]
+           "triton_jit", "build_seconds", "add_build_seconds"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -54,6 +58,17 @@ CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}
+_BUILD_S = [0.0]          # seconds spent building kernels in this process
+
+
+def build_seconds() -> float:
+    """Wall seconds this process has spent building kernels: nvcc
+    (:func:`build`) and Triton's compiles at first launch."""
+    return _BUILD_S[0]
+
+
+def add_build_seconds(seconds: float):
+    _BUILD_S[0] += seconds
 
 
 def nvcc_path() -> str:
@@ -89,6 +104,7 @@ def build(names):
     missing: one nvcc process per source, all started together, then wait
     for all of them. Raises with nvcc's output of each source that
     failed."""
+    t0 = time.perf_counter()
     jobs = []
     for name in names:
         out = library_path(name)
@@ -114,6 +130,8 @@ def build(names):
             continue
         out.with_suffix(".log").write_text(text)
         os.replace(tmp, out)            # atomic: readers never see a part
+    if jobs:
+        add_build_seconds(time.perf_counter() - t0)
     if failed:
         raise RuntimeError("\n".join(failed))
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections.abc import MutableMapping
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -164,6 +165,7 @@ class KernelLaunchSpec:
 
 
 _CAPTURE = threading.local()
+_TRITON_SEEN = set()              # Triton specializations launched so far
 
 
 _ALL_THREADS = []                 # captures that see every thread
@@ -331,16 +333,26 @@ def triton_run(namespace, spec, args_per_call, **options):
     constexpr names))`` and ``spec.plan["launches"][j]`` its ``(grid,
     {constexpr: value}, num_warps)``; ``args_per_call[j]`` its positional
     arguments, whose count must be the spec's. ``namespace``: the kernel
-    module's ``globals()`` (``_build.triton_jit``)."""
-    from ._build import triton_jit
+    module's ``globals()`` (``_build.triton_jit``). The first launch of
+    each specialization (kernel, constexprs, warps, argument types) is
+    timed on the host and counted in ``_build.build_seconds`` (Triton
+    compiles it then)."""
+    from ._build import add_build_seconds, triton_jit
     for (name, (npos, cnames)), (grid, consts, warps), args in zip(
             spec.calls, spec.plan["launches"], args_per_call):
         if len(args) != npos or tuple(consts) != tuple(cnames):
             raise ValueError(f"{spec.name}: {name} launched with "
                              f"{len(args)} arguments and {tuple(consts)}, "
                              f"its spec says {npos} and {cnames}")
+        key = (name, tuple(consts.items()), warps,
+               tuple(getattr(a, "dtype", type(a)) for a in args))
+        first = key not in _TRITON_SEEN
+        t0 = time.perf_counter() if first else 0.0
         triton_jit(namespace, name)[grid](*args, **consts, num_warps=warps,
                                           **options)
+        if first:
+            _TRITON_SEEN.add(key)
+            add_build_seconds(time.perf_counter() - t0)
 
 
 def triton_spec(name, source, dtype, phases, inputs, outputs, launches,

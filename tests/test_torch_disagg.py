@@ -17,6 +17,7 @@ and the JAX engine's handed-off page within 1e-5 (f32 products in another
 order); the decode group's pools and scales keep their storage
 (``data_ptr()``) across a drained stream."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -680,17 +681,33 @@ def test_weight_quant_once_for_both_groups(params):
     ("export_trace", "A8"), ("write_timeline", "A8"),
     ("program_specs", "A12"), ("audit", "A12")])
 def test_later_slices_raise_with_their_item(params, tmp_path, call, item):
-    """tests/test_disagg.py's schema-with-observability, timeline,
-    catalog-audit and engine-audit tests: the port raises, citing the
-    ROADMAP item that ports them."""
+    """tests/test_disagg.py's catalog-audit and engine-audit tests: the
+    port raises, citing the ROADMAP item that ports them (A12). The A8
+    surfaces are ported since (held against the JAX engine in
+    tests/test_torch_observability.py): the engine builds its harness and
+    plane, and the exports write their files, or raise "disabled" on an
+    engine built without observability, as the JAX engine's do."""
     tp = params[1]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    if item == "A8":
         if call in ("observability", "telemetry"):
-            _tdisagg(tp, **{call: True})
-        elif call in ("export_trace", "write_timeline"):
-            getattr(_tdisagg(tp), call)(str(tmp_path / "trace.json"))
+            eng = _tdisagg(tp, **{call: True})
+            assert eng.observability is not None
+            assert (eng.telemetry is not None) == (call == "telemetry")
+            return
+        path = str(tmp_path / "trace.json")
+        with pytest.raises(RuntimeError, match="disabled"):
+            getattr(_tdisagg(tp), call)(path)
+        eng = _tdisagg(tp, observability=True)
+        _mixed_stream(eng, n=3)
+        assert getattr(eng, call)(path) == path
+        text = open(path).read()
+        if call == "export_trace":
+            assert json.loads(text)["traceEvents"]
         else:
-            getattr(_tdisagg(tp), call)()
+            assert json.loads(text.splitlines()[0])["kind"] == "meta"
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        getattr(_tdisagg(tp), call)()
 
 
 def test_metrics_schema_and_reset(params):

@@ -14,6 +14,7 @@ replica), the summed host-tier report, the replicas' prefix-cache
 counters and the ``metrics()`` keys are EXACT; a restored page equals its
 spilled bytes bit for bit."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -392,15 +393,33 @@ def test_fleet_metrics_schema_frozen(params):
     ("write_timeline", "A8"), ("export_trace", "A8"),
     ("program_specs", "A12"), ("audit", "A12")])
 def test_later_slices_raise_with_their_item(params, tmp_path, call, item):
-    """tests/test_fleet.py's timeline, catalog-audit and engine-audit
-    tests (and the schema with observability on): the port raises, citing
-    the ROADMAP item that ports them."""
+    """tests/test_fleet.py's catalog-audit and engine-audit tests: the
+    port raises, citing the ROADMAP item that ports them (A12). The A8
+    surfaces are ported since (held against the JAX fleet in
+    tests/test_torch_observability.py): the fleet builds its harness and
+    plane, and the exports write their files, or raise "disabled" on a
+    fleet built without observability, as the JAX fleet's do."""
     tk = _Kinds(True, params[1])
     reps = [tk.coloc(prefix_cache=True, kv_offload=True)]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    if item == "A8":
         if call in ("observability", "telemetry"):
-            ServingFleet(reps, **{call: True})
-        elif call in ("export_trace", "write_timeline"):
-            getattr(ServingFleet(reps), call)(str(tmp_path / "trace"))
+            fleet = ServingFleet(reps, **{call: True})
+            assert fleet.observability is not None
+            assert (fleet.telemetry is not None) == (call == "telemetry")
+            return
+        path = str(tmp_path / "trace")
+        with pytest.raises(RuntimeError, match="disabled"):
+            getattr(ServingFleet(reps), call)(path)
+        fleet = ServingFleet([tk.coloc(prefix_cache=True,
+                                       kv_offload=True)],
+                             observability=True)
+        _stream(fleet, n=3)
+        assert getattr(fleet, call)(path) == path
+        text = open(path).read()
+        if call == "export_trace":
+            assert json.loads(text)["traceEvents"]
         else:
-            getattr(ServingFleet(reps), call)()
+            assert json.loads(text.splitlines()[0])["fleet"] is True
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        getattr(ServingFleet(reps), call)()

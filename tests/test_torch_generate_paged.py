@@ -189,8 +189,10 @@ def test_prefix_store_called_twice(params, prompts, fused_suffix,
 
 def test_refusals(params, prompts):
     """The JAX package's refusals, with its reasons: an int8 cache over a
-    store, a mesh with a store, a mesh with quantized weights; and
-    ``observability``, which is not ported (ROADMAP A8)."""
+    store, a mesh with a store, a mesh with quantized weights, a block
+    size other than the store's. (``observability`` is ported since:
+    ``observability=True`` returns the same ids; its records are held in
+    tests/test_torch_observability.py.)"""
     _, tp = params
     store = PagedKVCacheStore(TCFG, block_size=4, num_blocks=32,
                               device="cpu")
@@ -204,9 +206,11 @@ def test_refusals(params, prompts):
     with pytest.raises(ValueError, match="does not take a mesh"):
         generate_paged(tp, prompts, TCFG, _tgen(2), block_size=4,
                        weight_quant="int8", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A8"):
+    assert torch.equal(
         generate_paged(tp, prompts, TCFG, _tgen(2), block_size=4,
-                       observability=True, device="cpu")
+                       observability=True, device="cpu"),
+        generate_paged(tp, prompts, TCFG, _tgen(2), block_size=4,
+                       device="cpu"))
     with pytest.raises(ValueError, match="block_size"):
         generate_paged(tp, prompts, TCFG, _tgen(2), block_size=8,
                        prefix_cache=store)

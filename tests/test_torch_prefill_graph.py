@@ -444,7 +444,8 @@ def _eager_generate_paged(tp, prompts, gen, monkeypatch, **kw):
                                        rope=rope, kv_scales=kv_scales)[0]
 
     def eager_chunks(step, gen, params, tok, generator, k_pools, v_pools,
-                     seq_lens, block_tables, kv_scales, rope):
+                     seq_lens, block_tables, kv_scales, rope, obs=None,
+                     variant=None):
         out = [tok]
         done = tok == gen.eos_token_id
         for _ in range(gen.max_new_tokens - 1):

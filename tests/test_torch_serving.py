@@ -197,7 +197,9 @@ def test_routes_of_later_slices_raise(params, kw):
     none, it raises), a mesh of CPU devices serves. So has the prefix
     cache: ``prefix_cache=True`` builds the radix tree, ``kv_offload``
     builds its host tier beside it and alone raises the JAX engine's
-    "requires prefix_cache" error."""
+    "requires prefix_cache" error. So have observability and telemetry
+    (the harness, tests/test_torch_observability.py): the engine holds
+    the harness (and the plane), which telemetry implies."""
     _, tp = params
     if "prefix_cache" in kw:
         eng = ServingEngine(tp, TCFG, device="cpu", **ENGINE, **kw)
@@ -225,8 +227,10 @@ def test_routes_of_later_slices_raise(params, kw):
             2, devices=["cpu"] * 2), **ENGINE)
         assert eng.metrics()["mesh"]["tp"] == 2
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(tp, TCFG, device="cpu", **ENGINE, **kw)
+    eng = ServingEngine(tp, TCFG, device="cpu", **ENGINE, **kw)
+    assert eng.observability is not None
+    assert (eng.telemetry is not None) == ("telemetry" in kw)
+    assert "latency" in eng.metrics()
 
 
 def test_admission_queue_matches_jax():

@@ -310,8 +310,9 @@ def test_trainer_trajectory_matches_jax(name, no_x64):
 
 def test_trainer_defaults_and_refusals():
     """fused_optimizer=None is per leaf on the CPU (the JAX rule off the
-    TPU); the distributed and observability knobs are not ported and
-    raise; a non-floating tree refuses the forced fused path."""
+    TPU); the distributed knobs are not ported and raise (observability
+    and telemetry are ported since: the trainer holds the harness, and
+    the plane); a non-floating tree refuses the forced fused path."""
     tp = _tparams(_jparams())
     tr = Trainer(lambda p, t, l: tllama.loss_fn(p, t, l, TCFG),
                  device="cpu")
@@ -320,6 +321,11 @@ def test_trainer_defaults_and_refusals():
     for kw in ({"mesh": object()}, {"param_specs": {}},
                {"observability": True}, {"telemetry": True},
                {"data_spec": ("dp",)}):
+        if "observability" in kw or "telemetry" in kw:
+            t = Trainer(lambda p: p, device="cpu", **kw)
+            assert t.observability is not None
+            assert (t.telemetry is not None) == ("telemetry" in kw)
+            continue
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(lambda p: p, device="cpu", **kw)
     for call in (lambda: tr.prefetch([]), lambda: tr.audit(None)):
