@@ -322,13 +322,40 @@ script exits non-zero:
    MFU) and ``Profiler`` with the GPU target over 3 steps (its device
    trace names every train-route kernel). ``python3 chip_smoke.py obs``
    runs the build and this phase alone.
+12b. models (this slice's main path, after every serving route, just
+   before the audit; ``models_phase``): GPT, BERT and ViT through
+   ``Trainer``. At their
+   published widths, 2 layers, f32 (GPT b 2 x s 256, BERT b 4 x s 128,
+   ViT 4 images): the loss and every gradient through the kernels (flash;
+   GPT's linear CE on the tied head; AdamW) against the same model with
+   every kernel replaced by its plain version, and 3 Trainer steps each
+   way, by the train parity phase's bounds (the key third of each QKV
+   bias, whose exact gradient is 0, held apart); BERT with a padding
+   mask (no flash launch; each row's real positions equal to the flash
+   forward of the row cut to its length). The kernels at the families'
+   full-width shapes against their plain versions and timed beside their
+   bounds, plain versions and SDPA or cuBLAS: flash at GPT's (b 8, s
+   1024, causal), BERT's (b 32, s 128) and ViT's (b 32, s 197, a ragged
+   last tile) attention, 12 heads of 64, bf16; the linear CE at T 8192, D
+   768, V 50304 over the tied head (P in two token chunks); fused_adamw
+   at each family's flat size, with ``torch._fused_adamw_``. Then each at
+   full width and depth (GPT-2 small 8 x 1024 tokens, BERT-base MLM 32 x
+   128, ViT-B/16 32 images), bf16, remat, the fused optimizer: 2 warm-up
+   and 5 timed steps fed by ``Trainer.prefetch`` from host numpy batches,
+   the launch counts set to 0 just before the timed steps and read just
+   after (flash fwd 2L, dq and dkv L, fused_adamw 1, GPT's three CE
+   kernels 1 a step, every other kernel 0); step ms, tokens/s (images/s),
+   peak memory, the losses, a profiled step; ViT also with the batch
+   staged inside ``step()``, in turns with the prefetched run (a record).
+   ``python3 chip_smoke.py models`` runs the build and this phase alone.
 13. audit: the plans of every launch of the default serving route's
-   phase and of the default train route's phase, captured while they
-   ran, audited by the kernel-geometry gate (0 findings), and the whole
-   catalog too; each cooperative kernel's grid (the launcher's occupancy
-   query on the card) equal to the catalog's assumption (132 SMs times
-   its blocks an SM), and ptxas's static shared memory of every device
-   kernel at most its launch's declared figure.
+   phase, of the default train route's phase and of the models phase's
+   three full-width runs, captured while they ran, audited by the
+   kernel-geometry gate (0 findings), and the whole catalog too; each
+   cooperative kernel's grid (the launcher's occupancy query on the card)
+   equal to the catalog's assumption (132 SMs times its blocks an SM),
+   and ptxas's static shared memory of every device kernel at most its
+   launch's declared figure.
 
 Then the ``kernels`` summary line, 18 rows and ``decode_mlp_block[tc]``
 (its tensor-core body at a 128-row chunk; launches: the default route's
@@ -353,7 +380,11 @@ size, ``disagg_launches``, their launches in the disagg phase's first
 disaggregated run at the serving size, and ``obs_launches`` (RMSNorm's
 too), their launches in the obs phase's first observed run, the train rows
 ``obs_train_launches``, the observed trainer's, and
-``prefill_attn_block[kv8]`` its int8-cache stream's) and,
+``prefill_attn_block[kv8]`` its int8-cache stream's), the models
+phase's 15 rows (``flash_attention_fwd[gpt]`` ...
+``flash_attention_bwd_dkv[vit]``, ``linear_ce_fwd[gpt]`` ...
+``linear_ce_bwd_dh[gpt]``, ``fused_adamw[gpt]``, ``[bert]``, ``[vit]``;
+launches from the family's timed full-width steps) and,
 last, ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
 prints no result. It imports nothing of JAX or of ``paddle_tpu``.
 """
@@ -3343,40 +3374,87 @@ def tp_serving_phase(gpu, params, route):
 
 @contextlib.contextmanager
 def recorded_logits():
-    """Every logits tensor the serving engine samples from, copied, in
-    order, while the block runs: a prefill chunk's as it samples, a
-    decode step's from the step's logits buffer after the step (its body
-    runs captured, so no Python sees its logits at replay)."""
+    """(seen, stale): ``seen`` gets every logits tensor the serving engine
+    samples from, copied, in order, while the block runs, each read after
+    the program that made it has run, as a (tag, tensor) pair: a prefill
+    chunk's ("warmup", or "replay" of its bucket's graph) from a buffer
+    outside the graph's memory pool that the chunk copies its logits
+    into, a decode step's ("step") from the step's logits buffer (both
+    bodies run captured, so no Python sees their logits at replay).
+
+    A tensor made while a chunk is captured lives in the pool the prefill
+    graphs share, where a bucket captured later may be given an earlier
+    bucket's freed temporaries, which that bucket's replays overwrite: a
+    clone taken at capture can hold another chunk's values. Such a clone
+    is taken at each chunk capture too, and once the block ends ``stale``
+    holds, for each, the number of columns where it differs from the
+    record of its bucket's last chunk (the values it should hold)."""
+    import torch
     from paddle_tpu_torch.inference import serving
     cls = serving.ServingEngine
-    sample, body, run = (serving._sample_slots, cls._decode_body,
-                         cls._run_decode)
-    seen, in_body = [], [False]
+    sample, run = serving._sample_slots, cls._run_decode
+    pbody, pprog, prun = (cls._prefill_body, cls._prefill_program,
+                          cls._run_prefill)
+    seen, stale, keys, clones, outside = [], [], [], [], {}
+    # the chunk whose body runs (None in a decode step's body), the chunk
+    # a prefill call ran, and whether its body ran eagerly
+    state = {"chunk": None, "ran": None, "eager": False}
+
+    def add(tag, key, t):
+        seen.append((tag, t))
+        keys.append(key)
 
     def record(logits, *a):
-        if not in_body[0]:
-            seen.append(logits.detach().clone())
+        key = state["chunk"]
+        if key is None:
+            return sample(logits, *a)
+        if logits.is_cuda and torch.cuda.is_current_stream_capturing():
+            clones.append((key, logits.detach().clone()))
+        else:
+            state["eager"] = True
+            if key not in outside:
+                # at the bucket's warm-up (every program's first call runs
+                # eagerly), so outside every graph's pool
+                outside[key] = torch.empty_like(logits)
+        outside[key].copy_(logits)
         return sample(logits, *a)
 
-    def decode_body(self):
-        in_body[0] = True
+    def prefill_body(self, P):
+        state["chunk"] = (id(self), P)
         try:
-            return body(self)
+            return pbody(self, P)
         finally:
-            in_body[0] = False
+            state["chunk"] = None
+
+    def prefill_program(self, P):
+        state["ran"] = (id(self), P)
+        return pprog(self, P)
+
+    def run_prefill(self):
+        state["ran"], state["eager"] = None, False
+        did = prun(self)
+        if did:
+            add("warmup" if state["eager"] else "replay", state["ran"],
+                outside[state["ran"]].clone())
+        return did
 
     def run_decode(self):
         did = run(self)
         if did:
-            seen.append(self._d_logits.clone())
+            add("step", None, self._d_logits.clone())
         return did
-    serving._sample_slots = record
-    cls._decode_body, cls._run_decode = decode_body, run_decode
+    serving._sample_slots, cls._run_decode = record, run_decode
+    cls._prefill_body, cls._prefill_program = prefill_body, prefill_program
+    cls._run_prefill = run_prefill
     try:
-        yield seen
+        yield seen, stale
     finally:
-        serving._sample_slots = sample
-        cls._decode_body, cls._run_decode = body, run
+        serving._sample_slots, cls._run_decode = sample, run
+        cls._prefill_body, cls._prefill_program = pbody, pprog
+        cls._run_prefill = prun
+    for key, c in clones:
+        last = max(i for i, k in enumerate(keys) if k == key)
+        stale.append(int((c != seen[last][1]).sum()))
 
 
 def tp_parity_phase(gpu):
@@ -3390,7 +3468,9 @@ def tp_parity_phase(gpu):
     route, logits bit-equal too; tp=2 "gather" and the meshless unfused
     route. tp=2 "psum" against the meshless two-stage route may part on a
     near tie only (top-2 logit gap < 1e-4, as in the parity phase). The
-    largest |logit| difference of each pair is printed."""
+    logits compared are every chunk's (warm-ups and replays) and every
+    decode step's, each read after its program ran (``recorded_logits``).
+    The largest |logit| difference of each pair is printed."""
     import dataclasses
     import torch
     from paddle_tpu_torch.inference import (GenerationConfig,
@@ -3423,13 +3503,15 @@ def tp_parity_phase(gpu):
         eng = ServingEngine(params, cfg, capacity=2, block_size=16,
                             max_seq_len=512, prefill_buckets=(32, 128),
                             **knobs)
-        with recorded_logits() as logits:
+        with recorded_logits() as (logits, stale):
             reqs = [eng.submit(p, GenerationConfig(max_new_tokens=N,
                                                    greedy=True))
                     for p, (_, N) in zip(prompts, specs)]
             eng.drain()
             torch.cuda.synchronize()
-        runs[name] = {"tokens": [r.tokens for r in reqs], "logits": logits,
+        runs[name] = {"tokens": [r.tokens for r in reqs],
+                      "tags": [tag for tag, _ in logits],
+                      "logits": [t for _, t in logits], "stale": stale,
                       "decode_variant": eng.decode_variant,
                       "prefill_variant": eng.prefill_variant}
         del eng
@@ -3454,7 +3536,7 @@ def tp_parity_phase(gpu):
                 j = next(i for i, (u, v) in enumerate(zip(x, y)) if u != v)
                 parted.append({"step": j, "top2_gap": gap_at(p, x[:j])})
         la, lb = runs[a]["logits"], runs[b]["logits"]
-        aligned = len(la) == len(lb) and not parted
+        aligned = runs[a]["tags"] == runs[b]["tags"] and not parted
         pairs[f"{a}_vs_{b}"] = {
             "ids_equal": ta == tb, "parted": parted,
             "logits_bit_equal": aligned and all(
@@ -3465,7 +3547,16 @@ def tp_parity_phase(gpu):
     emit({"phase": "tp_parity", "gpu": gpu, "dtype": "float32", "layers": 2,
           "variants": {k: {"decode": v["decode_variant"],
                            "prefill": v["prefill_variant"]}
-                       for k, v in runs.items()}, **pairs})
+                       for k, v in runs.items()},
+          "records": {k: {t: v["tags"].count(t)
+                          for t in ("warmup", "replay", "step")}
+                      for k, v in runs.items()},
+          # clones taken at each chunk capture: columns off the record of
+          # their bucket's last chunk (printed, not held: the hazard
+          # recorded_logits reads around)
+          "capture_clone_stale_columns": {k: v["stale"]
+                                          for k, v in runs.items()},
+          **pairs})
     # only the tp=2 psum route sums its o_proj/down partials in another
     # order than one device does: a near tie may part its ids there. The
     # gather placement keeps the single-device op sequence, so its ids
@@ -5864,85 +5955,74 @@ def _held(got, want, dt, f32_tol, bf16_norm=False, floor=0.0):
             "worst_in_tol_units": worst / 2 ** -6, "ok": ok}
 
 
-def flash_phase(gpu):
-    """The three flash kernels on the cases of FLASH_CASES: each against
-    its plain version on the kernel's own inputs (f32: O and lse within
-    1e-5, grads 1e-4 of the tensor's largest magnitude; bf16 by
-    bf16_close), autograd through the kernels against autograd through
-    ``_ref_attention`` (f32 as before; bf16 within 2^-6 relative L2: the
-    kernels round P and dS to bf16 and take delta from the bf16 O, as the
-    JAX kernels do, where ``_ref_attention`` stays in f32), and two
-    launches bit for bit. The gradients' bounds add an absolute floor of
-    1e-5 x max|dO| x max|V|, the scale of dP and delta: with one key, dq
-    and dk are 0 and both sides return rounding noise. Timed at the
-    training shape."""
+def flash_case(gen, label, b, sq, sk, h, kvh, d, causal, dtn):
+    """One flash case: the three kernels against their plain versions and
+    autograd through them against ``_ref_attention`` (bounds: see
+    :func:`flash_phase`), two launches bit for bit. Returns the case's
+    record, the largest error of each kernel and its inputs (q, k, v,
+    dO)."""
     import torch
-    import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import _ref_attention
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    cases, max_err, timed = [], dict.fromkeys(FLASH_OPS, 0.0), None
-    for label, b, sq, sk, h, kvh, d, causal, dtn in FLASH_CASES:
-        dt = getattr(torch, dtn)
+    dt = getattr(torch, dtn)
 
-        def rn(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda").to(dt)
-        q, k, v, do = rn(b, sq, h, d), rn(b, sk, kvh, d), rn(b, sk, kvh, d), \
-            rn(b, sq, h, d)
-        runs = []
-        for _ in range(2):
-            o, lse = kfa.flash_fwd_cuda(q, k, v, causal)
-            delta = (o.float() * do.float()).sum(-1).transpose(1, 2) \
-                .contiguous()
-            dq = kfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
-            runs.append((o, lse, dq) + kfa.flash_bwd_dkv_cuda(
-                q, k, v, do, lse, delta, causal))
-        torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(*runs))
-        o, lse, dq, dk, dv = runs[0]
-        want_o, want_lse = kfa.flash_fwd_ref(q, k, v, causal)
-        want_dq = kfa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal)
-        want_dk, want_dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
-                                                 causal)
-        # the scale of dP and delta, whose difference is all dS holds
-        floor = 1e-5 * float(do.float().abs().max() * v.float().abs().max())
-        plain = {"o": _held(o, want_o, dt, 1e-5),
-                 "lse": _held(lse, want_lse, torch.float32, 1e-5),
-                 "dq": _held(dq, want_dq, dt, 1e-4, floor=floor),
-                 "dk": _held(dk, want_dk, dt, 1e-4, floor=floor),
-                 "dv": _held(dv, want_dv, dt, 1e-4, floor=floor)}
-        del runs, want_o, want_lse, want_dq, want_dk, want_dv
-        grads = []
-        for fn in (lambda *a: kfa.FlashAttention.apply(*a, causal, None),
-                   lambda *a: _ref_attention(*a, causal=causal)):
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = fn(*leaves)
-            out.backward(do)
-            grads.append([out.detach()] + [t.grad for t in leaves])
-        auto = {nm: _held(g, w, dt, 1e-5 if nm == "o" else 1e-4,
-                          bf16_norm=True, floor=0.0 if nm == "o" else floor)
-                for nm, g, w in zip(("o", "dq", "dk", "dv"), *grads)}
-        del grads
-        for op, keys in zip(FLASH_OPS, (("o", "lse"), ("dq",), ("dk", "dv"))):
-            for kk in keys:
-                max_err[op] = max(max_err[op], plain[kk]["max_abs_err"])
-        case = {"case": label, "b": b, "sq": sq, "sk": sk, "h": h,
-                "kvh": kvh, "d": d, "causal": causal, "dtype": dtn,
-                "vs_plain": plain, "autograd_vs_ref_attention": auto,
-                "bitwise_repeatable": same,
-                "ok": same and all(x["ok"] for x in plain.values())
-                and all(x["ok"] for x in auto.values())}
-        cases.append(case)
-        if not case["ok"]:
-            emit({"phase": "flash", "gpu": gpu, "cases": cases})
-            raise AssertionError(f"flash attention disagrees: {case}")
-        if timed is None:
-            timed = (label, b, sq, sk, h, kvh, d, causal, q, k, v, do)
-        del q, k, v, do, o, lse, dq, dk, dv, delta
-        torch.cuda.empty_cache()
-    label, b, sq, sk, h, kvh, d, causal, q, k, v, do = timed
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+    q, k, v, do = rn(b, sq, h, d), rn(b, sk, kvh, d), rn(b, sk, kvh, d), \
+        rn(b, sq, h, d)
+    runs = []
+    for _ in range(2):
+        o, lse = kfa.flash_fwd_cuda(q, k, v, causal)
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dq = kfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+        runs.append((o, lse, dq) + kfa.flash_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, causal))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    o, lse, dq, dk, dv = runs[0]
+    want_o, want_lse = kfa.flash_fwd_ref(q, k, v, causal)
+    want_dq = kfa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal)
+    want_dk, want_dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                             causal)
+    # the scale of dP and delta, whose difference is all dS holds
+    floor = 1e-5 * float(do.float().abs().max() * v.float().abs().max())
+    plain = {"o": _held(o, want_o, dt, 1e-5),
+             "lse": _held(lse, want_lse, torch.float32, 1e-5),
+             "dq": _held(dq, want_dq, dt, 1e-4, floor=floor),
+             "dk": _held(dk, want_dk, dt, 1e-4, floor=floor),
+             "dv": _held(dv, want_dv, dt, 1e-4, floor=floor)}
+    del runs, want_o, want_lse, want_dq, want_dk, want_dv
+    grads = []
+    for fn in (lambda *a: kfa.FlashAttention.apply(*a, causal, None),
+               lambda *a: _ref_attention(*a, causal=causal)):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    auto = {nm: _held(g, w, dt, 1e-5 if nm == "o" else 1e-4,
+                      bf16_norm=True, floor=0.0 if nm == "o" else floor)
+            for nm, g, w in zip(("o", "dq", "dk", "dv"), *grads)}
+    del grads
+    max_err = {}
+    for op, keys in zip(FLASH_OPS, (("o", "lse"), ("dq",), ("dk", "dv"))):
+        max_err[op] = max(plain[kk]["max_abs_err"] for kk in keys)
+    case = {"case": label, "b": b, "sq": sq, "sk": sk, "h": h,
+            "kvh": kvh, "d": d, "causal": causal, "dtype": dtn,
+            "vs_plain": plain, "autograd_vs_ref_attention": auto,
+            "bitwise_repeatable": same,
+            "ok": same and all(x["ok"] for x in plain.values())
+            and all(x["ok"] for x in auto.values())}
+    return case, max_err, (q, k, v, do)
+
+
+def flash_rows(shape, q, k, v, do, causal, max_err, suffix=""):
+    """The three flash kernels timed on (q, k, v, dO): beside their
+    bounds, their plain versions and SDPA (forward; backward for the
+    pair); returns the rows and SDPA's times."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     o, lse = kfa.flash_fwd_cuda(q, k, v, causal)
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     bwd = (q, k, v, do, lse, delta, causal)
@@ -5972,11 +6052,9 @@ def flash_phase(gpu):
         kernel, plain_fn, lib = fns[op]
         b_ms, b_by, nbytes, ops = bound(kernel)
         rows.append({
-            "name": op, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": FLASH_REPLACES[op],
-            "shape": {"b": b, "sq": sq, "sk": sk, "h": h, "kvh": kvh, "d": d,
-                      "causal": causal},
-            "dtype": "bfloat16", "max_abs_err": max_err[op],
+            "name": op + suffix, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[op], "shape": shape,
+            "dtype": str(q.dtype)[6:], "max_abs_err": max_err[op],
             "ms": cold_ms(kernel), "plain_ms": cold_ms(plain_fn),
             "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "operations": ops, "plan": launch_plan(kernel),
@@ -5985,6 +6063,43 @@ def flash_phase(gpu):
                         + (" forward" if op == "flash_attention_fwd" else
                            " backward (dq, dk and dv in one call)")),
             "ok": True})
+    return rows, sdpa
+
+
+def flash_phase(gpu):
+    """The three flash kernels on the cases of FLASH_CASES: each against
+    its plain version on the kernel's own inputs (f32: O and lse within
+    1e-5, grads 1e-4 of the tensor's largest magnitude; bf16 by
+    bf16_close), autograd through the kernels against autograd through
+    ``_ref_attention`` (f32 as before; bf16 within 2^-6 relative L2: the
+    kernels round P and dS to bf16 and take delta from the bf16 O, as the
+    JAX kernels do, where ``_ref_attention`` stays in f32), and two
+    launches bit for bit. The gradients' bounds add an absolute floor of
+    1e-5 x max|dO| x max|V|, the scale of dP and delta: with one key, dq
+    and dk are 0 and both sides return rounding noise. Timed at the
+    training shape."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases, max_err, timed = [], dict.fromkeys(FLASH_OPS, 0.0), None
+    for label, b, sq, sk, h, kvh, d, causal, dtn in FLASH_CASES:
+        case, errs, inputs = flash_case(gen, label, b, sq, sk, h, kvh, d,
+                                        causal, dtn)
+        for op in FLASH_OPS:
+            max_err[op] = max(max_err[op], errs[op])
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "flash", "gpu": gpu, "cases": cases})
+            raise AssertionError(f"flash attention disagrees: {case}")
+        if timed is None:
+            timed = (label, b, sq, sk, h, kvh, d, causal) + inputs
+        del inputs
+        torch.cuda.empty_cache()
+    label, b, sq, sk, h, kvh, d, causal, q, k, v, do = timed
+    rows, sdpa = flash_rows({"b": b, "sq": sq, "sk": sk, "h": h, "kvh": kvh,
+                             "d": d, "causal": causal}, q, k, v, do, causal,
+                            max_err)
     emit({"phase": "flash", "gpu": gpu, "cases": cases, "sdpa": sdpa,
           "timed": {r["name"]: {k: r[k] for k in ("ms", "plain_ms",
                                                   "bound_ms", "library_ms",
@@ -6737,6 +6852,110 @@ def _twice(fn):
     return a, all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def ce_case(rn, record, label, t, D, v, dtn, head_kind, lab_kind,
+            chunk=None):
+    """One linear-CE case (see :func:`fused_train_phase`): the forward, the
+    backward's dx (and its P) and dh over the P dx's call keeps against
+    their plain versions, two launches bit for bit, each recorded with
+    ``record(op, case)``. ``rn(*shape, dt=, scale=)`` draws the inputs.
+    Returns (x, head, labels, lse, coef)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_train as kft
+    bf16, f32 = torch.bfloat16, torch.float32
+    dt = getattr(torch, dtn)
+    x = rn(t, D, dt=dt, scale=0.5)
+    if head_kind == "tied":
+        head = rn(v, D, dt=dt, scale=0.02).T     # the embedding, seen
+    else:                                        # transposed
+        head = rn(D, v, dt=dt, scale=0.02)
+    rng = np.random.default_rng(t + v)
+    lab = rng.integers(0, v, t)
+    if lab_kind == "ignored":
+        lab[:] = -100
+    else:
+        drop = rng.random(t) < 0.1
+        lab[drop] = np.where(rng.random(int(drop.sum())) < 0.5, -1, -100)
+    lab = torch.as_tensor(lab, device="cuda")
+    coef = torch.tensor([1.0 / max(int((lab >= 0).sum()), 1)],
+                        device="cuda")
+    shape = {"case": label, "T": t, "D": D, "V": v, "dtype": dtn,
+             "head": head_kind, "chunk_rows": chunk}
+    if chunk is None:
+        (lse, pick), same_f = _twice(lambda: kft.linear_ce_fwd_cuda(
+            x, head, lab))
+        want_lse, want_pick = kft.ce_fwd_ref(x, head, lab)
+        outs = {"lse": _held(lse, want_lse, f32, 1e-5),
+                "pick": _held(pick, want_pick, f32, 1e-5)}
+        if dt == bf16:
+            # the wgmma body's split: each vocab tile's stats, then
+            # their combine in the kernel's order
+            m_lse, m_pick = kft.ce_fwd_combine_ref(
+                kft.ce_fwd_stats_ref(x, head, lab))
+            outs["lse_model"] = _held(lse, m_lse, f32, 1e-5)
+            outs["pick_model"] = _held(pick, m_pick, f32, 1e-5)
+            del m_lse, m_pick
+        record("linear_ce_fwd", dict(
+            shape, outputs=outs, bitwise_repeatable=same_f,
+            body=launch_plan(lambda: kft.linear_ce_fwd_cuda(
+                x, head, lab))["body"],
+            ok=same_f and all(o["ok"] for o in outs.values())))
+        del want_lse, want_pick
+    else:
+        lse, _ = kft.linear_ce_fwd_cuda(x, head, lab)
+    # the backward passes take the plain forward's lse, as the plain
+    # versions do, so both sides see the same inputs; dh over the P
+    # that dx's call keeps, as LinearCE runs them
+    def dx_call():
+        dx, ws = kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef,
+                                           chunk_rows=chunk, keep_p=True)
+        return (dx, ws.hi) + (() if ws.lo is None else (ws.lo,))
+    (dx, *p_ws), same = _twice(dx_call)
+    want = kft.ce_bwd_dx_ref(x, head, lab, lse, coef)
+    o = _held(dx, want, dt, 1e-4)
+    ok = same and o["ok"]
+    if lab_kind == "ignored":
+        o["all_zero"] = not bool(dx.any())
+        ok = ok and o["all_zero"]
+    outs = {"dx": o}
+    if chunk is None:
+        # the P pass's hi + lo (f32: P) against the plain split: f32
+        # sums in another order, 1e-5 of P's largest magnitude; the kept
+        # workspace holds the first token chunk
+        p0, p1 = kft.ce_p_split_ref(x, head, lab, lse, coef)
+        got = sum(t.float() for t in p_ws)
+        n = got.shape[0]
+        outs["p"] = _held(got, p0[:n].float() + (
+            0 if p1 is None else p1[:n].float()), f32, 1e-5)
+        ok = ok and outs["p"]["ok"]
+        del p0, p1, got
+    record("linear_ce_bwd_dx", dict(
+        shape, outputs=outs, bitwise_repeatable=same, ok=ok))
+    del dx, want
+
+    def pair():
+        _, p = kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef,
+                                         chunk_rows=chunk, keep_p=True)
+        return kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef, p=p,
+                                         chunk_rows=chunk)
+    (dh,), same = _twice(pair)
+    alone = kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef,
+                                      chunk_rows=chunk)
+    want = kft.ce_bwd_dh_ref(x, head, lab, lse, coef)
+    o = _held(dh, want, dt, 1e-4)
+    o["layout_as_head"] = dh.stride() == head.stride()
+    # dh's own P passes give the bits of the P dx's call kept
+    o["alone_bitwise_equal"] = bool(torch.equal(alone, dh))
+    ok = same and o["ok"] and o["layout_as_head"] \
+        and o["alone_bitwise_equal"]
+    if lab_kind == "ignored":
+        o["all_zero"] = not bool(dh.any())
+        ok = ok and o["all_zero"]
+    record("linear_ce_bwd_dh", dict(
+        shape, outputs={"dh": o}, bitwise_repeatable=same, ok=ok))
+    del dh, want, alone, p_ws
+    return x, head, lab, lse, coef
+
+
 def fused_train_phase(gpu):
     """The seven fused-train kernels against their plain versions on the
     card (f32: 1e-5 of the largest magnitude for values, 1e-4 for sums
@@ -6832,100 +7051,11 @@ def fused_train_phase(gpu):
     # -- linear CE ----------------------------------------------------------
     timed = None
     for label, t, v, dtn, head_kind, lab_kind, *chunk in CE_CASES:
-        chunk = chunk[0] if chunk else None
-        dt = getattr(torch, dtn)
-        x = rn(t, D, dt=dt, scale=0.5)
-        if head_kind == "tied":
-            head = rn(v, D, dt=dt, scale=0.02).T     # the embedding, seen
-        else:                                        # transposed
-            head = rn(D, v, dt=dt, scale=0.02)
-        rng = np.random.default_rng(t + v)
-        lab = rng.integers(0, v, t)
-        if lab_kind == "ignored":
-            lab[:] = -100
-        else:
-            drop = rng.random(t) < 0.1
-            lab[drop] = np.where(rng.random(int(drop.sum())) < 0.5, -1, -100)
-        lab = torch.as_tensor(lab, device="cuda")
-        coef = torch.tensor([1.0 / max(int((lab >= 0).sum()), 1)],
-                            device="cuda")
-        shape = {"case": label, "T": t, "D": D, "V": v, "dtype": dtn,
-                 "head": head_kind, "chunk_rows": chunk}
-        if chunk is None:
-            (lse, pick), same_f = _twice(lambda: kft.linear_ce_fwd_cuda(
-                x, head, lab))
-            want_lse, want_pick = kft.ce_fwd_ref(x, head, lab)
-            outs = {"lse": _held(lse, want_lse, f32, 1e-5),
-                    "pick": _held(pick, want_pick, f32, 1e-5)}
-            if dt == bf16:
-                # the wgmma body's split: each vocab tile's stats, then
-                # their combine in the kernel's order
-                m_lse, m_pick = kft.ce_fwd_combine_ref(
-                    kft.ce_fwd_stats_ref(x, head, lab))
-                outs["lse_model"] = _held(lse, m_lse, f32, 1e-5)
-                outs["pick_model"] = _held(pick, m_pick, f32, 1e-5)
-                del m_lse, m_pick
-            record("linear_ce_fwd", dict(
-                shape, outputs=outs, bitwise_repeatable=same_f,
-                body=launch_plan(lambda: kft.linear_ce_fwd_cuda(
-                    x, head, lab))["body"],
-                ok=same_f and all(o["ok"] for o in outs.values())))
-            del want_lse, want_pick
-        else:
-            lse, _ = kft.linear_ce_fwd_cuda(x, head, lab)
-        # the backward passes take the plain forward's lse, as the plain
-        # versions do, so both sides see the same inputs; dh over the P
-        # that dx's call keeps, as LinearCE runs them
-        def dx_call():
-            dx, ws = kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef,
-                                               chunk_rows=chunk, keep_p=True)
-            return (dx, ws.hi) + (() if ws.lo is None else (ws.lo,))
-        (dx, *p_ws), same = _twice(dx_call)
-        want = kft.ce_bwd_dx_ref(x, head, lab, lse, coef)
-        o = _held(dx, want, dt, 1e-4)
-        ok = same and o["ok"]
-        if lab_kind == "ignored":
-            o["all_zero"] = not bool(dx.any())
-            ok = ok and o["all_zero"]
-        outs = {"dx": o}
-        if chunk is None:
-            # the P pass's hi + lo (f32: P) against the plain split: f32
-            # sums in another order, 1e-5 of P's largest magnitude
-            p0, p1 = kft.ce_p_split_ref(x, head, lab, lse, coef)
-            got = sum(t.float() for t in p_ws)
-            outs["p"] = _held(got, p0.float() + (
-                0 if p1 is None else p1.float()), f32, 1e-5)
-            ok = ok and outs["p"]["ok"]
-            del p0, p1, got
-        record("linear_ce_bwd_dx", dict(
-            shape, outputs=outs, bitwise_repeatable=same, ok=ok))
-        del dx, want
-
-        def pair():
-            _, p = kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef,
-                                             chunk_rows=chunk, keep_p=True)
-            return kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef, p=p,
-                                             chunk_rows=chunk)
-        (dh,), same = _twice(pair)
-        alone = kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef,
-                                          chunk_rows=chunk)
-        want = kft.ce_bwd_dh_ref(x, head, lab, lse, coef)
-        o = _held(dh, want, dt, 1e-4)
-        o["layout_as_head"] = dh.stride() == head.stride()
-        # dh's own P passes give the bits of the P dx's call kept
-        o["alone_bitwise_equal"] = bool(torch.equal(alone, dh))
-        ok = same and o["ok"] and o["layout_as_head"] \
-            and o["alone_bitwise_equal"]
-        if lab_kind == "ignored":
-            o["all_zero"] = not bool(dh.any())
-            ok = ok and o["all_zero"]
-        record("linear_ce_bwd_dh", dict(
-            shape, outputs={"dh": o}, bitwise_repeatable=same, ok=ok))
-        del dh, want, alone, p_ws
+        inputs = ce_case(rn, record, label, t, D, v, dtn, head_kind,
+                         lab_kind, chunk[0] if chunk else None)
         if timed is None:
-            timed = (x, head, lab, lse, coef)
-        else:
-            del x, head, lab, lse, coef
+            timed = inputs
+        del inputs
         torch.cuda.empty_cache()
 
     # -- timing at the train step's shapes ----------------------------------
@@ -7108,24 +7238,25 @@ def plain_kernels(fused_train):
             setattr(mod, name, fn)
 
 
-def _route_run(cfg, base, toks, labels):
-    """Loss and every gradient, then 3 Trainer steps, of ``cfg``'s route;
-    the kernels' launches over both."""
+def _route_run(loss_fn, base, batch):
+    """Loss and every gradient (0 for a parameter the loss does not use),
+    then 3 Trainer steps, of ``loss_fn(params, *batch)`` from the
+    parameters ``base``; the kernels' launches over both."""
     import torch
     from paddle_tpu_torch.distributed import Trainer
     from paddle_tpu_torch.distributed.trainer import tree_leaves
-    from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops import kernels
     kernels.reset_launches()
     params = _params_like(base)
     leaves = [v.requires_grad_(True) for v in tree_leaves(params)]
-    loss = llama.loss_fn(params, toks, labels, cfg)
-    grads = torch.autograd.grad(loss, leaves)
-    tr = Trainer(lambda p, t, l: llama.loss_fn(p, t, l, cfg), lr=1e-4)
+    loss = loss_fn(params, *batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    tr = Trainer(loss_fn, lr=1e-4)
     state = tr.init_state(_params_like(base))
     losses = []
     for _ in range(3):
-        state, m = tr.step(state, toks, labels)
+        state, m = tr.step(state, *batch)
         losses.append(float(m["loss"]))
     torch.cuda.synchronize()
     return {"loss": loss.detach(), "grads": grads, "trajectory": losses,
@@ -7133,27 +7264,44 @@ def _route_run(cfg, base, toks, labels):
             "launches": kernels.launches()}
 
 
-def _route_diff(a, b, base, floor=0.0):
+def _route_diff(a, b, base, floor=0.0, zero_grad=None):
     """Loss (relative), gradients (of the largest magnitude), trajectory
     (relative, past an absolute ``floor``) and updates (of the update's L2
-    norm) of run ``a`` against run ``b``."""
+    norm) of run ``a`` against run ``b``. ``zero_grad``: {leaf index: (a
+    slice of its last dim)} whose exact gradient is 0: their updates are
+    AdamW's normalised roundoff, unrelated on the two sides, so they are
+    left out of the update bound and their largest difference is reported
+    apart (``zero_grad_update_max``, printed, not held)."""
     import torch
     from paddle_tpu_torch.distributed.trainer import tree_leaves
+    zero_grad = zero_grad or {}
+    zero_max = 0.0
     with torch.no_grad():
         grad = max(float((x - y).abs().max() / y.abs().max().clamp_min(
             1e-30)) for x, y in zip(a["grads"], b["grads"]))
-        upd = max(float((pa - pb).norm() / (pb - b0).norm().clamp_min(1e-30))
-                  for pa, pb, b0 in zip(tree_leaves(a["params"]),
-                                        tree_leaves(b["params"]),
-                                        tree_leaves(base)))
-    return {"loss_rel_err": abs(float(a["loss"]) - float(b["loss"]))
-            / abs(float(b["loss"])),
-            "grad_err_over_max": grad,
-            "trajectory_rel_err": max(max(abs(x - y) - floor, 0.0) / abs(y)
-                                      for x, y in zip(a["trajectory"],
-                                                      b["trajectory"])),
-            "trajectory_floor": floor,
-            "update_err_over_norm": upd}
+        upd = 0.0
+        for i, (pa, pb, b0) in enumerate(zip(tree_leaves(a["params"]),
+                                             tree_leaves(b["params"]),
+                                             tree_leaves(base))):
+            diff, step = pa - pb, pb - b0
+            if i in zero_grad:
+                sl = (..., zero_grad[i])
+                zero_max = max(zero_max, float(diff[sl].abs().max()))
+                diff, step = diff.clone(), step.clone()
+                diff[sl] = 0
+                step[sl] = 0
+            upd = max(upd, float(diff.norm() / step.norm().clamp_min(1e-30)))
+    out = {"loss_rel_err": abs(float(a["loss"]) - float(b["loss"]))
+           / abs(float(b["loss"])),
+           "grad_err_over_max": grad,
+           "trajectory_rel_err": max(max(abs(x - y) - floor, 0.0) / abs(y)
+                                     for x, y in zip(a["trajectory"],
+                                                     b["trajectory"])),
+           "trajectory_floor": floor,
+           "update_err_over_norm": upd}
+    if zero_grad:
+        out["zero_grad_update_max"] = zero_max
+    return out
 
 
 def _diff_ok(d):
@@ -7186,7 +7334,7 @@ def train_parity_phase(gpu):
     share everything but flash attention and AdamW, and keep the bound
     without a floor."""
     import torch
-    from paddle_tpu_torch.models import init_params
+    from paddle_tpu_torch.models import init_params, llama
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg_ref = train_config(layers=2, dtype=torch.float32)
@@ -7204,9 +7352,11 @@ def train_parity_phase(gpu):
     ok = True
     floor = 0.0
     for route, cfg in (("ref", cfg_ref), ("default", cfg_def)):
-        kern = _route_run(cfg, base, toks, labels)
+        def loss(p, t, l, cfg=cfg):
+            return llama.loss_fn(p, t, l, cfg)
+        kern = _route_run(loss, base, (toks, labels))
         with plain_kernels(cfg.fused_train):
-            plain = _route_run(cfg, base, toks, labels)
+            plain = _route_run(loss, base, (toks, labels))
         d = _route_diff(kern, plain, base, floor)
         floor = 0.25 * float(np.spacing(np.float32(
             plain["trajectory"][0])))
@@ -7353,6 +7503,561 @@ def train_phase(gpu, fused_train):
 
 
 # ---------------------------------------------------------------------------
+# the model families: GPT, BERT and ViT trained through the Trainer
+# ---------------------------------------------------------------------------
+# name -> (batch, tokens a sequence; ViT: 3 x 224 x 224 images) at full
+# width (bench.py's bench_bert for BERT-base MLM), and at the parity size
+MODELS = {"gpt": (8, 1024), "bert": (32, 128), "vit": (32, None)}
+MODEL_PARITY = {"gpt": (2, 256), "bert": (4, 128), "vit": (4, None)}
+MODEL_WARMUP, MODEL_STEPS = 2, 5
+# BERT's padded rows at the parity size: each row's real tokens
+BERT_LENGTHS = (128, 100, 77, 13)
+
+
+def model_config(name, **kw):
+    """The family's published widths (``GPTConfig()``, ``BertConfig()``,
+    ``ViTConfig()``: GPT-2 small, BERT-base, ViT-B/16), ``kw`` replaced."""
+    import dataclasses
+    from paddle_tpu_torch.models import bert, gpt, vit
+    base = {"gpt": gpt.GPTConfig, "bert": bert.BertConfig,
+            "vit": vit.ViTConfig}[name]()
+    return dataclasses.replace(base, **kw)
+
+
+def model_loss(name, cfg):
+    """``loss(params, *batch)`` of the family's training objective."""
+    from paddle_tpu_torch.models import bert, gpt, vit
+    fn = {"gpt": gpt.loss_fn, "bert": bert.mlm_loss, "vit": vit.loss_fn}[name]
+    return lambda p, *b: fn(p, *b, cfg)
+
+
+def model_params(name, cfg, seed):
+    from paddle_tpu_torch.models import bert, gpt, vit
+    return {"gpt": gpt, "bert": bert, "vit": vit}[name].init_params(
+        cfg, seed=seed)
+
+
+def model_batches(name, cfg, n, seed, size):
+    """``n`` host batches (numpy, from ``seed``): GPT tokens and their
+    next-token labels; BERT ids with 15% of the positions as MLM targets
+    (-100 elsewhere); ViT images and class labels."""
+    rng = np.random.default_rng(seed)
+    B, S = size
+    out = []
+    for _ in range(n):
+        if name == "vit":
+            img = rng.standard_normal(
+                (B, cfg.num_channels, cfg.image_size, cfg.image_size),
+                dtype=np.float32)
+            out.append((img, rng.integers(0, cfg.num_classes, B)))
+            continue
+        toks = rng.integers(0, cfg.vocab_size, (B, S))
+        if name == "gpt":
+            out.append((toks, np.roll(toks, -1, -1)))
+        else:
+            lab = np.where(rng.random((B, S)) < 0.15, toks, -100)
+            out.append((toks, lab))
+    return out
+
+
+def model_launches(name, cfg, steps):
+    """Each kernel's launches over ``steps`` train steps of the family:
+    the forward flash kernel once a layer (twice under remat: the
+    recomputation), dq and dkv once a layer, the three linear-CE kernels
+    once (GPT's tied head), fused_adamw once; every other kernel never
+    (LayerNorm, GELU and the products are plain, as in the JAX
+    package)."""
+    from paddle_tpu_torch.ops import kernels
+    L = cfg.num_hidden_layers
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want.update({"flash_attention_fwd": (2 if cfg.remat else 1) * L * steps,
+                 "flash_attention_bwd_dq": L * steps,
+                 "flash_attention_bwd_dkv": L * steps,
+                 "fused_adamw": steps})
+    if name == "gpt":
+        want.update(dict.fromkeys(("linear_ce_fwd", "linear_ce_bwd_dx",
+                                   "linear_ce_bwd_dh"), steps))
+    return want
+
+
+def _leaf_paths(tree, prefix=""):
+    """"a/b" paths of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _on_card(batch):
+    import torch
+    return tuple(torch.as_tensor(b, device="cuda") for b in batch)
+
+
+def _bert_mask_check(cfg, params):
+    """BERT with a padding mask (rows of BERT_LENGTHS real tokens): its
+    attention is the dense f32 composition, no flash launch; each row's
+    real positions against the unmasked (flash kernel) forward of that
+    row cut to its length, within 1e-4 of the largest magnitude (two
+    layers of f32 sums in another order, through LayerNorm)."""
+    import torch
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import kernels
+    B, S = len(BERT_LENGTHS), MODEL_PARITY["bert"][1]
+    ids = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")
+    mask = (torch.arange(S, device="cuda")[None]
+            < torch.tensor(BERT_LENGTHS, device="cuda")[:, None]).int()
+    with torch.no_grad():
+        kernels.reset_launches()
+        seq, _ = bert.forward(params, ids, cfg, attention_mask=mask)
+        torch.cuda.synchronize()
+        masked_launches = kernels.launches()["flash_attention_fwd"]
+        rows = []
+        for i, n in enumerate(BERT_LENGTHS):
+            alone, _ = bert.forward(params, ids[i:i + 1, :n], cfg)
+            r = _held(seq[i:i + 1, :n], alone, torch.float32, 1e-4)
+            rows.append(dict(r, length=n))
+        row_launches = kernels.launches()["flash_attention_fwd"] \
+            - masked_launches
+    return {"lengths": list(BERT_LENGTHS), "rows": rows,
+            "masked_flash_launches": masked_launches,
+            "row_flash_launches": row_launches,
+            "ok": masked_launches == 0
+            and row_launches == B * cfg.num_hidden_layers
+            and all(r["ok"] for r in rows)}
+
+
+def models_parity(gpu):
+    """Each family at its published widths, 2 layers, f32 (TF32 off): the
+    loss and every gradient through the kernels (flash; GPT's linear CE on
+    the tied head; AdamW in the Trainer) against the same model with every
+    kernel replaced by its plain version (``plain_kernels``), then 3
+    ``Trainer`` steps each way, by ``train_parity_phase``'s bounds, but for
+    the key third of each layer's QKV bias: its exact gradient is 0 (a
+    shift of a query's logits over all keys, which softmax ignores), so
+    its AdamW steps normalise unrelated roundoff on the two sides; it is
+    left out of the update bound, and its largest difference is printed
+    only (``zero_grad_update_max``): AdamW moves each side at most ~lr a
+    step, so a bound of that size could not fail. GPT's
+    trajectory bound has that phase's floor of a quarter of one f32 ulp of
+    the first step's loss, for that phase's reason: its loss is the CE
+    kernels' mean of lse - pick terms of ~ln V, summed in another order
+    than the plain version's. BERT's and ViT's losses are the same plain
+    composition on both sides (only flash and AdamW differ), and keep
+    the bound without a floor, as the LLaMA "ref" route does. BERT also
+    with a padding mask (:func:`_bert_mask_check`)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops = FLASH_OPS + ("fused_adamw",)
+    res = {"phase": "models_parity", "gpu": gpu, "dtype": "float32",
+           "layers": 2, "models": {}}
+    ok = True
+    for i, name in enumerate(MODELS):
+        cfg = model_config(name, num_hidden_layers=2, dtype=torch.float32)
+        base = model_params(name, cfg, seed=20 + i)
+        batch = _on_card(model_batches(name, cfg, 1, 30 + i,
+                                       MODEL_PARITY[name])[0])
+        loss = model_loss(name, cfg)
+        kern = _route_run(loss, base, batch)
+        with plain_kernels(None):
+            plain = _route_run(loss, base, batch)
+        floor = (0.25 * float(np.spacing(np.float32(plain["trajectory"][0])))
+                 if name == "gpt" else 0.0)
+        # the key third of each layer's QKV bias: q.b_k is one shift of a
+        # query's logits over all keys, which softmax ignores
+        D = cfg.hidden_size
+        d = _route_diff(kern, plain, base, floor, {
+            _leaf_paths(base).index("layers/qkv_b"): slice(D, 2 * D)})
+        mine = ops + (FT_OPS[-3:] if name == "gpt" else ())
+        want = model_launches(name, cfg, 3)
+        r = dict(d, size=MODEL_PARITY[name], fused_optimizer=kern["fused"],
+                 loss_kernels=float(kern["loss"]),
+                 loss_plain=float(plain["loss"]), grads=len(kern["grads"]),
+                 trajectory_kernels=kern["trajectory"],
+                 trajectory_plain=plain["trajectory"],
+                 launches_kernel_run={k: kern["launches"][k] for k in mine},
+                 launches_plain_run={k: plain["launches"][k] for k in mine})
+        # the kernel run: 3 Trainer steps plus the loss and grads (one
+        # forward, a recomputation and one backward of each layer)
+        want_run = {k: v + (want[k] // 3 if k != "fused_adamw" else 0)
+                    for k, v in want.items()}
+        r["launches_expected"] = {k: want_run[k] for k in mine}
+        r["ok"] = (_diff_ok(d) and kern["fused"]
+                   and kern["launches"] == want_run
+                   and not any(plain["launches"].values()))
+        if name == "bert":
+            r["padding_mask"] = _bert_mask_check(cfg, base)
+            r["ok"] = r["ok"] and r["padding_mask"]["ok"]
+        ok = ok and r["ok"]
+        res["models"][name] = r
+        del kern, plain, base
+        torch.cuda.empty_cache()
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        raise AssertionError("models parity failed")
+
+
+def _timed_steps(tr, state, batches):
+    """Train steps over ``batches`` (an iterator): CUDA events around
+    each and the host's wall time to the last step's end; the losses."""
+    import torch
+    events, losses = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = tr.step(state, *batch)
+        end.record()
+        events.append((start, end))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, {"wall_ms_per_step": wall * 1e3 / len(events),
+                   "step_ms_events": [s.elapsed_time(e) for s, e in events],
+                   "losses": [float(x) for x in losses]}
+
+
+def _host_profile(tr, state, batch, top=12):
+    """One train step under ``cProfile`` (which slows Python calls, not the
+    device): its host seconds and the functions with the most own time,
+    as pointers to where the eager step's enqueue goes. It sees the
+    calling thread only: the backward (and remat's recomputation) runs on
+    autograd's device thread and shows as ``run_backward``'s time."""
+    import cProfile
+    import pstats
+    import torch
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    state, _ = tr.step(state, *batch)
+    prof.disable()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return state, {"step_host_ms_profiled": round(host_s * 1e3, 3),
+                   "top_own_ms": [
+                       {"fn": f"{fn[0].split('site-packages/')[-1]}:"
+                              f"{fn[1]}({fn[2]})",
+                        "calls": v[1], "own_ms": round(v[2] * 1e3, 3),
+                        "cum_ms": round(v[3] * 1e3, 3)}
+                       for fn, v in rows]}
+
+
+def models_full(gpu):
+    """Each family at full width and depth (12 layers), bf16 weights and
+    f32 norms, remat, the fused optimizer, on the default route: 2 warm-up
+    and 5 timed ``Trainer`` steps fed by ``Trainer.prefetch`` from host
+    numpy batches (pinned copies on a side stream), the launch counts set
+    to 0 just before the timed steps and read just after (each must be
+    :func:`model_launches`'); step ms, tokens/s (images/s for ViT), peak
+    memory (above what was allocated before the run's parameters), the
+    losses; one more step traced (device ms by kernel group,
+    busy share) and one under ``cProfile`` (:func:`_host_profile`). ViT
+    also with the batch staged inside ``step()`` (a synchronous copy from
+    pageable memory), in turns with the prefetched run: a record of both
+    step times, no claim. Returns {family: (the
+    plans captured in the timed steps, their launch counts, the
+    optimizer's flat size)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.distributed.trainer import tree_leaves
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels._launch import capture_kernel_launches
+    out, runs = {"phase": "models", "gpu": gpu, "models": {}}, {}
+    ok = True
+    for i, name in enumerate(MODELS):
+        cfg = model_config(name)
+        B, S = MODELS[name]
+        # what earlier phases still hold is not this run's: the peak is
+        # read above it
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = model_params(name, cfg, seed=i)
+        n_params = sum(v.numel() for v in tree_leaves(params))
+        tr = Trainer(model_loss(name, cfg), lr=1e-4)
+        state = tr.init_state(params)
+        host = model_batches(name, cfg, MODEL_WARMUP + MODEL_STEPS, 40 + i,
+                             MODELS[name])
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        feed = tr.prefetch(iter(host), depth=2)
+        state, warm = _timed_steps(tr, state, (next(feed)
+                                               for _ in range(MODEL_WARMUP)))
+        kernels.reset_launches()
+        # the plans of the timed steps' launches (the gate audits them);
+        # the backward's run on autograd's device thread
+        with capture_kernel_launches(all_threads=True) as specs:
+            state, run = _timed_steps(tr, state, feed)
+        counts = kernels.launches()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        want = model_launches(name, cfg, MODEL_STEPS)
+        per = B * (S or 1)
+        r = {"config": {k: v for k, v in vars(cfg).items() if k != "dtype"},
+             "params": n_params, "batch": B, "seq": S,
+             "dtype": "bfloat16 weights, float32 norms, float32 moments",
+             "fused_optimizer": tr._fused, "setup_s": round(setup_s, 3),
+             "warmup_losses": warm["losses"], "losses": run["losses"],
+             "step_ms": round(run["wall_ms_per_step"], 3),
+             "step_ms_events": [round(x, 3) for x in run["step_ms_events"]],
+             ("images_per_sec" if name == "vit" else "tokens_per_sec"):
+                 round(per / run["wall_ms_per_step"] * 1e3, 1),
+             "peak_memory_gb": round(peak_gb, 3),
+             "held_before_gb": round(base / 2 ** 30, 3),
+             "launches_per_step": {k: counts[k] / MODEL_STEPS
+                                   for k in want if counts[k] or want[k]},
+             "launches_ok": {k: counts[k] for k in want} == want}
+        if name == "vit":
+            # the batch staged inside step() in turns with prefetch
+            turns = []
+            for kind in ("inline", "prefetch", "inline", "prefetch"):
+                src = (iter(host[:MODEL_STEPS]) if kind == "inline" else
+                       tr.prefetch(iter(host[:MODEL_STEPS]), depth=2))
+                state, t = _timed_steps(tr, state, src)
+                turns.append({"staging": kind,
+                              "step_ms": round(t["wall_ms_per_step"], 3)})
+            r["staging_turns"] = turns
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = tr.step(state, *_on_card(host[0]))
+            torch.cuda.synchronize()
+        kern, groups = _device_groups(prof, 1)
+        device_ms = sum(ms for ms, _ in kern.values())
+        r["profiled_step"] = {
+            "device_ms": round(device_ms, 3),
+            "busy_share": round(device_ms / run["wall_ms_per_step"], 4),
+            "by_group": _rounded(groups)}
+        state, r["host_profile"] = _host_profile(tr, state,
+                                                 _on_card(host[0]))
+        losses = warm["losses"] + run["losses"]
+        r["ok"] = (r["launches_ok"] and tr._fused is True
+                   and all(np.isfinite(losses)))
+        ok = ok and r["ok"]
+        out["models"][name] = r
+        runs[name] = (specs, counts, state.master.numel())
+        del state, params, tr, host, feed, specs
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError("models phase failed (its line above)")
+    return runs
+
+
+def _adamw_model_row(gen, n, suffix):
+    """fused_adamw at a family's flat size (the Trainer's layout: f32
+    master, grad and moments, the bf16 shadow) against its plain version
+    (2 ulps of each output's type), timed beside its bound, its plain
+    version and ``torch._fused_adamw_``."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_adamw as kfw
+    kw = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, weight_decay=0.1)
+
+    def state():
+        g = torch.Generator(device="cuda").manual_seed(n)
+        return (torch.randn(n, generator=g, device="cuda"),
+                torch.randn(n, generator=g, device="cuda") * 1e-2,
+                torch.randn(n, generator=g, device="cuda") * 1e-3,
+                torch.rand(n, generator=g, device="cuda") * 1e-4)
+    step, sc = torch.tensor(3.0, device="cuda"), torch.tensor(
+        0.5, device="cuda")
+    got = kfw.fused_adamw_triton(*state(), 1e-4, step, grad_scale=sc,
+                                 shadow_dtype=torch.bfloat16, **kw)
+    want = kfw.adamw_update_ref(*state(), 1e-4, step, grad_scale=sc,
+                                shadow_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    rel = max(_rel_ulps(g, w) / (2 * torch.finfo(g.dtype).eps)
+              for g, w in zip(got, want))
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    del got, want
+    args = state()
+    kernel = (lambda: kfw.fused_adamw_triton(
+        *args, 1e-4, step, grad_scale=sc, shadow_dtype=torch.bfloat16, **kw))
+    b_ms, b_by, nbytes, ops = bound(kernel)
+    p, g, m, v = args
+    steps = [torch.tensor(1.0, device="cuda")]
+    row = {"name": "fused_adamw" + suffix, "route": "triton",
+           "source": ADAMW_SOURCE,
+           "replaces": "paddle_tpu/ops/pallas/fused_adamw.py:93",
+           "shape": {"n": n, "master": "float32", "grad": "float32",
+                     "moments": "float32", "shadow": "bfloat16"},
+           "dtype": "float32", "max_abs_err": err,
+           "max_err_in_2ulp_units": rel, "ms": cold_ms(kernel),
+           "plain_ms": cold_ms(lambda: kfw.adamw_update_ref(
+               *args, 1e-4, step, grad_scale=sc,
+               shadow_dtype=torch.bfloat16, **kw), iters=10),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "operations": ops,
+           "library_ms": cold_ms(lambda: torch._fused_adamw_(
+               [p], [g], [m], [v], [], steps, lr=1e-4, beta1=0.9,
+               beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False,
+               maximize=False)),
+           "library": "torch._fused_adamw_ on the same f32 master and "
+                      "moments (no shadow)", "ok": rel <= 1.0}
+    del args, p, g, m, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ce_model_rows(x, head, lab, lse, coef, max_err, suffix):
+    """The three linear-CE kernels timed at GPT's loss (the tied head):
+    beside the bound, the plain version and cuBLAS on the same products
+    (never called by the port)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_train as kft
+    T, D = x.shape
+    V = head.shape[1]
+    _, ws = kft.linear_ce_bwd_dx_cuda(x, head, lab, lse, coef, keep_p=True)
+    first = ws.rows
+
+    def dh_given():
+        # the P dx's call keeps is its first token chunk; a later chunk's
+        # P pass overwrites it in place, so each timed call is told the
+        # first chunk again (the same work; its bits were held in ce_case)
+        ws.r0, ws.rows = 0, first
+        return kft.linear_ce_bwd_dh_cuda(x, head, lab, lse, coef, p=ws)
+    pm = torch.randn(T, V, device="cuda").to(x.dtype)   # P's shape
+    yard = {"linear_ce_fwd": cold_ms(lambda: x @ head),
+            "linear_ce_bwd_dx": cold_ms(lambda: (x @ head, pm @ head.T)),
+            "linear_ce_bwd_dh": cold_ms(lambda: x.T @ pm)}
+    del pm
+    fns = {"linear_ce_fwd": (lambda: kft.linear_ce_fwd_cuda(x, head, lab),
+                             lambda: kft.ce_fwd_ref(x, head, lab)),
+           "linear_ce_bwd_dx": (lambda: kft.linear_ce_bwd_dx_cuda(
+               x, head, lab, lse, coef),
+               lambda: kft.ce_bwd_dx_ref(x, head, lab, lse, coef)),
+           "linear_ce_bwd_dh": (dh_given, lambda: kft.ce_bwd_dh_ref(
+               x, head, lab, lse, coef))}
+    rows = []
+    for op, (kernel, plain) in fns.items():
+        b_ms, b_by, nbytes, ops = bound(kernel)
+        rows.append({
+            "name": op + suffix, "route": "cuda", "source": CE_SOURCE,
+            "replaces": FT_REPLACES[op],
+            "shape": {"T": T, "D": D, "V": V, "head": "tied"},
+            "dtype": "bfloat16", "max_abs_err": max_err[op],
+            "ms": cold_ms(kernel), "plain_ms": cold_ms(plain, iters=10),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "operations": ops, "plan": launch_plan(kernel),
+            "library_ms": None, "products_ms": yard[op],
+            "library": "none: no single PyTorch call; products_ms is "
+                       "cuBLAS (bf16) on the same products (S; S and P "
+                       "head^T; x^T P)", "ok": True})
+    del ws
+    return rows
+
+
+def models_kernels(gpu, flat_sizes):
+    """The kernels of the families' steps at their full-width shapes,
+    against their plain versions (flash: :func:`flash_case`'s bounds; the
+    CE: :func:`ce_case`'s; AdamW: 2 ulps), and timed: flash at GPT's (b 8,
+    s 1024, causal), BERT's (b 32, s 128) and ViT's (b 32, s 197: 3 x 64
+    + 5, a ragged last tile) attention (12 heads of 64, bf16), the linear
+    CE at GPT's loss (T 8192, D 768, V 50304 = 196.5 vocab tiles of 256,
+    the tied head: the embedding seen transposed; P in two token chunks),
+    fused_adamw at each family's flat size (``flat_sizes``, the
+    Trainer's)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, cases = [], {}
+    for name in MODELS:
+        cfg = model_config(name)
+        B, S = MODELS[name]
+        S = S or cfg.num_patches + 1
+        H, hd = cfg.num_attention_heads, cfg.head_dim
+        causal = name == "gpt"
+        case, errs, (q, k, v, do) = flash_case(gen, name, B, S, S, H, H, hd,
+                                               causal, "bfloat16")
+        cases[f"flash[{name}]"] = case
+        if not case["ok"]:
+            emit({"phase": "models_kernels", "gpu": gpu, "cases": cases})
+            raise AssertionError(f"flash at {name}'s shape: {case}")
+        new, _ = flash_rows({"b": B, "sq": S, "sk": S, "h": H, "kvh": H,
+                             "d": hd, "causal": causal}, q, k, v, do, causal,
+                            errs, f"[{name}]")
+        rows += new
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    cfg = model_config("gpt")
+    ce_cases = {op: [] for op in FT_OPS[-3:]}
+    ce_err = dict.fromkeys(FT_OPS[-3:], 0.0)
+
+    def rn(*shape, dt=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    def record(op, case):
+        ce_cases[op].append(case)
+        for o in case["outputs"].values():
+            ce_err[op] = max(ce_err[op], o["max_abs_err"])
+        if not case["ok"]:
+            emit({"phase": "models_kernels", "gpu": gpu, "cases": cases,
+                  "ce": ce_cases})
+            raise AssertionError(f"{op} at GPT's loss: {case}")
+    B, S = MODELS["gpt"]
+    inputs = ce_case(rn, record, "gpt", B * S, cfg.hidden_size,
+                     cfg.vocab_size, "bfloat16", "tied", "mixed")
+    cases["linear_ce[gpt]"] = ce_cases
+    rows += _ce_model_rows(*inputs, ce_err, "[gpt]")
+    del inputs
+    torch.cuda.empty_cache()
+    for name in MODELS:
+        rows.append(_adamw_model_row(gen, flat_sizes[name], f"[{name}]"))
+        if not rows[-1]["ok"]:
+            raise AssertionError(f"fused_adamw at {name}'s size: {rows[-1]}")
+    emit({"phase": "models_kernels", "gpu": gpu, "cases": cases,
+          "timed": {r["name"]: {k: r.get(k) for k in (
+              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "products_ms")} for r in rows}})
+    return rows
+
+
+def models_phase(gpu):
+    """The families' phase: parity, full width, kernels at their shapes.
+    Returns the kernel rows with each one's launches in its family's timed
+    steps (and per step), and {"models_<family>": (plans, counts)} of
+    those steps for the audit phase."""
+    models_parity(gpu)
+    runs = models_full(gpu)
+    rows = models_kernels(gpu, {name: run[2] for name, run in runs.items()})
+    for row in rows:
+        op, name = row["name"][:-1].split("[")
+        row["launches"] = runs[name][1][op]
+        row["launches_per_step"] = runs[name][1][op] / MODEL_STEPS
+        row["launches_route"] = f"models phase, {name} at full width"
+    return rows, {f"models_{name}": run[:2] for name, run in runs.items()}
+
+
+def models_only(gpu):
+    """``python3 chip_smoke.py models``: the build, the models phase with
+    its kernel rows, and the gate over its plans."""
+    import torch
+    build_kernels()
+    rows, model_specs = models_phase(gpu)
+    audit_phase(gpu, model_specs)
+    for row in rows:
+        row["gpu"] = gpu
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # the kernel-geometry gate on the card: the plans the serving and training
 # paths really launch, audited; the cooperative grids and the static shared
 # memory the card and ptxas report against the plans; and the gate's
@@ -7390,9 +8095,9 @@ DEMO_REPLACES = "paddle_tpu/analysis/kernel_catalog.py:864"
 
 def audit_phase(gpu, stream_specs):
     """The gate over the launches the card made: ``stream_specs`` maps a
-    path ("serving_default", "train_default") to the plans captured while
-    it ran and its launch counts; every kernel the counts saw launch must
-    have a captured plan, every distinct plan is audited (0 findings), so
+    path ("serving_default", "train_default", "models_<family>") to the
+    plans captured while it ran and its launch counts; every kernel the
+    counts saw launch must have a captured plan, every distinct plan is audited (0 findings), so
     is the whole catalog (the CPU gate, here too). Each cooperative plan's
     grid, which the wrapper took from the launcher's occupancy query on
     the card, must equal the catalog's assumption (132 SMs times the blocks
@@ -7536,6 +8241,21 @@ def demo_phase(gpu):
             "ok": True}
 
 
+def tp_parity_only(gpu, repeat):
+    """``python3 chip_smoke.py tp_parity [--repeat N]``: the build and the
+    tensor-parallel parity phase, N times in one process (each engine
+    after the ones before it, so each repeat meets another allocator
+    history)."""
+    import torch
+    build_kernels()
+    for _ in range(repeat):
+        tp_parity_phase(gpu)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def prefix_only(gpu):
     """``python3 chip_smoke.py prefix``: the build and the prefix phase
     alone, both sizes (the serving size over the serving phases' seeded
@@ -7568,9 +8288,16 @@ def main(argv=()):
         return disagg_only(gpu)
     if list(argv) == ["obs"]:
         return obs_only(gpu)
+    if list(argv) == ["models"]:
+        return models_only(gpu)
+    if argv and argv[0] == "tp_parity" and (
+            len(argv) == 1 or (len(argv) == 3 and argv[1] == "--repeat"
+                               and argv[2].isdigit())):
+        return tp_parity_only(gpu, int(argv[2]) if len(argv) == 3 else 1)
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}; run it with "
-              "none, or with 'prefix', 'disagg' or 'obs'", file=sys.stderr)
+              "none, or with 'prefix', 'disagg', 'obs', 'models' or "
+              "'tp_parity [--repeat N]'", file=sys.stderr)
         return 2
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
@@ -7595,6 +8322,9 @@ def main(argv=()):
     with capture_kernel_launches(all_threads=True) as train_specs:
         train_counts, _ = train_phase(gpu, None)
     ref_counts, _ = train_phase(gpu, "ref")
+    # this slice's main path: GPT, BERT and ViT trained through the
+    # Trainer, fed by Trainer.prefetch
+    model_rows, model_specs = models_phase(gpu)
     for wq in (None, "int8", "int4"):
         parity_phase(gpu, wq)
     kv8_parity_phase(gpu)
@@ -7639,9 +8369,6 @@ def main(argv=()):
     # and the observed default engine in turns with the plain one, and the
     # observed trainer at the train rung
     obs_counts = obs_phase(gpu, "serving", params)
-    audit_phase(gpu, {"serving_default": (serving_specs, counts["default"]),
-                      "train_default": (train_specs, train_counts)})
-    del serving_specs, train_specs
     # this slice's main path: the weight-quantized routes (a profile of the
     # int8 default route's decode step)
     for route in QUANT_ROUTES:
@@ -7666,6 +8393,11 @@ def main(argv=()):
             profile_phase(gpu, eng, route)
         del eng
         torch.cuda.empty_cache()
+    del params
+    audit_phase(gpu, {"serving_default": (serving_specs, counts["default"]),
+                      "train_default": (train_specs, train_counts),
+                      **model_specs})
+    del serving_specs, train_specs, model_specs
     # each kernel's launches on the serving phase of the route that runs
     # it: paged attention on the unfused route, decode_attn_block on the
     # two-stage route, the rest (RMSNorm runs on every route) on the
@@ -7764,11 +8496,11 @@ def main(argv=()):
         op = row["name"].split("[")[0]
         row["launches"] = body_launches(path_counts, row["body"])[op]
         row["launches_route"] = "varlen and bias path phases"
-    for row in rows + train_rows + body_rows:
+    for row in rows + train_rows + body_rows + model_rows:
         row["gpu"] = gpu
         # ms and max_abs_err, also under their longer names
         row["kernel_ms"], row["max_err"] = row["ms"], row["max_abs_err"]
-    emit({"kernels": rows + train_rows + body_rows,
+    emit({"kernels": rows + train_rows + body_rows + model_rows,
           "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -379,6 +379,15 @@ def kernel_cases() -> List[KernelCase]:
         C("flash_attention", "flagship_bias_learned", _FLASH_KERNELS,
           _flash_case(8, 512, 12, 12, 64, bf, causal=False, bias=(1, 12),
                       dbias=True, dropout=True)),
+        # the model families' attention (12 heads of 64): GPT-2 small,
+        # causal, 8 x 1024; BERT-base MLM, 32 x 128; ViT-B/16, 32 images of
+        # 197 tokens (3 x 64 + 5: a ragged last tile)
+        C("flash_attention", "flagship_gpt", _FLASH_KERNELS,
+          _flash_case(8, 1024, 12, 12, 64, bf)),
+        C("flash_attention", "flagship_bert", _FLASH_KERNELS,
+          _flash_case(32, 128, 12, 12, 64, bf, causal=False)),
+        C("flash_attention", "flagship_vit", _FLASH_KERNELS,
+          _flash_case(32, 197, 12, 12, 64, bf, causal=False)),
         C("decode_attn_block", "tiny", ("decode_attn_block",),
           _attn_block_case(2, 32, 2, 2, 16, 8, 8, 4, f32)),
         C("decode_attn_block", "tiny_int8_weights", ("decode_attn_block",),
@@ -567,6 +576,10 @@ def kernel_cases() -> List[KernelCase]:
           _linear_ce_case(_T - 1, _D, _V + 3, bf)),
         C("fused_linear_ce", "flagship_train_two_chunks", _CE_KERNELS,
           _linear_ce_case(_T, _D, _V, bf, chunk_rows=_T // 2)),
+        # GPT-2 small's loss: 8 x 1024 tokens over the tied 50304-word
+        # embedding (196.5 vocab tiles of 256)
+        C("fused_linear_ce", "flagship_gpt_tied", _CE_KERNELS,
+          _linear_ce_case(8 * 1024, 768, 50304, bf, tied=True)),
         C("fused_swiglu", "tiny", ("swiglu_fwd", "swiglu_bwd"),
           _swiglu_case(16, 64, f32)),
         C("fused_swiglu", "flagship_train", ("swiglu_fwd", "swiglu_bwd"),

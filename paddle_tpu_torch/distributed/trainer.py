@@ -37,9 +37,12 @@ body reads no tensor on the host. ``telemetry=`` adds the telemetry plane
 (implies observability). Disabled, the trainer holds ``None`` and
 allocates no event object.
 
+:meth:`Trainer.prefetch` stages the next batches on the device behind the
+current step (pinned memory and a side stream on the card).
+
 Not ported here (raise ``NotImplementedError`` unless off): ``mesh``,
-``param_specs`` and ``data_spec`` (distributed training, ROADMAP A11),
-:meth:`Trainer.prefetch` (A9) and :meth:`Trainer.audit` (A12).
+``param_specs`` and ``data_spec`` (distributed training, ROADMAP A11) and
+:meth:`Trainer.audit` (A12).
 """
 from __future__ import annotations
 
@@ -543,8 +546,29 @@ class Trainer:
                           "accumulate_steps": self.accumulate_steps})
 
     def prefetch(self, batches, depth: int = 2):
-        _not_ported("prefetch", "double-buffered ingest, ROADMAP A9")
+        """Double-buffered ingest (reference:
+        python/paddle/io/dataloader/dataloader_iter.py:368 buffer reader):
+        yields batches already staged on the trainer's device while the
+        NEXT batch's host-to-device copy runs behind the CURRENT step's
+        compute, so a steady step costs max(compute, copy) instead of
+        their sum. ``batches`` yields a tuple/list per step (the ``*batch``
+        of :meth:`step`) or a single array. On the card each batch goes
+        through pinned memory on a side stream, and the step's stream
+        waits on its copy's event (``io.dataloader._DevicePrefetchIter``).
+        With observability on, each pull samples the staged-queue depth as
+        the ``prefetch_queue_depth`` gauge: a queue pinned at 0 means the
+        consumer is ingest-bound, at ``depth`` compute-bound."""
+        from ..io.dataloader import _DevicePrefetchIter
 
+        on_next = None
+        obs = self._obs
+        if obs is not None:
+            def on_next(qsize):
+                obs.registry.gauge("prefetch_queue_depth",
+                                   obs.gauge_window).set(qsize, obs.now())
+
+        return _DevicePrefetchIter(iter(batches), self.device,
+                                   depth=max(1, depth), on_next=on_next)
 
     def audit(self, state: TrainState, *batch, register: bool = True):
         _not_ported("audit", "static program audit, ROADMAP A12")

@@ -22,21 +22,19 @@ kernels). The serving engine keeps its own layer loop
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Dict
 
-import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops import rms_norm
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_train import (fused_linear_ce, fused_swiglu,
                                residual_rms_norm)
-from ..ops.kernels.registry import KERNELS
 from ..ops.rope import apply_rope, build_rope_cache
+from ._common import (_to_tensor, normal_init,  # noqa: F401
+                      params_from_jax, params_to, run_layers)
 
 __all__ = ["LlamaConfig", "LLAMA_7B", "LLAMA_TINY", "init_params",
            "params_from_jax", "params_to", "tp_param_specs",
@@ -88,14 +86,9 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> Dict:
     H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                  cfg.head_dim)
     L = cfg.num_hidden_layers
-    std = 0.02
 
     def nrm(shape):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for sl in (out if len(shape) == 3 else (out,)):
-            sl.copy_(torch.randn(sl.shape, generator=gen, device=device,
-                                 dtype=torch.float32) * std)
-        return out
+        return normal_init(shape, gen, dtype=dtype, device=device)
 
     def ones(shape):
         return torch.ones(shape, dtype=torch.float32, device=device)
@@ -118,32 +111,6 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> Dict:
     if not cfg.tie_word_embeddings:
         params["lm_head"] = nrm((D, V))
     return params
-
-
-def _to_tensor(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":     # ml_dtypes' bf16: reinterpret bits
-        return torch.from_numpy(a.view(np.int16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a).copy())
-
-
-def params_from_jax(tree, device=None) -> Dict:
-    """A JAX parameter tree (arrays or numpy arrays, nested dicts) as
-    this package's tensors on ``device``. The layouts agree, so every
-    leaf is a copy: same shape, same dtype, no transpose."""
-    device = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return _to_tensor(tree).to(device)
-
-
-def params_to(params: Dict, device) -> Dict:
-    """``params`` with every tensor on ``device`` (no copy for a tensor
-    that is already there)."""
-    if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
-    return params.to(device)
 
 
 def tp_param_specs(cfg: LlamaConfig, axis: str = "tp",
@@ -205,14 +172,6 @@ def _decoder_layer(lp, x, sin, cos, cfg: LlamaConfig):
     return x + ff @ lp["down_proj"]
 
 
-def _same_pins():
-    """``checkpoint``'s contexts for the forward and the recomputation: the
-    recomputation runs in the autograd engine's thread, so it re-enters
-    the forward's registry pins there and dispatches as the forward did
-    (the JAX package bakes the dispatch into the traced layer)."""
-    return contextlib.nullcontext(), KERNELS.pinned(KERNELS.forced_state())
-
-
 def forward_hidden(params: Dict, tokens, cfg: LlamaConfig,
                    positions=None):
     """Final-norm hidden states [B, S, D] for [B, S] int tokens;
@@ -226,17 +185,8 @@ def forward_hidden(params: Dict, tokens, cfg: LlamaConfig,
         if pos.dim() != 1:
             raise ValueError("positions must be [S]")
         sin, cos = sin[pos], cos[pos]
-    # unbind: one view per layer, whose backward stacks the L gradients
-    # once (indexing the stack per layer would add L full-size zeros)
-    stacks = {k: w.unbind(0) for k, w in params["layers"].items()}
-    for i in range(cfg.num_hidden_layers):
-        lp = {k: w[i] for k, w in stacks.items()}
-        if cfg.remat:
-            x = checkpoint(_decoder_layer, lp, x, sin, cos, cfg,
-                           use_reentrant=False, preserve_rng_state=False,
-                           context_fn=_same_pins)
-        else:
-            x = _decoder_layer(lp, x, sin, cos, cfg)
+    x = run_layers(params["layers"], x, _decoder_layer, cfg.remat, sin, cos,
+                   cfg)
     return rms_norm(x, params["final_norm"].to(x.dtype), cfg.rms_norm_eps,
                     mode=cfg.fused_train)
 

@@ -11,6 +11,9 @@ selects.
 package, whose runtime routes never launch its LayerNorm kernel; the
 port's counterpart, ``kernels.norms.layer_norm_fwd_triton``, is reached
 through ``kernels.WRAPPERS``.
+
+``fused_rotary_position_embedding`` is the JAX package's: the rotation of
+:mod:`.rope` on each of q, k, v, plain, as there.
 """
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ import torch.nn.functional as F
 
 from .kernels.norms import (RMSNorm, layer_norm_ref, rms_norm_fwd_triton,
                            rms_norm_ref)
+from .rope import apply_rope
 
 __all__ = ["rms_norm", "rms_norm_ref", "layer_norm", "layer_norm_ref",
-           "swiglu"]
+           "fused_rotary_position_embedding", "swiglu"]
 
 
 def rms_norm(x, weight, epsilon=1e-6, mode=None):
@@ -34,6 +38,16 @@ def rms_norm(x, weight, epsilon=1e-6, mode=None):
 
 def layer_norm(x, weight, bias, epsilon=1e-5):
     return layer_norm_ref(x, weight, bias, epsilon)
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True):
+    """Paddle's ``incubate.nn.functional.fused_rotary_position_embedding``
+    as the JAX package has it: :func:`.rope.apply_rope` on each of q, k, v
+    that is given (layout [b, s, h, d]); a None stays None."""
+    return tuple(None if t is None else apply_rope(
+        t, sin, cos, position_ids, use_neox_rotary_style) for t in (q, k, v))
 
 
 def swiglu(a, b):

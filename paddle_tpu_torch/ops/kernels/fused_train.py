@@ -574,7 +574,11 @@ def ce_spec(name, T, D, V, dt, head_dt, splits=1, head_kmajor=False,
                     op("lse", (T - skip,), "float32"), coef]
         outs = [op("dh", (D, V), head_dt)]
         if not p_given or len(chunks) > 1:
-            outs += [op(p, (rows, vp), pdt) for p in own]
+            # given P, the later chunks' P passes overwrite the given
+            # workspace in place: its rows they write (a short last
+            # chunk writes fewer than the workspace holds)
+            own_rows = max(n for _, n in chunks[1:]) if p_given else rows
+            outs += [op(p, (own_rows, vp), pdt) for p in own]
         if len(chunks) > 1:
             outs.append(op("dh_sum", (D, V), "float32"))
         # M x N: dh [D, V], or dh^T [V, D] for the tied layout (bf16)

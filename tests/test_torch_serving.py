@@ -302,3 +302,36 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+
+def test_chip_smoke_records_every_chunk_after_it_ran(params):
+    """chip_smoke.recorded_logits (the card's tensor-parallel parity
+    reads it) records one (tag, logits) pair for every prefill chunk and
+    every decode step, in the order they ran; a chunk's are the logits of
+    its last row, read from a buffer the chunk copies them into (on the
+    card outside the graphs' memory pool, after the chunk's replay)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    _, tp = params
+    te = ServingEngine(tp, TCFG, device="cpu", **ENGINE)
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, 97, (S,)).astype(np.int32) for S in (19, 5)]
+    with chip_smoke.recorded_logits() as (seen, stale):
+        for p in prompts:
+            te.submit(p, GenerationConfig(max_new_tokens=3, greedy=True))
+        te.drain()
+    tags = [t for t, _ in seen]
+    assert stale == []                       # nothing is captured here
+    assert tags.count("warmup") == te.counters["prefill_chunks"] == 3
+    assert tags.count("step") == te.counters["decode_steps"] > 0
+    assert len(tags) == 3 + te.counters["decode_steps"]
+    # chunks of 16 and 3 rows of the first prompt, then the second's 5
+    with torch.no_grad():
+        dense = [tllama.forward(tp, torch.as_tensor(p[None]).long(),
+                                TCFG)[0] for p in prompts]
+    want = [dense[0][15], dense[0][18], dense[1][4]]
+    got = [x for t, x in seen if t == "warmup"]
+    for x, w in zip(got, want):
+        assert x.shape == (1, TCFG.vocab_size)
+        torch.testing.assert_close(x[0], w, atol=1e-4, rtol=1e-4)

@@ -312,7 +312,8 @@ def test_trainer_defaults_and_refusals():
     """fused_optimizer=None is per leaf on the CPU (the JAX rule off the
     TPU); the distributed knobs are not ported and raise (observability
     and telemetry are ported since: the trainer holds the harness, and
-    the plane); a non-floating tree refuses the forced fused path."""
+    the plane; so is prefetch, tests/test_torch_prefetch.py); a
+    non-floating tree refuses the forced fused path."""
     tp = _tparams(_jparams())
     tr = Trainer(lambda p, t, l: tllama.loss_fn(p, t, l, TCFG),
                  device="cpu")
@@ -328,9 +329,8 @@ def test_trainer_defaults_and_refusals():
             continue
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(lambda p: p, device="cpu", **kw)
-    for call in (lambda: tr.prefetch([]), lambda: tr.audit(None)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tr.audit(None)
     with pytest.raises(ValueError, match="at most one dtype"):
         Trainer(lambda p: p, device="cpu", fused_optimizer=True).init_state(
             {"a": torch.zeros(3, dtype=torch.bfloat16),
