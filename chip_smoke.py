@@ -32,7 +32,8 @@ script exits non-zero:
    on the ring timed beside the body the ring replaces on the same
    inputs; paged_attention_decode (the split page stream) at KV 32 and 8,
    MB 72 and 75, f32 and bf16, lengths 0/1/16/17/127/the whole table,
-   zeros for length 0 and two launches bit for bit; decode_mlp_block
+   zeros for length 0 and two launches bit for bit, and at a scale of 0.3
+   (not 1/sqrt(hd)) against its plain version at that scale; decode_mlp_block
    also at 16, 32 and 128 rows (the prefill MLP: in bf16 its tensor-core
    body, each case's body recorded). layer_norm_fwd, which no
    runtime route launches (as in the JAX package), at the JAX kernel
@@ -206,9 +207,12 @@ script exits non-zero:
    the times.
 9. adamw: the fused AdamW Triton kernel against its plain version at the
    training phase's flat size and a ragged size, f32 and bf16 moments,
-   with and without the bf16 shadow, grad_scale < 1, in place; timed at
-   the training size beside its bound, its plain version and
-   ``torch._fused_adamw_``.
+   with and without the bf16 shadow, grad_scale < 1, in place; and
+   captured once in a CUDA graph with lr an f32 word on the card (the
+   trainer's), replayed at two lr values with no recapture, each replay
+   against the plain version and bit for bit against the eager kernel at
+   its lr; timed at the training size beside its bound, its plain version
+   and ``torch._fused_adamw_``.
 10. fused-train kernels: rms_norm_bwd and residual_rms_norm_fwd at
    [4096, 4096] and [4095, 4096] bf16 and [1024, 4096] f32, swiglu_fwd and
    swiglu_bwd at [4096, 11008] and [4095, 11008] bf16, [7, 1001] bf16 and
@@ -228,6 +232,22 @@ script exits non-zero:
    route with every kernel replaced by its plain version; then 3
    ``Trainer`` steps each way: the loss trajectories and the parameters'
    updates; and the default route against the "ref" route.
+11b. train graph (``train_graph_phase``): the train step as one captured
+   CUDA graph a signature and state against its eager twin (a trainer
+   whose step programs run their uncaptured bodies, ``eager_trainer``),
+   at 2 layers, f32 (TF32 off), 6 steps with a ``LinearWarmup`` schedule
+   setting ``lr`` before each: LLaMA at the train rung's widths (b 2, s
+   256) on the default and "ref" routes (fused optimizer) and on the
+   per-leaf optimizer, GPT, BERT and ViT at their published widths and
+   the parity sizes: losses and grad norms (every step's, read after the
+   last step) and every parameter bit-equal to the twin's; one program,
+   captured at its second step and replayed at every step after. Then a
+   ``loss_fn`` over flash attention with dropout 0.1 (f32, b 2, s 256, 4
+   heads of 64) through captured steps: each replay's seed drawn on the
+   card, the seeds and their keep masks all different, each replay's
+   attention equal to the plain version at the seed it drew (1e-5 of its
+   largest magnitude). ``python3 chip_smoke.py train_graph`` runs the
+   build and this phase alone.
 2b. demo: the kernel-geometry gate's regression specimen,
    decode_mlp_block's kernel under the floor-divided plan of the JAX
    package's ``demo_prefix_mlp_block`` (B 2, D 32, F 96, 64-column tiles,
@@ -239,14 +259,21 @@ script exits non-zero:
 12. train (the main path): bench.py's "1.07B-h4096" ladder rung
    (vocab 32000, D 4096, F 11008, 32 heads, 4 layers, batch 2 x seq 2048,
    bf16 weights, f32 norms, bf16 moments, remat, fused optimizer) on the
-   default route (``fused_train=None``): 1 warm-up and 6 timed steps on
-   one batch, the launch counts set to 0 just before the timed steps and
+   default route (``fused_train=None``), its step one captured CUDA
+   graph: 2 warm-up steps (the eager warm-up and the capture) and 6
+   timed steps (replays) on one batch, the launch counts set to 0 just
+   before the timed steps and
    read just after (flash fwd 2L, dq and dkv L, fused_adamw 1, RMSNorm
    2L + 1, residual + RMSNorm 2L, rms_norm_bwd 2L + 1, swiglu_fwd 2L,
    swiglu_bwd L, each linear-CE kernel 1 a step); step ms, tokens/s, MFU,
    peak memory, the loss per step; one more step traced: device time by
-   kernel group and the busy share. Then the same on the "ref" route
-   (RMSNorm 4L + 1 a step, the fused-train kernels never).
+   kernel group and the busy share; the capture's seconds and graph
+   nodes. Then the eager twin on the same state, in turns with the
+   captured trainer (eager, captured, captured, eager, 3 steps each):
+   each kind's step ms, tokens/s and busy share, the twin's peak memory
+   and profiled step; and one observed trainer of each kind on that
+   state for the observed ``dispatch_ms``. Then the same on the "ref"
+   route (RMSNorm 4L + 1 a step, the fused-train kernels never).
 
 7f. prefix (this slice's main path; the parity size after the graph
    phase's, the serving size after it): the radix prefix cache, its host
@@ -345,7 +372,9 @@ script exits non-zero:
    the launch counts set to 0 just before the timed steps and read just
    after (flash fwd 2L, dq and dkv L, fused_adamw 1, GPT's three CE
    kernels 1 a step, every other kernel 0); step ms, tokens/s (images/s),
-   peak memory, the losses, a profiled step; ViT also with the batch
+   peak memory, the losses, a profiled step; each step one captured CUDA
+   graph (the warm-up steps: the eager warm-up and the capture), beside
+   its eager twin in turns as in the train phase; ViT also with the batch
    staged inside ``step()``, in turns with the prefetched run (a record).
    ``python3 chip_smoke.py models`` runs the build and this phase alone.
 13. audit: the plans of every launch of the default serving route's
@@ -695,9 +724,11 @@ def paged_phase(gpu):
     against its plain version at the serving shapes (B 8, H 32, hd 128, BS
     16), KV 32 and 8 (GQA 4:1), MB 72 and 75, f32 at 1e-5 and bf16 at
     2e-2, lengths 0, 1, 16, 17, 127, the whole table and random ones:
-    exact zeros for length 0, two launches bit for bit, the plan recorded.
-    Timed in bf16 at KV 32, MB 72 beside SDPA over the K/V gathered
-    densely beforehand."""
+    exact zeros for length 0, two launches bit for bit, the plan recorded;
+    at KV 32, MB 72 in bf16 also at a scale of 0.3 against the plain
+    version at that scale (and moved from the default's result). Timed in
+    bf16 at KV 32, MB 72 beside SDPA over the K/V gathered densely
+    beforehand."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels.paged_attention import (
@@ -731,6 +762,22 @@ def paged_phase(gpu):
                 f"paged_attention_decode disagrees: {cases[-1]}")
         if dt == torch.bfloat16 and KV == H and MB == 72:
             timed = args
+    # the caller's scale (the JAX package's ``scale=``) reaches the kernel
+    got = paged_attention_decode_cuda(*timed, scale=0.3)
+    want = paged_attention_decode_ref(*timed, scale=0.3)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    moved = not torch.allclose(got.float(), paged_attention_decode_cuda(
+        *timed).float(), atol=2e-2, rtol=2e-2)
+    cases.append({"dtype": "bfloat16", "KV": H, "MB": 72, "scale": 0.3,
+                  "max_abs_err": err, "tol": "atol=rtol=0.02",
+                  "moved_by_the_scale": moved,
+                  "ok": moved and bool(torch.allclose(
+                      got.float(), want.float(), atol=2e-2, rtol=2e-2))})
+    max_err = max(max_err, err)
+    if not cases[-1]["ok"]:
+        raise AssertionError(f"paged_attention_decode at scale 0.3: "
+                             f"{cases[-1]}")
     q, k, v, tables, seq_lens = timed
     lens = seq_lens.long()
     b_ms, b_by = bound(lambda: paged_attention_decode_cuda(*timed),
@@ -5684,9 +5731,10 @@ def _obs_serving(gpu, params):
 
 def _obs_train(gpu):
     """The 1.07B-h4096 rung on the default route, observed and plain in
-    turns (observed, plain, observed, plain), each warmed one step and
-    reset, then TRAIN_STEPS steps; then the Profiler with the GPU target
-    over 3 steps of the last turn's trainer."""
+    turns (observed, plain, observed, plain), each warmed two steps (its
+    step program's warm-up and capture) and reset, then TRAIN_STEPS steps
+    (replays); then the Profiler with the GPU target over 3 steps of the
+    last turn's trainer."""
     import tempfile
     import torch
     from paddle_tpu_torch.distributed import Trainer
@@ -5714,8 +5762,10 @@ def _obs_train(gpu):
                      observability=kind == "observed")
         state = tr.init_state(params)
         del params
-        state, m = tr.step(state, toks, labels)          # warm-up
-        run = [float(m["loss"])]
+        run = []
+        for _ in range(2):         # the program's warm-up and capture
+            state, m = tr.step(state, toks, labels)
+            run.append(float(m["loss"]))
         tr.reset_metrics()
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -6771,6 +6821,12 @@ def adamw_phase(gpu, n_train):
         if not case["ok"]:
             emit({"phase": "adamw", "gpu": gpu, "cases": cases})
             raise AssertionError(f"fused_adamw disagrees: {case}")
+    case = _adamw_graph_case(kw)
+    cases.append(case)
+    max_err = max(max_err, case["max_abs_err"])
+    if not case["ok"]:
+        emit({"phase": "adamw", "gpu": gpu, "cases": cases})
+        raise AssertionError(f"fused_adamw in a graph: {case}")
     n = n_train
     p = torch.randn(n, generator=gen, device="cuda")
     g = torch.randn(n, generator=gen, device="cuda") * 1e-2
@@ -6812,6 +6868,65 @@ def adamw_phase(gpu, n_train):
     del p, g
     torch.cuda.empty_cache()
     return row
+
+
+def _adamw_graph_case(kw, n=1_000_003):
+    """fused_adamw captured once in a CUDA graph with lr the trainer's f32
+    word on the card (f32 master and moments, the bf16 shadow), replayed
+    at two lr values with no recapture, the state reset before each:
+    each replay within 2 ulps of the plain version at its lr and bit for
+    bit equal to the eager kernel at that lr; the two replays differ."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import fused_adamw as kfw
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    start = (torch.randn(n, generator=g, device="cuda"),
+             torch.randn(n, generator=g, device="cuda") * 1e-2,
+             torch.randn(n, generator=g, device="cuda") * 1e-3,
+             torch.rand(n, generator=g, device="cuda") * 1e-4)
+    live = [t.clone() for t in start]
+    word = torch.zeros((), dtype=torch.float32, device="cuda")
+    step = torch.tensor(3.0, device="cuda")
+    sc = torch.tensor(0.5, device="cuda")
+
+    def update(args, lr):
+        return kfw.fused_adamw_triton(*args, lr, step, grad_scale=sc,
+                                      shadow_dtype=bf16, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # the warm-up: Triton compiles
+        update(live, word)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = update(live, word)
+    runs, replays = [], []
+    for lr in (1e-4, 3e-3):
+        for t, s0 in zip(live, start):
+            t.copy_(s0)
+        word.fill_(lr)
+        graph.replay()
+        got = [t.clone() for t in outs]
+        eager = update([t.clone() for t in start], lr)
+        want = kfw.adamw_update_ref(*[t.clone() for t in start], lr, step,
+                                    grad_scale=sc, shadow_dtype=bf16, **kw)
+        torch.cuda.synchronize()
+        rel = max(_rel_ulps(a, b) / (2 * torch.finfo(a.dtype).eps)
+                  for a, b in zip(got, want))
+        runs.append({"lr": lr, "max_err_in_2ulp_units": rel,
+                     "max_abs_err": max(float((a.float() - b.float()).abs()
+                                              .max())
+                                        for a, b in zip(got, want)),
+                     "bitwise_equal_to_eager_kernel": all(
+                         torch.equal(a, b) for a, b in zip(got, eager)),
+                     "ok": rel <= 1.0})
+        replays.append(got)
+    differ = not torch.equal(replays[0][0], replays[1][0])
+    return {"case": "captured_lr_word", "n": n, "moment_dtype": "float32",
+            "shadow": "bfloat16", "replays": runs, "lr_moved_result": differ,
+            "max_abs_err": max(r["max_abs_err"] for r in runs),
+            "ok": differ and all(r["ok"] and r["bitwise_equal_to_eager_kernel"]
+                                 for r in runs)}
 
 
 # ---------------------------------------------------------------------------
@@ -7415,8 +7530,10 @@ def train_phase(gpu, fused_train):
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, m = tr.step(state, toks, labels)          # warm-up
-    losses = [float(m["loss"])]
+    losses = []
+    for _ in range(2):       # the program's eager warm-up and its capture
+        state, m = tr.step(state, toks, labels)
+        losses.append(float(m["loss"]))
     warm_s = time.perf_counter() - t0
     tr.reset_metrics()
     events = [(torch.cuda.Event(enable_timing=True),
@@ -7446,6 +7563,12 @@ def train_phase(gpu, fused_train):
         torch.cuda.synchronize()
     kern, groups = _device_groups(prof, 1)
     device_ms = sum(ms for ms, _ in kern.values())
+    prog = step_program(tr)
+    captured = {"capture_s": round(prog.capture_s, 3),
+                "graph_nodes": prog.nodes,
+                "replays": prog.replays}
+    # the eager twin on the same state, in turns
+    state, turns = graph_turns(tr, state, (toks, labels), device_ms, B * S)
     n = TRAIN_STEPS
     want = dict.fromkeys(kernels.WRAPPERS, 0)
     want.update({"flash_attention_fwd": 2 * L * n,
@@ -7472,7 +7595,8 @@ def train_phase(gpu, fused_train):
            "dtype": "bfloat16 weights, float32 norms, bfloat16 moments",
            "fused_train": cfg.fused_train, "remat": cfg.remat,
            "fused_optimizer": tr._fused, "setup_s": round(setup_s, 3),
-           "warmup_s": round(warm_s, 3), "losses": losses,
+           "warmup_s": round(warm_s, 3), "graph": captured,
+           "graph_vs_eager": turns, "losses": losses,
            "step_ms_events": [round(x, 3) for x in step_ms],
            "step_ms_mean": round(float(np.mean(step_ms)), 3),
            "wall_ms_per_step": round(wall_ms, 3),
@@ -7493,6 +7617,10 @@ def train_phase(gpu, fused_train):
     emit(res)
     if tr._fused is not True:
         raise AssertionError("the train phase is not on the fused optimizer")
+    # replays: the capture's step, the timed steps and the profiled one
+    if prog.graph is None or captured["replays"] != TRAIN_STEPS + 2:
+        raise AssertionError(f"the train step is not one replayed graph: "
+                             f"{captured}")
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"train launches {counts} != {want}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
@@ -7838,8 +7966,15 @@ def models_full(gpu):
             "by_group": _rounded(groups)}
         state, r["host_profile"] = _host_profile(tr, state,
                                                  _on_card(host[0]))
+        prog = step_program(tr)
+        r["graph"] = {"capture_s": round(prog.capture_s, 3),
+                      "graph_nodes": prog.nodes, "replays": prog.replays}
+        # the eager twin on the same state, in turns
+        state, r["graph_vs_eager"] = graph_turns(
+            tr, state, _on_card(host[0]), device_ms, per)
         losses = warm["losses"] + run["losses"]
         r["ok"] = (r["launches_ok"] and tr._fused is True
+                   and prog.graph is not None
                    and all(np.isfinite(losses)))
         ok = ok and r["ok"]
         out["models"][name] = r
@@ -8051,6 +8186,316 @@ def models_only(gpu):
     for row in rows:
         row["gpu"] = gpu
     emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the train step as one captured CUDA graph a signature and state, against
+# its eager twin
+# ---------------------------------------------------------------------------
+GRAPH_TRAIN_STEPS = 6
+TURN_STEPS = 3
+
+
+def eager_trainer(tr):
+    """``tr`` with its step programs (``Trainer._step_program``) swapped for
+    eager twins: the same body over the same fixed tensors (batch buffers,
+    lr word, state), run at every step, nothing captured (EagerStep)."""
+    tr._step_program = lambda body: EagerStep(
+        types.SimpleNamespace(body=body))
+    return tr
+
+
+def twin_of(tr, eager=True, **kw):
+    """A trainer of ``tr``'s configuration that steps ``tr``'s state (no
+    ``init_state`` of its own: the optimizer path and the flat layout are
+    copied), eager (``eager_trainer``) or captured; ``kw``: observability
+    and the like."""
+    from paddle_tpu_torch.distributed import Trainer
+    hp = tr.hp
+    t = Trainer(tr.loss_fn, lr=tr.lr, b1=hp["b1"], b2=hp["b2"],
+                weight_decay=hp["wd"], grad_clip=hp["grad_clip"],
+                accumulate_steps=tr.accumulate_steps,
+                fused_optimizer=tr._fused, moment_dtype=tr.moment_dtype,
+                **kw)
+    t._fused, t._flat_meta = tr._fused, tr._flat_meta
+    return eager_trainer(t) if eager else t
+
+
+def step_program(tr):
+    """The trainer's one step program: it must have exactly one."""
+    progs = [entry[0] for entry in tr._programs.values()]
+    if len(progs) != 1:
+        raise AssertionError(f"{len(progs)} step programs, want 1")
+    return progs[0]
+
+
+def lr_schedule():
+    """lr changing at every step: a warm-up into a cosine decay."""
+    from paddle_tpu_torch.optimizer import lr
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=10),
+                           warmup_steps=3, start_lr=1e-5, end_lr=1e-4)
+
+
+def scheduled_steps(tr, state, batches):
+    """One step a batch, ``lr_schedule`` setting ``tr.lr`` before each;
+    every step's metrics kept and read only after the last step."""
+    import torch
+    sched, kept = lr_schedule(), []
+    for batch in batches:
+        tr.lr = sched()
+        state, m = tr.step(state, *batch)
+        sched.step()
+        kept.append(m)
+    torch.cuda.synchronize()
+    return state, [[float(m["loss"]), float(m["grad_norm"])] for m in kept]
+
+
+def _graph_cases():
+    """(name, loss, parameters, fused_optimizer, host batches) of the
+    2-layer f32 runs, one at a time: LLaMA at the train rung's widths (b
+    2, s 256) on both routes and on the per-leaf optimizer; GPT, BERT and
+    ViT at their published widths and the parity sizes. A different
+    seeded batch each step."""
+    import torch
+    from paddle_tpu_torch.models import init_params, llama
+    rng = np.random.default_rng(13)
+    for name, ft, fused in (("llama", None, None), ("llama_ref", "ref", None),
+                            ("llama_per_leaf", None, False)):
+        cfg = train_config(layers=2, dtype=torch.float32, fused_train=ft)
+        toks = [rng.integers(0, cfg.vocab_size, (2, 256))
+                for _ in range(GRAPH_TRAIN_STEPS)]
+        yield (name, (lambda p, t, l, cfg=cfg: llama.loss_fn(p, t, l, cfg)),
+               init_params(cfg, seed=4), fused,
+               [(t, np.roll(t, -1, -1)) for t in toks])
+    for i, name in enumerate(MODELS):
+        cfg = model_config(name, num_hidden_layers=2, dtype=torch.float32)
+        yield (name, model_loss(name, cfg),
+               model_params(name, cfg, seed=50 + i), None,
+               model_batches(name, cfg, GRAPH_TRAIN_STEPS, 60 + i,
+                             MODEL_PARITY[name]))
+
+
+def _train_graph_run(loss, base, fused, batches, eager):
+    """6 scheduled steps of a fresh trainer over ``base``: (its params,
+    each step's [loss, grad norm], what its program did)."""
+    import torch
+    from paddle_tpu_torch.distributed import Trainer
+    tr = Trainer(loss, fused_optimizer=fused)
+    if eager:
+        eager_trainer(tr)
+    state = tr.init_state(_params_like(base))
+    state, metrics = scheduled_steps(tr, state, batches)
+    prog = step_program(tr)
+    info = ({"calls": prog.calls} if eager else
+            {"captured": prog.graph is not None, "replays": prog.replays,
+             "capture_s": prog.capture_s, "graph_nodes": prog.nodes})
+    info.update(fused_optimizer=tr._fused, step=int(state.step),
+                lr_word=float(tr._lr_tensor()))
+    params = state.params
+    del state, tr
+    torch.cuda.empty_cache()
+    return params, metrics, info
+
+
+def _dropout_graph_check():
+    """A loss over flash attention with dropout 0.1 (f32, b 2, s 256, 4
+    heads of 64; q, k, v the batch scaled by learned per-channel weights)
+    through 4 captured steps: the warm-up draws its seed on the host, the
+    capture on the card, and each replay draws anew from the registered
+    generator. After each replay its seed (read from the word it drew)
+    and its attention output (copied out inside the step): the output
+    equal to the plain version at that seed (1e-5 of its largest
+    magnitude); every replay's seed and keep mask different."""
+    import torch
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.ops import flash_attention as tfa
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    b, s, h, d, rate = 2, 256, 4, 64, 0.1
+    probe = {k: torch.empty(b, s, h, d, device="cuda")
+             for k in ("q", "k", "v", "o")}
+    drawn = []
+    real_draw = tfa.draw_dropout_seed_on_device
+
+    def draw(device, generator=None):
+        word = real_draw(device, generator)
+        drawn.append(word)
+        return word
+
+    def loss(p, x):
+        q, k, v = x * p["wq"], x * p["wk"], x * p["wv"]
+        o = tfa.flash_attention(q, k, v, causal=True, dropout_rate=rate)
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+            probe[name].copy_(t.detach())
+        return (o * o).mean()
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((b, s, h, d), dtype=np.float32)
+    params = {n: torch.ones(d, device="cuda") + 0.1 * torch.as_tensor(
+        rng.standard_normal(d, dtype=np.float32), device="cuda")
+        for n in ("wq", "wk", "wv")}
+    tr = Trainer(loss, lr=1e-3)
+    state = tr.init_state(params)
+    tfa.draw_dropout_seed_on_device = draw
+    try:
+        replays = []
+        for i in range(4):
+            state, m = tr.step(state, x)
+            torch.cuda.synchronize()
+            if i == 0:
+                continue
+            seed = int(drawn[-1].item())
+            want = tfa._ref_attention(probe["q"], probe["k"], probe["v"],
+                                      causal=True, dropout_rate=rate,
+                                      dropout_seed=seed)
+            r = _held(probe["o"], want, torch.float32, 1e-5)
+            replays.append(dict(r, seed=seed, loss=float(m["loss"])))
+    finally:
+        tfa.draw_dropout_seed_on_device = real_draw
+    prog = step_program(tr)
+    seeds = [r["seed"] for r in replays]
+    qbh = torch.arange(b * h, device="cuda").reshape(b, h, 1, 1)
+    pos = torch.arange(s, device="cuda")
+    masks = [kfa.dropout_keep(sd, qbh, pos[:, None], pos[None, :], rate)
+             for sd in seeds]
+    distinct = all(not torch.equal(masks[i], masks[j])
+                   for i in range(len(masks)) for j in range(i))
+    out = {"draws_on_card": len(drawn), "seeds": seeds,
+           "masks_all_different": distinct, "replays": replays,
+           "captured": prog.graph is not None, "graph_replays": prog.replays,
+           "ok": (len(drawn) == 1 and prog.graph is not None
+                  and prog.replays == 3 and len(set(seeds)) == 3 and distinct
+                  and all(r["ok"] for r in replays))}
+    del state, tr, params, probe
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_graph_phase(gpu):
+    """Each 2-layer f32 case of ``_graph_cases`` captured against its eager
+    twin (module docstring, 11b): losses, grad norms and parameters bit
+    for bit, one capture and a replay at every step after the second;
+    then ``_dropout_graph_check``."""
+    import torch
+    from paddle_tpu_torch.distributed.trainer import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    res = {"phase": "train_graph", "gpu": gpu, "dtype": "float32",
+           "layers": 2, "steps": GRAPH_TRAIN_STEPS, "cases": {}}
+    ok = True
+    for name, loss, base, fused, batches in _graph_cases():
+        got, got_m, g_info = _train_graph_run(loss, base, fused, batches,
+                                              False)
+        want, want_m, t_info = _train_graph_run(loss, base, fused, batches,
+                                                True)
+        leaves = list(zip(tree_leaves(got), tree_leaves(want)))
+        differ = [i for i, (a, b) in enumerate(leaves)
+                  if not torch.equal(a, b)]
+        r = {"metrics_captured": got_m, "metrics_eager": want_m,
+             "metrics_equal": got_m == want_m, "params": len(leaves),
+             "params_not_equal": differ, "graph": g_info, "twin": t_info}
+        r["ok"] = (r["metrics_equal"] and not differ
+                   and g_info["captured"]
+                   and g_info["replays"] == GRAPH_TRAIN_STEPS - 1
+                   and t_info["calls"] == GRAPH_TRAIN_STEPS
+                   and g_info["step"] == t_info["step"] == GRAPH_TRAIN_STEPS
+                   and g_info["lr_word"] == t_info["lr_word"])
+        ok = ok and r["ok"]
+        res["cases"][name] = r
+        del got, want, base
+        torch.cuda.empty_cache()
+    res["dropout"] = _dropout_graph_check()
+    res["ok"] = ok and res["dropout"]["ok"]
+    res["seconds"] = round(time.perf_counter() - t0, 1)
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("train graph phase failed (its line above)")
+
+
+def graph_turns(tr, state, batch, device_ms, per):
+    """The captured trainer ``tr`` (already warm and captured) against its
+    eager twin on ``tr``'s state, in turns after one untimed twin step
+    (eager, captured, captured, eager; ``TURN_STEPS`` steps each on the
+    on-card ``batch``): each
+    kind's step ms (host wall to the turn's last step's end over its
+    steps, mean of its two turns), items/s (``per`` a step) and busy share
+    (``device_ms``, the profiled replay's device time, over step ms); the
+    twin's peak memory above what was allocated when its first turn
+    began and one profiled eager step's device ms; the captured program's
+    capture seconds and graph nodes. Then one observed trainer of each
+    kind on the same state: 2 warm-up steps (the captured one's warm-up
+    and capture), ``TURN_STEPS`` measured: the observed ``dispatch_ms``
+    (mean) and, captured, the capture its watcher recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    twin = twin_of(tr)
+    # the twin's first step outside the turns (its buffers, the allocator
+    # growing to its activations), as the captured trainer is warm
+    state, _ = twin.step(state, *batch)
+    times = {"captured": [], "eager": []}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for kind in ("eager", "captured", "captured", "eager"):
+        t = twin if kind == "eager" else tr
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TURN_STEPS):
+            state, _ = t.step(state, *batch)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3 / TURN_STEPS)
+    twin_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = twin.step(state, *batch)
+        torch.cuda.synchronize()
+    kern, _ = _device_groups(prof, 1)
+    eager_dev = sum(ms for ms, _ in kern.values())
+    prog = step_program(tr)
+    out = {}
+    for kind, dev in (("captured", device_ms), ("eager", eager_dev)):
+        ms = float(np.mean(times[kind]))
+        out[kind] = {"step_ms_turns": [round(x, 3) for x in times[kind]],
+                     "step_ms": round(ms, 3),
+                     "items_per_sec": round(per / ms * 1e3, 1),
+                     "device_ms": round(dev, 3),
+                     "busy_share": round(dev / ms, 4)}
+    out["captured"].update(capture_s=round(prog.capture_s, 3),
+                           graph_nodes=prog.nodes, replays=prog.replays)
+    out["eager"]["peak_memory_gb"] = round(twin_peak, 3)
+    for kind in ("captured", "eager"):
+        # the gap detector off: the eager twin's host-bound steps are what
+        # is measured here, not a finding
+        obs = twin_of(tr, eager=kind == "eager", observability=True,
+                      host_gap_factor=float("inf"))
+        for _ in range(2):
+            state, _ = obs.step(state, *batch)
+        obs.reset_metrics()
+        for _ in range(TURN_STEPS):
+            state, _ = obs.step(state, *batch)
+        m = obs.metrics()
+        out[kind]["observed_dispatch_ms"] = round(
+            m["latency"]["dispatch_ms"]["mean"], 3)
+        out[kind]["observed_step_ms"] = round(
+            m["latency"]["step_ms"]["mean"], 3)
+        if kind == "captured":
+            out[kind]["observed_captures"] = m["compile"]["programs"][
+                "train_step"].get("captures")
+        del obs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return state, out
+
+
+def train_graph_only(gpu):
+    """``python3 chip_smoke.py train_graph``: the build and the train graph
+    phase alone."""
+    import torch
+    build_kernels()
+    train_graph_phase(gpu)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -8290,14 +8735,16 @@ def main(argv=()):
         return obs_only(gpu)
     if list(argv) == ["models"]:
         return models_only(gpu)
+    if list(argv) == ["train_graph"]:
+        return train_graph_only(gpu)
     if argv and argv[0] == "tp_parity" and (
             len(argv) == 1 or (len(argv) == 3 and argv[1] == "--repeat"
                                and argv[2].isdigit())):
         return tp_parity_only(gpu, int(argv[2]) if len(argv) == 3 else 1)
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}; run it with "
-              "none, or with 'prefix', 'disagg', 'obs', 'models' or "
-              "'tp_parity [--repeat N]'", file=sys.stderr)
+              "none, or with 'prefix', 'disagg', 'obs', 'models', "
+              "'train_graph' or 'tp_parity [--repeat N]'", file=sys.stderr)
         return 2
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
@@ -8316,6 +8763,9 @@ def main(argv=()):
     path_counts = [varlen_path_phase(gpu), bias_path_phase(gpu)]
     train_rows += fused_train_phase(gpu)
     train_parity_phase(gpu)
+    # this slice's main path: the train step as one captured CUDA graph,
+    # against its eager twin, with lr and the dropout seed read on the card
+    train_graph_phase(gpu)
     # the plans of the default train route's launches (the gate audits
     # them after the serving phases); the backward's run on autograd's
     # device thread

@@ -129,10 +129,11 @@ def _adamw_case(n, grad_dt, m_dt, shadow):
         from ..ops.kernels import fused_adamw
 
         def fn():
+            # lr the trainer's f32 word, read by the kernel on the device
             fused_adamw.fused_adamw_triton(
                 _meta((n,), "float32"), _meta((n,), grad_dt),
-                _meta((n,), m_dt), _meta((n,), m_dt), 1e-3, 2,
-                shadow_dtype=getattr(torch, shadow) if shadow else None)
+                _meta((n,), m_dt), _meta((n,), m_dt), _meta((), "float32"),
+                2, shadow_dtype=getattr(torch, shadow) if shadow else None)
         return fn
     return build
 
@@ -154,7 +155,8 @@ def _flash_case(B, S, H, KVH, hd, dtype, causal=True, sk=None, bias=None,
                 seg=False, dbias=False, dropout=False):
     """The three flash launches; ``bias``: its (batch, head) extents (a
     [bias_b, bias_h, S, sk] f32 bias), ``dbias`` its gradient body,
-    ``seg`` segment ids, ``dropout`` a rate of 0.1."""
+    ``seg`` segment ids, ``dropout`` a rate of 0.1 (the seed an int32
+    word on the device, as a captured step draws it)."""
     sk = S if sk is None else sk
 
     def build():
@@ -163,7 +165,8 @@ def _flash_case(B, S, H, KVH, hd, dtype, causal=True, sk=None, bias=None,
         def fn():
             q, k = _meta((B, S, H, hd), dtype), _meta((B, sk, KVH, hd), dtype)
             st = _meta((B, H, S), "float32")
-            kw = {"rate": 0.1 if dropout else 0.0, "seed": 7}
+            kw = {"rate": 0.1 if dropout else 0.0,
+                  "seed": _meta((1,), "int32") if dropout else 0}
             if bias is not None:
                 kw["bias"] = _meta((*bias, S, sk), "float32")
             if seg:

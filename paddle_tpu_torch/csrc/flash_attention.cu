@@ -181,9 +181,16 @@ struct Extras {
   const int* seg_q;    // [b, sq] segment ids, or null (then seg_k too)
   const int* seg_k;    // [b, sk]
   float* dbias;        // dq pass: [b*h, sq, sk] f32, or null
-  uint32_t seed;       // dropout: the hash's seed, the rate and 1/(1-rate)
-  float rate, inv;
+  const int* seed;     // dropout: the hash's seed (one int32 word in device
+  float rate, inv;     // memory, or null), the rate and 1/(1-rate)
 };
+
+// The dropout seed, read from device memory as the TPU kernels read
+// seed_ref[0]: a replayed CUDA graph reads the word its call wrote. An
+// invariant load, so the compiler keeps it out of the keep-mask loops.
+__device__ __forceinline__ uint32_t seed_of(const Extras& x) {
+  return (uint32_t)__ldg(x.seed);
+}
 
 // The bias plane of query head (bi, hi), or null.
 __device__ __forceinline__ const float* bias_plane(const Extras& x, int bi,
@@ -345,7 +352,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ps += p;
         float pd = p;   // P V takes the dropped P; l the undropped one
         if (kX && x.rate > 0.f)
-          pd = dropout_keep(x.seed, bh, r, k0 + tx + 16 * j, x.rate)
+          pd = dropout_keep(seed_of(x), bh, r, k0 + tx + 16 * j, x.rate)
                    ? __fmul_rn(p, x.inv)
                    : 0.f;
         p_s[(ty * 4 + i) * kLdP + tx + 16 * j] = round_to<T>(pd);
@@ -427,7 +434,7 @@ __device__ __forceinline__ void probs_and_ds(
       const float pr = ok ? expf(s - lse_s[rl]) : 0.f;
       float dpv = dp[i][j], pd = pr;
       if (x.rate > 0.f) {
-        const bool kp = dropout_keep(x.seed, qbh, r, c, x.rate);
+        const bool kp = dropout_keep(seed_of(x), qbh, r, c, x.rate);
         dpv = kp ? __fmul_rn(dpv, x.inv) : 0.f;
         pd = kp ? __fmul_rn(pr, x.inv) : 0.f;
       }
@@ -984,7 +991,7 @@ fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          keep |= (uint32_t)dropout_keep(x.seed, bh, rows[e >> 1],
+          keep |= (uint32_t)dropout_keep(seed_of(x), bh, rows[e >> 1],
                                          k0 + n * 8 + 2 * t4 + (e & 1),
                                          x.rate) << (4 * n + e);
     }
@@ -1218,7 +1225,7 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int n = 0; n < 8; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            keep |= (uint32_t)dropout_keep(x.seed, bh, rows[e >> 1],
+            keep |= (uint32_t)dropout_keep(seed_of(x), bh, rows[e >> 1],
                                            k0 + n * 8 + 2 * t4 + (e & 1),
                                            x.rate) << (4 * n + e);
       }
@@ -1458,7 +1465,7 @@ dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               keep |= (uint32_t)dropout_keep(
-                          x.seed, qbh, q0 + r0 + n * 8 + 2 * t4 + (e & 1),
+                          seed_of(x), qbh, q0 + r0 + n * 8 + 2 * t4 + (e & 1),
                           keys[e >> 1], x.rate)
                       << (4 * n + e);
         }
@@ -1662,10 +1669,11 @@ inline bool aligned16(std::initializer_list<const void*> ps) {
 
 inline Extras make_extras(const void* bias, int bias_b, int bias_h,
                           const void* seg_q, const void* seg_k, void* dbias,
-                          long long seed, float rate, float inv) {
+                          const void* seed, float rate, float inv) {
   return Extras{static_cast<const float*>(bias), bias_b, bias_h,
                 static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
-                static_cast<float*>(dbias), (uint32_t)seed, rate, inv};
+                static_cast<float*>(dbias), static_cast<const int*>(seed),
+                rate, inv};
 }
 
 }  // namespace flash
@@ -1680,16 +1688,17 @@ inline Extras make_extras(const void* bias, int bias_b, int bias_h,
 // not 16-byte aligned: cudaErrorMisalignedAddress). The optional bodies:
 // bias (f32, or
 // null) with its batch and head extents bias_b, bias_h; seg_q, seg_k
-// (int32, or both null); dbias (dq pass, or null); the dropout seed (its
-// low 32 bits), rate and inv = 1 / (1 - rate) (rate 0: no dropout). Each
-// returns its launch's cudaError_t.
+// (int32, or both null); dbias (dq pass, or null); the dropout seed (one
+// int32 word in device memory, read by the kernel; null when rate is 0),
+// rate and inv = 1 / (1 - rate) (rate 0: no dropout; a rate without a
+// seed: cudaErrorInvalidValue). Each returns its launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* bias,
                                    const void* seg_q, const void* seg_k,
                                    void* o, void* lse, int b, int h, int kvh,
                                    int sq, int sk, int d, int block,
                                    int smem, int bias_b, int bias_h,
-                                   long long seed, float scale, float rate,
+                                   const void* seed, float scale, float rate,
                                    float inv, int causal, int dtype,
                                    void* stream) {
   using namespace paddle_tpu_torch::flash;
@@ -1697,6 +1706,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                                seg_q != nullptr)
                                  : fwd_smem(d);
   if (block != kB || (size_t)smem != want) return cudaErrorInvalidValue;
+  if (rate > 0.f && seed == nullptr) return cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Extras x = make_extras(bias, bias_b, bias_h, seg_q, seg_k, nullptr,
@@ -1719,7 +1729,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       void* dbias, int b, int h, int kvh,
                                       int sq, int sk, int d, int block,
                                       int smem, int bias_b, int bias_h,
-                                      long long seed, float scale,
+                                      const void* seed, float scale,
                                       float rate, float inv, int causal,
                                       int dtype, void* stream) {
   using namespace paddle_tpu_torch::flash;
@@ -1727,6 +1737,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                               seg_q != nullptr)
                                  : dq_smem(d);
   if (block != kB || (size_t)smem != want) return cudaErrorInvalidValue;
+  if (rate > 0.f && seed == nullptr) return cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Extras x = make_extras(bias, bias_b, bias_h, seg_q, seg_k, dbias,
@@ -1749,7 +1760,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int b, int h, int kvh, int sq, int sk,
                                        int d, int block, int smem,
                                        int bias_b, int bias_h,
-                                       long long seed, float scale,
+                                       const void* seed, float scale,
                                        float rate, float inv, int causal,
                                        int dtype, void* stream) {
   using namespace paddle_tpu_torch::flash;
@@ -1757,6 +1768,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                                seg_q != nullptr)
                                  : dkv_smem(d);
   if (block != kB || (size_t)smem != want) return cudaErrorInvalidValue;
+  if (rate > 0.f && seed == nullptr) return cudaErrorInvalidValue;
   if (b == 0 || sk == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Extras x = make_extras(bias, bias_b, bias_h, seg_q, seg_k, nullptr,

@@ -5,8 +5,8 @@
 // "paged_attention_decode"): one query token per sequence attends over
 // that sequence's pages of the paged K/V pools, read through its block
 // table, with grouped-query attention (groups = H / KV query heads share
-// one KV head), scale 1/sqrt(hd), an f32 online softmax, and exact zeros
-// for a sequence of length 0.
+// one KV head), the caller's scale (1/sqrt(hd) by default), an f32
+// online softmax, and exact zeros for a sequence of length 0.
 //
 //   q            [B, H, hd]        f32 or bf16
 //   k_pool/v_pool[N, BS, KV, hd]   same type as q

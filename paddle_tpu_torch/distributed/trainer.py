@@ -2,11 +2,28 @@
 
 ``Trainer(loss_fn, lr=..., ...)`` runs ``loss_fn(params, *batch)``, its
 gradient and a functional AdamW with f32 master weights, one step per
-:meth:`Trainer.step`. PyTorch runs eagerly, so the JAX package's jitted
-step program is the step body itself (:meth:`Trainer._step_body`), and
-the state is updated IN PLACE: parameters, master and moments keep their
-storage from step to step, which is what donation buys the JAX step
-(``donate`` is accepted and needs nothing more).
+:meth:`Trainer.step`. The state is updated IN PLACE: parameters, master,
+moments and the step count keep their storage from step to step, which
+is what donation buys the JAX step (``donate`` is accepted and needs
+nothing more).
+
+The step is one program, as the JAX package jits its step into one
+donated program: on CUDA one captured CUDA graph a step signature and
+state (:class:`..inference.program.Program` over the step body
+:meth:`Trainer._step_body`). A key's first step runs eagerly on the
+trainer's side stream (the warm-up: kernels built, Triton compiled), its
+second captures the graph (one memory pool shared by the trainer's
+graphs), and every step after that is one replay; a capture that fails
+raises with CUDA's error. The graph reads only fixed tensors: the state,
+the batch buffers of its key (each step's batch copied in before the
+replay), and the trainer's one f32 lr word (a changed ``lr`` written
+into it outside the graph; ``fused_adamw`` and the per-leaf update read
+it on the device). ``loss`` and ``grad_norm`` are copied out of the
+graph's pool after each step, so a step's metrics outlive the next one.
+On the CPU the body runs at every step. The key is the signature (batch
+shapes and types, the registry's pins, the optimizer path,
+``accumulate_steps``) and the state's tensors: a second
+:meth:`init_state` gets a program of its own.
 
 The optimizer has the JAX package's two paths:
 
@@ -23,15 +40,18 @@ The optimizer has the JAX package's two paths:
 
 ``observability=True`` (or an ``Observability`` instance) runs the
 OBSERVED step, as the JAX trainer's: the same step body, phase-timed into
-``stage_ms`` (the batch's host-to-device staging), ``dispatch_ms`` (the
-host's enqueue of the whole eager step: forward, ``torch.autograd.grad``
-and the optimizer update; a new signature's kernel builds excluded) and
+``stage_ms`` (the batch's staging into the key's buffers),
+``dispatch_ms`` (the host's enqueue of the step: one replay, or the
+warm-up's eager forward, ``torch.autograd.grad`` and optimizer update; a
+new signature's kernel builds and a capture excluded) and
 ``sync_ms`` (the wait for the step's end: one CUDA event and its
 ``synchronize()``, the observed step's one sync, as the JAX trainer's
 ``block_until_ready``); loss, grad-norm and live-memory gauges; the step
 telemetry of ``observability/compile.py`` (kernel-build time, counted
-FLOPs and counted-FLOPs MFU, the memory breakdown, new signatures after
-``reset_metrics()`` warned as retraces); and the host-vs-device gap
+FLOPs and counted-FLOPs MFU and the memory breakdown, probed on a
+signature's warm-up; each capture's seconds and graph nodes; new
+signatures after ``reset_metrics()`` warned as retraces, a new state's
+capture not); and the host-vs-device gap
 detector, which dumps when the host's time dwarfs the wait. The step
 body reads no tensor on the host. ``telemetry=`` adds the telemetry plane
 (implies observability). Disabled, the trainer holds ``None`` and
@@ -47,12 +67,14 @@ Not ported here (raise ``NotImplementedError`` unless off): ``mesh``,
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..inference.program import Program
 from ..observability import (TRAIN_HISTOGRAMS, CompileWatcher,
                              HostGapDetector, Observability,
                              TelemetryConfig, TelemetryPlane,
@@ -85,7 +107,8 @@ def tree_unflatten(like, leaves):
 
 class TrainState:
     """params (model dtype) + f32 master + moments + the step count (an
-    int32 0-d tensor on the device)."""
+    int32 0-d tensor on the device), each updated in place by every step:
+    a captured step writes the tensors it was captured with."""
 
     def __init__(self, params, master, mu, nu, step):
         self.params = params
@@ -100,11 +123,12 @@ class TrainState:
 
 def _adamw_update(grads, state: Tuple, lr, b1=0.9, b2=0.95, eps=1e-8,
                   wd=0.1, grad_clip=1.0):
-    """The per-leaf AdamW of the JAX package, in place: ``lr`` an f32 0-d
-    tensor; bias corrections ``1 - f32(b)**f32(step)``; moments kept in
-    their stored type; params written from the new master."""
+    """The per-leaf AdamW of the JAX package, in place (the step count
+    too: a captured step reads its address): ``lr`` an f32 0-d tensor;
+    bias corrections ``1 - f32(b)**f32(step)``; moments kept in their
+    stored type; params written from the new master."""
     params, master, mu, nu, step = state
-    step = step + 1
+    step.add_(1)
     flat_g = tree_leaves(grads)
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                            for g in flat_g))
@@ -168,7 +192,15 @@ class Trainer:
         self._fused_opt = fused_optimizer
         self._fused = False
         self._flat_meta = None
-        self._lr_cache = None
+        # the one f32 lr word the step reads, and the value written in it
+        self._lr_word: Optional[torch.Tensor] = None
+        self._lr_value: Optional[float] = None
+        # the step programs by (signature, state) and what each reads and
+        # writes (module docstring); on CUDA the side stream their
+        # warm-ups and captures run on and the pool their graphs share
+        self._programs: Dict[Tuple, Tuple] = {}
+        self._stream = None
+        self._pool = None
         self.moment_dtype = moment_dtype
         self.counters = {"steps": 0, "samples": 0, "tokens": 0}
         self._t_first: Optional[float] = None
@@ -291,15 +323,13 @@ class Trainer:
         hp = self.hp
         with torch.no_grad():
             if self._fused:
-                # lr as a Python float: the kernel takes it as an f32
-                # argument, with no device read
-                gnorm = self._fused_update(grads, state, self.lr)
+                # lr the f32 word: the kernel reads it on the device
+                gnorm = self._fused_update(grads, state, lr)
             else:
-                tree, gnorm = _adamw_update(
+                _, gnorm = _adamw_update(
                     tree_unflatten(params, grads), state.tree(), lr,
                     b1=hp["b1"], b2=hp["b2"], eps=1e-8, wd=hp["wd"],
                     grad_clip=hp["grad_clip"])
-                state.step = tree[4]
         return {"loss": loss, "grad_norm": gnorm}
 
     def _fused_update(self, grads, state: TrainState, lr):
@@ -308,7 +338,7 @@ class Trainer:
         from ..ops.kernels.fused_adamw import adamw_update
         hp = self.hp
         sizes, pdtype, pad = self._flat_meta
-        state.step = state.step + 1
+        state.step.add_(1)
         # the low-precision type only when every grad has it (lossless);
         # a mixed tree concatenates in f32
         gdt = (pdtype if pdtype is not None
@@ -335,10 +365,13 @@ class Trainer:
             off += sz
         return gnorm
 
-    def _stage(self, b):
+    def _stage(self, b) -> torch.Tensor:
+        """A batch array as a tensor where it lies (numpy on the CPU, a
+        prefetched batch on the device): :meth:`_load` copies it into the
+        step's buffer."""
         if isinstance(b, torch.Tensor):
-            return b.to(self.device)
-        return torch.as_tensor(np.asarray(b), device=self.device)
+            return b
+        return torch.as_tensor(np.asarray(b))
 
     def _count_step(self, batch, t_end: float):
         """samples = leading batch dims, tokens = the element count of
@@ -354,17 +387,89 @@ class Trainer:
         self._t_last = t_end
 
     def _lr_tensor(self) -> torch.Tensor:
-        """lr as an f32 0-d tensor on the device: one copy when it
-        changes, not one a step."""
-        if self._lr_cache is None or self._lr_cache[0] != self.lr:
-            self._lr_cache = (self.lr, torch.tensor(
-                self.lr, dtype=torch.float32, device=self.device))
-        return self._lr_cache[1]
+        """The trainer's one f32 lr word on the device, which every step
+        program reads: a changed ``self.lr`` is written into it by one
+        fill on the stream (no copy from the host), outside the graph, as
+        the JAX trainer makes one ``jnp.float32`` a change."""
+        if self._lr_word is None:
+            self._lr_word = torch.zeros((), dtype=torch.float32,
+                                        device=self.device)
+        lr = float(self.lr)
+        if self._lr_value != lr:
+            self._lr_word.fill_(lr)
+            self._lr_value = lr
+        return self._lr_word
+
+    def _state_key(self, state: TrainState) -> Tuple:
+        """The identity of ``state``'s tensors (addresses, shapes, types):
+        a program writes the tensors it was captured with."""
+        return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                     for part in state.tree() for t in tree_leaves(part))
+
+    def _step_program(self, body):
+        """The program of one step key over ``body`` (chip_smoke.py swaps
+        in an eager twin here): on CUDA on the trainer's side stream, its
+        graph in the trainer's shared pool, its launch plans recorded on
+        every thread (the backward runs on autograd's)."""
+        if self.device.type == "cuda" and self._stream is None:
+            with torch.cuda.device(self.device):
+                self._stream = torch.cuda.Stream(self.device)
+                self._pool = torch.cuda.graph_pool_handle()
+        return Program(body, self.device, self._stream, None,
+                       pool=self._pool, all_threads=True)
+
+    def _program(self, state: TrainState, key, staged):
+        """The step program of (``key``, ``state``), made at its first
+        step: (program, its batch buffers, the dict its body fills with
+        the step's metrics)."""
+        pkey = (key, self._state_key(state))
+        entry = self._programs.get(pkey)
+        if entry is None:
+            bufs = tuple(torch.empty(b.shape, dtype=b.dtype,
+                                     device=self.device) for b in staged)
+            out: Dict = {}
+            word = self._lr_tensor()
+            trainer = weakref.ref(self)   # no cycle through the program
+
+            def body():
+                out.update(trainer()._step_body(state, word, bufs))
+            entry = self._programs[pkey] = (self._step_program(body),
+                                            bufs, out)
+        return entry
+
+    def _load(self, state: TrainState, batch):
+        """The step's batch into its program's buffers (on the stream,
+        before the replay): (the staged batch, the signature, the
+        program's entry)."""
+        staged = tuple(self._stage(b) for b in batch)
+        key = self._signature(staged)
+        entry = self._program(state, key, staged)
+        for buf, b in zip(entry[1], staged):
+            buf.copy_(b)
+        return staged, key, entry
+
+    @staticmethod
+    def _run(prog) -> Optional[float]:
+        """One step of ``prog``: the capture first where it is due (the
+        key's second step on CUDA); returns the capture's seconds, or None
+        when this step captured nothing."""
+        fresh = getattr(prog, "graph", None) is None
+        prog.prepare()
+        prog()
+        return (prog.capture_s if fresh
+                and getattr(prog, "graph", None) is not None else None)
+
+    @staticmethod
+    def _metrics(out) -> Dict:
+        """The step's metrics, copied out of the program's outputs (the
+        next replay overwrites those)."""
+        return {k: v.clone() for k, v in out.items()}
 
     def step(self, state: TrainState, *batch) -> Tuple[TrainState, Dict]:
         """One training step; ``state`` is updated in place and returned.
         The metrics ``loss`` and ``grad_norm`` are 0-d device tensors
-        (reading them synchronises)."""
+        (reading them synchronises), the step's own (the next step does
+        not change them)."""
         if self._obs is not None:
             out = self._step_observed(state, batch)
             if self._telemetry is not None:
@@ -372,17 +477,20 @@ class Trainer:
             return out
         if self._t_first is None:
             self._t_first = time.perf_counter()
-        batch = tuple(self._stage(b) for b in batch)
-        metrics = self._step_body(state, self._lr_tensor(), batch)
-        self._count_step(batch, time.perf_counter())
+        staged, _, (prog, _, out) = self._load(state, batch)
+        self._lr_tensor()                  # a changed lr into its word
+        self._run(prog)
+        metrics = self._metrics(out)
+        self._count_step(staged, time.perf_counter())
         return state, metrics
 
     # -- observed step (enabled mode) ---------------------------------------
     def _signature(self, staged) -> Tuple:
-        """The step's signature, the key of the step telemetry: the batch
-        shapes and dtypes, the registry's force pins, the optimizer path
-        and the accumulation count (what makes the eager step run other
-        kernels or other shapes)."""
+        """The step's signature, the key of the step telemetry and, with
+        the state's identity, of the step programs: the batch shapes and
+        dtypes, the registry's force pins, the optimizer path and the
+        accumulation count (what makes the step run other kernels or other
+        shapes)."""
         from ..ops.kernels.registry import KERNELS
         return (tuple((tuple(b.shape), b.dtype) for b in staged),
                 KERNELS.forced_state(), self._fused,
@@ -399,42 +507,48 @@ class Trainer:
 
     def _step_observed(self, state: TrainState, batch
                        ) -> Tuple[TrainState, Dict]:
-        """The enabled-mode step: the same step body, phase-timed into
-        stage (batch h2d), dispatch (the eager step's enqueue returning)
-        and sync (the wait for its end) — the split the host-vs-device gap
-        detector reads. A new signature's first step runs under the
-        watcher's probe (kernel builds timed and left out of dispatch,
-        FLOPs counted, memory read): the same numerics; the gap detector
-        skips that step."""
+        """The enabled-mode step: the same program, phase-timed into
+        stage (the batch into the key's buffers), dispatch (the replay's
+        enqueue, or the warm-up's eager one) and sync (the wait for its
+        end) — the split the host-vs-device gap detector reads. A new
+        signature's first step (its warm-up) runs under the watcher's
+        probe (kernel builds timed and left out of dispatch, FLOPs
+        counted, memory read): the same numerics; a capture is timed,
+        recorded with its graph nodes and left out of dispatch too; the
+        gap detector skips both steps."""
         obs = self._obs
         t0 = obs.now()
         if self._t_first is None:
             self._t_first = t0
-        staged = tuple(self._stage(b) for b in batch)
+        staged, key, (prog, bufs, out) = self._load(state, batch)
         t_stage = obs.now()
         lr = self._lr_tensor()
-        key = self._signature(staged)
         compile_ms = 0.0
         first = not self._compile.known("train_step", key)
         if not first:
-            metrics = self._step_body(state, lr, staged)
+            capture_s = self._run(prog)
         else:
             state_tensors = [t for part in state.tree()
                              for t in tree_leaves(part)]
             outputs = list(state_tensors)
             with self._compile.first_step(
                     "train_step", key, self.device,
-                    inputs=state_tensors + [lr, *staged],
+                    inputs=state_tensors + [lr, *bufs],
                     outputs=outputs, aliased=state_tensors) as probe:
-                metrics = self._step_body(state, lr, staged)
-                outputs += list(metrics.values())
+                capture_s = self._run(prog)
+                outputs += list(out.values())
             compile_ms = probe.wall_s * 1e3
+        metrics = self._metrics(out)
+        if capture_s is not None:
+            self._compile.record_capture("train_step", capture_s,
+                                         getattr(prog, "nodes", None))
+            compile_ms += capture_s * 1e3
         t_disp = obs.now()
         self._wait()
         t_sync = obs.now()
         stage_ms = (t_stage - t0) * 1e3
         # dispatch = the step's enqueue; a new signature's kernel builds
-        # are timed by the watcher and excluded here rather than
+        # and a capture are timed apart and excluded here rather than
         # masquerading as dispatch work
         dispatch_ms = max((t_disp - t_stage) * 1e3 - compile_ms, 0.0)
         sync_ms = (t_sync - t_disp) * 1e3
@@ -460,8 +574,8 @@ class Trainer:
             sync_ms=round(sync_ms, 3), loss=round(loss, 6))
         # a signature's first step is not judged: its dispatch carries the
         # watcher's counting (the JAX trainer's compile, which it leaves
-        # out of dispatch too)
-        finding = (None if first else
+        # out of dispatch too); nor is a capture's
+        finding = (None if first or capture_s is not None else
                    self._gap.observe(step_idx, stage_ms, dispatch_ms,
                                      sync_ms))
         if finding is not None:

@@ -123,12 +123,15 @@ def _head(params):
 
 
 def init_cache(cfg: _llama.LlamaConfig, batch: int, max_len: int,
-               device=None):
+               dtype=None, device=None):
+    """The dense (k, v) caches [L, batch, max_len, KV, hd], zeros of
+    ``dtype`` (default ``cfg.dtype``), as the JAX package's."""
     device = resolve_device(device)
+    dtype = dtype or cfg.dtype
     shape = (cfg.num_hidden_layers, batch, max_len,
              cfg.num_key_value_heads, cfg.head_dim)
-    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
-            torch.zeros(shape, dtype=cfg.dtype, device=device))
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _positions(pos, s, device):

@@ -1,10 +1,12 @@
-"""A step of a serving loop as one program (the JAX package's ``jax.jit``
-of a step): a body that reads and writes only fixed buffers, run eagerly
-once on CUDA, then captured as one CUDA graph and replayed.
+"""A step as one program (the JAX package's ``jax.jit`` of a step): a
+body that reads and writes only fixed buffers, run eagerly once on CUDA,
+then captured as one CUDA graph and replayed.
 
 The serving engine's decode step and its prefill chunk (one program a
-bucket and route key, ``inference/serving.py``) and ``generate_paged``'s
-decode steps (``inference/generation.py``) are such programs.
+bucket and route key, ``inference/serving.py``), ``generate_paged``'s
+decode steps (``inference/generation.py``) and the trainer's step (one
+program a signature and state, ``distributed/trainer.py``) are such
+programs.
 """
 from __future__ import annotations
 
@@ -44,18 +46,26 @@ class Program:
     wrappers recorded are kept (``launches``, ``specs``), added to the
     counts and reported to an active ``capture_kernel_launches`` at each
     replay (through ``respec``, a call's own plans where they differ from
-    the captured call's). ``on_capture`` is called once the graph is
-    captured (the callers' trace counters). A capture that fails raises
-    with CUDA's error."""
+    the captured call's). ``all_threads``: the body launches on other
+    threads too (a train step's backward runs on autograd's device
+    thread), so the capture records every thread's plans, hidden from
+    every other capture while it lasts, and CUDA's capture checks only
+    the capturing thread ("thread_local"): another thread of the process
+    (a prefetch thread pinning and copying the next batch) keeps working,
+    while autograd's thread launches into the captured stream.
+    ``on_capture`` is called once the graph is captured (the callers'
+    trace counters). A capture that fails raises with CUDA's error."""
 
     def __init__(self, body, device, stream, generator,
-                 on_capture: Optional[Callable[[], None]] = None, pool=None):
+                 on_capture: Optional[Callable[[], None]] = None, pool=None,
+                 all_threads: bool = False):
         self.body = body
         self.device = device
         self._stream = stream
         self._gen = generator
         self._on_capture = on_capture
         self._pool = pool
+        self._all_threads = all_threads
         self._warm = False
         self.graph = None
         self.replays = 0
@@ -102,9 +112,12 @@ class Program:
         if self._gen is not None:
             graph.register_generator_state(self._gen)
         with kernels.launches_apart() as launches, \
-                _launch.capture_kernel_launches(isolated=True) as specs:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
+                _launch.capture_kernel_launches(
+                    isolated=True, all_threads=self._all_threads) as specs:
+            with torch.cuda.graph(
+                    graph, pool=self._pool, stream=self._stream,
+                    capture_error_mode=("thread_local" if self._all_threads
+                                        else "global")):
                 self.body()
         graph.instantiate()
         self.nodes = graph_nodes(graph)

@@ -267,6 +267,23 @@ class CompileWatcher:
                     "dtype leak in the batch stream retraces every "
                     "occurrence", RuntimeWarning, stacklevel=4)
 
+    def record_capture(self, name: str, seconds: float,
+                       nodes: Optional[int] = None):
+        """Record a capture of program ``name`` as one CUDA graph (the
+        port's counterpart of the executable a JAX compile builds): its
+        seconds and graph nodes, listed under ``programs[name]
+        ["captures"]`` and stamped on the timeline. A capture is not a
+        retrace: a new state's program captures a known signature, and a
+        new signature has already warned at its first step."""
+        rec = self.programs.setdefault(name, {
+            "count": 0, "wall_s_total": 0.0, "wall_s_last": 0.0,
+            "cost": None, "memory": None})
+        rec.setdefault("captures", []).append(
+            {"capture_ms": round(seconds * 1e3, 3), "graph_nodes": nodes})
+        if self.timeline is not None:
+            self.timeline.record("capture", program=name,
+                                 dur_ms=seconds * 1e3, graph_nodes=nodes)
+
     def arm(self):
         """Declare warmup complete: further new signatures warn + count.
         Re-arming restarts the retrace window — a fixed leak's old
@@ -310,6 +327,8 @@ class CompileWatcher:
                 "wall_ms_last": round(r["wall_s_last"] * 1e3, 3),
                 **({"cost": r["cost"]} if r["cost"] else {}),
                 **({"memory": r["memory"]} if r["memory"] else {}),
+                **({"captures": list(r["captures"])}
+                   if r.get("captures") else {}),
             }
         return {"count": self.total_compiles,
                 "retraces_after_warmup": len(self.retrace_events),

@@ -50,8 +50,12 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
         t, sin, cos, position_ids, use_neox_rotary_style) for t in (q, k, v))
 
 
-def swiglu(a, b):
-    return F.silu(a) * b
+def swiglu(x, y=None):
+    """``silu(x) * y``; with ``y`` None, ``x`` split in two halves on its
+    last axis (gate, up), as the JAX package's ``swiglu``."""
+    if y is None:
+        x, y = torch.chunk(x, 2, dim=-1)
+    return F.silu(x) * y
 
 
 from . import flash_attention, fused_train  # noqa: E402,F401

@@ -16,9 +16,12 @@ kernel registry (op ``"flash_attention"``):
 So on the card a call launches the kernels or raises with each variant's
 reason; a ``KERNELS.force`` pin runs the plain version on CUDA tensors on
 purpose (``chip_smoke.py``'s parity checks do). With dropout and no
-``dropout_seed``, the seed is drawn once per call on the host from the
-``generator`` (or torch's default one), so the kernels and any plain
-route of that call share one keep mask.
+``dropout_seed``, the seed is drawn once per call from the ``generator``
+(or torch's default one), so the kernels and any plain route of that call
+share one keep mask: on the host, or, while a CUDA graph is being
+captured, on the device into an int32 word the kernels read (the TPU
+kernels' ``seed_ref``), so each replay draws anew from the generator the
+graph registered.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from .kernels.flash_attention import (dropout_keep, flash_attention_cuda,
 from .kernels.registry import KERNELS
 
 __all__ = ["flash_attention", "flash_meta", "segment_ids_from_cu_seqlens",
-           "draw_dropout_seed", "_ref_attention"]
+           "draw_dropout_seed", "draw_dropout_seed_on_device",
+           "_ref_attention"]
 
 
 def _ref_attention(q, k, v, causal=False, scale=None, bias=None,
@@ -67,7 +71,7 @@ def _ref_attention(q, k, v, causal=False, scale=None, bias=None,
     if dropout_rate and dropout_rate > 0.0:
         b = q.shape[0]
         qbh = torch.arange(b * h, device=q.device).reshape(b, h, 1, 1)
-        keep = dropout_keep(int(dropout_seed),
+        keep = dropout_keep(dropout_seed,
                             qbh, torch.arange(ql, device=q.device)[:, None],
                             torch.arange(kl, device=q.device)[None, :],
                             float(dropout_rate))
@@ -124,6 +128,15 @@ def _mix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
+def draw_dropout_seed_on_device(device, generator=None) -> torch.Tensor:
+    """A dropout seed in [0, 2^31 - 1) drawn on ``device`` into one int32
+    word, from ``generator`` (or the device's default generator): what a
+    captured CUDA graph replays, drawing a fresh seed each replay from the
+    generator's registered state, with no read on the host."""
+    return torch.randint(0, 2 ** 31 - 1, (1,), dtype=torch.int32,
+                         device=device, generator=generator)
+
+
 def draw_dropout_seed(generator=None) -> int:
     """A dropout seed in [0, 2^31 - 1), drawn on the host from
     ``generator`` (or torch's default generator): the JAX package draws
@@ -146,16 +159,22 @@ def flash_attention(q, k, v, causal=False, scale=None, bias=None,
                     dropout_rate=0.0, dropout_seed=None, generator=None):
     """The JAX package's ``flash_attention``: same arguments, same
     results. ``bias`` is a constant unless ``bias_grad``; dropout is
-    in-kernel, keyed by ``dropout_seed`` (an int; drawn from ``generator``
-    when None)."""
+    in-kernel, keyed by ``dropout_seed`` (an int, or an int32 word on q's
+    device; drawn from ``generator`` when None: on the device while a CUDA
+    graph is being captured, else on the host)."""
     if bias is not None and not bias_grad:
         bias = bias.detach()
     rate = float(dropout_rate or 0.0)
     if rate > 0.0 and dropout_seed is None:
         # drawn once here, so the kernels and any plain route of this
         # call share one seed
-        dropout_seed = draw_dropout_seed(generator)
-    seed = int(dropout_seed) if rate > 0.0 else 0
+        if q.is_cuda and torch.cuda.is_current_stream_capturing():
+            dropout_seed = draw_dropout_seed_on_device(q.device, generator)
+        else:
+            dropout_seed = draw_dropout_seed(generator)
+    seed = dropout_seed if rate > 0.0 else 0
+    if not isinstance(seed, torch.Tensor):
+        seed = int(seed)
     _, fn = KERNELS.dispatch("flash_attention",
                              flash_meta(q, k, causal, bias, segment_ids,
                                         rate, bias_grad))

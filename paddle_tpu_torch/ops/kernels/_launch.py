@@ -169,6 +169,7 @@ _TRITON_SEEN = set()              # Triton specializations launched so far
 
 
 _ALL_THREADS = []                 # captures that see every thread
+_ISOLATED_ALL = []                # isolated captures that see every thread
 _ALL_LOCK = threading.Lock()
 
 
@@ -181,7 +182,10 @@ class capture_kernel_launches:
     backward on its own device thread, so a training step's backward
     kernels are seen only this way. ``isolated=True`` collects this
     thread's launches for this capture alone, hidden from the captures
-    around it (a program recording what it will replay)."""
+    around it (a program recording what it will replay); with
+    ``all_threads=True`` too, every thread's launches (a captured train
+    step, whose backward runs on autograd's thread), hidden from every
+    other capture while it lasts."""
 
     def __init__(self, all_threads=False, isolated=False):
         self.specs = []
@@ -192,7 +196,8 @@ class capture_kernel_launches:
     def __enter__(self):
         if self.all_threads:
             with _ALL_LOCK:
-                _ALL_THREADS.append(self.specs)
+                (_ISOLATED_ALL if self.isolated
+                 else _ALL_THREADS).append(self.specs)
             return self.specs
         if self.isolated:
             self._saved = (getattr(_CAPTURE, "stack", None),
@@ -208,7 +213,8 @@ class capture_kernel_launches:
     def __exit__(self, *exc):
         if self.all_threads:
             with _ALL_LOCK:
-                _ALL_THREADS.remove(self.specs)
+                (_ISOLATED_ALL if self.isolated
+                 else _ALL_THREADS).remove(self.specs)
         elif self.isolated:
             _CAPTURE.stack, _CAPTURE.isolated = self._saved
         else:
@@ -222,6 +228,8 @@ def _sinks():
     if getattr(_CAPTURE, "isolated", False):
         return stack
     with _ALL_LOCK:
+        if _ISOLATED_ALL:
+            return [_ISOLATED_ALL[-1]]
         return stack + list(_ALL_THREADS)
 
 
@@ -255,7 +263,8 @@ def begin(spec: KernelLaunchSpec, device) -> bool:
     ``spec`` in the active captures, and returns whether to launch (True
     for CUDA tensors, False for meta tensors under a capture). Raises for
     any other device."""
-    if not getattr(_CAPTURE, "stack", None) and not _ALL_THREADS:
+    if not getattr(_CAPTURE, "stack", None) and not _ALL_THREADS \
+            and not _ISOLATED_ALL:
         # the launch path: no capture
         if device.type == "cuda":
             return True

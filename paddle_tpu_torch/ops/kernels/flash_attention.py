@@ -87,12 +87,14 @@ def dropout_keep(seed, qbh, qpos, kpos, rate):
     of ``(seed, query head b*h + hi, absolute query row, absolute key)``,
     kept where the top 24 bits as a uniform in [0, 1) are at least
     ``rate`` (compared in f32). ``qbh``, ``qpos``, ``kpos``: int tensors
-    that broadcast together; ``seed``: a Python int (its low 32 bits).
+    that broadcast together; ``seed``: a Python int (its low 32 bits) or
+    the kernels' int32 word (a one-element tensor, read on its device).
     Torch has no full uint32 arithmetic, so the hash runs in int64 masked
     to 32 bits; it gives JAX's bits."""
     qbh, qpos, kpos = (torch.as_tensor(t).to(torch.int64) & _U32
                        for t in (qbh, qpos, kpos))
-    seed = int(seed) & _U32
+    seed = (seed.reshape(()).to(torch.int64) & _U32
+            if isinstance(seed, torch.Tensor) else int(seed) & _U32)
     x = (_mul32(qpos, 0x9E3779B1) ^ _mul32(kpos, 0x85EBCA77)
          ^ ((seed + _mul32(qbh, 0xC2B2AE3D)) & _U32))
     x = x ^ (x >> 16)
@@ -144,6 +146,18 @@ def _keep(q, sk, seed, rate):
     qbh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
     return dropout_keep(seed, qbh, torch.arange(sq, device=dev)[:, None],
                         torch.arange(sk, device=dev)[None, :], rate)
+
+
+def seed_word(seed, device) -> torch.Tensor:
+    """The dropout seed as the kernels read it: one int32 word on
+    ``device`` holding ``seed``'s low 32 bits. A tensor (a word drawn on
+    the device) is returned as it is; an int is written by a fill, so the
+    word is made on the stream with no copy from the host."""
+    if isinstance(seed, torch.Tensor):
+        return seed
+    s = int(seed) & _U32
+    return torch.full((1,), s - (1 << 32) if s >= 1 << 31 else s,
+                      dtype=torch.int32, device=device)
 
 
 def _dropped(t, keep, rate):
@@ -272,9 +286,9 @@ _N_PTR = {"flash_attention_fwd": 8, "flash_attention_bwd_dq": 11,
 def flash_codes(name):
     """The ctypes argument codes of launcher ``name``: its pointers, ten
     ints (b, h, kvh, sq, sk, d, block, smem, bias_b, bias_h), the seed (a
-    long long), three floats (scale, rate, inv), causal, the dtype code and
-    the stream."""
-    return (("p",) * _N_PTR[name] + ("i",) * 10 + ("l",) + ("f",) * 3
+    pointer to its int32 word on the device, or null), three floats
+    (scale, rate, inv), causal, the dtype code and the stream."""
+    return (("p",) * _N_PTR[name] + ("i",) * 10 + ("p",) + ("f",) * 3
             + ("i", "i", "p"))
 
 
@@ -495,6 +509,7 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
                                                              c[:, 3]))
                       if causal else None)
         extra_in += (op("bias", (*bias, sq, sk), "float32", masked=b_mask),)
+    seed_in = op("seed", (1,), "int32") if dropout else None
     if seg:
         extra_in += (op("seg_q", (b, sq), "int32", masked=(
                          needed(stile, 0, q_ax=1) if dkv and tiles else
@@ -502,6 +517,11 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
                      op("seg_k", (b, sk), "int32", masked=(
                          needed(stile, 0, k_ax=1) if tiles and not dkv
                          else None)))
+    # the dropout seed's word, read once by each block
+    seed_reads = ()
+    if seed_in is not None:
+        extra_in += (seed_in,)
+        seed_reads = (_launch.whole(seed_in),)
 
     def bias_at(bb, hh, qt, kt):
         return (bb if bias[0] > 1 else 0 * bb,
@@ -560,7 +580,7 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
         if bias is not None:
             q_reads += (A("bias", btile, seen_bias),)
         phases = (_launch.KernelPhase(
-            "keys", nkt * b * kvh, key_reads,
+            "keys", nkt * b * kvh, key_reads + seed_reads,
             (A("dk", tile, own), A("dv", tile, own))),
             _launch.KernelPhase("queries", n_seen, q_reads))
     else:
@@ -623,8 +643,8 @@ def flash_spec(name, b, sq, sk, h, kvh, d, dt, causal, bias=None,
                                lambda i: seen_k(i)[:2]))
         if bias is not None:
             key_reads.append(A("bias", btile, seen_bias))
-        phases = (_launch.KernelPhase("queries", nqt * b * h, tuple(reads),
-                                      writes),
+        phases = (_launch.KernelPhase("queries", nqt * b * h,
+                                      tuple(reads) + seed_reads, writes),
                   _launch.KernelPhase("keys", n_pairs, tuple(key_reads)))
         if dq and dbias:
             # every (query tile, key tile) of each head: P (dP - delta)
@@ -686,9 +706,10 @@ def _check(name, q, k, v, causal, *more):
                          f"{v.dtype} do not match")
 
 
-def _check_extras(name, q, k, bias, seg_q, seg_k, rate):
+def _check_extras(name, q, k, bias, seg_q, seg_k, rate, seed=0):
     """The optional operands: a [b|1, h|1, sq, sk] f32 bias, [b, sq] and
-    [b, sk] int32 segment ids (both or neither), 0 <= rate < 1."""
+    [b, sk] int32 segment ids (both or neither), 0 <= rate < 1, and a
+    seed that is an int or one int32 element on q's device."""
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     if bias is not None:
@@ -707,6 +728,12 @@ def _check_extras(name, q, k, bias, seg_q, seg_k, rate):
                                  f"got {tuple(t.shape)} {t.dtype}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"{name}: dropout rate {rate} is not in [0, 1)")
+    if isinstance(seed, torch.Tensor) and (
+            seed.dtype != torch.int32 or seed.numel() != 1
+            or seed.device != q.device):
+        raise ValueError(f"{name}: a seed tensor must be one int32 element "
+                         f"on {q.device}, got {tuple(seed.shape)} "
+                         f"{seed.dtype} on {seed.device}")
 
 
 def _ptr(t):
@@ -735,10 +762,12 @@ def _run(name, wrapper, q, k, v, bias, seg_q, seg_k, *ptrs, causal, scale,
     seg = seg_q is not None
     plan_of = flash_spec
     if seg and tensor_cores(name, dt) and q.device.type == "cuda" \
-            and _launch.capturing():
+            and _launch.capturing() \
+            and not torch.cuda.is_current_stream_capturing():
         # the gate's capture: the plan of the pairs this launch's ids keep
         # (read on the host; the launch path itself never syncs), built
-        # uncached, since it holds index arrays over the pairs
+        # uncached, since it holds index arrays over the pairs; a CUDA
+        # graph's capture cannot read them, and records the dense plan
         seg = SegTiles.of(seg_q, seg_k, causal)
         plan_of = flash_spec.__wrapped__
     spec = plan_of(name, b, sq, sk, h, kvh, d, dt, bool(causal),
@@ -746,6 +775,8 @@ def _run(name, wrapper, q, k, v, bias, seg_q, seg_k, *ptrs, causal, scale,
                    seg, bool(dbias), rate > 0.0)
     if not _launch.begin(spec, q.device):
         return
+    # the kernels read the seed from device memory (null: no dropout)
+    word = seed_word(seed, q.device) if rate > 0.0 else None
     fn = _build.c_fn("flash_attention", *spec.calls[0])
     bb, bhh = (1, 1) if bias is None else tuple(bias.shape[:2])
     cls = body_class(bias is not None, dbias, seg_q is not None, rate > 0.0,
@@ -756,7 +787,7 @@ def _run(name, wrapper, q, k, v, bias, seg_q, seg_k, *ptrs, causal, scale,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                  _ptr(seg_q), _ptr(seg_k), *(_ptr(t) for t in ptrs), b, h,
                  kvh, sq, sk, d, spec.plan["block"], spec.plan["smem"], bb,
-                 bhh, int(seed) & 0xFFFFFFFF, float(scale), float(rate),
+                 bhh, _ptr(word), float(scale), float(rate),
                  dropout_inv(rate) if rate > 0.0 else 1.0,
                  int(bool(causal)), _build.DTYPES[q.dtype], stream)
     if err:
@@ -778,7 +809,7 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, bias=None,
     Raises for what the kernel does not take; never falls back."""
     name = "flash_attention_fwd"
     _check(name, q, k, v, causal, bias, seg_q, seg_k)
-    _check_extras(name, q, k, bias, seg_q, seg_k, rate)
+    _check_extras(name, q, k, bias, seg_q, seg_k, rate, seed)
     q, k, v, bias = _aligned(q, k, v, bias)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
@@ -808,7 +839,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
     name = "flash_attention_bwd_dq"
     _check(name, q, k, v, causal, do, lse, delta, bias, seg_q, seg_k)
     _check_stats(name, q, do, lse, delta)
-    _check_extras(name, q, k, bias, seg_q, seg_k, rate)
+    _check_extras(name, q, k, bias, seg_q, seg_k, rate, seed)
     if bias_grad and bias is None:
         raise ValueError(f"{name}: bias_grad needs a bias")
     q, k, v, do, bias = _aligned(q, k, v, do, bias)
@@ -829,7 +860,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
     name = "flash_attention_bwd_dkv"
     _check(name, q, k, v, causal, do, lse, delta, bias, seg_q, seg_k)
     _check_stats(name, q, do, lse, delta)
-    _check_extras(name, q, k, bias, seg_q, seg_k, rate)
+    _check_extras(name, q, k, bias, seg_q, seg_k, rate, seed)
     q, k, v, do, bias = _aligned(q, k, v, do, bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _run(name, flash_bwd_dkv_cuda, q, k, v, bias, seg_q, seg_k, do, lse,
@@ -910,6 +941,9 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None, bias=None,
         seg_q = segment_ids.to(torch.int32).contiguous()
         seg_k = kv.to(torch.int32).contiguous()
     rate = float(dropout_rate or 0.0)
+    # one device word for the call's three kernels
+    seed = (seed_word(0 if dropout_seed is None else dropout_seed,
+                      q.device) if rate > 0.0 else 0)
     return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                 v.contiguous(), bool(causal), scale, bias,
-                                seg_q, seg_k, int(dropout_seed or 0), rate)
+                                seg_q, seg_k, seed, rate)

@@ -9,7 +9,10 @@ optionally, writes the updated parameter in a low-precision shadow type.
 The update runs in f32: the gradient is scaled by ``grad_scale`` (the
 clip factor) inside the kernel, and the bias corrections ``1 / (1 -
 beta^t)`` are computed outside it, in f32 on the device, as the JAX
-package passes them in.
+package passes them in. The learning rate is read from device memory too
+(the TPU kernel's ``lr_ref[0]``), a fourth word beside them: ``lr`` may
+be a Python float or an f32 tensor on the device (the trainer's lr word),
+so a captured step reads the value its caller wrote before each replay.
 
 What bounds it on the H100: memory. Nothing is reused, so a parameter
 costs its bytes once: at the training phase's layout (f32 master read and
@@ -46,28 +49,39 @@ _kernels = {}
 tl = None          # triton.language, bound by triton_jit at the first launch
 
 
-def bias_corrections(step, beta1, beta2, grad_scale, device):
-    """[1/(1-beta1^t), 1/(1-beta2^t), grad_scale] as an f32 tensor on
-    ``device``, computed in f32 as the JAX package computes them."""
+def _f32(x, device) -> torch.Tensor:
+    """``x`` as an f32 0-d tensor on ``device``: a tensor converted there,
+    a number written by a fill (no copy from the host, which would wait
+    for the stream)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def bias_corrections(step, beta1, beta2, grad_scale, device, lr):
+    """[1/(1-beta1^t), 1/(1-beta2^t), grad_scale, lr] as an f32 tensor on
+    ``device``, computed in f32 as the JAX package computes them (``lr``
+    a float, or an f32 tensor read on the device)."""
     f32 = torch.float32
-    t = torch.as_tensor(step, dtype=f32, device=device)
-    scale = torch.as_tensor(1.0 if grad_scale is None else grad_scale,
-                            dtype=f32, device=device)
+    t = _f32(step, device)
+    scale = _f32(1.0 if grad_scale is None else grad_scale, device)
+    lr32 = _f32(lr, device)
     b1 = torch.full((), beta1, dtype=f32, device=device)
     b2 = torch.full((), beta2, dtype=f32, device=device)
     return torch.stack([1.0 / (1.0 - b1 ** t), 1.0 / (1.0 - b2 ** t),
-                        scale.reshape(())])
+                        scale, lr32])
 
 
 def adamw_update_ref(param, grad, moment1, moment2, lr, step, beta1=0.9,
                      beta2=0.999, epsilon=1e-8, weight_decay=0.01,
                      grad_scale=None, shadow_dtype=None):
     """The plain version, op for op the JAX ``adamw_update_ref``: f32
-    interior, moments stored back in their own type. Updates ``param``,
-    ``moment1`` and ``moment2`` in place; returns them (and the shadow)."""
+    interior, moments stored back in their own type; ``lr`` read from the
+    same f32 word as the kernel's. Updates ``param``, ``moment1`` and
+    ``moment2`` in place; returns them (and the shadow)."""
     f32 = torch.float32
-    bc = bias_corrections(step, beta1, beta2, grad_scale, param.device)
-    lr32 = torch.as_tensor(lr, dtype=f32, device=param.device)
+    bc = bias_corrections(step, beta1, beta2, grad_scale, param.device, lr)
+    lr32 = bc[3]
     p = param.to(f32)
     g = grad.to(f32) * bc[2]
     m = moment1.to(f32)
@@ -87,7 +101,7 @@ def adamw_update_ref(param, grad, moment1, moment2, lr, step, beta1=0.9,
     return out
 
 
-def _adamw_kernel(p_ptr, g_ptr, m_ptr, v_ptr, s_ptr, bc_ptr, n, lr, wd, b1,
+def _adamw_kernel(p_ptr, g_ptr, m_ptr, v_ptr, s_ptr, bc_ptr, n, wd, b1,
                   omb1, b2, omb2, eps, BLOCK: "tl.constexpr",
                   SHADOW: "tl.constexpr"):
     offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
@@ -95,6 +109,7 @@ def _adamw_kernel(p_ptr, g_ptr, m_ptr, v_ptr, s_ptr, bc_ptr, n, lr, wd, b1,
     bc0 = tl.load(bc_ptr)
     bc1 = tl.load(bc_ptr + 1)
     scale = tl.load(bc_ptr + 2)
+    lr = tl.load(bc_ptr + 3)
     p = tl.load(p_ptr + offs, mask=mask, other=0.0).to(tl.float32)
     g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32) * scale
     m = tl.load(m_ptr + offs, mask=mask, other=0.0).to(tl.float32)
@@ -117,7 +132,8 @@ def fused_adamw_triton(param, grad, moment1, moment2, lr, step, beta1=0.9,
     """Launch the Triton kernel over flat 1-D CUDA buffers (same contract
     as :func:`adamw_update_ref`: param, moment1 and moment2 updated in
     place and returned, plus the shadow). ``param`` is f32; the grad and
-    the moments f32 or bf16. Raises for anything else; never falls
+    the moments f32 or bf16; ``lr`` a float or an f32 tensor on param's
+    device (read by the kernel). Raises for anything else; never falls
     back."""
     n = param.numel()
     _launch.check_device("fused_adamw_triton", param.device)
@@ -133,10 +149,16 @@ def fused_adamw_triton(param, grad, moment1, moment2, lr, step, beta1=0.9,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if param.dim() != 1 or not param.is_contiguous():
         raise ValueError("param must be a contiguous 1-D tensor")
+    if isinstance(lr, torch.Tensor) and (
+            lr.dtype != torch.float32 or lr.numel() != 1
+            or lr.device != param.device):
+        raise ValueError(f"lr must be a float or one float32 element on "
+                         f"{param.device}, got {tuple(lr.shape)} {lr.dtype} "
+                         f"on {lr.device}")
     if shadow_dtype is not None and shadow_dtype not in DTYPES:
         raise TypeError(f"shadow_dtype must be float32 or bfloat16, got "
                         f"{shadow_dtype}")
-    bc = bias_corrections(step, beta1, beta2, grad_scale, param.device)
+    bc = bias_corrections(step, beta1, beta2, grad_scale, param.device, lr)
     shadow = (torch.empty(n, dtype=shadow_dtype, device=param.device)
               if shadow_dtype is not None else None)
     if n:
@@ -150,7 +172,7 @@ def fused_adamw_triton(param, grad, moment1, moment2, lr, step, beta1=0.9,
                 _launch.triton_run(globals(), spec, [(
                     param, grad, moment1, moment2,
                     shadow if shadow is not None else param, bc, n,
-                    float(lr), float(weight_decay), float(beta1),
+                    float(weight_decay), float(beta1),
                     float(1 - beta1), float(beta2), float(1 - beta2),
                     float(epsilon))], enable_fp_fusion=False)
     out = [param, moment1, moment2]
@@ -166,11 +188,13 @@ _launch.counted(fused_adamw_triton)
 def adamw_spec(n, grad_dt, m_dt, v_dt, shadow_dt):
     """One program per ``BLOCK`` elements of the flat buffers: reads the
     f32 master, the grad and the moments, writes the master and the
-    moments back (in place) and the shadow, each tile once."""
+    moments back (in place) and the shadow, each tile once; every program
+    reads the four f32 words of ``bias_corrections`` (the two
+    corrections, the clip scale and lr)."""
     op = _launch.KernelOperand
     ins = (op("param", (n,), "float32"), op("grad", (n,), grad_dt),
            op("moment1", (n,), m_dt), op("moment2", (n,), v_dt),
-           op("bias_corrections", (3,), "float32"))
+           op("bias_corrections", (4,), "float32"))
     outs = [op("param_out", (n,), "float32"), op("moment1_out", (n,), m_dt),
             op("moment2_out", (n,), v_dt)]
     if shadow_dt is not None:
@@ -183,7 +207,7 @@ def adamw_spec(n, grad_dt, m_dt, v_dt, shadow_dt):
         tuple(_launch.flat_access(o, BLOCK) for o in outs))
     return _launch.triton_spec(
         "fused_adamw", _SOURCE, "float32", (phase,), ins, outs,
-        (("_adamw_kernel", 14, (progs,),
+        (("_adamw_kernel", 13, (progs,),
           {"BLOCK": BLOCK, "SHADOW": shadow_dt is not None}, 4),))
 
 

@@ -51,10 +51,10 @@ _GRIDS = {}
 
 
 def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens,
-                               k_scale=None, v_scale=None):
+                               k_scale=None, v_scale=None, scale=None):
     """q [B, H, hd]; pools [N, BS, KV, hd]; block_tables [B, MB];
-    seq_lens [B] (current token included) -> [B, H, hd] in q's type,
-    scale 1/sqrt(hd).
+    seq_lens [B] (current token included) -> [B, H, hd] in q's type;
+    the scores scaled by ``scale`` (None: 1/sqrt(hd)).
     Positions at/after ``seq_len`` get score -1e30 (finite, so a slot of
     length 0 softmaxes without NaN) and a slot of length 0 returns 0.
     ``k_scale``/``v_scale`` [KV] f32: int8 pools, dequantized per head in
@@ -63,7 +63,7 @@ def paged_attention_decode_ref(q, k_pool, v_pool, block_tables, seq_lens,
     B, H, hd = q.shape
     N, BS, KV, _ = k_pool.shape
     MB = block_tables.shape[1]
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
     tables = block_tables.long()
     k = k_pool[tables].reshape(B, MB * BS, KV, hd)
     v = v_pool[tables].reshape(B, MB * BS, KV, hd)
@@ -206,10 +206,12 @@ def _check(q, k_pool, v_pool, block_tables, seq_lens):
                          f"seq_lens {tuple(seq_lens.shape)} do not match B={B}")
 
 
-def paged_attention_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens):
-    """Launch the CUDA kernel (same contract as the plain version) on
-    PyTorch's current stream. Raises for anything the kernel does not
-    take, and if the launch is refused. Never falls back."""
+def paged_attention_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens,
+                                scale=None):
+    """Launch the CUDA kernel (same contract as the plain version; the
+    scale a kernel argument, None: 1/sqrt(hd)) on PyTorch's current
+    stream. Raises for anything the kernel does not take, and if the
+    launch is refused. Never falls back."""
     _check(q, k_pool, v_pool, block_tables, seq_lens)
     B, H, hd = q.shape
     N, BS, KV, _ = k_pool.shape
@@ -237,7 +239,8 @@ def paged_attention_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens):
                  block_tables.data_ptr(), seq_lens.data_ptr(),
                  out.data_ptr(), ws.data_ptr(), B, H, KV, hd, BS, MB,
                  pl["grid"], pl["smem"], pl["split_pages"],
-                 pl["pages_per_step"], 1.0 / math.sqrt(hd),
+                 pl["pages_per_step"],
+                 1.0 / math.sqrt(hd) if scale is None else float(scale),
                  _build.DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError("paged_attention_decode launch failed: "

@@ -40,20 +40,22 @@ __all__ = ["paged_attention_decode", "paged_attention_decode_ref",
            "dequant_cache", "BlockManager"]
 
 
-def paged_attention_decode(q, k_pool, v_pool, block_tables, seq_lens):
+def paged_attention_decode(q, k_pool, v_pool, block_tables, seq_lens,
+                           scale=None):
     """Single-step decode attention over a paged cache.
 
     q:            [B, H, hd]     query for the current position
     k_pool/v_pool:[N, BS, KV, hd] physical block pools
     block_tables: [B, MB] int32  physical block id per logical block
     seq_lens:     [B]    int32   valid tokens per sequence (incl. current)
-    returns       [B, H, hd], scale 1/sqrt(hd)
+    scale:        the scores' scale (None: 1/sqrt(hd))
+    returns       [B, H, hd]
     """
     if q.device.type == "cpu":
         return paged_attention_decode_ref(q, k_pool, v_pool, block_tables,
-                                          seq_lens)
+                                          seq_lens, scale=scale)
     return paged_attention_decode_cuda(q, k_pool, v_pool, block_tables,
-                                       seq_lens)
+                                       seq_lens, scale=scale)
 
 
 def write_to_pool(k_pool, v_pool, block_tables, seq_lens, k_new, v_new):
@@ -156,14 +158,15 @@ def write_chunk_to_pool_quant(k_pool, v_pool, wtable, pos0, n_valid, k_new,
 
 
 def paged_attention_decode_quant(q, k_pool, v_pool, block_tables, seq_lens,
-                                 k_scale, v_scale):
+                                 k_scale, v_scale, scale=None):
     """Decode attention over int8 pools: gather the int8 pages, dequantize
     per head in f32, then the same attention math as the fp pools'
-    (:func:`paged_attention_decode_ref`). A composition on every device,
-    as in the JAX package (module docstring)."""
+    (:func:`paged_attention_decode_ref`; ``scale`` None: 1/sqrt(hd)). A
+    composition on every device, as in the JAX package (module
+    docstring)."""
     return paged_attention_decode_ref(q, k_pool, v_pool, block_tables,
                                       seq_lens, k_scale=k_scale,
-                                      v_scale=v_scale)
+                                      v_scale=v_scale, scale=scale)
 
 
 class BlockManager:

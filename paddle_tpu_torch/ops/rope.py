@@ -14,14 +14,15 @@ __all__ = ["build_rope_cache", "apply_rope"]
 
 
 def build_rope_cache(seq_len: int, head_dim: int, base: float = 10000.0,
-                     device=None):
-    """Return f32 (sin, cos) of shape [seq_len, head_dim//2]."""
+                     dtype=torch.float32, device=None):
+    """Return (sin, cos) of shape [seq_len, head_dim//2], computed in f32
+    and cast to ``dtype``, as the JAX package's."""
     inv_freq = 1.0 / (base ** (torch.arange(0, head_dim, 2,
                                             dtype=torch.float32,
                                             device=device) / head_dim))
     t = torch.arange(seq_len, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)
-    return torch.sin(freqs), torch.cos(freqs)
+    return torch.sin(freqs).to(dtype), torch.cos(freqs).to(dtype)
 
 
 def apply_rope(x, sin=None, cos=None, position_ids=None,

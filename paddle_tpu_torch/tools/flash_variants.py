@@ -102,7 +102,7 @@ extern "C" int flash_attention_fwd128(
     const void* q, const void* k, const void* v, const void* bias,
     const void* seg_q, const void* seg_k, void* o, void* lse, int b, int h,
     int kvh, int sq, int sk, int d, int block, int smem, int bias_b,
-    int bias_h, long long seed, float scale, float rate, float inv,
+    int bias_h, const void* seed, float scale, float rate, float inv,
     int causal, int dtype, void* stream) {
   using namespace paddle_tpu_torch::flash;
   // a second Q tile and, with a bias, two more bias tiles
@@ -196,10 +196,13 @@ def fwd128(q, k, v, causal, scale=None, bias=None, seg_q=None, seg_k=None,
     o = torch.empty_like(q)
     lse = torch.empty(b, h, sq, device=q.device)
     bb, bhh = (1, 1) if bias is None else tuple(bias.shape[:2])
+    # the seed as the kernels read it: an int32 word on the card
+    word = kfa.seed_word(seed, q.device) if rate else None
     ptr = [None if t is None else t.data_ptr()
-           for t in (q, k, v, bias, seg_q, seg_k, o, lse)]
-    err = fn(*ptr, b, h, k.shape[2], sq, k.shape[1], d, kfa.BLOCK, 0, bb, bhh,
-             seed, 1 / d ** 0.5, rate, kfa.dropout_inv(rate) if rate else 1.0,
+           for t in (q, k, v, bias, seg_q, seg_k, o, lse, word)]
+    err = fn(*ptr[:8], b, h, k.shape[2], sq, k.shape[1], d, kfa.BLOCK, 0, bb,
+             bhh, ptr[8], 1 / d ** 0.5, rate,
+             kfa.dropout_inv(rate) if rate else 1.0,
              int(causal), 1, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd128: error {err}")
