@@ -377,6 +377,22 @@ script exits non-zero:
    its eager twin in turns as in the train phase; ViT also with the batch
    staged inside ``step()``, in turns with the prefetched run (a record).
    ``python3 chip_smoke.py models`` runs the build and this phase alone.
+12c. program_audit (this slice's main path, after every serving route,
+   before the kernel audit; ``program_audit_phase``): the static program
+   audit. Each serving route's LLaMA-7B engine (default, two-stage,
+   unfused) is audited once it has served (``ServingEngine.audit()``, the
+   default engine also on the forced "block" and "pallas" routes), the
+   train phase's rung on the default route and each family's full-width
+   step (``Trainer.audit``, with every bf16 -> f32 upcast of its graph
+   counted): each traced program's launch names and counts must equal the
+   captured program's of the same route and key. Then the catalog of
+   ``paddle_tpu_torch.analysis.catalog``, built on the card at its tiny
+   sizes and traced on fake CUDA tensors (no finding the CPU gate's
+   baseline lacks), each program's findings and seconds, and the launch
+   floor (one empty Triton kernel under ``cold_ms``).
+   ``python3 chip_smoke.py program_audit`` runs the build and this phase
+   alone, over engines and trainers it makes (a 3-request stream, two
+   steps).
 13. audit: the plans of every launch of the default serving route's
    phase, of the default train route's phase and of the models phase's
    three full-width runs, captured while they ran, audited by the
@@ -7567,6 +7583,9 @@ def train_phase(gpu, fused_train):
     captured = {"capture_s": round(prog.capture_s, 3),
                 "graph_nodes": prog.nodes,
                 "replays": prog.replays}
+    if fused_train is None:
+        # the program audit of the rung's step (the default route)
+        audit_trainer(tr, state, (toks, labels), "llama_rung_default")
     # the eager twin on the same state, in turns
     state, turns = graph_turns(tr, state, (toks, labels), device_ms, B * S)
     n = TRAIN_STEPS
@@ -7969,6 +7988,10 @@ def models_full(gpu):
         prog = step_program(tr)
         r["graph"] = {"capture_s": round(prog.capture_s, 3),
                       "graph_nodes": prog.nodes, "replays": prog.replays}
+        # the program audit of the family's step (GPT-2 small's held
+        # against its captured program; each family's bf16 -> f32 upcasts)
+        r["audit"] = audit_trainer(tr, state, _on_card(host[0]), name,
+                                   upcasts=True)
         # the eager twin on the same state, in turns
         state, r["graph_vs_eager"] = graph_turns(
             tr, state, _on_card(host[0]), device_ms, per)
@@ -8510,6 +8533,224 @@ def train_graph_only(gpu):
 # ---------------------------------------------------------------------------
 # each device kernel of a library (a substring of its mangled name) -> the
 # launch it belongs to
+# ---------------------------------------------------------------------------
+# the static program audit (ROADMAP A12, program half): fake-tensor traces
+# of the programs the card runs, each held against its captured program
+# ---------------------------------------------------------------------------
+# the audited programs' lines (audit_engine, audit_trainer), read by
+# program_audit_phase
+AUDITS = []
+# the short stream that captures every program of a standalone audit's
+# engines: 3 prompts of one bucket (warm-up, capture, replay), 4 tokens
+AUDIT_SERVE = {"requests": 3, "prompt": 100, "new": 4}
+AUDIT_ENGINE_KW = dict(capacity=8, block_size=16, max_seq_len=1024,
+                       prefill_buckets=(32, 128))
+
+
+def _audit_line(rep, seconds):
+    """One audited program: its graph's nodes and launches by name, its
+    findings (``severe``: those of warning or error severity, which fail
+    the line), the seconds its audit took."""
+    findings = [f"{f.severity}:{f.rule}/{f.code}@{f.site}"
+                for f in rep.findings]
+    return {"program": rep.program, "nodes": rep.meta.get("nodes"),
+            "launches": rep.meta.get("launches"), "findings": findings,
+            "severe": [f for f in findings
+                       if f.startswith(("warning:", "error:"))],
+            "trace_error": rep.meta.get("trace_error"),
+            "audit_s": round(seconds, 3)}
+
+
+def _launches_held(line, prog):
+    """The audited program's launch names and counts against its captured
+    ``Program``'s (the same route and key): equal, or the line fails."""
+    want = {k: n for k, (n, _) in prog.launches.items() if n}
+    line.update(captured_launches=want, captured_nodes=prog.nodes,
+                held=line["launches"] == want)
+    return line["held"]
+
+
+def audit_engine(eng, route, forced=()):
+    """``ServingEngine.audit()`` of an engine that served (its programs
+    captured), on its own route and on each forced route of ``forced``
+    ("block": the decode step, "pallas": the fused chunks; the card's
+    default route runs both). Each program's graph is held against the
+    captured program of the same route and key: the decode step's, and
+    each captured bucket's chunk. Lines go to :data:`AUDITS`."""
+    for r in (None,) + tuple(forced):
+        t0 = time.perf_counter()
+        reports = eng.audit(register=False, route=r)
+        seconds = time.perf_counter() - t0
+        for rep in reports:
+            decode = rep.program.startswith("serving_decode")
+            if r is not None and not (decode if r == "block"
+                                      else "prefill" in rep.program):
+                continue       # the engine's own program, audited above
+            line = _audit_line(rep, seconds)
+            line.update(route=route if r is None else r, audit_call_s=line.pop(
+                "audit_s"))
+            prog = None
+            if decode and r in (None, "block"):
+                prog = eng._decode_fns.get(eng._decode_key())
+            elif "prefill" in rep.program:
+                P = int(rep.program.rsplit("_", 1)[1])
+                prog = eng._prefill_fns.get((P,) + eng._prefill_key())
+            line["ok"] = (not line["trace_error"] and not line["severe"]
+                          and (prog is None or prog.graph is None
+                               or _launches_held(line, prog)))
+            AUDITS.append(line)
+
+
+def audit_trainer(tr, state, batch, label, upcasts=False):
+    """``Trainer.audit`` of a trainer whose step program is captured, held
+    against that program's launches; with ``upcasts``, also the count and
+    bytes of every bf16 -> f32 conversion in the step's graph (the
+    dtype rule at a 1-byte threshold: the "other" group's map)."""
+    from paddle_tpu_torch.analysis import audit_spec
+    prog = step_program(tr)
+    t0 = time.perf_counter()
+    rep = tr.audit(state, *batch, register=False)
+    line = _audit_line(rep, time.perf_counter() - t0)
+    line["program"] = f"train_step[{label}]"
+    line["ok"] = (not line["trace_error"] and not line["severe"]
+                  and _launches_held(line, prog))
+    if upcasts:
+        t0 = time.perf_counter()
+        up = audit_spec(tr.audit_spec(state, *batch, register=False),
+                        config={"dtype_promotion_rule":
+                                {"upcast_min_bytes": 1}}, f64_probe=False)
+        f = [x for x in up.findings if x.code == "BF16_UPCAST_BLOAT"]
+        line["bf16_to_f32_upcasts"] = (
+            {"count": f[0].detail["upcasts"],
+             "bytes": f[0].detail["total_bytes"],
+             "at_8mib": [x.detail for x in rep.findings
+                         if x.code == "BF16_UPCAST_BLOAT"]}
+            if f else {"count": 0, "bytes": 0})
+        line["upcast_trace_s"] = round(time.perf_counter() - t0, 3)
+    AUDITS.append(line)
+    return line
+
+
+def launch_floor():
+    """The device time of one empty Triton kernel (one program, no work)
+    under the kernel table's harness (``cold_ms``: L2 flushed, the card
+    held while the host queues it): the floor under every launch."""
+    import torch
+    import triton
+
+    @triton.jit
+    def _empty(x_ptr):
+        pass
+
+    x = torch.empty(1, device="cuda")
+    _empty[(1,)](x)
+    torch.cuda.synchronize()
+    return cold_ms(lambda: _empty[(1,)](x))
+
+
+def program_audit_phase(gpu):
+    """The catalog traced on fake CUDA tensors (built on the card at its
+    tiny sizes: the kernel routes the card dispatches), each program's
+    findings and seconds; then the engines' and trainers' audits made
+    earlier (:data:`AUDITS`); and the launch floor. Fails on a trace
+    error, a finding on the card that the CPU gate's baseline lacks, a
+    warning or error finding in an engine's or trainer's audit, or an
+    audited graph whose launches differ from its captured program's."""
+    from paddle_tpu_torch.analysis import audit_spec, diff_findings, \
+        load_baseline
+    from paddle_tpu_torch.analysis.catalog import build_catalog
+    from paddle_tpu_torch.analysis.program_audit import DEFAULT_BASELINE
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    specs = build_catalog(register=False, device="cuda")
+    build_s = time.perf_counter() - t0
+    catalog, reports = [], []
+    for spec in specs:
+        t0 = time.perf_counter()
+        rep = audit_spec(spec)
+        reports.append(rep)
+        catalog.append(_audit_line(rep, time.perf_counter() - t0))
+    new, _ = diff_findings(reports, load_baseline(DEFAULT_BASELINE))
+    floor = launch_floor()
+    bad = ([c["program"] for c in catalog if c["trace_error"]]
+           + [f.fingerprint for f in new]
+           + [a["program"] for a in AUDITS if not a["ok"]])
+    emit({"phase": "program_audit", "gpu": gpu,
+          "catalog_build_s": round(build_s, 3), "catalog": catalog,
+          "catalog_new_findings": [f.fingerprint for f in new],
+          "audits": AUDITS, "launch_floor_ms": round(floor, 5),
+          "launch_floor": "one empty Triton kernel, cold_ms (the kernel "
+                          "table's harness)",
+          "seconds": round(time.perf_counter() - t_phase, 1), "ok": not bad})
+    if bad:
+        raise AssertionError(f"program audit failed: {bad}")
+
+
+def program_audit_only(gpu):
+    """``python3 chip_smoke.py program_audit``: the build, then the
+    programs this phase audits, made here: LLaMA-7B on the three serving
+    routes (a short stream captures each engine's decode step and its
+    128-row chunk), GPT-2 small and the 1.07B LLaMA rung on the default
+    train route (two steps: the warm-up and the capture), then
+    :func:`program_audit_phase`."""
+    import torch
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.inference import GenerationConfig, ServingEngine
+    from paddle_tpu_torch.models import LLAMA_7B, init_params, llama
+    t_start = time.perf_counter()
+    build_kernels()
+    params = init_params(LLAMA_7B, seed=0)
+    rng = np.random.default_rng(0)
+    n = AUDIT_SERVE
+    prompts = [rng.integers(0, LLAMA_7B.vocab_size, n["prompt"]).astype(
+        np.int32) for _ in range(n["requests"])]
+    for route in ROUTES:
+        eng = ServingEngine(params, LLAMA_7B, **AUDIT_ENGINE_KW,
+                            **ROUTES[route])
+        for p in prompts:
+            eng.submit(p, GenerationConfig(max_new_tokens=n["new"],
+                                           greedy=True))
+        eng.drain()
+        audit_engine(eng, route, ("block", "pallas")
+                     if route == "default" else ())
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    for label, cfg in (("gpt", model_config("gpt")),
+                       ("llama_rung_default", train_config(fused_train=None))):
+        if label == "gpt":
+            loss = model_loss("gpt", cfg)
+            params = model_params("gpt", cfg, seed=0)
+            batch = _on_card(model_batches("gpt", cfg, 1, 40,
+                                           MODELS["gpt"])[0])
+        else:
+            loss = (lambda c: lambda p, t, lab: llama.loss_fn(
+                p, t, lab, c))(cfg)
+            params = init_params(cfg, seed=0)
+            toks = torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (TRAIN_RUNG["batch"],
+                                    TRAIN_RUNG["seq"])), device="cuda")
+            batch = (toks, torch.roll(toks, -1, -1))
+        # the train phase's rung keeps bf16 moments
+        tr = Trainer(loss, lr=1e-4, moment_dtype=(
+            None if label == "gpt" else torch.bfloat16))
+        state = tr.init_state(params)
+        for _ in range(2):
+            state, _ = tr.step(state, *batch)
+        torch.cuda.synchronize()
+        audit_trainer(tr, state, batch, label, upcasts=label == "gpt")
+        del tr, state, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    program_audit_phase(gpu)
+    emit({"seconds": round(time.perf_counter() - t_start, 1)})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 PTXAS_KERNELS = {
     "paged_attention": {"paged_attention_decode_kernel":
                         "paged_attention_decode"},
@@ -8737,6 +8978,8 @@ def main(argv=()):
         return models_only(gpu)
     if list(argv) == ["train_graph"]:
         return train_graph_only(gpu)
+    if list(argv) == ["program_audit"]:
+        return program_audit_only(gpu)
     if argv and argv[0] == "tp_parity" and (
             len(argv) == 1 or (len(argv) == 3 and argv[1] == "--repeat"
                                and argv[2].isdigit())):
@@ -8744,7 +8987,8 @@ def main(argv=()):
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}; run it with "
               "none, or with 'prefix', 'disagg', 'obs', 'models', "
-              "'train_graph' or 'tp_parity [--repeat N]'", file=sys.stderr)
+              "'train_graph', 'program_audit' or 'tp_parity [--repeat N]'",
+              file=sys.stderr)
         return 2
     build_kernels()
     rows = [paged_phase(gpu), rms_phase(gpu), fused_attn_phase(gpu),
@@ -8807,6 +9051,10 @@ def main(argv=()):
                                       for sp in specs) for P in (32, 128)}
                 for op in ("decode_mlp_block", "prefill_attn_block")}
         profile_phase(gpu, eng, route)
+        # this slice's main path: the engine's programs audited, each held
+        # against its captured program
+        audit_engine(eng, route, ("block", "pallas")
+                     if route == "default" else ())
         del eng
     routes_phase(gpu, params, prompts, tokens)
     # and at the serving size, on the serving phases' tree
@@ -8844,6 +9092,9 @@ def main(argv=()):
         del eng
         torch.cuda.empty_cache()
     del params
+    # this slice's main path: the catalog on fake CUDA tensors, and the
+    # engines' and trainers' audits made above
+    program_audit_phase(gpu)
     audit_phase(gpu, {"serving_default": (serving_specs, counts["default"]),
                       "train_default": (train_specs, train_counts),
                       **model_specs})

@@ -60,9 +60,14 @@ allocates no event object.
 :meth:`Trainer.prefetch` stages the next batches on the device behind the
 current step (pinned memory and a side stream on the card).
 
+:meth:`Trainer.audit` is the static program audit of the step
+(:mod:`paddle_tpu_torch.analysis`): a fake-tensor trace of the step body,
+the rules over it. Each new step program's signature is recorded in the
+analysis registry's ``train_step`` spec, as the JAX trainer records each
+compile's.
+
 Not ported here (raise ``NotImplementedError`` unless off): ``mesh``,
-``param_specs`` and ``data_spec`` (distributed training, ROADMAP A11) and
-:meth:`Trainer.audit` (A12).
+``param_specs`` and ``data_spec`` (distributed training, ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -343,14 +348,15 @@ class Trainer:
         # a mixed tree concatenates in f32
         gdt = (pdtype if pdtype is not None
                and {g.dtype for g in grads} == {pdtype} else torch.float32)
+        dev = state.master.device      # the trainer's (a trace's own)
         g_flat = torch.cat([g.reshape(-1).to(gdt) for g in grads]
-                           + ([torch.zeros(pad, dtype=gdt,
-                                           device=self.device)]
+                           + ([torch.zeros(pad, dtype=gdt, device=dev)]
                               if pad else []))
         gnorm = torch.linalg.vector_norm(g_flat, dtype=torch.float32)
         scale = (torch.clamp(hp["grad_clip"] / torch.clamp(gnorm, min=1e-12),
                              max=1.0)
-                 if hp["grad_clip"] else torch.ones((), device=self.device))
+                 if hp["grad_clip"]
+                 else torch.ones((), dtype=torch.float32, device=dev))
         outs = adamw_update(
             state.master, g_flat, state.mu, state.nu, lr,
             state.step.float(), beta1=hp["b1"], beta2=hp["b2"],
@@ -435,6 +441,7 @@ class Trainer:
                 out.update(trainer()._step_body(state, word, bufs))
             entry = self._programs[pkey] = (self._step_program(body),
                                             bufs, out)
+            self._record_program(state, bufs)
         return entry
 
     def _load(self, state: TrainState, batch):
@@ -684,8 +691,88 @@ class Trainer:
         return _DevicePrefetchIter(iter(batches), self.device,
                                    depth=max(1, depth), on_next=on_next)
 
+    # -- the static program audit --------------------------------------------
+    def _train_step_fn(self):
+        """The step program's function over explicit arguments, ``(state
+        tree, lr word, *batch) -> (state tree, metrics)``: the body the
+        captured program runs (:meth:`_step_body`), in place on the state.
+        One function a trainer (the registry knows its program by it),
+        holding the trainer weakly (a registered spec must not keep a
+        trainer and its state alive)."""
+        fn = self.__dict__.get("_step_fn")
+        if fn is None:
+            ref = weakref.ref(self)
+
+            def train_step(tree, lr, *batch):
+                trainer = ref()
+                if trainer is None:
+                    raise RuntimeError("the trainer of this train_step "
+                                       "spec no longer exists")
+                state = TrainState(*tree)
+                metrics = trainer._step_body(state, lr, batch)
+                return state.tree(), metrics
+            fn = self._step_fn = train_step
+        return fn
+
+    def _build_audit_spec(self, state: TrainState, batch):
+        """The ONE definition of the step's ProgramSpec (shared by
+        :meth:`audit_spec` and the step's registration of a new key): the
+        abstract signature (state, the f32 lr word, the batch as the
+        program's buffers on the device), the state written in place and
+        carried leaf for leaf."""
+        from torch.utils import _pytree as pytree
+        from ..analysis.registry import (ProgramSpec, TensorStruct,
+                                         abstract_signature)
+        tree = abstract_signature(state.tree())
+        args = (tree, TensorStruct((), torch.float32, self.device)) + tuple(
+            TensorStruct(tuple(b.shape), b.dtype, self.device)
+            for b in batch)
+        n_state = len(pytree.tree_leaves(tree))
+        return ProgramSpec(name="train_step", fn=self._train_step_fn(),
+                           args=args, donate_argnums=(0,),
+                           carry={i: i for i in range(n_state)},
+                           tags=("trainer",))
+
+    def _record_program(self, state: TrainState, staged):
+        """A new step program's signature into the registry's
+        ``train_step`` spec (registering this trainer's spec when the name
+        is another's or free): a second signature is what the audit
+        reports as MULTIPLE_SIGNATURES."""
+        from ..analysis.registry import REGISTRY
+        spec = REGISTRY.get("train_step")
+        new = self._build_audit_spec(state, staged)
+        if spec is None or spec.fn is not new.fn:
+            REGISTRY.register(new)
+        else:
+            spec.record_signature(new.args, {})
+
+    def audit_spec(self, state: TrainState, *batch, register: bool = True):
+        """The :class:`~paddle_tpu_torch.analysis.ProgramSpec` of the step
+        program at this state and batch signature (no tensor kept);
+        ``register=True`` files it in the analysis registry."""
+        from ..analysis.registry import REGISTRY
+        if not isinstance(state, TrainState):
+            raise ValueError("Trainer.audit needs the TrainState that "
+                             "init_state() made")
+        spec = self._build_audit_spec(
+            state, tuple(self._stage(b) for b in batch))
+        if register:
+            spec = REGISTRY.register(spec)
+        return spec
+
     def audit(self, state: TrainState, *batch, register: bool = True):
-        _not_ported("audit", "static program audit, ROADMAP A12")
+        """Static audit of the step program (trace-only: nothing executes,
+        launches, allocates on the device or captures): the rule passes of
+        :mod:`paddle_tpu_torch.analysis` over a fake-tensor trace of
+        :meth:`_step_body`. Under ``remat`` the checkpointed layers trace
+        with their recomputation (``models._common._same_pins``), as the
+        captured step runs them. Returns the report; its finding count
+        lands in the ``audit_findings`` counter."""
+        from ..analysis.auditor import audit_spec, publish_findings
+        report = audit_spec(self.audit_spec(state, *batch,
+                                            register=register))
+        publish_findings(report, counters=self.counters, obs=self._obs)
+        return report
 
     # -- metrics --------------------------------------------------------------
     def metrics(self) -> Dict:

@@ -55,8 +55,9 @@ both groups share the DisaggregatedEngine's timeline ring and
 request-record log, each transfer feeds a bound flight recorder
 (``kv_handoff@xfer``) plus the ``handoff_ms`` histogram and a
 ``handoff``/``handoff_partial``/``handoff_abort`` event, and
-``export_trace``/``write_timeline`` write the whole engine's trace. The
-program audit (ROADMAP A12) raises.
+``export_trace``/``write_timeline`` write the whole engine's trace.
+``program_specs``/``audit`` are the static program audit of both groups'
+programs and the handoff pair (:mod:`paddle_tpu_torch.analysis`).
 """
 from __future__ import annotations
 
@@ -88,11 +89,6 @@ DISAGG_HISTOGRAMS = ("ttft_ms", "tpot_ms", "queue_wait_ms", "e2e_ms",
 _SHARED_HISTOGRAMS = ("ttft_ms", "tpot_ms", "queue_wait_ms", "e2e_ms")
 
 
-def _later_slice(what: str, item: str):
-    raise NotImplementedError(
-        f"DisaggregatedEngine: {what} is not ported yet (ROADMAP {item})")
-
-
 def _to_index(pages, device) -> torch.Tensor:
     """Page ids as an int64 index on ``device``, through pinned memory on
     CUDA so that the copy does not sync the stream."""
@@ -113,6 +109,35 @@ def _words(t: torch.Tensor) -> torch.Tensor:
         if nbytes % size == 0:
             return flat.view(dt)
     return flat.view(torch.int8)
+
+
+def _handoff_extract(k_pools, v_pools, idx, n_dec: int):
+    """The handoff's extract program: the pages ``idx`` of every prefill
+    shard's pools (one pool a shard in each list), cut for ``n_dec`` decode
+    shards: ([k a decode shard], [v a decode shard]), each [L, n, BS,
+    KV_shard, hd]. Each page is read as integer words (:func:`_words`);
+    where the groups' tp differ, the prefill shards' pages are joined on
+    the KV-head axis and cut again (both groups are on one device, so
+    nothing moves between devices)."""
+    n = idx.shape[0]
+    out = []
+    for pools in (k_pools, v_pools):
+        parts = [_words(p).index_select(1, idx).view(p.dtype).view(
+            (p.shape[0], n) + p.shape[2:]) for p in pools]
+        if len(parts) != n_dec:
+            parts = [t.contiguous() for t in
+                     torch.cat(parts, dim=3).chunk(n_dec, dim=3)]
+        out.append(parts)
+    return out[0], out[1]
+
+
+def _handoff_insert(k_pools, v_pools, idx, kpag, vpag):
+    """The handoff's insert program: the extracted pages into the decode
+    shards' pools at pages ``idx``, in place. -> (k_pools, v_pools)."""
+    for pools, pages in ((k_pools, kpag), (v_pools, vpag)):
+        for p, t in zip(pools, pages):
+            _words(p).index_copy_(1, idx, _words(t))
+    return k_pools, v_pools
 
 
 class _HandoffJob:
@@ -543,33 +568,21 @@ class DisaggregatedEngine:
     def _extract(self, src: List[int]):
         """The pages ``src`` of every prefill pool, cut for the decode
         group's shards: ([k a decode shard], [v a decode shard]), each
-        [L, n, BS, KV_shard, hd]. Where the groups' tp differ, the prefill
-        shards' pages are joined on the KV-head axis and cut again (both
-        groups are on one device, so nothing moves between devices)."""
+        [L, n, BS, KV_shard, hd] (:func:`_handoff_extract`)."""
         self._count_build("extract")
         k_pools, v_pools = self._pool_shards(self.prefill)
         n_dec = len(self._pool_shards(self.decode)[0])
-        idx = _to_index(src, k_pools[0].device)
-        out = []
-        for pools in (k_pools, v_pools):
-            parts = [_words(p).index_select(1, idx).view(p.dtype).view(
-                (p.shape[0], len(src)) + p.shape[2:]) for p in pools]
-            if len(parts) != n_dec:
-                parts = [t.contiguous() for t in
-                         torch.cat(parts, dim=3).chunk(n_dec, dim=3)]
-            out.append(parts)
-        return out[0], out[1]
+        return _handoff_extract(k_pools, v_pools,
+                                _to_index(src, k_pools[0].device), n_dec)
 
     def _insert(self, dst: List[int], kpag, vpag):
         """The extracted pages into the decode pools' pages ``dst``, in
-        place (the pools keep their storage: the decode step's graph reads
-        them)."""
+        place (:func:`_handoff_insert`; the pools keep their storage: the
+        decode step's graph reads them)."""
         self._count_build("insert")
         k_pools, v_pools = self._pool_shards(self.decode)
-        idx = _to_index(dst, k_pools[0].device)
-        for pools, pages in ((k_pools, kpag), (v_pools, vpag)):
-            for p, t in zip(pools, pages):
-                _words(p).index_copy_(1, idx, _words(t))
+        _handoff_insert(k_pools, v_pools, _to_index(dst, k_pools[0].device),
+                        kpag, vpag)
 
     def _sync_scales(self):
         """The prefill group's one-shot int8 calibration onto the decode
@@ -839,9 +852,75 @@ class DisaggregatedEngine:
                           "block_size": self.block_size,
                           "roofline": self._decode_roofline()})
 
-    # -- the program audit (ROADMAP A12) ------------------------------
+    # -- the static program audit -------------------------------------
     def program_specs(self, register: bool = True):
-        _later_slice("the static program audit", "A12")
+        """Both groups' programs under the JAX engine's disagg names: the
+        decode group's decode step (``disagg_decode``), the prefill group's
+        chunk a bucket (``disagg_prefill_<P>``), its page copier and host
+        tier pair where it has them, and the handoff pair
+        (``disagg_kv_extract`` on the prefill pools, ``disagg_kv_insert``
+        into the decode pools, in place), at the JAX engine's fixed width:
+        the largest prompt's pages."""
+        import dataclasses
+        from ..analysis.registry import (REGISTRY, ProgramSpec,
+                                         TensorStruct, abstract_signature,
+                                         carry_map)
+        specs = []
+        for s in self.decode.program_specs(register=False):
+            if s.name.startswith("serving_decode"):
+                specs.append(dataclasses.replace(
+                    s, name="disagg_decode", tags=s.tags + ("disagg",)))
+        for s in self.prefill.program_specs(register=False):
+            if "prefill" in s.name:
+                name = "disagg_prefill_" + s.name.rsplit("_", 1)[1]
+            elif "page_copy" in s.name:
+                name = "disagg_page_copy"
+            elif "kv_spill" in s.name or "kv_restore" in s.name:
+                # the prefill group's host tier pair
+                name = "disagg_" + s.name[len("serving_"):]
+            else:              # the prefill group's unused decode step
+                continue
+            specs.append(dataclasses.replace(s, name=name,
+                                             tags=s.tags + ("disagg",)))
+        pre = abstract_signature(self._pool_shards(self.prefill))
+        dec = abstract_signature(self._pool_shards(self.decode))
+        W = -(-self.max_seq_len // self.block_size)
+        idx = TensorStruct((W,), torch.long, self.decode.device)
+        pages = [TensorStruct((p.shape[0], W) + p.shape[2:], p.dtype,
+                              p.device) for p in dec[0]]
+        ins_args = dec + (idx, pages, list(pages))
+        specs += [
+            ProgramSpec(name="disagg_kv_extract", fn=_handoff_extract,
+                        args=pre + (idx, len(dec[0])),
+                        tags=("serving", "disagg")),
+            ProgramSpec(name="disagg_kv_insert", fn=_handoff_insert,
+                        args=ins_args, donate_argnums=(0, 1),
+                        carry=carry_map(ins_args, {0: 0, 1: 1}),
+                        tags=("serving", "disagg"))]
+        if register:
+            for s in specs:
+                REGISTRY.register(s)
+        return specs
 
     def audit(self, register: bool = True):
-        _later_slice("the static program audit", "A12")
+        """Static audit of every program of both groups (trace-only; the
+        groups' trace counters and ``handoff_traces`` are snapshotted and
+        restored). Returns the reports; their count of findings lands in
+        ``audit_findings``."""
+        import copy
+        from ..analysis.auditor import audit_spec, publish_findings
+        snaps = [(eng.counters, {k: copy.deepcopy(eng.counters[k])
+                                 for k in ("decode_traces", "prefill_traces",
+                                           "calibration_traces",
+                                           "offload_traces")})
+                 for eng in (self.prefill, self.decode)]
+        h_snap = self.counters["handoff_traces"]
+        try:
+            reports = [audit_spec(s)
+                       for s in self.program_specs(register=register)]
+        finally:
+            for counters, snap in snaps:
+                counters.update(snap)
+            self.counters["handoff_traces"] = h_snap
+        publish_findings(reports, counters=self.counters, obs=self._obs)
+        return reports

@@ -37,8 +37,8 @@ request-level histograms are shared by reference with every replica that
 has the harness, the router records ``route`` events and per-replica
 queue-depth gauges, the telemetry plane registers the fleet rollup and
 each replica under a ``replica`` label, and ``export_trace``/
-``write_timeline`` write the router's trace. The program audit (ROADMAP
-A12) raises.
+``write_timeline`` write the router's trace. ``program_specs``/``audit``
+audit every replica's programs (:mod:`paddle_tpu_torch.analysis`).
 """
 from __future__ import annotations
 
@@ -63,11 +63,6 @@ FLEET_SHARED_HISTOGRAMS = ("ttft_ms", "tpot_ms", "queue_wait_ms",
 FLEET_HISTOGRAMS = FLEET_SHARED_HISTOGRAMS + ("step_ms",)
 
 _POLICIES = ("prefix", "least_loaded", "round_robin")
-
-
-def _later_slice(what: str, item: str):
-    raise NotImplementedError(
-        f"ServingFleet: {what} is not ported yet (ROADMAP {item})")
 
 
 def _replica_roofline(engine) -> Dict[str, object]:
@@ -496,10 +491,34 @@ class ServingFleet:
                           "roofline": roof.get(first),
                           "roofline_replicas": roof})
 
-    # -- the program audit (ROADMAP A12) ------------------------------
-
+    # -- the static program audit -------------------------------------
     def program_specs(self, register: bool = True):
-        _later_slice("the static program audit", "A12")
+        """Every replica's programs, named ``fleet.<replica>.<name>``, so a
+        mixed fleet's programs audit side by side. The router owns no
+        program."""
+        import dataclasses
+        specs = []
+        for r in self._replicas:
+            for s in r.engine.program_specs(register=False):
+                specs.append(dataclasses.replace(
+                    s, name=f"fleet.{r.name}.{s.name}",
+                    tags=s.tags + ("fleet",)))
+        if register:
+            from ..analysis.registry import REGISTRY
+            for s in specs:
+                REGISTRY.register(s)
+        return specs
 
     def audit(self, register: bool = True):
-        _later_slice("the static program audit", "A12")
+        """Static audit of every replica's programs (trace-only; each
+        replica snapshots and restores its trace counters). The reports
+        carry the replicas' own program names; ``register`` files the
+        fleet's names."""
+        from ..analysis.auditor import publish_findings
+        reports = []
+        for r in self._replicas:
+            reports.extend(r.engine.audit(register=False))
+        if register:
+            self.program_specs(register=True)
+        publish_findings(reports, counters=self.counters, obs=self._obs)
+        return reports

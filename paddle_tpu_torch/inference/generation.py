@@ -214,7 +214,9 @@ def cached_forward(params: Dict, tokens, cfg: _llama.LlamaConfig,
 
 
 def _gumbel(shape, generator, device):
-    u = torch.rand(shape, generator=generator, device=device)
+    # f32 whatever the default dtype (the program audit's F64_PROMOTION)
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
 
 

@@ -210,6 +210,38 @@ def _sample_slots(logits, generator, temps):
     return torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
 
 
+def _pairs(k_pools, v_pools):
+    """(k pool, v pool) of each shard (one pair meshless)."""
+    if isinstance(k_pools, list):
+        return list(zip(k_pools, v_pools))
+    return [(k_pools, v_pools)]
+
+
+def _offload_extract(k_pools, v_pools, idx):
+    """The host tier's spill program: the pages ``idx`` [W] of every
+    shard's pools, page-major ([W, L, BS, KV, hd], contiguous), one (k, v)
+    pair a shard (the JAX engine's spill-side extract). ``idx`` may lie on
+    any shard's device: each shard reads its own copy (none on one
+    device)."""
+    out = []
+    for pair in _pairs(k_pools, v_pools):
+        i = idx.to(pair[0].device)
+        out.append(tuple(p[:, i].transpose(0, 1).contiguous() for p in pair))
+    return out
+
+
+def _offload_insert(k_pools, v_pools, idx, windows):
+    """The host tier's restore program: each shard's page-major (k, v)
+    ``windows`` written into its pools' pages ``idx``, in place (the JAX
+    engine's donated restore-side insert). ``idx`` as in
+    :func:`_offload_extract`. -> (k_pools, v_pools)."""
+    for pair, win in zip(_pairs(k_pools, v_pools), windows):
+        i = idx.to(pair[0].device)
+        for pool, buf in zip(pair, win):
+            pool[:, i] = buf.transpose(0, 1)
+    return k_pools, v_pools
+
+
 def _collectives_snapshot(counters: Dict, obs: Observability) -> Dict:
     """The structured ``metrics()["collectives"]`` sub-dict (the
     Trainer.metrics contract): per-(op, axis) call/byte counters from
@@ -704,12 +736,6 @@ class ServingEngine:
         self._copy_fn(self._k_pools, self._v_pools, src, dst)
 
     # -- host-RAM KV offload tier -------------------------------------
-    def _pool_pairs(self):
-        """(k pool, v pool) of each shard (one pair meshless)."""
-        if self._mesh is None:
-            return [(self._k_pools, self._v_pools)]
-        return list(zip(self._k_pools, self._v_pools))
-
     def _count_offload(self, path: str):
         if path not in self._offload_paths:
             self._offload_paths.add(path)
@@ -730,12 +756,10 @@ class ServingEngine:
         payloads = []
         for w0 in range(0, len(pages), _OFFLOAD_WINDOW):
             win = [int(p) for p in pages[w0:w0 + _OFFLOAD_WINDOW]]
-            per_shard = []
-            for kp, vp in self._pool_pairs():
-                idx = torch.as_tensor(win, device=kp.device)
-                per_shard.append(tuple(
-                    host_put(p[:, idx].transpose(0, 1).contiguous())
-                    for p in (kp, vp)))
+            idx = torch.as_tensor(win, device=self.device)
+            per_shard = [tuple(host_put(t) for t in pair)
+                         for pair in _offload_extract(
+                             self._k_pools, self._v_pools, idx)]
             for j in range(len(win)):
                 payloads.append(tuple((k[j], v[j]) for k, v in per_shard))
         self.counters["kv_spill_bytes"] += self._page_nbytes * len(pages)
@@ -763,15 +787,20 @@ class ServingEngine:
         for w0 in range(0, len(dsts), _OFFLOAD_WINDOW):
             win_d = [int(d) for d in dsts[w0:w0 + _OFFLOAD_WINDOW]]
             win_p = payloads[w0:w0 + _OFFLOAD_WINDOW]
-            for s, (kp, vp) in enumerate(self._pool_pairs()):
-                idx = torch.as_tensor(win_d, device=kp.device)
+            idx = torch.as_tensor(win_d, device=self.device)
+            windows = []
+            for s, (kp, vp) in enumerate(_pairs(self._k_pools,
+                                                self._v_pools)):
+                bufs = []
                 for j_pool, pool in enumerate((kp, vp)):
                     buf = torch.empty((len(win_d),) + pool.shape[:1]
                                       + pool.shape[2:], dtype=pool.dtype,
                                       device=pool.device)
                     for j, payload in enumerate(win_p):
                         buf[j].copy_(payload[s][j_pool], non_blocking=True)
-                    pool[:, idx] = buf.transpose(0, 1)
+                    bufs.append(buf)
+                windows.append(tuple(bufs))
+            _offload_insert(self._k_pools, self._v_pools, idx, windows)
         self.counters["kv_restore_bytes"] += self._page_nbytes * len(dsts)
         if self._obs is not None and dsts:
             dur = (self._clock() - t0) * 1e3
@@ -1495,66 +1524,105 @@ class ServingEngine:
             view = quant_cache(view, scale)
         pool[:, table] = view.reshape(L, self.max_blocks, BS, KV, hd)
 
-    def _shards(self):
-        """(mesh, per-shard params, k pools, v pools): the engine's mesh,
-        or, meshless, its one device as a one-shard "gather" mesh, whose
-        op sequence is ``cached_forward``'s (equal bit for bit)."""
+    def _shards_of(self, params, k_pools, v_pools):
+        """(mesh, per-shard params, k pools, v pools) of a program's
+        arguments: the engine's mesh, or, meshless, the pools' device as a
+        one-shard "gather" mesh, whose op sequence is ``cached_forward``'s
+        (equal bit for bit); it names no axis, having no collective."""
         if self._mesh is not None:
-            return self._mesh, self.params, self._k_pools, self._v_pools
-        return (ServingMesh((self.device,), collective="gather"),
-                [self.params], [self._k_pools], [self._v_pools])
+            return self._mesh, params, k_pools, v_pools
+        return (ServingMesh((k_pools.device,), axis="",
+                            collective="gather"),
+                [params], [k_pools], [v_pools])
 
-    def _prefill_chunk(self, buf: _ChunkBuffers):
-        """One prefill chunk over ``buf`` (the JAX engine's
+    def _prefill_chunk(self, params, toks, bounds, table, wtable, k_pools,
+                       v_pools, scales):
+        """One verbatim prefill chunk (the JAX engine's
         ``_make_prefill_fn_ref`` program, and under a mesh
-        ``_make_prefill_fn_tp``): each shard gathers the request's pages
-        of its KV heads into a dense view through the read ``table`` (page
+        ``_make_prefill_fn_tp``): each shard gathers the request's pages of
+        its KV heads into a dense view through the read ``table`` (page
         indices are global; int8 pools dequantized to the model type with
-        the shard's scales), ``_tp_cached_forward`` runs the placement over
-        the views at ``bounds[0]``, each view is scattered back in place
-        through the WRITE table (int8: quantized back first; shared pages
-        go to scratch page 0), and a token is sampled from row ``bounds[1]
-        - 1``: [1] int32."""
-        sm, shards, k_pools, v_pools = self._shards()
-        tables = sm.replicate(buf.table)
-        wtables = sm.replicate(buf.wtable)
-        scales = self._shard_scales or [(None, None)] * sm.tp
+        the shard's ``scales``), ``_tp_cached_forward`` runs the placement
+        over the views at ``bounds[0]``, each view is scattered back in
+        place through the WRITE table (int8: quantized back first; shared
+        pages go to scratch page 0). -> the logits of row ``bounds[1] -
+        1``, [1, V]."""
+        sm, shards, k_pools, v_pools = self._shards_of(params, k_pools,
+                                                       v_pools)
+        tables = sm.replicate(table)
+        wtables = sm.replicate(wtable)
+        scales = scales or [(None, None)] * sm.tp
         kcs = [self._dense_view(p, t, sc[0])
                for p, t, sc in zip(k_pools, tables, scales)]
         vcs = [self._dense_view(p, t, sc[1])
                for p, t, sc in zip(v_pools, tables, scales)]
-        logits, _, _ = _tp_cached_forward(shards, buf.toks, self.cfg, kcs,
-                                          vcs, buf.bounds[0], sm)
+        logits, _, _ = _tp_cached_forward(shards, toks, self.cfg, kcs, vcs,
+                                          bounds[0], sm)
         for i, (t, sc) in enumerate(zip(wtables, scales)):
             self._scatter_view(k_pools[i], t, kcs[i], sc[0])
             self._scatter_view(v_pools[i], t, vcs[i], sc[1])
-        last = logits.index_select(1, buf.bounds[1:] - 1)[:, 0]
-        return _sample_slots(last, self._gen, buf.temp)
+        return logits.index_select(1, bounds[1:] - 1)[:, 0]
 
-    def _prefill_chunk_fused(self, buf: _ChunkBuffers):
-        """One prefill chunk over ``buf`` through the fused prefill-block
-        ops (the JAX engine's ``_make_prefill_fn_fused`` program):
-        straight over the pools, reading the history through ``table``,
-        only the chunk's own K/V written, through the WRITE table
-        ``wtable`` (both int32), every position read from ``bounds`` on the
-        device (the host's ``at`` goes to the kernels' checks and plans),
-        a token sampled from row ``bounds[1] - 1``: [1] int32."""
-        _, shards, kps, vps = self._shards()    # one shard (tp=1)
-        pos0, n = buf.at
+    def _prefill_chunk_fused(self, params, toks, bounds, table, wtable,
+                             k_pools, v_pools, rope, kv_scales, at, mode):
+        """One prefill chunk through the fused prefill-block ops (the JAX
+        engine's ``_make_prefill_fn_fused`` program): straight over the
+        pools, reading the history through ``table``, only the chunk's own
+        K/V written, through the WRITE table ``wtable`` (both int32), every
+        position read from ``bounds`` on the device (the host's ``at`` =
+        (pos0, n) goes to the kernels' checks and plans). -> the logits of
+        row ``bounds[1] - 1``, [1, V]."""
+        if self._mesh is not None:          # one shard (tp=1)
+            params, k_pools, v_pools = params[0], k_pools[0], v_pools[0]
         logits, _, _ = _fused_prefill_forward(
-            shards[0], buf.toks[0], self.cfg, kps[0], vps[0], buf.table,
-            buf.wtable, pos0, n, rope=self._rope, mode=self._fused_prefill,
-            kv_scales=self._kv_scales, bounds=buf.bounds)
-        last = logits.index_select(0, buf.bounds[1:] - 1)
-        return _sample_slots(last, self._gen, buf.temp)
+            params, toks[0], self.cfg, k_pools, v_pools, table, wtable,
+            at[0], at[1], rope=rope, mode=mode, kv_scales=kv_scales,
+            bounds=bounds)
+        return logits.index_select(0, bounds[1:] - 1)
+
+    # the prefill chunk over explicit arguments: (params, toks, bounds,
+    # table, wtable, temp, gen, k_pools, v_pools, tok, rope, kv_scales, at)
+    # -> (tok, gen, k_pools, v_pools), each output written back into the
+    # argument _PREFILL_CARRY maps it to (the JAX chunk's (params, toks,
+    # pos0, table, wtable, last_idx, temp, key, k_pools, v_pools) -> (tok,
+    # key, k_pools, v_pools); its sampled token lands in the bucket's
+    # buffer here). The pools and the token buffer are written in place
+    _PREFILL_CARRY = {0: 9, 1: 6, 2: 7, 3: 8}    # out idx -> argnum
+    _PREFILL_INPLACE = (6, 7, 8, 9)
+
+    def _prefill_args(self, P: int) -> Tuple:
+        """Bucket ``P``'s chunk arguments: the engine's tensors and the
+        bucket's fixed buffers (the scales the bucket's chunk reads)."""
+        buf = self._prefill_bufs[P]
+        scales = (self._kv_scales if self._fused_buckets[P]
+                  else self._shard_scales)
+        return (self.params, buf.toks, buf.bounds, buf.table, buf.wtable,
+                buf.temp, self._gen, self._k_pools, self._v_pools, buf.tok,
+                self._rope, scales, buf.at)
+
+    def _prefill_step(self, params, toks, bounds, table, wtable, temp, gen,
+                      k_pools, v_pools, tok, rope, kv_scales, at, *,
+                      fused: bool, mode=None):
+        """The prefill program: the fused chunk (``mode``: the route, the
+        engine's own by default) or the verbatim one, a token sampled from
+        the last prompt row into ``tok``. Bucket ``P``'s captured program
+        runs it over :meth:`_prefill_args`; its spec traces it."""
+        if fused:
+            last = self._prefill_chunk_fused(
+                params, toks, bounds, table, wtable, k_pools, v_pools, rope,
+                kv_scales, at, mode or self._fused_prefill)
+        else:
+            last = self._prefill_chunk(params, toks, bounds, table, wtable,
+                                       k_pools, v_pools, kv_scales)
+        out = (_sample_slots(last, gen, temp), gen, k_pools, v_pools)
+        tok.copy_(out[0])
+        return out
 
     def _prefill_body(self, P: int):
         """Bucket ``P``'s chunk over its fixed buffers: the fused or the
         verbatim chunk, the sampled token written into ``tok``."""
-        buf = self._prefill_bufs[P]
-        chunk = (self._prefill_chunk_fused if self._fused_buckets[P]
-                 else self._prefill_chunk)
-        buf.tok.copy_(chunk(buf))
+        self._prefill_step(*self._prefill_args(P),
+                           fused=self._fused_buckets[P])
 
     def _prefill_key(self) -> Tuple:
         """The prefill programs' key beside the bucket: the registry's
@@ -1698,41 +1766,56 @@ class ServingEngine:
     # Its carry, output index -> argument index, is here the buffer each
     # output is written into: the next tokens into tok's, the lengths into
     # seq_lens'; the pools are written in place and the key is the
-    # generator, whose offset the step's draws advance
+    # generator, whose offset the step's draws advance. The port's step
+    # takes three more arguments: the logits buffer, the rope tables and
+    # the int8 cache's scales (None for fp pools); it writes in place the
+    # JAX step's donated arguments and the logits buffer
     _DECODE_CARRY = {0: 1, 1: 2, 2: 5, 3: 6, 4: 7}   # out idx -> argnum
+    _DECODE_INPLACE = (1, 2, 5, 6, 7, 8)
 
     def _decode_args(self):
+        """The decode program's arguments: the engine's fixed buffers."""
         pools = (self._k_pools, self._v_pools)
+        scales = (self._shard_scales if self._mesh is not None
+                  else self._kv_scales)
         return (self.params, self._d_tok, self._d_seq, self._d_tables,
-                self._d_temps, self._gen) + pools
+                self._d_temps, self._gen) + pools + (
+                    self._d_logits, self._rope, scales)
 
-    def _decode_body(self):
-        """The decode step over the fixed buffers: one token for every
-        slot, sampled (into the logits buffer first), the carry written
-        back as ``_DECODE_CARRY`` maps it. Inactive slots hold seq 0 and
-        stay there; their write landed in scratch page 0."""
-        args = self._decode_args()
-        params, tok, seq, tables, temps, gen, k_pools, v_pools = args
+    def _decode_step(self, params, tok, seq, tables, temps, gen, k_pools,
+                     v_pools, logits_buf, rope, kv_scales, mode=None):
+        """The decode step over explicit arguments: one token for every
+        slot, sampled (from ``logits_buf``, written first), the carry
+        written back as ``_DECODE_CARRY`` maps it; returns the outputs.
+        ``mode``: the route (the engine's own ``fused_decode`` by default).
+        Inactive slots hold seq 0 and stay there; their write landed in
+        scratch page 0. The captured decode program runs it over
+        :meth:`_decode_args`; its spec traces it."""
+        args = (params, tok, seq, tables, temps, gen, k_pools, v_pools)
+        mode = self._fused if mode is None else mode
         if self._mesh is not None:
             logits, k_pools, v_pools = _tp_decode_step(
                 params, tok, self.cfg, k_pools, v_pools, tables, seq,
-                self._mesh, rope=self._rope, kv_scales=self._shard_scales,
-                fused=self._fused)
-        elif self._fused:
+                self._mesh, rope=rope, kv_scales=kv_scales, fused=mode)
+        elif mode:
             logits, k_pools, v_pools = _fused_decode_step(
                 params, tok, self.cfg, k_pools, v_pools, tables, seq,
-                rope=self._rope, mode=self._fused,
-                kv_scales=self._kv_scales)
+                rope=rope, mode=mode, kv_scales=kv_scales)
         else:
             logits, k_pools, v_pools = _paged_decode_step(
                 params, tok, self.cfg, k_pools, v_pools, tables, seq,
-                rope=self._rope, kv_scales=self._kv_scales)
-        self._d_logits.copy_(logits)
-        out = (_sample_slots(self._d_logits, gen, temps),
+                rope=rope, kv_scales=kv_scales)
+        logits_buf.copy_(logits)
+        out = (_sample_slots(logits_buf, gen, temps),
                torch.where(seq > 0, seq + 1, 0), gen, k_pools, v_pools)
         for o, a in self._DECODE_CARRY.items():
             if out[o] is not args[a]:
                 args[a].copy_(out[o])
+        return out
+
+    def _decode_body(self):
+        """The decode step over the fixed buffers."""
+        self._decode_step(*self._decode_args())
 
     def _decode_key(self) -> Tuple:
         """The decode program's key: the registry's force pins, which
@@ -1854,7 +1937,8 @@ class ServingEngine:
         toks = np.zeros((1, P), np.int64)
         toks[0, :n] = prompt[:n]
         toks = self._upload(toks)
-        sm, shards, k_pools, _ = self._shards()
+        sm, shards, k_pools, _ = self._shards_of(
+            self.params, self._k_pools, self._v_pools)
         shape = (cfg.num_hidden_layers, 1, P) + tuple(k_pools[0].shape[3:])
         kcs, vcs = ([torch.zeros(shape, dtype=cfg.dtype, device=d)
                      for d in sm.devices] for _ in range(2))
@@ -1869,6 +1953,149 @@ class ServingEngine:
         self._kv_scales = tuple(
             torch.cat([sc[j].to(self.device) for sc in self._shard_scales],
                       dim=1) for j in (0, 1))
+
+    # -- the static program audit -------------------------------------
+    def _scales_signature(self, fused: bool):
+        """The int8 cache's scales as a program argument: the engine's own
+        once calibrated, else their structs ([L, KV] f32 for the fused
+        routes, a shard's [L, KV/tp] pair each for the placements); None
+        for fp pools."""
+        from ..analysis.registry import TensorStruct, abstract_signature
+        have = self._kv_scales if fused else self._shard_scales
+        if have is not None or not self._quant:
+            return abstract_signature(have)
+        cfg = self.cfg
+        L, KV = cfg.num_hidden_layers, cfg.num_key_value_heads
+        tp = 1 if self._mesh is None else self._mesh.tp
+        pair = lambda kv: tuple(TensorStruct(                 # noqa: E731
+            (L, kv), torch.float32, self.device) for _ in range(2))
+        return pair(KV) if fused else [pair(KV // tp) for _ in range(tp)]
+
+    def program_specs(self, register: bool = True, route=None):
+        """:class:`~paddle_tpu_torch.analysis.ProgramSpec` entries for the
+        engine's programs, under the JAX engine's names: the decode step
+        (``serving_decode``, ``serving_decode_fused`` on the two-stage
+        "pallas" route, ``serving_decode_block`` on the single-launch
+        "block" route), one prefill chunk a bucket
+        (``serving_prefill_<P>``, ``serving_prefill_fused_<P>`` on the
+        forced fused chunk), with a prefix cache the COW page copier
+        (``serving_page_copy``) and with the host tier its window pair
+        (``serving_kv_spill_extract``/``serving_kv_restore_insert``);
+        ``_tp`` after ``serving_decode``/``serving_prefill``/... under a
+        mesh. Each spec's ``fn`` is the code the program runs
+        (:meth:`_decode_step`, :meth:`_prefill_step`, the copier,
+        :func:`_offload_extract`/:func:`_offload_insert`), its arguments the
+        abstract signature of the engine's own buffers (the generator left
+        out: a fake trace draws without one, and torch's fake tensors on
+        CUDA take none); the in-place arguments and the carry are the JAX
+        engine's.
+
+        ``route``: "pallas" or "block" describes that forced route's
+        decode step (and, for "pallas", the fused chunk of every bucket)
+        in place of the engine's own, as an engine built with the pin
+        would run it; off CUDA those programs trace over meta tensors,
+        their kernels recorded as launches, as the kernel gate runs the
+        wrappers. A mesh takes no forced route here."""
+        from ..analysis.registry import (REGISTRY, ProgramSpec,
+                                         TensorStruct, abstract_signature,
+                                         carry_map)
+        if route not in (None, "pallas", "block"):
+            raise ValueError(f"route must be None, 'pallas' or 'block', "
+                             f"got {route!r}")
+        sm = self._mesh
+        if route is not None and sm is not None:
+            raise ValueError("program_specs(route=...) describes a forced "
+                             "single-device route; this engine has a mesh")
+        dev = ("meta" if route is not None and self.device.type != "cuda"
+               else None)
+        tp_sfx = "_tp" if sm is not None else ""
+        axes = (sm.axis,) if sm is not None else ()
+        tags = ("serving",) + (("tp",) if sm is not None else ())
+        dmode = route or self._fused
+        decode_name = {"pallas": "serving_decode_fused",
+                       "block": "serving_decode_block"}.get(
+                           dmode, "serving_decode")
+        args = list(abstract_signature(self._decode_args()))
+        args[10] = self._scales_signature(sm is None)
+        args[5] = None           # the draws traced without the generator
+        args = tuple(args)
+        import functools
+        specs = [ProgramSpec(
+            name=decode_name + tp_sfx,
+            fn=functools.partial(self._decode_step, mode=dmode), args=args,
+            donate_argnums=self._DECODE_INPLACE,
+            carry=carry_map(args, self._DECODE_CARRY), mesh_axes=axes,
+            tags=tags, device=dev)]
+        ppin = route == "pallas" or self._fused_prefill == "pallas"
+        prefill_base = ("serving_prefill_fused" if ppin
+                        else "serving_prefill")
+        pools = abstract_signature((self._k_pools, self._v_pools))
+        MB = self.max_blocks
+        for P in self.buckets:
+            fused = route == "pallas" or self._fused_buckets[P]
+            tdt = torch.int32 if fused else torch.int64
+            ts = lambda shape, dt: TensorStruct(               # noqa: E731
+                shape, dt, self.device)
+            args = (abstract_signature(self.params), ts((1, P), torch.int64),
+                    ts((2,), torch.int32), ts((MB,), tdt), ts((MB,), tdt),
+                    ts((1,), torch.float32), None, *pools,
+                    ts((1,), torch.int32),
+                    abstract_signature(self._rope),
+                    self._scales_signature(fused), (0, P))
+            specs.append(ProgramSpec(
+                name=f"{prefill_base}{tp_sfx}_{P}",
+                fn=functools.partial(
+                    self._prefill_step, fused=fused,
+                    mode="pallas" if route == "pallas" else None),
+                args=args, donate_argnums=self._PREFILL_INPLACE,
+                carry=carry_map(args, self._PREFILL_CARRY), mesh_axes=axes,
+                tags=tags, device=dev if route == "pallas" else None))
+        if self._pcache is not None:
+            args = pools + (0, 1)
+            specs.append(ProgramSpec(
+                name="serving_page_copy" + tp_sfx, fn=self._copy_fn,
+                args=args, donate_argnums=(0, 1),
+                carry=carry_map(args, {0: 0, 1: 1}), mesh_axes=axes,
+                tags=tags))
+        if self._kv_offload:
+            W = _OFFLOAD_WINDOW
+            idx = TensorStruct((W,), torch.int64, self.device)
+            windows = [tuple(TensorStruct((W, p.shape[0]) + p.shape[2:],
+                                          p.dtype, p.device) for p in pair)
+                       for pair in _pairs(*pools)]
+            args = pools + (idx, windows)
+            specs += [
+                ProgramSpec(name="serving_kv_spill_extract" + tp_sfx,
+                            fn=_offload_extract, args=pools + (idx,),
+                            mesh_axes=axes, tags=tags + ("offload",)),
+                ProgramSpec(name="serving_kv_restore_insert" + tp_sfx,
+                            fn=_offload_insert, args=args,
+                            donate_argnums=(0, 1),
+                            carry=carry_map(args, {0: 0, 1: 1}),
+                            mesh_axes=axes, tags=tags + ("offload",))]
+        if register:
+            for s in specs:
+                REGISTRY.register(s)
+        return specs
+
+    def audit(self, register: bool = True, route=None):
+        """Static audit of every engine program (:meth:`program_specs`):
+        trace-only, nothing executes, launches, allocates on the device or
+        captures; the trace counters are snapshotted and restored. Returns
+        the list of :class:`~paddle_tpu_torch.analysis.AuditReport`; the
+        finding count lands in the ``audit_findings`` counter."""
+        import copy
+        from ..analysis.auditor import audit_spec, publish_findings
+        snap = {k: copy.deepcopy(self.counters[k])
+                for k in ("decode_traces", "prefill_traces",
+                          "calibration_traces", "offload_traces")}
+        try:
+            reports = [audit_spec(s) for s in
+                       self.program_specs(register=register, route=route)]
+        finally:
+            self.counters.update(snap)
+        publish_findings(reports, counters=self.counters, obs=self._obs)
+        return reports
 
     def _finish(self, slot_id: int):
         slot = self._slots[slot_id]

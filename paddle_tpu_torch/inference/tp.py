@@ -58,6 +58,7 @@ import torch
 from ..device import resolve_device
 from ..models.llama import tp_param_specs
 from ..ops import rms_norm, swiglu
+from ..ops.kernels._launch import trace_collective
 from ..ops.rope import build_rope_cache
 from .generation import (_check_span, _chunk_attention, _decode_attention,
                          _head, _layer, _layer_scales, _mm, _positions,
@@ -102,7 +103,9 @@ def tp_reject_reason(cfg, tp: int) -> Optional[str]:
 class ServingMesh:
     """The serving stack's tensor-parallel mesh: an ordered list of
     devices (shard i on ``devices[i]``; a device may repeat), the axis
-    name and the collective placement. Build with :meth:`make`."""
+    name and the collective placement. Build with :meth:`make`. An empty
+    axis is a meshless engine's one-shard stand-in (its collectives move
+    nothing, and a program audit sees none)."""
     devices: Tuple[torch.device, ...]
     axis: str = "tp"
     collective: str = "psum"
@@ -198,7 +201,9 @@ class ServingMesh:
     def psum(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
         """The all-reduce: the shards' parts summed in shard order
         0..tp-1, in their own type, on shard 0's device; the sum handed
-        to every shard's device."""
+        to every shard's device. A fake-tensor trace (the program audit)
+        sees one ``collective`` node naming the mesh's axis."""
+        trace_collective("psum", self.axis, parts)
         d0 = self.devices[0]
         acc = parts[0].to(d0)
         for p in parts[1:]:
@@ -209,7 +214,9 @@ class ServingMesh:
                    dim: int) -> List[torch.Tensor]:
         """The tiled all-gather: the shards' parts concatenated along
         ``dim`` in shard order on shard 0's device, handed to every
-        shard's device."""
+        shard's device. A fake-tensor trace sees one ``collective``
+        node naming the mesh's axis."""
+        trace_collective("all_gather", self.axis, parts)
         if len(parts) == 1:      # one shard: the gather is the part
             return self.replicate(parts[0])
         d0 = self.devices[0]

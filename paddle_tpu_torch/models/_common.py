@@ -13,6 +13,7 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
@@ -108,11 +109,41 @@ def prenorm_block(lp, x, *, num_heads, head_dim, eps, causal):
     return x + ff @ lp["fc_out"] + lp["fc_out_b"]
 
 
+class _Pins(TorchDispatchMode):
+    """The registry's ``pins`` (None: none) entered as a dispatch mode that
+    passes every op through: under a fake-tensor trace (the program audit)
+    ``checkpoint`` takes its two contexts only as dispatch modes."""
+
+    def __init__(self, pins=None):
+        super().__init__()
+        self._pins, self._ctx = pins, None
+
+    def __enter__(self):
+        if self._pins is not None:
+            self._ctx = KERNELS.pinned(self._pins)
+            self._ctx.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        out = super().__exit__(*exc)
+        if self._ctx is not None:
+            self._ctx.__exit__(*exc)
+        return out
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
 def _same_pins():
     """``checkpoint``'s contexts for the forward and the recomputation: the
     recomputation runs in the autograd engine's thread, so it re-enters
     the forward's registry pins there and dispatches as the forward did
-    (the JAX package bakes the dispatch into the traced layer)."""
+    (the JAX package bakes the dispatch into the traced layer). Under a
+    fake-tensor trace the same, as two pass-through dispatch modes, so that
+    the audited graph holds the recomputation as the captured step does."""
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return _Pins(), _Pins(KERNELS.forced_state())
     return contextlib.nullcontext(), KERNELS.pinned(KERNELS.forced_state())
 
 

@@ -34,6 +34,16 @@ where its kernel has classes (weight, pool, residual or body), in one
 store ``.launches_by_class`` keyed by (family, class);
 ``.launches_by_<family>`` is that family's view of the store
 (:func:`counted`, :func:`count`).
+
+Under a fake-tensor trace (``make_fx(..., tracing_mode="fake")``, the
+program audit of :mod:`paddle_tpu_torch.analysis.auditor`) :func:`begin`
+never launches: given fake tensors it records the spec, puts one
+``paddle_tpu_torch.kernel_launch`` node into the traced graph (the launch
+name, the tensors the kernel writes, marked written in the op's schema,
+and those it reads) and tells the wrapper not to launch, as over meta
+tensors. The collectives of a tensor-parallel step mark themselves the
+same way (:func:`trace_collective`). On real tensors neither op is ever
+called.
 """
 from __future__ import annotations
 
@@ -44,10 +54,12 @@ from collections.abc import MutableMapping
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 __all__ = ["KernelOperand", "Seen", "Access", "KernelPhase",
            "KernelLaunchSpec", "capture_kernel_launches", "capturing",
-           "begin", "report", "check_device", "dtype_name", "whole",
+           "begin", "report", "check_device", "is_fake", "trace_ops",
+           "trace_collective", "dtype_name", "whole",
            "rows_access", "flat_access", "triton_spec", "triton_run",
            "counted", "count", "ClassCounts", "H100_SMS", "SMEM_BLOCK",
            "SMEM_SM", "SMEM_RESERVED"]
@@ -258,11 +270,59 @@ def check_device(name, device):
     raise ValueError(f"{name} needs CUDA tensors, got {device}")
 
 
-def begin(spec: KernelLaunchSpec, device) -> bool:
+def is_fake(*tensors) -> bool:
+    """Whether any of ``tensors`` is a fake tensor (a trace's value, which
+    has no storage: no address to read, nothing to launch on)."""
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+_TRACE_LIB = []
+
+
+def trace_ops():
+    """``torch.ops.paddle_tpu_torch``, with the two ops a traced program
+    holds defined once: ``kernel_launch(name, writes, reads)``, one launch
+    of a hand-written kernel (``writes`` marked written in its schema), and
+    ``collective(op, axis, parts)``, one collective over a mesh axis. Both
+    do nothing when run; only a fake-tensor trace calls them."""
+    if not _TRACE_LIB:
+        lib = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+        lib.define("kernel_launch(str name, Tensor(a!)[] writes, "
+                   "Tensor[] reads) -> ()")
+        lib.define("collective(str op, str axis, Tensor[] parts) -> ()")
+        for op in ("kernel_launch", "collective"):
+            lib.impl(op, lambda *args: None, "CompositeExplicitAutograd")
+        _TRACE_LIB.append(lib)
+    return torch.ops.paddle_tpu_torch
+
+
+def trace_collective(op: str, axis: str, parts) -> None:
+    """One ``collective`` node in a fake-tensor trace over ``parts`` (a
+    no-op on real tensors): the program audit's collective rule reads the
+    axis each collective names. An empty ``axis`` (a meshless engine's
+    one-shard stand-in mesh, whose collectives move nothing) marks
+    nothing."""
+    if axis and is_fake(*parts):
+        trace_ops().collective(op, axis, list(parts))
+
+
+def begin(spec: KernelLaunchSpec, device, reads=(), writes=()) -> bool:
     """The gateway of every launch, called right before it: records
     ``spec`` in the active captures, and returns whether to launch (True
     for CUDA tensors, False for meta tensors under a capture). Raises for
-    any other device."""
+    any other device. ``reads``/``writes``: the tensors the kernel reads
+    and writes (None entries skipped); fake ones (a program audit's trace,
+    on any device) never launch: the spec is recorded, one
+    ``kernel_launch`` node over them enters the traced graph, and False is
+    returned."""
+    reads = [t for t in reads if t is not None]
+    writes = [t for t in writes if t is not None]
+    if is_fake(*writes, *reads):
+        check_device(spec.name, device)
+        for sink in _sinks():
+            sink.append(spec)
+        trace_ops().kernel_launch(spec.name, writes, reads)
+        return False
     if not getattr(_CAPTURE, "stack", None) and not _ALL_THREADS \
             and not _ISOLATED_ALL:
         # the launch path: no capture

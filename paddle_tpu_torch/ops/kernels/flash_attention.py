@@ -773,7 +773,10 @@ def _run(name, wrapper, q, k, v, bias, seg_q, seg_k, *ptrs, causal, scale,
     spec = plan_of(name, b, sq, sk, h, kvh, d, dt, bool(causal),
                    None if bias is None else tuple(bias.shape[:2]),
                    seg, bool(dbias), rate > 0.0)
-    if not _launch.begin(spec, q.device):
+    n_in = 0 if name == "flash_attention_fwd" else 3  # do, lse, delta
+    if not _launch.begin(spec, q.device,
+                         (q, k, v, bias, seg_q, seg_k) + ptrs[:n_in],
+                         ptrs[n_in:]):
         return
     # the kernels read the seed from device memory (null: no dropout)
     word = seed_word(seed, q.device) if rate > 0.0 else None
@@ -798,9 +801,10 @@ def _run(name, wrapper, q, k, v, bias, seg_q, seg_k, *ptrs, causal, scale,
 def _aligned(*ts):
     """The tensors, each copied to a fresh allocation where its data does
     not start on 16 bytes (the tensor-core passes copy 16 bytes at a
-    time; a contiguous view may start anywhere)."""
-    return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-                 for t in ts)
+    time; a contiguous view may start anywhere). A fake tensor (a program
+    audit's trace) has no address and is taken as aligned."""
+    return tuple(t if t is None or _launch.is_fake(t)
+                 or t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
 
 def flash_fwd_cuda(q, k, v, causal=False, scale=None, bias=None,

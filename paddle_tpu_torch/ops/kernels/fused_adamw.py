@@ -166,7 +166,8 @@ def fused_adamw_triton(param, grad, moment1, moment2, lr, step, beta1=0.9,
                                (grad, moment1, moment2)),
                           None if shadow is None
                           else _launch.dtype_name(shadow_dtype))
-        if _launch.begin(spec, param.device):
+        if _launch.begin(spec, param.device, (grad, bc),
+                         (param, moment1, moment2, shadow)):
             with torch.cuda.device(param.device):
                 fused_adamw_triton.launches += 1
                 _launch.triton_run(globals(), spec, [(

@@ -476,7 +476,10 @@ def prefill_attn_block_cuda(x, nw, wq, wk, wv, wo, sin, cos, k_pool, v_pool,
                         dtype=x.dtype, device=x.device)
             if body == "tc" else None)
     order = ("wq", "wk", "wv", "wo")
-    if not _launch.begin(spec, x.device):
+    if not _launch.begin(
+            spec, x.device, (x, nw, *w.values(), *sc.values(), sin, cos,
+                             k_pool, v_pool, ks, vs, table, bounds),
+            (x_out, k_new, v_new, qkv_ws, q_ws, attn_ws, h_ws)):
         return x_out, k_new, v_new
     if bounds is None:
         bounds = device_bounds(pos0, n_valid, x.device)

@@ -352,7 +352,7 @@ def rms_norm_fwd_triton(x, weight, epsilon=1e-6):
     rows = x2.shape[0]
     if rows:
         spec = rms_fwd_spec(rows, D, _launch.dtype_name(x.dtype))
-        if _launch.begin(spec, x.device):
+        if _launch.begin(spec, x.device, (x2, w), (y,)):
             with torch.cuda.device(x.device):
                 rms_norm_fwd_triton.launches += 1
                 _launch.triton_run(globals(), spec,
@@ -378,7 +378,7 @@ def rms_norm_bwd_triton(x, weight, g, epsilon=1e-6):
     nprog = spec.plan["part"][0]
     part = torch.empty(spec.plan["part"], dtype=torch.float32,
                        device=x.device)
-    if _launch.begin(spec, x.device):
+    if _launch.begin(spec, x.device, (x2, weight, g2), (dx, dw, part)):
         with torch.cuda.device(x.device):
             rms_norm_bwd_triton.launches += 1
             _launch.triton_run(globals(), spec, [
@@ -407,7 +407,7 @@ def residual_rms_norm_fwd_triton(delta, x, weight, epsilon=1e-6):
     rows = x2.shape[0]
     if rows:
         spec = res_rms_fwd_spec(rows, D, _launch.dtype_name(x.dtype))
-        if _launch.begin(spec, x.device):
+        if _launch.begin(spec, x.device, (d2, x2, weight), (y, h)):
             with torch.cuda.device(x.device):
                 residual_rms_norm_fwd_triton.launches += 1
                 _launch.triton_run(globals(), spec, [
@@ -429,7 +429,7 @@ def layer_norm_fwd_triton(x, weight, bias, epsilon=1e-5):
     rows = x2.shape[0]
     if rows:
         spec = ln_fwd_spec(rows, D, _launch.dtype_name(x.dtype))
-        if _launch.begin(spec, x.device):
+        if _launch.begin(spec, x.device, (x2, weight, bias), (y,)):
             with torch.cuda.device(x.device):
                 layer_norm_fwd_triton.launches += 1
                 _launch.triton_run(globals(), spec, [

@@ -228,7 +228,9 @@ def paged_attention_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens,
     # the f32 partials: m and l of every (sequence, head, split), then acc
     n_part = B * H * splits(MB)
     ws = torch.empty(n_part * (2 + hd), dtype=torch.float32, device=q.device)
-    if not _launch.begin(spec, q.device):
+    if not _launch.begin(spec, q.device,
+                         (q, k_pool, v_pool, block_tables, seq_lens),
+                         (out, ws)):
         return out
     fn = _build.c_fn("paged_attention", *spec.calls[0])
     pl = spec.plan

@@ -14,8 +14,10 @@ seeded random weights, 12 requests through 8 slots) on each route named,
 prints one JSON line: each route's two passes (fresh engines; the
 process's first pays its first launches): decode-step ms and prefill-chunk ms
 (CUDA events around each chunk's prefill step, by bucket: mean, median,
-and both over the chunks after each bucket's first two), tokens/s and
-TTFT, and the card's name and power limit. ``--kernel`` adds
+and both over the chunks after each bucket's first two), tokens/s,
+TTFT and the captured programs' graph nodes (the decode step's and each
+bucket's chunk's, ``Program.nodes``), and the card's name and power
+limit. ``--kernel`` adds
 prefill_attn_block's time at P 128 (bf16, LLaMA-7B widths, pos0 0 and
 512) through ``chip_smoke.prefill_timing``; ``--generate-paged`` adds
 ``generate_paged``'s ms a token (bf16, 4 prompts of 40-600 tokens, 32 new
@@ -163,6 +165,10 @@ def main():
             "steady_mean": float(np.mean(v[2:])) if v[2:] else None,
             "steady_median": float(np.median(v[2:])) if v[2:] else None}
             for P, v in by_bucket.items()}
+        row["graph_nodes"] = {
+            "decode": [p.nodes for p in eng._decode_fns.values()],
+            "chunks": {str(k[0]): p.nodes
+                       for k, p in eng._prefill_fns.items()}}
         out["routes"].setdefault(route, []).append(row)
         del eng
         torch.cuda.empty_cache()

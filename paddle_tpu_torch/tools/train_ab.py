@@ -24,7 +24,13 @@ and prints one JSON line with the card's name and power limit. With
 ``--ce-memory`` it then runs the train phase once more with
 ``LinearCE``'s backward watched: the memory allocated when it starts and
 the most allocated by its end, each step (the step's peak figure of that
-run is then not the step's). Run it for two
+run is then not the step's). With ``--nodes`` it instead reads the
+captured train programs' graph nodes (``Program.nodes``, libcuda's
+``cuGraphGetNodes``): GPT-2 small, BERT-base MLM and ViT-B/16 at the
+models phase's widths and batches, and the 1.07B LLaMA rung on its default
+and "ref" routes (bf16 moments, as the train phase), two steps each (the
+warm-up and the capture); node counts are deterministic, so one run a tree
+answers whether a change moved them. Run it for two
 trees in one call, in turns (A, B, B, A), and compare within the call.
 It imports nothing of JAX or of ``paddle_tpu``.
 """
@@ -39,6 +45,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=".")
     ap.add_argument("--ce-memory", action="store_true")
+    ap.add_argument("--nodes", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -52,6 +59,11 @@ def main():
         print("no CUDA device", file=sys.stderr)
         return 1
     gpu = cs.gpu_line()
+    if args.nodes:
+        cs.build_kernels()
+        print(json.dumps({"root": root, "gpu": gpu,
+                          "graph_nodes": _nodes(torch, cs)}), flush=True)
+        return 0
     _build.build(["flash_attention", "linear_ce"])
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -118,6 +130,46 @@ def main():
         out["ce_memory_gb"] = _ce_memory(torch, cs, kft, gpu)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _nodes(torch, cs):
+    """{program: graph nodes} of the captured train steps (``--nodes``)."""
+    import gc
+
+    import numpy as np
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.models import init_params, llama
+    rng = np.random.default_rng(0)
+    runs = []
+    for name in ("gpt", "bert", "vit"):
+        cfg = cs.model_config(name)
+        runs.append((name, lambda n=name, c=cfg: (
+            Trainer(cs.model_loss(n, c), lr=1e-4),
+            cs.model_params(n, c, seed=0),
+            cs._on_card(cs.model_batches(n, c, 1, 40, cs.MODELS[n])[0]))))
+    for route in (None, "ref"):
+        def rung(cfg=cs.train_config(fused_train=route)):
+            toks = torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (cs.TRAIN_RUNG["batch"],
+                                    cs.TRAIN_RUNG["seq"])), device="cuda")
+            return (Trainer(lambda p, t, lab: llama.loss_fn(p, t, lab, cfg),
+                            lr=1e-4, moment_dtype=torch.bfloat16),
+                    init_params(cfg, seed=0),
+                    (toks, torch.roll(toks, -1, -1)))
+        runs.append((f"llama_rung_{route or 'default'}", rung))
+    nodes = {}
+    for name, make in runs:
+        tr, params, batch = make()
+        state = tr.init_state(params)
+        del params
+        for _ in range(2):
+            state, _ = tr.step(state, *batch)
+        torch.cuda.synchronize()
+        nodes[name] = cs.step_program(tr).nodes
+        del tr, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return nodes
 
 
 def _ce_memory(torch, cs, kft, gpu):

@@ -681,12 +681,14 @@ def test_weight_quant_once_for_both_groups(params):
     ("export_trace", "A8"), ("write_timeline", "A8"),
     ("program_specs", "A12"), ("audit", "A12")])
 def test_later_slices_raise_with_their_item(params, tmp_path, call, item):
-    """tests/test_disagg.py's catalog-audit and engine-audit tests: the
-    port raises, citing the ROADMAP item that ports them (A12). The A8
-    surfaces are ported since (held against the JAX engine in
-    tests/test_torch_observability.py): the engine builds its harness and
-    plane, and the exports write their files, or raise "disabled" on an
-    engine built without observability, as the JAX engine's do."""
+    """tests/test_disagg.py's catalog-audit and engine-audit tests, and
+    the A8 surfaces: all ported since. The A8 surfaces are held against the
+    JAX engine in tests/test_torch_observability.py: the engine builds its
+    harness and plane, and the exports write their files, or raise
+    "disabled" on an engine built without observability, as the JAX
+    engine's do. The A12 calls return the JAX engine's program names (the
+    specs) and a clean report each (the audit), counted in
+    ``audit_findings``."""
     tp = params[1]
     if item == "A8":
         if call in ("observability", "telemetry"):
@@ -706,8 +708,16 @@ def test_later_slices_raise_with_their_item(params, tmp_path, call, item):
         else:
             assert json.loads(text.splitlines()[0])["kind"] == "meta"
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(_tdisagg(tp), call)()
+    eng = _tdisagg(tp)
+    out = getattr(eng, call)(register=False)
+    names = sorted(getattr(x, "name", getattr(x, "program", None))
+                   for x in out)
+    assert names == ["disagg_decode", "disagg_kv_extract",
+                     "disagg_kv_insert", "disagg_prefill_16",
+                     "disagg_prefill_8"]
+    if call == "audit":
+        assert all(r.findings == [] for r in out)
+        assert eng.counters["audit_findings"] == 0
 
 
 def test_metrics_schema_and_reset(params):

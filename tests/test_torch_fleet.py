@@ -393,12 +393,14 @@ def test_fleet_metrics_schema_frozen(params):
     ("write_timeline", "A8"), ("export_trace", "A8"),
     ("program_specs", "A12"), ("audit", "A12")])
 def test_later_slices_raise_with_their_item(params, tmp_path, call, item):
-    """tests/test_fleet.py's catalog-audit and engine-audit tests: the
-    port raises, citing the ROADMAP item that ports them (A12). The A8
-    surfaces are ported since (held against the JAX fleet in
-    tests/test_torch_observability.py): the fleet builds its harness and
-    plane, and the exports write their files, or raise "disabled" on a
-    fleet built without observability, as the JAX fleet's do."""
+    """tests/test_fleet.py's catalog-audit and engine-audit tests, and
+    the A8 surfaces: all ported since. The A8 surfaces are held against the
+    JAX fleet in tests/test_torch_observability.py: the fleet builds its
+    harness and plane, and the exports write their files, or raise
+    "disabled" on a fleet built without observability, as the JAX fleet's
+    do. The A12 calls: the specs carry the JAX fleet's names
+    (``fleet.<replica>.<program>``), the audit a clean report each,
+    counted in ``audit_findings``."""
     tk = _Kinds(True, params[1])
     reps = [tk.coloc(prefix_cache=True, kv_offload=True)]
     if item == "A8":
@@ -421,5 +423,14 @@ def test_later_slices_raise_with_their_item(params, tmp_path, call, item):
         else:
             assert json.loads(text.splitlines()[0])["fleet"] is True
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(ServingFleet(reps), call)()
+    fleet = ServingFleet(reps)
+    out = getattr(fleet, call)(register=False)
+    if call == "program_specs":
+        assert sorted(s.name for s in out) == sorted(
+            f"fleet.replica0.{s.name}"
+            for s in reps[0].program_specs(register=False))
+        assert "fleet.replica0.serving_kv_restore_insert" in \
+            {s.name for s in out}
+    else:
+        assert out and all(r.findings == [] for r in out)
+        assert fleet.counters["audit_findings"] == 0

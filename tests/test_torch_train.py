@@ -312,7 +312,8 @@ def test_trainer_defaults_and_refusals():
     """fused_optimizer=None is per leaf on the CPU (the JAX rule off the
     TPU); the distributed knobs are not ported and raise (observability
     and telemetry are ported since: the trainer holds the harness, and
-    the plane; so is prefetch, tests/test_torch_prefetch.py); a
+    the plane; so is prefetch, tests/test_torch_prefetch.py; the audit
+    is, tests/test_torch_program_audit.py, and needs a state); a
     non-floating tree refuses the forced fused path."""
     tp = _tparams(_jparams())
     tr = Trainer(lambda p, t, l: tllama.loss_fn(p, t, l, TCFG),
@@ -329,7 +330,7 @@ def test_trainer_defaults_and_refusals():
             continue
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(lambda p: p, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="init_state"):
         tr.audit(None)
     with pytest.raises(ValueError, match="at most one dtype"):
         Trainer(lambda p: p, device="cpu", fused_optimizer=True).init_state(
